@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of one warm template BA solve goes, on one NVIDIA card.
+"""Where the time of one warm BA solve goes, on one NVIDIA card.
 
     python3 chip_profile.py
 
-Solves ``bench.py::standard_problem`` at 16 x 100 and 64 x 400 with the
-port: one warm-up, five solves timed with CUDA events, then one more under
-``torch.profiler``. Prints per shape: LM iterations, the median solve time,
+Solves the template problem (``bench.py::standard_problem``) at 16 x 100
+and 64 x 400 and the self-calibration problem (``bench.py::selfcal_problem``)
+at 16 x 100 and 64 x 12 with the port: one warm-up, five solves timed with
+CUDA events, then one more under ``torch.profiler``. Prints per shape: LM iterations, the median solve time,
 the profiled solve's wall time, the device's busy time in it (the sum of
 its device kernels, copies and fills) and the idle share that leaves of the
 median solve, the number of device events, and the top operations by
@@ -23,13 +24,17 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from pycamset_tpu_torch.problems import standard_problem
+    from pycamset_tpu_torch.problems import selfcal_problem, standard_problem
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    for n_cams, n_ims in ((16, 100), (64, 400)):
-        prob = standard_problem(n_cams, n_ims, dev)
+    for make, n_cams, n_ims in ((standard_problem, 16, 100),
+                                (standard_problem, 64, 400),
+                                (selfcal_problem, 16, 100),
+                                (selfcal_problem, 64, 12)):
+        prob = make(n_cams, n_ims, dev)
+        chain = "template" if make is standard_problem else "selfcal"
         prob.solve()
         times = []
         for _ in range(5):
@@ -51,7 +56,7 @@ def main() -> int:
         dev_events = [e for e in prof.events()
                       if e.device_type == DeviceType.CUDA]
         busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
-        print(f"[profile] shape={n_cams}x{n_ims} nit={res.nit} "
+        print(f"[profile] chain={chain} shape={n_cams}x{n_ims} nit={res.nit} "
               f"solve_ms_median={solve_ms:.3f} "
               f"profiled_wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
               f"idle_share={1 - busy_ms / solve_ms:.3f} "

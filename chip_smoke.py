@@ -3,13 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the kernels of ``pycamset_tpu_torch/csrc`` with nvcc, holds each
-kernel against its plain PyTorch twin on the card, then solves the
-template bundle adjustment of ``bench.py::standard_problem`` at 16 cameras
-x 100 views (through Kernel A, the per-block gram) and 64 x 400 (through
-Kernel B, the fused-reduction gram), and checks the solves. Every phase
-prints one line; any failure raises, so the script exits non-zero and
-prints no final line. The last line is
+Builds the kernels of ``pycamset_tpu_torch/csrc`` with nvcc and holds each
+kernel against its plain PyTorch twin on the card, at both shapes of its
+chain, for the four losses, and checks that a repeat launch gives the same
+bits. Then it solves four bundle adjustments, each through one kernel:
+
+- template (``bench.py::standard_problem``) 16 cameras x 100 views through
+  Kernel A (per-block gram) and 64 x 400 through Kernel B (fused);
+- self-calibration (``bench.py::selfcal_problem``, free target points)
+  16 x 100 through Kernel C (fused) and 64 x 12 through Kernel D
+  (per-block),
+
+and checks each solve; the 16 x 100 solves also against the port's float64
+solve on the CPU. Every phase prints one line; any failure raises, so the
+script exits non-zero and prints no final line. The line before the last
+lists the kernels as JSON; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Imports neither jax nor pycamset_tpu. Needs one CUDA card and nvcc; exits
@@ -24,18 +32,32 @@ import time
 
 import numpy as np
 
-# f32 sums of up to 2K = 768 terms per gram entry, vs float64; held entry by
-# entry in the solver's Jacobi scaling (cuda_grams.scaled_errors) and
-# against each output's max-abs scale
+# f32 sums of up to 2 x 1600 terms per entry, vs float64; held entry by entry
+# in the solver's Jacobi scaling (scaled_errors*) and against each output's
+# max-abs scale
 TOL = 1e-4
 # the four losses, both semantics
 LOSS_CASES = (("linear", "component"), ("huber", "component"),
               ("cauchy", "observation"), ("soft_l1", "observation"))
-KERNEL_SOURCE = "pycamset_tpu_torch/csrc/template_grams.cu"
-REPLACES = {
-    "template_gram": "pycamset_tpu/optim/pallas_grams.py:425",
-    "template_gram_fused": "pycamset_tpu/optim/pallas_grams.py:583",
+PALLAS = "pycamset_tpu/optim/pallas_grams.py"
+# kernel -> (source, the TPU kernel it replaces, its main-path problem)
+KERNELS = {
+    "template_gram": ("pycamset_tpu_torch/csrc/template_grams.cu",
+                      f"{PALLAS}:425", "template 16x100"),
+    "template_gram_fused": ("pycamset_tpu_torch/csrc/template_grams.cu",
+                            f"{PALLAS}:583", "template 64x400"),
+    "selfcal_gram_fused": ("pycamset_tpu_torch/csrc/selfcal_grams.cu",
+                           f"{PALLAS}:805", "selfcal 16x100"),
+    "selfcal_gram": ("pycamset_tpu_torch/csrc/selfcal_grams.cu",
+                     f"{PALLAS}:1019", "selfcal 64x12"),
 }
+# H100 SXM data sheet: HBM rate and FP32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# products per real detection: the 253 gram entries over its two rows;
+# self-cal adds wck (45), wik (18), hkk (6) and gk (3). 2 FLOP per product
+# pair term (multiply-add), row arithmetic not counted.
+FLOP_PER_DETECTION = {"template": 253 * 4, "selfcal": (253 + 72) * 4}
 
 
 def say(tag: str, **fields):
@@ -46,6 +68,16 @@ def say(tag: str, **fields):
 def check(cond: bool, what: str):
     if not cond:
         raise SystemExit(f"FAILED: {what}")
+
+
+def wrappers():
+    """The four kernel wrappers, whose ``launches`` count the kernels."""
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    return {"template_gram": cg.template_gram,
+            "template_gram_fused": cg.template_gram_fused,
+            "selfcal_gram_fused": sg.selfcal_gram_fused,
+            "selfcal_gram": sg.selfcal_gram}
 
 
 def cuda_ms(fn, n: int, warmup: int = 2) -> float:
@@ -63,8 +95,35 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def block_inputs(prob):
-    """The per-block tensors of a problem's first evaluation."""
+def bound(name: str, prob) -> tuple[float, str]:
+    """The least time the card could take for one call of a kernel on a
+    problem's inputs: the larger of its bytes (each input read once, each
+    output written once) over the HBM rate and its products over the FP32
+    rate, counted for the problem's real detections."""
+    bb, k = prob.mask.shape
+    c = prob.blocks.n_cams
+    ins = bb * 96 + k * 3 + bb * k * 3          # packed, points, uv, mask
+    if name == "template_gram":
+        outs = bb * 22 * 22
+    elif name == "template_gram_fused":
+        outs = c * (225 + 15) + bb * (90 + 36 + 6 + 1)
+    elif name == "selfcal_gram":
+        ins += bb * 21 + k * 3                  # cmask, imask, kmask
+        outs = bb * 22 * 22 + bb * k * (45 + 18) + k * 12
+    else:
+        ins += bb * 6 + k * 3                   # imask, kmask
+        outs = (c * (225 + 15 + 45 * k) + bb * k * 18
+                + bb * (90 + 36 + 6 + 1) + k * 12)
+    t_bytes = 4 * (ins + outs) / HBM_BYTES_PER_S
+    family = "selfcal" if name.startswith("selfcal") else "template"
+    t_ops = (prob.blocks.n_real * FLOP_PER_DETECTION[family]
+             / FP32_FLOP_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def template_inputs(prob):
+    """The per-block tensors of a template problem's first evaluation."""
     import torch
     n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
     cam_b = torch.repeat_interleave(prob.x0.cam, n_ims, dim=0)
@@ -72,22 +131,87 @@ def block_inputs(prob):
     return cam_b, im_b, prob.tpl, prob.uv, prob.mask
 
 
+def selfcal_inputs(prob, seed: int = 1):
+    """The per-block tensors of a self-cal problem at a perturbed start:
+    cameras and poses moved by the bench's template perturbation (its scale
+    vector, ``rng(seed)``), the free points by 1 mm, the fixed coordinates
+    left alone; one camera column fixed beside the problem's own masks.
+    At the true start the residuals are only the 0.3 px noise, and the
+    gradients are sums that cancel to float32's rounding floor.
+
+    :return: (cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask) on the
+        problem's device and dtype.
+    """
+    import torch
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    rng = np.random.default_rng(seed)
+    cam_scale = np.array([10.0, 5, 10, 5, 1e-2, 1e-3, 1e-4, 1e-4, 1e-4]
+                         + [1e-2] * 6)
+
+    def moved(x, scale, colmask):
+        step = rng.normal(size=tuple(x.shape)) * scale
+        return x + torch.as_tensor(step, dtype=x.dtype,
+                                   device=x.device) * colmask
+
+    cam = moved(prob.x0.cam, cam_scale, prob.colmask.cam)
+    im = moved(prob.x0.im, 1e-2, prob.colmask.im)
+    key = moved(prob.x0.key, 1e-3, prob.colmask.key)
+    cmask = prob.colmask.cam.clone()
+    cmask[:, 3] = 0.0
+    return (torch.repeat_interleave(cam, n_ims, dim=0),
+            im.repeat(n_cams, 1), key, prob.uv, prob.mask,
+            torch.repeat_interleave(cmask, n_ims, dim=0),
+            prob.colmask.im.repeat(n_cams, 1), prob.colmask.key)
+
+
+def max_abs_errors(got, ref) -> list[float]:
+    """Each output's worst error against its own max-abs scale."""
+    return [float((g.double().to(r.device) - r.double()).abs().max())
+            / (float(r.double().abs().max()) + 1e-30)
+            for g, r in zip(got, ref)]
+
+
 def parity(name, got, ref, scaled: dict) -> dict:
     """Check one kernel's outputs against its float64 twin's: finite, and
     every entry within TOL in the solver's Jacobi scaling (``scaled``, per
     output) and of its output's max-abs scale."""
-    worst_abs = worst_rel = 0.0
+    worst_abs = 0.0
     for g, r in zip(got, ref):
-        g, r = g.double(), r.double()
         check(bool(g.isfinite().all()), f"{name} output is not finite")
-        err = float((g - r).abs().max())
-        worst_abs = max(worst_abs, err)
-        worst_rel = max(worst_rel, err / (float(r.abs().max()) + 1e-30))
+        worst_abs = max(worst_abs, float((g.double() - r.double()).abs()
+                                         .max()))
+    rel = max_abs_errors(got, ref)
     worst_scaled = max(scaled.values())
-    check(worst_scaled <= TOL and worst_rel <= TOL,
+    check(worst_scaled <= TOL and max(rel) <= TOL,
           f"{name} vs its plain twin: scaled {scaled}, of max-abs "
-          f"{worst_rel:.3e}")
-    return {"abs": worst_abs, "rel": worst_rel, "scaled": worst_scaled}
+          f"{[f'{e:.3e}' for e in rel]}")
+    return {"abs": worst_abs, "rel": max(rel), "scaled": worst_scaled}
+
+
+def same_bits(name, run):
+    """Two launches on the same inputs give the same bits."""
+    import torch
+    first, again = run(), run()
+    first = first if isinstance(first, tuple) else (first,)
+    again = again if isinstance(again, tuple) else (again,)
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"{name}: a repeat launch changed the bits")
+
+
+def record(out, name, shape, e):
+    rec = out[name].setdefault(shape, dict.fromkeys(e, 0.0))
+    for k, v in e.items():
+        rec[k] = max(rec[k], v)
+
+
+def bmm_ms(prob, width: int, n: int) -> float:
+    """For reference: torch.bmm of a prebuilt (B, 2K, width) extended
+    Jacobian with itself, the gram alone (no residual, no Jacobian)."""
+    import torch
+    bb, k = prob.mask.shape
+    ext = torch.randn(bb, 2 * k, width, device=prob.mask.device)
+    ext_t = ext.transpose(1, 2)
+    return cuda_ms(lambda: torch.bmm(ext_t, ext), n)
 
 
 def phase_device():
@@ -111,24 +235,21 @@ def phase_build():
     from pycamset_tpu_torch._build import load
     t0 = time.perf_counter()
     kl = load()
-    regs = [ln.strip() for ln in kl.ptxas_info.splitlines()
-            if "registers" in ln or "Compiling entry" in ln]
     say("build", seconds=f"{kl.build_seconds:.2f}",
         load_seconds=f"{time.perf_counter() - t0:.2f}", lib=kl.path.name)
-    for ln in regs:
-        print(f"  ptxas: {ln}", flush=True)
+    for ln in kl.ptxas_info.splitlines():
+        if any(w in ln for w in ("Compiling entry", "registers", "spill")):
+            print(f"  ptxas: {ln.strip()}", flush=True)
 
 
-def phase_kernels(probs):
-    """Kernels A and B vs their float64 plain twins at both bench shapes,
-    all four losses; returns per-kernel results for the JSON line."""
-    import torch
+def phase_template_kernels(probs, out):
+    """Kernels A and B vs their float64 plain twins at both template
+    shapes, all four losses, and a repeat launch; times per shape."""
     from pycamset_tpu_torch.optim import cuda_grams as cg
-
-    out = {"template_gram": {}, "template_gram_fused": {}}
-    for shape, prob in probs.items():
+    for shape in ("template 16x100", "template 64x400"):
+        prob = probs[shape]
         n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
-        f32 = block_inputs(prob)
+        f32 = template_inputs(prob)
         f64 = tuple(t.double() for t in f32)
         for loss, sem in LOSS_CASES:
             kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
@@ -139,21 +260,22 @@ def phase_kernels(probs):
             b_ref = cg.template_gram_fused_plain(*f64, n_cams, n_ims, **kw)
             b_scaled = cg.scaled_errors_fused(b_got, b_ref, a_ref, n_cams,
                                               n_ims)
-            torch.cuda.synchronize()
             say("parity", shape=shape, loss=loss, semantics=sem, tol=TOL,
                 **{f"A_{k}": f"{v:.2e}" for k, v in a_scaled.items()},
                 **{f"B_{k}": f"{v:.2e}" for k, v in b_scaled.items()})
-            for name, got, ref, scaled in (
-                    ("template_gram", [a_got], [a_ref], a_scaled),
-                    ("template_gram_fused", b_got, b_ref, b_scaled)):
-                e = parity(f"{name} {shape} {loss}/{sem}", got, ref, scaled)
-                rec = out[name].setdefault(shape, dict.fromkeys(e, 0.0))
-                for k, v in e.items():
-                    rec[k] = max(rec[k], v)
+            record(out, "template_gram", shape, parity(
+                f"template_gram {shape} {loss}/{sem}", [a_got], [a_ref],
+                a_scaled))
+            record(out, "template_gram_fused", shape, parity(
+                f"template_gram_fused {shape} {loss}/{sem}", b_got, b_ref,
+                b_scaled))
+        same_bits("template_gram", lambda: cg.template_gram(*f32))
+        same_bits("template_gram_fused",
+                  lambda: cg.template_gram_fused(*f32, n_cams, n_ims))
 
-        # times at this shape (linear loss; same inputs for both sides);
-        # *_kernel: the launch alone on pre-packed parameters
-        n_rep = 20 if shape == "16x100" else 5
+        # times (linear loss; same inputs for both sides); *_kernel: the
+        # launch alone on pre-packed parameters
+        n_rep = 20 if shape.endswith("16x100") else 5
         packed = cg.pack_block_params(*f32[:2])
         t = {
             "template_gram_kernel": cuda_ms(
@@ -171,34 +293,111 @@ def phase_kernels(probs):
                 n_rep),
             "pack_block_params": cuda_ms(
                 lambda: cg.pack_block_params(*f32[:2]), n_rep),
+            "bmm_22": bmm_ms(prob, 22, n_rep),
         }
         say("time", shape=shape, unit="ms",
             **{k: f"{v:.4f}" for k, v in t.items()})
         for name in ("template_gram", "template_gram_fused"):
-            out[name][shape].update(ms=t[name], plain_ms=t[name + "_plain"],
-                                    kernel_ms=t[name + "_kernel"])
-    return out
+            out[name][shape].update(
+                ms=t[name], kernel_ms=t[name + "_kernel"],
+                plain_ms=t[name + "_plain"], bmm_ms=t["bmm_22"])
+
+
+def phase_selfcal_kernels(probs, out):
+    """Kernels C and D vs their float64 plain twins at both self-cal
+    shapes, all four losses, and a repeat launch; times per shape."""
+    import torch
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    for shape in ("selfcal 16x100", "selfcal 64x12"):
+        prob = probs[shape]
+        n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+        f32 = selfcal_inputs(prob)
+        f64 = tuple(t.double() for t in f32)
+        c32 = (*f32[:5], *f32[6:])          # Kernel C takes no cmask
+        c64 = (*f64[:5], *f64[6:])
+        cpu32 = tuple(t.cpu() for t in f32)
+        for loss, sem in LOSS_CASES:
+            kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
+            d_got = sg.selfcal_gram(*f32, **kw)
+            d_ref = sg.selfcal_gram_plain(*f64, **kw)
+            d_scaled = sg.scaled_errors_selfcal(d_got, d_ref)
+            # the float32 twin on the CPU, same inputs: the f32 floor of the
+            # per-(block, key) couplings, whose entries (one slot's product
+            # each, which nothing averages) carry the f32 error of the
+            # slot's IRLS weight under a robust loss
+            floor = max_abs_errors(sg.selfcal_gram_plain(*cpu32, **kw)[1:3],
+                                   [r.cpu() for r in d_ref[1:3]])
+            c_got = sg.selfcal_gram_fused(*c32, n_cams, n_ims, **kw)
+            c_ref = sg.selfcal_gram_fused_plain(*c64, n_cams, n_ims, **kw)
+            gram = sg.selfcal_gram_plain(*f64[:5], torch.ones_like(f64[5]),
+                                         *f64[6:], **kw)[0]
+            c_scaled = sg.scaled_errors_selfcal_fused(c_got, c_ref, gram,
+                                                      n_cams, n_ims)
+            del gram
+            d_rel = max_abs_errors(d_got, d_ref)
+            c_rel = max_abs_errors(c_got, c_ref)
+            say("parity", shape=shape, loss=loss, semantics=sem, tol=TOL,
+                **{f"C_{k}": f"{v:.2e}" for k, v in c_scaled.items()},
+                **{f"D_{k}": f"{v:.2e}" for k, v in d_scaled.items()})
+            say("parity_max_abs", shape=shape, loss=loss, semantics=sem,
+                tol=TOL, D_wck_b=f"{d_rel[1]:.2e}", D_wik_b=f"{d_rel[2]:.2e}",
+                C_wik=f"{c_rel[3]:.2e}", cpu_f32_twin_wck_b=f"{floor[0]:.2e}",
+                cpu_f32_twin_wik_b=f"{floor[1]:.2e}",
+                D_worst_other=f"{max(d_rel[:1] + d_rel[3:]):.2e}",
+                C_worst_other=f"{max(c_rel[:3] + c_rel[4:]):.2e}")
+            record(out, "selfcal_gram", shape, parity(
+                f"selfcal_gram {shape} {loss}/{sem}", d_got, d_ref,
+                d_scaled))
+            record(out, "selfcal_gram_fused", shape, parity(
+                f"selfcal_gram_fused {shape} {loss}/{sem}", c_got, c_ref,
+                c_scaled))
+            del d_got, d_ref, c_got, c_ref
+        same_bits("selfcal_gram", lambda: sg.selfcal_gram(*f32))
+        same_bits("selfcal_gram_fused",
+                  lambda: sg.selfcal_gram_fused(*c32, n_cams, n_ims))
+
+        packed = sg.pack_block_params(*f32[:2])
+        t = {
+            "selfcal_gram_kernel": cuda_ms(
+                lambda: sg._launch_selfcal(packed, *f32[2:], 0, 1, 1.0), 50),
+            "selfcal_gram_fused_kernel": cuda_ms(
+                lambda: sg._launch_selfcal_fused(packed, *c32[2:], n_cams,
+                                                 n_ims, 0, 1, 1.0), 50),
+            "selfcal_gram": cuda_ms(lambda: sg.selfcal_gram(*f32), 20),
+            "selfcal_gram_plain": cuda_ms(
+                lambda: sg.selfcal_gram_plain(*f32), 10),
+            "selfcal_gram_fused": cuda_ms(
+                lambda: sg.selfcal_gram_fused(*c32, n_cams, n_ims), 20),
+            "selfcal_gram_fused_plain": cuda_ms(
+                lambda: sg.selfcal_gram_fused_plain(*c32, n_cams, n_ims),
+                10),
+            "bmm_25": bmm_ms(prob, 25, 20),
+        }
+        say("time", shape=shape, unit="ms",
+            **{k: f"{v:.4f}" for k, v in t.items()})
+        for name in ("selfcal_gram", "selfcal_gram_fused"):
+            out[name][shape].update(
+                ms=t[name], kernel_ms=t[name + "_kernel"],
+                plain_ms=t[name + "_plain"], bmm_ms=t["bmm_25"])
 
 
 def phase_main_path(probs):
-    """The main path: each bench solve once, with the launch counts set to
-    0 just before it; 16x100 must run Kernel A alone, 64x400 Kernel B."""
+    """The main path: each solve once, with every launch count set to 0
+    just before it; each must launch its own kernel and no other."""
     import torch
-    from pycamset_tpu_torch.optim import cuda_grams as cg
-
-    expect = {"16x100": "template_gram", "64x400": "template_gram_fused"}
+    counted = wrappers()
+    main_of = {shape: name for name, (_, _, shape) in KERNELS.items()}
     results, launches = {}, {}
     for shape, prob in probs.items():
-        cg.template_gram.launches = 0
-        cg.template_gram_fused.launches = 0
+        for fn in counted.values():
+            fn.launches = 0
         results[shape] = prob.solve()
         torch.cuda.synchronize()
-        counts = {"template_gram": cg.template_gram.launches,
-                  "template_gram_fused": cg.template_gram_fused.launches}
-        say("main_path", shape=shape,
+        counts = {name: fn.launches for name, fn in counted.items()}
+        say("main_path", shape=shape.replace(" ", "_"),
             **{f"launches_{k}": v for k, v in counts.items()})
         for name, n in counts.items():
-            if name == expect[shape]:
+            if name == main_of[shape]:
                 check(n > 0, f"the {shape} solve did not launch {name}")
                 launches[name] = n
             else:
@@ -206,15 +405,18 @@ def phase_main_path(probs):
     return results, launches
 
 
-def phase_solve(shape, prob, res, cpu_check: bool):
+def phase_solve(shape, prob, res, cpu_problem=None):
+    """Check one solve (status 1 or 2, nit <= 10, rms <= 0.36 px), time
+    five warm solves, and, given the problem's builder, hold the final cost
+    to the port's float64 solve on the CPU."""
     import torch
     status = int(res.status)
     rms = prob.rms_px(res.cost)
     check(bool(torch.isfinite(res.cost)), f"{shape} cost is not finite")
     check(all(bool(torch.isfinite(p).all()) for p in res.x),
           f"{shape} parameters are not finite")
-    check(res.x.cam.shape == prob.x0.cam.shape
-          and res.x.im.shape == prob.x0.im.shape, f"{shape} result shape")
+    check(all(g.shape == x.shape for g, x in zip(res.x, prob.x0)),
+          f"{shape} result shape")
     times = []
     for _ in range(6):  # one warm-up, then >= 5 timed
         torch.cuda.synchronize()
@@ -230,20 +432,20 @@ def phase_solve(shape, prob, res, cpu_check: bool):
                   solve_ms_all=",".join(f"{x:.2f}" for x in times[1:]))
     check(status in (1, 2), f"{shape} status {status}")
     check(rms <= 0.36, f"{shape} rms {rms} above 1.2 x noise floor")
-    if cpu_check:
-        from pycamset_tpu_torch.problems import standard_problem
+    check(res.nit <= 10, f"{shape} nit {res.nit} > 10")
+    if cpu_problem is not None:
         n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
         t0 = time.perf_counter()
-        ref = standard_problem(n_cams, n_ims, "cpu", torch.float64).solve()
+        ref = cpu_problem(n_cams, n_ims, "cpu", torch.float64).solve()
         rel = abs(float(res.cost) - float(ref.cost)) / float(ref.cost)
         fields.update(cpu_f64_nit=ref.nit, cpu_f64_status=int(ref.status),
                       cpu_f64_cost=f"{float(ref.cost):.6f}",
                       rel_cost_diff=f"{rel:.3e}",
                       cpu_f64_s=f"{time.perf_counter() - t0:.1f}")
-        check(res.nit <= 10, f"{shape} nit {res.nit} > 10")
         check(rel <= 1e-4, f"{shape} cost differs from the f64 CPU solve "
                            f"by {rel:.3e}")
-    say("solve", shape=shape, cost=f"{float(res.cost):.6f}", **fields)
+    say("solve", shape=shape.replace(" ", "_"),
+        cost=f"{float(res.cost):.6f}", **fields)
 
 
 def main() -> int:
@@ -252,36 +454,46 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
 
-    from pycamset_tpu_torch.problems import standard_problem
+    from pycamset_tpu_torch.problems import selfcal_problem, standard_problem
     dev = torch.device("cuda", 0)
-    probs = {"16x100": standard_problem(16, 100, dev),
-             "64x400": standard_problem(64, 400, dev)}
-    say("problems", **{s: f"B={p.mask.shape[0]},K={p.mask.shape[1]},"
-                          f"n_real={p.blocks.n_real}"
-                       for s, p in probs.items()})
-    kern = phase_kernels(probs)
+    probs = {"template 16x100": standard_problem(16, 100, dev),
+             "template 64x400": standard_problem(64, 400, dev),
+             "selfcal 16x100": selfcal_problem(16, 100, dev),
+             "selfcal 64x12": selfcal_problem(64, 12, dev)}
+    say("problems", **{s.replace(" ", "_"):
+                       f"B={p.mask.shape[0]},K={p.mask.shape[1]},"
+                       f"n_real={p.blocks.n_real}" for s, p in probs.items()})
+    kern = {name: {} for name in KERNELS}
+    phase_template_kernels(probs, kern)
+    phase_selfcal_kernels(probs, kern)
+    say("elapsed", after="kernels",
+        seconds=f"{time.perf_counter() - t_start:.1f}")
     results, launches = phase_main_path(probs)
-    phase_solve("16x100", probs["16x100"], results["16x100"],
-                cpu_check=True)
-    phase_solve("64x400", probs["64x400"], results["64x400"],
-                cpu_check=False)
+    for shape, prob in probs.items():
+        cpu = {"template 16x100": standard_problem,
+               "selfcal 16x100": selfcal_problem}.get(shape)
+        phase_solve(shape, prob, results[shape], cpu)
+    say("elapsed", after="solves",
+        seconds=f"{time.perf_counter() - t_start:.1f}")
 
-    main_shape = {"template_gram": "16x100", "template_gram_fused": "64x400"}
     kernels = []
-    for name, shape in main_shape.items():
+    for name, (source, replaces, shape) in KERNELS.items():
         rec = kern[name][shape]
+        bound_ms, bound_by = bound(name, probs[shape])
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["abs"] for r in kern[name].values()),
             "max_rel_err": max(r["rel"] for r in kern[name].values()),
             "max_scaled_err": max(r["scaled"] for r in kern[name].values()),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-            "kernel_ms": rec["kernel_ms"], "shape": shape,
-            "card": smi})
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "kernel_ms": rec["kernel_ms"], "bmm_ms": rec["bmm_ms"],
+            "shape": shape, "card": smi})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,15 @@
 """Build and load the package's CUDA kernels at first use.
 
-The sources are ``csrc/*.cu`` with a plain C interface. They are compiled
-with ``nvcc`` for Hopper (``sm_90a``) into one shared library under
-``build/pycamset_tpu_torch/`` at the root of the checkout, named by a hash
-of the sources and flags (a changed source rebuilds), and loaded with
-``ctypes``. A library that includes no PyTorch header builds in seconds.
+The sources are ``csrc/*.cu`` (and the headers ``csrc/*.cuh`` they share)
+with a plain C interface. Each ``.cu`` is compiled by its own ``nvcc`` for
+Hopper (``sm_90a``), all of them at once, and the objects are linked into
+one shared library under ``build/pycamset_tpu_torch/`` at the root of the
+checkout, named by a hash of the sources and flags (a changed source
+rebuilds), and loaded with ``ctypes``. A library that includes no PyTorch
+header builds in seconds.
 
 Nothing here runs at import: ``load()`` is called by the kernel wrappers
-(``optim/cuda_grams.py``) the first time a CUDA tensor reaches them.
+(``optim/cuda_grams.py``, ``optim/cuda_selfcal_grams.py``) the first time a CUDA tensor reaches them.
 """
 from __future__ import annotations
 
@@ -17,23 +19,29 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pycamset_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argument types of the C entry points of csrc/template_grams.cu
+# argument types of the C entry points of csrc/template_grams.cu and
+# csrc/selfcal_grams.cu
 _SIGNATURES = {
     "pct_template_gram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "pct_template_gram_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                 _P, _P, _P, _P, _P, _P, _P, _P],
+    "pct_selfcal_gram": [_P] * 7 + [_I, _I, _I, _I, _F, _I] + [_P] * 8,
+    "pct_selfcal_gram_fused": [_P] * 6 + [_I, _I, _I, _I, _I, _F, _I]
+                              + [_P] * 15,
 }
 
 
@@ -43,7 +51,7 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float   # 0.0 when an up-to-date library was found
-    ptxas_info: str        # nvcc's -Xptxas -v report (registers, smem)
+    ptxas_info: str        # nvcc's -Xptxas -v report (registers, spills)
 
 
 def find_nvcc() -> str:
@@ -66,10 +74,33 @@ def _sources() -> list[Path]:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run(cmd: list[str]) -> str:
+    """Run one nvcc command; raise with its output if it fails."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    return proc.stderr.strip()
+
+
+def _compile_and_link(nvcc: str, out: Path) -> str:
+    """One nvcc per source, all started together, then one link into
+    ``out``; returns the compilers' -Xptxas -v reports."""
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        with ThreadPoolExecutor(max_workers=len(objs)) as pool:
+            reports = list(pool.map(
+                lambda so: _run([nvcc, *NVCC_FLAGS, "-c", str(so[0]), "-o",
+                                 str(so[1])]),
+                zip(_sources(), objs)))
+        _run([nvcc, "-shared", "-o", str(out), *map(str, objs)])
+    return "\n".join(reports)
 
 
 @functools.cache
@@ -82,16 +113,12 @@ def load() -> KernelLibrary:
     if not path.exists():
         tmp = path.with_suffix(f".{os.getpid()}.tmp.so")
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())],
-            capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
+        try:
+            ptxas = _compile_and_link(nvcc, tmp)
+        except BaseException:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
-                f"{proc.stderr}")
-        ptxas = proc.stderr.strip()
+            raise
+        seconds = time.perf_counter() - t0
         os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():

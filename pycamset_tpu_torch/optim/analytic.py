@@ -1,13 +1,15 @@
-"""Closed-form residual + Jacobian for the template chain, standard model.
+"""Closed-form residual + Jacobian for the template and self-calibration
+chains, standard model.
 
-Counterpart of ``projection_partials`` and ``block_rj_template`` in
-``pycamset_tpu/optim/analytic.py``. The JAX functions work on one block and
-are vmapped over blocks; these take the block axis (any leading dims)
-directly. Rotation derivatives come from the closed-form
+Counterpart of ``projection_partials``, ``block_rj_template`` and
+``block_rj_selfcal`` in ``pycamset_tpu/optim/analytic.py``. The JAX
+functions work on one block and are vmapped over blocks; these take the
+block axis (any leading dims) directly. Rotation derivatives come from the closed-form
 ``ops.rotations.rodrigues_jacobian`` instead of ``jax.jacfwd``.
 
 Derivative layout per slot: Jc (2, a) = [d/intr | d/extr6],
-Ji (2, 6) = d/pose6, Jk (2, 0).
+Ji (2, 6) = d/pose6, Jk (2, 0) for the template chain and (2, 3) = d/point
+for the self-calibration chain.
 """
 from __future__ import annotations
 
@@ -76,15 +78,9 @@ def projection_partials(intr: torch.Tensor, xc: torch.Tensor):
     return pred, d_intr, d_xc
 
 
-def block_rj_template(cam_a: torch.Tensor, pose6: torch.Tensor,
-                      tpl: torch.Tensor, uv: torch.Tensor):
-    """Closed-form (r, Jc, Ji, Jk) for blocks of the template chain.
-
-    :param cam_a: (..., a) [intr | extr6]. :param pose6: (..., 6).
-    :param tpl: (K, 3) template points. :param uv: (..., K, 2).
-    :return: r (..., K, 2), Jc (..., K, 2, a), Ji (..., K, 2, 6),
-        Jk (..., K, 2, 0).
-    """
+def _rj_core(cam_a: torch.Tensor, pose6: torch.Tensor, pts: torch.Tensor,
+             uv: torch.Tensor):
+    """(r, Jc, Ji, d_xc, Re Rp) of Xc = Re (Rp X + tp) + te over blocks."""
     intr_w = cam_a.shape[-1] - 6
     _check_intr_w(intr_w)
     intr = cam_a[..., :intr_w]
@@ -95,7 +91,7 @@ def block_rj_template(cam_a: torch.Tensor, pose6: torch.Tensor,
     drp = rodrigues_jacobian(pose6[..., :3])
     tp = pose6[..., 3:]
 
-    xw = torch.einsum("...ab,kb->...ka", rp, tpl) + tp[..., None, :]
+    xw = torch.einsum("...ab,kb->...ka", rp, pts) + tp[..., None, :]
     xc = torch.einsum("...ab,...kb->...ka", re, xw) + te[..., None, :]
     pred, d_intr, d_xc = projection_partials(intr, xc)
     r = pred - uv
@@ -105,12 +101,37 @@ def block_rj_template(cam_a: torch.Tensor, pose6: torch.Tensor,
     j_rve = torch.einsum("...kta,...kaj->...ktj", d_xc, dxc_drve)
     jc = torch.cat([d_intr, j_rve, d_xc], dim=-1)
 
-    # pose: dXc/drvp[j] = Re @ dRp[j] @ Xt ; dXc/dtp = Re
+    # pose: dXc/drvp[j] = Re @ dRp[j] @ X ; dXc/dtp = Re
     re_drp = torch.einsum("...ab,...jbc->...jac", re, drp)
-    dxc_drvp = torch.einsum("...jab,kb->...kaj", re_drp, tpl)
+    dxc_drvp = torch.einsum("...jab,kb->...kaj", re_drp, pts)
     j_rvp = torch.einsum("...kta,...kaj->...ktj", d_xc, dxc_drvp)
     j_tp = torch.einsum("...kta,...ab->...ktb", d_xc, re)
     ji = torch.cat([j_rvp, j_tp], dim=-1)
+    return r, jc, ji, d_xc, re @ rp
 
-    jk = r.new_zeros(r.shape + (0,))
+
+def block_rj_template(cam_a: torch.Tensor, pose6: torch.Tensor,
+                      tpl: torch.Tensor, uv: torch.Tensor):
+    """Closed-form (r, Jc, Ji, Jk) for blocks of the template chain.
+
+    :param cam_a: (..., a) [intr | extr6]. :param pose6: (..., 6).
+    :param tpl: (K, 3) template points. :param uv: (..., K, 2).
+    :return: r (..., K, 2), Jc (..., K, 2, a), Ji (..., K, 2, 6),
+        Jk (..., K, 2, 0).
+    """
+    r, jc, ji, _, _ = _rj_core(cam_a, pose6, tpl, uv)
+    return r, jc, ji, r.new_zeros(r.shape + (0,))
+
+
+def block_rj_selfcal(cam_a: torch.Tensor, pose6: torch.Tensor,
+                     points: torch.Tensor, uv: torch.Tensor):
+    """Closed-form (r, Jc, Ji, Jk) for blocks of the self-calibration
+    chain: the template chain with the free PER_KEY point in place of the
+    template point, and Jk = d(u,v)/dXc @ (Re Rp).
+
+    :param points: (K, 3) free target points. Other shapes as
+        ``block_rj_template``; Jk is (..., K, 2, 3).
+    """
+    r, jc, ji, d_xc, rerp = _rj_core(cam_a, pose6, points, uv)
+    jk = torch.einsum("...kta,...ab->...ktb", d_xc, rerp)
     return r, jc, ji, jk

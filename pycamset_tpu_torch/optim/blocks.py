@@ -3,7 +3,9 @@
 A block is a plain function on tensors and a chain is their composition,
 evaluated right to left (the LAST block feeds the one before it). The port
 carries the blocks of the template chain
-``Projection + Extrinsic3D + TemplatePoints``, standard camera model. The
+``Projection + Extrinsic3D + TemplatePoints`` and of the self-calibration
+chain ``Projection + Extrinsic3D + RigidTform3d + FreePoint``, standard
+camera model. The
 structured backend dispatches on the block class names, as the JAX package
 does, so the names are kept.
 """
@@ -98,3 +100,13 @@ class TemplatePoints(RigidTform3d):
     num_inp = 0
     num_out = 3
     params = ParamSpec(key_type.PER_IMG, 6)
+
+
+class FreePoint(FunctionBlock):
+    """A 3D point parameterised by its coordinates; 3 PER_KEY params."""
+    num_inp = 0
+    num_out = 3
+    params = ParamSpec(key_type.PER_KEY, 3)
+
+    def compute(self, params, inp):
+        return params

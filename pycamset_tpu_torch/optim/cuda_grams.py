@@ -148,10 +148,12 @@ def scaled_errors_fused(got, ref, ref_gram: torch.Tensor, n_cams: int,
         "corner": _worst(corner / s_b[:, w] ** 2)}
 
 
-def _check_cuda_inputs(cam_b, im_b, tpl, uv, mask):
-    """Raise unless the kernel takes these tensors as they are."""
+def _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, **masks):
+    """Raise unless the kernel takes these tensors as they are. ``tpl`` is
+    the (K, 3) point table (the template, or the free points); ``masks``
+    are column masks among cmask_b (B, 15), imask_b (B, 6), kmask (K, 3)."""
     tensors = {"cam_b": cam_b, "im_b": im_b, "tpl": tpl, "uv": uv,
-               "mask": mask}
+               "mask": mask, **masks}
     dev = cam_b.device
     for name, x in tensors.items():
         if x.device != dev:
@@ -167,8 +169,10 @@ def _check_cuda_inputs(cam_b, im_b, tpl, uv, mask):
             f"camera width {cam_b.shape[1]} is not ported yet (ROADMAP "
             f"Queue A item 7); the kernels serve the standard model (15)")
     want = {"cam_b": (bb, 15), "im_b": (bb, 6), "tpl": (k, 3),
-            "uv": (bb, k, 2)}
-    for name, shape in want.items():
+            "uv": (bb, k, 2), "cmask_b": (bb, 15), "imask_b": (bb, 6),
+            "kmask": (k, 3)}
+    for name in tensors.keys() - {"mask"}:
+        shape = want[name]
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(tensors[name].shape)}"
                              f", expected {shape}")

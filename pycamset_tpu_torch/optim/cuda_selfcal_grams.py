@@ -1,0 +1,327 @@
+"""Self-calibration gram kernels: CUDA wrappers and their plain twins.
+
+Counterpart of the self-calibration part of
+``pycamset_tpu/optim/pallas_grams.py``, for the chain Projection +
+Extrinsic3D + RigidTform3d + FreePoint (the K target points are unknowns
+beside the cameras and the poses). Two hand-written Hopper kernels
+(``csrc/selfcal_grams.cu``) replace its two Pallas kernels:
+
+- Kernel C, ``selfcal_gram_fused`` <- ``make_pallas_selfcal_grams_fused``:
+  hcc, gc and the point couplings wck = Jc^T Jk summed over each camera's
+  images; per block wik = Ji^T Jk, wci, gii, gi and the cost; hkk = Jk^T Jk
+  and gk = Jk^T r over all blocks. The pose columns see imask in the kernel;
+  the camera columns are masked after the reduction, by the builder.
+- Kernel D, ``selfcal_gram`` <- ``make_pallas_selfcal_grams``: the per-block
+  extended gram (22 x 22) with every camera and pose column masked in the
+  kernel, the per-(block, key) couplings wck_b and wik_b, and hkk/gk over
+  all blocks.
+
+Each wrapper takes the same tensors on either device. A CPU tensor runs the
+plain PyTorch twin (``selfcal_gram_plain``, ``selfcal_gram_fused_plain``:
+``analytic.block_rj_selfcal``, ``losses.irls_weigh`` and batched products).
+A CUDA tensor launches the kernel or raises: there is no fallback. Each
+wrapper counts its launches in ``<wrapper>.launches``.
+
+The builders ``make_cuda_selfcal_grams`` and ``make_cuda_selfcal_grams_fused``
+keep the JAX builders' contracts (the 10-tuple of ``make_block_grams``, and
+the ten reduced NormalEq fields). Standard camera model (a = 15) only.
+
+``scaled_errors_selfcal`` and ``scaled_errors_selfcal_fused`` hold a
+kernel's outputs against its twin's entry by entry, in the Jacobi scaling
+the solver applies.
+"""
+from __future__ import annotations
+
+import torch
+
+from pycamset_tpu_torch.optim.cuda_grams import (
+    GRAM_W, _check_cuda_inputs, _jacobi_scale, _loss_args, _ptr, _raise_on,
+    _worst, pack_block_params, reduce_grams, scaled_errors,
+    scaled_errors_fused)
+
+SELFCAL_CHUNK = 8   # blocks per thread block in Kernels C and D
+KEY_TILE = 128      # keys per thread block (csrc TK)
+N_ENTRIES = GRAM_W * (GRAM_W + 1) // 2
+
+
+def _check_widths(widths):
+    if (widths.a, widths.b, widths.c) != (15, 6, 3):
+        raise NotImplementedError(
+            f"widths {widths} are not ported yet: the self-cal kernels serve "
+            f"the standard self-calibration chain (a=15, b=6, c=3); ROADMAP "
+            f"Queue A item 7 lists the other camera widths")
+
+
+def selfcal_gram_plain(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask,
+                       loss: str = "linear", f_scale: float = 1.0,
+                       loss_semantics: str = "component"):
+    """Plain twin of Kernel D.
+
+    :return: (g (B, 22, 22) extended grams of [Jc | Ji | r], IRLS-weighted
+        rows, camera columns masked by cmask_b and pose columns by imask_b,
+        corner = the block's (robust) cost; wck_b (B, K, 15, 3);
+        wik_b (B, K, 6, 3); hkk (K, 3, 3); gk (K, 3)), Jk masked by kmask.
+    """
+    from pycamset_tpu_torch.optim.analytic import block_rj_selfcal
+    from pycamset_tpu_torch.optim.losses import irls_weigh
+    r, jc, ji, jk = block_rj_selfcal(cam_b, im_b, keyp, uv)
+    r, sw, cost_b = irls_weigh(r, mask, loss, f_scale, loss_semantics)
+    jc = jc * sw[..., None] * cmask_b[:, None, None, :]
+    ji = ji * sw[..., None] * imask_b[:, None, None, :]
+    jk = jk * sw[..., None] * kmask[None, :, None, :]
+    ext = torch.cat([jc, ji, r[..., None]], dim=-1)
+    ext = ext.reshape(ext.shape[0], -1, GRAM_W)
+    g = ext.transpose(1, 2) @ ext
+    g[:, GRAM_W - 1, GRAM_W - 1] = cost_b
+    return (g, torch.einsum("bkti,bktj->bkij", jc, jk),
+            torch.einsum("bkti,bktj->bkij", ji, jk),
+            torch.einsum("bkti,bktj->kij", jk, jk),
+            torch.einsum("bkti,bkt->ki", jk, r))
+
+
+def selfcal_gram_fused_plain(cam_b, im_b, keyp, uv, mask, imask_b, kmask,
+                             n_cams: int, n_ims: int, loss: str = "linear",
+                             f_scale: float = 1.0,
+                             loss_semantics: str = "component"):
+    """Plain twin of Kernel C: Kernel D's twin with no camera mask, reduced.
+
+    :return: (hcc (C,15,15), gc (C,15), wck (C,K,15,3), wik_b (B,K,6,3),
+        wci (B,15,6), gii (B,6,6), gi (B,6), corner (B,), hkk (K,3,3),
+        gk (K,3)).
+    """
+    ones = cam_b.new_ones(cam_b.shape)
+    g, wck_b, wik_b, hkk, gk = selfcal_gram_plain(
+        cam_b, im_b, keyp, uv, mask, ones, imask_b, kmask, loss, f_scale,
+        loss_semantics)
+    hcc, gc, wci, gii, gi, corner = reduce_grams(g, n_cams, n_ims)
+    wck = wck_b.reshape((n_cams, n_ims) + wck_b.shape[1:]).sum(dim=1)
+    return hcc, gc, wck, wik_b, wci, gii, gi, corner, hkk, gk
+
+
+def _key_errors(hkk, gk, ref_hkk, ref_gk, cost) -> dict:
+    """hkk in its own diagonal's scaling, gk by sqrt(hkk_pp cost)."""
+    s_k = _jacobi_scale(torch.diagonal(ref_hkk, dim1=1, dim2=2))
+    return {"hkk": _worst((hkk - ref_hkk) / (s_k[:, :, None]
+                                             * s_k[:, None, :])),
+            "gk": _worst((gk - ref_gk) / (s_k * torch.sqrt(cost)))}
+
+
+def scaled_errors_selfcal(got, ref) -> dict:
+    """Worst error of Kernel D's outputs against reference outputs, per
+    piece, in the Jacobi scaling: the gram as ``cuda_grams.scaled_errors``;
+    wck_b by sqrt(gcc_ii hkk_pp) and wik_b by sqrt(gii_bb hkk_pp), with the
+    block's own gram diagonal; hkk and gk as ``_key_errors``."""
+    ref = [r.double() for r in ref]
+    got = [g.double().to(r.device) for g, r in zip(got, ref)]
+    out = scaled_errors(got[0], ref[0])
+    s_b = _jacobi_scale(torch.diagonal(ref[0], dim1=1, dim2=2))
+    s_k = _jacobi_scale(torch.diagonal(ref[3], dim1=1, dim2=2))
+    out["wck"] = _worst((got[1] - ref[1]) / (s_b[:, None, :15, None]
+                                             * s_k[None, :, None, :]))
+    out["wik"] = _worst((got[2] - ref[2]) / (s_b[:, None, 15:21, None]
+                                             * s_k[None, :, None, :]))
+    out.update(_key_errors(got[3], got[4], ref[3], ref[4],
+                           ref[0][:, -1, -1].sum()))
+    return out
+
+
+def scaled_errors_selfcal_fused(got, ref, ref_gram: torch.Tensor,
+                                n_cams: int, n_ims: int) -> dict:
+    """Worst error of Kernel C's outputs against reference outputs, per
+    output, in the Jacobi scaling: hcc, gc and the per-block pose pieces as
+    ``cuda_grams.scaled_errors_fused`` (``ref_gram``: the reference (B, 22,
+    22) grams of the same inputs, camera columns unmasked); wck by
+    sqrt(hcc_ii hkk_pp) with the camera's reduced diagonal; wik by
+    sqrt(gii_bb hkk_pp) with the block's; hkk and gk as ``_key_errors``."""
+    ref = [r.double() for r in ref]
+    got = [g.double().to(r.device) for g, r in zip(got, ref)]
+    (hcc, gc, wck, wik, wci, gii, gi, corner, hkk, gk) = got
+    (r_hcc, r_gc, r_wck, r_wik, r_wci, r_gii, r_gi, r_corner, r_hkk,
+     r_gk) = ref
+    out = scaled_errors_fused((hcc, gc, wci, gii, gi, corner),
+                              (r_hcc, r_gc, r_wci, r_gii, r_gi, r_corner),
+                              ref_gram, n_cams, n_ims)
+    s_c = _jacobi_scale(torch.diagonal(r_hcc, dim1=1, dim2=2))
+    s_b = _jacobi_scale(torch.diagonal(ref_gram.double(), dim1=1, dim2=2))
+    s_k = _jacobi_scale(torch.diagonal(r_hkk, dim1=1, dim2=2))
+    out["wck"] = _worst((wck - r_wck) / (s_c[:, None, :, None]
+                                         * s_k[None, :, None, :]))
+    out["wik"] = _worst((wik - r_wik) / (s_b[:, None, 15:21, None]
+                                         * s_k[None, :, None, :]))
+    out.update(_key_errors(hkk, gk, r_hkk, r_gk, r_corner.sum()))
+    return out
+
+
+def _empty_like_grid(mask):
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=mask.device)
+    return empty
+
+
+def _grid_dims(mask, group: int):
+    k = mask.shape[1]
+    if k == 0:
+        raise ValueError("the self-cal kernels need at least one key")
+    return k, -(-k // KEY_TILE), -(-group // SELFCAL_CHUNK)
+
+
+def selfcal_gram(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask,
+                 loss: str = "linear", f_scale: float = 1.0,
+                 loss_semantics: str = "component"):
+    """Kernel D: (g (B,22,22), wck_b (B,K,15,3), wik_b (B,K,6,3),
+    hkk (K,3,3), gk (K,3)), the outputs of ``selfcal_gram_plain``.
+
+    :param cam_b: (B, 15). :param im_b: (B, 6). :param keyp: (K, 3) free
+        points. :param uv: (B, K, 2). :param mask: (B, K).
+        :param cmask_b: (B, 15). :param imask_b: (B, 6). :param kmask: (K, 3).
+    """
+    if cam_b.device.type == "cpu":
+        return selfcal_gram_plain(cam_b, im_b, keyp, uv, mask, cmask_b,
+                                  imask_b, kmask, loss, f_scale,
+                                  loss_semantics)
+    loss_id, component = _loss_args(loss, loss_semantics)
+    _check_cuda_inputs(cam_b, im_b, keyp, uv, mask, cmask_b=cmask_b,
+                       imask_b=imask_b, kmask=kmask)
+    with torch.cuda.device(cam_b.device):
+        out = _launch_selfcal(pack_block_params(cam_b, im_b), keyp, uv, mask,
+                              cmask_b, imask_b, kmask, loss_id, component,
+                              f_scale)
+    selfcal_gram.launches += 1
+    return out
+
+
+selfcal_gram.launches = 0
+
+
+def _launch_selfcal(packed, keyp, uv, mask, cmask_b, imask_b, kmask, loss_id,
+                    component, f_scale):
+    """Allocate Kernel D's outputs and scratch and launch its two passes on
+    the current stream (inputs already checked)."""
+    from pycamset_tpu_torch._build import load
+    bb = mask.shape[0]
+    k, n_tiles, n_chunks = _grid_dims(mask, bb)
+    empty = _empty_like_grid(mask)
+    g, wck, wik = empty(bb, GRAM_W, GRAM_W), empty(bb, 45, k), empty(bb, 18, k)
+    hkk, gk = empty(k, 3, 3), empty(k, 3)
+    blk_part, hk_part = empty(n_tiles, bb, N_ENTRIES), empty(n_chunks, 9, k)
+    rc = load().lib.pct_selfcal_gram(
+        _ptr(packed), _ptr(keyp), _ptr(uv), _ptr(mask), _ptr(cmask_b),
+        _ptr(imask_b), _ptr(kmask), bb, k, loss_id, component,
+        float(f_scale), SELFCAL_CHUNK, _ptr(g), _ptr(wck), _ptr(wik),
+        _ptr(hkk), _ptr(gk), _ptr(blk_part), _ptr(hk_part),
+        torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "selfcal_gram")
+    # (B, 45 | 18, K) rows, written coalesced -> (B, K, 15 | 6, 3) views
+    return (g, wck.transpose(1, 2).reshape(bb, k, 15, 3),
+            wik.transpose(1, 2).reshape(bb, k, 6, 3), hkk, gk)
+
+
+def selfcal_gram_fused(cam_b, im_b, keyp, uv, mask, imask_b, kmask,
+                       n_cams: int, n_ims: int, loss: str = "linear",
+                       f_scale: float = 1.0,
+                       loss_semantics: str = "component"):
+    """Kernel C: the outputs of ``selfcal_gram_fused_plain`` over
+    B = n_cams * n_ims camera-major blocks; any n_ims, no padding."""
+    if cam_b.device.type == "cpu":
+        return selfcal_gram_fused_plain(cam_b, im_b, keyp, uv, mask, imask_b,
+                                        kmask, n_cams, n_ims, loss, f_scale,
+                                        loss_semantics)
+    loss_id, component = _loss_args(loss, loss_semantics)
+    _check_cuda_inputs(cam_b, im_b, keyp, uv, mask, imask_b=imask_b,
+                       kmask=kmask)
+    if mask.shape[0] != n_cams * n_ims:
+        raise ValueError(f"{mask.shape[0]} blocks, expected {n_cams} x "
+                         f"{n_ims}")
+    with torch.cuda.device(cam_b.device):
+        out = _launch_selfcal_fused(pack_block_params(cam_b, im_b), keyp, uv,
+                                    mask, imask_b, kmask, n_cams, n_ims,
+                                    loss_id, component, f_scale)
+    selfcal_gram_fused.launches += 1
+    return out
+
+
+selfcal_gram_fused.launches = 0
+
+
+def _launch_selfcal_fused(packed, keyp, uv, mask, imask_b, kmask, n_cams,
+                          n_ims, loss_id, component, f_scale):
+    """Allocate Kernel C's outputs and scratch and launch its two passes on
+    the current stream (inputs already checked)."""
+    from pycamset_tpu_torch._build import load
+    bb = mask.shape[0]
+    k, n_tiles, n_chunks = _grid_dims(mask, n_ims)
+    empty = _empty_like_grid(mask)
+    hcc, gc, wck = empty(n_cams, 15, 15), empty(n_cams, 15), empty(n_cams,
+                                                                   45, k)
+    wik, wci, gii = empty(bb, 18, k), empty(bb, 15, 6), empty(bb, 6, 6)
+    gi, corner, hkk, gk = empty(bb, 6), empty(bb), empty(k, 3, 3), empty(k, 3)
+    blk_part = empty(n_tiles, bb, N_ENTRIES)
+    cam_part = empty(n_cams, n_chunks, n_tiles, N_ENTRIES)
+    wck_part = empty(n_cams, n_chunks, 45, k)
+    hk_part = empty(n_cams * n_chunks, 9, k)
+    rc = load().lib.pct_selfcal_gram_fused(
+        _ptr(packed), _ptr(keyp), _ptr(uv), _ptr(mask), _ptr(imask_b),
+        _ptr(kmask), n_cams, n_ims, k, loss_id, component, float(f_scale),
+        SELFCAL_CHUNK, _ptr(hcc), _ptr(gc), _ptr(wck), _ptr(wik), _ptr(wci),
+        _ptr(gii), _ptr(gi), _ptr(corner), _ptr(hkk), _ptr(gk),
+        _ptr(blk_part), _ptr(cam_part), _ptr(wck_part), _ptr(hk_part),
+        torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "selfcal_gram_fused")
+    return (hcc, gc, wck.transpose(1, 2).reshape(n_cams, k, 15, 3),
+            wik.transpose(1, 2).reshape(bb, k, 6, 3), wci, gii, gi, corner,
+            hkk, gk)
+
+
+def make_cuda_selfcal_grams(widths, loss: str = "linear",
+                            f_scale: float = 1.0,
+                            loss_semantics: str = "component"):
+    """Per-block gram builder on Kernel D; the contract of
+    make_block_grams for the self-calibration chain:
+    grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask) ->
+    (gcc_b, gii_b, wci_b, hkk, wck_b, wik_b, gc_b, gi_b, gk, cost); every
+    column mask is applied in the kernel (tpl is not read).
+    """
+    _check_widths(widths)
+    a, w = 15, GRAM_W - 1
+
+    def grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask):
+        g, wck_b, wik_b, hkk, gk = selfcal_gram(
+            cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask, loss=loss,
+            f_scale=f_scale, loss_semantics=loss_semantics)
+        return (g[:, :a, :a], g[:, a:w, a:w], g[:, :a, a:w], hkk, wck_b,
+                wik_b, g[:, :a, w], g[:, a:w, w], gk, torch.sum(g[:, w, w]))
+
+    return grams
+
+
+def make_cuda_selfcal_grams_fused(widths, n_cams: int, n_ims: int,
+                                  loss: str = "linear", f_scale: float = 1.0,
+                                  loss_semantics: str = "component"):
+    """Fused-reduction self-cal gram builder on Kernel C; the contract of
+    make_pallas_selfcal_grams_fused:
+    grams(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask) ->
+    (hcc (C,a,a), hii (I,6,6), hkk (K,3,3), wci (C,I,a,6), wck (C,K,a,3),
+     wik (I,K,6,3), gc (C,a), gi (I,6), gk (K,3), cost).
+    """
+    _check_widths(widths)
+    a = widths.a
+
+    def grams(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask):
+        (hcc, gc, wck, wik_b, wci, gii, gi, corner, hkk,
+         gk) = selfcal_gram_fused(cam_b, im_b, keyp, uv, mask, imask_b,
+                                  kmask, n_cams, n_ims, loss=loss,
+                                  f_scale=f_scale,
+                                  loss_semantics=loss_semantics)
+        # camera columns masked on the reduced pieces (cmask is constant
+        # over a camera's images); the pose columns saw imask in the kernel
+        cm = cmask_b.reshape(n_cams, n_ims, a)[:, 0]
+        hcc = hcc * cm[:, :, None] * cm[:, None, :]
+        wci = wci.reshape(n_cams, n_ims, a, 6) * cm[:, None, :, None]
+        wck = wck * cm[:, None, :, None]
+        hii = gii.reshape(n_cams, n_ims, 6, 6).sum(dim=0)
+        gi_r = gi.reshape(n_cams, n_ims, 6).sum(dim=0)
+        wik = wik_b.reshape((n_cams, n_ims) + wik_b.shape[1:]).sum(dim=0)
+        return (hcc, hii, hkk, wci, wck, wik, gc * cm, gi_r, gk,
+                torch.sum(corner))
+
+    return grams

@@ -1,6 +1,7 @@
-"""Structured (block) normal equations + Schur step, template chain.
+"""Structured (block) normal equations + Schur step, template and
+self-calibration chains.
 
-Counterpart of the template (c = 0) slice of
+Counterpart of the template (c = 0) and self-calibration (c = 3) slices of
 ``pycamset_tpu/optim/structured.py``; the names and contracts are the
 same. Detections lie on a dense (B, K) grid, B = n_cams * n_ims blocks (one
 per camera-image pair, camera-major) and K padded keys. Every slot of a
@@ -12,18 +13,27 @@ equations assemble as per-block grams:
     Hii (I,b,b)   = sum over an image's blocks of Ji^T Ji
     Wci (C,I,a,b) = per-block Jc^T Ji  (a block IS one (c,i) pair)
 
-The per-block grams come from a hand-written CUDA kernel on a card
-(``optim/cuda_grams.py``) and from its plain PyTorch twin on the CPU; the
-choice between the per-block kernel and the fused-reduction kernel follows
-the JAX package's padding rule (``resolve_fused_grams``), on either device.
+and, for the self-calibration chain (free target points, c = 3 per key),
 
-The Schur step eliminates the exactly block-diagonal pose system in batch
-and solves the dense (C*a) camera system. Fixed parameters are handled by
-zeroing Jacobian COLUMNS (the column masks); a damping floor keeps the
-eliminated blocks invertible and gives exact zero steps for them.
+    Hkk (K,c,c)   = sum over a key's blocks of Jk^T Jk
+    Wck (C,K,a,c) = sum over a camera's blocks of Jc^T Jk, per key
+    Wik (I,K,b,c) = sum over an image's blocks of Ji^T Jk, per key
 
-Not ported yet: point blocks (the self-cal / free-point / grouped chains,
-c > 0), the matrix-free CG reduced solver, other camera widths. They raise
+The grams come from hand-written CUDA kernels on a card
+(``optim/cuda_grams.py``, ``optim/cuda_selfcal_grams.py``) and from their
+plain PyTorch twins on the CPU; the choice between the per-block kernel and
+the fused-reduction kernel of a chain follows the JAX package's padding
+rule (``resolve_fused_grams``), on either device.
+
+Without point blocks the Schur step eliminates the exactly block-diagonal
+pose system in batch and solves the dense (C*a) camera system. With them it
+eliminates the points first and solves the dense (C*a + I*b) system. Fixed
+parameters are handled by zeroing Jacobian COLUMNS (the column masks); a
+damping floor keeps the eliminated blocks invertible and gives exact zero
+steps for them.
+
+Not ported yet: the pose-free free-point and the grouped/mixed chains, the
+matrix-free CG reduced solver, other camera widths. They raise
 ``UnsupportedChain`` or ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
@@ -37,13 +47,21 @@ import torch
 from pycamset_tpu_torch.optim.blocks import key_type
 from pycamset_tpu_torch.optim.chain import OptimFunction
 
-# The JAX package's fused-kernel tile: the selection rule below pads the
-# image axis to it (pycamset_tpu/optim/pallas_grams.py BLOCK_TILE). The CUDA
-# fused kernel needs no padding; the rule is kept so both packages choose
-# the same kernel family on the same rig.
+# The JAX package's fused-kernel tiles: the selection rule below pads the
+# image axis to them (pycamset_tpu/optim/pallas_grams.py BLOCK_TILE; the
+# self-cal family takes 16 or 8, whichever pads less). The CUDA fused
+# kernels need no padding; the rule is kept so both packages choose the same
+# kernel family on the same rig.
 FUSED_PAD_TILE = 16
 FUSED_PAD_FRAC = 0.05
-_TEMPLATE_CHAIN = ("Projection", "Extrinsic3D", "TemplatePoints")
+SELFCAL_PAD_TILES = (16, 8)
+SELFCAL_PAD_FRAC = 0.25
+# chain family by block names, with its (b, c) widths
+_FAMILIES = {
+    ("Projection", "Extrinsic3D", "TemplatePoints"): ("template", (6, 0)),
+    ("Projection", "Extrinsic3D", "RigidTform3d", "FreePoint"):
+        ("selfcal", (6, 3)),
+}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -90,17 +108,22 @@ def chain_widths(op_fun: OptimFunction) -> GroupWidths:
     return GroupWidths(a, b, c, key_link)
 
 
-def _require_template_chain(op_fun: OptimFunction, widths: GroupWidths):
+def chain_family(op_fun: OptimFunction, widths: GroupWidths) -> str:
+    """'template' or 'selfcal', by the chain's block names (as the JAX
+    package dispatches); any other chain raises ``UnsupportedChain``."""
     names = tuple(type(bk).__name__ for bk in op_fun.blocks)
-    if names != _TEMPLATE_CHAIN or (widths.b, widths.c) != (6, 0):
+    family, bc = _FAMILIES.get(names, (None, None))
+    if family is None or (widths.b, widths.c) != bc:
         raise UnsupportedChain(
             f"chain {names} is not ported yet: the port serves the template "
-            f"chain {_TEMPLATE_CHAIN} only (self-cal, free-point and "
-            f"grouped chains are ROADMAP Queue A items 4-5)")
+            f"and self-calibration chains {tuple(_FAMILIES)} only (the "
+            f"pose-free free-point chain is ROADMAP Queue A item 4, the "
+            f"grouped and mixed chains item 5)")
     if widths.a != 15:
         raise NotImplementedError(
             f"camera width a={widths.a} is not ported yet (ROADMAP Queue A "
             f"item 7); only the standard model (a = 15) is")
+    return family
 
 
 @dataclass
@@ -209,25 +232,34 @@ def pad_template_table(tpl_tab, templated: bool, n_keys: int,
     return tpl_pad
 
 
-def fused_tile_pad_ok(n_ims: int) -> bool:
+def fused_tile_pad_ok(n_ims: int, tile: int = FUSED_PAD_TILE,
+                      frac: float = FUSED_PAD_FRAC) -> bool:
     """The JAX package's fused-kernel acceptance rule: pad the image axis
-    to the block tile only when the padding stays under FUSED_PAD_FRAC of
-    the real images."""
-    i_pad = -(-n_ims // FUSED_PAD_TILE) * FUSED_PAD_TILE
-    return (i_pad - n_ims) <= FUSED_PAD_FRAC * n_ims
+    to the block tile only when the padding stays under ``frac`` of the
+    real images."""
+    i_pad = -(-n_ims // tile) * tile
+    return (i_pad - n_ims) <= frac * n_ims
+
+
+def selfcal_pad_tile(n_ims: int) -> int:
+    """The self-cal family's tile: 16, or 8 where that pads less."""
+    return min(SELFCAL_PAD_TILES, key=lambda t: -(-n_ims // t) * t)
 
 
 def resolve_block_grams(op_fun: OptimFunction, widths: GroupWidths,
                         loss: str = "linear", f_scale: float = 1.0,
                         loss_semantics: str = "component"):
     """Per-BLOCK gram builder (the 10-tuple contract of the JAX package's
-    make_block_grams): Kernel A's builder, which launches the CUDA kernel
-    for CUDA tensors and runs its plain twin for CPU tensors. The port has
-    no separate plain builder: the twin is the one plain path."""
+    make_block_grams): Kernel A's (template) or Kernel D's (self-cal)
+    builder, which launches the CUDA kernel for CUDA tensors and runs its
+    plain twin for CPU tensors. The port has no separate plain builder: the
+    twin is the one plain path."""
+    kw = dict(loss=loss, f_scale=f_scale, loss_semantics=loss_semantics)
+    if chain_family(op_fun, widths) == "selfcal":
+        from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+        return sg.make_cuda_selfcal_grams(widths, **kw)
     from pycamset_tpu_torch.optim import cuda_grams as cg
-    _require_template_chain(op_fun, widths)
-    return cg.make_cuda_template_grams(widths, loss=loss, f_scale=f_scale,
-                                       loss_semantics=loss_semantics)
+    return cg.make_cuda_template_grams(widths, **kw)
 
 
 def resolve_fused_grams(op_fun: OptimFunction, widths: GroupWidths,
@@ -235,18 +267,28 @@ def resolve_fused_grams(op_fun: OptimFunction, widths: GroupWidths,
                         f_scale: float = 1.0,
                         loss_semantics: str = "component"):
     """The FUSED-reduction gram builder, or None when the JAX package's
-    padding rule declines it (the image axis would pad past 5% at tile 16).
+    padding rule declines it: the template image axis would pad past 5% at
+    tile 16, the self-cal one past 25% at its tile (``selfcal_pad_tile``).
 
-    :return: ("template", grams) with grams(cam_b, im_b, tpl, uv, mask,
-        cmask_b, imask_b) -> (hcc, hii, wci, gc, gi, cost), or None.
+    :return: (family, grams) or None.
+        "template": grams(cam_b, im_b, tpl, uv, mask, cmask_b, imask_b)
+                    -> (hcc, hii, wci, gc, gi, cost)
+        "selfcal":  grams(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b,
+                    kmask) -> the 10 NormalEq fields
     """
+    kw = dict(loss=loss, f_scale=f_scale, loss_semantics=loss_semantics)
+    if chain_family(op_fun, widths) == "selfcal":
+        from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+        if not fused_tile_pad_ok(n_ims, selfcal_pad_tile(n_ims),
+                                 SELFCAL_PAD_FRAC):
+            return None
+        return "selfcal", sg.make_cuda_selfcal_grams_fused(
+            widths, n_cams, n_ims, **kw)
     from pycamset_tpu_torch.optim import cuda_grams as cg
-    _require_template_chain(op_fun, widths)
     if not fused_tile_pad_ok(n_ims):
         return None
     return "template", cg.make_cuda_template_grams_fused(
-        widths, n_cams, n_ims, loss=loss, f_scale=f_scale,
-        loss_semantics=loss_semantics)
+        widths, n_cams, n_ims, **kw)
 
 
 def _block_params(pieces: ParamPieces, colmask: ParamPieces, n_cams: int,
@@ -265,13 +307,24 @@ def make_structured_neq(op_fun: OptimFunction, widths: GroupWidths,
     """Structured normal-equation builder over the (B, K) grid.
 
     :return: neq(pieces, uv, mask, tpl, colmask) -> NormalEq, where tpl is
-        the (K,3) template table and colmask a ParamPieces of 0/1 unfixed
-        masks.
+        the (K,3) template table (zeros when the chain has key params) and
+        colmask a ParamPieces of 0/1 unfixed masks.
     """
-    a, b = widths.a, widths.b
+    a, b, c = widths.a, widths.b, widths.c
     fused = resolve_fused_grams(op_fun, widths, n_cams, n_ims, loss=loss,
                                 f_scale=f_scale,
                                 loss_semantics=loss_semantics)
+    if fused is not None and fused[0] == "selfcal":
+        fused_sc = fused[1]
+
+        def neq_fused_sc(pieces: ParamPieces, uv, mask, tpl,
+                         colmask: ParamPieces):
+            cam_b, im_b, cmask_b, imask_b = _block_params(
+                pieces, colmask, n_cams, n_ims)
+            return NormalEq(*fused_sc(cam_b, im_b, pieces.key, uv, mask,
+                                      cmask_b, imask_b, colmask.key))
+
+        return neq_fused_sc
     if fused is not None:
         _, fused_fn = fused
 
@@ -303,8 +356,8 @@ def make_structured_neq(op_fun: OptimFunction, widths: GroupWidths,
         hii = gii_b.reshape(n_cams, n_ims, b, b).sum(dim=0)
         gc = gc_b.reshape(n_cams, n_ims, a).sum(dim=1)
         gi = gi_b.reshape(n_cams, n_ims, b).sum(dim=0)
-        wck = wck_b.reshape(n_cams, n_ims, k_pad, a, 0).sum(dim=1)
-        wik = wik_b.reshape(n_cams, n_ims, k_pad, b, 0).sum(dim=0)
+        wck = wck_b.reshape(n_cams, n_ims, k_pad, a, c).sum(dim=1)
+        wik = wik_b.reshape(n_cams, n_ims, k_pad, b, c).sum(dim=0)
         wci = wci_b.reshape(n_cams, n_ims, a, b)
         return NormalEq(hcc, hii, hkk, wci, wck, wik, gc, gi, gk, cost)
 
@@ -337,9 +390,11 @@ def schur_solve(neq: NormalEq, damp: ParamPieces,
                 method: str = "dense") -> ParamPieces:
     """Solve (H + diag(damp)) dx = -g by Schur elimination.
 
-    The template chain has no point blocks, so the pose system is exactly
+    Without point blocks (the template chain) the pose system is exactly
     block-diagonal (hii): the poses are eliminated in batch and only the
-    dense (C*a) camera system is factored.
+    dense (C*a) camera system is factored. With point blocks (the self-cal
+    chain) the points are eliminated first, then the dense (C*a + I*b)
+    camera-and-pose system is solved and the points back-substituted.
     """
     c_, k_ = neq.hcc.shape[0], neq.hkk.shape[0]
     a, b, c = neq.hcc.shape[2], neq.hii.shape[2], neq.hkk.shape[2]
@@ -347,13 +402,15 @@ def schur_solve(neq: NormalEq, damp: ParamPieces,
         raise NotImplementedError(
             f"reduced_solver={method!r} is not ported yet (the matrix-free "
             f"CG solver is ROADMAP Queue A item 6); use 'dense'")
-    if c or not b:
+    if not b:
         raise NotImplementedError(
-            "point-block Schur elimination (c > 0) and pose-free chains are "
-            "not ported yet (ROADMAP Queue A item 4)")
+            "pose-free chains (b = 0, the free-point chain) are not ported "
+            "yet (ROADMAP Queue A item 4)")
 
     hcc = neq.hcc + torch.diag_embed(damp.cam)
     hii = neq.hii + torch.diag_embed(damp.im)
+    if c:
+        return _schur_solve_points(neq, damp, hcc, hii)
     iinv = _normalized_inv(hii)                                   # (I,b,b)
     uci = torch.einsum("ciab,ibq->ciaq", neq.wci, iinv)           # (C,I,a,b)
     scc = -torch.einsum("ciaq,dizq->cdaz", uci, neq.wci)          # (C,C,a,a)
@@ -364,6 +421,41 @@ def schur_solve(neq: NormalEq, damp: ParamPieces,
     ri = -neq.gi - torch.einsum("ciab,ca->ib", neq.wci, dxc)
     dxi = torch.einsum("ibq,iq->ib", iinv, ri)
     return ParamPieces(dxc, dxi, neq.gk.new_zeros((k_, c)))
+
+
+def _schur_solve_points(neq: NormalEq, damp: ParamPieces, hcc, hii):
+    """The point-block (c > 0) branch of schur_solve, with poses (b > 0)."""
+    c_, i_, k_ = neq.hcc.shape[0], neq.hii.shape[0], neq.hkk.shape[0]
+    a, b, c = neq.hcc.shape[2], neq.hii.shape[2], neq.hkk.shape[2]
+    # eliminate the points
+    kinv = _normalized_inv(neq.hkk + torch.diag_embed(damp.key))  # (K,c,c)
+    uck = torch.einsum("ckap,kpq->ckaq", neq.wck, kinv)           # (C,K,a,c)
+    uik = torch.einsum("ikbp,kpq->ikbq", neq.wik, kinv)           # (I,K,b,c)
+    gc = neq.gc - torch.einsum("ckaq,kq->ca", uck, neq.gk)
+    gi = neq.gi - torch.einsum("ikbq,kq->ib", uik, neq.gk)
+
+    # direct couplings + damped block diagonals, flat (R, R), R = C*a + I*b
+    na, nb = c_ * a, i_ * b
+    wci_f = neq.wci.permute(0, 2, 1, 3).reshape(na, nb)
+    amat = torch.cat([
+        torch.cat([block_diag_dense(hcc), wci_f], dim=1),
+        torch.cat([wci_f.T, block_diag_dense(hii)], dim=1)], dim=0)
+    rhs = -torch.cat([gc.reshape(-1), gi.reshape(-1)])
+    # the point-elimination correction as one stacked product: per point,
+    # V(k) (c, R) gathers every reduced column it couples to, and
+    # sum_k V(k)^T Hkk(k)^-1 V(k) is one (K*c, R) x (K*c, R) product
+    v = torch.cat([neq.wck.permute(1, 3, 0, 2).reshape(k_, c, na),
+                   neq.wik.permute(1, 3, 0, 2).reshape(k_, c, nb)], dim=2)
+    t = torch.einsum("kpq,kqr->kpr", kinv, v)
+    amat = amat - torch.einsum("kpr,kps->rs", v, t)
+    sol = _psd_solve(amat, rhs)
+    dxc = sol[:na].reshape(c_, a)
+    dxi = sol[na:].reshape(i_, b)
+
+    # back-substitute the points
+    rk = (-neq.gk - torch.einsum("ckap,ca->kp", neq.wck, dxc)
+          - torch.einsum("ikbp,ib->kp", neq.wik, dxi))
+    return ParamPieces(dxc, dxi, torch.einsum("kpq,kq->kp", kinv, rk))
 
 
 def _block_diag_add(full: torch.Tensor,

@@ -1,5 +1,8 @@
 """The CUDA kernels on a card: each against its float64 plain twin.
 
+Kernels A and B (template chain, ``cuda_grams``) and Kernels C and D
+(self-calibration chain, ``cuda_selfcal_grams``).
+
 Imports torch and pycamset_tpu_torch only (the card's machine has no jax),
 so on a card it runs without the JAX-forcing conftest:
 
@@ -8,7 +11,8 @@ so on a card it runs without the JAX-forcing conftest:
 Without a card every test skips. Tolerance: 1e-4 of each output's max-abs
 scale, and 1e-4 entry by entry in the solver's Jacobi scaling
 (``cuda_grams.scaled_errors``): float32 sums of up to 2K terms per gram
-entry vs float64.
+entry vs float64. Each fused kernel, and Kernel D, gives the same bits on
+a repeat launch (no float atomics).
 """
 import numpy as np
 import pytest
@@ -102,3 +106,80 @@ def test_cuda_wrappers_raise_instead_of_falling_back(card):
         cg.template_gram(f32[0], f32[1], f32[2].cpu(), *f32[3:])
     with pytest.raises(ValueError):
         cg.template_gram_fused(*f32, 2, 4)
+
+
+def _selfcal_inputs(dev, n_cams, n_ims, grid, noise_px=3.0):
+    """Float32 per-block inputs of a self-cal rig with noisy detections, a
+    camera column fixed beside the problem's own masks (pose 0, the point
+    gauge, the pad keys)."""
+    from pycamset_tpu_torch.problems import selfcal_problem
+    prob = selfcal_problem(n_cams, n_ims, dev, torch.float32, grid=grid,
+                           k_pad_multiple=8)
+    rng = np.random.default_rng(1)
+    uv = prob.uv + torch.as_tensor(rng.normal(size=tuple(prob.uv.shape))
+                                   * noise_px, dtype=torch.float32,
+                                   device=dev) * prob.mask[..., None]
+    cmask = prob.colmask.cam.clone()
+    cmask[:, 3] = 0.0
+    return (torch.repeat_interleave(prob.x0.cam, n_ims, dim=0),
+            prob.x0.im.repeat(n_cams, 1), prob.x0.key, uv.contiguous(),
+            prob.mask, torch.repeat_interleave(cmask, n_ims, dim=0),
+            prob.colmask.im.repeat(n_cams, 1), prob.colmask.key)
+
+
+# grid 5: K = 32, one partial tile; grid 14: K = 200, a full and a partial
+# tile. n_ims 20 = two chunks of 8 and a partial one; n_ims 3 < one chunk.
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cams,n_ims,grid", [(4, 20, 5), (3, 3, 14)])
+@pytest.mark.parametrize("loss,semantics", LOSS_CASES)
+def test_selfcal_kernels_match_plain_twins(card, n_cams, n_ims, grid, loss,
+                                           semantics):
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    f32 = _selfcal_inputs(card, n_cams, n_ims, grid)
+    f64 = tuple(x.double() for x in f32)
+    kw = dict(loss=loss, f_scale=2.0, loss_semantics=semantics)
+    n_c, n_d = sg.selfcal_gram_fused.launches, sg.selfcal_gram.launches
+    d_got = sg.selfcal_gram(*f32, **kw)
+    d_ref = sg.selfcal_gram_plain(*f64, **kw)
+    for name, g, r in zip(["gram", "wck_b", "wik_b", "hkk", "gk"], d_got,
+                          d_ref):
+        _assert_close(g, r, name)
+    _assert_scaled(sg.scaled_errors_selfcal(d_got, d_ref), "D")
+    no_cmask = (*f32[:5], *f32[6:])
+    c_got = sg.selfcal_gram_fused(*no_cmask, n_cams, n_ims, **kw)
+    c_ref = sg.selfcal_gram_fused_plain(*(x.double() for x in no_cmask),
+                                        n_cams, n_ims, **kw)
+    for name, g, r in zip(["hcc", "gc", "wck", "wik", "wci", "gii", "gi",
+                           "corner", "hkk", "gk"], c_got, c_ref):
+        _assert_close(g, r, name)
+    gram = sg.selfcal_gram_plain(*f64[:5], torch.ones_like(f64[5]),
+                                 *f64[6:], **kw)[0]
+    _assert_scaled(sg.scaled_errors_selfcal_fused(c_got, c_ref, gram,
+                                                  n_cams, n_ims), "C")
+    assert (sg.selfcal_gram_fused.launches, sg.selfcal_gram.launches) == (
+        n_c + 1, n_d + 1)
+
+
+@pytest.mark.cuda
+def test_selfcal_kernels_are_reproducible(card):
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    f32 = _selfcal_inputs(card, 4, 20, 6)
+    no_cmask = (*f32[:5], *f32[6:])
+    for run in (lambda: sg.selfcal_gram(*f32, loss="huber"),
+                lambda: sg.selfcal_gram_fused(*no_cmask, 4, 20,
+                                              loss="huber")):
+        first, again = run(), run()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_selfcal_wrappers_raise_instead_of_falling_back(card):
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    f32 = _selfcal_inputs(card, 2, 3, 4)
+    with pytest.raises(TypeError):
+        sg.selfcal_gram(*(x.double() for x in f32))
+    with pytest.raises(ValueError):
+        sg.selfcal_gram(*f32[:7], f32[7].cpu())
+    with pytest.raises(ValueError):
+        sg.selfcal_gram_fused(*f32[:5], *f32[6:], 2, 4)

@@ -103,7 +103,9 @@ def test_max_nfev_budget_sets_status_4():
 def test_package_imports_neither_jax_nor_cv2():
     code = ("import pycamset_tpu_torch, pycamset_tpu_torch.problems, "
             "pycamset_tpu_torch.optim.cuda_grams, pycamset_tpu_torch._build, "
-            "sys; bad = [m for m in ('jax', 'cv2', 'pycamset_tpu') "
+            "pycamset_tpu_torch.optim.cuda_selfcal_grams, "
+            "pycamset_tpu_torch.optim.analytic, "
+            "pycamset_tpu_torch.optim.structured, sys; bad = [m for m in ('jax', 'cv2', 'pycamset_tpu') "
             "if m in sys.modules]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

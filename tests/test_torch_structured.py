@@ -166,14 +166,9 @@ def test_neq_diag_matvec_and_schur_solve_match_jax():
 
 
 def test_unported_chains_and_solvers_raise():
-    from pycamset_tpu_torch.optim.blocks import FunctionBlock, ParamSpec
-    from pycamset_tpu_torch.optim.blocks import key_type as kt
-
-    class FreePoint(FunctionBlock):
-        params = ParamSpec(kt.PER_KEY, 3)
-
+    # the pose-free free-point chain is not ported yet
     top = TOptimFunction([tb.Projection(), tb.Extrinsic3D(),
-                          tb.RigidTform3d(), FreePoint()])
+                          tb.FreePoint()])
     with pytest.raises(ts.UnsupportedChain, match="not ported yet"):
         ts.make_structured_neq(top, ts.chain_widths(top), 2, 3)
     _, tneq = _neqs(3, 5)
