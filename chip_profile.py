@@ -4,13 +4,16 @@
     python3 chip_profile.py
 
 Solves the template problem (``bench.py::standard_problem``) at 16 x 100
-and 64 x 400 and the self-calibration problem (``bench.py::selfcal_problem``)
-at 16 x 100 and 64 x 12 with the port: one warm-up, five solves timed with
-CUDA events, then one more under ``torch.profiler``. Prints per shape: LM iterations, the median solve time,
-the profiled solve's wall time, the device's busy time in it (the sum of
-its device kernels, copies and fills) and the idle share that leaves of the
-median solve, the number of device events, and the top operations by
-device and by host time.
+and 64 x 400, the self-calibration problem (``bench.py::selfcal_problem``)
+at 16 x 100 and 64 x 12, the mixed multi-target problem
+(``bench.py::mixed_problem``) at 16 x 100 and 64 x 12 and the grouped
+multi-target template problem (``problems.grouped_problem``) at 16 x 100
+with the port: one warm-up, five solves timed with CUDA events, then one
+more under ``torch.profiler``. Prints per shape: LM iterations, the median
+solve time, the profiled solve's wall time, the device's busy time in it
+(the sum of its device kernels, copies and fills) and the idle share that
+leaves of the median solve, the number of device events, and the top
+operations by device and by host time.
 Imports neither jax nor pycamset_tpu; needs one CUDA card and nvcc.
 """
 from __future__ import annotations
@@ -24,17 +27,21 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from pycamset_tpu_torch.problems import selfcal_problem, standard_problem
+    from pycamset_tpu_torch.problems import (grouped_problem, mixed_problem,
+                                             selfcal_problem, standard_problem)
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    for make, n_cams, n_ims in ((standard_problem, 16, 100),
-                                (standard_problem, 64, 400),
-                                (selfcal_problem, 16, 100),
-                                (selfcal_problem, 64, 12)):
+    for chain, make, n_cams, n_ims in (
+            ("template", standard_problem, 16, 100),
+            ("template", standard_problem, 64, 400),
+            ("selfcal", selfcal_problem, 16, 100),
+            ("selfcal", selfcal_problem, 64, 12),
+            ("mixed", mixed_problem, 16, 100),
+            ("mixed", mixed_problem, 64, 12),
+            ("grouped", grouped_problem, 16, 100)):
         prob = make(n_cams, n_ims, dev)
-        chain = "template" if make is standard_problem else "selfcal"
         prob.solve()
         times = []
         for _ in range(5):

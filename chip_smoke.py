@@ -6,13 +6,20 @@
 Builds the kernels of ``pycamset_tpu_torch/csrc`` with nvcc and holds each
 kernel against its plain PyTorch twin on the card, at both shapes of its
 chain, for the four losses, and checks that a repeat launch gives the same
-bits. Then it solves four bundle adjustments, each through one kernel:
+bits. Then it solves seven bundle adjustments, each through one kernel:
 
 - template (``bench.py::standard_problem``) 16 cameras x 100 views through
   Kernel A (per-block gram) and 64 x 400 through Kernel B (fused);
 - self-calibration (``bench.py::selfcal_problem``, free target points)
   16 x 100 through Kernel C (fused) and 64 x 12 through Kernel D
-  (per-block),
+  (per-block);
+- mixed multi-target self-calibration (``bench.py::mixed_problem``: free
+  target points and a free relative pose for each of two targets) 16 x 100
+  through Kernel E (fused, key width 9) and 64 x 12 through Kernel F
+  (per-block, key width 9);
+- grouped multi-target template (``problems.grouped_problem``, the mixed
+  problem's rig with the points from the template) 16 x 100 through
+  Kernel E at key width 6,
 
 and checks each solve; the 16 x 100 solves also against the port's float64
 solve on the CPU. Every phase prints one line; any failure raises, so the
@@ -50,14 +57,34 @@ KERNELS = {
                            f"{PALLAS}:805", "selfcal 16x100"),
     "selfcal_gram": ("pycamset_tpu_torch/csrc/selfcal_grams.cu",
                      f"{PALLAS}:1019", "selfcal 64x12"),
+    "mixed_gram_fused": ("pycamset_tpu_torch/csrc/mixed_grams.cu",
+                         f"{PALLAS}:1576", "mixed 16x100"),
+    "mixed_gram": ("pycamset_tpu_torch/csrc/mixed_grams.cu",
+                   f"{PALLAS}:1327", "mixed 64x12"),
 }
+# main-path solve -> (the one kernel it must launch, its key width)
+MAIN_PATH = {"template 16x100": ("template_gram", None),
+             "template 64x400": ("template_gram_fused", None),
+             "selfcal 16x100": ("selfcal_gram_fused", None),
+             "selfcal 64x12": ("selfcal_gram", None),
+             "mixed 16x100": ("mixed_gram_fused", 9),
+             "mixed 64x12": ("mixed_gram", 9),
+             "grouped 16x100": ("mixed_gram_fused", 6)}
 # H100 SXM data sheet: HBM rate and FP32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # products per real detection: the 253 gram entries over its two rows;
-# self-cal adds wck (45), wik (18), hkk (6) and gk (3). 2 FLOP per product
-# pair term (multiply-add), row arithmetic not counted.
+# self-cal adds wck (45), wik (18), hkk (6) and gk (3), the multi-target
+# kernels wcc (15 cw), wic (6 cw), hkk (cw (cw + 1) / 2) and gk (cw). 2 FLOP
+# per product pair term (multiply-add), row arithmetic not counted.
 FLOP_PER_DETECTION = {"template": 253 * 4, "selfcal": (253 + 72) * 4}
+
+
+def flop_per_detection(name: str, cw: int | None = None) -> int:
+    if name.startswith("mixed"):
+        return (253 + 21 * cw + cw * (cw + 1) // 2 + cw) * 4
+    return FLOP_PER_DETECTION["selfcal" if name.startswith("selfcal")
+                              else "template"]
 
 
 def say(tag: str, **fields):
@@ -71,13 +98,24 @@ def check(cond: bool, what: str):
 
 
 def wrappers():
-    """The four kernel wrappers, whose ``launches`` count the kernels."""
+    """The six kernel wrappers, whose ``launches`` count the kernels (the
+    multi-target ones also per key width, ``launches_by_cw``)."""
     from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
     return {"template_gram": cg.template_gram,
             "template_gram_fused": cg.template_gram_fused,
             "selfcal_gram_fused": sg.selfcal_gram_fused,
-            "selfcal_gram": sg.selfcal_gram}
+            "selfcal_gram": sg.selfcal_gram,
+            "mixed_gram_fused": mg.mixed_gram_fused,
+            "mixed_gram": mg.mixed_gram}
+
+
+def zero_counts(counted):
+    for fn in counted.values():
+        fn.launches = 0
+        for cw in getattr(fn, "launches_by_cw", {}):
+            fn.launches_by_cw[cw] = 0
 
 
 def cuda_ms(fn, n: int, warmup: int = 2) -> float:
@@ -95,15 +133,26 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def bound(name: str, prob) -> tuple[float, str]:
+def bound(name: str, prob, cw: int | None = None) -> tuple[float, str]:
     """The least time the card could take for one call of a kernel on a
     problem's inputs: the larger of its bytes (each input read once, each
     output written once) over the HBM rate and its products over the FP32
-    rate, counted for the problem's real detections."""
+    rate, counted for the problem's real detections. ``cw``: the key width
+    of a multi-target kernel."""
     bb, k = prob.mask.shape
     c = prob.blocks.n_cams
     ins = bb * 96 + k * 3 + bb * k * 3          # packed, points, uv, mask
-    if name == "template_gram":
+    if name.startswith("mixed"):
+        # packed, per-key group data (48 rows), uv, mask, cmask, imask,
+        # kmask; the per-key outputs hkk and gk
+        ins = bb * 96 + k * 48 + bb * k * 3 + bb * 21 + k * cw
+        outs = k * cw * (cw + 1)
+        if name == "mixed_gram":
+            outs += bb * 22 * 22 + bb * k * 21 * cw
+        else:
+            outs += (c * (225 + 15 + 15 * cw * k) + bb * k * 6 * cw
+                     + bb * (90 + 36 + 6 + 1))
+    elif name == "template_gram":
         outs = bb * 22 * 22
     elif name == "template_gram_fused":
         outs = c * (225 + 15) + bb * (90 + 36 + 6 + 1)
@@ -115,8 +164,7 @@ def bound(name: str, prob) -> tuple[float, str]:
         outs = (c * (225 + 15 + 45 * k) + bb * k * 18
                 + bb * (90 + 36 + 6 + 1) + k * 12)
     t_bytes = 4 * (ins + outs) / HBM_BYTES_PER_S
-    family = "selfcal" if name.startswith("selfcal") else "template"
-    t_ops = (prob.blocks.n_real * FLOP_PER_DETECTION[family]
+    t_ops = (prob.blocks.n_real * flop_per_detection(name, cw)
              / FP32_FLOP_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -129,6 +177,24 @@ def template_inputs(prob):
     cam_b = torch.repeat_interleave(prob.x0.cam, n_ims, dim=0)
     im_b = prob.x0.im.repeat(n_cams, 1)
     return cam_b, im_b, prob.tpl, prob.uv, prob.mask
+
+
+def _mover(seed: int):
+    """moved(x, scale, colmask): x plus rng(seed) normal steps of ``scale``
+    on its free (colmask 1) entries, drawn in call order."""
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def moved(x, scale, colmask):
+        step = rng.normal(size=tuple(x.shape)) * scale
+        return x + torch.as_tensor(step, dtype=x.dtype,
+                                   device=x.device) * colmask
+
+    return moved
+
+
+CAM_SCALE = np.array([10.0, 5, 10, 5, 1e-2, 1e-3, 1e-4, 1e-4, 1e-4]
+                     + [1e-2] * 6)
 
 
 def selfcal_inputs(prob, seed: int = 1):
@@ -144,16 +210,8 @@ def selfcal_inputs(prob, seed: int = 1):
     """
     import torch
     n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
-    rng = np.random.default_rng(seed)
-    cam_scale = np.array([10.0, 5, 10, 5, 1e-2, 1e-3, 1e-4, 1e-4, 1e-4]
-                         + [1e-2] * 6)
-
-    def moved(x, scale, colmask):
-        step = rng.normal(size=tuple(x.shape)) * scale
-        return x + torch.as_tensor(step, dtype=x.dtype,
-                                   device=x.device) * colmask
-
-    cam = moved(prob.x0.cam, cam_scale, prob.colmask.cam)
+    moved = _mover(seed)
+    cam = moved(prob.x0.cam, CAM_SCALE, prob.colmask.cam)
     im = moved(prob.x0.im, 1e-2, prob.colmask.im)
     key = moved(prob.x0.key, 1e-3, prob.colmask.key)
     cmask = prob.colmask.cam.clone()
@@ -162,6 +220,35 @@ def selfcal_inputs(prob, seed: int = 1):
             im.repeat(n_cams, 1), key, prob.uv, prob.mask,
             torch.repeat_interleave(cmask, n_ims, dim=0),
             prob.colmask.im.repeat(n_cams, 1), prob.colmask.key)
+
+
+def multi_target_inputs(prob, seed: int = 1):
+    """The per-block tensors of a mixed or grouped problem at a perturbed
+    start: cameras and poses moved as ``selfcal_inputs`` moves them, the free
+    group pose by 1e-2 and the free points by 1 mm, the fixed entries left
+    alone; the group poses expanded per key; one camera column fixed beside
+    the problem's own masks.
+
+    :return: (cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask).
+    """
+    import torch
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    moved = _mover(seed)
+    x, cm = prob.x0, prob.colmask
+    cam = moved(x.cam, CAM_SCALE, cm.cam)
+    im = moved(x.im, 1e-2, cm.im)
+    if hasattr(x, "grp"):       # mixed: free points and group poses
+        x = x._replace(cam=cam, im=im, key=moved(x.key, 1e-3, cm.key),
+                       grp=moved(x.grp, 1e-2, cm.grp))
+    else:                       # grouped: the group poses are its key piece
+        x = x._replace(cam=cam, im=im, key=moved(x.key, 1e-2, cm.key))
+    keyp, kmask = prob.key_operands(x, cm)
+    cmask = cm.cam.clone()
+    cmask[:, 3] = 0.0
+    return (torch.repeat_interleave(cam, n_ims, dim=0), im.repeat(n_cams, 1),
+            keyp, prob.tpl, prob.uv, prob.mask,
+            torch.repeat_interleave(cmask, n_ims, dim=0),
+            cm.im.repeat(n_cams, 1), kmask)
 
 
 def max_abs_errors(got, ref) -> list[float]:
@@ -381,34 +468,130 @@ def phase_selfcal_kernels(probs, out):
                 plain_ms=t[name + "_plain"], bmm_ms=t["bmm_25"])
 
 
+def phase_mixed_kernels(probs, out):
+    """Kernels E and F vs their float64 plain twins at the three
+    multi-target shapes (key width 9 for the mixed chain, 6 for the grouped
+    one), all four losses, with the per-group pieces the solver sums from
+    them, and a repeat launch; times per shape."""
+    import torch
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    for shape in ("mixed 16x100", "grouped 16x100", "mixed 64x12"):
+        prob = probs[shape]
+        n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+        wk = shape.startswith("mixed")
+        cw = mg.key_width(wk)
+        oh = prob.onehot(prob.uv)
+        f32 = multi_target_inputs(prob)
+        f64 = tuple(t.double() for t in f32)
+        for loss, sem in LOSS_CASES:
+            kw = dict(with_key_cols=wk, loss=loss, f_scale=2.0,
+                      loss_semantics=sem)
+            f_got = mg.mixed_gram(*f32, **kw)
+            f_ref = mg.mixed_gram_plain(*f64, **kw)
+            f_scaled = mg.scaled_errors_mixed(f_got, f_ref)
+            f_grp = mg.scaled_errors_groups(f_got, f_ref, oh, n_cams, n_ims)
+            e_got = mg.mixed_gram_fused(*f32, n_cams, n_ims, **kw)
+            e_ref = mg.mixed_gram_fused_plain(*f64, n_cams, n_ims, **kw)
+            e_scaled = mg.scaled_errors_mixed_fused(e_got, e_ref, f_ref[0],
+                                                    n_cams, n_ims)
+            e_grp = mg.scaled_errors_groups(e_got, e_ref, oh, n_cams, n_ims)
+            f_rel = max_abs_errors(f_got, f_ref)
+            e_rel = max_abs_errors(e_got, e_ref)
+            say("parity", shape=shape, cw=cw, loss=loss, semantics=sem,
+                tol=TOL, **{f"E_{k}": f"{v:.2e}" for k, v in e_scaled.items()},
+                **{f"F_{k}": f"{v:.2e}" for k, v in f_scaled.items()})
+            say("parity_groups", shape=shape, cw=cw, loss=loss,
+                semantics=sem, tol=TOL,
+                **{f"E_{k}": f"{v:.2e}" for k, v in e_grp.items()},
+                **{f"F_{k}": f"{v:.2e}" for k, v in f_grp.items()})
+            say("parity_max_abs", shape=shape, cw=cw, loss=loss,
+                semantics=sem, tol=TOL,
+                **{f"E_{k}": f"{v:.2e}" for k, v in zip(
+                    ("hcc", "gc", "wcc", "wic", "wci", "gii", "gi", "corner",
+                     "hkk", "gk"), e_rel)},
+                **{f"F_{k}": f"{v:.2e}" for k, v in zip(
+                    ("gram", "wcc_b", "wic_b", "hkk", "gk"), f_rel)})
+            record(out, "mixed_gram", shape, parity(
+                f"mixed_gram {shape} {loss}/{sem}", f_got, f_ref,
+                {**f_scaled, **f_grp}))
+            record(out, "mixed_gram_fused", shape, parity(
+                f"mixed_gram_fused {shape} {loss}/{sem}", e_got, e_ref,
+                {**e_scaled, **e_grp}))
+            del f_got, f_ref, e_got, e_ref
+        same_bits("mixed_gram", lambda: mg.mixed_gram(*f32, wk))
+        same_bits("mixed_gram_fused",
+                  lambda: mg.mixed_gram_fused(*f32, n_cams, n_ims, wk))
+
+        # times (linear loss); *_kernel: the launch alone on pre-packed
+        # block parameters and per-key group data
+        packed = mg.pack_block_params(*f32[:2])
+        keyp, tpl = f32[2], f32[3]
+        kd = mg.pack_key_group_data(keyp[:, :6],
+                                    keyp[:, 6:9] if wk else tpl)
+        grid = f32[4:]
+        t = {
+            "mixed_gram_kernel": cuda_ms(
+                lambda: mg._launch_mixed(packed, kd, *grid, 0, 1, 1.0), 50),
+            "mixed_gram_fused_kernel": cuda_ms(
+                lambda: mg._launch_mixed_fused(packed, kd, *grid, n_cams,
+                                               n_ims, 0, 1, 1.0), 50),
+            "mixed_gram": cuda_ms(lambda: mg.mixed_gram(*f32, wk), 20),
+            "mixed_gram_plain": cuda_ms(
+                lambda: mg.mixed_gram_plain(*f32, wk), 10),
+            "mixed_gram_fused": cuda_ms(
+                lambda: mg.mixed_gram_fused(*f32, n_cams, n_ims, wk), 20),
+            "mixed_gram_fused_plain": cuda_ms(
+                lambda: mg.mixed_gram_fused_plain(*f32, n_cams, n_ims, wk),
+                10),
+            "pack_key_group_data": cuda_ms(
+                lambda: mg.pack_key_group_data(keyp[:, :6], tpl), 20),
+            f"bmm_{22 + cw}": bmm_ms(prob, 22 + cw, 20),
+        }
+        say("time", shape=shape, cw=cw, unit="ms",
+            **{k: f"{v:.4f}" for k, v in t.items()})
+        for name in ("mixed_gram", "mixed_gram_fused"):
+            out[name][shape].update(
+                ms=t[name], kernel_ms=t[name + "_kernel"],
+                plain_ms=t[name + "_plain"], bmm_ms=t[f"bmm_{22 + cw}"])
+        torch.cuda.empty_cache()
+
+
 def phase_main_path(probs):
     """The main path: each solve once, with every launch count set to 0
-    just before it; each must launch its own kernel and no other."""
+    just before it; each must launch its own kernel, at its own key width,
+    and no other.
+
+    :return: (results, launches): launches[kernel][shape] per solve."""
     import torch
     counted = wrappers()
-    main_of = {shape: name for name, (_, _, shape) in KERNELS.items()}
-    results, launches = {}, {}
+    results, launches = {}, {name: {} for name in KERNELS}
     for shape, prob in probs.items():
-        for fn in counted.values():
-            fn.launches = 0
+        zero_counts(counted)
         results[shape] = prob.solve()
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in counted.items()}
+        by_cw = {f"launches_{name}_cw{cw}": n
+                 for name, fn in counted.items()
+                 for cw, n in getattr(fn, "launches_by_cw", {}).items()}
         say("main_path", shape=shape.replace(" ", "_"),
-            **{f"launches_{k}": v for k, v in counts.items()})
+            **{f"launches_{k}": v for k, v in counts.items()}, **by_cw)
+        own, cw = MAIN_PATH[shape]
         for name, n in counts.items():
-            if name == main_of[shape]:
+            if name == own:
                 check(n > 0, f"the {shape} solve did not launch {name}")
-                launches[name] = n
+                launches[name][shape] = n
             else:
                 check(n == 0, f"the {shape} solve launched {name}")
+        if cw is not None:
+            check(counted[own].launches_by_cw[cw] == counts[own],
+                  f"the {shape} solve launched {own} at another key width")
     return results, launches
 
 
-def phase_solve(shape, prob, res, cpu_problem=None):
-    """Check one solve (status 1 or 2, nit <= 10, rms <= 0.36 px), time
-    five warm solves, and, given the problem's builder, hold the final cost
-    to the port's float64 solve on the CPU."""
+def phase_solve(shape, prob, res, cpu_problem=None, max_nit=10):
+    """Check one solve (status 1 or 2, nit <= max_nit unless None,
+    rms <= 0.36 px), time five warm solves, and, given the problem's
+    builder, hold the final cost to the port's float64 solve on the CPU."""
     import torch
     status = int(res.status)
     rms = prob.rms_px(res.cost)
@@ -432,7 +615,8 @@ def phase_solve(shape, prob, res, cpu_problem=None):
                   solve_ms_all=",".join(f"{x:.2f}" for x in times[1:]))
     check(status in (1, 2), f"{shape} status {status}")
     check(rms <= 0.36, f"{shape} rms {rms} above 1.2 x noise floor")
-    check(res.nit <= 10, f"{shape} nit {res.nit} > 10")
+    check(max_nit is None or res.nit <= max_nit,
+          f"{shape} nit {res.nit} > {max_nit}")
     if cpu_problem is not None:
         n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
         t0 = time.perf_counter()
@@ -458,35 +642,46 @@ def main() -> int:
     smi = phase_device()
     phase_build()
 
-    from pycamset_tpu_torch.problems import selfcal_problem, standard_problem
+    from pycamset_tpu_torch.problems import (grouped_problem, mixed_problem,
+                                             selfcal_problem, standard_problem)
     dev = torch.device("cuda", 0)
     probs = {"template 16x100": standard_problem(16, 100, dev),
              "template 64x400": standard_problem(64, 400, dev),
              "selfcal 16x100": selfcal_problem(16, 100, dev),
-             "selfcal 64x12": selfcal_problem(64, 12, dev)}
+             "selfcal 64x12": selfcal_problem(64, 12, dev),
+             "mixed 16x100": mixed_problem(16, 100, dev),
+             "mixed 64x12": mixed_problem(64, 12, dev),
+             "grouped 16x100": grouped_problem(16, 100, dev)}
     say("problems", **{s.replace(" ", "_"):
                        f"B={p.mask.shape[0]},K={p.mask.shape[1]},"
                        f"n_real={p.blocks.n_real}" for s, p in probs.items()})
     kern = {name: {} for name in KERNELS}
     phase_template_kernels(probs, kern)
     phase_selfcal_kernels(probs, kern)
+    phase_mixed_kernels(probs, kern)
     say("elapsed", after="kernels",
         seconds=f"{time.perf_counter() - t_start:.1f}")
     results, launches = phase_main_path(probs)
+    cpu_of = {"template 16x100": standard_problem,
+              "selfcal 16x100": selfcal_problem,
+              "mixed 16x100": mixed_problem,
+              "grouped 16x100": grouped_problem}
     for shape, prob in probs.items():
-        cpu = {"template 16x100": standard_problem,
-               "selfcal 16x100": selfcal_problem}.get(shape)
-        phase_solve(shape, prob, results[shape], cpu)
+        # the multi-target solves have a budget of 60 evaluations and no
+        # iteration bound of their own (bench.py::mixed_problem)
+        max_nit = None if MAIN_PATH[shape][1] else 10
+        phase_solve(shape, prob, results[shape], cpu_of.get(shape), max_nit)
     say("elapsed", after="solves",
         seconds=f"{time.perf_counter() - t_start:.1f}")
 
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():
         rec = kern[name][shape]
-        bound_ms, bound_by = bound(name, probs[shape])
+        bound_ms, bound_by = bound(name, probs[shape], MAIN_PATH[shape][1])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(launches[name].values()),
+            "launches_by_solve": launches[name],
             "max_abs_err": max(r["abs"] for r in kern[name].values()),
             "max_rel_err": max(r["rel"] for r in kern[name].values()),
             "max_scaled_err": max(r["scaled"] for r in kern[name].values()),

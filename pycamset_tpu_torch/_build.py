@@ -9,7 +9,8 @@ rebuilds), and loaded with ``ctypes``. A library that includes no PyTorch
 header builds in seconds.
 
 Nothing here runs at import: ``load()`` is called by the kernel wrappers
-(``optim/cuda_grams.py``, ``optim/cuda_selfcal_grams.py``) the first time a CUDA tensor reaches them.
+(``optim/cuda_grams.py``, ``optim/cuda_selfcal_grams.py``,
+``optim/cuda_mixed_grams.py``) the first time a CUDA tensor reaches them.
 """
 from __future__ import annotations
 
@@ -33,8 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argument types of the C entry points of csrc/template_grams.cu and
-# csrc/selfcal_grams.cu
+# argument types of the C entry points of csrc/template_grams.cu,
+# csrc/selfcal_grams.cu and csrc/mixed_grams.cu
 _SIGNATURES = {
     "pct_template_gram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "pct_template_gram_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
@@ -42,6 +43,9 @@ _SIGNATURES = {
     "pct_selfcal_gram": [_P] * 7 + [_I, _I, _I, _I, _F, _I] + [_P] * 8,
     "pct_selfcal_gram_fused": [_P] * 6 + [_I, _I, _I, _I, _I, _F, _I]
                               + [_P] * 15,
+    "pct_mixed_gram": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _I] + [_P] * 8,
+    "pct_mixed_gram_fused": [_P] * 7 + [_I, _I, _I, _I, _I, _I, _F, _I]
+                            + [_P] * 15,
 }
 
 

@@ -12,6 +12,7 @@ import torch
 
 from pycamset_tpu_torch.config import resolve_device
 from pycamset_tpu_torch.optim.structured import ParamPieces
+from pycamset_tpu_torch.optim.structured_mixed import MixedPieces
 
 
 def tensor_from_numpy(a, device, dtype) -> torch.Tensor:
@@ -30,3 +31,10 @@ def pieces_from_numpy(cam, im, key, device, dtype) -> ParamPieces:
 def grid_from_numpy(uv, mask, tpl, device, dtype):
     """(uv (B,K,2), mask (B,K), tpl (K,3)) numpy -> tensors."""
     return tuple(tensor_from_numpy(a, device, dtype) for a in (uv, mask, tpl))
+
+
+def mixed_pieces_from_numpy(cam, im, key, grp, device, dtype) -> MixedPieces:
+    """(cam, im, key, grp) numpy pieces of a mixed chain, or its column
+    masks -> MixedPieces."""
+    return MixedPieces(*(tensor_from_numpy(p, device, dtype)
+                         for p in (cam, im, key, grp)))

@@ -1,15 +1,17 @@
-"""Closed-form residual + Jacobian for the template and self-calibration
-chains, standard model.
+"""Closed-form residual + Jacobian for the template, self-calibration and
+multi-target chains, standard model.
 
-Counterpart of ``projection_partials``, ``block_rj_template`` and
-``block_rj_selfcal`` in ``pycamset_tpu/optim/analytic.py``. The JAX
+Counterpart of ``projection_partials``, ``block_rj_template``,
+``block_rj_selfcal``, ``block_rj_grouped_template`` and
+``block_rj_mixed_selfcal`` in ``pycamset_tpu/optim/analytic.py``. The JAX
 functions work on one block and are vmapped over blocks; these take the
-block axis (any leading dims) directly. Rotation derivatives come from the closed-form
-``ops.rotations.rodrigues_jacobian`` instead of ``jax.jacfwd``.
+block axis (any leading dims) directly. Rotation derivatives come from the
+closed-form ``ops.rotations.rodrigues_jacobian`` instead of ``jax.jacfwd``.
 
 Derivative layout per slot: Jc (2, a) = [d/intr | d/extr6],
-Ji (2, 6) = d/pose6, Jk (2, 0) for the template chain and (2, 3) = d/point
-for the self-calibration chain.
+Ji (2, 6) = d/pose6, and Jk: (2, 0) for the template chain, (2, 3) =
+d/point for the self-calibration chain, (2, 6) = d/group pose for the
+grouped chain and (2, 9) = [d/group pose | d/point] for the mixed chain.
 """
 from __future__ import annotations
 
@@ -135,3 +137,51 @@ def block_rj_selfcal(cam_a: torch.Tensor, pose6: torch.Tensor,
     r, jc, ji, d_xc, rerp = _rj_core(cam_a, pose6, points, uv)
     jk = torch.einsum("...kta,...ab->...ktb", d_xc, rerp)
     return r, jc, ji, jk
+
+
+def _group_rj(cam_a, pose6, grp6, pts, uv):
+    """(r, Jc, Ji, [J_rvg | J_tg], d_xc, Re Rp, Rg) of
+    Xc = Re (Rp (Rg X + tg) + tp) + te, with the per-key group poses
+    ``grp6`` (K, 6) and points ``pts`` (K, 3)."""
+    rg = rodrigues_to_matrix(grp6[:, :3])                  # (K,3,3)
+    drg = rodrigues_jacobian(grp6[:, :3])                  # (K,3,3,3)
+    xg = torch.einsum("kab,kb->ka", rg, pts) + grp6[:, 3:]
+    r, jc, ji, d_xc, rerp = _rj_core(cam_a, pose6, xg, uv)
+    # group pose: dXc/drvg[j] = Re Rp dRg[j] X ; dXc/dtg = Re Rp
+    drg_x = torch.einsum("kjbc,kc->kjb", drg, pts)         # (K,3,3)
+    dxc_drvg = torch.einsum("...ab,kjb->...kaj", rerp, drg_x)
+    j_rvg = torch.einsum("...kta,...kaj->...ktj", d_xc, dxc_drvg)
+    j_tg = torch.einsum("...kta,...ab->...ktb", d_xc, rerp)
+    return r, jc, ji, torch.cat([j_rvg, j_tg], dim=-1), d_xc, rerp, rg
+
+
+def block_rj_grouped_template(cam_a: torch.Tensor, pose6: torch.Tensor,
+                              keyp6: torch.Tensor, tpl: torch.Tensor,
+                              uv: torch.Tensor):
+    """Closed-form (r, Jc, Ji, Jk) for blocks of the multi-target (grouped)
+    template chain: the template point pre-transformed by a per-GROUP
+    SE(3), expanded to one 6-row per key by the group one-hot.
+
+    :param keyp6: (K, 6) per-key group poses [rvec | t]. :param tpl: (K, 3).
+        Other shapes as ``block_rj_template``; Jk is (..., K, 2, 6),
+        [d/rvg | d/tg].
+    """
+    r, jc, ji, jk, _, _, _ = _group_rj(cam_a, pose6, keyp6, tpl, uv)
+    return r, jc, ji, jk
+
+
+def block_rj_mixed_selfcal(cam_a: torch.Tensor, pose6: torch.Tensor,
+                           keyp: torch.Tensor, uv: torch.Tensor):
+    """Closed-form (r, Jc, Ji, Jk) for blocks of the MIXED multi-target
+    self-calibration chain: free PER_KEY points pre-transformed by a
+    per-GROUP SE(3) (expanded per key), then the per-image pose.
+
+    :param keyp: (K, 9) c-axis rows in chain order [group pose 6 | point 3].
+    :return: Jk (..., K, 2, 9) in the same order; the point columns are
+        d(u,v)/dXc (Re Rp Rg).
+    """
+    r, jc, ji, jg, d_xc, rerp, rg = _group_rj(cam_a, pose6, keyp[:, :6],
+                                              keyp[:, 6:9], uv)
+    m_k = torch.einsum("...ab,kbc->...kac", rerp, rg)
+    j_pt = torch.einsum("...kta,...kab->...ktb", d_xc, m_k)
+    return r, jc, ji, torch.cat([jg, j_pt], dim=-1)

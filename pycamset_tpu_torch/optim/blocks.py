@@ -3,9 +3,11 @@
 A block is a plain function on tensors and a chain is their composition,
 evaluated right to left (the LAST block feeds the one before it). The port
 carries the blocks of the template chain
-``Projection + Extrinsic3D + TemplatePoints`` and of the self-calibration
-chain ``Projection + Extrinsic3D + RigidTform3d + FreePoint``, standard
-camera model. The
+``Projection + Extrinsic3D + TemplatePoints``, of the self-calibration
+chain ``Projection + Extrinsic3D + RigidTform3d + FreePoint`` and of the
+two multi-target chains, ``... + RigidTform3d + GroupRigidTform3d +
+FreePoint`` (mixed) and ``... + RigidTform3d + GroupTemplatePoints``
+(grouped), standard camera model. The
 structured backend dispatches on the block class names, as the JAX package
 does, so the names are kept.
 """
@@ -110,3 +112,16 @@ class FreePoint(FunctionBlock):
 
     def compute(self, params, inp):
         return params
+
+
+class GroupRigidTform3d(RigidTform3d):
+    """SE(3) transform bound per feature group — e.g. the relative pose of
+    each of several rigidly-coupled calibration targets."""
+    params = ParamSpec(key_type.PER_GROUP, 6)
+
+
+class GroupTemplatePoints(TemplatePoints):
+    """Template lookup + SE(3) transform bound per feature GROUP: each
+    group's points are one rigid target posed relative to the base
+    target's frame."""
+    params = ParamSpec(key_type.PER_GROUP, 6)

@@ -63,8 +63,20 @@ def selfcal_gram_plain(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask,
         wik_b (B, K, 6, 3); hkk (K, 3, 3); gk (K, 3)), Jk masked by kmask.
     """
     from pycamset_tpu_torch.optim.analytic import block_rj_selfcal
+    return weighted_grams(*block_rj_selfcal(cam_b, im_b, keyp, uv), mask,
+                          cmask_b, imask_b, kmask, loss, f_scale,
+                          loss_semantics)
+
+
+def weighted_grams(r, jc, ji, jk, mask, cmask_b, imask_b, kmask,
+                   loss: str = "linear", f_scale: float = 1.0,
+                   loss_semantics: str = "component"):
+    """The per-block grams of a chain with key columns, from its closed-form
+    (r, Jc, Ji, Jk) over the (B, K) grid: IRLS-weighted rows, the camera,
+    pose and key columns masked, the extended (B, 22, 22) gram with the
+    (robust) cost in its corner, and the key couplings (the outputs of
+    ``selfcal_gram_plain``, with c = Jk's width)."""
     from pycamset_tpu_torch.optim.losses import irls_weigh
-    r, jc, ji, jk = block_rj_selfcal(cam_b, im_b, keyp, uv)
     r, sw, cost_b = irls_weigh(r, mask, loss, f_scale, loss_semantics)
     jc = jc * sw[..., None] * cmask_b[:, None, None, :]
     ji = ji * sw[..., None] * imask_b[:, None, None, :]

@@ -1,9 +1,9 @@
-"""Structured (block) normal equations + Schur step, template and
-self-calibration chains.
+"""Structured (block) normal equations + Schur step: the template,
+self-calibration and grouped multi-target chains.
 
-Counterpart of the template (c = 0) and self-calibration (c = 3) slices of
-``pycamset_tpu/optim/structured.py``; the names and contracts are the
-same. Detections lie on a dense (B, K) grid, B = n_cams * n_ims blocks (one
+Counterpart of the template (c = 0), self-calibration (c = 3) and grouped
+(c = 6, PER_GROUP) slices of ``pycamset_tpu/optim/structured.py``; the
+names and contracts are the same. Detections lie on a dense (B, K) grid, B = n_cams * n_ims blocks (one
 per camera-image pair, camera-major) and K padded keys. Every slot of a
 block shares the same camera and pose parameters, so the Jacobian splits by
 link into Jc (camera columns) and Ji (pose columns), and the normal
@@ -19,11 +19,18 @@ and, for the self-calibration chain (free target points, c = 3 per key),
     Wck (C,K,a,c) = sum over a camera's blocks of Jc^T Jk, per key
     Wik (I,K,b,c) = sum over an image's blocks of Ji^T Jk, per key
 
+For the grouped chain (one SE(3) per rigid target, c = 6 per GROUP) the
+same pieces come per key, with the group poses expanded onto the key grid
+by a (K, G) one-hot, and reduce back to per-group blocks through it. The
+mixed chain (per-key points AND per-group poses) has its own normal
+equations in ``optim/structured_mixed.py``.
+
 The grams come from hand-written CUDA kernels on a card
-(``optim/cuda_grams.py``, ``optim/cuda_selfcal_grams.py``) and from their
-plain PyTorch twins on the CPU; the choice between the per-block kernel and
-the fused-reduction kernel of a chain follows the JAX package's padding
-rule (``resolve_fused_grams``), on either device.
+(``optim/cuda_grams.py``, ``optim/cuda_selfcal_grams.py``,
+``optim/cuda_mixed_grams.py``) and from their plain PyTorch twins on the
+CPU; the choice between the per-block kernel and the fused-reduction kernel
+of a chain follows the JAX package's padding rule (``resolve_fused_grams``),
+on either device.
 
 Without point blocks the Schur step eliminates the exactly block-diagonal
 pose system in batch and solves the dense (C*a) camera system. With them it
@@ -32,9 +39,9 @@ parameters are handled by zeroing Jacobian COLUMNS (the column masks); a
 damping floor keeps the eliminated blocks invertible and gives exact zero
 steps for them.
 
-Not ported yet: the pose-free free-point and the grouped/mixed chains, the
-matrix-free CG reduced solver, other camera widths. They raise
-``UnsupportedChain`` or ``NotImplementedError`` naming the ROADMAP item.
+Not ported yet: the pose-free free-point chain, the matrix-free CG reduced
+solver, other camera widths. They raise ``UnsupportedChain`` or
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -56,11 +63,16 @@ FUSED_PAD_TILE = 16
 FUSED_PAD_FRAC = 0.05
 SELFCAL_PAD_TILES = (16, 8)
 SELFCAL_PAD_FRAC = 0.25
+# the multi-target (grouped and mixed) family: tile 8, 25%
+MIXED_PAD_TILE = 8
+MIXED_PAD_FRAC = 0.25
 # chain family by block names, with its (b, c) widths
 _FAMILIES = {
     ("Projection", "Extrinsic3D", "TemplatePoints"): ("template", (6, 0)),
     ("Projection", "Extrinsic3D", "RigidTform3d", "FreePoint"):
         ("selfcal", (6, 3)),
+    ("Projection", "Extrinsic3D", "RigidTform3d", "GroupTemplatePoints"):
+        ("grouped", (6, 6)),
 }
 
 
@@ -109,16 +121,18 @@ def chain_widths(op_fun: OptimFunction) -> GroupWidths:
 
 
 def chain_family(op_fun: OptimFunction, widths: GroupWidths) -> str:
-    """'template' or 'selfcal', by the chain's block names (as the JAX
-    package dispatches); any other chain raises ``UnsupportedChain``."""
+    """'template', 'selfcal' or 'grouped', by the chain's block names (as
+    the JAX package dispatches); any other chain raises
+    ``UnsupportedChain``."""
     names = tuple(type(bk).__name__ for bk in op_fun.blocks)
     family, bc = _FAMILIES.get(names, (None, None))
     if family is None or (widths.b, widths.c) != bc:
         raise UnsupportedChain(
-            f"chain {names} is not ported yet: the port serves the template "
-            f"and self-calibration chains {tuple(_FAMILIES)} only (the "
-            f"pose-free free-point chain is ROADMAP Queue A item 4, the "
-            f"grouped and mixed chains item 5)")
+            f"chain {names} is not ported yet: the structured path serves "
+            f"the chains {tuple(_FAMILIES)} only (the pose-free free-point "
+            f"chain is ROADMAP Queue A item 4; the mixed chain, with "
+            f"GroupRigidTform3d + FreePoint, goes through "
+            f"structured_mixed.make_mixed_structured_neq)")
     if widths.a != 15:
         raise NotImplementedError(
             f"camera width a={widths.a} is not ported yet (ROADMAP Queue A "
@@ -250,14 +264,18 @@ def resolve_block_grams(op_fun: OptimFunction, widths: GroupWidths,
                         loss: str = "linear", f_scale: float = 1.0,
                         loss_semantics: str = "component"):
     """Per-BLOCK gram builder (the 10-tuple contract of the JAX package's
-    make_block_grams): Kernel A's (template) or Kernel D's (self-cal)
-    builder, which launches the CUDA kernel for CUDA tensors and runs its
-    plain twin for CPU tensors. The port has no separate plain builder: the
-    twin is the one plain path."""
+    make_block_grams): Kernel A's (template), Kernel D's (self-cal) or
+    Kernel F's (grouped) builder, which launches the CUDA kernel for CUDA
+    tensors and runs its plain twin for CPU tensors. The port has no
+    separate plain builder: the twin is the one plain path."""
     kw = dict(loss=loss, f_scale=f_scale, loss_semantics=loss_semantics)
-    if chain_family(op_fun, widths) == "selfcal":
+    family = chain_family(op_fun, widths)
+    if family == "selfcal":
         from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
         return sg.make_cuda_selfcal_grams(widths, **kw)
+    if family == "grouped":
+        from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+        return mg.make_cuda_grouped_grams(widths, **kw)
     from pycamset_tpu_torch.optim import cuda_grams as cg
     return cg.make_cuda_template_grams(widths, **kw)
 
@@ -268,16 +286,28 @@ def resolve_fused_grams(op_fun: OptimFunction, widths: GroupWidths,
                         loss_semantics: str = "component"):
     """The FUSED-reduction gram builder, or None when the JAX package's
     padding rule declines it: the template image axis would pad past 5% at
-    tile 16, the self-cal one past 25% at its tile (``selfcal_pad_tile``).
+    tile 16, the self-cal one past 25% at its tile (``selfcal_pad_tile``),
+    the grouped one past 25% at tile 8.
 
     :return: (family, grams) or None.
         "template": grams(cam_b, im_b, tpl, uv, mask, cmask_b, imask_b)
                     -> (hcc, hii, wci, gc, gi, cost)
         "selfcal":  grams(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b,
                     kmask) -> the 10 NormalEq fields
+        "grouped":  grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b,
+                    imask_b, kmask) -> the 10 reduced pieces per KEY (the
+                    caller reduces the key-axis pieces with the group
+                    one-hot)
     """
     kw = dict(loss=loss, f_scale=f_scale, loss_semantics=loss_semantics)
-    if chain_family(op_fun, widths) == "selfcal":
+    family = chain_family(op_fun, widths)
+    if family == "grouped":
+        from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+        if not fused_tile_pad_ok(n_ims, MIXED_PAD_TILE, MIXED_PAD_FRAC):
+            return None
+        return "grouped", mg.make_cuda_mixed_grams_fused(
+            widths, n_cams, n_ims, with_key_cols=False, **kw)
+    if family == "selfcal":
         from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
         if not fused_tile_pad_ok(n_ims, selfcal_pad_tile(n_ims),
                                  SELFCAL_PAD_FRAC):
@@ -303,14 +333,24 @@ def _block_params(pieces: ParamPieces, colmask: ParamPieces, n_cams: int,
 def make_structured_neq(op_fun: OptimFunction, widths: GroupWidths,
                         n_cams: int, n_ims: int, loss: str = "linear",
                         f_scale: float = 1.0,
+                        group_of_key: np.ndarray | None = None,
+                        n_groups: int | None = None,
                         loss_semantics: str = "component"):
     """Structured normal-equation builder over the (B, K) grid.
 
+    :param group_of_key: (k_pad,) int key -> group map, required iff the
+        chain binds its c-axis PER_GROUP (the grouped chain). The per-group
+        parameter rows expand onto the key grid through a small (K, G)
+        one-hot, and the per-key gram pieces reduce back to per-group blocks
+        with its transpose: every residual touches exactly one key, hence
+        one group.
+    :param n_groups: G (default: the largest group index + 1), so a group
+        with no observed keys still gets its parameter rows.
     :return: neq(pieces, uv, mask, tpl, colmask) -> NormalEq, where tpl is
         the (K,3) template table (zeros when the chain has key params) and
         colmask a ParamPieces of 0/1 unfixed masks.
     """
-    a, b, c = widths.a, widths.b, widths.c
+    a, b = widths.a, widths.b
     fused = resolve_fused_grams(op_fun, widths, n_cams, n_ims, loss=loss,
                                 f_scale=f_scale,
                                 loss_semantics=loss_semantics)
@@ -325,7 +365,7 @@ def make_structured_neq(op_fun: OptimFunction, widths: GroupWidths,
                                       cmask_b, imask_b, colmask.key))
 
         return neq_fused_sc
-    if fused is not None:
+    if fused is not None and fused[0] == "template":
         _, fused_fn = fused
 
         def neq_fused(pieces: ParamPieces, uv, mask, tpl,
@@ -342,26 +382,89 @@ def make_structured_neq(op_fun: OptimFunction, widths: GroupWidths,
 
         return neq_fused
 
+    grouped = widths.key_link == key_type.PER_GROUP
+    if grouped:
+        if group_of_key is None:
+            raise ValueError(
+                "group_of_key is required for PER_GROUP-keyed chains")
+        onehot_kg = group_onehot(group_of_key, n_groups)
+
+    def expand(pieces: ParamPieces, colmask: ParamPieces, dtype, device):
+        """(one-hot, c-axis rows, their masks) on the key grid: the
+        grouped chain's per-group rows expanded by the one-hot."""
+        kg = torch.as_tensor(onehot_kg, dtype=dtype, device=device)
+        return kg, kg @ pieces.key, kg @ colmask.key
+
+    if fused is not None:  # "grouped": the fused builder's pieces per key
+        fused_grp = fused[1]
+
+        def neq_fused_grp(pieces: ParamPieces, uv, mask, tpl,
+                          colmask: ParamPieces):
+            cam_b, im_b, cmask_b, imask_b = _block_params(
+                pieces, colmask, n_cams, n_ims)
+            kg, keyp, kmask = expand(pieces, colmask, uv.dtype, uv.device)
+            (hcc, hii, hkk, wci, wck, wik, gc, gi, gk,
+             cost) = fused_grp(cam_b, im_b, keyp, tpl, uv, mask, cmask_b,
+                               imask_b, kmask)
+            hkk, wck, wik, gk = group_reduce(kg, hkk, wck, wik, gk)
+            return NormalEq(hcc, hii, hkk, wci, wck, wik, gc, gi, gk, cost)
+
+        return neq_fused_grp
+
     grams = resolve_block_grams(op_fun, widths, loss=loss, f_scale=f_scale,
                                 loss_semantics=loss_semantics)
 
     def neq(pieces: ParamPieces, uv, mask, tpl, colmask: ParamPieces):
         cam_b, im_b, cmask_b, imask_b = _block_params(
             pieces, colmask, n_cams, n_ims)
-        (gcc_b, gii_b, wci_b, hkk, wck_b, wik_b, gc_b, gi_b, gk,
-         cost) = grams(cam_b, im_b, pieces.key, tpl, uv, mask, cmask_b,
-                       imask_b, colmask.key)
-        k_pad = mask.shape[1]
-        hcc = gcc_b.reshape(n_cams, n_ims, a, a).sum(dim=1)
-        hii = gii_b.reshape(n_cams, n_ims, b, b).sum(dim=0)
-        gc = gc_b.reshape(n_cams, n_ims, a).sum(dim=1)
-        gi = gi_b.reshape(n_cams, n_ims, b).sum(dim=0)
-        wck = wck_b.reshape(n_cams, n_ims, k_pad, a, c).sum(dim=1)
-        wik = wik_b.reshape(n_cams, n_ims, k_pad, b, c).sum(dim=0)
-        wci = wci_b.reshape(n_cams, n_ims, a, b)
+        if grouped:
+            kg, keyp, kmask = expand(pieces, colmask, uv.dtype, uv.device)
+        else:
+            keyp, kmask = pieces.key, colmask.key
+        hcc, hii, hkk, wci, wck, wik, gc, gi, gk, cost = sum_block_grams(
+            grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask),
+            n_cams, n_ims)
+        if grouped:
+            hkk, wck, wik, gk = group_reduce(kg, hkk, wck, wik, gk)
         return NormalEq(hcc, hii, hkk, wci, wck, wik, gc, gi, gk, cost)
 
     return neq
+
+
+def sum_block_grams(out, n_cams: int, n_ims: int):
+    """A per-block builder's 10-tuple (make_block_grams' contract) summed
+    over each camera's images and each image's cameras (camera-major
+    blocks): the NormalEq fields (hcc, hii, hkk, wci, wck, wik, gc, gi, gk,
+    cost), the key axis still per key."""
+    gcc_b, gii_b, wci_b, hkk, wck_b, wik_b, gc_b, gi_b, gk, cost = out
+
+    def grid(x):
+        return x.reshape((n_cams, n_ims) + x.shape[1:])
+
+    return (grid(gcc_b).sum(dim=1), grid(gii_b).sum(dim=0), hkk, grid(wci_b),
+            grid(wck_b).sum(dim=1), grid(wik_b).sum(dim=0),
+            grid(gc_b).sum(dim=1), grid(gi_b).sum(dim=0), gk, cost)
+
+
+def group_onehot(group_of_key, n_groups: int | None = None) -> np.ndarray:
+    """(K, G) host one-hot of a key -> group map."""
+    gok = np.asarray(group_of_key, dtype=np.int64)
+    if n_groups is None:
+        n_groups = int(gok.max()) + 1
+    onehot = np.zeros((gok.size, n_groups))
+    onehot[np.arange(gok.size), gok] = 1.0
+    return onehot
+
+
+def group_reduce(kg, hkk, wck, wik, gk):
+    """(hkk, wck, wik, gk) with the key axis reduced to groups by the
+    (K, G) one-hot ``kg``: each key belongs to one group, so a per-group
+    block is the sum of its keys' blocks and cross-group couplings vanish
+    identically."""
+    return (torch.einsum("kg,kij->gij", kg, hkk),
+            torch.einsum("kg,ckap->cgap", kg, wck),
+            torch.einsum("kg,ikbp->igbp", kg, wik),
+            torch.einsum("kg,ki->gi", kg, gk))
 
 
 def neq_diag(neq: NormalEq) -> ParamPieces:

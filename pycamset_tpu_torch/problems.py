@@ -1,9 +1,11 @@
 """The bench's bundle-adjustment problems, built with the port.
 
-Counterparts of ``bench.py::standard_problem`` / ``template_colmask`` and
-``bench.py::selfcal_problem`` / ``selfcal_colmask``. Both build a synthetic
-rig (seed 0, visibility 0.85, 0.3 px noise) and the (B, K) block grid,
-standard camera model.
+Counterparts of ``bench.py::standard_problem`` / ``template_colmask``,
+``bench.py::selfcal_problem`` / ``selfcal_colmask`` and
+``bench.py::mixed_problem`` / ``mixed_colmask_groups``, and a grouped
+template problem on the mixed problem's rig. Each builds a synthetic rig
+(visibility 0.85, 0.3 px noise; seed 0, or 5 for the multi-target ones) and
+the (B, K) block grid, standard camera model.
 
 - Template: the chain Projection + Extrinsic3D + TemplatePoints, the true
   parameters perturbed by ``rng(1)`` with the bench's scale vector, and
@@ -14,6 +16,14 @@ standard camera model.
   FreePoint, the target points free, started at the true parameters (pad
   key rows replicate key 0), pad keys frozen, a 7-coordinate gauge on the
   points and pose 0 fixed; the template table is zeros.
+- Mixed multi-target self-calibration: the chain Projection + Extrinsic3D +
+  RigidTform3d + GroupRigidTform3d + FreePoint, two targets (the two halves
+  of the grid), started at the true parameters except group 1's relative
+  pose, offset by ``GROUP_START[1]``; group 0 fixed, pose 0 fixed, the
+  self-cal point gauge; ``max_nfev`` 60.
+- Grouped multi-target template: the chain Projection + Extrinsic3D +
+  RigidTform3d + GroupTemplatePoints on the same rig, start and gauge (the
+  points come from the template).
 """
 from __future__ import annotations
 
@@ -23,21 +33,31 @@ import numpy as np
 import torch
 
 from pycamset_tpu_torch.config import default_device_dtype, resolve_device
-from pycamset_tpu_torch.from_jax import pieces_from_numpy, tensor_from_numpy
+from pycamset_tpu_torch.from_jax import (mixed_pieces_from_numpy,
+                                         pieces_from_numpy, tensor_from_numpy)
 from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, FreePoint,
-                                             Projection, RigidTform3d,
-                                             TemplatePoints)
+                                             GroupRigidTform3d,
+                                             GroupTemplatePoints, Projection,
+                                             RigidTform3d, TemplatePoints)
 from pycamset_tpu_torch.optim.chain import OptimFunction, ParamStruct
 from pycamset_tpu_torch.optim.structured import (
     BlockArrays, GroupWidths, ParamPieces, build_block_arrays, chain_widths,
-    make_structured_neq, pad_template_table, split_full_params)
+    group_onehot, make_structured_neq, pad_template_table, split_full_params)
+from pycamset_tpu_torch.optim.structured_mixed import (
+    MixedPieces, make_mixed_ops, make_mixed_structured_neq,
+    mixed_chain_widths, pack_c_axis)
 from pycamset_tpu_torch.optim.structured_lm import structured_lm_solve
 from pycamset_tpu_torch.utils.synthetic import make_synthetic_rig
 
 
+# the multi-target problems' group poses at the start: group 0 is the
+# base target (fixed), group 1 starts offset from its true identity pose
+GROUP_START = np.array([[0.0] * 6, [0.04, -0.02, 0.06, 0.01, -0.02, 0.03]])
+
+
 @dataclass
 class BAProblem:
-    """A structured BA problem (template or self-cal chain) on one
+    """A structured BA problem (template, self-cal or grouped chain) on one
     device."""
     op_fun: OptimFunction
     widths: GroupWidths
@@ -51,17 +71,46 @@ class BAProblem:
     loss: str
     f_scale: float
     loss_semantics: str
+    group_of_key: np.ndarray | None = None   # (K,) for the grouped chains
+    n_groups: int | None = None
+    max_nfev: int = 100
+
+    def make_neq(self):
+        """The raw builder neq(pieces, uv, mask, tpl, colmask)."""
+        return make_structured_neq(
+            self.op_fun, self.widths, self.blocks.n_cams, self.blocks.n_ims,
+            loss=self.loss, f_scale=self.f_scale,
+            group_of_key=self.group_of_key, n_groups=self.n_groups,
+            loss_semantics=self.loss_semantics)
+
+    def ops(self):
+        """The LM's linear algebra: None for the structured defaults."""
+        return None
+
+    def key_operands(self, pieces, colmask):
+        """(keyp, kmask): the c-axis rows and their column masks on the key
+        grid, as the gram builders take them (the grouped chain's per-group
+        rows expanded by the group one-hot)."""
+        if self.group_of_key is None:
+            return pieces.key, colmask.key
+        oh = self.onehot(pieces.key)
+        return oh @ pieces.key, oh @ colmask.key
+
+    def onehot(self, like: torch.Tensor) -> torch.Tensor:
+        """The (K, G) group one-hot, in the dtype and on the device of
+        ``like``."""
+        return torch.as_tensor(group_onehot(self.group_of_key, self.n_groups),
+                               dtype=like.dtype, device=like.device)
 
     def neq_fn(self):
         """neq(pieces) -> NormalEq on this problem's data."""
-        neq = make_structured_neq(
-            self.op_fun, self.widths, self.blocks.n_cams, self.blocks.n_ims,
-            loss=self.loss, f_scale=self.f_scale,
-            loss_semantics=self.loss_semantics)
+        neq = self.make_neq()
         return lambda p: neq(p, self.uv, self.mask, self.tpl, self.colmask)
 
-    def solve(self, max_nfev: int = 100):
-        return structured_lm_solve(self.neq_fn(), self.x0, max_nfev=max_nfev)
+    def solve(self, max_nfev: int | None = None):
+        return structured_lm_solve(self.neq_fn(), self.x0,
+                                   max_nfev=max_nfev or self.max_nfev,
+                                   ops=self.ops())
 
     def rms_px(self, cost) -> float:
         """sqrt(cost / (2 n_real)), as bench.py reports it."""
@@ -174,3 +223,99 @@ def selfcal_problem(n_cams: int, n_ims: int, device, dtype=None,
     tpl = tensor_from_numpy(np.zeros((k_pad, 3)), device, dtype)
     return BAProblem(op_fun, widths, struct, blocks, x0, uv, mask, tpl,
                      colmask, loss, f_scale, loss_semantics)
+
+
+@dataclass
+class MixedProblem(BAProblem):
+    """A mixed PER_KEY + PER_GROUP problem: MixedPieces, MixedNormalEq and
+    the mixed LM ops."""
+
+    def make_neq(self):
+        return make_mixed_structured_neq(
+            self.op_fun, self.widths, self.blocks.n_cams, self.blocks.n_ims,
+            self.group_of_key, self.n_groups, loss=self.loss,
+            f_scale=self.f_scale, loss_semantics=self.loss_semantics)
+
+    def ops(self):
+        return make_mixed_ops(group_onehot(self.group_of_key, self.n_groups))
+
+    def key_operands(self, pieces, colmask):
+        return pack_c_axis(self.onehot(pieces.key), pieces, colmask)
+
+
+def mixed_colmask_groups(n_cams, n_ims, n_keys, k_pad, dtype=np.float64):
+    """(colmask, group_of_key) of the bench mixed 2-target problem, host
+    numpy: the grid halves as the two targets, group 0's relative pose
+    fixed, pad keys frozen, the self-cal point gauge, pose 0 fixed."""
+    gok = np.zeros(k_pad, np.int64)
+    gok[:n_keys] = np.arange(n_keys) >= n_keys // 2
+    _, cm_im, kmask = selfcal_colmask(n_cams, n_ims, n_keys, k_pad,
+                                      GroupWidths(15, 6, 3), dtype)
+    cm_grp = np.ones((2, 6), dtype=dtype)
+    cm_grp[0] = 0.0
+    return MixedPieces(np.ones((n_cams, 15), dtype=dtype), cm_im, kmask,
+                       cm_grp), gok
+
+
+def _multi_target_rig(n_cams, n_ims, grid, seed, k_pad_multiple):
+    rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
+                             visibility=0.85, noise_px=0.3, seed=seed)
+    blocks = build_block_arrays(rig["dd"], n_cams, n_ims, rig["n_keys"],
+                                k_pad_multiple=k_pad_multiple)
+    colmask, gok = mixed_colmask_groups(n_cams, n_ims, rig["n_keys"],
+                                        blocks.uv.shape[1])
+    return rig, blocks, colmask, gok
+
+
+def mixed_problem(n_cams: int, n_ims: int, device, dtype=None,
+                  grid: int = 19, seed: int = 5, k_pad_multiple: int = 128,
+                  loss: str = "linear", f_scale: float = 1.0,
+                  loss_semantics: str = "component") -> MixedProblem:
+    """``bench.py::mixed_problem(n_cams, n_ims, grid, seed)`` on ``device``
+    (dtype defaults to float64 on the CPU, float32 on CUDA)."""
+    device = resolve_device(device)
+    dtype = dtype or default_device_dtype(device)
+    rig, blocks, colmask, gok = _multi_target_rig(n_cams, n_ims, grid, seed,
+                                                  k_pad_multiple)
+    n_keys, k_pad = rig["n_keys"], blocks.uv.shape[1]
+    op_fun = OptimFunction([Projection(), Extrinsic3D(), RigidTform3d(),
+                            GroupRigidTform3d(), FreePoint()])
+    key_pad = np.concatenate(
+        [rig["template"], np.repeat(rig["template"][:1], k_pad - n_keys, 0)])
+    x0 = mixed_pieces_from_numpy(
+        np.concatenate([rig["intr"], rig["extr"]], 1), rig["poses"], key_pad,
+        GROUP_START, device, dtype)
+    uv, mask = blocks.as_device(device, dtype)
+    return MixedProblem(
+        op_fun, mixed_chain_widths(op_fun),
+        op_fun.param_struct(n_cams, n_ims, n_keys, n_groups=2), blocks, x0,
+        uv, mask, tensor_from_numpy(np.zeros((k_pad, 3)), device, dtype),
+        mixed_pieces_from_numpy(*colmask, device, dtype), loss, f_scale,
+        loss_semantics, group_of_key=gok, n_groups=2, max_nfev=60)
+
+
+def grouped_problem(n_cams: int, n_ims: int, device, dtype=None,
+                    grid: int = 19, seed: int = 5, k_pad_multiple: int = 128,
+                    loss: str = "linear", f_scale: float = 1.0,
+                    loss_semantics: str = "component") -> BAProblem:
+    """The grouped multi-target template problem: ``mixed_problem``'s rig,
+    start and gauge with the points taken from the template (chain
+    Projection + Extrinsic3D + RigidTform3d + GroupTemplatePoints)."""
+    device = resolve_device(device)
+    dtype = dtype or default_device_dtype(device)
+    rig, blocks, colmask, gok = _multi_target_rig(n_cams, n_ims, grid, seed,
+                                                  k_pad_multiple)
+    n_keys, k_pad = rig["n_keys"], blocks.uv.shape[1]
+    op_fun = OptimFunction([Projection(), Extrinsic3D(), RigidTform3d(),
+                            GroupTemplatePoints()])
+    x0 = pieces_from_numpy(np.concatenate([rig["intr"], rig["extr"]], 1),
+                           rig["poses"], GROUP_START, device, dtype)
+    uv, mask = blocks.as_device(device, dtype)
+    tpl = pad_template_table(rig["template"], True, n_keys, k_pad)
+    return BAProblem(
+        op_fun, chain_widths(op_fun),
+        op_fun.param_struct(n_cams, n_ims, n_keys, n_groups=2), blocks, x0,
+        uv, mask, tensor_from_numpy(tpl, device, dtype),
+        pieces_from_numpy(colmask.cam, colmask.im, colmask.grp, device,
+                          dtype), loss, f_scale, loss_semantics,
+        group_of_key=gok, n_groups=2, max_nfev=60)

@@ -1,7 +1,9 @@
 """The CUDA kernels on a card: each against its float64 plain twin.
 
-Kernels A and B (template chain, ``cuda_grams``) and Kernels C and D
-(self-calibration chain, ``cuda_selfcal_grams``).
+Kernels A and B (template chain, ``cuda_grams``), Kernels C and D
+(self-calibration chain, ``cuda_selfcal_grams``) and Kernels E and F
+(multi-target chains, ``cuda_mixed_grams``, at both key widths: the mixed
+chain's cw = 9 and the grouped chain's cw = 6).
 
 Imports torch and pycamset_tpu_torch only (the card's machine has no jax),
 so on a card it runs without the JAX-forcing conftest:
@@ -183,3 +185,85 @@ def test_selfcal_wrappers_raise_instead_of_falling_back(card):
         sg.selfcal_gram(*f32[:7], f32[7].cpu())
     with pytest.raises(ValueError):
         sg.selfcal_gram_fused(*f32[:5], *f32[6:], 2, 4)
+
+
+def _mixed_inputs(dev, n_cams, n_ims, grid, with_key_cols, noise_px=3.0):
+    """Float32 per-block inputs of a multi-target rig with noisy detections
+    (the mixed chain, cw = 9, or the grouped one, cw = 6): the group poses
+    expanded per key, a camera column fixed beside the problem's own masks
+    (pose 0, group 0, the point gauge, the pad keys)."""
+    from pycamset_tpu_torch.problems import grouped_problem, mixed_problem
+    make = mixed_problem if with_key_cols else grouped_problem
+    prob = make(n_cams, n_ims, dev, torch.float32, grid=grid,
+                k_pad_multiple=8)
+    rng = np.random.default_rng(2)
+    uv = prob.uv + torch.as_tensor(rng.normal(size=tuple(prob.uv.shape))
+                                   * noise_px, dtype=torch.float32,
+                                   device=dev) * prob.mask[..., None]
+    cmask = prob.colmask.cam.clone()
+    cmask[:, 3] = 0.0
+    keyp, kmask = prob.key_operands(prob.x0, prob.colmask)
+    return (torch.repeat_interleave(prob.x0.cam, n_ims, dim=0),
+            prob.x0.im.repeat(n_cams, 1), keyp, prob.tpl, uv.contiguous(),
+            prob.mask, torch.repeat_interleave(cmask, n_ims, dim=0),
+            prob.colmask.im.repeat(n_cams, 1), kmask)
+
+
+# grid 5: K = 32, one partial tile; grid 14: K = 200, a full and a partial
+# tile. n_ims 20 = two chunks of 8 and a partial one; n_ims 3 < one chunk.
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_key_cols", [True, False])
+@pytest.mark.parametrize("n_cams,n_ims,grid", [(4, 20, 5), (3, 3, 14)])
+@pytest.mark.parametrize("loss,semantics", LOSS_CASES)
+def test_mixed_kernels_match_plain_twins(card, with_key_cols, n_cams, n_ims,
+                                         grid, loss, semantics):
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    f32 = _mixed_inputs(card, n_cams, n_ims, grid, with_key_cols)
+    f64 = tuple(x.double() for x in f32)
+    cw = 9 if with_key_cols else 6
+    kw = dict(with_key_cols=with_key_cols, loss=loss, f_scale=2.0,
+              loss_semantics=semantics)
+    n_e, n_f = (mg.mixed_gram_fused.launches_by_cw[cw],
+                mg.mixed_gram.launches_by_cw[cw])
+    f_got = mg.mixed_gram(*f32, **kw)
+    f_ref = mg.mixed_gram_plain(*f64, **kw)
+    for name, g, r in zip(["gram", "wcc_b", "wic_b", "hkk", "gk"], f_got,
+                          f_ref):
+        _assert_close(g, r, name)
+    _assert_scaled(mg.scaled_errors_mixed(f_got, f_ref), "F")
+    e_got = mg.mixed_gram_fused(*f32, n_cams, n_ims, **kw)
+    e_ref = mg.mixed_gram_fused_plain(*f64, n_cams, n_ims, **kw)
+    for name, g, r in zip(["hcc", "gc", "wcc", "wic", "wci", "gii", "gi",
+                           "corner", "hkk", "gk"], e_got, e_ref):
+        _assert_close(g, r, name)
+    _assert_scaled(mg.scaled_errors_mixed_fused(e_got, e_ref, f_ref[0],
+                                                n_cams, n_ims), "E")
+    assert (mg.mixed_gram_fused.launches_by_cw[cw],
+            mg.mixed_gram.launches_by_cw[cw]) == (n_e + 1, n_f + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_key_cols", [True, False])
+def test_mixed_kernels_are_reproducible(card, with_key_cols):
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    f32 = _mixed_inputs(card, 4, 20, 6, with_key_cols)
+    kw = dict(with_key_cols=with_key_cols, loss="huber")
+    for run in (lambda: mg.mixed_gram(*f32, **kw),
+                lambda: mg.mixed_gram_fused(*f32, 4, 20, **kw)):
+        first, again = run(), run()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mixed_wrappers_raise_instead_of_falling_back(card):
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    f32 = _mixed_inputs(card, 2, 3, 4, True)
+    with pytest.raises(TypeError):
+        mg.mixed_gram(*(x.double() for x in f32))
+    with pytest.raises(ValueError):
+        mg.mixed_gram(*f32[:8], f32[8].cpu())
+    with pytest.raises(ValueError):   # a cw = 9 operand as the grouped chain
+        mg.mixed_gram(*f32, with_key_cols=False)
+    with pytest.raises(ValueError):
+        mg.mixed_gram_fused(*f32, 2, 4)

@@ -104,6 +104,8 @@ def test_package_imports_neither_jax_nor_cv2():
     code = ("import pycamset_tpu_torch, pycamset_tpu_torch.problems, "
             "pycamset_tpu_torch.optim.cuda_grams, pycamset_tpu_torch._build, "
             "pycamset_tpu_torch.optim.cuda_selfcal_grams, "
+            "pycamset_tpu_torch.optim.cuda_mixed_grams, "
+            "pycamset_tpu_torch.optim.structured_mixed, "
             "pycamset_tpu_torch.optim.analytic, "
             "pycamset_tpu_torch.optim.structured, sys; bad = [m for m in ('jax', 'cv2', 'pycamset_tpu') "
             "if m in sys.modules]; assert not bad, bad")
