@@ -8,8 +8,11 @@ and 64 x 400, the self-calibration problem (``bench.py::selfcal_problem``)
 at 16 x 100 and 64 x 12, the mixed multi-target problem
 (``bench.py::mixed_problem``) at 16 x 100 and 64 x 12 and the grouped
 multi-target template problem (``problems.grouped_problem``) at 16 x 100
-with the port: one warm-up, five solves timed with CUDA events, then one
-more under ``torch.profiler``. Prints per shape: LM iterations, the median
+with the port, twice: with the dense reduced solve on the library route
+(``cholesky_ex``, the default) and opted in to the one-launch SPD kernel
+(``PYCAMSET_PALLAS_CHOL=1``). Each: one warm-up, five solves timed with CUDA
+events, then one more under ``torch.profiler``. Prints per shape and route:
+LM iterations, the median
 solve time, the profiled solve's wall time, the device's busy time in it
 (the sum of its device kernels, copies and fills) and the idle share that
 leaves of the median solve, the number of device events, and the top
@@ -18,14 +21,13 @@ Imports neither jax nor pycamset_tpu; needs one CUDA card and nvcc.
 """
 from __future__ import annotations
 
+import os
 import sys
 import time
 
 
 def main() -> int:
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from pycamset_tpu_torch.problems import (grouped_problem, mixed_problem,
                                              selfcal_problem, standard_problem)
@@ -42,37 +44,52 @@ def main() -> int:
             ("mixed", mixed_problem, 64, 12),
             ("grouped", grouped_problem, 16, 100)):
         prob = make(n_cams, n_ims, dev)
-        prob.solve()
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0.record()
-            prob.solve()
-            t1.record()
-            torch.cuda.synchronize()
-            times.append(t0.elapsed_time(t1))
-        solve_ms = sorted(times)[len(times) // 2]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = prob.solve()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device activity (kernels, copies, fills), each counted once
-        dev_events = [e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
-        print(f"[profile] chain={chain} shape={n_cams}x{n_ims} nit={res.nit} "
-              f"solve_ms_median={solve_ms:.3f} "
-              f"profiled_wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
-              f"idle_share={1 - busy_ms / solve_ms:.3f} "
-              f"device_events={len(dev_events)}", flush=True)
-        ka = prof.key_averages()
-        for key in ("self_device_time_total", "self_cpu_time_total"):
-            print(ka.table(sort_by=key, row_limit=15,
-                           max_name_column_width=60), flush=True)
+        for route in ("library", "kernel"):
+            os.environ.pop("PYCAMSET_PALLAS_CHOL", None)
+            if route == "kernel":
+                os.environ["PYCAMSET_PALLAS_CHOL"] = "1"
+            profile_solve(prob, chain, n_cams, n_ims, route)
+        os.environ.pop("PYCAMSET_PALLAS_CHOL", None)
     return 0
+
+
+def profile_solve(prob, chain, n_cams, n_ims, route):
+    """Time five warm solves, then profile one, and print the summary line
+    and the top operations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prob.solve()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        prob.solve()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    solve_ms = sorted(times)[len(times) // 2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = prob.solve()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device activity (kernels, copies, fills), each counted once
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    print(f"[profile] chain={chain} shape={n_cams}x{n_ims} "
+          f"dense_solve={route} nit={res.nit} "
+          f"solve_ms_median={solve_ms:.3f} "
+          f"profiled_wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
+          f"idle_share={1 - busy_ms / solve_ms:.3f} "
+          f"device_events={len(dev_events)}", flush=True)
+    ka = prof.key_averages()
+    for key in ("self_device_time_total", "self_cpu_time_total"):
+        print(ka.table(sort_by=key, row_limit=15,
+                       max_name_column_width=60), flush=True)
 
 
 if __name__ == "__main__":

@@ -22,9 +22,17 @@ bits. Then it solves seven bundle adjustments, each through one kernel:
   Kernel E at key width 6,
 
 and checks each solve; the 16 x 100 solves also against the port's float64
-solve on the CPU. Every phase prints one line; any failure raises, so the
-script exits non-zero and prints no final line. The line before the last
-lists the kernels as JSON; the last is
+solve on the CPU. The dense reduced solve of every LM step goes through the
+one-launch SPD kernel (``csrc/psd_solve.cu``) on the main path, opted in
+with ``PYCAMSET_PALLAS_CHOL=1`` as in the JAX package; that kernel is held
+against its float64 twin on the seven solves' own reduced systems and on
+synthetic ones, and each solve runs with the opt-in off and on (an A/B
+against the library route, ``cholesky_ex``). The FP32 FMA probe
+(``csrc/peak.cu``) measures the card's FP32 rate beside the published one.
+
+Every phase prints one line; any failure raises, so the script exits
+non-zero and prints no final line. The line before the last lists the
+kernels as JSON; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Imports neither jax nor pycamset_tpu. Needs one CUDA card and nvcc; exits
@@ -32,7 +40,9 @@ non-zero without one.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -70,6 +80,13 @@ MAIN_PATH = {"template 16x100": ("template_gram", None),
              "mixed 16x100": ("mixed_gram_fused", 9),
              "mixed 64x12": ("mixed_gram", 9),
              "grouped 16x100": ("mixed_gram_fused", 6)}
+PSD = ("psd_solve", "pycamset_tpu_torch/csrc/psd_solve.cu",
+       "pycamset_tpu/ops/pallas_cholesky.py:143")
+PEAK = ("fma_peak", "pycamset_tpu_torch/csrc/peak.cu", "benchmarks/peak.py:37")
+# synthetic normalised systems for the SPD kernel: (n, condition, the JAX
+# kernel test's bound on the relative error at that condition)
+PSD_SYNTHETIC = [(n, cond, tol) for n in (240, 852, 1044)
+                 for cond, tol in ((1e2, 1e-4), (1e4, 1e-3), (1e6, 2e-2))]
 # H100 SXM data sheet: HBM rate and FP32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -556,25 +573,240 @@ def phase_mixed_kernels(probs, out):
         torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def one_launch_psd(on: bool):
+    """The JAX package's opt-in PYCAMSET_PALLAS_CHOL=1 set (on) or unset."""
+    old = os.environ.pop("PYCAMSET_PALLAS_CHOL", None)
+    if on:
+        os.environ["PYCAMSET_PALLAS_CHOL"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("PYCAMSET_PALLAS_CHOL", None)
+        if old is not None:
+            os.environ["PYCAMSET_PALLAS_CHOL"] = old
+
+
+def psd_bound(n: int) -> tuple[float, str]:
+    """Least time of one SPD solve of width n: the factor's n^3/3 and the
+    three solves' and residuals' 12 n^2 multiply-adds (2 FLOP each; the
+    factor's n^3/3 = 2n^3/3 FLOP) over the FP32 rate, against a read once
+    and b, x, res2, b2 moved once over the HBM rate."""
+    t_ops = (2 * n ** 3 / 3 + 12 * n ** 2) / FP32_FLOP_PER_S
+    t_bytes = 4 * (n * n + 2 * n + 2) / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_peak(smi: str) -> dict:
+    """The FP32 FMA probe at the JAX probe's size beside the published
+    rate, and held against its float64 twin at a small size."""
+    import torch
+    from pycamset_tpu_torch import peak
+    dev = torch.device("cuda", 0)
+    small = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.5, 1.0, (64, 128)), dtype=torch.float32, device=dev)
+    got = peak.fma_chain(small)
+    ref = peak.fma_chain_plain(small.double())
+    err = float((got.double() - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    tol = peak.ITERS * 4 * 2.0 ** -24       # 4096 dependent f32 operations
+    check(rel <= tol, f"fma_chain vs its float64 twin: {rel:.3e} > {tol:.3e}")
+    same_bits("fma_chain", lambda: peak.fma_chain(small))
+    m = peak.measure_fp32_peak(dev)
+    big = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.5, 1.0, (peak.ROWS, peak.LANES)), dtype=torch.float32, device=dev)
+    plain_ms = cuda_ms(lambda: peak.fma_chain_plain(big), 1, warmup=1)
+    bound_ms = max(m["gflop"] * 1e9 / FP32_FLOP_PER_S,
+                   8 * big.numel() / HBM_BYTES_PER_S) * 1e3
+    say("peak", card=repr(smi), fp32_fma_tflops=f"{m['tflops']:.3f}",
+        published_tflops=f"{FP32_FLOP_PER_S / 1e12:.0f}",
+        ms=f"{m['ms']:.4f}", gflop=f"{m['gflop']:.1f}",
+        plain_ms=f"{plain_ms:.2f}", rel_err=f"{rel:.2e}", tol=f"{tol:.2e}")
+    return {"abs": err, "ms": m["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "tflops": m["tflops"]}
+
+
+@contextlib.contextmanager
+def dense_solve_spy():
+    """Record each call of the opt-in dense solve (``structured.psd_solve``,
+    which ``_psd_solve`` looks up at call time), one per LM step: yields a
+    list that fills with (a_n, rhs_n, the fallback's x or None), the
+    system cloned on the device."""
+    from pycamset_tpu_torch.optim import structured
+    calls, orig = [], structured.psd_solve
+
+    def spy(a_n, rhs_n, *, fallback, **kw):
+        taken = []
+
+        def recorded(a, b):
+            taken.append(fallback(a, b))
+            return taken[-1]
+
+        x = orig(a_n, rhs_n, fallback=recorded, **kw)
+        calls.append((a_n.clone(), rhs_n.clone(), taken[0] if taken else None))
+        return x
+
+    structured.psd_solve = spy
+    try:
+        yield calls
+    finally:
+        structured.psd_solve = orig
+
+
+def capture_reduced_systems(probs) -> dict:
+    """The normalised (a_n, rhs_n) each solve hands the dense solve on its
+    first LM step (opt-in on: psd_solve's arguments)."""
+    systems = {}
+    for shape, prob in probs.items():
+        with dense_solve_spy() as calls, one_launch_psd(True):
+            prob.solve(max_nfev=2)
+        check(bool(calls), f"the {shape} solve reached no psd_solve")
+        systems[shape] = calls[0][:2]
+    return systems
+
+
+def fallback_evidence(a_n, rhs_n, x_lib) -> dict:
+    """Why the dense solve fell back on (a_n, rhs_n): whether the library
+    route's x meets the same residual rule (and is finite), the info of the
+    float32 and of the float64 Cholesky factor of the same float32 matrix
+    (0: it factors; k > 0: its leading minor of order k is not positive
+    definite), and the matrix's smallest eigenvalue in float64."""
+    import torch
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    a64, b64 = a_n.double(), rhs_n.double()
+    r = b64 - a64 @ x_lib.double()
+    return {"library_passes": bool(cc.residual_ok(r @ r, b64 @ b64)
+                                   & torch.isfinite(x_lib).all()),
+            "cholesky_info_f32": int(torch.linalg.cholesky_ex(a_n).info),
+            "cholesky_info_f64": int(torch.linalg.cholesky_ex(a64).info),
+            "eigenvalue_min_f64": float(torch.linalg.eigvalsh(a64)[0])}
+
+
+def psd_parity(name, a32, b32, tol=1e-5) -> dict:
+    """The kernel and the f32 library route on one system against the
+    float64 twin: relative errors of x, res2/b2, and repeat-launch bits.
+    The kernel's error may not exceed twice the library route's, or
+    ``tol`` where that is larger."""
+    import torch
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    from pycamset_tpu_torch.optim.structured import _cho_refine_solve
+    x, res2, b2 = cc.psd_solve_raw(a32, b32)
+    x64 = cc.psd_solve_raw_plain(a32.double(), b32.double())[0]
+    lib = _cho_refine_solve(a32, b32)
+    norm = float(torch.linalg.norm(x64))
+    rel = float(torch.linalg.norm(x.double() - x64)) / norm
+    rel_lib = float(torch.linalg.norm(lib.double() - x64)) / norm
+    ratio = float(res2) / float(b2)
+    same_bits(f"psd_solve {name}", lambda: cc.psd_solve_raw(a32, b32))
+    check(bool(torch.isfinite(x).all()), f"psd_solve {name}: x not finite")
+    limit = max(2 * rel_lib, tol)
+    check(rel <= limit, f"psd_solve {name}: rel err {rel:.3e} > {limit:.3e}"
+                        f" (library route {rel_lib:.3e})")
+    return {"abs": float((x.double() - x64).abs().max()), "rel": rel,
+            "rel_lib": rel_lib, "res2_over_b2": ratio}
+
+
+def phase_parity_psd(systems) -> dict:
+    """The SPD kernel vs its float64 twin on the seven solves' first
+    reduced systems (relative error <= 2x the f32 library route's, or
+    1e-5; res2/b2 <= 1e-8) and on synthetic normalised systems."""
+    import torch
+    out = {}
+    for shape, (a_n, rhs_n) in systems.items():
+        e = psd_parity(shape, a_n, rhs_n)
+        check(e["res2_over_b2"] <= 1e-8,
+              f"psd_solve {shape}: res2/b2 {e['res2_over_b2']:.3e} > 1e-8")
+        say("parity_psd", shape=shape.replace(" ", "_"), n=a_n.shape[0],
+            rel_err=f"{e['rel']:.3e}", library_rel_err=f"{e['rel_lib']:.3e}",
+            res2_over_b2=f"{e['res2_over_b2']:.3e}", same_bits=True)
+        out[shape] = e
+    dev = torch.device("cuda", 0)
+    for n, cond, tol in PSD_SYNTHETIC:
+        rng = np.random.default_rng(n)
+        q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+        a = (q * np.logspace(0, -np.log10(cond), n)) @ q.T
+        d = np.sqrt(np.diag(a))
+        a_n = (a / d[:, None] / d[None, :]
+               + 10 * np.finfo(np.float32).eps * np.eye(n))
+        e = psd_parity(f"n={n} cond={cond:.0e}",
+                       torch.as_tensor(a_n, dtype=torch.float32, device=dev),
+                       torch.as_tensor(rng.normal(size=n),
+                                       dtype=torch.float32, device=dev), tol)
+        say("parity_psd", synthetic=f"n={n}", cond=f"{cond:.0e}",
+            rel_err=f"{e['rel']:.3e}", library_rel_err=f"{e['rel_lib']:.3e}",
+            res2_over_b2=f"{e['res2_over_b2']:.3e}", tol=f"{tol:.0e}",
+            same_bits=True)
+    return out
+
+
+def phase_time_psd(systems) -> dict:
+    """The SPD kernel alone at each width, with the residual check and its
+    host read (psd_solve with a fallback), its plain twin, and the library
+    call (_cho_refine_solve: cholesky_ex + 3 cholesky_solve + 2 products),
+    on the solves' own reduced systems."""
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    from pycamset_tpu_torch.optim.structured import _cho_refine_solve
+    out = {}
+    for shape, (a_n, rhs_n) in systems.items():
+        n = a_n.shape[0]
+        if n in out:
+            continue
+        t = {"ms": cuda_ms(lambda: cc.psd_solve_raw(a_n, rhs_n), 50),
+             "checked_ms": cuda_ms(lambda: cc.psd_solve(
+                 a_n, rhs_n, fallback=_cho_refine_solve), 50),
+             "plain_ms": cuda_ms(lambda: cc.psd_solve_raw_plain(a_n, rhs_n),
+                                 2, warmup=1),
+             "library_ms": cuda_ms(lambda: _cho_refine_solve(a_n, rhs_n),
+                                   50)}
+        t["bound_ms"], t["bound_by"] = psd_bound(n)
+        t["shape"] = shape
+        say("time", kernel="psd_solve", n=n, shape=shape.replace(" ", "_"),
+            unit="ms", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                          for k, v in t.items() if k != "shape"})
+        out[n] = t
+    return out
+
+
 def phase_main_path(probs):
-    """The main path: each solve once, with every launch count set to 0
-    just before it; each must launch its own kernel, at its own key width,
-    and no other.
+    """The main path, opted in to the one-launch SPD solve: each solve once,
+    with every launch count set to 0 just before it; each must launch its
+    own gram kernel, at its own key width, and no other, and the SPD kernel
+    once per LM step. A fallback is allowed only on a system that the
+    library route fails too (its own solution misses the same residual
+    rule, or is not finite); each one prints its evidence
+    (``fallback_evidence``) on a ``[main_path_fallback]`` line.
 
     :return: (results, launches): launches[kernel][shape] per solve."""
     import torch
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
     counted = wrappers()
-    results, launches = {}, {name: {} for name in KERNELS}
+    results = {}
+    launches = {name: {} for name in (*KERNELS, PSD[0])}
     for shape, prob in probs.items():
         zero_counts(counted)
-        results[shape] = prob.solve()
+        cc.psd_solve_raw.launches = 0
+        cc.psd_solve.fallbacks = 0
+        with dense_solve_spy() as calls, one_launch_psd(True):
+            results[shape] = prob.solve()
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in counted.items()}
         by_cw = {f"launches_{name}_cw{cw}": n
                  for name, fn in counted.items()
                  for cw, n in getattr(fn, "launches_by_cw", {}).items()}
+        n_psd, nit = cc.psd_solve_raw.launches, results[shape].nit
+        n_fell = cc.psd_solve.fallbacks
+        evidence = [dict(lm_step=step, **fallback_evidence(a, b, x))
+                    for step, (a, b, x) in enumerate(calls) if x is not None]
         say("main_path", shape=shape.replace(" ", "_"),
-            **{f"launches_{k}": v for k, v in counts.items()}, **by_cw)
+            **{f"launches_{k}": v for k, v in counts.items()}, **by_cw,
+            launches_psd_solve=n_psd, lm_steps=nit, psd_fallbacks=n_fell,
+            fallbacks_library_passes=sum(e["library_passes"]
+                                         for e in evidence))
+        for e in evidence:
+            say("main_path_fallback", shape=shape.replace(" ", "_"),
+                **{k: (f"{v:.6e}" if isinstance(v, float) else v)
+                   for k, v in e.items()})
         own, cw = MAIN_PATH[shape]
         for name, n in counts.items():
             if name == own:
@@ -585,15 +817,30 @@ def phase_main_path(probs):
         if cw is not None:
             check(counted[own].launches_by_cw[cw] == counts[own],
                   f"the {shape} solve launched {own} at another key width")
+        check(n_psd == nit, f"the {shape} solve launched psd_solve {n_psd} "
+                            f"times in {nit} LM steps")
+        check(len(calls) == n_psd and len(evidence) == n_fell,
+              f"the {shape} solve: {len(calls)} dense solves and "
+              f"{len(evidence)} fallbacks seen, {n_psd} and {n_fell} counted")
+        check(not any(e["library_passes"] for e in evidence),
+              f"the {shape} solve fell back on a system that the library "
+              f"route solves within the residual rule")
+        launches[PSD[0]][shape] = n_psd
     return results, launches
 
 
-def phase_solve(shape, prob, res, cpu_problem=None, max_nit=10):
-    """Check one solve (status 1 or 2, nit <= max_nit unless None,
-    rms <= 0.36 px), time five warm solves, and, given the problem's
-    builder, hold the final cost to the port's float64 solve on the CPU."""
+def phase_solve(shape, prob, res, side: str, cpu_ref=None, max_nit=10):
+    """Check one solve (status 1 or 2, rms <= 0.36 px, and nit <= max_nit
+    unless it is None), time five warm solves with the opt-in of ``side``,
+    and, given the port's float64 CPU solve of the problem, hold the final
+    cost to it. The iteration bound is the precision canary:
+    reduced-precision products inflate the LM steps (5 -> ~95 in the JAX
+    package). The line also counts the accepted steps (those that lowered
+    the cost)."""
     import torch
     status = int(res.status)
+    hist = res.history[:res.nit + 1].double().cpu()
+    accepted = int((hist[1:] < hist[:-1]).sum())
     rms = prob.rms_px(res.cost)
     check(bool(torch.isfinite(res.cost)), f"{shape} cost is not finite")
     check(all(bool(torch.isfinite(p).all()) for p in res.x),
@@ -601,35 +848,45 @@ def phase_solve(shape, prob, res, cpu_problem=None, max_nit=10):
     check(all(g.shape == x.shape for g, x in zip(res.x, prob.x0)),
           f"{shape} result shape")
     times = []
-    for _ in range(6):  # one warm-up, then >= 5 timed
-        torch.cuda.synchronize()
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        prob.solve()
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1))
-    fields = dict(nit=res.nit, nfev=res.nfev, status=status,
+    with one_launch_psd(side == "kernel"):
+        for _ in range(6):  # one warm-up, then >= 5 timed
+            torch.cuda.synchronize()
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            prob.solve()
+            t1.record()
+            torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1))
+    median = float(np.median(times[1:]))
+    fields = dict(nit=res.nit, accepted=accepted, nfev=res.nfev,
+                  status=status,
                   rms_px=f"{rms:.5f}", n_real=prob.blocks.n_real,
-                  solve_ms_median=f"{float(np.median(times[1:])):.3f}",
+                  solve_ms_median=f"{median:.3f}",
                   solve_ms_all=",".join(f"{x:.2f}" for x in times[1:]))
-    check(status in (1, 2), f"{shape} status {status}")
-    check(rms <= 0.36, f"{shape} rms {rms} above 1.2 x noise floor")
+    check(status in (1, 2), f"{shape} ({side}) status {status}")
+    check(rms <= 0.36, f"{shape} ({side}) rms {rms} above 1.2 x noise floor")
     check(max_nit is None or res.nit <= max_nit,
-          f"{shape} nit {res.nit} > {max_nit}")
-    if cpu_problem is not None:
-        n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
-        t0 = time.perf_counter()
-        ref = cpu_problem(n_cams, n_ims, "cpu", torch.float64).solve()
+          f"{shape} ({side}) nit {res.nit} > {max_nit}")
+    if cpu_ref is not None:
+        ref, seconds = cpu_ref
         rel = abs(float(res.cost) - float(ref.cost)) / float(ref.cost)
         fields.update(cpu_f64_nit=ref.nit, cpu_f64_status=int(ref.status),
                       cpu_f64_cost=f"{float(ref.cost):.6f}",
-                      rel_cost_diff=f"{rel:.3e}",
-                      cpu_f64_s=f"{time.perf_counter() - t0:.1f}")
-        check(rel <= 1e-4, f"{shape} cost differs from the f64 CPU solve "
-                           f"by {rel:.3e}")
-    say("solve", shape=shape.replace(" ", "_"),
+                      rel_cost_diff=f"{rel:.3e}", cpu_f64_s=f"{seconds:.1f}")
+        check(rel <= 1e-4, f"{shape} ({side}) cost differs from the f64 CPU "
+                           f"solve by {rel:.3e}")
+    say("solve", shape=shape.replace(" ", "_"), dense_solve=side,
         cost=f"{float(res.cost):.6f}", **fields)
+    return median
+
+
+def cpu_f64_solve(make, prob):
+    """The port's float64 solve of a problem on the CPU, and its seconds."""
+    import torch
+    t0 = time.perf_counter()
+    ref = make(prob.blocks.n_cams, prob.blocks.n_ims, "cpu",
+               torch.float64).solve()
+    return ref, time.perf_counter() - t0
 
 
 def main() -> int:
@@ -641,6 +898,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
+    peak_rec = phase_peak(smi)
 
     from pycamset_tpu_torch.problems import (grouped_problem, mixed_problem,
                                              selfcal_problem, standard_problem)
@@ -659,6 +917,9 @@ def main() -> int:
     phase_template_kernels(probs, kern)
     phase_selfcal_kernels(probs, kern)
     phase_mixed_kernels(probs, kern)
+    systems = capture_reduced_systems(probs)
+    psd_err = phase_parity_psd(systems)
+    psd_time = phase_time_psd(systems)
     say("elapsed", after="kernels",
         seconds=f"{time.perf_counter() - t_start:.1f}")
     results, launches = phase_main_path(probs)
@@ -666,11 +927,24 @@ def main() -> int:
               "selfcal 16x100": selfcal_problem,
               "mixed 16x100": mixed_problem,
               "grouped 16x100": grouped_problem}
+    ab = {}
     for shape, prob in probs.items():
         # the multi-target solves have a budget of 60 evaluations and no
         # iteration bound of their own (bench.py::mixed_problem)
         max_nit = None if MAIN_PATH[shape][1] else 10
-        phase_solve(shape, prob, results[shape], cpu_of.get(shape), max_nit)
+        cpu_ref = (cpu_f64_solve(cpu_of[shape], prob) if shape in cpu_of
+                   else None)
+        with one_launch_psd(False):
+            library = prob.solve()
+        t_lib = phase_solve(shape, prob, library, "library", cpu_ref,
+                            max_nit)
+        t_ker = phase_solve(shape, prob, results[shape], "kernel", cpu_ref,
+                            max_nit)
+        ab[shape] = (library.nit, results[shape].nit, t_lib, t_ker)
+        say("ab", shape=shape.replace(" ", "_"), nit_library=library.nit,
+            nit_kernel=results[shape].nit,
+            solve_ms_median_library=f"{t_lib:.3f}",
+            solve_ms_median_kernel=f"{t_ker:.3f}")
     say("elapsed", after="solves",
         seconds=f"{time.perf_counter() - t_start:.1f}")
 
@@ -689,6 +963,30 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "kernel_ms": rec["kernel_ms"], "bmm_ms": rec["bmm_ms"],
             "shape": shape, "card": smi})
+    widest = psd_time[max(psd_time)]
+    kernels.append({
+        "name": PSD[0], "route": "cuda", "source": PSD[1],
+        "replaces": PSD[2], "launches": sum(launches[PSD[0]].values()),
+        "launches_by_solve": launches[PSD[0]],
+        "max_abs_err": max(e["abs"] for e in psd_err.values()),
+        "max_rel_err": max(e["rel"] for e in psd_err.values()),
+        "ms": widest["ms"], "plain_ms": widest["plain_ms"],
+        "bound_ms": widest["bound_ms"], "bound_by": widest["bound_by"],
+        "library_ms": widest["library_ms"], "checked_ms": widest["checked_ms"],
+        "shape": f"{widest['shape']} (n={max(psd_time)})",
+        "ms_by_n": {n: t["ms"] for n, t in psd_time.items()},
+        "library_ms_by_n": {n: t["library_ms"] for n, t in psd_time.items()},
+        "solve_ms_median_ab": {s: {"library": v[2], "kernel": v[3]}
+                               for s, v in ab.items()},
+        "card": smi})
+    kernels.append({
+        "name": PEAK[0], "route": "cuda", "source": PEAK[1],
+        "replaces": PEAK[2], "launches": 0, "on_main_path": False,
+        "max_abs_err": peak_rec["abs"], "ms": peak_rec["ms"],
+        "plain_ms": peak_rec["plain_ms"], "bound_ms": peak_rec["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "fp32_fma_tflops": peak_rec["tflops"], "shape": "(32768, 128)",
+        "card": smi})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

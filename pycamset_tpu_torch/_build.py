@@ -10,7 +10,8 @@ header builds in seconds.
 
 Nothing here runs at import: ``load()`` is called by the kernel wrappers
 (``optim/cuda_grams.py``, ``optim/cuda_selfcal_grams.py``,
-``optim/cuda_mixed_grams.py``) the first time a CUDA tensor reaches them.
+``optim/cuda_mixed_grams.py``, ``ops/cuda_cholesky.py``, ``peak.py``) the
+first time a CUDA tensor reaches them.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # argument types of the C entry points of csrc/template_grams.cu,
-# csrc/selfcal_grams.cu and csrc/mixed_grams.cu
+# csrc/selfcal_grams.cu, csrc/mixed_grams.cu, csrc/psd_solve.cu and
+# csrc/peak.cu
 _SIGNATURES = {
     "pct_template_gram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "pct_template_gram_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
@@ -46,6 +48,8 @@ _SIGNATURES = {
     "pct_mixed_gram": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _I] + [_P] * 8,
     "pct_mixed_gram_fused": [_P] * 7 + [_I, _I, _I, _I, _I, _I, _F, _I]
                             + [_P] * 15,
+    "pct_psd_solve": [_P, _P, _I, _I] + [_P] * 9,
+    "pct_fma_chain": [_P, _P, _I, _I, _P],
 }
 
 

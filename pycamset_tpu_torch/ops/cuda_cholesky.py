@@ -1,0 +1,150 @@
+"""Dense SPD factor + solve in one launch: CUDA wrapper and its plain twin.
+
+Counterpart of ``pycamset_tpu/ops/pallas_cholesky.py``. A hand-written
+Hopper kernel (``csrc/psd_solve.cu``) replaces the Pallas kernel
+``_pallas_psd_solve_raw``: on the Jacobi-normalised, ridged SPD system of
+the LM's reduced (Schur) step it runs a blocked Cholesky with the pivots
+clamped at 1e-8, forward and backward substitution, ``refine`` passes of
+iterative refinement, and returns the solution with res2 = |b - a x|^2 and
+b2 = |b|^2, all in one cooperative launch: the factor and substitutions in
+float32, the refinement's residuals and carried solution in float64 (so
+that it converges below float32's residual noise, which late LM steps
+otherwise sit at, above the fallback threshold; see ``csrc/psd_solve.cu``).
+
+- ``psd_solve_raw`` launches the kernel for a CUDA float32 tensor and raises
+  on any other CUDA input; a CPU tensor runs the plain twin
+  ``psd_solve_raw_plain`` (the same clamp and refinement count, in the
+  input's dtype). It counts its launches in ``psd_solve_raw.launches``.
+- ``psd_solve`` adds the reference's residual check: the fallback runs only
+  when res2 > 1e-8 b2. JAX decides that on the device (``lax.cond``); here it
+  costs one host read of the flag per call. ``psd_solve.fallbacks`` counts
+  the fallbacks taken.
+- ``use_cuda_psd`` is the dispatch rule of ``use_pallas_psd``: opt-in with
+  ``PYCAMSET_PALLAS_CHOL=1``, off under ``PYCAMSET_NO_PALLAS``, on a CUDA
+  device, for float32 and n <= MAX_N only.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+BLK = 64              # the kernel's panel width
+MAX_N = 2048          # a and its factor (8 n^2 bytes) stay in the 50 MB L2
+PIV_FLOOR = 1e-8      # pivot clamp of the rank-1 loop (normalised diag ~1)
+RES_TOL = 1e-8        # fallback when res2 > RES_TOL * b2 (|r| > 1e-4 |b|)
+
+
+def psd_solve_raw_plain(a_n: torch.Tensor, rhs_n: torch.Tensor,
+                        refine: int = 2):
+    """Plain twin of the kernel: (x, res2, b2) in the input's dtype. The
+    factor and the substitutions run in the input's dtype; the refinement
+    carries x and forms its residuals in float64, and res2 is the residual
+    of that carried x (the returned x is it, rounded)."""
+    n = a_n.shape[0]
+    chol = torch.zeros_like(a_n)
+    for j in range(n):
+        col = a_n[j:, j] - chol[j:, :j] @ chol[j, :j]
+        piv = torch.clamp(col[0], min=PIV_FLOOR)
+        chol[j:, j] = col / torch.sqrt(piv)
+
+    def solve(rhs):
+        y = torch.linalg.solve_triangular(chol, rhs[:, None], upper=False)
+        return torch.linalg.solve_triangular(chol.T, y, upper=True)[:, 0]
+
+    a64, b64 = a_n.double(), rhs_n.double()
+    x = solve(rhs_n).double()
+    for _ in range(refine):
+        x = x + solve((b64 - a64 @ x).to(a_n.dtype)).double()
+    r = b64 - a64 @ x
+    dtype = a_n.dtype
+    return (x.to(dtype), torch.sum(r * r).to(dtype),
+            torch.sum(b64 * b64).to(dtype))
+
+
+def _check_cuda_inputs(a_n: torch.Tensor, rhs_n: torch.Tensor):
+    for name, t in (("a_n", a_n), ("rhs_n", rhs_n)):
+        if t.device != a_n.device:
+            raise ValueError(f"{name} is on {t.device}, a_n on {a_n.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the CUDA kernel takes "
+                            f"torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    n = a_n.shape[0] if a_n.dim() == 2 else -1
+    if a_n.dim() != 2 or a_n.shape[1] != n or tuple(rhs_n.shape) != (n,):
+        raise ValueError(f"a_n {tuple(a_n.shape)} and rhs_n "
+                         f"{tuple(rhs_n.shape)} are not (n, n) and (n,)")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"n = {n} is outside the kernel's range 1..{MAX_N}")
+
+
+def psd_solve_raw(a_n: torch.Tensor, rhs_n: torch.Tensor, refine: int = 2):
+    """Solve the normalised SPD system a_n x = rhs_n in one kernel launch;
+    returns (x, res2, b2), the last two as 0-d tensors on the device."""
+    if a_n.device.type == "cpu":
+        return psd_solve_raw_plain(a_n, rhs_n, refine)
+    _check_cuda_inputs(a_n, rhs_n)
+    if refine < 0:
+        raise ValueError(f"refine = {refine} < 0")
+    from pycamset_tpu_torch._build import load
+    n = a_n.shape[0]
+    p = -(-n // BLK)
+    dev = a_n.device
+    with torch.cuda.device(dev):
+        out = torch.empty(n + 2, dtype=torch.float32, device=dev)
+        l, minv, w, y = torch.empty(
+            n * n + p * BLK * BLK + 2 * n, dtype=torch.float32,
+            device=dev).split([n * n, p * BLK * BLK, n, n])
+        xd, rd = torch.empty(2 * n, dtype=torch.float64, device=dev).split(n)
+        rc = load().lib.pct_psd_solve(
+            a_n.data_ptr(), rhs_n.data_ptr(), n, int(refine),
+            out.data_ptr(), out[n:].data_ptr(), l.data_ptr(), minv.data_ptr(),
+            w.data_ptr(), y.data_ptr(), xd.data_ptr(), rd.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"psd_solve_raw launch failed: cudaError {rc}")
+    psd_solve_raw.launches += 1
+    return out[:n], out[n], out[n + 1]
+
+
+psd_solve_raw.launches = 0
+
+
+def residual_ok(res2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The reference's acceptance rule for a dense solve, res2 <= RES_TOL b2
+    (false where either is NaN), as a boolean tensor on their device."""
+    return res2 <= RES_TOL * b2
+
+
+def psd_solve(a_n: torch.Tensor, rhs_n: torch.Tensor, *, refine: int = 2,
+              fallback=None) -> torch.Tensor:
+    """Solve the Jacobi-normalised SPD system a_n x = rhs_n in one kernel.
+
+    :param fallback: optional (a_n, rhs_n) -> x, run instead when the
+        kernel's final relative residual exceeds 1e-4 (res2 > 1e-8 b2):
+        numerically hostile systems where the float32 factor and its
+        refinement did not converge. Each fallback taken adds one to
+        ``psd_solve.fallbacks``.
+    """
+    x, res2, b2 = psd_solve_raw(a_n, rhs_n, refine=refine)
+    if fallback is None:
+        return x
+    if bool(residual_ok(res2, b2)):     # one host read per call
+        return x
+    psd_solve.fallbacks += 1
+    return fallback(a_n, rhs_n).to(x.dtype)
+
+
+psd_solve.fallbacks = 0
+
+
+def use_cuda_psd(n: int, dtype, device) -> bool:
+    """Dispatch rule (``use_pallas_psd``'s): OPT-IN via
+    ``PYCAMSET_PALLAS_CHOL=1``, off under ``PYCAMSET_NO_PALLAS``; a CUDA
+    device, float32 and 1 <= n <= MAX_N required. Read at call time."""
+    return (torch.device(device).type == "cuda"
+            and not os.environ.get("PYCAMSET_NO_PALLAS")
+            and dtype == torch.float32
+            and 1 <= n <= MAX_N
+            and os.environ.get("PYCAMSET_PALLAS_CHOL") == "1")

@@ -34,7 +34,10 @@ on either device.
 
 Without point blocks the Schur step eliminates the exactly block-diagonal
 pose system in batch and solves the dense (C*a) camera system. With them it
-eliminates the points first and solves the dense (C*a + I*b) system. Fixed
+eliminates the points first and solves the dense (C*a + I*b) system. The
+dense solve (``_psd_solve``) goes through ``torch.linalg.cholesky_ex`` by
+default, or, opted in with ``PYCAMSET_PALLAS_CHOL=1`` on a card, through the
+hand-written one-launch kernel of ``ops/cuda_cholesky.py``. Fixed
 parameters are handled by zeroing Jacobian COLUMNS (the column masks); a
 damping floor keeps the eliminated blocks invertible and gives exact zero
 steps for them.
@@ -51,6 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pycamset_tpu_torch.ops.cuda_cholesky import psd_solve, use_cuda_psd
 from pycamset_tpu_torch.optim.blocks import key_type
 from pycamset_tpu_torch.optim.chain import OptimFunction
 
@@ -601,13 +605,24 @@ def _psd_solve(amat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     the fx^2-vs-rotation scale disparity that makes the raw system cond
     ~1e10 (essential in float32). The ridge is relative to the unit diagonal
     and scaled to the dtype's precision.
+
+    OPT-IN (``PYCAMSET_PALLAS_CHOL=1``, CUDA, float32, n <= 2048, the JAX
+    package's switch): the factor and solve run in ONE launch of the
+    hand-written kernel (``ops/cuda_cholesky.py``), with its residual check
+    falling back to the library route. The default is the library route,
+    ``cholesky_ex`` + ``cholesky_solve``, as in the JAX package.
     """
     n = amat.shape[0]
     d = torch.sqrt(torch.clamp(torch.diagonal(amat), min=1e-30))
     a_n = amat / d[:, None] / d[None, :]
     ridge = 10.0 * torch.finfo(amat.dtype).eps
     a_n = a_n + ridge * torch.eye(n, dtype=amat.dtype, device=amat.device)
-    return _cho_refine_solve(a_n, rhs / d) / d
+    rhs_n = rhs / d
+    if use_cuda_psd(n, amat.dtype, amat.device):
+        sol = psd_solve(a_n, rhs_n, fallback=_cho_refine_solve)
+    else:
+        sol = _cho_refine_solve(a_n, rhs_n)
+    return sol / d
 
 
 def _sym3_inv(m: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,194 @@
+"""Port parity: the one-launch dense SPD solve (ops/cuda_cholesky.py).
+
+On CPU tensors ``psd_solve_raw`` runs its plain twin, which is held against
+the JAX package's Pallas kernel ``_pallas_psd_solve_raw`` in interpret mode
+on the systems of ``tests/test_pallas_cholesky.py`` (float32 on both sides)
+and against ``np.linalg.solve`` in float64. Then the zero right-hand side,
+the residual fallback and its count, the opt-in dispatch rule, and the
+template and self-cal LM solves with the one-launch route forced in both
+packages.
+
+Tolerances. x: the JAX test's own bound for each case, on the difference of
+the two float32 solves relative to |x64| (each float32 solve is within that
+bound of float64, and they sum in different orders). sqrt(res2 / b2): the
+same bound (each is the float32 factor's backward error). b2: 1e-6 relative
+(one float32 sum of n squares in two orders). Float64: 1e-9 relative to
+np.linalg.solve (condition <= 1e6 times float64 rounding).
+"""
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pycamset_tpu.ops.pallas_cholesky as pc
+import test_torch_selfcal
+import test_torch_slice
+from pycamset_tpu_torch.ops import cuda_cholesky as cc
+from pycamset_tpu_torch.optim import structured as ts
+from pycamset_tpu_torch.problems import selfcal_problem, standard_problem
+from test_pallas_cholesky import _normalized_spd
+
+CASES = [(64, 1e3, 1e-4), (128, 1e2, 1e-4), (200, 1e4, 1e-3),
+         (384, 1e6, 2e-2)]
+
+
+@pytest.mark.parametrize("n,cond,tol", CASES)
+def test_plain_twin_matches_the_pallas_kernel(n, cond, tol):
+    a_n, rhs = _normalized_spd(n, cond)
+    xj, rj, bj = pc._pallas_psd_solve_raw(jnp.asarray(a_n, jnp.float32),
+                                          jnp.asarray(rhs, jnp.float32),
+                                          interpret=True)
+    xt, rt, bt = cc.psd_solve_raw(torch.tensor(a_n, dtype=torch.float32),
+                                  torch.tensor(rhs, dtype=torch.float32))
+    assert xt.dtype == torch.float32 and xt.shape == (n,)
+    x_ref = np.linalg.solve(a_n, rhs)
+    scale = np.linalg.norm(x_ref)
+    xt = xt.double().numpy()
+    assert np.linalg.norm(xt - x_ref) / scale < tol
+    assert np.linalg.norm(xt - np.asarray(xj, np.float64)) / scale < tol
+    assert abs(np.sqrt(float(rt) / float(bt))
+               - np.sqrt(float(rj) / float(bj))) < tol
+    assert abs(float(bt) / float(bj) - 1.0) < 1e-6
+
+
+@pytest.mark.parametrize("n,cond,tol", CASES)
+def test_plain_twin_float64_matches_numpy(n, cond, tol):
+    a_n, rhs = _normalized_spd(n, cond)
+    x, res2, b2 = cc.psd_solve_raw(torch.tensor(a_n), torch.tensor(rhs))
+    assert x.dtype == torch.float64
+    x_ref = np.linalg.solve(a_n, rhs)
+    assert (np.linalg.norm(x.numpy() - x_ref) / np.linalg.norm(x_ref)
+            < 1e-9)
+    assert float(res2) <= 1e-20 * float(b2)
+    assert float(b2) == pytest.approx(float(rhs @ rhs), rel=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_zero_rhs_gives_zero_solution(dtype):
+    a_n, _ = _normalized_spd(200, 1e3)
+    x, res2, b2 = cc.psd_solve_raw(torch.tensor(a_n, dtype=dtype),
+                                   torch.zeros(200, dtype=dtype))
+    assert torch.equal(x, torch.zeros_like(x))
+    assert float(res2) == 0.0 and float(b2) == 0.0
+
+
+def test_residual_fallback_is_taken_and_counted_on_a_hostile_system():
+    """A NaN entry must fail the residual check and route through the
+    fallback, counted; a healthy system must not."""
+    a_n, rhs = _normalized_spd(128, 1e2)
+    a_bad = a_n.copy()
+    a_bad[3, 5] = a_bad[5, 3] = np.nan
+    calls = []
+
+    def fallback(a, b):
+        calls.append(1)
+        return torch.zeros_like(b) + 7.0
+
+    f32 = functools.partial(torch.tensor, dtype=torch.float32)
+    before = cc.psd_solve.fallbacks
+    x = cc.psd_solve(f32(a_bad), f32(rhs), fallback=fallback)
+    assert calls and cc.psd_solve.fallbacks == before + 1
+    assert torch.equal(x, torch.full_like(x, 7.0))
+
+    x_ok = cc.psd_solve(f32(a_n), f32(rhs), fallback=fallback)
+    assert len(calls) == 1 and cc.psd_solve.fallbacks == before + 1
+    x_ref = np.linalg.solve(a_n, rhs)
+    assert (np.linalg.norm(x_ok.double().numpy() - x_ref)
+            / np.linalg.norm(x_ref) < 1e-4)
+
+
+@pytest.mark.parametrize("res2, b2, ok", [
+    (1e-8, 1.0, True), (2e-8, 1.0, False), (0.0, 0.0, True),
+    (float("nan"), 1.0, False), (0.0, float("nan"), False)])
+def test_residual_rule_is_the_references(res2, b2, ok):
+    """``residual_ok`` is ``pallas_psd_solve``'s res2 <= 1e-8 b2, NaN
+    failing it, in float32 as the kernel returns them."""
+    f32 = functools.partial(torch.tensor, dtype=torch.float32)
+    assert bool(cc.residual_ok(f32(res2), f32(b2))) is ok
+
+
+def test_cpu_wrapper_launches_nothing():
+    a_n, rhs = _normalized_spd(64, 1e2)
+    before = cc.psd_solve_raw.launches
+    cc.psd_solve_raw(torch.tensor(a_n), torch.tensor(rhs))
+    assert cc.psd_solve_raw.launches == before
+
+
+def test_dispatch_rule(monkeypatch):
+    """Opt-in only (as use_pallas_psd): CUDA, float32, n <= MAX_N; the
+    reference's two variables, read at call time. No card is needed: the
+    rule only looks at the device's type."""
+    cuda = torch.device("cuda", 0)
+    monkeypatch.delenv("PYCAMSET_PALLAS_CHOL", raising=False)
+    monkeypatch.delenv("PYCAMSET_NO_PALLAS", raising=False)
+    assert not cc.use_cuda_psd(852, torch.float32, cuda)   # off by default
+    monkeypatch.setenv("PYCAMSET_PALLAS_CHOL", "1")
+    assert cc.use_cuda_psd(852, torch.float32, cuda)
+    assert cc.use_cuda_psd(cc.MAX_N, torch.float32, "cuda")
+    assert cc.MAX_N >= 1088                # the 1032/1044-wide 64x12 systems
+    assert not cc.use_cuda_psd(cc.MAX_N + 1, torch.float32, cuda)
+    assert not cc.use_cuda_psd(852, torch.float64, cuda)
+    assert not cc.use_cuda_psd(852, torch.float32, torch.device("cpu"))
+    monkeypatch.setenv("PYCAMSET_PALLAS_CHOL", "0")
+    assert not cc.use_cuda_psd(852, torch.float32, cuda)
+    monkeypatch.setenv("PYCAMSET_PALLAS_CHOL", "1")
+    monkeypatch.setenv("PYCAMSET_NO_PALLAS", "1")
+    assert not cc.use_cuda_psd(852, torch.float32, cuda)
+
+
+def test_default_psd_solve_is_the_library_route(monkeypatch):
+    """Without the opt-in, _psd_solve is cholesky_ex + refinement, bit for
+    bit, and never reaches psd_solve."""
+    monkeypatch.delenv("PYCAMSET_PALLAS_CHOL", raising=False)
+    monkeypatch.setattr(ts, "psd_solve", None)
+    rng = np.random.default_rng(3)
+    base = rng.normal(size=(60, 76))
+    amat = torch.tensor(base @ base.T / 60 + np.diag(rng.uniform(1, 5, 60)))
+    rhs = torch.tensor(rng.normal(size=60))
+    d = torch.sqrt(torch.diagonal(amat))
+    a_n = amat / d[:, None] / d[None, :] + 10 * torch.finfo(
+        torch.float64).eps * torch.eye(60, dtype=torch.float64)
+    want = ts._cho_refine_solve(a_n, rhs / d) / d
+    assert torch.equal(ts._psd_solve(amat, rhs), want)
+
+
+def _force_one_launch_route(monkeypatch):
+    """Both packages take their one-launch route: JAX's Pallas kernel in
+    interpret mode (test-side patches only), the port's psd_solve (the
+    plain twin on CPU tensors). Returns the port's call count."""
+    interp = functools.partial(pc.pallas_psd_solve, interpret=True)
+    monkeypatch.setattr(pc, "use_pallas_psd", lambda n, dtype: True)
+    monkeypatch.setattr(pc, "pallas_psd_solve", interp)
+    calls = []
+    orig = ts.psd_solve
+
+    def counted(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(ts, "use_cuda_psd", lambda n, dtype, device: True)
+    monkeypatch.setattr(ts, "psd_solve", counted)
+    return calls
+
+
+# The JAX kernel solves each reduced system in float32 (then refines it)
+# inside the float64 LM, the port's twin in float64: the steps differ by
+# float32's solve error, which the LM's acceptance absorbs on these rigs.
+# Required: the same status and iterations, the final costs (both at the
+# 0.3 px noise floor) within 1e-9 relative (7e-13 seen).
+@pytest.mark.parametrize("chain", ["template", "selfcal"])
+def test_lm_with_the_one_launch_route_matches_jax(monkeypatch, chain):
+    calls = _force_one_launch_route(monkeypatch)
+    if chain == "template":
+        ref = test_torch_slice._jax_solve(3, 5, 6, "linear")
+        prob = standard_problem(3, 5, "cpu", grid=6, k_pad_multiple=8)
+    else:
+        ref = test_torch_selfcal._jax_solve(3, 5, "linear")
+        prob = selfcal_problem(3, 5, "cpu", grid=6, k_pad_multiple=8)
+    got = prob.solve()
+    assert len(calls) == got.nit         # one dense solve per LM step
+    assert int(got.status) == int(ref.status) and int(got.status) in (1, 2)
+    assert got.nit == int(ref.nit)
+    assert abs(float(got.cost) - float(ref.cost)) <= 1e-9 * float(ref.cost)

@@ -267,3 +267,81 @@ def test_mixed_wrappers_raise_instead_of_falling_back(card):
         mg.mixed_gram(*f32, with_key_cols=False)
     with pytest.raises(ValueError):
         mg.mixed_gram_fused(*f32, 2, 4)
+
+
+def _normalized_spd(n, cond, seed=0):
+    """Unit-diagonal SPD of the given condition plus the production ridge
+    (``tests/test_pallas_cholesky.py::_normalized_spd``, kept here because
+    this file imports no jax)."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    a = (q * np.logspace(0, -np.log10(cond), n)) @ q.T
+    d = np.sqrt(np.diag(a))
+    a_n = (a / d[:, None] / d[None, :]
+           + 10 * np.finfo(np.float32).eps * np.eye(n))
+    return a_n, rng.normal(size=n)
+
+
+# The one-launch SPD solve against its float64 twin: float32 factor + 2
+# refinement passes; the error bound is the JAX kernel test's at the same
+# condition (1e-4 at 1e2, 1e-3 at 1e4, 2e-2 at 1e6).
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [240, 852, 1044])
+@pytest.mark.parametrize("cond,tol", [(1e2, 1e-4), (1e4, 1e-3)])
+def test_psd_solve_matches_float64_twin(card, n, cond, tol):
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    a_n, rhs = _normalized_spd(n, cond)
+    a32 = torch.tensor(a_n, dtype=torch.float32, device=card)
+    b32 = torch.tensor(rhs, dtype=torch.float32, device=card)
+    before = cc.psd_solve_raw.launches
+    x, res2, b2 = cc.psd_solve_raw(a32, b32)
+    assert cc.psd_solve_raw.launches == before + 1
+    x64, _, b2_64 = cc.psd_solve_raw_plain(a32.double(), b32.double())
+    rel = float(torch.linalg.norm(x.double() - x64) / torch.linalg.norm(x64))
+    assert rel < tol, (n, cond, rel)
+    assert float(res2) <= tol ** 2 * float(b2)
+    assert abs(float(b2) / float(b2_64) - 1) < 1e-6
+
+
+@pytest.mark.cuda
+def test_psd_solve_is_reproducible(card):
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    a_n, rhs = _normalized_spd(1044, 1e3)
+    a32 = torch.tensor(a_n, dtype=torch.float32, device=card)
+    b32 = torch.tensor(rhs, dtype=torch.float32, device=card)
+    first, again = cc.psd_solve_raw(a32, b32), cc.psd_solve_raw(a32, b32)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_psd_solve_raises_instead_of_falling_back(card):
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    a_n, rhs = _normalized_spd(64, 1e2)
+    a32 = torch.tensor(a_n, dtype=torch.float32, device=card)
+    b32 = torch.tensor(rhs, dtype=torch.float32, device=card)
+    with pytest.raises(TypeError):
+        cc.psd_solve_raw(a32.double(), b32.double())
+    with pytest.raises(ValueError):
+        cc.psd_solve_raw(a32, b32.cpu())
+    with pytest.raises(ValueError):
+        cc.psd_solve_raw(a32.T, b32)            # not contiguous
+    n = cc.MAX_N + 1
+    with pytest.raises(ValueError):
+        cc.psd_solve_raw(torch.eye(n, device=card),
+                         torch.ones(n, device=card))
+
+
+@pytest.mark.cuda
+def test_fma_probe_matches_its_twin(card):
+    from pycamset_tpu_torch import peak
+    x = np.random.default_rng(0).uniform(0.5, 1.0, (64, 128))
+    a = torch.tensor(x, dtype=torch.float32, device=card)
+    before = peak.fma_chain.launches
+    got = peak.fma_chain(a, iters=256)
+    assert peak.fma_chain.launches == before + 1
+    ref = peak.fma_chain_plain(a.double(), iters=256)
+    err = float((got.double() - ref).abs().max()) / float(ref.abs().max())
+    assert err < 1024 * 2.0 ** -24    # 1024 dependent float32 operations
+    with pytest.raises(TypeError):
+        peak.fma_chain(a.double())
