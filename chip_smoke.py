@@ -335,6 +335,22 @@ def phase_device():
     return smi
 
 
+def ptxas_resources(ptxas_info: str) -> dict:
+    """Registers and spill bytes (stores + loads) of each compiled entry,
+    by mangled name, from nvcc's -Xptxas -v report."""
+    out, entry = {}, None
+    for ln in ptxas_info.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            out[entry] = {"registers": None, "spill_bytes": 0}
+        elif entry and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[entry]["spill_bytes"] = nums[1] + nums[2]
+        elif entry and "registers" in ln:
+            out[entry]["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
+
+
 def phase_build():
     from pycamset_tpu_torch._build import load
     t0 = time.perf_counter()
@@ -344,11 +360,22 @@ def phase_build():
     for ln in kl.ptxas_info.splitlines():
         if any(w in ln for w in ("Compiling entry", "registers", "spill")):
             print(f"  ptxas: {ln.strip()}", flush=True)
+    # Kernels A and B: the two instantiations of template_grams.cu's
+    # gram_kernel<FUSED>
+    res = ptxas_resources(kl.ptxas_info)
+    for name, flag in (("A", "ILb0E"), ("B", "ILb1E")):
+        hit = [r for e, r in res.items()
+               if "template_grams" in e and "gram_kernel" + flag in e]
+        check(len(hit) == 1, f"ptxas reports no gram_kernel for Kernel {name}")
+        say("build", kernel=name, registers=hit[0]["registers"],
+            spill_bytes=hit[0]["spill_bytes"])
 
 
-def phase_template_kernels(probs, out):
+def phase_template_kernels(probs, out, peak_tflops: float):
     """Kernels A and B vs their float64 plain twins at both template
-    shapes, all four losses, and a repeat launch; times per shape."""
+    shapes, all four losses, and a repeat launch; times per shape, and
+    each kernel's rate counted as its bound counts, beside the bound and
+    the FMA probe's measured rate (``peak_tflops``)."""
     from pycamset_tpu_torch.optim import cuda_grams as cg
     for shape in ("template 16x100", "template 64x400"):
         prob = probs[shape]
@@ -401,10 +428,16 @@ def phase_template_kernels(probs, out):
         }
         say("time", shape=shape, unit="ms",
             **{k: f"{v:.4f}" for k, v in t.items()})
+        flop = prob.blocks.n_real * flop_per_detection("template")
         for name in ("template_gram", "template_gram_fused"):
             out[name][shape].update(
                 ms=t[name], kernel_ms=t[name + "_kernel"],
                 plain_ms=t[name + "_plain"], bmm_ms=t["bmm_22"])
+            gflops = flop / (t[name + "_kernel"] * 1e6)
+            say("time", shape=shape, kernel=name, gflop=f"{flop / 1e9:.4f}",
+                gflops=f"{gflops:.1f}",
+                of_bound=f"{bound(name, prob)[0] / t[name + '_kernel']:.4f}",
+                of_fma_probe=f"{gflops / (peak_tflops * 1e3):.4f}")
 
 
 def phase_selfcal_kernels(probs, out):
@@ -914,7 +947,7 @@ def main() -> int:
                        f"B={p.mask.shape[0]},K={p.mask.shape[1]},"
                        f"n_real={p.blocks.n_real}" for s, p in probs.items()})
     kern = {name: {} for name in KERNELS}
-    phase_template_kernels(probs, kern)
+    phase_template_kernels(probs, kern, peak_rec["tflops"])
     phase_selfcal_kernels(probs, kern)
     phase_mixed_kernels(probs, kern)
     systems = capture_reduced_systems(probs)

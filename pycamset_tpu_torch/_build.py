@@ -59,7 +59,8 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float   # 0.0 when an up-to-date library was found
-    ptxas_info: str        # nvcc's -Xptxas -v report (registers, spills)
+    ptxas_info: str        # nvcc's -Xptxas -v report (registers, spills),
+                           # kept beside the library as *.ptxas.txt
 
 
 def find_nvcc() -> str:
@@ -117,8 +118,11 @@ def load() -> KernelLibrary:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = BUILD_DIR / f"libpct_kernels_{_source_hash()}.so"
-    seconds, ptxas = 0.0, ""
-    if not path.exists():
+    # the ptxas report is kept beside the library, so that a cached library
+    # still reports its registers and spills
+    report = path.with_suffix(".ptxas.txt")
+    seconds = 0.0
+    if not (path.exists() and report.exists()):
         tmp = path.with_suffix(f".{os.getpid()}.tmp.so")
         t0 = time.perf_counter()
         try:
@@ -127,7 +131,11 @@ def load() -> KernelLibrary:
             tmp.unlink(missing_ok=True)
             raise
         seconds = time.perf_counter() - t0
+        tmp_report = report.with_suffix(f".{os.getpid()}.tmp")
+        tmp_report.write_text(ptxas)
+        os.replace(tmp_report, report)
         os.replace(tmp, path)
+    ptxas = report.read_text()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

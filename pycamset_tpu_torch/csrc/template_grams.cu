@@ -21,20 +21,45 @@
 //
 // What bounds them on an H100: not device memory. Per block they read
 // 2K + K floats of measurements and mask and write 484 (A) or 133 (B)
-// floats, a few MB per call at the bench shapes; the work is the 253
-// upper-triangle dot products of length 2K per block, ~194 kFLOP per block
-// at K = 384, and the shared-memory reads that feed them (two operands per
-// FMA). The design keeps everything of one block on one SM: one thread
-// per key computes its two weighted rows into a shared-memory tile of 128
-// keys (23.5 KB, so several blocks stay resident per SM), then each thread
-// accumulates two of the 253 gram entries over the tile in registers, in a
-// fixed order. Kernel B walks a chunk of one camera's images inside the
-// block (the TPU carried hcc/gc across its sequential grid instead; Hopper
-// blocks run in no order), so hcc/gc stay in registers across the chunk,
-// and a second pass adds the chunks of a camera in a fixed order: no float
-// atomics, so every run gives the same bits. Kernel B needs no padding of
-// the image axis. The TPU's structural-zero bookkeeping (_zmul/_zpair) and
-// its tile-16 padding are not carried over.
+// floats, a few MB per call at the bench shapes. The work is the
+// projection core once per key and the 253 upper-triangle dot products of
+// length 2K per block, ~194 kFLOP per block at K = 384, in FP32 FMAs on the
+// CUDA cores: instruction issue. Feeding the FMAs from shared memory one
+// operand at a time (the first port: two loads per FMA) ran at an eighth of
+// the FMA rate. With the design below, the products take about half of
+// Kernel B's time at the bench's 64 x 400 shape and the projection core
+// about a third, and their times add: four resident blocks already keep
+// the SM's issue slots busy, so overlapping the two phases inside a block
+// (two row tiles, one barrier a tile) made it slower, as did compacting
+// the live keys before the core (PERF.md, section 6).
+//
+// The design. One thread per key slot of a tile of NT keys computes the
+// key's two weighted rows straight into shared memory, at stride 26 (the 22
+// gram columns, the cost column, a zero, two pad). Masked slots write no
+// row: a warp ballot and the per-warp counts place the live keys' u rows
+// densely in key order, their v rows after them, so the gram loop runs over
+// real detections only (79% of the slots at template 64 x 400). The 24
+// columns form 4 groups of 6; the 10 upper-triangle group pairs are 6 x 6
+// register tiles. Lane 10 s + t of a warp (lanes 0-29) owns tile t over row
+// stream q = warp + NW s. Per row it loads its two groups (six 64-bit loads,
+// broadcast to the 10 lanes that share the row; the three rows a warp reads
+// at once fall on distinct banks) and issues 36 FMAs. About 70% of those
+// products are needed (the diagonal tiles compute both triangles, the cost
+// and zero columns ride along); splitting the tiles by shape across warps
+// issued fewer FMAs but ran slower, the loads then broadcasting less. Small
+// blocks (NT = 128) at no more than 128 registers let four blocks share an
+// SM, so that one block's projection core, a long dependent chain, overlaps
+// another's FMA loop. The TPU's structural-zero bookkeeping (_zmul/_zpair)
+// is not carried over.
+//
+// At each image's end the lanes' partial tiles go through shared memory
+// (over the row tile, which is free then) and one thread per gram entry adds
+// its partials in a fixed order (warp, then stream): no float atomics, so
+// every run gives the same bits. Kernel B walks a chunk of one camera's
+// images inside the block (the TPU carried hcc/gc across its sequential
+// grid; Hopper blocks run in no order): the entry threads keep hcc/gc summing
+// in registers across the chunk, and cam_reduce_kernel adds the chunks of a
+// camera in chunk order. Kernel B needs no padding of the image axis.
 //
 // Each launcher runs on the given stream, allocates nothing, and returns
 // cudaGetLastError().
@@ -49,8 +74,38 @@ namespace {
 
 using namespace pct_core;
 
-constexpr int TK = 128;            // keys per tile = threads per block
+constexpr int NW = 4;              // warps per block
+constexpr int NT = NW * 32;        // threads per block = keys per row tile
+constexpr int RC = 24;             // tile row: 22 gram + cost + zero columns
+constexpr int RS = 26;             // tile row stride (conflict-free reads)
+constexpr int G = 6;               // register tile: G x G entries per lane
+constexpr int NG = RC / G;         // column groups
+constexpr int N_TILES = NG * (NG + 1) / 2;  // upper-triangle group pairs
+constexpr int N_SUB = 3;           // row streams per warp
+constexpr int N_LANES = N_SUB * N_TILES;    // accumulating lanes per warp
+constexpr int N_STREAM = NW * N_SUB;        // row streams per block
+constexpr int CORNER = ROW - 1;    // the cost column, read for the corner
 constexpr int N_CAM = 135;         // hcc upper triangle (120) + gc (15)
+constexpr int N_EPT = (N_ENTRIES + NT - 1) / NT;  // gram entries a thread
+
+static_assert(N_LANES <= 32, "one warp holds its tiles");
+static_assert(PPB <= NT, "one thread loads each block parameter");
+static_assert(NW * N_LANES * G * G <= 2 * NT * RS,
+              "the partials fit in the row tile");
+
+// tile t (row-major over the upper triangle of NG x NG) -> groups (a, b)
+__device__ __forceinline__ void tile_groups(int t, int &a, int &b) {
+  a = 0;
+  while (t >= NG - a) {
+    t -= NG - a;
+    ++a;
+  }
+  b = a + t;
+}
+
+__device__ __forceinline__ int tile_of(int a, int b) {
+  return a * NG - a * (a - 1) / 2 + (b - a);
+}
 
 // Kernel A (FUSED = false): one thread block per (camera, image) block,
 // writes the symmetric (22, 22) extended gram to out_gram.
@@ -58,7 +113,7 @@ constexpr int N_CAM = 135;         // hcc upper triangle (120) + gc (15)
 // `chunk` consecutive images of one camera, writes the per-block pose
 // pieces and leaves the chunk's hcc/gc partial sums in cam_part.
 template <bool FUSED>
-__global__ void __launch_bounds__(TK)
+__global__ void __launch_bounds__(NT, 4)  // 4 blocks an SM: <= 128 registers
 gram_kernel(const float *__restrict__ packed, const float *__restrict__ tpl,
             const float *__restrict__ uv, const float *__restrict__ mask,
             int n_ims, int n_keys, int loss, int component,
@@ -66,27 +121,38 @@ gram_kernel(const float *__restrict__ packed, const float *__restrict__ tpl,
             float *__restrict__ wci, float *__restrict__ gii,
             float *__restrict__ gi, float *__restrict__ corner,
             float *__restrict__ cam_part) {
-  __shared__ float prm[PPB];
-  __shared__ float rows[2 * TK * ROW];
-  const int t = threadIdx.x;
+  // the row tile (live u rows, then live v rows); at each image's end, the
+  // lanes' partial tiles
+  __shared__ __align__(16) float rows[2 * NT * RS];
+  __shared__ __align__(16) float prm[PPB];
+  __shared__ int live_count[NW];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
 
-  // the two gram entries this thread accumulates: (oi, oj) is the output
-  // position, (ci, cj) the tile columns read (the corner reads the cost
-  // column); an entry past 253 reads column 0 and is never written
-  int oi[2], oj[2], ci[2], cj[2];
-  bool valid[2];
+  // accumulating role: lane s * N_TILES + tile over row stream
+  // q = warp + NW * s, which walks the rows q, q + N_STREAM, ...: the three
+  // rows a warp reads at once are NW apart, on distinct banks
+  const bool acc_lane = lane < N_LANES;
+  int ta, tb;
+  tile_groups(acc_lane ? lane % N_TILES : 0, ta, tb);
+  const float *col_a = rows + ta * G, *col_b = rows + tb * G;
+  const int q = warp + NW * (lane / N_TILES);
+  float *partial = rows + (warp * N_LANES + lane) * G * G;
+
+  // entry role: gram entries e = t, t + NT, ... of the 253. (oi, oj) is
+  // the output position, src the entry's offset in a lane's partials (the
+  // corner reads the cost column's square)
+  int oi[N_EPT], oj[N_EPT], src[N_EPT];
+  bool valid[N_EPT];
   #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int e = t + q * TK;
-    valid[q] = e < N_ENTRIES;
-    if (valid[q]) {
-      entry_ij(e, oi[q], oj[q]);
-    } else {
-      oi[q] = oj[q] = 0;
-    }
-    const bool is_corner = oi[q] == W - 1 && oj[q] == W - 1;
-    ci[q] = is_corner ? ROW - 1 : oi[q];
-    cj[q] = is_corner ? ROW - 1 : oj[q];
+  for (int k = 0; k < N_EPT; ++k) {
+    const int e = t + k * NT;
+    valid[k] = e < N_ENTRIES;
+    oi[k] = oj[k] = 0;
+    if (valid[k]) entry_ij(e, oi[k], oj[k]);
+    const bool is_corner = oi[k] == W - 1 && oj[k] == W - 1;
+    const int ri = is_corner ? CORNER : oi[k];
+    const int rj = is_corner ? CORNER : oj[k];
+    src[k] = tile_of(ri / G, rj / G) * G * G + (ri % G) * G + rj % G;
   }
 
   int blk0, n_blk, cam = 0, n_chunks = 1;
@@ -101,74 +167,138 @@ gram_kernel(const float *__restrict__ packed, const float *__restrict__ tpl,
     n_blk = 1;
   }
 
-  float acc0 = 0.f, acc1 = 0.f;
-  for (int bi = 0; bi < n_blk; ++bi) {
-    const int blk = blk0 + bi;
-    __syncthreads();
-    if (t < PPB) prm[t] = packed[(size_t)blk * PPB + t];
-    __syncthreads();
-    for (int k0 = 0; k0 < n_keys; k0 += TK) {
-      const int k = k0 + t;
-      float *ru_row = rows + (2 * t) * ROW;
-      float *rv_row = ru_row + ROW;
-      if (k < n_keys) {
-        const size_t s = (size_t)blk * n_keys + k;
-        const float2 m_uv = reinterpret_cast<const float2 *>(uv)[s];
-        key_rows(prm, tpl[3 * k], tpl[3 * k + 1], tpl[3 * k + 2], m_uv.x,
-                 m_uv.y, mask[s], loss, component, c2, ru_row, rv_row);
-      } else {
-        for (int c = 0; c < ROW; ++c) {
-          ru_row[c] = 0.f;
-          rv_row[c] = 0.f;
+  float acc[G * G];
+  #pragma unroll
+  for (int i = 0; i < G * G; ++i) acc[i] = 0.f;
+  float cam_acc[N_EPT];
+  #pragma unroll
+  for (int k = 0; k < N_EPT; ++k) cam_acc[k] = 0.f;
+
+  // the inputs of this thread's slot of the next tile, loaded a tile ahead
+  int blk = blk0, k = t;
+  float m = 0.f, p_next = 0.f;
+  float2 m_uv = make_float2(0.f, 0.f);
+  float3 pt = make_float3(0.f, 0.f, 0.f);
+  auto fetch = [&](int b, int kk) {
+    m = 0.f;
+    if (kk < n_keys) {
+      const size_t s = (size_t)b * n_keys + kk;
+      m = mask[s];
+      m_uv = reinterpret_cast<const float2 *>(uv)[s];
+      pt = make_float3(tpl[3 * kk], tpl[3 * kk + 1], tpl[3 * kk + 2]);
+    }
+  };
+  if (n_keys > 0) fetch(blk, k);
+  if (t < PPB) p_next = packed[(size_t)blk * PPB + t];
+
+  for (int bi = 0; bi < n_blk; ++bi, ++blk) {
+    // the previous image's last reader of prm passed two barriers since
+    if (t < PPB) {
+      prm[t] = p_next;
+      if (bi + 1 < n_blk) p_next = packed[(size_t)(blk + 1) * PPB + t];
+    }
+    for (int k0 = 0; k0 < n_keys; k0 += NT) {
+      const float km = m;
+      const float2 kuv = m_uv;
+      const float3 kpt = pt;
+      k = k0 + NT < n_keys ? k + NT : t;
+      if (k0 + NT < n_keys) {
+        fetch(blk, k);
+      } else if (bi + 1 < n_blk) {
+        fetch(blk + 1, k);
+      }
+      const unsigned live = __ballot_sync(0xffffffffu, km != 0.f);
+      if (lane == 0) live_count[warp] = __popc(live);
+      __syncthreads();  // counts and prm are in; the last tile is read
+      int first = 0, n_live = 0;
+      #pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const int c = live_count[w];
+        first += w < warp ? c : 0;
+        n_live += c;
+      }
+      if (km != 0.f) {  // masked slots give no row at all
+        // the key's u row at tile row pos, its v row at n_live + pos
+        const int pos = first + __popc(live & ((1u << lane) - 1u));
+        float *ru_row = rows + pos * RS;
+        float *rv_row = rows + (n_live + pos) * RS;
+        key_rows(prm, kpt.x, kpt.y, kpt.z, kuv.x, kuv.y, km, loss,
+                 component, c2, ru_row, rv_row);
+        ru_row[RC - 1] = 0.f;
+        rv_row[RC - 1] = 0.f;
+      }
+      __syncthreads();  // the live rows are in
+      if (acc_lane) {
+        const int n_rows = 2 * n_live;
+        #pragma unroll 8  // a tile gives a stream about 17 rows
+        for (int r = q; r < n_rows; r += N_STREAM) {
+          const float2 *pa = reinterpret_cast<const float2 *>(col_a + r * RS);
+          const float2 *pb = reinterpret_cast<const float2 *>(col_b + r * RS);
+          float x[G], y[G];
+          #pragma unroll
+          for (int h = 0; h < G / 2; ++h) {
+            const float2 u = pa[h], v = pb[h];
+            x[2 * h] = u.x;
+            x[2 * h + 1] = u.y;
+            y[2 * h] = v.x;
+            y[2 * h + 1] = v.y;
+          }
+          #pragma unroll
+          for (int i = 0; i < G; ++i) {
+            #pragma unroll
+            for (int j = 0; j < G; ++j)
+              acc[i * G + j] = fmaf(x[i], y[j], acc[i * G + j]);
+          }
         }
       }
-      __syncthreads();
-      const int n_rows = 2 * min(TK, n_keys - k0);
-      const int i0 = ci[0], j0 = cj[0], i1 = ci[1], j1 = cj[1];
-      for (int r = 0; r < n_rows; ++r) {
-        const float *row = rows + r * ROW;
-        acc0 = fmaf(row[i0], row[j0], acc0);
-        acc1 = fmaf(row[i1], row[j1], acc1);
-      }
-      __syncthreads();
     }
 
-    float acc[2] = {acc0, acc1};
-    #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      if (!valid[q]) continue;
-      const int i = oi[q], j = oj[q];
-      if (!FUSED) {
-        out_gram[((size_t)blk * W + i) * W + j] = acc[q];
-        out_gram[((size_t)blk * W + j) * W + i] = acc[q];
-        acc[q] = 0.f;
-      } else if (j >= A) {  // per-block pose pieces; hcc and gc keep summing
-        if (i < A && j < W - 1) {
-          wci[((size_t)blk * A + i) * 6 + (j - A)] = acc[q];
-          acc[q] = 0.f;
-        } else if (i >= A && j < W - 1) {
-          gii[((size_t)blk * 6 + (i - A)) * 6 + (j - A)] = acc[q];
-          gii[((size_t)blk * 6 + (j - A)) * 6 + (i - A)] = acc[q];
-          acc[q] = 0.f;
-        } else if (i >= A && i < W - 1) {
-          gi[(size_t)blk * 6 + (i - A)] = acc[q];
-          acc[q] = 0.f;
-        } else if (i == W - 1) {
-          corner[blk] = acc[q];
-          acc[q] = 0.f;
-        }
+    __syncthreads();  // every lane is done with the rows
+    if (acc_lane) {
+      float4 *dst = reinterpret_cast<float4 *>(partial);
+      #pragma unroll
+      for (int i = 0; i < G * G / 4; ++i) {
+        dst[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                             acc[4 * i + 3]);
+        acc[4 * i] = acc[4 * i + 1] = acc[4 * i + 2] = acc[4 * i + 3] = 0.f;
       }
     }
-    acc0 = acc[0];
-    acc1 = acc[1];
+    __syncthreads();  // the partials are in
+    #pragma unroll
+    for (int kq = 0; kq < N_EPT; ++kq) {
+      if (!valid[kq]) continue;
+      float sum = 0.f;  // in a fixed order: warps, then streams
+      for (int w = 0; w < NW; ++w) {
+        #pragma unroll
+        for (int sub = 0; sub < N_SUB; ++sub)
+          sum += rows[(w * N_LANES + sub * N_TILES) * G * G + src[kq]];
+      }
+      const int i = oi[kq], j = oj[kq];
+      if (!FUSED) {
+        out_gram[((size_t)blk * W + i) * W + j] = sum;
+        out_gram[((size_t)blk * W + j) * W + i] = sum;
+      } else if (i < A && (j < A || j == W - 1)) {
+        cam_acc[kq] += sum;  // hcc and gc keep summing over the chunk
+      } else if (i < A && j < W - 1) {
+        wci[((size_t)blk * A + i) * 6 + (j - A)] = sum;
+      } else if (i < W - 1 && j < W - 1) {
+        gii[((size_t)blk * 6 + (i - A)) * 6 + (j - A)] = sum;
+        gii[((size_t)blk * 6 + (j - A)) * 6 + (i - A)] = sum;
+      } else if (i < W - 1) {
+        gi[(size_t)blk * 6 + (i - A)] = sum;
+      } else {
+        corner[blk] = sum;
+      }
+    }
+    // the next image's rows and counts are written only after its first
+    // barrier, which every entry thread reaches after its reads above
   }
 
   if (FUSED) {
-    float acc[2] = {acc0, acc1};
     #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int i = oi[q], j = oj[q];
-      if (!valid[q] || i >= A) continue;
+    for (int kq = 0; kq < N_EPT; ++kq) {
+      const int i = oi[kq], j = oj[kq];
+      if (!valid[kq] || i >= A) continue;
       int slot;
       if (j < A) {
         slot = i * A - i * (i - 1) / 2 + (j - i);  // upper triangle of 15
@@ -177,7 +307,8 @@ gram_kernel(const float *__restrict__ packed, const float *__restrict__ tpl,
       } else {
         continue;  // wci: written per block above
       }
-      cam_part[((size_t)cam * n_chunks + blockIdx.x) * N_CAM + slot] = acc[q];
+      cam_part[((size_t)cam * n_chunks + blockIdx.x) * N_CAM + slot] =
+          cam_acc[kq];
     }
   }
 }
@@ -215,7 +346,7 @@ int pct_template_gram(const float *packed, const float *tpl, const float *uv,
                       const float *mask, float *out, int n_blocks, int n_keys,
                       int loss, int component, float f_scale, void *stream) {
   if (n_blocks > 0) {
-    gram_kernel<false><<<n_blocks, TK, 0, (cudaStream_t)stream>>>(
+    gram_kernel<false><<<n_blocks, NT, 0, (cudaStream_t)stream>>>(
         packed, tpl, uv, mask, 1, n_keys, loss, component,
         f_scale * f_scale, 1, out, nullptr, nullptr, nullptr, nullptr,
         nullptr);
@@ -235,7 +366,7 @@ int pct_template_gram_fused(const float *packed, const float *tpl,
   if (n_cams > 0 && n_ims > 0) {
     const int n_chunks = (n_ims + chunk - 1) / chunk;
     const dim3 grid(n_chunks, n_cams);
-    gram_kernel<true><<<grid, TK, 0, (cudaStream_t)stream>>>(
+    gram_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
         packed, tpl, uv, mask, n_ims, n_keys, loss,
         component, f_scale * f_scale, chunk, nullptr, wci, gii, gi, corner,
         cam_part);

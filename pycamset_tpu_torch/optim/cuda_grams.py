@@ -34,7 +34,7 @@ from pycamset_tpu_torch.optim.losses import LOSSES, check_loss_semantics
 
 PPB = 96            # packed per-block row, standard model
 GRAM_W = 22         # 15 cam + 6 pose + 1 residual column
-FUSED_CHUNK = 8     # images of one camera per thread block in Kernel B
+FUSED_CHUNK = 4     # images of one camera per thread block in Kernel B
 _LOSS_IDS = {name: i for i, name in enumerate(LOSSES)}  # csrc loss enum
 
 

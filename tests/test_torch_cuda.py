@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from pycamset_tpu_torch.optim.cuda_grams import FUSED_CHUNK
+
 TOL = 1e-4
 LOSS_CASES = [("linear", "component"), ("huber", "component"),
               ("huber", "observation"), ("cauchy", "component"),
@@ -34,8 +36,11 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _inputs(dev, n_cams, n_ims, grid, noise_px=3.0):
-    """Float32 per-block inputs of a perturbed rig (pose 0 exactly zero)."""
+def _inputs(dev, n_cams, n_ims, grid, noise_px=3.0, n_keys=None,
+            dark_cam=None):
+    """Float32 per-block inputs of a perturbed rig (pose 0 exactly zero):
+    the first ``n_keys`` keys only, if given; every slot of camera
+    ``dark_cam`` masked, if given."""
     from pycamset_tpu_torch.problems import standard_problem
     prob = standard_problem(n_cams, n_ims, dev, torch.float32, grid=grid,
                             k_pad_multiple=8)
@@ -45,7 +50,12 @@ def _inputs(dev, n_cams, n_ims, grid, noise_px=3.0):
                                    device=dev) * prob.mask[..., None]
     cam_b = torch.repeat_interleave(prob.x0.cam, n_ims, dim=0)
     im_b = prob.x0.im.repeat(n_cams, 1)
-    return cam_b, im_b, prob.tpl, uv.contiguous(), prob.mask
+    k = n_keys or prob.mask.shape[1]
+    mask = prob.mask[:, :k].clone()
+    if dark_cam is not None:
+        mask[dark_cam * n_ims:(dark_cam + 1) * n_ims] = 0.0
+    return (cam_b, im_b, prob.tpl[:k].contiguous(), uv[:, :k].contiguous(),
+            mask)
 
 
 def _assert_close(got, ref, name):
@@ -61,15 +71,24 @@ def _assert_scaled(errs: dict, name):
     assert max(errs.values()) <= TOL, (name, errs)
 
 
+# Kernels A and B take keys in tiles of 128 slots (masked slots give no
+# row) and Kernel B takes FUSED_CHUNK images of one camera per thread block.
 # grid 4: K = 16, one partial tile; grid 14: K = 200, a full and a partial
-# tile. n_ims 20 = two chunks of 8 and a partial one; n_ims 3 < one chunk.
+# tile; K 13 and 361: ragged tiles (the first keys of grids 4 and 19).
+# n_ims 20 = five chunks; 1, FUSED_CHUNK - 1 and 3 < one chunk;
+# FUSED_CHUNK + 1 = a chunk and one image. dark_cam: a camera whose every
+# slot is masked, whose hcc/gc and per-block pieces must be exact zeros.
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_cams,n_ims,grid", [(4, 20, 4), (3, 3, 14)])
+@pytest.mark.parametrize("n_cams,n_ims,grid,n_keys,dark_cam", [
+    (4, 20, 4, None, None), (3, 3, 14, None, None), (2, 1, 6, None, None),
+    (2, FUSED_CHUNK - 1, 6, None, None), (2, FUSED_CHUNK + 1, 6, None, None),
+    (3, 5, 4, 13, None), (2, 3, 19, 361, None), (3, 6, 6, None, 1)])
 @pytest.mark.parametrize("loss,semantics", LOSS_CASES)
-def test_kernels_match_plain_twins(card, n_cams, n_ims, grid, loss,
-                                   semantics):
+def test_kernels_match_plain_twins(card, n_cams, n_ims, grid, n_keys,
+                                   dark_cam, loss, semantics):
     from pycamset_tpu_torch.optim import cuda_grams as cg
-    f32 = _inputs(card, n_cams, n_ims, grid)
+    f32 = _inputs(card, n_cams, n_ims, grid, n_keys=n_keys,
+                  dark_cam=dark_cam)
     f64 = tuple(x.double() for x in f32)
     kw = dict(loss=loss, f_scale=2.0, loss_semantics=semantics)
     n_a, n_b = cg.template_gram.launches, cg.template_gram_fused.launches
@@ -84,8 +103,18 @@ def test_kernels_match_plain_twins(card, n_cams, n_ims, grid, loss,
         _assert_close(g, r, name)
     _assert_scaled(cg.scaled_errors_fused(got, ref, a_ref, n_cams, n_ims),
                    "B")
+    assert torch.equal(cg.template_gram(*f32, **kw), a_got)
+    for a, b in zip(cg.template_gram_fused(*f32, n_cams, n_ims, **kw), got):
+        assert torch.equal(a, b)
+    if dark_cam is not None:
+        dark = slice(dark_cam * n_ims, (dark_cam + 1) * n_ims)
+        assert not bool(a_got[dark].any())
+        assert not bool(got[0][dark_cam].any())
+        assert not bool(got[1][dark_cam].any())
+        for piece in got[2:]:
+            assert not bool(piece[dark].any())
     assert (cg.template_gram.launches, cg.template_gram_fused.launches) == (
-        n_a + 1, n_b + 1)
+        n_a + 2, n_b + 2)
 
 
 @pytest.mark.cuda
