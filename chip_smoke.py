@@ -150,6 +150,38 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / n
 
 
+def device_ms(fn, n: int = 20) -> dict:
+    """Mean device time (ms) per call of each kernel that fn launches, over
+    n calls under torch.profiler. Timing a launch by CUDA events measures
+    the host instead once the host takes longer to issue a call (a wrapper's
+    allocations and ctypes call) than the card takes to run it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us, count = {}, {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = ev.name.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].replace(" ", "")
+            us[name] = us.get(name, 0.0) + ev.time_range.elapsed_us()
+            count[name] = count.get(name, 0) + 1
+    # each kernel's mean over the events recorded, times its launches a
+    # call: a trace that drops events does not shrink the time
+    return {name: us[name] / count[name] / 1e3 * max(1, round(count[name] / n))
+            for name in us}
+
+
+def kernel_ms(fn) -> float:
+    """Device time (ms) of one call of fn, all its kernels."""
+    return sum(device_ms(fn).values())
+
+
 def bound(name: str, prob, cw: int | None = None) -> tuple[float, str]:
     """The least time the card could take for one call of a kernel on a
     problem's inputs: the larger of its bytes (each input read once, each
@@ -369,6 +401,16 @@ def phase_build():
         check(len(hit) == 1, f"ptxas reports no gram_kernel for Kernel {name}")
         say("build", kernel=name, registers=hit[0]["registers"],
             spill_bytes=hit[0]["spill_bytes"])
+    # Kernels E and F: mixed_grams.cu's mixed_kernel<CW, FUSED> at both key
+    # widths
+    for name, fused in (("E", 1), ("F", 0)):
+        for cw in (9, 6):
+            hit = [r for e, r in res.items()
+                   if f"mixed_kernelILi{cw}ELb{fused}E" in e]
+            check(len(hit) == 1,
+                  f"ptxas reports no mixed_kernel<{cw}> for Kernel {name}")
+            say("build", kernel=name, cw=cw, registers=hit[0]["registers"],
+                spill_bytes=hit[0]["spill_bytes"])
 
 
 def phase_template_kernels(probs, out, peak_tflops: float):
@@ -405,15 +447,15 @@ def phase_template_kernels(probs, out, peak_tflops: float):
                   lambda: cg.template_gram_fused(*f32, n_cams, n_ims))
 
         # times (linear loss; same inputs for both sides); *_kernel: the
-        # launch alone on pre-packed parameters
+        # device time of the launch alone on pre-packed parameters
         n_rep = 20 if shape.endswith("16x100") else 5
         packed = cg.pack_block_params(*f32[:2])
         t = {
-            "template_gram_kernel": cuda_ms(
-                lambda: cg._launch_gram(packed, *f32[2:], 0, 1, 1.0), 50),
-            "template_gram_fused_kernel": cuda_ms(
+            "template_gram_kernel": kernel_ms(
+                lambda: cg._launch_gram(packed, *f32[2:], 0, 1, 1.0)),
+            "template_gram_fused_kernel": kernel_ms(
                 lambda: cg._launch_gram_fused(packed, *f32[2:], n_cams,
-                                              n_ims, 0, 1, 1.0), 50),
+                                              n_ims, 0, 1, 1.0)),
             "template_gram": cuda_ms(lambda: cg.template_gram(*f32), n_rep),
             "template_gram_plain": cuda_ms(
                 lambda: cg.template_gram_plain(*f32), n_rep),
@@ -495,11 +537,11 @@ def phase_selfcal_kernels(probs, out):
 
         packed = sg.pack_block_params(*f32[:2])
         t = {
-            "selfcal_gram_kernel": cuda_ms(
-                lambda: sg._launch_selfcal(packed, *f32[2:], 0, 1, 1.0), 50),
-            "selfcal_gram_fused_kernel": cuda_ms(
+            "selfcal_gram_kernel": kernel_ms(
+                lambda: sg._launch_selfcal(packed, *f32[2:], 0, 1, 1.0)),
+            "selfcal_gram_fused_kernel": kernel_ms(
                 lambda: sg._launch_selfcal_fused(packed, *c32[2:], n_cams,
-                                                 n_ims, 0, 1, 1.0), 50),
+                                                 n_ims, 0, 1, 1.0)),
             "selfcal_gram": cuda_ms(lambda: sg.selfcal_gram(*f32), 20),
             "selfcal_gram_plain": cuda_ms(
                 lambda: sg.selfcal_gram_plain(*f32), 10),
@@ -518,11 +560,13 @@ def phase_selfcal_kernels(probs, out):
                 plain_ms=t[name + "_plain"], bmm_ms=t["bmm_25"])
 
 
-def phase_mixed_kernels(probs, out):
+def phase_mixed_kernels(probs, out, peak_tflops: float):
     """Kernels E and F vs their float64 plain twins at the three
     multi-target shapes (key width 9 for the mixed chain, 6 for the grouped
     one), all four losses, with the per-group pieces the solver sums from
-    them, and a repeat launch; times per shape."""
+    them, and a repeat launch; times per shape, and each kernel's rate
+    counted as its bound counts, beside the bound and the FMA probe's
+    measured rate (``peak_tflops``)."""
     import torch
     from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
     for shape in ("mixed 16x100", "grouped 16x100", "mixed 64x12"):
@@ -572,19 +616,19 @@ def phase_mixed_kernels(probs, out):
         same_bits("mixed_gram_fused",
                   lambda: mg.mixed_gram_fused(*f32, n_cams, n_ims, wk))
 
-        # times (linear loss); *_kernel: the launch alone on pre-packed
-        # block parameters and per-key group data
+        # times (linear loss); *_kernel: the device time of the launch
+        # alone on pre-packed block parameters and per-key group data
         packed = mg.pack_block_params(*f32[:2])
         keyp, tpl = f32[2], f32[3]
         kd = mg.pack_key_group_data(keyp[:, :6],
                                     keyp[:, 6:9] if wk else tpl)
         grid = f32[4:]
         t = {
-            "mixed_gram_kernel": cuda_ms(
-                lambda: mg._launch_mixed(packed, kd, *grid, 0, 1, 1.0), 50),
-            "mixed_gram_fused_kernel": cuda_ms(
+            "mixed_gram_kernel": kernel_ms(
+                lambda: mg._launch_mixed(packed, kd, *grid, 0, 1, 1.0)),
+            "mixed_gram_fused_kernel": kernel_ms(
                 lambda: mg._launch_mixed_fused(packed, kd, *grid, n_cams,
-                                               n_ims, 0, 1, 1.0), 50),
+                                               n_ims, 0, 1, 1.0)),
             "mixed_gram": cuda_ms(lambda: mg.mixed_gram(*f32, wk), 20),
             "mixed_gram_plain": cuda_ms(
                 lambda: mg.mixed_gram_plain(*f32, wk), 10),
@@ -599,10 +643,17 @@ def phase_mixed_kernels(probs, out):
         }
         say("time", shape=shape, cw=cw, unit="ms",
             **{k: f"{v:.4f}" for k, v in t.items()})
+        flop = prob.blocks.n_real * flop_per_detection("mixed", cw)
         for name in ("mixed_gram", "mixed_gram_fused"):
             out[name][shape].update(
                 ms=t[name], kernel_ms=t[name + "_kernel"],
                 plain_ms=t[name + "_plain"], bmm_ms=t[f"bmm_{22 + cw}"])
+            k_ms = t[name + "_kernel"]
+            gflops = flop / (k_ms * 1e6)
+            say("time", shape=shape, cw=cw, kernel=name,
+                gflop=f"{flop / 1e9:.4f}", gflops=f"{gflops:.1f}",
+                of_bound=f"{bound(name, prob, cw)[0] / k_ms:.4f}",
+                of_fma_probe=f"{gflops / (peak_tflops * 1e3):.4f}")
         torch.cuda.empty_cache()
 
 
@@ -949,7 +1000,7 @@ def main() -> int:
     kern = {name: {} for name in KERNELS}
     phase_template_kernels(probs, kern, peak_rec["tflops"])
     phase_selfcal_kernels(probs, kern)
-    phase_mixed_kernels(probs, kern)
+    phase_mixed_kernels(probs, kern, peak_rec["tflops"])
     systems = capture_reduced_systems(probs)
     psd_err = phase_parity_psd(systems)
     psd_time = phase_time_psd(systems)

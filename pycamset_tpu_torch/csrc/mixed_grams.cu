@@ -28,56 +28,94 @@
 // per-key pre-transformed point Xg = Rg Xp + tg; it also hands back the
 // weighted d(u, v)/dXc rows, and with g = (Re Rp)^T d(u, v)/dXc each key
 // column is g . dir_j, dir_j being its direction in the group's output
-// frame: dRg[j] Xp (rotation), e_j (translation), Rg e_j (point), each
-// scaled by the key mask and staged once per key in shared memory.
+// frame times kmask[k, j]: dRg[j] Xp (rotation), e_j (translation), Rg e_j
+// (point). A key's directions do not change with the image.
 //
-// Design. Kernel C's (selfcal_grams.cu): grid (key tiles of 128, chunks of
-// `chunk` blocks, groups x slices), one thread per key, the two weighted
-// rows of each key in a shared tile, a fixed-order second pass over
-// partials, no float atomics (the same bits on every run), any n_ims and K,
-// no padding. What is new is register pressure: at cw = 9 one thread would
-// hold 135 wcc, 45 hkk and 9 gk sums, past the 255 registers with the
-// projection core live. So the c-axis is split over the grid's z dimension
-// into its 3-wide column triples (3 slices at cw = 9, 2 at cw = 6). Each
-// slice recomputes the projection core of its keys and keeps the 45 wcc
-// sums of its triple, its share of the cw (cw + 1) / 2 + cw hkk/gk sums
-// (18 or 14) and one of the 253 gram entries per thread (the entries are
-// dealt out over the slices). The slice is a template argument, so every
-// register array is indexed at compile time.
+// What bounds them on an H100: instruction issue first, device memory
+// second. Per real detection the block gram is 253 products of two rows and
+// the key couplings 21 cw more, beside one projection core; Kernel E at
+// 16 x 100 writes wic (B x 6 cw x K floats: 133 MB at cw 9 and K = 384, its
+// whole byte bound, 0.040 ms at 3.35 TB/s), Kernel F at 64 x 12 wcc_b and
+// wic_b (223 MB). The first port split the key columns over the grid in
+// column triples, so the projection core ran three times per detection, and
+// fed its gram one entry per thread from shared memory, two loads per FMA.
 //
-// What bounds them on an H100: device memory. Kernel E at 16 x 100 writes
-// wic (B x 54 x K floats, 133 MB at K = 384); Kernel F at 64 x 12 writes
-// wcc_b (159 MB) and wic_b (64 MB). The per-key outputs are written as
-// (block, entry, key) rows, consecutive threads on consecutive keys, so
-// every store is coalesced.
+// The design. Kernels A/B's block (template_grams.cu): 128 threads, one per
+// key of a key tile, the register-tile gram loop of gram_tiles.cuh (6 x 6
+// tiles, three row streams a warp, masked slots compacted out by a warp
+// ballot, partials added in a fixed order), at most 128 registers. The grid
+// is (key tiles, chunks of `chunk` images, cameras for E / one group for
+// F); a block walks its chunk inside, and the projection core runs once per
+// (block, key) slot. It writes the slot's two weighted rows straight into
+// the row tile as A/B's does (a masked slot's zeros go to a shared zero
+// row): rows kept in registers for the couplings, or stored only for live
+// slots, held all 46 values at once and spilled. The rows are stored
+// unmasked: the couplings multiply each camera or pose value by its
+// column mask as they read it, and each gram entry (i, j) takes the masks
+// of its two columns at the image's end (the masks are 0 or 1, so the bits
+// are those of masked rows). The key columns are g . dir_j, the
+// directions read from shared memory, where the block stores them once
+// (held in registers they spilled). The per-slot couplings (wic; F: wcc_b)
+// go out at once as (block, entry, key) rows, consecutive threads on
+// consecutive keys, so every store is coalesced; every slot stores, a
+// masked one zeros, so that no warp splits its stores in two.
 //
-// Each launcher runs on the given stream, allocates nothing, and returns
-// cudaGetLastError().
+// The per-key sums are the register problem: at cw = 9 a key's wcc, hkk
+// and gk would be 189 sums, past any register budget beside the core. But
+// each is linear in g, and a key's directions are fixed, so the thread
+// keeps the sums of g instead: Gc[i] = sum (ru_i gu + rv_i gv) (15 x 3, E
+// only: wcc[i, j] = Gc[i] . dir_j), Gr = sum (r_u gu + r_v gv) (3: gk_j =
+// Gr . dir_j) and H = sum (gu gu^T + gv gv^T) (6: hkk_pq = dir_p^T H
+// dir_q), 54 floats a key for E and 9 for F at either width. They sit in
+// shared memory, one column a thread (no conflicts, no barrier), and go out
+// per chunk; the second pass adds them over chunks (and cameras) and then
+// applies the directions. In float32 this moves rounding only: the
+// directions are applied to sums instead of to each term, and every
+// product a sum holds is one of the first port's. Shared memory is dynamic:
+// E 65 KB (row tile 26.6, sums 27.6, directions 10.8), three blocks an SM;
+// F 42 KB, four.
+//
+// Second pass: one launch adds the first pass's partials in a fixed order:
+// no float atomics, so two launches on the same inputs give the same bits.
+// Its hkk/gk role spreads each key's partials over 32 threads (one thread a
+// key waited on a chain of up to 200 loads). Any n_ims and any K work, a
+// ragged last key tile included, with no padding. Each launcher runs on the
+// given stream, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include <stddef.h>
 
+#include "gram_tiles.cuh"
 #include "projection_core.cuh"
+
 
 namespace {
 
 using namespace pct_core;
+using namespace pct_tiles;
 
-constexpr int TK = 128;        // keys per tile = threads per block
 constexpr int RT = 256;        // threads per block of the second pass
+constexpr int RK = 32;         // keys per block of the second pass's wcc role
+constexpr int HK_K = 8;        // keys per block of its hkk/gk role
+constexpr int HK_G = RT / HK_K;  // part groups per key there
 // per-key group data (pack_key_group_data, the JAX layout), (KD_ROWS, K)
 constexpr int KD_XG = 0, KD_RG = 3, KD_DRG = 12, KD_XP = 39;
+// per-key sums of g, a key's rows in the chunk partials: Gc (15 x 3, E
+// only), then Gr (3) and H's upper triangle (6)
+constexpr int N_GC = 3 * A;
+constexpr int N_HK = 9;
 
 template <int CW>
 struct Mix {
-  static constexpr int NT = CW / 3;                 // column triples
   static constexpr int NCC = A * CW;                // wcc entries per key
   static constexpr int NIC = 6 * CW;                // wic entries per key
-  static constexpr int NTRI = CW * (CW + 1) / 2;    // hkk upper triangle
-  static constexpr int NHK = NTRI + CW;             // + gk
-  static constexpr int NH = (NHK + NT - 1) / NT;    // hk sums per slice
-  static constexpr int NKS = 3 + 3 * CW;            // staged floats per key
+};
+
+template <bool FUSED>
+struct Sums {
+  static constexpr int GR = FUSED ? N_GC : 0;       // first Gr row
+  static constexpr int N = GR + N_HK;               // sums per key
 };
 
 // Gram entry (i, j) that Kernel E sums over a camera's images: hcc or gc.
@@ -85,61 +123,28 @@ __device__ __forceinline__ bool cam_entry(int i, int j) {
   return i < A && (j < A || j == W - 1);
 }
 
-// The first pass for column triple S. Shared memory comes from the kernel
-// (a device function's own __shared__ arrays would be allocated once per
-// instantiation). blk_part (tiles, B, 253): per-block gram entries of one
-// key tile. Kernel E only: cam_part (C, chunks, tiles, 253) holds the
-// chunk's hcc/gc entries and wcc_out the chunk's wcc sums (C, chunks,
-// 15 cw, K); for Kernel F, wcc_out is wcc_b (B, 15 cw, K). wic_out
-// (B, 6 cw, K). hk_part (groups * chunks, NHK, K): the chunk's hkk/gk sums.
-template <int CW, bool FUSED, int S>
-__device__ __forceinline__ void mixed_slice(
-    float *prm, float *colm, float *rows, float *kds,
-    const float *__restrict__ packed, const float *__restrict__ kd,
-    const float *__restrict__ uv, const float *__restrict__ mask,
-    const float *__restrict__ cmask, const float *__restrict__ imask,
-    const float *__restrict__ kmask, int grp, int n_groups, int group,
-    int n_keys, int loss, int component, float c2, int chunk,
-    float *__restrict__ blk_part, float *__restrict__ cam_part,
-    float *__restrict__ wcc_out, float *__restrict__ wic_out,
-    float *__restrict__ hk_part) {
-  using M = Mix<CW>;
-  const int t = threadIdx.x;
-  const int tile = blockIdx.x, n_tiles = gridDim.x;
-  const int ch = blockIdx.y, n_chunks = gridDim.y;
-  const int n_blocks = n_groups * group;
-  const int first = ch * chunk;
-  const int blk0 = grp * group + first;
-  const int n_blk = min(chunk, group - first);
-  const int k = tile * TK + t;
-  const bool has_key = k < n_keys;
-  const size_t part = (size_t)grp * n_chunks + ch;
+// The cw directions of key k in the group's output frame, times
+// kmask[k, j], as KeyDirs<CW>::N values: the rotation columns' dRg[j] Xp
+// (3 x 3), the translation columns' kmask (their directions are e_j), the
+// point columns' Rg e_j (3 x 3, cw = 9 only).
+template <int CW>
+struct KeyDirs {
+  static constexpr int N = CW == 9 ? 21 : 12;
+  float v[N];
 
-  // the gram entry this thread accumulates (entries dealt out over the
-  // slices); (ci, cj) the tile columns it reads, the corner the cost column
-  const int e = t * M::NT + S;
-  int i0 = 0, j0 = 0;
-  const bool valid = e < N_ENTRIES;
-  if (valid) entry_ij(e, i0, j0);
-  const bool to_cam = FUSED && valid && cam_entry(i0, j0);
-  const bool to_blk = valid && !to_cam;
-  const bool is_corner = i0 == W - 1 && j0 == W - 1;
-  const int ci = is_corner ? ROW - 1 : i0, cj = is_corner ? ROW - 1 : j0;
-
-  // stage the key's point Xg and its cw column directions (times kmask)
-  float *ks = kds + t;   // this thread's column: ks[r * TK]
-  if (has_key) {
-    float xp[3], rg[9];
+  __device__ __forceinline__ void load(const float *__restrict__ kd,
+                                       const float *__restrict__ kmask, int k,
+                                       int n_keys) {
+    float xp[3];
     #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      ks[a * TK] = kd[(size_t)(KD_XG + a) * n_keys + k];
-      xp[a] = kd[(size_t)(KD_XP + a) * n_keys + k];
-    }
-    #pragma unroll
-    for (int a = 0; a < 9; ++a) rg[a] = kd[(size_t)(KD_RG + a) * n_keys + k];
+    for (int a = 0; a < 3; ++a) xp[a] = kd[(size_t)(KD_XP + a) * n_keys + k];
     #pragma unroll
     for (int j = 0; j < CW; ++j) {
       const float km = kmask[(size_t)k * CW + j];
+      if (j >= 3 && j < 6) {
+        v[6 + j] = km;
+        continue;
+      }
       #pragma unroll
       for (int a = 0; a < 3; ++a) {
         float d;
@@ -147,50 +152,159 @@ __device__ __forceinline__ void mixed_slice(
           const size_t r0 = KD_DRG + 9 * j + 3 * a;
           d = kd[r0 * n_keys + k] * xp[0] + kd[(r0 + 1) * n_keys + k] * xp[1] +
               kd[(r0 + 2) * n_keys + k] * xp[2];
-        } else if (j < 6) {  // translation: e_j
-          d = (a == j - 3) ? 1.f : 0.f;
         } else {  // point: Rg e_j
-          d = rg[3 * a + (j - 6)];
+          d = kd[(size_t)(KD_RG + 3 * a + (j - 6)) * n_keys + k];
         }
-        ks[(3 + 3 * j + a) * TK] = d * km;
+        v[(j < 3 ? 3 * j : 3 * j - 6) + a] = d * km;
       }
     }
   }
 
-  float acc = 0.f;
-  float wcc_acc[FUSED ? 3 * A : 1];
-  float hk_acc[M::NH];
+  // g . dir_j
+  __device__ __forceinline__ float dot(const float (&g)[3], int j) const {
+    if (j >= 3 && j < 6) return g[j - 3] * v[6 + j];
+    const int o = j < 3 ? 3 * j : 3 * j - 6;
+    return g[0] * v[o] + g[1] * v[o + 1] + g[2] * v[o + 2];
+  }
+
+  // dir_j itself
+  __device__ __forceinline__ void dir(int j, float (&d)[3]) const {
+    #pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      if (j >= 3 && j < 6)
+        d[a] = a == j - 3 ? v[6 + j] : 0.f;
+      else
+        d[a] = v[(j < 3 ? 3 * j : 3 * j - 6) + a];
+    }
+  }
+};
+
+// The first pass. Grid (key tiles of NT, chunks of `chunk` blocks,
+// n_groups); group g's blocks are g * group, ..., (g + 1) * group - 1 (E:
+// a camera's images; F: one group of all B blocks). Dynamic shared memory:
+// the row tile, then the per-key sums (Sums<FUSED>::N rows of NT), then the
+// keys' direction values (KeyDirs<CW>::N rows of NT).
+// blk_part (tiles, B, 253): per-block gram entries of one key tile (E: the
+// non-camera entries). Kernel E only: cam_part (C, chunks, tiles, 253)
+// holds the chunk's hcc/gc entries, gc_part (C, chunks, 45, K) its Gc
+// sums; for Kernel F, wcc_out is wcc_b (B, 15 cw, K). wic_out (B, 6 cw,
+// K). hk_part (groups * chunks, 9, K): the chunk's Gr and H sums.
+template <int CW, bool FUSED>
+__global__ void __launch_bounds__(NT, 4)  // <= 128 registers
+mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
+             const float *__restrict__ uv, const float *__restrict__ mask,
+             const float *__restrict__ cmask,
+             const float *__restrict__ imask,
+             const float *__restrict__ kmask, int group, int n_keys,
+             int loss, int component, float c2, int chunk,
+             float *__restrict__ blk_part, float *__restrict__ cam_part,
+             float *__restrict__ gc_part, float *__restrict__ wcc_out,
+             float *__restrict__ wic_out, float *__restrict__ hk_part) {
+  using M = Mix<CW>;
+  using S = Sums<FUSED>;
+  extern __shared__ __align__(16) float smem[];
+  float *rows = smem;                  // the row tile; partial tiles
+  float *sums = rows + ROWS_FLOATS;    // sums[r * NT + t]: key t's sum r
+  __shared__ __align__(16) float prm[PPB];
+  // the 21 column masks of the image, double-buffered: the entry threads
+  // read an image's after its rows are gone
+  __shared__ float colm_buf[2][W - 1];
+  __shared__ int live_count[NW];
+  __shared__ float zrow[ROW];          // the rows of every masked slot
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int tile = blockIdx.x, n_tiles = gridDim.x;
+  const int ch = blockIdx.y, n_chunks = gridDim.y;
+  const int grp = blockIdx.z;
+  const int n_blocks = gridDim.z * group;
+  const int first = ch * chunk;
+  const int blk0 = grp * group + first;
+  const int n_blk = min(chunk, group - first);
+  const int k = tile * NT + t;
+  const bool has_key = k < n_keys;
+  const size_t part = (size_t)grp * n_chunks + ch;
+
+  const TileLane tl = tile_lane(rows, warp, lane);
+  const EntryRole er = entry_role(t);
+
+  // the key's point Xg and directions, for every image of the chunk
+  float xg[3] = {0.f, 0.f, 0.f};
+  float *dsh = sums + S::N * NT + t;   // dsh[i * NT]: direction value i
+  if (has_key) {
+    #pragma unroll
+    for (int a = 0; a < 3; ++a) xg[a] = kd[(size_t)(KD_XG + a) * n_keys + k];
+    KeyDirs<CW> kdir;
+    kdir.load(kd, kmask, k, n_keys);
+    #pragma unroll
+    for (int i = 0; i < KeyDirs<CW>::N; ++i) dsh[i * NT] = kdir.v[i];
+  }
   #pragma unroll
-  for (int q = 0; q < (FUSED ? 3 * A : 1); ++q) wcc_acc[q] = 0.f;
+  for (int r = 0; r < S::N; ++r) sums[r * NT + t] = 0.f;
+  if (t < ROW) zrow[t] = 0.f;          // read after the first barrier
+
+  float acc[G * G];
   #pragma unroll
-  for (int h = 0; h < M::NH; ++h) hk_acc[h] = 0.f;
+  for (int i = 0; i < G * G; ++i) acc[i] = 0.f;
+  float cam_acc[N_EPT];
+  #pragma unroll
+  for (int q = 0; q < N_EPT; ++q) cam_acc[q] = 0.f;
+
+  // this thread's slot of the next image, and the next image's parameters
+  // and column masks, loaded an image ahead
+  float m = 0.f, p_next = 0.f;
+  float2 m_uv = make_float2(0.f, 0.f);
+  auto fetch = [&](int b) {
+    if (has_key) {
+      const size_t s = (size_t)b * n_keys + k;
+      m = mask[s];
+      m_uv = reinterpret_cast<const float2 *>(uv)[s];
+    }
+    if (t < PPB) {
+      p_next = packed[(size_t)b * PPB + t];
+    } else if (t < PPB + W - 1) {
+      const int c = t - PPB;
+      p_next = c < A ? cmask[(size_t)b * A + c]
+                     : imask[(size_t)b * 6 + (c - A)];
+    }
+  };
+  fetch(blk0);
 
   for (int bi = 0; bi < n_blk; ++bi) {
     const int blk = blk0 + bi;
-    __syncthreads();
+    // the previous image's last readers of prm, and the last readers of
+    // this buffer of column masks (two images back), passed a barrier since
+    float *colm = colm_buf[bi & 1];
     if (t < PPB) {
-      prm[t] = packed[(size_t)blk * PPB + t];
+      prm[t] = p_next;
     } else if (t < PPB + W - 1) {
-      const int c = t - PPB;
-      colm[c] = c < A ? cmask[(size_t)blk * A + c]
-                      : imask[(size_t)blk * 6 + (c - A)];
+      colm[t - PPB] = p_next;
     }
-    __syncthreads();
+    const float km = m;
+    const float2 kuv = m_uv;
+    if (bi + 1 < n_blk) fetch(blk + 1);
+    const unsigned live = __ballot_sync(0xffffffffu, km != 0.f);
+    if (lane == 0) live_count[warp] = __popc(live);
+    __syncthreads();  // counts, prm and colm are in; the last tile is read
+    int pos, n_live;
+    live_slot(live_count, warp, lane, live, pos, n_live);
 
+    float *wic = wic_out + (size_t)blk * M::NIC * n_keys + k;
+    float *wcc = wcc_out + (size_t)blk * M::NCC * n_keys + k;  // F only
     if (has_key) {
-      float *ru = rows + (2 * t) * ROW;
-      float *rv = ru + ROW;
-      const size_t s = (size_t)blk * n_keys + k;
-      const float2 m_uv = reinterpret_cast<const float2 *>(uv)[s];
+      // the key's u row at tile row pos, its v row at n_live + pos, written
+      // by the core as it goes; a masked slot writes zeros to the zero row
+      float *ru_row = km != 0.f ? rows + pos * RS : zrow;
+      float *rv_row = km != 0.f ? rows + (n_live + pos) * RS : zrow;
       float dxu[3], dxv[3];
-      key_rows<false, true>(prm, ks[0], ks[TK], ks[2 * TK], m_uv.x, m_uv.y,
-                            mask[s], loss, component, c2, ru, rv, nullptr,
-                            nullptr, nullptr, dxu, dxv);
-      #pragma unroll
-      for (int c = 0; c < W - 1; ++c) {
-        ru[c] *= colm[c];
-        rv[c] *= colm[c];
+      key_rows<false, true>(prm, xg[0], xg[1], xg[2], kuv.x, kuv.y, km, loss,
+                            component, c2, ru_row, rv_row, nullptr, nullptr,
+                            nullptr, dxu, dxv);
+      if (km != 0.f) {
+        ru_row[RC - 1] = 0.f;
+        rv_row[RC - 1] = 0.f;
       }
+      KeyDirs<CW> kdir;
+      #pragma unroll
+      for (int i = 0; i < KeyDirs<CW>::N; ++i) kdir.v[i] = dsh[i * NT];
       // g = (Re Rp)^T d(u, v)/dXc, then each key column is g . dir_j
       const float *rerp = prm + OFF_RERP;
       float gu[3], gv[3];
@@ -202,128 +316,101 @@ __device__ __forceinline__ void mixed_slice(
       float jcu[CW], jcv[CW];
       #pragma unroll
       for (int j = 0; j < CW; ++j) {
-        const float d0 = ks[(3 + 3 * j) * TK], d1 = ks[(4 + 3 * j) * TK],
-                    d2 = ks[(5 + 3 * j) * TK];
-        jcu[j] = gu[0] * d0 + gu[1] * d1 + gu[2] * d2;
-        jcv[j] = gv[0] * d0 + gv[1] * d1 + gv[2] * d2;
+        jcu[j] = kdir.dot(gu, j);
+        jcv[j] = kdir.dot(gv, j);
       }
-      // per-key products of this slice's column triple
+      // the rows' camera and pose columns, masked as they are read
       #pragma unroll
       for (int i = 0; i < 6; ++i) {
+        const float u = ru_row[A + i] * colm[A + i];
+        const float v = rv_row[A + i] * colm[A + i];
         #pragma unroll
-        for (int jj = 0; jj < 3; ++jj) {
-          const int col = 3 * S + jj;
-          wic_out[((size_t)blk * M::NIC + i * CW + col) * n_keys + k] =
-              ru[A + i] * jcu[col] + rv[A + i] * jcv[col];
-        }
+        for (int j = 0; j < CW; ++j)
+          wic[(size_t)(i * CW + j) * n_keys] = u * jcu[j] + v * jcv[j];
       }
       #pragma unroll
       for (int i = 0; i < A; ++i) {
-        #pragma unroll
-        for (int jj = 0; jj < 3; ++jj) {
-          const int col = 3 * S + jj;
-          const float w = ru[i] * jcu[col] + rv[i] * jcv[col];
-          if constexpr (FUSED) {
-            wcc_acc[3 * i + jj] += w;
-          } else {
-            wcc_out[((size_t)blk * M::NCC + i * CW + col) * n_keys + k] = w;
-          }
+        const float u = ru_row[i] * colm[i], v = rv_row[i] * colm[i];
+        if constexpr (FUSED) {
+          #pragma unroll
+          for (int b = 0; b < 3; ++b)
+            sums[(3 * i + b) * NT + t] += u * gu[b] + v * gv[b];
+        } else {
+          #pragma unroll
+          for (int j = 0; j < CW; ++j)
+            wcc[(size_t)(i * CW + j) * n_keys] = u * jcu[j] + v * jcv[j];
         }
       }
-      // this slice's share of the hkk upper triangle, then of gk
-      int hh = 0;
+      float *hk = sums + S::GR * NT + t;
       #pragma unroll
-      for (int p = 0; p < CW; ++p) {
+      for (int b = 0; b < 3; ++b)
+        hk[b * NT] += ru_row[W - 1] * gu[b] + rv_row[W - 1] * gv[b];
+      int h = 3;
+      #pragma unroll
+      for (int a = 0; a < 3; ++a) {
         #pragma unroll
-        for (int q = p; q < CW; ++q, ++hh) {
-          if (hh >= S * M::NH && hh < (S + 1) * M::NH)
-            hk_acc[hh - S * M::NH] += jcu[p] * jcu[q] + jcv[p] * jcv[q];
-        }
-      }
-      #pragma unroll
-      for (int p = 0; p < CW; ++p, ++hh) {
-        if (hh >= S * M::NH && hh < (S + 1) * M::NH)
-          hk_acc[hh - S * M::NH] += jcu[p] * ru[W - 1] + jcv[p] * rv[W - 1];
+        for (int b = a; b < 3; ++b, ++h)
+          hk[h * NT] += gu[a] * gu[b] + gv[a] * gv[b];
       }
     }
-    __syncthreads();
-
-    const int n_rows = 2 * min(TK, n_keys - tile * TK);
-    for (int r = 0; r < n_rows; ++r) {
-      const float *row = rows + r * ROW;
-      acc = fmaf(row[ci], row[cj], acc);
+    __syncthreads();  // the live rows are in
+    if (tl.on) tile_rows(acc, tl, 2 * n_live);
+    __syncthreads();  // every lane is done with the rows
+    if (tl.on) tile_store(acc, tl);
+    __syncthreads();  // the partials are in
+    #pragma unroll
+    for (int q = 0; q < N_EPT; ++q) {
+      if (!er.valid[q]) continue;
+      // the rows are unmasked: entry (i, j) takes the masks of its columns
+      // (0 or 1, so the same bits as masked rows)
+      const int i = er.oi[q], j = er.oj[q];
+      const float sum = entry_sum(rows, er.src[q]) *
+                        (i < W - 1 ? colm[i] : 1.f) *
+                        (j < W - 1 ? colm[j] : 1.f);
+      if (FUSED && cam_entry(i, j)) {
+        cam_acc[q] += sum;  // hcc and gc keep summing over the chunk
+      } else {
+        blk_part[((size_t)tile * n_blocks + blk) * N_ENTRIES + t + q * NT] =
+            sum;
+      }
     }
-    // this tile's per-block entry; Kernel E's hcc/gc entries keep summing
-    if (to_blk) {
-      blk_part[((size_t)tile * n_blocks + blk) * N_ENTRIES + e] = acc;
-      acc = 0.f;
-    }
+    // the next image's rows and counts are written only after its first
+    // barrier, which every entry thread reaches after its reads above
   }
 
   if constexpr (FUSED) {
-    if (to_cam) cam_part[(part * n_tiles + tile) * N_ENTRIES + e] = acc;
-    if (has_key) {
-      #pragma unroll
-      for (int i = 0; i < A; ++i) {
-        #pragma unroll
-        for (int jj = 0; jj < 3; ++jj)
-          wcc_out[(part * M::NCC + i * CW + 3 * S + jj) * n_keys + k] =
-              wcc_acc[3 * i + jj];
-      }
+    #pragma unroll
+    for (int q = 0; q < N_EPT; ++q) {
+      if (er.valid[q] && cam_entry(er.oi[q], er.oj[q]))
+        cam_part[(part * n_tiles + tile) * N_ENTRIES + t + q * NT] =
+            cam_acc[q];
     }
   }
   if (has_key) {
-    #pragma unroll
-    for (int h = 0; h < M::NH; ++h) {
-      const int hh = S * M::NH + h;
-      if (hh < M::NHK) hk_part[(part * M::NHK + hh) * n_keys + k] = hk_acc[h];
+    if constexpr (FUSED) {
+      #pragma unroll
+      for (int r = 0; r < N_GC; ++r)
+        gc_part[(part * N_GC + r) * n_keys + k] = sums[r * NT + t];
     }
+    #pragma unroll
+    for (int r = 0; r < N_HK; ++r)
+      hk_part[(part * N_HK + r) * n_keys + k] = sums[(S::GR + r) * NT + t];
   }
-}
-
-template <int CW, bool FUSED>
-__global__ void __launch_bounds__(TK)
-mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
-             const float *__restrict__ uv, const float *__restrict__ mask,
-             const float *__restrict__ cmask,
-             const float *__restrict__ imask,
-             const float *__restrict__ kmask, int group, int n_keys,
-             int loss, int component, float c2, int chunk,
-             float *__restrict__ blk_part, float *__restrict__ cam_part,
-             float *__restrict__ wcc_out, float *__restrict__ wic_out,
-             float *__restrict__ hk_part) {
-  using M = Mix<CW>;
-  __shared__ float prm[PPB];
-  __shared__ float colm[W - 1];   // the block's 21 column masks
-  __shared__ float rows[2 * TK * ROW];
-  __shared__ float kds[M::NKS * TK];
-  const int n_groups = gridDim.z / M::NT;
-  const int grp = blockIdx.z / M::NT, slice = blockIdx.z % M::NT;
-#define PCT_MIXED_SLICE(S)                                                  \
-  mixed_slice<CW, FUSED, S>(prm, colm, rows, kds, packed, kd, uv, mask,     \
-                            cmask, imask, kmask, grp, n_groups, group,      \
-                            n_keys, loss, component, c2, chunk, blk_part,   \
-                            cam_part, wcc_out, wic_out, hk_part)
-  if (slice == 0) {
-    PCT_MIXED_SLICE(0);
-  } else if (slice == 1) {
-    PCT_MIXED_SLICE(1);
-  } else if constexpr (M::NT > 2) {
-    PCT_MIXED_SLICE(2);
-  }
-#undef PCT_MIXED_SLICE
 }
 
 // Second pass: add the first pass's partials in a fixed order. One launch;
 // a thread block's role follows from its index: first the B blocks (their
 // gram entries over key tiles), then, for Kernel E, the C cameras (hcc, gc
-// over chunks and key tiles) and the wcc entries (over chunks), last the
-// hkk/gk entries (over every chunk of every group).
+// over chunks and key tiles) and the wcc entries (Gc over chunks, then the
+// directions) of RK keys a block, last the hkk/gk of HK_K keys a block (Gr
+// and H over every chunk of every group, then the directions).
 template <int CW, bool FUSED>
 __global__ void __launch_bounds__(RT)
-mixed_reduce_kernel(const float *__restrict__ blk_part,
+mixed_reduce_kernel(const float *__restrict__ kd,
+                    const float *__restrict__ kmask,
+                    const float *__restrict__ blk_part,
                     const float *__restrict__ cam_part,
-                    const float *__restrict__ wcc_part,
+                    const float *__restrict__ gc_part,
                     const float *__restrict__ hk_part, int n_blocks,
                     int n_cams, int n_tiles, int n_chunks, int n_keys,
                     float *__restrict__ gram, float *__restrict__ hcc,
@@ -332,6 +419,9 @@ mixed_reduce_kernel(const float *__restrict__ blk_part,
                     float *__restrict__ gi, float *__restrict__ corner,
                     float *__restrict__ hkk, float *__restrict__ gk) {
   using M = Mix<CW>;
+  __shared__ float red[HK_G][N_HK][HK_K];
+  __shared__ float fin[N_HK][HK_K];
+  __shared__ float kds[KeyDirs<CW>::N][RK];
   const int t = threadIdx.x;
   long long b = blockIdx.x;
   if (b < n_blocks) {
@@ -340,6 +430,7 @@ mixed_reduce_kernel(const float *__restrict__ blk_part,
     entry_ij(t, i, j);
     if (FUSED && cam_entry(i, j)) return;
     float acc = 0.f;
+    #pragma unroll 4
     for (int tile = 0; tile < n_tiles; ++tile)
       acc += blk_part[((size_t)tile * n_blocks + b) * N_ENTRIES + t];
     if constexpr (!FUSED) {
@@ -366,6 +457,7 @@ mixed_reduce_kernel(const float *__restrict__ blk_part,
       if (!cam_entry(i, j)) return;
       float acc = 0.f;
       for (int ch = 0; ch < n_chunks; ++ch)
+        #pragma unroll 4
         for (int tile = 0; tile < n_tiles; ++tile)
           acc += cam_part[(((size_t)b * n_chunks + ch) * n_tiles + tile) *
                               N_ENTRIES + t];
@@ -378,41 +470,114 @@ mixed_reduce_kernel(const float *__restrict__ blk_part,
       return;
     }
     b -= n_cams;
-    const size_t per_cam = (size_t)M::NCC * n_keys;
-    const long long n_wcc = ((long long)n_cams * per_cam + RT - 1) / RT;
-    if (b < n_wcc) {
-      const size_t idx = (size_t)b * RT + t;
-      if (idx >= n_cams * per_cam) return;
-      const size_t c = idx / per_cam, rest = idx % per_cam;
-      float acc = 0.f;
-      for (int ch = 0; ch < n_chunks; ++ch)
-        acc += wcc_part[(c * n_chunks + ch) * per_cam + rest];
-      wcc[idx] = acc;
+    // wcc of camera c and keys kt * RK, ...: the keys' directions first,
+    // then thread (row group ig, key kl) adds Gc rows ig and ig + 8 over
+    // the camera's chunks and applies them
+    const int n_kt = (n_keys + RK - 1) / RK;
+    if (b < (long long)n_cams * n_kt) {
+      const int c = (int)(b / n_kt), kl = t % RK, ig = t / RK;
+      const int k = (int)(b % n_kt) * RK + kl;
+      if (ig == 0 && k < n_keys) {
+        KeyDirs<CW> kdir;
+        kdir.load(kd, kmask, k, n_keys);
+        #pragma unroll
+        for (int i = 0; i < KeyDirs<CW>::N; ++i) kds[i][kl] = kdir.v[i];
+      }
+      __syncthreads();
+      if (k >= n_keys) return;
+      KeyDirs<CW> kdir;
+      #pragma unroll
+      for (int i = 0; i < KeyDirs<CW>::N; ++i) kdir.v[i] = kds[i][kl];
+      for (int i = ig; i < A; i += RT / RK) {
+        float s[3] = {0.f, 0.f, 0.f};
+        #pragma unroll 4
+        for (int ch = 0; ch < n_chunks; ++ch) {
+          const float *p = gc_part +
+              (((size_t)c * n_chunks + ch) * N_GC + 3 * i) * n_keys + k;
+          #pragma unroll
+          for (int a = 0; a < 3; ++a) s[a] += p[(size_t)a * n_keys];
+        }
+        #pragma unroll
+        for (int j = 0; j < CW; ++j)
+          wcc[((size_t)c * M::NCC + i * CW + j) * n_keys + k] = kdir.dot(s, j);
+      }
       return;
     }
-    b -= n_wcc;
+    b -= (long long)n_cams * n_kt;
   }
-  const long long idx = b * RT + t;
-  if (idx >= (long long)M::NHK * n_keys) return;
-  const int s = (int)(idx / n_keys), k = (int)(idx % n_keys);
+  // hkk/gk of keys b * HK_K, ...: thread (key kl, part group jg) adds the
+  // parts jg, jg + HK_G, ...; then thread (sum r, key kl) adds the groups'
+  // sums in order, and one thread per key applies the directions
+  const int kl = t % HK_K, jg = t / HK_K;
+  const int k0 = (int)b * HK_K;
   const int n_parts = (FUSED ? n_cams : 1) * n_chunks;
-  float acc = 0.f;
-  for (int g = 0; g < n_parts; ++g)
-    acc += hk_part[((size_t)g * M::NHK + s) * n_keys + k];
-  if (s >= M::NTRI) {
-    gk[(size_t)k * CW + (s - M::NTRI)] = acc;
-    return;
+  {
+    const int k = k0 + kl;
+    float s[N_HK];
+    #pragma unroll
+    for (int r = 0; r < N_HK; ++r) s[r] = 0.f;
+    if (k < n_keys) {
+      #pragma unroll 4
+      for (int p = jg; p < n_parts; p += HK_G) {
+        #pragma unroll
+        for (int r = 0; r < N_HK; ++r)
+          s[r] += hk_part[((size_t)p * N_HK + r) * n_keys + k];
+      }
+    }
+    #pragma unroll
+    for (int r = 0; r < N_HK; ++r) red[jg][r][kl] = s[r];
   }
-  int p, q;   // s -> (p, q), p <= q, row-major over the upper triangle
-  p = 0;
-  q = s;
-  while (q >= CW - p) {
-    q -= CW - p;
-    ++p;
+  __syncthreads();
+  if (t < N_HK * HK_K) {
+    const int r = t / HK_K, kk = t % HK_K;
+    float acc = 0.f;
+    #pragma unroll 8
+    for (int g = 0; g < HK_G; ++g) acc += red[g][r][kk];
+    fin[r][kk] = acc;
   }
-  q += p;
-  hkk[((size_t)k * CW + p) * CW + q] = acc;
-  hkk[((size_t)k * CW + q) * CW + p] = acc;
+  __syncthreads();
+  const int k = k0 + t;
+  if (t >= HK_K || k >= n_keys) return;
+  // H from its upper triangle (fin[3..8]: 00 01 02 11 12 22)
+  const float hm[3][3] = {{fin[3][t], fin[4][t], fin[5][t]},
+                          {fin[4][t], fin[6][t], fin[7][t]},
+                          {fin[5][t], fin[7][t], fin[8][t]}};
+  KeyDirs<CW> kdir;
+  kdir.load(kd, kmask, k, n_keys);
+  const float gr[3] = {fin[0][t], fin[1][t], fin[2][t]};
+  #pragma unroll
+  for (int p = 0; p < CW; ++p) {
+    float d[3], hd[3];   // dir_p, H dir_p
+    kdir.dir(p, d);
+    #pragma unroll
+    for (int a = 0; a < 3; ++a)
+      hd[a] = hm[a][0] * d[0] + hm[a][1] * d[1] + hm[a][2] * d[2];
+    gk[(size_t)k * CW + p] = kdir.dot(gr, p);
+    #pragma unroll
+    for (int q = p; q < CW; ++q) {
+      const float v = kdir.dot(hd, q);
+      hkk[((size_t)k * CW + p) * CW + q] = v;
+      hkk[((size_t)k * CW + q) * CW + p] = v;
+    }
+  }
+}
+
+// the first pass's dynamic shared memory, set on the kernel once
+template <int CW, bool FUSED>
+cudaError_t first_pass_smem(size_t &bytes) {
+  bytes = sizeof(float) *
+          (ROWS_FLOATS + (Sums<FUSED>::N + KeyDirs<CW>::N) * NT);
+  static bool set = false;
+  if (set) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      mixed_kernel<CW, FUSED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mixed_kernel<CW, FUSED>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  set = err == cudaSuccess;
+  return err;
 }
 
 template <int CW>
@@ -422,20 +587,22 @@ int launch_mixed(const float *packed, const float *kd, const float *uv,
                  int component, float f_scale, int chunk, float *gram,
                  float *wcc, float *wic, float *hkk, float *gk,
                  float *blk_part, float *hk_part, cudaStream_t st) {
-  using M = Mix<CW>;
-  const int n_tiles = (n_keys + TK - 1) / TK;
+  const int n_tiles = (n_keys + NT - 1) / NT;
   const int n_chunks = (n_blocks + chunk - 1) / chunk;
-  mixed_kernel<CW, false><<<dim3(n_tiles, n_chunks, M::NT), TK, 0, st>>>(
-      packed, kd, uv, mask, cmask, imask, kmask, n_blocks, n_keys, loss,
-      component, f_scale * f_scale, chunk, blk_part, nullptr, wcc, wic,
-      hk_part);
-  const cudaError_t err = cudaGetLastError();
+  size_t smem;
+  cudaError_t err = first_pass_smem<CW, false>(smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_red = n_blocks + (M::NHK * n_keys + RT - 1) / RT;
+  mixed_kernel<CW, false><<<dim3(n_tiles, n_chunks, 1), NT, smem, st>>>(
+      packed, kd, uv, mask, cmask, imask, kmask, n_blocks, n_keys, loss,
+      component, f_scale * f_scale, chunk, blk_part, nullptr, nullptr, wcc,
+      wic, hk_part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n_red = n_blocks + (n_keys + HK_K - 1) / HK_K;
   mixed_reduce_kernel<CW, false><<<n_red, RT, 0, st>>>(
-      blk_part, nullptr, nullptr, hk_part, n_blocks, 1, n_tiles, n_chunks,
-      n_keys, gram, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-      nullptr, hkk, gk);
+      kd, kmask, blk_part, nullptr, nullptr, hk_part, n_blocks, 1, n_tiles,
+      n_chunks, n_keys, gram, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, hkk, gk);
   return (int)cudaGetLastError();
 }
 
@@ -447,25 +614,27 @@ int launch_mixed_fused(const float *packed, const float *kd, const float *uv,
                        float f_scale, int chunk, float *hcc, float *gc,
                        float *wcc, float *wic, float *wci, float *gii,
                        float *gi, float *corner, float *hkk, float *gk,
-                       float *blk_part, float *cam_part, float *wcc_part,
+                       float *blk_part, float *cam_part, float *gc_part,
                        float *hk_part, cudaStream_t st) {
-  using M = Mix<CW>;
-  const int n_tiles = (n_keys + TK - 1) / TK;
+  const int n_tiles = (n_keys + NT - 1) / NT;
   const int n_chunks = (n_ims + chunk - 1) / chunk;
-  mixed_kernel<CW, true>
-      <<<dim3(n_tiles, n_chunks, n_cams * M::NT), TK, 0, st>>>(
-          packed, kd, uv, mask, cmask, imask, kmask, n_ims, n_keys, loss,
-          component, f_scale * f_scale, chunk, blk_part, cam_part, wcc_part,
-          wic, hk_part);
-  const cudaError_t err = cudaGetLastError();
+  size_t smem;
+  cudaError_t err = first_pass_smem<CW, true>(smem);
+  if (err != cudaSuccess) return (int)err;
+  mixed_kernel<CW, true><<<dim3(n_tiles, n_chunks, n_cams), NT, smem, st>>>(
+      packed, kd, uv, mask, cmask, imask, kmask, n_ims, n_keys, loss,
+      component, f_scale * f_scale, chunk, blk_part, cam_part, gc_part,
+      nullptr, wic, hk_part);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_blocks = n_cams * n_ims;
   const long long n_red = (long long)n_blocks + n_cams +
-                          ((long long)n_cams * M::NCC * n_keys + RT - 1) / RT +
-                          (M::NHK * n_keys + RT - 1) / RT;
+                          (long long)n_cams * ((n_keys + RK - 1) / RK) +
+                          (n_keys + HK_K - 1) / HK_K;
   mixed_reduce_kernel<CW, true><<<(unsigned)n_red, RT, 0, st>>>(
-      blk_part, cam_part, wcc_part, hk_part, n_blocks, n_cams, n_tiles,
-      n_chunks, n_keys, nullptr, hcc, gc, wcc, wci, gii, gi, corner, hkk, gk);
+      kd, kmask, blk_part, cam_part, gc_part, hk_part, n_blocks, n_cams,
+      n_tiles, n_chunks, n_keys, nullptr, hcc, gc, wcc, wci, gii, gi, corner,
+      hkk, gk);
   return (int)cudaGetLastError();
 }
 
@@ -477,7 +646,7 @@ extern "C" {
 // cmask (B, 15), imask (B, 6), kmask (K, cw), cw in {6, 9} -> gram
 // (B, 22, 22), wcc (B, 15 cw, K), wic (B, 6 cw, K), hkk (K, cw, cw),
 // gk (K, cw). Scratch: blk_part (ceil(K / 128), B, 253), hk_part
-// (ceil(B / chunk), cw (cw + 1) / 2 + cw, K).
+// (ceil(B / chunk), 9, K).
 int pct_mixed_gram(const float *packed, const float *kd, const float *uv,
                    const float *mask, const float *cmask, const float *imask,
                    const float *kmask, int cw, int n_blocks, int n_keys,
@@ -502,8 +671,7 @@ int pct_mixed_gram(const float *packed, const float *kd, const float *uv,
 // wci (B, 15, 6), gii (B, 6, 6), gi (B, 6), corner (B,), hkk (K, cw, cw),
 // gk (K, cw). Scratch: blk_part (ceil(K / 128), B, 253), cam_part
 // (C, ceil(n_ims / chunk), ceil(K / 128), 253), wcc_part
-// (C, ceil(n_ims / chunk), 15 cw, K), hk_part
-// (C * ceil(n_ims / chunk), cw (cw + 1) / 2 + cw, K).
+// (C, ceil(n_ims / chunk), 45, K), hk_part (C * ceil(n_ims / chunk), 9, K).
 int pct_mixed_gram_fused(const float *packed, const float *kd,
                          const float *uv, const float *mask,
                          const float *cmask, const float *imask,

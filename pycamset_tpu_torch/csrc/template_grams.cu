@@ -33,33 +33,23 @@
 // (two row tiles, one barrier a tile) made it slower, as did compacting
 // the live keys before the core (PERF.md, section 6).
 //
-// The design. One thread per key slot of a tile of NT keys computes the
-// key's two weighted rows straight into shared memory, at stride 26 (the 22
-// gram columns, the cost column, a zero, two pad). Masked slots write no
-// row: a warp ballot and the per-warp counts place the live keys' u rows
-// densely in key order, their v rows after them, so the gram loop runs over
-// real detections only (79% of the slots at template 64 x 400). The 24
-// columns form 4 groups of 6; the 10 upper-triangle group pairs are 6 x 6
-// register tiles. Lane 10 s + t of a warp (lanes 0-29) owns tile t over row
-// stream q = warp + NW s. Per row it loads its two groups (six 64-bit loads,
-// broadcast to the 10 lanes that share the row; the three rows a warp reads
-// at once fall on distinct banks) and issues 36 FMAs. About 70% of those
-// products are needed (the diagonal tiles compute both triangles, the cost
-// and zero columns ride along); splitting the tiles by shape across warps
-// issued fewer FMAs but ran slower, the loads then broadcasting less. Small
-// blocks (NT = 128) at no more than 128 registers let four blocks share an
-// SM, so that one block's projection core, a long dependent chain, overlaps
-// another's FMA loop. The TPU's structural-zero bookkeeping (_zmul/_zpair)
-// is not carried over.
+// The design: the register-tile gram loop of gram_tiles.cuh. One thread per
+// key slot of a tile of NT keys computes the key's two weighted rows straight
+// into shared memory; masked slots write no row, so the gram loop runs over
+// real detections only (79% of the slots at template 64 x 400). About 70%
+// of the tiles' products are needed (the diagonal tiles compute both
+// triangles, the cost and zero columns ride along); splitting the tiles by
+// shape across warps issued fewer FMAs but ran slower, the loads then
+// broadcasting less. Small blocks (NT = 128) at no more than 128 registers
+// let four blocks share an SM, so that one block's projection core, a long
+// dependent chain, overlaps another's FMA loop. The TPU's structural-zero
+// bookkeeping (_zmul/_zpair) is not carried over.
 //
-// At each image's end the lanes' partial tiles go through shared memory
-// (over the row tile, which is free then) and one thread per gram entry adds
-// its partials in a fixed order (warp, then stream): no float atomics, so
-// every run gives the same bits. Kernel B walks a chunk of one camera's
-// images inside the block (the TPU carried hcc/gc across its sequential
-// grid; Hopper blocks run in no order): the entry threads keep hcc/gc summing
-// in registers across the chunk, and cam_reduce_kernel adds the chunks of a
-// camera in chunk order. Kernel B needs no padding of the image axis.
+// Kernel B walks a chunk of one camera's images inside the block (the TPU
+// carried hcc/gc across its sequential grid; Hopper blocks run in no
+// order): the entry threads keep hcc/gc summing in registers across the
+// chunk, and cam_reduce_kernel adds the chunks of a camera in chunk order.
+// Kernel B needs no padding of the image axis.
 //
 // Each launcher runs on the given stream, allocates nothing, and returns
 // cudaGetLastError().
@@ -68,44 +58,15 @@
 
 #include <stddef.h>
 
+#include "gram_tiles.cuh"
 #include "projection_core.cuh"
 
 namespace {
 
 using namespace pct_core;
+using namespace pct_tiles;
 
-constexpr int NW = 4;              // warps per block
-constexpr int NT = NW * 32;        // threads per block = keys per row tile
-constexpr int RC = 24;             // tile row: 22 gram + cost + zero columns
-constexpr int RS = 26;             // tile row stride (conflict-free reads)
-constexpr int G = 6;               // register tile: G x G entries per lane
-constexpr int NG = RC / G;         // column groups
-constexpr int N_TILES = NG * (NG + 1) / 2;  // upper-triangle group pairs
-constexpr int N_SUB = 3;           // row streams per warp
-constexpr int N_LANES = N_SUB * N_TILES;    // accumulating lanes per warp
-constexpr int N_STREAM = NW * N_SUB;        // row streams per block
-constexpr int CORNER = ROW - 1;    // the cost column, read for the corner
 constexpr int N_CAM = 135;         // hcc upper triangle (120) + gc (15)
-constexpr int N_EPT = (N_ENTRIES + NT - 1) / NT;  // gram entries a thread
-
-static_assert(N_LANES <= 32, "one warp holds its tiles");
-static_assert(PPB <= NT, "one thread loads each block parameter");
-static_assert(NW * N_LANES * G * G <= 2 * NT * RS,
-              "the partials fit in the row tile");
-
-// tile t (row-major over the upper triangle of NG x NG) -> groups (a, b)
-__device__ __forceinline__ void tile_groups(int t, int &a, int &b) {
-  a = 0;
-  while (t >= NG - a) {
-    t -= NG - a;
-    ++a;
-  }
-  b = a + t;
-}
-
-__device__ __forceinline__ int tile_of(int a, int b) {
-  return a * NG - a * (a - 1) / 2 + (b - a);
-}
 
 // Kernel A (FUSED = false): one thread block per (camera, image) block,
 // writes the symmetric (22, 22) extended gram to out_gram.
@@ -123,37 +84,13 @@ gram_kernel(const float *__restrict__ packed, const float *__restrict__ tpl,
             float *__restrict__ cam_part) {
   // the row tile (live u rows, then live v rows); at each image's end, the
   // lanes' partial tiles
-  __shared__ __align__(16) float rows[2 * NT * RS];
+  __shared__ __align__(16) float rows[ROWS_FLOATS];
   __shared__ __align__(16) float prm[PPB];
   __shared__ int live_count[NW];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
 
-  // accumulating role: lane s * N_TILES + tile over row stream
-  // q = warp + NW * s, which walks the rows q, q + N_STREAM, ...: the three
-  // rows a warp reads at once are NW apart, on distinct banks
-  const bool acc_lane = lane < N_LANES;
-  int ta, tb;
-  tile_groups(acc_lane ? lane % N_TILES : 0, ta, tb);
-  const float *col_a = rows + ta * G, *col_b = rows + tb * G;
-  const int q = warp + NW * (lane / N_TILES);
-  float *partial = rows + (warp * N_LANES + lane) * G * G;
-
-  // entry role: gram entries e = t, t + NT, ... of the 253. (oi, oj) is
-  // the output position, src the entry's offset in a lane's partials (the
-  // corner reads the cost column's square)
-  int oi[N_EPT], oj[N_EPT], src[N_EPT];
-  bool valid[N_EPT];
-  #pragma unroll
-  for (int k = 0; k < N_EPT; ++k) {
-    const int e = t + k * NT;
-    valid[k] = e < N_ENTRIES;
-    oi[k] = oj[k] = 0;
-    if (valid[k]) entry_ij(e, oi[k], oj[k]);
-    const bool is_corner = oi[k] == W - 1 && oj[k] == W - 1;
-    const int ri = is_corner ? CORNER : oi[k];
-    const int rj = is_corner ? CORNER : oj[k];
-    src[k] = tile_of(ri / G, rj / G) * G * G + (ri % G) * G + rj % G;
-  }
+  const TileLane tl = tile_lane(rows, warp, lane);
+  const EntryRole er = entry_role(t);
 
   int blk0, n_blk, cam = 0, n_chunks = 1;
   if (FUSED) {
@@ -210,16 +147,10 @@ gram_kernel(const float *__restrict__ packed, const float *__restrict__ tpl,
       const unsigned live = __ballot_sync(0xffffffffu, km != 0.f);
       if (lane == 0) live_count[warp] = __popc(live);
       __syncthreads();  // counts and prm are in; the last tile is read
-      int first = 0, n_live = 0;
-      #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        const int c = live_count[w];
-        first += w < warp ? c : 0;
-        n_live += c;
-      }
+      int pos, n_live;
+      live_slot(live_count, warp, lane, live, pos, n_live);
       if (km != 0.f) {  // masked slots give no row at all
         // the key's u row at tile row pos, its v row at n_live + pos
-        const int pos = first + __popc(live & ((1u << lane) - 1u));
         float *ru_row = rows + pos * RS;
         float *rv_row = rows + (n_live + pos) * RS;
         key_rows(prm, kpt.x, kpt.y, kpt.z, kuv.x, kuv.y, km, loss,
@@ -228,52 +159,17 @@ gram_kernel(const float *__restrict__ packed, const float *__restrict__ tpl,
         rv_row[RC - 1] = 0.f;
       }
       __syncthreads();  // the live rows are in
-      if (acc_lane) {
-        const int n_rows = 2 * n_live;
-        #pragma unroll 8  // a tile gives a stream about 17 rows
-        for (int r = q; r < n_rows; r += N_STREAM) {
-          const float2 *pa = reinterpret_cast<const float2 *>(col_a + r * RS);
-          const float2 *pb = reinterpret_cast<const float2 *>(col_b + r * RS);
-          float x[G], y[G];
-          #pragma unroll
-          for (int h = 0; h < G / 2; ++h) {
-            const float2 u = pa[h], v = pb[h];
-            x[2 * h] = u.x;
-            x[2 * h + 1] = u.y;
-            y[2 * h] = v.x;
-            y[2 * h + 1] = v.y;
-          }
-          #pragma unroll
-          for (int i = 0; i < G; ++i) {
-            #pragma unroll
-            for (int j = 0; j < G; ++j)
-              acc[i * G + j] = fmaf(x[i], y[j], acc[i * G + j]);
-          }
-        }
-      }
+      if (tl.on) tile_rows(acc, tl, 2 * n_live);
     }
 
     __syncthreads();  // every lane is done with the rows
-    if (acc_lane) {
-      float4 *dst = reinterpret_cast<float4 *>(partial);
-      #pragma unroll
-      for (int i = 0; i < G * G / 4; ++i) {
-        dst[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
-                             acc[4 * i + 3]);
-        acc[4 * i] = acc[4 * i + 1] = acc[4 * i + 2] = acc[4 * i + 3] = 0.f;
-      }
-    }
+    if (tl.on) tile_store(acc, tl);
     __syncthreads();  // the partials are in
     #pragma unroll
     for (int kq = 0; kq < N_EPT; ++kq) {
-      if (!valid[kq]) continue;
-      float sum = 0.f;  // in a fixed order: warps, then streams
-      for (int w = 0; w < NW; ++w) {
-        #pragma unroll
-        for (int sub = 0; sub < N_SUB; ++sub)
-          sum += rows[(w * N_LANES + sub * N_TILES) * G * G + src[kq]];
-      }
-      const int i = oi[kq], j = oj[kq];
+      if (!er.valid[kq]) continue;
+      const float sum = entry_sum(rows, er.src[kq]);
+      const int i = er.oi[kq], j = er.oj[kq];
       if (!FUSED) {
         out_gram[((size_t)blk * W + i) * W + j] = sum;
         out_gram[((size_t)blk * W + j) * W + i] = sum;
@@ -297,8 +193,8 @@ gram_kernel(const float *__restrict__ packed, const float *__restrict__ tpl,
   if (FUSED) {
     #pragma unroll
     for (int kq = 0; kq < N_EPT; ++kq) {
-      const int i = oi[kq], j = oj[kq];
-      if (!valid[kq] || i >= A) continue;
+      const int i = er.oi[kq], j = er.oj[kq];
+      if (!er.valid[kq] || i >= A) continue;
       int slot;
       if (j < A) {
         slot = i * A - i * (i - 1) / 2 + (j - i);  // upper triangle of 15

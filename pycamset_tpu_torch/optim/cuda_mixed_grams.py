@@ -51,10 +51,14 @@ from pycamset_tpu_torch.optim.cuda_grams import (
     GRAM_W, _check_cuda_inputs, _jacobi_scale, _loss_args, _ptr, _raise_on,
     _worst, pack_block_params, reduce_grams)
 from pycamset_tpu_torch.optim.cuda_selfcal_grams import (
-    N_ENTRIES, SELFCAL_CHUNK, _empty_like_grid, _grid_dims,
-    scaled_errors_selfcal, scaled_errors_selfcal_fused, weighted_grams)
+    KEY_TILE, N_ENTRIES, _empty_like_grid, scaled_errors_selfcal,
+    scaled_errors_selfcal_fused, weighted_grams)
 
 KD_ROWS = 48        # pack_key_group_data rows (the JAX layout)
+MIXED_CHUNK = 12    # images of one camera per thread block in Kernel E
+MIXED_CHUNK_F = 8   # blocks per thread block in Kernel F
+N_GC = 45           # Kernel E's per-key sums of g over a chunk (csrc N_GC)
+N_HK = 9            # per-key sums of g for hkk and gk (csrc N_HK)
 
 # the outputs of Kernels E/F have the self-cal kernels' layouts (c = cw)
 scaled_errors_mixed = scaled_errors_selfcal
@@ -238,8 +242,11 @@ mixed_gram.launches = 0
 mixed_gram.launches_by_cw = {6: 0, 9: 0}
 
 
-def _n_hk(cw: int) -> int:
-    return cw * (cw + 1) // 2 + cw
+def _grid_dims(mask, group: int, chunk: int):
+    k = mask.shape[1]
+    if k == 0:
+        raise ValueError("the multi-target kernels need at least one key")
+    return k, -(-k // KEY_TILE), -(-group // chunk)
 
 
 def _launch_mixed(packed, kd, uv, mask, cmask_b, imask_b, kmask, loss_id,
@@ -249,17 +256,18 @@ def _launch_mixed(packed, kd, uv, mask, cmask_b, imask_b, kmask, loss_id,
     from pycamset_tpu_torch._build import load
     bb = mask.shape[0]
     cw = kmask.shape[1]
-    k, n_tiles, n_chunks = _grid_dims(mask, bb)
+    chunk = MIXED_CHUNK_F
+    k, n_tiles, n_chunks = _grid_dims(mask, bb, chunk)
     empty = _empty_like_grid(mask)
     g, wcc, wic = (empty(bb, GRAM_W, GRAM_W), empty(bb, 15 * cw, k),
                    empty(bb, 6 * cw, k))
     hkk, gk = empty(k, cw, cw), empty(k, cw)
-    blk_part, hk_part = empty(n_tiles, bb, N_ENTRIES), empty(n_chunks,
-                                                              _n_hk(cw), k)
+    blk_part, hk_part = (empty(n_tiles, bb, N_ENTRIES),
+                         empty(n_chunks, N_HK, k))
     rc = load().lib.pct_mixed_gram(
         _ptr(packed), _ptr(kd), _ptr(uv), _ptr(mask), _ptr(cmask_b),
         _ptr(imask_b), _ptr(kmask), cw, bb, k, loss_id, component,
-        float(f_scale), SELFCAL_CHUNK, _ptr(g), _ptr(wcc), _ptr(wic),
+        float(f_scale), chunk, _ptr(g), _ptr(wcc), _ptr(wic),
         _ptr(hkk), _ptr(gk), _ptr(blk_part), _ptr(hk_part),
         torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "mixed_gram")
@@ -307,7 +315,8 @@ def _launch_mixed_fused(packed, kd, uv, mask, cmask_b, imask_b, kmask,
     from pycamset_tpu_torch._build import load
     bb = mask.shape[0]
     cw = kmask.shape[1]
-    k, n_tiles, n_chunks = _grid_dims(mask, n_ims)
+    chunk = MIXED_CHUNK
+    k, n_tiles, n_chunks = _grid_dims(mask, n_ims, chunk)
     empty = _empty_like_grid(mask)
     hcc, gc, wcc = (empty(n_cams, 15, 15), empty(n_cams, 15),
                     empty(n_cams, 15 * cw, k))
@@ -316,12 +325,12 @@ def _launch_mixed_fused(packed, kd, uv, mask, cmask_b, imask_b, kmask,
                            empty(k, cw))
     blk_part = empty(n_tiles, bb, N_ENTRIES)
     cam_part = empty(n_cams, n_chunks, n_tiles, N_ENTRIES)
-    wcc_part = empty(n_cams, n_chunks, 15 * cw, k)
-    hk_part = empty(n_cams * n_chunks, _n_hk(cw), k)
+    wcc_part = empty(n_cams, n_chunks, N_GC, k)
+    hk_part = empty(n_cams * n_chunks, N_HK, k)
     rc = load().lib.pct_mixed_gram_fused(
         _ptr(packed), _ptr(kd), _ptr(uv), _ptr(mask), _ptr(cmask_b),
         _ptr(imask_b), _ptr(kmask), cw, n_cams, n_ims, k, loss_id,
-        component, float(f_scale), SELFCAL_CHUNK, _ptr(hcc), _ptr(gc),
+        component, float(f_scale), chunk, _ptr(hcc), _ptr(gc),
         _ptr(wcc), _ptr(wic), _ptr(wci), _ptr(gii), _ptr(gi), _ptr(corner),
         _ptr(hkk), _ptr(gk), _ptr(blk_part), _ptr(cam_part), _ptr(wcc_part),
         _ptr(hk_part), torch.cuda.current_stream().cuda_stream)

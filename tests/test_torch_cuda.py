@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from pycamset_tpu_torch.optim.cuda_grams import FUSED_CHUNK
+from pycamset_tpu_torch.optim.cuda_mixed_grams import MIXED_CHUNK
 
 TOL = 1e-4
 LOSS_CASES = [("linear", "component"), ("huber", "component"),
@@ -216,11 +217,14 @@ def test_selfcal_wrappers_raise_instead_of_falling_back(card):
         sg.selfcal_gram_fused(*f32[:5], *f32[6:], 2, 4)
 
 
-def _mixed_inputs(dev, n_cams, n_ims, grid, with_key_cols, noise_px=3.0):
+def _mixed_inputs(dev, n_cams, n_ims, grid, with_key_cols, noise_px=3.0,
+                  n_keys=None, dark_cam=None, dark_key=None):
     """Float32 per-block inputs of a multi-target rig with noisy detections
     (the mixed chain, cw = 9, or the grouped one, cw = 6): the group poses
     expanded per key, a camera column fixed beside the problem's own masks
-    (pose 0, group 0, the point gauge, the pad keys)."""
+    (pose 0, group 0, the point gauge, the pad keys). The first ``n_keys``
+    keys only, if given; every slot of camera ``dark_cam`` masked, and
+    every column of key ``dark_key`` (its kmask row zero), if given."""
     from pycamset_tpu_torch.problems import grouped_problem, mixed_problem
     make = mixed_problem if with_key_cols else grouped_problem
     prob = make(n_cams, n_ims, dev, torch.float32, grid=grid,
@@ -232,22 +236,42 @@ def _mixed_inputs(dev, n_cams, n_ims, grid, with_key_cols, noise_px=3.0):
     cmask = prob.colmask.cam.clone()
     cmask[:, 3] = 0.0
     keyp, kmask = prob.key_operands(prob.x0, prob.colmask)
+    k = n_keys or prob.mask.shape[1]
+    mask, kmask = prob.mask[:, :k].clone(), kmask[:k].clone()
+    if dark_cam is not None:
+        mask[dark_cam * n_ims:(dark_cam + 1) * n_ims] = 0.0
+    if dark_key is not None:
+        kmask[dark_key] = 0.0
     return (torch.repeat_interleave(prob.x0.cam, n_ims, dim=0),
-            prob.x0.im.repeat(n_cams, 1), keyp, prob.tpl, uv.contiguous(),
-            prob.mask, torch.repeat_interleave(cmask, n_ims, dim=0),
+            prob.x0.im.repeat(n_cams, 1), keyp[:k].contiguous(),
+            prob.tpl[:k].contiguous(), uv[:, :k].contiguous(), mask,
+            torch.repeat_interleave(cmask, n_ims, dim=0),
             prob.colmask.im.repeat(n_cams, 1), kmask)
 
 
-# grid 5: K = 32, one partial tile; grid 14: K = 200, a full and a partial
-# tile. n_ims 20 = two chunks of 8 and a partial one; n_ims 3 < one chunk.
+# Kernels E and F take keys in tiles of 128 slots; E takes MIXED_CHUNK
+# images of one camera per thread block, F MIXED_CHUNK_F blocks. grid 5:
+# K = 32, one partial tile; grid 14: K = 200, a full and a partial tile;
+# K 13 and 361: ragged tiles (the first keys of grids 4 and 19). n_ims 20 =
+# two chunks of 8 and a partial one; 1, 3 and MIXED_CHUNK - 1 < one chunk;
+# MIXED_CHUNK + 1 = a chunk and one image (3 x 1 blocks: F's chunk and one
+# block). dark_cam: a camera whose every slot is masked (its hcc, gc and wcc
+# exact zeros); dark_key: a key whose kmask row is zero (its hkk and gk
+# exact zeros).
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_key_cols", [True, False])
-@pytest.mark.parametrize("n_cams,n_ims,grid", [(4, 20, 5), (3, 3, 14)])
+@pytest.mark.parametrize("n_cams,n_ims,grid,n_keys,dark_cam,dark_key", [
+    (4, 20, 5, None, None, None), (3, 3, 14, None, None, None),
+    (3, 1, 6, None, None, None), (2, MIXED_CHUNK - 1, 6, None, None, None),
+    (2, MIXED_CHUNK + 1, 6, None, None, None), (3, 5, 4, 13, None, None),
+    (2, 3, 19, 361, None, None), (3, 6, 6, None, 1, 3)])
 @pytest.mark.parametrize("loss,semantics", LOSS_CASES)
 def test_mixed_kernels_match_plain_twins(card, with_key_cols, n_cams, n_ims,
-                                         grid, loss, semantics):
+                                         grid, n_keys, dark_cam, dark_key,
+                                         loss, semantics):
     from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
-    f32 = _mixed_inputs(card, n_cams, n_ims, grid, with_key_cols)
+    f32 = _mixed_inputs(card, n_cams, n_ims, grid, with_key_cols,
+                        n_keys=n_keys, dark_cam=dark_cam, dark_key=dark_key)
     f64 = tuple(x.double() for x in f32)
     cw = 9 if with_key_cols else 6
     kw = dict(with_key_cols=with_key_cols, loss=loss, f_scale=2.0,
@@ -267,8 +291,18 @@ def test_mixed_kernels_match_plain_twins(card, with_key_cols, n_cams, n_ims,
         _assert_close(g, r, name)
     _assert_scaled(mg.scaled_errors_mixed_fused(e_got, e_ref, f_ref[0],
                                                 n_cams, n_ims), "E")
+    for a, b in zip(mg.mixed_gram(*f32, **kw), f_got):
+        assert torch.equal(a, b)
+    for a, b in zip(mg.mixed_gram_fused(*f32, n_cams, n_ims, **kw), e_got):
+        assert torch.equal(a, b)
+    if dark_cam is not None:
+        for piece in e_got[:3]:          # hcc, gc, wcc
+            assert not bool(piece[dark_cam].any())
+    if dark_key is not None:
+        for piece in (f_got[3], f_got[4], e_got[8], e_got[9]):  # hkk, gk
+            assert not bool(piece[dark_key].any())
     assert (mg.mixed_gram_fused.launches_by_cw[cw],
-            mg.mixed_gram.launches_by_cw[cw]) == (n_e + 1, n_f + 1)
+            mg.mixed_gram.launches_by_cw[cw]) == (n_e + 2, n_f + 2)
 
 
 @pytest.mark.cuda

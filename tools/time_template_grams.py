@@ -1,21 +1,33 @@
 #!/usr/bin/env python3
-"""Time builds of the template gram kernels (A and B) side by side on a card.
+"""Time builds of a family of gram kernels side by side on a card.
 
-    python3 tools/time_template_grams.py [--time-only] [SOURCE.cu[:NVCC FLAGS]] ...
+    python3 tools/time_template_grams.py [--family template|mixed] \\
+        [--time-only] [SOURCE.cu[:NVCC FLAGS]] ...
 
-Each argument is a version of ``pycamset_tpu_torch/csrc/template_grams.cu``
-(default: the checkout's own), optionally with extra nvcc flags after a
-colon, for example ``old/template_grams.cu`` or
-``csrc/template_grams.cu:-DSOME_SWITCH``. Every version is compiled by its
-own nvcc, all at once, with the package's flags, into its own library; the
-kernel wrappers are then pointed at each library in turn. For each version
-and each of the two template shapes that ``chip_smoke.py`` drives (16 x 100
-and 64 x 400), it holds A and B against their float64 plain twins (linear
-and huber loss, the smoke's tolerance), checks that a repeat launch gives
-the same bits, and times each kernel's launch alone by CUDA events
-(``chip_smoke.cuda_ms``, 50 launches): A, and B at chunks of 1, 2, 4 and 8
-images. Prints the card's name and power limit first, the ptxas registers
-and spills of each build, and one ``[variant_time]`` line per version and
+``--family template`` (the default): versions of
+``pycamset_tpu_torch/csrc/template_grams.cu`` (Kernels A and B);
+``--family mixed``: versions of ``pycamset_tpu_torch/csrc/mixed_grams.cu``
+(Kernels E and F). Each argument is a version (default: the checkout's
+own), optionally with extra nvcc flags after a colon, for example
+``old/mixed_grams.cu`` or ``csrc/mixed_grams.cu:-DSOME_SWITCH``. Every
+version is compiled by its own nvcc, all at once, with the package's flags,
+into its own library; the kernel wrappers are then pointed at each library
+in turn. For each version and each shape of the family that ``chip_smoke.py``
+drives, it holds the kernels against their float64 plain twins (linear and
+huber loss, the smoke's tolerance), checks that a repeat launch gives the
+same bits, and times each kernel's launch alone by its device time under
+torch.profiler (``chip_smoke.kernel_ms``, 20 launches):
+
+- template (16 x 100 and 64 x 400): A, and B at chunks of 1, 2, 4 and 8
+  images;
+- mixed (mixed 16 x 100, grouped 16 x 100, mixed 64 x 12): E at chunks of
+  4, 8, 12 and 16 images, F at chunks of 2, 4, 8 and 16 blocks, each also
+  split into its first pass and its reduction. The scratch is allocated at
+  the first port's larger sizes, so that an older ``mixed_grams.cu`` runs
+  too.
+
+Prints the card's name and power limit first, the ptxas registers and
+spills of each build, and one ``[variant_time]`` line per version and
 shape. ``--time-only`` reports a parity or bit failure and times the
 version anyway: for diagnostic builds that skip a phase on purpose. Compare
 versions only within one run.
@@ -32,6 +44,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+# family -> (default source, its C entry points, the shapes it is timed at)
+FAMILIES = {
+    "template": ("template_grams.cu",
+                 ("pct_template_gram", "pct_template_gram_fused"),
+                 ("template 16x100", "template 64x400")),
+    "mixed": ("mixed_grams.cu", ("pct_mixed_gram", "pct_mixed_gram_fused"),
+              ("mixed 16x100", "grouped 16x100", "mixed 64x12")),
+}
+
 
 def build(nvcc: str, out: Path, i: int, spec: str):
     """Compile one version into ``out/v<i>.so``; returns it and the ptxas
@@ -47,7 +68,16 @@ def build(nvcc: str, out: Path, i: int, spec: str):
     return so, proc.stderr
 
 
-def check_version(cs, cg, f32, n_cams, n_ims, shape):
+def problem(shape: str, dev):
+    from pycamset_tpu_torch import problems
+    make = {"template": problems.standard_problem,
+            "mixed": problems.mixed_problem,
+            "grouped": problems.grouped_problem}[shape.split()[0]]
+    n_cams, n_ims = map(int, shape.split()[1].split("x"))
+    return make(n_cams, n_ims, dev)
+
+
+def check_template(cs, cg, f32, n_cams, n_ims, shape):
     """A and B against their float64 twins (linear and huber loss), and
     the same bits on a repeat launch; raises SystemExit on a failure."""
     for loss in ("linear", "huber"):
@@ -65,17 +95,106 @@ def check_version(cs, cg, f32, n_cams, n_ims, shape):
     cs.same_bits("B", lambda: cg.template_gram_fused(*f32, n_cams, n_ims))
 
 
+def time_template(cs, prob, shape, time_only):
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    f32 = cs.template_inputs(prob)
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    try:
+        check_template(cs, cg, f32, n_cams, n_ims, shape)
+    except SystemExit as e:
+        if not time_only:
+            raise
+        print(f"  {shape}: {e} (timed all the same)", flush=True)
+    packed = cg.pack_block_params(*f32[:2])
+    line = {"A_ms": cs.kernel_ms(
+        lambda: cg._launch_gram(packed, *f32[2:], 0, 1, 1.0))}
+    chunk0 = cg.FUSED_CHUNK
+    for chunk in (1, 2, 4, 8):
+        cg.FUSED_CHUNK = chunk
+        line[f"B_ms_chunk{chunk}"] = cs.kernel_ms(
+            lambda: cg._launch_gram_fused(packed, *f32[2:], n_cams, n_ims, 0,
+                                          1, 1.0))
+    cg.FUSED_CHUNK = chunk0
+    return line
+
+
+def check_mixed(cs, mg, f32, wk, n_cams, n_ims, shape):
+    """E and F against their float64 twins (linear and huber loss), and
+    the same bits on a repeat launch; raises SystemExit on a failure."""
+    f64 = tuple(x.double() for x in f32)
+    for loss in ("linear", "huber"):
+        kw = dict(with_key_cols=wk, loss=loss, f_scale=2.0)
+        f_got = mg.mixed_gram(*f32, **kw)
+        f_ref = mg.mixed_gram_plain(*f64, **kw)
+        cs.parity(f"F {shape} {loss}", f_got, f_ref,
+                  mg.scaled_errors_mixed(f_got, f_ref))
+        e_got = mg.mixed_gram_fused(*f32, n_cams, n_ims, **kw)
+        e_ref = mg.mixed_gram_fused_plain(*f64, n_cams, n_ims, **kw)
+        cs.parity(f"E {shape} {loss}", e_got, e_ref,
+                  mg.scaled_errors_mixed_fused(e_got, e_ref, f_ref[0],
+                                               n_cams, n_ims))
+        del f_got, f_ref, e_got, e_ref
+    cs.same_bits("F", lambda: mg.mixed_gram(*f32, wk))
+    cs.same_bits("E", lambda: mg.mixed_gram_fused(*f32, n_cams, n_ims, wk))
+
+
+def time_mixed(cs, prob, shape, time_only):
+    import torch
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    f32 = cs.multi_target_inputs(prob)
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    wk = shape.startswith("mixed")
+    sizes = mg.N_GC, mg.N_HK
+    mg.N_GC, mg.N_HK = 15 * 9, 54    # the first port's scratch rows
+    try:
+        check_mixed(cs, mg, f32, wk, n_cams, n_ims, shape)
+    except SystemExit as e:
+        if not time_only:
+            raise
+        print(f"  {shape}: {e} (timed all the same)", flush=True)
+    packed = mg.pack_block_params(*f32[:2])
+    kd = mg.pack_key_group_data(f32[2][:, :6],
+                                f32[2][:, 6:9] if wk else f32[3])
+    grid = f32[4:]
+    line = {}
+    chunks = mg.MIXED_CHUNK, mg.MIXED_CHUNK_F
+    for kernel, chunk_list in (("E", (4, 8, 12, 16)), ("F", (2, 4, 8, 16))):
+        for chunk in chunk_list:
+            mg.MIXED_CHUNK = mg.MIXED_CHUNK_F = chunk
+            fn = ((lambda: mg._launch_mixed_fused(packed, kd, *grid, n_cams,
+                                                  n_ims, 0, 1, 1.0))
+                  if kernel == "E" else
+                  (lambda: mg._launch_mixed(packed, kd, *grid, 0, 1, 1.0)))
+            # each pass's device time: the first pass and the reduction
+            passes = cs.device_ms(fn)
+            line[f"{kernel}_ms_chunk{chunk}"] = sum(passes.values())
+            for name, ms in passes.items():
+                pass_name = "reduce" if "reduce" in name else "first"
+                line[f"{kernel}_{pass_name}_ms_chunk{chunk}"] = ms
+    mg.MIXED_CHUNK, mg.MIXED_CHUNK_F = chunks
+    mg.N_GC, mg.N_HK = sizes
+    torch.cuda.empty_cache()
+    return line
+
+
 def main() -> int:
     import torch
 
     import chip_smoke as cs
     from pycamset_tpu_torch import _build as bld
-    from pycamset_tpu_torch.optim import cuda_grams as cg
-    from pycamset_tpu_torch.problems import standard_problem
 
-    time_only = "--time-only" in sys.argv[1:]
-    specs = [a for a in sys.argv[1:] if a != "--time-only"] or [
-        str(bld.CSRC / "template_grams.cu")]
+    args = sys.argv[1:]
+    family = "template"
+    if "--family" in args:
+        i = args.index("--family")
+        family = args[i + 1]
+        del args[i:i + 2]
+    if family not in FAMILIES:
+        raise SystemExit(f"--family {family}: one of {tuple(FAMILIES)}")
+    source, entries, shapes = FAMILIES[family]
+    time_only = "--time-only" in args
+    specs = [a for a in args if a != "--time-only"] or [
+        str(bld.CSRC / source)]
     cs.phase_device()
     nvcc = bld.find_nvcc()
     out = bld.BUILD_DIR / "variants"
@@ -85,40 +204,25 @@ def main() -> int:
                               enumerate(specs)))
 
     dev = torch.device("cuda", 0)
-    probs = {"16x100": standard_problem(16, 100, dev),
-             "64x400": standard_problem(64, 400, dev)}
-    chunk0 = cg.FUSED_CHUNK
+    probs = {shape: problem(shape, dev) for shape in shapes}
+    timer = time_template if family == "template" else time_mixed
     for spec, (so, ptxas) in zip(specs, built):
         print(f"=== {spec}", flush=True)
         for ln in ptxas.splitlines():
-            if "registers" in ln or "spill" in ln:
+            if any(w in ln for w in ("Compiling entry", "registers",
+                                     "spill")):
                 print(f"  ptxas: {ln.strip()}", flush=True)
         lib = ctypes.CDLL(str(so))
-        for name in ("pct_template_gram", "pct_template_gram_fused"):
+        for name in entries:
             getattr(lib, name).argtypes = bld._SIGNATURES[name]
             getattr(lib, name).restype = ctypes.c_int
         # the wrappers reach the kernels through _build.load().lib
         bld.load = lambda lib=lib: types.SimpleNamespace(lib=lib)
         for shape, prob in probs.items():
-            f32 = cs.template_inputs(prob)
-            n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
-            try:
-                check_version(cs, cg, f32, n_cams, n_ims, shape)
-            except SystemExit as e:
-                if not time_only:
-                    raise
-                print(f"  {shape}: {e} (timed all the same)", flush=True)
-            packed = cg.pack_block_params(*f32[:2])
-            line = {"A_ms": cs.cuda_ms(
-                lambda: cg._launch_gram(packed, *f32[2:], 0, 1, 1.0), 50)}
-            for chunk in (1, 2, 4, 8):
-                cg.FUSED_CHUNK = chunk
-                line[f"B_ms_chunk{chunk}"] = cs.cuda_ms(
-                    lambda: cg._launch_gram_fused(packed, *f32[2:], n_cams,
-                                                  n_ims, 0, 1, 1.0), 50)
-            cg.FUSED_CHUNK = chunk0
+            line = timer(cs, prob, shape, time_only)
             cs.say("variant_time", source=spec.replace(" ", "_"),
-                   shape=shape, **{k: f"{v:.4f}" for k, v in line.items()})
+                   shape=shape.replace(" ", "_"),
+                   **{k: f"{v:.4f}" for k, v in line.items()})
     return 0
 
 
