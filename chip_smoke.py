@@ -63,9 +63,9 @@ KERNELS = {
                       f"{PALLAS}:425", "template 16x100"),
     "template_gram_fused": ("pycamset_tpu_torch/csrc/template_grams.cu",
                             f"{PALLAS}:583", "template 64x400"),
-    "selfcal_gram_fused": ("pycamset_tpu_torch/csrc/selfcal_grams.cu",
+    "selfcal_gram_fused": ("pycamset_tpu_torch/csrc/mixed_grams.cu",
                            f"{PALLAS}:805", "selfcal 16x100"),
-    "selfcal_gram": ("pycamset_tpu_torch/csrc/selfcal_grams.cu",
+    "selfcal_gram": ("pycamset_tpu_torch/csrc/mixed_grams.cu",
                      f"{PALLAS}:1019", "selfcal 64x12"),
     "mixed_gram_fused": ("pycamset_tpu_torch/csrc/mixed_grams.cu",
                          f"{PALLAS}:1576", "mixed 16x100"),
@@ -392,25 +392,28 @@ def phase_build():
     for ln in kl.ptxas_info.splitlines():
         if any(w in ln for w in ("Compiling entry", "registers", "spill")):
             print(f"  ptxas: {ln.strip()}", flush=True)
-    # Kernels A and B: the two instantiations of template_grams.cu's
-    # gram_kernel<FUSED>
+    # each gram kernel's first pass, at most 128 registers (four blocks of
+    # 128 threads an SM) and no spills: Kernels A and B, the two
+    # instantiations of template_grams.cu's gram_kernel<FUSED>; C-F,
+    # mixed_grams.cu's mixed_kernel<CW, FUSED> (C/D at key width 3, E/F at
+    # 9 and 6)
     res = ptxas_resources(kl.ptxas_info)
-    for name, flag in (("A", "ILb0E"), ("B", "ILb1E")):
+    firsts = [(name, None, f"gram_kernel{flag}")
+              for name, flag in (("A", "ILb0E"), ("B", "ILb1E"))]
+    firsts += [(name, cw, f"mixed_kernelILi{cw}ELb{fused}E")
+               for name, fused, widths in (("C", 1, (3,)), ("D", 0, (3,)),
+                                           ("E", 1, (9, 6)),
+                                           ("F", 0, (9, 6)))
+               for cw in widths]
+    for name, cw, entry in firsts:
         hit = [r for e, r in res.items()
-               if "template_grams" in e and "gram_kernel" + flag in e]
-        check(len(hit) == 1, f"ptxas reports no gram_kernel for Kernel {name}")
-        say("build", kernel=name, registers=hit[0]["registers"],
-            spill_bytes=hit[0]["spill_bytes"])
-    # Kernels E and F: mixed_grams.cu's mixed_kernel<CW, FUSED> at both key
-    # widths
-    for name, fused in (("E", 1), ("F", 0)):
-        for cw in (9, 6):
-            hit = [r for e, r in res.items()
-                   if f"mixed_kernelILi{cw}ELb{fused}E" in e]
-            check(len(hit) == 1,
-                  f"ptxas reports no mixed_kernel<{cw}> for Kernel {name}")
-            say("build", kernel=name, cw=cw, registers=hit[0]["registers"],
-                spill_bytes=hit[0]["spill_bytes"])
+               if entry in e and ("template_grams" in e or cw is not None)]
+        check(len(hit) == 1, f"ptxas reports no {entry} for Kernel {name}")
+        regs, spill = hit[0]["registers"], hit[0]["spill_bytes"]
+        say("build", kernel=name, **({} if cw is None else {"cw": cw}),
+            registers=regs, spill_bytes=spill)
+        check(regs <= 128 and spill == 0,
+              f"Kernel {name}: {regs} registers, {spill} spill bytes")
 
 
 def phase_template_kernels(probs, out, peak_tflops: float):
@@ -482,9 +485,11 @@ def phase_template_kernels(probs, out, peak_tflops: float):
                 of_fma_probe=f"{gflops / (peak_tflops * 1e3):.4f}")
 
 
-def phase_selfcal_kernels(probs, out):
+def phase_selfcal_kernels(probs, out, peak_tflops: float):
     """Kernels C and D vs their float64 plain twins at both self-cal
-    shapes, all four losses, and a repeat launch; times per shape."""
+    shapes, all four losses, and a repeat launch; times per shape, and
+    each kernel's rate counted as its bound counts, beside the bound and
+    the FMA probe's measured rate (``peak_tflops``)."""
     import torch
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
     for shape in ("selfcal 16x100", "selfcal 64x12"):
@@ -535,13 +540,22 @@ def phase_selfcal_kernels(probs, out):
         same_bits("selfcal_gram_fused",
                   lambda: sg.selfcal_gram_fused(*c32, n_cams, n_ims))
 
+        # each pass's device time (the first pass, the reduction)
         packed = sg.pack_block_params(*f32[:2])
-        t = {
-            "selfcal_gram_kernel": kernel_ms(
+        passes = {
+            "selfcal_gram": device_ms(
                 lambda: sg._launch_selfcal(packed, *f32[2:], 0, 1, 1.0)),
-            "selfcal_gram_fused_kernel": kernel_ms(
+            "selfcal_gram_fused": device_ms(
                 lambda: sg._launch_selfcal_fused(packed, *c32[2:], n_cams,
-                                                 n_ims, 0, 1, 1.0)),
+                                                 n_ims, 0, 1, 1.0))}
+        say("time_passes", shape=shape, unit="ms",
+            **{f"{name}:{kernel}": f"{ms:.4f}"
+               for name, by_kernel in passes.items()
+               for kernel, ms in by_kernel.items()})
+        t = {
+            "selfcal_gram_kernel": sum(passes["selfcal_gram"].values()),
+            "selfcal_gram_fused_kernel": sum(
+                passes["selfcal_gram_fused"].values()),
             "selfcal_gram": cuda_ms(lambda: sg.selfcal_gram(*f32), 20),
             "selfcal_gram_plain": cuda_ms(
                 lambda: sg.selfcal_gram_plain(*f32), 10),
@@ -554,10 +568,17 @@ def phase_selfcal_kernels(probs, out):
         }
         say("time", shape=shape, unit="ms",
             **{k: f"{v:.4f}" for k, v in t.items()})
+        flop = prob.blocks.n_real * flop_per_detection("selfcal")
         for name in ("selfcal_gram", "selfcal_gram_fused"):
             out[name][shape].update(
                 ms=t[name], kernel_ms=t[name + "_kernel"],
                 plain_ms=t[name + "_plain"], bmm_ms=t["bmm_25"])
+            k_ms = t[name + "_kernel"]
+            gflops = flop / (k_ms * 1e6)
+            say("time", shape=shape, kernel=name, gflop=f"{flop / 1e9:.4f}",
+                gflops=f"{gflops:.1f}",
+                of_bound=f"{bound(name, prob)[0] / k_ms:.4f}",
+                of_fma_probe=f"{gflops / (peak_tflops * 1e3):.4f}")
 
 
 def phase_mixed_kernels(probs, out, peak_tflops: float):
@@ -999,7 +1020,7 @@ def main() -> int:
                        f"n_real={p.blocks.n_real}" for s, p in probs.items()})
     kern = {name: {} for name in KERNELS}
     phase_template_kernels(probs, kern, peak_rec["tflops"])
-    phase_selfcal_kernels(probs, kern)
+    phase_selfcal_kernels(probs, kern, peak_rec["tflops"])
     phase_mixed_kernels(probs, kern, peak_rec["tflops"])
     systems = capture_reduced_systems(probs)
     psd_err = phase_parity_psd(systems)

@@ -36,8 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # argument types of the C entry points of csrc/template_grams.cu,
-# csrc/selfcal_grams.cu, csrc/mixed_grams.cu, csrc/psd_solve.cu and
-# csrc/peak.cu
+# csrc/mixed_grams.cu (Kernels C-F), csrc/psd_solve.cu and csrc/peak.cu
 _SIGNATURES = {
     "pct_template_gram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "pct_template_gram_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,

@@ -1,5 +1,5 @@
 // The register-tile gram loop shared by the gram kernels of
-// template_grams.cu (Kernels A, B) and mixed_grams.cu (Kernels E, F).
+// template_grams.cu (Kernels A, B) and mixed_grams.cu (Kernels C-F).
 //
 // A thread block of NT = 128 threads (NW = 4 warps) holds one tile of key
 // rows in shared memory, [Jc 15 | Ji 6 | r | cost column | 0] at stride RS =

@@ -1,51 +1,75 @@
-// Multi-target gram kernels for Hopper (sm_90a), float32, plain C
-// interface. The chains put a per-GROUP SE(3) between the image pose and the
-// point: Xc = Re (Rp (Rg Xp + tg) + tp) + te. The key axis carries cw
-// columns in chain order [group rotation 3 | group translation 3 | point 3]:
-// cw = 9 for the mixed chain (free points, GroupRigidTform3d + FreePoint),
-// cw = 6 for the grouped template chain (GroupTemplatePoints, the point
-// from the template). The group pose is expanded per key (one-hot), so a
-// key's group columns are per-key columns here; the reduction to per-group
-// blocks is the caller's.
+// Gram kernels with per-key columns for Hopper (sm_90a), float32, plain C
+// interface: one template over the key width cw serves the self-calibration
+// chain and the two multi-target chains. They put a per-GROUP SE(3) between
+// the image pose and the point, Xc = Re (Rp (Rg Xp + tg) + tp) + te, and the
+// key axis carries cw columns in chain order:
+//   cw = 3  the self-calibration chain (Projection + Extrinsic3D +
+//           RigidTform3d + FreePoint): the free point's three columns; no
+//           group pose (Rg = I, tg = 0);
+//   cw = 9  the mixed chain (free points, GroupRigidTform3d + FreePoint):
+//           [group rotation 3 | group translation 3 | point 3];
+//   cw = 6  the grouped template chain (GroupTemplatePoints, the point from
+//           the template): [group rotation 3 | group translation 3].
+// The group pose is expanded per key (one-hot), so a key's group columns are
+// per-key columns here; the reduction to per-group blocks is the caller's.
 //
-// Replaces two Pallas TPU kernels of pycamset_tpu/optim/pallas_grams.py:
+// Replaces four Pallas TPU kernels of pycamset_tpu/optim/pallas_grams.py:
 //
-//   Kernel E  mixed_kernel<CW, true> + mixed_reduce_kernel<CW, true>
+//   Kernel C  mixed_kernel<3, true> + mixed_reduce_kernel<3, true>
+//                 <- make_pallas_selfcal_grams_fused (_fused_selfcal_body)
+//   Kernel E  mixed_kernel<CW, true> + mixed_reduce_kernel<CW, true>, cw 9, 6
 //                 <- make_pallas_mixed_grams_fused (_fused_mixed_body)
-//       per camera: hcc, gc and the key couplings wcc = Jc^T Jk (15 cw x K),
-//       summed over the camera's images; per block: wic = Ji^T Jk
-//       (6 cw x K), wci, gii, gi and the cost corner; per key: hkk = Jk^T Jk
-//       and gk = Jk^T r over all blocks.
+//       per camera: hcc, gc and the key couplings wcc = Jc^T Jk (15 cw x K;
+//       C: wck), summed over the camera's images; per block: wic = Ji^T Jk
+//       (6 cw x K; C: wik), wci, gii, gi and the cost corner; per key:
+//       hkk = Jk^T Jk and gk = Jk^T r over all blocks.
+//   Kernel D  mixed_kernel<3, false> + mixed_reduce_kernel<3, false>
+//                 <- make_pallas_selfcal_grams (_selfcal_kernel_body)
 //   Kernel F  mixed_kernel<CW, false> + mixed_reduce_kernel<CW, false>
 //                 <- _mixed_grams_factory (_mixed_kernel_body)
 //       per block: the extended 22 x 22 gram [Jc | Ji | r]^T [Jc | Ji | r]
 //       (corner = the (robust) cost); per (block, key): wcc_b (15 cw) and
 //       wic_b (6 cw); per key: hkk and gk over all blocks.
 //
-// Both mask every camera column by cmask, every pose column by imask and
-// key column j by kmask[:, j] in the kernel, as the Pallas kernels do. The
-// projection core is the one of Kernels A-D (projection_core.cuh), fed the
-// per-key pre-transformed point Xg = Rg Xp + tg; it also hands back the
-// weighted d(u, v)/dXc rows, and with g = (Re Rp)^T d(u, v)/dXc each key
-// column is g . dir_j, dir_j being its direction in the group's output
-// frame times kmask[k, j]: dRg[j] Xp (rotation), e_j (translation), Rg e_j
-// (point). A key's directions do not change with the image.
+// Every pose column is masked by imask and key column j by kmask[:, j] in
+// the kernel, as the Pallas kernels do, and every camera column by cmask,
+// but in Kernel C, which takes none (a null cmask reads as 1): its wrapper
+// masks the reduced pieces, as the JAX wrapper does. The projection core is
+// the one of Kernels A and B (projection_core.cuh), fed the per-key point
+// Xg = Rg Xp + tg (C, D: the free point); it also hands back the weighted
+// d(u, v)/dXc rows, and with g = (Re Rp)^T d(u, v)/dXc each key column is
+// g . dir_j, dir_j being its direction in the group's output frame times
+// kmask[k, j]: dRg[j] Xp (rotation), e_j (translation), Rg e_j (point; e_j
+// for cw = 3). A key's directions do not change with the image.
 //
 // What bounds them on an H100: instruction issue first, device memory
 // second. Per real detection the block gram is 253 products of two rows and
-// the key couplings 21 cw more, beside one projection core; Kernel E at
-// 16 x 100 writes wic (B x 6 cw x K floats: 133 MB at cw 9 and K = 384, its
-// whole byte bound, 0.040 ms at 3.35 TB/s), Kernel F at 64 x 12 wcc_b and
-// wic_b (223 MB). The first port split the key columns over the grid in
-// column triples, so the projection core ran three times per detection, and
-// fed its gram one entry per thread from shared memory, two loads per FMA.
+// the key couplings 21 cw more, beside one projection core. Kernel C at
+// self-cal 16 x 100 writes wik (B x 18 x K floats: 44 MB, 0.013 ms at 3.35
+// TB/s), D at 64 x 12 wck_b and wik_b (74 MB); E at 16 x 100 writes wic
+// (133 MB at cw 9 and K = 384, its whole byte bound, 0.040 ms), F at 64 x 12
+// wcc_b and wic_b (223 MB). The first ports fed the block gram one entry per
+// thread from shared memory, two loads per FMA (C at 16 x 100: 2.0e7
+// warp-wide loads, over half its time); E/F split the key columns over the
+// grid in column triples, so the projection core ran three times per
+// detection; C kept its 54 per-key sums in registers beside the core (168
+// registers, three blocks an SM); and one thread added each key's hkk/gk
+// partials in a chain of dependent loads. In this design, on an H100 SXM
+// (700 W), Kernel C at self-cal 16 x 100 takes 0.074 ms in its first pass
+// (chunk 10) and 0.015 in its second; builds that skip one phase each
+// split the first pass into the core, its row stores and the per-image
+// flush 0.031, the block-gram tiles 0.020, the per-key sums of g 0.018 and
+// the wik stores 0.006, which add up: the phases do not overlap, so the
+// kernel is issue-bound at four blocks an SM, as A/B are. Kernel D at
+// 64 x 12 (chunk 6): 0.036 + 0.006 ms, against a byte bound of 0.024 ms
+// (wck_b and wik_b are 74 MB of it).
 //
 // The design. Kernels A/B's block (template_grams.cu): 128 threads, one per
 // key of a key tile, the register-tile gram loop of gram_tiles.cuh (6 x 6
 // tiles, three row streams a warp, masked slots compacted out by a warp
 // ballot, partials added in a fixed order), at most 128 registers. The grid
-// is (key tiles, chunks of `chunk` images, cameras for E / one group for
-// F); a block walks its chunk inside, and the projection core runs once per
+// is (key tiles, chunks of `chunk` images, cameras for C/E / one group for
+// D/F); a block walks its chunk inside, and the projection core runs once per
 // (block, key) slot. It writes the slot's two weighted rows straight into
 // the row tile as A/B's does (a masked slot's zeros go to a shared zero
 // row): rows kept in registers for the couplings, or stored only for live
@@ -53,27 +77,28 @@
 // unmasked: the couplings multiply each camera or pose value by its
 // column mask as they read it, and each gram entry (i, j) takes the masks
 // of its two columns at the image's end (the masks are 0 or 1, so the bits
-// are those of masked rows). The key columns are g . dir_j, the
-// directions read from shared memory, where the block stores them once
-// (held in registers they spilled). The per-slot couplings (wic; F: wcc_b)
-// go out at once as (block, entry, key) rows, consecutive threads on
+// are those of masked rows). The key columns are g . dir_j. At cw 9 and 6
+// the directions are read from shared memory, where the block stores them
+// once (held in registers they spilled); at cw 3 they are the three kmask
+// values, held in registers. The per-slot couplings (wic; D/F: wcc_b) go
+// out at once as (block, entry, key) rows, consecutive threads on
 // consecutive keys, so every store is coalesced; every slot stores, a
 // masked one zeros, so that no warp splits its stores in two.
 //
 // The per-key sums are the register problem: at cw = 9 a key's wcc, hkk
 // and gk would be 189 sums, past any register budget beside the core. But
 // each is linear in g, and a key's directions are fixed, so the thread
-// keeps the sums of g instead: Gc[i] = sum (ru_i gu + rv_i gv) (15 x 3, E
+// keeps the sums of g instead: Gc[i] = sum (ru_i gu + rv_i gv) (15 x 3, C/E
 // only: wcc[i, j] = Gc[i] . dir_j), Gr = sum (r_u gu + r_v gv) (3: gk_j =
 // Gr . dir_j) and H = sum (gu gu^T + gv gv^T) (6: hkk_pq = dir_p^T H
-// dir_q), 54 floats a key for E and 9 for F at either width. They sit in
+// dir_q), 54 floats a key for C/E and 9 for D/F at any width. They sit in
 // shared memory, one column a thread (no conflicts, no barrier), and go out
 // per chunk; the second pass adds them over chunks (and cameras) and then
 // applies the directions. In float32 this moves rounding only: the
 // directions are applied to sums instead of to each term, and every
 // product a sum holds is one of the first port's. Shared memory is dynamic:
-// E 65 KB (row tile 26.6, sums 27.6, directions 10.8), three blocks an SM;
-// F 42 KB, four.
+// C 54 KB (row tile 26.6, sums 27.6), four blocks an SM; E 65 KB (and
+// directions 10.8), three; D 31 KB and F 42 KB, four.
 //
 // Second pass: one launch adds the first pass's partials in a fixed order:
 // no float atomics, so two launches on the same inputs give the same bits.
@@ -101,7 +126,7 @@ constexpr int HK_K = 8;        // keys per block of its hkk/gk role
 constexpr int HK_G = RT / HK_K;  // part groups per key there
 // per-key group data (pack_key_group_data, the JAX layout), (KD_ROWS, K)
 constexpr int KD_XG = 0, KD_RG = 3, KD_DRG = 12, KD_XP = 39;
-// per-key sums of g, a key's rows in the chunk partials: Gc (15 x 3, E
+// per-key sums of g, a key's rows in the chunk partials: Gc (15 x 3, C/E
 // only), then Gr (3) and H's upper triangle (6)
 constexpr int N_GC = 3 * A;
 constexpr int N_HK = 9;
@@ -118,7 +143,8 @@ struct Sums {
   static constexpr int N = GR + N_HK;               // sums per key
 };
 
-// Gram entry (i, j) that Kernel E sums over a camera's images: hcc or gc.
+// Gram entry (i, j) that Kernels C and E sum over a camera's images: hcc or
+// gc.
 __device__ __forceinline__ bool cam_entry(int i, int j) {
   return i < A && (j < A || j == W - 1);
 }
@@ -126,15 +152,35 @@ __device__ __forceinline__ bool cam_entry(int i, int j) {
 // The cw directions of key k in the group's output frame, times
 // kmask[k, j], as KeyDirs<CW>::N values: the rotation columns' dRg[j] Xp
 // (3 x 3), the translation columns' kmask (their directions are e_j), the
-// point columns' Rg e_j (3 x 3, cw = 9 only).
+// point columns' Rg e_j (3 x 3, cw = 9 only); at cw = 3 the point columns'
+// kmask (their directions are e_j). kd: the per-key group data (KD_ROWS,
+// K), or at cw = 3 the free points (K, 3).
 template <int CW>
 struct KeyDirs {
-  static constexpr int N = CW == 9 ? 21 : 12;
+  static constexpr int N = CW == 9 ? 21 : (CW == 6 ? 12 : 3);
+  // where the first pass keeps them: shared memory (21 or 12 values held in
+  // registers beside the core spilled), or registers (cw = 3)
+  static constexpr bool SHARED = CW != 3;
   float v[N];
+
+  // the key's point Xg = Rg Xp + tg (cw = 3: the free point)
+  static __device__ __forceinline__ void point(const float *__restrict__ kd,
+                                               int k, int n_keys,
+                                               float (&xg)[3]) {
+    #pragma unroll
+    for (int a = 0; a < 3; ++a)
+      xg[a] = CW == 3 ? kd[(size_t)k * 3 + a]
+                      : kd[(size_t)(KD_XG + a) * n_keys + k];
+  }
 
   __device__ __forceinline__ void load(const float *__restrict__ kd,
                                        const float *__restrict__ kmask, int k,
                                        int n_keys) {
+    if constexpr (CW == 3) {
+      #pragma unroll
+      for (int j = 0; j < 3; ++j) v[j] = kmask[(size_t)k * 3 + j];
+      return;
+    }
     float xp[3];
     #pragma unroll
     for (int a = 0; a < 3; ++a) xp[a] = kd[(size_t)(KD_XP + a) * n_keys + k];
@@ -162,6 +208,7 @@ struct KeyDirs {
 
   // g . dir_j
   __device__ __forceinline__ float dot(const float (&g)[3], int j) const {
+    if constexpr (CW == 3) return g[j] * v[j];
     if (j >= 3 && j < 6) return g[j - 3] * v[6 + j];
     const int o = j < 3 ? 3 * j : 3 * j - 6;
     return g[0] * v[o] + g[1] * v[o + 1] + g[2] * v[o + 2];
@@ -171,7 +218,9 @@ struct KeyDirs {
   __device__ __forceinline__ void dir(int j, float (&d)[3]) const {
     #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      if (j >= 3 && j < 6)
+      if constexpr (CW == 3)
+        d[a] = a == j ? v[j] : 0.f;
+      else if (j >= 3 && j < 6)
         d[a] = a == j - 3 ? v[6 + j] : 0.f;
       else
         d[a] = v[(j < 3 ? 3 * j : 3 * j - 6) + a];
@@ -180,14 +229,15 @@ struct KeyDirs {
 };
 
 // The first pass. Grid (key tiles of NT, chunks of `chunk` blocks,
-// n_groups); group g's blocks are g * group, ..., (g + 1) * group - 1 (E:
-// a camera's images; F: one group of all B blocks). Dynamic shared memory:
-// the row tile, then the per-key sums (Sums<FUSED>::N rows of NT), then the
-// keys' direction values (KeyDirs<CW>::N rows of NT).
-// blk_part (tiles, B, 253): per-block gram entries of one key tile (E: the
-// non-camera entries). Kernel E only: cam_part (C, chunks, tiles, 253)
-// holds the chunk's hcc/gc entries, gc_part (C, chunks, 45, K) its Gc
-// sums; for Kernel F, wcc_out is wcc_b (B, 15 cw, K). wic_out (B, 6 cw,
+// n_groups); group g's blocks are g * group, ..., (g + 1) * group - 1 (C/E:
+// a camera's images; D/F: one group of all B blocks). Dynamic shared
+// memory: the row tile, then the per-key sums (Sums<FUSED>::N rows of NT),
+// then, at cw 9 and 6, the keys' direction values (KeyDirs<CW>::N rows of
+// NT). cmask may be null (Kernel C): every camera column's mask is then 1.
+// blk_part (tiles, B, 253): per-block gram entries of one key tile (C/E:
+// the non-camera entries). Kernels C/E only: cam_part (C, chunks, tiles,
+// 253) holds the chunk's hcc/gc entries, gc_part (C, chunks, 45, K) its Gc
+// sums; for Kernels D/F, wcc_out is wcc_b (B, 15 cw, K). wic_out (B, 6 cw,
 // K). hk_part (groups * chunks, 9, K): the chunk's Gr and H sums.
 template <int CW, bool FUSED>
 __global__ void __launch_bounds__(NT, 4)  // <= 128 registers
@@ -228,14 +278,15 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
 
   // the key's point Xg and directions, for every image of the chunk
   float xg[3] = {0.f, 0.f, 0.f};
+  KeyDirs<CW> kdir;                    // cw = 3: held here for the chunk
   float *dsh = sums + S::N * NT + t;   // dsh[i * NT]: direction value i
   if (has_key) {
-    #pragma unroll
-    for (int a = 0; a < 3; ++a) xg[a] = kd[(size_t)(KD_XG + a) * n_keys + k];
-    KeyDirs<CW> kdir;
+    KeyDirs<CW>::point(kd, k, n_keys, xg);
     kdir.load(kd, kmask, k, n_keys);
-    #pragma unroll
-    for (int i = 0; i < KeyDirs<CW>::N; ++i) dsh[i * NT] = kdir.v[i];
+    if constexpr (KeyDirs<CW>::SHARED) {
+      #pragma unroll
+      for (int i = 0; i < KeyDirs<CW>::N; ++i) dsh[i * NT] = kdir.v[i];
+    }
   }
   #pragma unroll
   for (int r = 0; r < S::N; ++r) sums[r * NT + t] = 0.f;
@@ -262,8 +313,8 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
       p_next = packed[(size_t)b * PPB + t];
     } else if (t < PPB + W - 1) {
       const int c = t - PPB;
-      p_next = c < A ? cmask[(size_t)b * A + c]
-                     : imask[(size_t)b * 6 + (c - A)];
+      p_next = c >= A ? imask[(size_t)b * 6 + (c - A)]
+               : cmask != nullptr ? cmask[(size_t)b * A + c] : 1.f;
     }
   };
   fetch(blk0);
@@ -288,23 +339,23 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
     live_slot(live_count, warp, lane, live, pos, n_live);
 
     float *wic = wic_out + (size_t)blk * M::NIC * n_keys + k;
-    float *wcc = wcc_out + (size_t)blk * M::NCC * n_keys + k;  // F only
+    float *wcc = wcc_out + (size_t)blk * M::NCC * n_keys + k;  // D/F only
     if (has_key) {
       // the key's u row at tile row pos, its v row at n_live + pos, written
       // by the core as it goes; a masked slot writes zeros to the zero row
       float *ru_row = km != 0.f ? rows + pos * RS : zrow;
       float *rv_row = km != 0.f ? rows + (n_live + pos) * RS : zrow;
       float dxu[3], dxv[3];
-      key_rows<false, true>(prm, xg[0], xg[1], xg[2], kuv.x, kuv.y, km, loss,
-                            component, c2, ru_row, rv_row, nullptr, nullptr,
-                            nullptr, dxu, dxv);
+      key_rows<true>(prm, xg[0], xg[1], xg[2], kuv.x, kuv.y, km, loss,
+                     component, c2, ru_row, rv_row, dxu, dxv);
       if (km != 0.f) {
         ru_row[RC - 1] = 0.f;
         rv_row[RC - 1] = 0.f;
       }
-      KeyDirs<CW> kdir;
-      #pragma unroll
-      for (int i = 0; i < KeyDirs<CW>::N; ++i) kdir.v[i] = dsh[i * NT];
+      if constexpr (KeyDirs<CW>::SHARED) {
+        #pragma unroll
+        for (int i = 0; i < KeyDirs<CW>::N; ++i) kdir.v[i] = dsh[i * NT];
+      }
       // g = (Re Rp)^T d(u, v)/dXc, then each key column is g . dir_j
       const float *rerp = prm + OFF_RERP;
       float gu[3], gv[3];
@@ -400,7 +451,7 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
 
 // Second pass: add the first pass's partials in a fixed order. One launch;
 // a thread block's role follows from its index: first the B blocks (their
-// gram entries over key tiles), then, for Kernel E, the C cameras (hcc, gc
+// gram entries over key tiles), then, for Kernels C/E, the C cameras (hcc, gc
 // over chunks and key tiles) and the wcc entries (Gc over chunks, then the
 // directions) of RK keys a block, last the hkk/gk of HK_K keys a block (Gr
 // and H over every chunk of every group, then the directions).
@@ -565,8 +616,8 @@ mixed_reduce_kernel(const float *__restrict__ kd,
 // the first pass's dynamic shared memory, set on the kernel once
 template <int CW, bool FUSED>
 cudaError_t first_pass_smem(size_t &bytes) {
-  bytes = sizeof(float) *
-          (ROWS_FLOATS + (Sums<FUSED>::N + KeyDirs<CW>::N) * NT);
+  constexpr int n_dirs = KeyDirs<CW>::SHARED ? KeyDirs<CW>::N : 0;
+  bytes = sizeof(float) * (ROWS_FLOATS + (Sums<FUSED>::N + n_dirs) * NT);
   static bool set = false;
   if (set) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
@@ -698,6 +749,49 @@ int pct_mixed_gram_fused(const float *packed, const float *kd,
                                  gi, corner, hkk, gk, blk_part, cam_part,
                                  wcc_part, hk_part, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Kernel D: Kernel F at cw = 3. packed (B, 96), keyp (K, 3), uv (B, K, 2),
+// mask (B, K), cmask (B, 15), imask (B, 6), kmask (K, 3) -> gram
+// (B, 22, 22), wck (B, 45, K), wik (B, 18, K), hkk (K, 3, 3), gk (K, 3).
+// Scratch: blk_part (ceil(K / 128), B, 253), hk_part (ceil(B / chunk), 9, K).
+int pct_selfcal_gram(const float *packed, const float *keyp, const float *uv,
+                     const float *mask, const float *cmask,
+                     const float *imask, const float *kmask, int n_blocks,
+                     int n_keys, int loss, int component, float f_scale,
+                     int chunk, float *gram, float *wck, float *wik,
+                     float *hkk, float *gk, float *blk_part, float *hk_part,
+                     void *stream) {
+  if (n_blocks <= 0 || n_keys <= 0) return (int)cudaGetLastError();
+  return launch_mixed<3>(packed, keyp, uv, mask, cmask, imask, kmask,
+                         n_blocks, n_keys, loss, component, f_scale, chunk,
+                         gram, wck, wik, hkk, gk, blk_part, hk_part,
+                         (cudaStream_t)stream);
+}
+
+// Kernel C: Kernel E at cw = 3, with no cmask. Same inputs over B = n_cams
+// * n_ims camera-major blocks -> hcc (C, 15, 15), gc (C, 15), wck
+// (C, 45, K), wik (B, 18, K), wci (B, 15, 6), gii (B, 6, 6), gi (B, 6),
+// corner (B,), hkk (K, 3, 3), gk (K, 3). Scratch: blk_part
+// (ceil(K / 128), B, 253), cam_part (C, ceil(n_ims / chunk),
+// ceil(K / 128), 253), wck_part (C, ceil(n_ims / chunk), 45, K), hk_part
+// (C * ceil(n_ims / chunk), 9, K).
+int pct_selfcal_gram_fused(const float *packed, const float *keyp,
+                           const float *uv, const float *mask,
+                           const float *imask, const float *kmask, int n_cams,
+                           int n_ims, int n_keys, int loss, int component,
+                           float f_scale, int chunk, float *hcc, float *gc,
+                           float *wck, float *wik, float *wci, float *gii,
+                           float *gi, float *corner, float *hkk, float *gk,
+                           float *blk_part, float *cam_part, float *wck_part,
+                           float *hk_part, void *stream) {
+  if (n_cams <= 0 || n_ims <= 0 || n_keys <= 0)
+    return (int)cudaGetLastError();
+  return launch_mixed_fused<3>(packed, keyp, uv, mask, nullptr, imask, kmask,
+                               n_cams, n_ims, n_keys, loss, component,
+                               f_scale, chunk, hcc, gc, wck, wik, wci, gii,
+                               gi, corner, hkk, gk, blk_part, cam_part,
+                               wck_part, hk_part, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,14 +1,13 @@
-// Projection core shared by the gram kernels (template_grams.cu,
-// selfcal_grams.cu and mixed_grams.cu), standard camera model (intr_w 9),
-// float32.
+// Projection core shared by the gram kernels (template_grams.cu and
+// mixed_grams.cu), standard camera model (intr_w 9), float32.
 //
 // The counterpart of the JAX package's _projection_columns
 // (pycamset_tpu/optim/pallas_grams.py): for one key of one (camera, image)
 // block, Xw = Rp X + tp, Xc = Re Xw + te, Brown 5-coefficient distortion, the
 // closed-form 2 x 21 Jacobian [Jc 15 | Ji 6], IRLS weights of the four losses
-// under component or observation semantics, and, for the self-calibration
-// chain, the free point's columns Jk = d(u, v)/dXc (Re Rp) masked per key,
-// and, for the multi-target chains, the weighted d(u, v)/dXc itself.
+// under component or observation semantics, and, for the chains with
+// per-key columns (self-calibration, multi-target), the weighted
+// d(u, v)/dXc itself.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,30 +49,19 @@ __device__ __forceinline__ void loss_rho_w(int loss, float c2, float s,
 // The two weighted rows [J (21) | r~ | cost column] of one key at the point
 // (tx, ty, tz). The cost column holds r~ under the linear loss and sqrt(rho)
 // under a robust one, so the sum of its squares is the block's (robust)
-// cost. With WITH_JK, also the weighted free-point columns jku/jkv (3 each),
-// column j multiplied by the key mask km[j]. With WITH_DXC, also the
-// weighted d(u, v)/dXc rows dxu/dxv (3 each), from which a caller builds
-// any column whose dXc/dparam it knows.
-template <bool WITH_JK = false, bool WITH_DXC = false>
+// cost. With WITH_DXC, also the weighted d(u, v)/dXc rows dxu/dxv (3 each),
+// from which a caller builds any column whose dXc/dparam it knows.
+template <bool WITH_DXC = false>
 __device__ __forceinline__ void key_rows(const float *p, float tx, float ty,
                                          float tz, float u, float v, float m,
                                          int loss, int component, float c2,
                                          float *ru_row, float *rv_row,
-                                         const float *km = nullptr,
-                                         float *jku = nullptr,
-                                         float *jkv = nullptr,
                                          float *dxu = nullptr,
                                          float *dxv = nullptr) {
   if (m == 0.f) {  // masked slot: exact zeros, whatever its geometry
     for (int c = 0; c < ROW; ++c) {
       ru_row[c] = 0.f;
       rv_row[c] = 0.f;
-    }
-    if constexpr (WITH_JK) {
-      for (int j = 0; j < 3; ++j) {
-        jku[j] = 0.f;
-        jkv[j] = 0.f;
-      }
     }
     if constexpr (WITH_DXC) {
       for (int a = 0; a < 3; ++a) {
@@ -206,19 +194,6 @@ __device__ __forceinline__ void key_rows(const float *p, float tx, float ty,
   ru_row[22] = cu;
   rv_row[22] = cv;
 
-  // free point: dXc/dX = Re Rp (packed at OFF_RERP)
-  if constexpr (WITH_JK) {
-    const float *rerp = p + OFF_RERP;
-    for (int j = 0; j < 3; ++j) {
-      float su = 0.f, sv = 0.f;
-      for (int a = 0; a < 3; ++a) {
-        su += du[a] * rerp[3 * a + j];
-        sv += dv[a] * rerp[3 * a + j];
-      }
-      jku[j] = su * mu * km[j];
-      jkv[j] = sv * mv * km[j];
-    }
-  }
   if constexpr (WITH_DXC) {
     for (int a = 0; a < 3; ++a) {
       dxu[a] = du[a] * mu;

@@ -51,7 +51,7 @@ from pycamset_tpu_torch.optim.cuda_grams import (
     GRAM_W, _check_cuda_inputs, _jacobi_scale, _loss_args, _ptr, _raise_on,
     _worst, pack_block_params, reduce_grams)
 from pycamset_tpu_torch.optim.cuda_selfcal_grams import (
-    KEY_TILE, N_ENTRIES, _empty_like_grid, scaled_errors_selfcal,
+    N_ENTRIES, _empty_like_grid, _grid_dims, scaled_errors_selfcal,
     scaled_errors_selfcal_fused, weighted_grams)
 
 KD_ROWS = 48        # pack_key_group_data rows (the JAX layout)
@@ -240,13 +240,6 @@ def mixed_gram(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask,
 
 mixed_gram.launches = 0
 mixed_gram.launches_by_cw = {6: 0, 9: 0}
-
-
-def _grid_dims(mask, group: int, chunk: int):
-    k = mask.shape[1]
-    if k == 0:
-        raise ValueError("the multi-target kernels need at least one key")
-    return k, -(-k // KEY_TILE), -(-group // chunk)
 
 
 def _launch_mixed(packed, kd, uv, mask, cmask_b, imask_b, kmask, loss_id,

@@ -3,8 +3,10 @@
 Counterpart of the self-calibration part of
 ``pycamset_tpu/optim/pallas_grams.py``, for the chain Projection +
 Extrinsic3D + RigidTform3d + FreePoint (the K target points are unknowns
-beside the cameras and the poses). Two hand-written Hopper kernels
-(``csrc/selfcal_grams.cu``) replace its two Pallas kernels:
+beside the cameras and the poses). Two hand-written Hopper kernels replace
+its two Pallas kernels: the key width 3 instantiation of the multi-target
+kernels of ``csrc/mixed_grams.cu`` (the free point's three columns, no
+group pose), entry points ``pct_selfcal_gram{,_fused}``:
 
 - Kernel C, ``selfcal_gram_fused`` <- ``make_pallas_selfcal_grams_fused``:
   hcc, gc and the point couplings wck = Jc^T Jk summed over each camera's
@@ -39,8 +41,9 @@ from pycamset_tpu_torch.optim.cuda_grams import (
     _worst, pack_block_params, reduce_grams, scaled_errors,
     scaled_errors_fused)
 
-SELFCAL_CHUNK = 8   # blocks per thread block in Kernels C and D
-KEY_TILE = 128      # keys per thread block (csrc TK)
+SELFCAL_CHUNK = 10    # images of one camera per thread block in Kernel C
+SELFCAL_CHUNK_D = 6   # blocks per thread block in Kernel D
+KEY_TILE = 128        # keys per thread block (csrc NT)
 N_ENTRIES = GRAM_W * (GRAM_W + 1) // 2
 
 
@@ -170,11 +173,12 @@ def _empty_like_grid(mask):
     return empty
 
 
-def _grid_dims(mask, group: int):
+def _grid_dims(mask, group: int, chunk: int):
     k = mask.shape[1]
     if k == 0:
-        raise ValueError("the self-cal kernels need at least one key")
-    return k, -(-k // KEY_TILE), -(-group // SELFCAL_CHUNK)
+        raise ValueError("the key-column gram kernels need at least one "
+                         "key")
+    return k, -(-k // KEY_TILE), -(-group // chunk)
 
 
 def selfcal_gram(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask,
@@ -211,7 +215,8 @@ def _launch_selfcal(packed, keyp, uv, mask, cmask_b, imask_b, kmask, loss_id,
     the current stream (inputs already checked)."""
     from pycamset_tpu_torch._build import load
     bb = mask.shape[0]
-    k, n_tiles, n_chunks = _grid_dims(mask, bb)
+    chunk = SELFCAL_CHUNK_D
+    k, n_tiles, n_chunks = _grid_dims(mask, bb, chunk)
     empty = _empty_like_grid(mask)
     g, wck, wik = empty(bb, GRAM_W, GRAM_W), empty(bb, 45, k), empty(bb, 18, k)
     hkk, gk = empty(k, 3, 3), empty(k, 3)
@@ -219,7 +224,7 @@ def _launch_selfcal(packed, keyp, uv, mask, cmask_b, imask_b, kmask, loss_id,
     rc = load().lib.pct_selfcal_gram(
         _ptr(packed), _ptr(keyp), _ptr(uv), _ptr(mask), _ptr(cmask_b),
         _ptr(imask_b), _ptr(kmask), bb, k, loss_id, component,
-        float(f_scale), SELFCAL_CHUNK, _ptr(g), _ptr(wck), _ptr(wik),
+        float(f_scale), chunk, _ptr(g), _ptr(wck), _ptr(wik),
         _ptr(hkk), _ptr(gk), _ptr(blk_part), _ptr(hk_part),
         torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "selfcal_gram")
@@ -261,7 +266,8 @@ def _launch_selfcal_fused(packed, keyp, uv, mask, imask_b, kmask, n_cams,
     the current stream (inputs already checked)."""
     from pycamset_tpu_torch._build import load
     bb = mask.shape[0]
-    k, n_tiles, n_chunks = _grid_dims(mask, n_ims)
+    chunk = SELFCAL_CHUNK
+    k, n_tiles, n_chunks = _grid_dims(mask, n_ims, chunk)
     empty = _empty_like_grid(mask)
     hcc, gc, wck = empty(n_cams, 15, 15), empty(n_cams, 15), empty(n_cams,
                                                                    45, k)
@@ -274,7 +280,7 @@ def _launch_selfcal_fused(packed, keyp, uv, mask, imask_b, kmask, n_cams,
     rc = load().lib.pct_selfcal_gram_fused(
         _ptr(packed), _ptr(keyp), _ptr(uv), _ptr(mask), _ptr(imask_b),
         _ptr(kmask), n_cams, n_ims, k, loss_id, component, float(f_scale),
-        SELFCAL_CHUNK, _ptr(hcc), _ptr(gc), _ptr(wck), _ptr(wik), _ptr(wci),
+        chunk, _ptr(hcc), _ptr(gc), _ptr(wck), _ptr(wik), _ptr(wci),
         _ptr(gii), _ptr(gi), _ptr(corner), _ptr(hkk), _ptr(gk),
         _ptr(blk_part), _ptr(cam_part), _ptr(wck_part), _ptr(hk_part),
         torch.cuda.current_stream().cuda_stream)

@@ -22,6 +22,8 @@ import torch
 
 from pycamset_tpu_torch.optim.cuda_grams import FUSED_CHUNK
 from pycamset_tpu_torch.optim.cuda_mixed_grams import MIXED_CHUNK
+from pycamset_tpu_torch.optim.cuda_selfcal_grams import (SELFCAL_CHUNK,
+                                                         SELFCAL_CHUNK_D)
 
 TOL = 1e-4
 LOSS_CASES = [("linear", "component"), ("huber", "component"),
@@ -140,34 +142,58 @@ def test_cuda_wrappers_raise_instead_of_falling_back(card):
         cg.template_gram_fused(*f32, 2, 4)
 
 
-def _selfcal_inputs(dev, n_cams, n_ims, grid, noise_px=3.0):
-    """Float32 per-block inputs of a self-cal rig with noisy detections, a
-    camera column fixed beside the problem's own masks (pose 0, the point
-    gauge, the pad keys)."""
+def _selfcal_inputs(dev, n_cams, n_ims, grid, n_keys=None, dark_cam=None,
+                    dark_key=None):
+    """Float32 per-block inputs of a self-cal rig at ``chip_smoke.py``'s
+    perturbed start (``selfcal_inputs``: cameras, poses and free points
+    moved off the truth, a camera column fixed beside the problem's own
+    masks: pose 0, the point gauge, the pad keys). At the true start gc and
+    gi cancel to float32's rounding floor: there the float32 twin itself
+    misses 1e-4 of their max-abs (up to 3.8e-4 at K = 361). The first
+    ``n_keys`` keys only, if given; every slot of camera ``dark_cam``
+    masked, and every column of key ``dark_key`` (its kmask row zero), if
+    given."""
+    from chip_smoke import selfcal_inputs
     from pycamset_tpu_torch.problems import selfcal_problem
     prob = selfcal_problem(n_cams, n_ims, dev, torch.float32, grid=grid,
                            k_pad_multiple=8)
-    rng = np.random.default_rng(1)
-    uv = prob.uv + torch.as_tensor(rng.normal(size=tuple(prob.uv.shape))
-                                   * noise_px, dtype=torch.float32,
-                                   device=dev) * prob.mask[..., None]
-    cmask = prob.colmask.cam.clone()
-    cmask[:, 3] = 0.0
-    return (torch.repeat_interleave(prob.x0.cam, n_ims, dim=0),
-            prob.x0.im.repeat(n_cams, 1), prob.x0.key, uv.contiguous(),
-            prob.mask, torch.repeat_interleave(cmask, n_ims, dim=0),
-            prob.colmask.im.repeat(n_cams, 1), prob.colmask.key)
+    cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask = selfcal_inputs(
+        prob)
+    k = n_keys or mask.shape[1]
+    mask, kmask = mask[:, :k].clone(), kmask[:k].clone()
+    if dark_cam is not None:
+        mask[dark_cam * n_ims:(dark_cam + 1) * n_ims] = 0.0
+    if dark_key is not None:
+        kmask[dark_key] = 0.0
+    return (cam_b, im_b, keyp[:k].contiguous(), uv[:, :k].contiguous(), mask,
+            cmask_b, imask_b, kmask)
 
 
-# grid 5: K = 32, one partial tile; grid 14: K = 200, a full and a partial
-# tile. n_ims 20 = two chunks of 8 and a partial one; n_ims 3 < one chunk.
+# Kernels C and D take keys in tiles of 128 slots; C takes SELFCAL_CHUNK
+# images of one camera per thread block, D SELFCAL_CHUNK_D blocks. grid 5:
+# K = 32, one partial tile; grid 14: K = 200, a full and a partial tile; K
+# 13 and 361: ragged tiles (the first keys of grids 4 and 19). n_ims 20 and
+# 3: several chunks, and less than one; n_ims 1; SELFCAL_CHUNK +- 1 images
+# and, on one camera, SELFCAL_CHUNK_D +- 1 blocks: a chunk and one more,
+# one short of a chunk. dark_cam: a camera whose every slot is masked (its
+# hcc, gc and wck, and its blocks' pieces, exact zeros); dark_key: a key
+# whose kmask row is zero (its hkk, gk and couplings exact zeros).
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_cams,n_ims,grid", [(4, 20, 5), (3, 3, 14)])
+@pytest.mark.parametrize("n_cams,n_ims,grid,n_keys,dark_cam,dark_key", [
+    (4, 20, 5, None, None, None), (3, 3, 14, None, None, None),
+    (3, 1, 6, None, None, None), (2, SELFCAL_CHUNK - 1, 6, None, None, None),
+    (2, SELFCAL_CHUNK + 1, 6, None, None, None),
+    (1, SELFCAL_CHUNK_D - 1, 6, None, None, None),
+    (1, SELFCAL_CHUNK_D + 1, 6, None, None, None),
+    (3, 5, 4, 13, None, None), (2, 3, 19, 361, None, None),
+    (3, 6, 6, None, 1, 3)])
 @pytest.mark.parametrize("loss,semantics", LOSS_CASES)
-def test_selfcal_kernels_match_plain_twins(card, n_cams, n_ims, grid, loss,
+def test_selfcal_kernels_match_plain_twins(card, n_cams, n_ims, grid, n_keys,
+                                           dark_cam, dark_key, loss,
                                            semantics):
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
-    f32 = _selfcal_inputs(card, n_cams, n_ims, grid)
+    f32 = _selfcal_inputs(card, n_cams, n_ims, grid, n_keys=n_keys,
+                          dark_cam=dark_cam, dark_key=dark_key)
     f64 = tuple(x.double() for x in f32)
     kw = dict(loss=loss, f_scale=2.0, loss_semantics=semantics)
     n_c, n_d = sg.selfcal_gram_fused.launches, sg.selfcal_gram.launches
@@ -188,8 +214,26 @@ def test_selfcal_kernels_match_plain_twins(card, n_cams, n_ims, grid, loss,
                                  *f64[6:], **kw)[0]
     _assert_scaled(sg.scaled_errors_selfcal_fused(c_got, c_ref, gram,
                                                   n_cams, n_ims), "C")
+    for a, b in zip(sg.selfcal_gram(*f32, **kw), d_got):
+        assert torch.equal(a, b)
+    for a, b in zip(sg.selfcal_gram_fused(*no_cmask, n_cams, n_ims, **kw),
+                    c_got):
+        assert torch.equal(a, b)
+    if dark_cam is not None:
+        dark = slice(dark_cam * n_ims, (dark_cam + 1) * n_ims)
+        for piece in d_got[:3]:          # gram, wck_b, wik_b
+            assert not bool(piece[dark].any())
+        for piece in c_got[:3]:          # hcc, gc, wck
+            assert not bool(piece[dark_cam].any())
+        for piece in c_got[3:8]:         # wik, wci, gii, gi, corner
+            assert not bool(piece[dark].any())
+    if dark_key is not None:
+        for piece in (d_got[1], d_got[2], c_got[2], c_got[3]):  # couplings
+            assert not bool(piece[:, dark_key].any())
+        for piece in (d_got[3], d_got[4], c_got[8], c_got[9]):  # hkk, gk
+            assert not bool(piece[dark_key].any())
     assert (sg.selfcal_gram_fused.launches, sg.selfcal_gram.launches) == (
-        n_c + 1, n_d + 1)
+        n_c + 2, n_d + 2)
 
 
 @pytest.mark.cuda

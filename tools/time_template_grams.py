@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Time builds of a family of gram kernels side by side on a card.
 
-    python3 tools/time_template_grams.py [--family template|mixed] \\
+    python3 tools/time_template_grams.py [--family template|mixed|selfcal] \\
         [--time-only] [SOURCE.cu[:NVCC FLAGS]] ...
 
 ``--family template`` (the default): versions of
 ``pycamset_tpu_torch/csrc/template_grams.cu`` (Kernels A and B);
 ``--family mixed``: versions of ``pycamset_tpu_torch/csrc/mixed_grams.cu``
-(Kernels E and F). Each argument is a version (default: the checkout's
-own), optionally with extra nvcc flags after a colon, for example
+(Kernels E and F); ``--family selfcal``: versions of whichever source
+exports Kernels C and D (``pct_selfcal_gram{,_fused}``: the checkout's
+``mixed_grams.cu``, an older ``selfcal_grams.cu``). Each argument is a
+version (default: the checkout's own), optionally with extra nvcc flags
+after a colon, for example
 ``old/mixed_grams.cu`` or ``csrc/mixed_grams.cu:-DSOME_SWITCH``. Every
 version is compiled by its own nvcc, all at once, with the package's flags,
 into its own library; the kernel wrappers are then pointed at each library
@@ -24,7 +27,11 @@ torch.profiler (``chip_smoke.kernel_ms``, 20 launches):
   4, 8, 12 and 16 images, F at chunks of 2, 4, 8 and 16 blocks, each also
   split into its first pass and its reduction. The scratch is allocated at
   the first port's larger sizes, so that an older ``mixed_grams.cu`` runs
-  too.
+  too;
+- selfcal (self-cal 16 x 100 and 64 x 12): C at chunks of 4 to 34 images,
+  D at chunks of 2 to 12 blocks, each also split
+  into its first pass and its reduction (the scratch sizes did not change
+  with the redesign).
 
 Prints the card's name and power limit first, the ptxas registers and
 spills of each build, and one ``[variant_time]`` line per version and
@@ -51,6 +58,9 @@ FAMILIES = {
                  ("template 16x100", "template 64x400")),
     "mixed": ("mixed_grams.cu", ("pct_mixed_gram", "pct_mixed_gram_fused"),
               ("mixed 16x100", "grouped 16x100", "mixed 64x12")),
+    "selfcal": ("mixed_grams.cu",
+                ("pct_selfcal_gram", "pct_selfcal_gram_fused"),
+                ("selfcal 16x100", "selfcal 64x12")),
 }
 
 
@@ -71,6 +81,7 @@ def build(nvcc: str, out: Path, i: int, spec: str):
 def problem(shape: str, dev):
     from pycamset_tpu_torch import problems
     make = {"template": problems.standard_problem,
+            "selfcal": problems.selfcal_problem,
             "mixed": problems.mixed_problem,
             "grouped": problems.grouped_problem}[shape.split()[0]]
     n_cams, n_ims = map(int, shape.split()[1].split("x"))
@@ -177,6 +188,63 @@ def time_mixed(cs, prob, shape, time_only):
     return line
 
 
+def check_selfcal(cs, sg, f32, n_cams, n_ims, shape):
+    """C and D against their float64 twins (linear and huber loss), and
+    the same bits on a repeat launch; raises SystemExit on a failure."""
+    import torch
+    f64 = tuple(x.double() for x in f32)
+    c32, c64 = (*f32[:5], *f32[6:]), (*f64[:5], *f64[6:])   # C: no cmask
+    for loss in ("linear", "huber"):
+        kw = dict(loss=loss, f_scale=2.0)
+        d_got = sg.selfcal_gram(*f32, **kw)
+        d_ref = sg.selfcal_gram_plain(*f64, **kw)
+        cs.parity(f"D {shape} {loss}", d_got, d_ref,
+                  sg.scaled_errors_selfcal(d_got, d_ref))
+        c_got = sg.selfcal_gram_fused(*c32, n_cams, n_ims, **kw)
+        c_ref = sg.selfcal_gram_fused_plain(*c64, n_cams, n_ims, **kw)
+        gram = sg.selfcal_gram_plain(*f64[:5], torch.ones_like(f64[5]),
+                                     *f64[6:], **kw)[0]
+        cs.parity(f"C {shape} {loss}", c_got, c_ref,
+                  sg.scaled_errors_selfcal_fused(c_got, c_ref, gram, n_cams,
+                                                 n_ims))
+        del d_got, d_ref, c_got, c_ref, gram
+    cs.same_bits("D", lambda: sg.selfcal_gram(*f32))
+    cs.same_bits("C", lambda: sg.selfcal_gram_fused(*c32, n_cams, n_ims))
+
+
+def time_selfcal(cs, prob, shape, time_only):
+    import torch
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    f32 = cs.selfcal_inputs(prob)
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    try:
+        check_selfcal(cs, sg, f32, n_cams, n_ims, shape)
+    except SystemExit as e:
+        if not time_only:
+            raise
+        print(f"  {shape}: {e} (timed all the same)", flush=True)
+    packed = sg.pack_block_params(*f32[:2])
+    c_grid = (*f32[2:5], *f32[6:])
+    line = {}
+    chunks = sg.SELFCAL_CHUNK, sg.SELFCAL_CHUNK_D
+    for kernel, chunk_list in (("C", (4, 8, 10, 12, 14, 17, 20, 25, 34)),
+                               ("D", (2, 3, 4, 5, 6, 7, 8, 12))):
+        for chunk in chunk_list:
+            sg.SELFCAL_CHUNK = sg.SELFCAL_CHUNK_D = chunk
+            fn = ((lambda: sg._launch_selfcal_fused(packed, *c_grid, n_cams,
+                                                    n_ims, 0, 1, 1.0))
+                  if kernel == "C" else
+                  (lambda: sg._launch_selfcal(packed, *f32[2:], 0, 1, 1.0)))
+            passes = cs.device_ms(fn)
+            line[f"{kernel}_ms_chunk{chunk}"] = sum(passes.values())
+            for name, ms in passes.items():
+                pass_name = "reduce" if "reduce" in name else "first"
+                line[f"{kernel}_{pass_name}_ms_chunk{chunk}"] = ms
+    sg.SELFCAL_CHUNK, sg.SELFCAL_CHUNK_D = chunks
+    torch.cuda.empty_cache()
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -205,7 +273,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     probs = {shape: problem(shape, dev) for shape in shapes}
-    timer = time_template if family == "template" else time_mixed
+    timer = {"template": time_template, "mixed": time_mixed,
+             "selfcal": time_selfcal}[family]
     for spec, (so, ptxas) in zip(specs, built):
         print(f"=== {spec}", flush=True)
         for ln in ptxas.splitlines():
