@@ -88,6 +88,27 @@ def problem(shape: str, dev):
     return make(n_cams, n_ims, dev)
 
 
+def checked(check, time_only: bool, shape: str):
+    """Run a version's parity and bit checks; with ``time_only``, report a
+    failure and go on to time the version all the same."""
+    try:
+        check()
+    except SystemExit as e:
+        if not time_only:
+            raise
+        print(f"  {shape}: {e} (timed all the same)", flush=True)
+
+
+def pass_times(cs, line: dict, kernel: str, chunk: int, fn):
+    """Into ``line``: the device time of each pass of one call of ``fn``
+    (the first pass and the reduction) and their sum."""
+    passes = cs.device_ms(fn)
+    line[f"{kernel}_ms_chunk{chunk}"] = sum(passes.values())
+    for name, ms in passes.items():
+        pass_name = "reduce" if "reduce" in name else "first"
+        line[f"{kernel}_{pass_name}_ms_chunk{chunk}"] = ms
+
+
 def check_template(cs, cg, f32, n_cams, n_ims, shape):
     """A and B against their float64 twins (linear and huber loss), and
     the same bits on a repeat launch; raises SystemExit on a failure."""
@@ -110,12 +131,8 @@ def time_template(cs, prob, shape, time_only):
     from pycamset_tpu_torch.optim import cuda_grams as cg
     f32 = cs.template_inputs(prob)
     n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
-    try:
-        check_template(cs, cg, f32, n_cams, n_ims, shape)
-    except SystemExit as e:
-        if not time_only:
-            raise
-        print(f"  {shape}: {e} (timed all the same)", flush=True)
+    checked(lambda: check_template(cs, cg, f32, n_cams, n_ims, shape),
+            time_only, shape)
     packed = cg.pack_block_params(*f32[:2])
     line = {"A_ms": cs.kernel_ms(
         lambda: cg._launch_gram(packed, *f32[2:], 0, 1, 1.0))}
@@ -157,12 +174,8 @@ def time_mixed(cs, prob, shape, time_only):
     wk = shape.startswith("mixed")
     sizes = mg.N_GC, mg.N_HK
     mg.N_GC, mg.N_HK = 15 * 9, 54    # the first port's scratch rows
-    try:
-        check_mixed(cs, mg, f32, wk, n_cams, n_ims, shape)
-    except SystemExit as e:
-        if not time_only:
-            raise
-        print(f"  {shape}: {e} (timed all the same)", flush=True)
+    checked(lambda: check_mixed(cs, mg, f32, wk, n_cams, n_ims, shape),
+            time_only, shape)
     packed = mg.pack_block_params(*f32[:2])
     kd = mg.pack_key_group_data(f32[2][:, :6],
                                 f32[2][:, 6:9] if wk else f32[3])
@@ -176,12 +189,7 @@ def time_mixed(cs, prob, shape, time_only):
                                                   n_ims, 0, 1, 1.0))
                   if kernel == "E" else
                   (lambda: mg._launch_mixed(packed, kd, *grid, 0, 1, 1.0)))
-            # each pass's device time: the first pass and the reduction
-            passes = cs.device_ms(fn)
-            line[f"{kernel}_ms_chunk{chunk}"] = sum(passes.values())
-            for name, ms in passes.items():
-                pass_name = "reduce" if "reduce" in name else "first"
-                line[f"{kernel}_{pass_name}_ms_chunk{chunk}"] = ms
+            pass_times(cs, line, kernel, chunk, fn)
     mg.MIXED_CHUNK, mg.MIXED_CHUNK_F = chunks
     mg.N_GC, mg.N_HK = sizes
     torch.cuda.empty_cache()
@@ -217,12 +225,8 @@ def time_selfcal(cs, prob, shape, time_only):
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
     f32 = cs.selfcal_inputs(prob)
     n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
-    try:
-        check_selfcal(cs, sg, f32, n_cams, n_ims, shape)
-    except SystemExit as e:
-        if not time_only:
-            raise
-        print(f"  {shape}: {e} (timed all the same)", flush=True)
+    checked(lambda: check_selfcal(cs, sg, f32, n_cams, n_ims, shape),
+            time_only, shape)
     packed = sg.pack_block_params(*f32[:2])
     c_grid = (*f32[2:5], *f32[6:])
     line = {}
@@ -235,11 +239,7 @@ def time_selfcal(cs, prob, shape, time_only):
                                                     n_ims, 0, 1, 1.0))
                   if kernel == "C" else
                   (lambda: sg._launch_selfcal(packed, *f32[2:], 0, 1, 1.0)))
-            passes = cs.device_ms(fn)
-            line[f"{kernel}_ms_chunk{chunk}"] = sum(passes.values())
-            for name, ms in passes.items():
-                pass_name = "reduce" if "reduce" in name else "first"
-                line[f"{kernel}_{pass_name}_ms_chunk{chunk}"] = ms
+            pass_times(cs, line, kernel, chunk, fn)
     sg.SELFCAL_CHUNK, sg.SELFCAL_CHUNK_D = chunks
     torch.cuda.empty_cache()
     return line
