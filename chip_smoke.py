@@ -334,6 +334,86 @@ def same_bits(name, run):
           f"{name}: a repeat launch changed the bits")
 
 
+def template_runs(cg, f32, n_cams, n_ims) -> dict:
+    """Kernels A and B on ``f32``: {name: launch(**loss options)}."""
+    return {"template_gram": lambda **kw: cg.template_gram(*f32, **kw),
+            "template_gram_fused": lambda **kw: cg.template_gram_fused(
+                *f32, n_cams, n_ims, **kw)}
+
+
+def template_parities(cg, f32, n_cams, n_ims, **kw) -> dict:
+    """Kernels A and B on ``f32`` under one loss, beside their float64
+    plain twins: {name: (outputs, the twin's, errors in the solver's Jacobi
+    scaling)}."""
+    run = template_runs(cg, f32, n_cams, n_ims)
+    f64 = tuple(t.double() for t in f32)
+    a_got = run["template_gram"](**kw)
+    a_ref = cg.template_gram_plain(*f64, **kw)
+    b_got = run["template_gram_fused"](**kw)
+    b_ref = cg.template_gram_fused_plain(*f64, n_cams, n_ims, **kw)
+    return {"template_gram": ([a_got], [a_ref],
+                              cg.scaled_errors(a_got, a_ref)),
+            "template_gram_fused": (b_got, b_ref, cg.scaled_errors_fused(
+                b_got, b_ref, a_ref, n_cams, n_ims))}
+
+
+def selfcal_runs(sg, f32, n_cams, n_ims) -> dict:
+    """Kernels D and C on ``f32`` (C takes no cmask): {name: launch(**loss
+    options)}."""
+    c32 = (*f32[:5], *f32[6:])
+    return {"selfcal_gram": lambda **kw: sg.selfcal_gram(*f32, **kw),
+            "selfcal_gram_fused": lambda **kw: sg.selfcal_gram_fused(
+                *c32, n_cams, n_ims, **kw)}
+
+
+def selfcal_parities(sg, f32, n_cams, n_ims, **kw) -> dict:
+    """Kernels D and C on ``f32`` under one loss, beside their float64
+    plain twins: {name: (outputs, the twin's, errors in the solver's Jacobi
+    scaling)}. C's scaling takes the twin's gram with every camera column
+    unmasked, as C's outputs are."""
+    import torch
+    run = selfcal_runs(sg, f32, n_cams, n_ims)
+    f64 = tuple(t.double() for t in f32)
+    d_got = run["selfcal_gram"](**kw)
+    d_ref = sg.selfcal_gram_plain(*f64, **kw)
+    c_got = run["selfcal_gram_fused"](**kw)
+    c_ref = sg.selfcal_gram_fused_plain(*f64[:5], *f64[6:], n_cams, n_ims,
+                                        **kw)
+    gram = sg.selfcal_gram_plain(*f64[:5], torch.ones_like(f64[5]),
+                                 *f64[6:], **kw)[0]
+    return {"selfcal_gram": (d_got, d_ref,
+                             sg.scaled_errors_selfcal(d_got, d_ref)),
+            "selfcal_gram_fused": (c_got, c_ref,
+                                   sg.scaled_errors_selfcal_fused(
+                                       c_got, c_ref, gram, n_cams, n_ims))}
+
+
+def mixed_runs(mg, f32, n_cams, n_ims, wk: bool) -> dict:
+    """Kernels F and E on ``f32`` (key width 9 with ``wk``, else 6):
+    {name: launch(**loss options)}."""
+    return {"mixed_gram": lambda **kw: mg.mixed_gram(
+                *f32, with_key_cols=wk, **kw),
+            "mixed_gram_fused": lambda **kw: mg.mixed_gram_fused(
+                *f32, n_cams, n_ims, with_key_cols=wk, **kw)}
+
+
+def mixed_parities(mg, f32, n_cams, n_ims, wk: bool, **kw) -> dict:
+    """Kernels F and E on ``f32`` under one loss, beside their float64
+    plain twins: {name: (outputs, the twin's, errors in the solver's Jacobi
+    scaling)}."""
+    run = mixed_runs(mg, f32, n_cams, n_ims, wk)
+    f64 = tuple(t.double() for t in f32)
+    f_got = run["mixed_gram"](**kw)
+    f_ref = mg.mixed_gram_plain(*f64, with_key_cols=wk, **kw)
+    e_got = run["mixed_gram_fused"](**kw)
+    e_ref = mg.mixed_gram_fused_plain(*f64, n_cams, n_ims, with_key_cols=wk,
+                                      **kw)
+    return {"mixed_gram": (f_got, f_ref,
+                           mg.scaled_errors_mixed(f_got, f_ref)),
+            "mixed_gram_fused": (e_got, e_ref, mg.scaled_errors_mixed_fused(
+                e_got, e_ref, f_ref[0], n_cams, n_ims))}
+
+
 def record(out, name, shape, e):
     rec = out[name].setdefault(shape, dict.fromkeys(e, 0.0))
     for k, v in e.items():
@@ -426,28 +506,19 @@ def phase_template_kernels(probs, out, peak_tflops: float):
         prob = probs[shape]
         n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
         f32 = template_inputs(prob)
-        f64 = tuple(t.double() for t in f32)
         for loss, sem in LOSS_CASES:
-            kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
-            a_got = cg.template_gram(*f32, **kw)
-            a_ref = cg.template_gram_plain(*f64, **kw)
-            a_scaled = cg.scaled_errors(a_got, a_ref)
-            b_got = cg.template_gram_fused(*f32, n_cams, n_ims, **kw)
-            b_ref = cg.template_gram_fused_plain(*f64, n_cams, n_ims, **kw)
-            b_scaled = cg.scaled_errors_fused(b_got, b_ref, a_ref, n_cams,
-                                              n_ims)
+            res = template_parities(cg, f32, n_cams, n_ims, loss=loss,
+                                    f_scale=2.0, loss_semantics=sem)
             say("parity", shape=shape, loss=loss, semantics=sem, tol=TOL,
-                **{f"A_{k}": f"{v:.2e}" for k, v in a_scaled.items()},
-                **{f"B_{k}": f"{v:.2e}" for k, v in b_scaled.items()})
-            record(out, "template_gram", shape, parity(
-                f"template_gram {shape} {loss}/{sem}", [a_got], [a_ref],
-                a_scaled))
-            record(out, "template_gram_fused", shape, parity(
-                f"template_gram_fused {shape} {loss}/{sem}", b_got, b_ref,
-                b_scaled))
-        same_bits("template_gram", lambda: cg.template_gram(*f32))
-        same_bits("template_gram_fused",
-                  lambda: cg.template_gram_fused(*f32, n_cams, n_ims))
+                **{f"{ab}_{k}": f"{v:.2e}"
+                   for ab, (_, _, scaled) in zip("AB", res.values())
+                   for k, v in scaled.items()})
+            for name, (got, ref, scaled) in res.items():
+                record(out, name, shape, parity(
+                    f"{name} {shape} {loss}/{sem}", got, ref, scaled))
+            del res
+        for name, run in template_runs(cg, f32, n_cams, n_ims).items():
+            same_bits(name, run)
 
         # times (linear loss; same inputs for both sides); *_kernel: the
         # device time of the launch alone on pre-packed parameters
@@ -490,34 +561,24 @@ def phase_selfcal_kernels(probs, out, peak_tflops: float):
     shapes, all four losses, and a repeat launch; times per shape, and
     each kernel's rate counted as its bound counts, beside the bound and
     the FMA probe's measured rate (``peak_tflops``)."""
-    import torch
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
     for shape in ("selfcal 16x100", "selfcal 64x12"):
         prob = probs[shape]
         n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
         f32 = selfcal_inputs(prob)
-        f64 = tuple(t.double() for t in f32)
         c32 = (*f32[:5], *f32[6:])          # Kernel C takes no cmask
-        c64 = (*f64[:5], *f64[6:])
         cpu32 = tuple(t.cpu() for t in f32)
         for loss, sem in LOSS_CASES:
             kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
-            d_got = sg.selfcal_gram(*f32, **kw)
-            d_ref = sg.selfcal_gram_plain(*f64, **kw)
-            d_scaled = sg.scaled_errors_selfcal(d_got, d_ref)
+            res = selfcal_parities(sg, f32, n_cams, n_ims, **kw)
+            d_got, d_ref, d_scaled = res["selfcal_gram"]
+            c_got, c_ref, c_scaled = res["selfcal_gram_fused"]
             # the float32 twin on the CPU, same inputs: the f32 floor of the
             # per-(block, key) couplings, whose entries (one slot's product
             # each, which nothing averages) carry the f32 error of the
             # slot's IRLS weight under a robust loss
             floor = max_abs_errors(sg.selfcal_gram_plain(*cpu32, **kw)[1:3],
                                    [r.cpu() for r in d_ref[1:3]])
-            c_got = sg.selfcal_gram_fused(*c32, n_cams, n_ims, **kw)
-            c_ref = sg.selfcal_gram_fused_plain(*c64, n_cams, n_ims, **kw)
-            gram = sg.selfcal_gram_plain(*f64[:5], torch.ones_like(f64[5]),
-                                         *f64[6:], **kw)[0]
-            c_scaled = sg.scaled_errors_selfcal_fused(c_got, c_ref, gram,
-                                                      n_cams, n_ims)
-            del gram
             d_rel = max_abs_errors(d_got, d_ref)
             c_rel = max_abs_errors(c_got, c_ref)
             say("parity", shape=shape, loss=loss, semantics=sem, tol=TOL,
@@ -529,16 +590,12 @@ def phase_selfcal_kernels(probs, out, peak_tflops: float):
                 cpu_f32_twin_wik_b=f"{floor[1]:.2e}",
                 D_worst_other=f"{max(d_rel[:1] + d_rel[3:]):.2e}",
                 C_worst_other=f"{max(c_rel[:3] + c_rel[4:]):.2e}")
-            record(out, "selfcal_gram", shape, parity(
-                f"selfcal_gram {shape} {loss}/{sem}", d_got, d_ref,
-                d_scaled))
-            record(out, "selfcal_gram_fused", shape, parity(
-                f"selfcal_gram_fused {shape} {loss}/{sem}", c_got, c_ref,
-                c_scaled))
-            del d_got, d_ref, c_got, c_ref
-        same_bits("selfcal_gram", lambda: sg.selfcal_gram(*f32))
-        same_bits("selfcal_gram_fused",
-                  lambda: sg.selfcal_gram_fused(*c32, n_cams, n_ims))
+            for name, (got, ref, scaled) in res.items():
+                record(out, name, shape, parity(
+                    f"{name} {shape} {loss}/{sem}", got, ref, scaled))
+            del res, d_got, d_ref, c_got, c_ref
+        for name, run in selfcal_runs(sg, f32, n_cams, n_ims).items():
+            same_bits(name, run)
 
         # each pass's device time (the first pass, the reduction)
         packed = sg.pack_block_params(*f32[:2])
@@ -597,18 +654,12 @@ def phase_mixed_kernels(probs, out, peak_tflops: float):
         cw = mg.key_width(wk)
         oh = prob.onehot(prob.uv)
         f32 = multi_target_inputs(prob)
-        f64 = tuple(t.double() for t in f32)
         for loss, sem in LOSS_CASES:
-            kw = dict(with_key_cols=wk, loss=loss, f_scale=2.0,
-                      loss_semantics=sem)
-            f_got = mg.mixed_gram(*f32, **kw)
-            f_ref = mg.mixed_gram_plain(*f64, **kw)
-            f_scaled = mg.scaled_errors_mixed(f_got, f_ref)
+            res = mixed_parities(mg, f32, n_cams, n_ims, wk, loss=loss,
+                                 f_scale=2.0, loss_semantics=sem)
+            f_got, f_ref, f_scaled = res["mixed_gram"]
+            e_got, e_ref, e_scaled = res["mixed_gram_fused"]
             f_grp = mg.scaled_errors_groups(f_got, f_ref, oh, n_cams, n_ims)
-            e_got = mg.mixed_gram_fused(*f32, n_cams, n_ims, **kw)
-            e_ref = mg.mixed_gram_fused_plain(*f64, n_cams, n_ims, **kw)
-            e_scaled = mg.scaled_errors_mixed_fused(e_got, e_ref, f_ref[0],
-                                                    n_cams, n_ims)
             e_grp = mg.scaled_errors_groups(e_got, e_ref, oh, n_cams, n_ims)
             f_rel = max_abs_errors(f_got, f_ref)
             e_rel = max_abs_errors(e_got, e_ref)
@@ -632,10 +683,9 @@ def phase_mixed_kernels(probs, out, peak_tflops: float):
             record(out, "mixed_gram_fused", shape, parity(
                 f"mixed_gram_fused {shape} {loss}/{sem}", e_got, e_ref,
                 {**e_scaled, **e_grp}))
-            del f_got, f_ref, e_got, e_ref
-        same_bits("mixed_gram", lambda: mg.mixed_gram(*f32, wk))
-        same_bits("mixed_gram_fused",
-                  lambda: mg.mixed_gram_fused(*f32, n_cams, n_ims, wk))
+            del res, f_got, f_ref, e_got, e_ref
+        for name, run in mixed_runs(mg, f32, n_cams, n_ims, wk).items():
+            same_bits(name, run)
 
         # times (linear loss); *_kernel: the device time of the launch
         # alone on pre-packed block parameters and per-key group data

@@ -153,8 +153,9 @@ __device__ __forceinline__ bool cam_entry(int i, int j) {
 // kmask[k, j], as KeyDirs<CW>::N values: the rotation columns' dRg[j] Xp
 // (3 x 3), the translation columns' kmask (their directions are e_j), the
 // point columns' Rg e_j (3 x 3, cw = 9 only); at cw = 3 the point columns'
-// kmask (their directions are e_j). kd: the per-key group data (KD_ROWS,
-// K), or at cw = 3 the free points (K, 3).
+// kmask (their directions are e_j). kd: at cw 9 and 6 the per-key group
+// data (KD_ROWS, K); at cw = 3 the free points keyp (K, 3), which only
+// point() reads.
 template <int CW>
 struct KeyDirs {
   static constexpr int N = CW == 9 ? 21 : (CW == 6 ? 12 : 3);
@@ -233,7 +234,9 @@ struct KeyDirs {
 // a camera's images; D/F: one group of all B blocks). Dynamic shared
 // memory: the row tile, then the per-key sums (Sums<FUSED>::N rows of NT),
 // then, at cw 9 and 6, the keys' direction values (KeyDirs<CW>::N rows of
-// NT). cmask may be null (Kernel C): every camera column's mask is then 1.
+// NT). kd: at cw 9 and 6 (E/F) the per-key group data (KD_ROWS, K); at
+// cw = 3 (C/D) the free points keyp (K, 3) (KeyDirs). cmask may be null
+// (Kernel C): every camera column's mask is then 1.
 // blk_part (tiles, B, 253): per-block gram entries of one key tile (C/E:
 // the non-camera entries). Kernels C/E only: cam_part (C, chunks, tiles,
 // 253) holds the chunk's hcc/gc entries, gc_part (C, chunks, 45, K) its Gc
@@ -449,7 +452,9 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
   }
 }
 
-// Second pass: add the first pass's partials in a fixed order. One launch;
+// Second pass: add the first pass's partials in a fixed order. kd and
+// kmask as in the first pass (at cw = 3 the directions are kmask alone and
+// kd, the free points, is not read). One launch;
 // a thread block's role follows from its index: first the B blocks (their
 // gram entries over key tiles), then, for Kernels C/E, the C cameras (hcc, gc
 // over chunks and key tiles) and the wcc entries (Gc over chunks, then the
@@ -631,6 +636,8 @@ cudaError_t first_pass_smem(size_t &bytes) {
   return err;
 }
 
+// kd: the per-key group data (KD_ROWS, K) at cw 9 and 6; the free points
+// keyp (K, 3) at cw = 3.
 template <int CW>
 int launch_mixed(const float *packed, const float *kd, const float *uv,
                  const float *mask, const float *cmask, const float *imask,

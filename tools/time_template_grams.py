@@ -78,6 +78,30 @@ def build(nvcc: str, out: Path, i: int, spec: str):
     return so, proc.stderr
 
 
+def build_all(specs: list[str]) -> list:
+    """Compile every version at once, each by its own nvcc, into
+    ``build/pycamset_tpu_torch/variants``; returns (library, ptxas report)
+    per version."""
+    from pycamset_tpu_torch import _build as bld
+    nvcc = bld.find_nvcc()
+    out = bld.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(len(specs)) as pool:
+        return list(pool.map(lambda a: build(nvcc, out, *a),
+                             enumerate(specs)))
+
+
+def use_library(so: Path, entries) -> None:
+    """Point the kernel wrappers at one version's library: they reach the
+    kernels through ``_build.load().lib``."""
+    from pycamset_tpu_torch import _build as bld
+    lib = ctypes.CDLL(str(so))
+    for name in entries:
+        getattr(lib, name).argtypes = bld._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    bld.load = lambda: types.SimpleNamespace(lib=lib)
+
+
 def problem(shape: str, dev):
     from pycamset_tpu_torch import problems
     make = {"template": problems.standard_problem,
@@ -109,30 +133,27 @@ def pass_times(cs, line: dict, kernel: str, chunk: int, fn):
         line[f"{kernel}_{pass_name}_ms_chunk{chunk}"] = ms
 
 
-def check_template(cs, cg, f32, n_cams, n_ims, shape):
-    """A and B against their float64 twins (linear and huber loss), and
-    the same bits on a repeat launch; raises SystemExit on a failure."""
+def check(cs, parities, runs: dict, shape: str):
+    """A family's kernels against their float64 twins (linear and huber
+    loss; ``parities(**loss options)`` is one of ``chip_smoke``'s
+    ``*_parities``), and the same bits on a repeat launch (``runs``, the
+    matching ``*_runs``); raises SystemExit on a failure."""
     for loss in ("linear", "huber"):
-        kw = dict(loss=loss, f_scale=2.0)
-        f64 = tuple(x.double() for x in f32)
-        a_got = cg.template_gram(*f32, **kw)
-        a_ref = cg.template_gram_plain(*f64, **kw)
-        cs.parity(f"A {shape} {loss}", [a_got], [a_ref],
-                  cg.scaled_errors(a_got, a_ref))
-        b_got = cg.template_gram_fused(*f32, n_cams, n_ims, **kw)
-        b_ref = cg.template_gram_fused_plain(*f64, n_cams, n_ims, **kw)
-        cs.parity(f"B {shape} {loss}", b_got, b_ref,
-                  cg.scaled_errors_fused(b_got, b_ref, a_ref, n_cams, n_ims))
-    cs.same_bits("A", lambda: cg.template_gram(*f32))
-    cs.same_bits("B", lambda: cg.template_gram_fused(*f32, n_cams, n_ims))
+        res = parities(loss=loss, f_scale=2.0)
+        for name, (got, ref, scaled) in res.items():
+            cs.parity(f"{name} {shape} {loss}", got, ref, scaled)
+        del res
+    for name, run in runs.items():
+        cs.same_bits(name, run)
 
 
 def time_template(cs, prob, shape, time_only):
     from pycamset_tpu_torch.optim import cuda_grams as cg
     f32 = cs.template_inputs(prob)
     n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
-    checked(lambda: check_template(cs, cg, f32, n_cams, n_ims, shape),
-            time_only, shape)
+    checked(lambda: check(
+        cs, lambda **kw: cs.template_parities(cg, f32, n_cams, n_ims, **kw),
+        cs.template_runs(cg, f32, n_cams, n_ims), shape), time_only, shape)
     packed = cg.pack_block_params(*f32[:2])
     line = {"A_ms": cs.kernel_ms(
         lambda: cg._launch_gram(packed, *f32[2:], 0, 1, 1.0))}
@@ -146,26 +167,6 @@ def time_template(cs, prob, shape, time_only):
     return line
 
 
-def check_mixed(cs, mg, f32, wk, n_cams, n_ims, shape):
-    """E and F against their float64 twins (linear and huber loss), and
-    the same bits on a repeat launch; raises SystemExit on a failure."""
-    f64 = tuple(x.double() for x in f32)
-    for loss in ("linear", "huber"):
-        kw = dict(with_key_cols=wk, loss=loss, f_scale=2.0)
-        f_got = mg.mixed_gram(*f32, **kw)
-        f_ref = mg.mixed_gram_plain(*f64, **kw)
-        cs.parity(f"F {shape} {loss}", f_got, f_ref,
-                  mg.scaled_errors_mixed(f_got, f_ref))
-        e_got = mg.mixed_gram_fused(*f32, n_cams, n_ims, **kw)
-        e_ref = mg.mixed_gram_fused_plain(*f64, n_cams, n_ims, **kw)
-        cs.parity(f"E {shape} {loss}", e_got, e_ref,
-                  mg.scaled_errors_mixed_fused(e_got, e_ref, f_ref[0],
-                                               n_cams, n_ims))
-        del f_got, f_ref, e_got, e_ref
-    cs.same_bits("F", lambda: mg.mixed_gram(*f32, wk))
-    cs.same_bits("E", lambda: mg.mixed_gram_fused(*f32, n_cams, n_ims, wk))
-
-
 def time_mixed(cs, prob, shape, time_only):
     import torch
     from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
@@ -174,8 +175,9 @@ def time_mixed(cs, prob, shape, time_only):
     wk = shape.startswith("mixed")
     sizes = mg.N_GC, mg.N_HK
     mg.N_GC, mg.N_HK = 15 * 9, 54    # the first port's scratch rows
-    checked(lambda: check_mixed(cs, mg, f32, wk, n_cams, n_ims, shape),
-            time_only, shape)
+    checked(lambda: check(
+        cs, lambda **kw: cs.mixed_parities(mg, f32, n_cams, n_ims, wk, **kw),
+        cs.mixed_runs(mg, f32, n_cams, n_ims, wk), shape), time_only, shape)
     packed = mg.pack_block_params(*f32[:2])
     kd = mg.pack_key_group_data(f32[2][:, :6],
                                 f32[2][:, 6:9] if wk else f32[3])
@@ -196,37 +198,14 @@ def time_mixed(cs, prob, shape, time_only):
     return line
 
 
-def check_selfcal(cs, sg, f32, n_cams, n_ims, shape):
-    """C and D against their float64 twins (linear and huber loss), and
-    the same bits on a repeat launch; raises SystemExit on a failure."""
-    import torch
-    f64 = tuple(x.double() for x in f32)
-    c32, c64 = (*f32[:5], *f32[6:]), (*f64[:5], *f64[6:])   # C: no cmask
-    for loss in ("linear", "huber"):
-        kw = dict(loss=loss, f_scale=2.0)
-        d_got = sg.selfcal_gram(*f32, **kw)
-        d_ref = sg.selfcal_gram_plain(*f64, **kw)
-        cs.parity(f"D {shape} {loss}", d_got, d_ref,
-                  sg.scaled_errors_selfcal(d_got, d_ref))
-        c_got = sg.selfcal_gram_fused(*c32, n_cams, n_ims, **kw)
-        c_ref = sg.selfcal_gram_fused_plain(*c64, n_cams, n_ims, **kw)
-        gram = sg.selfcal_gram_plain(*f64[:5], torch.ones_like(f64[5]),
-                                     *f64[6:], **kw)[0]
-        cs.parity(f"C {shape} {loss}", c_got, c_ref,
-                  sg.scaled_errors_selfcal_fused(c_got, c_ref, gram, n_cams,
-                                                 n_ims))
-        del d_got, d_ref, c_got, c_ref, gram
-    cs.same_bits("D", lambda: sg.selfcal_gram(*f32))
-    cs.same_bits("C", lambda: sg.selfcal_gram_fused(*c32, n_cams, n_ims))
-
-
 def time_selfcal(cs, prob, shape, time_only):
     import torch
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
     f32 = cs.selfcal_inputs(prob)
     n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
-    checked(lambda: check_selfcal(cs, sg, f32, n_cams, n_ims, shape),
-            time_only, shape)
+    checked(lambda: check(
+        cs, lambda **kw: cs.selfcal_parities(sg, f32, n_cams, n_ims, **kw),
+        cs.selfcal_runs(sg, f32, n_cams, n_ims), shape), time_only, shape)
     packed = sg.pack_block_params(*f32[:2])
     c_grid = (*f32[2:5], *f32[6:])
     line = {}
@@ -264,12 +243,7 @@ def main() -> int:
     specs = [a for a in args if a != "--time-only"] or [
         str(bld.CSRC / source)]
     cs.phase_device()
-    nvcc = bld.find_nvcc()
-    out = bld.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(len(specs)) as pool:
-        built = list(pool.map(lambda a: build(nvcc, out, *a),
-                              enumerate(specs)))
+    built = build_all(specs)
 
     dev = torch.device("cuda", 0)
     probs = {shape: problem(shape, dev) for shape in shapes}
@@ -281,12 +255,7 @@ def main() -> int:
             if any(w in ln for w in ("Compiling entry", "registers",
                                      "spill")):
                 print(f"  ptxas: {ln.strip()}", flush=True)
-        lib = ctypes.CDLL(str(so))
-        for name in entries:
-            getattr(lib, name).argtypes = bld._SIGNATURES[name]
-            getattr(lib, name).restype = ctypes.c_int
-        # the wrappers reach the kernels through _build.load().lib
-        bld.load = lambda lib=lib: types.SimpleNamespace(lib=lib)
+        use_library(so, entries)
         for shape, prob in probs.items():
             line = timer(cs, prob, shape, time_only)
             cs.say("variant_time", source=spec.replace(" ", "_"),
