@@ -87,6 +87,9 @@ PEAK = ("fma_peak", "pycamset_tpu_torch/csrc/peak.cu", "benchmarks/peak.py:37")
 # kernel test's bound on the relative error at that condition)
 PSD_SYNTHETIC = [(n, cond, tol) for n in (240, 852, 1044)
                  for cond, tol in ((1e2, 1e-4), (1e4, 1e-3), (1e6, 2e-2))]
+# the diagonal path alone at n = 1044: the first update, a late full tile
+# and the padded last tile (20 rows)
+DIAG_TILE_K = (0, 14, 15)
 # H100 SXM data sheet: HBM rate and FP32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -838,6 +841,42 @@ def fallback_evidence(a_n, rhs_n, x_lib) -> dict:
             "eigenvalue_min_f64": float(torch.linalg.eigvalsh(a64)[0])}
 
 
+def psd_synthetic(n: int, cond: float, dev):
+    """A synthetic normalised system of width n and the given condition
+    (rng(n)), as float32 (a_n, rhs_n) on dev."""
+    import torch
+    rng = np.random.default_rng(n)
+    q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    a = (q * np.logspace(0, -np.log10(cond), n)) @ q.T
+    d = np.sqrt(np.diag(a))
+    a_n = (a / d[:, None] / d[None, :]
+           + 10 * np.finfo(np.float32).eps * np.eye(n))
+    return (torch.as_tensor(a_n, dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.normal(size=n), dtype=torch.float32,
+                            device=dev))
+
+
+def diag_tile_parity(name, a32, k: int) -> float:
+    """The SPD kernel's diagonal path alone (``psd_diag_tile``) on tile
+    k + 1 of a32's factor buffer before that panel step, against its float64
+    twin on the same float32 buffer: the inverse within TOL of its max-abs,
+    exact zeros above the diagonal, the same bits on a repeat launch (each
+    launch on its own copy of the buffer). Returns the error."""
+    import torch
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    l = cc.psd_diag_tile_scratch(a32, k)
+    ref = cc.psd_diag_tile_plain(l.double(), k)
+    got = cc.psd_diag_tile(l.clone(), k)
+    err = max_abs_errors([got], [ref])[0]
+    check(bool(torch.isfinite(got).all()), f"psd_diag_tile {name}: not finite")
+    check(err <= TOL, f"psd_diag_tile {name} k={k}: {err:.3e} > {TOL}")
+    check(not bool(torch.triu(got, 1).any()),
+          f"psd_diag_tile {name} k={k}: nonzero above the diagonal")
+    same_bits(f"psd_diag_tile {name} k={k}",
+              lambda: cc.psd_diag_tile(l.clone(), k))
+    return err
+
+
 def psd_parity(name, a32, b32, tol=1e-5) -> dict:
     """The kernel and the f32 library route on one system against the
     float64 twin: relative errors of x, res2/b2, and repeat-launch bits.
@@ -878,20 +917,18 @@ def phase_parity_psd(systems) -> dict:
         out[shape] = e
     dev = torch.device("cuda", 0)
     for n, cond, tol in PSD_SYNTHETIC:
-        rng = np.random.default_rng(n)
-        q, _ = np.linalg.qr(rng.normal(size=(n, n)))
-        a = (q * np.logspace(0, -np.log10(cond), n)) @ q.T
-        d = np.sqrt(np.diag(a))
-        a_n = (a / d[:, None] / d[None, :]
-               + 10 * np.finfo(np.float32).eps * np.eye(n))
-        e = psd_parity(f"n={n} cond={cond:.0e}",
-                       torch.as_tensor(a_n, dtype=torch.float32, device=dev),
-                       torch.as_tensor(rng.normal(size=n),
-                                       dtype=torch.float32, device=dev), tol)
+        a32, b32 = psd_synthetic(n, cond, dev)
+        e = psd_parity(f"n={n} cond={cond:.0e}", a32, b32, tol)
         say("parity_psd", synthetic=f"n={n}", cond=f"{cond:.0e}",
             rel_err=f"{e['rel']:.3e}", library_rel_err=f"{e['rel_lib']:.3e}",
             res2_over_b2=f"{e['res2_over_b2']:.3e}", tol=f"{tol:.0e}",
             same_bits=True)
+        if n == max(s[0] for s in PSD_SYNTHETIC) and cond <= 1e4:
+            errs = {k: diag_tile_parity(f"n={n} cond={cond:.0e}", a32, k)
+                    for k in DIAG_TILE_K}
+            say("parity_psd", diag_tile=f"n={n}", cond=f"{cond:.0e}",
+                tol=TOL, same_bits=True,
+                **{f"minv_err_k{k}": f"{e:.3e}" for k, e in errs.items()})
     return out
 
 
@@ -908,18 +945,32 @@ def phase_time_psd(systems) -> dict:
         if n in out:
             continue
         t = {"ms": cuda_ms(lambda: cc.psd_solve_raw(a_n, rhs_n), 50),
+             "kernel_ms": kernel_ms(lambda: cc.psd_solve_raw(a_n, rhs_n)),
              "checked_ms": cuda_ms(lambda: cc.psd_solve(
                  a_n, rhs_n, fallback=_cho_refine_solve), 50),
              "plain_ms": cuda_ms(lambda: cc.psd_solve_raw_plain(a_n, rhs_n),
                                  2, warmup=1),
              "library_ms": cuda_ms(lambda: _cho_refine_solve(a_n, rhs_n),
-                                   50)}
+                                   50),
+             "library_kernel_ms": kernel_ms(
+                 lambda: _cho_refine_solve(a_n, rhs_n))}
         t["bound_ms"], t["bound_by"] = psd_bound(n)
         t["shape"] = shape
         say("time", kernel="psd_solve", n=n, shape=shape.replace(" ", "_"),
             unit="ms", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                           for k, v in t.items() if k != "shape"})
         out[n] = t
+    # the diagonal path alone (one block), on the widest system's factor
+    # buffer before the panel step
+    a_n = systems[max(systems, key=lambda s: systems[s][0].shape[0])][0]
+    n = a_n.shape[0]
+    diag = {}
+    for k in DIAG_TILE_K[:2]:
+        l = cc.psd_diag_tile_scratch(a_n, k)
+        diag[k] = kernel_ms(lambda: cc.psd_diag_tile(l, k))
+    say("time_passes", kernel="psd_diag_tile", n=n, unit="ms",
+        **{f"k{k}": f"{ms:.4f}" for k, ms in diag.items()})
+    out[n]["diag_tile_ms"] = diag
     return out
 
 
@@ -1128,9 +1179,15 @@ def main() -> int:
         "ms": widest["ms"], "plain_ms": widest["plain_ms"],
         "bound_ms": widest["bound_ms"], "bound_by": widest["bound_by"],
         "library_ms": widest["library_ms"], "checked_ms": widest["checked_ms"],
+        "kernel_ms": widest["kernel_ms"],
+        "library_kernel_ms": widest["library_kernel_ms"],
+        "diag_tile_ms": widest["diag_tile_ms"],
         "shape": f"{widest['shape']} (n={max(psd_time)})",
         "ms_by_n": {n: t["ms"] for n, t in psd_time.items()},
+        "kernel_ms_by_n": {n: t["kernel_ms"] for n, t in psd_time.items()},
         "library_ms_by_n": {n: t["library_ms"] for n, t in psd_time.items()},
+        "library_kernel_ms_by_n": {n: t["library_kernel_ms"]
+                                   for n, t in psd_time.items()},
         "solve_ms_median_ab": {s: {"library": v[2], "kernel": v[3]}
                                for s, v in ab.items()},
         "card": smi})

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "pct_mixed_gram_fused": [_P] * 7 + [_I, _I, _I, _I, _I, _I, _F, _I]
                             + [_P] * 15,
     "pct_psd_solve": [_P, _P, _I, _I] + [_P] * 9,
+    "pct_psd_diag_tile": [_P, _I, _I, _P, _P],
     "pct_fma_chain": [_P, _P, _I, _I, _P],
 }
 

@@ -32,11 +32,15 @@
 // one grid-wide sync per panel. The design keeps that chain short:
 //   - one cooperative launch, at most one block per SM, every stage
 //     separated by cooperative_groups' grid sync (no launch gaps);
-//   - 64-wide panels (17 at n = 1044), each diagonal tile factored and
-//     inverted by one block right after that block updated it, while the
-//     other blocks update the rest of the trailing matrix; within the tile
-//     one warp factors each 32-wide diagonal block in registers (shuffles,
-//     no block barrier a step) and the block does the products between;
+//   - 64-wide panels (17 at n = 1044); block 0 takes each panel step's
+//     diagonal tile alone (diag_path) while the other blocks update the
+//     rest of the trailing matrix: one round of loads (the panel and the
+//     old values together), the update in shared memory, the factor and
+//     its inverse straight from there, and only the inverse stored. Within
+//     the tile one warp runs the 64 pivots in registers (shuffles, no
+//     block barrier a step), the first 32 carrying the rows below them
+//     along, and the other warps update, invert and multiply between and
+//     beside them;
 //   - the panel below the diagonal and both substitutions go through the
 //     explicit inverses of the diagonal tiles, staged in shared memory:
 //     every step is a product that all blocks share out, and each block
@@ -66,15 +70,16 @@ namespace {
 
 constexpr int NB = 64;               // panel width
 constexpr int LDS = NB + 1;          // padded shared-memory row stride
+constexpr int LDP = NB + 4;          // float4-aligned row stride
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr float PIV_FLOOR = 1e-8f;   // the TPU kernel's _PIV_FLOOR
 constexpr int PSD_MAX_N = 2048;
-// two (64, 65) float tiles, a (32, 33) one and a line: the diagonal
-// factor's tile (then L), its inverse, L21 X11 and 1 / diag(L); the
-// trailing update uses the two tiles, the panel one, the substitutions one
-// and 384 floats, the residual 2n floats
-constexpr int SMEM_FLOATS = 2 * NB * LDS + 32 * 33 + NB;
+// the diagonal path's tile (64, 65), panel (64, 68) then inverse, L21 X11
+// (32, 33), 256 floats of the inverse's products and 1 / diag(L); the
+// trailing update uses two (64, 65) tiles, the panel rows one, the
+// substitutions one and 384 floats, the residual 2n floats
+constexpr int SMEM_FLOATS = NB * LDS + NB * LDP + 32 * 33 + 256 + NB;
 
 struct Args {
   const float *a;     // (n, n) the system, read only
@@ -100,135 +105,271 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One warp factors the 32 x 32 block at sa (stride LDS) in place with the
+// Bar.sync over the first `nt` threads' team: the whole block, or warps
+// 1..7 (named barrier 1) while warp 0 factors.
+__device__ __forceinline__ void team_sync(int nt) {
+  if (nt == THREADS)
+    __syncthreads();
+  else
+    asm volatile("bar.sync 1, %0;" ::"r"(nt) : "memory");
+}
+
+// Warp 0 factors the 32 x 32 block at w (stride LDS) in place with the
 // clamped rank-1 loop, lane i holding row i in registers (the column of
-// each step reaches the other lanes by shuffles), writes 1 / L_ii to
-// rdiag, and then writes the block's inverse to sx (stride LDS), lane c
-// substituting for column c.
-__device__ void factor_block32(float *sa, float *sx, float *rdiag) {
+// each step reaches the other lanes by shuffles), and writes 1 / L_ii to
+// rdiag. With PANEL it carries the 32 rows below the block through the
+// same steps, lane i holding row 32 + i: their L (L21 = A21 L11^-T) comes
+// out of the same 32 steps, with no inverse and no block barrier.
+template <bool PANEL>
+__device__ void factor_warp(float *w, float *rdiag) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-  float d[32], ljj = 0.f;
+  float d[32], e[32], ljj = 0.f;
 #pragma unroll
-  for (int c = 0; c < 32; ++c) d[c] = sa[lane * LDS + c];
+  for (int c = 0; c < 32; ++c) {
+    d[c] = w[lane * LDS + c];
+    if constexpr (PANEL) e[c] = w[(32 + lane) * LDS + c];
+  }
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     const float dj = __shfl_sync(full, d[j], j);
     const float piv = dj < PIV_FLOOR ? PIV_FLOOR : dj;  // NaN stays NaN
     const float r = rsqrtf(piv);
     const float li = lane >= j ? d[j] * r : 0.f;         // L[lane][j]
+    float ei = 0.f;
+    if constexpr (PANEL) ei = e[j] * r;                  // L[32 + lane][j]
 #pragma unroll
     for (int m = j + 1; m < 32; ++m) {
       const float lm = __shfl_sync(full, li, m);         // L[m][j]
       if (m <= lane) d[m] -= li * lm;
+      if constexpr (PANEL) e[m] -= ei * lm;
     }
     d[j] = li;
+    if constexpr (PANEL) e[j] = ei;
     if (lane == j) ljj = li;
   }
 #pragma unroll
-  for (int c = 0; c < 32; ++c) sa[lane * LDS + c] = d[c];
-  rdiag[lane] = __frcp_rn(ljj);
-  __syncwarp();
-  // column `lane` of L^-1: x_r = (e_r - sum_{m<r} L_rm x_m) / L_rr
-#pragma unroll
-  for (int r = 0; r < 32; ++r) {
-    float acc = r == lane ? 1.f : 0.f;
-#pragma unroll
-    for (int m = 0; m < r; ++m) acc -= sa[r * LDS + m] * d[m];
-    d[r] = acc * rdiag[r];
+  for (int c = 0; c < 32; ++c) {
+    w[lane * LDS + c] = d[c];
+    if constexpr (PANEL) w[(32 + lane) * LDS + c] = e[c];
   }
-#pragma unroll
-  for (int r = 0; r < 32; ++r) sx[r * LDS + lane] = d[r];
-  __syncwarp();
+  rdiag[lane] = __frcp_rn(ljj);
 }
 
-// Factor the diagonal tile t (rows/cols t*64 .. t*64+tb) of the factor
-// buffer with the clamped rank-1 loop, write its L back, and write its
-// inverse (identity on the padded rows). One block; `src` is the tile's
-// top-left entry (in a or in l), leading dim n. The tile splits into 32 x
-// 32 blocks: warp 0 factors and inverts the two diagonal blocks
-// (factor_block32), and the whole block forms L21 = A21 X11^T, the update
-// A22 -= L21 L21^T and X21 = -X22 (L21 X11) in between.
-__device__ void factor_diag(const Args &g, const float *src, int t,
-                            float *sm) {
-  float *sa = sm;                      // the tile, then its L
-  float *sx = sm + NB * LDS;           // its inverse
-  float *st = sm + 2 * NB * LDS;       // (32, 33) L21 X11
-  float *rdiag = st + 32 * 33;         // 1 / L_ii
+// x = l^-1 for the lower-triangular 32 x 32 block l (stride LDS) with
+// 1 / diag(l) in rdiag, by the team of threads me = 0 .. nt - 1: the four
+// 8 x 8 diagonal blocks by substitution (a thread a column), then two
+// doublings inv([[A, 0], [B, C]]) = [[A^-1, 0], [-C^-1 (B A^-1), C^-1]],
+// each two products over the team. x must hold zeros above the diagonal on
+// entry: the products run over whole rows and columns, fully unrolled (a
+// loop that starts at the diagonal waits on a shared-memory load a term),
+// and the zeros add nothing. tmp holds 256 floats. Ends on a team sync.
+__device__ void tri_inverse32(const float *l, float *x, const float *rdiag,
+                              float *tmp, int me, int nt) {
+  for (int e = me; e < 32; e += nt) {
+    const int b0 = (e >> 3) * 8, c = e & 7;
+    float acc[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) acc[r] = r == c ? 1.f : 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float xr = acc[r] * rdiag[b0 + r];
+      x[(b0 + r) * LDS + b0 + c] = xr;
+#pragma unroll
+      for (int q = r + 1; q < 8; ++q)
+        acc[q] = fmaf(-l[(b0 + q) * LDS + b0 + r], xr, acc[q]);
+    }
+  }
+  team_sync(nt);
+#pragma unroll
+  for (int s = 8; s < 32; s *= 2) {
+    const int ss = s * s, outs = 16 * s;    // 32 / (2 s) pairs of s x s
+    for (int e = me; e < outs; e += nt) {    // T = B A^-1
+      const int a0 = 2 * s * (e / ss), i = (e % ss) / s, c = e % s;
+      const float *b = l + (a0 + s + i) * LDS + a0;
+      const float *ac = x + a0 * LDS + a0 + c;
+      float acc = 0.f;
+#pragma unroll
+      for (int m = 0; m < s; ++m) acc = fmaf(b[m], ac[m * LDS], acc);
+      tmp[e] = acc;
+    }
+    team_sync(nt);
+    for (int e = me; e < outs; e += nt) {    // X21 = -C^-1 T
+      const int p = e / ss, a0 = 2 * s * p, i = (e % ss) / s, c = e % s;
+      const float *ci = x + (a0 + s + i) * LDS + a0 + s;
+      const float *tp = tmp + p * ss + c;
+      float acc = 0.f;
+#pragma unroll
+      for (int m = 0; m < s; ++m) acc = fmaf(ci[m], tp[m * s], acc);
+      x[(a0 + s + i) * LDS + a0 + c] = -acc;
+    }
+    team_sync(nt);
+  }
+}
+
+// The diagonal path of a panel step, one block: tile t's update by panel
+// k, A = W - P P^T (P: the panel's 64 columns in the tile's rows), the
+// clamped factor A = L L^T and its inverse X = L^-1, written to minv_t
+// (64 x 64, exact zeros above the diagonal). `tile` is the tile's top-left
+// entry (in a or l, leading dimension n), `panel` P's top-left entry or
+// null for no update, tb the tile's rows (the last tile is padded with the
+// identity). The updated tile never leaves shared memory, and its L is not
+// written: nothing reads a diagonal tile's L (panel_rows, the trailing
+// tiles and both substitutions read the tiles below the diagonal and the
+// inverses). The steps, each ended by a block barrier:
+//   1. every load (P, and the old values each thread updates) in flight
+//      at once; A's left half (A11, A21) = W - P P^T by all threads, float4
+//      loads of P, the sums in the order m = 0 .. 63;
+//   2. warp 0 factors A11 and carries A21 through the same 32 steps
+//      (factor_warp<true>: L11 and L21); meanwhile warps 1..4 update A22 by
+//      P;
+//   3. A22 -= L21 L21^T by all threads;
+//   4. warp 0 factors A22 (L22); meanwhile warps 1..7 invert L11
+//      (tri_inverse32) and form T = L21 X11;
+//   5. all threads invert L22 and form X21 = -X22 T; then the stores.
+// The chain of dependent steps is the 64 pivots in registers of one warp,
+// with one update, one inverse and one product between the two halves.
+__device__ void diag_path(const float *tile, const float *panel, int n,
+                          int tb, float *minv_t, float *sm) {
+  float *sw = sm;                     // (64, 65) A, then L on and below
+  float *sp = sw + NB * LDS;          // (64, 68) P, then X = L^-1 (65)
+  float *sx = sp;
+  float *st = sp + NB * LDP;          // (32, 33) T = L21 X11
+  float *stmp = st + 32 * 33;         // 256 floats for tri_inverse32
+  float *rdiag = stmp + 256;          // 1 / L_jj
   const int tid = threadIdx.x, warp = tid >> 5;
-  const int n = g.n;
-  const int t0 = t * NB;
-  const int tb = min(NB, n - t0);
-  float v[NB * NB / THREADS];
-#pragma unroll
-  for (int u = 0; u < NB * NB / THREADS; ++u) {   // all loads in flight
-    const int r = (tid + u * THREADS) / NB, c = tid % NB;
-    v[u] = (r < tb && c < tb) ? ld(src + (size_t)r * n + c)
+  // outputs of the update by P: rows ty, 32 + ty, columns tx + 8 v
+  // (A11, A21); threads 32..159 also rows 32 + uy, 48 + uy, columns 32 +
+  // tx + 8 v (A22)
+  const int ty = tid >> 3, tx = tid & 7, uy = (tid - 32) >> 3;
+  const bool upd22 = tid >= 32 && tid < 160;
+  auto old_at = [&](int r, int c) {
+    return (r < tb && c < tb) ? ld(tile + (size_t)r * n + c)
                               : (r == c ? 1.f : 0.f);
+  };
+  float pv[NB * NB / THREADS], w1[2][4], w2[2][4];
+  if (panel) {
+#pragma unroll
+    for (int u = 0; u < NB * NB / THREADS; ++u) {
+      const int r = (tid + u * THREADS) / NB, c = tid % NB;
+      pv[u] = r < tb ? ld(panel + (size_t)r * n + c) : 0.f;
+    }
   }
 #pragma unroll
-  for (int u = 0; u < NB * NB / THREADS; ++u) {
-    const int r = (tid + u * THREADS) / NB, c = tid % NB;
-    sa[r * LDS + c] = v[u];
-    sx[r * LDS + c] = 0.f;
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      w1[i][v] = old_at(ty + 32 * i, tx + 8 * v);
+      w2[i][v] = upd22 ? old_at(32 + uy + 16 * i, 32 + tx + 8 * v) : 0.f;
+    }
+  if (panel) {
+#pragma unroll
+    for (int u = 0; u < NB * NB / THREADS; ++u) {
+      const int r = (tid + u * THREADS) / NB, c = tid % NB;
+      sp[r * LDP + c] = pv[u];
+    }
   }
   __syncthreads();
-  if (warp == 0) factor_block32(sa, sx, rdiag);
+  // w -= sum_m P[r0 + 32 i][m] P[c0 + 8 v][m], m = 0 .. 63 in order
+  auto update = [&](float (&w)[2][4], int r0, int ri, int c0) {
+    float acc[2][4] = {};
+#pragma unroll 4
+    for (int m = 0; m < NB; m += 4) {
+      float4 a[2], b[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        a[i] = *reinterpret_cast<const float4 *>(sp + (r0 + ri * i) * LDP + m);
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        b[v] = *reinterpret_cast<const float4 *>(sp + (c0 + 8 * v) * LDP + m);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          acc[i][v] = fmaf(a[i].x, b[v].x, acc[i][v]);
+          acc[i][v] = fmaf(a[i].y, b[v].y, acc[i][v]);
+          acc[i][v] = fmaf(a[i].z, b[v].z, acc[i][v]);
+          acc[i][v] = fmaf(a[i].w, b[v].w, acc[i][v]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) w[i][v] -= acc[i][v];
+  };
+  if (panel) update(w1, ty, 32, tx);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      sw[(ty + 32 * i) * LDS + tx + 8 * v] = w1[i][v];
   __syncthreads();
-  // thread -> row 32 + (tid >> 3), columns (tid & 7) + 8k, k < 4
-  const int r2 = 32 + (tid >> 3), c0 = tid & 7;
-  float o[4] = {};
+  if (warp == 0) {
+    factor_warp<true>(sw, rdiag);
+  } else if (upd22) {
+    if (panel) update(w2, 32 + uy, 16, 32 + tx);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        sw[(32 + uy + 16 * i) * LDS + 32 + tx + 8 * v] = w2[i][v];
+  }
+  __syncthreads();
+  // X = 0 (P is spent): the inverse's products run over zeros above the
+  // diagonal
+  for (int e = tid; e < NB * LDS; e += THREADS) sx[e] = 0.f;
+  {  // A22 -= L21 L21^T; thread -> row 32 + ty, columns 32 + tx + 8 k
+    float o[4] = {};
 #pragma unroll 8
-  for (int m = 0; m < 32; ++m) {           // L21 = A21 X11^T
-    const float a = sa[r2 * LDS + m];
+    for (int m = 0; m < 32; ++m) {
+      const float a = sw[(32 + ty) * LDS + m];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) o[k] = fmaf(a, sx[(c0 + 8 * k) * LDS + m], o[k]);
+      for (int k = 0; k < 4; ++k)
+        o[k] = fmaf(a, sw[(32 + tx + 8 * k) * LDS + m], o[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) sw[(32 + ty) * LDS + 32 + tx + 8 * k] -= o[k];
   }
   __syncthreads();
+  if (warp == 0) {
+    factor_warp<false>(sw + 32 * LDS + 32, rdiag + 32);
+  } else {
+    tri_inverse32(sw, sx, rdiag, stmp, tid - 32, THREADS - 32);
+    // T = L21 X11: warp w (1..7) rows w - 1 + 7 u, lane c column c
+    const int c = tid & 31, w = warp - 1;
+    float acc[5] = {};
 #pragma unroll
-  for (int k = 0; k < 4; ++k) sa[r2 * LDS + c0 + 8 * k] = o[k];
-  __syncthreads();
+    for (int m = 0; m < 32; ++m) {
+      const float xm = sx[m * LDS + c];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) o[k] = 0.f;
-#pragma unroll 8
-  for (int m = 0; m < 32; ++m) {           // A22 -= L21 L21^T
-    const float a = sa[r2 * LDS + m];
+      for (int u = 0; u < 5; ++u)
+        if (w + 7 * u < 32)
+          acc[u] = fmaf(sw[(32 + w + 7 * u) * LDS + m], xm, acc[u]);
+    }
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      o[k] = fmaf(a, sa[(32 + c0 + 8 * k) * LDS + m], o[k]);
+    for (int u = 0; u < 5; ++u)
+      if (w + 7 * u < 32) st[(w + 7 * u) * 33 + c] = acc[u];
   }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) sa[r2 * LDS + 32 + c0 + 8 * k] -= o[k];
   __syncthreads();
-  if (warp == 0)
-    factor_block32(sa + 32 * LDS + 32, sx + 32 * LDS + 32, rdiag + 32);
+  tri_inverse32(sw + 32 * LDS + 32, sx + 32 * LDS + 32, rdiag + 32, stmp,
+                tid, THREADS);
+  {  // X21 = -X22 T: warp w rows w + 8 u, lane c column c
+    const int c = tid & 31;
+    float acc[4] = {};
 #pragma unroll
-  for (int k = 0; k < 4; ++k) o[k] = 0.f;
-#pragma unroll 8
-  for (int m = 0; m < 32; ++m) {           // T = L21 X11 (while warp 0 works)
-    const float a = sa[r2 * LDS + m];
+    for (int m = 0; m < 32; ++m) {
+      const float tm = st[m * 33 + c];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) o[k] = fmaf(a, sx[m * LDS + c0 + 8 * k], o[k]);
+      for (int u = 0; u < 4; ++u)
+        acc[u] = fmaf(sx[(32 + warp + 8 * u) * LDS + 32 + m], tm, acc[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) sx[(32 + warp + 8 * u) * LDS + c] = -acc[u];
   }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) st[(r2 - 32) * 33 + c0 + 8 * k] = o[k];
   __syncthreads();
-#pragma unroll
-  for (int k = 0; k < 4; ++k) o[k] = 0.f;
-#pragma unroll 8
-  for (int m = 0; m < 32; ++m) {           // X21 = -X22 T
-    const float a = sx[r2 * LDS + 32 + m];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) o[k] = fmaf(a, st[m * 33 + c0 + 8 * k], o[k]);
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) sx[r2 * LDS + c0 + 8 * k] = -o[k];
-  __syncthreads();
-  float *mt = g.minv + (size_t)t * NB * NB;
   for (int e = tid; e < NB * NB; e += THREADS) {
     const int r = e / NB, c = e % NB;
-    mt[e] = sx[r * LDS + c];
-    if (r < tb && c <= r) g.l[(size_t)(t0 + r) * n + t0 + c] = sa[r * LDS + c];
+    minv_t[e] = c <= r ? sx[r * LDS + c] : 0.f;
   }
   __syncthreads();
 }
@@ -495,27 +636,34 @@ __global__ void __launch_bounds__(THREADS, 1) psd_solve_kernel(Args g) {
   }
   for (int i = blockIdx.x * THREADS + tid; i < n; i += gridDim.x * THREADS)
     g.w[i] = g.b[i];
-  if (blockIdx.x == 0) factor_diag(g, g.a, 0, sm);
+  if (blockIdx.x == 0) diag_path(g.a, nullptr, n, min(NB, n), g.minv, sm);
   grid.sync();
   // factorisation: per panel k, the rows below it, then the trailing
-  // update; block 0 takes the next diagonal tile alone and factors it
+  // update. Trailing tile t (row-major over the lower triangle) is block
+  // 1 + (t - 1) % (grid - 1)'s, and block 0 takes the diagonal tile t = 0
+  // alone, updates, factors and inverts it (all tiles are block 0's on a
+  // grid of one). Each block walks only its own tiles: a walk over all of
+  // them, with an integer remainder a tile, cost about 340 cycles a tile
+  // skipped, 46,000 at the first panel of n = 1044.
+  const int step = gridDim.x > 1 ? gridDim.x - 1 : 1;
   for (int k = 0; k + 1 < p; ++k) {
     panel_rows(g, k, sm);
     grid.sync();
     const int m = p - 1 - k;                 // trailing tile rows
     const int n_tiles = m * (m + 1) / 2;
-    const int others = gridDim.x > 1 ? gridDim.x - 1 : 1;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int owner = (t == 0 || gridDim.x == 1) ? 0 : 1 + (t - 1) % others;
-      if (owner != (int)blockIdx.x) continue;
-      // t -> (ti, tj), k < tj <= ti, row-major over the lower triangle
+    int t = blockIdx.x;
+    if (blockIdx.x == 0) {
+      const int t0 = (k + 1) * NB;
+      diag_path(g.l + (size_t)t0 * n + t0, g.l + (size_t)t0 * n + k * NB, n,
+                min(NB, n - t0), g.minv + (size_t)(k + 1) * NB * NB, sm);
+      t = gridDim.x > 1 ? n_tiles : 1;
+    }
+    for (; t < n_tiles; t += step) {
+      // t -> (ti, tj), k < tj <= ti
       int ti = 0;
       while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
       const int tj = t - ti * (ti + 1) / 2;
       trailing_tile(g, k, k + 1 + ti, k + 1 + tj, sm);
-      if (t == 0)
-        factor_diag(g, g.l + (size_t)(k + 1) * NB * n + (k + 1) * NB, k + 1,
-                    sm);
     }
     grid.sync();
   }
@@ -534,6 +682,19 @@ __global__ void __launch_bounds__(THREADS, 1) psd_solve_kernel(Args g) {
       g.res[1] = (float)b2;
     }
   }
+}
+
+// The diagonal path alone on tile k + 1 of l (its update by panel k; k =
+// -1: tile 0 as it stands), one ordinary launch of one block: the device
+// function psd_solve_kernel runs, for timing it and holding its inverse
+// against a float64 one.
+__global__ void __launch_bounds__(THREADS, 1)
+    psd_diag_tile_kernel(const float *l, int n, int k, float *minv) {
+  extern __shared__ double smd[];
+  const int t0 = (k + 1) * NB;
+  diag_path(l + (size_t)t0 * n + t0,
+            k < 0 ? nullptr : l + (size_t)t0 * n + k * NB, n,
+            min(NB, n - t0), minv, reinterpret_cast<float *>(smd));
 }
 
 }  // namespace
@@ -574,6 +735,18 @@ int pct_psd_solve(const float *a, const float *b, int n, int refine,
                                     dim3(grid_of[dev]), dim3(THREADS), params,
                                     smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// l (n, n): the lower tiles of a system as they stand before panel k + 1
+// (tile k + 1 and the panel k's rows beside it; read only) -> minv (64,
+// 64), the inverse of tile k + 1's factor. -1 <= k, (k + 1) * 64 < n.
+int pct_psd_diag_tile(const float *l, int n, int k, float *minv,
+                      void *stream) {
+  if (n < 1 || n > PSD_MAX_N || k < -1 || (k + 1) * NB >= n)
+    return (int)cudaErrorInvalidValue;
+  psd_diag_tile_kernel<<<1, THREADS, SMEM_FLOATS * sizeof(float),
+                         (cudaStream_t)stream>>>(l, n, k, minv);
   return (int)cudaGetLastError();
 }
 

@@ -22,6 +22,11 @@ otherwise sit at, above the fallback threshold; see ``csrc/psd_solve.cu``).
 - ``use_cuda_psd`` is the dispatch rule of ``use_pallas_psd``: opt-in with
   ``PYCAMSET_PALLAS_CHOL=1``, off under ``PYCAMSET_NO_PALLAS``, on a CUDA
   device, for float32 and n <= MAX_N only.
+- ``psd_diag_tile`` is a debug entry that the solve never calls: the
+  kernel's diagonal path alone (one diagonal tile's update by the panel
+  beside it, its factor and the factor's inverse) in an ordinary launch of
+  one block, for timing that path and holding its inverse against float64
+  (``psd_diag_tile_plain``; ``psd_diag_tile_scratch`` builds its input).
 """
 from __future__ import annotations
 
@@ -35,18 +40,25 @@ PIV_FLOOR = 1e-8      # pivot clamp of the rank-1 loop (normalised diag ~1)
 RES_TOL = 1e-8        # fallback when res2 > RES_TOL * b2 (|r| > 1e-4 |b|)
 
 
+def clamped_cholesky(a: torch.Tensor) -> torch.Tensor:
+    """The kernel's factor of the lower triangle of a, in a's dtype: the
+    rank-1 loop with each pivot clamped at PIV_FLOOR."""
+    n = a.shape[0]
+    chol = torch.zeros_like(a)
+    for j in range(n):
+        col = a[j:, j] - chol[j:, :j] @ chol[j, :j]
+        piv = torch.clamp(col[0], min=PIV_FLOOR)
+        chol[j:, j] = col / torch.sqrt(piv)
+    return chol
+
+
 def psd_solve_raw_plain(a_n: torch.Tensor, rhs_n: torch.Tensor,
                         refine: int = 2):
     """Plain twin of the kernel: (x, res2, b2) in the input's dtype. The
     factor and the substitutions run in the input's dtype; the refinement
     carries x and forms its residuals in float64, and res2 is the residual
     of that carried x (the returned x is it, rounded)."""
-    n = a_n.shape[0]
-    chol = torch.zeros_like(a_n)
-    for j in range(n):
-        col = a_n[j:, j] - chol[j:, :j] @ chol[j, :j]
-        piv = torch.clamp(col[0], min=PIV_FLOOR)
-        chol[j:, j] = col / torch.sqrt(piv)
+    chol = clamped_cholesky(a_n)
 
     def solve(rhs):
         y = torch.linalg.solve_triangular(chol, rhs[:, None], upper=False)
@@ -109,6 +121,79 @@ def psd_solve_raw(a_n: torch.Tensor, rhs_n: torch.Tensor, refine: int = 2):
 
 
 psd_solve_raw.launches = 0
+
+
+def _tile_bounds(n: int, k: int) -> tuple[int, int]:
+    """First row and row count of tile k + 1, checked against n."""
+    t0 = (k + 1) * BLK
+    if not (k >= -1 and t0 < n):
+        raise ValueError(f"k = {k}: tile k + 1 is not a tile of n = {n}")
+    return t0, min(BLK, n - t0)
+
+
+def psd_diag_tile_scratch(a_n: torch.Tensor, k: int) -> torch.Tensor:
+    """The kernel's factor buffer as it stands before panel step k + 1,
+    from the float64 factor of a_n, in a_n's dtype: tile k + 1 updated by
+    the panels before k, the panel k's rows beside it holding their L, the
+    other entries a_n's."""
+    t0, tb = _tile_bounds(a_n.shape[0], k)
+    a64 = a_n.double()
+    l = a64.clone()
+    if k >= 0:
+        chol = clamped_cholesky(a64)
+        rows = slice(t0, t0 + tb)
+        done = chol[rows, :k * BLK]
+        l[rows, rows] = a64[rows, rows] - done @ done.T
+        l[rows, k * BLK:t0] = chol[rows, k * BLK:t0]
+    return l.to(a_n.dtype).contiguous()
+
+
+def psd_diag_tile_plain(l: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain twin of the diagonal path, in l's dtype: tile k + 1 of l
+    (lower triangle) less P P^T, P the panel k's rows beside it (none for
+    k = -1), padded to 64 with the identity, factored by the clamped loop;
+    returns the factor's inverse (64, 64)."""
+    t0, tb = _tile_bounds(l.shape[0], k)
+    rows = slice(t0, t0 + tb)
+    tile = l[rows, rows]
+    if k >= 0:
+        p = l[rows, k * BLK:t0]
+        tile = tile - p @ p.T
+    a = torch.eye(BLK, dtype=l.dtype, device=l.device)
+    a[:tb, :tb] = tile
+    return torch.linalg.solve_triangular(clamped_cholesky(a), torch.eye(
+        BLK, dtype=l.dtype, device=l.device), upper=False)
+
+
+def psd_diag_tile(l: torch.Tensor, k: int) -> torch.Tensor:
+    """The SPD kernel's diagonal path alone on tile k + 1 of the factor
+    buffer l (``psd_diag_tile_scratch``): the inverse (64, 64) of the tile's
+    factor after its update by panel k, by the kernel's own device function
+    in one ordinary launch of one block. A debug entry: the solve never
+    calls it. Counts its launches in ``psd_diag_tile.launches``."""
+    if l.device.type == "cpu":
+        return psd_diag_tile_plain(l, k)
+    if l.dtype != torch.float32:
+        raise TypeError(f"l is {l.dtype}; the CUDA kernel takes torch.float32")
+    if l.dim() != 2 or l.shape[0] != l.shape[1] or not l.is_contiguous():
+        raise ValueError(f"l {tuple(l.shape)} is not a contiguous (n, n)")
+    n = l.shape[0]
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"n = {n} is outside the kernel's range 1..{MAX_N}")
+    _tile_bounds(n, k)
+    from pycamset_tpu_torch._build import load
+    with torch.cuda.device(l.device):
+        out = torch.empty(BLK, BLK, dtype=torch.float32, device=l.device)
+        rc = load().lib.pct_psd_diag_tile(
+            l.data_ptr(), n, int(k), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"psd_diag_tile launch failed: cudaError {rc}")
+    psd_diag_tile.launches += 1
+    return out
+
+
+psd_diag_tile.launches = 0
 
 
 def residual_ok(res2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:

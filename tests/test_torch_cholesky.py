@@ -116,6 +116,49 @@ def test_cpu_wrapper_launches_nothing():
     assert cc.psd_solve_raw.launches == before
 
 
+# The diagonal-path entry's plain twin and its input: on the factor buffer
+# before panel step k + 1 (psd_diag_tile_scratch), the inverse of tile k +
+# 1's factor, against numpy's Cholesky factor of the whole system in
+# float64 (1e-9 of the inverse's max-abs: condition <= 1e4 times float64
+# rounding). n = 200: three full tiles and a last one of 8 rows, padded
+# with the identity.
+@pytest.mark.parametrize("k", [-1, 0, 1, 2])
+@pytest.mark.parametrize("cond", [1e2, 1e4])
+def test_diag_tile_twin_inverts_the_factor_tile(k, cond):
+    n, t0 = 200, (k + 1) * cc.BLK
+    a_n, _ = _normalized_spd(n, cond)
+    l = cc.psd_diag_tile_scratch(torch.tensor(a_n), k)
+    before = cc.psd_diag_tile.launches
+    got = cc.psd_diag_tile(l, k).numpy()
+    assert cc.psd_diag_tile.launches == before
+    tb = min(cc.BLK, n - t0)
+    ref = np.eye(cc.BLK)
+    ref[:tb, :tb] = np.linalg.inv(
+        np.linalg.cholesky(a_n)[t0:t0 + tb, t0:t0 + tb])
+    assert np.abs(got - ref).max() <= 1e-9 * np.abs(ref).max()
+    assert not np.triu(got, 1).any()
+
+
+def test_diag_tile_float32_twin_is_within_the_card_tests_bound():
+    """The float32 twin on the float32 buffer against the float64 twin on
+    the same buffer, at the card test's 1e-4 of the max-abs."""
+    a_n, _ = _normalized_spd(200, 1e4)
+    for k in (-1, 0, 2):
+        l = cc.psd_diag_tile_scratch(torch.tensor(a_n, dtype=torch.float32),
+                                     k)
+        got = cc.psd_diag_tile(l, k)
+        ref = cc.psd_diag_tile_plain(l.double(), k)
+        assert got.dtype == torch.float32
+        assert (got.double() - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("k", [-2, 3])
+def test_diag_tile_rejects_a_tile_outside_the_system(k):
+    l = torch.eye(200)
+    with pytest.raises(ValueError):
+        cc.psd_diag_tile(l, k)
+
+
 def test_dispatch_rule(monkeypatch):
     """Opt-in only (as use_pallas_psd): CUDA, float32, n <= MAX_N; the
     reference's two variables, read at call time. No card is needed: the

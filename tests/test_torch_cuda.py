@@ -415,9 +415,12 @@ def _normalized_spd(n, cond, seed=0):
 
 # The one-launch SPD solve against its float64 twin: float32 factor + 2
 # refinement passes; the error bound is the JAX kernel test's at the same
-# condition (1e-4 at 1e2, 1e-3 at 1e4, 2e-2 at 1e6).
+# condition (1e-4 at 1e2, 1e-3 at 1e4, 2e-2 at 1e6). Widths: the tile edges
+# (one entry; one short of, at, and one past a 64-wide tile and two) and
+# the seven main-path solves' widths.
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [240, 852, 1044])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 128, 129,
+                               240, 840, 852, 960, 1032, 1044])
 @pytest.mark.parametrize("cond,tol", [(1e2, 1e-4), (1e4, 1e-3)])
 def test_psd_solve_matches_float64_twin(card, n, cond, tol):
     from pycamset_tpu_torch.ops import cuda_cholesky as cc
@@ -434,10 +437,37 @@ def test_psd_solve_matches_float64_twin(card, n, cond, tol):
     assert abs(float(b2) / float(b2_64) - 1) < 1e-6
 
 
+# The kernel's diagonal path alone (one block): the inverse of a diagonal
+# tile's factor after its update by the panel beside it, against the
+# float64 twin on the same float32 factor buffer (the refinement of a whole
+# solve partly hides an inexact factor in x and res2). 1e-4 of its max-abs:
+# float32 sums of 64 + 64 terms, inverted through a tile of condition up to
+# sqrt(cond). k = 14: a full tile; k = 15: the last tile of n = 1044, 20
+# rows padded with the identity; k = -1: tile 0 with no update.
 @pytest.mark.cuda
-def test_psd_solve_is_reproducible(card):
+@pytest.mark.parametrize("n,k", [(1044, -1), (1044, 14), (1044, 15)])
+@pytest.mark.parametrize("cond", [1e2, 1e4])
+def test_psd_diag_tile_matches_float64_twin(card, n, k, cond):
     from pycamset_tpu_torch.ops import cuda_cholesky as cc
-    a_n, rhs = _normalized_spd(1044, 1e3)
+    a_n, _ = _normalized_spd(n, cond)
+    l = cc.psd_diag_tile_scratch(
+        torch.tensor(a_n, dtype=torch.float32, device=card), k)
+    before = cc.psd_diag_tile.launches
+    got = cc.psd_diag_tile(l, k)
+    assert cc.psd_diag_tile.launches == before + 1
+    ref = cc.psd_diag_tile_plain(l.double(), k)
+    assert bool(torch.isfinite(got).all())
+    err = float((got.double() - ref).abs().max() / ref.abs().max())
+    assert err <= TOL, (n, k, cond, err)
+    assert not bool(torch.triu(got, 1).any())
+    assert torch.equal(cc.psd_diag_tile(l, k), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 1044])
+def test_psd_solve_is_reproducible(card, n):
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    a_n, rhs = _normalized_spd(n, 1e3)
     a32 = torch.tensor(a_n, dtype=torch.float32, device=card)
     b32 = torch.tensor(rhs, dtype=torch.float32, device=card)
     first, again = cc.psd_solve_raw(a32, b32), cc.psd_solve_raw(a32, b32)
@@ -461,6 +491,10 @@ def test_psd_solve_raises_instead_of_falling_back(card):
     with pytest.raises(ValueError):
         cc.psd_solve_raw(torch.eye(n, device=card),
                          torch.ones(n, device=card))
+    with pytest.raises(TypeError):
+        cc.psd_diag_tile(a32.double(), 0)
+    with pytest.raises(ValueError):
+        cc.psd_diag_tile(a32, 0)              # tile 1 is past n = 64
 
 
 @pytest.mark.cuda

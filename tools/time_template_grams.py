@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Time builds of a family of gram kernels side by side on a card.
+"""Time builds of a family of kernels side by side on a card.
 
-    python3 tools/time_template_grams.py [--family template|mixed|selfcal] \\
-        [--time-only] [SOURCE.cu[:NVCC FLAGS]] ...
+    python3 tools/time_template_grams.py \\
+        [--family template|mixed|selfcal|psd] [--time-only] \\
+        [SOURCE.cu[:NVCC FLAGS]] ...
 
 ``--family template`` (the default): versions of
 ``pycamset_tpu_torch/csrc/template_grams.cu`` (Kernels A and B);
 ``--family mixed``: versions of ``pycamset_tpu_torch/csrc/mixed_grams.cu``
 (Kernels E and F); ``--family selfcal``: versions of whichever source
 exports Kernels C and D (``pct_selfcal_gram{,_fused}``: the checkout's
-``mixed_grams.cu``, an older ``selfcal_grams.cu``). Each argument is a
+``mixed_grams.cu``, an older ``selfcal_grams.cu``); ``--family psd``:
+versions of ``pycamset_tpu_torch/csrc/psd_solve.cu`` (the SPD kernel and,
+where a version exports it, its diagonal path alone,
+``pct_psd_diag_tile``; a version without it is timed whole only). Each
+argument is a
 version (default: the checkout's own), optionally with extra nvcc flags
 after a colon, for example
 ``old/mixed_grams.cu`` or ``csrc/mixed_grams.cu:-DSOME_SWITCH``. Every
@@ -31,7 +36,11 @@ torch.profiler (``chip_smoke.kernel_ms``, 20 launches):
 - selfcal (self-cal 16 x 100 and 64 x 12): C at chunks of 4 to 34 images,
   D at chunks of 2 to 12 blocks, each also split
   into its first pass and its reduction (the scratch sizes did not change
-  with the redesign).
+  with the redesign);
+- psd (no problem: synthetic systems): ``chip_smoke.psd_parity`` on
+  ``PSD_SYNTHETIC`` and ``chip_smoke.diag_tile_parity`` instead of the gram
+  checks; per width the kernel and the library call ``_cho_refine_solve``
+  by device time, and the diagonal path alone at n = 1044.
 
 Prints the card's name and power limit first, the ptxas registers and
 spills of each build, and one ``[variant_time]`` line per version and
@@ -61,7 +70,13 @@ FAMILIES = {
     "selfcal": ("mixed_grams.cu",
                 ("pct_selfcal_gram", "pct_selfcal_gram_fused"),
                 ("selfcal 16x100", "selfcal 64x12")),
+    "psd": ("psd_solve.cu", ("pct_psd_solve", "pct_psd_diag_tile"), ()),
 }
+# the psd family: the seven solves' widths (840 twice), the diagonal path's
+# panel steps at n = 1044, and the condition of the timed systems
+PSD_WIDTHS = (240, 840, 852, 960, 1032, 1044)
+PSD_DIAG_K = (0, 14)
+PSD_TIME_COND = 1e4
 
 
 def build(nvcc: str, out: Path, i: int, spec: str):
@@ -91,15 +106,18 @@ def build_all(specs: list[str]) -> list:
                              enumerate(specs)))
 
 
-def use_library(so: Path, entries) -> None:
+def use_library(so: Path, entries) -> set:
     """Point the kernel wrappers at one version's library: they reach the
-    kernels through ``_build.load().lib``."""
+    kernels through ``_build.load().lib``. Returns the entries it has (an
+    older version may lack one)."""
     from pycamset_tpu_torch import _build as bld
     lib = ctypes.CDLL(str(so))
-    for name in entries:
+    found = {name for name in entries if hasattr(lib, name)}
+    for name in found:
         getattr(lib, name).argtypes = bld._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     bld.load = lambda: types.SimpleNamespace(lib=lib)
+    return found
 
 
 def problem(shape: str, dev):
@@ -224,6 +242,47 @@ def time_selfcal(cs, prob, shape, time_only):
     return line
 
 
+def time_psd(cs, found: set, time_only: bool) -> dict:
+    """One version of ``psd_solve.cu``: the smoke's ``psd_parity`` (with
+    its bit check) on ``PSD_SYNTHETIC``, and ``diag_tile_parity`` where the
+    version has the diagonal-path entry; then, per width, the device time of
+    ``psd_solve_raw`` and of the library call ``_cho_refine_solve`` on a
+    synthetic system, and at n = 1044 that of ``psd_diag_tile`` for the
+    panel steps ``PSD_DIAG_K``. (An entry that updates the buffer in place,
+    as one built around an older kernel's own pieces may, is timed on the
+    buffer it changes: the same instructions on other values.)
+    {width: {name: ms}}."""
+    import torch
+
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    from pycamset_tpu_torch.optim.structured import _cho_refine_solve
+    dev = torch.device("cuda", 0)
+    diag = "pct_psd_diag_tile" in found
+
+    def check_version():
+        for n, cond, tol in cs.PSD_SYNTHETIC:
+            a32, b32 = cs.psd_synthetic(n, cond, dev)
+            cs.psd_parity(f"n={n} cond={cond:.0e}", a32, b32, tol)
+            if diag and n == max(PSD_WIDTHS) and cond <= 1e4:
+                for k in cs.DIAG_TILE_K:
+                    cs.diag_tile_parity(f"n={n} cond={cond:.0e}", a32, k)
+
+    checked(check_version, time_only, "psd")
+    lines = {}
+    for n in PSD_WIDTHS:
+        a32, b32 = cs.psd_synthetic(n, PSD_TIME_COND, dev)
+        line = {"kernel_ms": cs.kernel_ms(lambda: cc.psd_solve_raw(a32, b32)),
+                "library_ms": cs.kernel_ms(
+                    lambda: _cho_refine_solve(a32, b32))}
+        if diag and n == max(PSD_WIDTHS):
+            for k in PSD_DIAG_K:
+                l = cc.psd_diag_tile_scratch(a32, k)
+                line[f"diag_tile_k{k}_ms"] = cs.kernel_ms(
+                    lambda: cc.psd_diag_tile(l, k))
+        lines[f"n={n}"] = line
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -248,16 +307,18 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     probs = {shape: problem(shape, dev) for shape in shapes}
     timer = {"template": time_template, "mixed": time_mixed,
-             "selfcal": time_selfcal}[family]
+             "selfcal": time_selfcal}.get(family)
     for spec, (so, ptxas) in zip(specs, built):
         print(f"=== {spec}", flush=True)
         for ln in ptxas.splitlines():
             if any(w in ln for w in ("Compiling entry", "registers",
                                      "spill")):
                 print(f"  ptxas: {ln.strip()}", flush=True)
-        use_library(so, entries)
-        for shape, prob in probs.items():
-            line = timer(cs, prob, shape, time_only)
+        found = use_library(so, entries)
+        lines = (time_psd(cs, found, time_only) if family == "psd" else
+                 {shape: timer(cs, prob, shape, time_only)
+                  for shape, prob in probs.items()})
+        for shape, line in lines.items():
             cs.say("variant_time", source=spec.replace(" ", "_"),
                    shape=shape.replace(" ", "_"),
                    **{k: f"{v:.4f}" for k, v in line.items()})
