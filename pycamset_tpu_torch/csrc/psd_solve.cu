@@ -455,7 +455,11 @@ __device__ void trailing_tile(const Args &g, int k, int ti, int tj,
 }
 
 // l[r, panel k] = a_r Minv_k^T for the rows r below the diagonal tile k;
-// one warp per row, rows shared out over the grid.
+// one warp per row, rows shared out over the grid. Each of a lane's two
+// entries is a product over all 64 columns, unrolled, in two sums added
+// last: Minv_k holds exact zeros above its diagonal (diag_path writes
+// them), so the terms past the diagonal add nothing, and the shared-memory
+// loads pipeline instead of waiting a term each.
 __device__ void panel_rows(const Args &g, int k, float *sm) {
   float *sminv = sm;                  // (64, 65) Minv_k
   float *srow = sm + NB * LDS;        // one 64-row per warp
@@ -473,9 +477,14 @@ __device__ void panel_rows(const Args &g, int k, float *sm) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = lane + 32 * h;
-      float s = 0.f;
-      for (int m = 0; m <= c; ++m) s = fmaf(row[m], sminv[c * LDS + m], s);
-      lr[c] = s;
+      const float *mc = sminv + c * LDS;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int m = 0; m < NB; m += 2) {
+        s0 = fmaf(row[m], mc[m], s0);
+        s1 = fmaf(row[m + 1], mc[m + 1], s1);
+      }
+      lr[c] = s0 + s1;
     }
     __syncwarp();
   }
