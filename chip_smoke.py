@@ -27,7 +27,9 @@ one-launch SPD kernel (``csrc/psd_solve.cu``) on the main path, opted in
 with ``PYCAMSET_PALLAS_CHOL=1`` as in the JAX package; that kernel is held
 against its float64 twin on the seven solves' own reduced systems and on
 synthetic ones, and each solve runs with the opt-in off and on (an A/B
-against the library route, ``cholesky_ex``). The FP32 FMA probe
+against the library route, ``cholesky_ex``); its diagonal path alone
+(``psd_diag_tile``, one block) is held against float64 and timed at
+n = 1044. The FP32 FMA probe
 (``csrc/peak.cu``) measures the card's FP32 rate beside the published one.
 
 Every phase prints one line; any failure raises, so the script exits

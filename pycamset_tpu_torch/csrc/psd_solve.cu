@@ -34,13 +34,15 @@
 //     separated by cooperative_groups' grid sync (no launch gaps);
 //   - 64-wide panels (17 at n = 1044); block 0 takes each panel step's
 //     diagonal tile alone (diag_path) while the other blocks update the
-//     rest of the trailing matrix: one round of loads (the panel and the
-//     old values together), the update in shared memory, the factor and
-//     its inverse straight from there, and only the inverse stored. Within
-//     the tile one warp runs the 64 pivots in registers (shuffles, no
-//     block barrier a step), the first 32 carrying the rows below them
-//     along, and the other warps update, invert and multiply between and
-//     beside them;
+//     rest of the trailing matrix, each walking only its own tiles: one
+//     round of loads (the panel and the old values together), the update
+//     in shared memory, the factor and its inverse straight from there,
+//     and only the inverse stored. Within the tile one warp runs the 64
+//     pivots in registers (shuffles, no block barrier a step), the first 32
+//     carrying the rows below them along, and the other warps update,
+//     invert and multiply between and beside them. This path sets the pace
+//     of each trailing step (about 29,000 cycles a tile on an H100, the
+//     pivots half of it), the other blocks' tiles 8,000-19,000;
 //   - the panel below the diagonal and both substitutions go through the
 //     explicit inverses of the diagonal tiles, staged in shared memory:
 //     every step is a product that all blocks share out, and each block
@@ -105,8 +107,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Bar.sync over the first `nt` threads' team: the whole block, or warps
-// 1..7 (named barrier 1) while warp 0 factors.
+// A barrier over a team of nt threads: the whole block (nt = THREADS), or
+// warps 1..7 (named barrier 1, nt = THREADS - 32) while warp 0 factors.
 __device__ __forceinline__ void team_sync(int nt) {
   if (nt == THREADS)
     __syncthreads();
@@ -651,9 +653,9 @@ __global__ void __launch_bounds__(THREADS, 1) psd_solve_kernel(Args g) {
   // update. Trailing tile t (row-major over the lower triangle) is block
   // 1 + (t - 1) % (grid - 1)'s, and block 0 takes the diagonal tile t = 0
   // alone, updates, factors and inverts it (all tiles are block 0's on a
-  // grid of one). Each block walks only its own tiles: a walk over all of
-  // them, with an integer remainder a tile, cost about 340 cycles a tile
-  // skipped, 46,000 at the first panel of n = 1044.
+  // grid of one). Each block steps through its own tiles only: testing
+  // every tile's owner costs about 340 cycles a tile, 46,000 at the first
+  // panel of n = 1044, longer than the diagonal path.
   const int step = gridDim.x > 1 ? gridDim.x - 1 : 1;
   for (int k = 0; k + 1 < p; ++k) {
     panel_rows(g, k, sm);
