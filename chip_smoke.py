@@ -903,6 +903,21 @@ def psd_parity(name, a32, b32, tol=1e-5) -> dict:
             "rel_lib": rel_lib, "res2_over_b2": ratio}
 
 
+def psd_synthetic_parities(dev, diag_tile: bool = True):
+    """``psd_parity`` on each ``PSD_SYNTHETIC`` system and, with
+    ``diag_tile``, ``diag_tile_parity`` at ``DIAG_TILE_K`` on the widest
+    ones up to condition 1e4; yields (n, cond, tol, the solve's errors,
+    {k: the inverse's error} or None)."""
+    widest = max(n for n, _, _ in PSD_SYNTHETIC)
+    for n, cond, tol in PSD_SYNTHETIC:
+        a32, b32 = psd_synthetic(n, cond, dev)
+        e = psd_parity(f"n={n} cond={cond:.0e}", a32, b32, tol)
+        diag = ({k: diag_tile_parity(f"n={n} cond={cond:.0e}", a32, k)
+                 for k in DIAG_TILE_K}
+                if diag_tile and n == widest and cond <= 1e4 else None)
+        yield n, cond, tol, e, diag
+
+
 def phase_parity_psd(systems) -> dict:
     """The SPD kernel vs its float64 twin on the seven solves' first
     reduced systems (relative error <= 2x the f32 library route's, or
@@ -917,20 +932,16 @@ def phase_parity_psd(systems) -> dict:
             rel_err=f"{e['rel']:.3e}", library_rel_err=f"{e['rel_lib']:.3e}",
             res2_over_b2=f"{e['res2_over_b2']:.3e}", same_bits=True)
         out[shape] = e
-    dev = torch.device("cuda", 0)
-    for n, cond, tol in PSD_SYNTHETIC:
-        a32, b32 = psd_synthetic(n, cond, dev)
-        e = psd_parity(f"n={n} cond={cond:.0e}", a32, b32, tol)
+    for n, cond, tol, e, diag in psd_synthetic_parities(
+            torch.device("cuda", 0)):
         say("parity_psd", synthetic=f"n={n}", cond=f"{cond:.0e}",
             rel_err=f"{e['rel']:.3e}", library_rel_err=f"{e['rel_lib']:.3e}",
             res2_over_b2=f"{e['res2_over_b2']:.3e}", tol=f"{tol:.0e}",
             same_bits=True)
-        if n == max(s[0] for s in PSD_SYNTHETIC) and cond <= 1e4:
-            errs = {k: diag_tile_parity(f"n={n} cond={cond:.0e}", a32, k)
-                    for k in DIAG_TILE_K}
+        if diag:
             say("parity_psd", diag_tile=f"n={n}", cond=f"{cond:.0e}",
                 tol=TOL, same_bits=True,
-                **{f"minv_err_k{k}": f"{e:.3e}" for k, e in errs.items()})
+                **{f"minv_err_k{k}": f"{e:.3e}" for k, e in diag.items()})
     return out
 
 

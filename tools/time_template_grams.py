@@ -243,9 +243,9 @@ def time_selfcal(cs, prob, shape, time_only):
 
 
 def time_psd(cs, found: set, time_only: bool) -> dict:
-    """One version of ``psd_solve.cu``: the smoke's ``psd_parity`` (with
-    its bit check) on ``PSD_SYNTHETIC``, and ``diag_tile_parity`` where the
-    version has the diagonal-path entry; then, per width, the device time of
+    """One version of ``psd_solve.cu``: the smoke's parity and bit checks
+    on ``PSD_SYNTHETIC`` (``psd_synthetic_parities``; the diagonal path's
+    where the version has its entry); then, per width, the device time of
     ``psd_solve_raw`` and of the library call ``_cho_refine_solve`` on a
     synthetic system, and at n = 1044 that of ``psd_diag_tile`` for the
     panel steps ``PSD_DIAG_K``. (An entry that updates the buffer in place,
@@ -258,16 +258,8 @@ def time_psd(cs, found: set, time_only: bool) -> dict:
     from pycamset_tpu_torch.optim.structured import _cho_refine_solve
     dev = torch.device("cuda", 0)
     diag = "pct_psd_diag_tile" in found
-
-    def check_version():
-        for n, cond, tol in cs.PSD_SYNTHETIC:
-            a32, b32 = cs.psd_synthetic(n, cond, dev)
-            cs.psd_parity(f"n={n} cond={cond:.0e}", a32, b32, tol)
-            if diag and n == max(PSD_WIDTHS) and cond <= 1e4:
-                for k in cs.DIAG_TILE_K:
-                    cs.diag_tile_parity(f"n={n} cond={cond:.0e}", a32, k)
-
-    checked(check_version, time_only, "psd")
+    checked(lambda: list(cs.psd_synthetic_parities(dev, diag)), time_only,
+            "psd")
     lines = {}
     for n in PSD_WIDTHS:
         a32, b32 = cs.psd_synthetic(n, PSD_TIME_COND, dev)
