@@ -8,14 +8,17 @@ and 64 x 400, the self-calibration problem (``bench.py::selfcal_problem``)
 at 16 x 100 and 64 x 12, the mixed multi-target problem
 (``bench.py::mixed_problem``) at 16 x 100 and 64 x 12 and the grouped
 multi-target template problem (``problems.grouped_problem``) at 16 x 100
-with the port, twice: with the dense reduced solve on the library route
+with the port: with the dense reduced solve on the library route
 (``cholesky_ex``, the default) and opted in to the one-launch SPD kernel
-(``PYCAMSET_PALLAS_CHOL=1``). Each: one warm-up, five solves timed with CUDA
-events, then one more under ``torch.profiler``. Prints per shape and route:
-LM iterations, the median
+(``PYCAMSET_PALLAS_CHOL=1``), each in two modes: ``graph`` (the default,
+each LM step one replay of the problem's CUDA graph) and ``host`` (the
+uncaptured step, ``graph=False``). Each: one warm-up, five solves timed
+with CUDA events, then one more under ``torch.profiler``. Prints per shape,
+route and mode: LM iterations, the median
 solve time, the profiled solve's wall time, the device's busy time in it
 (the sum of its device kernels, copies and fills) and the idle share that
-leaves of the median solve, the number of device events, and the top
+leaves of the median solve, the number of device events, the graph's
+replays and reads in the profiled solve (0 in ``host`` mode), and the top
 operations by device and by host time.
 Imports neither jax nor pycamset_tpu; needs one CUDA card and nvcc.
 """
@@ -48,44 +51,51 @@ def main() -> int:
             os.environ.pop("PYCAMSET_PALLAS_CHOL", None)
             if route == "kernel":
                 os.environ["PYCAMSET_PALLAS_CHOL"] = "1"
-            profile_solve(prob, chain, n_cams, n_ims, route)
+            for mode in ("graph", "host"):
+                profile_solve(prob, chain, n_cams, n_ims, route, mode)
         os.environ.pop("PYCAMSET_PALLAS_CHOL", None)
     return 0
 
 
-def profile_solve(prob, chain, n_cams, n_ims, route):
+def profile_solve(prob, chain, n_cams, n_ims, route, mode):
     """Time five warm solves, then profile one, and print the summary line
     and the top operations."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    prob.solve()
+    graph = mode == "graph"
+    prob.solve(graph=graph)
     times = []
     for _ in range(5):
         torch.cuda.synchronize()
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
-        prob.solve()
+        prob.solve(graph=graph)
         t1.record()
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1))
     solve_ms = sorted(times)[len(times) // 2]
+    runner = prob.graph()
+    before = (runner.replays, runner.reads)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = prob.solve()
+        res = prob.solve(graph=graph)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    replays, reads = (a - b for a, b in zip((runner.replays, runner.reads),
+                                            before))
     # device activity (kernels, copies, fills), each counted once
     dev_events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
     print(f"[profile] chain={chain} shape={n_cams}x{n_ims} "
-          f"dense_solve={route} nit={res.nit} "
+          f"dense_solve={route} mode={mode} nit={res.nit} "
           f"solve_ms_median={solve_ms:.3f} "
           f"profiled_wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
           f"idle_share={1 - busy_ms / solve_ms:.3f} "
-          f"device_events={len(dev_events)}", flush=True)
+          f"device_events={len(dev_events)} replays={replays} "
+          f"graph_reads={reads}", flush=True)
     ka = prof.key_averages()
     for key in ("self_device_time_total", "self_cpu_time_total"):
         print(ka.table(sort_by=key, row_limit=15,

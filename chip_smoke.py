@@ -22,7 +22,11 @@ bits. Then it solves seven bundle adjustments, each through one kernel:
   Kernel E at key width 6,
 
 and checks each solve; the 16 x 100 solves also against the port's float64
-solve on the CPU. The dense reduced solve of every LM step goes through the
+solve on the CPU. Each LM step of a solve is one replay of a CUDA graph
+(``optim/structured_lm.py::SLMGraph``, owned by the problem); the graph is
+held bit for bit against the uncaptured step (``[graph]``), and
+``[main_path]`` counts launches on the uncaptured step. The dense reduced
+solve of every LM step goes through the
 one-launch SPD kernel (``csrc/psd_solve.cu``) on the main path, opted in
 with ``PYCAMSET_PALLAS_CHOL=1`` as in the JAX package; that kernel is held
 against its float64 twin on the seven solves' own reduced systems and on
@@ -92,6 +96,10 @@ PSD_SYNTHETIC = [(n, cond, tol) for n in (240, 852, 1044)
 # the diagonal path alone at n = 1044: the first update, a late full tile
 # and the padded last tile (20 rows)
 DIAG_TILE_K = (0, 14, 15)
+# the hand-written kernels of the solve, by the base name of their device
+# events (template arguments stripped)
+SOLVE_KERNELS = ("gram_kernel", "cam_reduce_kernel", "mixed_kernel",
+                 "mixed_reduce_kernel", "psd_solve_kernel")
 # H100 SXM data sheet: HBM rate and FP32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -155,6 +163,13 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / n
 
 
+def kernel_name(name: str) -> str:
+    """A device event's name without its namespace, return type and
+    parameter list (template arguments kept)."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").split("(")[0].replace(" ", "")
+
+
 def device_ms(fn, n: int = 20) -> dict:
     """Mean device time (ms) per call of each kernel that fn launches, over
     n calls under torch.profiler. Timing a launch by CUDA events measures
@@ -172,8 +187,7 @@ def device_ms(fn, n: int = 20) -> dict:
     us, count = {}, {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
-            name = ev.name.replace("(anonymous namespace)::", "")
-            name = name.removeprefix("void ").split("(")[0].replace(" ", "")
+            name = kernel_name(ev.name)
             us[name] = us.get(name, 0.0) + ev.time_range.elapsed_us()
             count[name] = count.get(name, 0) + 1
     # each kernel's mean over the events recorded, times its launches a
@@ -820,7 +834,7 @@ def capture_reduced_systems(probs) -> dict:
     systems = {}
     for shape, prob in probs.items():
         with dense_solve_spy() as calls, one_launch_psd(True):
-            prob.solve(max_nfev=2)
+            prob.solve(max_nfev=2, graph=False)
         check(bool(calls), f"the {shape} solve reached no psd_solve")
         systems[shape] = calls[0][:2]
     return systems
@@ -988,7 +1002,9 @@ def phase_time_psd(systems) -> dict:
 
 
 def phase_main_path(probs):
-    """The main path, opted in to the one-launch SPD solve: each solve once,
+    """The main path, opted in to the one-launch SPD solve, uncaptured
+    (``graph=False``: the wrappers count launches on the host, which a
+    graph's replays do not pass through): each solve once,
     with every launch count set to 0 just before it; each must launch its
     own gram kernel, at its own key width, and no other, and the SPD kernel
     once per LM step. A fallback is allowed only on a system that the
@@ -996,24 +1012,23 @@ def phase_main_path(probs):
     rule, or is not finite); each one prints its evidence
     (``fallback_evidence``) on a ``[main_path_fallback]`` line.
 
-    :return: (results, launches): launches[kernel][shape] per solve."""
+    :return: launches[kernel][shape] per solve."""
     import torch
     from pycamset_tpu_torch.ops import cuda_cholesky as cc
     counted = wrappers()
-    results = {}
     launches = {name: {} for name in (*KERNELS, PSD[0])}
     for shape, prob in probs.items():
         zero_counts(counted)
         cc.psd_solve_raw.launches = 0
         cc.psd_solve.fallbacks = 0
         with dense_solve_spy() as calls, one_launch_psd(True):
-            results[shape] = prob.solve()
+            res = prob.solve(graph=False)
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in counted.items()}
         by_cw = {f"launches_{name}_cw{cw}": n
                  for name, fn in counted.items()
                  for cw, n in getattr(fn, "launches_by_cw", {}).items()}
-        n_psd, nit = cc.psd_solve_raw.launches, results[shape].nit
+        n_psd, nit = cc.psd_solve_raw.launches, res.nit
         n_fell = cc.psd_solve.fallbacks
         evidence = [dict(lm_step=step, **fallback_evidence(a, b, x))
                     for step, (a, b, x) in enumerate(calls) if x is not None]
@@ -1045,14 +1060,135 @@ def phase_main_path(probs):
               f"the {shape} solve fell back on a system that the library "
               f"route solves within the residual rule")
         launches[PSD[0]][shape] = n_psd
-    return results, launches
+    return launches
+
+
+def solve_kernel_counts(fn):
+    """(launches of each hand-written kernel of the solve in one call of fn,
+    by the names of its device events under torch.profiler; fn's result)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    count = {}
+    for ev in prof.events():
+        name = kernel_name(ev.name)
+        if (ev.device_type == DeviceType.CUDA
+                and name.split("<")[0] in SOLVE_KERNELS):
+            count[name] = count.get(name, 0) + 1
+    return count, out
+
+
+def mib_allocated() -> float:
+    """Device memory allocated now (MiB), with the peak counter reset."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2 ** 20
+
+
+def same_solve(a, b) -> bool:
+    """Two SLMResults bit for bit: x, cost, history, nit, nfev, status."""
+    import torch
+    return ((a.nit, a.nfev, int(a.status)) == (b.nit, b.nfev, int(b.status))
+            and torch.equal(a.cost, b.cost)
+            and torch.equal(a.history, b.history)
+            and all(torch.equal(p, q) for p, q in zip(a.x, b.x)))
+
+
+def phase_graph(probs) -> dict:
+    """The LM step as one CUDA graph (``problems.BAProblem.graph``), at each
+    shape on both dense-solve routes, against the uncaptured step
+    (``graph=False``): the solve that captures it and a warm one (every
+    step a replay) give the uncaptured solve's bits and fallbacks; under
+    torch.profiler the warm solve launches each hand-written kernel as
+    often as the uncaptured one, plus one evaluation's gram kernels for
+    each step rerun after a fallback; it makes one replay and one read a
+    step (and one read a rerun); and one step body, run uncaptured under
+    ``torch.cuda.set_sync_debug_mode("error")``, makes no host sync.
+    Prints capture ms and the peak device memory each mode's solve adds
+    to what was allocated before it (``torch.cuda.max_memory_allocated``;
+    for the graph, the capturing solve's).
+
+    :return: {(shape, route): {"capture_ms", "replays", ...}}."""
+    import torch
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    out = {}
+    for shape, prob in probs.items():
+        for route in ("library", "kernel"):
+            with one_launch_psd(route == "kernel"):
+                cc.psd_solve.fallbacks = 0
+                base = mib_allocated()
+                ref_counts, ref = solve_kernel_counts(
+                    lambda: prob.solve(graph=False))
+                ref_mib = torch.cuda.max_memory_allocated() / 2 ** 20 - base
+                fell = [cc.psd_solve.fallbacks]
+                runner = prob.graph()
+                check(runner.graph is None,
+                      f"{shape} ({route}): a graph before the first solve")
+                cc.psd_solve.fallbacks = 0
+                base = mib_allocated()
+                first = prob.solve()            # captures the step
+                graph_mib = torch.cuda.max_memory_allocated() / 2 ** 20 - base
+                fell.append(cc.psd_solve.fallbacks)
+                check(runner.graph is not None,
+                      f"{shape} ({route}): the solve captured no graph")
+                before = (runner.steps, runner.replays, runner.reruns,
+                          runner.reads)
+                cc.psd_solve.fallbacks = 0
+                counts, warm = solve_kernel_counts(prob.solve)
+                fell.append(cc.psd_solve.fallbacks)
+                steps, replays, reruns, reads = (
+                    a - b for a, b in zip((runner.steps, runner.replays,
+                                           runner.reruns, runner.reads),
+                                          before))
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    runner.body()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+            tag = f"{shape} ({route})"
+            check(same_solve(first, ref) and same_solve(warm, ref),
+                  f"{tag}: the captured solve differs from the uncaptured")
+            check(fell[0] == fell[1] == fell[2],
+                  f"{tag}: fallbacks {fell} (uncaptured, first, warm)")
+            check(steps == replays == ref.nit and reruns == fell[0]
+                  and reads == ref.nit + reruns,
+                  f"{tag}: {steps} steps, {replays} replays, {reruns} reruns, "
+                  f"{reads} reads in {ref.nit} LM steps")
+            # a rerun evaluates once more: its gram kernels, not the SPD one
+            want = {name: n + (0 if name.startswith("psd") else
+                               reruns * n // ref.nfev)
+                    for name, n in ref_counts.items()}
+            check(bool(ref_counts) and counts == want,
+                  f"{tag}: kernels {counts} captured, {want} expected "
+                  f"(uncaptured {ref_counts})")
+            rec = dict(nit=ref.nit, nfev=ref.nfev, status=int(ref.status),
+                       fallbacks=fell[0], reruns=reruns, replays=replays,
+                       reads=reads,
+                       capture_ms=f"{runner.capture_ms:.1f}",
+                       peak_mib_graph=f"{graph_mib:.1f}",
+                       peak_mib_uncaptured=f"{ref_mib:.1f}",
+                       **{f"launches_{k}": f"{counts[k]}/{ref_counts[k]}"
+                          for k in sorted(ref_counts)})
+            say("graph", shape=shape.replace(" ", "_"), dense_solve=route,
+                same_bits=True, sync_free_body=True, **rec)
+            out[shape, route] = rec
+    return out
 
 
 def phase_solve(shape, prob, res, side: str, cpu_ref=None, max_nit=10):
     """Check one solve (status 1 or 2, rms <= 0.36 px, and nit <= max_nit
-    unless it is None), time five warm solves with the opt-in of ``side``,
+    unless it is None), time five warm solves with the opt-in of ``side``
+    on the default (captured) path and five uncaptured (``graph=False``),
     and, given the port's float64 CPU solve of the problem, hold the final
-    cost to it. The iteration bound is the precision canary:
+    cost to it. Returns the two medians (ms). The iteration bound is the
+    precision canary:
     reduced-precision products inflate the LM steps (5 -> ~95 in the JAX
     package). The line also counts the accepted steps (those that lowered
     the cost)."""
@@ -1066,22 +1202,28 @@ def phase_solve(shape, prob, res, side: str, cpu_ref=None, max_nit=10):
           f"{shape} parameters are not finite")
     check(all(g.shape == x.shape for g, x in zip(res.x, prob.x0)),
           f"{shape} result shape")
-    times = []
+    times = {True: [], False: []}
     with one_launch_psd(side == "kernel"):
-        for _ in range(6):  # one warm-up, then >= 5 timed
-            torch.cuda.synchronize()
-            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0.record()
-            prob.solve()
-            t1.record()
-            torch.cuda.synchronize()
-            times.append(t0.elapsed_time(t1))
-    median = float(np.median(times[1:]))
+        for graph, got in times.items():
+            for _ in range(6):  # one warm-up, then >= 5 timed
+                torch.cuda.synchronize()
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+                prob.solve(graph=graph)
+                t1.record()
+                torch.cuda.synchronize()
+                got.append(t0.elapsed_time(t1))
+    median, median_host = (float(np.median(times[g][1:]))
+                           for g in (True, False))
     fields = dict(nit=res.nit, accepted=accepted, nfev=res.nfev,
                   status=status,
                   rms_px=f"{rms:.5f}", n_real=prob.blocks.n_real,
                   solve_ms_median=f"{median:.3f}",
-                  solve_ms_all=",".join(f"{x:.2f}" for x in times[1:]))
+                  solve_ms_all=",".join(f"{x:.2f}" for x in times[True][1:]),
+                  solve_ms_median_uncaptured=f"{median_host:.3f}",
+                  solve_ms_all_uncaptured=",".join(
+                      f"{x:.2f}" for x in times[False][1:]))
     check(status in (1, 2), f"{shape} ({side}) status {status}")
     check(rms <= 0.36, f"{shape} ({side}) rms {rms} above 1.2 x noise floor")
     check(max_nit is None or res.nit <= max_nit,
@@ -1096,7 +1238,7 @@ def phase_solve(shape, prob, res, side: str, cpu_ref=None, max_nit=10):
                            f"solve by {rel:.3e}")
     say("solve", shape=shape.replace(" ", "_"), dense_solve=side,
         cost=f"{float(res.cost):.6f}", **fields)
-    return median
+    return median, median_host
 
 
 def cpu_f64_solve(make, prob):
@@ -1141,7 +1283,10 @@ def main() -> int:
     psd_time = phase_time_psd(systems)
     say("elapsed", after="kernels",
         seconds=f"{time.perf_counter() - t_start:.1f}")
-    results, launches = phase_main_path(probs)
+    launches = phase_main_path(probs)
+    phase_graph(probs)
+    say("elapsed", after="graph",
+        seconds=f"{time.perf_counter() - t_start:.1f}")
     cpu_of = {"template 16x100": standard_problem,
               "selfcal 16x100": selfcal_problem,
               "mixed 16x100": mixed_problem,
@@ -1155,15 +1300,20 @@ def main() -> int:
                    else None)
         with one_launch_psd(False):
             library = prob.solve()
+        with one_launch_psd(True):
+            kernel = prob.solve()
         t_lib = phase_solve(shape, prob, library, "library", cpu_ref,
                             max_nit)
-        t_ker = phase_solve(shape, prob, results[shape], "kernel", cpu_ref,
-                            max_nit)
-        ab[shape] = (library.nit, results[shape].nit, t_lib, t_ker)
+        t_ker = phase_solve(shape, prob, kernel, "kernel", cpu_ref, max_nit)
+        ab[shape] = {"library": t_lib[0], "kernel": t_ker[0],
+                     "library_uncaptured": t_lib[1],
+                     "kernel_uncaptured": t_ker[1]}
         say("ab", shape=shape.replace(" ", "_"), nit_library=library.nit,
-            nit_kernel=results[shape].nit,
-            solve_ms_median_library=f"{t_lib:.3f}",
-            solve_ms_median_kernel=f"{t_ker:.3f}")
+            nit_kernel=kernel.nit,
+            solve_ms_median_library=f"{t_lib[0]:.3f}",
+            solve_ms_median_kernel=f"{t_ker[0]:.3f}",
+            solve_ms_median_library_uncaptured=f"{t_lib[1]:.3f}",
+            solve_ms_median_kernel_uncaptured=f"{t_ker[1]:.3f}")
     say("elapsed", after="solves",
         seconds=f"{time.perf_counter() - t_start:.1f}")
 
@@ -1201,8 +1351,7 @@ def main() -> int:
         "library_ms_by_n": {n: t["library_ms"] for n, t in psd_time.items()},
         "library_kernel_ms_by_n": {n: t["library_kernel_ms"]
                                    for n, t in psd_time.items()},
-        "solve_ms_median_ab": {s: {"library": v[2], "kernel": v[3]}
-                               for s, v in ab.items()},
+        "solve_ms_median_ab": ab,
         "card": smi})
     kernels.append({
         "name": PEAK[0], "route": "cuda", "source": PEAK[1],

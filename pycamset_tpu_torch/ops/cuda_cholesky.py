@@ -17,11 +17,13 @@ otherwise sit at, above the fallback threshold; see ``csrc/psd_solve.cu``).
   input's dtype). It counts its launches in ``psd_solve_raw.launches``.
 - ``psd_solve`` adds the reference's residual check: the fallback runs only
   when res2 > 1e-8 b2. JAX decides that on the device (``lax.cond``); here it
-  costs one host read of the flag per call. ``psd_solve.fallbacks`` counts
-  the fallbacks taken.
+  costs one host read of the flag per call, unless the caller defers it
+  (``deferred_residual_checks``: the LM's captured step stacks the flag with
+  its ``status`` and redoes a failed step with the fallback).
+  ``psd_solve.fallbacks`` counts the fallbacks taken.
 - ``use_cuda_psd`` is the dispatch rule of ``use_pallas_psd``: opt-in with
-  ``PYCAMSET_PALLAS_CHOL=1``, off under ``PYCAMSET_NO_PALLAS``, on a CUDA
-  device, for float32 and n <= MAX_N only.
+  ``PYCAMSET_PALLAS_CHOL=1``, off under ``PYCAMSET_NO_PALLAS``
+  (``psd_opted_in``), on a CUDA device, for float32 and n <= MAX_N only.
 - ``psd_diag_tile`` is a debug entry that the solve never calls: the
   kernel's diagonal path alone (one diagonal tile's update by the panel
   beside it, its factor and the factor's inverse) in an ordinary launch of
@@ -30,6 +32,7 @@ otherwise sit at, above the fallback threshold; see ``csrc/psd_solve.cu``).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -202,6 +205,35 @@ def residual_ok(res2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     return res2 <= RES_TOL * b2
 
 
+class _Deferred:
+    """The open ``deferred_residual_checks``: its flags, and whether it
+    takes the fallback outright."""
+
+    def __init__(self, take_fallback: bool):
+        self.flags: list[torch.Tensor] = []
+        self.take_fallback = take_fallback
+
+
+_deferred: _Deferred | None = None
+
+
+@contextlib.contextmanager
+def deferred_residual_checks(take_fallback: bool = False):
+    """Inside it, ``psd_solve`` with a fallback reads no flag on the host:
+    it appends ``residual_ok(res2, b2)`` (a 0-d boolean on the device) to
+    the yielded list and returns the kernel's x, so that a caller can read
+    every flag later with its own data, in one read. A caller whose flag
+    is false does that work again under ``take_fallback=True``, where
+    ``psd_solve`` launches no kernel, counts a fallback and returns the
+    fallback's x: the result of the undeferred call on the same system."""
+    global _deferred
+    outer, _deferred = _deferred, _Deferred(take_fallback)
+    try:
+        yield _deferred.flags
+    finally:
+        _deferred = outer
+
+
 def psd_solve(a_n: torch.Tensor, rhs_n: torch.Tensor, *, refine: int = 2,
               fallback=None) -> torch.Tensor:
     """Solve the Jacobi-normalised SPD system a_n x = rhs_n in one kernel.
@@ -210,12 +242,21 @@ def psd_solve(a_n: torch.Tensor, rhs_n: torch.Tensor, *, refine: int = 2,
         kernel's final relative residual exceeds 1e-4 (res2 > 1e-8 b2):
         numerically hostile systems where the float32 factor and its
         refinement did not converge. Each fallback taken adds one to
-        ``psd_solve.fallbacks``.
+        ``psd_solve.fallbacks``. The check reads a flag on the host unless
+        it is deferred (``deferred_residual_checks``).
     """
+    if fallback is not None and _deferred is not None \
+            and _deferred.take_fallback:
+        psd_solve.fallbacks += 1
+        return fallback(a_n, rhs_n).to(a_n.dtype)
     x, res2, b2 = psd_solve_raw(a_n, rhs_n, refine=refine)
     if fallback is None:
         return x
-    if bool(residual_ok(res2, b2)):     # one host read per call
+    ok = residual_ok(res2, b2)
+    if _deferred is not None:
+        _deferred.flags.append(ok)
+        return x
+    if bool(ok):                        # one host read per call
         return x
     psd_solve.fallbacks += 1
     return fallback(a_n, rhs_n).to(x.dtype)
@@ -224,12 +265,18 @@ def psd_solve(a_n: torch.Tensor, rhs_n: torch.Tensor, *, refine: int = 2,
 psd_solve.fallbacks = 0
 
 
+def psd_opted_in() -> bool:
+    """The opt-in half of the dispatch rule: ``PYCAMSET_PALLAS_CHOL=1`` and
+    no ``PYCAMSET_NO_PALLAS``, read at call time."""
+    return (not os.environ.get("PYCAMSET_NO_PALLAS")
+            and os.environ.get("PYCAMSET_PALLAS_CHOL") == "1")
+
+
 def use_cuda_psd(n: int, dtype, device) -> bool:
     """Dispatch rule (``use_pallas_psd``'s): OPT-IN via
     ``PYCAMSET_PALLAS_CHOL=1``, off under ``PYCAMSET_NO_PALLAS``; a CUDA
     device, float32 and 1 <= n <= MAX_N required. Read at call time."""
     return (torch.device(device).type == "cuda"
-            and not os.environ.get("PYCAMSET_NO_PALLAS")
             and dtype == torch.float32
             and 1 <= n <= MAX_N
-            and os.environ.get("PYCAMSET_PALLAS_CHOL") == "1")
+            and psd_opted_in())

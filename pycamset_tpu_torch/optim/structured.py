@@ -391,12 +391,12 @@ def make_structured_neq(op_fun: OptimFunction, widths: GroupWidths,
         if group_of_key is None:
             raise ValueError(
                 "group_of_key is required for PER_GROUP-keyed chains")
-        onehot_kg = group_onehot(group_of_key, n_groups)
+        onehot_kg = device_onehot(group_onehot(group_of_key, n_groups))
 
     def expand(pieces: ParamPieces, colmask: ParamPieces, dtype, device):
         """(one-hot, c-axis rows, their masks) on the key grid: the
         grouped chain's per-group rows expanded by the one-hot."""
-        kg = torch.as_tensor(onehot_kg, dtype=dtype, device=device)
+        kg = onehot_kg(dtype, device)
         return kg, kg @ pieces.key, kg @ colmask.key
 
     if fused is not None:  # "grouped": the fused builder's pieces per key
@@ -458,6 +458,23 @@ def group_onehot(group_of_key, n_groups: int | None = None) -> np.ndarray:
     onehot = np.zeros((gok.size, n_groups))
     onehot[np.arange(gok.size), gok] = 1.0
     return onehot
+
+
+def device_onehot(onehot: np.ndarray):
+    """(dtype, device) -> ``onehot`` as a tensor there, copied from the host
+    at its first request for that dtype and device and kept: the LM step
+    then makes no host-to-device copy (which a CUDA graph cannot capture).
+    The LM's first step runs uncaptured, so the copy happens outside any
+    capture."""
+    made = {}
+
+    def get(dtype, device) -> torch.Tensor:
+        key = (dtype, torch.device(device))
+        if key not in made:
+            made[key] = torch.as_tensor(onehot, dtype=dtype, device=device)
+        return made[key]
+
+    return get
 
 
 def group_reduce(kg, hkk, wck, wik, gk):

@@ -2,10 +2,18 @@
 
 Counterpart of ``pycamset_tpu/optim/structured_lm.py``: running-max Jacobi
 scaling, Nielsen damping, scipy-style termination, the same iteration
-sequence. The JAX ``lax.while_loop`` becomes a host loop. Every quantity
-stays on the device; the loop reads ``status`` once per iteration (one
-device sync per iteration). ``nfev`` and ``it`` advance by one per
-iteration whatever happens, so they are host integers.
+sequence. The JAX ``lax.while_loop`` becomes a loop on the host that reads
+``status`` once per iteration; every other quantity stays on the device.
+``nfev`` and ``it`` are device counters, as in the JAX state, which the
+step reads (``nfev_dev``, ``it_dev``); they advance by one per iteration
+whatever happens, so the host keeps them as integers too (``nfev``, ``it``),
+which the API returns.
+
+On a card the step is one CUDA graph (``SLMGraph``): captured once, then
+replayed once per iteration, with ``status`` and the dense solve's residual
+flag read together. ``graph=False`` runs the uncaptured step from the host,
+the reference the graph is held to bit for bit. A CPU state runs the host
+loop.
 
 The linear algebra is the dense structured path (neq_diag, schur_solve)
 by default. ``ops=(diag, matvec, solve, grad)`` replaces it, as in the JAX
@@ -16,10 +24,13 @@ item 6).
 """
 from __future__ import annotations
 
+import functools
+import time
 from typing import Callable, NamedTuple
 
 import torch
 
+from pycamset_tpu_torch.ops import cuda_cholesky as cc
 from pycamset_tpu_torch.optim.structured import (
     NormalEq, ParamPieces, neq_diag, neq_matvec, schur_solve)
 
@@ -34,6 +45,8 @@ class SLMState(NamedTuple):
     it: int
     status: torch.Tensor
     history: torch.Tensor
+    nfev_dev: torch.Tensor   # 0-d int32: nfev on the device
+    it_dev: torch.Tensor     # 0-d int32: it on the device
 
 
 class SLMResult(NamedTuple):
@@ -86,7 +99,9 @@ def slm_init(neq_fn: Callable[[ParamPieces], NormalEq], x0: ParamPieces,
         nu=torch.tensor(2.0, dtype=dtype, device=device),
         nfev=1, it=0,
         status=torch.tensor(0, dtype=torch.int32, device=device),
-        history=history0)
+        history=history0,
+        nfev_dev=torch.tensor(1, dtype=torch.int32, device=device),
+        it_dev=torch.tensor(0, dtype=torch.int32, device=device))
 
 
 def slm_result(state: SLMState) -> SLMResult:
@@ -101,7 +116,8 @@ def structured_lm_solve(neq_fn: Callable[[ParamPieces], NormalEq],
                         gtol: float = 1e-8, lam0: float = 1e-4,
                         scale_floor: float = 1e-8,
                         reduced_solver: str = "dense",
-                        ops=None) -> SLMResult:
+                        ops=None,
+                        graph: bool | SLMGraph = True) -> SLMResult:
     """Minimise the structured BA cost.
 
     :param reduced_solver: 'dense' (exact Cholesky); the structured
@@ -109,11 +125,13 @@ def structured_lm_solve(neq_fn: Callable[[ParamPieces], NormalEq],
     :param ops: optional (diag_fn, matvec_fn, solve_fn, grad_fn) in place
         of the structured linear algebra; solve_fn receives (neq, damp,
         method=reduced_solver).
+    :param graph: as ``slm_run``'s.
     """
     init = slm_init(neq_fn, x0, max_nfev=max_nfev, lam0=lam0,
                     scale_floor=scale_floor, ops=ops)
     final = slm_run(neq_fn, init, max_nfev=max_nfev, ftol=ftol, xtol=xtol,
-                    gtol=gtol, reduced_solver=reduced_solver, ops=ops)
+                    gtol=gtol, reduced_solver=reduced_solver, ops=ops,
+                    graph=graph)
     return slm_result(final)
 
 
@@ -128,7 +146,7 @@ def _slm_step(neq_fn, s: SLMState, *, max_nfev, ftol, xtol, gtol,
     dx = solve_fn(s.neq, damp, method=reduced_solver)
     x_new = _pmap(torch.add, s.x, dx)
     neq_new = neq_fn(x_new)
-    nfev = s.nfev + 1
+    nfev, nfev_dev = s.nfev + 1, s.nfev_dev + 1
 
     g = grad_fn(s.neq)
     if reduced_solver == "dense":
@@ -154,9 +172,10 @@ def _slm_step(neq_fn, s: SLMState, *, max_nfev, ftol, xtol, gtol,
     scale2 = _pmap(lambda a, b: torch.where(ok, a, b),
                    _pmap(torch.maximum, s.scale2, d_new), s.scale2)
 
-    it = s.it + 1
-    history = s.history.clone()
-    history[min(it, hist_len - 1)] = neq.cost
+    it, it_dev = s.it + 1, s.it_dev + 1
+    history = s.history.index_copy(
+        0, torch.clamp(it_dev, max=hist_len - 1).reshape(1).long(),
+        neq.cost.reshape(1))
 
     g_now = grad_fn(neq)
     scaled_g = torch.zeros((), dtype=dtype, device=lam.device)
@@ -166,30 +185,199 @@ def _slm_step(neq_fn, s: SLMState, *, max_nfev, ftol, xtol, gtol,
                 scaled_g, torch.max(torch.abs(gl) / torch.sqrt(sl)))
     step_small = _pnorm(dx) < xtol * (xtol + _pnorm(s.x))
     cost_small = ok & (act_red < ftol * s.neq.cost)
-    status = torch.full_like(s.status, 4 if nfev >= max_nfev else 0)
+    status = torch.where(nfev_dev >= max_nfev, 4, 0).to(s.status.dtype)
     status = torch.where(scaled_g < gtol, 3, status)
     status = torch.where(ok & step_small, 2, status)
     status = torch.where(step_small & ~ok & (s.nu > 64), 2, status)
     # stall: many consecutive rejections = at the dtype's noise floor
     status = torch.where(~ok & (s.nu > 1024), 2, status)
     status = torch.where(cost_small, 1, status).to(torch.int32)
-    return SLMState(x, neq, scale2, lam, nu, nfev, it, status, history)
+    return SLMState(x, neq, scale2, lam, nu, nfev, it, status, history,
+                    nfev_dev, it_dev)
 
 
 def slm_run(neq_fn: Callable[[ParamPieces], NormalEq], state: SLMState, *,
             max_nfev: int = 100, nfev_cap: int | None = None,
             ftol: float = 1e-8, xtol: float = 1e-8, gtol: float = 1e-8,
-            reduced_solver: str = "dense", ops=None) -> SLMState:
+            reduced_solver: str = "dense", ops=None,
+            graph: bool | SLMGraph = True) -> SLMState:
     """Advance an LM state until convergence — or PAUSE at ``nfev_cap``
     evaluations (status stays 0; resuming with a later slm_run continues
     the exact same iteration sequence). ``max_nfev`` is the true budget:
-    reaching it sets status 4."""
+    reaching it sets status 4.
+
+    :param graph: on a CUDA state, True (the default) runs each step as one
+        replay of a CUDA graph captured for this call; an ``SLMGraph``
+        runs it through that runner, which keeps its capture for later
+        calls (``problems.BAProblem`` owns one per dense-solve route);
+        False runs the uncaptured step from the host, the reference. A CPU
+        state runs the host loop, unless it is given an ``SLMGraph``, which
+        then runs its step body uncaptured.
+    """
     # scipy's 1e-8 defaults assume float64; clamp to the dtype's resolution
     eps = torch.finfo(state.lam.dtype).eps
     kw = dict(max_nfev=max_nfev, ftol=max(ftol, 50 * eps),
               xtol=max(xtol, 50 * eps), gtol=max(gtol, 50 * eps),
-              reduced_solver=reduced_solver, ops=_resolve_ops(ops))
+              reduced_solver=reduced_solver)
+    step = functools.partial(_slm_step, neq_fn, ops=_resolve_ops(ops), **kw)
+    if graph is True:
+        graph = SLMGraph() if state.lam.device.type == "cuda" else False
+    if graph is not False:
+        return graph.run(step, state, kw, nfev_cap)
     s = state
     while int(s.status) == 0 and (nfev_cap is None or s.nfev < nfev_cap):
-        s = _slm_step(neq_fn, s, **kw)
+        s = step(s)
     return s
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    """The tensors of an SLMState (nested NamedTuples), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [leaf for t in tree for leaf in _leaves(t)]
+    return []
+
+
+def _rebuild(tree, leaves):
+    """``tree`` with its tensors taken in order from the iterator
+    ``leaves`` (its host ints kept)."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    if isinstance(tree, tuple):
+        return type(tree)(*(_rebuild(t, leaves) for t in tree))
+    return tree
+
+
+class SLMGraph:
+    """One LM step as a CUDA graph: captured once, then replayed once per
+    iteration with one read.
+
+    It holds two sets of state buffers: ``inp``, which the step reads, and
+    ``res``, which it writes. The step's body (``body``) copies ``res``
+    into ``inp``, steps from ``inp``, writes the new state into ``res``
+    and stacks its ``status`` with each dense solve's residual flag
+    (``cuda_cholesky.deferred_residual_checks``) into ``read``, which the
+    host reads once. A false flag (the one-launch SPD kernel missed the
+    residual rule) makes the host run that step again, uncaptured, from
+    ``inp`` (which the body only reads) with the library fallback, and
+    write its result into ``res``: the step the host loop takes.
+
+    On a CUDA state the first step of the runner's first run is
+    uncaptured, on the side stream of the capture; it advances the state
+    and runs the kernels' one-time set-up outside the capture. Then the
+    body is captured, and every later step, in this run and later ones,
+    is a replay. A capture that fails raises. On a CPU state the body
+    runs uncaptured: the same buffers, reads and reruns.
+
+    A runner serves one problem (its data are baked into the graph), one
+    dense-solve route and one configuration; a run with another route,
+    state shapes or configuration raises.
+    """
+
+    def __init__(self):
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.config = None
+        self.step = None
+        self.like = None        # an SLMState over the ``inp`` buffers
+        self.inp = self.res = self.read = None
+        self.stream = None
+        self.capture_ms = None
+        self.steps = self.replays = self.reruns = self.reads = 0
+
+    def run(self, step, s: SLMState, kw: dict, nfev_cap) -> SLMState:
+        """slm_run's loop through this runner (``step``: state -> state,
+        kept from the first run; ``kw``: its configuration)."""
+        config = (cc.psd_opted_in(), kw,
+                  [(t.shape, t.dtype, t.device) for t in _leaves(s)])
+        if self.config is None:
+            self.config, self.step = config, step
+        elif config != self.config:
+            raise ValueError("this SLMGraph was made for another dense-solve "
+                             "route, state or configuration")
+        cuda = s.lam.device.type == "cuda"
+        # slm_init's state has status 0: no read for it
+        status = 0 if s.it == 0 else self._read(s.status)[0]
+        loaded = False
+        while status == 0 and (nfev_cap is None or s.nfev < nfev_cap):
+            self.steps += 1
+            if self.inp is None:
+                s, status = self._first_step(s, cuda)
+                continue
+            if not loaded:
+                torch._foreach_copy_(self.res, _leaves(s))
+                loaded = True
+            if cuda and self.graph is None:
+                self._capture()
+            if self.graph is not None:
+                self.graph.replay()
+                self.replays += 1
+            else:
+                self.body()
+            status, *flags = self._read(self.read)
+            if not all(flags):
+                new, status = self._eager(self.like, take_fallback=True)
+                torch._foreach_copy_(self.res, _leaves(new))
+                self.reruns += 1
+            s = s._replace(nfev=s.nfev + 1, it=s.it + 1)
+        if not loaded:
+            return s
+        return _rebuild(s, iter([t.clone() for t in self.res]))
+
+    def body(self):
+        """The captured step: res -> inp, one step from inp, its state into
+        res and [status, residual flags...] into ``read``. Makes no host
+        read, copy or sync."""
+        torch._foreach_copy_(self.inp, self.res)
+        with cc.deferred_residual_checks() as flags:
+            new = self.step(self.like)
+        torch._foreach_copy_(self.res, _leaves(new))
+        read = torch.stack([new.status,
+                            *(f.to(new.status.dtype) for f in flags)])
+        if self.read is None:       # the capture's output, kept from then
+            self.read = read
+        else:
+            self.read.copy_(read)
+
+    def _read(self, t: torch.Tensor) -> list[int]:
+        self.reads += 1
+        return t.reshape(-1).tolist()
+
+    def _eager(self, s: SLMState, take_fallback: bool = False):
+        """One uncaptured step from s with its flags deferred and read with
+        its status; a false flag repeats it with the fallback taken.
+        Returns (state, status)."""
+        with cc.deferred_residual_checks(take_fallback) as flags:
+            new = self.step(s)
+        status, *ok = self._read(torch.stack(
+            [new.status, *(f.to(new.status.dtype) for f in flags)]))
+        if all(ok):
+            return new, status
+        self.reruns += 1
+        return self._eager(s, take_fallback=True)
+
+    def _first_step(self, s: SLMState, cuda: bool):
+        """The runner's first step, uncaptured (on the capture's side
+        stream on a card); then its buffers are made."""
+        if cuda:
+            self.stream = torch.cuda.Stream(s.lam.device)
+            self.stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.stream):
+                new, status = self._eager(s)
+            torch.cuda.current_stream().wait_stream(self.stream)
+        else:
+            new, status = self._eager(s)
+        leaves = _leaves(new)
+        self.inp = [torch.empty_like(t) for t in leaves]
+        self.res = [torch.empty_like(t) for t in leaves]
+        self.like = _rebuild(new, iter(self.inp))
+        return new, status
+
+    def _capture(self):
+        """Capture ``body`` on the side stream; raises if it cannot."""
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self.stream):
+            self.body()
+        self.graph = graph
+        self.capture_ms = (time.perf_counter() - t0) * 1e3

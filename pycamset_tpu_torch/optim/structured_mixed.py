@@ -43,7 +43,8 @@ from pycamset_tpu_torch.optim.chain import OptimFunction
 from pycamset_tpu_torch.optim.structured import (
     MIXED_PAD_FRAC, MIXED_PAD_TILE, GroupWidths, UnsupportedChain,
     _block_params, _normalized_inv, _psd_solve, block_diag_dense,
-    fused_tile_pad_ok, group_onehot, group_reduce, sum_block_grams)
+    device_onehot, fused_tile_pad_ok, group_onehot, group_reduce,
+    sum_block_grams)
 
 MIXED_CHAIN = ("Projection", "Extrinsic3D", "RigidTform3d",
                "GroupRigidTform3d", "FreePoint")
@@ -254,6 +255,7 @@ def make_mixed_structured_neq(op_fun: OptimFunction, widths: MixedWidths,
         op_fun, widths, loss=loss, f_scale=f_scale,
         loss_semantics=loss_semantics)
     onehot_np = group_onehot(group_of_key, n_groups)
+    onehot = device_onehot(onehot_np)
     sl_g, sl_k = slice(0, widths.cg), slice(widths.cg, widths.c)
 
     def split_c_axis(oh, hcc, hii, hkk_f, wci, wck_f, wik_f, gc, gi, gk_f,
@@ -270,7 +272,7 @@ def make_mixed_structured_neq(op_fun: OptimFunction, widths: MixedWidths,
     def neq(pieces: MixedPieces, uv, mask, tpl, colmask: MixedPieces):
         cam_b, im_b, cmask_b, imask_b = _block_params(pieces, colmask,
                                                       n_cams, n_ims)
-        oh = torch.as_tensor(onehot_np, dtype=uv.dtype, device=uv.device)
+        oh = onehot(uv.dtype, uv.device)
         keyp, kmask = pack_c_axis(oh, pieces, colmask)
         if fused is not None:
             return split_c_axis(oh, *fused(cam_b, im_b, keyp, tpl, uv, mask,
@@ -294,10 +296,10 @@ def mixed_grad(neq: MixedNormalEq) -> MixedPieces:
 
 def make_mixed_ops(onehot_np: np.ndarray):
     """(diag, matvec, solve, grad) ops for structured_lm_solve."""
+    onehot = device_onehot(onehot_np)
 
     def matvec(neq: MixedNormalEq, dx: MixedPieces) -> MixedPieces:
-        oh = torch.as_tensor(onehot_np, dtype=dx.cam.dtype,
-                             device=dx.cam.device)
+        oh = onehot(dx.cam.dtype, dx.cam.device)
         dg_k = oh @ dx.grp                                     # (K, cg)
         oc = torch.einsum("cij,cj->ci", neq.hcc, dx.cam)
         oc = oc + torch.einsum("ciab,ib->ca", neq.wci, dx.im)
@@ -330,8 +332,7 @@ def make_mixed_ops(onehot_np: np.ndarray):
         correction is sum_k V(k)^T Hkk(k)^-1 V(k), a single
         (K*ck, R) x (K*ck, R) product.
         """
-        oh = torch.as_tensor(onehot_np, dtype=neq.gc.dtype,
-                             device=neq.gc.device)
+        oh = onehot(neq.gc.dtype, neq.gc.device)
         c_, i_, g_ = neq.hcc.shape[0], neq.hii.shape[0], neq.hgg.shape[0]
         a, b, cg = neq.hcc.shape[2], neq.hii.shape[2], neq.hgg.shape[2]
         k_, ck = neq.hkk.shape[0], neq.hkk.shape[2]

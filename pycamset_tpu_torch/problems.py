@@ -24,10 +24,14 @@ the (B, K) block grid, standard camera model.
 - Grouped multi-target template: the chain Projection + Extrinsic3D +
   RigidTform3d + GroupTemplatePoints on the same rig, start and gauge (the
   points come from the template).
+
+A problem on a card owns the CUDA graphs of its LM step (``graph``), one
+per dense-solve route, dtype and budget: the first solve captures one, and
+later solves of the same problem replay it.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -35,6 +39,7 @@ import torch
 from pycamset_tpu_torch.config import default_device_dtype, resolve_device
 from pycamset_tpu_torch.from_jax import (mixed_pieces_from_numpy,
                                          pieces_from_numpy, tensor_from_numpy)
+from pycamset_tpu_torch.ops.cuda_cholesky import psd_opted_in
 from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, FreePoint,
                                              GroupRigidTform3d,
                                              GroupTemplatePoints, Projection,
@@ -46,7 +51,8 @@ from pycamset_tpu_torch.optim.structured import (
 from pycamset_tpu_torch.optim.structured_mixed import (
     MixedPieces, make_mixed_ops, make_mixed_structured_neq,
     mixed_chain_widths, pack_c_axis)
-from pycamset_tpu_torch.optim.structured_lm import structured_lm_solve
+from pycamset_tpu_torch.optim.structured_lm import (SLMGraph,
+                                                    structured_lm_solve)
 from pycamset_tpu_torch.utils.synthetic import make_synthetic_rig
 
 
@@ -74,6 +80,7 @@ class BAProblem:
     group_of_key: np.ndarray | None = None   # (K,) for the grouped chains
     n_groups: int | None = None
     max_nfev: int = 100
+    graphs: dict = field(default_factory=dict, repr=False, compare=False)
 
     def make_neq(self):
         """The raw builder neq(pieces, uv, mask, tpl, colmask)."""
@@ -107,10 +114,24 @@ class BAProblem:
         neq = self.make_neq()
         return lambda p: neq(p, self.uv, self.mask, self.tpl, self.colmask)
 
-    def solve(self, max_nfev: int | None = None):
+    def graph(self, max_nfev: int | None = None) -> SLMGraph:
+        """This problem's LM step runner for the dense-solve route in force
+        (``PYCAMSET_PALLAS_CHOL``, read now), its dtype and ``max_nfev``:
+        captured by its first solve, replayed by the later ones. A graph
+        replayed under the other route would run the wrong route, so each
+        route has its own."""
+        key = (psd_opted_in(), self.x0.cam.dtype, max_nfev or self.max_nfev)
+        return self.graphs.setdefault(key, SLMGraph())
+
+    def solve(self, max_nfev: int | None = None, graph: bool = True):
+        """The LM solve from x0. On a card each LM step is one replay of
+        this problem's CUDA graph (``graph``); ``graph=False`` runs the
+        uncaptured step, the reference. On the CPU, the host loop."""
+        if graph and self.x0.cam.device.type == "cuda":
+            graph = self.graph(max_nfev)
         return structured_lm_solve(self.neq_fn(), self.x0,
                                    max_nfev=max_nfev or self.max_nfev,
-                                   ops=self.ops())
+                                   ops=self.ops(), graph=graph)
 
     def rms_px(self, cost) -> float:
         """sqrt(cost / (2 n_real)), as bench.py reports it."""

@@ -14,7 +14,9 @@ Without a card every test skips. Tolerance: 1e-4 of each output's max-abs
 scale, and 1e-4 entry by entry in the solver's Jacobi scaling
 (``cuda_grams.scaled_errors``): float32 sums of up to 2K terms per gram
 entry vs float64. Each fused kernel, and Kernel D, gives the same bits on
-a repeat launch (no float atomics).
+a repeat launch (no float atomics). The LM step captured as a CUDA graph
+gives the uncaptured step's bits on both dense-solve routes, and a capture
+that cannot proceed raises.
 """
 import numpy as np
 import pytest
@@ -510,3 +512,60 @@ def test_fma_probe_matches_its_twin(card):
     assert err < 1024 * 2.0 ** -24    # 1024 dependent float32 operations
     with pytest.raises(TypeError):
         peak.fma_chain(a.double())
+
+
+def _same_solve(a, b):
+    assert (a.nit, a.nfev, int(a.status)) == (b.nit, b.nfev, int(b.status))
+    assert torch.equal(a.cost, b.cost) and torch.equal(a.history, b.history)
+    for p, q in zip(a.x, b.x):
+        assert torch.equal(p, q)
+
+
+# The LM step as one CUDA graph, owned by the problem, on both dense-solve
+# routes: the solve that captures it and a warm one (every step a replay)
+# give the uncaptured step's bits and fallbacks.
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["library", "kernel"])
+@pytest.mark.parametrize("chain", ["template", "selfcal", "mixed"])
+def test_captured_solve_is_bit_identical_to_uncaptured(card, monkeypatch,
+                                                       chain, route):
+    from pycamset_tpu_torch import problems
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    monkeypatch.delenv("PYCAMSET_PALLAS_CHOL", raising=False)
+    if route == "kernel":
+        monkeypatch.setenv("PYCAMSET_PALLAS_CHOL", "1")
+    make = {"template": problems.standard_problem,
+            "selfcal": problems.selfcal_problem,
+            "mixed": problems.mixed_problem}[chain]
+    prob = make(4, 16, card, grid=6)
+    cc.psd_solve.fallbacks = 0
+    ref = prob.solve(graph=False)
+    fell = cc.psd_solve.fallbacks
+    runner = prob.graph()
+    for _ in range(2):
+        cc.psd_solve.fallbacks = 0
+        _same_solve(prob.solve(), ref)
+        assert cc.psd_solve.fallbacks == fell
+        assert runner.graph is not None
+    assert runner.replays >= 2 * ref.nit - 1
+
+
+# Last in the file: a failed capture leaves the card usable, but nothing
+# else should run beside it.
+@pytest.mark.cuda
+def test_a_capture_that_cannot_proceed_raises(card):
+    from pycamset_tpu_torch.optim.structured_lm import (SLMGraph, slm_init,
+                                                        slm_run)
+    from pycamset_tpu_torch.problems import standard_problem
+    prob = standard_problem(4, 16, card, grid=6)
+    neq = prob.neq_fn()
+
+    def syncing(p):              # a host read in the step: not capturable
+        out = neq(p)
+        assert float(out.cost) > 0.0
+        return out
+
+    runner = SLMGraph()
+    with pytest.raises(RuntimeError):
+        slm_run(syncing, slm_init(syncing, prob.x0), graph=runner)
+    assert runner.graph is None and runner.steps == 2
