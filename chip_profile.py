@@ -8,13 +8,16 @@ and 64 x 400, the self-calibration problem (``bench.py::selfcal_problem``)
 at 16 x 100 and 64 x 12, the mixed multi-target problem
 (``bench.py::mixed_problem``) at 16 x 100 and 64 x 12 and the grouped
 multi-target template problem (``problems.grouped_problem``) at 16 x 100
-with the port: with the dense reduced solve on the library route
+and the fleet (``bench.py::fleet_problem``: 64 rigs of 4 x 16, solved as
+one batch, library route only) with the port: with the dense reduced
+solve on the library route
 (``cholesky_ex``, the default) and opted in to the one-launch SPD kernel
 (``PYCAMSET_PALLAS_CHOL=1``), each in two modes: ``graph`` (the default,
 each LM step one replay of the problem's CUDA graph) and ``host`` (the
-uncaptured step, ``graph=False``). Each: one warm-up, five solves timed
-with CUDA events, then one more under ``torch.profiler``. Prints per shape,
-route and mode: LM iterations, the median
+uncaptured step, ``graph=False``; a fleet has one graph per cohort
+size). Each: one warm-up, five solves timed with CUDA events, then one
+more under ``torch.profiler``. Prints per shape, route and mode: LM
+iterations (a fleet: its rigs' least and most), the median
 solve time, the profiled solve's wall time, the device's busy time in it
 (the sum of its device kernels, copies and fills) and the idle share that
 leaves of the median solve, the number of device events, the graph's
@@ -32,8 +35,9 @@ import time
 def main() -> int:
     import torch
 
-    from pycamset_tpu_torch.problems import (grouped_problem, mixed_problem,
-                                             selfcal_problem, standard_problem)
+    from pycamset_tpu_torch.problems import (fleet_problem, grouped_problem,
+                                             mixed_problem, selfcal_problem,
+                                             standard_problem)
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -52,12 +56,25 @@ def main() -> int:
             if route == "kernel":
                 os.environ["PYCAMSET_PALLAS_CHOL"] = "1"
             for mode in ("graph", "host"):
-                profile_solve(prob, chain, n_cams, n_ims, route, mode)
+                profile_solve(prob, chain, f"{n_cams}x{n_ims}", route, mode)
         os.environ.pop("PYCAMSET_PALLAS_CHOL", None)
+    # the one-launch SPD kernel takes one system: the fleet's batch of
+    # reduced systems takes the library route
+    fleet = fleet_problem(64, 4, 16, dev)
+    for mode in ("graph", "host"):
+        profile_solve(fleet, "fleet", "64x4x16", "library", mode)
     return 0
 
 
-def profile_solve(prob, chain, n_cams, n_ims, route, mode):
+def runner_counts(prob) -> tuple[int, int]:
+    """(replays, reads) of a problem's step runners for the route in
+    force: one SLMGraph, or a fleet's FleetGraph per cohort size."""
+    runners = prob.graph()
+    runners = runners.values() if isinstance(runners, dict) else [runners]
+    return (sum(g.replays for g in runners), sum(g.reads for g in runners))
+
+
+def profile_solve(prob, chain, shape, route, mode):
     """Time five warm solves, then profile one, and print the summary line
     and the top operations."""
     import torch
@@ -75,22 +92,22 @@ def profile_solve(prob, chain, n_cams, n_ims, route, mode):
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1))
     solve_ms = sorted(times)[len(times) // 2]
-    runner = prob.graph()
-    before = (runner.replays, runner.reads)
+    before = runner_counts(prob)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = prob.solve(graph=graph)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    replays, reads = (a - b for a, b in zip((runner.replays, runner.reads),
-                                            before))
+    replays, reads = (a - b for a, b in zip(runner_counts(prob), before))
+    nit = (res.nit if isinstance(res.nit, int)
+           else f"{min(res.nit)}-{max(res.nit)}")
     # device activity (kernels, copies, fills), each counted once
     dev_events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
-    print(f"[profile] chain={chain} shape={n_cams}x{n_ims} "
-          f"dense_solve={route} mode={mode} nit={res.nit} "
+    print(f"[profile] chain={chain} shape={shape} "
+          f"dense_solve={route} mode={mode} nit={nit} "
           f"solve_ms_median={solve_ms:.3f} "
           f"profiled_wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
           f"idle_share={1 - busy_ms / solve_ms:.3f} "

@@ -36,6 +36,16 @@ against the library route, ``cholesky_ex``); its diagonal path alone
 n = 1044. The FP32 FMA probe
 (``csrc/peak.cu``) measures the card's FP32 rate beside the published one.
 
+Then the fleet (``bench.py::fleet_problem``: 64 rigs of 4 cameras x 16
+images, one target, solved as one batch by ``optim/fleet.py``'s cascade):
+``[fleet_kernel]`` holds Kernel B folded over the 64 rigs (one launch of
+256 cameras, under ``torch.func.vmap``) against its float64 twin and each
+rig's bits against a one-rig launch, times it beside 64 one-rig launches,
+and checks Kernel A folded over a fleet of 12 images; ``[fleet]`` solves
+the fleet uncaptured (launch counts), captured (one graph per cohort size,
+bit-identical), against the port's float64 CPU fleet, and beside the same
+rigs solved one by one.
+
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
 kernels as JSON; the last is
@@ -89,6 +99,11 @@ MAIN_PATH = {"template 16x100": ("template_gram", None),
 PSD = ("psd_solve", "pycamset_tpu_torch/csrc/psd_solve.cu",
        "pycamset_tpu/ops/pallas_cholesky.py:143")
 PEAK = ("fma_peak", "pycamset_tpu_torch/csrc/peak.cu", "benchmarks/peak.py:37")
+# bench.py::fleet_problem's shape (fleet64x4x16): rigs, cameras, images; and
+# the same fleet at 12 images, where the fused rule declines Kernel B
+FLEET = (64, 4, 16)
+FLEET_A = (64, 4, 12)
+B_OUTPUTS = ("hcc", "gc", "wci", "gii", "gi", "corner")
 # synthetic normalised systems for the SPD kernel: (n, condition, the JAX
 # kernel test's bound on the relative error at that condition)
 PSD_SYNTHETIC = [(n, cond, tol) for n in (240, 852, 1044)
@@ -1250,6 +1265,337 @@ def cpu_f64_solve(make, prob):
     return ref, time.perf_counter() - t0
 
 
+def fleet_inputs(fleet):
+    """The per-block tensors of every rig of a fleet at its start, the rig
+    axis first: (cam_b (R,B,15), im_b (R,B,6), uv, mask)."""
+    import torch
+    n_cams, n_ims = fleet.blocks[0].n_cams, fleet.blocks[0].n_ims
+    return (torch.repeat_interleave(fleet.x0.cam, n_ims, dim=1),
+            fleet.x0.im.repeat(1, n_cams, 1), fleet.uv, fleet.mask)
+
+
+def fold(x):
+    """(R, N, ...) -> (R*N, ...), rig-major: the folded launch's layout."""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
+def per_rig_max_abs(got, ref) -> list[float]:
+    """Per output (each with its rig axis first): the worst rig's error
+    against that rig's own max-abs scale of the output."""
+    worst = []
+    for g, r in zip(got, ref):
+        g = g.double().reshape(g.shape[0], -1)
+        r = r.double().to(g.device).reshape(r.shape[0], -1)
+        err = (g - r).abs().amax(1) / (r.abs().amax(1) + 1e-30)
+        worst.append(float(err.max()))
+    return worst
+
+
+def fleet_bound_problem(fleet):
+    """What ``bound`` reads of a problem, for the fleet's folded launch:
+    its (R*B, K) grid, R*C cameras and every rig's real detections."""
+    from types import SimpleNamespace
+    return SimpleNamespace(
+        mask=fold(fleet.mask), blocks=SimpleNamespace(
+            n_cams=fleet.n_rigs * fleet.blocks[0].n_cams,
+            n_real=int(fleet.n_real.sum())))
+
+
+def within_f32_floor(errs: dict, floor: dict) -> bool:
+    """Every output's error within TOL or, where the float32 plain twin
+    on the same inputs misses TOL itself (``floor``: its errors in the
+    same measure), within twice the twin's error: a kernel is not held
+    below float32's own floor. At the fleet's start a few blocks are
+    already near the noise floor (rig 40: 0.8 px), and their pose
+    gradients (gi) carry float32's systematic projection error (about
+    1e-4 px) at 1e-4 of their scale."""
+    return all(errs[k] <= max(TOL, 2 * floor[k]) for k in errs)
+
+
+def phase_fleet_kernel(fleet, fleet_a) -> dict:
+    """The folded Kernel B (every rig of ``fleet`` in ONE launch, under
+    torch.func.vmap) in float32 against its float64 plain twin, four
+    losses: every entry within TOL in the solver's Jacobi scaling (per
+    camera and per block, so the worst over the fleet is its worst rig's;
+    where the float32 twin on the same inputs misses TOL itself, within
+    twice its error, ``f32_floor_limits``) and within TOL of its rig's
+    max-abs of the output. Each rig's bits against a one-rig launch on
+    its slice. The device time of the folded launch beside 64 one-rig
+    launches, and its bound. Then the folded Kernel A on ``fleet_a`` (12
+    images: the fused rule declines B), four losses, one launch a
+    call."""
+    import torch
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    r, c, i = fleet.n_rigs, fleet.blocks[0].n_cams, fleet.blocks[0].n_ims
+    ops = fleet_inputs(fleet)
+    tpl = fleet.tpl
+    ops64 = tuple(fold(x).double() for x in ops)
+    cpu32 = [fold(x).cpu() for x in ops]
+
+    def folded(**kw):
+        return torch.func.vmap(lambda cb, ib, u, m: cg.template_gram_fused(
+            cb, ib, tpl, u, m, c, i, **kw))(*ops)
+
+    rec = {"abs": 0.0, "rel": 0.0, "scaled": 0.0}
+    for loss, sem in LOSS_CASES:
+        kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
+        n0 = cg.template_gram_fused.launches
+        got = folded(**kw)
+        check(cg.template_gram_fused.launches == n0 + 1,
+              "the folded Kernel B took more than one launch")
+        ref = cg.template_gram_fused_plain(*ops64[:2], tpl.double(),
+                                           *ops64[2:], r * c, i, **kw)
+        gram = cg.template_gram_plain(*ops64[:2], tpl.double(), *ops64[2:],
+                                      **kw)
+        got_f = [fold(g) for g in got]
+        scaled = cg.scaled_errors_fused(got_f, ref, gram, r * c, i)
+        twin32 = cg.template_gram_fused_plain(*cpu32[:2], tpl.cpu(),
+                                              *cpu32[2:], r * c, i, **kw)
+        floor = cg.scaled_errors_fused(twin32, [x.cpu() for x in ref],
+                                       gram.cpu(), r * c, i)
+        unfolded = [x.reshape(g.shape) for x, g in zip(ref, got)]
+        rel = dict(zip(B_OUTPUTS, per_rig_max_abs(got, unfolded)))
+        rel_floor = dict(zip(B_OUTPUTS, per_rig_max_abs(
+            [x.reshape(g.shape) for x, g in zip(twin32, got)], unfolded)))
+        check(all(bool(g.isfinite().all()) for g in got),
+              "the folded Kernel B's output is not finite")
+        check(within_f32_floor(scaled, floor)
+              and within_f32_floor(rel, rel_floor),
+              f"folded Kernel B {loss}/{sem}: scaled {scaled}, the float32 "
+              f"twin's {floor}; per-rig max-abs {rel}, the twin's "
+              f"{rel_floor}")
+        rec["abs"] = max(rec["abs"], max(
+            float((g.double() - x).abs().max()) for g, x in zip(got_f, ref)))
+        rec["rel"] = max(rec["rel"], max(rel.values()))
+        rec["scaled"] = max(rec["scaled"], max(scaled.values()))
+        rec["over_tol"] = rec.get("over_tol", 0) + sum(
+            v > TOL for v in (*scaled.values(), *rel.values()))
+        say("fleet_kernel", shape=f"{r}x{c}x{i}", kernel="B", loss=loss,
+            semantics=sem, tol=TOL,
+            **{f"B_{k}": f"{v:.2e}" for k, v in scaled.items()},
+            **{f"cpu_f32_twin_{k}": f"{v:.2e}" for k, v in floor.items()})
+        say("fleet_kernel_max_abs", shape=f"{r}x{c}x{i}", kernel="B",
+            loss=loss, semantics=sem, tol=TOL,
+            **{f"B_{k}": f"{v:.2e}" for k, v in rel.items()},
+            **{f"cpu_f32_twin_{k}": f"{v:.2e}" for k, v in rel_floor.items()})
+        del got, ref, gram, got_f
+    # each rig's bits against a one-rig launch on its slice
+    got = folded()
+    same = sum(all(torch.equal(g[k], o) for g, o in zip(
+        got, cg.template_gram_fused(*(x[k] for x in ops[:2]), tpl,
+                                    *(x[k] for x in ops[2:]), c, i)))
+               for k in range(r))
+    check(same == r, f"folded Kernel B: {r - same} of {r} rigs' bits "
+                     f"differ from their one-rig launches")
+    # device time: the folded launch alone, 64 one-rig launches alone
+    packed = cg.pack_block_params(fold(ops[0]), fold(ops[1]))
+    packed_r = [cg.pack_block_params(ops[0][k], ops[1][k]) for k in range(r)]
+    uv_f, mask_f = fold(ops[2]), fold(ops[3])
+    t = {"kernel_ms": kernel_ms(lambda: cg._launch_gram_fused(
+            packed, tpl, uv_f, mask_f, r * c, i, 0, 1, 1.0)),
+         "one_rig_launches_kernel_ms": kernel_ms(lambda: [
+             cg._launch_gram_fused(packed_r[k], tpl, ops[2][k], ops[3][k],
+                                   c, i, 0, 1, 1.0) for k in range(r)]),
+         "ms": cuda_ms(folded, 20),
+         "one_rig_launches_ms": cuda_ms(lambda: [
+             cg.template_gram_fused(*(x[k] for x in ops[:2]), tpl,
+                                    *(x[k] for x in ops[2:]), c, i)
+             for k in range(r)], 5),
+         "plain_ms": cuda_ms(lambda: cg.template_gram_fused_plain(
+             fold(ops[0]), fold(ops[1]), tpl, uv_f, mask_f, r * c, i), 5)}
+    t["bound_ms"], t["bound_by"] = bound("template_gram_fused",
+                                         fleet_bound_problem(fleet))
+    say("fleet_kernel", shape=f"{r}x{c}x{i}", kernel="B", unit="ms",
+        same_bits_rigs=f"{same}/{r}", blocks=r * c * -(-i // cg.FUSED_CHUNK),
+        **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+           for k, v in t.items()})
+    rec.update(t, shape=f"fleet {r}x{c}x{i}", same_bits_rigs=same)
+
+    # the folded Kernel A
+    ra, ca, ia = (fleet_a.n_rigs, fleet_a.blocks[0].n_cams,
+                  fleet_a.blocks[0].n_ims)
+    ops = fleet_inputs(fleet_a)
+    ops64 = tuple(fold(x).double() for x in ops)
+    cpu32 = [fold(x).cpu() for x in ops]
+    worst_a = 0.0
+    for loss, sem in LOSS_CASES:
+        kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
+        n0 = cg.template_gram.launches
+        got = torch.func.vmap(lambda cb, ib, u, m: cg.template_gram(
+            cb, ib, fleet_a.tpl, u, m, **kw))(*ops)
+        check(cg.template_gram.launches == n0 + 1,
+              "the folded Kernel A took more than one launch")
+        ref = cg.template_gram_plain(*ops64[:2], fleet_a.tpl.double(),
+                                     *ops64[2:], **kw)
+        twin32 = cg.template_gram_plain(*cpu32[:2], fleet_a.tpl.cpu(),
+                                        *cpu32[2:], **kw)
+        scaled = cg.scaled_errors(fold(got), ref)
+        floor = cg.scaled_errors(twin32, ref.cpu())
+        rel = {"gram": per_rig_max_abs([got], [ref.reshape(got.shape)])[0]}
+        rel_floor = {"gram": per_rig_max_abs([twin32.reshape(got.shape)],
+                                             [ref.reshape(got.shape)])[0]}
+        check(bool(got.isfinite().all()) and within_f32_floor(scaled, floor)
+              and within_f32_floor(rel, rel_floor),
+              f"folded Kernel A {loss}/{sem}: scaled {scaled}, the float32 "
+              f"twin's {floor}; per-rig max-abs {rel}, the twin's "
+              f"{rel_floor}")
+        worst_a = max(worst_a, max(scaled.values()), rel["gram"])
+        say("fleet_kernel", shape=f"{ra}x{ca}x{ia}", kernel="A", loss=loss,
+            semantics=sem, tol=TOL, launches=1,
+            per_rig_max_abs=f"{rel['gram']:.2e}",
+            cpu_f32_twin_per_rig_max_abs=f"{rel_floor['gram']:.2e}",
+            **{f"A_{k}": f"{v:.2e}" for k, v in scaled.items()},
+            **{f"cpu_f32_twin_{k}": f"{v:.2e}" for k, v in floor.items()})
+    rec["kernel_a"] = {"shape": f"fleet {ra}x{ca}x{ia}",
+                       "launches_per_call": 1, "max_err": worst_a}
+    return rec
+
+
+def same_fleet(a, b) -> bool:
+    """Two batched SLMResults bit for bit: x, cost, history, status, and
+    each rig's nit and nfev."""
+    import torch
+    return ((a.nit, a.nfev) == (b.nit, b.nfev)
+            and torch.equal(a.status, b.status)
+            and torch.equal(a.cost, b.cost)
+            and torch.equal(a.history, b.history)
+            and all(torch.equal(p, q) for p, q in zip(a.x, b.x)))
+
+
+def timed(fn, n: int) -> list[float]:
+    """CUDA-event ms of n calls of fn, one at a time, after one warm-up."""
+    import torch
+    times = []
+    for k in range(n + 1):
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        if k:
+            times.append(t0.elapsed_time(t1))
+    return times
+
+
+def phase_fleet(fleet) -> dict:
+    """The fleet's main path (``problems.fleet_problem(...).solve()``, the
+    cascade): uncaptured once with every launch count at 0 (Kernel B
+    only, one launch per evaluation of the batch or a cohort,
+    ``slm_init``'s included); the solve that captures its graphs and a warm
+    one bit-identical to it, Kernel B counted by torch.profiler names
+    (1 + the replays); one replay and one read a step, one read a run
+    entered; the full batch's step body free of host syncs. Every rig's
+    status 1 or 2 and rms <= 0.36 px; every cost within 1e-4 relative of
+    the port's float64 CPU fleet solve. The median of warm solves by CUDA
+    events (and uncaptured), beside the same rigs solved one by one
+    (``.solo(r).solve()``, each captured and warm)."""
+    import torch
+    from pycamset_tpu_torch.problems import fleet_problem
+    r = fleet.n_rigs
+    tag = f"{r}x{fleet.blocks[0].n_cams}x{fleet.blocks[0].n_ims}"
+    counted = wrappers()
+    zero_counts(counted)
+    ref = fleet.solve(graph=False)
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in counted.items()}
+    n_b = counts["template_gram_fused"]
+    check(n_b > 0 and not any(n for name, n in counts.items()
+                              if name != "template_gram_fused"),
+          f"the fleet solve launched {counts}")
+    runners = fleet.graph()
+    check(not runners, "fleet graphs before the first solve")
+
+    def graphs():
+        return sum(g.graph is not None for g in runners.values())
+
+    # a runner's first step is uncaptured: a cohort that steps once in the
+    # first solve captures in the second; one that never steps, never
+    first = fleet.solve()
+    captures = [graphs()]
+    second = fleet.solve()
+    captures.append(graphs() - captures[0])
+    before = {n: (g.steps, g.replays, g.reads) for n, g in runners.items()}
+    prof, warm = solve_kernel_counts(fleet.solve)
+    cohort_steps = {n: g.steps - before[n][0] for n, g in runners.items()}
+    steps, replays, reads = (sum(getattr(runners[n], k) - before[n][j]
+                                 for n in runners)
+                             for j, k in enumerate(("steps", "replays",
+                                                    "reads")))
+    check(all(same_fleet(x, ref) for x in (first, second, warm)),
+          "the captured fleet solve differs from the uncaptured")
+    check(sorted(runners) == [r // 8, r // 2, r]
+          and all(g.graph is not None or g.steps <= 1
+                  for g in runners.values()),
+          f"runners {sorted(runners)}: steps "
+          f"{[g.steps for g in runners.values()]}, {captures} captures")
+    # warm: one replay a step; one read a step and one a run (4 runs)
+    check(steps == replays and reads == steps + 4,
+          f"{steps} steps, {replays} replays, {reads} reads")
+    b_prof = prof.get("gram_kernel<true>", 0)
+    check(n_b == 1 + steps and b_prof == 1 + replays,
+          f"Kernel B launched {n_b} times uncaptured and {b_prof} captured "
+          f"in {steps} batch steps (+1 slm_init)")
+    check(n_b < sum(ref.nfev), "Kernel B launched once per rig")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runners[r].body()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    status = ref.status.tolist()
+    rms = fleet.rms_px(ref.cost)
+    check(all(st in (1, 2) for st in status), f"fleet status {status}")
+    check(float(rms.max()) <= 0.36, f"fleet rms {rms.max()} above 0.36 px")
+    t0 = time.perf_counter()
+    cpu = fleet_problem(*FLEET, "cpu", torch.float64).solve()
+    cpu_s = time.perf_counter() - t0
+    rel = ((ref.cost.double().cpu() - cpu.cost) / cpu.cost).abs()
+    check(float(rel.max()) <= 1e-4,
+          f"fleet cost differs from the f64 CPU fleet by {rel.max():.3e}")
+    fleet_ms = timed(fleet.solve, 7)
+    host_ms = timed(lambda: fleet.solve(graph=False), 3)
+    solos = [fleet.solo(k) for k in range(r)]
+    solo_res = [p.solve() for p in solos]          # each captures its graph
+    solo_ms = timed(lambda: [p.solve() for p in solos], 3)
+    median = float(np.median(fleet_ms))
+    solo_median = float(np.median(solo_ms))
+    nit_diff = [a - b.nit for a, b in zip(ref.nit, solo_res)]
+    solo_rel = max(abs(float(ref.cost[k]) - float(b.cost)) / float(b.cost)
+                   for k, b in enumerate(solo_res))
+    rec = dict(
+        rigs=r, n_real=int(fleet.n_real.sum()),
+        nit_min=min(ref.nit), nit_max=max(ref.nit), nfev_sum=sum(ref.nfev),
+        status_counts={s: status.count(s) for s in sorted(set(status))},
+        rms_px_max=f"{rms.max():.5f}", rel_cost_diff_cpu_f64=f"{rel.max():.3e}",
+        cpu_f64_nit_diff_rigs=sum(a != b for a, b in zip(ref.nit, cpu.nit)),
+        cpu_f64_s=f"{cpu_s:.1f}", launches_template_gram_fused=n_b,
+        launches_gram_kernel_captured=b_prof, batch_steps=steps,
+        replays=replays, reads=reads,
+        captures_first_second_solve=",".join(map(str, captures)),
+        capture_ms=",".join(
+            f"{n}:{runners[n].capture_ms:.1f}"
+            for n in sorted(runners, reverse=True)
+            if runners[n].capture_ms is not None),
+        cohort_steps_warm=",".join(
+            f"{n}:{cohort_steps[n]}" for n in sorted(runners, reverse=True)),
+        solve_ms_median=f"{median:.3f}",
+        solve_ms_all=",".join(f"{x:.2f}" for x in fleet_ms),
+        solve_ms_median_uncaptured=f"{np.median(host_ms):.3f}",
+        rigs_per_s=f"{r / median * 1e3:.1f}",
+        one_by_one_ms_median=f"{solo_median:.3f}",
+        one_by_one_ms_all=",".join(f"{x:.2f}" for x in solo_ms),
+        one_by_one_rigs_per_s=f"{r / solo_median * 1e3:.1f}",
+        solo_nit_diff_rigs=sum(d != 0 for d in nit_diff),
+        solo_nit_diff_max=max(abs(d) for d in nit_diff),
+        solo_rel_cost_diff_max=f"{solo_rel:.3e}")
+    say("fleet", shape=tag, same_bits=True, sync_free_body=True, **rec)
+    return {"launches": n_b, "launches_captured": b_prof,
+            "solve_ms_median": median, "one_by_one_ms_median": solo_median}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1261,8 +1607,9 @@ def main() -> int:
     phase_build()
     peak_rec = phase_peak(smi)
 
-    from pycamset_tpu_torch.problems import (grouped_problem, mixed_problem,
-                                             selfcal_problem, standard_problem)
+    from pycamset_tpu_torch.problems import (fleet_problem, grouped_problem,
+                                             mixed_problem, selfcal_problem,
+                                             standard_problem)
     dev = torch.device("cuda", 0)
     probs = {"template 16x100": standard_problem(16, 100, dev),
              "template 64x400": standard_problem(64, 400, dev),
@@ -1316,11 +1663,36 @@ def main() -> int:
             solve_ms_median_kernel_uncaptured=f"{t_ker[1]:.3f}")
     say("elapsed", after="solves",
         seconds=f"{time.perf_counter() - t_start:.1f}")
+    torch.cuda.empty_cache()
+    fleet = fleet_problem(*FLEET, dev)
+    fleet_a = fleet_problem(*FLEET_A, dev)
+    say("problems", **{f"fleet_{'x'.join(map(str, shape))}":
+                       f"R={f.n_rigs},B={f.mask.shape[1]},K={f.mask.shape[2]}"
+                       f",n_real={int(f.n_real.sum())}"
+                       for shape, f in ((FLEET, fleet), (FLEET_A, fleet_a))})
+    fleet_kern = phase_fleet_kernel(fleet, fleet_a)
+    del fleet_a
+    fleet_rec = phase_fleet(fleet)
+    say("elapsed", after="fleet",
+        seconds=f"{time.perf_counter() - t_start:.1f}")
 
+    fleet_shape = f"fleet {'x'.join(map(str, FLEET))}"
+    launches["template_gram_fused"][fleet_shape] = fleet_rec["launches"]
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():
         rec = kern[name][shape]
         bound_ms, bound_by = bound(name, probs[shape], MAIN_PATH[shape][1])
+        extra = {}
+        if name == "template_gram_fused":
+            extra["fleet"] = {k: v for k, v in fleet_kern.items()
+                              if k != "kernel_a"}
+            extra["fleet"].update(
+                launches_uncaptured=fleet_rec["launches"],
+                launches_captured=fleet_rec["launches_captured"],
+                solve_ms_median=fleet_rec["solve_ms_median"],
+                one_by_one_ms_median=fleet_rec["one_by_one_ms_median"])
+        elif name == "template_gram":
+            extra["fleet"] = fleet_kern["kernel_a"]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches[name].values()),
@@ -1331,7 +1703,7 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "kernel_ms": rec["kernel_ms"], "bmm_ms": rec["bmm_ms"],
-            "shape": shape, "card": smi})
+            "shape": shape, "card": smi, **extra})
     widest = psd_time[max(psd_time)]
     kernels.append({
         "name": PSD[0], "route": "cuda", "source": PSD[1],

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from pycamset_tpu_torch.config import resolve_device
+from pycamset_tpu_torch.optim.fleet import shared_template
 from pycamset_tpu_torch.optim.structured import ParamPieces
 from pycamset_tpu_torch.optim.structured_mixed import MixedPieces
 
@@ -38,3 +39,16 @@ def mixed_pieces_from_numpy(cam, im, key, grp, device, dtype) -> MixedPieces:
     masks -> MixedPieces."""
     return MixedPieces(*(tensor_from_numpy(p, device, dtype)
                          for p in (cam, im, key, grp)))
+
+
+def fleet_from_numpy(pieces, uv, mask, tpl, device, dtype):
+    """A fleet's stacked numpy data (``bench.py::fleet_problem``: the
+    pieces, uv, mask and point tables, each with a leading rig axis) ->
+    (ParamPieces, uv, mask, the one (K, 3) point table the port's fleet
+    shares); raises ``ValueError`` unless every rig has the same table
+    (``optim.fleet.shared_template``)."""
+    return (pieces_from_numpy(*pieces, device, dtype),
+            tensor_from_numpy(uv, device, dtype),
+            tensor_from_numpy(mask, device, dtype),
+            tensor_from_numpy(shared_template(np.asarray(tpl)), device,
+                              dtype))

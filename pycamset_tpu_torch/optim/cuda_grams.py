@@ -13,7 +13,11 @@ Each wrapper takes the same tensors on either device. A CPU tensor runs the
 plain PyTorch twin (``template_gram_plain``, ``template_gram_fused_plain``:
 the closed-form Jacobian of ``analytic.block_rj_template`` and batched
 matrix products). A CUDA tensor launches the kernel or raises: there is no
-fallback. Each wrapper counts its launches in ``<wrapper>.launches``.
+fallback. Each wrapper counts its launches in ``<wrapper>.launches``. The
+wrappers call ``torch.library.custom_op``s
+(``pycamset_tpu_torch::template_gram{,_fused}``) whose vmap rule folds a
+leading rig axis (the fleet, ``optim/fleet.py``) into the block or camera
+axis: one launch for every rig.
 
 The builders ``make_cuda_template_grams`` and
 ``make_cuda_template_grams_fused`` keep the JAX builders' contracts (the
@@ -27,6 +31,7 @@ against its twin's entry by entry, in the Jacobi scaling the solver applies.
 from __future__ import annotations
 
 import torch
+from torch import Tensor
 
 from pycamset_tpu_torch.ops.rotations import (rodrigues_jacobian,
                                               rodrigues_to_matrix)
@@ -201,7 +206,22 @@ def template_gram(cam_b, im_b, tpl, uv, mask, loss: str = "linear",
 
     :param cam_b: (B, 15). :param im_b: (B, 6). :param tpl: (K, 3).
     :param uv: (B, K, 2). :param mask: (B, K).
+
+    Under ``torch.func.vmap`` over a leading rig axis (the fleet) the rigs'
+    blocks fold into one launch of (R*B) blocks (``_fold_rigs``).
     """
+    return _template_gram_op(cam_b, im_b, tpl, uv, mask, loss,
+                             float(f_scale), loss_semantics)
+
+
+template_gram.launches = 0
+
+
+@torch.library.custom_op("pycamset_tpu_torch::template_gram",
+                         mutates_args=())
+def _template_gram_op(cam_b: Tensor, im_b: Tensor, tpl: Tensor, uv: Tensor,
+                      mask: Tensor, loss: str, f_scale: float,
+                      loss_semantics: str) -> Tensor:
     if cam_b.device.type == "cpu":
         return template_gram_plain(cam_b, im_b, tpl, uv, mask, loss,
                                    f_scale, loss_semantics)
@@ -214,7 +234,37 @@ def template_gram(cam_b, im_b, tpl, uv, mask, loss: str = "linear",
     return out
 
 
-template_gram.launches = 0
+@_template_gram_op.register_vmap
+def _template_gram_vmap(info, in_dims, cam_b, im_b, tpl, uv, mask, loss,
+                        f_scale, loss_semantics):
+    r = info.batch_size
+    cam_b, im_b, uv, mask = _fold_rigs(r, in_dims, cam_b, im_b, tpl, uv,
+                                       mask)
+    out = _template_gram_op(cam_b, im_b, tpl, uv, mask, loss, f_scale,
+                            loss_semantics)
+    return _unfold(r, out), 0
+
+
+def _fold_rigs(r: int, in_dims, cam_b, im_b, tpl, uv, mask):
+    """The per-block operands of R rigs with their rig axis folded into the
+    block axis, rig-major: (R, B, ...) -> (R*B, ...), contiguous. An
+    operand that arrives without a rig axis is shared by every rig. The
+    point table must arrive without one: the rigs of a fleet share one
+    calibration target (a structure check, no device read)."""
+    if in_dims[2] is not None:
+        raise ValueError(
+            "the point table arrived with a rig axis: the rigs of a fleet "
+            "must share one calibration target (pass it unbatched)")
+    out = []
+    for x, d in zip((cam_b, im_b, uv, mask), in_dims[:2] + in_dims[3:5]):
+        x = x.expand(r, *x.shape) if d is None else x.movedim(d, 0)
+        out.append(x.reshape(r * x.shape[1], *x.shape[2:]).contiguous())
+    return out
+
+
+def _unfold(r: int, x: Tensor) -> Tensor:
+    """(R*N, ...) -> (R, N, ...)."""
+    return x.reshape(r, x.shape[0] // r, *x.shape[1:])
 
 
 def _launch_gram(packed, tpl, uv, mask, loss_id, component, f_scale):
@@ -237,10 +287,34 @@ def template_gram_fused(cam_b, im_b, tpl, uv, mask, n_cams: int, n_ims: int,
                         loss_semantics: str = "component"):
     """Kernel B: (hcc (C,15,15), gc (C,15), wci (B,15,6), gii (B,6,6),
     gi (B,6), corner (B,)), unmasked, over B = n_cams * n_ims
-    camera-major blocks; any n_ims, no padding."""
+    camera-major blocks; any n_ims, no padding.
+
+    Under ``torch.func.vmap`` over a leading rig axis (the fleet) the R
+    rigs' cameras fold into Kernel B's camera axis, camera-major within
+    each rig: ONE launch over R * n_cams cameras (``_fold_rigs``), its
+    outputs unfolded to (R, C, ...) and (R, B, ...).
+    """
+    return _template_gram_fused_op(cam_b, im_b, tpl, uv, mask, n_cams,
+                                   n_ims, loss, float(f_scale),
+                                   loss_semantics)
+
+
+template_gram_fused.launches = 0
+
+
+@torch.library.custom_op("pycamset_tpu_torch::template_gram_fused",
+                         mutates_args=())
+def _template_gram_fused_op(
+        cam_b: Tensor, im_b: Tensor, tpl: Tensor, uv: Tensor, mask: Tensor,
+        n_cams: int, n_ims: int, loss: str, f_scale: float,
+        loss_semantics: str) -> tuple[Tensor, Tensor, Tensor, Tensor,
+                                      Tensor, Tensor]:
     if cam_b.device.type == "cpu":
-        return template_gram_fused_plain(cam_b, im_b, tpl, uv, mask, n_cams,
-                                         n_ims, loss, f_scale, loss_semantics)
+        # an operator's outputs may not alias each other: the per-block
+        # pieces are views of one gram
+        return tuple(t.clone() for t in template_gram_fused_plain(
+            cam_b, im_b, tpl, uv, mask, n_cams, n_ims, loss, f_scale,
+            loss_semantics))
     loss_id, component = _loss_args(loss, loss_semantics)
     _check_cuda_inputs(cam_b, im_b, tpl, uv, mask)
     if mask.shape[0] != n_cams * n_ims:
@@ -254,7 +328,15 @@ def template_gram_fused(cam_b, im_b, tpl, uv, mask, n_cams: int, n_ims: int,
     return out
 
 
-template_gram_fused.launches = 0
+@_template_gram_fused_op.register_vmap
+def _template_gram_fused_vmap(info, in_dims, cam_b, im_b, tpl, uv, mask,
+                              n_cams, n_ims, loss, f_scale, loss_semantics):
+    r = info.batch_size
+    cam_b, im_b, uv, mask = _fold_rigs(r, in_dims, cam_b, im_b, tpl, uv,
+                                       mask)
+    out = _template_gram_fused_op(cam_b, im_b, tpl, uv, mask, r * n_cams,
+                                  n_ims, loss, f_scale, loss_semantics)
+    return tuple(_unfold(r, t) for t in out), (0,) * len(out)
 
 
 def _launch_gram_fused(packed, tpl, uv, mask, n_cams, n_ims, loss_id,

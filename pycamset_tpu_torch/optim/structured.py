@@ -48,6 +48,7 @@ solver, other camera widths. They raise ``UnsupportedChain`` or
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -606,13 +607,33 @@ def _cho_refine_solve(a_n: torch.Tensor, rhs_n: torch.Tensor) -> torch.Tensor:
     ``cholesky_ex`` does not check the factorisation on the host (no device
     sync); a non-SPD system gives NaNs, which the LM rejects as a failed
     step, as the JAX path does."""
-    chol, _ = torch.linalg.cholesky_ex(a_n)
-    rhs = rhs_n[:, None]
-    sol = torch.cholesky_solve(rhs, chol)
-    for _ in range(2):
-        resid = rhs - a_n @ sol
-        sol = sol + torch.cholesky_solve(resid, chol)
+    with _batches_on_cusolver(a_n):
+        chol, _ = torch.linalg.cholesky_ex(a_n)
+        rhs = rhs_n[:, None]
+        sol = torch.cholesky_solve(rhs, chol)
+        for _ in range(2):
+            resid = rhs - a_n @ sol
+            sol = sol + torch.cholesky_solve(resid, chol)
     return sol[:, 0]
+
+
+@contextlib.contextmanager
+def _batches_on_cusolver(a: torch.Tensor):
+    """A batch of library solves on a card (``a`` batched by
+    ``torch.func.vmap``: the fleet) goes through cuSOLVER's batched
+    routines. PyTorch's default takes MAGMA's for a batch of
+    ``cholesky_solve``, which allocates device memory inside the call: a
+    CUDA graph cannot capture it. One system, or the CPU, keeps PyTorch's
+    choice."""
+    if not (a.is_cuda and torch._C._functorch.is_batchedtensor(a)):
+        yield
+        return
+    old = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(old)
 
 
 def _psd_solve(amat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -627,7 +648,9 @@ def _psd_solve(amat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     package's switch): the factor and solve run in ONE launch of the
     hand-written kernel (``ops/cuda_cholesky.py``), with its residual check
     falling back to the library route. The default is the library route,
-    ``cholesky_ex`` + ``cholesky_solve``, as in the JAX package.
+    ``cholesky_ex`` + ``cholesky_solve``, as in the JAX package. Under
+    ``torch.func.vmap`` (the fleet) the library route solves the batch;
+    the opt-in raises there, as the kernel takes one system.
     """
     n = amat.shape[0]
     d = torch.sqrt(torch.clamp(torch.diagonal(amat), min=1e-30))
@@ -636,6 +659,12 @@ def _psd_solve(amat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     a_n = a_n + ridge * torch.eye(n, dtype=amat.dtype, device=amat.device)
     rhs_n = rhs / d
     if use_cuda_psd(n, amat.dtype, amat.device):
+        if torch._C._functorch.is_batchedtensor(a_n):
+            raise NotImplementedError(
+                "the one-launch SPD kernel (PYCAMSET_PALLAS_CHOL=1) solves "
+                "one system a launch; a batch of them (the fleet) needs "
+                "ROADMAP Queue B item 4, the SPD kernel with a batch axis. "
+                "Unset PYCAMSET_PALLAS_CHOL to take the library route")
         sol = psd_solve(a_n, rhs_n, fallback=_cho_refine_solve)
     else:
         sol = _cho_refine_solve(a_n, rhs_n)

@@ -15,6 +15,11 @@ flag read together. ``graph=False`` runs the uncaptured step from the host,
 the reference the graph is held to bit for bit. A CPU state runs the host
 loop.
 
+The batched LM (``slm_init_batch``, ``slm_run_batch``: the fleet of
+``optim/fleet.py``) steps R rigs of one structure at once, with the
+semantics of ``jax.vmap`` of the JAX loop: ``torch.func.vmap`` of the
+one-rig step, a rig's state kept once its loop condition fails.
+
 The linear algebra is the dense structured path (neq_diag, schur_solve)
 by default. ``ops=(diag, matvec, solve, grad)`` replaces it, as in the JAX
 package: the LM loop is generic over any (pieces, neq) pair of NamedTuples,
@@ -25,6 +30,8 @@ item 6).
 from __future__ import annotations
 
 import functools
+import gc
+import itertools
 import time
 from typing import Callable, NamedTuple
 
@@ -91,8 +98,9 @@ def slm_init(neq_fn: Callable[[ParamPieces], NormalEq], x0: ParamPieces,
     dtype, device = x0.cam.dtype, x0.cam.device
     neq0 = neq_fn(x0)
     sc0 = _pmap(lambda d: torch.clamp(d, min=scale_floor), diag_fn(neq0))
-    history0 = torch.full((max_nfev + 2,), -1.0, dtype=dtype, device=device)
-    history0[0] = neq0.cost
+    # out of place, so that torch.func.vmap can batch it (slm_init_batch)
+    history0 = torch.cat([neq0.cost.reshape(1), torch.full(
+        (max_nfev + 1,), -1.0, dtype=dtype, device=device)])
     return SLMState(
         x=x0, neq=neq0, scale2=sc0,
         lam=torch.tensor(lam0, dtype=dtype, device=device),
@@ -173,9 +181,9 @@ def _slm_step(neq_fn, s: SLMState, *, max_nfev, ftol, xtol, gtol,
                    _pmap(torch.maximum, s.scale2, d_new), s.scale2)
 
     it, it_dev = s.it + 1, s.it_dev + 1
-    history = s.history.index_copy(
-        0, torch.clamp(it_dev, max=hist_len - 1).reshape(1).long(),
-        neq.cost.reshape(1))
+    slot = torch.clamp(it_dev, max=hist_len - 1)
+    history = torch.where(torch.arange(hist_len, device=slot.device) == slot,
+                          neq.cost, s.history)
 
     g_now = grad_fn(neq)
     scaled_g = torch.zeros((), dtype=dtype, device=lam.device)
@@ -214,11 +222,8 @@ def slm_run(neq_fn: Callable[[ParamPieces], NormalEq], state: SLMState, *,
         state runs the host loop, unless it is given an ``SLMGraph``, which
         then runs its step body uncaptured.
     """
-    # scipy's 1e-8 defaults assume float64; clamp to the dtype's resolution
-    eps = torch.finfo(state.lam.dtype).eps
-    kw = dict(max_nfev=max_nfev, ftol=max(ftol, 50 * eps),
-              xtol=max(xtol, 50 * eps), gtol=max(gtol, 50 * eps),
-              reduced_solver=reduced_solver)
+    kw = _step_config(state.lam.dtype, max_nfev, ftol, xtol, gtol,
+                      reduced_solver)
     step = functools.partial(_slm_step, neq_fn, ops=_resolve_ops(ops), **kw)
     if graph is True:
         graph = SLMGraph() if state.lam.device.type == "cuda" else False
@@ -228,6 +233,16 @@ def slm_run(neq_fn: Callable[[ParamPieces], NormalEq], state: SLMState, *,
     while int(s.status) == 0 and (nfev_cap is None or s.nfev < nfev_cap):
         s = step(s)
     return s
+
+
+def _step_config(dtype, max_nfev, ftol=1e-8, xtol=1e-8, gtol=1e-8,
+                 reduced_solver="dense") -> dict:
+    """The step's keyword configuration; scipy's 1e-8 defaults assume
+    float64, so the tolerances are clamped to the dtype's resolution."""
+    eps = torch.finfo(dtype).eps
+    return dict(max_nfev=max_nfev, ftol=max(ftol, 50 * eps),
+                xtol=max(xtol, 50 * eps), gtol=max(gtol, 50 * eps),
+                reduced_solver=reduced_solver)
 
 
 def _leaves(tree) -> list[torch.Tensor]:
@@ -374,10 +389,139 @@ class SLMGraph:
         return new, status
 
     def _capture(self):
-        """Capture ``body`` on the side stream; raises if it cannot."""
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self.stream):
-            self.body()
-        self.graph = graph
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.graph, self.capture_ms = capture(self.body, self.stream)
+
+
+def capture(body, stream) -> tuple[torch.cuda.CUDAGraph, float]:
+    """``body`` captured as a CUDA graph on ``stream`` (a runner's side
+    stream), and the host ms it took; raises if it cannot.
+
+    Python's cyclic collector is kept off during the capture: a dead
+    problem holds its graphs in a reference cycle (problem -> runner ->
+    step -> problem), and a collection inside the capture would free that
+    graph's memory pool, whose ``cudaFree`` invalidates the capture in
+    progress."""
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            body()
+    finally:
+        if enabled:
+            gc.enable()
+    return graph, (time.perf_counter() - t0) * 1e3
+
+
+# The batched LM (the fleet): R rigs of one structure, each SLMState tensor
+# with a leading rig axis. ``neq_fn(pieces, *data)`` is ONE rig's builder,
+# ``data`` its per-rig tensors (uv, mask), each batched on axis 0 as well.
+# The host ints of a batched state (``nfev``, ``it``) stay slm_init's and
+# have no per-rig meaning: each rig counts on the device (``nfev_dev``,
+# ``it_dev``).
+
+# nfev_cap's stand-in for "no cap": nfev_dev never reaches it
+NO_CAP = 2 ** 31 - 1
+
+
+def slm_init_batch(neq_fn, x0s: ParamPieces, data: tuple, *,
+                   max_nfev: int = 100) -> SLMState:
+    """``slm_init`` of every rig at once (``torch.func.vmap``): one
+    evaluation of the batch."""
+    skeleton = []
+
+    def one(x0, *d):
+        s = slm_init(lambda p: neq_fn(p, *d), x0, max_nfev=max_nfev)
+        # the state's structure and host ints, its tensors left behind
+        skeleton.append(_rebuild(s, itertools.repeat(torch.empty(0))))
+        return _leaves(s)
+
+    leaves = torch.func.vmap(one)(x0s, *data)
+    # the constants come out of vmap as broadcast views: own their rows
+    return _rebuild(skeleton[0], iter([t.contiguous() for t in leaves]))
+
+
+def active_rigs(s: SLMState, cap: torch.Tensor) -> torch.Tensor:
+    """(R,) bool: the rigs whose while-loop condition holds, on the
+    device: (status == 0) & (nfev_dev < cap)."""
+    return (s.status == 0) & (s.nfev_dev < cap)
+
+
+def batch_step(neq_fn, step, s: SLMState, data: tuple, cap: torch.Tensor):
+    """One LM iteration of a batch, with the semantics of ``jax.vmap`` of
+    the step of a ``lax.while_loop``: every rig steps (``torch.func.vmap``
+    of ``step``), and each state tensor takes the new value where its rig
+    was active before the step and keeps the old one elsewhere. Makes no
+    host read.
+
+    :param step: fn(neq_fn_r, state_r) -> state_r, one rig's step.
+    :return: (state, 0-d bool: any rig still active)."""
+    active = active_rigs(s, cap)
+
+    def one(leaves, *d):
+        return _leaves(step(lambda p: neq_fn(p, *d),
+                            _rebuild(s, iter(leaves))))
+
+    new = torch.func.vmap(one)(_leaves(s), *data)
+    old = _leaves(s)
+    s = _rebuild(s, iter(
+        [torch.where(active.reshape(-1, *(1,) * (o.dim() - 1)), n, o)
+         for n, o in zip(new, old)]))
+    return s, active_rigs(s, cap).any()
+
+
+def gather_rigs(s: SLMState, sel: torch.Tensor) -> SLMState:
+    """The rows ``sel`` (device indices) of every tensor of a batched
+    state."""
+    return _rebuild(s, iter([t.index_select(0, sel) for t in _leaves(s)]))
+
+
+def scatter_rigs(s: SLMState, sel: torch.Tensor, part: SLMState) -> SLMState:
+    """``s`` with the rows ``sel`` replaced by ``part``'s (out of place)."""
+    return _rebuild(s, iter([t.index_copy(0, sel, p)
+                             for t, p in zip(_leaves(s), _leaves(part))]))
+
+
+def slm_run_batch(neq_fn, state: SLMState, data: tuple, *,
+                  max_nfev: int = 100, nfev_cap: int | None = None,
+                  sel: torch.Tensor | None = None, graph=False) -> SLMState:
+    """``slm_run`` over a leading rig axis, with the semantics of
+    ``jax.vmap`` of its ``lax.while_loop``: a rig is active while
+    ``(status == 0) & (nfev_dev < nfev_cap)``, computed on the device
+    before each step; the loop steps the batch while any rig is active,
+    and an inactive rig's state is kept as it was (``batch_step``). Each
+    rig takes the iteration sequence of its own ``slm_run`` (the structured
+    linear algebra, the dense reduced solve, the default tolerances).
+
+    :param sel: (n,) device indices: advance only those rigs (their rows
+        of the state and the data gathered first) and return their state.
+    :param graph: False runs the host loop (one read a step: whether any
+        rig is still active, and one at entry); a
+        ``fleet.FleetGraph`` runs each step as one replay of its CUDA
+        graph (on a CPU state: its step body, uncaptured).
+    """
+    kw = _step_config(state.lam.dtype, max_nfev)
+    step = functools.partial(
+        batch_step, neq_fn,
+        functools.partial(_slm_step, ops=_resolve_ops(None), **kw))
+    cap = NO_CAP if nfev_cap is None else nfev_cap
+    if graph is not False:
+        return graph.run(step, state, data, cap, sel, kw)
+    if sel is not None:
+        state = gather_rigs(state, sel)
+        data = tuple(d.index_select(0, sel) for d in data)
+    cap = torch.tensor(cap, dtype=torch.int32, device=state.lam.device)
+    more = bool(active_rigs(state, cap).any())
+    while more:
+        state, more = step(state, data, cap)
+        more = bool(more)
+    return state
+
+
+def slm_result_batch(state: SLMState) -> SLMResult:
+    """The batched result: per-rig tensors, and each rig's nfev and nit
+    (lists of ints) from its device counters, in one read."""
+    nfev, nit = torch.stack([state.nfev_dev, state.it_dev]).tolist()
+    return SLMResult(x=state.x, cost=state.neq.cost, nfev=nfev, nit=nit,
+                     status=state.status, history=state.history)

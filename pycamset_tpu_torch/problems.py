@@ -25,9 +25,14 @@ the (B, K) block grid, standard camera model.
   RigidTform3d + GroupTemplatePoints on the same rig, start and gauge (the
   points come from the template).
 
+- Fleet: ``bench.py::fleet_problem``, R template rigs of one structure
+  and one target (seeds 100 + r, every start perturbed by one ``rng(7)``
+  in rig order), solved as one batch (``optim/fleet.py``).
+
 A problem on a card owns the CUDA graphs of its LM step (``graph``), one
 per dense-solve route, dtype and budget: the first solve captures one, and
-later solves of the same problem replay it.
+later solves of the same problem replay it. Each maker builds on the card
+unless the caller names another device (the tests name the CPU).
 """
 from __future__ import annotations
 
@@ -45,13 +50,14 @@ from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, FreePoint,
                                              GroupTemplatePoints, Projection,
                                              RigidTform3d, TemplatePoints)
 from pycamset_tpu_torch.optim.chain import OptimFunction, ParamStruct
+from pycamset_tpu_torch.optim.fleet import fleet_solve, shared_template
 from pycamset_tpu_torch.optim.structured import (
     BlockArrays, GroupWidths, ParamPieces, build_block_arrays, chain_widths,
     group_onehot, make_structured_neq, pad_template_table, split_full_params)
 from pycamset_tpu_torch.optim.structured_mixed import (
     MixedPieces, make_mixed_ops, make_mixed_structured_neq,
     mixed_chain_widths, pack_c_axis)
-from pycamset_tpu_torch.optim.structured_lm import (SLMGraph,
+from pycamset_tpu_torch.optim.structured_lm import (SLMGraph, SLMResult,
                                                     structured_lm_solve)
 from pycamset_tpu_torch.utils.synthetic import make_synthetic_rig
 
@@ -147,8 +153,11 @@ def template_colmask(n_cams, n_ims, widths, k_pad, dtype=np.float64):
             np.ones((k_pad, 0), dtype=dtype))
 
 
-def perturbed_start(rig, struct, seed: int = 1) -> np.ndarray:
-    """The bench's perturbed full parameter vector (pose 0 zeroed)."""
+def perturbed_start(rig, struct, seed=1) -> np.ndarray:
+    """The bench's perturbed full parameter vector (pose 0 zeroed).
+
+    :param seed: an int, or a ``np.random.Generator`` to draw from (the
+        fleet perturbs every rig from one generator)."""
     n_cams, n_ims = rig["n_cams"], rig["n_ims"]
     x_full = np.concatenate([rig["intr"].ravel(), rig["extr"].ravel(),
                              rig["poses"].ravel()])
@@ -164,8 +173,8 @@ def perturbed_start(rig, struct, seed: int = 1) -> np.ndarray:
     return x_full
 
 
-def standard_problem(n_cams: int, n_ims: int, device, dtype=None,
-                     grid: int = 19, seed: int = 0,
+def standard_problem(n_cams: int, n_ims: int, device="cuda",
+                     dtype=None, grid: int = 19, seed: int = 0,
                      k_pad_multiple: int = 128, loss: str = "linear",
                      f_scale: float = 1.0,
                      loss_semantics: str = "component") -> BAProblem:
@@ -211,8 +220,8 @@ def selfcal_colmask(n_cams, n_ims, n_keys, k_pad, widths, dtype=np.float64):
     return np.ones((n_cams, widths.a), dtype=dtype), cm_im, kmask
 
 
-def selfcal_problem(n_cams: int, n_ims: int, device, dtype=None,
-                    grid: int = 19, seed: int = 0,
+def selfcal_problem(n_cams: int, n_ims: int, device="cuda",
+                    dtype=None, grid: int = 19, seed: int = 0,
                     k_pad_multiple: int = 128, loss: str = "linear",
                     f_scale: float = 1.0,
                     loss_semantics: str = "component") -> BAProblem:
@@ -288,8 +297,9 @@ def _multi_target_rig(n_cams, n_ims, grid, seed, k_pad_multiple):
     return rig, blocks, colmask, gok
 
 
-def mixed_problem(n_cams: int, n_ims: int, device, dtype=None,
-                  grid: int = 19, seed: int = 5, k_pad_multiple: int = 128,
+def mixed_problem(n_cams: int, n_ims: int, device="cuda",
+                  dtype=None, grid: int = 19, seed: int = 5,
+                  k_pad_multiple: int = 128,
                   loss: str = "linear", f_scale: float = 1.0,
                   loss_semantics: str = "component") -> MixedProblem:
     """``bench.py::mixed_problem(n_cams, n_ims, grid, seed)`` on ``device``
@@ -315,8 +325,9 @@ def mixed_problem(n_cams: int, n_ims: int, device, dtype=None,
         loss_semantics, group_of_key=gok, n_groups=2, max_nfev=60)
 
 
-def grouped_problem(n_cams: int, n_ims: int, device, dtype=None,
-                    grid: int = 19, seed: int = 5, k_pad_multiple: int = 128,
+def grouped_problem(n_cams: int, n_ims: int, device="cuda",
+                    dtype=None, grid: int = 19, seed: int = 5,
+                    k_pad_multiple: int = 128,
                     loss: str = "linear", f_scale: float = 1.0,
                     loss_semantics: str = "component") -> BAProblem:
     """The grouped multi-target template problem: ``mixed_problem``'s rig,
@@ -340,3 +351,123 @@ def grouped_problem(n_cams: int, n_ims: int, device, dtype=None,
         pieces_from_numpy(colmask.cam, colmask.im, colmask.grp, device,
                           dtype), loss, f_scale, loss_semantics,
         group_of_key=gok, n_groups=2, max_nfev=60)
+
+
+@dataclass
+class FleetProblem:
+    """R template rigs of one structure and one target on one device,
+    solved as one batch (``optim/fleet.py::fleet_solve``). The per-rig
+    tensors carry a leading rig axis; the point table and the column
+    masks are shared by every rig."""
+    op_fun: OptimFunction
+    widths: GroupWidths
+    struct: ParamStruct        # one rig's
+    blocks: list               # BlockArrays per rig
+    x0: ParamPieces            # starts: (R, C, a), (R, I, b), (R, K, 0)
+    uv: torch.Tensor           # (R, B, K, 2)
+    mask: torch.Tensor         # (R, B, K)
+    tpl: torch.Tensor          # (K, 3), shared
+    colmask: ParamPieces       # shared 0/1 unfixed masks
+    loss: str
+    f_scale: float
+    loss_semantics: str
+    max_nfev: int = 100
+    graphs: dict = field(default_factory=dict, repr=False, compare=False)
+    solos: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def n_rigs(self) -> int:
+        return self.uv.shape[0]
+
+    @property
+    def n_real(self) -> np.ndarray:
+        """(R,) real detections per rig."""
+        return np.array([b.n_real for b in self.blocks])
+
+    def neq_fn(self):
+        """neq(pieces, uv, mask) -> NormalEq of ONE rig, on its data."""
+        b0 = self.blocks[0]
+        neq = make_structured_neq(self.op_fun, self.widths, b0.n_cams,
+                                  b0.n_ims, loss=self.loss,
+                                  f_scale=self.f_scale,
+                                  loss_semantics=self.loss_semantics)
+        return lambda p, uv, mask: neq(p, uv, mask, self.tpl, self.colmask)
+
+    def graph(self, max_nfev: int | None = None) -> dict:
+        """This fleet's step runners ({cohort size: FleetGraph}) for the
+        dense-solve route in force, its dtype and ``max_nfev``: captured by
+        the first solve, replayed by the later ones."""
+        key = (psd_opted_in(), self.x0.cam.dtype, max_nfev or self.max_nfev)
+        return self.graphs.setdefault(key, {})
+
+    def solve(self, max_nfev: int | None = None,
+              graph: bool = True) -> SLMResult:
+        """The cascade solve of every rig from x0: the batched SLMResult
+        (nfev and nit per rig, lists of ints). On a card each step of a
+        cohort is one replay of this fleet's graph for that cohort size;
+        ``graph=False`` runs the uncaptured batched step, the reference.
+        On the CPU, the host loop."""
+        graph = (self.graph(max_nfev)
+                 if graph and self.x0.cam.device.type == "cuda" else False)
+        return fleet_solve(self.neq_fn(), self.x0, (self.uv, self.mask),
+                           max_nfev=max_nfev or self.max_nfev, graph=graph)
+
+    def solo(self, r: int) -> BAProblem:
+        """Rig r as a problem of its own (kept, with its graphs), to solve
+        it alone for comparison."""
+        if r not in self.solos:
+            self.solos[r] = BAProblem(
+                self.op_fun, self.widths, self.struct, self.blocks[r],
+                ParamPieces(*(p[r] for p in self.x0)), self.uv[r],
+                self.mask[r], self.tpl, self.colmask, self.loss,
+                self.f_scale, self.loss_semantics, max_nfev=self.max_nfev)
+        return self.solos[r]
+
+    def rms_px(self, cost) -> np.ndarray:
+        """(R,) sqrt(cost / (2 n_real)) per rig, as bench.py reports it."""
+        cost = torch.as_tensor(cost).double().cpu().numpy()
+        return np.sqrt(cost / (2 * self.n_real))
+
+
+def fleet_problem(n_rigs: int, n_cams: int, n_ims: int, device="cuda",
+                  dtype=None, grid: int = 10, k_pad_multiple: int = 128,
+                  loss: str = "linear", f_scale: float = 1.0,
+                  loss_semantics: str = "component") -> FleetProblem:
+    """``bench.py::fleet_problem(n_rigs, n_cams, n_ims, grid)`` on
+    ``device`` (dtype defaults to float64 on the CPU, float32 on CUDA):
+    rig r from seed 100 + r, each start perturbed by one
+    ``default_rng(7)`` in rig order with the bench's scales, pose 0
+    zeroed and fixed as the gauge. The rigs must share one target
+    (``fleet.shared_template`` checks, on the host; the synthetic target
+    does not depend on the seed)."""
+    device = resolve_device(device)
+    dtype = dtype or default_device_dtype(device)
+    op_fun = OptimFunction([Projection(), Extrinsic3D(), TemplatePoints()])
+    widths = chain_widths(op_fun)
+    rng = np.random.default_rng(7)
+    blocks, tpls, cams, ims = [], [], [], []
+    for r in range(n_rigs):
+        rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
+                                 visibility=0.85, noise_px=0.3, seed=100 + r)
+        n_keys = rig["n_keys"]
+        struct = op_fun.param_struct(n_cams, n_ims, n_keys)
+        blocks.append(build_block_arrays(rig["dd"], n_cams, n_ims, n_keys,
+                                         k_pad_multiple=k_pad_multiple))
+        k_pad = blocks[-1].uv.shape[1]
+        tpls.append(pad_template_table(rig["template"], True, n_keys, k_pad))
+        p = split_full_params(torch.as_tensor(perturbed_start(rig, struct,
+                                                              rng)),
+                              op_fun, struct, n_cams, n_ims, n_keys, widths)
+        cams.append(p.cam.numpy())
+        ims.append(p.im.numpy())
+    tpl = shared_template(tpls)
+    k_pad = tpl.shape[0]
+    return FleetProblem(
+        op_fun, widths, struct, blocks,
+        pieces_from_numpy(np.stack(cams), np.stack(ims),
+                          np.zeros((n_rigs, k_pad, 0)), device, dtype),
+        tensor_from_numpy(np.stack([b.uv for b in blocks]), device, dtype),
+        tensor_from_numpy(np.stack([b.mask for b in blocks]), device, dtype),
+        tensor_from_numpy(tpl, device, dtype),
+        pieces_from_numpy(*template_colmask(n_cams, n_ims, widths, k_pad),
+                          device, dtype), loss, f_scale, loss_semantics)

@@ -16,7 +16,9 @@ scale, and 1e-4 entry by entry in the solver's Jacobi scaling
 entry vs float64. Each fused kernel, and Kernel D, gives the same bits on
 a repeat launch (no float atomics). The LM step captured as a CUDA graph
 gives the uncaptured step's bits on both dense-solve routes, and a capture
-that cannot proceed raises.
+that cannot proceed raises. Under torch.func.vmap (the fleet) Kernels A and
+B fold every rig into one launch, each rig's rows equal to its own
+launch's; the fleet's captured cascade gives the uncaptured bits.
 """
 import numpy as np
 import pytest
@@ -548,6 +550,96 @@ def test_captured_solve_is_bit_identical_to_uncaptured(card, monkeypatch,
         assert cc.psd_solve.fallbacks == fell
         assert runner.graph is not None
     assert runner.replays >= 2 * ref.nit - 1
+
+
+# The fleet: R rigs under torch.func.vmap fold into ONE launch of Kernel B
+# (16 images: R * C cameras) or Kernel A (12 images, where the fused rule
+# declines B: R * B blocks). Each rig's rows against the float64 twin on
+# that rig, and their bits against a one-rig launch on its slice.
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,n_ims", [("B", 16), ("A", 12)])
+@pytest.mark.parametrize("loss,semantics", LOSS_CASES)
+def test_folded_kernels_match_plain_twins_per_rig(card, kernel, n_ims, loss,
+                                                  semantics):
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.problems import fleet_problem
+    n_rigs, n_cams = 5, 3
+    fleet = fleet_problem(n_rigs, n_cams, n_ims, card, grid=6)
+    ops = (torch.repeat_interleave(fleet.x0.cam, n_ims, dim=1),
+           fleet.x0.im.repeat(1, n_cams, 1), fleet.uv, fleet.mask)
+    kw = dict(loss=loss, f_scale=2.0, loss_semantics=semantics)
+    tpl = fleet.tpl
+    if kernel == "B":
+        wrapper = cg.template_gram_fused
+
+        def one(c, i, u, m):
+            return cg.template_gram_fused(c, i, tpl, u, m, n_cams, n_ims,
+                                          **kw)
+    else:
+        wrapper = cg.template_gram
+
+        def one(c, i, u, m):
+            return (cg.template_gram(c, i, tpl, u, m, **kw),)
+    n0 = wrapper.launches
+    got = torch.func.vmap(one)(*ops)
+    assert wrapper.launches == n0 + 1
+    for r in range(n_rigs):
+        rig = tuple(x[r] for x in ops)
+        rig64 = tuple(x.double() for x in rig)
+        gram = cg.template_gram_plain(rig64[0], rig64[1], tpl.double(),
+                                      *rig64[2:], **kw)
+        rows = [g[r] for g in got]
+        if kernel == "B":
+            ref = cg.template_gram_fused_plain(
+                rig64[0], rig64[1], tpl.double(), *rig64[2:], n_cams, n_ims,
+                **kw)
+            _assert_scaled(cg.scaled_errors_fused(rows, ref, gram, n_cams,
+                                                  n_ims), f"B rig {r}")
+        else:
+            ref = (gram,)
+            _assert_scaled(cg.scaled_errors(rows[0], gram), f"A rig {r}")
+        for name, g, x in zip("0123456", rows, ref):
+            _assert_close(g, x, f"{kernel} rig {r} output {name}")
+        alone = one(*rig)
+        for g, a in zip(rows, alone):
+            assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_opt_in_route_raises_on_a_batched_system(card, monkeypatch):
+    from pycamset_tpu_torch.problems import fleet_problem
+    monkeypatch.setenv("PYCAMSET_PALLAS_CHOL", "1")
+    fleet = fleet_problem(3, 2, 16, card, grid=5)
+    with pytest.raises(NotImplementedError, match="Queue B item 4"):
+        fleet.solve(graph=False)
+    with pytest.raises(NotImplementedError, match="Queue B item 4"):
+        fleet.solve()
+
+
+# The fleet's cascade with its graphs (one per cohort size), owned by the
+# problem: the capturing solve and a warm one give the uncaptured bits, and
+# Kernel B launches once per evaluation of the batch or a cohort.
+@pytest.mark.cuda
+def test_captured_fleet_is_bit_identical_to_uncaptured(card, monkeypatch):
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.problems import fleet_problem
+    monkeypatch.delenv("PYCAMSET_PALLAS_CHOL", raising=False)
+    fleet = fleet_problem(8, 3, 16, card, grid=6)
+    n0 = cg.template_gram_fused.launches
+    ref = fleet.solve(graph=False)
+    launches = cg.template_gram_fused.launches - n0
+    assert all(s in (1, 2) for s in ref.status.tolist())
+    runners = fleet.graph()
+    for _ in range(2):
+        got = fleet.solve()
+        assert (got.nit, got.nfev) == (ref.nit, ref.nfev)
+        for a, b in zip([*got.x, got.cost, got.status, got.history],
+                        [*ref.x, ref.cost, ref.status, ref.history]):
+            assert torch.equal(a, b)
+    assert sorted(runners) == [1, 4, 8]
+    assert all(g.graph is not None or g.steps <= 1 for g in runners.values())
+    steps = sum(g.steps for g in runners.values()) // 2
+    assert launches == 1 + steps < sum(ref.nfev)
 
 
 # Last in the file: a failed capture leaves the card usable, but nothing

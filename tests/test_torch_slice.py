@@ -107,6 +107,7 @@ def test_package_imports_neither_jax_nor_cv2():
             "pycamset_tpu_torch.optim.cuda_mixed_grams, "
             "pycamset_tpu_torch.optim.structured_mixed, "
             "pycamset_tpu_torch.optim.analytic, "
+            "pycamset_tpu_torch.optim.fleet, pycamset_tpu_torch.from_jax, "
             "pycamset_tpu_torch.ops.cuda_cholesky, pycamset_tpu_torch.peak, "
             "pycamset_tpu_torch.optim.structured, sys; bad = [m for m in ('jax', 'cv2', 'pycamset_tpu') "
             "if m in sys.modules]; assert not bad, bad")
