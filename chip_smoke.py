@@ -46,6 +46,15 @@ the fleet uncaptured (launch counts), captured (one graph per cohort size,
 bit-identical), against the port's float64 CPU fleet, and beside the same
 rigs solved one by one.
 
+Then the user path (``[user_path]``): at template 16 x 100 and 64 x 400, on
+both dense-solve routes, a ``TemplateBundleHandler`` on the bench rig's
+CameraSet and TargetDetection, seeded through ``set_initial_params`` at the
+bench's start (the card's machine has no OpenCV for the PnP seed), its
+problem (``build_structured_problem``: Kernel A at 16 x 100, whose 100
+images pad to 104, Kernel B at 64 x 400) and ``run_stereo_calibration``;
+its file written and loaded back on the library route of each shape and on
+both routes at 16 x 100; each stage's host seconds.
+
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
 kernels as JSON; the last is
@@ -195,16 +204,24 @@ def device_ms(fn, n: int = 20) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    # a profiling session on the card now and then records no device event
+    # at all (one smoke run in three on an H100): take another
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA]
+        if events:
+            break
+    check(bool(events), "torch.profiler recorded no device event in three "
+                        "sessions")
     us, count = {}, {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            name = kernel_name(ev.name)
-            us[name] = us.get(name, 0.0) + ev.time_range.elapsed_us()
-            count[name] = count.get(name, 0) + 1
+    for ev in events:
+        name = kernel_name(ev.name)
+        us[name] = us.get(name, 0.0) + ev.time_range.elapsed_us()
+        count[name] = count.get(name, 0) + 1
     # each kernel's mean over the events recorded, times its launches a
     # call: a trace that drops events does not shrink the time
     return {name: us[name] / count[name] / 1e3 * max(1, round(count[name] / n))
@@ -1115,7 +1132,7 @@ def same_solve(a, b) -> bool:
 
 
 def phase_graph(probs) -> dict:
-    """The LM step as one CUDA graph (``problems.BAProblem.graph``), at each
+    """The LM step as one CUDA graph (``optim.problem.BAProblem.graph``), at each
     shape on both dense-solve routes, against the uncaptured step
     (``graph=False``): the solve that captures it and a warm one (every
     step a replay) give the uncaptured solve's bits and fallbacks; under
@@ -1596,6 +1613,217 @@ def phase_fleet(fleet) -> dict:
             "solve_ms_median": median, "one_by_one_ms_median": solo_median}
 
 
+@contextlib.contextmanager
+def timed_method(cls, name: str, sec: dict, key: str):
+    """Within the block, each call of ``cls.name`` writes its host seconds
+    to ``sec[key]``."""
+    orig = getattr(cls, name)
+
+    def timed_call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            sec[key] = time.perf_counter() - t0
+    setattr(cls, name, timed_call)
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+def user_path_inputs(n_cams: int, n_ims: int):
+    """The user path's inputs at a bench shape (``problems.template_handler``:
+    ``standard_problem``'s rig as a CameraSet, a TargetDetection and a
+    FreePointTarget) and its seed, the free entries of the bench's
+    perturbed start; with the host seconds they took."""
+    from pycamset_tpu_torch.problems import template_handler
+    t0 = time.perf_counter()
+    handler, _ = template_handler(n_cams, n_ims)
+    return (handler.camset, handler.detection, handler.target,
+            handler.get_initial_params(), time.perf_counter() - t0)
+
+
+def phase_user_path(probs, cpu_x64: dict) -> dict:
+    """The user path at each bench template shape, on both dense-solve
+    routes: a ``TemplateBundleHandler`` seeded through
+    ``set_initial_params`` (no PnP, no OpenCV), its problem
+    (``build_structured_problem``), ``run_stereo_calibration(...,
+    save=True)`` into a temporary directory and the file loaded back.
+
+    Checks: status 1 or 2, rms <= 0.36 px, nit <= 10; at 16x100 the
+    float32 cost within 1e-4 relative of the port's float64 CPU solve of
+    the same handler (``cpu_x64``, filled here once per shape); the
+    handler's solve captured = uncaptured bit for bit (x merged on the host
+    included), its graph captured once and replayed one step a replay, its
+    gram kernel launched as often per evaluation as on the ``problems.py``
+    path by profiler names (and the SPD kernel once an LM step on the
+    kernel route); ``run_stereo_calibration`` launching its own gram kernel
+    and no other (the wrappers' counts, zeroed just before it), its
+    parameters those of the solve above bit for bit, ``calibration_result``
+    equal to ``residual_fn(x)``, and the loaded CameraSet equal to the
+    returned one. The file is written and loaded on the library route of
+    each shape and on both routes at 16x100 (the writer does not depend on
+    the route; at 64x400 the file is 236 MiB): elsewhere
+    ``run_stereo_calibration`` runs with ``save=False``. Prints the host
+    seconds of each stage: inputs, handler construction,
+    ``build_structured_problem`` (host to device included), the first
+    solve (capture), ``residual_fn``, ``get_camset``,
+    ``run_stereo_calibration`` end to end, its save (``CameraSet.save``
+    timed inside it), load; the warm solve median (CUDA events, 5) beside
+    the ``problems.py`` problem's.
+
+    :return: {shape: {route: launches of its gram kernel (and psd_solve)
+        in run_stereo_calibration}}."""
+    import tempfile
+
+    import torch
+    from pycamset_tpu_torch.calibration.camera_calibrator import (
+        run_stereo_calibration)
+    from pycamset_tpu_torch.models.camera_set import CameraSet
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.utils.saving import load_CameraSet
+    counted = wrappers()
+    out = {}
+    for shape in ("template 16x100", "template 64x400"):
+        prob = probs[shape]
+        dev = prob.uv.device
+        own = MAIN_PATH[shape][0]
+        cams, det, target, x0, inputs_s = user_path_inputs(
+            prob.blocks.n_cams, prob.blocks.n_ims)
+        opts = {"outliers": "n", "verbosity": 0}
+        if shape == "template 16x100":
+            h64 = TemplateBundleHandler(cams, target, det, options=opts)
+            h64.set_initial_params(x0)
+            t0 = time.perf_counter()
+            cpu_fn, _, _ = build_structured_problem(h64, device="cpu")
+            cpu_x64[shape] = (cpu_fn(x0)[1], time.perf_counter() - t0)
+        out[shape] = {}
+        for route in ("library", "kernel"):
+            tag = f"user_path {shape} ({route})"
+            sec = {"inputs": inputs_s}
+            with one_launch_psd(route == "kernel"):
+                t0 = time.perf_counter()
+                handler = TemplateBundleHandler(cams, target, det,
+                                                options=opts)
+                handler.set_initial_params(x0)
+                sec["handler"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                solve_fn, residual_fn, x_init = build_structured_problem(
+                    handler, device=dev)
+                torch.cuda.synchronize()
+                sec["build"] = time.perf_counter() - t0
+                x_ref, ref = solve_fn(x_init, graph=False)
+                runner = solve_fn.problem.graph()
+                t0 = time.perf_counter()
+                x_first, first = solve_fn(x_init)        # captures
+                sec["first_solve"] = time.perf_counter() - t0
+                graph, replays = runner.graph, runner.replays
+                counts, (x_warm, warm) = solve_kernel_counts(
+                    lambda: solve_fn(x_init))
+                check(runner.graph is graph and graph is not None
+                      and runner.replays - replays == warm.nit,
+                      f"{tag}: not one capture and one replay a step")
+                check(same_solve(first, ref) and same_solve(warm, ref)
+                      and np.array_equal(x_first, x_ref)
+                      and np.array_equal(x_warm, x_ref),
+                      f"{tag}: the captured solve differs from the "
+                      f"uncaptured")
+                bench_counts, bench = solve_kernel_counts(prob.solve)
+                gram = [n for n in counts if n.startswith("gram_kernel")]
+                check(len(gram) == 1 and gram == [
+                    n for n in bench_counts if n.startswith("gram_kernel")]
+                      and counts[gram[0]] * bench.nfev
+                      == bench_counts[gram[0]] * warm.nfev,
+                      f"{tag}: gram kernels {counts}, problems.py "
+                      f"{bench_counts} (nfev {warm.nfev}, {bench.nfev})")
+                n_psd = sum(n for name, n in counts.items()
+                            if name.split("<")[0] == "psd_solve_kernel")
+                check(n_psd == (warm.nit if route == "kernel" else 0),
+                      f"{tag}: {n_psd} SPD kernel launches in "
+                      f"{warm.nit} LM steps")
+                handler_ms = timed(lambda: solve_fn(x_init), 5)
+                bench_ms = timed(prob.solve, 5)
+                t0 = time.perf_counter()
+                resid = residual_fn(x_ref)
+                sec["residual_fn"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                handler.get_camset(x_ref)
+                sec["get_camset"] = time.perf_counter() - t0
+
+                e2e_handler = TemplateBundleHandler(cams, target, det,
+                                                    options=opts)
+                e2e_handler.set_initial_params(x0)
+                save = route == "library" or shape == "template 16x100"
+                with tempfile.TemporaryDirectory() as tmp, \
+                        timed_method(CameraSet, "save", sec, "save"):
+                    path = os.path.join(tmp, "cams.camset")
+                    zero_counts(counted)
+                    cc.psd_solve_raw.launches = 0
+                    t0 = time.perf_counter()
+                    solved = run_stereo_calibration(
+                        None, None, None, param_handler=e2e_handler,
+                        save=save, save_loc=path, device=dev)
+                    sec["run_stereo_calibration"] = time.perf_counter() - t0
+                    launches = {n: fn.launches for n, fn in counted.items()}
+                    n_psd_e2e = cc.psd_solve_raw.launches
+                    if save:
+                        t0 = time.perf_counter()
+                        back = load_CameraSet(path)
+                        sec["load"] = time.perf_counter() - t0
+                        file_mib = os.path.getsize(path) / 2 ** 20
+            check(launches[own] > 0 and not any(
+                n for name, n in launches.items() if name != own),
+                f"{tag}: run_stereo_calibration launched {launches}")
+            check(np.array_equal(solved.calibration_params, x_ref),
+                  f"{tag}: run_stereo_calibration's parameters differ from "
+                  f"the solve's")
+            check(not save or (
+                back == solved and back.calibration_handler is not None
+                and np.array_equal(back.calibration_params,
+                                   solved.calibration_params)
+                and np.array_equal(back.calibration_result,
+                                   solved.calibration_result)),
+                f"{tag}: the loaded CameraSet differs from the returned")
+            check(np.array_equal(solved.calibration_result,
+                                 resid.reshape(-1)),
+                  f"{tag}: calibration_result is not residual_fn(x)")
+            status = int(ref.status)
+            rms = solve_fn.problem.rms_px(ref.cost)
+            check(status in (1, 2), f"{tag}: status {status}")
+            check(rms <= 0.36, f"{tag}: rms {rms} above 0.36 px")
+            check(ref.nit <= 10, f"{tag}: nit {ref.nit} > 10")
+            fields = {}
+            if shape in cpu_x64:
+                cpu, cpu_s = cpu_x64[shape]
+                rel = abs(float(ref.cost) - float(cpu.cost)) / float(cpu.cost)
+                check(rel <= 1e-4, f"{tag}: cost differs from the float64 "
+                                   f"CPU handler solve by {rel:.3e}")
+                fields = dict(cpu_f64_nit=cpu.nit, cpu_f64_s=f"{cpu_s:.1f}",
+                              rel_cost_diff_cpu_f64=f"{rel:.3e}")
+            say("user_path", shape=shape.replace(" ", "_"), dense_solve=route,
+                same_bits=True, nit=ref.nit, nfev=ref.nfev, status=status,
+                rms_px=f"{rms:.5f}", cost=f"{float(ref.cost):.6f}",
+                n_real=prob.blocks.n_real, im_grid=solve_fn.problem.blocks.n_ims,
+                **fields,
+                **{f"launches_{k}": v for k, v in counts.items()},
+                launches_per_eval_vs_problems=(
+                    f"{counts[gram[0]]}/{warm.nfev}"
+                    f"={bench_counts[gram[0]]}/{bench.nfev}"),
+                e2e_launches=f"{own}:{launches[own]},psd:{n_psd_e2e}",
+                capture_ms=f"{runner.capture_ms:.1f}",
+                solve_ms_median=f"{np.median(handler_ms):.3f}",
+                solve_ms_all=",".join(f"{t:.2f}" for t in handler_ms),
+                problems_solve_ms_median=f"{np.median(bench_ms):.3f}",
+                saved=save, **({"file_mib": f"{file_mib:.1f}"} if save else {}),
+                **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()})
+            out[shape][route] = {own: launches[own], PSD[0]: n_psd_e2e}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1675,6 +1903,15 @@ def main() -> int:
     fleet_rec = phase_fleet(fleet)
     say("elapsed", after="fleet",
         seconds=f"{time.perf_counter() - t_start:.1f}")
+    del fleet
+    torch.cuda.empty_cache()
+    user = phase_user_path(probs, {})
+    say("elapsed", after="user_path",
+        seconds=f"{time.perf_counter() - t_start:.1f}")
+    for shape, by_route in user.items():
+        for route, counts in by_route.items():
+            for name, n in counts.items():
+                launches[name][f"user_path {shape} ({route})"] = n
 
     fleet_shape = f"fleet {'x'.join(map(str, FLEET))}"
     launches["template_gram_fused"][fleet_shape] = fleet_rec["launches"]

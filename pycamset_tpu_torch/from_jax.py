@@ -2,7 +2,7 @@
 
 The inputs are numpy arrays (``np.asarray`` of a JAX array, or the JAX
 package's host-numpy pieces); the outputs are the port's tensors on a given
-device and dtype. This module imports no JAX: a caller that holds JAX arrays
+device and dtype, or its CameraSet and TargetDetection. This module imports no JAX: a caller that holds JAX arrays
 converts them with ``np.asarray`` first.
 """
 from __future__ import annotations
@@ -11,6 +11,8 @@ import numpy as np
 import torch
 
 from pycamset_tpu_torch.config import resolve_device
+from pycamset_tpu_torch.models.camera_set import CameraSet, make_cam_dict
+from pycamset_tpu_torch.models.detections import TargetDetection
 from pycamset_tpu_torch.optim.fleet import shared_template
 from pycamset_tpu_torch.optim.structured import ParamPieces
 from pycamset_tpu_torch.optim.structured_mixed import MixedPieces
@@ -52,3 +54,21 @@ def fleet_from_numpy(pieces, uv, mask, tpl, device, dtype):
             tensor_from_numpy(mask, device, dtype),
             tensor_from_numpy(shared_template(np.asarray(tpl)), device,
                               dtype))
+
+
+def camset_from_numpy(names, ext4x4, kmats, dists, res):
+    """A CameraSet of the port from per-camera numpy arrays (a JAX
+    package's CameraSet as ``[c.extrinsic for c in cams]`` etc.)."""
+    return CameraSet(camera_dict=make_cam_dict(
+        list(names), [np.asarray(e, dtype=float) for e in ext4x4],
+        [np.asarray(k, dtype=float) for k in kmats],
+        [np.asarray(d, dtype=float) for d in dists],
+        [list(np.asarray(r).tolist()) for r in res]))
+
+
+def detection_from_numpy(cam_names, table, max_ims):
+    """A TargetDetection of the port from a detection table (numpy,
+    [cam, im, key..., u, v] rows) and its image count."""
+    return TargetDetection(cam_names=list(cam_names),
+                           data=np.array(table, dtype=float),
+                           max_ims=int(max_ims))

@@ -1,0 +1,216 @@
+"""The Camera model: pinhole + Brown–Conrady with derived state.
+
+Counterpart of the state and device parts of ``pycamset_tpu/models/camera.py``
+(``:74-237``): the state (extrinsic 4x4, intrinsic 3x3, 5-coefficient
+distortion, res, name), the state derived from it on update (cam_to_world,
+position, view and up vectors, fov, the 3x4 projection, the optional sensor
+map), ``project_points``, ``undistort_points``, ``im_to_world_ray`` and the
+image ``undistort``. Standard model only (ROADMAP Queue A item 7); plots,
+meshes and intrinsic editing wait for item 10.
+
+Projection and undistortion run through the port's torch ops on
+``device`` (the card unless the caller names another; dtype as
+``config.default_device_dtype``) and return numpy. The sensor map is the
+port's fixed-point undistortion of every pixel, where the JAX package calls
+``cv2.undistortImagePoints``. The image ``undistort`` is an OpenCV remap and
+imports cv2 when it is called.
+"""
+from __future__ import annotations
+
+import logging
+import math
+from copy import deepcopy
+
+import numpy as np
+import torch
+
+from pycamset_tpu_torch.config import default_device_dtype, resolve_device
+from pycamset_tpu_torch.ops.distortion import distort_pixels, undistort_pixels
+from pycamset_tpu_torch.utils.general_utils import (h_tform, require_cv2,
+                                                    vector_cam_points)
+
+DEFAULT_RES = [1000, 1000]
+DEFAULT_FOCAL_PX = 1000.0
+
+# vector-mode rays are returned as short segments so downstream consumers
+# get a point near the camera, not at unit range
+VECTOR_RAY_SEGMENT = 0.1
+# the focal point marker is drawn this many world units per 1000 focal px
+FOCAL_MARKER_PER_KPX = 1.0 / 1000.0
+
+
+def _default_intrinsic() -> np.ndarray:
+    k = np.eye(3)
+    k[0, 0] = k[1, 1] = DEFAULT_FOCAL_PX
+    k[0, 2] = DEFAULT_RES[0] / 2
+    k[1, 2] = DEFAULT_RES[1] / 2
+    return k
+
+
+def _on_device(fn, arrays, device, dtype) -> np.ndarray:
+    """fn over the numpy ``arrays`` as tensors on ``device``, as numpy."""
+    device = resolve_device(device)
+    dtype = dtype or default_device_dtype(device)
+    out = fn(*(torch.as_tensor(np.asarray(a, dtype=float), dtype=dtype,
+                               device=device) for a in arrays))
+    return out.double().cpu().numpy()
+
+
+def sensor_map(map_type, intrinsics, res=(1600, 1200), dist_coefs=None,
+               device="cuda", dtype=None) -> np.ndarray:
+    """Per-pixel ray directions (res[0], res[1], 3) in camera space, the
+    pixels undistorted first when ``dist_coefs`` is given (on ``device``,
+    the card unless the caller names another)."""
+    if map_type not in ("normalised", "linear"):
+        raise ValueError("Invalid sensor map type")
+    v, u = np.meshgrid(np.arange(res[1]), np.arange(res[0]))
+    px = np.stack([u.ravel(), v.ravel()], axis=1).astype(float)
+    if dist_coefs is not None:
+        px = _on_device(undistort_pixels,
+                        (px, intrinsics, np.ravel(dist_coefs)), device, dtype)
+    homog = np.hstack([px, np.ones((len(px), 1))])
+    rays = (homog @ np.linalg.inv(intrinsics).T).reshape(res[0], res[1], 3)
+    if map_type == "normalised":
+        rays = rays / np.linalg.norm(rays, axis=-1, keepdims=True)
+    return rays
+
+
+class Camera:
+    """An object-oriented pinhole + distortion camera model."""
+
+    def __init__(self, extrinsic=None, intrinsic=None, res=None,
+                 distortion_coefs=None, name: str | None = None,
+                 minimal: bool = True, device="cuda"):
+        """
+        :param extrinsic: 4x4 world->camera transform.
+        :param intrinsic: 3x3 pinhole intrinsic matrix.
+        :param res: camera resolution.
+        :param distortion_coefs: 5-parameter Brown–Conrady model
+            [k1, k2, p1, p2, k3].
+        :param name: camera name.
+        :param minimal: skip the eager sensor map (lazy for hi-res cams).
+        :param device: where a non-minimal camera builds its sensor map on
+            each update (the card unless the caller names another).
+        """
+        self.res = DEFAULT_RES if res is None else res
+        self.extrinsic = (np.eye(4) if extrinsic is None
+                          else np.asarray(extrinsic, dtype=float))
+        self.intrinsic = (_default_intrinsic() if intrinsic is None
+                          else np.asarray(intrinsic, dtype=float))
+        self.original_matrix = deepcopy(self.intrinsic)
+        self.distortion_coefs = (np.zeros(5) if distortion_coefs is None
+                                 else np.ravel(np.asarray(distortion_coefs,
+                                                          dtype=float)))
+        self.cam_to_world: np.ndarray | None = None
+        self.down_scale_factor: int = 0
+        self.name = name
+        self.minimal = bool(minimal)
+        self.device = device
+        self._update_state()
+
+    def __eq__(self, other):
+        if not isinstance(other, Camera):
+            return False
+        return bool(np.allclose(self.intrinsic, other.intrinsic)
+                    and np.allclose(self.extrinsic, other.extrinsic)
+                    and np.allclose(np.ravel(self.distortion_coefs),
+                                    np.ravel(other.distortion_coefs)))
+
+    # ------------------------------------------------------- derived state
+
+    def _update_state(self):
+        """Recalculate all state derived from the camera parameters (the
+        eager sensor map of a non-minimal camera on ``self.device``)."""
+        c2w = np.linalg.inv(self.extrinsic)
+        self.cam_to_world = c2w
+        # columns of the rotation part are the camera axes in world space
+        self.position = c2w[:3, 3]
+        self.view = c2w[:3, 2]
+        self.u_axis = -c2w[:3, 1]
+        if self.minimal:
+            self.sensor_map = self.world_sensor_map = None
+        else:
+            self._make_sensormap(device=self.device)
+        focal_px = self.intrinsic[0, 0]
+        self.focal_point = (self.position
+                            + FOCAL_MARKER_PER_KPX * focal_px * self.view)
+        self.fov = math.degrees(
+            2.0 * np.arctan2(self.res[1] / 2, self.intrinsic[0, 0]))
+        self.proj = self.intrinsic @ self.extrinsic[:3]
+
+    def set_extrinsic(self, new_extrinsic):
+        self.extrinsic = np.asarray(new_extrinsic, dtype=float)
+        self._update_state()
+
+    def set_distortion_coefs(self, dist_coefs):
+        self.distortion_coefs = np.ravel(np.asarray(dist_coefs, dtype=float))
+        self._update_state()
+
+    # ----------------------------------------------------------- projection
+
+    def project_points(self, points, mode: str = "opencv",
+                       distort: bool = True, device="cuda", dtype=None):
+        """Project world points (n, 3) to pixel coordinates.
+
+        :param mode: 'opencv' returns (u, v); 'image' returns (v, u).
+        :param distort: apply the lens distortion model (on ``device``).
+        """
+        uv = np.atleast_2d(h_tform(np.asarray(points, dtype=float),
+                                   self.proj))
+        dist = np.ravel(self.distortion_coefs)
+        if distort and np.any(dist):
+            uv = _on_device(distort_pixels, (uv, self.intrinsic, dist),
+                            device, dtype)
+        return uv[:, ::-1] if mode == "image" else uv
+
+    def undistort_points(self, uv, iters: int = 8, device="cuda",
+                         dtype=None):
+        """Invert lens distortion on pixel coordinates (n, 2)."""
+        return _on_device(
+            lambda p, k, d: undistort_pixels(p, k, d, iters=iters),
+            (uv, self.intrinsic, np.ravel(self.distortion_coefs)),
+            device, dtype)
+
+    # ------------------------------------------------------------ ray casts
+
+    def _make_sensormap(self, mode="linear", distort=True, device="cuda"):
+        self.sensor_map = sensor_map(
+            mode, self.intrinsic, tuple(self.res),
+            dist_coefs=self.distortion_coefs if distort else None,
+            device=device)
+        # camera-space rays rotated into world axes (stored relative to the
+        # camera centre)
+        self.world_sensor_map = np.einsum(
+            "ij,uvj->uvi", self.cam_to_world[:3, :3], self.sensor_map)
+
+    def get_image_cord_sensor_map(self):
+        """Sensor map in image (v, u) order rather than opencv (u, v)."""
+        return self.world_sensor_map.transpose(1, 0, 2)
+
+    def im_to_world_ray(self, cord, depth_im=None, distort=True,
+                        use_vector=False, device="cuda"):
+        """Pixel coordinate(s) (n, 2) -> world-space ray endpoints; with a
+        depth image the ray length is the depth at the pixel."""
+        px = np.atleast_2d(np.asarray(cord))
+        if use_vector:
+            src = self.undistort_points(px, device=device) if distort else px
+            dirs = vector_cam_points("linear", src, self.intrinsic,
+                                     self.cam_to_world)
+            return self.position + VECTOR_RAY_SEGMENT * dirs
+        self._make_sensormap(distort=distort, device=device)
+        dirs = self.world_sensor_map[px[:, 0], px[:, 1]]
+        if depth_im is not None:
+            depth = depth_im[px[:, 1], px[:, 0]]
+            if np.any(np.isnan(depth)):
+                logging.warning("Nan length found in depth image used for ray")
+            dirs = depth[:, None] * dirs
+        return self.position + dirs
+
+    def undistort(self, image: np.ndarray) -> np.ndarray:
+        """Undistort an image with the camera parameters (an OpenCV remap,
+        on the host)."""
+        cv2 = require_cv2("Camera.undistort (an image remap)",
+                          "undistort images where OpenCV is installed")
+        return cv2.undistort(image, self.intrinsic,
+                             np.ravel(np.asarray(self.distortion_coefs,
+                                                 dtype=float)))

@@ -1,0 +1,109 @@
+"""The optimisation driver: handler -> device problem -> LM -> CameraSet.
+
+Counterpart of ``OptimizeResult``, ``run_bundle_adjustment`` and
+``_finish_bundle_adjustment`` in ``pycamset_tpu/optim/driver.py``, for the
+backends ``"auto"`` and ``"structured"``: the handler's problem built by
+``optim/structured_driver.py``, solved by the structured LM (one CUDA graph
+replay per LM step on a card), the residuals and the calibrated CameraSet
+with its calibration history. ``device`` is the card unless the caller names
+another; dtype as ``config.default_device_dtype``.
+
+Not in this slice, each raising ``NotImplementedError`` with its ROADMAP
+Queue A item, never another backend: ``backend="scipy"`` and the generic
+fallback of ``"auto"`` (item 8), the mixed and grouped structured backend
+(``build_mixed_structured_problem``, the next slice of item 3),
+``backend="sharded"`` (item 11) and ``shared_intrinsics`` (item 7).
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+import numpy as np
+
+from pycamset_tpu_torch.optim.structured import UnsupportedChain
+from pycamset_tpu_torch.optim.structured_driver import (
+    build_structured_problem)
+
+
+class OptimizeResult(dict):
+    """A scipy-style result bag with attribute access."""
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    __setattr__ = dict.__setitem__
+
+
+def run_bundle_adjustment(param_handler, threads: int = 1, dtype=None,
+                          backend: str = "auto", device="cuda"
+                          ) -> tuple[OptimizeResult, object]:
+    """Solve the bundle adjustment a handler describes.
+
+    :return: (OptimizeResult with x / fun / cost / nfev / nit / status /
+              history, the argmin CameraSet)
+    """
+    logging.info("Making optimisation problem")
+    if backend not in ("auto", "structured"):
+        item = {"sharded": "11"}.get(backend, "8")
+        raise NotImplementedError(
+            f"backend={backend!r} is not ported yet (ROADMAP Queue A item "
+            f"{item}); the port serves 'auto' and 'structured'")
+    if param_handler.problem_opts.get("shared_intrinsics"):
+        raise NotImplementedError(
+            "shared_intrinsics (the tied backend, optim/shared_intr.py) is "
+            "not ported yet (ROADMAP Queue A item 7)")
+    try:
+        solve_fn, residual_fn, init_params = build_structured_problem(
+            param_handler, dtype=dtype, device=device)
+    except UnsupportedChain as e:
+        raise NotImplementedError(
+            f"{e}: the mixed and grouped structured backend "
+            f"(build_mixed_structured_problem) is the next slice of ROADMAP "
+            f"Queue A item 3, and backend='auto''s generic fallback is item "
+            f"8") from e
+    logging.info("Using the structured (Schur) backend")
+    return _finish_bundle_adjustment(param_handler, solve_fn, residual_fn,
+                                     init_params)
+
+
+def _finish_bundle_adjustment(param_handler, solve_fn, residual_fn,
+                              init_params):
+    """Run the built solver and package the result."""
+    init_err = residual_fn(init_params)
+    init_euclid = float(np.mean(np.linalg.norm(init_err, axis=1)))
+    logging.info(f"found {len(init_params):.2e} parameters")
+    logging.info(f"found {init_err.size:.2e} control points")
+    logging.info(f"Initial Euclidean error: {init_euclid:.2f} px")
+    if init_euclid > 150 or np.isnan(init_euclid):
+        logging.critical(
+            "Found worryingly high/NaN initial error: check that the initial "
+            "parametisation is sensible")
+        logging.info(
+            "This can often indicate failure to place a camera or target "
+            "correctly, giving nonsensical errors.")
+
+    start = time.time()
+    x_final, res = solve_fn(init_params)
+    end = time.time()
+
+    final_res = residual_fn(x_final)
+    final_euclid = float(np.mean(np.linalg.norm(final_res, axis=1)))
+    logging.info(f"Final Euclidean error: {final_euclid:.2f} px")
+    logging.info(f"Optimisation took {end - start: .2f} seconds.")
+    if final_euclid > 5:
+        logging.critical(
+            "Remaining error is very large: please check the output results")
+
+    history = np.asarray(res.history.double().cpu())
+    optimisation = OptimizeResult(
+        x=x_final, fun=final_res.reshape(-1), jac=None,
+        cost=float(res.cost) * 0.5, nfev=int(res.nfev), nit=int(res.nit),
+        status=int(res.status), history=history[history >= 0])
+
+    camset = param_handler.get_camset(x_final)
+    camset.set_calibration_history(optimisation, param_handler)
+    return optimisation, camset

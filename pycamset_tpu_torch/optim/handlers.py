@@ -1,0 +1,540 @@
+"""Parameter handlers: the problem a bundle adjustment solves.
+
+Counterpart of the template half of ``pycamset_tpu/optim/handlers.py``:
+``DEFAULT_OPTIONS``, ``parse_camera_models``, ``TemplateBundlePrimitive``
+(the flat parameter vector <-> [intr 9/cam | extr 6/cam | pose 6/im]
+arrays, with the fixed-parameter masks) and ``TemplateBundleHandler`` (the
+target-pose BA of a CameraSet, a target and its TargetDetection: layout,
+fixed parameters, the PnP seed, MAD outlier exclusion, the calibrated
+CameraSet), with ``estimate_camera_relative_poses`` and the helpers they
+call. The handler is host state; ``optim/structured_driver.py`` builds the
+device problem from it.
+
+Standard camera model only: another ``camera_model`` raises
+``NotImplementedError`` (ROADMAP Queue A item 7). The PnP seed
+(``calc_initial_params``) is OpenCV on the host, imported when it runs;
+without cv2 it raises ``ImportError`` and ``set_initial_params(x0)`` seeds
+the handler instead (the path a card's machine takes). Its Rodrigues
+conversions go through cv2 too, so the seed is the JAX package's bit for
+bit. The self-calibration, free-point, rolling-shutter and
+multi-target handlers are later slices of items 3 and 7.
+"""
+from __future__ import annotations
+
+import logging
+from copy import deepcopy
+
+import numpy as np
+
+import pycamset_tpu_torch.utils.general_utils as gu
+from pycamset_tpu_torch.models.abstract_target import (  # noqa: F401
+    SEED_INSTEAD, AbstractTarget, FreePointTarget)
+from pycamset_tpu_torch.models.camera_set import CameraSet
+from pycamset_tpu_torch.models.detections import TargetDetection
+from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, Projection,
+                                             TemplatePoints)
+from pycamset_tpu_torch.optim.chain import OptimFunction
+
+DEFAULT_OPTIONS = {
+    "verbosity": 2,
+    "fixed_pose": 0,
+    "ref_cam": 0,
+    "ref_pose": 0,
+    "outliers": "ask",
+    "max_nfev": 100,
+    "camera_model": "standard",
+}
+
+_CAMERA_MODELS = {"standard": 9, "rational": 12, "thin_prism": 16,
+                  "tilted": 18, "fisheye": 8}
+
+
+def parse_camera_models(opt, cam_names):
+    """Resolve the ``camera_model`` option (one name, a {cam_name: model}
+    dict or a per-camera list) into per-camera models.
+
+    :return: (models, het, base_model), as the JAX package's; only the
+        uniform standard rig is ported, (models, False, None), and any
+        other known model raises ``NotImplementedError`` (ROADMAP Queue A
+        item 7).
+    """
+    if isinstance(opt, str):
+        models = [opt] * len(cam_names)
+    elif isinstance(opt, dict):
+        by_name = {str(k): v for k, v in opt.items()}
+        missing = [str(c) for c in cam_names if str(c) not in by_name]
+        if missing:
+            raise ValueError(
+                f"camera_model map is missing cameras {missing}; give one "
+                "model per camera (or a single model name for the rig)")
+        models = [by_name[str(c)] for c in cam_names]
+    else:
+        models = [str(m) for m in opt]
+        if len(models) != len(cam_names):
+            raise ValueError(
+                f"camera_model list has {len(models)} entries for "
+                f"{len(cam_names)} cameras")
+    for m in models:
+        if m not in _CAMERA_MODELS:
+            raise ValueError(
+                f"Unknown camera_model {m!r}; expected one of "
+                f"{sorted(_CAMERA_MODELS)}")
+    other = sorted(set(models) - {"standard"})
+    if other:
+        raise NotImplementedError(
+            f"camera_model {other} is not ported yet (ROADMAP Queue A item "
+            f"7); only the standard model is")
+    return models, False, None
+
+
+def _pack_dist(dist, n: int) -> np.ndarray:
+    """Pad/truncate a distortion vector to n coefficients (OpenCV order)."""
+    d = np.reshape(np.asarray(dist, dtype=float), (-1,))
+    if d.size > n and np.any(d[n:] != 0):
+        logging.warning(
+            f"Truncating a {d.size}-coefficient distortion vector to {n} "
+            "coefficients; the other camera models are not ported yet "
+            "(ROADMAP Queue A item 7)")
+    return np.pad(d, (0, max(0, n - d.size)))[:n]
+
+
+# ----------------------------------------------------------------- primitive
+
+class TemplateBundlePrimitive:
+    """Base arrays (poses, extr, intr) + per-row unfixed masks for the
+    template BA; maps the free parameter vector to and from the arrays."""
+
+    def __init__(self, poses, extr, intr, poses_unfixed=None,
+                 extr_unfixed=None, intr_unfixed=None):
+        self.poses = poses
+        self.extr = extr
+        self.intr = intr
+        self.intr_width = intr.shape[1]
+        self.poses_unfixed = (poses_unfixed if poses_unfixed is not None
+                              else np.ones(poses.shape[0], dtype=bool))
+        self.extr_unfixed = (extr_unfixed if extr_unfixed is not None
+                             else np.ones(extr.shape[0], dtype=bool))
+        self.intr_unfixed = (intr_unfixed if intr_unfixed is not None
+                             else np.ones(intr.shape[0], dtype=bool))
+        self.calc_free_poses()
+
+    def calc_free_poses(self):
+        self.free_poses = int(np.sum(self.poses_unfixed))
+        self.free_extr = int(np.sum(self.extr_unfixed))
+        self.free_intr = int(np.sum(self.intr_unfixed))
+        self.intr_end = self.intr_width * self.free_intr
+        self.extr_end = 6 * self.free_extr + self.intr_end
+        self.pose_end = 6 * self.free_poses + self.extr_end
+
+    def base_full(self) -> np.ndarray:
+        """The full [intr | extr | poses] vector."""
+        return np.concatenate(
+            [self.intr.ravel(), self.extr.ravel(), self.poses.ravel()])
+
+    def unfixed_full(self) -> np.ndarray:
+        """(full,) bool: the free entries of the full vector."""
+        return np.concatenate([
+            np.repeat(self.intr_unfixed, self.intr_width),
+            np.repeat(self.extr_unfixed, 6),
+            np.repeat(self.poses_unfixed, 6)])
+
+    def return_bundle_primitives(self, params):
+        """Scatter a free parameter vector into the full arrays."""
+        full = self.base_full()
+        full[self.unfixed_full()] = params
+        n_c = self.intr.shape[0]
+        n_p = self.poses.shape[0]
+        ie, ee = self.intr_width * n_c, (self.intr_width + 6) * n_c
+        self.intr[:] = full[:ie].reshape(n_c, self.intr_width)
+        self.extr[:] = full[ie:ee].reshape(n_c, 6)
+        self.poses[:] = full[ee:].reshape(n_p, 6)
+        return self.intr, self.extr, self.poses
+
+
+# -------------------------------------------------------------------- handler
+
+class TemplateBundleHandler:
+    """The standard target-pose bundle adjustment of a CameraSet, a target
+    and its TargetDetection: parameter layout, fixed-parameter masks,
+    initial estimates and the calibrated CameraSet.
+
+    Extension hooks: ``add_extra_params`` appends extra initial parameters,
+    ``parse_extra_params_and_setup`` consumes them.
+    """
+
+    def __init__(self, camset: CameraSet, target: AbstractTarget,
+                 detection: TargetDetection, fixed_params: dict | None = None,
+                 options: dict | None = None, missing_poses=None):
+        self.problem_opts = dict(DEFAULT_OPTIONS)
+        if options is not None:
+            self.problem_opts.update(options)
+
+        self.fixed_params = gu.list_dict_to_np_array(fixed_params) or {}
+        self.camset = camset
+        self.cam_names = camset.get_names()
+        self.detection = deepcopy(detection)
+        self.target = target
+        self.point_data = deepcopy(target.point_data)
+        self.target_point_shape = np.array(target.point_data.shape)
+        self.initial_params = None
+
+        n_poses = detection.max_ims
+        n_cams = camset.get_n_cams()
+        self.camera_models, _, _ = parse_camera_models(
+            self.problem_opts.get("camera_model", "standard"),
+            self.cam_names)
+        self.camera_model = "standard"
+        self.intr_width = _CAMERA_MODELS["standard"]
+
+        intr = np.zeros((n_cams, self.intr_width))
+        extr = np.zeros((n_cams, 6))
+        poses = np.zeros((n_poses, 6))
+        extr_unfixed = np.array(
+            ["ext" not in self.fixed_params.get(c, {}) for c in self.cam_names])
+        intr_unfixed = np.array(
+            ["int" not in self.fixed_params.get(c, {}) for c in self.cam_names])
+        pose_unfixed = np.ones(n_poses, dtype=bool)
+        # fixed_pose=None means "no gauge pose" (a None index would add an
+        # axis and fix every pose)
+        if self.problem_opts.get("fixed_pose") is not None:
+            fixed_pose = self.problem_opts["fixed_pose"]
+            pose_unfixed[fixed_pose] = False
+            poses[fixed_pose, :] = 0.0
+        self.bundlePrimitive = TemplateBundlePrimitive(
+            poses, extr, intr, extr_unfixed=extr_unfixed,
+            intr_unfixed=intr_unfixed, poses_unfixed=pose_unfixed)
+        self.populate_self_from_fixed_params()
+
+        self.missing_poses = missing_poses
+        self.op_fun = OptimFunction(
+            [Projection(), Extrinsic3D(), TemplatePoints()])
+
+    def populate_self_from_fixed_params(self):
+        """Copy any fixed extrinsic/intrinsic values into the base arrays."""
+        for idx, cam_name in enumerate(self.cam_names):
+            fixed = self.fixed_params.get(cam_name, {})
+            if "ext" in fixed:
+                ext = np.asarray(fixed["ext"], dtype=float)
+                if ext.shape == (4, 4):
+                    rvec, tvec = gu.ext_4x4_to_rod(ext)
+                    ext = np.concatenate([rvec, tvec])
+                self.bundlePrimitive.extr[idx] = ext
+            if "int" in fixed:
+                intr = np.asarray(fixed["int"], dtype=float)
+                n_dist = self.bundlePrimitive.intr_width - 4
+                if intr.shape == (3, 3):
+                    # stored as the packed vector; distortion stays zero
+                    # unless 'dst' is also fixed
+                    dst = _pack_dist(fixed.get("dst", np.zeros(n_dist)),
+                                     n_dist)
+                    intr = np.concatenate(
+                        [intr[[0, 0, 1, 1], [0, 2, 1, 2]], dst])
+                self.bundlePrimitive.intr[idx] = _pack_dist(intr, n_dist + 4)
+
+    def n_keys(self) -> int:
+        return int(np.prod(self.target_point_shape[:-1]))
+
+    def template_table(self):
+        """The constant target-geometry lookup table."""
+        return self.point_data.reshape(-1, 3)
+
+    # ------------------------------------------------- initial parametrisation
+
+    def add_extra_params(self, param_array: np.ndarray) -> np.ndarray:
+        """Extension hook: append extra initial parameter estimates."""
+        return param_array
+
+    def parse_extra_params_and_setup(self, param_array: np.ndarray
+                                     ) -> np.ndarray:
+        """Extension hook: consume extra parameters, mutate handler state."""
+        return param_array
+
+    def set_initial_params(self, x: np.ndarray):
+        """Seed the solve with the free parameter vector x (no PnP, no
+        cv2)."""
+        self.initial_params = x
+
+    def get_initial_params(self) -> np.ndarray:
+        if self.initial_params is not None:
+            return self.initial_params
+        # cached: the PnP sweep and its outlier prompt run once
+        self.initial_params = self.calc_initial_params()
+        return self.initial_params
+
+    def calc_initial_params(self) -> np.ndarray:
+        """Seed the solve: intrinsics from the CameraSet, extrinsics and
+        target poses from PnP-based relative pose estimation (OpenCV, on
+        the host)."""
+        cv2 = gu.require_cv2("The PnP seed (calc_initial_params)",
+                             SEED_INSTEAD)
+        cams = self.camset
+        (cam_poses, target_poses, per_im_error,
+         pose_found) = estimate_camera_relative_poses(
+            detection=self.detection, cams=self.camset,
+            calibration_target=self.target,
+            ref_cam=self.problem_opts.get("ref_cam", 0),
+            ref_pose=self.problem_opts.get("ref_pose", 0))
+
+        # an image where no camera found a target pose has no seed: its
+        # detections leave the optimisation
+        self.missing_poses = ~pose_found
+        self.find_and_exclude_transform_outliers(per_im_error)
+
+        prim = self.bundlePrimitive
+        for idc in range(len(self.cam_names)):
+            if prim.intr_unfixed[idc]:
+                cam = cams[idc]
+                prim.intr[idc] = np.concatenate([
+                    cam.intrinsic[[0, 0, 1, 1], [0, 2, 1, 2]],
+                    _pack_dist(cam.distortion_coefs, self.intr_width - 4)])
+            if prim.extr_unfixed[idc]:
+                rvec, tvec = gu.cv2_rod(cv2, cam_poses[idc])
+                prim.extr[idc] = np.concatenate([rvec, tvec])
+        for idp in range(prim.poses.shape[0]):
+            if prim.poses_unfixed[idp]:
+                pose = target_poses[idp]
+                if np.any(np.isnan(pose)):
+                    pose = np.eye(4)
+                rvec, tvec = gu.cv2_rod(cv2, pose)
+                prim.poses[idp, :6] = np.concatenate([rvec, tvec])
+
+        params = prim.base_full()[prim.unfixed_full()]
+        return self.add_extra_params(params)
+
+    def find_and_exclude_transform_outliers(self, per_im_error):
+        """MAD-outlier poses are marked missing ('ask' prompts, 'y' drops
+        them, 'n' keeps them)."""
+        if self.missing_poses is None:
+            raise ValueError(
+                "missing poses should be initialised before calling this "
+                "function")
+        self.missing_poses = np.asarray(self.missing_poses, dtype=bool)
+        logging.info("Beginning outlier detection")
+        choice = self.problem_opts["outliers"]
+        for sweep in range(10):
+            live = np.flatnonzero(~self.missing_poses)
+            flagged = gu.mad_outlier_detection(per_im_error[live],
+                                               out_thresh=20)
+            if flagged is None:
+                logging.info(f"No outliers detected in iteration {sweep}.")
+                break
+            while choice not in ("y", "n"):
+                print(f"Outliers detected in iteration {sweep}.")
+                choice = input(
+                    "Drop these outlier poses from the problem? [y/n]: ")
+            if choice != "y":
+                break
+            self.missing_poses[live[flagged]] = True
+
+    # ------------------------------------------------------------ extraction
+
+    def get_bundle_adjustment_inputs(self, x, make_points: bool = False):
+        """Free params -> (intr, extr, poses) arrays, or the per-image
+        world-space target points when make_points=True."""
+        proj, extr, poses = self.bundlePrimitive.return_bundle_primitives(x)
+        if make_points:
+            im_points = np.empty((len(poses), *self.point_data.shape))
+            for idx, pose in enumerate(poses):
+                t = gu.make_4x4h_tform(pose[:3], pose[3:])
+                im_points[idx] = gu.h_tform(
+                    self.point_data.reshape(-1, 3), t).reshape(
+                        self.point_data.shape)
+            return np.reshape(im_points, (len(poses), -1, 3))
+        return proj, extr, poses
+
+    def get_camset(self, x, return_pose: bool = False):
+        """Free parameter vector -> calibrated CameraSet (+ target poses)."""
+        new_cams = _clone_camset(self.camset)
+        proj, extr, poses = self.bundlePrimitive.return_bundle_primitives(x)
+        _write_cams(new_cams, self.cam_names, proj, extr)
+        if not return_pose:
+            return new_cams
+        # flat-12 (R | t) per pose
+        ps = np.array([gu.make_4x4h_tform(p[:3], p[3:])[:3, :4].reshape(-1)
+                       for p in poses])
+        return new_cams, ps
+
+    def get_detection(self) -> TargetDetection:
+        return TargetDetection(cam_names=self.cam_names,
+                               data=self.get_detection_data())
+
+    def get_detection_data(self, flatten: bool = False) -> np.ndarray:
+        """The detection table of the optimisation (missing-pose rows
+        removed; optionally with flattened keys)."""
+        dims = self.target_point_shape[:-1]
+        detection = self.detection
+        if self.missing_poses is not None and np.any(self.missing_poses):
+            logging.info("Missing poses required removing detected data "
+                         "from the optimisation")
+            missing = np.where(np.asarray(self.missing_poses))[0]
+            detection = self.detection.delete_row(im_num=missing)
+        if flatten:
+            return detection.return_flattened_keys(dims).get_data()
+        return detection.get_data()
+
+
+def _clone_camset(camset: CameraSet) -> CameraSet:
+    """A fresh CameraSet of deep-copied Cameras (no calibration history)."""
+    return CameraSet(camera_dict={
+        name: deepcopy(camset[name]) for name in camset.get_names()})
+
+
+def _write_cams(new_cams, cam_names, proj, extr):
+    """Write packed [fx px fy py | dist] rows and extrinsics back into the
+    Camera objects."""
+    for idc, cam_name in enumerate(cam_names):
+        row = np.asarray(proj[idc], dtype=float)
+        intr = np.eye(3)
+        intr[0, 0], intr[0, 2], intr[1, 1], intr[1, 2] = row[:4]
+        cam = new_cams[cam_name]
+        cam.extrinsic = gu.make_4x4h_tform(extr[idc][:3], extr[idc][3:])
+        cam.intrinsic = intr
+        cam.distortion_coefs = np.array(row[4:])
+        cam._update_state()
+
+
+# -------------------------------------------------------- initial estimation
+
+def check_for_target_misalignment(tforms: np.ndarray, ref_cam: int = 0):
+    """Warn when relative cam-to-reference transforms vary across images (a
+    sign of misordered or desynchronised captures); nan poses (failed PnP)
+    drop out of the nan-aware statistics."""
+    nan4 = np.full((4, 4), np.nan)
+    inv_ref = [np.linalg.inv(p) if np.all(np.isfinite(p)) else nan4
+               for p in tforms[ref_cam]]
+    rel = np.array([[t_c @ r_t for r_t, t_c in zip(inv_ref, cam_t)]
+                    for cam_t in tforms])
+    for ic, rel_c in enumerate(rel):
+        if ic == ref_cam:
+            continue
+        angs = np.array([np.arccos(np.clip((np.trace(t[:3, :3]) - 1) / 2,
+                                           -1, 1)) for t in rel_c])
+        mags = [np.linalg.norm(t[:3, -1]) for t in rel_c]
+        std_ang, std_mag = np.nanstd(angs), np.nanstd(mags)
+        if std_mag > 0.050:
+            logging.critical(
+                f"Found inconsistent relative translation positions "
+                f"(stdev = {std_mag:.2f} m) for camera index {ic}")
+            logging.warning(
+                "This may indicate misordered images, temporal misalignment, "
+                "or very bad detections, and is likely to cause calibration "
+                "difficulties.")
+        if std_ang > 5 / 180 * np.pi:
+            logging.critical(
+                f"Found inconsistent relative angle magnitudes "
+                f"(stdev = {std_ang / np.pi * 180:.2f} degrees) for camera "
+                f"index {ic}")
+
+
+def check_feasiblity_and_update_refpose(mat_ac: np.ndarray,
+                                        ref_pose: int) -> int:
+    """Pick a reference image in which every camera found a pose."""
+    visible_pose = ~np.any(np.isnan(mat_ac[:, :, 0, 0]), axis=0)
+    if not visible_pose[ref_pose]:
+        f_index = int(np.argmax(visible_pose))
+        if not visible_pose[f_index]:
+            raise ValueError("Couldn't find an initial pose for all cameras.")
+        ref_pose = f_index
+    return ref_pose
+
+
+def reprojection_costs(dd: np.ndarray, imlocs: np.ndarray, proj: np.ndarray,
+                       ints: np.ndarray, dists: np.ndarray) -> np.ndarray:
+    """Per-detection reprojection residuals (host numpy), standard model:
+    P·X, divide, distort, subtract the measured uv.
+
+    :param dd: flattened detection table [cam, im, key, u, v].
+    :param imlocs: (n_ims, n_keys, 3) world-space target points per image.
+    :param proj: (C, 3, 4); :param ints: (C, 3, 3); :param dists: (C, 5).
+    :return: (N, 2) residuals.
+    """
+    cam = dd[:, 0].astype(int)
+    im = dd[:, 1].astype(int)
+    key = dd[:, 2].astype(int)
+    pts = imlocs[im, key]
+    p = proj[cam]
+    xyw = np.einsum("nij,nj->ni", p[:, :, :3], pts) + p[:, :, 3]
+    uv = xyw[:, :2] / xyw[:, 2:3]
+    f = np.stack([ints[cam, 0, 0], ints[cam, 1, 1]], axis=1)
+    c = np.stack([ints[cam, 0, 2], ints[cam, 1, 2]], axis=1)
+    xy = (uv - c) / f
+    x, y = xy[:, 0], xy[:, 1]
+    k1, k2, p1, p2, k3 = (dists[cam, i] for i in range(5))
+    r2 = x * x + y * y
+    radial = 1 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+    yd = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+    return np.stack([xd, yd], axis=1) * f + c - dd[:, 3:5]
+
+
+def estimate_camera_relative_poses(
+        calibration_target: AbstractTarget, detection: TargetDetection,
+        cams: CameraSet, ref_cam: int = 0, ref_pose: int = 0):
+    """Single-reference-camera pose initialisation (PnP, OpenCV on the host).
+
+    Per-camera PnP target poses per image; the reference image (seen by
+    every camera) anchors the world frame; each image's pose is the
+    per-camera candidate of least total reprojection cost.
+
+    :return: (cam_poses (C, 4, 4) world->cam, target_poses (I, 4, 4)
+        target->world, per_im_error (I,), pose_found (I,) bool).
+    """
+    img_detections = detection.get_image_list()
+    cam_list = list(cams)
+    # a thread-pooled C x I PnP sweep (solvePnPGeneric releases the GIL)
+    flat = gu.thread_map(
+        lambda ci: calibration_target.target_pose_in_cam_image(
+            img_detections[ci % len(img_detections)],
+            cam_list[ci // len(img_detections)], mode="nan"),
+        range(len(cam_list) * len(img_detections)))
+    mat_ac = np.array(flat).reshape(
+        len(cam_list), len(img_detections), 4, 4)               # (C,I,4,4)
+    # before any gap-filling: which images got a pose from ANY camera
+    pose_found = ~np.all(np.isnan(mat_ac[:, :, 0, 0]), axis=0)
+
+    check_for_target_misalignment(mat_ac, ref_cam)
+    ref_pose = check_feasiblity_and_update_refpose(mat_ac, ref_pose)
+
+    mrt_ac = mat_ac[:, ref_pose]                                # (C,4,4)
+    mac_rt = np.array([np.linalg.inv(m) for m in mrt_ac])
+    mat_rt_ac = mac_rt[:, None] @ mat_ac                        # (C,I,4,4)
+
+    dists = np.array([_pack_dist(c.distortion_coefs, 5) for c in cams])
+    ints = np.array([c.intrinsic for c in cams])
+    proj = ints @ mrt_ac[:, :3, :]
+
+    ps = calibration_target.point_data.reshape((-1, 3))
+    target_shape = calibration_target.point_data.shape
+    dd = detection.return_flattened_keys(target_shape[:-1]).get_data()
+    im_col = dd[:, 1].astype(int)
+    n_ims = int(detection.max_ims)
+
+    # score every camera's candidate pose set
+    errors = np.full((len(mat_rt_ac), n_ims), np.nan)
+    for idc, mat_rt_c in enumerate(mat_rt_ac):
+        nanform = np.isnan(mat_rt_c[:, 0, 0])
+        if np.all(nanform):
+            errors[idc] = np.inf  # this camera localised nothing
+            mat_rt_c[:] = np.eye(4)
+            continue
+        # gap-fill missing candidates from the nearest valid image
+        first_valid = int(np.argmin(nanform))
+        for idn, wasnan in enumerate(nanform):
+            if wasnan:
+                mat_rt_c[idn] = (mat_rt_c[idn - 1] if idn > first_valid
+                                 else mat_rt_c[first_valid])
+        imlocs = np.array([gu.h_tform(ps, m) for m in mat_rt_c])
+        costs = np.linalg.norm(
+            reprojection_costs(dd, imlocs, proj, ints, dists), axis=1)
+        errors[idc] = np.bincount(im_col, weights=costs, minlength=n_ims)
+
+    estimate_locs = np.argmin(errors, axis=0)                  # best cam per im
+    mat_rt = np.array([mat_rt_ac[e, i] for i, e in enumerate(estimate_locs)])
+
+    imlocs = np.array([gu.h_tform(ps, m) for m in mat_rt])
+    costs = np.linalg.norm(
+        reprojection_costs(dd, imlocs, proj, ints, dists), axis=1)
+    per_im_error = np.bincount(im_col, weights=costs, minlength=n_ims)
+
+    mat_rt[ref_pose] = np.eye(4)
+    return mrt_ac, mat_rt, per_im_error, pose_found

@@ -1,0 +1,106 @@
+"""A structured bundle-adjustment problem on one device.
+
+``BAProblem`` holds a problem's block arrays, start, column masks and loss
+on one device (template, self-calibration or grouped chain) and solves it
+with the structured LM. On a card it owns the CUDA graphs of its LM step
+(``graph``), one per dense-solve route, dtype and budget: the first solve
+captures one, and later solves of the same problem replay it.
+
+Both the bench's problems (``problems.py``) and the user path
+(``optim/structured_driver.py::build_structured_problem``) build one, so
+there is one LM driver.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from pycamset_tpu_torch.ops.cuda_cholesky import psd_opted_in
+from pycamset_tpu_torch.optim.chain import OptimFunction, ParamStruct
+from pycamset_tpu_torch.optim.structured import (BlockArrays, GroupWidths,
+                                                 ParamPieces, group_onehot,
+                                                 make_structured_neq)
+from pycamset_tpu_torch.optim.structured_lm import (SLMGraph,
+                                                    structured_lm_solve)
+
+
+@dataclass
+class BAProblem:
+    """A structured BA problem (template, self-cal or grouped chain) on one
+    device."""
+    op_fun: OptimFunction
+    widths: GroupWidths
+    struct: ParamStruct
+    blocks: BlockArrays
+    x0: ParamPieces        # start
+    uv: torch.Tensor       # (B, K, 2)
+    mask: torch.Tensor     # (B, K)
+    tpl: torch.Tensor      # (K, 3) template table; zeros for self-cal
+    colmask: ParamPieces   # 0/1 unfixed masks
+    loss: str
+    f_scale: float
+    loss_semantics: str
+    group_of_key: np.ndarray | None = None   # (K,) for the grouped chains
+    n_groups: int | None = None
+    max_nfev: int = 100
+    graphs: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def make_neq(self):
+        """The raw builder neq(pieces, uv, mask, tpl, colmask)."""
+        return make_structured_neq(
+            self.op_fun, self.widths, self.blocks.n_cams, self.blocks.n_ims,
+            loss=self.loss, f_scale=self.f_scale,
+            group_of_key=self.group_of_key, n_groups=self.n_groups,
+            loss_semantics=self.loss_semantics)
+
+    def ops(self):
+        """The LM's linear algebra: None for the structured defaults."""
+        return None
+
+    def key_operands(self, pieces, colmask):
+        """(keyp, kmask): the c-axis rows and their column masks on the key
+        grid, as the gram builders take them (the grouped chain's per-group
+        rows expanded by the group one-hot)."""
+        if self.group_of_key is None:
+            return pieces.key, colmask.key
+        oh = self.onehot(pieces.key)
+        return oh @ pieces.key, oh @ colmask.key
+
+    def onehot(self, like: torch.Tensor) -> torch.Tensor:
+        """The (K, G) group one-hot, in the dtype and on the device of
+        ``like``."""
+        return torch.as_tensor(group_onehot(self.group_of_key, self.n_groups),
+                               dtype=like.dtype, device=like.device)
+
+    def neq_fn(self):
+        """neq(pieces) -> NormalEq on this problem's data."""
+        neq = self.make_neq()
+        return lambda p: neq(p, self.uv, self.mask, self.tpl, self.colmask)
+
+    def graph(self, max_nfev: int | None = None) -> SLMGraph:
+        """This problem's LM step runner for the dense-solve route in force
+        (``PYCAMSET_PALLAS_CHOL``, read now), its dtype and ``max_nfev``:
+        captured by its first solve, replayed by the later ones. A graph
+        replayed under the other route would run the wrong route, so each
+        route has its own."""
+        key = (psd_opted_in(), self.x0.cam.dtype, max_nfev or self.max_nfev)
+        return self.graphs.setdefault(key, SLMGraph())
+
+    def solve(self, max_nfev: int | None = None, graph: bool = True,
+              x0: ParamPieces | None = None):
+        """The LM solve from ``x0`` (default: the problem's start, pieces of
+        its shapes, dtype and device). On a card each LM step is one replay
+        of this problem's CUDA graph (``graph``); ``graph=False`` runs the
+        uncaptured step, the reference. On the CPU, the host loop."""
+        if graph and self.x0.cam.device.type == "cuda":
+            graph = self.graph(max_nfev)
+        return structured_lm_solve(self.neq_fn(),
+                                   self.x0 if x0 is None else x0,
+                                   max_nfev=max_nfev or self.max_nfev,
+                                   ops=self.ops(), graph=graph)
+
+    def rms_px(self, cost) -> float:
+        """sqrt(cost / (2 n_real)), as bench.py reports it."""
+        return float(np.sqrt(float(cost) / (2 * self.blocks.n_real)))

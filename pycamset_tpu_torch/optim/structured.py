@@ -251,6 +251,37 @@ def pad_template_table(tpl_tab, templated: bool, n_keys: int,
     return tpl_pad
 
 
+def pad_pieces_to_grid(p: ParamPieces, widths: GroupWidths, grouped: bool,
+                       n_keys: int, k_pad: int, n_ims: int,
+                       n_ims_grid: int) -> ParamPieces:
+    """A rig's pieces on the (k_pad, n_ims_grid) device grid: pad key rows
+    replicate key 0 and pad image rows image 0 (their masks are zero, but
+    a real value keeps the projection finite); PER_GROUP key pieces keep
+    their (G, c) shape."""
+    if widths.c and not grouped:
+        key = torch.cat([p.key, p.key[:1].expand(k_pad - n_keys, -1)])
+    elif widths.c:
+        key = p.key
+    else:
+        key = p.cam.new_zeros((k_pad, 0))
+    if widths.b:
+        im = torch.cat([p.im, p.im[:1].expand(n_ims_grid - n_ims, -1)])
+    else:
+        im = p.cam.new_zeros((n_ims_grid, 0))
+    return ParamPieces(p.cam, im, key)
+
+
+def auto_reduced_solver(widths: GroupWidths, n_cams: int,
+                        n_ims_grid: int) -> str:
+    """The reduced_solver='auto' rule: dense Cholesky up to 4096 reduced
+    dims, matrix-free CG above. Chains without point blocks count only the
+    camera system (their pose system is eliminated in batch)."""
+    dim = n_cams * widths.a + n_ims_grid * widths.b
+    if widths.c == 0 and widths.b:
+        dim = n_cams * widths.a
+    return "cg" if dim > 4096 else "dense"
+
+
 def fused_tile_pad_ok(n_ims: int, tile: int = FUSED_PAD_TILE,
                       frac: float = FUSED_PAD_FRAC) -> bool:
     """The JAX package's fused-kernel acceptance rule: pad the image axis

@@ -217,7 +217,7 @@ def slm_run(neq_fn: Callable[[ParamPieces], NormalEq], state: SLMState, *,
     :param graph: on a CUDA state, True (the default) runs each step as one
         replay of a CUDA graph captured for this call; an ``SLMGraph``
         runs it through that runner, which keeps its capture for later
-        calls (``problems.BAProblem`` owns one per dense-solve route);
+        calls (``optim.problem.BAProblem`` owns one per dense-solve route);
         False runs the uncaptured step from the host, the reference. A CPU
         state runs the host loop, unless it is given an ``SLMGraph``, which
         then runs its step body uncaptured.

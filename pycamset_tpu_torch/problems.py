@@ -25,11 +25,17 @@ the (B, K) block grid, standard camera model.
   RigidTform3d + GroupTemplatePoints on the same rig, start and gauge (the
   points come from the template).
 
+- The user path (``template_handler``): the template problem's rig as a
+  CameraSet, a TargetDetection and a ``TemplateBundleHandler`` seeded at
+  the same start, for ``run_bundle_adjustment`` and
+  ``run_stereo_calibration``.
+
 - Fleet: ``bench.py::fleet_problem``, R template rigs of one structure
   and one target (seeds 100 + r, every start perturbed by one ``rng(7)``
   in rig order), solved as one batch (``optim/fleet.py``).
 
-A problem on a card owns the CUDA graphs of its LM step (``graph``), one
+Each problem is an ``optim.problem.BAProblem`` (or, for the fleet, a
+``FleetProblem``): on a card it owns the CUDA graphs of its LM step, one
 per dense-solve route, dtype and budget: the first solve captures one, and
 later solves of the same problem replay it. Each maker builds on the card
 unless the caller names another device (the tests name the CPU).
@@ -42,7 +48,9 @@ import numpy as np
 import torch
 
 from pycamset_tpu_torch.config import default_device_dtype, resolve_device
-from pycamset_tpu_torch.from_jax import (mixed_pieces_from_numpy,
+from pycamset_tpu_torch.from_jax import (camset_from_numpy,
+                                         detection_from_numpy,
+                                         mixed_pieces_from_numpy,
                                          pieces_from_numpy, tensor_from_numpy)
 from pycamset_tpu_torch.ops.cuda_cholesky import psd_opted_in
 from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, FreePoint,
@@ -51,97 +59,23 @@ from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, FreePoint,
                                              RigidTform3d, TemplatePoints)
 from pycamset_tpu_torch.optim.chain import OptimFunction, ParamStruct
 from pycamset_tpu_torch.optim.fleet import fleet_solve, shared_template
+from pycamset_tpu_torch.optim.handlers import (FreePointTarget,
+                                               TemplateBundleHandler)
+from pycamset_tpu_torch.optim.problem import BAProblem
 from pycamset_tpu_torch.optim.structured import (
-    BlockArrays, GroupWidths, ParamPieces, build_block_arrays, chain_widths,
-    group_onehot, make_structured_neq, pad_template_table, split_full_params)
+    GroupWidths, ParamPieces, build_block_arrays, chain_widths, group_onehot,
+    make_structured_neq, pad_template_table, split_full_params)
 from pycamset_tpu_torch.optim.structured_mixed import (
     MixedPieces, make_mixed_ops, make_mixed_structured_neq,
     mixed_chain_widths, pack_c_axis)
-from pycamset_tpu_torch.optim.structured_lm import (SLMGraph, SLMResult,
-                                                    structured_lm_solve)
+from pycamset_tpu_torch.optim.structured_lm import SLMResult
+from pycamset_tpu_torch.utils.general_utils import make_4x4h_tform
 from pycamset_tpu_torch.utils.synthetic import make_synthetic_rig
 
 
 # the multi-target problems' group poses at the start: group 0 is the
 # base target (fixed), group 1 starts offset from its true identity pose
 GROUP_START = np.array([[0.0] * 6, [0.04, -0.02, 0.06, 0.01, -0.02, 0.03]])
-
-
-@dataclass
-class BAProblem:
-    """A structured BA problem (template, self-cal or grouped chain) on one
-    device."""
-    op_fun: OptimFunction
-    widths: GroupWidths
-    struct: ParamStruct
-    blocks: BlockArrays
-    x0: ParamPieces        # start
-    uv: torch.Tensor       # (B, K, 2)
-    mask: torch.Tensor     # (B, K)
-    tpl: torch.Tensor      # (K, 3) template table; zeros for self-cal
-    colmask: ParamPieces   # 0/1 unfixed masks
-    loss: str
-    f_scale: float
-    loss_semantics: str
-    group_of_key: np.ndarray | None = None   # (K,) for the grouped chains
-    n_groups: int | None = None
-    max_nfev: int = 100
-    graphs: dict = field(default_factory=dict, repr=False, compare=False)
-
-    def make_neq(self):
-        """The raw builder neq(pieces, uv, mask, tpl, colmask)."""
-        return make_structured_neq(
-            self.op_fun, self.widths, self.blocks.n_cams, self.blocks.n_ims,
-            loss=self.loss, f_scale=self.f_scale,
-            group_of_key=self.group_of_key, n_groups=self.n_groups,
-            loss_semantics=self.loss_semantics)
-
-    def ops(self):
-        """The LM's linear algebra: None for the structured defaults."""
-        return None
-
-    def key_operands(self, pieces, colmask):
-        """(keyp, kmask): the c-axis rows and their column masks on the key
-        grid, as the gram builders take them (the grouped chain's per-group
-        rows expanded by the group one-hot)."""
-        if self.group_of_key is None:
-            return pieces.key, colmask.key
-        oh = self.onehot(pieces.key)
-        return oh @ pieces.key, oh @ colmask.key
-
-    def onehot(self, like: torch.Tensor) -> torch.Tensor:
-        """The (K, G) group one-hot, in the dtype and on the device of
-        ``like``."""
-        return torch.as_tensor(group_onehot(self.group_of_key, self.n_groups),
-                               dtype=like.dtype, device=like.device)
-
-    def neq_fn(self):
-        """neq(pieces) -> NormalEq on this problem's data."""
-        neq = self.make_neq()
-        return lambda p: neq(p, self.uv, self.mask, self.tpl, self.colmask)
-
-    def graph(self, max_nfev: int | None = None) -> SLMGraph:
-        """This problem's LM step runner for the dense-solve route in force
-        (``PYCAMSET_PALLAS_CHOL``, read now), its dtype and ``max_nfev``:
-        captured by its first solve, replayed by the later ones. A graph
-        replayed under the other route would run the wrong route, so each
-        route has its own."""
-        key = (psd_opted_in(), self.x0.cam.dtype, max_nfev or self.max_nfev)
-        return self.graphs.setdefault(key, SLMGraph())
-
-    def solve(self, max_nfev: int | None = None, graph: bool = True):
-        """The LM solve from x0. On a card each LM step is one replay of
-        this problem's CUDA graph (``graph``); ``graph=False`` runs the
-        uncaptured step, the reference. On the CPU, the host loop."""
-        if graph and self.x0.cam.device.type == "cuda":
-            graph = self.graph(max_nfev)
-        return structured_lm_solve(self.neq_fn(), self.x0,
-                                   max_nfev=max_nfev or self.max_nfev,
-                                   ops=self.ops(), graph=graph)
-
-    def rms_px(self, cost) -> float:
-        """sqrt(cost / (2 n_real)), as bench.py reports it."""
-        return float(np.sqrt(float(cost) / (2 * self.blocks.n_real)))
 
 
 def template_colmask(n_cams, n_ims, widths, k_pad, dtype=np.float64):
@@ -203,6 +137,36 @@ def standard_problem(n_cams: int, n_ims: int, device="cuda",
                                                   k_pad), device, dtype)
     return BAProblem(op_fun, widths, struct, blocks, x0, uv, mask, tpl_t,
                      colmask, loss, f_scale, loss_semantics)
+
+
+def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
+                     options: dict | None = None):
+    """``standard_problem``'s rig as a user holds it: a CameraSet of the
+    rig's cameras (1600 x 1200), the TargetDetection of its table, the grid
+    as a ``FreePointTarget``, and a ``TemplateBundleHandler`` (options
+    ``outliers: "n"``, ``verbosity: 0``, then ``options``) seeded through
+    ``set_initial_params`` at the bench's perturbed start (pose 0 the
+    gauge): no PnP, no OpenCV.
+
+    :return: (handler, rig)."""
+    rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
+                             visibility=0.85, noise_px=0.3, seed=seed)
+    names = [f"cam{c}" for c in range(n_cams)]
+    kmats = [np.array([[i9[0], 0, i9[1]], [0, i9[2], i9[3]], [0, 0, 1]])
+             for i9 in rig["intr"]]
+    exts = [make_4x4h_tform(e[:3], e[3:]) for e in rig["extr"]]
+    cams = camset_from_numpy(names, exts, kmats,
+                             [i9[4:] for i9 in rig["intr"]],
+                             [[1600, 1200]] * n_cams)
+    handler = TemplateBundleHandler(
+        cams, FreePointTarget(rig["template"].reshape(1, -1, 3)),
+        detection_from_numpy(names, rig["dd"], n_ims),
+        options={"outliers": "n", "verbosity": 0, **(options or {})})
+    prim = handler.bundlePrimitive
+    struct = handler.op_fun.param_struct(n_cams, n_ims, rig["n_keys"])
+    handler.set_initial_params(
+        perturbed_start(rig, struct)[prim.unfixed_full()])
+    return handler, rig
 
 
 def selfcal_colmask(n_cams, n_ims, n_keys, k_pad, widths, dtype=np.float64):

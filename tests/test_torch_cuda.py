@@ -552,6 +552,42 @@ def test_captured_solve_is_bit_identical_to_uncaptured(card, monkeypatch,
     assert runner.replays >= 2 * ref.nit - 1
 
 
+# The user path: a TemplateBundleHandler's problem (optim/structured_driver)
+# owns its graphs as the bench problems do. Captured = uncaptured bit for
+# bit, x merged on the host included; the float32 cost within 1e-4 of the
+# float64 CPU solve of the same handler. 16 images need no padding (Kernel
+# B); 5 pad to the bucket's 8, and 8 to the fused tile's 16 is past 5%
+# (Kernel A).
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["library", "kernel"])
+@pytest.mark.parametrize("n_ims", [16, 5])
+def test_handler_path_captured_and_against_float64(card, monkeypatch, route,
+                                                   n_ims):
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import template_handler
+    monkeypatch.delenv("PYCAMSET_PALLAS_CHOL", raising=False)
+    if route == "kernel":
+        monkeypatch.setenv("PYCAMSET_PALLAS_CHOL", "1")
+    handler, _ = template_handler(4, n_ims, grid=6)
+    solve_fn, residual_fn, x0 = build_structured_problem(handler,
+                                                         device=card)
+    x_ref, ref = solve_fn(x0, graph=False)
+    for _ in range(2):
+        x, got = solve_fn(x0)
+        _same_solve(got, ref)
+        assert np.array_equal(x, x_ref)
+    assert solve_fn.problem.graph().graph is not None
+    assert int(ref.status) in (1, 2)
+    cpu_fn, _, _ = build_structured_problem(handler, device="cpu")
+    _, cpu = cpu_fn(x0)
+    assert abs(float(ref.cost) - float(cpu.cost)) <= 1e-4 * float(cpu.cost)
+    r = residual_fn(x_ref)
+    assert r.shape == (handler.detection.get_data().shape[0], 2)
+    assert abs(float((r * r).sum()) - float(ref.cost)) <= (
+        1e-4 * float(ref.cost))
+
+
 # The fleet: R rigs under torch.func.vmap fold into ONE launch of Kernel B
 # (16 images: R * C cameras) or Kernel A (12 images, where the fused rule
 # declines B: R * B blocks). Each rig's rows against the float64 twin on

@@ -5,8 +5,8 @@ north-star problem, is solved in float64 on the CPU by pycamset_tpu's
 ``structured_lm_solve`` and by pycamset_tpu_torch's: the same iterations,
 evaluations and status, the final cost within 1e-9 relative and the
 parameters within 1e-7 of their scale. Also: pause/resume at ``nfev_cap``,
-the package's import boundary, and the refusal of a CUDA device without
-one.
+the package's import boundary, the user path's card path run with jax and
+cv2 unimportable, and the refusal of a CUDA device without one.
 """
 import subprocess
 import sys
@@ -109,9 +109,70 @@ def test_package_imports_neither_jax_nor_cv2():
             "pycamset_tpu_torch.optim.analytic, "
             "pycamset_tpu_torch.optim.fleet, pycamset_tpu_torch.from_jax, "
             "pycamset_tpu_torch.ops.cuda_cholesky, pycamset_tpu_torch.peak, "
-            "pycamset_tpu_torch.optim.structured, sys; bad = [m for m in ('jax', 'cv2', 'pycamset_tpu') "
+            "pycamset_tpu_torch.optim.structured, "
+            "pycamset_tpu_torch.optim.handlers, "
+            "pycamset_tpu_torch.optim.driver, "
+            "pycamset_tpu_torch.optim.problem, "
+            "pycamset_tpu_torch.optim.structured_driver, "
+            "pycamset_tpu_torch.calibration.camera_calibrator, "
+            "pycamset_tpu_torch.models.abstract_target, "
+            "pycamset_tpu_torch.models.camera, "
+            "pycamset_tpu_torch.models.camera_set, "
+            "pycamset_tpu_torch.models.detections, "
+            "pycamset_tpu_torch.ops.triangulation, "
+            "pycamset_tpu_torch.utils.saving, "
+            "pycamset_tpu_torch.utils.blosc_compat, sys; "
+            "bad = [m for m in ('jax', 'cv2', 'pycamset_tpu') "
             "if m in sys.modules]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_user_path_does_not_load_the_bench():
+    """The user's entry point sits below the bench's problems: importing it
+    loads neither ``problems.py`` nor the synthetic rigs or the fleet."""
+    code = ("import sys, pycamset_tpu_torch.calibration.camera_calibrator; "
+            "bad = [m for m in ('pycamset_tpu_torch.problems', "
+            "'pycamset_tpu_torch.utils.synthetic', "
+            "'pycamset_tpu_torch.optim.fleet') if m in sys.modules]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+# The card path with jax and cv2 unimportable: a handler seeded through
+# set_initial_params, run_stereo_calibration, the saved file loaded back;
+# on the CPU at a tiny size.
+CARD_PATH = """
+import sys, tempfile
+sys.modules["cv2"] = None
+sys.modules["jax"] = None
+import numpy as np
+from pycamset_tpu_torch.problems import template_handler
+from pycamset_tpu_torch.calibration.camera_calibrator import (
+    run_stereo_calibration)
+from pycamset_tpu_torch.utils.saving import load_CameraSet
+handler, _ = template_handler(3, 5, grid=5)
+with tempfile.TemporaryDirectory() as d:
+    cams = run_stereo_calibration(None, None, None, param_handler=handler,
+                                  save_loc=d + "/cams.camset", device="cpu")
+    back = load_CameraSet(d + "/cams.camset")
+assert back == cams and back.calibration_handler is not None
+assert np.array_equal(back.calibration_result, cams.calibration_result)
+bad = [m for m in ("pycamset_tpu", "pycamset_tpu.config") if m in sys.modules]
+assert not bad, bad
+try:
+    handler.initial_params = None
+    handler.get_initial_params()
+except ImportError as err:
+    assert "set_initial_params" in str(err), err
+else:
+    raise AssertionError("the PnP seed ran without cv2")
+"""
+
+
+def test_card_path_needs_neither_jax_nor_cv2():
+    subprocess.run([sys.executable, "-c", CARD_PATH], cwd=REPO, check=True,
                    timeout=120)
 
 
