@@ -55,6 +55,24 @@ images pad to 104, Kernel B at 64 x 400) and ``run_stereo_calibration``;
 its file written and loaded back on the library route of each shape and on
 both routes at 16 x 100; each stage's host seconds.
 
+Then the self-calibration after a template calibration
+(``[selfcal_user_path]``): the bench rig with its board bent 0.5 mm RMS
+along the normal, a template stage (Kernel A), then
+``SelfBundleHandler.set_from_templated_camset`` and
+``run_stereo_calibration``, at 16 x 100 (100 images bucket to 104: Kernel
+C) on both dense-solve routes and 64 x 12 (``im_bucket: None``: Kernel D)
+on the library one, each of the path's kernels first held against its
+twin on the path's own tensors (``[parity_user_path]``); the recovered
+points against the true bent board, the file loaded back. And the
+pose-free free-point chain: ``[freepoint]``
+holds the two free-point wrappers (Kernels D and C at identity poses,
+``optim/cuda_selfcal_grams.py``) against their float64 twins at 16 x 24
+(K = 9,216 free points) and 64 x 12 (K = 4,608) and times them beside the
+free-point function's own bound, then solves
+``problems.freepoint_handler`` (the wand's gauge) through
+``run_bundle_adjustment`` on both routes: the fused wrapper over C at
+16 x 24, the per-block one over D at 64 x 12 (``im_bucket: None``).
+
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
 kernels as JSON; the last is
@@ -66,6 +84,7 @@ non-zero without one.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -97,6 +116,24 @@ KERNELS = {
     "mixed_gram": ("pycamset_tpu_torch/csrc/mixed_grams.cu",
                    f"{PALLAS}:1327", "mixed 64x12"),
 }
+# the free-point wrappers over C and D -> (the kernels' source, the TPU
+# function it replaces, its main-path shape)
+FREEPOINT_KERNELS = {
+    "freepoint_gram_fused": ("pycamset_tpu_torch/csrc/mixed_grams.cu",
+                             f"{PALLAS}:1147", "freepoint 16x24"),
+    "freepoint_gram": ("pycamset_tpu_torch/csrc/mixed_grams.cu",
+                       f"{PALLAS}:1113", "freepoint 64x12"),
+}
+# free-point shape -> (cameras, images, im_bucket); self-cal user path shape
+# -> (cameras, images, problem options, routes); the board's bend (m RMS)
+FREEPOINT = {"freepoint 16x24": (16, 24, 8), "freepoint 64x12": (64, 12, None)}
+SELFCAL_USER = {"selfcal_user 16x100": (16, 100, {}, ("library", "kernel")),
+                "selfcal_user 64x12": (64, 12, {"im_bucket": None},
+                                       ("library",))}
+# the free-point function's products per real detection: the [Jc | r]
+# gram's 136 entries, wck 45, hkk 6 and gk 3, over its two rows
+FREEPOINT_FLOP_PER_DETECTION = (136 + 45 + 6 + 3) * 4
+BOARD_WARP = 5e-4
 # main-path solve -> (the one kernel it must launch, its key width)
 MAIN_PATH = {"template 16x100": ("template_gram", None),
              "template 64x400": ("template_gram_fused", None),
@@ -152,8 +189,10 @@ def check(cond: bool, what: str):
 
 
 def wrappers():
-    """The six kernel wrappers, whose ``launches`` count the kernels (the
-    multi-target ones also per key width, ``launches_by_cw``)."""
+    """The eight kernel wrappers, whose ``launches`` count the kernels (the
+    multi-target ones also per key width, ``launches_by_cw``; the two
+    free-point wrappers count their launches of Kernels C and D, not in the
+    self-cal wrappers' counts)."""
     from pycamset_tpu_torch.optim import cuda_grams as cg
     from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
@@ -162,7 +201,9 @@ def wrappers():
             "selfcal_gram_fused": sg.selfcal_gram_fused,
             "selfcal_gram": sg.selfcal_gram,
             "mixed_gram_fused": mg.mixed_gram_fused,
-            "mixed_gram": mg.mixed_gram}
+            "mixed_gram": mg.mixed_gram,
+            "freepoint_gram_fused": sg.freepoint_gram_fused,
+            "freepoint_gram": sg.freepoint_gram}
 
 
 def zero_counts(counted):
@@ -1681,7 +1722,6 @@ def phase_user_path(probs, cpu_x64: dict) -> dict:
     from pycamset_tpu_torch.calibration.camera_calibrator import (
         run_stereo_calibration)
     from pycamset_tpu_torch.models.camera_set import CameraSet
-    from pycamset_tpu_torch.ops import cuda_cholesky as cc
     from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
     from pycamset_tpu_torch.optim.structured_driver import (
         build_structured_problem)
@@ -1716,22 +1756,9 @@ def phase_user_path(probs, cpu_x64: dict) -> dict:
                     handler, device=dev)
                 torch.cuda.synchronize()
                 sec["build"] = time.perf_counter() - t0
-                x_ref, ref = solve_fn(x_init, graph=False)
-                runner = solve_fn.problem.graph()
-                t0 = time.perf_counter()
-                x_first, first = solve_fn(x_init)        # captures
-                sec["first_solve"] = time.perf_counter() - t0
-                graph, replays = runner.graph, runner.replays
-                counts, (x_warm, warm) = solve_kernel_counts(
-                    lambda: solve_fn(x_init))
-                check(runner.graph is graph and graph is not None
-                      and runner.replays - replays == warm.nit,
-                      f"{tag}: not one capture and one replay a step")
-                check(same_solve(first, ref) and same_solve(warm, ref)
-                      and np.array_equal(x_first, x_ref)
-                      and np.array_equal(x_warm, x_ref),
-                      f"{tag}: the captured solve differs from the "
-                      f"uncaptured")
+                x_ref, ref, counts, warm, sec["first_solve"], runner = (
+                    solved_through_graph(tag, solve_fn, x_init,
+                                         route == "kernel"))
                 bench_counts, bench = solve_kernel_counts(prob.solve)
                 gram = [n for n in counts if n.startswith("gram_kernel")]
                 check(len(gram) == 1 and gram == [
@@ -1740,11 +1767,6 @@ def phase_user_path(probs, cpu_x64: dict) -> dict:
                       == bench_counts[gram[0]] * warm.nfev,
                       f"{tag}: gram kernels {counts}, problems.py "
                       f"{bench_counts} (nfev {warm.nfev}, {bench.nfev})")
-                n_psd = sum(n for name, n in counts.items()
-                            if name.split("<")[0] == "psd_solve_kernel")
-                check(n_psd == (warm.nit if route == "kernel" else 0),
-                      f"{tag}: {n_psd} SPD kernel launches in "
-                      f"{warm.nit} LM steps")
                 handler_ms = timed(lambda: solve_fn(x_init), 5)
                 bench_ms = timed(prob.solve, 5)
                 t0 = time.perf_counter()
@@ -1761,23 +1783,16 @@ def phase_user_path(probs, cpu_x64: dict) -> dict:
                 with tempfile.TemporaryDirectory() as tmp, \
                         timed_method(CameraSet, "save", sec, "save"):
                     path = os.path.join(tmp, "cams.camset")
-                    zero_counts(counted)
-                    cc.psd_solve_raw.launches = 0
-                    t0 = time.perf_counter()
-                    solved = run_stereo_calibration(
-                        None, None, None, param_handler=e2e_handler,
-                        save=save, save_loc=path, device=dev)
-                    sec["run_stereo_calibration"] = time.perf_counter() - t0
-                    launches = {n: fn.launches for n, fn in counted.items()}
-                    n_psd_e2e = cc.psd_solve_raw.launches
+                    (solved, n_own, n_psd_e2e,
+                     sec["run_stereo_calibration"]) = main_path_counts(
+                        counted, own, tag, lambda: run_stereo_calibration(
+                            None, None, None, param_handler=e2e_handler,
+                            save=save, save_loc=path, device=dev))
                     if save:
                         t0 = time.perf_counter()
                         back = load_CameraSet(path)
                         sec["load"] = time.perf_counter() - t0
                         file_mib = os.path.getsize(path) / 2 ** 20
-            check(launches[own] > 0 and not any(
-                n for name, n in launches.items() if name != own),
-                f"{tag}: run_stereo_calibration launched {launches}")
             check(np.array_equal(solved.calibration_params, x_ref),
                   f"{tag}: run_stereo_calibration's parameters differ from "
                   f"the solve's")
@@ -1813,15 +1828,603 @@ def phase_user_path(probs, cpu_x64: dict) -> dict:
                 launches_per_eval_vs_problems=(
                     f"{counts[gram[0]]}/{warm.nfev}"
                     f"={bench_counts[gram[0]]}/{bench.nfev}"),
-                e2e_launches=f"{own}:{launches[own]},psd:{n_psd_e2e}",
+                e2e_launches=f"{own}:{n_own},psd:{n_psd_e2e}",
                 capture_ms=f"{runner.capture_ms:.1f}",
                 solve_ms_median=f"{np.median(handler_ms):.3f}",
                 solve_ms_all=",".join(f"{t:.2f}" for t in handler_ms),
                 problems_solve_ms_median=f"{np.median(bench_ms):.3f}",
                 saved=save, **({"file_mib": f"{file_mib:.1f}"} if save else {}),
                 **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()})
-            out[shape][route] = {own: launches[own], PSD[0]: n_psd_e2e}
+            out[shape][route] = {own: n_own, PSD[0]: n_psd_e2e}
     return out
+
+
+def freepoint_inputs(prob, seed: int = 1):
+    """The per-block tensors of a free-point problem at a perturbed start:
+    the free extrinsics moved by the bench's template perturbation
+    (``rng(seed)``), the free points by 1 mm; every lens column free but
+    one (the problem fixes them all: here the lens rows and columns are
+    held too).
+
+    :return: (cam_b, keyp, uv, mask, cmask_b, kmask)."""
+    import torch
+    n_ims = prob.blocks.n_ims
+    moved = _mover(seed)
+    cam = moved(prob.x0.cam, CAM_SCALE, prob.colmask.cam)
+    key = moved(prob.x0.key, 1e-3, prob.colmask.key)
+    cmask = prob.colmask.cam.clone()
+    cmask[:, :9] = 1.0
+    cmask[:, 3] = 0.0
+    return (torch.repeat_interleave(cam, n_ims, dim=0), key, prob.uv,
+            prob.mask, torch.repeat_interleave(cmask, n_ims, dim=0),
+            prob.colmask.key)
+
+
+def freepoint_runs(sg, f32, n_cams, n_ims) -> dict:
+    """The two free-point wrappers on ``f32`` (the fused one takes no
+    cmask): {name: launch(**loss options)}."""
+    cam_b, keyp, uv, mask, _, kmask = f32
+    return {"freepoint_gram": lambda **kw: sg.freepoint_gram(*f32, **kw),
+            "freepoint_gram_fused": lambda **kw: sg.freepoint_gram_fused(
+                cam_b, keyp, uv, mask, kmask, n_cams, n_ims, **kw)}
+
+
+def freepoint_parities(sg, f32, n_cams, n_ims, **kw) -> dict:
+    """The two free-point wrappers on ``f32`` under one loss, beside their
+    float64 plain twins: {name: (outputs, the twin's, errors in the
+    solver's Jacobi scaling)}."""
+    run = freepoint_runs(sg, f32, n_cams, n_ims)
+    cam_b, keyp, uv, mask, cmask, kmask = (t.double() for t in f32)
+    d_got = run["freepoint_gram"](**kw)
+    d_ref = sg.freepoint_gram_plain(cam_b, keyp, uv, mask, cmask, kmask, **kw)
+    c_got = run["freepoint_gram_fused"](**kw)
+    c_ref = sg.freepoint_gram_fused_plain(cam_b, keyp, uv, mask, kmask,
+                                          n_cams, n_ims, **kw)
+    return {"freepoint_gram": (d_got, d_ref,
+                               sg.scaled_errors_freepoint(d_got, d_ref)),
+            "freepoint_gram_fused": (c_got, c_ref,
+                                     sg.scaled_errors_freepoint_fused(
+                                         c_got, c_ref, n_cams, n_ims))}
+
+
+def parity_f32_floor(tag, got, ref, scaled, f32_twin, scaled_of) -> dict:
+    """``parity``, save that where an output misses TOL the float32 plain
+    twin on the same inputs (``f32_twin()``) is measured against the same
+    float64 outputs (``scaled_of(outputs, ref)``: errors in the solver's
+    Jacobi scaling; and of each output's max-abs), and the output is held
+    to twice the twin's error where the twin misses TOL itself
+    (``within_f32_floor``: a slot whose robust-loss weight cancels to
+    float32's rounding), both printed."""
+    rel = max_abs_errors(got, ref)
+    if max(scaled.values()) <= TOL and max(rel) <= TOL:
+        return parity(tag, got, ref, scaled)
+    twin = f32_twin()
+    floor = scaled_of(twin, ref)
+    rel_floor = max_abs_errors(twin, ref)
+    say("parity_f32_floor", case=tag.replace(" ", "_"),
+        **{k: f"{v:.2e}" for k, v in scaled.items()},
+        **{f"f32_twin_{k}": f"{v:.2e}" for k, v in floor.items()},
+        max_abs=",".join(f"{e:.2e}" for e in rel),
+        f32_twin_max_abs=",".join(f"{e:.2e}" for e in rel_floor))
+    check(all(bool(g.isfinite().all()) for g in got)
+          and within_f32_floor(scaled, floor)
+          and within_f32_floor(dict(enumerate(rel)),
+                               dict(enumerate(rel_floor))),
+          f"{tag} vs its plain twin: scaled {scaled}, of max-abs {rel}; "
+          f"the float32 twin {floor}, {rel_floor}")
+    return {"abs": max(float((g.double() - r.double()).abs().max())
+                       for g, r in zip(got, ref)),
+            "rel": max(rel), "scaled": max(scaled.values())}
+
+
+def freepoint_parity(sg, tag, f32, n_cams, n_ims, got, ref, scaled,
+                     **kw) -> dict:
+    """``parity_f32_floor`` for a free-point wrapper's outputs ``got``
+    against its float64 twin's ``ref`` (the tag's first word names it)."""
+    cam_b, keyp, uv, mask, _, kmask = f32
+    if tag.split()[0] == "freepoint_gram":
+        return parity_f32_floor(
+            tag, got, ref, scaled,
+            lambda: sg.freepoint_gram_plain(*f32, **kw),
+            sg.scaled_errors_freepoint)
+    return parity_f32_floor(
+        tag, got, ref, scaled,
+        lambda: sg.freepoint_gram_fused_plain(cam_b, keyp, uv, mask, kmask,
+                                              n_cams, n_ims, **kw),
+        lambda g, r: sg.scaled_errors_freepoint_fused(g, r, n_cams, n_ims))
+
+
+def user_path_parity(out, shape, name, prob):
+    """The gram kernel ``name`` of a handler path on the handler problem's
+    own tensors (its image grid, bucket pads and gauge masks: A on a
+    template stage at its start, C or D on a self-cal problem moved as
+    ``selfcal_inputs`` moves it), against its float64 plain twin under the
+    four losses (``parity_f32_floor``), recorded in ``out`` under
+    ``shape``."""
+    import torch
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    gram = None                 # C's scaling: the twin's unmasked gram
+    if name == "template_gram":
+        f32 = template_inputs(prob)
+        kernel, plain = cg.template_gram, cg.template_gram_plain
+
+        def launch(fn, ins, **kw):
+            return [fn(*ins, **kw)]
+
+        def scaled_of(g, r):
+            return cg.scaled_errors(g[0], r[0])
+    elif name == "selfcal_gram":
+        f32 = selfcal_inputs(prob)
+        kernel, plain = sg.selfcal_gram, sg.selfcal_gram_plain
+        scaled_of = sg.scaled_errors_selfcal
+
+        def launch(fn, ins, **kw):
+            return fn(*ins, **kw)
+    else:
+        f32 = selfcal_inputs(prob)
+        kernel, plain = sg.selfcal_gram_fused, sg.selfcal_gram_fused_plain
+
+        def launch(fn, ins, **kw):          # Kernel C takes no cmask
+            return fn(*ins[:5], *ins[6:], n_cams, n_ims, **kw)
+
+        def scaled_of(g, r):
+            return sg.scaled_errors_selfcal_fused(g, r, gram, n_cams, n_ims)
+    f64 = tuple(t.double() for t in f32)
+    for loss, sem in LOSS_CASES:
+        kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
+        if name == "selfcal_gram_fused":
+            gram = sg.selfcal_gram_plain(*f64[:5], torch.ones_like(f64[5]),
+                                         *f64[6:], **kw)[0]
+        got, ref = launch(kernel, f32, **kw), launch(plain, f64, **kw)
+        scaled = scaled_of(got, ref)
+        say("parity_user_path", shape=shape.replace(" ", "_"), kernel=name,
+            blocks=prob.mask.shape[0], keys=prob.mask.shape[1],
+            im_grid=n_ims, loss=loss, semantics=sem, tol=TOL,
+            **{k: f"{v:.2e}" for k, v in scaled.items()},
+            max_abs=f"{max(max_abs_errors(got, ref)):.2e}")
+        record(out, name, shape, parity_f32_floor(
+            f"{name} {shape} {loss}/{sem}", got, ref, scaled,
+            lambda: launch(plain, f32, **kw), scaled_of))
+        del got, ref
+    torch.cuda.empty_cache()
+
+
+def freepoint_bound(name: str, prob) -> tuple[float, str]:
+    """The least time of one call of a free-point wrapper on a problem's
+    inputs, for the free-point function's own work: its inputs (cam_b, the
+    points, uv, mask, the column masks) read once and the outputs it keeps
+    (hcc or the per-block gcc_b, gc, the cost, wck, hkk, gk) written once,
+    against its products per real detection over the FP32 rate. The
+    borrowed self-cal kernel's pose columns and C's per-block wik are not
+    counted: the gap to this bound is what they cost."""
+    bb, k = prob.mask.shape
+    c = prob.blocks.n_cams
+    ins = bb * 15 + k * 3 + bb * k * 3 + k * 3     # cam_b, points, uv+mask, kmask
+    if name == "freepoint_gram":
+        ins += bb * 15                              # cmask
+        outs = bb * (225 + 15 + 1) + bb * k * 45 + k * 12
+    else:
+        outs = c * (225 + 15) + bb + c * k * 45 + k * 12
+    t_bytes = 4 * (ins + outs) / HBM_BYTES_PER_S
+    t_ops = (prob.blocks.n_real * FREEPOINT_FLOP_PER_DETECTION
+             / FP32_FLOP_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_freepoint_kernels(fp_probs, out):
+    """The two free-point wrappers (Kernels D and C at identity poses) vs
+    their float64 plain twins at both free-point shapes, all four losses,
+    and a repeat launch; times per shape: each launch's device time (the
+    borrowed kernel's passes under torch.profiler), the wrapper and the
+    float32 twin by CUDA events, the peak MiB a wrapper call adds, beside
+    the free-point function's own bound."""
+    import torch
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    for shape, prob in fp_probs.items():
+        n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+        f32 = freepoint_inputs(prob)
+        for loss, sem in LOSS_CASES:
+            res = freepoint_parities(sg, f32, n_cams, n_ims, loss=loss,
+                                     f_scale=2.0, loss_semantics=sem)
+            say("parity_freepoint", shape=shape.replace(" ", "_"), loss=loss,
+                semantics=sem, tol=TOL,
+                **{f"{'D' if name == 'freepoint_gram' else 'C'}_{k}":
+                   f"{v:.2e}" for name, (_, _, scaled) in res.items()
+                   for k, v in scaled.items()},
+                **{f"{'D' if name == 'freepoint_gram' else 'C'}_max_abs":
+                   f"{max(max_abs_errors(got, ref)):.2e}"
+                   for name, (got, ref, _) in res.items()})
+            for name, (got, ref, scaled) in res.items():
+                record(out, name, shape, freepoint_parity(
+                    sg, f"{name} {shape} {loss}/{sem}", f32, n_cams, n_ims,
+                    got, ref, scaled, loss=loss, f_scale=2.0,
+                    loss_semantics=sem))
+            del res
+            torch.cuda.empty_cache()
+        runs = freepoint_runs(sg, f32, n_cams, n_ims)
+        for name, run in runs.items():
+            same_bits(name, run)
+
+        cam_b, keyp, uv, mask, cmask, kmask = f32
+        im0, imask0 = sg._identity_poses(cam_b)
+        packed = sg.pack_block_params(cam_b, im0)
+        passes = {
+            "freepoint_gram": device_ms(
+                lambda: sg._launch_selfcal(packed, keyp, uv, mask, cmask,
+                                           imask0, kmask, 0, 1, 1.0)),
+            "freepoint_gram_fused": device_ms(
+                lambda: sg._launch_selfcal_fused(packed, keyp, uv, mask,
+                                                 imask0, kmask, n_cams,
+                                                 n_ims, 0, 1, 1.0))}
+        say("time_passes", shape=shape.replace(" ", "_"), unit="ms",
+            **{f"{name}:{kernel}": f"{ms:.4f}"
+               for name, by_kernel in passes.items()
+               for kernel, ms in by_kernel.items()})
+        for name, run in runs.items():
+            base = mib_allocated()
+            run()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20 - base
+            kernel = sum(passes[name].values())
+            plain = (
+                (lambda: sg.freepoint_gram_plain(*f32))
+                if name == "freepoint_gram" else
+                (lambda: sg.freepoint_gram_fused_plain(
+                    cam_b, keyp, uv, mask, kmask, n_cams, n_ims)))
+            rec = dict(ms=cuda_ms(run, 10), kernel_ms=kernel,
+                       plain_ms=cuda_ms(plain, 3), peak_mib=peak)
+            out[name][shape].update(rec)
+            bound_ms, by = freepoint_bound(name, prob)
+            say("time", shape=shape.replace(" ", "_"), kernel=name,
+                unit="ms", **{k: f"{v:.4f}" for k, v in rec.items()},
+                bound_ms=f"{bound_ms:.4f}", bound_by=by,
+                of_bound=f"{bound_ms / max(kernel, 1e-9):.4f}")
+        del f32, packed, runs
+        torch.cuda.empty_cache()
+
+
+def solved_through_graph(tag, solve_fn, x0, kernel_route: bool):
+    """A handler problem's solves on the card: uncaptured (the reference),
+    capturing, and warm under torch.profiler; checks one capture and one
+    replay a step, captured = uncaptured bit for bit (the merged x too),
+    and the SPD kernel once an LM step on the kernel route only.
+
+    :return: (x_ref, ref, {kernel: launches in the warm solve}, the warm
+        SLMResult, the capturing solve's host seconds, the runner)."""
+    x_ref, ref = solve_fn(x0, graph=False)
+    runner = solve_fn.problem.graph()
+    t0 = time.perf_counter()
+    x_first, first = solve_fn(x0)                   # captures
+    first_s = time.perf_counter() - t0
+    graph, replays = runner.graph, runner.replays
+    counts, (x_warm, warm) = solve_kernel_counts(lambda: solve_fn(x0))
+    check(runner.graph is graph and graph is not None
+          and runner.replays - replays == warm.nit,
+          f"{tag}: not one capture and one replay a step")
+    check(same_solve(first, ref) and same_solve(warm, ref)
+          and np.array_equal(x_first, x_ref)
+          and np.array_equal(x_warm, x_ref),
+          f"{tag}: the captured solve differs from the uncaptured")
+    n_psd = sum(n for name, n in counts.items()
+                if name.split("<")[0] == "psd_solve_kernel")
+    check(n_psd == (warm.nit if kernel_route else 0),
+          f"{tag}: {n_psd} SPD kernel launches in {warm.nit} LM steps")
+    return x_ref, ref, counts, warm, first_s, runner
+
+
+def check_selfcal_passes(tag, counts: dict, warm, flag: str):
+    """By profiler names, the self-cal kernel's two passes
+    (``mixed_kernel<3,{flag}>`` and its reduction) once an evaluation of
+    the warm solve, and no other gram kernel."""
+    grams = {n: k for n, k in counts.items()
+             if n.split("<")[0] != "psd_solve_kernel"}
+    want = {f"mixed_kernel<3,{flag}>": warm.nfev,
+            f"mixed_reduce_kernel<3,{flag}>": warm.nfev}
+    check(grams == want, f"{tag}: gram kernels {grams} in {warm.nfev} "
+                         f"evaluations, {want} expected")
+
+
+def main_path_counts(counted, own: str, tag: str, run):
+    """The main path's run: every wrapper's count and the SPD kernel's set
+    to 0 just before ``run()``, read just after; ``own`` must have launched
+    and no other gram wrapper. Returns (run's result, own's launches, the
+    SPD kernel's launches, the host seconds)."""
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    zero_counts(counted)
+    cc.psd_solve_raw.launches = 0
+    t0 = time.perf_counter()
+    result = run()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    check(launches[own] > 0 and not any(
+        n for name, n in launches.items() if name != own),
+        f"{tag}: the main path launched {launches}")
+    return result, launches[own], cc.psd_solve_raw.launches, seconds
+
+
+def phase_freepoint(fp_probs) -> dict:
+    """The pose-free free-point bundle adjustment through the user's entry
+    point, at each free-point shape on both dense-solve routes:
+    ``problems.freepoint_handler`` (the wand's gauge; no PnP, no OpenCV)
+    -> ``run_bundle_adjustment``, its counts zeroed just before it (the
+    main path: the shape's own free-point wrapper and no other gram
+    wrapper); the handler's problem (``build_structured_problem``, as
+    ``problems.freepoint_problem`` builds it) solved uncaptured, capturing
+    and warm (``solved_through_graph``: C at 16x24, D at 64x12, once an
+    evaluation by profiler names). Checks: status 1 or 2, rms <= 0.36 px,
+    the entry point's x the uncaptured solve's bit for bit and its
+    residuals ``residual_fn``'s, camera 0 still the identity, the points
+    finite; at 64x12 the float32 cost within 1e-4 relative of the port's
+    float64 CPU solve of the same handler. Prints the warm solve median
+    (CUDA events, 5) and each stage's host seconds.
+
+    :return: {kernel: {"<shape> (<route>)": launches on the main path}}."""
+    import torch
+    from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import freepoint_handler
+    counted = wrappers()
+    launches = {name: {} for name in FREEPOINT_KERNELS}
+    for shape, (n_cams, n_ims, bucket) in FREEPOINT.items():
+        dev = fp_probs[shape].uv.device
+        own = next(n for n, v in FREEPOINT_KERNELS.items() if v[2] == shape)
+        flag = "true" if own.endswith("fused") else "false"
+        t0 = time.perf_counter()
+        handler, scene = freepoint_handler(n_cams, n_ims,
+                                           options={"im_bucket": bucket})
+        inputs_s = time.perf_counter() - t0
+        cpu = None
+        for route in ("library", "kernel"):
+            tag = f"freepoint {shape} ({route})"
+            sec = {"inputs": inputs_s}
+            with one_launch_psd(route == "kernel"):
+                t0 = time.perf_counter()
+                solve_fn, residual_fn, x0 = build_structured_problem(
+                    handler, device=dev)
+                torch.cuda.synchronize()
+                sec["build"] = time.perf_counter() - t0
+                prob = solve_fn.problem
+                x_ref, ref, counts, warm, sec["first_solve"], runner = (
+                    solved_through_graph(tag, solve_fn, x0,
+                                         route == "kernel"))
+                check_selfcal_passes(tag, counts, warm, flag)
+                handler_ms = timed(lambda: solve_fn(x0), 5)
+                t0 = time.perf_counter()
+                resid = residual_fn(x_ref)
+                sec["residual_fn"] = time.perf_counter() - t0
+                (result, cams), n_own, n_psd, sec["run_bundle_adjustment"] = (
+                    main_path_counts(counted, own, tag, lambda: (
+                        run_bundle_adjustment(handler, device=dev))))
+            check(np.array_equal(result.x, x_ref)
+                  and np.array_equal(result.fun, resid.reshape(-1)),
+                  f"{tag}: run_bundle_adjustment's x or residuals differ "
+                  f"from the solve's")
+            pts = handler.get_updated_points(result.x)
+            check(pts.shape == (handler.n_keys(), 3)
+                  and bool(np.isfinite(pts).all())
+                  and np.array_equal(cams[0].extrinsic, np.eye(4)),
+                  f"{tag}: points or the camera-0 gauge")
+            status, rms = int(ref.status), prob.rms_px(ref.cost)
+            check(status in (1, 2), f"{tag}: status {status}")
+            check(rms <= 0.36, f"{tag}: rms {rms} above 0.36 px")
+            fields = {}
+            if shape == "freepoint 64x12":
+                if cpu is None:
+                    t0 = time.perf_counter()
+                    cpu_fn, _, cpu_x0 = build_structured_problem(
+                        handler, device="cpu")
+                    cpu = (cpu_fn(cpu_x0)[1], time.perf_counter() - t0)
+                rel = abs(float(ref.cost) - float(cpu[0].cost)) / float(
+                    cpu[0].cost)
+                check(rel <= 1e-4, f"{tag}: cost differs from the float64 "
+                                   f"CPU solve by {rel:.3e}")
+                fields = dict(cpu_f64_nit=cpu[0].nit,
+                              cpu_f64_status=int(cpu[0].status),
+                              cpu_f64_s=f"{cpu[1]:.1f}",
+                              rel_cost_diff_cpu_f64=f"{rel:.3e}")
+            seen = scene["seen"]
+            err_mm = 1e3 * np.sqrt(np.mean(np.sum(
+                (pts[seen] - scene["pts_true"][seen]) ** 2, axis=1)))
+            say("freepoint", shape=shape.replace(" ", "_"), dense_solve=route,
+                same_bits=True, nit=ref.nit, nfev=ref.nfev, status=status,
+                rms_px=f"{rms:.5f}", cost=f"{float(ref.cost):.6f}",
+                n_real=prob.blocks.n_real, keys=prob.mask.shape[1],
+                im_grid=prob.blocks.n_ims, **fields,
+                **{f"launches_{k}": v for k, v in counts.items()},
+                e2e_launches=f"{own}:{n_own},psd:{n_psd}",
+                capture_ms=f"{runner.capture_ms:.1f}",
+                solve_ms_median=f"{np.median(handler_ms):.3f}",
+                solve_ms_all=",".join(f"{t:.2f}" for t in handler_ms),
+                points_rms_mm_vs_true=f"{err_mm:.4f}",
+                **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()})
+            launches[own][f"{shape} ({route})"] = n_own
+        del handler, solve_fn, residual_fn, prob, runner
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_selfcal_user_path(probs, out) -> dict:
+    """The self-calibration after a template calibration, the JAX package's
+    flow for a target it does not trust, at each shape of ``SELFCAL_USER``:
+    the bench rig with its board bent ``BOARD_WARP`` m RMS along the normal
+    (``problems.template_handler(template_warp=...)``: the detections see
+    the bent board, the target is the nominal grid); the template stage
+    (``run_stereo_calibration`` of a ``TemplateBundleHandler`` seeded at
+    the bench's start: Kernel A, its count zeroed just before it), then
+    ``SelfBundleHandler(camset, target, detection)``,
+    ``set_from_templated_camset`` and ``run_stereo_calibration(...,
+    param_handler=..., save=True)``, the main path, its counts zeroed just
+    before it (C at 16x100, whose 100 images bucket to 104; D at 64x12,
+    ``im_bucket: None``), its file loaded back. The self-cal handler's
+    problem is solved uncaptured, capturing and warm
+    (``solved_through_graph``). Checks: status 1 or 2, rms <= 0.36 px and
+    not above the template stage's, the entry point's parameters the
+    uncaptured solve's bit for bit, ``calibration_result`` =
+    ``residual_fn(x)``, the loaded set equal to the returned one with a
+    ``SelfBundleHandler``, the recovered points (``get_updated_target``:
+    gauge-aligned onto the nominal grid) nearer the true bent board than
+    the nominal grid is; at 16x100 the float32 cost within 1e-4 relative of
+    the port's float64 CPU solve of the same handler. Prints each stage's
+    host seconds and the warm solve median beside the ``problems.py``
+    self-cal problem's. Before the solves, each kernel of the path on its
+    problems' own tensors (``user_path_parity``, recorded in ``out``): A on
+    the template stage's problem (grid 104 at 16x100, 12 at 64x12), C on
+    the self-cal problem at 16x100 (grid 104: C's last chunk of images is
+    ragged), D at 64x12.
+
+    :return: {kernel: {"<shape> (<route>)": launches on the main path}}."""
+    import tempfile
+
+    import torch
+    from pycamset_tpu_torch.calibration.camera_calibrator import (
+        run_stereo_calibration)
+    from pycamset_tpu_torch.models.camera_set import CameraSet
+    from pycamset_tpu_torch.optim.handlers import (SelfBundleHandler,
+                                                   TemplateBundleHandler)
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import template_handler
+    from pycamset_tpu_torch.utils.saving import load_CameraSet
+    counted = wrappers()
+    launches = {"selfcal_gram_fused": {}, "selfcal_gram": {},
+                "template_gram": {}}
+    for shape, (n_cams, n_ims, popts, routes) in SELFCAL_USER.items():
+        bench = probs[shape.replace("selfcal_user", "selfcal")]
+        dev = bench.uv.device
+        own = "selfcal_gram" if popts.get("im_bucket", 8) is None else (
+            "selfcal_gram_fused")
+        flag = "true" if own.endswith("fused") else "false"
+        t0 = time.perf_counter()
+        th, rig = template_handler(n_cams, n_ims, options=popts,
+                                   template_warp=BOARD_WARP)
+        cams, det, target = th.camset, th.detection, th.target
+        x_tpl = th.get_initial_params()
+        inputs_s = time.perf_counter() - t0
+        opts = {"outliers": "n", "verbosity": 0, **popts}
+        user_path_parity(out, f"{shape} template stage", "template_gram",
+                         build_structured_problem(th, device=dev)[0].problem)
+        cpu = None
+        for route in routes:
+            tag = f"selfcal_user_path {shape} ({route})"
+            sec = {"inputs": inputs_s}
+            with one_launch_psd(route == "kernel"):
+                tpl_h = TemplateBundleHandler(cams, target, det, options=opts)
+                tpl_h.set_initial_params(x_tpl)
+                solved_t, n_tpl, _, sec["template_stage"] = main_path_counts(
+                    counted, "template_gram", f"{tag} template stage",
+                    lambda: run_stereo_calibration(
+                        None, None, None, param_handler=tpl_h, save=False,
+                        device=dev))
+                tpl_rms = float(np.sqrt(np.mean(
+                    np.asarray(solved_t.calibration_result) ** 2)))
+
+                def selfcal_handler():
+                    h = SelfBundleHandler(solved_t, target, det, options=opts)
+                    h.set_from_templated_camset(solved_t)
+                    return h
+
+                t0 = time.perf_counter()
+                sh = selfcal_handler()
+                sec["handler"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                solve_fn, residual_fn, x0 = build_structured_problem(
+                    sh, device=dev)
+                torch.cuda.synchronize()
+                sec["build"] = time.perf_counter() - t0
+                if route == routes[0]:
+                    user_path_parity(out, shape, own, solve_fn.problem)
+                x_ref, ref, counts, warm, sec["first_solve"], runner = (
+                    solved_through_graph(tag, solve_fn, x0,
+                                         route == "kernel"))
+                check_selfcal_passes(tag, counts, warm, flag)
+                handler_ms = timed(lambda: solve_fn(x0), 5)
+                bench_ms = timed(bench.solve, 5)
+                t0 = time.perf_counter()
+                resid = residual_fn(x_ref)
+                sec["residual_fn"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                sh.get_camset(x_ref)
+                sec["get_camset"] = time.perf_counter() - t0
+                e2e_h = selfcal_handler()
+                with tempfile.TemporaryDirectory() as tmp, \
+                        timed_method(CameraSet, "save", sec, "save"):
+                    path = os.path.join(tmp, "self.camset")
+                    solved, n_own, n_psd, sec["run_stereo_calibration"] = (
+                        main_path_counts(counted, own, tag, lambda: (
+                            run_stereo_calibration(
+                                None, None, None, param_handler=e2e_h,
+                                save=True, save_loc=path, device=dev))))
+                    t0 = time.perf_counter()
+                    back = load_CameraSet(path)
+                    sec["load"] = time.perf_counter() - t0
+                    file_mib = os.path.getsize(path) / 2 ** 20
+            check(np.array_equal(solved.calibration_params, x_ref)
+                  and np.array_equal(solved.calibration_result,
+                                     resid.reshape(-1)),
+                  f"{tag}: run_stereo_calibration's parameters or residuals "
+                  f"differ from the solve's")
+            check(back == solved
+                  and type(back.calibration_handler) is SelfBundleHandler
+                  and np.array_equal(back.calibration_params,
+                                     solved.calibration_params)
+                  and np.array_equal(back.calibration_result,
+                                     solved.calibration_result),
+                  f"{tag}: the loaded CameraSet differs from the returned")
+            status, rms = int(ref.status), solve_fn.problem.rms_px(ref.cost)
+            check(status in (1, 2), f"{tag}: status {status}")
+            check(rms <= 0.36 and rms <= tpl_rms,
+                  f"{tag}: rms {rms} (template stage {tpl_rms})")
+            vis = sh.visible_feature_mask
+            true = rig["template_true"]
+            pts = e2e_h.get_updated_target(x_ref)
+            rec_mm, nominal_mm = (1e3 * np.sqrt(np.mean(np.sum(
+                (p[vis] - true[vis]) ** 2, axis=1)))
+                for p in (pts, rig["template"]))
+            check(bool(np.isfinite(pts).all()) and rec_mm < nominal_mm,
+                  f"{tag}: recovered points {rec_mm} mm from the true board, "
+                  f"the nominal grid {nominal_mm} mm")
+            fields = {}
+            if shape == "selfcal_user 16x100":
+                if cpu is None:
+                    t0 = time.perf_counter()
+                    cpu_fn, _, cpu_x0 = build_structured_problem(
+                        selfcal_handler(), device="cpu")
+                    cpu = (cpu_fn(cpu_x0)[1], time.perf_counter() - t0)
+                rel = abs(float(ref.cost) - float(cpu[0].cost)) / float(
+                    cpu[0].cost)
+                check(rel <= 1e-4, f"{tag}: cost differs from the float64 "
+                                   f"CPU solve by {rel:.3e}")
+                fields = dict(cpu_f64_nit=cpu[0].nit,
+                              cpu_f64_status=int(cpu[0].status),
+                              cpu_f64_s=f"{cpu[1]:.1f}",
+                              rel_cost_diff_cpu_f64=f"{rel:.3e}")
+            say("selfcal_user_path", shape=shape.replace(" ", "_"),
+                dense_solve=route, same_bits=True, nit=ref.nit,
+                nfev=ref.nfev, status=status, rms_px=f"{rms:.5f}",
+                template_stage_rms_px=f"{tpl_rms:.5f}",
+                cost=f"{float(ref.cost):.6f}",
+                n_real=solve_fn.problem.blocks.n_real,
+                im_grid=solve_fn.problem.blocks.n_ims,
+                dense_n=15 * n_cams + 6 * solve_fn.problem.blocks.n_ims,
+                **fields, **{f"launches_{k}": v for k, v in counts.items()},
+                e2e_launches=f"{own}:{n_own},psd:{n_psd}",
+                template_stage_launches=f"template_gram:{n_tpl}",
+                capture_ms=f"{runner.capture_ms:.1f}",
+                solve_ms_median=f"{np.median(handler_ms):.3f}",
+                solve_ms_all=",".join(f"{t:.2f}" for t in handler_ms),
+                problems_solve_ms_median=f"{np.median(bench_ms):.3f}",
+                points_rms_mm_vs_true=f"{rec_mm:.4f}",
+                nominal_rms_mm_vs_true=f"{nominal_mm:.4f}",
+                file_mib=f"{file_mib:.1f}",
+                **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()})
+            launches[own][f"{shape} ({route})"] = n_own
+            launches["template_gram"][f"{shape} template stage ({route})"] = (
+                n_tpl)
+        torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1853,6 +2456,8 @@ def main() -> int:
     phase_template_kernels(probs, kern, peak_rec["tflops"])
     phase_selfcal_kernels(probs, kern, peak_rec["tflops"])
     phase_mixed_kernels(probs, kern, peak_rec["tflops"])
+    bounds = {name: bound(name, probs[shape], MAIN_PATH[shape][1])
+              for name, (_, _, shape) in KERNELS.items()}
     systems = capture_reduced_systems(probs)
     psd_err = phase_parity_psd(systems)
     psd_time = phase_time_psd(systems)
@@ -1912,13 +2517,34 @@ def main() -> int:
         for route, counts in by_route.items():
             for name, n in counts.items():
                 launches[name][f"user_path {shape} ({route})"] = n
+    torch.cuda.empty_cache()
+    selfcal_user = phase_selfcal_user_path(probs, kern)
+    say("elapsed", after="selfcal_user_path",
+        seconds=f"{time.perf_counter() - t_start:.1f}")
+    for name, by_shape in selfcal_user.items():
+        launches[name].update(by_shape)
+    del probs, systems, prob, library, kernel
+    gc.collect()            # the dead problems' graphs sit in reference cycles
+    torch.cuda.empty_cache()
+    from pycamset_tpu_torch.problems import freepoint_problem
+    fp_probs = {shape: freepoint_problem(n_cams, n_ims, dev)
+                for shape, (n_cams, n_ims, _) in FREEPOINT.items()}
+    say("problems", **{s.replace(" ", "_"):
+                       f"B={p.mask.shape[0]},K={p.mask.shape[1]},"
+                       f"n_real={p.blocks.n_real}"
+                       for s, p in fp_probs.items()})
+    fp_kern = {name: {} for name in FREEPOINT_KERNELS}
+    phase_freepoint_kernels(fp_probs, fp_kern)
+    launches.update(phase_freepoint(fp_probs))
+    say("elapsed", after="freepoint",
+        seconds=f"{time.perf_counter() - t_start:.1f}")
 
     fleet_shape = f"fleet {'x'.join(map(str, FLEET))}"
     launches["template_gram_fused"][fleet_shape] = fleet_rec["launches"]
     kernels = []
     for name, (source, replaces, shape) in KERNELS.items():
         rec = kern[name][shape]
-        bound_ms, bound_by = bound(name, probs[shape], MAIN_PATH[shape][1])
+        bound_ms, bound_by = bounds[name]
         extra = {}
         if name == "template_gram_fused":
             extra["fleet"] = {k: v for k, v in fleet_kern.items()
@@ -1941,6 +2567,27 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "kernel_ms": rec["kernel_ms"], "bmm_ms": rec["bmm_ms"],
             "shape": shape, "card": smi, **extra})
+    for name, (source, replaces, shape) in FREEPOINT_KERNELS.items():
+        rec = fp_kern[name][shape]
+        bound_ms, bound_by = freepoint_bound(name, fp_probs[shape])
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(launches[name].values()),
+            "launches_by_solve": launches[name],
+            "max_abs_err": max(r["abs"] for r in fp_kern[name].values()),
+            "max_rel_err": max(r["rel"] for r in fp_kern[name].values()),
+            "max_scaled_err": max(r["scaled"]
+                                  for r in fp_kern[name].values()),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "kernel_ms": rec["kernel_ms"], "peak_mib": rec["peak_mib"],
+            "kernel_ms_other_shape": {
+                s: r["kernel_ms"] for s, r in fp_kern[name].items()
+                if s != shape},
+            "wrapper_over": ("selfcal_gram_fused (Kernel C)"
+                             if name.endswith("fused")
+                             else "selfcal_gram (Kernel D)"),
+            "shape": shape, "card": smi})
     widest = psd_time[max(psd_time)]
     kernels.append({
         "name": PSD[0], "route": "cuda", "source": PSD[1],

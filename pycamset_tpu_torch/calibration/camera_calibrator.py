@@ -26,10 +26,13 @@ def run_stereo_calibration(
         problem_options: dict | None = None, device="cuda", dtype=None):
     """The full multiview calibration: a target-pose bundle adjustment.
 
-    :param param_handler: a prepared handler (e.g. seeded through
-        ``set_initial_params``); else a ``TemplateBundleHandler`` is built
-        from ``cams``, ``detections``, ``target``, ``fixed_params`` and
-        ``problem_options``.
+    :param param_handler: a prepared handler: a ``TemplateBundleHandler``
+        (e.g. seeded through ``set_initial_params``), a ``SelfBundleHandler``
+        (e.g. warm-started by ``set_from_templated_camset`` from a template
+        solve; the result is gauge-aligned onto the reference target) or a
+        ``FreePointBundleHandler``; else a ``TemplateBundleHandler`` is
+        built from ``cams``, ``detections``, ``target``, ``fixed_params``
+        and ``problem_options``.
     :param floc: an image folder to read each camera's resolution from
         before saving (an OpenCV read).
     """

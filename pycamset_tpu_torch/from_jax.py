@@ -14,7 +14,9 @@ from pycamset_tpu_torch.config import resolve_device
 from pycamset_tpu_torch.models.camera_set import CameraSet, make_cam_dict
 from pycamset_tpu_torch.models.detections import TargetDetection
 from pycamset_tpu_torch.optim.fleet import shared_template
-from pycamset_tpu_torch.optim.structured import ParamPieces
+from pycamset_tpu_torch.optim.structured import (
+    ParamPieces, chain_widths, pad_pieces_to_grid, split_full_params)
+from pycamset_tpu_torch.optim.structured_driver import build_colmask_pieces
 from pycamset_tpu_torch.optim.structured_mixed import MixedPieces
 
 
@@ -29,6 +31,30 @@ def pieces_from_numpy(cam, im, key, device, dtype) -> ParamPieces:
     (a colmask is a ParamPieces of 0/1 entries)."""
     return ParamPieces(*(tensor_from_numpy(p, device, dtype)
                          for p in (cam, im, key)))
+
+
+def handler_pieces_from_numpy(op_fun, full, unfixed, n_cams: int,
+                              n_ims: int, n_keys: int, n_ims_grid: int,
+                              k_pad: int, device, dtype):
+    """A handler's full parameter vector and unfixed mask (numpy: a JAX
+    handler's ``bundlePrimitive.base_full()`` with its start placed at
+    ``unfixed_full()``, and that mask) -> (start ParamPieces, column-mask
+    ParamPieces) of the port's chain ``op_fun`` on the padded grid, as
+    ``build_structured_problem`` lays them out: pad key rows replicate key
+    0 and pad images image 0, neither ever free; a pose-free chain's image
+    piece is zero-width, (n_ims_grid, 0)."""
+    widths = chain_widths(op_fun)
+    struct = op_fun.param_struct(n_cams, n_ims, n_keys)
+    full = np.asarray(full, dtype=np.float64)
+    start = pad_pieces_to_grid(
+        split_full_params(torch.as_tensor(full), op_fun, struct, n_cams,
+                          n_ims, n_keys, widths),
+        widths, False, n_keys, k_pad, n_ims, n_ims_grid)
+    colmask = build_colmask_pieces(full, np.asarray(unfixed, dtype=bool),
+                                   op_fun, struct, widths, n_cams, n_ims,
+                                   n_keys, k_pad, n_ims_grid)
+    return tuple(pieces_from_numpy(*(t.numpy() for t in p), device, dtype)
+                 for p in (start, colmask))
 
 
 def grid_from_numpy(uv, mask, tpl, device, dtype):

@@ -1,0 +1,25 @@
+"""Bundle-adjustment optimisation: blocks, chains, handlers and
+``run_bundle_adjustment``.
+
+The exports of ``pycamset_tpu/optim/__init__.py`` that the port has: the
+function blocks and chain layout, the three handlers (template,
+self-calibration, free-point) with the free-point target, and
+``run_bundle_adjustment``. The generic LM (``lm_solve``), the uncertainty
+module and ``make_optimisation_function`` are ROADMAP Queue A item 8.
+"""
+from pycamset_tpu_torch.optim.blocks import (
+    Extrinsic3D, FreePoint, FunctionBlock, ParamSpec, Projection,
+    RigidTform3d, TemplatePoints, key_type)
+from pycamset_tpu_torch.optim.chain import OptimFunction, ParamStruct
+from pycamset_tpu_torch.optim.handlers import (
+    DEFAULT_OPTIONS, FreePointBundleHandler, FreePointTarget,
+    SelfBundleHandler, TemplateBundleHandler, estimate_camera_relative_poses)
+from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
+
+__all__ = [
+    "FunctionBlock", "ParamSpec", "key_type", "Projection", "RigidTform3d",
+    "Extrinsic3D", "TemplatePoints", "FreePoint", "OptimFunction",
+    "ParamStruct", "DEFAULT_OPTIONS", "TemplateBundleHandler",
+    "SelfBundleHandler", "FreePointBundleHandler", "FreePointTarget",
+    "estimate_camera_relative_poses", "run_bundle_adjustment",
+]

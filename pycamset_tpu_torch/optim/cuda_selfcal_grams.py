@@ -31,6 +31,26 @@ the ten reduced NormalEq fields). Standard camera model (a = 15) only.
 ``scaled_errors_selfcal`` and ``scaled_errors_selfcal_fused`` hold a
 kernel's outputs against its twin's entry by entry, in the Jacobi scaling
 the solver applies.
+
+The pose-free free-point chain (Projection + Extrinsic3D + FreePoint: b = 0,
+c = 3) has no kernel of its own, as in the JAX package: its two wrappers
+run C and D with identity poses (``im_b`` zeros: Rp = I, tp = 0) and every
+pose column masked, and strip the zero-width pose outputs, as
+``make_pallas_freepoint_grams`` (``pallas_grams.py:1113``) and
+``make_pallas_freepoint_grams_fused`` (``:1147``) reach ``pl.pallas_call``
+only through D's and C's Pallas twins:
+
+- ``freepoint_gram`` (over Kernel D): per block gcc_b, gc_b and the cost,
+  the per-(block, key) couplings wck_b, and hkk/gk over all blocks;
+- ``freepoint_gram_fused`` (over Kernel C): hcc, gc and wck summed over
+  each camera's images, per-block costs, hkk and gk.
+
+Their plain twins (``freepoint_gram_plain``, ``freepoint_gram_fused_plain``)
+are the self-cal twins at identity poses; each wrapper counts its own
+launches (not in the self-cal wrappers' counts). The kernels still compute,
+and D and C still write, the pose columns and C's per-block wik, which the
+wrappers discard; ``scaled_errors_freepoint{,_fused}`` hold the kept
+outputs in the Jacobi scaling.
 """
 from __future__ import annotations
 
@@ -47,11 +67,14 @@ KEY_TILE = 128        # keys per thread block (csrc NT)
 N_ENTRIES = GRAM_W * (GRAM_W + 1) // 2
 
 
-def _check_widths(widths):
-    if (widths.a, widths.b, widths.c) != (15, 6, 3):
+def _check_widths(widths, b: int = 6):
+    """The standard self-calibration chain (a=15, b=6, c=3), or with
+    ``b=0`` the pose-free free-point chain (a=15, b=0, c=3)."""
+    if (widths.a, widths.b, widths.c) != (15, b, 3):
+        chain = "self-calibration" if b else "free-point"
         raise NotImplementedError(
             f"widths {widths} are not ported yet: the self-cal kernels serve "
-            f"the standard self-calibration chain (a=15, b=6, c=3); ROADMAP "
+            f"the standard {chain} chain (a=15, b={b}, c=3); ROADMAP "
             f"Queue A item 7 lists the other camera widths")
 
 
@@ -343,3 +366,203 @@ def make_cuda_selfcal_grams_fused(widths, n_cams: int, n_ims: int,
                 torch.sum(corner))
 
     return grams
+
+
+# --------------------------------------------- the pose-free free-point chain
+
+def _identity_poses(cam_b):
+    """(B, 6) zero poses (Rp = I, tp = 0) and their (B, 6) zero column
+    mask, in cam_b's dtype and device."""
+    z = cam_b.new_zeros((cam_b.shape[0], 6))
+    return z, z
+
+
+def freepoint_gram_plain(cam_b, keyp, uv, mask, cmask_b, kmask,
+                         loss: str = "linear", f_scale: float = 1.0,
+                         loss_semantics: str = "component"):
+    """Plain twin of ``freepoint_gram``: ``selfcal_gram_plain`` at identity
+    poses with every pose column masked, the pose outputs stripped.
+
+    :return: (gcc_b (B,15,15), gc_b (B,15), corner (B,) the block's
+        (robust) cost, wck_b (B,K,15,3), hkk (K,3,3), gk (K,3)).
+    """
+    im0, imask0 = _identity_poses(cam_b)
+    g, wck_b, _, hkk, gk = selfcal_gram_plain(
+        cam_b, im0, keyp, uv, mask, cmask_b, imask0, kmask, loss, f_scale,
+        loss_semantics)
+    return _strip_pose(g, wck_b, hkk, gk)
+
+
+def _strip_pose(g, wck_b, hkk, gk):
+    """Kernel D's outputs without the pose columns (views of g)."""
+    a, w = 15, GRAM_W - 1
+    return g[:, :a, :a], g[:, :a, w], g[:, w, w], wck_b, hkk, gk
+
+
+def freepoint_gram_fused_plain(cam_b, keyp, uv, mask, kmask, n_cams: int,
+                               n_ims: int, loss: str = "linear",
+                               f_scale: float = 1.0,
+                               loss_semantics: str = "component"):
+    """Plain twin of ``freepoint_gram_fused``: ``selfcal_gram_fused_plain``
+    at identity poses with every pose column masked, the pose outputs
+    stripped.
+
+    :return: (hcc (C,15,15), gc (C,15), wck (C,K,15,3), corner (B,),
+        hkk (K,3,3), gk (K,3)), camera columns unmasked.
+    """
+    im0, imask0 = _identity_poses(cam_b)
+    (hcc, gc, wck, _, _, _, _, corner, hkk,
+     gk) = selfcal_gram_fused_plain(cam_b, im0, keyp, uv, mask, imask0,
+                                    kmask, n_cams, n_ims, loss, f_scale,
+                                    loss_semantics)
+    return hcc, gc, wck, corner, hkk, gk
+
+
+def freepoint_gram(cam_b, keyp, uv, mask, cmask_b, kmask,
+                   loss: str = "linear", f_scale: float = 1.0,
+                   loss_semantics: str = "component"):
+    """Kernel D at identity poses: the outputs of ``freepoint_gram_plain``.
+
+    :param cam_b: (B, 15). :param keyp: (K, 3) free points.
+        :param uv: (B, K, 2). :param mask: (B, K). :param cmask_b: (B, 15).
+        :param kmask: (K, 3).
+    """
+    if cam_b.device.type == "cpu":
+        return freepoint_gram_plain(cam_b, keyp, uv, mask, cmask_b, kmask,
+                                    loss, f_scale, loss_semantics)
+    loss_id, component = _loss_args(loss, loss_semantics)
+    im0, imask0 = _identity_poses(cam_b)
+    _check_cuda_inputs(cam_b, im0, keyp, uv, mask, cmask_b=cmask_b,
+                       imask_b=imask0, kmask=kmask)
+    with torch.cuda.device(cam_b.device):
+        g, wck_b, _, hkk, gk = _launch_selfcal(
+            pack_block_params(cam_b, im0), keyp, uv, mask, cmask_b, imask0,
+            kmask, loss_id, component, f_scale)
+    freepoint_gram.launches += 1
+    return _strip_pose(g, wck_b, hkk, gk)
+
+
+freepoint_gram.launches = 0
+
+
+def freepoint_gram_fused(cam_b, keyp, uv, mask, kmask, n_cams: int,
+                         n_ims: int, loss: str = "linear",
+                         f_scale: float = 1.0,
+                         loss_semantics: str = "component"):
+    """Kernel C at identity poses: the outputs of
+    ``freepoint_gram_fused_plain`` over B = n_cams * n_ims camera-major
+    blocks."""
+    if cam_b.device.type == "cpu":
+        return freepoint_gram_fused_plain(cam_b, keyp, uv, mask, kmask,
+                                          n_cams, n_ims, loss, f_scale,
+                                          loss_semantics)
+    loss_id, component = _loss_args(loss, loss_semantics)
+    im0, imask0 = _identity_poses(cam_b)
+    _check_cuda_inputs(cam_b, im0, keyp, uv, mask, imask_b=imask0,
+                       kmask=kmask)
+    if mask.shape[0] != n_cams * n_ims:
+        raise ValueError(f"{mask.shape[0]} blocks, expected {n_cams} x "
+                         f"{n_ims}")
+    with torch.cuda.device(cam_b.device):
+        (hcc, gc, wck, _, _, _, _, corner, hkk,
+         gk) = _launch_selfcal_fused(pack_block_params(cam_b, im0), keyp, uv,
+                                     mask, imask0, kmask, n_cams, n_ims,
+                                     loss_id, component, f_scale)
+    freepoint_gram_fused.launches += 1
+    return hcc, gc, wck, corner, hkk, gk
+
+
+freepoint_gram_fused.launches = 0
+
+
+def make_cuda_freepoint_grams(widths, loss: str = "linear",
+                              f_scale: float = 1.0,
+                              loss_semantics: str = "component"):
+    """Per-block gram builder of the pose-free free-point chain on Kernel D
+    (``freepoint_gram``); the contract of make_pallas_freepoint_grams:
+    grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask) ->
+    (gcc_b, gii_b (B,0,0), wci_b (B,a,0), hkk, wck_b, wik_b (B,K,0,3), gc_b,
+    gi_b (B,0), gk, cost); im_b, tpl and imask_b are not read.
+    """
+    _check_widths(widths, b=0)
+
+    def grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask):
+        gcc_b, gc_b, corner, wck_b, hkk, gk = freepoint_gram(
+            cam_b, keyp, uv, mask, cmask_b, kmask, loss=loss,
+            f_scale=f_scale, loss_semantics=loss_semantics)
+        bb, k_pad = mask.shape
+        z = mask.new_zeros
+        return (gcc_b, z((bb, 0, 0)), z((bb, 15, 0)), hkk, wck_b,
+                z((bb, k_pad, 0, 3)), gc_b, z((bb, 0)), gk,
+                torch.sum(corner))
+
+    return grams
+
+
+def make_cuda_freepoint_grams_fused(widths, n_cams: int, n_ims: int,
+                                    loss: str = "linear",
+                                    f_scale: float = 1.0,
+                                    loss_semantics: str = "component"):
+    """Fused-reduction builder of the pose-free free-point chain on Kernel C
+    (``freepoint_gram_fused``); the contract of
+    make_pallas_freepoint_grams_fused:
+    grams(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask) ->
+    (hcc (C,a,a), hkk (K,3,3), wck (C,K,a,3), gc (C,a), gk (K,3), cost);
+    im_b and imask_b are not read.
+    """
+    _check_widths(widths, b=0)
+    a = widths.a
+
+    def grams(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask):
+        hcc, gc, wck, corner, hkk, gk = freepoint_gram_fused(
+            cam_b, keyp, uv, mask, kmask, n_cams, n_ims, loss=loss,
+            f_scale=f_scale, loss_semantics=loss_semantics)
+        # camera columns masked on the reduced pieces, as the self-cal
+        # fused builder masks them
+        cm = cmask_b.reshape(n_cams, n_ims, a)[:, 0]
+        return (hcc * cm[:, :, None] * cm[:, None, :], hkk,
+                wck * cm[:, None, :, None], gc * cm, gk, torch.sum(corner))
+
+    return grams
+
+
+def scaled_errors_freepoint(got, ref) -> dict:
+    """Worst error of ``freepoint_gram``'s outputs against reference
+    outputs, per output, in the Jacobi scaling: gcc_b by sqrt(g_ii g_jj),
+    gc_b by sqrt(g_ii cost_b) and the cost relative, with the block's own
+    diagonal; wck_b by sqrt(gcc_ii hkk_pp); hkk and gk as ``_key_errors``."""
+    ref = [r.double() for r in ref]
+    got = [g.double().to(r.device) for g, r in zip(got, ref)]
+    gcc, gc, corner, wck = (g - r for g, r in zip(got[:4], ref[:4]))
+    s_b = _jacobi_scale(torch.cat([torch.diagonal(ref[0], dim1=1, dim2=2),
+                                   ref[2][:, None]], dim=1))
+    s_k = _jacobi_scale(torch.diagonal(ref[4], dim1=1, dim2=2))
+    out = {"gcc": _worst(gcc / (s_b[:, :15, None] * s_b[:, None, :15])),
+           "gc": _worst(gc / (s_b[:, :15] * s_b[:, 15:])),
+           "cost": _worst(corner / s_b[:, 15] ** 2),
+           "wck": _worst(wck / (s_b[:, None, :15, None]
+                                * s_k[None, :, None, :]))}
+    out.update(_key_errors(got[4], got[5], ref[4], ref[5], ref[2].sum()))
+    return out
+
+
+def scaled_errors_freepoint_fused(got, ref, n_cams: int,
+                                  n_ims: int) -> dict:
+    """Worst error of ``freepoint_gram_fused``'s outputs against reference
+    outputs, per output, in the Jacobi scaling: hcc and gc by each camera's
+    reduced diagonal and cost, the per-block costs relative, wck by
+    sqrt(hcc_ii hkk_pp); hkk and gk as ``_key_errors``."""
+    ref = [r.double() for r in ref]
+    got = [g.double().to(r.device) for g, r in zip(got, ref)]
+    hcc, gc, wck, corner = (g - r for g, r in zip(got[:4], ref[:4]))
+    cost_c = ref[3].reshape(n_cams, n_ims).sum(dim=1)
+    s_c = _jacobi_scale(torch.cat(
+        [torch.diagonal(ref[0], dim1=1, dim2=2), cost_c[:, None]], dim=1))
+    s_k = _jacobi_scale(torch.diagonal(ref[4], dim1=1, dim2=2))
+    out = {"hcc": _worst(hcc / (s_c[:, :15, None] * s_c[:, None, :15])),
+           "gc": _worst(gc / (s_c[:, :15] * s_c[:, 15:])),
+           "corner": _worst(corner / _jacobi_scale(ref[3]) ** 2),
+           "wck": _worst(wck / (s_c[:, None, :15, None]
+                                * s_k[None, :, None, :]))}
+    out.update(_key_errors(got[4], got[5], ref[4], ref[5], ref[3].sum()))
+    return out

@@ -2,16 +2,18 @@
 
 Counterpart of ``OptimizeResult``, ``run_bundle_adjustment`` and
 ``_finish_bundle_adjustment`` in ``pycamset_tpu/optim/driver.py``, for the
-backends ``"auto"`` and ``"structured"``: the handler's problem built by
-``optim/structured_driver.py``, solved by the structured LM (one CUDA graph
-replay per LM step on a card), the residuals and the calibrated CameraSet
-with its calibration history. ``device`` is the card unless the caller names
+backends ``"auto"`` and ``"structured"``: the handler's problem
+(``TemplateBundleHandler``, ``SelfBundleHandler`` or
+``FreePointBundleHandler``) built by ``optim/structured_driver.py``, solved
+by the structured LM (one CUDA graph replay per LM step on a card), the
+residuals and the calibrated CameraSet with its calibration history. ``device`` is the card unless the caller names
 another; dtype as ``config.default_device_dtype``.
 
 Not in this slice, each raising ``NotImplementedError`` with its ROADMAP
 Queue A item, never another backend: ``backend="scipy"`` and the generic
-fallback of ``"auto"`` (item 8), the mixed and grouped structured backend
-(``build_mixed_structured_problem``, the next slice of item 3),
+fallback of ``"auto"`` (item 8), the handler-level mixed and grouped
+structured backend (``build_mixed_structured_problem``, the next slice of
+item 3),
 ``backend="sharded"`` (item 11) and ``shared_intrinsics`` (item 7).
 """
 from __future__ import annotations
@@ -61,7 +63,7 @@ def run_bundle_adjustment(param_handler, threads: int = 1, dtype=None,
             param_handler, dtype=dtype, device=device)
     except UnsupportedChain as e:
         raise NotImplementedError(
-            f"{e}: the mixed and grouped structured backend "
+            f"{e}: the handler-level mixed and grouped structured backend "
             f"(build_mixed_structured_problem) is the next slice of ROADMAP "
             f"Queue A item 3, and backend='auto''s generic fallback is item "
             f"8") from e

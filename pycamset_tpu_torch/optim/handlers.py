@@ -1,14 +1,29 @@
 """Parameter handlers: the problem a bundle adjustment solves.
 
-Counterpart of the template half of ``pycamset_tpu/optim/handlers.py``:
-``DEFAULT_OPTIONS``, ``parse_camera_models``, ``TemplateBundlePrimitive``
-(the flat parameter vector <-> [intr 9/cam | extr 6/cam | pose 6/im]
-arrays, with the fixed-parameter masks) and ``TemplateBundleHandler`` (the
-target-pose BA of a CameraSet, a target and its TargetDetection: layout,
-fixed parameters, the PnP seed, MAD outlier exclusion, the calibrated
-CameraSet), with ``estimate_camera_relative_poses`` and the helpers they
-call. The handler is host state; ``optim/structured_driver.py`` builds the
-device problem from it.
+Counterpart of ``pycamset_tpu/optim/handlers.py`` for the standard
+camera model: ``DEFAULT_OPTIONS``, ``parse_camera_models``, the primitives
+(the flat parameter vector <-> [intr 9/cam | extr 6/cam | pose 6/im
+| points 3/key] arrays, with the fixed-parameter masks:
+``TemplateBundlePrimitive``, ``StandardBundlePrimitive``,
+``FreePointPrimitive``) and the handlers:
+
+- ``TemplateBundleHandler``: the target-pose BA of a CameraSet, a target
+  and its TargetDetection (layout, fixed parameters, the PnP seed, MAD
+  outlier exclusion, the calibrated CameraSet), with
+  ``estimate_camera_relative_poses`` and the helpers they call;
+- ``SelfBundleHandler`` (JAX ``handlers.py:1084-1360``): target
+  self-calibration, the template BA with the target points free, a
+  7-coordinate gauge on three non-colinear points (or the caller's own
+  pins), unseen points frozen, the warm start from a template solve
+  (``set_from_templated_camset``) and the similarity alignment of the
+  result onto the reference target (``apply_gauge_transform``, host numpy
+  and scipy);
+- ``FreePointBundleHandler`` (``:1375-1442``): the pose-free bundle
+  adjustment of cameras and independently observed 3D points (a wand
+  calibration's frames), seeded from the CameraSet's extrinsics.
+
+The handlers are host state; ``optim/structured_driver.py`` builds the
+device problem from them.
 
 Standard camera model only: another ``camera_model`` raises
 ``NotImplementedError`` (ROADMAP Queue A item 7). The PnP seed
@@ -16,13 +31,18 @@ Standard camera model only: another ``camera_model`` raises
 without cv2 it raises ``ImportError`` and ``set_initial_params(x0)`` seeds
 the handler instead (the path a card's machine takes). Its Rodrigues
 conversions go through cv2 too, so the seed is the JAX package's bit for
-bit. The self-calibration, free-point, rolling-shutter and
-multi-target handlers are later slices of items 3 and 7.
+bit. The self-calibration handler seeds through PnP as the template one
+does, or, on a card's machine, from a template solve
+(``set_from_templated_camset``); the free-point handler needs no OpenCV.
+The rolling-shutter and multi-target handlers are later slices of items 3
+and 7; the target-shape plot (``special_plots``) waits for the plotting
+layer (item 10).
 """
 from __future__ import annotations
 
 import logging
 from copy import deepcopy
+from itertools import combinations
 
 import numpy as np
 
@@ -31,9 +51,11 @@ from pycamset_tpu_torch.models.abstract_target import (  # noqa: F401
     SEED_INSTEAD, AbstractTarget, FreePointTarget)
 from pycamset_tpu_torch.models.camera_set import CameraSet
 from pycamset_tpu_torch.models.detections import TargetDetection
-from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, Projection,
+from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, FreePoint,
+                                             Projection, RigidTform3d,
                                              TemplatePoints)
 from pycamset_tpu_torch.optim.chain import OptimFunction
+from pycamset_tpu_torch.ops.transforms import rigid_fit
 
 DEFAULT_OPTIONS = {
     "verbosity": 2,
@@ -149,6 +171,84 @@ class TemplateBundlePrimitive:
         self.extr[:] = full[ie:ee].reshape(n_c, 6)
         self.poses[:] = full[ee:].reshape(n_p, 6)
         return self.intr, self.extr, self.poses
+
+
+class StandardBundlePrimitive(TemplateBundlePrimitive):
+    """Template primitive + per-coordinate-fixable target feature points
+    (JAX ``handlers.py:265-302``)."""
+
+    def __init__(self, poses, bundle_points, extr, intr, poses_unfixed=None,
+                 bundle_points_unfixed=None, extr_unfixed=None,
+                 intr_unfixed=None):
+        self.bundle_pts = bundle_points  # flat (3 * n_points,)
+        self.bdpt_unfixed = (bundle_points_unfixed
+                             if bundle_points_unfixed is not None
+                             else np.ones(bundle_points.shape[0], dtype=bool))
+        super().__init__(poses, extr, intr, poses_unfixed, extr_unfixed,
+                         intr_unfixed)
+
+    def calc_free_poses(self):
+        super().calc_free_poses()
+        self.free_bdpt = int(np.sum(self.bdpt_unfixed))
+        self.bdpt_end = self.free_bdpt + self.pose_end
+
+    def base_full(self) -> np.ndarray:
+        return np.concatenate([super().base_full(), self.bundle_pts.ravel()])
+
+    def unfixed_full(self) -> np.ndarray:
+        return np.concatenate([super().unfixed_full(), self.bdpt_unfixed])
+
+    def return_bundle_primitives(self, params):
+        full = self.base_full()
+        full[self.unfixed_full()] = params
+        n_c = self.intr.shape[0]
+        n_p = self.poses.shape[0]
+        ie, ee = self.intr_width * n_c, (self.intr_width + 6) * n_c
+        self.intr[:] = full[:ie].reshape(n_c, self.intr_width)
+        self.extr[:] = full[ie:ee].reshape(n_c, 6)
+        self.poses[:] = full[ee:ee + 6 * n_p].reshape(n_p, 6)
+        self.bundle_pts[:] = full[ee + 6 * n_p:]
+        return (self.intr, self.extr, self.poses,
+                self.bundle_pts.reshape(-1, 3))
+
+
+class FreePointPrimitive(TemplateBundlePrimitive):
+    """Intr + extr + free 3D points, no poses: the pose-free variant (JAX
+    ``handlers.py:305-342``)."""
+
+    def __init__(self, bundle_points, extr, intr, bundle_points_unfixed=None,
+                 extr_unfixed=None, intr_unfixed=None):
+        self.bundle_pts = bundle_points
+        self.bdpt_unfixed = (bundle_points_unfixed
+                             if bundle_points_unfixed is not None
+                             else np.ones(bundle_points.shape[0], dtype=bool))
+        super().__init__(np.zeros((0, 6)), extr, intr,
+                         poses_unfixed=np.zeros(0, dtype=bool),
+                         extr_unfixed=extr_unfixed, intr_unfixed=intr_unfixed)
+
+    def calc_free_poses(self):
+        super().calc_free_poses()
+        self.free_bdpt = int(np.sum(self.bdpt_unfixed))
+        self.bdpt_end = self.free_bdpt + self.pose_end
+
+    def base_full(self) -> np.ndarray:
+        return np.concatenate(
+            [self.intr.ravel(), self.extr.ravel(), self.bundle_pts.ravel()])
+
+    def unfixed_full(self) -> np.ndarray:
+        return np.concatenate([
+            np.repeat(self.intr_unfixed, self.intr_width),
+            np.repeat(self.extr_unfixed, 6), self.bdpt_unfixed])
+
+    def return_bundle_primitives(self, params):
+        full = self.base_full()
+        full[self.unfixed_full()] = params
+        n_c = self.intr.shape[0]
+        ie, ee = self.intr_width * n_c, (self.intr_width + 6) * n_c
+        self.intr[:] = full[:ie].reshape(n_c, self.intr_width)
+        self.extr[:] = full[ie:ee].reshape(n_c, 6)
+        self.bundle_pts[:] = full[ee:]
+        return self.intr, self.extr, self.bundle_pts.reshape(-1, 3)
 
 
 # -------------------------------------------------------------------- handler
@@ -283,10 +383,7 @@ class TemplateBundleHandler:
         prim = self.bundlePrimitive
         for idc in range(len(self.cam_names)):
             if prim.intr_unfixed[idc]:
-                cam = cams[idc]
-                prim.intr[idc] = np.concatenate([
-                    cam.intrinsic[[0, 0, 1, 1], [0, 2, 1, 2]],
-                    _pack_dist(cam.distortion_coefs, self.intr_width - 4)])
+                prim.intr[idc] = self._intr_seed_row(cams[idc])
             if prim.extr_unfixed[idc]:
                 rvec, tvec = gu.cv2_rod(cv2, cam_poses[idc])
                 prim.extr[idc] = np.concatenate([rvec, tvec])
@@ -300,6 +397,12 @@ class TemplateBundleHandler:
 
         params = prim.base_full()[prim.unfixed_full()]
         return self.add_extra_params(params)
+
+    def _intr_seed_row(self, cam) -> np.ndarray:
+        """A camera's packed intrinsic seed row [fx px fy py | dist]."""
+        return np.concatenate([
+            cam.intrinsic[[0, 0, 1, 1], [0, 2, 1, 2]],
+            _pack_dist(cam.distortion_coefs, self.intr_width - 4)])
 
     def find_and_exclude_transform_outliers(self, per_im_error):
         """MAD-outlier poses are marked missing ('ask' prompts, 'y' drops
@@ -371,6 +474,329 @@ class TemplateBundleHandler:
         if flatten:
             return detection.return_flattened_keys(dims).get_data()
         return detection.get_data()
+
+
+# ------------------------------------------------------------------ self-cal
+
+def find_not_colinear_pts(points: np.ndarray):
+    """Indices of 3 non-colinear points (for gauge fixing): point 0 and the
+    first pair (in ``combinations`` order) that spans a triangle."""
+    ind0 = 0
+    for ind1, ind2 in combinations(np.arange(1, points.shape[0]), 2):
+        ab = points[ind0] - points[ind1]
+        ac = points[ind0] - points[ind2]
+        if np.linalg.norm(np.cross(ab, ac)) > 1e-8:
+            return ind0, ind1, ind2
+    raise ValueError(
+        "No set of values that were not colinear were found in the provided "
+        "data.")
+
+
+class SelfBundleHandler(TemplateBundleHandler):
+    """Target self-calibration: the template BA plus per-point target
+    geometry parameters, with a 7-coordinate gauge fix and unseen-feature
+    freezing; results are similarity-aligned back onto the reference model.
+
+    ``bundle_points_unfixed`` lets the caller pin their own coordinates
+    (e.g. a known sub-structure); the automatic 7-coordinate gauge fix is
+    then skipped and, unless ``always_correct_gauge=True``, so is the
+    post-hoc similarity alignment, since the user's pins define the frame.
+    """
+
+    def __init__(self, camset, target, detection, fixed_params=None,
+                 options=None, missing_poses=None,
+                 bundle_points_unfixed=None, always_correct_gauge=False):
+        super().__init__(camset, target, detection, fixed_params, options,
+                         missing_poses)
+        self.flat_point_data = np.copy(self.point_data.reshape(-1))
+
+        if bundle_points_unfixed is not None:
+            self.feat_unfixed = np.array(bundle_points_unfixed, dtype=bool)
+            if self.feat_unfixed.shape != self.flat_point_data.shape:
+                raise ValueError(
+                    "bundle_points_unfixed must be a flat per-coordinate "
+                    f"mask of shape {self.flat_point_data.shape}")
+            n_pinned = int(self.feat_unfixed.size - self.feat_unfixed.sum())
+            if n_pinned == 0:
+                raise ValueError(
+                    "bundle_points_unfixed fixes nothing: the self "
+                    "calibration needs >= 7 pinned coordinates to break "
+                    "the gauge symmetry")
+            if n_pinned < 7:
+                logging.warning(
+                    f"Only {n_pinned} coordinates pinned; the 7-dof "
+                    "similarity gauge is under-constrained and the solve "
+                    "may wander.")
+            self.fixed_inds = None
+            self.correct_gauge = bool(always_correct_gauge)
+            logging.info(
+                "Custom unfixed bundle points given; the optimisation will "
+                + ("still" if self.correct_gauge else "not")
+                + " similarity-align the result onto the reference model.")
+        else:
+            # gauge: 3 + 3 + 1 coordinates of 3 non-colinear points. The
+            # seventh must constrain the rotation about the p0-p1 axis,
+            # under which p2 moves along v = axis x (p2 - p0): pin p2's
+            # coordinate where |v| is largest (for a planar z = 0 target,
+            # its z)
+            pts3 = self.flat_point_data.reshape(-1, 3)
+            self.fixed_inds = find_not_colinear_pts(pts3)
+            i0, i1, i2 = self.fixed_inds
+            axis = pts3[i1] - pts3[i0]
+            v = np.cross(axis / np.linalg.norm(axis), pts3[i2] - pts3[i0])
+            j2 = int(np.argmax(np.abs(v)))
+            self.feat_unfixed = np.ones(self.flat_point_data.shape[0],
+                                        dtype=bool)
+            self.feat_unfixed[3 * i0: 3 * i0 + 3] = False
+            self.feat_unfixed[3 * i1: 3 * i1 + 3] = False
+            self.feat_unfixed[3 * i2 + j2] = False
+            self.correct_gauge = True
+
+        # freeze features never observed
+        n_points = self.n_keys()
+        dd = self.detection.return_flattened_keys(
+            self.target.point_data.shape[:-1]).get_data()[:, 2]
+        self.visible_feature_mask = np.isin(np.arange(n_points), dd)
+        for idf, vis in enumerate(self.visible_feature_mask):
+            if not vis:
+                self.feat_unfixed[3 * idf: 3 * idf + 3] = False
+
+        sup = self.bundlePrimitive
+        self.bundlePrimitive = StandardBundlePrimitive(
+            sup.poses, self.flat_point_data, sup.extr, sup.intr,
+            extr_unfixed=sup.extr_unfixed, intr_unfixed=sup.intr_unfixed,
+            poses_unfixed=sup.poses_unfixed,
+            bundle_points_unfixed=self.feat_unfixed)
+
+        self.missing_poses = missing_poses
+        self.op_fun = OptimFunction(
+            [Projection(), Extrinsic3D(), RigidTform3d(), FreePoint()])
+
+    def template_table(self):
+        return None  # the geometry is optimised, not a constant table
+
+    def get_initial_params(self) -> np.ndarray:
+        if self.initial_params is not None:
+            return self.initial_params
+        # the self-cal primitive already carries the free bundle points
+        # (seeded from the reference geometry at construction)
+        self.initial_params = self.calc_initial_params()
+        return self.initial_params
+
+    def set_from_templated_camset(self, prev_cams: CameraSet):
+        """Warm start from a completed template calibration: its parameters
+        and the reference points' free coordinates."""
+        if not isinstance(prev_cams.calibration_handler,
+                          TemplateBundleHandler):
+            raise ValueError(
+                "Previous camera set was not a templated adjustment")
+        self.missing_poses = prev_cams.calibration_handler.missing_poses
+        self.initial_params = np.concatenate([
+            np.asarray(prev_cams.calibration_params, dtype=float).copy(),
+            prev_cams.calibration_handler.target.point_data
+            .copy().flatten()[self.feat_unfixed]])
+
+    def get_bundle_adjustment_inputs(self, x, make_points: bool = False):
+        proj, extr, poses, bundle_points = (
+            self.bundlePrimitive.return_bundle_primitives(x))
+        if make_points:
+            im_points = np.empty((len(poses), *self.point_data.shape))
+            for idx, pose in enumerate(poses):
+                t = gu.make_4x4h_tform(pose[:3], pose[3:])
+                im_points[idx] = gu.h_tform(
+                    bundle_points, t).reshape(self.point_data.shape)
+            return np.reshape(im_points, (len(poses), -1, 3))
+        return proj, extr, poses, bundle_points
+
+    def get_updated_target(self, x):
+        """The recovered (gauge-aligned) target geometry."""
+        model = self.bundlePrimitive.return_bundle_primitives(x)
+        if not self.correct_gauge:
+            return model[3]
+        _, _, _, ps = self.apply_gauge_transform(*model)
+        return ps
+
+    def get_camset(self, x, return_pose: bool = False):
+        new_cams = _clone_camset(self.camset)
+        model = self.bundlePrimitive.return_bundle_primitives(x)
+        if self.correct_gauge:
+            proj, extr, poses, _ = self.apply_gauge_transform(*model)
+        else:
+            proj, extr, poses, _ = model
+        _write_cams(new_cams, self.cam_names, proj, extr)
+        if not return_pose:
+            return new_cams
+        flat = np.array([gu.make_4x4h_tform(p[:3], p[3:])[:3, :4].reshape(-1)
+                         for p in poses])
+        return new_cams, flat
+
+    def apply_gauge_transform(self, proj, extr, poses, point_estimate):
+        """Similarity-align the recovered model onto the reference target.
+
+        Rescales by the mean valid nearest-neighbour distance ratio, or,
+        when the ``scale_bars`` option gives measured point-pair distances
+        ``[(i, j, metres), ...]``, by the least-squares metric scale those
+        define; then rigid-fits the recovered points onto the reference
+        model and carries scale and transform into the poses and
+        extrinsics (the projections are unchanged). Host numpy and scipy.
+        """
+        from scipy.spatial.distance import cdist
+        ref_points = self.target.point_data.reshape((-1, 3))
+        valid_map = self.target.valid_map
+        vm = self.visible_feature_mask
+
+        bars = self.problem_opts.get("scale_bars")
+        if bars:
+            # measured distances between target points: scale is a pure
+            # gauge freedom, so the least-squares rescale after the solve
+            # equals constraining the distances inside it
+            bi = np.array([b[0] for b in bars], dtype=int)
+            bj = np.array([b[1] for b in bars], dtype=int)
+            bd = np.array([b[2] for b in bars], dtype=float)
+            if np.any(bd <= 0):
+                raise ValueError("scale_bars distances must be positive")
+            if np.any(bi == bj):
+                raise ValueError("scale_bars endpoints must be distinct "
+                                 "point indices")
+            unseen = ~(vm[bi] & vm[bj])
+            if np.any(unseen):
+                logging.warning(
+                    f"{int(unseen.sum())} scale bar(s) touch target points "
+                    "that were never observed (frozen at the reference "
+                    "geometry): their estimated lengths carry the OLD "
+                    "scale and will bias the metric anchor.")
+            est = np.linalg.norm(point_estimate[bi] - point_estimate[bj],
+                                 axis=1)
+            s = float(np.dot(bd, est) / np.dot(est, est))
+            new_map = ref_map = None
+        elif isinstance(valid_map, (bool, np.bool_)):
+            if not valid_map:
+                raise ValueError(
+                    "Target has given a valid map of False, which indicates "
+                    "no distance comparisons are valid.")
+            inds = np.triu_indices(int(np.sum(vm)), k=1)
+            new_map = cdist(point_estimate[vm], point_estimate[vm])[inds]
+            ref_map = cdist(ref_points[vm], ref_points[vm])[inds]
+            # anchor on the grid pitch: the pairs within 1e-3 of the least
+            # positive reference distance
+            pos = ref_map[ref_map > 0]
+            if pos.size:
+                sel = (ref_map > 0) & (ref_map <= pos.min() * (1.0 + 1e-3))
+                new_map, ref_map = new_map[sel], ref_map[sel]
+        elif isinstance(valid_map, np.ndarray):
+            pairs = valid_map[:, :2].astype(int)
+            new_map = np.linalg.norm(
+                point_estimate[pairs[:, 0]] - point_estimate[pairs[:, 1]],
+                axis=1)
+            ref_map = np.linalg.norm(
+                ref_points[pairs[:, 0]] - ref_points[pairs[:, 1]], axis=1)
+        else:
+            raise ValueError(
+                "target.valid_map must be True (every point pair is "
+                "comparable) or an (n, 2) array of comparable index pairs.")
+
+        if not bars:
+            with np.errstate(invalid="ignore", divide="ignore"):
+                s = np.mean(ref_map / new_map) if new_map.size else np.nan
+        if not np.isfinite(s) or s <= 0:
+            logging.critical(
+                "Could not anchor the model scale (no finite positive "
+                "comparable distances); leaving the recovered scale "
+                "unchanged")
+            s = 1.0
+        new_points = s * point_estimate
+
+        try:
+            rmat, tvec = rigid_fit(new_points[vm], ref_points[vm])
+            update_tform = np.eye(4)
+            update_tform[:3, :3] = rmat
+            update_tform[:3, 3] = tvec
+        except Exception as e:
+            logging.critical(
+                "Gauge alignment onto the reference model failed; keeping "
+                "the identity transform")
+            logging.critical(f"Gave error: {e}")
+            update_tform = np.eye(4)
+
+        undo = np.linalg.inv(update_tform)
+        new_points = gu.h_tform(new_points, update_tform)
+
+        def as_rod6(mat4):
+            return np.concatenate(gu.ext_4x4_to_rod(mat4))
+
+        # conjugating each pose keeps projections invariant while the world
+        # frame (points + scale) moves onto the reference model; extrinsics
+        # only absorb the inverse on the right
+        for i, rod6 in enumerate(poses):
+            scaled = gu.make_4x4h_tform(rod6[:3], s * rod6[3:])
+            poses[i] = as_rod6(update_tform @ scaled @ undo)
+        for i, rod6 in enumerate(extr):
+            scaled = gu.make_4x4h_tform(rod6[:3], s * rod6[3:])
+            extr[i] = as_rod6(scaled @ undo)
+        return proj, extr, poses, new_points
+
+
+# ---------------------------------------------------------------- free-point
+
+class FreePointBundleHandler(TemplateBundleHandler):
+    """Pose-free bundle adjustment: the camera parameters and the 3D
+    positions of independently observed points (structure from motion; a
+    wand calibration's frames). The start is the CameraSet's intrinsics and
+    extrinsics and the target's points (no PnP, no OpenCV)."""
+
+    def __init__(self, camset, target, detection, fixed_params=None,
+                 options=None, missing_poses=None):
+        super().__init__(camset, target, detection, fixed_params, options,
+                         missing_poses)
+        self.flat_point_data = np.copy(self.point_data.reshape(-1))
+        self.feat_unfixed = np.ones(self.flat_point_data.shape[0], dtype=bool)
+        self.super_primitive = self.bundlePrimitive
+        self.bundlePrimitive = FreePointPrimitive(
+            self.flat_point_data, self.super_primitive.extr,
+            self.super_primitive.intr,
+            extr_unfixed=self.super_primitive.extr_unfixed,
+            intr_unfixed=self.super_primitive.intr_unfixed,
+            bundle_points_unfixed=self.feat_unfixed)
+        self.missing_poses = missing_poses
+        self.op_fun = OptimFunction([Projection(), Extrinsic3D(), FreePoint()])
+
+    def template_table(self):
+        return None
+
+    def get_initial_params(self) -> np.ndarray:
+        if self.initial_params is not None:
+            return self.initial_params
+        prim = self.bundlePrimitive
+        for idc in range(len(self.cam_names)):
+            if prim.intr_unfixed[idc]:
+                prim.intr[idc] = self._intr_seed_row(self.camset[idc])
+            if prim.extr_unfixed[idc]:
+                rvec, tvec = gu.ext_4x4_to_rod(self.camset[idc].extrinsic)
+                prim.extr[idc] = np.concatenate([rvec, tvec])
+        prim.bundle_pts[:] = self.point_data.reshape(-1)
+        self.initial_params = prim.base_full()[prim.unfixed_full()]
+        return self.initial_params
+
+    def set_from_camset(self, prev_cams: CameraSet, init_points: np.ndarray):
+        """Warm start the cameras from a previous solve + initial points."""
+        self.initial_params = np.concatenate([
+            np.asarray(prev_cams.calibration_params, dtype=float).copy(),
+            np.asarray(init_points, dtype=float).flatten()])
+
+    def get_bundle_adjustment_inputs(self, x, make_points: bool = False):
+        return self.bundlePrimitive.return_bundle_primitives(x)
+
+    def get_camset(self, x, return_pose: bool = False):
+        new_cams = _clone_camset(self.camset)
+        proj, extr, ps = self.bundlePrimitive.return_bundle_primitives(x)
+        _write_cams(new_cams, self.cam_names, proj, extr)
+        if return_pose:
+            return new_cams, ps
+        return new_cams
+
+    def get_updated_points(self, x):
+        _, _, ps = self.bundlePrimitive.return_bundle_primitives(x)
+        return ps
 
 
 def _clone_camset(camset: CameraSet) -> CameraSet:

@@ -1,7 +1,8 @@
 """A structured bundle-adjustment problem on one device.
 
 ``BAProblem`` holds a problem's block arrays, start, column masks and loss
-on one device (template, self-calibration or grouped chain) and solves it
+on one device (template, self-calibration, pose-free free-point or grouped
+chain; the free-point chain's image piece is zero-width) and solves it
 with the structured LM. On a card it owns the CUDA graphs of its LM step
 (``graph``), one per dense-solve route, dtype and budget: the first solve
 captures one, and later solves of the same problem replay it.
@@ -28,8 +29,8 @@ from pycamset_tpu_torch.optim.structured_lm import (SLMGraph,
 
 @dataclass
 class BAProblem:
-    """A structured BA problem (template, self-cal or grouped chain) on one
-    device."""
+    """A structured BA problem (template, self-cal, free-point or grouped
+    chain) on one device."""
     op_fun: OptimFunction
     widths: GroupWidths
     struct: ParamStruct
@@ -37,7 +38,7 @@ class BAProblem:
     x0: ParamPieces        # start
     uv: torch.Tensor       # (B, K, 2)
     mask: torch.Tensor     # (B, K)
-    tpl: torch.Tensor      # (K, 3) template table; zeros for self-cal
+    tpl: torch.Tensor      # (K, 3) template table; zeros for free points
     colmask: ParamPieces   # 0/1 unfixed masks
     loss: str
     f_scale: float

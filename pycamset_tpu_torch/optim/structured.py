@@ -1,9 +1,10 @@
 """Structured (block) normal equations + Schur step: the template,
-self-calibration and grouped multi-target chains.
+self-calibration, pose-free free-point and grouped multi-target chains.
 
-Counterpart of the template (c = 0), self-calibration (c = 3) and grouped
-(c = 6, PER_GROUP) slices of ``pycamset_tpu/optim/structured.py``; the
-names and contracts are the same. Detections lie on a dense (B, K) grid, B = n_cams * n_ims blocks (one
+Counterpart of the template (c = 0), self-calibration (c = 3), free-point
+(b = 0, c = 3) and grouped (c = 6, PER_GROUP) slices of
+``pycamset_tpu/optim/structured.py``; the names and contracts are the
+same. Detections lie on a dense (B, K) grid, B = n_cams * n_ims blocks (one
 per camera-image pair, camera-major) and K padded keys. Every slot of a
 block shares the same camera and pose parameters, so the Jacobian splits by
 link into Jc (camera columns) and Ji (pose columns), and the normal
@@ -34,7 +35,8 @@ on either device.
 
 Without point blocks the Schur step eliminates the exactly block-diagonal
 pose system in batch and solves the dense (C*a) camera system. With them it
-eliminates the points first and solves the dense (C*a + I*b) system. The
+eliminates the points first and solves the dense (C*a + I*b) system (C*a
+for the pose-free chain, whose image piece is zero-width). The
 dense solve (``_psd_solve``) goes through ``torch.linalg.cholesky_ex`` by
 default, or, opted in with ``PYCAMSET_PALLAS_CHOL=1`` on a card, through the
 hand-written one-launch kernel of ``ops/cuda_cholesky.py``. Fixed
@@ -42,9 +44,8 @@ parameters are handled by zeroing Jacobian COLUMNS (the column masks); a
 damping floor keeps the eliminated blocks invertible and gives exact zero
 steps for them.
 
-Not ported yet: the pose-free free-point chain, the matrix-free CG reduced
-solver, other camera widths. They raise ``UnsupportedChain`` or
-``NotImplementedError`` naming the ROADMAP item.
+Not ported yet: the matrix-free CG reduced solver and the other camera
+widths. They raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -76,6 +77,7 @@ _FAMILIES = {
     ("Projection", "Extrinsic3D", "TemplatePoints"): ("template", (6, 0)),
     ("Projection", "Extrinsic3D", "RigidTform3d", "FreePoint"):
         ("selfcal", (6, 3)),
+    ("Projection", "Extrinsic3D", "FreePoint"): ("freepoint", (0, 3)),
     ("Projection", "Extrinsic3D", "RigidTform3d", "GroupTemplatePoints"):
         ("grouped", (6, 6)),
 }
@@ -126,16 +128,15 @@ def chain_widths(op_fun: OptimFunction) -> GroupWidths:
 
 
 def chain_family(op_fun: OptimFunction, widths: GroupWidths) -> str:
-    """'template', 'selfcal' or 'grouped', by the chain's block names (as
-    the JAX package dispatches); any other chain raises
+    """'template', 'selfcal', 'freepoint' or 'grouped', by the chain's
+    block names (as the JAX package dispatches); any other chain raises
     ``UnsupportedChain``."""
     names = tuple(type(bk).__name__ for bk in op_fun.blocks)
     family, bc = _FAMILIES.get(names, (None, None))
     if family is None or (widths.b, widths.c) != bc:
         raise UnsupportedChain(
             f"chain {names} is not ported yet: the structured path serves "
-            f"the chains {tuple(_FAMILIES)} only (the pose-free free-point "
-            f"chain is ROADMAP Queue A item 4; the mixed chain, with "
+            f"the chains {tuple(_FAMILIES)} only (the mixed chain, with "
             f"GroupRigidTform3d + FreePoint, goes through "
             f"structured_mixed.make_mixed_structured_neq)")
     if widths.a != 15:
@@ -300,14 +301,17 @@ def resolve_block_grams(op_fun: OptimFunction, widths: GroupWidths,
                         loss: str = "linear", f_scale: float = 1.0,
                         loss_semantics: str = "component"):
     """Per-BLOCK gram builder (the 10-tuple contract of the JAX package's
-    make_block_grams): Kernel A's (template), Kernel D's (self-cal) or
-    Kernel F's (grouped) builder, which launches the CUDA kernel for CUDA
-    tensors and runs its plain twin for CPU tensors. The port has no
-    separate plain builder: the twin is the one plain path."""
+    make_block_grams): Kernel A's (template), Kernel D's (self-cal; the
+    free-point wrapper over it for the pose-free chain) or Kernel F's
+    (grouped) builder, which launches the CUDA kernel for CUDA tensors and
+    runs its plain twin for CPU tensors. The port has no separate plain
+    builder: the twin is the one plain path."""
     kw = dict(loss=loss, f_scale=f_scale, loss_semantics=loss_semantics)
     family = chain_family(op_fun, widths)
-    if family == "selfcal":
+    if family in ("selfcal", "freepoint"):
         from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+        if family == "freepoint":
+            return sg.make_cuda_freepoint_grams(widths, **kw)
         return sg.make_cuda_selfcal_grams(widths, **kw)
     if family == "grouped":
         from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
@@ -322,14 +326,16 @@ def resolve_fused_grams(op_fun: OptimFunction, widths: GroupWidths,
                         loss_semantics: str = "component"):
     """The FUSED-reduction gram builder, or None when the JAX package's
     padding rule declines it: the template image axis would pad past 5% at
-    tile 16, the self-cal one past 25% at its tile (``selfcal_pad_tile``),
-    the grouped one past 25% at tile 8.
+    tile 16, the self-cal and free-point ones past 25% at their tile
+    (``selfcal_pad_tile``), the grouped one past 25% at tile 8.
 
     :return: (family, grams) or None.
         "template": grams(cam_b, im_b, tpl, uv, mask, cmask_b, imask_b)
                     -> (hcc, hii, wci, gc, gi, cost)
         "selfcal":  grams(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b,
                     kmask) -> the 10 NormalEq fields
+        "freepoint": the same signature (im_b and imask_b not read) ->
+                    (hcc, hkk, wck, gc, gk, cost)
         "grouped":  grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b,
                     imask_b, kmask) -> the 10 reduced pieces per KEY (the
                     caller reduces the key-axis pieces with the group
@@ -343,11 +349,14 @@ def resolve_fused_grams(op_fun: OptimFunction, widths: GroupWidths,
             return None
         return "grouped", mg.make_cuda_mixed_grams_fused(
             widths, n_cams, n_ims, with_key_cols=False, **kw)
-    if family == "selfcal":
+    if family in ("selfcal", "freepoint"):
         from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
         if not fused_tile_pad_ok(n_ims, selfcal_pad_tile(n_ims),
                                  SELFCAL_PAD_FRAC):
             return None
+        if family == "freepoint":
+            return "freepoint", sg.make_cuda_freepoint_grams_fused(
+                widths, n_cams, n_ims, **kw)
         return "selfcal", sg.make_cuda_selfcal_grams_fused(
             widths, n_cams, n_ims, **kw)
     from pycamset_tpu_torch.optim import cuda_grams as cg
@@ -401,6 +410,24 @@ def make_structured_neq(op_fun: OptimFunction, widths: GroupWidths,
                                       cmask_b, imask_b, colmask.key))
 
         return neq_fused_sc
+    if fused is not None and fused[0] == "freepoint":
+        fused_fp = fused[1]
+
+        def neq_fused_fp(pieces: ParamPieces, uv, mask, tpl,
+                         colmask: ParamPieces):
+            cam_b = torch.repeat_interleave(pieces.cam, n_ims, dim=0)
+            cmask_b = torch.repeat_interleave(colmask.cam, n_ims, dim=0)
+            hcc, hkk, wck, gc, gk, cost = fused_fp(
+                cam_b, None, pieces.key, uv, mask, cmask_b, None,
+                colmask.key)
+            k_pad, c = mask.shape[1], widths.c
+            z = uv.new_zeros
+            return NormalEq(hcc, z((n_ims, 0, 0)), hkk,
+                            z((n_cams, n_ims, a, 0)), wck,
+                            z((n_ims, k_pad, 0, c)), gc, z((n_ims, 0)), gk,
+                            cost)
+
+        return neq_fused_fp
     if fused is not None and fused[0] == "template":
         _, fused_fn = fused
 
@@ -550,18 +577,16 @@ def schur_solve(neq: NormalEq, damp: ParamPieces,
     block-diagonal (hii): the poses are eliminated in batch and only the
     dense (C*a) camera system is factored. With point blocks (the self-cal
     chain) the points are eliminated first, then the dense (C*a + I*b)
-    camera-and-pose system is solved and the points back-substituted.
+    camera-and-pose system is solved and the points back-substituted; the
+    pose-free chain (b = 0, the free-point chain) takes the same branch
+    with the camera system alone.
     """
     c_, k_ = neq.hcc.shape[0], neq.hkk.shape[0]
-    a, b, c = neq.hcc.shape[2], neq.hii.shape[2], neq.hkk.shape[2]
+    a, c = neq.hcc.shape[2], neq.hkk.shape[2]
     if method != "dense":
         raise NotImplementedError(
             f"reduced_solver={method!r} is not ported yet (the matrix-free "
             f"CG solver is ROADMAP Queue A item 6); use 'dense'")
-    if not b:
-        raise NotImplementedError(
-            "pose-free chains (b = 0, the free-point chain) are not ported "
-            "yet (ROADMAP Queue A item 4)")
 
     hcc = neq.hcc + torch.diag_embed(damp.cam)
     hii = neq.hii + torch.diag_embed(damp.im)
@@ -580,37 +605,50 @@ def schur_solve(neq: NormalEq, damp: ParamPieces,
 
 
 def _schur_solve_points(neq: NormalEq, damp: ParamPieces, hcc, hii):
-    """The point-block (c > 0) branch of schur_solve, with poses (b > 0)."""
+    """The point-block (c > 0) branch of schur_solve: with poses (b > 0)
+    the reduced system is the (C*a + I*b) camera-and-pose one; without
+    them (b = 0, the pose-free chain) it is the (C*a) camera system, and
+    the image piece of the step is zero-width (JAX
+    ``pycamset_tpu/optim/structured.py:699-795``, its general branch with
+    ``amat = block_diag_dense(hcc)``)."""
     c_, i_, k_ = neq.hcc.shape[0], neq.hii.shape[0], neq.hkk.shape[0]
     a, b, c = neq.hcc.shape[2], neq.hii.shape[2], neq.hkk.shape[2]
     # eliminate the points
     kinv = _normalized_inv(neq.hkk + torch.diag_embed(damp.key))  # (K,c,c)
     uck = torch.einsum("ckap,kpq->ckaq", neq.wck, kinv)           # (C,K,a,c)
-    uik = torch.einsum("ikbp,kpq->ikbq", neq.wik, kinv)           # (I,K,b,c)
     gc = neq.gc - torch.einsum("ckaq,kq->ca", uck, neq.gk)
-    gi = neq.gi - torch.einsum("ikbq,kq->ib", uik, neq.gk)
 
-    # direct couplings + damped block diagonals, flat (R, R), R = C*a + I*b
-    na, nb = c_ * a, i_ * b
-    wci_f = neq.wci.permute(0, 2, 1, 3).reshape(na, nb)
-    amat = torch.cat([
-        torch.cat([block_diag_dense(hcc), wci_f], dim=1),
-        torch.cat([wci_f.T, block_diag_dense(hii)], dim=1)], dim=0)
-    rhs = -torch.cat([gc.reshape(-1), gi.reshape(-1)])
+    # direct couplings + damped block diagonals, flat (R, R), R = C*a + I*b;
     # the point-elimination correction as one stacked product: per point,
     # V(k) (c, R) gathers every reduced column it couples to, and
     # sum_k V(k)^T Hkk(k)^-1 V(k) is one (K*c, R) x (K*c, R) product
-    v = torch.cat([neq.wck.permute(1, 3, 0, 2).reshape(k_, c, na),
-                   neq.wik.permute(1, 3, 0, 2).reshape(k_, c, nb)], dim=2)
+    na, nb = c_ * a, i_ * b
+    v = neq.wck.permute(1, 3, 0, 2).reshape(k_, c, na)
+    if b:
+        uik = torch.einsum("ikbp,kpq->ikbq", neq.wik, kinv)       # (I,K,b,c)
+        gi = neq.gi - torch.einsum("ikbq,kq->ib", uik, neq.gk)
+        wci_f = neq.wci.permute(0, 2, 1, 3).reshape(na, nb)
+        amat = torch.cat([
+            torch.cat([block_diag_dense(hcc), wci_f], dim=1),
+            torch.cat([wci_f.T, block_diag_dense(hii)], dim=1)], dim=0)
+        rhs = -torch.cat([gc.reshape(-1), gi.reshape(-1)])
+        v = torch.cat([v, neq.wik.permute(1, 3, 0, 2).reshape(k_, c, nb)],
+                      dim=2)
+    else:
+        amat = block_diag_dense(hcc)
+        rhs = -gc.reshape(-1)
     t = torch.einsum("kpq,kqr->kpr", kinv, v)
     amat = amat - torch.einsum("kpr,kps->rs", v, t)
     sol = _psd_solve(amat, rhs)
     dxc = sol[:na].reshape(c_, a)
-    dxi = sol[na:].reshape(i_, b)
 
     # back-substitute the points
-    rk = (-neq.gk - torch.einsum("ckap,ca->kp", neq.wck, dxc)
-          - torch.einsum("ikbp,ib->kp", neq.wik, dxi))
+    rk = -neq.gk - torch.einsum("ckap,ca->kp", neq.wck, dxc)
+    if b:
+        dxi = sol[na:].reshape(i_, b)
+        rk = rk - torch.einsum("ikbp,ib->kp", neq.wik, dxi)
+    else:
+        dxi = neq.gi.new_zeros((i_, b))
     return ParamPieces(dxc, dxi, torch.einsum("kpq,kq->kp", kinv, rk))
 
 

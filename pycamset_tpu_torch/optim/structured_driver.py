@@ -1,9 +1,11 @@
 """Builder gluing a handler to the structured Schur LM backend.
 
 Counterpart of ``build_colmask_pieces`` and ``build_structured_problem`` in
-``pycamset_tpu/optim/structured_driver.py`` for the template chain: the
-handler's detection table on the (camera x image bucket, key) block grid,
-its start and fixed-parameter column masks as pieces, the device problem an
+``pycamset_tpu/optim/structured_driver.py`` for the template, self-
+calibration and pose-free free-point chains: the handler's detection table
+on the (camera x image bucket, key) block grid, its start and
+fixed-parameter column masks as pieces (a keyed chain's pad key slots never
+free, a pose-free chain's image piece zero-width), the device problem an
 ``optim.problem.BAProblem`` (so the handler's problem owns its CUDA graphs
 as the bench problems do: the first solve captures the LM step, later solves
 of the same problem replay it), and the same contract
@@ -21,10 +23,20 @@ it, a handler takes the JAX package's gram family for the same option. Of
 the image counts 1-400, 70 would take the other family without it (90
 images: the bucket gives 96 and Kernel B, no bucket Kernel A).
 
+For the self-calibration and free-point handlers the bucket decides alone:
+their family takes tile 8 or 16 (whichever pads less) up to 25% padding,
+and tile 8 never pads a multiple of 8, so with the default bucket they
+always take the fused family (Kernel C, or the free-point wrapper over
+it); only ``im_bucket: None`` on an image count that both tiles pad past
+25% (12 -> 16) reaches the per-block one (Kernel D). Both packages choose
+the same way. A pose-free chain has no image parameters, but every
+(camera, image) pair of its table still indexes a block: its grid counts
+``detection.max_ims`` images.
+
 Not in this slice, each raising ``NotImplementedError`` with its ROADMAP
-Queue A item: the self-calibration, free-point and multi-target chains
-(their handlers are later slices of item 3), ``reduced_solver="cg"``
-(item 6) and a mesh (item 11).
+Queue A item: the grouped and mixed multi-target chains (their handler
+backend is the next slice of item 3), ``reduced_solver="cg"`` (item 6) and
+a mesh (item 11).
 """
 from __future__ import annotations
 
@@ -50,9 +62,10 @@ def build_colmask_pieces(base_full, unfixed, op_fun, struct, widths,
                           n_ims, n_keys, widths)
     cm = pad_pieces_to_grid(p, widths, False, n_keys, k_pad, n_ims,
                             n_ims_grid)
-    im = cm.im.clone()
+    im, key = cm.im.clone(), cm.key.clone()
     im[n_ims:] = 0.0
-    return ParamPieces(cm.cam, im, cm.key)
+    key[n_keys:] = 0.0
+    return ParamPieces(cm.cam, im, key)
 
 
 class StructuredSolve:
@@ -112,10 +125,11 @@ def build_structured_problem(param_handler, dtype=None, device="cuda",
     op_fun = param_handler.op_fun
     widths = chain_widths(op_fun)
     family = chain_family(op_fun, widths)
-    if family != "template":
+    if family == "grouped":
         raise NotImplementedError(
-            f"the {family} chain's handler path is not ported yet (its "
-            f"handlers are later slices of ROADMAP Queue A item 3)")
+            "the grouped multi-target chain's handler path is not ported "
+            "yet (the handler-level mixed and grouped backend is the next "
+            "slice of ROADMAP Queue A item 3)")
     opts = param_handler.problem_opts
     reduced_solver = opts.get("reduced_solver", "auto")
 
@@ -123,9 +137,12 @@ def build_structured_problem(param_handler, dtype=None, device="cuda",
     n_cams = len(param_handler.cam_names)
     n_ims = int(param_handler.bundlePrimitive.poses.shape[0])
     n_keys = param_handler.n_keys()
+    # the pose-free chain has no image parameters, but every (cam, im) pair
+    # of the table still indexes a block on the grid
+    n_ims_true = n_ims if widths.b else int(param_handler.detection.max_ims)
     im_bucket = opts.get("im_bucket", 8)
-    n_ims_grid = (-(-n_ims // im_bucket) * im_bucket if im_bucket
-                  else n_ims)
+    n_ims_grid = (-(-n_ims_true // im_bucket) * im_bucket if im_bucket
+                  else n_ims_true)
     if reduced_solver == "auto":
         reduced_solver = auto_reduced_solver(widths, n_cams, n_ims_grid)
     if reduced_solver != "dense":

@@ -28,7 +28,21 @@ the (B, K) block grid, standard camera model.
 - The user path (``template_handler``): the template problem's rig as a
   CameraSet, a TargetDetection and a ``TemplateBundleHandler`` seeded at
   the same start, for ``run_bundle_adjustment`` and
-  ``run_stereo_calibration``.
+  ``run_stereo_calibration``; with ``template_warp`` the board the cameras
+  see is bent away from the nominal target along its normal, so that a
+  self-calibration (``SelfBundleHandler``) after the template one has
+  geometry to recover.
+- Pose-free free points (``freepoint_scene``, ``freepoint_problem``,
+  ``freepoint_handler``): the template rig with each image's board points
+  as free world points (key = image x 384 + point at grid 19: the points
+  of an image padded to a multiple of 128 keys, as a wand calibration's
+  frames are independent points), the scene moved by one rigid transform
+  so that camera 0 sits at the origin, and the wand's gauge
+  (``calibration/wand.py:361-388`` of the JAX package): every lens fixed,
+  camera 0's extrinsic the identity and fixed, the largest coordinate of
+  an observed point pinned. The start: the true points plus 1 mm of
+  ``rng(seed + 1)`` noise, the other cameras' extrinsics moved by 1e-2 as
+  the bench's start moves them; never-observed keys frozen.
 
 - Fleet: ``bench.py::fleet_problem``, R template rigs of one structure
   and one target (seeds 100 + r, every start perturbed by one ``rng(7)``
@@ -59,7 +73,8 @@ from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, FreePoint,
                                              RigidTform3d, TemplatePoints)
 from pycamset_tpu_torch.optim.chain import OptimFunction, ParamStruct
 from pycamset_tpu_torch.optim.fleet import fleet_solve, shared_template
-from pycamset_tpu_torch.optim.handlers import (FreePointTarget,
+from pycamset_tpu_torch.optim.handlers import (FreePointBundleHandler,
+                                               FreePointTarget,
                                                TemplateBundleHandler)
 from pycamset_tpu_torch.optim.problem import BAProblem
 from pycamset_tpu_torch.optim.structured import (
@@ -68,8 +83,11 @@ from pycamset_tpu_torch.optim.structured import (
 from pycamset_tpu_torch.optim.structured_mixed import (
     MixedPieces, make_mixed_ops, make_mixed_structured_neq,
     mixed_chain_widths, pack_c_axis)
+from pycamset_tpu_torch.optim.structured_driver import (
+    build_structured_problem)
 from pycamset_tpu_torch.optim.structured_lm import SLMResult
-from pycamset_tpu_torch.utils.general_utils import make_4x4h_tform
+from pycamset_tpu_torch.utils.general_utils import (ext_4x4_to_rod,
+                                                    make_4x4h_tform)
 from pycamset_tpu_torch.utils.synthetic import make_synthetic_rig
 
 
@@ -139,8 +157,19 @@ def standard_problem(n_cams: int, n_ims: int, device="cuda",
                      colmask, loss, f_scale, loss_semantics)
 
 
+def _rig_cams(intr, exts):
+    """A CameraSet ``cam0``, ``cam1``, ... (1600 x 1200) of packed standard
+    intrinsic rows and 4x4 extrinsics, and its names."""
+    names = [f"cam{c}" for c in range(len(intr))]
+    kmats = [np.array([[i9[0], 0, i9[1]], [0, i9[2], i9[3]], [0, 0, 1]])
+             for i9 in intr]
+    return camset_from_numpy(names, exts, kmats, [i9[4:] for i9 in intr],
+                             [[1600, 1200]] * len(intr)), names
+
+
 def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
-                     options: dict | None = None):
+                     options: dict | None = None,
+                     template_warp: float = 0.0):
     """``standard_problem``'s rig as a user holds it: a CameraSet of the
     rig's cameras (1600 x 1200), the TargetDetection of its table, the grid
     as a ``FreePointTarget``, and a ``TemplateBundleHandler`` (options
@@ -148,16 +177,15 @@ def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
     ``set_initial_params`` at the bench's perturbed start (pose 0 the
     gauge): no PnP, no OpenCV.
 
+    :param template_warp: the RMS (metres) of the board's bend along its
+        normal (``make_synthetic_rig``): the detections see the bent board
+        (``rig["template_true"]``), the target stays the nominal grid.
     :return: (handler, rig)."""
     rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
-                             visibility=0.85, noise_px=0.3, seed=seed)
-    names = [f"cam{c}" for c in range(n_cams)]
-    kmats = [np.array([[i9[0], 0, i9[1]], [0, i9[2], i9[3]], [0, 0, 1]])
-             for i9 in rig["intr"]]
-    exts = [make_4x4h_tform(e[:3], e[3:]) for e in rig["extr"]]
-    cams = camset_from_numpy(names, exts, kmats,
-                             [i9[4:] for i9 in rig["intr"]],
-                             [[1600, 1200]] * n_cams)
+                             visibility=0.85, noise_px=0.3, seed=seed,
+                             template_warp=template_warp)
+    cams, names = _rig_cams(rig["intr"], [make_4x4h_tform(e[:3], e[3:])
+                                          for e in rig["extr"]])
     handler = TemplateBundleHandler(
         cams, FreePointTarget(rig["template"].reshape(1, -1, 3)),
         detection_from_numpy(names, rig["dd"], n_ims),
@@ -167,6 +195,107 @@ def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
     handler.set_initial_params(
         perturbed_start(rig, struct)[prim.unfixed_full()])
     return handler, rig
+
+
+def freepoint_scene(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
+                    k_pad_multiple: int = 128) -> dict:
+    """The free-point problem's data, host numpy (see the module docstring).
+
+    :return: dict with intr (C, 9), extr_true / extr_start (C, 6) with
+        camera 0 at zero, pts_true / pts_start (n_keys, 3) (an image's pad
+        slots replicate its point 0), dd (N, 5) [cam, im, key, u, v] with
+        key = im * stride + point, n_keys = n_ims * stride, seen (n_keys,)
+        bool, pin (the flat index of the pinned coordinate), pts_unfixed
+        (3 n_keys,) bool (the observed points' coordinates but the pinned
+        one) and rig."""
+    rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
+                             visibility=0.85, noise_px=0.3, seed=seed)
+    n_pts = rig["n_keys"]
+    stride = -(-n_pts // k_pad_multiple) * k_pad_multiple
+    n_keys = n_ims * stride
+    # one rigid motion of the scene puts camera 0 at the origin: points
+    # X -> E0 X, extrinsics E -> E E0^-1; every projection is unchanged
+    e0 = make_4x4h_tform(rig["extr"][0, :3], rig["extr"][0, 3:])
+    e0_inv = np.linalg.inv(e0)
+    extr_true = np.zeros((n_cams, 6))
+    for c in range(1, n_cams):
+        ext = make_4x4h_tform(rig["extr"][c, :3], rig["extr"][c, 3:]) @ e0_inv
+        extr_true[c] = np.concatenate(ext_4x4_to_rod(ext))
+    pts = np.zeros((n_ims, stride, 3))
+    for i in range(n_ims):
+        pose = make_4x4h_tform(rig["poses"][i, :3], rig["poses"][i, 3:])
+        world = (rig["template"] @ pose[:3, :3].T + pose[:3, 3]) @ \
+            e0[:3, :3].T + e0[:3, 3]
+        pts[i, :n_pts] = world
+        pts[i, n_pts:] = world[0]
+    pts_true = pts.reshape(n_keys, 3)
+    dd = rig["dd"].copy()
+    dd[:, 2] = dd[:, 1] * stride + dd[:, 2]
+    rng = np.random.default_rng(seed + 1)
+    extr_start = extr_true + rng.normal(size=extr_true.shape) * 1e-2
+    extr_start[0] = 0.0
+    pts_start = pts_true + rng.normal(size=pts_true.shape) * 1e-3
+    seen = np.isin(np.arange(n_keys), dd[:, 2].astype(int))
+    # the wand's seventh gauge coordinate: the largest coordinate of an
+    # observed point's start
+    pin = int(np.argmax(np.abs(pts_start) * seen[:, None]))
+    pts_unfixed = np.repeat(seen, 3)
+    pts_unfixed[pin] = False
+    return dict(intr=rig["intr"], extr_true=extr_true, extr_start=extr_start,
+                pts_true=pts_true, pts_start=pts_start, dd=dd,
+                n_keys=n_keys, seen=seen, pin=pin, pts_unfixed=pts_unfixed,
+                rig=rig)
+
+
+def freepoint_handler(n_cams: int, n_ims: int, grid: int = 19,
+                      seed: int = 0, options: dict | None = None,
+                      k_pad_multiple: int = 128):
+    """``freepoint_scene`` as a user holds it: a CameraSet at the start
+    (true lenses, moved extrinsics, camera 0 the identity), the start
+    points as a ``FreePointTarget``, the TargetDetection of the table, and
+    a ``FreePointBundleHandler`` (options ``outliers: "n"``, ``verbosity:
+    0``, then ``options``) with the wand's gauge: every lens fixed through
+    ``fixed_params``, camera 0's extrinsic fixed at the identity, the
+    pinned coordinate and the never-observed keys frozen in
+    ``feat_unfixed``. Its start is the CameraSet's and the target's: no
+    PnP, no OpenCV. ``k_pad_multiple``: the key stride's multiple (build
+    the handler's problem with the same one).
+
+    :return: (handler, scene)."""
+    sc = freepoint_scene(n_cams, n_ims, grid, seed, k_pad_multiple)
+    exts = [make_4x4h_tform(e[:3], e[3:]) for e in sc["extr_start"]]
+    exts[0] = np.eye(4)
+    cams, names = _rig_cams(sc["intr"], exts)
+    fixed = {name: {"int": cams[name].intrinsic,
+                    "dst": np.ravel(cams[name].distortion_coefs)}
+             for name in names}
+    fixed[names[0]]["ext"] = np.eye(4)
+    handler = FreePointBundleHandler(
+        cams, FreePointTarget(sc["pts_start"].reshape(1, -1, 3)),
+        detection_from_numpy(names, sc["dd"], n_ims), fixed_params=fixed,
+        options={"outliers": "n", "verbosity": 0, **(options or {})})
+    handler.feat_unfixed[~sc["pts_unfixed"]] = False
+    handler.bundlePrimitive.calc_free_poses()
+    return handler, sc
+
+
+def freepoint_problem(n_cams: int, n_ims: int, device="cuda", dtype=None,
+                      grid: int = 19, seed: int = 0,
+                      k_pad_multiple: int = 128, loss: str = "linear",
+                      f_scale: float = 1.0,
+                      loss_semantics: str = "component") -> BAProblem:
+    """The pose-free free-point problem (chain Projection + Extrinsic3D +
+    FreePoint, b = 0) of ``freepoint_scene`` on ``device`` (dtype defaults
+    to float64 on the CPU, float32 on CUDA): the problem
+    ``build_structured_problem`` builds of ``freepoint_handler``'s handler,
+    on an image grid of ``n_ims`` (``im_bucket: None``)."""
+    handler, _ = freepoint_handler(
+        n_cams, n_ims, grid, seed, k_pad_multiple=k_pad_multiple,
+        options={"im_bucket": None, "loss": loss, "f_scale": f_scale,
+                 "loss_semantics": loss_semantics})
+    solve_fn, _, _ = build_structured_problem(handler, dtype, device,
+                                              k_pad_multiple)
+    return solve_fn.problem
 
 
 def selfcal_colmask(n_cams, n_ims, n_keys, k_pad, widths, dtype=np.float64):

@@ -54,10 +54,12 @@ def _port_classes() -> dict:
     from pycamset_tpu_torch.models.camera_set import CameraSet
     from pycamset_tpu_torch.models.detections import (ImageDetection,
                                                       TargetDetection)
-    from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
+    from pycamset_tpu_torch.optim.handlers import (FreePointBundleHandler,
+                                                   SelfBundleHandler,
+                                                   TemplateBundleHandler)
     return {cls.__name__: cls for cls in (
         Camera, CameraSet, TargetDetection, ImageDetection, FreePointTarget,
-        TemplateBundleHandler)}
+        TemplateBundleHandler, SelfBundleHandler, FreePointBundleHandler)}
 
 
 def instance_obj(class_module: str, class_name: str, **kwargs):
@@ -70,8 +72,8 @@ def instance_obj(class_module: str, class_name: str, **kwargs):
         if cls is None:
             raise NotImplementedError(
                 f"{class_module}.{class_name} is not ported yet (ROADMAP "
-                f"Queue A item 3: the ChArUco and Ccube targets and the "
-                f"self-calibration and free-point handlers)")
+                f"Queue A item 3: the ChArUco and Ccube targets; item 7: the "
+                f"rolling-shutter handler)")
     else:
         cls = getattr(importlib.import_module(class_module), class_name)
     return cls(**kwargs)

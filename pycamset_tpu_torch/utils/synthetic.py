@@ -39,7 +39,8 @@ def make_synthetic_rig(n_cams: int = 16, n_ims: int = 100, grid: int = 19,
                        pose_scale: tuple = (0.4, 0.15),
                        tangential_px: float = 5e-4,
                        template_depth: float = 0.0,
-                       shared_intrinsics: bool = False):
+                       shared_intrinsics: bool = False,
+                       template_warp: float = 0.0):
     """Generate a rig + observations.
 
     Cameras sit on a ring of radius ~1 m looking at the origin; the target
@@ -51,8 +52,17 @@ def make_synthetic_rig(n_cams: int = 16, n_ims: int = 100, grid: int = 19,
     k4..k6 and projects through the rational radial model; "thin_prism"
     adds nonzero s1..s4 (16-wide); "tilted" adds taux/tauy (18-wide).
 
+    template_warp (the port's own option, 0 by default) bends the board the
+    cameras see away from the nominal one: each true point moves along the
+    board normal (z) by a normal draw of that RMS (metres) from its own
+    generator, ``default_rng(seed + 202)``, so every other draw, and the
+    rig of the JAX package's generator with the same seed, stays as it is.
+    The observations come from the true (warped) board; ``template`` stays
+    the nominal one, and ``template_true`` is the warped one.
+
     :return: dict with intr (C,9/12/16/18), extr (C,6), poses (I,6),
-        template (K,3), dd (N,5) observation table, and metadata.
+        template (K,3), template_true (K,3), dd (N,5) observation table, and
+        metadata.
     """
     rng = np.random.default_rng(seed)
     widths = {"standard": 9, "rational": 12, "thin_prism": 16,
@@ -77,6 +87,11 @@ def make_synthetic_rig(n_cams: int = 16, n_ims: int = 100, grid: int = 19,
         # the degeneracy for tests that need a well-posed system
         tpl[:, 2] = np.random.default_rng(seed + 101).uniform(
             -template_depth, template_depth, size=k)
+
+    tpl_true = tpl.copy()
+    if template_warp:
+        tpl_true[:, 2] += np.random.default_rng(seed + 202).normal(
+            size=k) * template_warp
 
     intr = np.zeros((n_cams, intr_w))
     extr = np.zeros((n_cams, 6))
@@ -182,7 +197,7 @@ def make_synthetic_rig(n_cams: int = 16, n_ims: int = 100, grid: int = 19,
     rows = []
     for i in range(n_ims):
         t = make_4x4h_tform(poses[i, :3], poses[i, 3:])
-        world = tpl @ t[:3, :3].T + t[:3, 3]
+        world = tpl_true @ t[:3, :3].T + t[:3, 3]
         for c in range(n_cams):
             uv, z = project(c, world)
             ok = ((z > 0.1) & (uv[:, 0] > 0) & (uv[:, 0] < res[0])
@@ -195,6 +210,7 @@ def make_synthetic_rig(n_cams: int = 16, n_ims: int = 100, grid: int = 19,
     dd = np.concatenate(rows, axis=0)
     return {
         "intr": intr, "extr": extr, "poses": poses, "template": tpl,
+        "template_true": tpl_true,
         "dd": dd, "n_cams": n_cams, "n_ims": n_ims, "n_keys": k,
         "noise_px": noise_px, "camera_model": camera_model,
         "camera_models": models,

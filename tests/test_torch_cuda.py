@@ -1,7 +1,8 @@
 """The CUDA kernels on a card: each against its float64 plain twin.
 
 Kernels A and B (template chain, ``cuda_grams``), Kernels C and D
-(self-calibration chain, ``cuda_selfcal_grams``) and Kernels E and F
+(self-calibration chain, ``cuda_selfcal_grams``, and the pose-free
+free-point wrappers over them) and Kernels E and F
 (multi-target chains, ``cuda_mixed_grams``, at both key widths: the mixed
 chain's cw = 9 and the grouped chain's cw = 6).
 
@@ -13,8 +14,10 @@ so on a card it runs without the JAX-forcing conftest:
 Without a card every test skips. Tolerance: 1e-4 of each output's max-abs
 scale, and 1e-4 entry by entry in the solver's Jacobi scaling
 (``cuda_grams.scaled_errors``): float32 sums of up to 2K terms per gram
-entry vs float64. Each fused kernel, and Kernel D, gives the same bits on
-a repeat launch (no float atomics). The LM step captured as a CUDA graph
+entry vs float64; the free-point wrappers, where the float32 twin on the
+same inputs misses that itself, within twice the twin's error. Each fused
+kernel, and Kernel D, gives the same bits on a repeat launch (no float
+atomics). The LM step captured as a CUDA graph
 gives the uncaptured step's bits on both dense-solve routes, and a capture
 that cannot proceed raises. Under torch.func.vmap (the fleet) Kernels A and
 B fold every rig into one launch, each rig's rows equal to its own
@@ -287,6 +290,97 @@ def test_selfcal_wrappers_raise_instead_of_falling_back(card):
         sg.selfcal_gram(*f32[:7], f32[7].cpu())
     with pytest.raises(ValueError):
         sg.selfcal_gram_fused(*f32[:5], *f32[6:], 2, 4)
+
+
+def _freepoint_inputs(dev, n_cams, n_ims, grid):
+    """Float32 per-block inputs of ``problems.freepoint_problem`` (the
+    wand's gauge; never-observed keys frozen) with the other cameras moved
+    by 1e-2 more and every lens column free but one: (cam_b, keyp, uv,
+    mask, cmask_b, kmask)."""
+    from pycamset_tpu_torch.problems import freepoint_problem
+    prob = freepoint_problem(n_cams, n_ims, dev, torch.float32, grid=grid,
+                             k_pad_multiple=8)
+    step = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(n_cams, 15)) * 1e-2, dtype=torch.float32, device=dev)
+    cam = prob.x0.cam + step * prob.colmask.cam
+    cmask = prob.colmask.cam.clone()
+    cmask[:, :9] = 1.0
+    cmask[:, 3] = 0.0
+    return (torch.repeat_interleave(cam, n_ims, dim=0), prob.x0.key,
+            prob.uv, prob.mask, torch.repeat_interleave(cmask, n_ims, dim=0),
+            prob.colmask.key)
+
+
+def _assert_within_f32_floor(got, ref, f32_twin, scaled_errors, name):
+    """Every output within TOL of the float64 twin's in both measures or,
+    where the float32 plain twin on the same inputs (``f32_twin``) misses
+    TOL itself, within twice the twin's error: at these starts a few slots
+    sit where a robust loss's weight cancels to float32's rounding, and the
+    twin misses 1e-4 there as the kernel does (``chip_smoke.py``'s
+    ``within_f32_floor``)."""
+    def errs(out):
+        rel = {i: float((g.double().cpu() - r.double().cpu()).abs().max())
+               / (float(r.double().abs().max()) + 1e-30)
+               for i, (g, r) in enumerate(zip(out, ref))}
+        return rel, scaled_errors(out, ref)
+    for g in got:
+        assert bool(torch.isfinite(g).all()), name
+    (rel, scaled), (rel_f, scaled_f) = errs(got), errs(f32_twin)
+    for mine, floor in ((rel, rel_f), (scaled, scaled_f)):
+        assert all(mine[k] <= max(TOL, 2 * floor[k]) for k in mine), (
+            name, mine, floor)
+
+
+# The free-point wrappers launch D (per block) and C (fused) at identity
+# poses with every pose column masked, and keep the pose-free outputs.
+# n_ims 1 and SELFCAL_CHUNK + 1: a partial and a ragged chunk of C;
+# grid 19: 361 points an image, 368 keys a stride at k_pad_multiple 8.
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cams,n_ims,grid", [
+    (3, 1, 6), (4, SELFCAL_CHUNK + 1, 5), (2, 3, 19)])
+@pytest.mark.parametrize("loss,semantics", LOSS_CASES)
+def test_freepoint_wrappers_match_plain_twins(card, n_cams, n_ims, grid,
+                                              loss, semantics):
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    cam_b, keyp, uv, mask, cmask, kmask = _freepoint_inputs(
+        card, n_cams, n_ims, grid)
+    kw = dict(loss=loss, f_scale=2.0, loss_semantics=semantics)
+    counts = (sg.freepoint_gram.launches, sg.freepoint_gram_fused.launches,
+              sg.selfcal_gram.launches, sg.selfcal_gram_fused.launches)
+    d_args = (cam_b, keyp, uv, mask, cmask, kmask)
+    d_got = sg.freepoint_gram(*d_args, **kw)
+    d_ref = sg.freepoint_gram_plain(*(x.double() for x in d_args), **kw)
+    _assert_within_f32_floor(
+        d_got, d_ref, sg.freepoint_gram_plain(*d_args, **kw),
+        sg.scaled_errors_freepoint, "D")
+    c_args = (cam_b, keyp, uv, mask, kmask)
+    c_got = sg.freepoint_gram_fused(*c_args, n_cams, n_ims, **kw)
+    c_ref = sg.freepoint_gram_fused_plain(*(x.double() for x in c_args),
+                                          n_cams, n_ims, **kw)
+    _assert_within_f32_floor(
+        c_got, c_ref,
+        sg.freepoint_gram_fused_plain(*c_args, n_cams, n_ims, **kw),
+        lambda g, r: sg.scaled_errors_freepoint_fused(g, r, n_cams, n_ims),
+        "C")
+    # each wrapper counts its own launches, not the self-cal wrappers'
+    assert (sg.freepoint_gram.launches, sg.freepoint_gram_fused.launches,
+            sg.selfcal_gram.launches, sg.selfcal_gram_fused.launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2], counts[3])
+    for a, b in zip(sg.freepoint_gram_fused(*c_args, n_cams, n_ims, **kw),
+                    c_got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_freepoint_wrappers_raise_instead_of_falling_back(card):
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    cam_b, keyp, uv, mask, cmask, kmask = _freepoint_inputs(card, 2, 3, 4)
+    with pytest.raises(TypeError):
+        sg.freepoint_gram(cam_b.double(), keyp, uv, mask, cmask, kmask)
+    with pytest.raises(ValueError):
+        sg.freepoint_gram(cam_b, keyp, uv, mask, cmask, kmask.cpu())
+    with pytest.raises(ValueError):
+        sg.freepoint_gram_fused(cam_b, keyp, uv, mask, kmask, 2, 4)
 
 
 def _mixed_inputs(dev, n_cams, n_ims, grid, with_key_cols, noise_px=3.0,

@@ -186,14 +186,16 @@ def _refuse(what):
         run_stereo_calibration(handler.camset, handler.detection,
                                handler.target, save=False, device="cpu",
                                problem_options={"rolling_shutter": True})
-    if what == "mixed chain":
+    if what in ("mixed chain", "grouped chain"):
         from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, FreePoint,
                                                      GroupRigidTform3d,
+                                                     GroupTemplatePoints,
                                                      Projection, RigidTform3d)
         from pycamset_tpu_torch.optim.chain import OptimFunction
+        last = ([GroupRigidTform3d(), FreePoint()] if what == "mixed chain"
+                else [GroupTemplatePoints()])
         handler.op_fun = OptimFunction([Projection(), Extrinsic3D(),
-                                        RigidTform3d(), GroupRigidTform3d(),
-                                        FreePoint()])
+                                        RigidTform3d(), *last])
     backend = what.split()[1] if what.startswith("backend") else "auto"
     run_bundle_adjustment(handler, backend=backend, device="cpu")
 
@@ -202,7 +204,8 @@ def _refuse(what):
     ("backend scipy", "item 8"), ("backend sharded", "item 11"),
     ("shared_intrinsics", "item 7"), ("rolling_shutter", "item 7"),
     ("camera_model", "item 7"), ("reduced_solver cg", "item 6"),
-    ("mixed chain", "item 3"), ("mixed chain", "item 8")])
+    ("mixed chain", "item 3"), ("mixed chain", "item 8"),
+    ("grouped chain", "item 3")])
 def test_refusals_name_their_roadmap_item(what, item):
     with pytest.raises(NotImplementedError, match=item):
         _refuse(what)

@@ -295,11 +295,15 @@ def test_mixed_widths_and_chains_checked():
                               tb.GroupRigidTform3d()])
     with pytest.raises(tm.UnsupportedChain, match="not ported yet"):
         tm.resolve_mixed_grams(flipped, tm.mixed_chain_widths(flipped))
-    # the structured path's refusal names what is still to port
+    # the pose-free free-point chain is a structured family now; the
+    # structured path's refusal of a chain outside every family names the
+    # mixed path and no finished ROADMAP item
     fp = TOptimFunction([tb.Projection(), tb.Extrinsic3D(), tb.FreePoint()])
+    assert ts.chain_family(fp, ts.chain_widths(fp)) == "freepoint"
     with pytest.raises(ts.UnsupportedChain) as err:
-        ts.chain_family(fp, ts.chain_widths(fp))
-    assert "item 4" in str(err.value) and "item 5" not in str(err.value)
+        ts.chain_family(flipped, ts.GroupWidths(15, 6, 9))
+    assert "make_mixed_structured_neq" in str(err.value)
+    assert "item 4" not in str(err.value) and "item 5" not in str(err.value)
 
 
 def test_multi_target_family_follows_the_jax_padding_rule():

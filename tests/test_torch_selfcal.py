@@ -284,12 +284,26 @@ def test_schur_solve_with_point_blocks_matches_jax():
 
 
 def test_pose_free_schur_step_raises():
+    """The self-cal NormalEq with its pose piece stripped (b = 0: the
+    pose-free free-point chain's layout) no longer raises: it takes the
+    JAX package's pose-free step, with a zero-width image piece, and the
+    step solves the damped system."""
     _, tneq = _neqs(5)
     z = tneq.hii.new_zeros
     neq = tneq._replace(hii=z((5, 0, 0)), wci=z((3, 5, 15, 0)),
                         wik=z((5, tneq.hkk.shape[0], 0, 3)), gi=z((5, 0)))
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        ts.schur_solve(neq, ts.neq_diag(neq))
+    jneq = js.NormalEq(*(jnp.asarray(x.numpy()) for x in neq))
+    damp = [1e-3 * np.maximum(np.asarray(x), 1e-8)
+            for x in js.neq_diag(jneq)]
+    jsol = js.schur_solve(jneq, js.ParamPieces(*map(jnp.asarray, damp)))
+    tsol = ts.schur_solve(neq, ts.ParamPieces(*map(torch.tensor, damp)))
+    assert tsol.im.shape == (5, 0)
+    for g, r in zip(tsol, jsol):
+        _assert_close(g.numpy(), r, 1e-9, "dx")
+    hdx = ts.neq_matvec(neq, tsol)
+    for h, dmp, x, gr in zip(hdx, ts.ParamPieces(*map(torch.tensor, damp)),
+                             tsol, (neq.gc, neq.gi, neq.gk)):
+        _assert_close((h + dmp * x).numpy(), (-gr).numpy(), 1e-8, "resid")
 
 
 def _jax_solve(n_cams, n_ims, loss):

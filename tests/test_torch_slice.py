@@ -142,7 +142,8 @@ def test_user_path_does_not_load_the_bench():
 
 # The card path with jax and cv2 unimportable: a handler seeded through
 # set_initial_params, run_stereo_calibration, the saved file loaded back;
-# on the CPU at a tiny size.
+# then the self-calibration warm-started from it and the free-point handler,
+# each saved and loaded back; on the CPU at a tiny size.
 CARD_PATH = """
 import sys, tempfile
 sys.modules["cv2"] = None
@@ -159,6 +160,26 @@ with tempfile.TemporaryDirectory() as d:
     back = load_CameraSet(d + "/cams.camset")
 assert back == cams and back.calibration_handler is not None
 assert np.array_equal(back.calibration_result, cams.calibration_result)
+# the self-calibration after the template one, and the pose-free
+# free-point handler: both saved and loaded back with their handler class
+from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
+from pycamset_tpu_torch.optim.handlers import (FreePointBundleHandler,
+                                               SelfBundleHandler)
+from pycamset_tpu_torch.problems import freepoint_handler
+selfcal = SelfBundleHandler(cams, handler.target, handler.detection,
+                            options={"outliers": "n", "verbosity": 0})
+selfcal.set_from_templated_camset(cams)
+fp, _ = freepoint_handler(3, 4, grid=4, k_pad_multiple=8)
+with tempfile.TemporaryDirectory() as d:
+    scams = run_stereo_calibration(None, None, None, param_handler=selfcal,
+                                   save_loc=d + "/self.camset", device="cpu")
+    sback = load_CameraSet(d + "/self.camset")
+    _, fcams = run_bundle_adjustment(fp, device="cpu")
+    fcams.save(d + "/fp.camset")
+    fback = load_CameraSet(d + "/fp.camset")
+assert sback == scams and type(sback.calibration_handler) is SelfBundleHandler
+assert type(fback.calibration_handler) is FreePointBundleHandler
+assert np.array_equal(fback.calibration_params, fcams.calibration_params)
 bad = [m for m in ("pycamset_tpu", "pycamset_tpu.config") if m in sys.modules]
 assert not bad, bad
 try:

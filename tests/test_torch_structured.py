@@ -166,11 +166,16 @@ def test_neq_diag_matvec_and_schur_solve_match_jax():
 
 
 def test_unported_chains_and_solvers_raise():
-    # the pose-free free-point chain is not ported yet
+    # the pose-free free-point chain is served now (b = 0, c = 3); a chain
+    # outside every family still raises
     top = TOptimFunction([tb.Projection(), tb.Extrinsic3D(),
                           tb.FreePoint()])
+    assert ts.chain_family(top, ts.chain_widths(top)) == "freepoint"
+    assert callable(ts.make_structured_neq(top, ts.chain_widths(top), 2, 3))
+    other = TOptimFunction([tb.Projection(), tb.Extrinsic3D(),
+                            tb.RigidTform3d(), tb.TemplatePoints()])
     with pytest.raises(ts.UnsupportedChain, match="not ported yet"):
-        ts.make_structured_neq(top, ts.chain_widths(top), 2, 3)
+        ts.make_structured_neq(other, ts.chain_widths(other), 2, 3)
     _, tneq = _neqs(3, 5)
     damp = ts.neq_diag(tneq)
     with pytest.raises(NotImplementedError, match="CG"):
