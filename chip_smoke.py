@@ -73,6 +73,20 @@ free-point function's own bound, then solves
 ``run_bundle_adjustment`` on both routes: the fused wrapper over C at
 16 x 24, the per-block one over D at 64 x 12 (``im_bucket: None``).
 
+Then the other camera models on the template user path
+(``[camera_models]``): for the rational (a = 18), thin-prism (22), tilted
+(24) and fisheye (14) models, the rig ``utils/synthetic.py`` makes for
+each, at 16 x 100 (Kernel A, the model's own instantiation) and 64 x 400
+(Kernel B): the kernel against its float64 twin on the handler problem's
+first evaluation, four losses, its device time beside its bound; the
+handler's problem solved uncaptured, capturing and warm (captured =
+uncaptured, the kernel once an evaluation by profiler names), status and
+rms, the recovered lens against the truth over each camera's observed
+field; ``run_stereo_calibration`` as the main path (its counts by camera
+width), its file loaded back at 16 x 100; the float64 CPU solve beside
+the tilted and fisheye 16 x 100 ones; and at tilted 64 x 400 (dense
+n = 1536) the opt-in SPD kernel route against the library route.
+
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
 kernels as JSON; the last is
@@ -134,6 +148,25 @@ SELFCAL_USER = {"selfcal_user 16x100": (16, 100, {}, ("library", "kernel")),
 # gram's 136 entries, wck 45, hkk 6 and gk 3, over its two rows
 FREEPOINT_FLOP_PER_DETECTION = (136 + 45 + 6 + 3) * 4
 BOARD_WARP = 5e-4
+# [camera_models]: the template user path at the other camera models, each
+# on the rig utils/synthetic.py makes for it -> its camera width a; the
+# shapes (cameras, images) and the kernel each takes (the 16 x 100 grid's
+# 104 images pad past 5%: A; 64 x 400: B)
+MODEL_WIDTH = {"rational": 18, "thin_prism": 22, "tilted": 24, "fisheye": 14}
+MODEL_SHAPES = {"16x100": (16, 100, "template_gram"),
+                "64x400": (64, 400, "template_gram_fused")}
+# the recovered lens against the truth over each camera's observed field:
+# the distortion function (the rule of the JAX package's rational and
+# fisheye tests), px, held for those two models (the thin-prism and tilted
+# coefficients trade against the intrinsics on this rig: px apart where the
+# rig's prediction is not); and, for every model, the whole
+# recovered rig's prediction of each real detection (the true scene, no
+# noise) against the true rig's, its RMS as a share of the noise: with
+# 1.0 M to 15.6 M residuals and 0.8 k to 3.9 k free parameters the
+# statistical floor is noise x sqrt(p / n), 0.016 to 0.032 of it
+DIST_FIELD_PX = 0.5
+DIST_FIELD_HELD = ("rational", "fisheye")
+PREDICTION_RMS_OF_NOISE = 0.1
 # main-path solve -> (the one kernel it must launch, its key width)
 MAIN_PATH = {"template 16x100": ("template_gram", None),
              "template 64x400": ("template_gram_fused", None),
@@ -164,18 +197,22 @@ SOLVE_KERNELS = ("gram_kernel", "cam_reduce_kernel", "mixed_kernel",
 # H100 SXM data sheet: HBM rate and FP32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-# products per real detection: the 253 gram entries over its two rows;
-# self-cal adds wck (45), wik (18), hkk (6) and gk (3), the multi-target
-# kernels wcc (15 cw), wic (6 cw), hkk (cw (cw + 1) / 2) and gk (cw). 2 FLOP
-# per product pair term (multiply-add), row arithmetic not counted.
-FLOP_PER_DETECTION = {"template": 253 * 4, "selfcal": (253 + 72) * 4}
+# products per real detection: the W (W + 1) / 2 gram entries over its two
+# rows (W = a + 7: 253 at the standard model's a = 15); self-cal adds wck
+# (3a), wik (18), hkk (6) and gk (3), the multi-target kernels wcc (a cw),
+# wic (6 cw), hkk (cw (cw + 1) / 2) and gk (cw). 2 FLOP per product pair
+# term (multiply-add), row arithmetic not counted.
+def gram_entries(a: int) -> int:
+    return (a + 7) * (a + 8) // 2
 
 
-def flop_per_detection(name: str, cw: int | None = None) -> int:
+def flop_per_detection(name: str, cw: int | None = None, a: int = 15) -> int:
     if name.startswith("mixed"):
-        return (253 + 21 * cw + cw * (cw + 1) // 2 + cw) * 4
-    return FLOP_PER_DETECTION["selfcal" if name.startswith("selfcal")
-                              else "template"]
+        return (gram_entries(a) + (a + 6) * cw + cw * (cw + 1) // 2
+                + cw) * 4
+    if name.startswith("selfcal"):
+        return (gram_entries(a) + 3 * a + 27) * 4
+    return gram_entries(a) * 4
 
 
 def say(tag: str, **fields):
@@ -209,8 +246,9 @@ def wrappers():
 def zero_counts(counted):
     for fn in counted.values():
         fn.launches = 0
-        for cw in getattr(fn, "launches_by_cw", {}):
-            fn.launches_by_cw[cw] = 0
+        for by in ("launches_by_cw", "launches_by_width"):
+            for key in getattr(fn, by, {}):
+                getattr(fn, by)[key] = 0
 
 
 def cuda_ms(fn, n: int, warmup: int = 2) -> float:
@@ -279,33 +317,39 @@ def bound(name: str, prob, cw: int | None = None) -> tuple[float, str]:
     problem's inputs: the larger of its bytes (each input read once, each
     output written once) over the HBM rate and its products over the FP32
     rate, counted for the problem's real detections. ``cw``: the key width
-    of a multi-target kernel."""
+    of a multi-target kernel. The camera width a is the problem's (15 at
+    the standard model; the packed row PPB and the gram width W = a + 7
+    follow it)."""
+    from pycamset_tpu_torch.optim.cuda_grams import packed_width
     bb, k = prob.mask.shape
     c = prob.blocks.n_cams
-    ins = bb * 96 + k * 3 + bb * k * 3          # packed, points, uv, mask
+    a = prob.widths.a
+    ppb, w = packed_width(a - 6), a + 7
+    pose = 6 * a + 36 + 6 + 1               # wci, gii, gi, the cost corner
+    ins = bb * ppb + k * 3 + bb * k * 3     # packed, points, uv, mask
     if name.startswith("mixed"):
         # packed, per-key group data (48 rows), uv, mask, cmask, imask,
         # kmask; the per-key outputs hkk and gk
-        ins = bb * 96 + k * 48 + bb * k * 3 + bb * 21 + k * cw
+        ins = bb * ppb + k * 48 + bb * k * 3 + bb * (a + 6) + k * cw
         outs = k * cw * (cw + 1)
         if name == "mixed_gram":
-            outs += bb * 22 * 22 + bb * k * 21 * cw
+            outs += bb * w * w + bb * k * (a + 6) * cw
         else:
-            outs += (c * (225 + 15 + 15 * cw * k) + bb * k * 6 * cw
-                     + bb * (90 + 36 + 6 + 1))
+            outs += (c * (a * a + a + a * cw * k) + bb * k * 6 * cw
+                     + bb * pose)
     elif name == "template_gram":
-        outs = bb * 22 * 22
+        outs = bb * w * w
     elif name == "template_gram_fused":
-        outs = c * (225 + 15) + bb * (90 + 36 + 6 + 1)
+        outs = c * (a * a + a) + bb * pose
     elif name == "selfcal_gram":
-        ins += bb * 21 + k * 3                  # cmask, imask, kmask
-        outs = bb * 22 * 22 + bb * k * (45 + 18) + k * 12
+        ins += bb * (a + 6) + k * 3             # cmask, imask, kmask
+        outs = bb * w * w + bb * k * (3 * a + 18) + k * 12
     else:
         ins += bb * 6 + k * 3                   # imask, kmask
-        outs = (c * (225 + 15 + 45 * k) + bb * k * 18
-                + bb * (90 + 36 + 6 + 1) + k * 12)
+        outs = (c * (a * a + a + 3 * a * k) + bb * k * 18 + bb * pose
+                + k * 12)
     t_bytes = 4 * (ins + outs) / HBM_BYTES_PER_S
-    t_ops = (prob.blocks.n_real * flop_per_detection(name, cw)
+    t_ops = (prob.blocks.n_real * flop_per_detection(name, cw, a)
              / FP32_FLOP_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -565,27 +609,50 @@ def phase_build():
         if any(w in ln for w in ("Compiling entry", "registers", "spill")):
             print(f"  ptxas: {ln.strip()}", flush=True)
     # each gram kernel's first pass, at most 128 registers (four blocks of
-    # 128 threads an SM) and no spills: Kernels A and B, the two
-    # instantiations of template_grams.cu's gram_kernel<FUSED>; C-F,
+    # 128 threads an SM) and no spills: Kernels A and B at the standard
+    # model, template_grams.cu's gram_kernel<9, FUSED>; C-F,
     # mixed_grams.cu's mixed_kernel<CW, FUSED> (C/D at key width 3, E/F at
     # 9 and 6)
     res = ptxas_resources(kl.ptxas_info)
-    firsts = [(name, None, f"gram_kernel{flag}")
-              for name, flag in (("A", "ILb0E"), ("B", "ILb1E"))]
+    firsts = [(name, None, f"gram_kernelILi9ELb{flag}E")
+              for name, flag in (("A", 0), ("B", 1))]
     firsts += [(name, cw, f"mixed_kernelILi{cw}ELb{fused}E")
                for name, fused, widths in (("C", 1, (3,)), ("D", 0, (3,)),
                                            ("E", 1, (9, 6)),
                                            ("F", 0, (9, 6)))
                for cw in widths]
     for name, cw, entry in firsts:
-        hit = [r for e, r in res.items()
-               if entry in e and ("template_grams" in e or cw is not None)]
-        check(len(hit) == 1, f"ptxas reports no {entry} for Kernel {name}")
-        regs, spill = hit[0]["registers"], hit[0]["spill_bytes"]
+        regs, spill = ptxas_entry(res, entry, cw is None)
         say("build", kernel=name, **({} if cw is None else {"cw": cw}),
             registers=regs, spill_bytes=spill)
         check(regs <= 128 and spill == 0,
               f"Kernel {name}: {regs} registers, {spill} spill bytes")
+    # Kernels A and B at the other camera models: the fisheye's at four
+    # blocks an SM (<= 128 registers), the wider models' at three (<= 168,
+    # template_grams.cu's Occupancy); spills reported
+    out = {}
+    for model, a in MODEL_WIDTH.items():
+        for name, flag in (("A", 0), ("B", 1)):
+            regs, spill = ptxas_entry(
+                res, f"gram_kernelILi{a - 6}ELb{flag}E", True)
+            cap = 128 if a <= 15 else 168
+            say("build", kernel=name, model=model, a=a, registers=regs,
+                spill_bytes=spill, register_cap=cap)
+            check(regs <= cap, f"Kernel {name} ({model}): {regs} registers "
+                               f"above {cap}")
+            out[("template_gram_fused" if flag else "template_gram",
+                 model)] = {"registers": regs, "spill_bytes": spill}
+    return out
+
+
+def ptxas_entry(res: dict, entry: str, template_file: bool):
+    """(registers, spill bytes) of the one compiled entry whose mangled
+    name holds ``entry`` (of template_grams.cu, or else of
+    mixed_grams.cu)."""
+    hit = [r for e, r in res.items()
+           if entry in e and (("template_grams" in e) == template_file)]
+    check(len(hit) == 1, f"ptxas reports {len(hit)} entries {entry}")
+    return hit[0]["registers"], hit[0]["spill_bytes"]
 
 
 def phase_template_kernels(probs, out, peak_tflops: float):
@@ -1354,7 +1421,8 @@ def fleet_bound_problem(fleet):
     its (R*B, K) grid, R*C cameras and every rig's real detections."""
     from types import SimpleNamespace
     return SimpleNamespace(
-        mask=fold(fleet.mask), blocks=SimpleNamespace(
+        mask=fold(fleet.mask), widths=SimpleNamespace(a=15),
+        blocks=SimpleNamespace(
             n_cams=fleet.n_rigs * fleet.blocks[0].n_cams,
             n_real=int(fleet.n_real.sum())))
 
@@ -1590,7 +1658,7 @@ def phase_fleet(fleet) -> dict:
     # warm: one replay a step; one read a step and one a run (4 runs)
     check(steps == replays and reads == steps + 4,
           f"{steps} steps, {replays} replays, {reads} reads")
-    b_prof = prof.get("gram_kernel<true>", 0)
+    b_prof = prof.get("gram_kernel<9,true>", 0)
     check(n_b == 1 + steps and b_prof == 1 + replays,
           f"Kernel B launched {n_b} times uncaptured and {b_prof} captured "
           f"in {steps} batch steps (+1 slm_init)")
@@ -2427,6 +2495,341 @@ def phase_selfcal_user_path(probs, out) -> dict:
     return launches
 
 
+def distortion_field_px(cams, rig) -> float:
+    """The largest pixel difference, over each camera's observed field (its
+    detections normalized by the true intrinsics), between the recovered
+    distortion function and the true one: the rule of the JAX package's
+    ``tests/test_rational_model.py:107-136`` (a rational's coefficients are
+    not separately observable, nor the function beyond the data)."""
+    import torch
+    from pycamset_tpu_torch.ops.distortion import distort_normalized
+    dd, worst = rig["dd"], 0.0
+    for c, cam in enumerate(cams):
+        true_i = rig["intr"][c]
+        got = np.ravel(cam.distortion_coefs)
+        check(got.size == true_i.size - 4,
+              f"camera {c}: {got.size} distortion coefficients, the model "
+              f"has {true_i.size - 4}")
+        m = dd[:, 0] == c
+        grid = torch.as_tensor(np.stack([(dd[m, 3] - true_i[1]) / true_i[0],
+                                         (dd[m, 4] - true_i[3]) / true_i[2]],
+                                        axis=-1))
+        err = (distort_normalized(grid, torch.as_tensor(got))
+               - distort_normalized(grid, torch.as_tensor(true_i[4:])))
+        f = torch.as_tensor([true_i[0], true_i[2]])
+        worst = max(worst, float((err * f).abs().max()))
+    return worst
+
+
+def prediction_field_px(handler, x, rig, dev) -> tuple[float, float]:
+    """(RMS, max) px over every real detection of the recovered rig's
+    noise-free prediction (its cameras and target poses, the true board)
+    against the true rig's: what the model's coefficients determine
+    together, whatever the gauge between the lens and the intrinsics."""
+    import torch
+    from pycamset_tpu_torch.ops.projection import project_cam_points
+    from pycamset_tpu_torch.ops.rotations import rodrigues_to_matrix
+    intr, extr, poses = handler.bundlePrimitive.return_bundle_primitives(x)
+    dd = torch.as_tensor(rig["dd"][:, :3].astype(np.int64), device=dev)
+    cam, im, key = dd.unbind(1)
+    pts = torch.as_tensor(rig["template_true"], dtype=torch.float64,
+                          device=dev)[key]
+
+    def predict(intr, extr, poses):
+        def t(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                   device=dev)
+        intr, extr, poses = t(intr), t(extr), t(poses)
+        rp, re = (rodrigues_to_matrix(poses[:, :3])[im],
+                  rodrigues_to_matrix(extr[:, :3])[cam])
+        xw = torch.einsum("nab,nb->na", rp, pts) + poses[im, 3:]
+        xc = torch.einsum("nab,nb->na", re, xw) + extr[cam, 3:]
+        return project_cam_points(intr[cam], xc)
+
+    err = (predict(intr, extr, poses)
+           - predict(rig["intr"], rig["extr"], rig["poses"]))
+    return (float(torch.sqrt(torch.mean(err ** 2))),
+            float(err.abs().max()))
+
+
+def camera_model_parity(cg, tag, prob, fused: bool, rec: dict):
+    """Kernel A (``fused`` False) or B at the problem's camera width on its
+    first evaluation, four losses, against the float64 twin (held as
+    ``parity_f32_floor`` holds it: where the float32 twin on the same
+    inputs misses TOL too, to twice its error), and a repeat launch;
+    worst errors into ``rec``, each case held to the floor in
+    ``rec["f32_floor_cases"]``."""
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    f32 = template_inputs(prob)
+    f64 = tuple(t.double() for t in f32)
+    for loss, sem in LOSS_CASES:
+        kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
+        ref_gram = cg.template_gram_plain(*f64, **kw)
+        if fused:
+            got = cg.template_gram_fused(*f32, n_cams, n_ims, **kw)
+            ref = cg.reduce_grams(ref_gram, n_cams, n_ims)
+
+            def scaled_of(g, r):
+                return cg.scaled_errors_fused(g, r, ref_gram, n_cams, n_ims)
+
+            def twin():
+                return cg.template_gram_fused_plain(*f32, n_cams, n_ims,
+                                                    **kw)
+        else:
+            got, ref = (cg.template_gram(*f32, **kw),), (ref_gram,)
+
+            def scaled_of(g, r):
+                return cg.scaled_errors(g[0], r[0])
+
+            def twin():
+                return (cg.template_gram_plain(*f32, **kw),)
+        scaled = scaled_of(got, ref)
+        rel = max(max_abs_errors(got, ref))
+        case = f"{tag} {loss}/{sem}"
+        say("parity_camera_model", case=case.replace(" ", "_"), tol=TOL,
+            max_abs=f"{rel:.2e}",
+            **{k: f"{v:.2e}" for k, v in scaled.items()})
+        if max(scaled.values()) > TOL or rel > TOL:
+            rec["f32_floor_cases"].append(case)
+        e = parity_f32_floor(case, got, ref, scaled, twin, scaled_of)
+        for k, v in e.items():
+            rec[k] = max(rec.get(k, 0.0), v)
+        del got, ref, ref_gram
+    name = "template_gram_fused" if fused else "template_gram"
+    same_bits(f"{name} {tag}",
+              template_runs(cg, f32, n_cams, n_ims)[name])
+
+
+def camera_model_times(cg, prob, fused: bool, peak_tflops: float) -> dict:
+    """Device time of Kernel A or B at the problem's camera width (the
+    launch alone on pre-packed parameters, linear loss), the wrapper's and
+    the float32 plain twin's CUDA-event ms, the bound and the rate."""
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    f32 = template_inputs(prob)
+    a = prob.widths.a
+    packed = cg.pack_block_params(*f32[:2])
+    n_rep = 5 if fused else 20
+    if fused:
+        t = {"kernel_ms": kernel_ms(lambda: cg._launch_gram_fused(
+                 packed, *f32[2:], n_cams, n_ims, 0, 1, 1.0, a - 6)),
+             "ms": cuda_ms(lambda: cg.template_gram_fused(*f32, n_cams,
+                                                          n_ims), n_rep),
+             "plain_ms": cuda_ms(lambda: cg.template_gram_fused_plain(
+                 *f32, n_cams, n_ims), n_rep)}
+    else:
+        t = {"kernel_ms": kernel_ms(lambda: cg._launch_gram(
+                 packed, *f32[2:], 0, 1, 1.0, a - 6)),
+             "ms": cuda_ms(lambda: cg.template_gram(*f32), n_rep),
+             "plain_ms": cuda_ms(lambda: cg.template_gram_plain(*f32),
+                                 n_rep)}
+    name = "template_gram_fused" if fused else "template_gram"
+    t["bound_ms"], t["bound_by"] = bound(name, prob)
+    flop = prob.blocks.n_real * flop_per_detection("template", a=a)
+    t["gflops"] = flop / (t["kernel_ms"] * 1e6)
+    t["of_bound"] = t["bound_ms"] / t["kernel_ms"]
+    t["of_fma_probe"] = t["gflops"] / (peak_tflops * 1e3)
+    return t
+
+
+def phase_camera_models(builds: dict, peak_tflops: float) -> dict:
+    """The template user path at the four other camera models, on the rig
+    ``utils/synthetic.py`` makes with ``camera_model=m``
+    (``problems.template_handler``: the truth perturbed as ``[user_path]``'s
+    start, seeded through ``set_initial_params``), at 16 x 100 (the grid's
+    104 images: Kernel A) and 64 x 400 (Kernel B), on the library route:
+
+    - the shape's kernel on the handler problem's first evaluation against
+      its float64 twin, four losses (``camera_model_parity``), its device
+      time beside its bound (``camera_model_times``);
+    - ``build_structured_problem`` solved uncaptured, capturing and warm
+      (``solved_through_graph``: captured = uncaptured bit for bit; by
+      profiler names the model's own ``gram_kernel<intr_w, FUSED>`` (and
+      ``cam_reduce_kernel<intr_w>``) once an evaluation and no other gram
+      kernel); status > 0, rms < 2 x noise_px; the warm solve median;
+    - the main path, ``run_stereo_calibration`` (its counts zeroed just
+      before: the shape's wrapper alone, at the model's width alone), its
+      parameters the solve's bit for bit; the recovered distortion function
+      against the truth over each camera's observed field
+      (``distortion_field_px``, held within DIST_FIELD_PX for the models
+      of DIST_FIELD_HELD) and the recovered rig's noise-free prediction of
+      every real detection (``prediction_field_px``, its RMS within
+      PREDICTION_RMS_OF_NOISE of the noise); at 16 x 100 its file loaded
+      back with each camera's distortion width and reprojection kept;
+    - at 16 x 100, tilted and fisheye: the float32 cost within 1e-4
+      relative of the float64 CPU solve of the same handler;
+    - at tilted 64 x 400 (dense n = 24 x 64 = 1536) also the kernel route
+      (``PYCAMSET_PALLAS_CHOL=1``): its cost within 1e-4 of the library
+      route's, its SPD kernel once an LM step, its fallbacks; the SPD
+      kernel on that solve's first reduced system against its float64
+      twin and timed beside the library call.
+
+    :return: {"kernels": {(wrapper, model): record}, "psd": the n = 1536
+        record}."""
+    import tempfile
+
+    import torch
+    from pycamset_tpu_torch.calibration.camera_calibrator import (
+        run_stereo_calibration)
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import template_handler
+    from pycamset_tpu_torch.utils.saving import load_CameraSet
+    dev = torch.device("cuda", 0)
+    counted = wrappers()
+    kern, psd = {}, {}
+    for model, a in MODEL_WIDTH.items():
+        iw = a - 6
+        for shape, (n_cams, n_ims, name) in MODEL_SHAPES.items():
+            fused = name == "template_gram_fused"
+            tag = f"{model} {shape}"
+            sec = {}
+            t0 = time.perf_counter()
+            handler, rig = template_handler(n_cams, n_ims,
+                                            camera_model=model)
+            x0 = handler.get_initial_params()
+            sec["inputs"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            solve_fn, residual_fn, x_init = build_structured_problem(
+                handler, device=dev)
+            torch.cuda.synchronize()
+            sec["build"] = time.perf_counter() - t0
+            prob = solve_fn.problem
+            check(prob.widths.a == a, f"{tag}: camera width {prob.widths.a}")
+
+            rec = kern.setdefault((name, model), {"f32_floor_cases": []})
+            rec.update(builds[(name, model)], shape=shape)
+            camera_model_parity(cg, tag, prob, fused, rec)
+            rec.update(camera_model_times(cg, prob, fused, peak_tflops))
+            say("time", camera_model=model, shape=shape, kernel=name, a=a,
+                unit="ms", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                              for k, v in rec.items()
+                              if k not in ("f32_floor_cases", "shape")})
+
+            x_ref, ref, counts, warm, sec["first_solve"], runner = (
+                solved_through_graph(f"camera_models {tag}", solve_fn,
+                                     x_init, False))
+            flag = "true" if fused else "false"
+            want = {f"gram_kernel<{iw},{flag}>": warm.nfev}
+            if fused:
+                want[f"cam_reduce_kernel<{iw}>"] = warm.nfev
+            grams = {n: k for n, k in counts.items()
+                     if n.split("<")[0] != "psd_solve_kernel"}
+            check(grams == want, f"{tag}: gram kernels {grams} in "
+                                 f"{warm.nfev} evaluations, {want} expected")
+            status, rms = int(ref.status), prob.rms_px(ref.cost)
+            check(status > 0 and rms < 2 * rig["noise_px"],
+                  f"{tag}: status {status}, rms {rms} px")
+            warm_ms = timed(lambda: solve_fn(x_init), 5)
+
+            e2e = TemplateBundleHandler(handler.camset, handler.target,
+                                        handler.detection,
+                                        options=dict(handler.problem_opts))
+            e2e.set_initial_params(x0)
+            save = shape == "16x100"
+            fields = {}
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "cams.camset")
+                (solved, n_own, _,
+                 sec["run_stereo_calibration"]) = main_path_counts(
+                    counted, name, f"camera_models {tag}",
+                    lambda: run_stereo_calibration(
+                        None, None, None, param_handler=e2e, save=save,
+                        save_loc=path, device=dev))
+                by_width = dict(counted[name].launches_by_width)
+                check(by_width[a] == n_own and not any(
+                    n for w, n in by_width.items() if w != a),
+                    f"{tag}: launches by camera width {by_width}")
+                if save:
+                    t0 = time.perf_counter()
+                    back = load_CameraSet(path)
+                    sec["load"] = time.perf_counter() - t0
+                    pts = rig["template"] + [0.0, 0.0, 0.02]
+                    for cs, cb in zip(solved, back):
+                        check(np.array_equal(np.ravel(cs.distortion_coefs),
+                                             np.ravel(cb.distortion_coefs))
+                              and np.array_equal(
+                                  cs.project_points(pts, device=dev),
+                                  cb.project_points(pts, device=dev)),
+                              f"{tag}: camera {cs.name} loaded back differs")
+                    fields["file_dist_width"] = np.ravel(
+                        back[0].distortion_coefs).size
+            check(np.array_equal(solved.calibration_params, x_ref),
+                  f"{tag}: run_stereo_calibration's parameters differ from "
+                  f"the solve's")
+            field_px = distortion_field_px(solved, rig)
+            check(field_px < DIST_FIELD_PX or model not in DIST_FIELD_HELD,
+                  f"{tag}: the recovered distortion is {field_px:.3f} px from "
+                  f"the truth over the observed field")
+            pred_rms, pred_max = prediction_field_px(e2e, x_ref, rig, dev)
+            check(pred_rms <= PREDICTION_RMS_OF_NOISE * rig["noise_px"],
+                  f"{tag}: the recovered rig predicts the true detections "
+                  f"to {pred_rms:.4f} px RMS")
+            rec.setdefault("launches_by_solve", {})[f"camera_models {tag}"] = (
+                n_own)
+            rec["solve_ms_median"] = float(np.median(warm_ms))
+
+            if shape == "16x100" and model in ("tilted", "fisheye"):
+                h64 = TemplateBundleHandler(handler.camset, handler.target,
+                                            handler.detection,
+                                            options=dict(handler.problem_opts))
+                h64.set_initial_params(x0)
+                t0 = time.perf_counter()
+                cpu_fn, _, _ = build_structured_problem(h64, device="cpu")
+                cpu = cpu_fn(x0)[1]
+                rel = abs(float(ref.cost) - float(cpu.cost)) / float(cpu.cost)
+                check(rel <= 1e-4, f"{tag}: cost differs from the float64 "
+                                   f"CPU solve by {rel:.3e}")
+                fields.update(cpu_f64_nit=cpu.nit,
+                              cpu_f64_s=f"{time.perf_counter() - t0:.1f}",
+                              rel_cost_diff_cpu_f64=f"{rel:.3e}")
+            if shape == "64x400" and model == "tilted":
+                f0 = cc.psd_solve.fallbacks
+                with one_launch_psd(True):
+                    _, ref_k, _, warm_k, _, _ = solved_through_graph(
+                        f"camera_models {tag} (kernel route)", solve_fn,
+                        x_init, True)
+                    systems = capture_reduced_systems({tag: prob})
+                n = systems[tag][0].shape[0]
+                check(n == a * n_cams, f"{tag}: dense n {n}")
+                rel_k = (abs(float(ref_k.cost) - float(ref.cost))
+                         / float(ref.cost))
+                check(rel_k <= 1e-4, f"{tag}: the kernel route's cost is "
+                                     f"{rel_k:.3e} from the library route's")
+                e = psd_parity(tag, *systems[tag])
+                psd = dict(phase_time_psd(systems)[n], n=n, parity=e,
+                           fallbacks=cc.psd_solve.fallbacks - f0,
+                           nit=ref_k.nit, status=int(ref_k.status),
+                           rel_cost_vs_library=rel_k)
+                fields.update(kernel_route_nit=ref_k.nit,
+                              kernel_route_status=int(ref_k.status),
+                              kernel_route_rel_cost=f"{rel_k:.3e}",
+                              kernel_route_fallbacks=psd["fallbacks"],
+                              psd_n=n, psd_rel_err=f"{e['rel']:.3e}",
+                              psd_library_rel_err=f"{e['rel_lib']:.3e}",
+                              psd_res2_over_b2=f"{e['res2_over_b2']:.3e}")
+            say("camera_models", model=model, shape=shape, a=a,
+                kernel=name, same_bits=True, nit=ref.nit, nfev=ref.nfev,
+                status=status, rms_px=f"{rms:.5f}",
+                noise_px=rig["noise_px"], dist_field_px=f"{field_px:.4f}",
+                dist_field_held=model in DIST_FIELD_HELD,
+                prediction_rms_px=f"{pred_rms:.5f}",
+                prediction_max_px=f"{pred_max:.4f}",
+                n_real=prob.blocks.n_real, im_grid=prob.blocks.n_ims,
+                launches_per_eval=f"{grams}/{warm.nfev}",
+                e2e_launches=f"{name}:{n_own}",
+                capture_ms=f"{runner.capture_ms:.1f}",
+                solve_ms_median=f"{np.median(warm_ms):.3f}",
+                solve_ms_all=",".join(f"{t:.2f}" for t in warm_ms),
+                **fields, **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()})
+            del solve_fn, residual_fn, prob, handler, e2e, solved
+            gc.collect()
+            torch.cuda.empty_cache()
+    return {"kernels": kern, "psd": psd}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2435,7 +2838,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    builds = phase_build()
     peak_rec = phase_peak(smi)
 
     from pycamset_tpu_torch.problems import (fleet_problem, grouped_problem,
@@ -2538,6 +2941,11 @@ def main() -> int:
     launches.update(phase_freepoint(fp_probs))
     say("elapsed", after="freepoint",
         seconds=f"{time.perf_counter() - t_start:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    models = phase_camera_models(builds, peak_rec["tflops"])
+    say("elapsed", after="camera_models",
+        seconds=f"{time.perf_counter() - t_start:.1f}")
 
     fleet_shape = f"fleet {'x'.join(map(str, FLEET))}"
     launches["template_gram_fused"][fleet_shape] = fleet_rec["launches"]
@@ -2588,6 +2996,23 @@ def main() -> int:
                              if name.endswith("fused")
                              else "selfcal_gram (Kernel D)"),
             "shape": shape, "card": smi})
+    for (name, model), rec in models["kernels"].items():
+        source, replaces, _ = KERNELS[name]
+        kernels.append({
+            "name": f"{name}[{model}]", "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(rec["launches_by_solve"].values()),
+            "launches_by_solve": rec["launches_by_solve"],
+            "max_abs_err": rec["abs"], "max_rel_err": rec["rel"],
+            "max_scaled_err": rec["scaled"],
+            "f32_floor_cases": rec["f32_floor_cases"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "kernel_ms": rec["kernel_ms"],
+            "camera_width": MODEL_WIDTH[model],
+            "registers": rec["registers"], "spill_bytes": rec["spill_bytes"],
+            "solve_ms_median": rec["solve_ms_median"],
+            "shape": f"{model} {rec['shape']}", "card": smi})
     widest = psd_time[max(psd_time)]
     kernels.append({
         "name": PSD[0], "route": "cuda", "source": PSD[1],
@@ -2608,6 +3033,7 @@ def main() -> int:
         "library_kernel_ms_by_n": {n: t["library_kernel_ms"]
                                    for n, t in psd_time.items()},
         "solve_ms_median_ab": ab,
+        "tilted_64x400": models["psd"],
         "card": smi})
     kernels.append({
         "name": PEAK[0], "route": "cuda", "source": PEAK[1],

@@ -41,6 +41,12 @@ _SIGNATURES = {
     "pct_template_gram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "pct_template_gram_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                 _P, _P, _P, _P, _P, _P, _P, _P],
+    # Kernels A and B at another camera model: the intrinsic width first
+    "pct_template_gram_model": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                _P],
+    "pct_template_gram_fused_model": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _F, _I, _P, _P, _P, _P, _P, _P, _P,
+                                      _P],
     "pct_selfcal_gram": [_P] * 7 + [_I, _I, _I, _I, _F, _I] + [_P] * 8,
     "pct_selfcal_gram_fused": [_P] * 6 + [_I, _I, _I, _I, _I, _F, _I]
                               + [_P] * 15,

@@ -128,15 +128,25 @@ class AbstractTarget(ABC):
         if len(seen_model_pts) < 6:
             return fail("Inadequate number of corners for pose estimation")
         dist = np.ravel(np.asarray(cam.distortion_coefs, dtype=float))
-        if dist.size != 5:
-            raise NotImplementedError(
-                f"{dist.size}-coefficient distortion is not ported yet "
-                f"(ROADMAP Queue A item 7)")
+        obs_px = rows[:, -2:]
+        err_scale = 1.0
+        if dist.size == 4:
+            # the fisheye marker width: solvePnP takes Brown-Conrady
+            # distortion, so undistort to the normalized pinhole frame first
+            # and solve with an identity intrinsic; the residuals are then in
+            # normalized units and rescale by the focal for the check below
+            err_scale = float(cam.intrinsic[0, 0])
+            norm = cv2.fisheye.undistortPoints(
+                obs_px.reshape(1, -1, 2).astype(np.float64),
+                np.asarray(cam.intrinsic, dtype=float), dist)
+            obs_px, kmat, dist = norm.reshape(-1, 2), np.eye(3), np.zeros(5)
+        else:
+            kmat = cam.intrinsic
         _n_sols, rvecs, tvecs, per_sol_err = cv2.solvePnPGeneric(
             seen_model_pts.astype("float32"),
-            rows[:, -2:].astype("float32"), cam.intrinsic, dist)
+            obs_px.astype("float32"), kmat, dist)
         best = int(np.argmin(per_sol_err))
-        best_err = float(np.squeeze(per_sol_err[best]))
+        best_err = float(np.squeeze(per_sol_err[best])) * err_scale
         if best_err > 5:
             logging.warning(
                 f"Initial error of {best_err: .2f} found for a pose "

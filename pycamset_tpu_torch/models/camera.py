@@ -1,19 +1,23 @@
-"""The Camera model: pinhole + Brown–Conrady with derived state.
+"""The Camera model: pinhole + lens distortion with derived state.
 
 Counterpart of the state and device parts of ``pycamset_tpu/models/camera.py``
-(``:74-237``): the state (extrinsic 4x4, intrinsic 3x3, 5-coefficient
-distortion, res, name), the state derived from it on update (cam_to_world,
-position, view and up vectors, fov, the 3x4 projection, the optional sensor
-map), ``project_points``, ``undistort_points``, ``im_to_world_ray`` and the
-image ``undistort``. Standard model only (ROADMAP Queue A item 7); plots,
-meshes and intrinsic editing wait for item 10.
+(``:74-237``): the state (extrinsic 4x4, intrinsic 3x3, distortion, res,
+name), the state derived from it on update (cam_to_world, position, view
+and up vectors, fov, the 3x4 projection, the optional sensor map),
+``project_points``, ``undistort_points``, ``im_to_world_ray`` and the image
+``undistort``. The distortion's width names the camera model
+(``ops/distortion.py``): 5 standard, 8 rational, 12 thin-prism, 14 tilted,
+4 fisheye (the 4-wide vector is the fisheye marker: even zeros mean the
+equidistant mapping). Plots, meshes and intrinsic editing wait for ROADMAP
+Queue A item 10.
 
 Projection and undistortion run through the port's torch ops on
 ``device`` (the card unless the caller names another; dtype as
 ``config.default_device_dtype``) and return numpy. The sensor map is the
 port's fixed-point undistortion of every pixel, where the JAX package calls
-``cv2.undistortImagePoints``. The image ``undistort`` is an OpenCV remap and
-imports cv2 when it is called.
+``cv2.undistortImagePoints`` (``cv2.fisheye.undistortPoints`` for a fisheye).
+The image ``undistort`` is an OpenCV remap (``cv2.fisheye.undistortImage``
+for a fisheye) and imports cv2 when it is called.
 """
 from __future__ import annotations
 
@@ -85,8 +89,9 @@ class Camera:
         :param extrinsic: 4x4 world->camera transform.
         :param intrinsic: 3x3 pinhole intrinsic matrix.
         :param res: camera resolution.
-        :param distortion_coefs: 5-parameter Brown–Conrady model
-            [k1, k2, p1, p2, k3].
+        :param distortion_coefs: the lens model's coefficients (5 standard
+            Brown–Conrady [k1, k2, p1, p2, k3], 8 rational, 12 thin-prism,
+            14 tilted, 4 fisheye), OpenCV order.
         :param name: camera name.
         :param minimal: skip the eager sensor map (lazy for hi-res cams).
         :param device: where a non-minimal camera builds its sensor map on
@@ -158,7 +163,9 @@ class Camera:
         uv = np.atleast_2d(h_tform(np.asarray(points, dtype=float),
                                    self.proj))
         dist = np.ravel(self.distortion_coefs)
-        if distort and np.any(dist):
+        # a 4-wide vector is the fisheye marker: even all-zero coefficients
+        # mean the equidistant mapping (r -> atan r), never the pinhole
+        if distort and (dist.size == 4 or np.any(dist)):
             uv = _on_device(distort_pixels, (uv, self.intrinsic, dist),
                             device, dtype)
         return uv[:, ::-1] if mode == "image" else uv
@@ -208,9 +215,12 @@ class Camera:
 
     def undistort(self, image: np.ndarray) -> np.ndarray:
         """Undistort an image with the camera parameters (an OpenCV remap,
-        on the host)."""
+        on the host; a 4-wide distortion vector, the fisheye, through
+        cv2.fisheye)."""
         cv2 = require_cv2("Camera.undistort (an image remap)",
                           "undistort images where OpenCV is installed")
-        return cv2.undistort(image, self.intrinsic,
-                             np.ravel(np.asarray(self.distortion_coefs,
-                                                 dtype=float)))
+        dist = np.ravel(np.asarray(self.distortion_coefs, dtype=float))
+        if dist.size == 4:
+            return cv2.fisheye.undistortImage(
+                image, self.intrinsic, dist, Knew=self.intrinsic)
+        return cv2.undistort(image, self.intrinsic, dist)

@@ -7,8 +7,11 @@ dict / list / slice / name indexing, subsets, iteration, equality,
 ``essential_matrix`` and ``fundamental_matrix``.
 Triangulation runs through the port's batched DLT
 (``ops/triangulation.py``) on ``device``, the card unless the caller names
-another. Standard model only (ROADMAP Queue A item 7); plots, scene export,
-the calibration diagnostics and rig transforms wait for items 8 and 10.
+another, with each camera's distortion at its model's width (4, 5, 8, 12 or
+14; narrower Brown vectors zero-padded to the widest, ``stack_cam_dists``).
+A rig mixing fisheye and Brown cameras (the JAX package's het rows) raises
+(ROADMAP Queue A item 7); plots, scene export, the calibration diagnostics
+and rig transforms wait for items 8 and 10.
 """
 from __future__ import annotations
 
@@ -23,6 +26,21 @@ from pycamset_tpu_torch.models.camera import Camera
 from pycamset_tpu_torch.ops.triangulation import triangulate_observations
 from pycamset_tpu_torch.utils.general_utils import require_cv2
 from pycamset_tpu_torch.utils.saving import save_camset
+
+
+def stack_cam_dists(dist_list) -> np.ndarray:
+    """Stack per-camera distortion vectors into one (C, w) array, the
+    narrower Brown vectors zero-padded (exact sub-models). A rig mixing the
+    fisheye's 4-wide vectors with Brown ones (the JAX package's het rows)
+    raises ``NotImplementedError`` (ROADMAP Queue A item 7)."""
+    dl = [np.ravel(np.asarray(d, dtype=float)) for d in dist_list]
+    sizes = {d.size for d in dl}
+    if 4 in sizes and sizes != {4}:
+        raise NotImplementedError(
+            f"a rig mixing fisheye and Brown cameras (distortion widths "
+            f"{sorted(sizes)}) is not ported yet (ROADMAP Queue A item 7)")
+    w = max(sizes) if sizes else 5
+    return np.array([np.pad(d, (0, w - d.size)) for d in dl])
 
 
 def make_cam_dict(camera_names, extrinsic_matrices, intrinsic_matrices,
@@ -223,7 +241,9 @@ class CameraSet:
 
         proj = np.stack([cam.proj for cam in self])
         intr = np.stack([cam.intrinsic for cam in self])
-        dists = (np.stack([np.ravel(cam.distortion_coefs) for cam in self])
+        # without distortion, a true identity: 5-wide Brown zeros (a zero
+        # 4-wide vector would still be the equidistant fisheye mapping)
+        dists = (stack_cam_dists([cam.distortion_coefs for cam in self])
                  if distort else np.zeros((len(self), 5)))
 
         device = resolve_device(device)

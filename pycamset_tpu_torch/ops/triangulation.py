@@ -1,7 +1,7 @@
 """Batched n-view DLT triangulation.
 
 Counterpart of ``triangulate_nviews`` and ``triangulate_observations``
-(``method="homogeneous"``, standard model) in
+(``method="homogeneous"``, one camera model a rig) in
 ``pycamset_tpu/ops/triangulation.py``, in plain torch: views padded to a
 common count with a validity mask (zero rows add nothing to the normal
 matrix, so padding is exact), each observation undistorted by fixed point,
@@ -44,7 +44,8 @@ def triangulate_observations(proj_all: torch.Tensor, kmats: torch.Tensor,
     """Triangulate a batch of points from padded observation tables.
 
     :param proj_all: (C, 3, 4) per-camera projection matrices.
-    :param kmats: (C, 3, 3) intrinsics; :param dists: (C, 5) distortion.
+    :param kmats: (C, 3, 3) intrinsics; :param dists: (C, n)
+        distortion, n one of 4, 5, 8, 12, 14 (``ops/distortion.py``).
     :param cam_idx: (N, V) camera of each observation slot.
     :param uv: (N, V, 2) raw (distorted) pixels; :param mask: (N, V).
     :return: (N, 3) points.

@@ -1,65 +1,146 @@
 """Closed-form residual + Jacobian for the template, self-calibration and
-multi-target chains, standard model.
+multi-target chains, for the five camera models.
 
 Counterpart of ``projection_partials``, ``block_rj_template``,
 ``block_rj_selfcal``, ``block_rj_grouped_template`` and
 ``block_rj_mixed_selfcal`` in ``pycamset_tpu/optim/analytic.py``. The JAX
 functions work on one block and are vmapped over blocks; these take the
 block axis (any leading dims) directly. Rotation derivatives come from the
-closed-form ``ops.rotations.rodrigues_jacobian`` instead of ``jax.jacfwd``.
+closed-form ``ops.rotations.rodrigues_jacobian``, the tilted model's dMt
+from ``ops.distortion.tilt_matrix_jacobian``, instead of ``jax.jacfwd``.
 
 Derivative layout per slot: Jc (2, a) = [d/intr | d/extr6],
 Ji (2, 6) = d/pose6, and Jk: (2, 0) for the template chain, (2, 3) =
 d/point for the self-calibration chain, (2, 6) = d/group pose for the
 grouped chain and (2, 9) = [d/group pose | d/point] for the mixed chain.
+The intrinsic width selects the camera model: 9 standard, 12 rational, 16
+thin-prism, 18 tilted, 8 fisheye.
 """
 from __future__ import annotations
 
 import torch
 
+from pycamset_tpu_torch.ops.distortion import (tilt_matrix,
+                                               tilt_matrix_jacobian)
 from pycamset_tpu_torch.ops.rotations import (rodrigues_jacobian,
                                               rodrigues_to_matrix)
 
+# intrinsic widths of the camera models
+INTR_WIDTHS = (8, 9, 12, 16, 18)
+
 
 def _check_intr_w(intr_w: int):
-    if intr_w != 9:
+    if intr_w not in INTR_WIDTHS:
         raise NotImplementedError(
-            f"intrinsic width {intr_w} (rational 12, thin-prism 16, tilted "
-            f"18, fisheye 8) is not ported yet (ROADMAP Queue A item 7); "
-            f"only the standard 9-wide model is")
+            f"intrinsic width {intr_w}: the camera models are {INTR_WIDTHS} "
+            f"(fisheye 8, standard 9, rational 12, thin-prism 16, tilted "
+            f"18); heterogeneous rows are not ported yet (ROADMAP Queue A "
+            f"item 7)")
 
 
 def projection_partials(intr: torch.Tensor, xc: torch.Tensor):
-    """Per-slot projection partials, standard model.
+    """Per-slot projection partials of any of the five camera models.
 
-    :param intr: (..., 9) [fx, px, fy, py, k1, k2, p1, p2, k3].
+    :param intr: (..., intr_w) [fx, px, fy, py | dist coefs].
     :param xc: (..., K, 3) camera-frame points.
-    :return: (pred (..., K, 2), d_intr (..., K, 2, 9), d_xc (..., K, 2, 3))
+    :return: (pred (..., K, 2), d_intr (..., K, 2, intr_w),
+        d_xc (..., K, 2, 3))
     """
-    _check_intr_w(intr.shape[-1])
-    fx, px, fy, py, k1, k2, p1, p2, k3 = (intr[..., i, None]
-                                          for i in range(9))
+    intr_w = intr.shape[-1]
+    _check_intr_w(intr_w)
+
+    def c(i):
+        return intr[..., i, None]
+
+    fx, px, fy, py = c(0), c(1), c(2), c(3)
     inv_z = 1.0 / xc[..., 2]
     x = xc[..., 0] * inv_z
     y = xc[..., 1] * inv_z
     r2 = x * x + y * y
-    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
-    dradial = k1 + r2 * (2.0 * k2 + 3.0 * k3 * r2)
-
-    xy = x * y
-    xd = x * radial + 2.0 * p1 * xy + p2 * (r2 + 2.0 * x * x)
-    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * xy
     one = torch.ones_like(x)
     zero = torch.zeros_like(x)
 
-    # d(xd, yd)/d(k1, k2, p1, p2, k3)
-    jxd = [x * r2, x * r2 * r2, 2.0 * xy, r2 + 2.0 * x * x, x * r2 ** 3]
-    jyd = [y * r2, y * r2 * r2, r2 + 2.0 * y * y, 2.0 * xy, y * r2 ** 3]
-    # distorted-normalized wrt normalized
-    dxd_dx = radial + 2.0 * x * x * dradial + 2.0 * p1 * y + 6.0 * p2 * x
-    dxd_dy = 2.0 * xy * dradial + 2.0 * p1 * x + 2.0 * p2 * y
-    dyd_dx = dxd_dy
-    dyd_dy = radial + 2.0 * y * y * dradial + 6.0 * p1 * y + 2.0 * p2 * x
+    if intr_w == 8:
+        xd, yd, jxd, jyd, dxd_dx, dxd_dy, dyd_dx, dyd_dy = _fisheye_tail(
+            intr, x, y, r2)
+    else:
+        k1, k2, p1, p2, k3 = c(4), c(5), c(6), c(7), c(8)
+        num = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dnum = k1 + r2 * (2.0 * k2 + 3.0 * k3 * r2)
+        if intr_w >= 12:  # rational model: radial is a polynomial ratio
+            k4, k5, k6 = c(9), c(10), c(11)
+            den = 1.0 + r2 * (k4 + r2 * (k5 + r2 * k6))
+            dden = k4 + r2 * (2.0 * k5 + 3.0 * k6 * r2)
+            inv_den = 1.0 / den
+            radial = num * inv_den
+            dradial = (dnum - radial * dden) * inv_den
+        else:
+            inv_den = 1.0
+            radial = num
+            dradial = dnum
+
+        xy = x * y
+        xd = x * radial + 2.0 * p1 * xy + p2 * (r2 + 2.0 * x * x)
+        yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * xy
+        if intr_w >= 16:  # thin-prism terms
+            s1, s2, s3, s4 = c(12), c(13), c(14), c(15)
+            xd = xd + r2 * (s1 + r2 * s2)
+            yd = yd + r2 * (s3 + r2 * s4)
+
+        # d(xd, yd)/d(dist coefs); the affine intrinsics fold in after the
+        # tilt chain
+        jxd = [x * r2 * inv_den, x * r2 * r2 * inv_den, 2.0 * xy,
+               r2 + 2.0 * x * x, x * r2 ** 3 * inv_den]
+        jyd = [y * r2 * inv_den, y * r2 * r2 * inv_den,
+               r2 + 2.0 * y * y, 2.0 * xy, y * r2 ** 3 * inv_den]
+        if intr_w >= 12:
+            for i in (1, 2, 3):
+                jxd.append(-x * radial * r2 ** i * inv_den)
+                jyd.append(-y * radial * r2 ** i * inv_den)
+        if intr_w >= 16:
+            jxd.extend([r2, r2 * r2, zero, zero])
+            jyd.extend([zero, zero, r2, r2 * r2])
+
+        # distorted-normalized wrt normalized
+        dxd_dx = radial + 2.0 * x * x * dradial + 2.0 * p1 * y + 6.0 * p2 * x
+        dxd_dy = 2.0 * xy * dradial + 2.0 * p1 * x + 2.0 * p2 * y
+        dyd_dx = dxd_dy
+        dyd_dy = radial + 2.0 * y * y * dradial + 6.0 * p1 * y + 2.0 * p2 * x
+        if intr_w >= 16:  # the prism breaks the dyd_dx == dxd_dy symmetry
+            dpx = s1 + 2.0 * s2 * r2
+            dpy = s3 + 2.0 * s4 * r2
+            dxd_dx = dxd_dx + 2.0 * x * dpx
+            dxd_dy = dxd_dy + 2.0 * y * dpx
+            dyd_dx = dyd_dx + 2.0 * x * dpy
+            dyd_dy = dyd_dy + 2.0 * y * dpy
+
+        if intr_w >= 18:  # tilted: everything through the homography
+            mt = tilt_matrix(intr[..., 16], intr[..., 17])[..., None, :, :]
+            dms = tilt_matrix_jacobian(intr[..., 16], intr[..., 17])
+
+            def m(mat, i, j):
+                return mat[..., i, j]
+
+            iw = 1.0 / (m(mt, 2, 0) * xd + m(mt, 2, 1) * yd + m(mt, 2, 2))
+            xtl = (m(mt, 0, 0) * xd + m(mt, 0, 1) * yd + m(mt, 0, 2)) * iw
+            ytl = (m(mt, 1, 0) * xd + m(mt, 1, 1) * yd + m(mt, 1, 2)) * iw
+            a00 = (m(mt, 0, 0) - xtl * m(mt, 2, 0)) * iw
+            a01 = (m(mt, 0, 1) - xtl * m(mt, 2, 1)) * iw
+            a10 = (m(mt, 1, 0) - ytl * m(mt, 2, 0)) * iw
+            a11 = (m(mt, 1, 1) - ytl * m(mt, 2, 1)) * iw
+            jxd, jyd = ([a00 * jx + a01 * jy for jx, jy in zip(jxd, jyd)],
+                        [a10 * jx + a11 * jy for jx, jy in zip(jxd, jyd)])
+            for dm in dms:
+                dm = dm[..., None, :, :]
+                dw = m(dm, 2, 0) * xd + m(dm, 2, 1) * yd + m(dm, 2, 2)
+                jxd.append((m(dm, 0, 0) * xd + m(dm, 0, 1) * yd
+                            + m(dm, 0, 2) - xtl * dw) * iw)
+                jyd.append((m(dm, 1, 0) * xd + m(dm, 1, 1) * yd
+                            + m(dm, 1, 2) - ytl * dw) * iw)
+            dxd_dx, dxd_dy, dyd_dx, dyd_dy = (
+                a00 * dxd_dx + a01 * dyd_dx, a00 * dxd_dy + a01 * dyd_dy,
+                a10 * dxd_dx + a11 * dyd_dx, a10 * dxd_dy + a11 * dyd_dy)
+            xd, yd = xtl, ytl
 
     pred = torch.stack([fx * xd + px, fy * yd + py], dim=-1)
     d_intr = torch.stack([
@@ -78,6 +159,38 @@ def projection_partials(intr: torch.Tensor, xc: torch.Tensor):
                      -(dv_dx * x + dv_dy * y) * inv_z], dim=-1),
     ], dim=-2)
     return pred, d_intr, d_xc
+
+
+def _fisheye_tail(intr8: torch.Tensor, x, y, r2):
+    """The fisheye (Kannala-Brandt) point and partials: xd = x
+    theta_d(theta) / r with theta = atan(r), the radius smoothed as in the
+    forward map; s depends on the radius alone, so d(xd, yd)/d(x, y) is
+    s I + g [x, y][x, y]^T with g = (ds/dr) / r.
+
+    :return: (xd, yd, the four coefficient columns of xd and of yd,
+        dxd_dx, dxd_dy, dyd_dx, dyd_dy)."""
+    k1, k2, k3, k4 = (intr8[..., i, None] for i in range(4, 8))
+    r = torch.sqrt(r2 + 1e-18)
+    inv_r = 1.0 / r
+    theta = torch.atan(r)
+    t2 = theta * theta
+    poly = 1.0 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4)))
+    s = theta * poly * inv_r
+    # d theta_d / d k_i = theta^(2i + 1)
+    jxd, jyd = [], []
+    tp = t2 * theta
+    for _ in range(4):
+        jxd.append(x * tp * inv_r)
+        jyd.append(y * tp * inv_r)
+        tp = tp * t2
+    # dtheta/dr = 1/(1 + r^2); dtheta_d/dtheta = poly + theta poly'
+    dtheta_d = poly + 2.0 * t2 * (k1 + t2 * (2.0 * k2
+                                             + t2 * (3.0 * k3
+                                                     + t2 * 4.0 * k4)))
+    g = (dtheta_d / (1.0 + r2) - s) * inv_r * inv_r
+    dxd_dy = x * y * g
+    return (s * x, s * y, jxd, jyd, s + x * x * g, dxd_dy, dxd_dy,
+            s + y * y * g)
 
 
 def _rj_core(cam_a: torch.Tensor, pose6: torch.Tensor, pts: torch.Tensor,

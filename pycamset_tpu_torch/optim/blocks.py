@@ -7,9 +7,11 @@ carries the blocks of the template chain
 chain ``Projection + Extrinsic3D + RigidTform3d + FreePoint`` and of the
 two multi-target chains, ``... + RigidTform3d + GroupRigidTform3d +
 FreePoint`` (mixed) and ``... + RigidTform3d + GroupTemplatePoints``
-(grouped), standard camera model. The
-structured backend dispatches on the block class names, as the JAX package
-does, so the names are kept.
+(grouped), and the projection blocks of the five camera models
+(``Projection`` standard, ``ProjectionRational``, ``ProjectionThinPrism``,
+``ProjectionTilted``, ``ProjectionFisheye``). The structured backend
+dispatches on the block class names, as the JAX package does, so the names
+are kept.
 """
 from __future__ import annotations
 
@@ -78,6 +80,35 @@ class Projection(FunctionBlock):
 
     def compute(self, params, inp):
         return project_cam_points(params, inp)
+
+
+class ProjectionRational(Projection):
+    """Pinhole + rational-model projection; 12 PER_CAM params
+    [fx, px, fy, py, k1, k2, p1, p2, k3, k4, k5, k6], radial =
+    (1 + k1 r2 + k2 r4 + k3 r6) / (1 + k4 r2 + k5 r4 + k6 r6) (OpenCV's
+    CALIB_RATIONAL_MODEL)."""
+    params = ParamSpec(key_type.PER_CAM, 12)
+
+
+class ProjectionThinPrism(Projection):
+    """Pinhole + rational + thin-prism projection; 16 PER_CAM params
+    [..., k4, k5, k6, s1, s2, s3, s4] (CALIB_RATIONAL_MODEL |
+    CALIB_THIN_PRISM_MODEL)."""
+    params = ParamSpec(key_type.PER_CAM, 16)
+
+
+class ProjectionTilted(Projection):
+    """Pinhole + rational + thin-prism + sensor-tilt projection; 18 PER_CAM
+    params [..., s1, s2, s3, s4, taux, tauy] (OpenCV's full 14-coefficient
+    model, CALIB_TILTED_MODEL)."""
+    params = ParamSpec(key_type.PER_CAM, 18)
+
+
+class ProjectionFisheye(Projection):
+    """Fisheye (Kannala-Brandt, cv2.fisheye) projection; 8 PER_CAM params
+    [fx, px, fy, py, k1, k2, k3, k4], the pixel radius proportional to
+    theta_d = theta (1 + k1 th^2 + ... + k4 th^8)."""
+    params = ParamSpec(key_type.PER_CAM, 8)
 
 
 class RigidTform3d(FunctionBlock):

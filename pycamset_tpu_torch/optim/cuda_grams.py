@@ -5,7 +5,8 @@ Two hand-written Hopper kernels (``csrc/template_grams.cu``) replace the two
 Pallas kernels of the template chain:
 
 - Kernel A, ``template_gram`` <- ``template_gram_pallas``: the extended
-  per-block gram [J | r]^T [J | r] (22 x 22), corner = (robust) cost.
+  per-block gram [J | r]^T [J | r] (W x W, W = a + 7), corner = (robust)
+  cost.
 - Kernel B, ``template_gram_fused`` <- ``make_pallas_template_grams_fused``:
   hcc/gc summed over each camera's images, per-block wci/gii/gi/cost.
 
@@ -13,7 +14,8 @@ Each wrapper takes the same tensors on either device. A CPU tensor runs the
 plain PyTorch twin (``template_gram_plain``, ``template_gram_fused_plain``:
 the closed-form Jacobian of ``analytic.block_rj_template`` and batched
 matrix products). A CUDA tensor launches the kernel or raises: there is no
-fallback. Each wrapper counts its launches in ``<wrapper>.launches``. The
+fallback. Each wrapper counts its launches in ``<wrapper>.launches``, and
+by camera width in ``<wrapper>.launches_by_width``. The
 wrappers call ``torch.library.custom_op``s
 (``pycamset_tpu_torch::template_gram{,_fused}``) whose vmap rule folds a
 leading rig axis (the fleet, ``optim/fleet.py``) into the block or camera
@@ -23,7 +25,10 @@ The builders ``make_cuda_template_grams`` and
 ``make_cuda_template_grams_fused`` keep the JAX builders' contracts (the
 10-tuple of ``make_block_grams``, and the reduced pieces), with the column
 masks applied to the kernel outputs in plain torch as the JAX package does.
-Standard camera model (a = 15) only; other widths raise.
+They serve the camera widths of the JAX kernels (``TEMPLATE_WIDTHS``): a =
+15 standard, 14 fisheye, 18 rational, 22 thin-prism, 24 tilted; the kernel
+is built at each (``csrc/template_grams.cu``) and the packed row follows the
+JAX layout of that width (``pack_block_params``). Another width raises.
 
 ``scaled_errors`` and ``scaled_errors_fused`` hold a kernel's outputs
 against its twin's entry by entry, in the Jacobi scaling the solver applies.
@@ -33,49 +38,76 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from pycamset_tpu_torch.ops.distortion import (tilt_matrix,
+                                               tilt_matrix_jacobian)
 from pycamset_tpu_torch.ops.rotations import (rodrigues_jacobian,
                                               rodrigues_to_matrix)
 from pycamset_tpu_torch.optim.losses import LOSSES, check_loss_semantics
 
 PPB = 96            # packed per-block row, standard model
-GRAM_W = 22         # 15 cam + 6 pose + 1 residual column
+GRAM_W = 22         # 15 cam + 6 pose + 1 residual column, standard model
+# the camera widths a = intr_w + 6 Kernels A and B serve: fisheye 14,
+# standard 15, rational 18, thin-prism 22, tilted 24
+TEMPLATE_WIDTHS = (14, 15, 18, 22, 24)
 FUSED_CHUNK = 4     # images of one camera per thread block in Kernel B
 _LOSS_IDS = {name: i for i, name in enumerate(LOSSES)}  # csrc loss enum
 
 
-def pack_block_params(cam_b: torch.Tensor, im_b: torch.Tensor,
-                      intr_w: int = 9) -> torch.Tensor:
-    """(B, 15) cam params + (B, 6) poses -> packed (B, 96) operand:
-    [intr 9 | Re 9 | dRe 27 | te 3 | Rp 9 | dRp 27 | tp 3 | ReRp 9], the
-    JAX layout, with dR from the closed-form Rodrigues Jacobian."""
-    if intr_w != 9:
+def packed_width(intr_w: int) -> int:
+    """PPB of the JAX ``_layout(intr_w)``: 96, 96, 104, 104, 136 at intr_w
+    8, 9, 12, 16, 18 (the tilted row appends Mt and its two derivatives)."""
+    return -(-(intr_w + (114 if intr_w >= 18 else 87)) // 8) * 8
+
+
+def pack_block_params(cam_b: torch.Tensor,
+                      im_b: torch.Tensor) -> torch.Tensor:
+    """(B, intr_w + 6) cam params + (B, 6) poses -> the packed (B, PPB)
+    operand of the JAX layout at that intrinsic width: [intr | Re 9 |
+    dRe 27 | te 3 | Rp 9 | dRp 27 | tp 3 | ReRp 9], and for the tilted
+    model (intr_w 18) [Mt 9 | dMt/dtaux 9 | dMt/dtauy 9], zero-padded to a
+    multiple of 8; dR and dMt in closed form (they run inside the captured
+    LM step)."""
+    bb, a = cam_b.shape
+    if a not in TEMPLATE_WIDTHS:
         raise NotImplementedError(
-            f"intr_w={intr_w} is not ported yet (ROADMAP Queue A item 7)")
-    bb = cam_b.shape[0]
-    re = rodrigues_to_matrix(cam_b[:, 9:12])
+            f"camera width {a} is not a camera model's: the kernels serve "
+            f"{TEMPLATE_WIDTHS} (ROADMAP Queue A item 7)")
+    iw = a - 6
+    re = rodrigues_to_matrix(cam_b[:, iw:iw + 3])
     rp = rodrigues_to_matrix(im_b[:, :3])
-    return torch.cat([
-        cam_b[:, :9], re.reshape(bb, 9),
-        rodrigues_jacobian(cam_b[:, 9:12]).reshape(bb, 27), cam_b[:, 12:15],
-        rp.reshape(bb, 9), rodrigues_jacobian(im_b[:, :3]).reshape(bb, 27),
-        im_b[:, 3:6], (re @ rp).reshape(bb, 9)], dim=1)
+    parts = [
+        cam_b[:, :iw], re.reshape(bb, 9),
+        rodrigues_jacobian(cam_b[:, iw:iw + 3]).reshape(bb, 27),
+        cam_b[:, iw + 3:iw + 6], rp.reshape(bb, 9),
+        rodrigues_jacobian(im_b[:, :3]).reshape(bb, 27), im_b[:, 3:6],
+        (re @ rp).reshape(bb, 9)]
+    if iw >= 18:
+        taux, tauy = cam_b[:, 16], cam_b[:, 17]
+        parts += [tilt_matrix(taux, tauy).reshape(bb, 9),
+                  *(d.reshape(bb, 9) for d in tilt_matrix_jacobian(taux,
+                                                                   tauy))]
+    pad = packed_width(iw) - sum(p.shape[1] for p in parts)
+    if pad:
+        parts.append(cam_b.new_zeros((bb, pad)))
+    return torch.cat(parts, dim=1)
 
 
 def template_gram_plain(cam_b, im_b, tpl, uv, mask, loss: str = "linear",
                         f_scale: float = 1.0,
                         loss_semantics: str = "component") -> torch.Tensor:
-    """Plain twin of Kernel A: (B, 22, 22) extended grams of
-    [Jc | Ji | r] with IRLS-weighted rows and the corner set to the
-    block's (robust) cost."""
+    """Plain twin of Kernel A: (B, W, W) extended grams of
+    [Jc | Ji | r], W = a + 7, with IRLS-weighted rows and the corner set to
+    the block's (robust) cost."""
     from pycamset_tpu_torch.optim.analytic import block_rj_template
     from pycamset_tpu_torch.optim.losses import irls_weigh
+    gw = cam_b.shape[-1] + 7
     r, jc, ji, _ = block_rj_template(cam_b, im_b, tpl, uv)
     r, sw, cost_b = irls_weigh(r, mask, loss, f_scale, loss_semantics)
     ext = torch.cat([jc * sw[..., None], ji * sw[..., None], r[..., None]],
                     dim=-1)
-    ext = ext.reshape(ext.shape[0], -1, GRAM_W)
+    ext = ext.reshape(ext.shape[0], -1, gw)
     g = ext.transpose(1, 2) @ ext
-    g[:, GRAM_W - 1, GRAM_W - 1] = cost_b
+    g[:, gw - 1, gw - 1] = cost_b
     return g
 
 
@@ -85,7 +117,7 @@ def template_gram_fused_plain(cam_b, im_b, tpl, uv, mask, n_cams: int,
                               loss_semantics: str = "component"):
     """Plain twin of Kernel B: the per-block grams reduced over images.
 
-    :return: (hcc (C,15,15), gc (C,15), wci (B,15,6), gii (B,6,6),
+    :return: (hcc (C,a,a), gc (C,a), wci (B,a,6), gii (B,6,6),
         gi (B,6), corner (B,)), unmasked.
     """
     return reduce_grams(template_gram_plain(cam_b, im_b, tpl, uv, mask, loss,
@@ -94,8 +126,9 @@ def template_gram_fused_plain(cam_b, im_b, tpl, uv, mask, n_cams: int,
 
 
 def reduce_grams(g: torch.Tensor, n_cams: int, n_ims: int):
-    """(B, 22, 22) extended per-block grams -> Kernel B's outputs."""
-    a, w = 15, GRAM_W - 1
+    """(B, W, W) extended per-block grams -> Kernel B's outputs."""
+    w = g.shape[-1] - 1
+    a = w - 6
     hcc = g[:, :a, :a].reshape(n_cams, n_ims, a, a).sum(dim=1)
     gc = g[:, :a, w].reshape(n_cams, n_ims, a).sum(dim=1)
     return (hcc, gc, g[:, :a, a:w], g[:, a:w, a:w], g[:, a:w, w],
@@ -123,7 +156,8 @@ def scaled_errors(got: torch.Tensor, ref: torch.Tensor) -> dict:
     ref = ref.double()
     s = _jacobi_scale(torch.diagonal(ref, dim1=1, dim2=2))
     e = (got.double().to(ref.device) - ref) / (s[:, :, None] * s[:, None, :])
-    a, w = 15, GRAM_W - 1
+    w = ref.shape[-1] - 1
+    a = w - 6
     return {"gcc": _worst(e[:, :a, :a]), "gii": _worst(e[:, a:w, a:w]),
             "wci": _worst(e[:, :a, a:w]), "gc": _worst(e[:, :a, w]),
             "gi": _worst(e[:, a:w, w]), "cost": _worst(e[:, w, w])}
@@ -134,7 +168,7 @@ def scaled_errors_fused(got, ref, ref_gram: torch.Tensor, n_cams: int,
     """Worst error of Kernel B's outputs against reference outputs, per
     output, in the Jacobi scaling of ``scaled_errors``: hcc and gc by each
     camera's reduced diagonal and cost, the per-block pieces by the
-    block's own, read from ``ref_gram`` (the reference (B, 22, 22) grams
+    block's own, read from ``ref_gram`` (the reference (B, W, W) grams
     of the same inputs)."""
     ref = [r.double() for r in ref]
     got = [g.double().to(r.device) for g, r in zip(got, ref)]
@@ -143,7 +177,8 @@ def scaled_errors_fused(got, ref, ref_gram: torch.Tensor, n_cams: int,
     s_c = _jacobi_scale(torch.cat(
         [torch.diagonal(ref[0], dim1=1, dim2=2), cost_c[:, None]], dim=1))
     s_b = _jacobi_scale(torch.diagonal(ref_gram.double(), dim1=1, dim2=2))
-    a, w = 15, GRAM_W - 1
+    w = ref_gram.shape[-1] - 1
+    a = w - 6
     return {
         "hcc": _worst(hcc / (s_c[:, :a, None] * s_c[:, None, :a])),
         "gc": _worst(gc / (s_c[:, :a] * s_c[:, a:])),
@@ -153,10 +188,12 @@ def scaled_errors_fused(got, ref, ref_gram: torch.Tensor, n_cams: int,
         "corner": _worst(corner / s_b[:, w] ** 2)}
 
 
-def _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, **masks):
+def _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, widths=(15,), **masks):
     """Raise unless the kernel takes these tensors as they are. ``tpl`` is
-    the (K, 3) point table (the template, or the free points); ``masks``
-    are column masks among cmask_b (B, 15), imask_b (B, 6), kmask (K, 3)."""
+    the (K, 3) point table (the template, or the free points); ``widths``
+    the camera widths the kernel is built at (Kernels C-F: the standard
+    model's 15); ``masks`` are column masks among cmask_b (B, a),
+    imask_b (B, 6), kmask (K, 3)."""
     tensors = {"cam_b": cam_b, "im_b": im_b, "tpl": tpl, "uv": uv,
                "mask": mask, **masks}
     dev = cam_b.device
@@ -169,12 +206,13 @@ def _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, **masks):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     bb, k = mask.shape
-    if cam_b.shape[1] != 15:
+    a = cam_b.shape[1]
+    if a not in widths:
         raise NotImplementedError(
-            f"camera width {cam_b.shape[1]} is not ported yet (ROADMAP "
-            f"Queue A item 7); the kernels serve the standard model (15)")
-    want = {"cam_b": (bb, 15), "im_b": (bb, 6), "tpl": (k, 3),
-            "uv": (bb, k, 2), "cmask_b": (bb, 15), "imask_b": (bb, 6),
+            f"camera width {a} is not ported yet on this kernel (ROADMAP "
+            f"Queue A item 7); it serves the camera widths {widths}")
+    want = {"cam_b": (bb, a), "im_b": (bb, 6), "tpl": (k, 3),
+            "uv": (bb, k, 2), "cmask_b": (bb, a), "imask_b": (bb, 6),
             "kmask": (k, 3)}
     for name in tensors.keys() - {"mask"}:
         shape = want[name]
@@ -202,9 +240,11 @@ def _raise_on(rc: int, name: str):
 def template_gram(cam_b, im_b, tpl, uv, mask, loss: str = "linear",
                   f_scale: float = 1.0,
                   loss_semantics: str = "component") -> torch.Tensor:
-    """Kernel A: (B, 22, 22) extended per-block grams (corner = cost).
+    """Kernel A: (B, W, W) extended per-block grams (corner = cost),
+    W = a + 7.
 
-    :param cam_b: (B, 15). :param im_b: (B, 6). :param tpl: (K, 3).
+    :param cam_b: (B, a), a in ``TEMPLATE_WIDTHS``. :param im_b: (B, 6).
+    :param tpl: (K, 3).
     :param uv: (B, K, 2). :param mask: (B, K).
 
     Under ``torch.func.vmap`` over a leading rig axis (the fleet) the rigs'
@@ -215,6 +255,7 @@ def template_gram(cam_b, im_b, tpl, uv, mask, loss: str = "linear",
 
 
 template_gram.launches = 0
+template_gram.launches_by_width = dict.fromkeys(TEMPLATE_WIDTHS, 0)
 
 
 @torch.library.custom_op("pycamset_tpu_torch::template_gram",
@@ -226,11 +267,13 @@ def _template_gram_op(cam_b: Tensor, im_b: Tensor, tpl: Tensor, uv: Tensor,
         return template_gram_plain(cam_b, im_b, tpl, uv, mask, loss,
                                    f_scale, loss_semantics)
     loss_id, component = _loss_args(loss, loss_semantics)
-    _check_cuda_inputs(cam_b, im_b, tpl, uv, mask)
+    _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, widths=TEMPLATE_WIDTHS)
+    intr_w = cam_b.shape[1] - 6
     with torch.cuda.device(cam_b.device):
         out = _launch_gram(pack_block_params(cam_b, im_b), tpl, uv, mask,
-                           loss_id, component, f_scale)
+                           loss_id, component, f_scale, intr_w)
     template_gram.launches += 1
+    template_gram.launches_by_width[intr_w + 6] += 1
     return out
 
 
@@ -267,14 +310,26 @@ def _unfold(r: int, x: Tensor) -> Tensor:
     return x.reshape(r, x.shape[0] // r, *x.shape[1:])
 
 
-def _launch_gram(packed, tpl, uv, mask, loss_id, component, f_scale):
+def _model_entry(lib, name: str, intr_w: int):
+    """The C entry of a kernel at intrinsic width ``intr_w``: the standard
+    model's own (``name``), or ``name + "_model"`` with the width as its
+    first argument."""
+    if intr_w == 9:
+        return getattr(lib, name)
+    fn = getattr(lib, name + "_model")
+    return lambda *args: fn(intr_w, *args)
+
+
+def _launch_gram(packed, tpl, uv, mask, loss_id, component, f_scale,
+                 intr_w: int = 9):
     """Allocate Kernel A's output and launch it on the current stream
-    (inputs already checked; ``packed`` from pack_block_params)."""
+    (inputs already checked; ``packed`` from pack_block_params at
+    ``intr_w``)."""
     from pycamset_tpu_torch._build import load
     bb, k = mask.shape
-    out = torch.empty((bb, GRAM_W, GRAM_W), dtype=torch.float32,
-                      device=mask.device)
-    rc = load().lib.pct_template_gram(
+    gw = intr_w + 13
+    out = torch.empty((bb, gw, gw), dtype=torch.float32, device=mask.device)
+    rc = _model_entry(load().lib, "pct_template_gram", intr_w)(
         _ptr(packed), _ptr(tpl), _ptr(uv), _ptr(mask), _ptr(out), bb, k,
         loss_id, component, float(f_scale),
         torch.cuda.current_stream().cuda_stream)
@@ -285,9 +340,9 @@ def _launch_gram(packed, tpl, uv, mask, loss_id, component, f_scale):
 def template_gram_fused(cam_b, im_b, tpl, uv, mask, n_cams: int, n_ims: int,
                         loss: str = "linear", f_scale: float = 1.0,
                         loss_semantics: str = "component"):
-    """Kernel B: (hcc (C,15,15), gc (C,15), wci (B,15,6), gii (B,6,6),
+    """Kernel B: (hcc (C,a,a), gc (C,a), wci (B,a,6), gii (B,6,6),
     gi (B,6), corner (B,)), unmasked, over B = n_cams * n_ims
-    camera-major blocks; any n_ims, no padding.
+    camera-major blocks; any n_ims, no padding; a in ``TEMPLATE_WIDTHS``.
 
     Under ``torch.func.vmap`` over a leading rig axis (the fleet) the R
     rigs' cameras fold into Kernel B's camera axis, camera-major within
@@ -300,6 +355,7 @@ def template_gram_fused(cam_b, im_b, tpl, uv, mask, n_cams: int, n_ims: int,
 
 
 template_gram_fused.launches = 0
+template_gram_fused.launches_by_width = dict.fromkeys(TEMPLATE_WIDTHS, 0)
 
 
 @torch.library.custom_op("pycamset_tpu_torch::template_gram_fused",
@@ -316,15 +372,16 @@ def _template_gram_fused_op(
             cam_b, im_b, tpl, uv, mask, n_cams, n_ims, loss, f_scale,
             loss_semantics))
     loss_id, component = _loss_args(loss, loss_semantics)
-    _check_cuda_inputs(cam_b, im_b, tpl, uv, mask)
+    _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, widths=TEMPLATE_WIDTHS)
     if mask.shape[0] != n_cams * n_ims:
         raise ValueError(f"{mask.shape[0]} blocks, expected {n_cams} x "
                          f"{n_ims}")
     with torch.cuda.device(cam_b.device):
         out = _launch_gram_fused(pack_block_params(cam_b, im_b), tpl, uv,
                                  mask, n_cams, n_ims, loss_id, component,
-                                 f_scale)
+                                 f_scale, cam_b.shape[1] - 6)
     template_gram_fused.launches += 1
+    template_gram_fused.launches_by_width[cam_b.shape[1]] += 1
     return out
 
 
@@ -340,26 +397,36 @@ def _template_gram_fused_vmap(info, in_dims, cam_b, im_b, tpl, uv, mask,
 
 
 def _launch_gram_fused(packed, tpl, uv, mask, n_cams, n_ims, loss_id,
-                       component, f_scale):
+                       component, f_scale, intr_w: int = 9):
     """Allocate Kernel B's outputs and scratch and launch its two passes
     on the current stream (inputs already checked)."""
     from pycamset_tpu_torch._build import load
     bb, k = mask.shape
+    a = intr_w + 6
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=mask.device)
 
-    hcc, gc = empty(n_cams, 15, 15), empty(n_cams, 15)
-    wci, gii, gi, corner = (empty(bb, 15, 6), empty(bb, 6, 6), empty(bb, 6),
+    hcc, gc = empty(n_cams, a, a), empty(n_cams, a)
+    wci, gii, gi, corner = (empty(bb, a, 6), empty(bb, 6, 6), empty(bb, 6),
                             empty(bb))
-    cam_part = empty(n_cams, -(-n_ims // FUSED_CHUNK), 135)
-    rc = load().lib.pct_template_gram_fused(
+    # the chunks' hcc upper triangles and gc: 135 at the standard model
+    cam_part = empty(n_cams, -(-n_ims // FUSED_CHUNK), a * (a + 1) // 2 + a)
+    rc = _model_entry(load().lib, "pct_template_gram_fused", intr_w)(
         _ptr(packed), _ptr(tpl), _ptr(uv), _ptr(mask), n_cams, n_ims, k,
         loss_id, component, float(f_scale), FUSED_CHUNK, _ptr(hcc), _ptr(gc),
         _ptr(wci), _ptr(gii), _ptr(gi), _ptr(corner), _ptr(cam_part),
         torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "template_gram_fused")
     return hcc, gc, wci, gii, gi, corner
+
+
+def _check_template_widths(widths):
+    if (widths.b, widths.c) != (6, 0) or widths.a not in TEMPLATE_WIDTHS:
+        raise NotImplementedError(
+            f"widths {widths} are not ported yet: the kernels serve the "
+            f"template chain (b=6, c=0) at the camera widths "
+            f"{TEMPLATE_WIDTHS}; ROADMAP Queue A item 7 lists the others")
 
 
 def make_cuda_template_grams(widths, loss: str = "linear",
@@ -371,11 +438,7 @@ def make_cuda_template_grams(widths, loss: str = "linear",
     (gcc_b, gii_b, wci_b, hkk, wck_b, wik_b, gc_b, gi_b, gk, cost).
     """
     a, bw = widths.a, widths.b
-    if (bw, widths.c) != (6, 0) or a != 15:
-        raise NotImplementedError(
-            f"widths {widths} are not ported yet: the kernels serve the "
-            f"standard template chain (a=15, b=6, c=0); ROADMAP Queue A "
-            f"item 7 lists the other camera widths")
+    _check_template_widths(widths)
 
     def grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask):
         g = template_gram(cam_b, im_b, tpl, uv, mask, loss=loss,
@@ -404,11 +467,7 @@ def make_cuda_template_grams_fused(widths, n_cams: int, n_ims: int,
     (hcc (C,a,a), hii (I,6,6), wci (C,I,a,6), gc (C,a), gi (I,6), cost).
     """
     a = widths.a
-    if (widths.b, widths.c) != (6, 0) or a != 15:
-        raise NotImplementedError(
-            f"widths {widths} are not ported yet: the kernels serve the "
-            f"standard template chain (a=15, b=6, c=0); ROADMAP Queue A "
-            f"item 7 lists the other camera widths")
+    _check_template_widths(widths)
 
     def grams(cam_b, im_b, tpl, uv, mask, cmask_b, imask_b):
         hcc, gc, wci, gii, gi, corner = template_gram_fused(

@@ -1,9 +1,9 @@
 """Parameter handlers: the problem a bundle adjustment solves.
 
-Counterpart of ``pycamset_tpu/optim/handlers.py`` for the standard
-camera model: ``DEFAULT_OPTIONS``, ``parse_camera_models``, the primitives
-(the flat parameter vector <-> [intr 9/cam | extr 6/cam | pose 6/im
-| points 3/key] arrays, with the fixed-parameter masks:
+Counterpart of ``pycamset_tpu/optim/handlers.py``: ``DEFAULT_OPTIONS``,
+``parse_camera_models``, the primitives (the flat parameter vector <->
+[intr w/cam | extr 6/cam | pose 6/im | points 3/key] arrays, with the
+fixed-parameter masks:
 ``TemplateBundlePrimitive``, ``StandardBundlePrimitive``,
 ``FreePointPrimitive``) and the handlers:
 
@@ -25,8 +25,15 @@ camera model: ``DEFAULT_OPTIONS``, ``parse_camera_models``, the primitives
 The handlers are host state; ``optim/structured_driver.py`` builds the
 device problem from them.
 
-Standard camera model only: another ``camera_model`` raises
-``NotImplementedError`` (ROADMAP Queue A item 7). The PnP seed
+The ``camera_model`` option takes the JAX package's five models for the
+whole rig: "standard" (intr width 9), "rational" (12), "thin_prism" (16),
+"tilted" (18) and "fisheye" (8; the 4-wide distortion vector is the fisheye
+marker); the calibrated cameras keep each model's own distortion width. A
+map that mixes families (fisheye with Brown cameras: the JAX package's het
+rig) or Brown widths raises ``NotImplementedError`` (ROADMAP Queue A item
+7), and the self-calibration and free-point chains run the standard model
+alone: another model raises when their problem is built (the kernels of
+those chains serve a = 15; same item). The PnP seed
 (``calc_initial_params``) is OpenCV on the host, imported when it runs;
 without cv2 it raises ``ImportError`` and ``set_initial_params(x0)`` seeds
 the handler instead (the path a card's machine takes). Its Rodrigues
@@ -51,9 +58,9 @@ from pycamset_tpu_torch.models.abstract_target import (  # noqa: F401
     SEED_INSTEAD, AbstractTarget, FreePointTarget)
 from pycamset_tpu_torch.models.camera_set import CameraSet
 from pycamset_tpu_torch.models.detections import TargetDetection
-from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, FreePoint,
-                                             Projection, RigidTform3d,
-                                             TemplatePoints)
+from pycamset_tpu_torch.optim.blocks import (
+    Extrinsic3D, FreePoint, Projection, ProjectionFisheye, ProjectionRational,
+    ProjectionThinPrism, ProjectionTilted, RigidTform3d, TemplatePoints)
 from pycamset_tpu_torch.optim.chain import OptimFunction
 from pycamset_tpu_torch.ops.transforms import rigid_fit
 
@@ -64,6 +71,11 @@ DEFAULT_OPTIONS = {
     "ref_pose": 0,
     "outliers": "ask",
     "max_nfev": 100,
+    # "standard" = Brown-Conrady 5-coef (intr 9/cam); "rational" = OpenCV
+    # CALIB_RATIONAL_MODEL 8-coef (intr 12/cam); "thin_prism" = rational +
+    # CALIB_THIN_PRISM_MODEL 12-coef (intr 16/cam); "tilted" = +
+    # CALIB_TILTED_MODEL taux/tauy 14-coef (intr 18/cam); "fisheye" =
+    # cv2.fisheye Kannala-Brandt 4-coef (intr 8/cam)
     "camera_model": "standard",
 }
 
@@ -75,10 +87,10 @@ def parse_camera_models(opt, cam_names):
     """Resolve the ``camera_model`` option (one name, a {cam_name: model}
     dict or a per-camera list) into per-camera models.
 
-    :return: (models, het, base_model), as the JAX package's; only the
-        uniform standard rig is ported, (models, False, None), and any
-        other known model raises ``NotImplementedError`` (ROADMAP Queue A
-        item 7).
+    :return: (models, het, base_model), as the JAX package's; the port
+        takes a rig of one model, (models, False, None). A rig that mixes
+        fisheye with Brown cameras (het) or Brown models of several widths
+        raises ``NotImplementedError`` (ROADMAP Queue A item 7).
     """
     if isinstance(opt, str):
         models = [opt] * len(cam_names)
@@ -101,12 +113,45 @@ def parse_camera_models(opt, cam_names):
             raise ValueError(
                 f"Unknown camera_model {m!r}; expected one of "
                 f"{sorted(_CAMERA_MODELS)}")
-    other = sorted(set(models) - {"standard"})
-    if other:
+    kinds = sorted(set(models), key=lambda m: _CAMERA_MODELS[m])
+    if len(kinds) > 1:
+        what = ("a heterogeneous rig (fisheye with Brown cameras, the JAX "
+                "package's ProjectionHet)" if "fisheye" in kinds
+                else "Brown models of several widths (the per-column "
+                     "intrinsic mask)")
         raise NotImplementedError(
-            f"camera_model {other} is not ported yet (ROADMAP Queue A item "
-            f"7); only the standard model is")
+            f"camera_model map {kinds}: {what} is not ported yet (ROADMAP "
+            f"Queue A item 7); give the rig one model")
     return models, False, None
+
+
+def _projection_block(camera_model: str) -> Projection:
+    """The projection block of a camera model."""
+    blocks = {"standard": Projection, "rational": ProjectionRational,
+              "thin_prism": ProjectionThinPrism, "tilted": ProjectionTilted,
+              "fisheye": ProjectionFisheye}
+    if camera_model not in blocks:
+        raise ValueError(
+            f"Unknown camera_model {camera_model!r}; expected one of "
+            f"{sorted(_CAMERA_MODELS)}")
+    return blocks[camera_model]()
+
+
+def infer_shared_n_dist(dlists) -> int:
+    """The common distortion width of a rig's cameras: 4 for an all-fisheye
+    rig, else the widest Brown width (at least 5). A rig mixing the
+    fisheye's 4-wide vectors with Brown ones raises
+    ``NotImplementedError`` (the JAX package's heterogeneous seed; ROADMAP
+    Queue A item 7)."""
+    sizes = {int(np.reshape(np.asarray(d), -1).size) for d in dlists}
+    if 4 in sizes and sizes != {4}:
+        raise NotImplementedError(
+            f"a rig mixing fisheye (4-coefficient) and Brown cameras "
+            f"(widths {sorted(sizes)}) is not ported yet (ROADMAP Queue A "
+            f"item 7)")
+    if sizes == {4}:
+        return 4
+    return max(5, max(sizes, default=5))
 
 
 def _pack_dist(dist, n: int) -> np.ndarray:
@@ -115,8 +160,8 @@ def _pack_dist(dist, n: int) -> np.ndarray:
     if d.size > n and np.any(d[n:] != 0):
         logging.warning(
             f"Truncating a {d.size}-coefficient distortion vector to {n} "
-            "coefficients; the other camera models are not ported yet "
-            "(ROADMAP Queue A item 7)")
+            "coefficients; pass options={'camera_model': 'rational' / "
+            "'thin_prism' / 'tilted'} to keep the higher-order terms.")
     return np.pad(d, (0, max(0, n - d.size)))[:n]
 
 
@@ -283,8 +328,8 @@ class TemplateBundleHandler:
         self.camera_models, _, _ = parse_camera_models(
             self.problem_opts.get("camera_model", "standard"),
             self.cam_names)
-        self.camera_model = "standard"
-        self.intr_width = _CAMERA_MODELS["standard"]
+        self.camera_model = self.camera_models[0]
+        self.intr_width = _CAMERA_MODELS[self.camera_model]
 
         intr = np.zeros((n_cams, self.intr_width))
         extr = np.zeros((n_cams, 6))
@@ -307,7 +352,8 @@ class TemplateBundleHandler:
 
         self.missing_poses = missing_poses
         self.op_fun = OptimFunction(
-            [Projection(), Extrinsic3D(), TemplatePoints()])
+            [_projection_block(self.camera_model), Extrinsic3D(),
+             TemplatePoints()])
 
     def populate_self_from_fixed_params(self):
         """Copy any fixed extrinsic/intrinsic values into the base arrays."""
@@ -570,7 +616,8 @@ class SelfBundleHandler(TemplateBundleHandler):
 
         self.missing_poses = missing_poses
         self.op_fun = OptimFunction(
-            [Projection(), Extrinsic3D(), RigidTform3d(), FreePoint()])
+            [_projection_block(self.camera_model), Extrinsic3D(),
+             RigidTform3d(), FreePoint()])
 
     def template_table(self):
         return None  # the geometry is optimised, not a constant table
@@ -758,7 +805,9 @@ class FreePointBundleHandler(TemplateBundleHandler):
             intr_unfixed=self.super_primitive.intr_unfixed,
             bundle_points_unfixed=self.feat_unfixed)
         self.missing_poses = missing_poses
-        self.op_fun = OptimFunction([Projection(), Extrinsic3D(), FreePoint()])
+        self.op_fun = OptimFunction(
+            [_projection_block(self.camera_model), Extrinsic3D(),
+             FreePoint()])
 
     def template_table(self):
         return None
@@ -807,7 +856,9 @@ def _clone_camset(camset: CameraSet) -> CameraSet:
 
 def _write_cams(new_cams, cam_names, proj, extr):
     """Write packed [fx px fy py | dist] rows and extrinsics back into the
-    Camera objects."""
+    Camera objects: a rig runs one camera model, so each camera's
+    distortion keeps that model's width (4 fisheye, 5 / 8 / 12 / 14
+    Brown)."""
     for idc, cam_name in enumerate(cam_names):
         row = np.asarray(proj[idc], dtype=float)
         intr = np.eye(3)
@@ -866,12 +917,14 @@ def check_feasiblity_and_update_refpose(mat_ac: np.ndarray,
 
 def reprojection_costs(dd: np.ndarray, imlocs: np.ndarray, proj: np.ndarray,
                        ints: np.ndarray, dists: np.ndarray) -> np.ndarray:
-    """Per-detection reprojection residuals (host numpy), standard model:
-    P·X, divide, distort, subtract the measured uv.
+    """Per-detection reprojection residuals (host numpy): P·X, divide,
+    distort, subtract the measured uv.
 
     :param dd: flattened detection table [cam, im, key, u, v].
     :param imlocs: (n_ims, n_keys, 3) world-space target points per image.
-    :param proj: (C, 3, 4); :param ints: (C, 3, 3); :param dists: (C, 5).
+    :param proj: (C, 3, 4); :param ints: (C, 3, 3); :param dists: (C, n),
+        n = 4 (fisheye: the whole rig Kannala-Brandt) or 5 / 8 / 12 / 14
+        (the Brown family: rational radial, prism terms, sensor tilt).
     :return: (N, 2) residuals.
     """
     cam = dd[:, 0].astype(int)
@@ -885,11 +938,46 @@ def reprojection_costs(dd: np.ndarray, imlocs: np.ndarray, proj: np.ndarray,
     c = np.stack([ints[cam, 0, 2], ints[cam, 1, 2]], axis=1)
     xy = (uv - c) / f
     x, y = xy[:, 0], xy[:, 1]
+    if dists.shape[1] == 4:
+        r = np.sqrt(x * x + y * y + 1e-18)
+        theta = np.arctan(r)
+        t2 = theta * theta
+        kf = [dists[cam, i] for i in range(4)]
+        theta_d = theta * (1 + t2 * (kf[0] + t2 * (kf[1]
+                                                   + t2 * (kf[2]
+                                                           + t2 * kf[3]))))
+        return xy * (theta_d / r)[:, None] * f + c - dd[:, 3:5]
     k1, k2, p1, p2, k3 = (dists[cam, i] for i in range(5))
     r2 = x * x + y * y
     radial = 1 + r2 * (k1 + r2 * (k2 + r2 * k3))
-    xd = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
-    yd = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+    if dists.shape[1] >= 8:
+        k4, k5, k6 = (dists[cam, i] for i in range(5, 8))
+        radial = radial / (1 + r2 * (k4 + r2 * (k5 + r2 * k6)))
+    prism_x = prism_y = 0.0
+    if dists.shape[1] >= 12:
+        s1, s2, s3, s4 = (dists[cam, i] for i in range(8, 12))
+        prism_x = r2 * (s1 + r2 * s2)
+        prism_y = r2 * (s3 + r2 * s4)
+    xd = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x) + prism_x
+    yd = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y + prism_y
+    if dists.shape[1] >= 14:  # the sensor tilt, one matrix per camera
+        cx_, sx_ = np.cos(dists[:, 12]), np.sin(dists[:, 12])
+        cy_, sy_ = np.cos(dists[:, 13]), np.sin(dists[:, 13])
+        zz, oo = np.zeros_like(cx_), np.ones_like(cx_)
+        rx_ = np.stack([oo, zz, zz, zz, cx_, sx_, zz, -sx_, cx_],
+                       axis=1).reshape(-1, 3, 3)
+        ry_ = np.stack([cy_, zz, -sy_, zz, oo, zz, sy_, zz, cy_],
+                       axis=1).reshape(-1, 3, 3)
+        rr = ry_ @ rx_
+        pz = np.zeros_like(rr)
+        pz[:, 0, 0] = pz[:, 1, 1] = rr[:, 2, 2]
+        pz[:, 0, 2] = -rr[:, 0, 2]
+        pz[:, 1, 2] = -rr[:, 1, 2]
+        pz[:, 2, 2] = 1.0
+        m = (pz @ rr)[cam]
+        w = m[:, 2, 0] * xd + m[:, 2, 1] * yd + m[:, 2, 2]
+        xd, yd = ((m[:, 0, 0] * xd + m[:, 0, 1] * yd + m[:, 0, 2]) / w,
+                  (m[:, 1, 0] * xd + m[:, 1, 1] * yd + m[:, 1, 2]) / w)
     return np.stack([xd, yd], axis=1) * f + c - dd[:, 3:5]
 
 
@@ -925,7 +1013,8 @@ def estimate_camera_relative_poses(
     mac_rt = np.array([np.linalg.inv(m) for m in mrt_ac])
     mat_rt_ac = mac_rt[:, None] @ mat_ac                        # (C,I,4,4)
 
-    dists = np.array([_pack_dist(c.distortion_coefs, 5) for c in cams])
+    n_dist = infer_shared_n_dist([c.distortion_coefs for c in cams])
+    dists = np.array([_pack_dist(c.distortion_coefs, n_dist) for c in cams])
     ints = np.array([c.intrinsic for c in cams])
     proj = ints @ mrt_ac[:, :3, :]
 

@@ -59,6 +59,7 @@ import torch
 from pycamset_tpu_torch.ops.cuda_cholesky import psd_solve, use_cuda_psd
 from pycamset_tpu_torch.optim.blocks import key_type
 from pycamset_tpu_torch.optim.chain import OptimFunction
+from pycamset_tpu_torch.optim.cuda_grams import TEMPLATE_WIDTHS
 
 # The JAX package's fused-kernel tiles: the selection rule below pads the
 # image axis to them (pycamset_tpu/optim/pallas_grams.py BLOCK_TILE; the
@@ -72,7 +73,11 @@ SELFCAL_PAD_FRAC = 0.25
 # the multi-target (grouped and mixed) family: tile 8, 25%
 MIXED_PAD_TILE = 8
 MIXED_PAD_FRAC = 0.25
-# chain family by block names, with its (b, c) widths
+# the projection blocks of the five camera models (a chain's first block)
+_PROJS = ("Projection", "ProjectionRational", "ProjectionThinPrism",
+          "ProjectionTilted", "ProjectionFisheye")
+# chain family by block names (the projection block read as "Projection"),
+# with its (b, c) widths
 _FAMILIES = {
     ("Projection", "Extrinsic3D", "TemplatePoints"): ("template", (6, 0)),
     ("Projection", "Extrinsic3D", "RigidTform3d", "FreePoint"):
@@ -129,20 +134,26 @@ def chain_widths(op_fun: OptimFunction) -> GroupWidths:
 
 def chain_family(op_fun: OptimFunction, widths: GroupWidths) -> str:
     """'template', 'selfcal', 'freepoint' or 'grouped', by the chain's
-    block names (as the JAX package dispatches); any other chain raises
-    ``UnsupportedChain``."""
+    block names (as the JAX package dispatches, any camera model's
+    projection block first); any other chain raises ``UnsupportedChain``.
+    The template family takes the five camera widths, the others the
+    standard model's; another width raises ``NotImplementedError``."""
     names = tuple(type(bk).__name__ for bk in op_fun.blocks)
-    family, bc = _FAMILIES.get(names, (None, None))
+    key = (("Projection",) + names[1:] if names and names[0] in _PROJS
+           else names)
+    family, bc = _FAMILIES.get(key, (None, None))
     if family is None or (widths.b, widths.c) != bc:
         raise UnsupportedChain(
             f"chain {names} is not ported yet: the structured path serves "
             f"the chains {tuple(_FAMILIES)} only (the mixed chain, with "
             f"GroupRigidTform3d + FreePoint, goes through "
             f"structured_mixed.make_mixed_structured_neq)")
-    if widths.a != 15:
+    # Kernels A and B serve the five camera models; C-F the standard one
+    served = TEMPLATE_WIDTHS if family == "template" else (15,)
+    if widths.a not in served:
         raise NotImplementedError(
-            f"camera width a={widths.a} is not ported yet (ROADMAP Queue A "
-            f"item 7); only the standard model (a = 15) is")
+            f"camera width a={widths.a} is not ported yet on the {family} "
+            f"chain (ROADMAP Queue A item 7); it serves a in {served}")
     return family
 
 

@@ -114,8 +114,13 @@ def perturbed_start(rig, struct, seed=1) -> np.ndarray:
     x_full = np.concatenate([rig["intr"].ravel(), rig["extr"].ravel(),
                              rig["poses"].ravel()])
     rng = np.random.default_rng(seed)
+    # the bench's intrinsic scales, 1e-4 for each coefficient past the
+    # standard model's (the other camera models)
+    intr_w = rig["intr"].shape[1]
+    intr_scale = ([10.0, 5, 10, 5, 1e-2, 1e-3, 1e-4, 1e-4, 1e-4]
+                  + [1e-4] * 9)[:intr_w]
     scale = np.concatenate([
-        np.tile([10.0, 5, 10, 5, 1e-2, 1e-3, 1e-4, 1e-4, 1e-4], n_cams),
+        np.tile(intr_scale, n_cams),
         np.tile([1e-2] * 6, n_cams),
         np.tile([1e-2] * 6, n_ims),
     ])
@@ -158,8 +163,9 @@ def standard_problem(n_cams: int, n_ims: int, device="cuda",
 
 
 def _rig_cams(intr, exts):
-    """A CameraSet ``cam0``, ``cam1``, ... (1600 x 1200) of packed standard
-    intrinsic rows and 4x4 extrinsics, and its names."""
+    """A CameraSet ``cam0``, ``cam1``, ... (1600 x 1200) of packed
+    intrinsic rows [fx, px, fy, py | dist] and 4x4 extrinsics, and its
+    names."""
     names = [f"cam{c}" for c in range(len(intr))]
     kmats = [np.array([[i9[0], 0, i9[1]], [0, i9[2], i9[3]], [0, 0, 1]])
              for i9 in intr]
@@ -169,27 +175,33 @@ def _rig_cams(intr, exts):
 
 def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
                      options: dict | None = None,
-                     template_warp: float = 0.0):
+                     template_warp: float = 0.0,
+                     camera_model: str = "standard"):
     """``standard_problem``'s rig as a user holds it: a CameraSet of the
     rig's cameras (1600 x 1200), the TargetDetection of its table, the grid
     as a ``FreePointTarget``, and a ``TemplateBundleHandler`` (options
-    ``outliers: "n"``, ``verbosity: 0``, then ``options``) seeded through
-    ``set_initial_params`` at the bench's perturbed start (pose 0 the
-    gauge): no PnP, no OpenCV.
+    ``outliers: "n"``, ``verbosity: 0``, ``camera_model``, then
+    ``options``) seeded through ``set_initial_params`` at the bench's
+    perturbed start (pose 0 the gauge): no PnP, no OpenCV.
 
     :param template_warp: the RMS (metres) of the board's bend along its
         normal (``make_synthetic_rig``): the detections see the bent board
         (``rig["template_true"]``), the target stays the nominal grid.
+    :param camera_model: the rig's lens model (``make_synthetic_rig``'s:
+        "standard", "rational", "thin_prism", "tilted" or "fisheye"); the
+        cameras carry its true distortion, and the handler solves it.
     :return: (handler, rig)."""
     rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
                              visibility=0.85, noise_px=0.3, seed=seed,
-                             template_warp=template_warp)
+                             template_warp=template_warp,
+                             camera_model=camera_model)
     cams, names = _rig_cams(rig["intr"], [make_4x4h_tform(e[:3], e[3:])
                                           for e in rig["extr"]])
     handler = TemplateBundleHandler(
         cams, FreePointTarget(rig["template"].reshape(1, -1, 3)),
         detection_from_numpy(names, rig["dd"], n_ims),
-        options={"outliers": "n", "verbosity": 0, **(options or {})})
+        options={"outliers": "n", "verbosity": 0,
+                 "camera_model": camera_model, **(options or {})})
     prim = handler.bundlePrimitive
     struct = handler.op_fun.param_struct(n_cams, n_ims, rig["n_keys"])
     handler.set_initial_params(

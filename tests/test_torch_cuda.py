@@ -1,6 +1,7 @@
 """The CUDA kernels on a card: each against its float64 plain twin.
 
-Kernels A and B (template chain, ``cuda_grams``), Kernels C and D
+Kernels A and B (template chain, ``cuda_grams``, at the five camera
+models' widths), Kernels C and D
 (self-calibration chain, ``cuda_selfcal_grams``, and the pose-free
 free-point wrappers over them) and Kernels E and F
 (multi-target chains, ``cuda_mixed_grams``, at both key widths: the mixed
@@ -147,6 +148,84 @@ def test_cuda_wrappers_raise_instead_of_falling_back(card):
         cg.template_gram(f32[0], f32[1], f32[2].cpu(), *f32[3:])
     with pytest.raises(ValueError):
         cg.template_gram_fused(*f32, 2, 4)
+
+
+# Kernels A and B at the other camera models' widths (a = 18 rational, 22
+# thin-prism, 24 tilted, 14 fisheye): the model's rig
+# (problems.template_handler, its perturbed start) with 3 px of noise on
+# the detections. grid 4: K = 16, FUSED_CHUNK + 1 images (a chunk and one
+# more); grid 14: K = 200, two key tiles. Held as the free-point wrappers
+# are (_assert_within_f32_floor).
+CAMERA_MODELS = ("rational", "thin_prism", "tilted", "fisheye")
+
+
+def _model_inputs(dev, model, n_cams, n_ims, grid, noise_px=3.0):
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import template_handler
+    handler, _ = template_handler(n_cams, n_ims, grid=grid,
+                                  camera_model=model,
+                                  options={"im_bucket": None})
+    prob = build_structured_problem(handler, dtype=torch.float32,
+                                    device=dev, k_pad_multiple=8)[0].problem
+    rng = np.random.default_rng(2)
+    uv = prob.uv + torch.as_tensor(rng.normal(size=tuple(prob.uv.shape))
+                                   * noise_px, dtype=torch.float32,
+                                   device=dev) * prob.mask[..., None]
+    return (torch.repeat_interleave(prob.x0.cam, n_ims, dim=0),
+            prob.x0.im.repeat(n_cams, 1), prob.tpl, uv.contiguous(),
+            prob.mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", CAMERA_MODELS)
+@pytest.mark.parametrize("n_cams,n_ims,grid", [(3, FUSED_CHUNK + 1, 4),
+                                               (2, 3, 14)])
+@pytest.mark.parametrize("loss,semantics", [
+    ("linear", "component"), ("huber", "component"),
+    ("cauchy", "observation"), ("soft_l1", "observation")])
+def test_camera_model_kernels_match_plain_twins(card, model, n_cams, n_ims,
+                                                grid, loss, semantics):
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    f32 = _model_inputs(card, model, n_cams, n_ims, grid)
+    a = f32[0].shape[1]
+    assert a == {"rational": 18, "thin_prism": 22, "tilted": 24,
+                 "fisheye": 14}[model]
+    f64 = tuple(x.double() for x in f32)
+    kw = dict(loss=loss, f_scale=2.0, loss_semantics=semantics)
+    n_a = cg.template_gram.launches_by_width[a]
+    n_b = cg.template_gram_fused.launches_by_width[a]
+    a_got = cg.template_gram(*f32, **kw)
+    a_ref = cg.template_gram_plain(*f64, **kw)
+    assert a_got.shape == (f32[0].shape[0], a + 7, a + 7)
+    _assert_within_f32_floor(
+        (a_got,), (a_ref,), (cg.template_gram_plain(*f32, **kw),),
+        lambda g, r: cg.scaled_errors(g[0], r[0]), "A")
+    got = cg.template_gram_fused(*f32, n_cams, n_ims, **kw)
+    ref = cg.template_gram_fused_plain(*f64, n_cams, n_ims, **kw)
+    _assert_within_f32_floor(
+        got, ref, cg.template_gram_fused_plain(*f32, n_cams, n_ims, **kw),
+        lambda g, r: cg.scaled_errors_fused(g, r, a_ref, n_cams, n_ims),
+        "B")
+    assert torch.equal(cg.template_gram(*f32, **kw), a_got)
+    for x, y in zip(cg.template_gram_fused(*f32, n_cams, n_ims, **kw), got):
+        assert torch.equal(x, y)
+    assert (cg.template_gram.launches_by_width[a],
+            cg.template_gram_fused.launches_by_width[a]) == (n_a + 2,
+                                                             n_b + 2)
+
+
+@pytest.mark.cuda
+def test_camera_width_without_a_kernel_raises(card):
+    """A heterogeneous rig's selector row (a = 16) has no kernel: the
+    wrappers raise on the card, whatever its plain twin would do."""
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    f32 = list(_inputs(card, 2, 3, 4))
+    f32[0] = torch.cat([f32[0][:, :1], f32[0]], dim=1).contiguous()
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        cg.template_gram(*f32)
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        cg.template_gram_fused(*f32, 2, 3)
 
 
 def _selfcal_inputs(dev, n_cams, n_ims, grid, start="noisy", noise_px=3.0,

@@ -205,10 +205,29 @@ def test_cuda_input_check_rejects(bad):
 
 
 def test_other_widths_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        cg.make_cuda_template_grams(ts.GroupWidths(18, 6, 0))
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        cg.make_cuda_template_grams_fused(ts.GroupWidths(14, 6, 0), 2, 3)
+    """Kernels A and B serve the five camera models' widths (14, 15, 18,
+    22, 24); the self-cal, free-point and multi-target kernels (C-F) the
+    standard model's alone, and a heterogeneous rig's selector row
+    ([sel | fx px fy py | 5 coefficients], a = 16) no kernel yet."""
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    refusals = [
+        lambda: sg.make_cuda_selfcal_grams(ts.GroupWidths(18, 6, 3)),
+        lambda: sg.make_cuda_selfcal_grams_fused(ts.GroupWidths(18, 6, 3),
+                                                 2, 3),
+        lambda: sg.make_cuda_freepoint_grams(ts.GroupWidths(18, 0, 3)),
+        lambda: mg.make_cuda_mixed_grams(ts.GroupWidths(18, 6, 9)),
+        lambda: mg.make_cuda_mixed_grams_fused(ts.GroupWidths(18, 6, 9), 2,
+                                               3),
+        lambda: cg.make_cuda_template_grams(ts.GroupWidths(16, 6, 0)),
+        lambda: cg.make_cuda_template_grams_fused(ts.GroupWidths(16, 6, 0),
+                                                  2, 3)]
+    for refuse in refusals:
+        with pytest.raises(NotImplementedError, match="Queue A item 7"):
+            refuse()
+    for a in cg.TEMPLATE_WIDTHS:
+        cg.make_cuda_template_grams(ts.GroupWidths(a, 6, 0))
+        cg.make_cuda_template_grams_fused(ts.GroupWidths(a, 6, 0), 2, 3)
 
 
 def _twin_grams(dtype, loss="linear", semantics="component"):

@@ -2,7 +2,7 @@
 """Time builds of a family of kernels side by side on a card.
 
     python3 tools/time_template_grams.py \\
-        [--family template|mixed|selfcal|psd] [--time-only] \\
+        [--family template|mixed|selfcal|psd] [--time-only] [--same-bits] \\
         [SOURCE.cu[:NVCC FLAGS]] ...
 
 ``--family template`` (the default): versions of
@@ -41,6 +41,13 @@ torch.profiler (``chip_smoke.kernel_ms``, 20 launches):
   ``PSD_SYNTHETIC`` and ``chip_smoke.diag_tile_parity`` instead of the gram
   checks; per width the kernel and the library call ``_cho_refine_solve``
   by device time, and the diagonal path alone at n = 1044.
+
+With ``--same-bits`` (not for psd) each version's outputs on every
+shape's inputs, under the linear and huber losses, are also held bit for
+bit against the first version's (a change that must leave a kernel's
+arithmetic as it was, such as a refactor of the shared headers): one
+``[variant_bits]`` line per version and shape, and a failure exits
+non-zero.
 
 Prints the card's name and power limit first, the ptxas registers and
 spills of each build, and one ``[variant_time]`` line per version and
@@ -242,6 +249,41 @@ def time_selfcal(cs, prob, shape, time_only):
     return line
 
 
+def family_outputs(cs, family: str, prob, shape: str) -> dict:
+    """The family's kernels on a shape's inputs (the smoke's), under the
+    linear and huber losses: {kernel loss: its outputs on the host}."""
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    if family == "template":
+        runs = cs.template_runs(cg, cs.template_inputs(prob), n_cams, n_ims)
+    elif family == "selfcal":
+        runs = cs.selfcal_runs(sg, cs.selfcal_inputs(prob), n_cams, n_ims)
+    else:
+        runs = cs.mixed_runs(mg, cs.multi_target_inputs(prob), n_cams, n_ims,
+                             shape.startswith("mixed"))
+    out = {}
+    for loss in ("linear", "huber"):
+        for name, run in runs.items():
+            got = run(loss=loss, f_scale=2.0)
+            got = got if isinstance(got, tuple) else (got,)
+            out[f"{name} {loss}"] = tuple(t.cpu() for t in got)
+    return out
+
+
+def same_bits(cs, ref: dict, got: dict, spec: str, shape: str) -> bool:
+    """Print whether every output of ``got`` equals ``ref``'s bit for
+    bit."""
+    import torch
+    differ = [k for k in ref if not all(
+        torch.equal(a, b) for a, b in zip(ref[k], got[k]))]
+    cs.say("variant_bits", source=spec.replace(" ", "_"),
+           shape=shape.replace(" ", "_"), same_bits=not differ,
+           differ=",".join(d.replace(" ", "_") for d in differ) or "none")
+    return not differ
+
+
 def time_psd(cs, found: set, time_only: bool) -> dict:
     """One version of ``psd_solve.cu``: the smoke's parity and bit checks
     on ``PSD_SYNTHETIC`` (``psd_synthetic_parities``; the diagonal path's
@@ -291,7 +333,10 @@ def main() -> int:
         raise SystemExit(f"--family {family}: one of {tuple(FAMILIES)}")
     source, entries, shapes = FAMILIES[family]
     time_only = "--time-only" in args
-    specs = [a for a in args if a != "--time-only"] or [
+    bits = "--same-bits" in args
+    if bits and family == "psd":
+        raise SystemExit("--same-bits: the gram families only")
+    specs = [a for a in args if a not in ("--time-only", "--same-bits")] or [
         str(bld.CSRC / source)]
     cs.phase_device()
     built = build_all(specs)
@@ -300,6 +345,7 @@ def main() -> int:
     probs = {shape: problem(shape, dev) for shape in shapes}
     timer = {"template": time_template, "mixed": time_mixed,
              "selfcal": time_selfcal}.get(family)
+    first, all_same = {}, True
     for spec, (so, ptxas) in zip(specs, built):
         print(f"=== {spec}", flush=True)
         for ln in ptxas.splitlines():
@@ -307,6 +353,15 @@ def main() -> int:
                                      "spill")):
                 print(f"  ptxas: {ln.strip()}", flush=True)
         found = use_library(so, entries)
+        if bits:
+            for shape, prob in probs.items():
+                outs = family_outputs(cs, family, prob, shape)
+                if shape in first:
+                    all_same &= same_bits(cs, first[shape], outs, spec,
+                                          shape)
+                else:
+                    first[shape] = outs
+                del outs
         lines = (time_psd(cs, found, time_only) if family == "psd" else
                  {shape: timer(cs, prob, shape, time_only)
                   for shape, prob in probs.items()})
@@ -314,7 +369,7 @@ def main() -> int:
             cs.say("variant_time", source=spec.replace(" ", "_"),
                    shape=shape.replace(" ", "_"),
                    **{k: f"{v:.4f}" for k, v in line.items()})
-    return 0
+    return 0 if all_same else 1
 
 
 if __name__ == "__main__":
