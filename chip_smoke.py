@@ -87,6 +87,21 @@ width), its file loaded back at 16 x 100; the float64 CPU solve beside
 the tilted and fisheye 16 x 100 ones; and at tilted 64 x 400 (dense
 n = 1536) the opt-in SPD kernel route against the library route.
 
+Then the self-calibration and free-point chains at the same four models
+(``[selfcal_models]``): Kernels C and D and the two free-point wrappers
+over them, each built at the model's width, against their float64 twins on
+their problems' own tensors (C on the self-cal handler's 16 x 100 problem,
+D on ``problems.selfcal_problem`` at 64 x 12, the fused wrapper on
+``problems.freepoint_problem`` at 16 x 24, the per-block one on the
+free-point handler's 64 x 12 problem), four losses, their device times
+beside their bounds, registers, spills and peak MiB; the self-cal user
+path at 16 x 100 (the board bent as in ``[selfcal_user_path]``: template
+stage on A, then ``SelfBundleHandler`` with the model through
+``run_stereo_calibration``, captured = uncaptured, C once an evaluation,
+the file loaded back, the recovered points against the true board) and
+the free-point user path at 64 x 12 (``run_bundle_adjustment`` over D's
+wrapper), each with the model's kernel alone on its main path.
+
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
 kernels as JSON; the last is
@@ -144,9 +159,13 @@ FREEPOINT = {"freepoint 16x24": (16, 24, 8), "freepoint 64x12": (64, 12, None)}
 SELFCAL_USER = {"selfcal_user 16x100": (16, 100, {}, ("library", "kernel")),
                 "selfcal_user 64x12": (64, 12, {"im_bucket": None},
                                        ("library",))}
-# the free-point function's products per real detection: the [Jc | r]
-# gram's 136 entries, wck 45, hkk 6 and gk 3, over its two rows
-FREEPOINT_FLOP_PER_DETECTION = (136 + 45 + 6 + 3) * 4
+# the free-point function's products per real detection at camera width
+# a: the [Jc | r] gram's (a + 1)(a + 2) / 2 entries, wck 3a, hkk 6 and gk 3,
+# over its two rows (760 at the standard model's a = 15)
+def freepoint_flop_per_detection(a: int = 15) -> int:
+    return ((a + 1) * (a + 2) // 2 + 3 * a + 6 + 3) * 4
+
+
 BOARD_WARP = 5e-4
 # [camera_models]: the template user path at the other camera models, each
 # on the rig utils/synthetic.py makes for it -> its camera width a; the
@@ -378,8 +397,12 @@ def _mover(seed: int):
     return moved
 
 
-CAM_SCALE = np.array([10.0, 5, 10, 5, 1e-2, 1e-3, 1e-4, 1e-4, 1e-4]
-                     + [1e-2] * 6)
+def cam_scale(a: int) -> np.ndarray:
+    """The bench's perturbation scales of one camera row at camera width
+    a (``problems.perturbed_start``'s: 1e-4 for each coefficient past the
+    standard model's), the extrinsics' 1e-2 last."""
+    return np.array(([10.0, 5, 10, 5, 1e-2, 1e-3, 1e-4, 1e-4, 1e-4]
+                     + [1e-4] * 9)[:a - 6] + [1e-2] * 6)
 
 
 def selfcal_inputs(prob, seed: int = 1):
@@ -396,7 +419,7 @@ def selfcal_inputs(prob, seed: int = 1):
     import torch
     n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
     moved = _mover(seed)
-    cam = moved(prob.x0.cam, CAM_SCALE, prob.colmask.cam)
+    cam = moved(prob.x0.cam, cam_scale(prob.widths.a), prob.colmask.cam)
     im = moved(prob.x0.im, 1e-2, prob.colmask.im)
     key = moved(prob.x0.key, 1e-3, prob.colmask.key)
     cmask = prob.colmask.cam.clone()
@@ -420,7 +443,7 @@ def multi_target_inputs(prob, seed: int = 1):
     n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
     moved = _mover(seed)
     x, cm = prob.x0, prob.colmask
-    cam = moved(x.cam, CAM_SCALE, cm.cam)
+    cam = moved(x.cam, cam_scale(prob.widths.a), cm.cam)
     im = moved(x.im, 1e-2, cm.im)
     if hasattr(x, "grp"):       # mixed: free points and group poses
         x = x._replace(cam=cam, im=im, key=moved(x.key, 1e-3, cm.key),
@@ -611,12 +634,12 @@ def phase_build():
     # each gram kernel's first pass, at most 128 registers (four blocks of
     # 128 threads an SM) and no spills: Kernels A and B at the standard
     # model, template_grams.cu's gram_kernel<9, FUSED>; C-F,
-    # mixed_grams.cu's mixed_kernel<CW, FUSED> (C/D at key width 3, E/F at
-    # 9 and 6)
+    # mixed_grams.cu's mixed_kernel<9, CW, FUSED> (C/D at key width 3, E/F
+    # at 9 and 6)
     res = ptxas_resources(kl.ptxas_info)
     firsts = [(name, None, f"gram_kernelILi9ELb{flag}E")
               for name, flag in (("A", 0), ("B", 1))]
-    firsts += [(name, cw, f"mixed_kernelILi{cw}ELb{fused}E")
+    firsts += [(name, cw, f"mixed_kernelILi9ELi{cw}ELb{fused}E")
                for name, fused, widths in (("C", 1, (3,)), ("D", 0, (3,)),
                                            ("E", 1, (9, 6)),
                                            ("F", 0, (9, 6)))
@@ -641,6 +664,23 @@ def phase_build():
             check(regs <= cap, f"Kernel {name} ({model}): {regs} registers "
                                f"above {cap}")
             out[("template_gram_fused" if flag else "template_gram",
+                 model)] = {"registers": regs, "spill_bytes": spill}
+    # Kernels C and D at the other camera models, their first pass
+    # mixed_kernel<intr_w, 3, FUSED>: the register cap of its blocks an SM
+    # (mixed_grams.cu's Occupancy: four at the fisheye, three at the
+    # rational and thin-prism models and for the tilted D, two for the
+    # tilted C); spills reported
+    for model, a in MODEL_WIDTH.items():
+        for name, flag in (("C", 1), ("D", 0)):
+            regs, spill = ptxas_entry(
+                res, f"mixed_kernelILi{a - 6}ELi3ELb{flag}E", False)
+            blocks = 4 if a <= 15 else (2 if a >= 24 and flag else 3)
+            cap = min(255, 65536 // (128 * blocks) // 8 * 8)
+            say("build", kernel=name, model=model, a=a, registers=regs,
+                spill_bytes=spill, register_cap=cap, blocks_per_sm=blocks)
+            check(regs <= cap, f"Kernel {name} ({model}): {regs} registers "
+                               f"above {cap}")
+            out[("selfcal_gram_fused" if flag else "selfcal_gram",
                  model)] = {"registers": regs, "spill_bytes": spill}
     return out
 
@@ -1918,10 +1958,11 @@ def freepoint_inputs(prob, seed: int = 1):
     import torch
     n_ims = prob.blocks.n_ims
     moved = _mover(seed)
-    cam = moved(prob.x0.cam, CAM_SCALE, prob.colmask.cam)
+    a = prob.widths.a
+    cam = moved(prob.x0.cam, cam_scale(a), prob.colmask.cam)
     key = moved(prob.x0.key, 1e-3, prob.colmask.key)
     cmask = prob.colmask.cam.clone()
-    cmask[:, :9] = 1.0
+    cmask[:, :a - 6] = 1.0
     cmask[:, 3] = 0.0
     return (torch.repeat_interleave(cam, n_ims, dim=0), key, prob.uv,
             prob.mask, torch.repeat_interleave(cmask, n_ims, dim=0),
@@ -1955,6 +1996,10 @@ def freepoint_parities(sg, f32, n_cams, n_ims, **kw) -> dict:
                                          c_got, c_ref, n_cams, n_ims))}
 
 
+# the cases held to the float32 twin's floor, in the order met
+F32_FLOOR_CASES = []
+
+
 def parity_f32_floor(tag, got, ref, scaled, f32_twin, scaled_of) -> dict:
     """``parity``, save that where an output misses TOL the float32 plain
     twin on the same inputs (``f32_twin()``) is measured against the same
@@ -1966,6 +2011,7 @@ def parity_f32_floor(tag, got, ref, scaled, f32_twin, scaled_of) -> dict:
     rel = max_abs_errors(got, ref)
     if max(scaled.values()) <= TOL and max(rel) <= TOL:
         return parity(tag, got, ref, scaled)
+    F32_FLOOR_CASES.append(tag)
     twin = f32_twin()
     floor = scaled_of(twin, ref)
     rel_floor = max_abs_errors(twin, ref)
@@ -2066,17 +2112,19 @@ def freepoint_bound(name: str, prob) -> tuple[float, str]:
     (hcc or the per-block gcc_b, gc, the cost, wck, hkk, gk) written once,
     against its products per real detection over the FP32 rate. The
     borrowed self-cal kernel's pose columns and C's per-block wik are not
-    counted: the gap to this bound is what they cost."""
+    counted: the gap to this bound is what they cost. The camera width a
+    is the problem's."""
     bb, k = prob.mask.shape
     c = prob.blocks.n_cams
-    ins = bb * 15 + k * 3 + bb * k * 3 + k * 3     # cam_b, points, uv+mask, kmask
+    a = prob.widths.a
+    ins = bb * a + k * 3 + bb * k * 3 + k * 3  # cam_b, points, uv+mask, kmask
     if name == "freepoint_gram":
-        ins += bb * 15                              # cmask
-        outs = bb * (225 + 15 + 1) + bb * k * 45 + k * 12
+        ins += bb * a                               # cmask
+        outs = bb * (a * a + a + 1) + bb * k * 3 * a + k * 12
     else:
-        outs = c * (225 + 15) + bb + c * k * 45 + k * 12
+        outs = c * (a * a + a) + bb + c * k * 3 * a + k * 12
     t_bytes = 4 * (ins + outs) / HBM_BYTES_PER_S
-    t_ops = (prob.blocks.n_real * FREEPOINT_FLOP_PER_DETECTION
+    t_ops = (prob.blocks.n_real * freepoint_flop_per_detection(a)
              / FP32_FLOP_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -2182,14 +2230,14 @@ def solved_through_graph(tag, solve_fn, x0, kernel_route: bool):
     return x_ref, ref, counts, warm, first_s, runner
 
 
-def check_selfcal_passes(tag, counts: dict, warm, flag: str):
-    """By profiler names, the self-cal kernel's two passes
-    (``mixed_kernel<3,{flag}>`` and its reduction) once an evaluation of
-    the warm solve, and no other gram kernel."""
+def check_selfcal_passes(tag, counts: dict, warm, flag: str, iw: int = 9):
+    """By profiler names, the self-cal kernel's two passes at intrinsic
+    width ``iw`` (``mixed_kernel<iw,3,{flag}>`` and its reduction) once an
+    evaluation of the warm solve, and no other gram kernel."""
     grams = {n: k for n, k in counts.items()
              if n.split("<")[0] != "psd_solve_kernel"}
-    want = {f"mixed_kernel<3,{flag}>": warm.nfev,
-            f"mixed_reduce_kernel<3,{flag}>": warm.nfev}
+    want = {f"mixed_kernel<{iw},3,{flag}>": warm.nfev,
+            f"mixed_reduce_kernel<{iw},3,{flag}>": warm.nfev}
     check(grams == want, f"{tag}: gram kernels {grams} in {warm.nfev} "
                          f"evaluations, {want} expected")
 
@@ -2830,6 +2878,357 @@ def phase_camera_models(builds: dict, peak_tflops: float) -> dict:
     return {"kernels": kern, "psd": psd}
 
 
+def selfcal_model_kernels(tag, prob, name, rec: dict, builds: dict):
+    """One self-cal or free-point kernel at the problem's camera width on its
+    own tensors (``selfcal_inputs`` / ``freepoint_inputs``: moved off the
+    start), four losses, against the float64 twin (``parity_f32_floor``;
+    the cases held to the float32 twin's floor into
+    ``rec["f32_floor_cases"]``), a repeat launch, and one linear-loss call's
+    device time (the kernel's passes under torch.profiler), the wrapper's
+    and the float32 twin's CUDA-event ms, the peak MiB a call adds and the
+    bound (``bound``, ``freepoint_bound``); into ``rec``."""
+    import torch
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    a = prob.widths.a
+    iw = a - 6
+    freepoint = name.startswith("freepoint")
+    if freepoint:
+        f32 = freepoint_inputs(prob)
+        cam_b, keyp, uv, mask, cmask, kmask = f32
+        im0, imask0 = sg._identity_poses(cam_b)
+        runs = freepoint_runs(sg, f32, n_cams, n_ims)
+        packed = sg.pack_block_params(cam_b, im0)
+        if name == "freepoint_gram":
+            launch = (lambda: sg._launch_selfcal(
+                packed, keyp, uv, mask, cmask, imask0, kmask, 0, 1, 1.0, iw))
+            plain = lambda: sg.freepoint_gram_plain(*f32)
+        else:
+            launch = (lambda: sg._launch_selfcal_fused(
+                packed, keyp, uv, mask, imask0, kmask, n_cams, n_ims, 0, 1,
+                1.0, iw))
+            plain = (lambda: sg.freepoint_gram_fused_plain(
+                cam_b, keyp, uv, mask, kmask, n_cams, n_ims))
+    else:
+        f32 = selfcal_inputs(prob)
+        c32 = (*f32[:5], *f32[6:])
+        runs = selfcal_runs(sg, f32, n_cams, n_ims)
+        packed = sg.pack_block_params(*f32[:2])
+        if name == "selfcal_gram":
+            launch = lambda: sg._launch_selfcal(packed, *f32[2:], 0, 1, 1.0,
+                                                iw)
+            plain = lambda: sg.selfcal_gram_plain(*f32)
+        else:
+            launch = lambda: sg._launch_selfcal_fused(
+                packed, *c32[2:], n_cams, n_ims, 0, 1, 1.0, iw)
+            plain = lambda: sg.selfcal_gram_fused_plain(*c32, n_cams, n_ims)
+    n_floor = len(F32_FLOOR_CASES)
+    for loss, sem in LOSS_CASES:
+        kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
+        res = (freepoint_parities if freepoint else selfcal_parities)(
+            sg, f32, n_cams, n_ims, **kw)
+        got, ref, scaled = res[name]
+        case = f"{name} {tag} {loss}/{sem}"
+        say("parity_selfcal_model", case=case.replace(" ", "_"), tol=TOL,
+            max_abs=f"{max(max_abs_errors(got, ref)):.2e}",
+            **{k: f"{v:.2e}" for k, v in scaled.items()})
+        if freepoint:
+            e = freepoint_parity(sg, case, f32, n_cams, n_ims, got, ref,
+                                 scaled, **kw)
+        elif name == "selfcal_gram":
+            e = parity_f32_floor(case, got, ref, scaled,
+                                 lambda: sg.selfcal_gram_plain(*f32, **kw),
+                                 sg.scaled_errors_selfcal)
+        else:
+            gram = sg.selfcal_gram_plain(
+                *(t.double() for t in f32[:5]),
+                torch.ones_like(f32[5], dtype=torch.float64),
+                *(t.double() for t in f32[6:]), **kw)[0]
+            e = parity_f32_floor(
+                case, got, ref, scaled,
+                lambda: sg.selfcal_gram_fused_plain(*c32, n_cams, n_ims,
+                                                    **kw),
+                lambda g, r: sg.scaled_errors_selfcal_fused(
+                    g, r, gram, n_cams, n_ims))
+        for k, v in e.items():
+            rec[k] = max(rec.get(k, 0.0), v)
+        del res, got, ref
+        torch.cuda.empty_cache()
+    rec.setdefault("f32_floor_cases", []).extend(F32_FLOOR_CASES[n_floor:])
+    same_bits(f"{name} {tag}", runs[name])
+    passes = device_ms(launch)
+    base = mib_allocated()
+    runs[name]()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20 - base
+    bound_ms, bound_by = (freepoint_bound(name, prob) if freepoint
+                          else bound(name, prob))
+    kernel = sum(passes.values())
+    rec.update(builds[("selfcal_gram_fused" if name.endswith("fused")
+                       else "selfcal_gram", tag.split()[0])],
+               shape=tag, kernel_ms=kernel, ms=cuda_ms(runs[name], 10),
+               plain_ms=cuda_ms(plain, 3), peak_mib=peak, bound_ms=bound_ms,
+               bound_by=bound_by, passes=passes)
+    say("time", case=f"{name}_{tag.replace(' ', '_')}", a=a, unit="ms",
+        kernel_ms=f"{kernel:.4f}", ms=f"{rec['ms']:.4f}",
+        plain_ms=f"{rec['plain_ms']:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, of_bound=f"{bound_ms / max(kernel, 1e-9):.4f}",
+        peak_mib=f"{peak:.1f}", registers=rec["registers"],
+        spill_bytes=rec["spill_bytes"],
+        **{f"pass:{k}": f"{v:.4f}" for k, v in passes.items()})
+    del f32, packed, runs
+    torch.cuda.empty_cache()
+
+
+def phase_selfcal_models(builds: dict) -> dict:
+    """The self-calibration and free-point chains at the four other camera
+    models (``MODEL_WIDTH``), each on the rig ``utils/synthetic.py`` makes
+    for it, library route:
+
+    - the kernels on their problems' own tensors (``selfcal_model_kernels``):
+      C on the self-cal handler's problem at 16 x 100 (grid 104: C's last
+      chunk of images is ragged), D on ``problems.selfcal_problem`` at
+      64 x 12, the fused free-point wrapper (over C) on
+      ``problems.freepoint_problem`` at 16 x 24, the per-block one (over D)
+      on the free-point handler's problem at 64 x 12;
+    - the self-cal user path at 16 x 100: ``template_handler(template_warp=
+      BOARD_WARP, camera_model=m)`` -> ``run_stereo_calibration`` (Kernel A
+      at the model) -> ``SelfBundleHandler(..., options={"camera_model":
+      m})``, ``set_from_templated_camset`` -> its problem solved
+      uncaptured, capturing and warm (captured = uncaptured; by profiler
+      names the model's ``mixed_kernel<iw,3,true>`` and its reduction once
+      an evaluation, no other gram kernel) -> ``run_stereo_calibration(...,
+      param_handler=..., save=True)`` as the main path (its counts zeroed
+      just before: C alone, at the model's width alone), its parameters
+      the solve's bit for bit, ``calibration_result`` = ``residual_fn(x)``,
+      status 1 or 2, rms <= 0.36 px and not above the template stage's, the
+      file loaded back equal to the returned set with the model's
+      distortion width; the recovered points' RMS distance to the true bent
+      board beside the nominal grid's, held nearer;
+    - D's main path: ``problems.selfcal_problem(64, 12, camera_model=m)``
+      solved uncaptured with the counts zeroed just before (D at the
+      model's width, once an evaluation);
+    - the free-point user path at 64 x 12: ``freepoint_handler(...,
+      options={"im_bucket": None}, camera_model=m)`` ->
+      ``run_bundle_adjustment`` as the main path (the per-block wrapper
+      alone, at the model's width), its problem solved uncaptured,
+      capturing and warm (D's passes once an evaluation), status 1 or 2,
+      rms <= 0.36 px.
+
+    :return: {(wrapper, model): record}."""
+    import tempfile
+
+    import torch
+    from pycamset_tpu_torch.calibration.camera_calibrator import (
+        run_stereo_calibration)
+    from pycamset_tpu_torch.models.camera_set import CameraSet
+    from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
+    from pycamset_tpu_torch.optim.handlers import SelfBundleHandler
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import (freepoint_handler,
+                                             freepoint_problem,
+                                             selfcal_problem,
+                                             template_handler)
+    from pycamset_tpu_torch.utils.saving import load_CameraSet
+    dev = torch.device("cuda", 0)
+    counted = wrappers()
+    kern = {}
+    for model, a in MODEL_WIDTH.items():
+        iw = a - 6
+        t_model = time.perf_counter()
+        recs = {name: kern.setdefault((name, model), {})
+                for name in ("selfcal_gram_fused", "selfcal_gram",
+                             "freepoint_gram_fused", "freepoint_gram")}
+
+        # the self-cal user path at 16 x 100
+        sec = {}
+        t0 = time.perf_counter()
+        th, rig = template_handler(16, 100, template_warp=BOARD_WARP,
+                                   camera_model=model)
+        cams, det, target = th.camset, th.detection, th.target
+        sec["inputs"] = time.perf_counter() - t0
+        tag = f"{model} selfcal_user 16x100"
+        solved_t, n_tpl, _, sec["template_stage"] = main_path_counts(
+            counted, "template_gram", f"{tag} template stage",
+            lambda: run_stereo_calibration(None, None, None,
+                                           param_handler=th, save=False,
+                                           device=dev))
+        tpl_rms = float(np.sqrt(np.mean(
+            np.asarray(solved_t.calibration_result) ** 2)))
+        opts = {"outliers": "n", "verbosity": 0, "camera_model": model}
+
+        def selfcal_handler():
+            h = SelfBundleHandler(solved_t, target, det, options=opts)
+            h.set_from_templated_camset(solved_t)
+            return h
+
+        sh = selfcal_handler()
+        t0 = time.perf_counter()
+        solve_fn, residual_fn, x0 = build_structured_problem(sh, device=dev)
+        torch.cuda.synchronize()
+        sec["build"] = time.perf_counter() - t0
+        prob = solve_fn.problem
+        check(prob.widths.a == a and prob.blocks.n_ims == 104,
+              f"{tag}: camera width {prob.widths.a}, grid "
+              f"{prob.blocks.n_ims}")
+        selfcal_model_kernels(f"{model} selfcal 16x100", prob,
+                              "selfcal_gram_fused",
+                              recs["selfcal_gram_fused"], builds)
+        x_ref, ref, counts, warm, sec["first_solve"], runner = (
+            solved_through_graph(tag, solve_fn, x0, False))
+        check_selfcal_passes(tag, counts, warm, "true", iw)
+        warm_ms = timed(lambda: solve_fn(x0), 3)
+        resid = residual_fn(x_ref)
+        e2e_h = selfcal_handler()
+        with tempfile.TemporaryDirectory() as tmp, \
+                timed_method(CameraSet, "save", sec, "save"):
+            path = os.path.join(tmp, "self.camset")
+            solved, n_own, _, sec["run_stereo_calibration"] = (
+                main_path_counts(counted, "selfcal_gram_fused", tag, lambda: (
+                    run_stereo_calibration(None, None, None,
+                                           param_handler=e2e_h, save=True,
+                                           save_loc=path, device=dev))))
+            by_width = dict(counted["selfcal_gram_fused"].launches_by_width)
+            back = load_CameraSet(path)
+        check(by_width[a] == n_own and not any(
+            n for w, n in by_width.items() if w != a),
+            f"{tag}: launches by camera width {by_width}")
+        check(np.array_equal(solved.calibration_params, x_ref)
+              and np.array_equal(solved.calibration_result,
+                                 resid.reshape(-1)),
+              f"{tag}: run_stereo_calibration's parameters or residuals "
+              f"differ from the solve's")
+        check(back == solved
+              and type(back.calibration_handler) is SelfBundleHandler
+              and np.array_equal(back.calibration_params,
+                                 solved.calibration_params)
+              and all(np.ravel(c.distortion_coefs).size == iw - 4
+                      for c in back),
+              f"{tag}: the loaded CameraSet differs from the returned")
+        status, rms = int(ref.status), prob.rms_px(ref.cost)
+        check(status in (1, 2), f"{tag}: status {status}")
+        check(rms <= 0.36 and rms <= tpl_rms,
+              f"{tag}: rms {rms} (template stage {tpl_rms})")
+        vis = sh.visible_feature_mask
+        true = rig["template_true"]
+        pts = e2e_h.get_updated_target(x_ref)
+        rec_mm, nominal_mm = (1e3 * np.sqrt(np.mean(np.sum(
+            (p[vis] - true[vis]) ** 2, axis=1)))
+            for p in (pts, rig["template"]))
+        check(bool(np.isfinite(pts).all()) and rec_mm < nominal_mm,
+              f"{tag}: recovered points {rec_mm} mm from the true board, "
+              f"the nominal grid {nominal_mm} mm")
+        recs["selfcal_gram_fused"].setdefault("launches_by_solve", {})[
+            tag] = n_own
+        say("selfcal_models", model=model, shape="selfcal_user_16x100", a=a,
+            same_bits=True, nit=ref.nit, nfev=ref.nfev, status=status,
+            rms_px=f"{rms:.5f}", template_stage_rms_px=f"{tpl_rms:.5f}",
+            n_real=prob.blocks.n_real, im_grid=prob.blocks.n_ims,
+            launches_per_eval=f"{counts}/{warm.nfev}",
+            e2e_launches=f"selfcal_gram_fused:{n_own}",
+            template_stage_launches=f"template_gram:{n_tpl}",
+            file_dist_width=np.ravel(back[0].distortion_coefs).size,
+            points_rms_mm_vs_true=f"{rec_mm:.4f}",
+            nominal_rms_mm_vs_true=f"{nominal_mm:.4f}",
+            capture_ms=f"{runner.capture_ms:.1f}",
+            solve_ms_median=f"{np.median(warm_ms):.3f}",
+            **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()})
+        del (th, sh, e2e_h, solve_fn, residual_fn, prob, runner, solved,
+             solved_t, back)
+
+        # D: the bench self-cal problem at 64 x 12
+        tag = f"{model} selfcal 64x12"
+        prob = selfcal_problem(64, 12, dev, camera_model=model)
+        selfcal_model_kernels(tag, prob, "selfcal_gram", recs["selfcal_gram"],
+                              builds)
+        res, n_own, _, d_s = main_path_counts(
+            counted, "selfcal_gram", tag,
+            lambda: prob.solve(graph=False))
+        check(counted["selfcal_gram"].launches_by_width[a] == n_own
+              == res.nfev, f"{tag}: {n_own} launches in {res.nfev} "
+                           f"evaluations")
+        recs["selfcal_gram"].setdefault("launches_by_solve", {})[tag] = n_own
+        say("selfcal_models", model=model, shape="selfcal_64x12", a=a,
+            nit=res.nit, nfev=res.nfev, status=int(res.status),
+            rms_px=f"{prob.rms_px(res.cost):.5f}",
+            e2e_launches=f"selfcal_gram:{n_own}", solve_s=f"{d_s:.3f}")
+        del prob
+
+        # the fused free-point wrapper at 16 x 24
+        tag = f"{model} freepoint 16x24"
+        prob = freepoint_problem(16, 24, dev, camera_model=model)
+        selfcal_model_kernels(tag, prob, "freepoint_gram_fused",
+                              recs["freepoint_gram_fused"], builds)
+        res, n_own, _, f_s = main_path_counts(
+            counted, "freepoint_gram_fused", tag,
+            lambda: prob.solve(graph=False))
+        check(counted["freepoint_gram_fused"].launches_by_width[a] == n_own
+              == res.nfev, f"{tag}: {n_own} launches in {res.nfev} "
+                           f"evaluations")
+        recs["freepoint_gram_fused"].setdefault("launches_by_solve", {})[
+            tag] = n_own
+        say("selfcal_models", model=model, shape="freepoint_16x24", a=a,
+            nit=res.nit, nfev=res.nfev, status=int(res.status),
+            rms_px=f"{prob.rms_px(res.cost):.5f}",
+            e2e_launches=f"freepoint_gram_fused:{n_own}",
+            solve_s=f"{f_s:.3f}")
+        del prob
+
+        # the free-point user path at 64 x 12, through D's wrapper
+        tag = f"{model} freepoint_user 64x12"
+        sec = {}
+        handler, scene = freepoint_handler(64, 12,
+                                           options={"im_bucket": None},
+                                           camera_model=model)
+        solve_fn, residual_fn, x0 = build_structured_problem(handler,
+                                                             device=dev)
+        prob = solve_fn.problem
+        check(prob.widths.a == a, f"{tag}: camera width {prob.widths.a}")
+        selfcal_model_kernels(f"{model} freepoint 64x12", prob,
+                              "freepoint_gram", recs["freepoint_gram"],
+                              builds)
+        x_ref, ref, counts, warm, sec["first_solve"], runner = (
+            solved_through_graph(tag, solve_fn, x0, False))
+        check_selfcal_passes(tag, counts, warm, "false", iw)
+        resid = residual_fn(x_ref)
+        (result, cams), n_own, _, sec["run_bundle_adjustment"] = (
+            main_path_counts(counted, "freepoint_gram", tag, lambda: (
+                run_bundle_adjustment(handler, device=dev))))
+        by_width = dict(counted["freepoint_gram"].launches_by_width)
+        check(by_width[a] == n_own and not any(
+            n for w, n in by_width.items() if w != a),
+            f"{tag}: launches by camera width {by_width}")
+        check(np.array_equal(result.x, x_ref)
+              and np.array_equal(result.fun, resid.reshape(-1))
+              and np.array_equal(cams[0].extrinsic, np.eye(4)),
+              f"{tag}: run_bundle_adjustment's x or residuals differ from "
+              f"the solve's, or the camera-0 gauge moved")
+        status, rms = int(ref.status), prob.rms_px(ref.cost)
+        check(status in (1, 2), f"{tag}: status {status}")
+        check(rms <= 0.36, f"{tag}: rms {rms} above 0.36 px")
+        pts = handler.get_updated_points(result.x)
+        seen = scene["seen"]
+        err_mm = 1e3 * np.sqrt(np.mean(np.sum(
+            (pts[seen] - scene["pts_true"][seen]) ** 2, axis=1)))
+        recs["freepoint_gram"].setdefault("launches_by_solve", {})[tag] = (
+            n_own)
+        say("selfcal_models", model=model, shape="freepoint_user_64x12",
+            a=a, same_bits=True, nit=ref.nit, nfev=ref.nfev, status=status,
+            rms_px=f"{rms:.5f}", n_real=prob.blocks.n_real,
+            keys=prob.mask.shape[1],
+            launches_per_eval=f"{counts}/{warm.nfev}",
+            e2e_launches=f"freepoint_gram:{n_own}",
+            points_rms_mm_vs_true=f"{err_mm:.4f}",
+            capture_ms=f"{runner.capture_ms:.1f}",
+            **{f"{k}_s": f"{v:.3f}" for k, v in sec.items()})
+        del handler, solve_fn, residual_fn, prob, runner, result, cams
+        gc.collect()
+        torch.cuda.empty_cache()
+        say("elapsed", after=f"selfcal_models {model}",
+            seconds=f"{time.perf_counter() - t_model:.1f}")
+    return kern
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2946,6 +3345,13 @@ def main() -> int:
     models = phase_camera_models(builds, peak_rec["tflops"])
     say("elapsed", after="camera_models",
         seconds=f"{time.perf_counter() - t_start:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    sc_models = phase_selfcal_models(builds)
+    say("elapsed", after="selfcal_models",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
 
     fleet_shape = f"fleet {'x'.join(map(str, FLEET))}"
     launches["template_gram_fused"][fleet_shape] = fleet_rec["launches"]
@@ -3013,6 +3419,23 @@ def main() -> int:
             "registers": rec["registers"], "spill_bytes": rec["spill_bytes"],
             "solve_ms_median": rec["solve_ms_median"],
             "shape": f"{model} {rec['shape']}", "card": smi})
+    for (name, model), rec in sc_models.items():
+        source, replaces, _ = {**KERNELS, **FREEPOINT_KERNELS}[name]
+        kernels.append({
+            "name": f"{name}[{model}]", "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(rec["launches_by_solve"].values()),
+            "launches_by_solve": rec["launches_by_solve"],
+            "max_abs_err": rec["abs"], "max_rel_err": rec["rel"],
+            "max_scaled_err": rec["scaled"],
+            "f32_floor_cases": rec["f32_floor_cases"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "kernel_ms": rec["kernel_ms"],
+            "camera_width": MODEL_WIDTH[model],
+            "registers": rec["registers"], "spill_bytes": rec["spill_bytes"],
+            "peak_mib": rec["peak_mib"], "shape": rec["shape"],
+            "card": smi})
     widest = psd_time[max(psd_time)]
     kernels.append({
         "name": PSD[0], "route": "cuda", "source": PSD[1],

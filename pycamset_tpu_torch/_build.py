@@ -50,6 +50,12 @@ _SIGNATURES = {
     "pct_selfcal_gram": [_P] * 7 + [_I, _I, _I, _I, _F, _I] + [_P] * 8,
     "pct_selfcal_gram_fused": [_P] * 6 + [_I, _I, _I, _I, _I, _F, _I]
                               + [_P] * 15,
+    # Kernels C and D at another camera model: the intrinsic width first
+    "pct_selfcal_gram_model": [_I] + [_P] * 7 + [_I, _I, _I, _I, _F, _I]
+                              + [_P] * 8,
+    "pct_selfcal_gram_fused_model": [_I] + [_P] * 6
+                                    + [_I, _I, _I, _I, _I, _F, _I]
+                                    + [_P] * 15,
     "pct_mixed_gram": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _I] + [_P] * 8,
     "pct_mixed_gram_fused": [_P] * 7 + [_I, _I, _I, _I, _I, _I, _F, _I]
                             + [_P] * 15,

@@ -15,21 +15,31 @@
 //
 // Replaces four Pallas TPU kernels of pycamset_tpu/optim/pallas_grams.py:
 //
-//   Kernel C  mixed_kernel<3, true> + mixed_reduce_kernel<3, true>
+//   Kernel C  mixed_kernel<IW, 3, true> + mixed_reduce_kernel<IW, 3, true>
 //                 <- make_pallas_selfcal_grams_fused (_fused_selfcal_body)
-//   Kernel E  mixed_kernel<CW, true> + mixed_reduce_kernel<CW, true>, cw 9, 6
-//                 <- make_pallas_mixed_grams_fused (_fused_mixed_body)
-//       per camera: hcc, gc and the key couplings wcc = Jc^T Jk (15 cw x K;
+//   Kernel E  mixed_kernel<9, CW, true> + mixed_reduce_kernel<9, CW, true>,
+//             cw 9, 6 <- make_pallas_mixed_grams_fused (_fused_mixed_body)
+//       per camera: hcc, gc and the key couplings wcc = Jc^T Jk (a cw x K;
 //       C: wck), summed over the camera's images; per block: wic = Ji^T Jk
 //       (6 cw x K; C: wik), wci, gii, gi and the cost corner; per key:
 //       hkk = Jk^T Jk and gk = Jk^T r over all blocks.
-//   Kernel D  mixed_kernel<3, false> + mixed_reduce_kernel<3, false>
+//   Kernel D  mixed_kernel<IW, 3, false> + mixed_reduce_kernel<IW, 3, false>
 //                 <- make_pallas_selfcal_grams (_selfcal_kernel_body)
-//   Kernel F  mixed_kernel<CW, false> + mixed_reduce_kernel<CW, false>
+//   Kernel F  mixed_kernel<9, CW, false> + mixed_reduce_kernel<9, CW, false>
 //                 <- _mixed_grams_factory (_mixed_kernel_body)
-//       per block: the extended 22 x 22 gram [Jc | Ji | r]^T [Jc | Ji | r]
-//       (corner = the (robust) cost); per (block, key): wcc_b (15 cw) and
-//       wic_b (6 cw); per key: hkk and gk over all blocks.
+//       per block: the extended W x W gram [Jc | Ji | r]^T [Jc | Ji | r]
+//       (W = a + 7; corner = the (robust) cost); per (block, key): wcc_b
+//       (a cw) and wic_b (6 cw); per key: hkk and gk over all blocks.
+//
+// IW is the camera model's intrinsic width (projection_core.cuh Model): C
+// and D are built at the five widths the JAX self-cal kernels serve, 9
+// standard (a = 15, entries pct_selfcal_gram{,_fused}), 8 fisheye (a = 14),
+// 12 rational (18), 16 thin-prism (22) and 18 tilted (24), through
+// pct_selfcal_gram{,_fused}_model; E and F at the standard model only. The
+// model fixes the gram width, the packed row (the tilted model's 136
+// parameters and the column masks take two loads a thread), the tile
+// geometry (gram_tiles.cuh Tiles), the per-key sums (3a + 9 floats in C)
+// and with them the shared memory and the blocks an SM (Occupancy).
 //
 // Every pose column is masked by imask and key column j by kmask[:, j] in
 // the kernel, as the Pallas kernels do, and every camera column by cmask,
@@ -44,7 +54,8 @@
 //
 // What bounds them on an H100: instruction issue first, device memory
 // second. Per real detection the block gram is 253 products of two rows and
-// the key couplings 21 cw more, beside one projection core. Kernel C at
+// the key couplings 21 cw more, beside one projection core (the standard
+// model; (a + 7)(a + 8) / 2 and (a + 6) cw at camera width a). Kernel C at
 // self-cal 16 x 100 writes wik (B x 18 x K floats: 44 MB, 0.013 ms at 3.35
 // TB/s), D at 64 x 12 wck_b and wik_b (74 MB); E at 16 x 100 writes wic
 // (133 MB at cw 9 and K = 384, its whole byte bound, 0.040 ms), F at 64 x 12
@@ -98,7 +109,9 @@
 // directions are applied to sums instead of to each term, and every
 // product a sum holds is one of the first port's. Shared memory is dynamic:
 // C 54 KB (row tile 26.6, sums 27.6), four blocks an SM; E 65 KB (and
-// directions 10.8), three; D 31 KB and F 42 KB, four.
+// directions 10.8), three; D 31 KB and F 42 KB, four (the standard model).
+// At the other models C takes 53 KB (fisheye, four blocks), 63 and 69 KB
+// (rational, thin-prism: three) and 80 KB (tilted: two).
 //
 // Second pass: one launch adds the first pass's partials in a fixed order:
 // no float atomics, so two launches on the same inputs give the same bits.
@@ -126,27 +139,38 @@ constexpr int HK_K = 8;        // keys per block of its hkk/gk role
 constexpr int HK_G = RT / HK_K;  // part groups per key there
 // per-key group data (pack_key_group_data, the JAX layout), (KD_ROWS, K)
 constexpr int KD_XG = 0, KD_RG = 3, KD_DRG = 12, KD_XP = 39;
-// per-key sums of g, a key's rows in the chunk partials: Gc (15 x 3, C/E
+// per-key sums of g, a key's rows in the chunk partials: Gc (a x 3, C/E
 // only), then Gr (3) and H's upper triangle (6)
-constexpr int N_GC = 3 * A;
 constexpr int N_HK = 9;
 
-template <int CW>
+template <class M, int CW>
 struct Mix {
-  static constexpr int NCC = A * CW;                // wcc entries per key
+  static constexpr int N_GC = 3 * M::A;             // Gc sums per key
+  static constexpr int NCC = M::A * CW;             // wcc entries per key
   static constexpr int NIC = 6 * CW;                // wic entries per key
 };
 
-template <bool FUSED>
+template <class M, bool FUSED>
 struct Sums {
-  static constexpr int GR = FUSED ? N_GC : 0;       // first Gr row
+  static constexpr int GR = FUSED ? 3 * M::A : 0;   // first Gr row
   static constexpr int N = GR + N_HK;               // sums per key
+};
+
+// Four blocks an SM (<= 128 registers) at the standard and fisheye models,
+// as for Kernels A and B; the wider models' cores hold more live values,
+// so they take three, and the tilted model's C, whose row tile and sums
+// take 80 KB of shared memory, two.
+template <int INTR_W, bool FUSED>
+struct Occupancy {
+  static constexpr int MIN_BLOCKS =
+      INTR_W <= 9 ? 4 : (INTR_W >= 18 && FUSED ? 2 : 3);
 };
 
 // Gram entry (i, j) that Kernels C and E sum over a camera's images: hcc or
 // gc.
+template <class M>
 __device__ __forceinline__ bool cam_entry(int i, int j) {
-  return i < A && (j < A || j == W - 1);
+  return i < M::A && (j < M::A || j == M::W - 1);
 }
 
 // The cw directions of key k in the group's output frame, times
@@ -232,18 +256,19 @@ struct KeyDirs {
 // The first pass. Grid (key tiles of NT, chunks of `chunk` blocks,
 // n_groups); group g's blocks are g * group, ..., (g + 1) * group - 1 (C/E:
 // a camera's images; D/F: one group of all B blocks). Dynamic shared
-// memory: the row tile, then the per-key sums (Sums<FUSED>::N rows of NT),
-// then, at cw 9 and 6, the keys' direction values (KeyDirs<CW>::N rows of
-// NT). kd: at cw 9 and 6 (E/F) the per-key group data (KD_ROWS, K); at
-// cw = 3 (C/D) the free points keyp (K, 3) (KeyDirs). cmask may be null
+// memory: the row tile, then the per-key sums (Sums<M, FUSED>::N rows of
+// NT), then, at cw 9 and 6, the keys' direction values (KeyDirs<CW>::N
+// rows of NT). kd: at cw 9 and 6 (E/F) the per-key group data (KD_ROWS, K);
+// at cw = 3 (C/D) the free points keyp (K, 3) (KeyDirs). cmask may be null
 // (Kernel C): every camera column's mask is then 1.
-// blk_part (tiles, B, 253): per-block gram entries of one key tile (C/E:
-// the non-camera entries). Kernels C/E only: cam_part (C, chunks, tiles,
-// 253) holds the chunk's hcc/gc entries, gc_part (C, chunks, 45, K) its Gc
-// sums; for Kernels D/F, wcc_out is wcc_b (B, 15 cw, K). wic_out (B, 6 cw,
-// K). hk_part (groups * chunks, 9, K): the chunk's Gr and H sums.
-template <int CW, bool FUSED>
-__global__ void __launch_bounds__(NT, 4)  // <= 128 registers
+// blk_part (tiles, B, N_ENTRIES): per-block gram entries of one key tile
+// (C/E: the non-camera entries). Kernels C/E only: cam_part (C, chunks,
+// tiles, N_ENTRIES) holds the chunk's hcc/gc entries, gc_part (C, chunks,
+// 3a, K) its Gc sums; for Kernels D/F, wcc_out is wcc_b (B, a cw, K).
+// wic_out (B, 6 cw, K). hk_part (groups * chunks, 9, K): the chunk's Gr
+// and H sums.
+template <int INTR_W, int CW, bool FUSED>
+__global__ void __launch_bounds__(NT, Occupancy<INTR_W, FUSED>::MIN_BLOCKS)
 mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
              const float *__restrict__ uv, const float *__restrict__ mask,
              const float *__restrict__ cmask,
@@ -253,17 +278,24 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
              float *__restrict__ blk_part, float *__restrict__ cam_part,
              float *__restrict__ gc_part, float *__restrict__ wcc_out,
              float *__restrict__ wic_out, float *__restrict__ hk_part) {
-  using M = Mix<CW>;
-  using S = Sums<FUSED>;
+  using Mo = Model<INTR_W>;
+  using T = Tiles<Mo>;
+  using M = Mix<Mo, CW>;
+  using S = Sums<Mo, FUSED>;
+  constexpr int A = Mo::A, W = Mo::W, PPB = Mo::PPB;
+  constexpr int N_ENTRIES = Mo::N_ENTRIES, N_EPT = T::N_EPT;
+  // the packed row, then the image's W - 1 column masks, N_PV a thread
+  // (two at the thin-prism and tilted models)
+  constexpr int N_PV = (PPB + W - 1 + NT - 1) / NT;
   extern __shared__ __align__(16) float smem[];
   float *rows = smem;                  // the row tile; partial tiles
-  float *sums = rows + ROWS_FLOATS;    // sums[r * NT + t]: key t's sum r
+  float *sums = rows + T::ROWS_FLOATS;  // sums[r * NT + t]: key t's sum r
   __shared__ __align__(16) float prm[PPB];
-  // the 21 column masks of the image, double-buffered: the entry threads
+  // the column masks of the image, double-buffered: the entry threads
   // read an image's after its rows are gone
   __shared__ float colm_buf[2][W - 1];
   __shared__ int live_count[NW];
-  __shared__ float zrow[ROW];          // the rows of every masked slot
+  __shared__ float zrow[Mo::ROW];      // the rows of every masked slot
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int tile = blockIdx.x, n_tiles = gridDim.x;
   const int ch = blockIdx.y, n_chunks = gridDim.y;
@@ -276,8 +308,8 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
   const bool has_key = k < n_keys;
   const size_t part = (size_t)grp * n_chunks + ch;
 
-  const TileLane tl = tile_lane(rows, warp, lane);
-  const EntryRole er = entry_role(t);
+  const TileLane tl = tile_lane<T>(rows, warp, lane);
+  const auto er = entry_role<T>(t);
 
   // the key's point Xg and directions, for every image of the chunk
   float xg[3] = {0.f, 0.f, 0.f};
@@ -293,7 +325,7 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
   }
   #pragma unroll
   for (int r = 0; r < S::N; ++r) sums[r * NT + t] = 0.f;
-  if (t < ROW) zrow[t] = 0.f;          // read after the first barrier
+  if (t < Mo::ROW) zrow[t] = 0.f;      // read after the first barrier
 
   float acc[G * G];
   #pragma unroll
@@ -304,7 +336,9 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
 
   // this thread's slot of the next image, and the next image's parameters
   // and column masks, loaded an image ahead
-  float m = 0.f, p_next = 0.f;
+  float m = 0.f, p_next[N_PV];
+  #pragma unroll
+  for (int i = 0; i < N_PV; ++i) p_next[i] = 0.f;
   float2 m_uv = make_float2(0.f, 0.f);
   auto fetch = [&](int b) {
     if (has_key) {
@@ -312,12 +346,16 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
       m = mask[s];
       m_uv = reinterpret_cast<const float2 *>(uv)[s];
     }
-    if (t < PPB) {
-      p_next = packed[(size_t)b * PPB + t];
-    } else if (t < PPB + W - 1) {
-      const int c = t - PPB;
-      p_next = c >= A ? imask[(size_t)b * 6 + (c - A)]
-               : cmask != nullptr ? cmask[(size_t)b * A + c] : 1.f;
+    #pragma unroll
+    for (int i = 0; i < N_PV; ++i) {
+      const int c = t + i * NT;
+      if (c < PPB) {
+        p_next[i] = packed[(size_t)b * PPB + c];
+      } else if (c < PPB + W - 1) {
+        const int cc = c - PPB;
+        p_next[i] = cc >= A ? imask[(size_t)b * 6 + (cc - A)]
+                    : cmask != nullptr ? cmask[(size_t)b * A + cc] : 1.f;
+      }
     }
   };
   fetch(blk0);
@@ -327,10 +365,14 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
     // the previous image's last readers of prm, and the last readers of
     // this buffer of column masks (two images back), passed a barrier since
     float *colm = colm_buf[bi & 1];
-    if (t < PPB) {
-      prm[t] = p_next;
-    } else if (t < PPB + W - 1) {
-      colm[t - PPB] = p_next;
+    #pragma unroll
+    for (int i = 0; i < N_PV; ++i) {
+      const int c = t + i * NT;
+      if (c < PPB) {
+        prm[c] = p_next[i];
+      } else if (c < PPB + W - 1) {
+        colm[c - PPB] = p_next[i];
+      }
     }
     const float km = m;
     const float2 kuv = m_uv;
@@ -346,21 +388,24 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
     if (has_key) {
       // the key's u row at tile row pos, its v row at n_live + pos, written
       // by the core as it goes; a masked slot writes zeros to the zero row
-      float *ru_row = km != 0.f ? rows + pos * RS : zrow;
-      float *rv_row = km != 0.f ? rows + (n_live + pos) * RS : zrow;
+      float *ru_row = km != 0.f ? rows + pos * T::RS : zrow;
+      float *rv_row = km != 0.f ? rows + (n_live + pos) * T::RS : zrow;
       float dxu[3], dxv[3];
-      key_rows<true>(prm, xg[0], xg[1], xg[2], kuv.x, kuv.y, km, loss,
-                     component, c2, ru_row, rv_row, dxu, dxv);
+      key_rows_m<Mo, true>(prm, xg[0], xg[1], xg[2], kuv.x, kuv.y, km, loss,
+                           component, c2, ru_row, rv_row, dxu, dxv);
       if (km != 0.f) {
-        ru_row[RC - 1] = 0.f;
-        rv_row[RC - 1] = 0.f;
+        #pragma unroll
+        for (int c = Mo::ROW; c < T::RC; ++c) {
+          ru_row[c] = 0.f;
+          rv_row[c] = 0.f;
+        }
       }
       if constexpr (KeyDirs<CW>::SHARED) {
         #pragma unroll
         for (int i = 0; i < KeyDirs<CW>::N; ++i) kdir.v[i] = dsh[i * NT];
       }
       // g = (Re Rp)^T d(u, v)/dXc, then each key column is g . dir_j
-      const float *rerp = prm + OFF_RERP;
+      const float *rerp = prm + Mo::OFF_RERP;
       float gu[3], gv[3];
       #pragma unroll
       for (int b = 0; b < 3; ++b) {
@@ -408,7 +453,7 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
       }
     }
     __syncthreads();  // the live rows are in
-    if (tl.on) tile_rows(acc, tl, 2 * n_live);
+    if (tl.on) tile_rows<T>(acc, tl, 2 * n_live);
     __syncthreads();  // every lane is done with the rows
     if (tl.on) tile_store(acc, tl);
     __syncthreads();  // the partials are in
@@ -418,10 +463,10 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
       // the rows are unmasked: entry (i, j) takes the masks of its columns
       // (0 or 1, so the same bits as masked rows)
       const int i = er.oi[q], j = er.oj[q];
-      const float sum = entry_sum(rows, er.src[q]) *
+      const float sum = entry_sum<T>(rows, er.src[q]) *
                         (i < W - 1 ? colm[i] : 1.f) *
                         (j < W - 1 ? colm[j] : 1.f);
-      if (FUSED && cam_entry(i, j)) {
+      if (FUSED && cam_entry<Mo>(i, j)) {
         cam_acc[q] += sum;  // hcc and gc keep summing over the chunk
       } else {
         blk_part[((size_t)tile * n_blocks + blk) * N_ENTRIES + t + q * NT] =
@@ -435,7 +480,7 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
   if constexpr (FUSED) {
     #pragma unroll
     for (int q = 0; q < N_EPT; ++q) {
-      if (er.valid[q] && cam_entry(er.oi[q], er.oj[q]))
+      if (er.valid[q] && cam_entry<Mo>(er.oi[q], er.oj[q]))
         cam_part[(part * n_tiles + tile) * N_ENTRIES + t + q * NT] =
             cam_acc[q];
     }
@@ -443,8 +488,8 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
   if (has_key) {
     if constexpr (FUSED) {
       #pragma unroll
-      for (int r = 0; r < N_GC; ++r)
-        gc_part[(part * N_GC + r) * n_keys + k] = sums[r * NT + t];
+      for (int r = 0; r < M::N_GC; ++r)
+        gc_part[(part * M::N_GC + r) * n_keys + k] = sums[r * NT + t];
     }
     #pragma unroll
     for (int r = 0; r < N_HK; ++r)
@@ -459,8 +504,11 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
 // gram entries over key tiles), then, for Kernels C/E, the C cameras (hcc, gc
 // over chunks and key tiles) and the wcc entries (Gc over chunks, then the
 // directions) of RK keys a block, last the hkk/gk of HK_K keys a block (Gr
-// and H over every chunk of every group, then the directions).
-template <int CW, bool FUSED>
+// and H over every chunk of every group, then the directions). A block or
+// camera role takes the gram entries RT apart, N_EPR a thread (one at the
+// standard model's 253, fully unrolled: the first port's code; two at the
+// tilted model's 496).
+template <int INTR_W, int CW, bool FUSED>
 __global__ void __launch_bounds__(RT)
 mixed_reduce_kernel(const float *__restrict__ kd,
                     const float *__restrict__ kmask,
@@ -474,60 +522,71 @@ mixed_reduce_kernel(const float *__restrict__ kd,
                     float *__restrict__ wci, float *__restrict__ gii,
                     float *__restrict__ gi, float *__restrict__ corner,
                     float *__restrict__ hkk, float *__restrict__ gk) {
-  using M = Mix<CW>;
+  using Mo = Model<INTR_W>;
+  using M = Mix<Mo, CW>;
+  constexpr int A = Mo::A, W = Mo::W, N_ENTRIES = Mo::N_ENTRIES;
+  constexpr int N_EPR = (N_ENTRIES + RT - 1) / RT;  // entries a thread
   __shared__ float red[HK_G][N_HK][HK_K];
   __shared__ float fin[N_HK][HK_K];
   __shared__ float kds[KeyDirs<CW>::N][RK];
   const int t = threadIdx.x;
   long long b = blockIdx.x;
   if (b < n_blocks) {
-    if (t >= N_ENTRIES) return;
-    int i, j;
-    entry_ij(t, i, j);
-    if (FUSED && cam_entry(i, j)) return;
-    float acc = 0.f;
-    #pragma unroll 4
-    for (int tile = 0; tile < n_tiles; ++tile)
-      acc += blk_part[((size_t)tile * n_blocks + b) * N_ENTRIES + t];
-    if constexpr (!FUSED) {
-      gram[((size_t)b * W + i) * W + j] = acc;
-      gram[((size_t)b * W + j) * W + i] = acc;
-    } else if (i < A) {
-      wci[((size_t)b * A + i) * 6 + (j - A)] = acc;
-    } else if (j < W - 1) {
-      gii[((size_t)b * 6 + (i - A)) * 6 + (j - A)] = acc;
-      gii[((size_t)b * 6 + (j - A)) * 6 + (i - A)] = acc;
-    } else if (i < W - 1) {
-      gi[(size_t)b * 6 + (i - A)] = acc;
-    } else {
-      corner[b] = acc;
+    #pragma unroll
+    for (int q = 0; q < N_EPR; ++q) {
+      const int e = t + q * RT;
+      if (e >= N_ENTRIES) return;
+      int i, j;
+      entry_ij<W>(e, i, j);
+      if (FUSED && cam_entry<Mo>(i, j)) continue;
+      float acc = 0.f;
+      #pragma unroll 4
+      for (int tile = 0; tile < n_tiles; ++tile)
+        acc += blk_part[((size_t)tile * n_blocks + b) * N_ENTRIES + e];
+      if constexpr (!FUSED) {
+        gram[((size_t)b * W + i) * W + j] = acc;
+        gram[((size_t)b * W + j) * W + i] = acc;
+      } else if (i < A) {
+        wci[((size_t)b * A + i) * 6 + (j - A)] = acc;
+      } else if (j < W - 1) {
+        gii[((size_t)b * 6 + (i - A)) * 6 + (j - A)] = acc;
+        gii[((size_t)b * 6 + (j - A)) * 6 + (i - A)] = acc;
+      } else if (i < W - 1) {
+        gi[(size_t)b * 6 + (i - A)] = acc;
+      } else {
+        corner[b] = acc;
+      }
     }
     return;
   }
   b -= n_blocks;
   if constexpr (FUSED) {
     if (b < n_cams) {
-      if (t >= N_ENTRIES) return;
-      int i, j;
-      entry_ij(t, i, j);
-      if (!cam_entry(i, j)) return;
-      float acc = 0.f;
-      for (int ch = 0; ch < n_chunks; ++ch)
-        #pragma unroll 4
-        for (int tile = 0; tile < n_tiles; ++tile)
-          acc += cam_part[(((size_t)b * n_chunks + ch) * n_tiles + tile) *
-                              N_ENTRIES + t];
-      if (j < A) {
-        hcc[(b * A + i) * A + j] = acc;
-        hcc[(b * A + j) * A + i] = acc;
-      } else {
-        gc[b * A + i] = acc;
+      #pragma unroll
+      for (int q = 0; q < N_EPR; ++q) {
+        const int e = t + q * RT;
+        if (e >= N_ENTRIES) return;
+        int i, j;
+        entry_ij<W>(e, i, j);
+        if (!cam_entry<Mo>(i, j)) continue;
+        float acc = 0.f;
+        for (int ch = 0; ch < n_chunks; ++ch)
+          #pragma unroll 4
+          for (int tile = 0; tile < n_tiles; ++tile)
+            acc += cam_part[(((size_t)b * n_chunks + ch) * n_tiles + tile) *
+                                N_ENTRIES + e];
+        if (j < A) {
+          hcc[(b * A + i) * A + j] = acc;
+          hcc[(b * A + j) * A + i] = acc;
+        } else {
+          gc[b * A + i] = acc;
+        }
       }
       return;
     }
     b -= n_cams;
     // wcc of camera c and keys kt * RK, ...: the keys' directions first,
-    // then thread (row group ig, key kl) adds Gc rows ig and ig + 8 over
+    // then thread (row group ig, key kl) adds Gc rows ig, ig + 8, ... over
     // the camera's chunks and applies them
     const int n_kt = (n_keys + RK - 1) / RK;
     if (b < (long long)n_cams * n_kt) {
@@ -549,7 +608,7 @@ mixed_reduce_kernel(const float *__restrict__ kd,
         #pragma unroll 4
         for (int ch = 0; ch < n_chunks; ++ch) {
           const float *p = gc_part +
-              (((size_t)c * n_chunks + ch) * N_GC + 3 * i) * n_keys + k;
+              (((size_t)c * n_chunks + ch) * M::N_GC + 3 * i) * n_keys + k;
           #pragma unroll
           for (int a = 0; a < 3; ++a) s[a] += p[(size_t)a * n_keys];
         }
@@ -619,17 +678,19 @@ mixed_reduce_kernel(const float *__restrict__ kd,
 }
 
 // the first pass's dynamic shared memory, set on the kernel once
-template <int CW, bool FUSED>
+template <int INTR_W, int CW, bool FUSED>
 cudaError_t first_pass_smem(size_t &bytes) {
   constexpr int n_dirs = KeyDirs<CW>::SHARED ? KeyDirs<CW>::N : 0;
-  bytes = sizeof(float) * (ROWS_FLOATS + (Sums<FUSED>::N + n_dirs) * NT);
+  using Mo = Model<INTR_W>;
+  bytes = sizeof(float) * (Tiles<Mo>::ROWS_FLOATS +
+                           (Sums<Mo, FUSED>::N + n_dirs) * NT);
   static bool set = false;
   if (set) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
-      mixed_kernel<CW, FUSED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      mixed_kernel<INTR_W, CW, FUSED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(mixed_kernel<CW, FUSED>,
+    err = cudaFuncSetAttribute(mixed_kernel<INTR_W, CW, FUSED>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   set = err == cudaSuccess;
@@ -638,33 +699,35 @@ cudaError_t first_pass_smem(size_t &bytes) {
 
 // kd: the per-key group data (KD_ROWS, K) at cw 9 and 6; the free points
 // keyp (K, 3) at cw = 3.
-template <int CW>
+template <int INTR_W, int CW>
 int launch_mixed(const float *packed, const float *kd, const float *uv,
                  const float *mask, const float *cmask, const float *imask,
                  const float *kmask, int n_blocks, int n_keys, int loss,
                  int component, float f_scale, int chunk, float *gram,
                  float *wcc, float *wic, float *hkk, float *gk,
                  float *blk_part, float *hk_part, cudaStream_t st) {
+  if (n_blocks <= 0 || n_keys <= 0) return (int)cudaGetLastError();
   const int n_tiles = (n_keys + NT - 1) / NT;
   const int n_chunks = (n_blocks + chunk - 1) / chunk;
   size_t smem;
-  cudaError_t err = first_pass_smem<CW, false>(smem);
+  cudaError_t err = first_pass_smem<INTR_W, CW, false>(smem);
   if (err != cudaSuccess) return (int)err;
-  mixed_kernel<CW, false><<<dim3(n_tiles, n_chunks, 1), NT, smem, st>>>(
-      packed, kd, uv, mask, cmask, imask, kmask, n_blocks, n_keys, loss,
-      component, f_scale * f_scale, chunk, blk_part, nullptr, nullptr, wcc,
-      wic, hk_part);
+  mixed_kernel<INTR_W, CW, false>
+      <<<dim3(n_tiles, n_chunks, 1), NT, smem, st>>>(
+          packed, kd, uv, mask, cmask, imask, kmask, n_blocks, n_keys, loss,
+          component, f_scale * f_scale, chunk, blk_part, nullptr, nullptr,
+          wcc, wic, hk_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_red = n_blocks + (n_keys + HK_K - 1) / HK_K;
-  mixed_reduce_kernel<CW, false><<<n_red, RT, 0, st>>>(
+  mixed_reduce_kernel<INTR_W, CW, false><<<n_red, RT, 0, st>>>(
       kd, kmask, blk_part, nullptr, nullptr, hk_part, n_blocks, 1, n_tiles,
       n_chunks, n_keys, gram, nullptr, nullptr, nullptr, nullptr, nullptr,
       nullptr, nullptr, hkk, gk);
   return (int)cudaGetLastError();
 }
 
-template <int CW>
+template <int INTR_W, int CW>
 int launch_mixed_fused(const float *packed, const float *kd, const float *uv,
                        const float *mask, const float *cmask,
                        const float *imask, const float *kmask, int n_cams,
@@ -674,22 +737,25 @@ int launch_mixed_fused(const float *packed, const float *kd, const float *uv,
                        float *gi, float *corner, float *hkk, float *gk,
                        float *blk_part, float *cam_part, float *gc_part,
                        float *hk_part, cudaStream_t st) {
+  if (n_cams <= 0 || n_ims <= 0 || n_keys <= 0)
+    return (int)cudaGetLastError();
   const int n_tiles = (n_keys + NT - 1) / NT;
   const int n_chunks = (n_ims + chunk - 1) / chunk;
   size_t smem;
-  cudaError_t err = first_pass_smem<CW, true>(smem);
+  cudaError_t err = first_pass_smem<INTR_W, CW, true>(smem);
   if (err != cudaSuccess) return (int)err;
-  mixed_kernel<CW, true><<<dim3(n_tiles, n_chunks, n_cams), NT, smem, st>>>(
-      packed, kd, uv, mask, cmask, imask, kmask, n_ims, n_keys, loss,
-      component, f_scale * f_scale, chunk, blk_part, cam_part, gc_part,
-      nullptr, wic, hk_part);
+  mixed_kernel<INTR_W, CW, true>
+      <<<dim3(n_tiles, n_chunks, n_cams), NT, smem, st>>>(
+          packed, kd, uv, mask, cmask, imask, kmask, n_ims, n_keys, loss,
+          component, f_scale * f_scale, chunk, blk_part, cam_part, gc_part,
+          nullptr, wic, hk_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_blocks = n_cams * n_ims;
   const long long n_red = (long long)n_blocks + n_cams +
                           (long long)n_cams * ((n_keys + RK - 1) / RK) +
                           (n_keys + HK_K - 1) / HK_K;
-  mixed_reduce_kernel<CW, true><<<(unsigned)n_red, RT, 0, st>>>(
+  mixed_reduce_kernel<INTR_W, CW, true><<<(unsigned)n_red, RT, 0, st>>>(
       kd, kmask, blk_part, cam_part, gc_part, hk_part, n_blocks, n_cams,
       n_tiles, n_chunks, n_keys, nullptr, hcc, gc, wcc, wci, gii, gi, corner,
       hkk, gk);
@@ -700,9 +766,9 @@ int launch_mixed_fused(const float *packed, const float *kd, const float *uv,
 
 extern "C" {
 
-// Kernel F. packed (B, 96), kd (48, K), uv (B, K, 2), mask (B, K),
-// cmask (B, 15), imask (B, 6), kmask (K, cw), cw in {6, 9} -> gram
-// (B, 22, 22), wcc (B, 15 cw, K), wic (B, 6 cw, K), hkk (K, cw, cw),
+// Kernel F, standard model. packed (B, 96), kd (48, K), uv (B, K, 2),
+// mask (B, K), cmask (B, 15), imask (B, 6), kmask (K, cw), cw in {6, 9} ->
+// gram (B, 22, 22), wcc (B, 15 cw, K), wic (B, 6 cw, K), hkk (K, cw, cw),
 // gk (K, cw). Scratch: blk_part (ceil(K / 128), B, 253), hk_part
 // (ceil(B / chunk), 9, K).
 int pct_mixed_gram(const float *packed, const float *kd, const float *uv,
@@ -711,24 +777,25 @@ int pct_mixed_gram(const float *packed, const float *kd, const float *uv,
                    int loss, int component, float f_scale, int chunk,
                    float *gram, float *wcc, float *wic, float *hkk, float *gk,
                    float *blk_part, float *hk_part, void *stream) {
-  if (n_blocks <= 0 || n_keys <= 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
   if (cw == 9)
-    return launch_mixed<9>(packed, kd, uv, mask, cmask, imask, kmask,
-                           n_blocks, n_keys, loss, component, f_scale, chunk,
-                           gram, wcc, wic, hkk, gk, blk_part, hk_part, st);
+    return launch_mixed<9, 9>(packed, kd, uv, mask, cmask, imask, kmask,
+                              n_blocks, n_keys, loss, component, f_scale,
+                              chunk, gram, wcc, wic, hkk, gk, blk_part,
+                              hk_part, st);
   if (cw == 6)
-    return launch_mixed<6>(packed, kd, uv, mask, cmask, imask, kmask,
-                           n_blocks, n_keys, loss, component, f_scale, chunk,
-                           gram, wcc, wic, hkk, gk, blk_part, hk_part, st);
+    return launch_mixed<9, 6>(packed, kd, uv, mask, cmask, imask, kmask,
+                              n_blocks, n_keys, loss, component, f_scale,
+                              chunk, gram, wcc, wic, hkk, gk, blk_part,
+                              hk_part, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel E. Same inputs over B = n_cams * n_ims camera-major blocks ->
-// hcc (C, 15, 15), gc (C, 15), wcc (C, 15 cw, K), wic (B, 6 cw, K),
-// wci (B, 15, 6), gii (B, 6, 6), gi (B, 6), corner (B,), hkk (K, cw, cw),
-// gk (K, cw). Scratch: blk_part (ceil(K / 128), B, 253), cam_part
-// (C, ceil(n_ims / chunk), ceil(K / 128), 253), wcc_part
+// Kernel E, standard model. Same inputs over B = n_cams * n_ims
+// camera-major blocks -> hcc (C, 15, 15), gc (C, 15), wcc (C, 15 cw, K),
+// wic (B, 6 cw, K), wci (B, 15, 6), gii (B, 6, 6), gi (B, 6), corner (B,),
+// hkk (K, cw, cw), gk (K, cw). Scratch: blk_part (ceil(K / 128), B, 253),
+// cam_part (C, ceil(n_ims / chunk), ceil(K / 128), 253), wcc_part
 // (C, ceil(n_ims / chunk), 45, K), hk_part (C * ceil(n_ims / chunk), 9, K).
 int pct_mixed_gram_fused(const float *packed, const float *kd,
                          const float *uv, const float *mask,
@@ -740,28 +807,55 @@ int pct_mixed_gram_fused(const float *packed, const float *kd,
                          float *corner, float *hkk, float *gk,
                          float *blk_part, float *cam_part, float *wcc_part,
                          float *hk_part, void *stream) {
-  if (n_cams <= 0 || n_ims <= 0 || n_keys <= 0)
-    return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
   if (cw == 9)
-    return launch_mixed_fused<9>(packed, kd, uv, mask, cmask, imask, kmask,
-                                 n_cams, n_ims, n_keys, loss, component,
-                                 f_scale, chunk, hcc, gc, wcc, wic, wci, gii,
-                                 gi, corner, hkk, gk, blk_part, cam_part,
-                                 wcc_part, hk_part, st);
+    return launch_mixed_fused<9, 9>(packed, kd, uv, mask, cmask, imask,
+                                    kmask, n_cams, n_ims, n_keys, loss,
+                                    component, f_scale, chunk, hcc, gc, wcc,
+                                    wic, wci, gii, gi, corner, hkk, gk,
+                                    blk_part, cam_part, wcc_part, hk_part,
+                                    st);
   if (cw == 6)
-    return launch_mixed_fused<6>(packed, kd, uv, mask, cmask, imask, kmask,
-                                 n_cams, n_ims, n_keys, loss, component,
-                                 f_scale, chunk, hcc, gc, wcc, wic, wci, gii,
-                                 gi, corner, hkk, gk, blk_part, cam_part,
-                                 wcc_part, hk_part, st);
+    return launch_mixed_fused<9, 6>(packed, kd, uv, mask, cmask, imask,
+                                    kmask, n_cams, n_ims, n_keys, loss,
+                                    component, f_scale, chunk, hcc, gc, wcc,
+                                    wic, wci, gii, gi, corner, hkk, gk,
+                                    blk_part, cam_part, wcc_part, hk_part,
+                                    st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel D: Kernel F at cw = 3. packed (B, 96), keyp (K, 3), uv (B, K, 2),
-// mask (B, K), cmask (B, 15), imask (B, 6), kmask (K, 3) -> gram
-// (B, 22, 22), wck (B, 45, K), wik (B, 18, K), hkk (K, 3, 3), gk (K, 3).
-// Scratch: blk_part (ceil(K / 128), B, 253), hk_part (ceil(B / chunk), 9, K).
+// Kernel D at intrinsic width intr_w (8, 9, 12, 16, 18; a = intr_w + 6,
+// W = a + 7): Kernel F at cw = 3. packed (B, PPB) of that width's layout,
+// keyp (K, 3), uv (B, K, 2), mask (B, K), cmask (B, a), imask (B, 6),
+// kmask (K, 3) -> gram (B, W, W), wck (B, 3a, K), wik (B, 18, K),
+// hkk (K, 3, 3), gk (K, 3). Scratch: blk_part (ceil(K / 128), B,
+// W (W + 1) / 2), hk_part (ceil(B / chunk), 9, K). Another width returns
+// cudaErrorInvalidValue and launches nothing.
+int pct_selfcal_gram_model(int intr_w, const float *packed,
+                           const float *keyp, const float *uv,
+                           const float *mask, const float *cmask,
+                           const float *imask, const float *kmask,
+                           int n_blocks, int n_keys, int loss, int component,
+                           float f_scale, int chunk, float *gram, float *wck,
+                           float *wik, float *hkk, float *gk,
+                           float *blk_part, float *hk_part, void *stream) {
+  switch (intr_w) {
+#define PCT_CASE(IW)                                                        \
+  case IW:                                                                  \
+    return launch_mixed<IW, 3>(packed, keyp, uv, mask, cmask, imask, kmask, \
+                               n_blocks, n_keys, loss, component, f_scale,  \
+                               chunk, gram, wck, wik, hkk, gk, blk_part,    \
+                               hk_part, (cudaStream_t)stream);
+    PCT_CASE(8) PCT_CASE(9) PCT_CASE(12) PCT_CASE(16) PCT_CASE(18)
+#undef PCT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel D, standard model: pct_selfcal_gram_model at intr_w 9 (packed
+// (B, 96), gram (B, 22, 22), wck (B, 45, K), blk_part (..., 253)).
 int pct_selfcal_gram(const float *packed, const float *keyp, const float *uv,
                      const float *mask, const float *cmask,
                      const float *imask, const float *kmask, int n_blocks,
@@ -769,20 +863,44 @@ int pct_selfcal_gram(const float *packed, const float *keyp, const float *uv,
                      int chunk, float *gram, float *wck, float *wik,
                      float *hkk, float *gk, float *blk_part, float *hk_part,
                      void *stream) {
-  if (n_blocks <= 0 || n_keys <= 0) return (int)cudaGetLastError();
-  return launch_mixed<3>(packed, keyp, uv, mask, cmask, imask, kmask,
-                         n_blocks, n_keys, loss, component, f_scale, chunk,
-                         gram, wck, wik, hkk, gk, blk_part, hk_part,
-                         (cudaStream_t)stream);
+  return launch_mixed<9, 3>(packed, keyp, uv, mask, cmask, imask, kmask,
+                            n_blocks, n_keys, loss, component, f_scale,
+                            chunk, gram, wck, wik, hkk, gk, blk_part,
+                            hk_part, (cudaStream_t)stream);
 }
 
-// Kernel C: Kernel E at cw = 3, with no cmask. Same inputs over B = n_cams
-// * n_ims camera-major blocks -> hcc (C, 15, 15), gc (C, 15), wck
-// (C, 45, K), wik (B, 18, K), wci (B, 15, 6), gii (B, 6, 6), gi (B, 6),
-// corner (B,), hkk (K, 3, 3), gk (K, 3). Scratch: blk_part
-// (ceil(K / 128), B, 253), cam_part (C, ceil(n_ims / chunk),
-// ceil(K / 128), 253), wck_part (C, ceil(n_ims / chunk), 45, K), hk_part
-// (C * ceil(n_ims / chunk), 9, K).
+// Kernel C at intrinsic width intr_w: Kernel E at cw = 3, with no cmask.
+// Same inputs over B = n_cams * n_ims camera-major blocks -> hcc (C, a, a),
+// gc (C, a), wck (C, 3a, K), wik (B, 18, K), wci (B, a, 6), gii (B, 6, 6),
+// gi (B, 6), corner (B,), hkk (K, 3, 3), gk (K, 3). Scratch: blk_part
+// (ceil(K / 128), B, W (W + 1) / 2), cam_part (C, ceil(n_ims / chunk),
+// ceil(K / 128), W (W + 1) / 2), wck_part (C, ceil(n_ims / chunk), 3a, K),
+// hk_part (C * ceil(n_ims / chunk), 9, K). Another width returns
+// cudaErrorInvalidValue and launches nothing.
+int pct_selfcal_gram_fused_model(
+    int intr_w, const float *packed, const float *keyp, const float *uv,
+    const float *mask, const float *imask, const float *kmask, int n_cams,
+    int n_ims, int n_keys, int loss, int component, float f_scale, int chunk,
+    float *hcc, float *gc, float *wck, float *wik, float *wci, float *gii,
+    float *gi, float *corner, float *hkk, float *gk, float *blk_part,
+    float *cam_part, float *wck_part, float *hk_part, void *stream) {
+  switch (intr_w) {
+#define PCT_CASE(IW)                                                        \
+  case IW:                                                                  \
+    return launch_mixed_fused<IW, 3>(                                       \
+        packed, keyp, uv, mask, nullptr, imask, kmask, n_cams, n_ims,       \
+        n_keys, loss, component, f_scale, chunk, hcc, gc, wck, wik, wci,    \
+        gii, gi, corner, hkk, gk, blk_part, cam_part, wck_part, hk_part,    \
+        (cudaStream_t)stream);
+    PCT_CASE(8) PCT_CASE(9) PCT_CASE(12) PCT_CASE(16) PCT_CASE(18)
+#undef PCT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel C, standard model: pct_selfcal_gram_fused_model at intr_w 9
+// (hcc (C, 15, 15), wck (C, 45, K), scratch entries 253).
 int pct_selfcal_gram_fused(const float *packed, const float *keyp,
                            const float *uv, const float *mask,
                            const float *imask, const float *kmask, int n_cams,
@@ -792,13 +910,12 @@ int pct_selfcal_gram_fused(const float *packed, const float *keyp,
                            float *gi, float *corner, float *hkk, float *gk,
                            float *blk_part, float *cam_part, float *wck_part,
                            float *hk_part, void *stream) {
-  if (n_cams <= 0 || n_ims <= 0 || n_keys <= 0)
-    return (int)cudaGetLastError();
-  return launch_mixed_fused<3>(packed, keyp, uv, mask, nullptr, imask, kmask,
-                               n_cams, n_ims, n_keys, loss, component,
-                               f_scale, chunk, hcc, gc, wck, wik, wci, gii,
-                               gi, corner, hkk, gk, blk_part, cam_part,
-                               wck_part, hk_part, (cudaStream_t)stream);
+  return launch_mixed_fused<9, 3>(packed, keyp, uv, mask, nullptr, imask,
+                                  kmask, n_cams, n_ims, n_keys, loss,
+                                  component, f_scale, chunk, hcc, gc, wck,
+                                  wik, wci, gii, gi, corner, hkk, gk,
+                                  blk_part, cam_part, wck_part, hk_part,
+                                  (cudaStream_t)stream);
 }
 
 }  // extern "C"

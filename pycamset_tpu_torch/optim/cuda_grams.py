@@ -191,8 +191,8 @@ def scaled_errors_fused(got, ref, ref_gram: torch.Tensor, n_cams: int,
 def _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, widths=(15,), **masks):
     """Raise unless the kernel takes these tensors as they are. ``tpl`` is
     the (K, 3) point table (the template, or the free points); ``widths``
-    the camera widths the kernel is built at (Kernels C-F: the standard
-    model's 15); ``masks`` are column masks among cmask_b (B, a),
+    the camera widths the kernel is built at (Kernels E and F: the
+    standard model's 15); ``masks`` are column masks among cmask_b (B, a),
     imask_b (B, 6), kmask (K, 3)."""
     tensors = {"cam_b": cam_b, "im_b": im_b, "tpl": tpl, "uv": uv,
                "mask": mask, **masks}

@@ -51,7 +51,7 @@ from pycamset_tpu_torch.optim.cuda_grams import (
     GRAM_W, _check_cuda_inputs, _jacobi_scale, _loss_args, _ptr, _raise_on,
     _worst, pack_block_params, reduce_grams)
 from pycamset_tpu_torch.optim.cuda_selfcal_grams import (
-    N_ENTRIES, _empty_like_grid, _grid_dims, scaled_errors_selfcal,
+    _empty_like_grid, _grid_dims, gram_entries, scaled_errors_selfcal,
     scaled_errors_selfcal_fused, weighted_grams)
 
 KD_ROWS = 48        # pack_key_group_data rows (the JAX layout)
@@ -59,6 +59,7 @@ MIXED_CHUNK = 12    # images of one camera per thread block in Kernel E
 MIXED_CHUNK_F = 8   # blocks per thread block in Kernel F
 N_GC = 45           # Kernel E's per-key sums of g over a chunk (csrc N_GC)
 N_HK = 9            # per-key sums of g for hkk and gk (csrc N_HK)
+N_ENTRIES = gram_entries(15)  # the standard model's gram entries: 253
 
 # the outputs of Kernels E/F have the self-cal kernels' layouts (c = cw)
 scaled_errors_mixed = scaled_errors_selfcal

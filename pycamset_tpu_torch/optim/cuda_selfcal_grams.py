@@ -6,7 +6,10 @@ Extrinsic3D + RigidTform3d + FreePoint (the K target points are unknowns
 beside the cameras and the poses). Two hand-written Hopper kernels replace
 its two Pallas kernels: the key width 3 instantiation of the multi-target
 kernels of ``csrc/mixed_grams.cu`` (the free point's three columns, no
-group pose), entry points ``pct_selfcal_gram{,_fused}``:
+group pose), built at the five camera models' widths as the JAX kernels
+are (``TEMPLATE_WIDTHS``: a = 15 standard, entry points
+``pct_selfcal_gram{,_fused}``; a = 14 fisheye, 18 rational, 22 thin-prism,
+24 tilted through ``pct_selfcal_gram{,_fused}_model``):
 
 - Kernel C, ``selfcal_gram_fused`` <- ``make_pallas_selfcal_grams_fused``:
   hcc, gc and the point couplings wck = Jc^T Jk summed over each camera's
@@ -14,19 +17,21 @@ group pose), entry points ``pct_selfcal_gram{,_fused}``:
   and gk = Jk^T r over all blocks. The pose columns see imask in the kernel;
   the camera columns are masked after the reduction, by the builder.
 - Kernel D, ``selfcal_gram`` <- ``make_pallas_selfcal_grams``: the per-block
-  extended gram (22 x 22) with every camera and pose column masked in the
-  kernel, the per-(block, key) couplings wck_b and wik_b, and hkk/gk over
-  all blocks.
+  extended gram (W x W, W = a + 7) with every camera and pose column masked
+  in the kernel, the per-(block, key) couplings wck_b and wik_b, and
+  hkk/gk over all blocks.
 
 Each wrapper takes the same tensors on either device. A CPU tensor runs the
 plain PyTorch twin (``selfcal_gram_plain``, ``selfcal_gram_fused_plain``:
 ``analytic.block_rj_selfcal``, ``losses.irls_weigh`` and batched products).
-A CUDA tensor launches the kernel or raises: there is no fallback. Each
-wrapper counts its launches in ``<wrapper>.launches``.
+A CUDA tensor launches the kernel or raises: there is no fallback, and a
+camera width outside ``TEMPLATE_WIDTHS`` raises. Each wrapper counts its
+launches in ``<wrapper>.launches``, and by camera width in
+``<wrapper>.launches_by_width``.
 
 The builders ``make_cuda_selfcal_grams`` and ``make_cuda_selfcal_grams_fused``
 keep the JAX builders' contracts (the 10-tuple of ``make_block_grams``, and
-the ten reduced NormalEq fields). Standard camera model (a = 15) only.
+the ten reduced NormalEq fields), at each of those widths.
 
 ``scaled_errors_selfcal`` and ``scaled_errors_selfcal_fused`` hold a
 kernel's outputs against its twin's entry by entry, in the Jacobi scaling
@@ -57,25 +62,31 @@ from __future__ import annotations
 import torch
 
 from pycamset_tpu_torch.optim.cuda_grams import (
-    GRAM_W, _check_cuda_inputs, _jacobi_scale, _loss_args, _ptr, _raise_on,
-    _worst, pack_block_params, reduce_grams, scaled_errors,
-    scaled_errors_fused)
+    TEMPLATE_WIDTHS, _check_cuda_inputs, _jacobi_scale, _loss_args,
+    _model_entry, _ptr, _raise_on, _worst, pack_block_params, reduce_grams,
+    scaled_errors, scaled_errors_fused)
 
 SELFCAL_CHUNK = 10    # images of one camera per thread block in Kernel C
 SELFCAL_CHUNK_D = 6   # blocks per thread block in Kernel D
 KEY_TILE = 128        # keys per thread block (csrc NT)
-N_ENTRIES = GRAM_W * (GRAM_W + 1) // 2
+
+
+def gram_entries(a: int) -> int:
+    """The (a + 7)-wide extended gram's upper-triangle entries: 253 at the
+    standard model's a = 15."""
+    return (a + 7) * (a + 8) // 2
 
 
 def _check_widths(widths, b: int = 6):
-    """The standard self-calibration chain (a=15, b=6, c=3), or with
-    ``b=0`` the pose-free free-point chain (a=15, b=0, c=3)."""
-    if (widths.a, widths.b, widths.c) != (15, b, 3):
+    """The self-calibration chain (b=6, c=3), or with ``b=0`` the pose-free
+    free-point chain (b=0, c=3), at a camera width a in
+    ``TEMPLATE_WIDTHS``."""
+    if (widths.b, widths.c) != (b, 3) or widths.a not in TEMPLATE_WIDTHS:
         chain = "self-calibration" if b else "free-point"
         raise NotImplementedError(
             f"widths {widths} are not ported yet: the self-cal kernels serve "
-            f"the standard {chain} chain (a=15, b={b}, c=3); ROADMAP "
-            f"Queue A item 7 lists the other camera widths")
+            f"the {chain} chain (b={b}, c=3) at the camera widths "
+            f"{TEMPLATE_WIDTHS}; ROADMAP Queue A item 7 lists the others")
 
 
 def selfcal_gram_plain(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask,
@@ -83,10 +94,11 @@ def selfcal_gram_plain(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask,
                        loss_semantics: str = "component"):
     """Plain twin of Kernel D.
 
-    :return: (g (B, 22, 22) extended grams of [Jc | Ji | r], IRLS-weighted
-        rows, camera columns masked by cmask_b and pose columns by imask_b,
-        corner = the block's (robust) cost; wck_b (B, K, 15, 3);
-        wik_b (B, K, 6, 3); hkk (K, 3, 3); gk (K, 3)), Jk masked by kmask.
+    :return: (g (B, W, W) extended grams of [Jc | Ji | r], W = a + 7,
+        IRLS-weighted rows, camera columns masked by cmask_b and pose
+        columns by imask_b, corner = the block's (robust) cost;
+        wck_b (B, K, a, 3); wik_b (B, K, 6, 3); hkk (K, 3, 3); gk (K, 3)),
+        Jk masked by kmask.
     """
     from pycamset_tpu_torch.optim.analytic import block_rj_selfcal
     return weighted_grams(*block_rj_selfcal(cam_b, im_b, keyp, uv), mask,
@@ -99,18 +111,19 @@ def weighted_grams(r, jc, ji, jk, mask, cmask_b, imask_b, kmask,
                    loss_semantics: str = "component"):
     """The per-block grams of a chain with key columns, from its closed-form
     (r, Jc, Ji, Jk) over the (B, K) grid: IRLS-weighted rows, the camera,
-    pose and key columns masked, the extended (B, 22, 22) gram with the
-    (robust) cost in its corner, and the key couplings (the outputs of
-    ``selfcal_gram_plain``, with c = Jk's width)."""
+    pose and key columns masked, the extended (B, W, W) gram (W = a + b + 1)
+    with the (robust) cost in its corner, and the key couplings (the
+    outputs of ``selfcal_gram_plain``, with c = Jk's width)."""
     from pycamset_tpu_torch.optim.losses import irls_weigh
     r, sw, cost_b = irls_weigh(r, mask, loss, f_scale, loss_semantics)
     jc = jc * sw[..., None] * cmask_b[:, None, None, :]
     ji = ji * sw[..., None] * imask_b[:, None, None, :]
     jk = jk * sw[..., None] * kmask[None, :, None, :]
     ext = torch.cat([jc, ji, r[..., None]], dim=-1)
-    ext = ext.reshape(ext.shape[0], -1, GRAM_W)
+    gw = ext.shape[-1]
+    ext = ext.reshape(ext.shape[0], -1, gw)
     g = ext.transpose(1, 2) @ ext
-    g[:, GRAM_W - 1, GRAM_W - 1] = cost_b
+    g[:, gw - 1, gw - 1] = cost_b
     return (g, torch.einsum("bkti,bktj->bkij", jc, jk),
             torch.einsum("bkti,bktj->bkij", ji, jk),
             torch.einsum("bkti,bktj->kij", jk, jk),
@@ -123,8 +136,8 @@ def selfcal_gram_fused_plain(cam_b, im_b, keyp, uv, mask, imask_b, kmask,
                              loss_semantics: str = "component"):
     """Plain twin of Kernel C: Kernel D's twin with no camera mask, reduced.
 
-    :return: (hcc (C,15,15), gc (C,15), wck (C,K,15,3), wik_b (B,K,6,3),
-        wci (B,15,6), gii (B,6,6), gi (B,6), corner (B,), hkk (K,3,3),
+    :return: (hcc (C,a,a), gc (C,a), wck (C,K,a,3), wik_b (B,K,6,3),
+        wci (B,a,6), gii (B,6,6), gi (B,6), corner (B,), hkk (K,3,3),
         gk (K,3)).
     """
     ones = cam_b.new_ones(cam_b.shape)
@@ -152,11 +165,12 @@ def scaled_errors_selfcal(got, ref) -> dict:
     ref = [r.double() for r in ref]
     got = [g.double().to(r.device) for g, r in zip(got, ref)]
     out = scaled_errors(got[0], ref[0])
+    a = ref[0].shape[-1] - 7
     s_b = _jacobi_scale(torch.diagonal(ref[0], dim1=1, dim2=2))
     s_k = _jacobi_scale(torch.diagonal(ref[3], dim1=1, dim2=2))
-    out["wck"] = _worst((got[1] - ref[1]) / (s_b[:, None, :15, None]
+    out["wck"] = _worst((got[1] - ref[1]) / (s_b[:, None, :a, None]
                                              * s_k[None, :, None, :]))
-    out["wik"] = _worst((got[2] - ref[2]) / (s_b[:, None, 15:21, None]
+    out["wik"] = _worst((got[2] - ref[2]) / (s_b[:, None, a:a + 6, None]
                                              * s_k[None, :, None, :]))
     out.update(_key_errors(got[3], got[4], ref[3], ref[4],
                            ref[0][:, -1, -1].sum()))
@@ -167,8 +181,8 @@ def scaled_errors_selfcal_fused(got, ref, ref_gram: torch.Tensor,
                                 n_cams: int, n_ims: int) -> dict:
     """Worst error of Kernel C's outputs against reference outputs, per
     output, in the Jacobi scaling: hcc, gc and the per-block pose pieces as
-    ``cuda_grams.scaled_errors_fused`` (``ref_gram``: the reference (B, 22,
-    22) grams of the same inputs, camera columns unmasked); wck by
+    ``cuda_grams.scaled_errors_fused`` (``ref_gram``: the reference (B, W,
+    W) grams of the same inputs, camera columns unmasked); wck by
     sqrt(hcc_ii hkk_pp) with the camera's reduced diagonal; wik by
     sqrt(gii_bb hkk_pp) with the block's; hkk and gk as ``_key_errors``."""
     ref = [r.double() for r in ref]
@@ -182,9 +196,10 @@ def scaled_errors_selfcal_fused(got, ref, ref_gram: torch.Tensor,
     s_c = _jacobi_scale(torch.diagonal(r_hcc, dim1=1, dim2=2))
     s_b = _jacobi_scale(torch.diagonal(ref_gram.double(), dim1=1, dim2=2))
     s_k = _jacobi_scale(torch.diagonal(r_hkk, dim1=1, dim2=2))
+    a = r_hcc.shape[-1]
     out["wck"] = _worst((wck - r_wck) / (s_c[:, None, :, None]
                                          * s_k[None, :, None, :]))
-    out["wik"] = _worst((wik - r_wik) / (s_b[:, None, 15:21, None]
+    out["wik"] = _worst((wik - r_wik) / (s_b[:, None, a:a + 6, None]
                                          * s_k[None, :, None, :]))
     out.update(_key_errors(hkk, gk, r_hkk, r_gk, r_corner.sum()))
     return out
@@ -207,52 +222,59 @@ def _grid_dims(mask, group: int, chunk: int):
 def selfcal_gram(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask,
                  loss: str = "linear", f_scale: float = 1.0,
                  loss_semantics: str = "component"):
-    """Kernel D: (g (B,22,22), wck_b (B,K,15,3), wik_b (B,K,6,3),
+    """Kernel D: (g (B,W,W), wck_b (B,K,a,3), wik_b (B,K,6,3),
     hkk (K,3,3), gk (K,3)), the outputs of ``selfcal_gram_plain``.
 
-    :param cam_b: (B, 15). :param im_b: (B, 6). :param keyp: (K, 3) free
-        points. :param uv: (B, K, 2). :param mask: (B, K).
-        :param cmask_b: (B, 15). :param imask_b: (B, 6). :param kmask: (K, 3).
+    :param cam_b: (B, a), a in ``TEMPLATE_WIDTHS``. :param im_b: (B, 6).
+        :param keyp: (K, 3) free points. :param uv: (B, K, 2).
+        :param mask: (B, K). :param cmask_b: (B, a). :param imask_b: (B, 6).
+        :param kmask: (K, 3).
     """
     if cam_b.device.type == "cpu":
         return selfcal_gram_plain(cam_b, im_b, keyp, uv, mask, cmask_b,
                                   imask_b, kmask, loss, f_scale,
                                   loss_semantics)
     loss_id, component = _loss_args(loss, loss_semantics)
-    _check_cuda_inputs(cam_b, im_b, keyp, uv, mask, cmask_b=cmask_b,
-                       imask_b=imask_b, kmask=kmask)
+    _check_cuda_inputs(cam_b, im_b, keyp, uv, mask, widths=TEMPLATE_WIDTHS,
+                       cmask_b=cmask_b, imask_b=imask_b, kmask=kmask)
     with torch.cuda.device(cam_b.device):
         out = _launch_selfcal(pack_block_params(cam_b, im_b), keyp, uv, mask,
                               cmask_b, imask_b, kmask, loss_id, component,
-                              f_scale)
+                              f_scale, cam_b.shape[1] - 6)
     selfcal_gram.launches += 1
+    selfcal_gram.launches_by_width[cam_b.shape[1]] += 1
     return out
 
 
 selfcal_gram.launches = 0
+selfcal_gram.launches_by_width = dict.fromkeys(TEMPLATE_WIDTHS, 0)
 
 
 def _launch_selfcal(packed, keyp, uv, mask, cmask_b, imask_b, kmask, loss_id,
-                    component, f_scale):
+                    component, f_scale, intr_w: int = 9):
     """Allocate Kernel D's outputs and scratch and launch its two passes on
-    the current stream (inputs already checked)."""
+    the current stream (inputs already checked; ``packed`` from
+    pack_block_params at ``intr_w``)."""
     from pycamset_tpu_torch._build import load
     bb = mask.shape[0]
+    a = intr_w + 6
+    gw = a + 7
     chunk = SELFCAL_CHUNK_D
     k, n_tiles, n_chunks = _grid_dims(mask, bb, chunk)
     empty = _empty_like_grid(mask)
-    g, wck, wik = empty(bb, GRAM_W, GRAM_W), empty(bb, 45, k), empty(bb, 18, k)
+    g, wck, wik = empty(bb, gw, gw), empty(bb, 3 * a, k), empty(bb, 18, k)
     hkk, gk = empty(k, 3, 3), empty(k, 3)
-    blk_part, hk_part = empty(n_tiles, bb, N_ENTRIES), empty(n_chunks, 9, k)
-    rc = load().lib.pct_selfcal_gram(
+    blk_part = empty(n_tiles, bb, gram_entries(a))
+    hk_part = empty(n_chunks, 9, k)
+    rc = _model_entry(load().lib, "pct_selfcal_gram", intr_w)(
         _ptr(packed), _ptr(keyp), _ptr(uv), _ptr(mask), _ptr(cmask_b),
         _ptr(imask_b), _ptr(kmask), bb, k, loss_id, component,
         float(f_scale), chunk, _ptr(g), _ptr(wck), _ptr(wik),
         _ptr(hkk), _ptr(gk), _ptr(blk_part), _ptr(hk_part),
         torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "selfcal_gram")
-    # (B, 45 | 18, K) rows, written coalesced -> (B, K, 15 | 6, 3) views
-    return (g, wck.transpose(1, 2).reshape(bb, k, 15, 3),
+    # (B, 3a | 18, K) rows, written coalesced -> (B, K, a | 6, 3) views
+    return (g, wck.transpose(1, 2).reshape(bb, k, a, 3),
             wik.transpose(1, 2).reshape(bb, k, 6, 3), hkk, gk)
 
 
@@ -261,46 +283,54 @@ def selfcal_gram_fused(cam_b, im_b, keyp, uv, mask, imask_b, kmask,
                        f_scale: float = 1.0,
                        loss_semantics: str = "component"):
     """Kernel C: the outputs of ``selfcal_gram_fused_plain`` over
-    B = n_cams * n_ims camera-major blocks; any n_ims, no padding."""
+    B = n_cams * n_ims camera-major blocks; any n_ims, no padding; a in
+    ``TEMPLATE_WIDTHS``."""
     if cam_b.device.type == "cpu":
         return selfcal_gram_fused_plain(cam_b, im_b, keyp, uv, mask, imask_b,
                                         kmask, n_cams, n_ims, loss, f_scale,
                                         loss_semantics)
     loss_id, component = _loss_args(loss, loss_semantics)
-    _check_cuda_inputs(cam_b, im_b, keyp, uv, mask, imask_b=imask_b,
-                       kmask=kmask)
+    _check_cuda_inputs(cam_b, im_b, keyp, uv, mask, widths=TEMPLATE_WIDTHS,
+                       imask_b=imask_b, kmask=kmask)
     if mask.shape[0] != n_cams * n_ims:
         raise ValueError(f"{mask.shape[0]} blocks, expected {n_cams} x "
                          f"{n_ims}")
     with torch.cuda.device(cam_b.device):
         out = _launch_selfcal_fused(pack_block_params(cam_b, im_b), keyp, uv,
                                     mask, imask_b, kmask, n_cams, n_ims,
-                                    loss_id, component, f_scale)
+                                    loss_id, component, f_scale,
+                                    cam_b.shape[1] - 6)
     selfcal_gram_fused.launches += 1
+    selfcal_gram_fused.launches_by_width[cam_b.shape[1]] += 1
     return out
 
 
 selfcal_gram_fused.launches = 0
+selfcal_gram_fused.launches_by_width = dict.fromkeys(TEMPLATE_WIDTHS, 0)
 
 
 def _launch_selfcal_fused(packed, keyp, uv, mask, imask_b, kmask, n_cams,
-                          n_ims, loss_id, component, f_scale):
+                          n_ims, loss_id, component, f_scale,
+                          intr_w: int = 9):
     """Allocate Kernel C's outputs and scratch and launch its two passes on
-    the current stream (inputs already checked)."""
+    the current stream (inputs already checked; ``packed`` from
+    pack_block_params at ``intr_w``)."""
     from pycamset_tpu_torch._build import load
     bb = mask.shape[0]
+    a = intr_w + 6
+    n_entries = gram_entries(a)
     chunk = SELFCAL_CHUNK
     k, n_tiles, n_chunks = _grid_dims(mask, n_ims, chunk)
     empty = _empty_like_grid(mask)
-    hcc, gc, wck = empty(n_cams, 15, 15), empty(n_cams, 15), empty(n_cams,
-                                                                   45, k)
-    wik, wci, gii = empty(bb, 18, k), empty(bb, 15, 6), empty(bb, 6, 6)
+    hcc, gc, wck = empty(n_cams, a, a), empty(n_cams, a), empty(n_cams,
+                                                                3 * a, k)
+    wik, wci, gii = empty(bb, 18, k), empty(bb, a, 6), empty(bb, 6, 6)
     gi, corner, hkk, gk = empty(bb, 6), empty(bb), empty(k, 3, 3), empty(k, 3)
-    blk_part = empty(n_tiles, bb, N_ENTRIES)
-    cam_part = empty(n_cams, n_chunks, n_tiles, N_ENTRIES)
-    wck_part = empty(n_cams, n_chunks, 45, k)
+    blk_part = empty(n_tiles, bb, n_entries)
+    cam_part = empty(n_cams, n_chunks, n_tiles, n_entries)
+    wck_part = empty(n_cams, n_chunks, 3 * a, k)
     hk_part = empty(n_cams * n_chunks, 9, k)
-    rc = load().lib.pct_selfcal_gram_fused(
+    rc = _model_entry(load().lib, "pct_selfcal_gram_fused", intr_w)(
         _ptr(packed), _ptr(keyp), _ptr(uv), _ptr(mask), _ptr(imask_b),
         _ptr(kmask), n_cams, n_ims, k, loss_id, component, float(f_scale),
         chunk, _ptr(hcc), _ptr(gc), _ptr(wck), _ptr(wik), _ptr(wci),
@@ -308,7 +338,7 @@ def _launch_selfcal_fused(packed, keyp, uv, mask, imask_b, kmask, n_cams,
         _ptr(blk_part), _ptr(cam_part), _ptr(wck_part), _ptr(hk_part),
         torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "selfcal_gram_fused")
-    return (hcc, gc, wck.transpose(1, 2).reshape(n_cams, k, 15, 3),
+    return (hcc, gc, wck.transpose(1, 2).reshape(n_cams, k, a, 3),
             wik.transpose(1, 2).reshape(bb, k, 6, 3), wci, gii, gi, corner,
             hkk, gk)
 
@@ -323,7 +353,8 @@ def make_cuda_selfcal_grams(widths, loss: str = "linear",
     column mask is applied in the kernel (tpl is not read).
     """
     _check_widths(widths)
-    a, w = 15, GRAM_W - 1
+    a = widths.a
+    w = a + 6
 
     def grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask):
         g, wck_b, wik_b, hkk, gk = selfcal_gram(
@@ -383,8 +414,8 @@ def freepoint_gram_plain(cam_b, keyp, uv, mask, cmask_b, kmask,
     """Plain twin of ``freepoint_gram``: ``selfcal_gram_plain`` at identity
     poses with every pose column masked, the pose outputs stripped.
 
-    :return: (gcc_b (B,15,15), gc_b (B,15), corner (B,) the block's
-        (robust) cost, wck_b (B,K,15,3), hkk (K,3,3), gk (K,3)).
+    :return: (gcc_b (B,a,a), gc_b (B,a), corner (B,) the block's
+        (robust) cost, wck_b (B,K,a,3), hkk (K,3,3), gk (K,3)).
     """
     im0, imask0 = _identity_poses(cam_b)
     g, wck_b, _, hkk, gk = selfcal_gram_plain(
@@ -395,7 +426,8 @@ def freepoint_gram_plain(cam_b, keyp, uv, mask, cmask_b, kmask,
 
 def _strip_pose(g, wck_b, hkk, gk):
     """Kernel D's outputs without the pose columns (views of g)."""
-    a, w = 15, GRAM_W - 1
+    w = g.shape[-1] - 1
+    a = w - 6
     return g[:, :a, :a], g[:, :a, w], g[:, w, w], wck_b, hkk, gk
 
 
@@ -407,7 +439,7 @@ def freepoint_gram_fused_plain(cam_b, keyp, uv, mask, kmask, n_cams: int,
     at identity poses with every pose column masked, the pose outputs
     stripped.
 
-    :return: (hcc (C,15,15), gc (C,15), wck (C,K,15,3), corner (B,),
+    :return: (hcc (C,a,a), gc (C,a), wck (C,K,a,3), corner (B,),
         hkk (K,3,3), gk (K,3)), camera columns unmasked.
     """
     im0, imask0 = _identity_poses(cam_b)
@@ -423,26 +455,28 @@ def freepoint_gram(cam_b, keyp, uv, mask, cmask_b, kmask,
                    loss_semantics: str = "component"):
     """Kernel D at identity poses: the outputs of ``freepoint_gram_plain``.
 
-    :param cam_b: (B, 15). :param keyp: (K, 3) free points.
-        :param uv: (B, K, 2). :param mask: (B, K). :param cmask_b: (B, 15).
-        :param kmask: (K, 3).
+    :param cam_b: (B, a), a in ``TEMPLATE_WIDTHS``. :param keyp: (K, 3)
+        free points. :param uv: (B, K, 2). :param mask: (B, K).
+        :param cmask_b: (B, a). :param kmask: (K, 3).
     """
     if cam_b.device.type == "cpu":
         return freepoint_gram_plain(cam_b, keyp, uv, mask, cmask_b, kmask,
                                     loss, f_scale, loss_semantics)
     loss_id, component = _loss_args(loss, loss_semantics)
     im0, imask0 = _identity_poses(cam_b)
-    _check_cuda_inputs(cam_b, im0, keyp, uv, mask, cmask_b=cmask_b,
-                       imask_b=imask0, kmask=kmask)
+    _check_cuda_inputs(cam_b, im0, keyp, uv, mask, widths=TEMPLATE_WIDTHS,
+                       cmask_b=cmask_b, imask_b=imask0, kmask=kmask)
     with torch.cuda.device(cam_b.device):
         g, wck_b, _, hkk, gk = _launch_selfcal(
             pack_block_params(cam_b, im0), keyp, uv, mask, cmask_b, imask0,
-            kmask, loss_id, component, f_scale)
+            kmask, loss_id, component, f_scale, cam_b.shape[1] - 6)
     freepoint_gram.launches += 1
+    freepoint_gram.launches_by_width[cam_b.shape[1]] += 1
     return _strip_pose(g, wck_b, hkk, gk)
 
 
 freepoint_gram.launches = 0
+freepoint_gram.launches_by_width = dict.fromkeys(TEMPLATE_WIDTHS, 0)
 
 
 def freepoint_gram_fused(cam_b, keyp, uv, mask, kmask, n_cams: int,
@@ -458,8 +492,8 @@ def freepoint_gram_fused(cam_b, keyp, uv, mask, kmask, n_cams: int,
                                           loss_semantics)
     loss_id, component = _loss_args(loss, loss_semantics)
     im0, imask0 = _identity_poses(cam_b)
-    _check_cuda_inputs(cam_b, im0, keyp, uv, mask, imask_b=imask0,
-                       kmask=kmask)
+    _check_cuda_inputs(cam_b, im0, keyp, uv, mask, widths=TEMPLATE_WIDTHS,
+                       imask_b=imask0, kmask=kmask)
     if mask.shape[0] != n_cams * n_ims:
         raise ValueError(f"{mask.shape[0]} blocks, expected {n_cams} x "
                          f"{n_ims}")
@@ -467,12 +501,15 @@ def freepoint_gram_fused(cam_b, keyp, uv, mask, kmask, n_cams: int,
         (hcc, gc, wck, _, _, _, _, corner, hkk,
          gk) = _launch_selfcal_fused(pack_block_params(cam_b, im0), keyp, uv,
                                      mask, imask0, kmask, n_cams, n_ims,
-                                     loss_id, component, f_scale)
+                                     loss_id, component, f_scale,
+                                     cam_b.shape[1] - 6)
     freepoint_gram_fused.launches += 1
+    freepoint_gram_fused.launches_by_width[cam_b.shape[1]] += 1
     return hcc, gc, wck, corner, hkk, gk
 
 
 freepoint_gram_fused.launches = 0
+freepoint_gram_fused.launches_by_width = dict.fromkeys(TEMPLATE_WIDTHS, 0)
 
 
 def make_cuda_freepoint_grams(widths, loss: str = "linear",
@@ -485,6 +522,7 @@ def make_cuda_freepoint_grams(widths, loss: str = "linear",
     gi_b (B,0), gk, cost); im_b, tpl and imask_b are not read.
     """
     _check_widths(widths, b=0)
+    a = widths.a
 
     def grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask):
         gcc_b, gc_b, corner, wck_b, hkk, gk = freepoint_gram(
@@ -492,7 +530,7 @@ def make_cuda_freepoint_grams(widths, loss: str = "linear",
             f_scale=f_scale, loss_semantics=loss_semantics)
         bb, k_pad = mask.shape
         z = mask.new_zeros
-        return (gcc_b, z((bb, 0, 0)), z((bb, 15, 0)), hkk, wck_b,
+        return (gcc_b, z((bb, 0, 0)), z((bb, a, 0)), hkk, wck_b,
                 z((bb, k_pad, 0, 3)), gc_b, z((bb, 0)), gk,
                 torch.sum(corner))
 
@@ -534,13 +572,14 @@ def scaled_errors_freepoint(got, ref) -> dict:
     ref = [r.double() for r in ref]
     got = [g.double().to(r.device) for g, r in zip(got, ref)]
     gcc, gc, corner, wck = (g - r for g, r in zip(got[:4], ref[:4]))
+    a = ref[0].shape[-1]
     s_b = _jacobi_scale(torch.cat([torch.diagonal(ref[0], dim1=1, dim2=2),
                                    ref[2][:, None]], dim=1))
     s_k = _jacobi_scale(torch.diagonal(ref[4], dim1=1, dim2=2))
-    out = {"gcc": _worst(gcc / (s_b[:, :15, None] * s_b[:, None, :15])),
-           "gc": _worst(gc / (s_b[:, :15] * s_b[:, 15:])),
-           "cost": _worst(corner / s_b[:, 15] ** 2),
-           "wck": _worst(wck / (s_b[:, None, :15, None]
+    out = {"gcc": _worst(gcc / (s_b[:, :a, None] * s_b[:, None, :a])),
+           "gc": _worst(gc / (s_b[:, :a] * s_b[:, a:])),
+           "cost": _worst(corner / s_b[:, a] ** 2),
+           "wck": _worst(wck / (s_b[:, None, :a, None]
                                 * s_k[None, :, None, :]))}
     out.update(_key_errors(got[4], got[5], ref[4], ref[5], ref[2].sum()))
     return out
@@ -555,14 +594,15 @@ def scaled_errors_freepoint_fused(got, ref, n_cams: int,
     ref = [r.double() for r in ref]
     got = [g.double().to(r.device) for g, r in zip(got, ref)]
     hcc, gc, wck, corner = (g - r for g, r in zip(got[:4], ref[:4]))
+    a = ref[0].shape[-1]
     cost_c = ref[3].reshape(n_cams, n_ims).sum(dim=1)
     s_c = _jacobi_scale(torch.cat(
         [torch.diagonal(ref[0], dim1=1, dim2=2), cost_c[:, None]], dim=1))
     s_k = _jacobi_scale(torch.diagonal(ref[4], dim1=1, dim2=2))
-    out = {"hcc": _worst(hcc / (s_c[:, :15, None] * s_c[:, None, :15])),
-           "gc": _worst(gc / (s_c[:, :15] * s_c[:, 15:])),
+    out = {"hcc": _worst(hcc / (s_c[:, :a, None] * s_c[:, None, :a])),
+           "gc": _worst(gc / (s_c[:, :a] * s_c[:, a:])),
            "corner": _worst(corner / _jacobi_scale(ref[3]) ** 2),
-           "wck": _worst(wck / (s_c[:, None, :15, None]
+           "wck": _worst(wck / (s_c[:, None, :a, None]
                                 * s_k[None, :, None, :]))}
     out.update(_key_errors(got[4], got[5], ref[4], ref[5], ref[3].sum()))
     return out

@@ -31,9 +31,8 @@ whole rig: "standard" (intr width 9), "rational" (12), "thin_prism" (16),
 marker); the calibrated cameras keep each model's own distortion width. A
 map that mixes families (fisheye with Brown cameras: the JAX package's het
 rig) or Brown widths raises ``NotImplementedError`` (ROADMAP Queue A item
-7), and the self-calibration and free-point chains run the standard model
-alone: another model raises when their problem is built (the kernels of
-those chains serve a = 15; same item). The PnP seed
+7). The template, self-calibration and free-point handlers run each of
+the five models; the multi-target chains the standard one. The PnP seed
 (``calc_initial_params``) is OpenCV on the host, imported when it runs;
 without cv2 it raises ``ImportError`` and ``set_initial_params(x0)`` seeds
 the handler instead (the path a card's machine takes). Its Rodrigues

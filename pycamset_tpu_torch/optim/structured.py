@@ -44,8 +44,9 @@ parameters are handled by zeroing Jacobian COLUMNS (the column masks); a
 damping floor keeps the eliminated blocks invertible and gives exact zero
 steps for them.
 
-Not ported yet: the matrix-free CG reduced solver and the other camera
-widths. They raise ``NotImplementedError`` naming the ROADMAP item.
+Not ported yet: the matrix-free CG reduced solver and the grouped chain
+at the other camera widths. They raise ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -136,8 +137,9 @@ def chain_family(op_fun: OptimFunction, widths: GroupWidths) -> str:
     """'template', 'selfcal', 'freepoint' or 'grouped', by the chain's
     block names (as the JAX package dispatches, any camera model's
     projection block first); any other chain raises ``UnsupportedChain``.
-    The template family takes the five camera widths, the others the
-    standard model's; another width raises ``NotImplementedError``."""
+    The template, self-calibration and free-point families take the five
+    camera widths, the grouped one the standard model's; another width
+    raises ``NotImplementedError``."""
     names = tuple(type(bk).__name__ for bk in op_fun.blocks)
     key = (("Projection",) + names[1:] if names and names[0] in _PROJS
            else names)
@@ -148,8 +150,8 @@ def chain_family(op_fun: OptimFunction, widths: GroupWidths) -> str:
             f"the chains {tuple(_FAMILIES)} only (the mixed chain, with "
             f"GroupRigidTform3d + FreePoint, goes through "
             f"structured_mixed.make_mixed_structured_neq)")
-    # Kernels A and B serve the five camera models; C-F the standard one
-    served = TEMPLATE_WIDTHS if family == "template" else (15,)
+    # Kernels A-D serve the five camera models; E and F the standard one
+    served = (15,) if family == "grouped" else TEMPLATE_WIDTHS
     if widths.a not in served:
         raise NotImplementedError(
             f"camera width a={widths.a} is not ported yet on the {family} "

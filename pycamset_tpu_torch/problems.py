@@ -75,7 +75,8 @@ from pycamset_tpu_torch.optim.chain import OptimFunction, ParamStruct
 from pycamset_tpu_torch.optim.fleet import fleet_solve, shared_template
 from pycamset_tpu_torch.optim.handlers import (FreePointBundleHandler,
                                                FreePointTarget,
-                                               TemplateBundleHandler)
+                                               TemplateBundleHandler,
+                                               _projection_block)
 from pycamset_tpu_torch.optim.problem import BAProblem
 from pycamset_tpu_torch.optim.structured import (
     GroupWidths, ParamPieces, build_block_arrays, chain_widths, group_onehot,
@@ -210,10 +211,12 @@ def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
 
 
 def freepoint_scene(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
-                    k_pad_multiple: int = 128) -> dict:
-    """The free-point problem's data, host numpy (see the module docstring).
+                    k_pad_multiple: int = 128,
+                    camera_model: str = "standard") -> dict:
+    """The free-point problem's data, host numpy (see the module docstring),
+    on the rig ``make_synthetic_rig`` makes for ``camera_model``.
 
-    :return: dict with intr (C, 9), extr_true / extr_start (C, 6) with
+    :return: dict with intr (C, intr_w), extr_true / extr_start (C, 6) with
         camera 0 at zero, pts_true / pts_start (n_keys, 3) (an image's pad
         slots replicate its point 0), dd (N, 5) [cam, im, key, u, v] with
         key = im * stride + point, n_keys = n_ims * stride, seen (n_keys,)
@@ -221,7 +224,8 @@ def freepoint_scene(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
         (3 n_keys,) bool (the observed points' coordinates but the pinned
         one) and rig."""
     rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
-                             visibility=0.85, noise_px=0.3, seed=seed)
+                             visibility=0.85, noise_px=0.3, seed=seed,
+                             camera_model=camera_model)
     n_pts = rig["n_keys"]
     stride = -(-n_pts // k_pad_multiple) * k_pad_multiple
     n_keys = n_ims * stride
@@ -261,12 +265,14 @@ def freepoint_scene(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
 
 def freepoint_handler(n_cams: int, n_ims: int, grid: int = 19,
                       seed: int = 0, options: dict | None = None,
-                      k_pad_multiple: int = 128):
+                      k_pad_multiple: int = 128,
+                      camera_model: str = "standard"):
     """``freepoint_scene`` as a user holds it: a CameraSet at the start
-    (true lenses, moved extrinsics, camera 0 the identity), the start
-    points as a ``FreePointTarget``, the TargetDetection of the table, and
-    a ``FreePointBundleHandler`` (options ``outliers: "n"``, ``verbosity:
-    0``, then ``options``) with the wand's gauge: every lens fixed through
+    (true lenses of ``camera_model``, moved extrinsics, camera 0 the
+    identity), the start points as a ``FreePointTarget``, the
+    TargetDetection of the table, and a ``FreePointBundleHandler``
+    (options ``outliers: "n"``, ``verbosity: 0``, ``camera_model``, then
+    ``options``) with the wand's gauge: every lens fixed at the truth through
     ``fixed_params``, camera 0's extrinsic fixed at the identity, the
     pinned coordinate and the never-observed keys frozen in
     ``feat_unfixed``. Its start is the CameraSet's and the target's: no
@@ -274,7 +280,8 @@ def freepoint_handler(n_cams: int, n_ims: int, grid: int = 19,
     the handler's problem with the same one).
 
     :return: (handler, scene)."""
-    sc = freepoint_scene(n_cams, n_ims, grid, seed, k_pad_multiple)
+    sc = freepoint_scene(n_cams, n_ims, grid, seed, k_pad_multiple,
+                         camera_model)
     exts = [make_4x4h_tform(e[:3], e[3:]) for e in sc["extr_start"]]
     exts[0] = np.eye(4)
     cams, names = _rig_cams(sc["intr"], exts)
@@ -285,7 +292,8 @@ def freepoint_handler(n_cams: int, n_ims: int, grid: int = 19,
     handler = FreePointBundleHandler(
         cams, FreePointTarget(sc["pts_start"].reshape(1, -1, 3)),
         detection_from_numpy(names, sc["dd"], n_ims), fixed_params=fixed,
-        options={"outliers": "n", "verbosity": 0, **(options or {})})
+        options={"outliers": "n", "verbosity": 0,
+                 "camera_model": camera_model, **(options or {})})
     handler.feat_unfixed[~sc["pts_unfixed"]] = False
     handler.bundlePrimitive.calc_free_poses()
     return handler, sc
@@ -295,26 +303,30 @@ def freepoint_problem(n_cams: int, n_ims: int, device="cuda", dtype=None,
                       grid: int = 19, seed: int = 0,
                       k_pad_multiple: int = 128, loss: str = "linear",
                       f_scale: float = 1.0,
-                      loss_semantics: str = "component") -> BAProblem:
+                      loss_semantics: str = "component",
+                      camera_model: str = "standard") -> BAProblem:
     """The pose-free free-point problem (chain Projection + Extrinsic3D +
     FreePoint, b = 0) of ``freepoint_scene`` on ``device`` (dtype defaults
     to float64 on the CPU, float32 on CUDA): the problem
     ``build_structured_problem`` builds of ``freepoint_handler``'s handler,
-    on an image grid of ``n_ims`` (``im_bucket: None``)."""
+    on an image grid of ``n_ims`` (``im_bucket: None``), at
+    ``camera_model``."""
     handler, _ = freepoint_handler(
         n_cams, n_ims, grid, seed, k_pad_multiple=k_pad_multiple,
         options={"im_bucket": None, "loss": loss, "f_scale": f_scale,
-                 "loss_semantics": loss_semantics})
+                 "loss_semantics": loss_semantics},
+        camera_model=camera_model)
     solve_fn, _, _ = build_structured_problem(handler, dtype, device,
                                               k_pad_multiple)
     return solve_fn.problem
 
 
 def selfcal_colmask(n_cams, n_ims, n_keys, k_pad, widths, dtype=np.float64):
-    """Unfixed masks (host numpy) of the bench self-cal problem: pad keys
-    frozen, a 7-coordinate gauge (points 0 and 1, and z of the second-row
-    point round(sqrt(n_keys)): points 0, 1, 2 are collinear, so a third pin
-    on that row would leave a null mode), pose 0 fixed."""
+    """Unfixed masks (host numpy) of the bench self-cal problem at the
+    camera width ``widths.a``: pad keys frozen, a 7-coordinate gauge
+    (points 0 and 1, and z of the second-row point round(sqrt(n_keys)):
+    points 0, 1, 2 are collinear, so a third pin on that row would leave a
+    null mode), pose 0 fixed."""
     kmask = np.ones((k_pad, 3), dtype=dtype)
     kmask[n_keys:] = 0.0
     kmask[0] = 0.0
@@ -329,16 +341,20 @@ def selfcal_problem(n_cams: int, n_ims: int, device="cuda",
                     dtype=None, grid: int = 19, seed: int = 0,
                     k_pad_multiple: int = 128, loss: str = "linear",
                     f_scale: float = 1.0,
-                    loss_semantics: str = "component") -> BAProblem:
+                    loss_semantics: str = "component",
+                    camera_model: str = "standard") -> BAProblem:
     """``bench.py::selfcal_problem(n_cams, n_ims, grid, seed)`` on
-    ``device`` (dtype defaults to float64 on the CPU, float32 on CUDA)."""
+    ``device`` (dtype defaults to float64 on the CPU, float32 on CUDA); with
+    ``camera_model`` the rig ``make_synthetic_rig`` makes for that model,
+    started at its truth, through the model's projection block."""
     device = resolve_device(device)
     dtype = dtype or default_device_dtype(device)
     rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
-                             visibility=0.85, noise_px=0.3, seed=seed)
+                             visibility=0.85, noise_px=0.3, seed=seed,
+                             camera_model=camera_model)
     n_keys = rig["n_keys"]
-    op_fun = OptimFunction([Projection(), Extrinsic3D(), RigidTform3d(),
-                            FreePoint()])
+    op_fun = OptimFunction([_projection_block(camera_model), Extrinsic3D(),
+                            RigidTform3d(), FreePoint()])
     widths = chain_widths(op_fun)
     struct = op_fun.param_struct(n_cams, n_ims, n_keys)
     blocks = build_block_arrays(rig["dd"], n_cams, n_ims, n_keys,

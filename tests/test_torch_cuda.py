@@ -226,11 +226,24 @@ def test_camera_width_without_a_kernel_raises(card):
         cg.template_gram(*f32)
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         cg.template_gram_fused(*f32, 2, 3)
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    s32 = list(_selfcal_inputs(card, 2, 3, 4))
+    for i in (0, 5):                 # cam_b and cmask_b at a = 16
+        s32[i] = torch.cat([s32[i][:, :1], s32[i]], dim=1).contiguous()
+    n_d, n_c = sg.selfcal_gram.launches, sg.selfcal_gram_fused.launches
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        sg.selfcal_gram(*s32)
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        sg.selfcal_gram_fused(*s32[:5], *s32[6:], 2, 3)
+    assert (sg.selfcal_gram.launches, sg.selfcal_gram_fused.launches) == (
+        n_d, n_c)
 
 
 def _selfcal_inputs(dev, n_cams, n_ims, grid, start="noisy", noise_px=3.0,
-                    n_keys=None, dark_cam=None, dark_key=None):
-    """Float32 per-block inputs of a self-cal rig, a camera column fixed
+                    n_keys=None, dark_cam=None, dark_key=None,
+                    camera_model="standard"):
+    """Float32 per-block inputs of a self-cal rig (``camera_model``'s rig
+    and projection block, ``problems.selfcal_problem``), a camera column fixed
     beside the problem's own masks (pose 0, the point gauge, the pad keys).
     ``start`` "noisy": the true start with noisy detections; "perturbed":
     ``chip_smoke.py``'s start (``selfcal_inputs``: cameras, poses and free
@@ -239,7 +252,7 @@ def _selfcal_inputs(dev, n_cams, n_ims, grid, start="noisy", noise_px=3.0,
     ``dark_key`` (its kmask row zero), if given."""
     from pycamset_tpu_torch.problems import selfcal_problem
     prob = selfcal_problem(n_cams, n_ims, dev, torch.float32, grid=grid,
-                           k_pad_multiple=8)
+                           k_pad_multiple=8, camera_model=camera_model)
     if start == "perturbed":
         from chip_smoke import selfcal_inputs
         cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask = (
@@ -344,6 +357,74 @@ def test_selfcal_kernels_match_plain_twins(card, start, n_cams, n_ims, grid,
             assert not bool(piece[dark_key].any())
     assert (sg.selfcal_gram_fused.launches, sg.selfcal_gram.launches) == (
         n_c + 2, n_d + 2)
+
+
+# Kernels C and D at the other camera models' widths (a = 18 rational, 22
+# thin-prism, 24 tilted, 14 fisheye), on the model's self-cal rig at
+# chip_smoke.py's perturbed start: grid 5 (K = 32, one partial key tile)
+# over SELFCAL_CHUNK + 1 images (a chunk and one more), and grid 14 (K =
+# 200, two tiles) over SELFCAL_CHUNK_D + 1 blocks. Each against its float64
+# twin, held as the camera-model A/B test holds them
+# (_assert_within_f32_floor), and the free-point wrappers over them on the
+# same cameras and points; a repeat launch gives the same bits and each
+# launch counts at the model's width.
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", CAMERA_MODELS)
+@pytest.mark.parametrize("n_cams,n_ims,grid", [(2, SELFCAL_CHUNK + 1, 5),
+                                               (SELFCAL_CHUNK_D + 1, 1, 14)])
+@pytest.mark.parametrize("loss,semantics", [
+    ("linear", "component"), ("huber", "component"),
+    ("cauchy", "observation"), ("soft_l1", "observation")])
+def test_selfcal_camera_model_kernels_match_plain_twins(
+        card, model, n_cams, n_ims, grid, loss, semantics):
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    f32 = _selfcal_inputs(card, n_cams, n_ims, grid, "perturbed",
+                          camera_model=model)
+    a = f32[0].shape[1]
+    assert a == {"rational": 18, "thin_prism": 22, "tilted": 24,
+                 "fisheye": 14}[model]
+    f64 = tuple(x.double() for x in f32)
+    kw = dict(loss=loss, f_scale=2.0, loss_semantics=semantics)
+    counted = (sg.selfcal_gram, sg.selfcal_gram_fused, sg.freepoint_gram,
+               sg.freepoint_gram_fused)
+    before = [fn.launches_by_width[a] for fn in counted]
+    d_got = sg.selfcal_gram(*f32, **kw)
+    assert d_got[0].shape == (f32[0].shape[0], a + 7, a + 7)
+    assert d_got[1].shape[2:] == (a, 3)
+    _assert_within_f32_floor(d_got, sg.selfcal_gram_plain(*f64, **kw),
+                             sg.selfcal_gram_plain(*f32, **kw),
+                             sg.scaled_errors_selfcal, "D")
+    no_cmask = (*f32[:5], *f32[6:])
+    c_got = sg.selfcal_gram_fused(*no_cmask, n_cams, n_ims, **kw)
+    gram = sg.selfcal_gram_plain(*f64[:5], torch.ones_like(f64[5]),
+                                 *f64[6:], **kw)[0]
+    _assert_within_f32_floor(
+        c_got, sg.selfcal_gram_fused_plain(*f64[:5], *f64[6:], n_cams, n_ims,
+                                           **kw),
+        sg.selfcal_gram_fused_plain(*no_cmask, n_cams, n_ims, **kw),
+        lambda g, r: sg.scaled_errors_selfcal_fused(g, r, gram, n_cams,
+                                                    n_ims), "C")
+    cam_b, _, keyp, uv, mask, cmask_b, _, kmask = f32
+    fp = (cam_b, keyp, uv, mask, cmask_b, kmask)
+    fp64 = tuple(x.double() for x in fp)
+    _assert_within_f32_floor(
+        sg.freepoint_gram(*fp, **kw), sg.freepoint_gram_plain(*fp64, **kw),
+        sg.freepoint_gram_plain(*fp, **kw), sg.scaled_errors_freepoint,
+        "freepoint D")
+    fpc, fpc64 = fp[:4] + fp[5:], fp64[:4] + fp64[5:]
+    _assert_within_f32_floor(
+        sg.freepoint_gram_fused(*fpc, n_cams, n_ims, **kw),
+        sg.freepoint_gram_fused_plain(*fpc64, n_cams, n_ims, **kw),
+        sg.freepoint_gram_fused_plain(*fpc, n_cams, n_ims, **kw),
+        lambda g, r: sg.scaled_errors_freepoint_fused(g, r, n_cams, n_ims),
+        "freepoint C")
+    for x, y in zip(sg.selfcal_gram(*f32, **kw), d_got):
+        assert torch.equal(x, y)
+    for x, y in zip(sg.selfcal_gram_fused(*no_cmask, n_cams, n_ims, **kw),
+                    c_got):
+        assert torch.equal(x, y)
+    assert [fn.launches_by_width[a] for fn in counted] == [
+        before[0] + 2, before[1] + 2, before[2] + 1, before[3] + 1]
 
 
 @pytest.mark.cuda

@@ -202,12 +202,18 @@ def test_cpu_freepoint_wrappers_run_plain_twins_and_launch_nothing():
 
 
 def test_freepoint_widths_check():
+    """The free-point builders take the five camera models' widths; a = 16
+    (a heterogeneous rig's selector row) and the other chains' widths
+    raise."""
     with pytest.raises(NotImplementedError, match="free-point chain"):
         sg.make_cuda_freepoint_grams(ts.GroupWidths(15, 6, 3))
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        sg.make_cuda_freepoint_grams_fused(ts.GroupWidths(18, 0, 3), 2, 3)
+        sg.make_cuda_freepoint_grams_fused(ts.GroupWidths(16, 0, 3), 2, 3)
     with pytest.raises(NotImplementedError, match="self-calibration chain"):
         sg.make_cuda_selfcal_grams(WIDTHS)
+    for a in (14, 15, 18, 22, 24):
+        sg.make_cuda_freepoint_grams(ts.GroupWidths(a, 0, 3))
+        sg.make_cuda_freepoint_grams_fused(ts.GroupWidths(a, 0, 3), 2, 3)
 
 
 @pytest.mark.parametrize("im_bucket", [8, None])
@@ -293,9 +299,12 @@ def _jax_wand_handler(options):
     z = 1, camera 0 at the origin), with 0.2 px of seeded noise on the
     observations, and the wand's gauge (``calibration/wand.py:361-388``):
     every lens fixed, camera 0's extrinsic the identity, the largest start
-    coordinate pinned."""
+    coordinate pinned. The rig is ``make_synthetic_rig``'s for the options'
+    ``camera_model`` (standard by default)."""
     rig = make_synthetic_rig(n_cams=3, n_ims=1, grid=7, visibility=1.0,
-                             noise_px=0.1, seed=31)
+                             noise_px=0.1, seed=31,
+                             camera_model=options.get("camera_model",
+                                                      "standard"))
     names = ["a", "b", "c"]
     exts = [make_4x4h_tform(e[:3], e[3:]) for e in rig["extr"]]
     exts[0] = np.eye(4)

@@ -205,17 +205,17 @@ def test_cuda_input_check_rejects(bad):
 
 
 def test_other_widths_raise():
-    """Kernels A and B serve the five camera models' widths (14, 15, 18,
-    22, 24); the self-cal, free-point and multi-target kernels (C-F) the
-    standard model's alone, and a heterogeneous rig's selector row
-    ([sel | fx px fy py | 5 coefficients], a = 16) no kernel yet."""
+    """Kernels A-D (template, self-cal and free-point) serve the five
+    camera models' widths (14, 15, 18, 22, 24); the multi-target kernels
+    (E, F) the standard model's alone, and a heterogeneous rig's selector
+    row ([sel | fx px fy py | 5 coefficients], a = 16) no kernel yet."""
     from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
     refusals = [
-        lambda: sg.make_cuda_selfcal_grams(ts.GroupWidths(18, 6, 3)),
-        lambda: sg.make_cuda_selfcal_grams_fused(ts.GroupWidths(18, 6, 3),
+        lambda: sg.make_cuda_selfcal_grams(ts.GroupWidths(16, 6, 3)),
+        lambda: sg.make_cuda_selfcal_grams_fused(ts.GroupWidths(16, 6, 3),
                                                  2, 3),
-        lambda: sg.make_cuda_freepoint_grams(ts.GroupWidths(18, 0, 3)),
+        lambda: sg.make_cuda_freepoint_grams(ts.GroupWidths(16, 0, 3)),
         lambda: mg.make_cuda_mixed_grams(ts.GroupWidths(18, 6, 9)),
         lambda: mg.make_cuda_mixed_grams_fused(ts.GroupWidths(18, 6, 9), 2,
                                                3),
@@ -228,6 +228,10 @@ def test_other_widths_raise():
     for a in cg.TEMPLATE_WIDTHS:
         cg.make_cuda_template_grams(ts.GroupWidths(a, 6, 0))
         cg.make_cuda_template_grams_fused(ts.GroupWidths(a, 6, 0), 2, 3)
+        sg.make_cuda_selfcal_grams(ts.GroupWidths(a, 6, 3))
+        sg.make_cuda_selfcal_grams_fused(ts.GroupWidths(a, 6, 3), 2, 3)
+        sg.make_cuda_freepoint_grams(ts.GroupWidths(a, 0, 3))
+        sg.make_cuda_freepoint_grams_fused(ts.GroupWidths(a, 0, 3), 2, 3)
 
 
 def _twin_grams(dtype, loss="linear", semantics="component"):

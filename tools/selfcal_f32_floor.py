@@ -2,7 +2,8 @@
 """Kernels C and D beside their float32 plain twin, at the card tests'
 noisy start, on a card.
 
-    python3 tools/selfcal_f32_floor.py [SOURCE.cu[:NVCC FLAGS]] ...
+    python3 tools/selfcal_f32_floor.py [--model MODEL] \
+        [SOURCE.cu[:NVCC FLAGS]] ...
 
 Each argument is a version of the source that exports Kernels C and D
 (``pct_selfcal_gram{,_fused}``; default: the checkout's ``mixed_grams.cu``),
@@ -15,7 +16,10 @@ error of their max-abs (C), the worst such error of C's other outputs and
 of D's, and the worst error of C and of D in the solver's Jacobi scaling.
 Then one ``[f32_floor_case]`` line per case with the worst of each over the
 losses. A case whose kernels miss the tests' 1e-4 where the float32 twin
-misses it too misses it by float32's rounding, not by the kernel.
+misses it too misses it by float32's rounding, not by the kernel. With
+``--model`` (default ``standard``) every case is built on that camera
+model's rig (``tests/test_torch_cuda.py::_selfcal_inputs``'s
+``camera_model``) and the kernels run at its width.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tests"))
 
-ENTRIES = ("pct_selfcal_gram", "pct_selfcal_gram_fused")
+ENTRIES = ("pct_selfcal_gram", "pct_selfcal_gram_fused",
+           "pct_selfcal_gram_model", "pct_selfcal_gram_fused_model")
 
 
 def measures(cs, sg, d_got, c_got, refs, n_cams, n_ims) -> dict:
@@ -56,7 +61,13 @@ def main() -> int:
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
     from time_template_grams import build_all, use_library
 
-    specs = sys.argv[1:] or [str(bld.CSRC / "mixed_grams.cu")]
+    args = sys.argv[1:]
+    model = "standard"
+    if "--model" in args:
+        i = args.index("--model")
+        model = args[i + 1]
+        del args[i:i + 2]
+    specs = args or [str(bld.CSRC / "mixed_grams.cu")]
     cs.phase_device()
     libs = [so for so, _ in build_all(specs)]
     for i, spec in enumerate(specs):
@@ -67,7 +78,7 @@ def main() -> int:
         name = "-".join(map(str, case))
         f32 = tc._selfcal_inputs(dev, n_cams, n_ims, grid, "noisy",
                                  n_keys=n_keys, dark_cam=dark_cam,
-                                 dark_key=dark_key)
+                                 dark_key=dark_key, camera_model=model)
         f64 = tuple(t.double() for t in f32)
         cpu32 = tuple(t.cpu() for t in f32)
         worst, misses = {}, {}

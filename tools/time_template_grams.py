@@ -2,8 +2,8 @@
 """Time builds of a family of kernels side by side on a card.
 
     python3 tools/time_template_grams.py \\
-        [--family template|mixed|selfcal|psd] [--time-only] [--same-bits] \\
-        [SOURCE.cu[:NVCC FLAGS]] ...
+        [--family template|mixed|selfcal|psd] [--model MODEL] \\
+        [--time-only] [--same-bits] [SOURCE.cu[:NVCC FLAGS]] ...
 
 ``--family template`` (the default): versions of
 ``pycamset_tpu_torch/csrc/template_grams.cu`` (Kernels A and B);
@@ -36,7 +36,11 @@ torch.profiler (``chip_smoke.kernel_ms``, 20 launches):
 - selfcal (self-cal 16 x 100 and 64 x 12): C at chunks of 4 to 34 images,
   D at chunks of 2 to 12 blocks, each also split
   into its first pass and its reduction (the scratch sizes did not change
-  with the redesign);
+  with the redesign). ``--model`` (selfcal only; default ``standard``)
+  takes the self-cal problems of that camera model's rig
+  (``problems.selfcal_problem(camera_model=...)``) and the kernels built
+  at its width (``pct_selfcal_gram{,_fused}_model``; a version without
+  them cannot run another model);
 - psd (no problem: synthetic systems): ``chip_smoke.psd_parity`` on
   ``PSD_SYNTHETIC`` and ``chip_smoke.diag_tile_parity`` instead of the gram
   checks; per width the kernel and the library call ``_cho_refine_solve``
@@ -75,7 +79,8 @@ FAMILIES = {
     "mixed": ("mixed_grams.cu", ("pct_mixed_gram", "pct_mixed_gram_fused"),
               ("mixed 16x100", "grouped 16x100", "mixed 64x12")),
     "selfcal": ("mixed_grams.cu",
-                ("pct_selfcal_gram", "pct_selfcal_gram_fused"),
+                ("pct_selfcal_gram", "pct_selfcal_gram_fused",
+                 "pct_selfcal_gram_model", "pct_selfcal_gram_fused_model"),
                 ("selfcal 16x100", "selfcal 64x12")),
     "psd": ("psd_solve.cu", ("pct_psd_solve", "pct_psd_diag_tile"), ()),
 }
@@ -127,13 +132,15 @@ def use_library(so: Path, entries) -> set:
     return found
 
 
-def problem(shape: str, dev):
+def problem(shape: str, dev, model: str = "standard"):
     from pycamset_tpu_torch import problems
     make = {"template": problems.standard_problem,
             "selfcal": problems.selfcal_problem,
             "mixed": problems.mixed_problem,
             "grouped": problems.grouped_problem}[shape.split()[0]]
     n_cams, n_ims = map(int, shape.split()[1].split("x"))
+    if model != "standard":
+        return make(n_cams, n_ims, dev, camera_model=model)
     return make(n_cams, n_ims, dev)
 
 
@@ -233,6 +240,7 @@ def time_selfcal(cs, prob, shape, time_only):
         cs.selfcal_runs(sg, f32, n_cams, n_ims), shape), time_only, shape)
     packed = sg.pack_block_params(*f32[:2])
     c_grid = (*f32[2:5], *f32[6:])
+    iw = prob.widths.a - 6
     line = {}
     chunks = sg.SELFCAL_CHUNK, sg.SELFCAL_CHUNK_D
     for kernel, chunk_list in (("C", (4, 8, 10, 12, 14, 17, 20, 25, 34)),
@@ -240,9 +248,10 @@ def time_selfcal(cs, prob, shape, time_only):
         for chunk in chunk_list:
             sg.SELFCAL_CHUNK = sg.SELFCAL_CHUNK_D = chunk
             fn = ((lambda: sg._launch_selfcal_fused(packed, *c_grid, n_cams,
-                                                    n_ims, 0, 1, 1.0))
+                                                    n_ims, 0, 1, 1.0, iw))
                   if kernel == "C" else
-                  (lambda: sg._launch_selfcal(packed, *f32[2:], 0, 1, 1.0)))
+                  (lambda: sg._launch_selfcal(packed, *f32[2:], 0, 1, 1.0,
+                                              iw)))
             pass_times(cs, line, kernel, chunk, fn)
     sg.SELFCAL_CHUNK, sg.SELFCAL_CHUNK_D = chunks
     torch.cuda.empty_cache()
@@ -332,6 +341,13 @@ def main() -> int:
     if family not in FAMILIES:
         raise SystemExit(f"--family {family}: one of {tuple(FAMILIES)}")
     source, entries, shapes = FAMILIES[family]
+    model = "standard"
+    if "--model" in args:
+        i = args.index("--model")
+        model = args[i + 1]
+        del args[i:i + 2]
+        if family != "selfcal":
+            raise SystemExit("--model: the selfcal family only")
     time_only = "--time-only" in args
     bits = "--same-bits" in args
     if bits and family == "psd":
@@ -342,7 +358,7 @@ def main() -> int:
     built = build_all(specs)
 
     dev = torch.device("cuda", 0)
-    probs = {shape: problem(shape, dev) for shape in shapes}
+    probs = {shape: problem(shape, dev, model) for shape in shapes}
     timer = {"template": time_template, "mixed": time_mixed,
              "selfcal": time_selfcal}.get(family)
     first, all_same = {}, True
