@@ -84,8 +84,8 @@ uncaptured, the kernel once an evaluation by profiler names), status and
 rms, the recovered lens against the truth over each camera's observed
 field; ``run_stereo_calibration`` as the main path (its counts by camera
 width), its file loaded back at 16 x 100; the float64 CPU solve beside
-the tilted and fisheye 16 x 100 ones; and at tilted 64 x 400 (dense
-n = 1536) the opt-in SPD kernel route against the library route.
+the fisheye 16 x 100 one and a tilted 4 x 100 one; and at tilted 64 x 400
+(dense n = 1536) the opt-in SPD kernel route against the library route.
 
 Then the self-calibration and free-point chains at the same four models
 (``[selfcal_models]``): Kernels C and D and the two free-point wrappers
@@ -101,6 +101,22 @@ stage on A, then ``SelfBundleHandler`` with the model through
 the file loaded back, the recovered points against the true board) and
 the free-point user path at 64 x 12 (``run_bundle_adjustment`` over D's
 wrapper), each with the model's kernel alone on its main path.
+
+Then the multi-target chains at the same four models (``[mixed_models]``):
+Kernels E and F, each built at the model's width and both key widths
+(``csrc/mixed_models_e.cu``, ``mixed_models_f.cu``), against their float64
+twins on their main paths' own tensors (E at mixed and grouped 16 x 100, F
+at mixed and grouped 64 x 12; F at key width 6 also on grouped 16 x 100's),
+four losses, with the per-group sums the solver builds from them, their
+device times beside their bounds, registers, spills, the device's blocks an
+SM and peak MiB; then
+``problems.{mixed,grouped}_problem(..., camera_model=m)`` solved at mixed
+16 x 100 (E), mixed 64 x 12 (F), grouped 16 x 100 (E, key width 6) and
+grouped 64 x 12 (F, key width 6), each uncaptured as its main path (its
+kernel alone, once an evaluation, at its widths) and captured (bit for
+bit), status of the standard model's class, rms, group 1's recovered pose;
+and at tilted mixed 64 x 12 (dense n = 1620) the SPD kernel route's
+fallbacks beside the library route's residual misses.
 
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
@@ -627,7 +643,9 @@ def phase_build():
     t0 = time.perf_counter()
     kl = load()
     say("build", seconds=f"{kl.build_seconds:.2f}",
-        load_seconds=f"{time.perf_counter() - t0:.2f}", lib=kl.path.name)
+        load_seconds=f"{time.perf_counter() - t0:.2f}", lib=kl.path.name,
+        **{f"nvcc_s:{src}": f"{sec:.2f}"
+           for src, sec in kl.source_seconds.items()})
     for ln in kl.ptxas_info.splitlines():
         if any(w in ln for w in ("Compiling entry", "registers", "spill")):
             print(f"  ptxas: {ln.strip()}", flush=True)
@@ -644,10 +662,18 @@ def phase_build():
                                            ("E", 1, (9, 6)),
                                            ("F", 0, (9, 6)))
                for cw in widths]
+    from pycamset_tpu_torch.optim.cuda_mixed_grams import (
+        first_pass_occupancy)
     for name, cw, entry in firsts:
         regs, spill = ptxas_entry(res, entry, cw is None)
+        # C-F: the device's blocks an SM (E holds three of the four its
+        # launch bounds ask: its 65 KB of shared memory)
+        occ = ({} if cw is None else {
+            k: v for k, v in first_pass_occupancy(
+                15, cw, name in ("C", "E")).items()
+            if k in ("blocks_per_sm", "launch_bound_blocks")})
         say("build", kernel=name, **({} if cw is None else {"cw": cw}),
-            registers=regs, spill_bytes=spill)
+            registers=regs, spill_bytes=spill, **occ)
         check(regs <= 128 and spill == 0,
               f"Kernel {name}: {regs} registers, {spill} spill bytes")
     # Kernels A and B at the other camera models: the fisheye's at four
@@ -665,23 +691,47 @@ def phase_build():
                                f"above {cap}")
             out[("template_gram_fused" if flag else "template_gram",
                  model)] = {"registers": regs, "spill_bytes": spill}
-    # Kernels C and D at the other camera models, their first pass
-    # mixed_kernel<intr_w, 3, FUSED>: the register cap of its blocks an SM
-    # (mixed_grams.cu's Occupancy: four at the fisheye, three at the
-    # rational and thin-prism models and for the tilted D, two for the
-    # tilted C); spills reported
+    # Kernels C-F's first passes mixed_kernel<intr_w, cw, FUSED> at the
+    # other camera models: C and D at key width 3, E and F at 9 and 6. The
+    # device's own account of each (cuda_mixed_grams.first_pass_occupancy:
+    # blocks an SM at its dynamic shared memory, registers, local bytes);
+    # registers within the cap of the blocks an SM its launch bounds ask
+    # for (mixed_kernels.cuh's Occupancy: the register target, four blocks
+    # at a <= 15 and three above, no more than the shared memory admits),
+    # the device holding at least those blocks (a register cap for blocks
+    # that cannot be resident caps registers for nothing), ptxas's
+    # registers the runtime's; spills reported
     for model, a in MODEL_WIDTH.items():
-        for name, flag in (("C", 1), ("D", 0)):
+        for name, flag, cw in (("C", 1, 3), ("D", 0, 3), ("E", 1, 9),
+                               ("E", 1, 6), ("F", 0, 9), ("F", 0, 6)):
             regs, spill = ptxas_entry(
-                res, f"mixed_kernelILi{a - 6}ELi3ELb{flag}E", False)
-            blocks = 4 if a <= 15 else (2 if a >= 24 and flag else 3)
-            cap = min(255, 65536 // (128 * blocks) // 8 * 8)
-            say("build", kernel=name, model=model, a=a, registers=regs,
-                spill_bytes=spill, register_cap=cap, blocks_per_sm=blocks)
-            check(regs <= cap, f"Kernel {name} ({model}): {regs} registers "
-                               f"above {cap}")
-            out[("selfcal_gram_fused" if flag else "selfcal_gram",
-                 model)] = {"registers": regs, "spill_bytes": spill}
+                res, f"mixed_kernelILi{a - 6}ELi{cw}ELb{flag}E", False)
+            occ = first_pass_occupancy(a, cw, bool(flag))
+            asked = occ["launch_bound_blocks"]
+            cap = min(255, 65536 // (128 * asked) // 8 * 8)
+            say("build", kernel=name, model=model, a=a,
+                **({} if cw == 3 else {"cw": cw}), registers=regs,
+                spill_bytes=spill, register_cap=cap,
+                launch_bound_blocks=asked,
+                blocks_per_sm=occ["blocks_per_sm"],
+                dynamic_smem_kib=f"{occ['dynamic_smem_bytes'] / 1024:.1f}",
+                static_smem_bytes=occ["static_smem_bytes"],
+                runtime_registers=occ["registers"],
+                local_bytes=occ["local_bytes"])
+            check(regs <= cap, f"Kernel {name} ({model}, cw {cw}): {regs} "
+                               f"registers above {cap}")
+            check(occ["blocks_per_sm"] >= asked
+                  and occ["registers"] == regs,
+                  f"Kernel {name} ({model}, cw {cw}): the device holds "
+                  f"{occ['blocks_per_sm']} blocks an SM at "
+                  f"{occ['registers']} registers, its launch bounds ask "
+                  f"{asked} at ptxas's {regs}")
+            wrapper = {"C": "selfcal_gram_fused", "D": "selfcal_gram",
+                       "E": "mixed_gram_fused", "F": "mixed_gram"}[name]
+            out[(wrapper, model) if cw == 3 else (wrapper, model, cw)] = {
+                "registers": regs, "spill_bytes": spill,
+                "blocks_per_sm": occ["blocks_per_sm"],
+                "dynamic_smem_bytes": occ["dynamic_smem_bytes"]}
     return out
 
 
@@ -1006,6 +1056,35 @@ def dense_solve_spy():
         yield calls
     finally:
         structured.psd_solve = orig
+
+
+@contextlib.contextmanager
+def library_solve_spy():
+    """Hold each dense solve of the library route (``structured.
+    _cho_refine_solve``, which ``_psd_solve`` looks up at call time) to the
+    residual rule the kernel route falls back on: yields a list that fills
+    with one device bool a call, true where the library's x meets
+    ``residual_ok`` in float64 and is finite. The solve's x is returned
+    untouched (same bits); the checks queue on the device and are read
+    after the solve."""
+    import torch
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    from pycamset_tpu_torch.optim import structured
+    passed, orig = [], structured._cho_refine_solve
+
+    def spy(a_n, rhs_n):
+        x = orig(a_n, rhs_n)
+        b64 = rhs_n.double()
+        r = b64 - a_n.double() @ x.double()
+        passed.append(cc.residual_ok(r @ r, b64 @ b64)
+                      & torch.isfinite(x).all())
+        return x
+
+    structured._cho_refine_solve = spy
+    try:
+        yield passed
+    finally:
+        structured._cho_refine_solve = orig
 
 
 def capture_reduced_systems(probs) -> dict:
@@ -2679,6 +2758,28 @@ def camera_model_times(cg, prob, fused: bool, peak_tflops: float) -> dict:
     return t
 
 
+def cpu_f64_cost_check(tag, handler, x0, cost) -> dict:
+    """A card solve's float32 ``cost`` from ``x0`` against the float64 CPU
+    solve of a copy of ``handler`` from the same start: within 1e-4
+    relative. Returns the CPU solve's nit, its seconds and the gap."""
+    from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    h64 = TemplateBundleHandler(handler.camset, handler.target,
+                                handler.detection,
+                                options=dict(handler.problem_opts))
+    h64.set_initial_params(x0)
+    t0 = time.perf_counter()
+    cpu_fn, _, _ = build_structured_problem(h64, device="cpu")
+    cpu = cpu_fn(x0)[1]
+    rel = abs(float(cost) - float(cpu.cost)) / float(cpu.cost)
+    check(rel <= 1e-4, f"{tag}: cost differs from the float64 CPU solve by "
+                       f"{rel:.3e}")
+    return {"cpu_f64_nit": cpu.nit,
+            "cpu_f64_s": f"{time.perf_counter() - t0:.1f}",
+            "rel_cost_diff_cpu_f64": f"{rel:.3e}"}
+
+
 def phase_camera_models(builds: dict, peak_tflops: float) -> dict:
     """The template user path at the four other camera models, on the rig
     ``utils/synthetic.py`` makes with ``camera_model=m``
@@ -2703,8 +2804,10 @@ def phase_camera_models(builds: dict, peak_tflops: float) -> dict:
       every real detection (``prediction_field_px``, its RMS within
       PREDICTION_RMS_OF_NOISE of the noise); at 16 x 100 its file loaded
       back with each camera's distortion width and reprojection kept;
-    - at 16 x 100, tilted and fisheye: the float32 cost within 1e-4
-      relative of the float64 CPU solve of the same handler;
+    - the float32 cost within 1e-4 relative of the float64 CPU solve of
+      the same handler (``cpu_f64_cost_check``): at fisheye 16 x 100, and
+      at the tilted model on ``template_handler(4, 100)`` (16 x 100's
+      took 33-46 s of the card host's CPU);
     - at tilted 64 x 400 (dense n = 24 x 64 = 1536) also the kernel route
       (``PYCAMSET_PALLAS_CHOL=1``): its cost within 1e-4 of the library
       route's, its SPD kernel once an LM step, its fallbacks; the SPD
@@ -2819,20 +2922,18 @@ def phase_camera_models(builds: dict, peak_tflops: float) -> dict:
                 n_own)
             rec["solve_ms_median"] = float(np.median(warm_ms))
 
-            if shape == "16x100" and model in ("tilted", "fisheye"):
-                h64 = TemplateBundleHandler(handler.camset, handler.target,
-                                            handler.detection,
-                                            options=dict(handler.problem_opts))
-                h64.set_initial_params(x0)
-                t0 = time.perf_counter()
-                cpu_fn, _, _ = build_structured_problem(h64, device="cpu")
-                cpu = cpu_fn(x0)[1]
-                rel = abs(float(ref.cost) - float(cpu.cost)) / float(cpu.cost)
-                check(rel <= 1e-4, f"{tag}: cost differs from the float64 "
-                                   f"CPU solve by {rel:.3e}")
-                fields.update(cpu_f64_nit=cpu.nit,
-                              cpu_f64_s=f"{time.perf_counter() - t0:.1f}",
-                              rel_cost_diff_cpu_f64=f"{rel:.3e}")
+            if shape == "16x100" and model == "fisheye":
+                fields.update(cpu_f64_cost_check(tag, handler, x0, ref.cost))
+            if shape == "16x100" and model == "tilted":
+                # at 4 x 100: 16 x 100's float64 CPU solve took 33-46 s
+                h_s, _ = template_handler(4, 100, camera_model=model)
+                x_s = h_s.get_initial_params()
+                fn_s, _, xi_s = build_structured_problem(h_s, device=dev)
+                ref_s = fn_s(xi_s)[1]
+                fields.update({f"{k}_4x100": v for k, v in cpu_f64_cost_check(
+                    f"{model} 4x100", h_s, x_s, ref_s.cost).items()},
+                    nit_4x100=ref_s.nit, status_4x100=int(ref_s.status))
+                del h_s, fn_s
             if shape == "64x400" and model == "tilted":
                 f0 = cc.psd_solve.fallbacks
                 with one_launch_psd(True):
@@ -3229,6 +3330,286 @@ def phase_selfcal_models(builds: dict) -> dict:
     return kern
 
 
+def mixed_model_kernel(tag, prob, name, rec: dict):
+    """Kernel E (``mixed_gram_fused``) or F (``mixed_gram``) at the
+    problem's camera width and key width (cw 9: a mixed problem; 6: a
+    grouped one) on its own tensors (``multi_target_inputs``: moved off the
+    start), four losses, against the float64 twin in both measures and in
+    the per-group sums the solver builds from it (``parity_f32_floor``; the
+    cases held to the float32 twin's floor into
+    ``rec["f32_floor_cases"]``), a repeat launch, and one linear-loss
+    call's device time (the kernel's passes under torch.profiler), the
+    wrapper's and the float32 twin's CUDA-event ms, the peak MiB a call
+    adds and the bound (``bound``); into ``rec``."""
+    import torch
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    a = prob.widths.a
+    wk = hasattr(prob.x0, "grp")          # the mixed chain: free points
+    cw = mg.key_width(wk)
+    fused = name == "mixed_gram_fused"
+    oh = prob.onehot(prob.uv)
+    f32 = multi_target_inputs(prob)
+    f64 = tuple(t.double() for t in f32)
+    kd = mg.pack_key_group_data(f32[2][:, :6],
+                                f32[2][:, 6:9] if wk else f32[3])
+    packed = mg.pack_block_params(*f32[:2])
+    if fused:
+        def run(args=f32, **kw):
+            return mg.mixed_gram_fused(*args, n_cams, n_ims,
+                                       with_key_cols=wk, **kw)
+
+        def twin(args, **kw):
+            return mg.mixed_gram_fused_plain(*args, n_cams, n_ims,
+                                             with_key_cols=wk, **kw)
+
+        def launch():
+            return mg._launch_mixed_fused(packed, kd, *f32[4:], n_cams,
+                                          n_ims, 0, 1, 1.0, a - 6)
+    else:
+        def run(args=f32, **kw):
+            return mg.mixed_gram(*args, with_key_cols=wk, **kw)
+
+        def twin(args, **kw):
+            return mg.mixed_gram_plain(*args, with_key_cols=wk, **kw)
+
+        def launch():
+            return mg._launch_mixed(packed, kd, *f32[4:], 0, 1, 1.0, a - 6)
+    n_floor = len(F32_FLOOR_CASES)
+    for loss, sem in LOSS_CASES:
+        kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
+        got, ref = run(**kw), twin(f64, **kw)
+        if fused:
+            gram = mg.mixed_gram_plain(*f64, with_key_cols=wk, **kw)[0]
+
+            def scaled_of(g, r):
+                return {**mg.scaled_errors_mixed_fused(g, r, gram, n_cams,
+                                                       n_ims),
+                        **mg.scaled_errors_groups(g, r, oh, n_cams, n_ims)}
+        else:
+            def scaled_of(g, r):
+                return {**mg.scaled_errors_mixed(g, r),
+                        **mg.scaled_errors_groups(g, r, oh, n_cams, n_ims)}
+        scaled = scaled_of(got, ref)
+        case = f"{name} {tag} cw{cw} {loss}/{sem}"
+        say("parity_mixed_model", case=case.replace(" ", "_"), tol=TOL,
+            max_abs=f"{max(max_abs_errors(got, ref)):.2e}",
+            **{k: f"{v:.2e}" for k, v in scaled.items()})
+        e = parity_f32_floor(case, got, ref, scaled,
+                             lambda: twin(f32, **kw), scaled_of)
+        for k, v in e.items():
+            rec[k] = max(rec.get(k, 0.0), v)
+        del got, ref
+        torch.cuda.empty_cache()
+    rec.setdefault("f32_floor_cases", []).extend(F32_FLOOR_CASES[n_floor:])
+    same_bits(f"{name} {tag} cw{cw}", run)
+    passes = device_ms(launch)
+    base = mib_allocated()
+    run()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20 - base
+    bound_ms, bound_by = bound(name, prob, cw)
+    kernel = sum(passes.values())
+    rec.update(shape=tag, kernel_ms=kernel, ms=cuda_ms(run, 10),
+               plain_ms=cuda_ms(lambda: twin(f32), 3), peak_mib=peak,
+               bound_ms=bound_ms, bound_by=bound_by, passes=passes)
+    say("time", case=f"{name}_{tag.replace(' ', '_')}_cw{cw}", a=a, cw=cw,
+        unit="ms", kernel_ms=f"{kernel:.4f}", ms=f"{rec['ms']:.4f}",
+        plain_ms=f"{rec['plain_ms']:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, of_bound=f"{bound_ms / max(kernel, 1e-9):.4f}",
+        peak_mib=f"{peak:.1f}", registers=rec["registers"],
+        spill_bytes=rec["spill_bytes"], blocks_per_sm=rec["blocks_per_sm"],
+        **{f"pass:{k}": f"{v:.4f}" for k, v in passes.items()})
+    del f32, f64, packed, kd
+    torch.cuda.empty_cache()
+
+
+def status_class(status: int) -> str:
+    """An LM status read as its class: converged (1, 2) or another stop."""
+    return "converged" if status in (1, 2) else f"status {status}"
+
+
+def group_pose_error(prob, x) -> dict:
+    """How far the solve's group 1 is from the truth the data were made
+    with (``problems.GROUP_TRUE``: the two targets are the halves of one
+    board, so group 1's relative pose is the identity): its rotation (mrad)
+    and translation (mm) from the truth; for the mixed chain, whose free
+    points trade with their group's pose (group 1's points carry no gauge
+    pin), also the RMS distance (mm) of group 1's points, mapped through
+    the recovered pose, from the true board's (the start's points: the
+    bench starts the points at the truth)."""
+    import torch
+    from pycamset_tpu_torch.ops.rotations import rodrigues_to_matrix
+    from pycamset_tpu_torch.problems import GROUP_TRUE
+    grp = (x.grp if hasattr(x, "grp") else x.key)[1].double().cpu()
+    d = grp.numpy() - GROUP_TRUE[1]
+    out = {"group1_rot_mrad": 1e3 * float(np.linalg.norm(d[:3])),
+           "group1_trans_mm": 1e3 * float(np.linalg.norm(d[3:]))}
+    if hasattr(x, "grp"):
+        keys = np.flatnonzero(prob.group_of_key[:prob.blocks.n_keys] == 1)
+        pts = x.key.double().cpu()[keys]
+        world = pts @ rodrigues_to_matrix(grp[:3]).T + grp[3:]
+        true = prob.x0.key.double().cpu()[keys]   # the start: the truth
+        out["group1_points_rms_mm"] = 1e3 * float(torch.sqrt(torch.mean(
+            torch.sum((world - true) ** 2, dim=1))))
+    return out
+
+
+# [mixed_models]: the multi-target solves at each other camera model ->
+# (maker, cameras, images, the kernel it takes, its key width); F at key
+# width 6 has no 16 x 100 solve (grouped 16 x 100 takes E), so grouped
+# 64 x 12 (12 images pad 16: 33%) is its main path
+MIXED_MODEL_SOLVES = {
+    "mixed 16x100": ("mixed", 16, 100, "mixed_gram_fused", 9),
+    "mixed 64x12": ("mixed", 64, 12, "mixed_gram", 9),
+    "grouped 16x100": ("grouped", 16, 100, "mixed_gram_fused", 6),
+    "grouped 64x12": ("grouped", 64, 12, "mixed_gram", 6)}
+
+
+def phase_mixed_models(builds: dict, std_status: dict) -> dict:
+    """The multi-target chains at the four other camera models
+    (``MODEL_WIDTH``), each on the rig ``utils/synthetic.py`` makes for it
+    (``problems.{mixed,grouped}_problem(..., camera_model=m)``: the bench's
+    start, true lens, group 1 at ``GROUP_START[1]``), library route:
+
+    - the kernels on their main paths' own tensors (``mixed_model_kernel``):
+      E at mixed 16 x 100 (cw 9) and grouped 16 x 100 (cw 6), F at mixed
+      64 x 12 (cw 9) and grouped 64 x 12 (cw 6); F at cw 6 also on grouped
+      16 x 100's tensors, as ``phase_mixed_kernels`` does at a = 15 (the
+      row's ``other_shape``);
+    - each of ``MIXED_MODEL_SOLVES`` solved uncaptured as the main path
+      (the counts zeroed just before: its own kernel alone, once an
+      evaluation, at the model's width and its key width alone; each
+      library dense solve held to the kernel route's residual rule,
+      ``library_solve_spy``), then capturing and warm (captured =
+      uncaptured, bit for bit), its status of the standard model's class
+      in the same run (``std_status``: the standard model's statuses of
+      the same run; grouped 64 x 12's is solved here), rms <= 0.36 px,
+      group 1's recovered pose against the truth (``group_pose_error``),
+      the warm captured median;
+    - at the tilted model, mixed 64 x 12 on the SPD kernel route too
+      (opted in, uncaptured; dense n = 64 x 24 + 12 x 6 + 12 = 1620): its
+      fallbacks beside the library route's residual misses on its own
+      solve, each fallback only where the library route fails the
+      residual rule too on the same system (``fallback_evidence``).
+
+    :return: {(wrapper, model, cw): record}."""
+    import torch
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    from pycamset_tpu_torch.problems import grouped_problem, mixed_problem
+    dev = torch.device("cuda", 0)
+    counted = wrappers()
+    makers = {"mixed": mixed_problem, "grouped": grouped_problem}
+    std_status = dict(std_status)
+    for shape, (chain, n_cams, n_ims, _, _) in MIXED_MODEL_SOLVES.items():
+        if shape not in std_status:     # grouped 64 x 12
+            std_status[shape] = int(makers[chain](n_cams, n_ims,
+                                                  dev).solve().status)
+    kern = {}
+    for model, a in MODEL_WIDTH.items():
+        t_model = time.perf_counter()
+        probs = {}
+        for shape, (chain, n_cams, n_ims, _, _) in MIXED_MODEL_SOLVES.items():
+            probs[shape] = makers[chain](n_cams, n_ims, dev,
+                                         camera_model=model)
+            check(probs[shape].widths.a == a,
+                  f"{model} {shape}: camera width {probs[shape].widths.a}")
+
+        # each kernel on its main path's tensors (the row's numbers), and F
+        # at key width 6 also on grouped 16 x 100's, as phase_mixed_kernels
+        # holds it at a = 15 (kept in the row as other_shape)
+        for shape, (_, _, _, name, cw) in MIXED_MODEL_SOLVES.items():
+            rec = kern.setdefault((name, model, cw), {})
+            rec.update(builds[(name, model, cw)])
+            mixed_model_kernel(f"{model} {shape}", probs[shape], name, rec)
+        other = dict(builds[("mixed_gram", model, 6)])
+        mixed_model_kernel(f"{model} grouped 16x100", probs["grouped 16x100"],
+                           "mixed_gram", other)
+        kern[("mixed_gram", model, 6)]["other_shape"] = {
+            k: other[k] for k in ("shape", "kernel_ms", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "peak_mib", "abs",
+                                  "rel", "scaled", "f32_floor_cases")}
+
+        for shape, (_, _, _, own, cw) in MIXED_MODEL_SOLVES.items():
+            prob, tag = probs[shape], f"{model} {shape}"
+            with library_solve_spy() as lib_ok:
+                res, n_own, _, solve_s = main_path_counts(
+                    counted, own, tag, lambda: prob.solve(graph=False))
+            lib_misses = sum(not bool(ok) for ok in lib_ok)
+            check(len(lib_ok) == res.nit, f"{tag}: {len(lib_ok)} library "
+                                          f"solves in {res.nit} LM steps")
+            by_width = dict(counted[own].launches_by_width)
+            check(by_width[(a, cw)] == n_own == res.nfev and not any(
+                n for key, n in by_width.items() if key != (a, cw)),
+                f"{tag}: {n_own} launches in {res.nfev} evaluations, by "
+                f"(camera width, key width) {by_width}")
+            first = prob.solve()                      # captures
+            warm_ms = timed(lambda: prob.solve(), 3)
+            warm = prob.solve()
+            check(same_solve(first, res) and same_solve(warm, res),
+                  f"{tag}: the captured solve differs from the uncaptured")
+            status, rms = int(res.status), prob.rms_px(res.cost)
+            std = std_status[shape]
+            check(status_class(status) == status_class(std),
+                  f"{tag}: status {status}, the standard model's {std}")
+            check(rms <= 0.36, f"{tag}: rms {rms} above 0.36 px")
+            pose = group_pose_error(prob, res.x)
+            fields = {}
+            if model == "tilted" and shape == "mixed 64x12":
+                cc.psd_solve.fallbacks = 0
+                cc.psd_solve_raw.launches = 0
+                with dense_solve_spy() as calls, one_launch_psd(True):
+                    res_k = prob.solve(graph=False)
+                torch.cuda.synchronize()
+                evidence = [fallback_evidence(*c) for c in calls
+                            if c[2] is not None]
+                n = calls[0][0].shape[0]
+                check(n == 64 * a + 12 * 6 + 12, f"{tag}: dense n {n}")
+                check(cc.psd_solve_raw.launches == res_k.nit == len(calls)
+                      and len(evidence) == cc.psd_solve.fallbacks,
+                      f"{tag} (kernel route): {cc.psd_solve_raw.launches} "
+                      f"launches, {len(calls)} dense solves, "
+                      f"{len(evidence)} fallbacks seen in {res_k.nit} steps")
+                check(not any(e["library_passes"] for e in evidence),
+                      f"{tag} (kernel route): a fallback on a system that "
+                      f"the library route solves within the residual rule")
+                rms_k = prob.rms_px(res_k.cost)
+                check(rms_k <= 0.36, f"{tag} (kernel route): rms {rms_k}")
+                for e in evidence:
+                    say("mixed_models_fallback", model=model,
+                        shape=shape.replace(" ", "_"),
+                        **{k: (f"{v:.6e}" if isinstance(v, float) else v)
+                           for k, v in e.items()})
+                fields = dict(kernel_route_n=n, kernel_route_nit=res_k.nit,
+                              kernel_route_status=int(res_k.status),
+                              kernel_route_rms_px=f"{rms_k:.5f}",
+                              kernel_route_fallbacks=len(evidence),
+                              library_route_nit=res.nit,
+                              library_route_residual_misses=lib_misses)
+                kern[(own, model, cw)]["kernel_route"] = fields
+            kern.setdefault((own, model, cw), {}).setdefault(
+                "launches_by_solve", {})[tag] = n_own
+            rec = kern[(own, model, cw)]
+            rec.setdefault("solve_ms_median", {})[tag] = float(
+                np.median(warm_ms))
+            say("mixed_models", model=model, shape=shape.replace(" ", "_"),
+                a=a, cw=cw, kernel=own, same_bits=True, nit=res.nit,
+                nfev=res.nfev, status=status, standard_status=std,
+                rms_px=f"{rms:.5f}", n_real=prob.blocks.n_real,
+                launches=f"{own}:{n_own}", launches_per_eval=(
+                    f"{n_own}/{res.nfev}"),
+                library_residual_misses=lib_misses,
+                solve_s=f"{solve_s:.3f}",
+                solve_ms_median=f"{np.median(warm_ms):.3f}",
+                solve_ms_all=",".join(f"{t:.2f}" for t in warm_ms),
+                **{k: f"{v:.4f}" for k, v in pose.items()}, **fields)
+        del probs
+        gc.collect()
+        torch.cuda.empty_cache()
+        say("elapsed", after=f"mixed_models {model}",
+            seconds=f"{time.perf_counter() - t_model:.1f}")
+    return kern
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3273,7 +3654,7 @@ def main() -> int:
               "selfcal 16x100": selfcal_problem,
               "mixed 16x100": mixed_problem,
               "grouped 16x100": grouped_problem}
-    ab = {}
+    ab, std_status = {}, {}
     for shape, prob in probs.items():
         # the multi-target solves have a budget of 60 evaluations and no
         # iteration bound of their own (bench.py::mixed_problem)
@@ -3287,6 +3668,7 @@ def main() -> int:
         t_lib = phase_solve(shape, prob, library, "library", cpu_ref,
                             max_nit)
         t_ker = phase_solve(shape, prob, kernel, "kernel", cpu_ref, max_nit)
+        std_status[shape] = int(library.status)
         ab[shape] = {"library": t_lib[0], "kernel": t_ker[0],
                      "library_uncaptured": t_lib[1],
                      "kernel_uncaptured": t_ker[1]}
@@ -3350,6 +3732,13 @@ def main() -> int:
     t_phase = time.perf_counter()
     sc_models = phase_selfcal_models(builds)
     say("elapsed", after="selfcal_models",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    mx_models = phase_mixed_models(builds, std_status)
+    say("elapsed", after="mixed_models",
         seconds=f"{time.perf_counter() - t_start:.1f}",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
 
@@ -3436,6 +3825,31 @@ def main() -> int:
             "registers": rec["registers"], "spill_bytes": rec["spill_bytes"],
             "peak_mib": rec["peak_mib"], "shape": rec["shape"],
             "card": smi})
+    for (name, model, cw), rec in mx_models.items():
+        source, replaces, _ = KERNELS[name]
+        kernels.append({
+            "name": f"{name}[{model},cw{cw}]", "route": "cuda",
+            "source": source.replace(
+                "mixed_grams.cu", "mixed_models_e.cu" if name.endswith(
+                    "fused") else "mixed_models_f.cu"),
+            "replaces": replaces,
+            "launches": sum(rec["launches_by_solve"].values()),
+            "launches_by_solve": rec["launches_by_solve"],
+            "max_abs_err": rec["abs"], "max_rel_err": rec["rel"],
+            "max_scaled_err": rec["scaled"],
+            "f32_floor_cases": rec["f32_floor_cases"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "kernel_ms": rec["kernel_ms"],
+            "camera_width": MODEL_WIDTH[model], "key_width": cw,
+            "registers": rec["registers"], "spill_bytes": rec["spill_bytes"],
+            "blocks_per_sm": rec["blocks_per_sm"],
+            "dynamic_smem_bytes": rec["dynamic_smem_bytes"],
+            "peak_mib": rec["peak_mib"],
+            "solve_ms_median": rec["solve_ms_median"],
+            **{k: rec[k] for k in ("kernel_route", "other_shape")
+               if k in rec},
+            "shape": rec["shape"], "card": smi})
     widest = psd_time[max(psd_time)]
     kernels.append({
         "name": PSD[0], "route": "cuda", "source": PSD[1],

@@ -36,7 +36,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # argument types of the C entry points of csrc/template_grams.cu,
-# csrc/mixed_grams.cu (Kernels C-F), csrc/psd_solve.cu and csrc/peak.cu
+# csrc/mixed_grams.cu (Kernels C-F), csrc/mixed_models_{e,f}.cu (E and F at
+# the other camera models), csrc/psd_solve.cu and csrc/peak.cu
 _SIGNATURES = {
     "pct_template_gram": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "pct_template_gram_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
@@ -59,6 +60,14 @@ _SIGNATURES = {
     "pct_mixed_gram": [_P] * 7 + [_I, _I, _I, _I, _I, _F, _I] + [_P] * 8,
     "pct_mixed_gram_fused": [_P] * 7 + [_I, _I, _I, _I, _I, _I, _F, _I]
                             + [_P] * 15,
+    # Kernels E and F at another camera model: the intrinsic width first
+    "pct_mixed_gram_model": [_I] + [_P] * 7 + [_I, _I, _I, _I, _I, _F, _I]
+                            + [_P] * 8,
+    "pct_mixed_gram_fused_model": [_I] + [_P] * 7
+                                  + [_I, _I, _I, _I, _I, _I, _F, _I]
+                                  + [_P] * 15,
+    # what the device makes of C-F's first pass at (intr_w, cw, fused)
+    "pct_mixed_occupancy": [_I, _I, _I, _P],
     "pct_psd_solve": [_P, _P, _I, _I] + [_P] * 9,
     "pct_psd_diag_tile": [_P, _I, _I, _P, _P],
     "pct_fma_chain": [_P, _P, _I, _I, _P],
@@ -71,6 +80,7 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float   # 0.0 when an up-to-date library was found
+    source_seconds: dict   # each source's nvcc seconds ({} when found)
     ptxas_info: str        # nvcc's -Xptxas -v report (registers, spills),
                            # kept beside the library as *.ptxas.txt
 
@@ -101,27 +111,31 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _run(cmd: list[str]) -> str:
-    """Run one nvcc command; raise with its output if it fails."""
+def _run(cmd: list[str]) -> tuple[str, float]:
+    """Run one nvcc command; raise with its output if it fails. Returns
+    its stderr and its seconds."""
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
                            f"\n{proc.stdout}\n{proc.stderr}")
-    return proc.stderr.strip()
+    return proc.stderr.strip(), time.perf_counter() - t0
 
 
-def _compile_and_link(nvcc: str, out: Path) -> str:
+def _compile_and_link(nvcc: str, out: Path) -> tuple[str, dict]:
     """One nvcc per source, all started together, then one link into
-    ``out``; returns the compilers' -Xptxas -v reports."""
+    ``out``; returns the compilers' -Xptxas -v reports and each source's
+    seconds."""
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
         with ThreadPoolExecutor(max_workers=len(objs)) as pool:
-            reports = list(pool.map(
+            runs = list(pool.map(
                 lambda so: _run([nvcc, *NVCC_FLAGS, "-c", str(so[0]), "-o",
                                  str(so[1])]),
                 zip(_sources(), objs)))
         _run([nvcc, "-shared", "-o", str(out), *map(str, objs)])
-    return "\n".join(reports)
+    return ("\n".join(report for report, _ in runs),
+            {src.name: sec for src, (_, sec) in zip(_sources(), runs)})
 
 
 @functools.cache
@@ -133,12 +147,12 @@ def load() -> KernelLibrary:
     # the ptxas report is kept beside the library, so that a cached library
     # still reports its registers and spills
     report = path.with_suffix(".ptxas.txt")
-    seconds = 0.0
+    seconds, by_source = 0.0, {}
     if not (path.exists() and report.exists()):
         tmp = path.with_suffix(f".{os.getpid()}.tmp.so")
         t0 = time.perf_counter()
         try:
-            ptxas = _compile_and_link(nvcc, tmp)
+            ptxas, by_source = _compile_and_link(nvcc, tmp)
         except BaseException:
             tmp.unlink(missing_ok=True)
             raise
@@ -153,4 +167,4 @@ def load() -> KernelLibrary:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return KernelLibrary(lib, path, seconds, ptxas)
+    return KernelLibrary(lib, path, seconds, by_source, ptxas)

@@ -188,12 +188,12 @@ def scaled_errors_fused(got, ref, ref_gram: torch.Tensor, n_cams: int,
         "corner": _worst(corner / s_b[:, w] ** 2)}
 
 
-def _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, widths=(15,), **masks):
+def _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, **masks):
     """Raise unless the kernel takes these tensors as they are. ``tpl`` is
-    the (K, 3) point table (the template, or the free points); ``widths``
-    the camera widths the kernel is built at (Kernels E and F: the
-    standard model's 15); ``masks`` are column masks among cmask_b (B, a),
-    imask_b (B, 6), kmask (K, 3)."""
+    the (K, 3) point table (the template, or the free points); the camera
+    width must be one the kernels are built at (``TEMPLATE_WIDTHS``);
+    ``masks`` are column masks among cmask_b (B, a), imask_b (B, 6),
+    kmask (K, 3)."""
     tensors = {"cam_b": cam_b, "im_b": im_b, "tpl": tpl, "uv": uv,
                "mask": mask, **masks}
     dev = cam_b.device
@@ -207,10 +207,11 @@ def _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, widths=(15,), **masks):
             raise ValueError(f"{name} must be contiguous")
     bb, k = mask.shape
     a = cam_b.shape[1]
-    if a not in widths:
+    if a not in TEMPLATE_WIDTHS:
         raise NotImplementedError(
             f"camera width {a} is not ported yet on this kernel (ROADMAP "
-            f"Queue A item 7); it serves the camera widths {widths}")
+            f"Queue A item 7); it serves the camera widths "
+            f"{TEMPLATE_WIDTHS}")
     want = {"cam_b": (bb, a), "im_b": (bb, 6), "tpl": (k, 3),
             "uv": (bb, k, 2), "cmask_b": (bb, a), "imask_b": (bb, 6),
             "kmask": (k, 3)}
@@ -267,7 +268,7 @@ def _template_gram_op(cam_b: Tensor, im_b: Tensor, tpl: Tensor, uv: Tensor,
         return template_gram_plain(cam_b, im_b, tpl, uv, mask, loss,
                                    f_scale, loss_semantics)
     loss_id, component = _loss_args(loss, loss_semantics)
-    _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, widths=TEMPLATE_WIDTHS)
+    _check_cuda_inputs(cam_b, im_b, tpl, uv, mask)
     intr_w = cam_b.shape[1] - 6
     with torch.cuda.device(cam_b.device):
         out = _launch_gram(pack_block_params(cam_b, im_b), tpl, uv, mask,
@@ -372,7 +373,7 @@ def _template_gram_fused_op(
             cam_b, im_b, tpl, uv, mask, n_cams, n_ims, loss, f_scale,
             loss_semantics))
     loss_id, component = _loss_args(loss, loss_semantics)
-    _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, widths=TEMPLATE_WIDTHS)
+    _check_cuda_inputs(cam_b, im_b, tpl, uv, mask)
     if mask.shape[0] != n_cams * n_ims:
         raise ValueError(f"{mask.shape[0]} blocks, expected {n_cams} x "
                          f"{n_ims}")

@@ -18,21 +18,27 @@ Pallas kernels:
   and gk = Jk^T r over all blocks.
 - Kernel F, ``mixed_gram`` <- ``_mixed_grams_factory`` (reached through
   ``make_pallas_mixed_grams`` and ``make_pallas_grouped_grams``): the
-  per-block extended gram (22 x 22), the per-(block, key) couplings wcc_b
-  and wic_b, and hkk/gk over all blocks.
+  per-block extended gram (W x W, W = a + 7), the per-(block, key)
+  couplings wcc_b and wic_b, and hkk/gk over all blocks.
 
-Both mask every camera, pose and key column in the kernel, as the Pallas
-kernels do. Each wrapper takes the same tensors on either device. A CPU
-tensor runs the plain PyTorch twin (``mixed_gram_plain``,
-``mixed_gram_fused_plain``: the closed forms of ``analytic`` and batched
-products). A CUDA tensor launches the kernel or raises: there is no
-fallback. Each wrapper counts its launches in ``<wrapper>.launches``, and
-per key width in ``<wrapper>.launches_by_cw``.
+Both serve the five camera models the JAX kernels serve (``TEMPLATE_WIDTHS``:
+a = 15 standard, entry points ``pct_mixed_gram{,_fused}``; 14 fisheye, 18
+rational, 22 thin-prism and 24 tilted through
+``pct_mixed_gram{,_fused}_model``, ``csrc/mixed_models_{e,f}.cu``) at both
+key widths; a CUDA tensor at another camera width raises. Both mask every
+camera, pose and key column in the kernel, as the Pallas kernels do. Each
+wrapper takes the same tensors on either device. A CPU tensor runs the
+plain PyTorch twin (``mixed_gram_plain``, ``mixed_gram_fused_plain``: the
+closed forms of ``analytic`` at any camera width, and batched products). A
+CUDA tensor launches the kernel or raises: there is no fallback. Each
+wrapper counts its launches in ``<wrapper>.launches``, per key width in
+``<wrapper>.launches_by_cw`` and per (camera width, key width) in
+``<wrapper>.launches_by_width``.
 
 The builders ``make_cuda_mixed_grams``, ``make_cuda_grouped_grams`` and
 ``make_cuda_mixed_grams_fused`` keep the JAX builders' contracts (the
 10-tuple of ``make_block_grams``, and the ten reduced pieces of
-``make_pallas_mixed_grams_fused``). Standard camera model (a = 15) only.
+``make_pallas_mixed_grams_fused``).
 
 ``pack_key_group_data`` builds the kernels' per-key operand in plain torch,
 as the JAX package builds it outside its Pallas call.
@@ -48,8 +54,8 @@ import torch
 from pycamset_tpu_torch.ops.rotations import (rodrigues_jacobian,
                                               rodrigues_to_matrix)
 from pycamset_tpu_torch.optim.cuda_grams import (
-    GRAM_W, _check_cuda_inputs, _jacobi_scale, _loss_args, _ptr, _raise_on,
-    _worst, pack_block_params, reduce_grams)
+    TEMPLATE_WIDTHS, _check_cuda_inputs, _jacobi_scale, _loss_args,
+    _model_entry, _ptr, _raise_on, _worst, pack_block_params, reduce_grams)
 from pycamset_tpu_torch.optim.cuda_selfcal_grams import (
     _empty_like_grid, _grid_dims, gram_entries, scaled_errors_selfcal,
     scaled_errors_selfcal_fused, weighted_grams)
@@ -57,9 +63,9 @@ from pycamset_tpu_torch.optim.cuda_selfcal_grams import (
 KD_ROWS = 48        # pack_key_group_data rows (the JAX layout)
 MIXED_CHUNK = 12    # images of one camera per thread block in Kernel E
 MIXED_CHUNK_F = 8   # blocks per thread block in Kernel F
-N_GC = 45           # Kernel E's per-key sums of g over a chunk (csrc N_GC)
 N_HK = 9            # per-key sums of g for hkk and gk (csrc N_HK)
-N_ENTRIES = gram_entries(15)  # the standard model's gram entries: 253
+# Kernel E's per-key sums of g over a chunk at camera width a are 3a (csrc
+# Mix::N_GC: 45 at the standard model), its gram entries gram_entries(a)
 
 # the outputs of Kernels E/F have the self-cal kernels' layouts (c = cw)
 scaled_errors_mixed = scaled_errors_selfcal
@@ -86,7 +92,7 @@ def scaled_errors_groups(got, ref, onehot: torch.Tensor, n_cams: int,
             cost = out[7].sum()
         else:                    # Kernel F: gram, wcc_b, wic_b, hkk, gk
             g, wcc_b, wic_b, hkk, gk = out
-            a = 15
+            a = g.shape[-1] - 7
             hcc = g[:, :a, :a].reshape(n_cams, n_ims, a, a).sum(dim=1)
             gii = g[:, a:a + 6, a:a + 6]
             wck = wcc_b.reshape((n_cams, n_ims) + wcc_b.shape[1:]).sum(dim=1)
@@ -119,13 +125,37 @@ def key_width(with_key_cols: bool) -> int:
     return 9 if with_key_cols else 6
 
 
+def first_pass_occupancy(a: int, cw: int, fused: bool) -> dict:
+    """What the current CUDA device makes of the first pass of Kernel C/E
+    (``fused``) or D/F at camera width a and key width cw (3: C/D; 9, 6:
+    E/F), read from the runtime through ``pct_mixed_occupancy``: the blocks
+    of 128 threads an SM holds at the dynamic shared memory the launcher
+    passes, that dynamic and the static shared memory in bytes, registers
+    and local (spill) bytes a thread, and the blocks an SM the kernel's
+    launch bounds ask for. Builds the kernels if needed; launches nothing.
+    """
+    import ctypes
+
+    from pycamset_tpu_torch._build import load
+    if a not in TEMPLATE_WIDTHS or cw not in (3, 6, 9):
+        raise ValueError(f"no first pass is built at a = {a}, cw = {cw}")
+    out = (ctypes.c_int * 6)()
+    _raise_on(load().lib.pct_mixed_occupancy(
+        a - 6, cw, int(fused), ctypes.cast(out, ctypes.c_void_p)),
+        "pct_mixed_occupancy")
+    return dict(zip(("blocks_per_sm", "dynamic_smem_bytes",
+                     "static_smem_bytes", "registers", "local_bytes",
+                     "launch_bound_blocks"), out))
+
+
 def _check_widths(widths, with_key_cols: bool):
     cw = key_width(with_key_cols)
-    if (widths.a, widths.b, widths.c) != (15, 6, cw):
+    if (widths.b, widths.c) != (6, cw) or widths.a not in TEMPLATE_WIDTHS:
         raise NotImplementedError(
             f"widths {widths} are not ported yet: the multi-target kernels "
-            f"serve the standard mixed (a=15, b=6, c=9) and grouped (c=6) "
-            f"chains; ROADMAP Queue A item 7 lists the other camera widths")
+            f"serve the mixed (b=6, c=9) and grouped (b=6, c=6) chains at "
+            f"the camera widths {TEMPLATE_WIDTHS}; ROADMAP Queue A item 7 "
+            f"lists the others")
 
 
 def pack_key_group_data(grp6: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -153,9 +183,10 @@ def mixed_gram_plain(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
 
     :param keyp: (K, cw) c-axis rows [group pose 6 | point 3]; the grouped
         chain (``with_key_cols=False``) reads its points from tpl (K, 3).
-    :return: (g (B, 22, 22) extended grams of [Jc | Ji | r], IRLS-weighted
-        rows, camera columns masked by cmask_b and pose columns by imask_b,
-        corner = the block's (robust) cost; wcc_b (B, K, 15, cw);
+    :return: (g (B, W, W) extended grams of [Jc | Ji | r], W = a + 7,
+        IRLS-weighted rows, camera columns masked by cmask_b and pose
+        columns by imask_b, corner = the block's (robust) cost;
+        wcc_b (B, K, a, cw);
         wic_b (B, K, 6, cw); hkk (K, cw, cw); gk (K, cw)), Jk masked by kmask.
     """
     from pycamset_tpu_torch.optim.analytic import (block_rj_grouped_template,
@@ -175,8 +206,8 @@ def mixed_gram_fused_plain(cam_b, im_b, keyp, tpl, uv, mask, cmask_b,
                            loss_semantics: str = "component"):
     """Plain twin of Kernel E: Kernel F's twin, reduced.
 
-    :return: (hcc (C,15,15), gc (C,15), wcc (C,K,15,cw), wic_b (B,K,6,cw),
-        wci (B,15,6), gii (B,6,6), gi (B,6), corner (B,), hkk (K,cw,cw),
+    :return: (hcc (C,a,a), gc (C,a), wcc (C,K,a,cw), wic_b (B,K,6,cw),
+        wci (B,a,6), gii (B,6,6), gi (B,6), corner (B,), hkk (K,cw,cw),
         gk (K,cw)).
     """
     g, wcc_b, wic_b, hkk, gk = mixed_gram_plain(
@@ -189,7 +220,8 @@ def mixed_gram_fused_plain(cam_b, im_b, keyp, tpl, uv, mask, cmask_b,
 
 def _check_mixed_inputs(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
                         kmask, with_key_cols: bool):
-    """Raise unless Kernels E/F take these tensors as they are."""
+    """Raise unless Kernels E/F take these tensors as they are (a camera
+    width in ``TEMPLATE_WIDTHS``)."""
     _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, cmask_b=cmask_b,
                        imask_b=imask_b)
     want = (mask.shape[1], key_width(with_key_cols))
@@ -207,20 +239,27 @@ def _check_mixed_inputs(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
         raise ValueError("kmask must be contiguous")
 
 
-def _count(wrapper, cw: int):
+def _count(wrapper, a: int, cw: int):
     wrapper.launches += 1
     wrapper.launches_by_cw[cw] += 1
+    wrapper.launches_by_width[(a, cw)] += 1
+
+
+def _by_width() -> dict:
+    """A zero launch count per (camera width, key width)."""
+    return {(a, cw): 0 for a in TEMPLATE_WIDTHS for cw in (9, 6)}
 
 
 def mixed_gram(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask,
                with_key_cols: bool = True, loss: str = "linear",
                f_scale: float = 1.0, loss_semantics: str = "component"):
-    """Kernel F: (g (B,22,22), wcc_b (B,K,15,cw), wic_b (B,K,6,cw),
+    """Kernel F: (g (B,W,W), wcc_b (B,K,a,cw), wic_b (B,K,6,cw),
     hkk (K,cw,cw), gk (K,cw)), the outputs of ``mixed_gram_plain``.
 
-    :param cam_b: (B, 15). :param im_b: (B, 6). :param keyp: (K, cw).
-        :param tpl: (K, 3). :param uv: (B, K, 2). :param mask: (B, K).
-        :param cmask_b: (B, 15). :param imask_b: (B, 6). :param kmask: (K, cw).
+    :param cam_b: (B, a), a in ``TEMPLATE_WIDTHS``. :param im_b: (B, 6).
+        :param keyp: (K, cw). :param tpl: (K, 3). :param uv: (B, K, 2).
+        :param mask: (B, K). :param cmask_b: (B, a). :param imask_b: (B, 6).
+        :param kmask: (K, cw).
     """
     if cam_b.device.type == "cpu":
         return mixed_gram_plain(cam_b, im_b, keyp, tpl, uv, mask, cmask_b,
@@ -234,39 +273,43 @@ def mixed_gram(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask,
                                  _points(keyp, tpl, with_key_cols))
         out = _launch_mixed(pack_block_params(cam_b, im_b), kd, uv, mask,
                             cmask_b, imask_b, kmask, loss_id, component,
-                            f_scale)
-    _count(mixed_gram, kmask.shape[1])
+                            f_scale, cam_b.shape[1] - 6)
+    _count(mixed_gram, cam_b.shape[1], kmask.shape[1])
     return out
 
 
 mixed_gram.launches = 0
 mixed_gram.launches_by_cw = {6: 0, 9: 0}
+mixed_gram.launches_by_width = _by_width()
 
 
 def _launch_mixed(packed, kd, uv, mask, cmask_b, imask_b, kmask, loss_id,
-                  component, f_scale):
+                  component, f_scale, intr_w: int = 9):
     """Allocate Kernel F's outputs and scratch and launch its two passes on
-    the current stream (inputs already checked)."""
+    the current stream (inputs already checked; ``packed`` from
+    pack_block_params at ``intr_w``)."""
     from pycamset_tpu_torch._build import load
     bb = mask.shape[0]
     cw = kmask.shape[1]
+    a = intr_w + 6
+    gw = a + 7
     chunk = MIXED_CHUNK_F
     k, n_tiles, n_chunks = _grid_dims(mask, bb, chunk)
     empty = _empty_like_grid(mask)
-    g, wcc, wic = (empty(bb, GRAM_W, GRAM_W), empty(bb, 15 * cw, k),
+    g, wcc, wic = (empty(bb, gw, gw), empty(bb, a * cw, k),
                    empty(bb, 6 * cw, k))
     hkk, gk = empty(k, cw, cw), empty(k, cw)
-    blk_part, hk_part = (empty(n_tiles, bb, N_ENTRIES),
+    blk_part, hk_part = (empty(n_tiles, bb, gram_entries(a)),
                          empty(n_chunks, N_HK, k))
-    rc = load().lib.pct_mixed_gram(
+    rc = _model_entry(load().lib, "pct_mixed_gram", intr_w)(
         _ptr(packed), _ptr(kd), _ptr(uv), _ptr(mask), _ptr(cmask_b),
         _ptr(imask_b), _ptr(kmask), cw, bb, k, loss_id, component,
         float(f_scale), chunk, _ptr(g), _ptr(wcc), _ptr(wic),
         _ptr(hkk), _ptr(gk), _ptr(blk_part), _ptr(hk_part),
         torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "mixed_gram")
-    # (B, 15 cw | 6 cw, K) rows, written coalesced -> (B, K, 15 | 6, cw)
-    return (g, wcc.transpose(1, 2).reshape(bb, k, 15, cw),
+    # (B, a cw | 6 cw, K) rows, written coalesced -> (B, K, a | 6, cw)
+    return (g, wcc.transpose(1, 2).reshape(bb, k, a, cw),
             wic.transpose(1, 2).reshape(bb, k, 6, cw), hkk, gk)
 
 
@@ -276,7 +319,8 @@ def mixed_gram_fused(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
                      f_scale: float = 1.0,
                      loss_semantics: str = "component"):
     """Kernel E: the outputs of ``mixed_gram_fused_plain`` over
-    B = n_cams * n_ims camera-major blocks; any n_ims, no padding."""
+    B = n_cams * n_ims camera-major blocks; any n_ims, no padding; a in
+    ``TEMPLATE_WIDTHS``."""
     if cam_b.device.type == "cpu":
         return mixed_gram_fused_plain(cam_b, im_b, keyp, tpl, uv, mask,
                                       cmask_b, imask_b, kmask, n_cams, n_ims,
@@ -293,35 +337,41 @@ def mixed_gram_fused(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
                                  _points(keyp, tpl, with_key_cols))
         out = _launch_mixed_fused(pack_block_params(cam_b, im_b), kd, uv,
                                   mask, cmask_b, imask_b, kmask, n_cams,
-                                  n_ims, loss_id, component, f_scale)
-    _count(mixed_gram_fused, kmask.shape[1])
+                                  n_ims, loss_id, component, f_scale,
+                                  cam_b.shape[1] - 6)
+    _count(mixed_gram_fused, cam_b.shape[1], kmask.shape[1])
     return out
 
 
 mixed_gram_fused.launches = 0
 mixed_gram_fused.launches_by_cw = {6: 0, 9: 0}
+mixed_gram_fused.launches_by_width = _by_width()
 
 
 def _launch_mixed_fused(packed, kd, uv, mask, cmask_b, imask_b, kmask,
-                        n_cams, n_ims, loss_id, component, f_scale):
+                        n_cams, n_ims, loss_id, component, f_scale,
+                        intr_w: int = 9):
     """Allocate Kernel E's outputs and scratch and launch its two passes on
-    the current stream (inputs already checked)."""
+    the current stream (inputs already checked; ``packed`` from
+    pack_block_params at ``intr_w``)."""
     from pycamset_tpu_torch._build import load
     bb = mask.shape[0]
     cw = kmask.shape[1]
+    a = intr_w + 6
+    n_entries = gram_entries(a)
     chunk = MIXED_CHUNK
     k, n_tiles, n_chunks = _grid_dims(mask, n_ims, chunk)
     empty = _empty_like_grid(mask)
-    hcc, gc, wcc = (empty(n_cams, 15, 15), empty(n_cams, 15),
-                    empty(n_cams, 15 * cw, k))
-    wic, wci, gii = empty(bb, 6 * cw, k), empty(bb, 15, 6), empty(bb, 6, 6)
+    hcc, gc, wcc = (empty(n_cams, a, a), empty(n_cams, a),
+                    empty(n_cams, a * cw, k))
+    wic, wci, gii = empty(bb, 6 * cw, k), empty(bb, a, 6), empty(bb, 6, 6)
     gi, corner, hkk, gk = (empty(bb, 6), empty(bb), empty(k, cw, cw),
                            empty(k, cw))
-    blk_part = empty(n_tiles, bb, N_ENTRIES)
-    cam_part = empty(n_cams, n_chunks, n_tiles, N_ENTRIES)
-    wcc_part = empty(n_cams, n_chunks, N_GC, k)
+    blk_part = empty(n_tiles, bb, n_entries)
+    cam_part = empty(n_cams, n_chunks, n_tiles, n_entries)
+    wcc_part = empty(n_cams, n_chunks, 3 * a, k)
     hk_part = empty(n_cams * n_chunks, N_HK, k)
-    rc = load().lib.pct_mixed_gram_fused(
+    rc = _model_entry(load().lib, "pct_mixed_gram_fused", intr_w)(
         _ptr(packed), _ptr(kd), _ptr(uv), _ptr(mask), _ptr(cmask_b),
         _ptr(imask_b), _ptr(kmask), cw, n_cams, n_ims, k, loss_id,
         component, float(f_scale), chunk, _ptr(hcc), _ptr(gc),
@@ -329,7 +379,7 @@ def _launch_mixed_fused(packed, kd, uv, mask, cmask_b, imask_b, kmask,
         _ptr(hkk), _ptr(gk), _ptr(blk_part), _ptr(cam_part), _ptr(wcc_part),
         _ptr(hk_part), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "mixed_gram_fused")
-    return (hcc, gc, wcc.transpose(1, 2).reshape(n_cams, k, 15, cw),
+    return (hcc, gc, wcc.transpose(1, 2).reshape(n_cams, k, a, cw),
             wic.transpose(1, 2).reshape(bb, k, 6, cw), wci, gii, gi, corner,
             hkk, gk)
 
@@ -337,7 +387,8 @@ def _launch_mixed_fused(packed, kd, uv, mask, cmask_b, imask_b, kmask,
 def _make_block_grams(widths, with_key_cols: bool, loss: str,
                       f_scale: float, loss_semantics: str):
     _check_widths(widths, with_key_cols)
-    a, w = 15, GRAM_W - 1
+    a = widths.a
+    w = a + 6
 
     def grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask):
         g, wcc_b, wic_b, hkk, gk = mixed_gram(

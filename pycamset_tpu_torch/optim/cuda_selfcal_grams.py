@@ -235,8 +235,8 @@ def selfcal_gram(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask,
                                   imask_b, kmask, loss, f_scale,
                                   loss_semantics)
     loss_id, component = _loss_args(loss, loss_semantics)
-    _check_cuda_inputs(cam_b, im_b, keyp, uv, mask, widths=TEMPLATE_WIDTHS,
-                       cmask_b=cmask_b, imask_b=imask_b, kmask=kmask)
+    _check_cuda_inputs(cam_b, im_b, keyp, uv, mask, cmask_b=cmask_b,
+                       imask_b=imask_b, kmask=kmask)
     with torch.cuda.device(cam_b.device):
         out = _launch_selfcal(pack_block_params(cam_b, im_b), keyp, uv, mask,
                               cmask_b, imask_b, kmask, loss_id, component,
@@ -290,8 +290,8 @@ def selfcal_gram_fused(cam_b, im_b, keyp, uv, mask, imask_b, kmask,
                                         kmask, n_cams, n_ims, loss, f_scale,
                                         loss_semantics)
     loss_id, component = _loss_args(loss, loss_semantics)
-    _check_cuda_inputs(cam_b, im_b, keyp, uv, mask, widths=TEMPLATE_WIDTHS,
-                       imask_b=imask_b, kmask=kmask)
+    _check_cuda_inputs(cam_b, im_b, keyp, uv, mask, imask_b=imask_b,
+                       kmask=kmask)
     if mask.shape[0] != n_cams * n_ims:
         raise ValueError(f"{mask.shape[0]} blocks, expected {n_cams} x "
                          f"{n_ims}")
@@ -464,8 +464,8 @@ def freepoint_gram(cam_b, keyp, uv, mask, cmask_b, kmask,
                                     loss, f_scale, loss_semantics)
     loss_id, component = _loss_args(loss, loss_semantics)
     im0, imask0 = _identity_poses(cam_b)
-    _check_cuda_inputs(cam_b, im0, keyp, uv, mask, widths=TEMPLATE_WIDTHS,
-                       cmask_b=cmask_b, imask_b=imask0, kmask=kmask)
+    _check_cuda_inputs(cam_b, im0, keyp, uv, mask, cmask_b=cmask_b,
+                       imask_b=imask0, kmask=kmask)
     with torch.cuda.device(cam_b.device):
         g, wck_b, _, hkk, gk = _launch_selfcal(
             pack_block_params(cam_b, im0), keyp, uv, mask, cmask_b, imask0,
@@ -492,8 +492,8 @@ def freepoint_gram_fused(cam_b, keyp, uv, mask, kmask, n_cams: int,
                                           loss_semantics)
     loss_id, component = _loss_args(loss, loss_semantics)
     im0, imask0 = _identity_poses(cam_b)
-    _check_cuda_inputs(cam_b, im0, keyp, uv, mask, widths=TEMPLATE_WIDTHS,
-                       imask_b=imask0, kmask=kmask)
+    _check_cuda_inputs(cam_b, im0, keyp, uv, mask, imask_b=imask0,
+                       kmask=kmask)
     if mask.shape[0] != n_cams * n_ims:
         raise ValueError(f"{mask.shape[0]} blocks, expected {n_cams} x "
                          f"{n_ims}")

@@ -137,9 +137,8 @@ def chain_family(op_fun: OptimFunction, widths: GroupWidths) -> str:
     """'template', 'selfcal', 'freepoint' or 'grouped', by the chain's
     block names (as the JAX package dispatches, any camera model's
     projection block first); any other chain raises ``UnsupportedChain``.
-    The template, self-calibration and free-point families take the five
-    camera widths, the grouped one the standard model's; another width
-    raises ``NotImplementedError``."""
+    Every family takes the five camera widths (``TEMPLATE_WIDTHS``);
+    another width raises ``NotImplementedError``."""
     names = tuple(type(bk).__name__ for bk in op_fun.blocks)
     key = (("Projection",) + names[1:] if names and names[0] in _PROJS
            else names)
@@ -150,12 +149,12 @@ def chain_family(op_fun: OptimFunction, widths: GroupWidths) -> str:
             f"the chains {tuple(_FAMILIES)} only (the mixed chain, with "
             f"GroupRigidTform3d + FreePoint, goes through "
             f"structured_mixed.make_mixed_structured_neq)")
-    # Kernels A-D serve the five camera models; E and F the standard one
-    served = (15,) if family == "grouped" else TEMPLATE_WIDTHS
-    if widths.a not in served:
+    # Kernels A-F serve the five camera models
+    if widths.a not in TEMPLATE_WIDTHS:
         raise NotImplementedError(
             f"camera width a={widths.a} is not ported yet on the {family} "
-            f"chain (ROADMAP Queue A item 7); it serves a in {served}")
+            f"chain (ROADMAP Queue A item 7); it serves a in "
+            f"{TEMPLATE_WIDTHS}")
     return family
 
 

@@ -27,9 +27,10 @@ The grams come from Kernel E (fused reduction) or Kernel F (per block),
 ``optim/cuda_mixed_grams.py``, chosen by the JAX package's padding rule
 (tile 8, at most 25% padding); on the CPU their plain twins.
 
-The port serves the standard-model mixed chain with the c-axis contiguous
-(group columns 0-5, point columns 6-8), the one layout every shipped chain
-has; other chains raise.
+The port serves the mixed chain at any of the five camera models' projection
+blocks (a in ``TEMPLATE_WIDTHS``, as the JAX package's kernels do), with
+the c-axis contiguous (group columns 0-5, point columns 6-8), the one layout
+every shipped chain has; other chains raise.
 """
 from __future__ import annotations
 
@@ -40,8 +41,9 @@ import torch
 
 from pycamset_tpu_torch.optim.blocks import key_type
 from pycamset_tpu_torch.optim.chain import OptimFunction
+from pycamset_tpu_torch.optim.cuda_grams import TEMPLATE_WIDTHS
 from pycamset_tpu_torch.optim.structured import (
-    MIXED_PAD_FRAC, MIXED_PAD_TILE, GroupWidths, UnsupportedChain,
+    _PROJS, MIXED_PAD_FRAC, MIXED_PAD_TILE, GroupWidths, UnsupportedChain,
     _block_params, _normalized_inv, _psd_solve, block_diag_dense,
     device_onehot, fused_tile_pad_ok, group_onehot, group_reduce,
     sum_block_grams)
@@ -180,20 +182,23 @@ def merge_mixed_to_full(p: MixedPieces, op_fun: OptimFunction, struct,
 
 
 def _check_mixed_chain(op_fun: OptimFunction, widths: MixedWidths):
-    """Raise unless the chain is the served mixed chain: the standard
-    model, c-axis [group pose 6 | point 3]."""
+    """Raise unless the chain is the served mixed chain: any camera model's
+    projection block (``structured._PROJS``) in front of
+    ``MIXED_CHAIN[1:]``, c-axis [group pose 6 | point 3], a camera width in
+    ``TEMPLATE_WIDTHS``."""
     names = tuple(type(bk).__name__ for bk in op_fun.blocks)
-    if (names != MIXED_CHAIN or widths.b != 6
-            or (widths.ck, widths.cg) != (3, 6)
+    if (not names or names[0] not in _PROJS or names[1:] != MIXED_CHAIN[1:]
+            or widths.b != 6 or (widths.ck, widths.cg) != (3, 6)
             or widths.grp_cols != (0, 1, 2, 3, 4, 5)
             or widths.key_cols != (6, 7, 8)):
         raise UnsupportedChain(
             f"chain {names} is not ported yet: the mixed path serves "
-            f"{MIXED_CHAIN} with the c-axis [group pose 6 | point 3] only")
-    if widths.a != 15:
+            f"{MIXED_CHAIN} (any camera model's projection block first) "
+            f"with the c-axis [group pose 6 | point 3] only")
+    if widths.a not in TEMPLATE_WIDTHS:
         raise NotImplementedError(
             f"camera width a={widths.a} is not ported yet (ROADMAP Queue A "
-            f"item 7); only the standard model (a = 15) is")
+            f"item 7); the mixed path serves a in {TEMPLATE_WIDTHS}")
 
 
 def resolve_mixed_grams(op_fun: OptimFunction, widths: MixedWidths,

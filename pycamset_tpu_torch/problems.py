@@ -5,7 +5,9 @@ Counterparts of ``bench.py::standard_problem`` / ``template_colmask``,
 ``bench.py::mixed_problem`` / ``mixed_colmask_groups``, and a grouped
 template problem on the mixed problem's rig. Each builds a synthetic rig
 (visibility 0.85, 0.3 px noise; seed 0, or 5 for the multi-target ones) and
-the (B, K) block grid, standard camera model.
+the (B, K) block grid, standard camera model; the self-calibration, free-point,
+multi-target and template-handler makers take ``camera_model`` (the rig
+``make_synthetic_rig`` makes for that model, through its projection block).
 
 - Template: the chain Projection + Extrinsic3D + TemplatePoints, the true
   parameters perturbed by ``rng(1)`` with the bench's scale vector, and
@@ -20,7 +22,8 @@ the (B, K) block grid, standard camera model.
   RigidTform3d + GroupRigidTform3d + FreePoint, two targets (the two halves
   of the grid), started at the true parameters except group 1's relative
   pose, offset by ``GROUP_START[1]``; group 0 fixed, pose 0 fixed, the
-  self-cal point gauge; ``max_nfev`` 60.
+  self-cal point gauge; ``max_nfev`` 60. Both halves are one board, so
+  the true relative pose of group 1 is the identity (``GROUP_TRUE``).
 - Grouped multi-target template: the chain Projection + Extrinsic3D +
   RigidTform3d + GroupTemplatePoints on the same rig, start and gauge (the
   points come from the template).
@@ -95,6 +98,8 @@ from pycamset_tpu_torch.utils.synthetic import make_synthetic_rig
 # the multi-target problems' group poses at the start: group 0 is the
 # base target (fixed), group 1 starts offset from its true identity pose
 GROUP_START = np.array([[0.0] * 6, [0.04, -0.02, 0.06, 0.01, -0.02, 0.03]])
+# the multi-target rig's truth: its two targets are the halves of one board
+GROUP_TRUE = np.zeros((2, 6))
 
 
 def template_colmask(n_cams, n_ims, widths, k_pad, dtype=np.float64):
@@ -394,27 +399,38 @@ class MixedProblem(BAProblem):
         return pack_c_axis(self.onehot(pieces.key), pieces, colmask)
 
 
-def mixed_colmask_groups(n_cams, n_ims, n_keys, k_pad, dtype=np.float64):
+def camera_width(camera_model: str) -> int:
+    """a: a camera model's intrinsics plus the 6 extrinsic columns."""
+    return _projection_block(camera_model).params.n + 6
+
+
+def mixed_colmask_groups(n_cams, n_ims, n_keys, k_pad, dtype=np.float64,
+                         camera_model: str = "standard"):
     """(colmask, group_of_key) of the bench mixed 2-target problem, host
-    numpy: the grid halves as the two targets, group 0's relative pose
-    fixed, pad keys frozen, the self-cal point gauge, pose 0 fixed."""
+    numpy, at ``camera_model``'s camera width: the grid halves as the two
+    targets, group 0's relative pose fixed, pad keys frozen, the self-cal
+    point gauge, pose 0 fixed."""
+    a = camera_width(camera_model)
     gok = np.zeros(k_pad, np.int64)
     gok[:n_keys] = np.arange(n_keys) >= n_keys // 2
     _, cm_im, kmask = selfcal_colmask(n_cams, n_ims, n_keys, k_pad,
-                                      GroupWidths(15, 6, 3), dtype)
+                                      GroupWidths(a, 6, 3), dtype)
     cm_grp = np.ones((2, 6), dtype=dtype)
     cm_grp[0] = 0.0
-    return MixedPieces(np.ones((n_cams, 15), dtype=dtype), cm_im, kmask,
+    return MixedPieces(np.ones((n_cams, a), dtype=dtype), cm_im, kmask,
                        cm_grp), gok
 
 
-def _multi_target_rig(n_cams, n_ims, grid, seed, k_pad_multiple):
+def _multi_target_rig(n_cams, n_ims, grid, seed, k_pad_multiple,
+                      camera_model: str = "standard"):
     rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
-                             visibility=0.85, noise_px=0.3, seed=seed)
+                             visibility=0.85, noise_px=0.3, seed=seed,
+                             camera_model=camera_model)
     blocks = build_block_arrays(rig["dd"], n_cams, n_ims, rig["n_keys"],
                                 k_pad_multiple=k_pad_multiple)
     colmask, gok = mixed_colmask_groups(n_cams, n_ims, rig["n_keys"],
-                                        blocks.uv.shape[1])
+                                        blocks.uv.shape[1],
+                                        camera_model=camera_model)
     return rig, blocks, colmask, gok
 
 
@@ -422,16 +438,22 @@ def mixed_problem(n_cams: int, n_ims: int, device="cuda",
                   dtype=None, grid: int = 19, seed: int = 5,
                   k_pad_multiple: int = 128,
                   loss: str = "linear", f_scale: float = 1.0,
-                  loss_semantics: str = "component") -> MixedProblem:
+                  loss_semantics: str = "component",
+                  camera_model: str = "standard") -> MixedProblem:
     """``bench.py::mixed_problem(n_cams, n_ims, grid, seed)`` on ``device``
-    (dtype defaults to float64 on the CPU, float32 on CUDA)."""
+    (dtype defaults to float64 on the CPU, float32 on CUDA); with
+    ``camera_model`` the rig ``make_synthetic_rig`` makes for that model,
+    through the model's projection block, at the same start (the true
+    intrinsics, group 1 at ``GROUP_START[1]``) and gauge."""
     device = resolve_device(device)
     dtype = dtype or default_device_dtype(device)
     rig, blocks, colmask, gok = _multi_target_rig(n_cams, n_ims, grid, seed,
-                                                  k_pad_multiple)
+                                                  k_pad_multiple,
+                                                  camera_model)
     n_keys, k_pad = rig["n_keys"], blocks.uv.shape[1]
-    op_fun = OptimFunction([Projection(), Extrinsic3D(), RigidTform3d(),
-                            GroupRigidTform3d(), FreePoint()])
+    op_fun = OptimFunction([_projection_block(camera_model), Extrinsic3D(),
+                            RigidTform3d(), GroupRigidTform3d(),
+                            FreePoint()])
     key_pad = np.concatenate(
         [rig["template"], np.repeat(rig["template"][:1], k_pad - n_keys, 0)])
     x0 = mixed_pieces_from_numpy(
@@ -450,17 +472,20 @@ def grouped_problem(n_cams: int, n_ims: int, device="cuda",
                     dtype=None, grid: int = 19, seed: int = 5,
                     k_pad_multiple: int = 128,
                     loss: str = "linear", f_scale: float = 1.0,
-                    loss_semantics: str = "component") -> BAProblem:
+                    loss_semantics: str = "component",
+                    camera_model: str = "standard") -> BAProblem:
     """The grouped multi-target template problem: ``mixed_problem``'s rig,
     start and gauge with the points taken from the template (chain
-    Projection + Extrinsic3D + RigidTform3d + GroupTemplatePoints)."""
+    Projection + Extrinsic3D + RigidTform3d + GroupTemplatePoints), at
+    ``camera_model`` as ``mixed_problem`` takes it."""
     device = resolve_device(device)
     dtype = dtype or default_device_dtype(device)
     rig, blocks, colmask, gok = _multi_target_rig(n_cams, n_ims, grid, seed,
-                                                  k_pad_multiple)
+                                                  k_pad_multiple,
+                                                  camera_model)
     n_keys, k_pad = rig["n_keys"], blocks.uv.shape[1]
-    op_fun = OptimFunction([Projection(), Extrinsic3D(), RigidTform3d(),
-                            GroupTemplatePoints()])
+    op_fun = OptimFunction([_projection_block(camera_model), Extrinsic3D(),
+                            RigidTform3d(), GroupTemplatePoints()])
     x0 = pieces_from_numpy(np.concatenate([rig["intr"], rig["extr"]], 1),
                            rig["poses"], GROUP_START, device, dtype)
     uv, mask = blocks.as_device(device, dtype)

@@ -5,7 +5,8 @@ models' widths), Kernels C and D
 (self-calibration chain, ``cuda_selfcal_grams``, and the pose-free
 free-point wrappers over them) and Kernels E and F
 (multi-target chains, ``cuda_mixed_grams``, at both key widths: the mixed
-chain's cw = 9 and the grouped chain's cw = 6).
+chain's cw = 9 and the grouped chain's cw = 6), each at the five camera
+models' widths.
 
 Imports torch and pycamset_tpu_torch only (the card's machine has no jax),
 so on a card it runs without the JAX-forcing conftest:
@@ -237,6 +238,19 @@ def test_camera_width_without_a_kernel_raises(card):
         sg.selfcal_gram_fused(*s32[:5], *s32[6:], 2, 3)
     assert (sg.selfcal_gram.launches, sg.selfcal_gram_fused.launches) == (
         n_d, n_c)
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    for with_key_cols in (True, False):
+        m32 = list(_mixed_inputs(card, 2, 3, 4, with_key_cols))
+        for i in (0, 6):             # cam_b and cmask_b at a = 16
+            m32[i] = torch.cat([m32[i][:, :1], m32[i]], dim=1).contiguous()
+        kw = dict(with_key_cols=with_key_cols)
+        n_f, n_e = mg.mixed_gram.launches, mg.mixed_gram_fused.launches
+        with pytest.raises(NotImplementedError, match="Queue A item 7"):
+            mg.mixed_gram(*m32, **kw)
+        with pytest.raises(NotImplementedError, match="Queue A item 7"):
+            mg.mixed_gram_fused(*m32, 2, 3, **kw)
+        assert (mg.mixed_gram.launches, mg.mixed_gram_fused.launches) == (
+            n_f, n_e)
 
 
 def _selfcal_inputs(dev, n_cams, n_ims, grid, start="noisy", noise_px=3.0,
@@ -544,17 +558,19 @@ def test_freepoint_wrappers_raise_instead_of_falling_back(card):
 
 
 def _mixed_inputs(dev, n_cams, n_ims, grid, with_key_cols, noise_px=3.0,
-                  n_keys=None, dark_cam=None, dark_key=None):
+                  n_keys=None, dark_cam=None, dark_key=None,
+                  camera_model="standard"):
     """Float32 per-block inputs of a multi-target rig with noisy detections
-    (the mixed chain, cw = 9, or the grouped one, cw = 6): the group poses
-    expanded per key, a camera column fixed beside the problem's own masks
-    (pose 0, group 0, the point gauge, the pad keys). The first ``n_keys``
-    keys only, if given; every slot of camera ``dark_cam`` masked, and
-    every column of key ``dark_key`` (its kmask row zero), if given."""
+    (the mixed chain, cw = 9, or the grouped one, cw = 6; ``camera_model``'s
+    rig and projection block): the group poses expanded per key, a camera
+    column fixed beside the problem's own masks (pose 0, group 0, the point
+    gauge, the pad keys). The first ``n_keys`` keys only, if given; every
+    slot of camera ``dark_cam`` masked, and every column of key
+    ``dark_key`` (its kmask row zero), if given."""
     from pycamset_tpu_torch.problems import grouped_problem, mixed_problem
     make = mixed_problem if with_key_cols else grouped_problem
     prob = make(n_cams, n_ims, dev, torch.float32, grid=grid,
-                k_pad_multiple=8)
+                k_pad_multiple=8, camera_model=camera_model)
     rng = np.random.default_rng(2)
     uv = prob.uv + torch.as_tensor(rng.normal(size=tuple(prob.uv.shape))
                                    * noise_px, dtype=torch.float32,
@@ -631,6 +647,69 @@ def test_mixed_kernels_match_plain_twins(card, with_key_cols, n_cams, n_ims,
             mg.mixed_gram.launches_by_cw[cw]) == (n_e + 2, n_f + 2)
 
 
+# Kernels E and F at the other camera models, both key widths: grid 5
+# (K = 32) over MIXED_CHUNK + 1 images (a chunk and one more), and grid 14
+# (K = 200, two key tiles) over 3 x 3 blocks. Each against its float64
+# twin, with the per-group sums the solver builds from it, held as the
+# self-cal model kernels are (_assert_within_f32_floor); a repeat launch
+# gives the same bits and each launch counts at its (camera width, key
+# width).
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", CAMERA_MODELS)
+@pytest.mark.parametrize("with_key_cols", [True, False])
+@pytest.mark.parametrize("n_cams,n_ims,grid", [(2, MIXED_CHUNK + 1, 5),
+                                               (3, 3, 14)])
+@pytest.mark.parametrize("loss,semantics", [
+    ("linear", "component"), ("huber", "component"),
+    ("cauchy", "observation"), ("soft_l1", "observation")])
+def test_mixed_camera_model_kernels_match_plain_twins(
+        card, model, with_key_cols, n_cams, n_ims, grid, loss, semantics):
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    from pycamset_tpu_torch.problems import grouped_problem, mixed_problem
+    f32 = _mixed_inputs(card, n_cams, n_ims, grid, with_key_cols,
+                        camera_model=model)
+    a, cw = f32[0].shape[1], 9 if with_key_cols else 6
+    assert a == {"rational": 18, "thin_prism": 22, "tilted": 24,
+                 "fisheye": 14}[model]
+    prob = (mixed_problem if with_key_cols else grouped_problem)(
+        n_cams, n_ims, card, torch.float32, grid=grid, k_pad_multiple=8,
+        camera_model=model)
+    oh = prob.onehot(prob.uv)
+    f64 = tuple(x.double() for x in f32)
+    kw = dict(with_key_cols=with_key_cols, loss=loss, f_scale=2.0,
+              loss_semantics=semantics)
+    before = (mg.mixed_gram.launches_by_width[(a, cw)],
+              mg.mixed_gram_fused.launches_by_width[(a, cw)])
+    f_got = mg.mixed_gram(*f32, **kw)
+    f_ref = mg.mixed_gram_plain(*f64, **kw)
+    assert f_got[0].shape == (f32[0].shape[0], a + 7, a + 7)
+    assert f_got[1].shape[2:] == (a, cw)
+
+    def f_errs(g, r):
+        return {**mg.scaled_errors_mixed(g, r),
+                **mg.scaled_errors_groups(g, r, oh, n_cams, n_ims)}
+    _assert_within_f32_floor(f_got, f_ref, mg.mixed_gram_plain(*f32, **kw),
+                             f_errs, "F")
+    e_got = mg.mixed_gram_fused(*f32, n_cams, n_ims, **kw)
+    e_ref = mg.mixed_gram_fused_plain(*f64, n_cams, n_ims, **kw)
+    assert e_got[0].shape == (n_cams, a, a)
+
+    def e_errs(g, r):
+        return {**mg.scaled_errors_mixed_fused(g, r, f_ref[0], n_cams,
+                                               n_ims),
+                **mg.scaled_errors_groups(g, r, oh, n_cams, n_ims)}
+    _assert_within_f32_floor(
+        e_got, e_ref, mg.mixed_gram_fused_plain(*f32, n_cams, n_ims, **kw),
+        e_errs, "E")
+    for x, y in zip(mg.mixed_gram(*f32, **kw), f_got):
+        assert torch.equal(x, y)
+    for x, y in zip(mg.mixed_gram_fused(*f32, n_cams, n_ims, **kw), e_got):
+        assert torch.equal(x, y)
+    assert (mg.mixed_gram.launches_by_width[(a, cw)],
+            mg.mixed_gram_fused.launches_by_width[(a, cw)]) == (
+        before[0] + 2, before[1] + 2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_key_cols", [True, False])
 def test_mixed_kernels_are_reproducible(card, with_key_cols):
@@ -656,6 +735,27 @@ def test_mixed_wrappers_raise_instead_of_falling_back(card):
         mg.mixed_gram(*f32, with_key_cols=False)
     with pytest.raises(ValueError):
         mg.mixed_gram_fused(*f32, 2, 4)
+
+
+# What the device makes of C-F's first passes (pct_mixed_occupancy): at the
+# other camera models the device holds at least the blocks an SM that the
+# launch bounds ask for (mixed_kernels.cuh's Occupancy counts the shared
+# memory), at the runtime's registers within that register cap; every key
+# width of every camera width answers, and an unbuilt pair raises.
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [14, 15, 18, 22, 24])
+@pytest.mark.parametrize("cw,fused", [(3, True), (3, False), (9, True),
+                                      (9, False), (6, True), (6, False)])
+def test_mixed_first_pass_occupancy(card, a, cw, fused):
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    occ = mg.first_pass_occupancy(a, cw, fused)
+    asked = occ["launch_bound_blocks"]
+    assert occ["registers"] <= 65536 // (128 * asked), occ
+    assert occ["dynamic_smem_bytes"] > 0 and occ["blocks_per_sm"] >= 1, occ
+    if a != 15:      # the standard model keeps the bounds it was built with
+        assert occ["blocks_per_sm"] >= asked, occ
+    with pytest.raises(ValueError):
+        mg.first_pass_occupancy(16, cw, fused)
 
 
 def _normalized_spd(n, cond, seed=0):

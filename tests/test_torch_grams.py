@@ -197,18 +197,18 @@ def test_cuda_input_check_rejects(bad):
         args[2] = args[2][:-1].contiguous()
     elif bad == "contiguity":
         args[3] = args[3].transpose(1, 2).contiguous().transpose(1, 2)
-    else:
-        args[0] = torch.cat([args[0], args[0][:, :3]], dim=1)
+    else:                       # a = 16: the het selector row, no kernel
+        args[0] = torch.cat([args[0], args[0][:, :1]], dim=1)
         err = NotImplementedError
     with pytest.raises(err):
         cg._check_cuda_inputs(*args)
 
 
 def test_other_widths_raise():
-    """Kernels A-D (template, self-cal and free-point) serve the five
-    camera models' widths (14, 15, 18, 22, 24); the multi-target kernels
-    (E, F) the standard model's alone, and a heterogeneous rig's selector
-    row ([sel | fx px fy py | 5 coefficients], a = 16) no kernel yet."""
+    """Kernels A-F (template, self-cal, free-point and the multi-target
+    ones at both key widths) serve the five camera models' widths (14, 15,
+    18, 22, 24); a heterogeneous rig's selector row ([sel | fx px fy py | 5
+    coefficients], a = 16) has no kernel yet."""
     from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
     refusals = [
@@ -216,8 +216,8 @@ def test_other_widths_raise():
         lambda: sg.make_cuda_selfcal_grams_fused(ts.GroupWidths(16, 6, 3),
                                                  2, 3),
         lambda: sg.make_cuda_freepoint_grams(ts.GroupWidths(16, 0, 3)),
-        lambda: mg.make_cuda_mixed_grams(ts.GroupWidths(18, 6, 9)),
-        lambda: mg.make_cuda_mixed_grams_fused(ts.GroupWidths(18, 6, 9), 2,
+        lambda: mg.make_cuda_mixed_grams(ts.GroupWidths(16, 6, 9)),
+        lambda: mg.make_cuda_mixed_grams_fused(ts.GroupWidths(16, 6, 9), 2,
                                                3),
         lambda: cg.make_cuda_template_grams(ts.GroupWidths(16, 6, 0)),
         lambda: cg.make_cuda_template_grams_fused(ts.GroupWidths(16, 6, 0),
@@ -232,6 +232,11 @@ def test_other_widths_raise():
         sg.make_cuda_selfcal_grams_fused(ts.GroupWidths(a, 6, 3), 2, 3)
         sg.make_cuda_freepoint_grams(ts.GroupWidths(a, 0, 3))
         sg.make_cuda_freepoint_grams_fused(ts.GroupWidths(a, 0, 3), 2, 3)
+        mg.make_cuda_mixed_grams(ts.GroupWidths(a, 6, 9))
+        mg.make_cuda_grouped_grams(ts.GroupWidths(a, 6, 6))
+        mg.make_cuda_mixed_grams_fused(ts.GroupWidths(a, 6, 9), 2, 3)
+        mg.make_cuda_mixed_grams_fused(ts.GroupWidths(a, 6, 6), 2, 3,
+                                       with_key_cols=False)
 
 
 def _twin_grams(dtype, loss="linear", semantics="component"):

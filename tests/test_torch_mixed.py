@@ -274,7 +274,7 @@ def test_cpu_mixed_wrappers_run_plain_twins_and_launch_nothing():
 
 def test_mixed_widths_and_chains_checked():
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        mg.make_cuda_mixed_grams(ts.GroupWidths(18, 6, 9))
+        mg.make_cuda_mixed_grams(ts.GroupWidths(16, 6, 9))
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         mg.make_cuda_mixed_grams_fused(ts.GroupWidths(15, 6, 9), 2, 3,
                                        with_key_cols=False)
@@ -287,6 +287,12 @@ def test_mixed_widths_and_chains_checked():
         ts.chain_widths(top)
     _, tgrp = _op_funs(False)
     assert ts.chain_family(tgrp, ts.chain_widths(tgrp)) == "grouped"
+    # the grouped family takes the five camera widths, the selector row's
+    # a = 16 none
+    for a in (14, 15, 18, 22, 24):
+        assert ts.chain_family(tgrp, ts.GroupWidths(a, 6, 6)) == "grouped"
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        ts.chain_family(tgrp, ts.GroupWidths(16, 6, 6))
     with pytest.raises(tm.UnsupportedChain, match="BOTH"):
         tm.mixed_chain_widths(tgrp)
     # a mixed chain whose c-axis is [point | group pose] is not served

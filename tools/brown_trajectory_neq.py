@@ -3,10 +3,10 @@
 the JAX package's own trajectory (CPU, float64).
 
     JAX_PLATFORMS=cpu python3 tools/brown_trajectory_neq.py \
-        [--chain template|selfcal] [models...]
+        [--chain template|selfcal|mixed|grouped] [models...]
 
-Two scenarios, each for the Brown models (rational, thin-prism, tilted by
-default; both chains unless ``--chain`` names one):
+Four scenarios, each for the Brown models (rational, thin-prism, tilted by
+default; every chain unless ``--chain`` names one):
 
 - template: the 3-camera x 4-image rig of
   ``tests/test_torch_camera_models.py`` (``make_synthetic_rig(3, 4,
@@ -16,9 +16,19 @@ default; both chains unless ``--chain`` names one):
   (``tests/test_rational_model.py::test_rational_self_calibration_end_to_end``:
   ``make_synthetic_rig(3, 8, grid=5, visibility=0.95, noise_px=0.1,
   seed=5)``) and its ``SelfBundleHandler``, PnP-seeded in both packages
-  (the same start bit for bit).
+  (the same start bit for bit);
+- mixed and grouped: the multi-target problems of
+  ``tests/test_torch_camera_model_mixed.py``,
+  ``problems.{mixed,grouped}_problem(3, n_ims, grid=5, camera_model=m)`` at
+  8 images (the fused family, Kernel E's twin) and 6 (the per-block one,
+  F's), and the JAX package's LM on the same rig, start and gauge
+  (``jax_multi_target``, mirrored from ``bench.py::mixed_problem`` with
+  the model's projection block; each package makes the rig with its own
+  Rodrigues conversion, so the starts agree to rounding), budget 60.
 
-For each:
+For each (the multi-target chains: their ``structured_lm_solve`` in place
+of the handler's ``run_bundle_adjustment``, and besides step 3 the cost
+gap of both packages' solves at smaller budgets, ``[budget_gap]``):
 
 1. the JAX package's handler solved by
    ``run_bundle_adjustment(backend="structured")`` at its default budget of
@@ -57,28 +67,56 @@ NAMES = ["a", "b", "c"]
 FIELDS = ("hcc", "hii", "hkk", "wci", "wck", "wik", "gc", "gi", "gk", "cost")
 
 
-def scaled_errors(got, ref) -> dict:
-    """Each NormalEq field's worst error in the Jacobi scaling of ``ref``
-    (numpy pieces; the key fields where the chain has key columns): a zero
-    diagonal (a fixed column, zero in both) scales by 1."""
-    def s(d):
-        d = np.sqrt(np.maximum(d, 0.0))
-        return np.where(d > 0, d, 1.0)
-    hcc, hii, hkk, wci, _, _, gc, gi, _, cost = ref
-    s_c = s(np.diagonal(hcc, axis1=1, axis2=2))
-    s_i = s(np.diagonal(hii, axis1=1, axis2=2))
-    s_k = s(np.diagonal(hkk, axis1=1, axis2=2))
+MIXED_FIELDS = ("hcc", "hii", "hkk", "hgg", "wci", "wck", "wik", "wcg",
+                "wig", "wkg", "gc", "gi", "gk", "gg", "cost")
+# the multi-target chains' small problems: (cameras, images), grid 5
+MULTI_SHAPES = ((3, 8), (3, 6))
+MULTI_BUDGET = 60
+BUDGETS = (10, 15, 20, 30)
+
+
+def _jacobi(d):
+    """sqrt of a gram diagonal; a zero (a fixed column, zero in both
+    packages) scales by 1."""
+    d = np.sqrt(np.maximum(d, 0.0))
+    return np.where(d > 0, d, 1.0)
+
+
+def _pair(s_r, s_c):
+    """The (..., rows, cols) scale of a coupling block between two pieces
+    of leading axes (R, n) and (C, m): (R, C, n, m)."""
+    return s_r[:, None, :, None] * s_c[None, :, None, :]
+
+
+def scaled_errors(got, ref, group_of_key=None) -> dict:
+    """Each NormalEq (or, with ``group_of_key``, MixedNormalEq) field's
+    worst error in the Jacobi scaling of ``ref`` (numpy pieces; the key
+    fields where the chain has key columns)."""
+    if group_of_key is None:
+        hcc, hii, hkk, wci, _, _, gc, gi, _, cost = ref
+        fields = FIELDS
+    else:
+        hcc, hii, hkk, hgg = ref[:4]
+        cost = ref[-1]
+        fields = MIXED_FIELDS
+    s_c, s_i, s_k = (_jacobi(np.diagonal(h, axis1=1, axis2=2))
+                     for h in (hcc, hii, hkk))
     root = np.sqrt(cost)
     scale = {"hcc": s_c[:, :, None] * s_c[:, None, :],
              "hii": s_i[:, :, None] * s_i[:, None, :],
              "hkk": s_k[:, :, None] * s_k[:, None, :],
-             "wci": s_c[:, None, :, None] * s_i[None, :, None, :],
-             "wck": s_c[:, None, :, None] * s_k[None, :, None, :],
-             "wik": s_i[:, None, :, None] * s_k[None, :, None, :],
+             "wci": _pair(s_c, s_i), "wck": _pair(s_c, s_k),
+             "wik": _pair(s_i, s_k),
              "gc": s_c * root, "gi": s_i * root, "gk": s_k * root,
              "cost": cost}
+    if group_of_key is not None:
+        s_g = _jacobi(np.diagonal(hgg, axis1=1, axis2=2))
+        scale.update(hgg=s_g[:, :, None] * s_g[:, None, :],
+                     wcg=_pair(s_c, s_g), wig=_pair(s_i, s_g),
+                     wkg=s_k[:, :, None] * s_g[group_of_key][:, None, :],
+                     gg=s_g * root)
     return {k: float((np.abs(np.asarray(g) - r) / scale[k]).max())
-            for k, g, r in zip(FIELDS, got, ref) if np.size(r)}
+            for k, g, r in zip(fields, got, ref) if np.size(r)}
 
 
 # chain -> the rig of its scenario
@@ -154,10 +192,169 @@ def recorded_jax_solve(jh):
     return res, seen
 
 
+def jax_multi_target(chain, model, n_cams, n_ims):
+    """The JAX package's side of ``problems.{mixed,grouped}_problem(n_cams,
+    n_ims, grid=5, camera_model=model)`` on the CPU (float64), mirrored
+    from ``bench.py::mixed_problem`` (and the grouped chain's
+    ``make_structured_neq``) with the model's projection block: the same
+    rig, start (the true lens, group 1 at ``GROUP_START[1]``) and gauge
+    (``bench.py::mixed_colmask_groups``, its camera mask at the model's
+    width). Returns (neq_fn(pieces) -> the normal equations, the start
+    pieces, the LM ops: the mixed ones, or None)."""
+    import jax.numpy as jnp
+
+    import bench
+    from pycamset_tpu.optim import blocks as jb
+    from pycamset_tpu.optim import structured as js
+    from pycamset_tpu.optim import structured_mixed as jm
+    from pycamset_tpu.optim.chain import OptimFunction
+    from pycamset_tpu.utils.synthetic import make_synthetic_rig
+    from pycamset_tpu_torch.optim.structured import pad_template_table
+    from pycamset_tpu_torch.problems import GROUP_START
+    proj = {"standard": jb.Projection, "rational": jb.ProjectionRational,
+            "thin_prism": jb.ProjectionThinPrism,
+            "tilted": jb.ProjectionTilted,
+            "fisheye": jb.ProjectionFisheye}[model]
+    rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=5,
+                             visibility=0.85, noise_px=0.3, seed=5,
+                             camera_model=model)
+    n_keys = rig["n_keys"]
+    bl = js.build_block_arrays(rig["dd"], n_cams, n_ims, n_keys)
+    k_pad = bl.uv.shape[1]
+    cm, gok = bench.mixed_colmask_groups(n_cams, n_ims, n_keys, k_pad,
+                                         np.float64)
+    cm = cm._replace(cam=np.ones((n_cams, rig["intr"].shape[1] + 6)))
+    uv, mask = bl.as_device(jnp.float64)
+    cam = jnp.asarray(np.concatenate([rig["intr"], rig["extr"]], 1))
+    poses, grp = jnp.asarray(rig["poses"]), jnp.asarray(GROUP_START)
+    if chain == "mixed":
+        op_fun = OptimFunction([proj(), jb.Extrinsic3D(), jb.RigidTform3d(),
+                                jb.GroupRigidTform3d(), jb.FreePoint()])
+        neq = jm.make_mixed_structured_neq(
+            op_fun, jm.mixed_chain_widths(op_fun), n_cams, n_ims, gok, 2)
+        tpl = jnp.zeros((k_pad, 3))
+        key = np.concatenate([rig["template"], np.repeat(
+            rig["template"][:1], k_pad - n_keys, 0)])
+        return (lambda p: neq(p, uv, mask, tpl, cm),
+                jm.MixedPieces(cam, poses, jnp.asarray(key), grp),
+                jm.make_mixed_ops(neq.onehot))
+    op_fun = OptimFunction([proj(), jb.Extrinsic3D(), jb.RigidTform3d(),
+                            jb.GroupTemplatePoints()])
+    neq = js.make_structured_neq(op_fun, js.chain_widths(op_fun), n_cams,
+                                 n_ims, group_of_key=gok, n_groups=2)
+    tpl = jnp.asarray(pad_template_table(rig["template"], True, n_keys,
+                                         k_pad))
+    colmask = js.ParamPieces(cm.cam, cm.im, cm.grp)
+    return (lambda p: neq(p, uv, mask, tpl, colmask),
+            js.ParamPieces(cam, poses, grp), None)
+
+
+def jax_lm(neq_fn, x0, ops, max_nfev, seen=None):
+    """The JAX structured LM (jitted); with ``seen``, each evaluation's
+    (x pieces, normal equations) appended to it in evaluation order."""
+    import jax
+
+    from pycamset_tpu.optim.structured_lm import structured_lm_solve
+
+    def recorded(p):
+        neq = neq_fn(p)
+        if seen is not None:
+            jax.debug.callback(
+                lambda pp, nn: seen.append((
+                    [np.asarray(t) for t in pp],
+                    [np.asarray(t) for t in nn])), p, neq, ordered=True)
+        return neq
+
+    return jax.jit(lambda p: structured_lm_solve(
+        recorded, p, max_nfev=max_nfev, ops=ops))(x0)
+
+
+def trajectory_report(tag, neq, pieces_of, seen, group_of_key=None):
+    """The port's normal equations (``neq(pieces)``) at each recorded x of
+    the JAX trajectory against the JAX ones: one line of each field's worst
+    error of its max-abs, one in the Jacobi scaling beside the port's own
+    sensitivity to one ulp of x and the first evaluation past 1e-12."""
+    import torch
+    worst, worst_s, worst_ulp = {}, {}, {}
+    first_over = None
+    fields = FIELDS if group_of_key is None else MIXED_FIELDS
+    for n, (xp, jn) in enumerate(seen):
+        got = [t.numpy() for t in neq(pieces_of(
+            *(torch.as_tensor(np.array(t)) for t in xp)))]
+        ulp = [t.numpy() for t in neq(pieces_of(
+            *(torch.as_tensor(np.nextafter(t, np.inf)) for t in xp)))]
+        for name, g, r in zip(fields, got, jn):
+            if g.size:
+                worst[name] = max(worst.get(name, 0.0), float(
+                    np.abs(g - r).max() / (np.abs(r).max() + 1e-300)))
+        e = scaled_errors(got, jn, group_of_key)
+        e_ulp = scaled_errors(ulp, got, group_of_key)
+        for name in e:
+            worst_s[name] = max(worst_s.get(name, 0.0), e[name])
+            worst_ulp[name] = max(worst_ulp.get(name, 0.0), e_ulp[name])
+        over = [k for k, v in e.items() if v > 1e-12]
+        if over and first_over is None:
+            first_over = (f"evaluation {n + 1}: " + ",".join(
+                f"{k} {e[k]:.2e} (one ulp of x: {e_ulp[k]:.2e})"
+                for k in over))
+    print(f"[neq_on_jax_trajectory] {tag} evaluations="
+          f"{len(seen)} of_max_abs: " + " ".join(
+              f"{k}={v:.2e}" for k, v in worst.items()), flush=True)
+    print(f"[neq_on_jax_trajectory] {tag} jacobi_scaled: "
+          + " ".join(f"{k}={v:.2e}" for k, v in worst_s.items())
+          + " | port at x vs at x + one ulp, jacobi_scaled: "
+          + " ".join(f"{k}={v:.2e}" for k, v in worst_ulp.items())
+          + f" | first over 1e-12: {first_over}", flush=True)
+
+
+def _lm_line(res) -> str:
+    return (f"(nit {int(res.nit)}, nfev {int(res.nfev)}, status "
+            f"{int(res.status)}, cost {float(res.cost)!r})")
+
+
+def multi_target(chain, model):
+    """Steps 1-4 for one multi-target chain and model, at each of
+    ``MULTI_SHAPES``, and the cost gap at ``BUDGETS``."""
+    import jax.numpy as jnp
+
+    from pycamset_tpu_torch.problems import grouped_problem, mixed_problem
+    for n_cams, n_ims in MULTI_SHAPES:
+        tag = f"chain={chain} model={model} shape={n_cams}x{n_ims}"
+        neq_fn, x0, ops = jax_multi_target(chain, model, n_cams, n_ims)
+        seen = []
+        j_res = jax_lm(neq_fn, x0, ops, MULTI_BUDGET, seen)
+        prob = (mixed_problem if chain == "mixed" else grouped_problem)(
+            n_cams, n_ims, "cpu", grid=5, camera_model=model)
+        # the starts agree to rounding: each package's synthetic rig rotates
+        # its extrinsics by its own Rodrigues conversion
+        dx0 = max(float(np.abs(g.numpy() - np.asarray(r)).max())
+                  for g, r in zip(prob.x0, x0))
+        trajectory_report(tag, prob.neq_fn(), type(prob.x0), seen,
+                          prob.group_of_key if chain == "mixed" else None)
+        p_res = prob.solve(MULTI_BUDGET)
+        gap = abs(float(p_res.cost) - float(j_res.cost)) / float(j_res.cost)
+        print(f"[port_vs_jax] {tag} jax={_lm_line(j_res)} port="
+              f"{_lm_line(p_res)} rel_cost_gap={gap:.3e} "
+              f"start_max_abs_diff={dx0:.2e}", flush=True)
+        gaps = []
+        for budget in BUDGETS:
+            jr, pr = jax_lm(neq_fn, x0, ops, budget), prob.solve(budget)
+            gaps.append(f"{budget}: nit {int(jr.nit)}/{pr.nit} status "
+                        f"{int(jr.status)}/{int(pr.status)} gap "
+                        f"{abs(float(pr.cost) - float(jr.cost)) / float(jr.cost):.3e}")
+        print(f"[budget_gap] {tag} (jax/port) " + "; ".join(gaps), flush=True)
+        x_ulp = type(x0)(*(jnp.asarray(np.nextafter(np.asarray(t), np.inf))
+                           for t in x0))
+        j_ulp = jax_lm(neq_fn, x_ulp, ops, MULTI_BUDGET)
+        ulp = abs(float(j_ulp.cost) - float(j_res.cost)) / float(j_res.cost)
+        print(f"[jax_vs_jax_one_ulp] {tag} nit {int(j_ulp.nit)} "
+              f"nfev {int(j_ulp.nfev)} status {int(j_ulp.status)} "
+              f"rel_cost_gap={ulp:.3e}", flush=True)
+
+
 def main(chains, models) -> int:
     import jax
     jax.config.update("jax_platforms", "cpu")
-    import torch
 
     from pycamset_tpu.optim.driver import run_bundle_adjustment as jax_rba
     from pycamset_tpu.utils.synthetic import make_synthetic_rig
@@ -166,6 +363,9 @@ def main(chains, models) -> int:
     from pycamset_tpu_torch.optim.structured_driver import (
         build_structured_problem)
     for chain, model in ((c, m) for c in chains for m in models):
+        if chain in ("mixed", "grouped"):
+            multi_target(chain, model)
+            continue
         rig = make_synthetic_rig(**RIGS[chain], camera_model=model)
         jh = jax_handler(chain, model, rig)
         port = port_handler(chain, jh)
@@ -175,34 +375,7 @@ def main(chains, models) -> int:
         tag = f"chain={chain} model={model}"
         prob = build_structured_problem(port, device="cpu")[0].problem
         neq = prob.neq_fn()
-        worst, worst_s, worst_ulp = {}, {}, {}
-        first_over = None
-        for n, (xp, jn) in enumerate(seen):
-            got = [t.numpy() for t in neq(ParamPieces(
-                *(torch.as_tensor(np.array(t)) for t in xp)))]
-            ulp = [t.numpy() for t in neq(ParamPieces(
-                *(torch.as_tensor(np.nextafter(t, np.inf)) for t in xp)))]
-            for name, g, r in zip(FIELDS, got, jn):
-                if g.size:
-                    worst[name] = max(worst.get(name, 0.0), float(
-                        np.abs(g - r).max() / (np.abs(r).max() + 1e-300)))
-            e, e_ulp = scaled_errors(got, jn), scaled_errors(ulp, got)
-            for name in e:
-                worst_s[name] = max(worst_s.get(name, 0.0), e[name])
-                worst_ulp[name] = max(worst_ulp.get(name, 0.0), e_ulp[name])
-            over = [k for k, v in e.items() if v > 1e-12]
-            if over and first_over is None:
-                first_over = (f"evaluation {n + 1}: " + ",".join(
-                    f"{k} {e[k]:.2e} (one ulp of x: {e_ulp[k]:.2e})"
-                    for k in over))
-        print(f"[neq_on_jax_trajectory] {tag} evaluations="
-              f"{len(seen)} of_max_abs: " + " ".join(
-                  f"{k}={v:.2e}" for k, v in worst.items()), flush=True)
-        print(f"[neq_on_jax_trajectory] {tag} jacobi_scaled: "
-              + " ".join(f"{k}={v:.2e}" for k, v in worst_s.items())
-              + " | port at x vs at x + one ulp, jacobi_scaled: "
-              + " ".join(f"{k}={v:.2e}" for k, v in worst_ulp.items())
-              + f" | first over 1e-12: {first_over}", flush=True)
+        trajectory_report(tag, neq, ParamPieces, seen)
         p_res, _ = run_bundle_adjustment(port, backend="structured",
                                          device="cpu")
         gap = abs(float(p_res.cost) - float(j_res.cost)) / float(j_res.cost)
@@ -224,7 +397,7 @@ def main(chains, models) -> int:
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    chains = tuple(RIGS)
+    chains = (*RIGS, "mixed", "grouped")
     if "--chain" in args:
         i = args.index("--chain")
         chains = (args[i + 1],)

@@ -2,13 +2,14 @@
 """Time builds of a family of kernels side by side on a card.
 
     python3 tools/time_template_grams.py \\
-        [--family template|mixed|selfcal|psd] [--model MODEL] \\
+        [--family template|mixed|selfcal|psd] [--model MODEL[,MODEL...]] \\
         [--time-only] [--same-bits] [SOURCE.cu[:NVCC FLAGS]] ...
 
 ``--family template`` (the default): versions of
 ``pycamset_tpu_torch/csrc/template_grams.cu`` (Kernels A and B);
 ``--family mixed``: versions of ``pycamset_tpu_torch/csrc/mixed_grams.cu``
-(Kernels E and F); ``--family selfcal``: versions of whichever source
+(Kernels E and F; with ``--model``, together with ``mixed_models_e.cu``
+and ``mixed_models_f.cu``); ``--family selfcal``: versions of whichever source
 exports Kernels C and D (``pct_selfcal_gram{,_fused}``: the checkout's
 ``mixed_grams.cu``, an older ``selfcal_grams.cu``); ``--family psd``:
 versions of ``pycamset_tpu_torch/csrc/psd_solve.cu`` (the SPD kernel and,
@@ -17,7 +18,8 @@ where a version exports it, its diagonal path alone,
 argument is a
 version (default: the checkout's own), optionally with extra nvcc flags
 after a colon, for example
-``old/mixed_grams.cu`` or ``csrc/mixed_grams.cu:-DSOME_SWITCH``. Every
+``old/mixed_grams.cu`` or ``csrc/mixed_grams.cu:-DSOME_SWITCH``; a version
+of several sources joins them with ``+`` (``a.cu+b.cu``, one library). Every
 version is compiled by its own nvcc, all at once, with the package's flags,
 into its own library; the kernel wrappers are then pointed at each library
 in turn. For each version and each shape of the family that ``chip_smoke.py``
@@ -30,14 +32,16 @@ torch.profiler (``chip_smoke.kernel_ms``, 20 launches):
   images;
 - mixed (mixed 16 x 100, grouped 16 x 100, mixed 64 x 12): E at chunks of
   4, 8, 12 and 16 images, F at chunks of 2, 4, 8 and 16 blocks, each also
-  split into its first pass and its reduction. The scratch is allocated at
-  the first port's larger sizes, so that an older ``mixed_grams.cu`` runs
-  too;
+  split into its first pass and its reduction. ``--model`` takes the
+  problems of that camera model's rig
+  (``problems.{mixed,grouped}_problem(camera_model=...)``) and the kernels
+  built at its width (``pct_mixed_gram{,_fused}_model``), or of each model
+  of a comma-separated list, every shape named ``<shape> [<model>]``;
 - selfcal (self-cal 16 x 100 and 64 x 12): C at chunks of 4 to 34 images,
   D at chunks of 2 to 12 blocks, each also split
   into its first pass and its reduction (the scratch sizes did not change
-  with the redesign). ``--model`` (selfcal only; default ``standard``)
-  takes the self-cal problems of that camera model's rig
+  with the redesign). ``--model`` (default ``standard``) takes the
+  self-cal problems of that camera model's rig
   (``problems.selfcal_problem(camera_model=...)``) and the kernels built
   at its width (``pct_selfcal_gram{,_fused}_model``; a version without
   them cannot run another model);
@@ -76,7 +80,9 @@ FAMILIES = {
     "template": ("template_grams.cu",
                  ("pct_template_gram", "pct_template_gram_fused"),
                  ("template 16x100", "template 64x400")),
-    "mixed": ("mixed_grams.cu", ("pct_mixed_gram", "pct_mixed_gram_fused"),
+    "mixed": ("mixed_grams.cu",
+              ("pct_mixed_gram", "pct_mixed_gram_fused",
+               "pct_mixed_gram_model", "pct_mixed_gram_fused_model"),
               ("mixed 16x100", "grouped 16x100", "mixed 64x12")),
     "selfcal": ("mixed_grams.cu",
                 ("pct_selfcal_gram", "pct_selfcal_gram_fused",
@@ -98,7 +104,8 @@ def build(nvcc: str, out: Path, i: int, spec: str):
     src, _, flags = spec.partition(":")
     so = out / f"v{i}.so"
     proc = subprocess.run([nvcc, *bld.NVCC_FLAGS, *flags.split(), "-shared",
-                           "-o", str(so), src], capture_output=True, text=True)
+                           "-o", str(so), *src.split("+")],
+                          capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed for {spec}:\n{proc.stdout}\n"
                          f"{proc.stderr}")
@@ -205,8 +212,7 @@ def time_mixed(cs, prob, shape, time_only):
     f32 = cs.multi_target_inputs(prob)
     n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
     wk = shape.startswith("mixed")
-    sizes = mg.N_GC, mg.N_HK
-    mg.N_GC, mg.N_HK = 15 * 9, 54    # the first port's scratch rows
+    iw = prob.widths.a - 6
     checked(lambda: check(
         cs, lambda **kw: cs.mixed_parities(mg, f32, n_cams, n_ims, wk, **kw),
         cs.mixed_runs(mg, f32, n_cams, n_ims, wk), shape), time_only, shape)
@@ -220,12 +226,12 @@ def time_mixed(cs, prob, shape, time_only):
         for chunk in chunk_list:
             mg.MIXED_CHUNK = mg.MIXED_CHUNK_F = chunk
             fn = ((lambda: mg._launch_mixed_fused(packed, kd, *grid, n_cams,
-                                                  n_ims, 0, 1, 1.0))
+                                                  n_ims, 0, 1, 1.0, iw))
                   if kernel == "E" else
-                  (lambda: mg._launch_mixed(packed, kd, *grid, 0, 1, 1.0)))
+                  (lambda: mg._launch_mixed(packed, kd, *grid, 0, 1, 1.0,
+                                            iw)))
             pass_times(cs, line, kernel, chunk, fn)
     mg.MIXED_CHUNK, mg.MIXED_CHUNK_F = chunks
-    mg.N_GC, mg.N_HK = sizes
     torch.cuda.empty_cache()
     return line
 
@@ -341,24 +347,30 @@ def main() -> int:
     if family not in FAMILIES:
         raise SystemExit(f"--family {family}: one of {tuple(FAMILIES)}")
     source, entries, shapes = FAMILIES[family]
-    model = "standard"
+    models = ["standard"]
     if "--model" in args:
         i = args.index("--model")
-        model = args[i + 1]
+        models = args[i + 1].split(",")
         del args[i:i + 2]
-        if family != "selfcal":
-            raise SystemExit("--model: the selfcal family only")
+        if family not in ("selfcal", "mixed"):
+            raise SystemExit("--model: the selfcal and mixed families only")
     time_only = "--time-only" in args
     bits = "--same-bits" in args
     if bits and family == "psd":
         raise SystemExit("--same-bits: the gram families only")
+    default = str(bld.CSRC / source)
+    if family == "mixed" and models != ["standard"]:
+        default = "+".join(str(bld.CSRC / f) for f in (
+            source, "mixed_models_e.cu", "mixed_models_f.cu"))
     specs = [a for a in args if a not in ("--time-only", "--same-bits")] or [
-        str(bld.CSRC / source)]
+        default]
     cs.phase_device()
     built = build_all(specs)
 
     dev = torch.device("cuda", 0)
-    probs = {shape: problem(shape, dev, model) for shape in shapes}
+    probs = {(shape if model == "standard" else f"{shape} [{model}]"):
+             problem(shape, dev, model)
+             for model in models for shape in shapes}
     timer = {"template": time_template, "mixed": time_mixed,
              "selfcal": time_selfcal}.get(family)
     first, all_same = {}, True
