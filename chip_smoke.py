@@ -118,6 +118,29 @@ bit), status of the standard model's class, rms, group 1's recovered pose;
 and at tilted mixed 64 x 12 (dense n = 1620) the SPD kernel route's
 fallbacks beside the library route's residual misses.
 
+Then the multi-target handlers (``[multi_target_handlers]``): the bench's
+multi-target rig as two targets (the board's halves) through the port's
+copies of the JAX package's ``TwoTargetSelfCalibrator`` (mixed 16 x 100:
+Kernel E at key width 9; mixed 64 x 12 with ``im_bucket: None``: F) and
+``TwoTargetCalibrator`` (grouped 16 x 100: E at key width 6), each through
+``run_bundle_adjustment`` (its kernel alone, once an evaluation), its file
+written and loaded back, its problem captured = uncaptured, status and
+rms, its warm solve's ms an evaluation within 10% of the bench problem's
+(``problems.{mixed,grouped}_problem``, timed beside it). Then the handler
+fleets (``problems.fleet_handlers``: the bench fleet's 64 rigs of 4 x 16
+at grid 10 as template, self-calibration, grouped and mixed handlers, and
+the self-calibration and mixed ones at 12 images with ``im_bucket:
+None``): ``[fleet_mixed_kernel]`` holds Kernels C, D, E and F (both key
+widths) folded over the 64 rigs (one launch under ``torch.func.vmap``,
+each rig reading its own per-key rows) against their float64 twins per
+rig and each rig's bits against a one-rig launch, at the standard and the
+tilted model, and times the folded launch beside 64 one-rig launches;
+``[fleet_handlers]`` solves each fleet through
+``run_fleet_bundle_adjustment`` (one launch of its kernel per evaluation
+of the batch; captured = uncaptured; every rig at status 1-2 and rms <=
+0.36 px; the first 4 rigs against the port's float64 CPU fleet; rigs/s;
+rig 0's file loaded back).
+
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
 kernels as JSON; the last is
@@ -347,16 +370,21 @@ def kernel_ms(fn) -> float:
     return sum(device_ms(fn).values())
 
 
-def bound(name: str, prob, cw: int | None = None) -> tuple[float, str]:
+def bound(name: str, prob, cw: int | None = None,
+          rigs: int = 1) -> tuple[float, str]:
     """The least time the card could take for one call of a kernel on a
     problem's inputs: the larger of its bytes (each input read once, each
     output written once) over the HBM rate and its products over the FP32
     rate, counted for the problem's real detections. ``cw``: the key width
     of a multi-target kernel. The camera width a is the problem's (15 at
     the standard model; the packed row PPB and the gram width W = a + 7
-    follow it)."""
+    follow it). ``rigs``: a launch folded over that many rigs, whose
+    blocks and cameras ``prob`` counts (its mask (R*B, K)): every rig reads
+    and writes its own per-key rows (C-F; A and B share one point
+    table)."""
     from pycamset_tpu_torch.optim.cuda_grams import packed_width
     bb, k = prob.mask.shape
+    kr = k * rigs               # every rig's per-key rows
     c = prob.blocks.n_cams
     a = prob.widths.a
     ppb, w = packed_width(a - 6), a + 7
@@ -365,8 +393,8 @@ def bound(name: str, prob, cw: int | None = None) -> tuple[float, str]:
     if name.startswith("mixed"):
         # packed, per-key group data (48 rows), uv, mask, cmask, imask,
         # kmask; the per-key outputs hkk and gk
-        ins = bb * ppb + k * 48 + bb * k * 3 + bb * (a + 6) + k * cw
-        outs = k * cw * (cw + 1)
+        ins = bb * ppb + kr * 48 + bb * k * 3 + bb * (a + 6) + kr * cw
+        outs = kr * cw * (cw + 1)
         if name == "mixed_gram":
             outs += bb * w * w + bb * k * (a + 6) * cw
         else:
@@ -377,12 +405,12 @@ def bound(name: str, prob, cw: int | None = None) -> tuple[float, str]:
     elif name == "template_gram_fused":
         outs = c * (a * a + a) + bb * pose
     elif name == "selfcal_gram":
-        ins += bb * (a + 6) + k * 3             # cmask, imask, kmask
-        outs = bb * w * w + bb * k * (3 * a + 18) + k * 12
+        ins += bb * (a + 6) + kr * 3 + (kr - k) * 3  # masks, rigs' points
+        outs = bb * w * w + bb * k * (3 * a + 18) + kr * 12
     else:
-        ins += bb * 6 + k * 3                   # imask, kmask
+        ins += bb * 6 + kr * 3 + (kr - k) * 3   # imask, kmask, rigs' points
         outs = (c * (a * a + a + 3 * a * k) + bb * k * 18 + bb * pose
-                + k * 12)
+                + kr * 12)
     t_bytes = 4 * (ins + outs) / HBM_BYTES_PER_S
     t_ops = (prob.blocks.n_real * flop_per_detection(name, cw, a)
              / FP32_FLOP_PER_S)
@@ -3610,6 +3638,424 @@ def phase_mixed_models(builds: dict, std_status: dict) -> dict:
     return kern
 
 
+# The handler fleets (``problems.fleet_handlers``: bench.py::fleet_problem's
+# 64 rigs of 4 cameras, grid 10, as handlers) that [fleet_handlers] solves
+# through ``run_fleet_bundle_adjustment``: (chain, images, handler options,
+# the one kernel wrapper its main path launches). 16 images take the fused
+# family (B, C, E); 12 with ``im_bucket: None`` pad to 16 at tile 8, 33%
+# past the rule's 25%: the per-block one (D, F).
+FLEET_HANDLERS = {"template 64x4x16": ("template", 16, None,
+                                       "template_gram_fused"),
+                  "selfcal 64x4x16": ("selfcal", 16, None,
+                                      "selfcal_gram_fused"),
+                  "grouped 64x4x16": ("grouped", 16, None,
+                                      "mixed_gram_fused"),
+                  "mixed 64x4x16": ("mixed", 16, None, "mixed_gram_fused"),
+                  "selfcal 64x4x12": ("selfcal", 12, {"im_bucket": None},
+                                      "selfcal_gram"),
+                  "mixed 64x4x12": ("mixed", 12, {"im_bucket": None},
+                                    "mixed_gram")}
+# [fleet_mixed_kernel]: each of C-F folded over a fleet's 64 rigs, on that
+# fleet's tensors: kernel -> (its wrapper, key width, the fleet); the
+# grouped 12-image fleet only gives F its key width 6
+FLEET_KEY_KERNELS = {"C": ("selfcal_gram_fused", 3, "selfcal 64x4x16"),
+                     "D": ("selfcal_gram", 3, "selfcal 64x4x12"),
+                     "E9": ("mixed_gram_fused", 9, "mixed 64x4x16"),
+                     "E6": ("mixed_gram_fused", 6, "grouped 64x4x16"),
+                     "F9": ("mixed_gram", 9, "mixed 64x4x12"),
+                     "F6": ("mixed_gram", 6, "grouped 64x4x12")}
+FLEET_KEY_LOSSES = (("linear", "component"), ("huber", "observation"))
+# [multi_target_handlers]: the two-target handlers through
+# run_bundle_adjustment -> (cameras, images, free points, options, the
+# kernel wrapper); the bench problem of the same rig and shape is
+# problems.{mixed,grouped}_problem
+MULTI_TARGET = {"mixed 16x100": (16, 100, True, {}, "mixed_gram_fused"),
+                "grouped 16x100": (16, 100, False, {}, "mixed_gram_fused"),
+                "mixed 64x12": (64, 12, True, {"im_bucket": None},
+                                "mixed_gram")}
+
+
+def fleet_of(shape: str, dev, camera_model: str = "standard"):
+    """A handler fleet of FLEET_HANDLERS' shapes (or "grouped 64x4x12") on
+    the card: (its handlers, the HandlerFleet)."""
+    from pycamset_tpu_torch.optim.fleet import build_fleet_problem
+    from pycamset_tpu_torch.problems import fleet_handlers
+    chain, dims = shape.split()
+    n_rigs, n_cams, n_ims = map(int, dims.split("x"))
+    opts = {"im_bucket": None} if n_ims == 12 else None
+    handlers = fleet_handlers(chain, n_rigs, n_cams, n_ims, options=opts,
+                              camera_model=camera_model)
+    return handlers, build_fleet_problem(handlers, device=dev)
+
+
+def fleet_key_operands(prob, cw: int, fused: bool):
+    """Every rig's per-block operands of a handler fleet at its start (its
+    perturbed cameras and poses), the rig axis first, in the wrapper's
+    order: self-cal (cw 3) (cam_b, im_b, keyp, uv, mask, [cmask_b,] imask_b,
+    kmask), Kernel C without cmask; multi-target (cam_b, im_b, keyp, tpl,
+    uv, mask, cmask_b, imask_b, kmask)."""
+    import torch
+    x, cm = prob.x0_pieces, prob.colmask
+    c, i, r = prob.n_cams, prob.n_ims_grid, prob.n_rigs
+    keyp, kmask = prob.key_operands(x, cm)
+    blocks = (torch.repeat_interleave(x.cam, i, dim=1),
+              x.im.repeat(1, c, 1))
+    cmask_b = torch.repeat_interleave(cm.cam, i, dim=1)
+    imask_b = cm.im.repeat(1, c, 1)
+    if cw == 3:
+        return (*blocks, keyp, prob.uv, prob.mask,
+                *(() if fused else (cmask_b,)), imask_b, kmask)
+    tpl = prob.tpl.expand(r, *prob.tpl.shape).contiguous()
+    return (*blocks, keyp, tpl, prob.uv, prob.mask, cmask_b, imask_b, kmask)
+
+
+def fleet_key_kernel(kernel: str, model: str, prob, builds: dict) -> dict:
+    """One of Kernels C-F folded over a handler fleet's rigs (ONE launch
+    under torch.func.vmap), two losses: each rig's outputs against its
+    float64 twin (the twin under vmap) in both measures, within TOL or, where
+    the float32 twin on the rig's inputs misses TOL itself, within twice its
+    error (``parity_f32_floor``: the case recorded in F32_FLOOR_CASES); each
+    rig's bits against a one-rig launch on its slice; the device time of the
+    folded launch beside its rigs' one-rig launches, the wrapper's and the
+    float32 twin's CUDA-event ms, the bound, registers and spills."""
+    import torch
+    from types import SimpleNamespace
+
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    name, cw, _ = FLEET_KEY_KERNELS[kernel]
+    fused = name.endswith("fused")
+    r, c, i = prob.n_rigs, prob.n_cams, prob.n_ims_grid
+    a = prob.widths.a
+    ops = fleet_key_operands(prob, cw, fused)
+    extra = (c, i) if fused else ()
+    mod = sg if cw == 3 else mg
+    wrapper = getattr(mod, name)
+    twin = getattr(mod, name + "_plain")
+    kw0 = {} if cw == 3 else {"with_key_cols": cw == 9}
+    tag = f"{kernel} {model} fleet {r}x{c}x{i}"
+
+    def one(*x, **kw):
+        return wrapper(*x, *extra, **kw0, **kw)
+
+    def folded(**kw):
+        return torch.func.vmap(lambda *x: one(*x, **kw))(*ops)
+
+    ops64 = tuple(t.double() for t in ops)
+    rec = {"abs": 0.0, "rel": 0.0, "scaled": 0.0}
+    n_floor = len(F32_FLOOR_CASES)
+    for loss, sem in FLEET_KEY_LOSSES:
+        kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
+        n0 = wrapper.launches
+        got = folded(**kw)
+        check(wrapper.launches == n0 + 1,
+              f"{tag}: the folded kernel took more than one launch")
+        ref = torch.func.vmap(lambda *x: twin(*x, *extra, **kw0, **kw))(
+            *ops64)
+        if fused:       # the per-block grams the fused scaling reads
+            if cw == 3:
+                def gram_of(*x):
+                    return sg.selfcal_gram_plain(
+                        *x[:5], torch.ones_like(x[0]), *x[5:], **kw)[0]
+            else:
+                def gram_of(*x):
+                    return mg.mixed_gram_plain(*x, **kw0, **kw)[0]
+            grams = torch.func.vmap(gram_of)(*ops64)
+        for k in range(r):
+            rows = [g[k] for g in got]
+            refs = [x[k] for x in ref]
+            if fused:
+                def scaled_of(g, x, gram=grams[k]):
+                    return (sg.scaled_errors_selfcal_fused if cw == 3
+                            else mg.scaled_errors_mixed_fused)(
+                        g, x, gram, c, i)
+            else:
+                scaled_of = (sg.scaled_errors_selfcal if cw == 3
+                             else mg.scaled_errors_mixed)
+            e = parity_f32_floor(
+                f"{tag} rig {k} {loss}/{sem}", rows, refs,
+                scaled_of(rows, refs),
+                lambda k=k: twin(*(x[k] for x in ops), *extra, **kw0, **kw),
+                scaled_of)
+            for key, v in e.items():
+                rec[key] = max(rec[key], v)
+        say("fleet_mixed_kernel", kernel=kernel, model=model,
+            shape=f"{r}x{c}x{i}", loss=loss, semantics=sem, tol=TOL,
+            launches=1, worst_rig_max_abs=f"{rec['rel']:.2e}",
+            worst_rig_scaled=f"{rec['scaled']:.2e}",
+            f32_floor_cases=len(F32_FLOOR_CASES) - n_floor)
+        del got, ref
+        torch.cuda.empty_cache()
+    rec["f32_floor_cases"] = F32_FLOOR_CASES[n_floor:]
+    # each rig's bits against a one-rig launch on its slice
+    got = folded()
+    same = sum(all(torch.equal(g[k], o) for g, o in zip(
+        got, one(*(x[k] for x in ops)))) for k in range(r))
+    check(same == r, f"{tag}: {r - same} of {r} rigs' bits differ from "
+                     f"their one-rig launches")
+    # device time: the folded launch, the rigs' one-rig launches
+    packed = mg.pack_block_params(fold(ops[0]), fold(ops[1]))
+    packed_r = [mg.pack_block_params(ops[0][k], ops[1][k]) for k in range(r)]
+    if cw == 3:
+        keys, blocks = ops[2], ops[3:-1]
+        kmask = ops[-1]
+        launch = sg._launch_selfcal_fused if fused else sg._launch_selfcal
+    else:
+        keys = mg.pack_key_group_data(ops[2][..., :6],
+                                      ops[2][..., 6:9] if cw == 9 else ops[3])
+        blocks, kmask = ops[4:-1], ops[-1]
+        launch = mg._launch_mixed_fused if fused else mg._launch_mixed
+    keys = keys.contiguous()
+    t = {"kernel_ms": kernel_ms(lambda: launch(
+            packed, keys, *(fold(x) for x in blocks), kmask, *extra, 0, 1,
+            1.0, a - 6)),
+         "one_rig_launches_kernel_ms": kernel_ms(lambda: [
+             launch(packed_r[k], keys[k], *(x[k] for x in blocks), kmask[k],
+                    *extra, 0, 1, 1.0, a - 6) for k in range(r)]),
+         "ms": cuda_ms(folded, 10),
+         "one_rig_launches_ms": cuda_ms(lambda: [
+             one(*(x[k] for x in ops)) for k in range(r)], 3),
+         "plain_ms": cuda_ms(lambda: torch.func.vmap(
+             lambda *x: twin(*x, *extra, **kw0))(*ops), 3)}
+    bound_prob = SimpleNamespace(
+        mask=fold(prob.mask), widths=SimpleNamespace(a=a),
+        blocks=SimpleNamespace(n_cams=r * c, n_real=int(prob.n_real.sum())))
+    t["bound_ms"], t["bound_by"] = bound(name, bound_prob,
+                                         None if cw == 3 else cw, rigs=r)
+    res = builds.get((name, model) if cw == 3 else (name, model, cw))
+    if res is None:        # the standard model's, from [build]'s report
+        from pycamset_tpu_torch._build import load
+        regs, spill = ptxas_entry(
+            ptxas_resources(load().ptxas_info),
+            f"mixed_kernelILi9ELi{cw}ELb{int(fused)}E", False)
+        res = {"registers": regs, "spill_bytes": spill}
+    check(res["spill_bytes"] == 0, f"{tag}: {res['spill_bytes']} spill "
+                                   f"bytes")
+    rec.update(t, shape=f"{model} fleet {r}x{c}x{i}", same_bits_rigs=same,
+               launches_per_call=1, registers=res["registers"],
+               spill_bytes=res["spill_bytes"])
+    say("fleet_mixed_kernel", kernel=kernel, model=model,
+        shape=f"{r}x{c}x{i}", unit="ms", same_bits_rigs=f"{same}/{r}",
+        registers=res["registers"], spill_bytes=res["spill_bytes"],
+        **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+           for k, v in t.items()})
+    del got, ops, ops64, packed, packed_r, keys
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_fleet_mixed_kernel(fleets: dict, dev, builds: dict) -> dict:
+    """[fleet_mixed_kernel]: Kernels C, D, E (cw 9 and 6) and F (cw 9 and
+    6) folded over 64 rigs on the handler fleets' own tensors, at the
+    standard model (a = 15) and the tilted one (a = 24, the widest)."""
+    import torch
+    out = {}
+    for model in ("standard", "tilted"):
+        for kernel, (_, _, shape) in FLEET_KEY_KERNELS.items():
+            prob = (fleets[shape][1] if model == "standard" and shape in
+                    fleets else fleet_of(shape, dev, model)[1])
+            out[(kernel, model)] = fleet_key_kernel(kernel, model, prob,
+                                                    builds)
+            del prob
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fleet_handlers(fleets: dict, counted) -> dict:
+    """[fleet_handlers]: each handler fleet through
+    ``run_fleet_bundle_adjustment`` as its main path (uncaptured, every
+    launch count at 0 just before: its kernel alone, one launch per
+    evaluation of the batch or a cohort), the fleet's problem solved
+    capturing and warm (captured = uncaptured bit for bit, each rig's nit,
+    nfev, status and free vector as the main path's), every rig at status
+    1-2 and rms <= 0.36 px, the first 4 rigs' costs within 1e-4 of the
+    port's float64 CPU fleet of those rigs, rigs/s of warm solves, the
+    family the padding rule picked, and rig 0's ``.camset`` written and
+    loaded back."""
+    import tempfile
+
+    import torch
+    from pycamset_tpu_torch.optim.fleet import (build_fleet_problem,
+                                                run_fleet_bundle_adjustment)
+    from pycamset_tpu_torch.utils.saving import load_CameraSet
+    out = {}
+    for shape, (chain, n_ims, _, own) in FLEET_HANDLERS.items():
+        t_shape = time.perf_counter()
+        handlers, prob = fleets[shape]
+        r = prob.n_rigs
+        (results, camsets), n_own, _, main_s = main_path_counts(
+            counted, own, f"fleet_handlers {shape}",
+            lambda: run_fleet_bundle_adjustment(handlers,
+                                                device=prob.uv.device,
+                                                graph=False))
+        runners = prob.graph()
+        first = prob.solve_batch()                      # captures
+        before = {n: g.steps for n, g in runners.items()}
+        warm = prob.solve_batch()
+        steps = sum(g.steps - before[n] for n, g in runners.items())
+        check(same_fleet(first, warm), f"{shape}: two captured solves "
+                                       f"differ")
+        for k, res in enumerate(results):
+            x_k = prob.extract_free(k, prob.rig_result(warm, k).x)
+            check((res.nit, res.nfev, res.status)
+                  == (warm.nit[k], warm.nfev[k], int(warm.status[k]))
+                  and np.array_equal(res.x, x_k),
+                  f"{shape} rig {k}: the captured solve differs from the "
+                  f"main path's uncaptured one")
+        check(n_own == 1 + steps and n_own < sum(warm.nfev),
+              f"{shape}: {own} launched {n_own} times in {steps} batch "
+              f"steps (+1 slm_init), {sum(warm.nfev)} rig evaluations")
+        status = [int(s) for s in warm.status.tolist()]
+        rms = prob.rms_px(warm.cost)
+        check(all(s in (1, 2) for s in status), f"{shape}: status {status}")
+        check(float(rms.max()) <= 0.36, f"{shape}: rms {rms.max():.4f} "
+                                        f"above 0.36 px")
+        t0 = time.perf_counter()
+        cpu = build_fleet_problem(handlers[:4], device="cpu").solve_batch()
+        cpu_s = time.perf_counter() - t0
+        rel = ((warm.cost[:4].double().cpu() - cpu.cost) / cpu.cost).abs()
+        check(float(rel.max()) <= 1e-4, f"{shape}: cost differs from the "
+                                        f"float64 CPU fleet by {rel.max()}")
+        warm_ms = timed(prob.solve_batch, 3)
+        median = float(np.median(warm_ms))
+        with tempfile.TemporaryDirectory() as d:
+            camsets[0].save(d + "/rig0.camset")
+            back = load_CameraSet(d + "/rig0.camset")
+        check(back == camsets[0], f"{shape}: rig 0's camset did not load "
+                                  f"back")
+        family = {"template_gram_fused": "B", "template_gram": "A",
+                  "selfcal_gram_fused": "C", "selfcal_gram": "D",
+                  "mixed_gram_fused": "E", "mixed_gram": "F"}[own]
+        rec = dict(rigs=r, n_real=int(prob.n_real.sum()), family=family,
+                   launches=n_own, batch_evaluations=1 + steps,
+                   rig_evaluations=sum(warm.nfev),
+                   nit_min=min(warm.nit), nit_max=max(warm.nit),
+                   status_counts={s: status.count(s)
+                                  for s in sorted(set(status))},
+                   rms_px_max=f"{rms.max():.5f}",
+                   rel_cost_diff_cpu_f64_4_rigs=f"{rel.max():.3e}",
+                   cpu_f64_4_rigs_s=f"{cpu_s:.1f}",
+                   main_path_s=f"{main_s:.2f}",
+                   solve_ms_median=f"{median:.3f}",
+                   solve_ms_all=",".join(f"{x:.2f}" for x in warm_ms),
+                   rigs_per_s=f"{r / median * 1e3:.1f}",
+                   capture_ms=",".join(
+                       f"{n}:{runners[n].capture_ms:.1f}"
+                       for n in sorted(runners, reverse=True)
+                       if runners[n].capture_ms is not None),
+                   camset_loaded=True,
+                   seconds=f"{time.perf_counter() - t_shape:.1f}")
+        say("fleet_handlers", shape=shape.replace(" ", "_"),
+            same_bits=True, **rec)
+        out[shape] = {"own": own, "launches": n_own,
+                      "solve_ms_median": median, "rigs_per_s":
+                      r / median * 1e3}
+        del results, camsets, first, warm
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_multi_target_handlers(counted, dev) -> dict:
+    """[multi_target_handlers]: the two-target handlers of the bench's
+    multi-target rig (``problems.multi_target_handler``:
+    ``TwoTargetSelfCalibrator`` and ``TwoTargetCalibrator``, the board's
+    halves as the targets, seeded through ``set_initial_params``) through
+    ``run_bundle_adjustment`` as the main path (uncaptured inside, counts
+    at 0 just before: its kernel alone, once an evaluation) -> its CameraSet
+    written and loaded back; the handler's problem solved capturing and
+    warm (captured = uncaptured bit for bit), status 1-2 and rms <= 0.36
+    px, and the warm solve of its problem within 10% of the bench
+    problem's at the same shape (``problems.{mixed,grouped}_problem``,
+    timed beside it), by ms an evaluation: their iteration counts differ
+    (their starts, and the mixed handler's gauge, are not the bench's),
+    and the handler's grid has the bucket's 104 images at 16 x 100. The
+    handler's ``solve_fn`` (its host round trip of the free vector
+    included) is timed beside them."""
+    import tempfile
+
+    import torch
+    from pycamset_tpu_torch import problems
+    from pycamset_tpu_torch.optim import driver
+    from pycamset_tpu_torch.optim import structured_driver as sd
+    from pycamset_tpu_torch.utils.saving import load_CameraSet
+    out = {}
+    for shape, (n_cams, n_ims, mixed, opts, own) in MULTI_TARGET.items():
+        t_shape = time.perf_counter()
+        handler, _ = problems.multi_target_handler(n_cams, n_ims, mixed,
+                                                   options=opts)
+        build = (sd.build_mixed_structured_problem if mixed
+                 else sd.build_structured_problem)
+        solve_fn, residual_fn, x0 = build(handler, device=dev)
+        cw = 9 if mixed else 6
+        zero_counts(counted)
+        x_ref, ref = solve_fn(x0, graph=False)
+        launches = {name: fn.launches for name, fn in counted.items()}
+        by_cw = counted[own].launches_by_cw[cw]
+        check(launches[own] == ref.nfev == by_cw and not any(
+            n for name, n in launches.items() if name != own),
+            f"multi_target_handlers {shape}: {launches} in {ref.nfev} "
+            f"evaluations")
+        x_first, first = solve_fn(x0)                 # captures
+        x_warm, warm = solve_fn(x0)
+        check(same_solve(first, ref) and same_solve(warm, ref)
+              and np.array_equal(x_first, x_ref)
+              and np.array_equal(x_warm, x_ref),
+              f"{shape}: the captured solve differs from the uncaptured")
+        solve_fn_ms = float(np.median(timed(lambda: solve_fn(x0), 3)))
+        rms = solve_fn.problem.rms_px(ref.cost)
+        check(int(ref.status) in (1, 2) and rms <= 0.36,
+              f"{shape}: status {int(ref.status)}, rms {rms:.4f}")
+        bench = (problems.mixed_problem if mixed
+                 else problems.grouped_problem)(n_cams, n_ims, dev)
+        bench_res = bench.solve()                   # captures
+        pieces = solve_fn.pieces(x0)
+        warm_ms = timed(lambda: solve_fn.problem.solve(x0=pieces), 3)
+        bench_ms = timed(bench.solve, 3)
+        median, bench_median = (float(np.median(warm_ms)),
+                                float(np.median(bench_ms)))
+        eval_ratio = (median / ref.nfev) / (bench_median / bench_res.nfev)
+        check(eval_ratio <= 1.10, f"{shape}: {median / ref.nfev:.3f} ms an "
+                                  f"evaluation, the bench problem's "
+                                  f"{bench_median / bench_res.nfev:.3f}")
+        # the user's entry point
+        (res, cams), n_user, _, user_s = main_path_counts(
+            counted, own, f"multi_target_handlers {shape}",
+            lambda: driver.run_bundle_adjustment(handler, device=dev))
+        check(res.status in (1, 2), f"{shape}: run_bundle_adjustment "
+                                    f"status {res.status}")
+        with tempfile.TemporaryDirectory() as d:
+            cams.save(d + "/two_target.camset")
+            back = load_CameraSet(d + "/two_target.camset")
+        check(back == cams, f"{shape}: the camset did not load back")
+        rel = handler.get_relative_pose(res.x)
+        say("multi_target_handlers", shape=shape.replace(" ", "_"),
+            handler=type(handler).__name__, kernel=own, cw=cw,
+            n_real=solve_fn.problem.blocks.n_real,
+            grid=f"B={solve_fn.problem.mask.shape[0]},"
+                 f"K={solve_fn.problem.mask.shape[1]}",
+            launches=launches[own], nfev=ref.nfev, nit=ref.nit,
+            status=int(ref.status), rms_px=f"{rms:.5f}", same_bits=True,
+            solve_ms_median=f"{median:.3f}",
+            solve_ms_all=",".join(f"{x:.2f}" for x in warm_ms),
+            solve_fn_ms_median=f"{solve_fn_ms:.3f}",
+            bench_problem_ms_median=f"{bench_median:.3f}",
+            bench_problem_nit=bench_res.nit,
+            ms_per_eval=f"{median / ref.nfev:.4f}",
+            bench_problem_ms_per_eval=f"{bench_median / bench_res.nfev:.4f}",
+            eval_ratio=f"{eval_ratio:.3f}", user_path_launches=n_user,
+            user_path_s=f"{user_s:.2f}", user_path_status=res.status,
+            group1_rotation_deg=f"{np.degrees(np.arccos(np.clip((np.trace(rel[:3, :3]) - 1) / 2, -1, 1))):.4f}",
+            group1_translation_mm=f"{np.linalg.norm(rel[:3, 3]) * 1e3:.4f}",
+            camset_loaded=True,
+            seconds=f"{time.perf_counter() - t_shape:.1f}")
+        out[shape] = {"own": own, "launches": launches[own] + n_user}
+        del solve_fn, residual_fn, handler, first, warm, ref, bench
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3741,6 +4187,35 @@ def main() -> int:
     say("elapsed", after="mixed_models",
         seconds=f"{time.perf_counter() - t_start:.1f}",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counted = wrappers()
+    t_phase = time.perf_counter()
+    multi = phase_multi_target_handlers(counted, dev)
+    say("elapsed", after="multi_target_handlers",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+    fleets = {shape: fleet_of(shape, dev) for shape in FLEET_HANDLERS}
+    say("problems", **{f"fleet_handlers_{s.replace(' ', '_')}":
+                       f"R={f.n_rigs},B={f.mask.shape[1]},"
+                       f"K={f.mask.shape[2]},n_real={int(f.n_real.sum())}"
+                       for s, (_, f) in fleets.items()},
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    fleet_keys = phase_fleet_mixed_kernel(fleets, dev, builds)
+    say("elapsed", after="fleet_mixed_kernel",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+    fleet_h = phase_fleet_handlers(fleets, counted)
+    del fleets
+    say("elapsed", after="fleet_handlers",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    for phase, recs in (("multi_target_handlers", multi),
+                        ("fleet_handlers", fleet_h)):
+        for shape, rec in recs.items():
+            launches[rec["own"]][f"{phase} {shape}"] = rec["launches"]
 
     fleet_shape = f"fleet {'x'.join(map(str, FLEET))}"
     launches["template_gram_fused"][fleet_shape] = fleet_rec["launches"]
@@ -3759,6 +4234,16 @@ def main() -> int:
                 one_by_one_ms_median=fleet_rec["one_by_one_ms_median"])
         elif name == "template_gram":
             extra["fleet"] = fleet_kern["kernel_a"]
+        else:       # C-F folded over the handler fleets' rigs
+            extra["fleet"] = {
+                f"{kernel} {model}": rec
+                for (kernel, model), rec in fleet_keys.items()
+                if FLEET_KEY_KERNELS[kernel][0] == name}
+        handler_fleets = {shape: {k: v for k, v in rec.items() if k != "own"}
+                          for shape, rec in fleet_h.items()
+                          if rec["own"] == name}
+        if handler_fleets:
+            extra["fleet_handlers"] = handler_fleets
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches[name].values()),

@@ -14,3 +14,17 @@ cv2 or pycamset_tpu.
 from pycamset_tpu_torch import config  # noqa: F401  (sets the precision flags)
 
 __version__ = "0.1.0"
+
+__all__ = ["run_fleet_bundle_adjustment", "FleetMismatch"]
+
+# exported as the JAX package exports them (pycamset_tpu/__init__.py),
+# imported on first use
+_LAZY = {"run_fleet_bundle_adjustment": "pycamset_tpu_torch.optim.fleet",
+         "FleetMismatch": "pycamset_tpu_torch.optim.fleet"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

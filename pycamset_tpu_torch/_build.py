@@ -66,6 +66,18 @@ _SIGNATURES = {
     "pct_mixed_gram_fused_model": [_I] + [_P] * 7
                                   + [_I, _I, _I, _I, _I, _I, _F, _I]
                                   + [_P] * 15,
+    # Kernels C-F over n_rigs rigs at any width: the intrinsic width and
+    # the rig count first
+    "pct_selfcal_gram_rigs": [_I, _I] + [_P] * 7 + [_I, _I, _I, _I, _F, _I]
+                             + [_P] * 8,
+    "pct_selfcal_gram_fused_rigs": [_I, _I] + [_P] * 6
+                                   + [_I, _I, _I, _I, _I, _F, _I]
+                                   + [_P] * 15,
+    "pct_mixed_gram_rigs": [_I, _I] + [_P] * 7
+                           + [_I, _I, _I, _I, _I, _F, _I] + [_P] * 8,
+    "pct_mixed_gram_fused_rigs": [_I, _I] + [_P] * 7
+                                 + [_I, _I, _I, _I, _I, _I, _F, _I]
+                                 + [_P] * 15,
     # what the device makes of C-F's first pass at (intr_w, cw, fused)
     "pct_mixed_occupancy": [_I, _I, _I, _P],
     "pct_psd_solve": [_P, _P, _I, _I] + [_P] * 9,

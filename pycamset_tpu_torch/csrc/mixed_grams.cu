@@ -1,8 +1,10 @@
 // The C entries of Kernels C and D at the five camera models and of
 // Kernels E and F at the standard model (mixed_kernels.cuh holds the
 // kernels and their design). E and F at the other models are exported by
-// mixed_models_e.cu and mixed_models_f.cu. Each entry launches on the
-// given stream, allocates nothing, and returns cudaGetLastError(), or
+// mixed_models_e.cu and mixed_models_f.cu. The *_rigs entries take any of
+// the five widths and a rig count: one launch of each pass over R rigs,
+// rig-major (the fleet); the others launch one rig. Each entry launches on
+// the given stream, allocates nothing, and returns cudaGetLastError(), or
 // cudaErrorInvalidValue, launching nothing, for a width or key width it is
 // not built at. pct_mixed_occupancy reports what the device makes of any
 // of their first passes.
@@ -10,6 +12,88 @@
 #include "mixed_kernels.cuh"
 
 extern "C" {
+
+int pct_mixed_gram_model_rigs(int intr_w, int n_rigs, const float *packed,
+                              const float *kd, const float *uv,
+                              const float *mask, const float *cmask,
+                              const float *imask, const float *kmask, int cw,
+                              int n_blocks, int n_keys, int loss,
+                              int component, float f_scale, int chunk,
+                              float *gram, float *wcc, float *wic, float *hkk,
+                              float *gk, float *blk_part, float *hk_part,
+                              void *stream);
+int pct_mixed_gram_fused_model_rigs(
+    int intr_w, int n_rigs, const float *packed, const float *kd,
+    const float *uv, const float *mask, const float *cmask,
+    const float *imask, const float *kmask, int cw, int n_cams, int n_ims,
+    int n_keys, int loss, int component, float f_scale, int chunk,
+    float *hcc, float *gc, float *wcc, float *wic, float *wci, float *gii,
+    float *gi, float *corner, float *hkk, float *gk, float *blk_part,
+    float *cam_part, float *wcc_part, float *hk_part, void *stream);
+
+// Kernel F at intrinsic width intr_w (9 here; 8, 12, 16 and 18 in
+// mixed_models_f.cu) and key width cw over n_rigs rigs of n_blocks blocks:
+// pct_mixed_gram's arrays with every rig's rows, rig-major (kd (R, 48, K),
+// kmask (R, K, cw), hkk (R, K, cw, cw), ...; mixed_models_f.cu states
+// them).
+int pct_mixed_gram_rigs(int intr_w, int n_rigs, const float *packed,
+                        const float *kd, const float *uv, const float *mask,
+                        const float *cmask, const float *imask,
+                        const float *kmask, int cw, int n_blocks, int n_keys,
+                        int loss, int component, float f_scale, int chunk,
+                        float *gram, float *wcc, float *wic, float *hkk,
+                        float *gk, float *blk_part, float *hk_part,
+                        void *stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (intr_w != 9)
+    return pct_mixed_gram_model_rigs(intr_w, n_rigs, packed, kd, uv, mask,
+                                     cmask, imask, kmask, cw, n_blocks,
+                                     n_keys, loss, component, f_scale, chunk,
+                                     gram, wcc, wic, hkk, gk, blk_part,
+                                     hk_part, stream);
+  if (cw == 9)
+    return launch_mixed<9, 9>(packed, kd, uv, mask, cmask, imask, kmask,
+                              n_rigs, n_blocks, n_keys, loss, component,
+                              f_scale, chunk, gram, wcc, wic, hkk, gk,
+                              blk_part, hk_part, st);
+  if (cw == 6)
+    return launch_mixed<9, 6>(packed, kd, uv, mask, cmask, imask, kmask,
+                              n_rigs, n_blocks, n_keys, loss, component,
+                              f_scale, chunk, gram, wcc, wic, hkk, gk,
+                              blk_part, hk_part, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernel E at intrinsic width intr_w (9 here; the others in
+// mixed_models_e.cu) and key width cw over n_rigs rigs of n_cams cameras:
+// pct_mixed_gram_fused's arrays with every rig's rows, rig-major.
+int pct_mixed_gram_fused_rigs(
+    int intr_w, int n_rigs, const float *packed, const float *kd,
+    const float *uv, const float *mask, const float *cmask,
+    const float *imask, const float *kmask, int cw, int n_cams, int n_ims,
+    int n_keys, int loss, int component, float f_scale, int chunk,
+    float *hcc, float *gc, float *wcc, float *wic, float *wci, float *gii,
+    float *gi, float *corner, float *hkk, float *gk, float *blk_part,
+    float *cam_part, float *wcc_part, float *hk_part, void *stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (intr_w != 9)
+    return pct_mixed_gram_fused_model_rigs(
+        intr_w, n_rigs, packed, kd, uv, mask, cmask, imask, kmask, cw,
+        n_cams, n_ims, n_keys, loss, component, f_scale, chunk, hcc, gc, wcc,
+        wic, wci, gii, gi, corner, hkk, gk, blk_part, cam_part, wcc_part,
+        hk_part, stream);
+  if (cw == 9)
+    return launch_mixed_fused<9, 9>(
+        packed, kd, uv, mask, cmask, imask, kmask, n_rigs, n_cams, n_ims,
+        n_keys, loss, component, f_scale, chunk, hcc, gc, wcc, wic, wci, gii,
+        gi, corner, hkk, gk, blk_part, cam_part, wcc_part, hk_part, st);
+  if (cw == 6)
+    return launch_mixed_fused<9, 6>(
+        packed, kd, uv, mask, cmask, imask, kmask, n_rigs, n_cams, n_ims,
+        n_keys, loss, component, f_scale, chunk, hcc, gc, wcc, wic, wci, gii,
+        gi, corner, hkk, gk, blk_part, cam_part, wcc_part, hk_part, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 // Kernel F, standard model (intr_w 9; the other models:
 // pct_mixed_gram_model, mixed_models_f.cu). packed (B, 96), kd (48, K), uv
@@ -23,18 +107,10 @@ int pct_mixed_gram(const float *packed, const float *kd, const float *uv,
                    int loss, int component, float f_scale, int chunk,
                    float *gram, float *wcc, float *wic, float *hkk, float *gk,
                    float *blk_part, float *hk_part, void *stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (cw == 9)
-    return launch_mixed<9, 9>(packed, kd, uv, mask, cmask, imask, kmask,
-                              n_blocks, n_keys, loss, component, f_scale,
-                              chunk, gram, wcc, wic, hkk, gk, blk_part,
-                              hk_part, st);
-  if (cw == 6)
-    return launch_mixed<9, 6>(packed, kd, uv, mask, cmask, imask, kmask,
-                              n_blocks, n_keys, loss, component, f_scale,
-                              chunk, gram, wcc, wic, hkk, gk, blk_part,
-                              hk_part, st);
-  return (int)cudaErrorInvalidValue;
+  return pct_mixed_gram_rigs(9, 1, packed, kd, uv, mask, cmask, imask,
+                             kmask, cw, n_blocks, n_keys, loss, component,
+                             f_scale, chunk, gram, wcc, wic, hkk, gk,
+                             blk_part, hk_part, stream);
 }
 
 // Kernel E, standard model (intr_w 9; the other models:
@@ -55,22 +131,10 @@ int pct_mixed_gram_fused(const float *packed, const float *kd,
                          float *corner, float *hkk, float *gk,
                          float *blk_part, float *cam_part, float *wcc_part,
                          float *hk_part, void *stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (cw == 9)
-    return launch_mixed_fused<9, 9>(packed, kd, uv, mask, cmask, imask,
-                                    kmask, n_cams, n_ims, n_keys, loss,
-                                    component, f_scale, chunk, hcc, gc, wcc,
-                                    wic, wci, gii, gi, corner, hkk, gk,
-                                    blk_part, cam_part, wcc_part, hk_part,
-                                    st);
-  if (cw == 6)
-    return launch_mixed_fused<9, 6>(packed, kd, uv, mask, cmask, imask,
-                                    kmask, n_cams, n_ims, n_keys, loss,
-                                    component, f_scale, chunk, hcc, gc, wcc,
-                                    wic, wci, gii, gi, corner, hkk, gk,
-                                    blk_part, cam_part, wcc_part, hk_part,
-                                    st);
-  return (int)cudaErrorInvalidValue;
+  return pct_mixed_gram_fused_rigs(
+      9, 1, packed, kd, uv, mask, cmask, imask, kmask, cw, n_cams, n_ims,
+      n_keys, loss, component, f_scale, chunk, hcc, gc, wcc, wic, wci, gii,
+      gi, corner, hkk, gk, blk_part, cam_part, wcc_part, hk_part, stream);
 }
 
 // Kernel D at intrinsic width intr_w (8, 9, 12, 16, 18; a = intr_w + 6,
@@ -78,8 +142,35 @@ int pct_mixed_gram_fused(const float *packed, const float *kd,
 // keyp (K, 3), uv (B, K, 2), mask (B, K), cmask (B, a), imask (B, 6),
 // kmask (K, 3) -> gram (B, W, W), wck (B, 3a, K), wik (B, 18, K),
 // hkk (K, 3, 3), gk (K, 3). Scratch: blk_part (ceil(K / 128), B,
-// W (W + 1) / 2), hk_part (ceil(B / chunk), 9, K). Another width returns
-// cudaErrorInvalidValue and launches nothing.
+// W (W + 1) / 2), hk_part (ceil(B / chunk), 9, K). n_rigs rigs of n_blocks
+// blocks each: every array with every rig's rows, rig-major (packed
+// (R B, PPB), keyp (R, K, 3), kmask (R, K, 3), hkk (R, K, 3, 3), blk_part
+// (ceil(K / 128), R B, ...), hk_part (R ceil(B / chunk), 9, K), ...).
+// Another width returns cudaErrorInvalidValue and launches nothing.
+int pct_selfcal_gram_rigs(int intr_w, int n_rigs, const float *packed,
+                          const float *keyp, const float *uv,
+                          const float *mask, const float *cmask,
+                          const float *imask, const float *kmask,
+                          int n_blocks, int n_keys, int loss, int component,
+                          float f_scale, int chunk, float *gram, float *wck,
+                          float *wik, float *hkk, float *gk, float *blk_part,
+                          float *hk_part, void *stream) {
+  switch (intr_w) {
+#define PCT_CASE(IW)                                                        \
+  case IW:                                                                  \
+    return launch_mixed<IW, 3>(packed, keyp, uv, mask, cmask, imask, kmask, \
+                               n_rigs, n_blocks, n_keys, loss, component,   \
+                               f_scale, chunk, gram, wck, wik, hkk, gk,     \
+                               blk_part, hk_part, (cudaStream_t)stream);
+    PCT_CASE(8) PCT_CASE(9) PCT_CASE(12) PCT_CASE(16) PCT_CASE(18)
+#undef PCT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel D at intrinsic width intr_w, one rig (pct_selfcal_gram_rigs at
+// n_rigs = 1).
 int pct_selfcal_gram_model(int intr_w, const float *packed,
                            const float *keyp, const float *uv,
                            const float *mask, const float *cmask,
@@ -88,18 +179,10 @@ int pct_selfcal_gram_model(int intr_w, const float *packed,
                            float f_scale, int chunk, float *gram, float *wck,
                            float *wik, float *hkk, float *gk,
                            float *blk_part, float *hk_part, void *stream) {
-  switch (intr_w) {
-#define PCT_CASE(IW)                                                        \
-  case IW:                                                                  \
-    return launch_mixed<IW, 3>(packed, keyp, uv, mask, cmask, imask, kmask, \
-                               n_blocks, n_keys, loss, component, f_scale,  \
-                               chunk, gram, wck, wik, hkk, gk, blk_part,    \
-                               hk_part, (cudaStream_t)stream);
-    PCT_CASE(8) PCT_CASE(9) PCT_CASE(12) PCT_CASE(16) PCT_CASE(18)
-#undef PCT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return pct_selfcal_gram_rigs(intr_w, 1, packed, keyp, uv, mask, cmask,
+                               imask, kmask, n_blocks, n_keys, loss,
+                               component, f_scale, chunk, gram, wck, wik, hkk,
+                               gk, blk_part, hk_part, stream);
 }
 
 // Kernel D, standard model: pct_selfcal_gram_model at intr_w 9 (packed
@@ -111,7 +194,7 @@ int pct_selfcal_gram(const float *packed, const float *keyp, const float *uv,
                      int chunk, float *gram, float *wck, float *wik,
                      float *hkk, float *gk, float *blk_part, float *hk_part,
                      void *stream) {
-  return launch_mixed<9, 3>(packed, keyp, uv, mask, cmask, imask, kmask,
+  return launch_mixed<9, 3>(packed, keyp, uv, mask, cmask, imask, kmask, 1,
                             n_blocks, n_keys, loss, component, f_scale,
                             chunk, gram, wck, wik, hkk, gk, blk_part,
                             hk_part, (cudaStream_t)stream);
@@ -123,8 +206,34 @@ int pct_selfcal_gram(const float *packed, const float *keyp, const float *uv,
 // gi (B, 6), corner (B,), hkk (K, 3, 3), gk (K, 3). Scratch: blk_part
 // (ceil(K / 128), B, W (W + 1) / 2), cam_part (C, ceil(n_ims / chunk),
 // ceil(K / 128), W (W + 1) / 2), wck_part (C, ceil(n_ims / chunk), 3a, K),
-// hk_part (C * ceil(n_ims / chunk), 9, K). Another width returns
-// cudaErrorInvalidValue and launches nothing.
+// hk_part (C * ceil(n_ims / chunk), 9, K). n_rigs rigs of n_cams cameras:
+// every array with every rig's rows, rig-major, as pct_selfcal_gram_rigs.
+// Another width returns cudaErrorInvalidValue and launches nothing.
+int pct_selfcal_gram_fused_rigs(
+    int intr_w, int n_rigs, const float *packed, const float *keyp,
+    const float *uv, const float *mask, const float *imask,
+    const float *kmask, int n_cams, int n_ims, int n_keys, int loss,
+    int component, float f_scale, int chunk, float *hcc, float *gc,
+    float *wck, float *wik, float *wci, float *gii, float *gi, float *corner,
+    float *hkk, float *gk, float *blk_part, float *cam_part, float *wck_part,
+    float *hk_part, void *stream) {
+  switch (intr_w) {
+#define PCT_CASE(IW)                                                        \
+  case IW:                                                                  \
+    return launch_mixed_fused<IW, 3>(                                       \
+        packed, keyp, uv, mask, nullptr, imask, kmask, n_rigs, n_cams,      \
+        n_ims, n_keys, loss, component, f_scale, chunk, hcc, gc, wck, wik,  \
+        wci, gii, gi, corner, hkk, gk, blk_part, cam_part, wck_part,        \
+        hk_part, (cudaStream_t)stream);
+    PCT_CASE(8) PCT_CASE(9) PCT_CASE(12) PCT_CASE(16) PCT_CASE(18)
+#undef PCT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel C at intrinsic width intr_w, one rig (pct_selfcal_gram_fused_rigs
+// at n_rigs = 1).
 int pct_selfcal_gram_fused_model(
     int intr_w, const float *packed, const float *keyp, const float *uv,
     const float *mask, const float *imask, const float *kmask, int n_cams,
@@ -132,19 +241,10 @@ int pct_selfcal_gram_fused_model(
     float *hcc, float *gc, float *wck, float *wik, float *wci, float *gii,
     float *gi, float *corner, float *hkk, float *gk, float *blk_part,
     float *cam_part, float *wck_part, float *hk_part, void *stream) {
-  switch (intr_w) {
-#define PCT_CASE(IW)                                                        \
-  case IW:                                                                  \
-    return launch_mixed_fused<IW, 3>(                                       \
-        packed, keyp, uv, mask, nullptr, imask, kmask, n_cams, n_ims,       \
-        n_keys, loss, component, f_scale, chunk, hcc, gc, wck, wik, wci,    \
-        gii, gi, corner, hkk, gk, blk_part, cam_part, wck_part, hk_part,    \
-        (cudaStream_t)stream);
-    PCT_CASE(8) PCT_CASE(9) PCT_CASE(12) PCT_CASE(16) PCT_CASE(18)
-#undef PCT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return pct_selfcal_gram_fused_rigs(
+      intr_w, 1, packed, keyp, uv, mask, imask, kmask, n_cams, n_ims, n_keys,
+      loss, component, f_scale, chunk, hcc, gc, wck, wik, wci, gii, gi,
+      corner, hkk, gk, blk_part, cam_part, wck_part, hk_part, stream);
 }
 
 // Kernel C, standard model: pct_selfcal_gram_fused_model at intr_w 9
@@ -159,7 +259,7 @@ int pct_selfcal_gram_fused(const float *packed, const float *keyp,
                            float *blk_part, float *cam_part, float *wck_part,
                            float *hk_part, void *stream) {
   return launch_mixed_fused<9, 3>(packed, keyp, uv, mask, nullptr, imask,
-                                  kmask, n_cams, n_ims, n_keys, loss,
+                                  kmask, 1, n_cams, n_ims, n_keys, loss,
                                   component, f_scale, chunk, hcc, gc, wck,
                                   wik, wci, gii, gi, corner, hkk, gk,
                                   blk_part, cam_part, wck_part, hk_part,

@@ -122,6 +122,16 @@
 // two), at cw 6 59, 69, 75 and 87 KB (three, and two for the tilted); F
 // 37 to 54 KB (the register target's blocks).
 //
+// A rig axis (the fleet): one launch of each pass serves R rigs of one
+// shape. The grid's z axis holds every rig's groups (C/E: R x the cameras;
+// D/F: one group a rig), and a block reads its rig's per-key data and key
+// masks (kd and kmask hold the rigs' one after the other, RigKeys). Every
+// per-block and per-camera array is indexed by its block or camera across
+// the rigs, so the rigs' partial sums stay apart, and the second pass adds
+// each rig's per-key parts over its own chunks only, in one rig's order: a
+// rig's outputs are those of a launch of its own, bit for bit, and one rig
+// is the launch the kernels had before.
+//
 // Second pass: one launch adds the first pass's partials in a fixed order:
 // no float atomics, so two launches on the same inputs give the same bits.
 // Its hkk/gk role spreads each key's partials over 32 threads (one thread a
@@ -148,6 +158,7 @@ constexpr int RK = 32;         // keys per block of the second pass's wcc role
 constexpr int HK_K = 8;        // keys per block of its hkk/gk role
 constexpr int HK_G = RT / HK_K;  // part groups per key there
 // per-key group data (pack_key_group_data, the JAX layout), (KD_ROWS, K)
+constexpr int KD_ROWS = 48;
 constexpr int KD_XG = 0, KD_RG = 3, KD_DRG = 12, KD_XP = 39;
 // per-key sums of g, a key's rows in the chunk partials: Gc (a x 3, C/E
 // only), then Gr (3) and H's upper triangle (6)
@@ -183,6 +194,8 @@ __device__ __forceinline__ bool cam_entry(int i, int j) {
 template <int CW>
 struct KeyDirs {
   static constexpr int N = CW == 9 ? 21 : (CW == 6 ? 12 : 3);
+  // floats of kd per key: a rig's kd is ROWS * K floats, its kmask CW * K
+  static constexpr int ROWS = CW == 3 ? 3 : KD_ROWS;
   // where the first pass keeps them: shared memory (21 or 12 values held in
   // registers beside the core spilled), or registers (cw = 3)
   static constexpr bool SHARED = CW != 3;
@@ -253,6 +266,18 @@ struct KeyDirs {
   }
 };
 
+// Where rig `rig`'s per-key data and key masks start in kd and kmask (each
+// rig's follow the last's)
+template <int CW>
+struct RigKeys {
+  static __device__ __forceinline__ size_t kd(int rig, int n_keys) {
+    return (size_t)rig * KeyDirs<CW>::ROWS * n_keys;
+  }
+  static __device__ __forceinline__ size_t kmask(int rig, int n_keys) {
+    return (size_t)rig * CW * n_keys;
+  }
+};
+
 // The blocks an SM the first pass asks for (__launch_bounds__): the
 // register target, four (<= 128 registers) at the standard and fisheye
 // models as for Kernels A and B, three at the wider models, whose cores hold
@@ -291,7 +316,13 @@ static_assert(Occupancy<8, 3, true>::MIN_BLOCKS == 4 &&
 
 // The first pass. Grid (key tiles of NT, chunks of `chunk` blocks,
 // n_groups); group g's blocks are g * group, ..., (g + 1) * group - 1 (C/E:
-// a camera's images; D/F: one group of all B blocks). Dynamic shared
+// a camera's images; D/F: one group of all of a rig's blocks). Group g
+// belongs to rig g / rig_groups (C/E: the rig's cameras; D/F: 1), whose
+// per-key data and key masks it reads: a launch over R rigs holds R rigs'
+// blocks, rig-major, and R rigs' kd and kmask, each rig's after the last's;
+// every per-block and per-camera array is indexed by its block or camera
+// across the rigs, so one rig's sums and outputs stay apart from another's.
+// Dynamic shared
 // memory: the row tile, then the per-key sums (Sums<M, FUSED>::N rows of
 // NT), then, at cw 9 and 6, the keys' direction values (KeyDirs<CW>::N
 // rows of NT). kd: at cw 9 and 6 (E/F) the per-key group data (KD_ROWS, K);
@@ -310,8 +341,8 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
              const float *__restrict__ uv, const float *__restrict__ mask,
              const float *__restrict__ cmask,
              const float *__restrict__ imask,
-             const float *__restrict__ kmask, int group, int n_keys,
-             int loss, int component, float c2, int chunk,
+             const float *__restrict__ kmask, int group, int rig_groups,
+             int n_keys, int loss, int component, float c2, int chunk,
              float *__restrict__ blk_part, float *__restrict__ cam_part,
              float *__restrict__ gc_part, float *__restrict__ wcc_out,
              float *__restrict__ wic_out, float *__restrict__ hk_part) {
@@ -353,8 +384,11 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
   KeyDirs<CW> kdir;                    // cw = 3: held here for the chunk
   float *dsh = sums + S::N * NT + t;   // dsh[i * NT]: direction value i
   if (has_key) {
-    KeyDirs<CW>::point(kd, k, n_keys, xg);
-    kdir.load(kd, kmask, k, n_keys);
+    // the rig's per-key data and key masks (D/F: one group a rig)
+    const int rig = FUSED ? grp / rig_groups : grp;
+    const float *kd_r = kd + RigKeys<CW>::kd(rig, n_keys);
+    KeyDirs<CW>::point(kd_r, k, n_keys, xg);
+    kdir.load(kd_r, kmask + RigKeys<CW>::kmask(rig, n_keys), k, n_keys);
     if constexpr (KeyDirs<CW>::SHARED) {
       #pragma unroll
       for (int i = 0; i < KeyDirs<CW>::N; ++i) dsh[i * NT] = kdir.v[i];
@@ -536,12 +570,14 @@ mixed_kernel(const float *__restrict__ packed, const float *__restrict__ kd,
 
 // Second pass: add the first pass's partials in a fixed order. kd and
 // kmask as in the first pass (at cw = 3 the directions are kmask alone and
-// kd, the free points, is not read). One launch;
+// kd, the free points, is not read), n_rigs rigs' of them: n_blocks and
+// n_cams count every rig's, rig-major. One launch;
 // a thread block's role follows from its index: first the B blocks (their
 // gram entries over key tiles), then, for Kernels C/E, the C cameras (hcc, gc
 // over chunks and key tiles) and the wcc entries (Gc over chunks, then the
 // directions) of RK keys a block, last the hkk/gk of HK_K keys a block (Gr
-// and H over every chunk of every group, then the directions). A block or
+// and H over every chunk of every group of its rig, then the directions;
+// rig-major, as many blocks a rig as one rig takes). A block or
 // camera role takes the gram entries RT apart, N_EPR a thread (one at the
 // standard model's 253, fully unrolled: the first port's code; two at the
 // tilted model's 496).
@@ -553,7 +589,8 @@ mixed_reduce_kernel(const float *__restrict__ kd,
                     const float *__restrict__ cam_part,
                     const float *__restrict__ gc_part,
                     const float *__restrict__ hk_part, int n_blocks,
-                    int n_cams, int n_tiles, int n_chunks, int n_keys,
+                    int n_cams, int n_rigs, int n_tiles, int n_chunks,
+                    int n_keys,
                     float *__restrict__ gram, float *__restrict__ hcc,
                     float *__restrict__ gc, float *__restrict__ wcc,
                     float *__restrict__ wci, float *__restrict__ gii,
@@ -629,6 +666,9 @@ mixed_reduce_kernel(const float *__restrict__ kd,
     if (b < (long long)n_cams * n_kt) {
       const int c = (int)(b / n_kt), kl = t % RK, ig = t / RK;
       const int k = (int)(b % n_kt) * RK + kl;
+      const int rig = c / (n_cams / n_rigs);
+      kd += RigKeys<CW>::kd(rig, n_keys);
+      kmask += RigKeys<CW>::kmask(rig, n_keys);
       if (ig == 0 && k < n_keys) {
         KeyDirs<CW> kdir;
         kdir.load(kd, kmask, k, n_keys);
@@ -661,9 +701,13 @@ mixed_reduce_kernel(const float *__restrict__ kd,
   // parts jg, jg + HK_G, ...; then thread (sum r, key kl) adds the groups'
   // sums in order, and one thread per key applies the directions
   const int kl = t % HK_K, jg = t / HK_K;
-  const int k0 = (int)b * HK_K;
-  const int n_parts = (FUSED ? n_cams : 1) * n_chunks;
+  const int n_hk = (n_keys + HK_K - 1) / HK_K;
+  const int rig = (int)(b / n_hk);
+  const int k0 = (int)(b % n_hk) * HK_K;
   {
+    // the rig's parts: its groups' chunks
+    const int n_parts = (FUSED ? n_cams / n_rigs : 1) * n_chunks;
+    const float *parts = hk_part + (size_t)rig * n_parts * N_HK * n_keys;
     const int k = k0 + kl;
     float s[N_HK];
     #pragma unroll
@@ -673,7 +717,7 @@ mixed_reduce_kernel(const float *__restrict__ kd,
       for (int p = jg; p < n_parts; p += HK_G) {
         #pragma unroll
         for (int r = 0; r < N_HK; ++r)
-          s[r] += hk_part[((size_t)p * N_HK + r) * n_keys + k];
+          s[r] += parts[((size_t)p * N_HK + r) * n_keys + k];
       }
     }
     #pragma unroll
@@ -695,8 +739,10 @@ mixed_reduce_kernel(const float *__restrict__ kd,
                           {fin[4][t], fin[6][t], fin[7][t]},
                           {fin[5][t], fin[7][t], fin[8][t]}};
   KeyDirs<CW> kdir;
-  kdir.load(kd, kmask, k, n_keys);
+  kdir.load(kd + RigKeys<CW>::kd(rig, n_keys),
+            kmask + RigKeys<CW>::kmask(rig, n_keys), k, n_keys);
   const float gr[3] = {fin[0][t], fin[1][t], fin[2][t]};
+  const size_t kr = (size_t)rig * n_keys + k;   // the key across the rigs
   #pragma unroll
   for (int p = 0; p < CW; ++p) {
     float d[3], hd[3];   // dir_p, H dir_p
@@ -704,12 +750,12 @@ mixed_reduce_kernel(const float *__restrict__ kd,
     #pragma unroll
     for (int a = 0; a < 3; ++a)
       hd[a] = hm[a][0] * d[0] + hm[a][1] * d[1] + hm[a][2] * d[2];
-    gk[(size_t)k * CW + p] = kdir.dot(gr, p);
+    gk[kr * CW + p] = kdir.dot(gr, p);
     #pragma unroll
     for (int q = p; q < CW; ++q) {
       const float v = kdir.dot(hd, q);
-      hkk[((size_t)k * CW + p) * CW + q] = v;
-      hkk[((size_t)k * CW + q) * CW + p] = v;
+      hkk[(kr * CW + p) * CW + q] = v;
+      hkk[(kr * CW + q) * CW + p] = v;
     }
   }
 }
@@ -759,67 +805,77 @@ int first_pass_occupancy(int *out) {
 }
 
 // kd: the per-key group data (KD_ROWS, K) at cw 9 and 6; the free points
-// keyp (K, 3) at cw = 3.
+// keyp (K, 3) at cw = 3. n_rigs rigs of n_blocks blocks each: every array
+// holds the rigs' rows one rig after the other (kd (R, KD_ROWS, K), kmask
+// (R, K, cw), packed (R * B, PPB), ..., hkk (R, K, cw, cw)); one launch
+// of each pass serves them all, and each rig's outputs are those of a
+// launch of its own (the same sums in the same order).
 template <int INTR_W, int CW>
 int launch_mixed(const float *packed, const float *kd, const float *uv,
                  const float *mask, const float *cmask, const float *imask,
-                 const float *kmask, int n_blocks, int n_keys, int loss,
-                 int component, float f_scale, int chunk, float *gram,
-                 float *wcc, float *wic, float *hkk, float *gk,
+                 const float *kmask, int n_rigs, int n_blocks, int n_keys,
+                 int loss, int component, float f_scale, int chunk,
+                 float *gram, float *wcc, float *wic, float *hkk, float *gk,
                  float *blk_part, float *hk_part, cudaStream_t st) {
-  if (n_blocks <= 0 || n_keys <= 0) return (int)cudaGetLastError();
+  if (n_rigs <= 0 || n_blocks <= 0 || n_keys <= 0)
+    return (int)cudaGetLastError();
   const int n_tiles = (n_keys + NT - 1) / NT;
   const int n_chunks = (n_blocks + chunk - 1) / chunk;
   size_t smem;
   cudaError_t err = first_pass_smem<INTR_W, CW, false>(smem);
   if (err != cudaSuccess) return (int)err;
   mixed_kernel<INTR_W, CW, false>
-      <<<dim3(n_tiles, n_chunks, 1), NT, smem, st>>>(
-          packed, kd, uv, mask, cmask, imask, kmask, n_blocks, n_keys, loss,
-          component, f_scale * f_scale, chunk, blk_part, nullptr, nullptr,
-          wcc, wic, hk_part);
+      <<<dim3(n_tiles, n_chunks, n_rigs), NT, smem, st>>>(
+          packed, kd, uv, mask, cmask, imask, kmask, n_blocks, 1, n_keys,
+          loss, component, f_scale * f_scale, chunk, blk_part, nullptr,
+          nullptr, wcc, wic, hk_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n_red = n_blocks + (n_keys + HK_K - 1) / HK_K;
-  mixed_reduce_kernel<INTR_W, CW, false><<<n_red, RT, 0, st>>>(
-      kd, kmask, blk_part, nullptr, nullptr, hk_part, n_blocks, 1, n_tiles,
-      n_chunks, n_keys, gram, nullptr, nullptr, nullptr, nullptr, nullptr,
-      nullptr, nullptr, hkk, gk);
+  const long long n_red = (long long)n_rigs * n_blocks +
+                          (long long)n_rigs * ((n_keys + HK_K - 1) / HK_K);
+  mixed_reduce_kernel<INTR_W, CW, false><<<(unsigned)n_red, RT, 0, st>>>(
+      kd, kmask, blk_part, nullptr, nullptr, hk_part, n_rigs * n_blocks,
+      n_rigs, n_rigs, n_tiles, n_chunks, n_keys, gram, nullptr, nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr, hkk, gk);
   return (int)cudaGetLastError();
 }
 
+// n_rigs rigs of n_cams cameras of n_ims images each, rig-major (hcc
+// (R * C, a, a), ..., hkk (R, K, cw, cw)), as launch_mixed.
 template <int INTR_W, int CW>
 int launch_mixed_fused(const float *packed, const float *kd, const float *uv,
                        const float *mask, const float *cmask,
-                       const float *imask, const float *kmask, int n_cams,
-                       int n_ims, int n_keys, int loss, int component,
+                       const float *imask, const float *kmask, int n_rigs,
+                       int n_cams, int n_ims, int n_keys, int loss,
+                       int component,
                        float f_scale, int chunk, float *hcc, float *gc,
                        float *wcc, float *wic, float *wci, float *gii,
                        float *gi, float *corner, float *hkk, float *gk,
                        float *blk_part, float *cam_part, float *gc_part,
                        float *hk_part, cudaStream_t st) {
-  if (n_cams <= 0 || n_ims <= 0 || n_keys <= 0)
+  if (n_rigs <= 0 || n_cams <= 0 || n_ims <= 0 || n_keys <= 0)
     return (int)cudaGetLastError();
   const int n_tiles = (n_keys + NT - 1) / NT;
   const int n_chunks = (n_ims + chunk - 1) / chunk;
+  const int cams = n_rigs * n_cams;   // every rig's cameras
   size_t smem;
   cudaError_t err = first_pass_smem<INTR_W, CW, true>(smem);
   if (err != cudaSuccess) return (int)err;
   mixed_kernel<INTR_W, CW, true>
-      <<<dim3(n_tiles, n_chunks, n_cams), NT, smem, st>>>(
-          packed, kd, uv, mask, cmask, imask, kmask, n_ims, n_keys, loss,
-          component, f_scale * f_scale, chunk, blk_part, cam_part, gc_part,
-          nullptr, wic, hk_part);
+      <<<dim3(n_tiles, n_chunks, cams), NT, smem, st>>>(
+          packed, kd, uv, mask, cmask, imask, kmask, n_ims, n_cams, n_keys,
+          loss, component, f_scale * f_scale, chunk, blk_part, cam_part,
+          gc_part, nullptr, wic, hk_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n_blocks = n_cams * n_ims;
-  const long long n_red = (long long)n_blocks + n_cams +
-                          (long long)n_cams * ((n_keys + RK - 1) / RK) +
-                          (n_keys + HK_K - 1) / HK_K;
+  const int n_blocks = cams * n_ims;
+  const long long n_red = (long long)n_blocks + cams +
+                          (long long)cams * ((n_keys + RK - 1) / RK) +
+                          (long long)n_rigs * ((n_keys + HK_K - 1) / HK_K);
   mixed_reduce_kernel<INTR_W, CW, true><<<(unsigned)n_red, RT, 0, st>>>(
-      kd, kmask, blk_part, cam_part, gc_part, hk_part, n_blocks, n_cams,
-      n_tiles, n_chunks, n_keys, nullptr, hcc, gc, wcc, wci, gii, gi, corner,
-      hkk, gk);
+      kd, kmask, blk_part, cam_part, gc_part, hk_part, n_blocks, cams,
+      n_rigs, n_tiles, n_chunks, n_keys, nullptr, hcc, gc, wcc, wci, gii, gi,
+      corner, hkk, gk);
   return (int)cudaGetLastError();
 }
 

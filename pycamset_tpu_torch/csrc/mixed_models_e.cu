@@ -1,5 +1,5 @@
 // Kernel E at the camera models other than the standard one: the C entry
-// pct_mixed_gram_fused_model over mixed_kernels.cuh's
+// pct_mixed_gram_fused_model{,_rigs} over mixed_kernels.cuh's
 // launch_mixed_fused<IW, CW>, built at the fisheye (intr_w 8), rational
 // (12), thin-prism (16) and tilted (18) widths for both key widths (9: the
 // mixed chain, 6: the grouped one). A translation unit of its own, so that
@@ -10,15 +10,50 @@
 extern "C" {
 
 // Kernel E at intrinsic width intr_w (8, 12, 16, 18; a = intr_w + 6,
-// W = a + 7) and key width cw (9 or 6). Kernel F's inputs over B =
-// n_cams * n_ims camera-major blocks -> hcc (C, a, a), gc (C, a), wcc
-// (C, a cw, K), wic (B, 6 cw, K), wci (B, a, 6), gii (B, 6, 6), gi (B, 6),
-// corner (B,), hkk (K, cw, cw), gk (K, cw). Scratch: blk_part
-// (ceil(K / 128), B, W (W + 1) / 2), cam_part (C, ceil(n_ims / chunk),
-// ceil(K / 128), W (W + 1) / 2), wcc_part (C, ceil(n_ims / chunk), 3a, K),
-// hk_part (C * ceil(n_ims / chunk), 9, K). Another width (the standard
-// model's 9 is pct_mixed_gram_fused, mixed_grams.cu) or key width returns
-// cudaErrorInvalidValue and launches nothing.
+// W = a + 7) and key width cw (9 or 6) over n_rigs rigs of n_cams cameras
+// of n_ims images each (mixed_kernels.cuh launch_mixed_fused), rig-major:
+// Kernel F's inputs over R B blocks, B = n_cams * n_ims camera-major ->
+// hcc (R C, a, a), gc (R C, a), wcc (R C, a cw, K), wic (R B, 6 cw, K), wci
+// (R B, a, 6), gii (R B, 6, 6), gi (R B, 6), corner (R B,), hkk (R, K, cw,
+// cw), gk (R, K, cw). Scratch: blk_part (ceil(K / 128), R B, W (W + 1) /
+// 2), cam_part (R C, ceil(n_ims / chunk), ceil(K / 128), W (W + 1) / 2),
+// wcc_part (R C, ceil(n_ims / chunk), 3a, K), hk_part (R C ceil(n_ims /
+// chunk), 9, K). Another width (the standard model's 9 is mixed_grams.cu's)
+// or key width returns cudaErrorInvalidValue and launches nothing.
+// pct_mixed_gram_fused_rigs (mixed_grams.cu) forwards here.
+int pct_mixed_gram_fused_model_rigs(
+    int intr_w, int n_rigs, const float *packed, const float *kd,
+    const float *uv, const float *mask, const float *cmask,
+    const float *imask, const float *kmask, int cw, int n_cams, int n_ims,
+    int n_keys, int loss, int component, float f_scale, int chunk,
+    float *hcc, float *gc, float *wcc, float *wic, float *wci, float *gii,
+    float *gi, float *corner, float *hkk, float *gk, float *blk_part,
+    float *cam_part, float *wcc_part, float *hk_part, void *stream) {
+  if (cw != 9 && cw != 6) return (int)cudaErrorInvalidValue;
+  switch (intr_w) {
+#define PCT_CASE(IW)                                                          \
+  case IW:                                                                    \
+    return cw == 9 ? launch_mixed_fused<IW, 9>(                               \
+                         packed, kd, uv, mask, cmask, imask, kmask, n_rigs,   \
+                         n_cams, n_ims, n_keys, loss, component, f_scale,     \
+                         chunk, hcc, gc, wcc, wic, wci, gii, gi, corner, hkk, \
+                         gk, blk_part, cam_part, wcc_part, hk_part,           \
+                         (cudaStream_t)stream)                                \
+                   : launch_mixed_fused<IW, 6>(                               \
+                         packed, kd, uv, mask, cmask, imask, kmask, n_rigs,   \
+                         n_cams, n_ims, n_keys, loss, component, f_scale,     \
+                         chunk, hcc, gc, wcc, wic, wci, gii, gi, corner, hkk, \
+                         gk, blk_part, cam_part, wcc_part, hk_part,           \
+                         (cudaStream_t)stream);
+    PCT_CASE(8) PCT_CASE(12) PCT_CASE(16) PCT_CASE(18)
+#undef PCT_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel E at intrinsic width intr_w and key width cw, one rig: hcc (C, a,
+// a), ..., hkk (K, cw, cw) (pct_mixed_gram_fused_model_rigs at n_rigs = 1).
 int pct_mixed_gram_fused_model(
     int intr_w, const float *packed, const float *kd, const float *uv,
     const float *mask, const float *cmask, const float *imask,
@@ -27,27 +62,11 @@ int pct_mixed_gram_fused_model(
     float *wcc, float *wic, float *wci, float *gii, float *gi, float *corner,
     float *hkk, float *gk, float *blk_part, float *cam_part, float *wcc_part,
     float *hk_part, void *stream) {
-  if (cw != 9 && cw != 6) return (int)cudaErrorInvalidValue;
-  switch (intr_w) {
-#define PCT_CASE(IW)                                                          \
-  case IW:                                                                    \
-    return cw == 9 ? launch_mixed_fused<IW, 9>(                               \
-                         packed, kd, uv, mask, cmask, imask, kmask, n_cams,   \
-                         n_ims, n_keys, loss, component, f_scale, chunk, hcc, \
-                         gc, wcc, wic, wci, gii, gi, corner, hkk, gk,         \
-                         blk_part, cam_part, wcc_part, hk_part,               \
-                         (cudaStream_t)stream)                                \
-                   : launch_mixed_fused<IW, 6>(                               \
-                         packed, kd, uv, mask, cmask, imask, kmask, n_cams,   \
-                         n_ims, n_keys, loss, component, f_scale, chunk, hcc, \
-                         gc, wcc, wic, wci, gii, gi, corner, hkk, gk,         \
-                         blk_part, cam_part, wcc_part, hk_part,               \
-                         (cudaStream_t)stream);
-    PCT_CASE(8) PCT_CASE(12) PCT_CASE(16) PCT_CASE(18)
-#undef PCT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return pct_mixed_gram_fused_model_rigs(
+      intr_w, 1, packed, kd, uv, mask, cmask, imask, kmask, cw, n_cams,
+      n_ims, n_keys, loss, component, f_scale, chunk, hcc, gc, wcc, wic, wci,
+      gii, gi, corner, hkk, gk, blk_part, cam_part, wcc_part, hk_part,
+      stream);
 }
 
 // The first pass of pct_mixed_gram_fused_model at intr_w (8, 12, 16, 18)

@@ -321,6 +321,17 @@ def _model_entry(lib, name: str, intr_w: int):
     return lambda *args: fn(intr_w, *args)
 
 
+def _rig_entry(lib, name: str, intr_w: int, n_rigs: int):
+    """The C entry of a key-column kernel (C-F) at intrinsic width
+    ``intr_w`` over ``n_rigs`` rigs: the one-rig entry (``_model_entry``)
+    for one rig, else ``name + "_rigs"`` with the width and the rig count
+    as its first arguments (one launch over every rig)."""
+    if n_rigs == 1:
+        return _model_entry(lib, name, intr_w)
+    fn = getattr(lib, name + "_rigs")
+    return lambda *args: fn(intr_w, n_rigs, *args)
+
+
 def _launch_gram(packed, tpl, uv, mask, loss_id, component, f_scale,
                  intr_w: int = 9):
     """Allocate Kernel A's output and launch it on the current stream

@@ -50,14 +50,16 @@ applies (their layouts are the self-cal kernels' with c = cw), and
 from __future__ import annotations
 
 import torch
+from torch import Tensor
 
 from pycamset_tpu_torch.ops.rotations import (rodrigues_jacobian,
                                               rodrigues_to_matrix)
 from pycamset_tpu_torch.optim.cuda_grams import (
-    TEMPLATE_WIDTHS, _check_cuda_inputs, _jacobi_scale, _loss_args,
-    _model_entry, _ptr, _raise_on, _worst, pack_block_params, reduce_grams)
+    TEMPLATE_WIDTHS, _check_cuda_inputs, _jacobi_scale, _loss_args, _ptr,
+    _raise_on, _rig_entry, _worst, pack_block_params, reduce_grams)
 from pycamset_tpu_torch.optim.cuda_selfcal_grams import (
-    _empty_like_grid, _grid_dims, gram_entries, scaled_errors_selfcal,
+    _empty_like_grid, _fold_rig_operands, _grid_dims, _per_rig, _rig_rows,
+    _unfold_rigs, gram_entries, scaled_errors_selfcal,
     scaled_errors_selfcal_fused, weighted_grams)
 
 KD_ROWS = 48        # pack_key_group_data rows (the JAX layout)
@@ -159,20 +161,22 @@ def _check_widths(widths, with_key_cols: bool):
 
 
 def pack_key_group_data(grp6: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """(K, 6) per-key group poses + (K, 3) points -> (KD_ROWS, K) operand:
-    rows [Xg = Rg Xp + tg 3 | Rg 9 | dRg/drvg 27 | Xp 3 | 0 6], the JAX
-    layout."""
-    k = grp6.shape[0]
-    rg = rodrigues_to_matrix(grp6[:, :3])
-    xg = torch.einsum("kab,kb->ka", rg, pts) + grp6[:, 3:]
-    rows = torch.cat([xg, rg.reshape(k, 9),
-                      rodrigues_jacobian(grp6[:, :3]).reshape(k, 27), pts,
-                      pts.new_zeros((k, KD_ROWS - 42))], dim=1)
-    return rows.T.contiguous()
+    """(..., K, 6) per-key group poses + (..., K, 3) points -> (...,
+    KD_ROWS, K) operand: rows [Xg = Rg Xp + tg 3 | Rg 9 | dRg/drvg 27 | Xp 3
+    | 0 6], the JAX layout. Element by element, so that a rig's rows of R
+    rigs' operand are the bits of its own."""
+    lead = grp6.shape[:-1]
+    rg = rodrigues_to_matrix(grp6[..., :3])
+    xg = (rg[..., 0] * pts[..., :1] + rg[..., 1] * pts[..., 1:2]
+          + rg[..., 2] * pts[..., 2:3]) + grp6[..., 3:]
+    rows = torch.cat([xg, rg.reshape(*lead, 9),
+                      rodrigues_jacobian(grp6[..., :3]).reshape(*lead, 27),
+                      pts, pts.new_zeros((*lead, KD_ROWS - 42))], dim=-1)
+    return rows.transpose(-1, -2).contiguous()
 
 
 def _points(keyp, tpl, with_key_cols: bool):
-    return keyp[:, 6:9] if with_key_cols else tpl
+    return keyp[..., 6:9] if with_key_cols else tpl
 
 
 def mixed_gram_plain(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
@@ -260,22 +264,15 @@ def mixed_gram(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask,
         :param keyp: (K, cw). :param tpl: (K, 3). :param uv: (B, K, 2).
         :param mask: (B, K). :param cmask_b: (B, a). :param imask_b: (B, 6).
         :param kmask: (K, cw).
+
+    Under ``torch.func.vmap`` over a leading rig axis (the fleet) the R
+    rigs fold into ONE launch (``_fold_rig_operands``), each rig reading
+    its own per-key rows, key masks and points.
     """
-    if cam_b.device.type == "cpu":
-        return mixed_gram_plain(cam_b, im_b, keyp, tpl, uv, mask, cmask_b,
-                                imask_b, kmask, with_key_cols, loss, f_scale,
-                                loss_semantics)
-    loss_id, component = _loss_args(loss, loss_semantics)
-    _check_mixed_inputs(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
-                        kmask, with_key_cols)
-    with torch.cuda.device(cam_b.device):
-        kd = pack_key_group_data(keyp[:, :6],
-                                 _points(keyp, tpl, with_key_cols))
-        out = _launch_mixed(pack_block_params(cam_b, im_b), kd, uv, mask,
-                            cmask_b, imask_b, kmask, loss_id, component,
-                            f_scale, cam_b.shape[1] - 6)
-    _count(mixed_gram, cam_b.shape[1], kmask.shape[1])
-    return out
+    g, wcc_b, wic_b, hkk, gk = _mixed_gram_op(
+        cam_b, im_b, keyp[None], tpl[None], uv, mask, cmask_b, imask_b,
+        kmask[None], with_key_cols, loss, float(f_scale), loss_semantics)
+    return g, wcc_b, wic_b, hkk[0], gk[0]
 
 
 mixed_gram.launches = 0
@@ -283,34 +280,104 @@ mixed_gram.launches_by_cw = {6: 0, 9: 0}
 mixed_gram.launches_by_width = _by_width()
 
 
+def _check_rig_mixed(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
+                     kmask, with_key_cols: bool):
+    """Raise unless Kernels E/F take these R rigs' tensors as they are:
+    keyp, kmask (R, K, cw) and tpl (R, K, 3) beside R rigs' blocks (the
+    one-rig checks on rig 0's slices)."""
+    n_rigs = keyp.shape[0]
+    if ({kmask.shape[0], tpl.shape[0]} != {n_rigs}
+            or mask.shape[0] % n_rigs):
+        raise ValueError(f"{mask.shape[0]} blocks, {kmask.shape[0]} key "
+                         f"masks and {tpl.shape[0]} point tables for "
+                         f"{n_rigs} rigs")
+    bb = mask.shape[0] // n_rigs
+    _check_mixed_inputs(cam_b[:bb], im_b[:bb], keyp[0], tpl[0], uv[:bb],
+                        mask[:bb], cmask_b[:bb], imask_b[:bb], kmask[0],
+                        with_key_cols)
+    for name, x in (("cam_b", cam_b), ("im_b", im_b), ("uv", uv),
+                    ("cmask_b", cmask_b), ("imask_b", imask_b)):
+        if x.shape[0] != mask.shape[0]:
+            raise ValueError(f"{name} has {x.shape[0]} blocks, mask "
+                             f"{mask.shape[0]}")
+    if not kmask.is_contiguous():
+        raise ValueError("kmask must be contiguous")
+
+
+@torch.library.custom_op("pycamset_tpu_torch::mixed_gram", mutates_args=())
+def _mixed_gram_op(cam_b: Tensor, im_b: Tensor, keyp: Tensor, tpl: Tensor,
+                   uv: Tensor, mask: Tensor, cmask_b: Tensor, imask_b: Tensor,
+                   kmask: Tensor, with_key_cols: bool, loss: str,
+                   f_scale: float, loss_semantics: str) -> tuple[
+                       Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Kernel F over R rigs: keyp, kmask (R, K, cw) and tpl (R, K, 3), the
+    others R rigs' blocks, rig-major -> (g (R B, W, W), wcc_b (R B, K, a,
+    cw), wic_b (R B, K, 6, cw), hkk (R, K, cw, cw), gk (R, K, cw))."""
+    n_rigs = keyp.shape[0]
+    if cam_b.device.type == "cpu":
+        return _per_rig(n_rigs, lambda r: mixed_gram_plain(
+            *_rig_rows(n_rigs, r, cam_b, im_b), keyp[r], tpl[r],
+            *_rig_rows(n_rigs, r, uv, mask, cmask_b, imask_b), kmask[r],
+            with_key_cols, loss, f_scale, loss_semantics))
+    loss_id, component = _loss_args(loss, loss_semantics)
+    _check_rig_mixed(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
+                     kmask, with_key_cols)
+    with torch.cuda.device(cam_b.device):
+        kd = pack_key_group_data(keyp[..., :6],
+                                 _points(keyp, tpl, with_key_cols))
+        out = _launch_mixed(pack_block_params(cam_b, im_b), kd, uv, mask,
+                            cmask_b, imask_b, kmask, loss_id, component,
+                            f_scale, cam_b.shape[1] - 6)
+    _count(mixed_gram, cam_b.shape[1], kmask.shape[2])
+    return out
+
+
+@_mixed_gram_op.register_vmap
+def _mixed_gram_vmap(info, in_dims, cam_b, im_b, keyp, tpl, uv, mask,
+                     cmask_b, imask_b, kmask, with_key_cols, loss, f_scale,
+                     loss_semantics):
+    r = info.batch_size
+    out = _mixed_gram_op(*_fold_rig_operands(
+        r, in_dims[:9], cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
+        kmask), with_key_cols, loss, f_scale, loss_semantics)
+    return _unfold_rigs(r, out), (0,) * len(out)
+
+
 def _launch_mixed(packed, kd, uv, mask, cmask_b, imask_b, kmask, loss_id,
                   component, f_scale, intr_w: int = 9):
     """Allocate Kernel F's outputs and scratch and launch its two passes on
     the current stream (inputs already checked; ``packed`` from
-    pack_block_params at ``intr_w``)."""
+    pack_block_params at ``intr_w``). ``kd`` (KD_ROWS, K) and ``kmask``
+    (K, cw) for one rig, or (R, KD_ROWS, K) and (R, K, cw) for R rigs whose
+    blocks the others hold rig-major: one launch, hkk and gk then (R, K,
+    ...)."""
     from pycamset_tpu_torch._build import load
-    bb = mask.shape[0]
-    cw = kmask.shape[1]
+    n_rigs = kmask.shape[0] if kmask.dim() == 3 else 1
+    bb = mask.shape[0] // n_rigs
+    rb = mask.shape[0]
+    cw = kmask.shape[-1]
     a = intr_w + 6
     gw = a + 7
     chunk = MIXED_CHUNK_F
     k, n_tiles, n_chunks = _grid_dims(mask, bb, chunk)
     empty = _empty_like_grid(mask)
-    g, wcc, wic = (empty(bb, gw, gw), empty(bb, a * cw, k),
-                   empty(bb, 6 * cw, k))
-    hkk, gk = empty(k, cw, cw), empty(k, cw)
-    blk_part, hk_part = (empty(n_tiles, bb, gram_entries(a)),
-                         empty(n_chunks, N_HK, k))
-    rc = _model_entry(load().lib, "pct_mixed_gram", intr_w)(
-        _ptr(packed), _ptr(kd), _ptr(uv), _ptr(mask), _ptr(cmask_b),
-        _ptr(imask_b), _ptr(kmask), cw, bb, k, loss_id, component,
-        float(f_scale), chunk, _ptr(g), _ptr(wcc), _ptr(wic),
+    g, wcc, wic = (empty(rb, gw, gw), empty(rb, a * cw, k),
+                   empty(rb, 6 * cw, k))
+    hkk, gk = empty(n_rigs, k, cw, cw), empty(n_rigs, k, cw)
+    blk_part, hk_part = (empty(n_tiles, rb, gram_entries(a)),
+                         empty(n_rigs * n_chunks, N_HK, k))
+    rc = _rig_entry(load().lib, "pct_mixed_gram", intr_w, n_rigs)(
+        _ptr(packed), _ptr(kd), _ptr(uv), _ptr(mask),
+        _ptr(cmask_b), _ptr(imask_b), _ptr(kmask), cw, bb, k, loss_id,
+        component, float(f_scale), chunk, _ptr(g), _ptr(wcc), _ptr(wic),
         _ptr(hkk), _ptr(gk), _ptr(blk_part), _ptr(hk_part),
         torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "mixed_gram")
+    if kmask.dim() == 2:
+        hkk, gk = hkk[0], gk[0]
     # (B, a cw | 6 cw, K) rows, written coalesced -> (B, K, a | 6, cw)
-    return (g, wcc.transpose(1, 2).reshape(bb, k, a, cw),
-            wic.transpose(1, 2).reshape(bb, k, 6, cw), hkk, gk)
+    return (g, wcc.transpose(1, 2).reshape(rb, k, a, cw),
+            wic.transpose(1, 2).reshape(rb, k, 6, cw), hkk, gk)
 
 
 def mixed_gram_fused(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
@@ -320,27 +387,19 @@ def mixed_gram_fused(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
                      loss_semantics: str = "component"):
     """Kernel E: the outputs of ``mixed_gram_fused_plain`` over
     B = n_cams * n_ims camera-major blocks; any n_ims, no padding; a in
-    ``TEMPLATE_WIDTHS``."""
-    if cam_b.device.type == "cpu":
-        return mixed_gram_fused_plain(cam_b, im_b, keyp, tpl, uv, mask,
-                                      cmask_b, imask_b, kmask, n_cams, n_ims,
-                                      with_key_cols, loss, f_scale,
-                                      loss_semantics)
-    loss_id, component = _loss_args(loss, loss_semantics)
-    _check_mixed_inputs(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
-                        kmask, with_key_cols)
-    if mask.shape[0] != n_cams * n_ims:
-        raise ValueError(f"{mask.shape[0]} blocks, expected {n_cams} x "
-                         f"{n_ims}")
-    with torch.cuda.device(cam_b.device):
-        kd = pack_key_group_data(keyp[:, :6],
-                                 _points(keyp, tpl, with_key_cols))
-        out = _launch_mixed_fused(pack_block_params(cam_b, im_b), kd, uv,
-                                  mask, cmask_b, imask_b, kmask, n_cams,
-                                  n_ims, loss_id, component, f_scale,
-                                  cam_b.shape[1] - 6)
-    _count(mixed_gram_fused, cam_b.shape[1], kmask.shape[1])
-    return out
+    ``TEMPLATE_WIDTHS``.
+
+    Under ``torch.func.vmap`` over a leading rig axis (the fleet) the R
+    rigs' cameras fold into ONE launch over R * n_cams cameras, rig-major,
+    each rig reading its own per-key rows, key masks and points; the
+    outputs unfold to (R, C, ...), (R, B, ...) and (R, K, ...).
+    """
+    (hcc, gc, wcc, wic_b, wci, gii, gi, corner, hkk,
+     gk) = _mixed_gram_fused_op(cam_b, im_b, keyp[None], tpl[None], uv, mask,
+                                cmask_b, imask_b, kmask[None], n_cams, n_ims,
+                                with_key_cols, loss, float(f_scale),
+                                loss_semantics)
+    return hcc, gc, wcc, wic_b, wci, gii, gi, corner, hkk[0], gk[0]
 
 
 mixed_gram_fused.launches = 0
@@ -348,38 +407,91 @@ mixed_gram_fused.launches_by_cw = {6: 0, 9: 0}
 mixed_gram_fused.launches_by_width = _by_width()
 
 
+@torch.library.custom_op("pycamset_tpu_torch::mixed_gram_fused",
+                         mutates_args=())
+def _mixed_gram_fused_op(
+        cam_b: Tensor, im_b: Tensor, keyp: Tensor, tpl: Tensor, uv: Tensor,
+        mask: Tensor, cmask_b: Tensor, imask_b: Tensor, kmask: Tensor,
+        n_cams: int, n_ims: int, with_key_cols: bool, loss: str,
+        f_scale: float, loss_semantics: str) -> tuple[
+            Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor,
+            Tensor, Tensor]:
+    """Kernel E over R rigs of n_cams x n_ims blocks: keyp, kmask (R, K,
+    cw) and tpl (R, K, 3), the others R rigs' blocks, rig-major -> (hcc
+    (R C, a, a), gc, wcc (R C, K, a, cw), wic_b (R B, K, 6, cw), wci, gii,
+    gi, corner, hkk (R, K, cw, cw), gk (R, K, cw))."""
+    n_rigs = keyp.shape[0]
+    if cam_b.device.type == "cpu":
+        return _per_rig(n_rigs, lambda r: mixed_gram_fused_plain(
+            *_rig_rows(n_rigs, r, cam_b, im_b), keyp[r], tpl[r],
+            *_rig_rows(n_rigs, r, uv, mask, cmask_b, imask_b), kmask[r],
+            n_cams, n_ims, with_key_cols, loss, f_scale, loss_semantics))
+    loss_id, component = _loss_args(loss, loss_semantics)
+    _check_rig_mixed(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
+                     kmask, with_key_cols)
+    if mask.shape[0] != n_rigs * n_cams * n_ims:
+        raise ValueError(f"{mask.shape[0]} blocks, expected {n_rigs} x "
+                         f"{n_cams} x {n_ims}")
+    with torch.cuda.device(cam_b.device):
+        kd = pack_key_group_data(keyp[..., :6],
+                                 _points(keyp, tpl, with_key_cols))
+        out = _launch_mixed_fused(pack_block_params(cam_b, im_b), kd, uv,
+                                  mask, cmask_b, imask_b, kmask, n_cams,
+                                  n_ims, loss_id, component, f_scale,
+                                  cam_b.shape[1] - 6)
+    _count(mixed_gram_fused, cam_b.shape[1], kmask.shape[2])
+    return out
+
+
+@_mixed_gram_fused_op.register_vmap
+def _mixed_gram_fused_vmap(info, in_dims, cam_b, im_b, keyp, tpl, uv, mask,
+                           cmask_b, imask_b, kmask, n_cams, n_ims,
+                           with_key_cols, loss, f_scale, loss_semantics):
+    r = info.batch_size
+    out = _mixed_gram_fused_op(*_fold_rig_operands(
+        r, in_dims[:9], cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
+        kmask), n_cams, n_ims, with_key_cols, loss, f_scale, loss_semantics)
+    return _unfold_rigs(r, out), (0,) * len(out)
+
+
 def _launch_mixed_fused(packed, kd, uv, mask, cmask_b, imask_b, kmask,
                         n_cams, n_ims, loss_id, component, f_scale,
                         intr_w: int = 9):
     """Allocate Kernel E's outputs and scratch and launch its two passes on
     the current stream (inputs already checked; ``packed`` from
-    pack_block_params at ``intr_w``)."""
+    pack_block_params at ``intr_w``). ``kd`` and ``kmask`` for one rig or
+    R rigs of n_cams cameras, as ``_launch_mixed``."""
     from pycamset_tpu_torch._build import load
+    n_rigs = kmask.shape[0] if kmask.dim() == 3 else 1
     bb = mask.shape[0]
-    cw = kmask.shape[1]
+    cams = n_rigs * n_cams
+    cw = kmask.shape[-1]
     a = intr_w + 6
     n_entries = gram_entries(a)
     chunk = MIXED_CHUNK
     k, n_tiles, n_chunks = _grid_dims(mask, n_ims, chunk)
     empty = _empty_like_grid(mask)
-    hcc, gc, wcc = (empty(n_cams, a, a), empty(n_cams, a),
-                    empty(n_cams, a * cw, k))
+    hcc, gc, wcc = (empty(cams, a, a), empty(cams, a),
+                    empty(cams, a * cw, k))
     wic, wci, gii = empty(bb, 6 * cw, k), empty(bb, a, 6), empty(bb, 6, 6)
-    gi, corner, hkk, gk = (empty(bb, 6), empty(bb), empty(k, cw, cw),
-                           empty(k, cw))
+    gi, corner = empty(bb, 6), empty(bb)
+    hkk, gk = empty(n_rigs, k, cw, cw), empty(n_rigs, k, cw)
     blk_part = empty(n_tiles, bb, n_entries)
-    cam_part = empty(n_cams, n_chunks, n_tiles, n_entries)
-    wcc_part = empty(n_cams, n_chunks, 3 * a, k)
-    hk_part = empty(n_cams * n_chunks, N_HK, k)
-    rc = _model_entry(load().lib, "pct_mixed_gram_fused", intr_w)(
-        _ptr(packed), _ptr(kd), _ptr(uv), _ptr(mask), _ptr(cmask_b),
-        _ptr(imask_b), _ptr(kmask), cw, n_cams, n_ims, k, loss_id,
-        component, float(f_scale), chunk, _ptr(hcc), _ptr(gc),
+    cam_part = empty(cams, n_chunks, n_tiles, n_entries)
+    wcc_part = empty(cams, n_chunks, 3 * a, k)
+    hk_part = empty(cams * n_chunks, N_HK, k)
+    rc = _rig_entry(load().lib, "pct_mixed_gram_fused", intr_w,
+                    n_rigs)(
+        _ptr(packed), _ptr(kd), _ptr(uv), _ptr(mask),
+        _ptr(cmask_b), _ptr(imask_b), _ptr(kmask), cw, n_cams, n_ims, k,
+        loss_id, component, float(f_scale), chunk, _ptr(hcc), _ptr(gc),
         _ptr(wcc), _ptr(wic), _ptr(wci), _ptr(gii), _ptr(gi), _ptr(corner),
         _ptr(hkk), _ptr(gk), _ptr(blk_part), _ptr(cam_part), _ptr(wcc_part),
         _ptr(hk_part), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "mixed_gram_fused")
-    return (hcc, gc, wcc.transpose(1, 2).reshape(n_cams, k, a, cw),
+    if kmask.dim() == 2:
+        hkk, gk = hkk[0], gk[0]
+    return (hcc, gc, wcc.transpose(1, 2).reshape(cams, k, a, cw),
             wic.transpose(1, 2).reshape(bb, k, 6, cw), wci, gii, gi, corner,
             hkk, gk)
 

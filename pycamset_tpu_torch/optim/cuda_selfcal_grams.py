@@ -60,10 +60,11 @@ outputs in the Jacobi scaling.
 from __future__ import annotations
 
 import torch
+from torch import Tensor
 
 from pycamset_tpu_torch.optim.cuda_grams import (
     TEMPLATE_WIDTHS, _check_cuda_inputs, _jacobi_scale, _loss_args,
-    _model_entry, _ptr, _raise_on, _worst, pack_block_params, reduce_grams,
+    _ptr, _raise_on, _rig_entry, _worst, pack_block_params, reduce_grams,
     scaled_errors, scaled_errors_fused)
 
 SELFCAL_CHUNK = 10    # images of one camera per thread block in Kernel C
@@ -229,14 +230,99 @@ def selfcal_gram(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask,
         :param keyp: (K, 3) free points. :param uv: (B, K, 2).
         :param mask: (B, K). :param cmask_b: (B, a). :param imask_b: (B, 6).
         :param kmask: (K, 3).
+
+    Under ``torch.func.vmap`` over a leading rig axis (the fleet) the R
+    rigs fold into ONE launch (``_fold_rig_operands``): R rigs' blocks,
+    rig-major, and their free points and key masks, each rig's outputs
+    those of a launch of its own.
     """
+    g, wck_b, wik_b, hkk, gk = _selfcal_gram_op(
+        cam_b, im_b, keyp[None], uv, mask, cmask_b, imask_b, kmask[None],
+        loss, float(f_scale), loss_semantics)
+    return g, wck_b, wik_b, hkk[0], gk[0]
+
+
+selfcal_gram.launches = 0
+selfcal_gram.launches_by_width = dict.fromkeys(TEMPLATE_WIDTHS, 0)
+
+
+def _fold_rig_operands(r: int, in_dims, *xs):
+    """The operands of R rigs with their rig axis folded into each one's
+    leading axis, rig-major: (R, N, ...) -> (R*N, ...), contiguous. A
+    per-key operand arrives as (1, K, ...) a rig (the wrappers add the
+    axis), so it folds to (R, K, ...). An operand that arrives without a
+    rig axis is every rig's."""
+    out = []
+    for x, d in zip(xs, in_dims):
+        x = x.expand(r, *x.shape) if d is None else x.movedim(d, 0)
+        out.append(x.reshape(r * x.shape[1], *x.shape[2:]).contiguous())
+    return out
+
+
+def _unfold_rigs(r: int, outs) -> tuple:
+    """(R*N, ...) outputs -> (R, N, ...), each with its rig axis at 0."""
+    return tuple(x.reshape(r, x.shape[0] // r, *x.shape[1:]) for x in outs)
+
+
+def _rig_rows(n_rigs: int, r: int, *xs) -> tuple:
+    """Rig r's rows of (R*N, ...) operands held rig-major."""
+    return tuple(x.reshape(n_rigs, -1, *x.shape[1:])[r] for x in xs)
+
+
+def _per_rig(n_rigs: int, one) -> tuple:
+    """A plain twin over R rigs, rig by rig (``one(r)``: rig r's outputs).
+    The outputs' rows are concatenated rig-major, but for the last two,
+    the per-key hkk and gk ((K, ...) a rig), which stack to (R, K, ...).
+    The outputs are copies (an operator's outputs may not alias each
+    other)."""
+    runs = [one(r) for r in range(n_rigs)]
+    n_out = len(runs[0])
+    return tuple(torch.cat([run[j] for run in runs]) if j < n_out - 2
+                 else torch.stack([run[j] for run in runs])
+                 for j in range(n_out))
+
+
+def _check_rig_operands(cam_b, im_b, keyp, uv, mask, kmask, **masks):
+    """Raise unless a kernel takes these R rigs' tensors as they are: keyp
+    and kmask (R, K, 3) with R rigs' blocks in the others (the one-rig
+    checks of ``_check_cuda_inputs`` on rig 0's slices)."""
+    n_rigs = keyp.shape[0]
+    if kmask.shape[0] != n_rigs or mask.shape[0] % n_rigs:
+        raise ValueError(f"{mask.shape[0]} blocks and {kmask.shape[0]} key "
+                         f"masks for {n_rigs} rigs")
+    for name, x in (("keyp", keyp), ("kmask", kmask)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    bb = mask.shape[0] // n_rigs
+    _check_cuda_inputs(cam_b[:bb], im_b[:bb], keyp[0], uv[:bb], mask[:bb],
+                       kmask=kmask[0], **{k: v[:bb] for k, v in
+                                          masks.items()})
+    for name, x in (("cam_b", cam_b), ("im_b", im_b), ("uv", uv),
+                    *masks.items()):
+        if x.shape[0] != mask.shape[0]:
+            raise ValueError(f"{name} has {x.shape[0]} blocks, mask "
+                             f"{mask.shape[0]}")
+
+
+@torch.library.custom_op("pycamset_tpu_torch::selfcal_gram",
+                         mutates_args=())
+def _selfcal_gram_op(cam_b: Tensor, im_b: Tensor, keyp: Tensor, uv: Tensor,
+                     mask: Tensor, cmask_b: Tensor, imask_b: Tensor,
+                     kmask: Tensor, loss: str, f_scale: float,
+                     loss_semantics: str) -> tuple[Tensor, Tensor, Tensor,
+                                                   Tensor, Tensor]:
+    """Kernel D over R rigs: keyp and kmask (R, K, 3), the others R rigs'
+    blocks, rig-major -> (g (R B, W, W), wck_b (R B, K, a, 3), wik_b (R B,
+    K, 6, 3), hkk (R, K, 3, 3), gk (R, K, 3))."""
+    n_rigs = keyp.shape[0]
     if cam_b.device.type == "cpu":
-        return selfcal_gram_plain(cam_b, im_b, keyp, uv, mask, cmask_b,
-                                  imask_b, kmask, loss, f_scale,
-                                  loss_semantics)
+        return _per_rig(n_rigs, lambda r: selfcal_gram_plain(
+            *_rig_rows(n_rigs, r, cam_b, im_b), keyp[r],
+            *_rig_rows(n_rigs, r, uv, mask, cmask_b, imask_b), kmask[r],
+            loss, f_scale, loss_semantics))
     loss_id, component = _loss_args(loss, loss_semantics)
-    _check_cuda_inputs(cam_b, im_b, keyp, uv, mask, cmask_b=cmask_b,
-                       imask_b=imask_b, kmask=kmask)
+    _check_rig_operands(cam_b, im_b, keyp, uv, mask, kmask, cmask_b=cmask_b,
+                        imask_b=imask_b)
     with torch.cuda.device(cam_b.device):
         out = _launch_selfcal(pack_block_params(cam_b, im_b), keyp, uv, mask,
                               cmask_b, imask_b, kmask, loss_id, component,
@@ -246,36 +332,49 @@ def selfcal_gram(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask,
     return out
 
 
-selfcal_gram.launches = 0
-selfcal_gram.launches_by_width = dict.fromkeys(TEMPLATE_WIDTHS, 0)
+@_selfcal_gram_op.register_vmap
+def _selfcal_gram_vmap(info, in_dims, cam_b, im_b, keyp, uv, mask, cmask_b,
+                       imask_b, kmask, loss, f_scale, loss_semantics):
+    r = info.batch_size
+    out = _selfcal_gram_op(*_fold_rig_operands(
+        r, in_dims[:8], cam_b, im_b, keyp, uv, mask, cmask_b, imask_b,
+        kmask), loss, f_scale, loss_semantics)
+    return _unfold_rigs(r, out), (0,) * len(out)
 
 
 def _launch_selfcal(packed, keyp, uv, mask, cmask_b, imask_b, kmask, loss_id,
                     component, f_scale, intr_w: int = 9):
     """Allocate Kernel D's outputs and scratch and launch its two passes on
     the current stream (inputs already checked; ``packed`` from
-    pack_block_params at ``intr_w``)."""
+    pack_block_params at ``intr_w``). ``keyp`` and ``kmask`` (K, 3) for one
+    rig, or (R, K, 3) for R rigs whose blocks the others hold rig-major:
+    one launch, hkk and gk then (R, K, ...)."""
     from pycamset_tpu_torch._build import load
-    bb = mask.shape[0]
+    n_rigs = keyp.shape[0] if keyp.dim() == 3 else 1
+    bb = mask.shape[0] // n_rigs
     a = intr_w + 6
     gw = a + 7
     chunk = SELFCAL_CHUNK_D
     k, n_tiles, n_chunks = _grid_dims(mask, bb, chunk)
+    rb = n_rigs * bb
     empty = _empty_like_grid(mask)
-    g, wck, wik = empty(bb, gw, gw), empty(bb, 3 * a, k), empty(bb, 18, k)
-    hkk, gk = empty(k, 3, 3), empty(k, 3)
-    blk_part = empty(n_tiles, bb, gram_entries(a))
-    hk_part = empty(n_chunks, 9, k)
-    rc = _model_entry(load().lib, "pct_selfcal_gram", intr_w)(
-        _ptr(packed), _ptr(keyp), _ptr(uv), _ptr(mask), _ptr(cmask_b),
-        _ptr(imask_b), _ptr(kmask), bb, k, loss_id, component,
-        float(f_scale), chunk, _ptr(g), _ptr(wck), _ptr(wik),
+    g, wck, wik = empty(rb, gw, gw), empty(rb, 3 * a, k), empty(rb, 18, k)
+    hkk, gk = empty(n_rigs, k, 3, 3), empty(n_rigs, k, 3)
+    blk_part = empty(n_tiles, rb, gram_entries(a))
+    hk_part = empty(n_rigs * n_chunks, 9, k)
+    rc = _rig_entry(load().lib, "pct_selfcal_gram", intr_w,
+                    n_rigs)(
+        _ptr(packed), _ptr(keyp), _ptr(uv), _ptr(mask),
+        _ptr(cmask_b), _ptr(imask_b), _ptr(kmask), bb, k, loss_id,
+        component, float(f_scale), chunk, _ptr(g), _ptr(wck), _ptr(wik),
         _ptr(hkk), _ptr(gk), _ptr(blk_part), _ptr(hk_part),
         torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "selfcal_gram")
+    if keyp.dim() == 2:
+        hkk, gk = hkk[0], gk[0]
     # (B, 3a | 18, K) rows, written coalesced -> (B, K, a | 6, 3) views
-    return (g, wck.transpose(1, 2).reshape(bb, k, a, 3),
-            wik.transpose(1, 2).reshape(bb, k, 6, 3), hkk, gk)
+    return (g, wck.transpose(1, 2).reshape(rb, k, a, 3),
+            wik.transpose(1, 2).reshape(rb, k, 6, 3), hkk, gk)
 
 
 def selfcal_gram_fused(cam_b, im_b, keyp, uv, mask, imask_b, kmask,
@@ -284,17 +383,48 @@ def selfcal_gram_fused(cam_b, im_b, keyp, uv, mask, imask_b, kmask,
                        loss_semantics: str = "component"):
     """Kernel C: the outputs of ``selfcal_gram_fused_plain`` over
     B = n_cams * n_ims camera-major blocks; any n_ims, no padding; a in
-    ``TEMPLATE_WIDTHS``."""
+    ``TEMPLATE_WIDTHS``.
+
+    Under ``torch.func.vmap`` over a leading rig axis (the fleet) the R
+    rigs' cameras fold into ONE launch over R * n_cams cameras, rig-major,
+    each rig reading its own free points and key masks
+    (``_fold_rig_operands``); its outputs unfold to (R, C, ...), (R, B,
+    ...) and (R, K, ...).
+    """
+    (hcc, gc, wck, wik_b, wci, gii, gi, corner, hkk,
+     gk) = _selfcal_gram_fused_op(cam_b, im_b, keyp[None], uv, mask,
+                                  imask_b, kmask[None], n_cams, n_ims, loss,
+                                  float(f_scale), loss_semantics)
+    return hcc, gc, wck, wik_b, wci, gii, gi, corner, hkk[0], gk[0]
+
+
+selfcal_gram_fused.launches = 0
+selfcal_gram_fused.launches_by_width = dict.fromkeys(TEMPLATE_WIDTHS, 0)
+
+
+@torch.library.custom_op("pycamset_tpu_torch::selfcal_gram_fused",
+                         mutates_args=())
+def _selfcal_gram_fused_op(
+        cam_b: Tensor, im_b: Tensor, keyp: Tensor, uv: Tensor, mask: Tensor,
+        imask_b: Tensor, kmask: Tensor, n_cams: int, n_ims: int, loss: str,
+        f_scale: float, loss_semantics: str) -> tuple[
+            Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor,
+            Tensor, Tensor]:
+    """Kernel C over R rigs of n_cams x n_ims blocks: keyp and kmask (R, K,
+    3), the others R rigs' blocks, rig-major -> (hcc (R C, a, a), gc, wck
+    (R C, K, a, 3), wik_b (R B, K, 6, 3), wci, gii, gi, corner, hkk (R, K,
+    3, 3), gk (R, K, 3))."""
+    n_rigs = keyp.shape[0]
     if cam_b.device.type == "cpu":
-        return selfcal_gram_fused_plain(cam_b, im_b, keyp, uv, mask, imask_b,
-                                        kmask, n_cams, n_ims, loss, f_scale,
-                                        loss_semantics)
+        return _per_rig(n_rigs, lambda r: selfcal_gram_fused_plain(
+            *_rig_rows(n_rigs, r, cam_b, im_b), keyp[r],
+            *_rig_rows(n_rigs, r, uv, mask, imask_b), kmask[r], n_cams,
+            n_ims, loss, f_scale, loss_semantics))
     loss_id, component = _loss_args(loss, loss_semantics)
-    _check_cuda_inputs(cam_b, im_b, keyp, uv, mask, imask_b=imask_b,
-                       kmask=kmask)
-    if mask.shape[0] != n_cams * n_ims:
-        raise ValueError(f"{mask.shape[0]} blocks, expected {n_cams} x "
-                         f"{n_ims}")
+    _check_rig_operands(cam_b, im_b, keyp, uv, mask, kmask, imask_b=imask_b)
+    if mask.shape[0] != n_rigs * n_cams * n_ims:
+        raise ValueError(f"{mask.shape[0]} blocks, expected {n_rigs} x "
+                         f"{n_cams} x {n_ims}")
     with torch.cuda.device(cam_b.device):
         out = _launch_selfcal_fused(pack_block_params(cam_b, im_b), keyp, uv,
                                     mask, imask_b, kmask, n_cams, n_ims,
@@ -305,8 +435,15 @@ def selfcal_gram_fused(cam_b, im_b, keyp, uv, mask, imask_b, kmask,
     return out
 
 
-selfcal_gram_fused.launches = 0
-selfcal_gram_fused.launches_by_width = dict.fromkeys(TEMPLATE_WIDTHS, 0)
+@_selfcal_gram_fused_op.register_vmap
+def _selfcal_gram_fused_vmap(info, in_dims, cam_b, im_b, keyp, uv, mask,
+                             imask_b, kmask, n_cams, n_ims, loss, f_scale,
+                             loss_semantics):
+    r = info.batch_size
+    out = _selfcal_gram_fused_op(*_fold_rig_operands(
+        r, in_dims[:7], cam_b, im_b, keyp, uv, mask, imask_b, kmask),
+        n_cams, n_ims, loss, f_scale, loss_semantics)
+    return _unfold_rigs(r, out), (0,) * len(out)
 
 
 def _launch_selfcal_fused(packed, keyp, uv, mask, imask_b, kmask, n_cams,
@@ -314,31 +451,38 @@ def _launch_selfcal_fused(packed, keyp, uv, mask, imask_b, kmask, n_cams,
                           intr_w: int = 9):
     """Allocate Kernel C's outputs and scratch and launch its two passes on
     the current stream (inputs already checked; ``packed`` from
-    pack_block_params at ``intr_w``)."""
+    pack_block_params at ``intr_w``). ``keyp`` and ``kmask`` (K, 3) for one
+    rig, or (R, K, 3) for R rigs of n_cams cameras, rig-major: one launch,
+    hkk and gk then (R, K, ...)."""
     from pycamset_tpu_torch._build import load
+    n_rigs = keyp.shape[0] if keyp.dim() == 3 else 1
     bb = mask.shape[0]
+    cams = n_rigs * n_cams
     a = intr_w + 6
     n_entries = gram_entries(a)
     chunk = SELFCAL_CHUNK
     k, n_tiles, n_chunks = _grid_dims(mask, n_ims, chunk)
     empty = _empty_like_grid(mask)
-    hcc, gc, wck = empty(n_cams, a, a), empty(n_cams, a), empty(n_cams,
-                                                                3 * a, k)
+    hcc, gc, wck = empty(cams, a, a), empty(cams, a), empty(cams, 3 * a, k)
     wik, wci, gii = empty(bb, 18, k), empty(bb, a, 6), empty(bb, 6, 6)
-    gi, corner, hkk, gk = empty(bb, 6), empty(bb), empty(k, 3, 3), empty(k, 3)
+    gi, corner = empty(bb, 6), empty(bb)
+    hkk, gk = empty(n_rigs, k, 3, 3), empty(n_rigs, k, 3)
     blk_part = empty(n_tiles, bb, n_entries)
-    cam_part = empty(n_cams, n_chunks, n_tiles, n_entries)
-    wck_part = empty(n_cams, n_chunks, 3 * a, k)
-    hk_part = empty(n_cams * n_chunks, 9, k)
-    rc = _model_entry(load().lib, "pct_selfcal_gram_fused", intr_w)(
-        _ptr(packed), _ptr(keyp), _ptr(uv), _ptr(mask), _ptr(imask_b),
-        _ptr(kmask), n_cams, n_ims, k, loss_id, component, float(f_scale),
-        chunk, _ptr(hcc), _ptr(gc), _ptr(wck), _ptr(wik), _ptr(wci),
-        _ptr(gii), _ptr(gi), _ptr(corner), _ptr(hkk), _ptr(gk),
+    cam_part = empty(cams, n_chunks, n_tiles, n_entries)
+    wck_part = empty(cams, n_chunks, 3 * a, k)
+    hk_part = empty(cams * n_chunks, 9, k)
+    rc = _rig_entry(load().lib, "pct_selfcal_gram_fused", intr_w,
+                    n_rigs)(
+        _ptr(packed), _ptr(keyp), _ptr(uv), _ptr(mask),
+        _ptr(imask_b), _ptr(kmask), n_cams, n_ims, k, loss_id, component,
+        float(f_scale), chunk, _ptr(hcc), _ptr(gc), _ptr(wck), _ptr(wik),
+        _ptr(wci), _ptr(gii), _ptr(gi), _ptr(corner), _ptr(hkk), _ptr(gk),
         _ptr(blk_part), _ptr(cam_part), _ptr(wck_part), _ptr(hk_part),
         torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "selfcal_gram_fused")
-    return (hcc, gc, wck.transpose(1, 2).reshape(n_cams, k, a, 3),
+    if keyp.dim() == 2:
+        hkk, gk = hkk[0], gk[0]
+    return (hcc, gc, wck.transpose(1, 2).reshape(cams, k, a, 3),
             wik.transpose(1, 2).reshape(bb, k, 6, 3), wci, gii, gi, corner,
             hkk, gk)
 

@@ -3,17 +3,21 @@
 Counterpart of ``OptimizeResult``, ``run_bundle_adjustment`` and
 ``_finish_bundle_adjustment`` in ``pycamset_tpu/optim/driver.py``, for the
 backends ``"auto"`` and ``"structured"``: the handler's problem
-(``TemplateBundleHandler``, ``SelfBundleHandler`` or
-``FreePointBundleHandler``) built by ``optim/structured_driver.py``, solved
+(``TemplateBundleHandler``, ``SelfBundleHandler``,
+``FreePointBundleHandler``, or a multi-target handler such as
+``examples/extend_param_handler.py``'s: the grouped chain on
+``build_structured_problem``, the mixed one on
+``build_mixed_structured_problem``, tried when the first raises
+``UnsupportedChain``, as the JAX package dispatches) built by
+``optim/structured_driver.py``, solved
 by the structured LM (one CUDA graph replay per LM step on a card), the
 residuals and the calibrated CameraSet with its calibration history. ``device`` is the card unless the caller names
 another; dtype as ``config.default_device_dtype``.
 
 Not in this slice, each raising ``NotImplementedError`` with its ROADMAP
 Queue A item, never another backend: ``backend="scipy"`` and the generic
-fallback of ``"auto"`` (item 8), the handler-level mixed and grouped
-structured backend (``build_mixed_structured_problem``, the next slice of
-item 3),
+fallback of ``"auto"`` (item 8) for a chain that neither
+``build_structured_problem`` nor ``build_mixed_structured_problem`` takes,
 ``backend="sharded"`` (item 11) and ``shared_intrinsics`` (item 7).
 """
 from __future__ import annotations
@@ -25,7 +29,7 @@ import numpy as np
 
 from pycamset_tpu_torch.optim.structured import UnsupportedChain
 from pycamset_tpu_torch.optim.structured_driver import (
-    build_structured_problem)
+    build_mixed_structured_problem, build_structured_problem)
 
 
 class OptimizeResult(dict):
@@ -61,13 +65,20 @@ def run_bundle_adjustment(param_handler, threads: int = 1, dtype=None,
     try:
         solve_fn, residual_fn, init_params = build_structured_problem(
             param_handler, dtype=dtype, device=device)
+        logging.info("Using the structured (Schur) backend")
     except UnsupportedChain as e:
-        raise NotImplementedError(
-            f"{e}: the handler-level mixed and grouped structured backend "
-            f"(build_mixed_structured_problem) is the next slice of ROADMAP "
-            f"Queue A item 3, and backend='auto''s generic fallback is item "
-            f"8") from e
-    logging.info("Using the structured (Schur) backend")
+        try:
+            # mixed PER_KEY + PER_GROUP chains (multi-target self-cal)
+            # have their own arrow-structured backend
+            solve_fn, residual_fn, init_params = (
+                build_mixed_structured_problem(param_handler, dtype=dtype,
+                                               device=device))
+            logging.info("Using the mixed (key+group) structured backend")
+        except UnsupportedChain as e_mixed:
+            raise NotImplementedError(
+                f"{e}; {e_mixed}: neither structured backend takes this "
+                f"chain, and backend='auto''s generic fallback is ROADMAP "
+                f"Queue A item 8") from e
     return _finish_bundle_adjustment(param_handler, solve_fn, residual_fn,
                                      init_params)
 

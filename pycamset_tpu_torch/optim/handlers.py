@@ -383,6 +383,16 @@ class TemplateBundleHandler:
         """The constant target-geometry lookup table."""
         return self.point_data.reshape(-1, 3)
 
+    def n_groups(self) -> int:
+        """Count of PER_GROUP parameter blocks (multi-target extensions,
+        ``examples/extend_param_handler.py``)."""
+        return 0
+
+    def group_of_key(self):
+        """key -> PER_GROUP index mapping, or None when the chain has
+        none."""
+        return None
+
     # ------------------------------------------------- initial parametrisation
 
     def add_extra_params(self, param_array: np.ndarray) -> np.ndarray:

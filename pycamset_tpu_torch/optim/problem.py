@@ -3,7 +3,8 @@
 ``BAProblem`` holds a problem's block arrays, start, column masks and loss
 on one device (template, self-calibration, pose-free free-point or grouped
 chain; the free-point chain's image piece is zero-width) and solves it
-with the structured LM. On a card it owns the CUDA graphs of its LM step
+with the structured LM; ``MixedProblem`` does the same for the mixed
+multi-target chain, with its own pieces and LM ops. On a card it owns the CUDA graphs of its LM step
 (``graph``), one per dense-solve route, dtype and budget: the first solve
 captures one, and later solves of the same problem replay it.
 
@@ -25,6 +26,8 @@ from pycamset_tpu_torch.optim.structured import (BlockArrays, GroupWidths,
                                                  make_structured_neq)
 from pycamset_tpu_torch.optim.structured_lm import (SLMGraph,
                                                     structured_lm_solve)
+from pycamset_tpu_torch.optim.structured_mixed import (
+    make_mixed_ops, make_mixed_structured_neq, pack_c_axis)
 
 
 @dataclass
@@ -105,3 +108,22 @@ class BAProblem:
     def rms_px(self, cost) -> float:
         """sqrt(cost / (2 n_real)), as bench.py reports it."""
         return float(np.sqrt(float(cost) / (2 * self.blocks.n_real)))
+
+
+@dataclass
+class MixedProblem(BAProblem):
+    """A mixed PER_KEY + PER_GROUP problem (the multi-target
+    self-calibration chain): MixedPieces, MixedNormalEq and the mixed LM
+    ops (``optim/structured_mixed.py``)."""
+
+    def make_neq(self):
+        return make_mixed_structured_neq(
+            self.op_fun, self.widths, self.blocks.n_cams, self.blocks.n_ims,
+            self.group_of_key, self.n_groups, loss=self.loss,
+            f_scale=self.f_scale, loss_semantics=self.loss_semantics)
+
+    def ops(self):
+        return make_mixed_ops(group_onehot(self.group_of_key, self.n_groups))
+
+    def key_operands(self, pieces, colmask):
+        return pack_c_axis(self.onehot(pieces.key), pieces, colmask)

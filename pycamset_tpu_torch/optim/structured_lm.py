@@ -416,7 +416,8 @@ def capture(body, stream) -> tuple[torch.cuda.CUDAGraph, float]:
 
 # The batched LM (the fleet): R rigs of one structure, each SLMState tensor
 # with a leading rig axis. ``neq_fn(pieces, *data)`` is ONE rig's builder,
-# ``data`` its per-rig tensors (uv, mask), each batched on axis 0 as well.
+# ``data`` its per-rig tensors (uv, mask, column masks), each batched on
+# axis 0 as well.
 # The host ints of a batched state (``nfev``, ``it``) stay slm_init's and
 # have no per-rig meaning: each rig counts on the device (``nfev_dev``,
 # ``it_dev``).
@@ -425,14 +426,16 @@ def capture(body, stream) -> tuple[torch.cuda.CUDAGraph, float]:
 NO_CAP = 2 ** 31 - 1
 
 
-def slm_init_batch(neq_fn, x0s: ParamPieces, data: tuple, *,
-                   max_nfev: int = 100) -> SLMState:
+def slm_init_batch(neq_fn, x0s, data: tuple, *, max_nfev: int = 100,
+                   ops=None) -> SLMState:
     """``slm_init`` of every rig at once (``torch.func.vmap``): one
-    evaluation of the batch."""
+    evaluation of the batch. ``ops`` as ``slm_init``'s (the mixed chain's
+    MixedPieces and MixedNormalEq ride the rig axis as ParamPieces do)."""
     skeleton = []
 
     def one(x0, *d):
-        s = slm_init(lambda p: neq_fn(p, *d), x0, max_nfev=max_nfev)
+        s = slm_init(lambda p: neq_fn(p, *d), x0, max_nfev=max_nfev,
+                     ops=ops)
         # the state's structure and host ints, its tensors left behind
         skeleton.append(_rebuild(s, itertools.repeat(torch.empty(0))))
         return _leaves(s)
@@ -485,14 +488,16 @@ def scatter_rigs(s: SLMState, sel: torch.Tensor, part: SLMState) -> SLMState:
 
 def slm_run_batch(neq_fn, state: SLMState, data: tuple, *,
                   max_nfev: int = 100, nfev_cap: int | None = None,
-                  sel: torch.Tensor | None = None, graph=False) -> SLMState:
+                  sel: torch.Tensor | None = None, ops=None,
+                  graph=False) -> SLMState:
     """``slm_run`` over a leading rig axis, with the semantics of
     ``jax.vmap`` of its ``lax.while_loop``: a rig is active while
     ``(status == 0) & (nfev_dev < nfev_cap)``, computed on the device
     before each step; the loop steps the batch while any rig is active,
     and an inactive rig's state is kept as it was (``batch_step``). Each
-    rig takes the iteration sequence of its own ``slm_run`` (the structured
-    linear algebra, the dense reduced solve, the default tolerances).
+    rig takes the iteration sequence of its own ``slm_run`` (the dense
+    reduced solve, the default tolerances; the structured linear algebra,
+    or ``ops`` as ``slm_run``'s).
 
     :param sel: (n,) device indices: advance only those rigs (their rows
         of the state and the data gathered first) and return their state.
@@ -504,7 +509,7 @@ def slm_run_batch(neq_fn, state: SLMState, data: tuple, *,
     kw = _step_config(state.lam.dtype, max_nfev)
     step = functools.partial(
         batch_step, neq_fn,
-        functools.partial(_slm_step, ops=_resolve_ops(None), **kw))
+        functools.partial(_slm_step, ops=_resolve_ops(ops), **kw))
     cap = NO_CAP if nfev_cap is None else nfev_cap
     if graph is not False:
         return graph.run(step, state, data, cap, sel, kw)

@@ -49,7 +49,13 @@ multi-target and template-handler makers take ``camera_model`` (the rig
 
 - Fleet: ``bench.py::fleet_problem``, R template rigs of one structure
   and one target (seeds 100 + r, every start perturbed by one ``rng(7)``
-  in rig order), solved as one batch (``optim/fleet.py``).
+  in rig order), solved as one batch (``optim/fleet.py``); and the same
+  rigs as handlers (``fleet_handlers``) of the template, self-calibration,
+  grouped and mixed chains, for ``run_fleet_bundle_adjustment``.
+- Multi-target handlers (``multi_target_handler``): the mixed and grouped
+  problems' rig as the port's ``TwoTargetSelfCalibrator`` /
+  ``TwoTargetCalibrator`` (``examples/extend_param_handler.py``), the
+  board's halves as the two targets, for ``run_bundle_adjustment``.
 
 Each problem is an ``optim.problem.BAProblem`` (or, for the fleet, a
 ``FleetProblem``): on a card it owns the CUDA graphs of its LM step, one
@@ -80,13 +86,12 @@ from pycamset_tpu_torch.optim.handlers import (FreePointBundleHandler,
                                                FreePointTarget,
                                                TemplateBundleHandler,
                                                _projection_block)
-from pycamset_tpu_torch.optim.problem import BAProblem
+from pycamset_tpu_torch.optim.problem import BAProblem, MixedProblem
 from pycamset_tpu_torch.optim.structured import (
     GroupWidths, ParamPieces, build_block_arrays, chain_widths, group_onehot,
     make_structured_neq, pad_template_table, split_full_params)
-from pycamset_tpu_torch.optim.structured_mixed import (
-    MixedPieces, make_mixed_ops, make_mixed_structured_neq,
-    mixed_chain_widths, pack_c_axis)
+from pycamset_tpu_torch.optim.structured_mixed import (MixedPieces,
+                                                       mixed_chain_widths)
 from pycamset_tpu_torch.optim.structured_driver import (
     build_structured_problem)
 from pycamset_tpu_torch.optim.structured_lm import SLMResult
@@ -381,24 +386,6 @@ def selfcal_problem(n_cams: int, n_ims: int, device="cuda",
                      colmask, loss, f_scale, loss_semantics)
 
 
-@dataclass
-class MixedProblem(BAProblem):
-    """A mixed PER_KEY + PER_GROUP problem: MixedPieces, MixedNormalEq and
-    the mixed LM ops."""
-
-    def make_neq(self):
-        return make_mixed_structured_neq(
-            self.op_fun, self.widths, self.blocks.n_cams, self.blocks.n_ims,
-            self.group_of_key, self.n_groups, loss=self.loss,
-            f_scale=self.f_scale, loss_semantics=self.loss_semantics)
-
-    def ops(self):
-        return make_mixed_ops(group_onehot(self.group_of_key, self.n_groups))
-
-    def key_operands(self, pieces, colmask):
-        return pack_c_axis(self.onehot(pieces.key), pieces, colmask)
-
-
 def camera_width(camera_model: str) -> int:
     """a: a camera model's intrinsics plus the 6 extrinsic columns."""
     return _projection_block(camera_model).params.n + 6
@@ -497,6 +484,159 @@ def grouped_problem(n_cams: int, n_ims: int, device="cuda",
         pieces_from_numpy(colmask.cam, colmask.im, colmask.grp, device,
                           dtype), loss, f_scale, loss_semantics,
         group_of_key=gok, n_groups=2, max_nfev=60)
+
+
+def _two_targets(rig, names, n_ims):
+    """The rig's board as two targets, its halves (keys below and from
+    n_keys // 2, as ``mixed_colmask_groups`` splits it), and each half's
+    detections (the second half's keys from 0)."""
+    half = rig["n_keys"] // 2
+    dd = rig["dd"]
+    second = dd[:, 2] >= half
+    dd1 = dd[second].copy()
+    dd1[:, 2] -= half
+    return ((FreePointTarget(rig["template"][:half].reshape(1, -1, 3)),
+             FreePointTarget(rig["template"][half:].reshape(1, -1, 3))),
+            (detection_from_numpy(names, dd[~second], n_ims),
+             detection_from_numpy(names, dd1, n_ims)))
+
+
+def target_gauge(pts3: np.ndarray, similarity: bool) -> list[int]:
+    """The flat coordinates that fix a target's gauge, of three
+    non-colinear points p0, p1, p2 (``handlers.find_not_colinear_pts``):
+    p0's three; p1's three (``similarity``: the scale too) or the two
+    across the axis a = p1 - p0 (its largest component left free); and
+    p2's coordinate along a x (p2 - p0), the direction in which p2 moves
+    under a rotation about a (``SelfBundleHandler``'s rule: for a planar
+    z = 0 target, its z)."""
+    from pycamset_tpu_torch.optim.handlers import find_not_colinear_pts
+    i0, i1, i2 = find_not_colinear_pts(pts3)
+    axis = pts3[i1] - pts3[i0]
+    v = np.cross(axis / np.linalg.norm(axis), pts3[i2] - pts3[i0])
+    across = [j for j in range(3) if j != int(np.argmax(np.abs(axis)))]
+    return ([3 * i0 + j for j in range(3)]
+            + [3 * i1 + j for j in (range(3) if similarity else across)]
+            + [3 * i2 + int(np.argmax(np.abs(v)))])
+
+
+def multi_target_handler(n_cams: int, n_ims: int, mixed: bool = True,
+                         grid: int = 19, seed: int = 5,
+                         options: dict | None = None, start=None,
+                         camera_model: str = "standard"):
+    """``mixed_problem``'s (``mixed``) or ``grouped_problem``'s rig as a
+    user holds it: a CameraSet of the rig's cameras, the board's two halves
+    as two targets with their detections, and the port's copy of the JAX
+    package's ``TwoTargetSelfCalibrator`` (``mixed``: free points, the
+    handler's own gauge, 7 coordinates on target 0 and 6 on target 1) or
+    ``TwoTargetCalibrator`` (options ``outliers: "n"``, ``verbosity: 0``,
+    then ``options``), seeded through ``set_initial_params`` (no PnP, no
+    OpenCV) at the problems' start: the true parameters, group 1's
+    relative pose at ``GROUP_START[1]``, pose 0 the gauge.
+
+    The mixed handler's point gauge is set to ``target_gauge``'s (target 0
+    a similarity, 7 coordinates, ``mixed_problem``'s own; target 1 rigid,
+    6), in place of the example's: that pins p1's x and y and p2's x on
+    each target, which on the planar board leaves the rotations about the
+    board's x axis (both targets) and y axis (target 1) free, and the LM
+    crawls along them (4 rigs x 4 x 16 at grid 10 on the CPU: 24-99
+    iterations, one rig at the 100-evaluation budget).
+
+    :param start: a ``np.random.Generator``: the cameras and poses
+        perturbed from it as the bench's template start is
+        (``perturbed_start``), the others as above.
+    :param camera_model: the rig's lens model (``make_synthetic_rig``'s),
+        which the handler solves.
+    :return: (handler, rig)."""
+    from pycamset_tpu_torch.examples.extend_param_handler import (
+        TwoTargetCalibrator, TwoTargetSelfCalibrator)
+    rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
+                             visibility=0.85, noise_px=0.3, seed=seed,
+                             camera_model=camera_model)
+    cams, names = _rig_cams(rig["intr"], [make_4x4h_tform(e[:3], e[3:])
+                                          for e in rig["extr"]])
+    targets, dets = _two_targets(rig, names, n_ims)
+    cls = TwoTargetSelfCalibrator if mixed else TwoTargetCalibrator
+    handler = cls(cams, *targets, *dets,
+                  options={"outliers": "n", "verbosity": 0,
+                           "camera_model": camera_model, **(options or {})})
+    prim = handler.bundlePrimitive
+    if mixed:
+        pts3 = rig["template"]
+        half = rig["n_keys"] // 2
+        # never-observed points stay frozen, as the example freezes them
+        unfixed = np.repeat(np.isin(np.arange(rig["n_keys"]),
+                                    rig["dd"][:, 2].astype(int)), 3)
+        unfixed[target_gauge(pts3[:half], True)] = False
+        unfixed[[half * 3 + j for j in target_gauge(pts3[half:],
+                                                    False)]] = False
+        prim.bdpt_unfixed = unfixed
+    if start is None:
+        full = np.concatenate([rig["intr"].ravel(), rig["extr"].ravel(),
+                               rig["poses"].ravel()])
+    else:
+        struct = OptimFunction([_projection_block(camera_model),
+                                Extrinsic3D(), TemplatePoints()]
+                               ).param_struct(n_cams, n_ims, rig["n_keys"])
+        full = perturbed_start(rig, struct, start)
+    full = np.concatenate([full, GROUP_START.ravel()]
+                          + ([rig["template"].ravel()] if mixed else []))
+    handler.set_initial_params(full[prim.unfixed_full()])
+    return handler, rig
+
+
+def fleet_handlers(chain: str, n_rigs: int, n_cams: int, n_ims: int,
+                   grid: int = 10, options: dict | None = None,
+                   camera_model: str = "standard") -> list:
+    """R handlers of one structure for ``optim.fleet.
+    run_fleet_bundle_adjustment``, as ``fleet_problem`` makes its rigs:
+    rig r from ``make_synthetic_rig(seed=100 + r)`` (visibility 0.85,
+    0.3 px noise; one target for every rig), its cameras and poses
+    perturbed by one ``default_rng(7)`` in rig order with the bench's
+    scales, pose 0 the gauge, each seeded through ``set_initial_params``
+    (the card's machine has no OpenCV).
+
+    :param chain: "template" (``TemplateBundleHandler``: the rigs of
+        ``fleet_problem``), "selfcal" (``SelfBundleHandler``: the board's
+        points free from the nominal board, its 7-coordinate gauge),
+        "grouped" or "mixed" (``multi_target_handler``: the board's two
+        halves as two targets, group 1's relative pose from
+        ``GROUP_START[1]``; mixed: the points free too).
+    :param options: the handlers' options (after ``outliers: "n"``,
+        ``verbosity: 0``), e.g. ``{"im_bucket": None}``.
+    :param camera_model: the rigs' lens model (``make_synthetic_rig``'s),
+        which the handlers solve."""
+    from pycamset_tpu_torch.optim.handlers import SelfBundleHandler
+    rng = np.random.default_rng(7)
+    out = []
+    for r in range(n_rigs):
+        if chain in ("grouped", "mixed"):
+            out.append(multi_target_handler(
+                n_cams, n_ims, chain == "mixed", grid, 100 + r, options,
+                start=rng, camera_model=camera_model)[0])
+            continue
+        rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
+                                 visibility=0.85, noise_px=0.3, seed=100 + r,
+                                 camera_model=camera_model)
+        cams, names = _rig_cams(rig["intr"], [make_4x4h_tform(e[:3], e[3:])
+                                              for e in rig["extr"]])
+        cls = {"template": TemplateBundleHandler,
+               "selfcal": SelfBundleHandler}[chain]
+        handler = cls(cams, FreePointTarget(rig["template"].reshape(1, -1,
+                                                                    3)),
+                      detection_from_numpy(names, rig["dd"], n_ims),
+                      options={"outliers": "n", "verbosity": 0,
+                               "camera_model": camera_model,
+                               **(options or {})})
+        struct = OptimFunction([_projection_block(camera_model),
+                                Extrinsic3D(), TemplatePoints()]
+                               ).param_struct(n_cams, n_ims, rig["n_keys"])
+        full = perturbed_start(rig, struct, rng)
+        prim = handler.bundlePrimitive
+        if chain == "selfcal":
+            full = np.concatenate([full, rig["template"].ravel()])
+        handler.set_initial_params(full[prim.unfixed_full()])
+        out.append(handler)
+    return out
 
 
 @dataclass

@@ -2,7 +2,7 @@
 
 Counterparts of ``make_4x4h_tform``, ``ext_4x4_to_rod``, ``h_tform``,
 ``thread_map``, ``list_dict_to_np_array``, ``numpy_dict_to_list``,
-``mad_outlier_detection`` and ``vector_cam_points`` in
+``average_tforms``, ``mad_outlier_detection`` and ``vector_cam_points`` in
 ``pycamset_tpu/utils/general_utils.py``. The JAX package calls
 ``cv2.Rodrigues`` for both Rodrigues directions; the machine that runs the
 port has no OpenCV, so both directions are written out here in numpy,
@@ -180,6 +180,30 @@ def h_tform(points: np.ndarray, transform: np.ndarray,
     else:
         res = res[:, :-1] if transform.shape[0] == 4 else res
     return res.squeeze() if squeeze else res
+
+
+def approx_average_quaternion(quats) -> np.ndarray:
+    """Eigenvector-based average of unit quaternions (Markley's method)."""
+    q = np.array([qq for qq in quats if not np.any(np.isnan(qq))])
+    w = np.ones(len(q)) / len(q)
+    return np.linalg.eigh(np.einsum("ij,ik,i->jk", q, q, w))[1][:, -1]
+
+
+def average_tforms(tforms: list[np.ndarray]) -> np.ndarray:
+    """Average a list of 4x4 rigid transforms (quaternion mean + mean
+    translation)."""
+    from scipy.spatial.transform import Rotation as R
+    finite = [t for t in tforms if np.all(np.isfinite(t))]
+    if not finite:
+        return np.full((4, 4), np.nan)
+    if len(finite) == 1:
+        return finite[0]
+    mean_quat = approx_average_quaternion(
+        [R.from_matrix(t[:3, :3]).as_quat(canonical=True) for t in finite])
+    mean = np.eye(4)
+    mean[:3, :3] = R.from_quat(mean_quat).as_matrix()
+    mean[:3, 3] = np.mean([t[:3, -1] for t in finite], axis=0)
+    return mean
 
 
 def mad_outlier_detection(data, out_thresh: float = 3):

@@ -995,6 +995,102 @@ def test_folded_kernels_match_plain_twins_per_rig(card, kernel, n_ims, loss,
             assert torch.equal(g, a)
 
 
+def _rig_batch(f32, n_rigs, key_at, seed=4):
+    """R rigs' inputs from one rig's (the rig axis first): each rig's
+    cameras, per-key rows and detections moved by its own noise, and its
+    own key r's key mask row zero, so that a rig that read another's
+    per-key data would differ. ``key_at``: the indices of the per-key
+    operands (keyp, kmask; tpl, which stays shared)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, x in enumerate(f32):
+        rigs = []
+        for r in range(n_rigs):
+            y = x.clone()
+            if i == 0:                            # cam_b
+                y = y + torch.as_tensor(rng.normal(size=tuple(y.shape))
+                                        * 1e-4, dtype=y.dtype,
+                                        device=y.device)
+            elif i == key_at[0] and r:            # keyp
+                y = y + torch.as_tensor(rng.normal(size=tuple(y.shape))
+                                        * 1e-3, dtype=y.dtype,
+                                        device=y.device)
+            elif i == key_at[1]:                  # kmask
+                y[r % y.shape[0]] = 0.0
+            rigs.append(y)
+        out.append(torch.stack(rigs))
+    return out
+
+
+# Kernels C, D, E and F (both key widths) under torch.func.vmap over 5 rigs:
+# ONE launch of each for every rig, each rig's outputs bit for bit those
+# of a one-rig launch on its slice, and within TOL of its float64 twin in
+# both measures. Each rig has its own cameras, free points or group poses
+# and key masks, so each rig must read its own per-key rows.
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["C", "D", "E9", "E6", "F9", "F6"])
+@pytest.mark.parametrize("loss,semantics", [("linear", "component"),
+                                            ("huber", "observation")])
+def test_folded_key_kernels_match_one_rig_launches(card, kernel, loss,
+                                                   semantics):
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    n_rigs, n_cams = 5, 3
+    kw = dict(loss=loss, f_scale=2.0, loss_semantics=semantics)
+    if kernel in ("C", "D"):
+        # the perturbed start: at the noisy true start the gradients cancel
+        # to float32's rounding (SELFCAL_CASES' note)
+        n_ims = SELFCAL_CHUNK + 1 if kernel == "C" else SELFCAL_CHUNK_D + 1
+        f32 = _selfcal_inputs(card, n_cams, n_ims, 6, start="perturbed")
+        if kernel == "C":       # no cmask
+            f32 = (*f32[:5], *f32[6:])
+            wrapper, twin = sg.selfcal_gram_fused, sg.selfcal_gram_fused_plain
+            extra, key_at = (n_cams, n_ims), (2, 6)
+        else:
+            wrapper, twin = sg.selfcal_gram, sg.selfcal_gram_plain
+            extra, key_at = (), (2, 7)
+    else:
+        fused, wk = kernel[0] == "E", kernel[1] == "9"
+        n_ims = MIXED_CHUNK + 1
+        f32 = _mixed_inputs(card, n_cams, n_ims, 6, wk)
+        wrapper = mg.mixed_gram_fused if fused else mg.mixed_gram
+        twin = mg.mixed_gram_fused_plain if fused else mg.mixed_gram_plain
+        extra = (n_cams, n_ims) if fused else ()
+        kw["with_key_cols"] = wk
+        key_at = (2, 8)
+    rigs = _rig_batch(f32, n_rigs, key_at)
+
+    def one(*x):
+        return wrapper(*x, *extra, **kw)
+
+    n0 = wrapper.launches
+    got = torch.func.vmap(one)(*rigs)
+    assert wrapper.launches == n0 + 1
+    for r in range(n_rigs):
+        rig = tuple(x[r] for x in rigs)
+        rows = [g[r] for g in got]
+        for g, a in zip(rows, one(*rig)):
+            assert torch.equal(g, a), f"{kernel} rig {r}"
+        ref = twin(*(x.double() for x in rig), *extra, **kw)
+        for j, (g, x) in enumerate(zip(rows, ref)):
+            _assert_close(g, x, f"{kernel} rig {r} output {j}")
+        if kernel in ("D", "F9", "F6"):
+            scaled = (sg.scaled_errors_selfcal if kernel == "D"
+                      else mg.scaled_errors_mixed)(rows, ref)
+        else:
+            r64 = tuple(x.double() for x in rig)
+            if kernel == "C":
+                gram = sg.selfcal_gram_plain(
+                    *r64[:5], torch.ones_like(r64[0]), *r64[5:], **kw)[0]
+                scaled = sg.scaled_errors_selfcal_fused(rows, ref, gram,
+                                                        n_cams, n_ims)
+            else:
+                gram = mg.mixed_gram_plain(*r64, **kw)[0]
+                scaled = mg.scaled_errors_mixed_fused(rows, ref, gram,
+                                                      n_cams, n_ims)
+        _assert_scaled(scaled, f"{kernel} rig {r}")
+
+
 @pytest.mark.cuda
 def test_opt_in_route_raises_on_a_batched_system(card, monkeypatch):
     from pycamset_tpu_torch.problems import fleet_problem

@@ -212,8 +212,8 @@ def _refuse(what):
     ("shared_intrinsics", "item 7"), ("rolling_shutter", "item 7"),
     ("camera_model", "item 7"), ("camera_model widths", "item 7"),
     ("reduced_solver cg", "item 6"),
-    ("mixed chain", "item 3"), ("mixed chain", "item 8"),
-    ("grouped chain", "item 3")])
+    ("mixed chain", "group_of_key"), ("mixed chain", "item 8"),
+    ("grouped chain", "group_of_key")])
 def test_refusals_name_their_roadmap_item(what, item):
     with pytest.raises(NotImplementedError, match=item):
         _refuse(what)

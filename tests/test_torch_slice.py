@@ -108,6 +108,7 @@ def test_package_imports_neither_jax_nor_cv2():
             "pycamset_tpu_torch.optim.structured_mixed, "
             "pycamset_tpu_torch.optim.analytic, "
             "pycamset_tpu_torch.optim.fleet, pycamset_tpu_torch.from_jax, "
+            "pycamset_tpu_torch.examples.extend_param_handler, "
             "pycamset_tpu_torch.ops.cuda_cholesky, pycamset_tpu_torch.peak, "
             "pycamset_tpu_torch.optim.structured, "
             "pycamset_tpu_torch.optim.handlers, "
