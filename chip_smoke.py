@@ -139,7 +139,25 @@ tilted model, and times the folded launch beside 64 one-rig launches;
 ``run_fleet_bundle_adjustment`` (one launch of its kernel per evaluation
 of the batch; captured = uncaptured; every rig at status 1-2 and rms <=
 0.36 px; the first 4 rigs against the port's float64 CPU fleet; rigs/s;
-rig 0's file loaded back).
+rig 0's file loaded back). The same six fleets on the SPD kernel route
+(``[fleet_handlers_psd]``: the kernel with a batch axis, one launch a batch
+step, captured = uncaptured, fallbacks, rigs/s); the batched kernel on each
+fleet's first reduced batch and the tied fleet's (``[parity_psd_batch]``:
+against its float64 twin, within twice the float32 library route's error;
+``[time_psd_batch]``: device ms beside the library batch, cuSOLVER's batched
+``cholesky_ex`` and ``cholesky_solve``, and the bound).
+
+Then the tied (shared-intrinsics) backend: ``[tied_fleet]`` solves
+``fleet_problem``'s rigs with one lens a rig through
+``run_fleet_bundle_adjustment`` on both routes (Kernel B folded once an
+evaluation; the batched SPD kernel once a batch step), captured =
+uncaptured, status, rms and identical lens rows at every rig, rigs/s;
+``[tied_user_path]`` runs the bench rig with tied lenses at 16 x 100 (one
+lens, saved through ``run_stereo_calibration``; two lens groups; the tilted
+model) and 64 x 400 (``run_bundle_adjustment`` and ``get_camset``), on both
+routes: its ``TiedProblem`` captured = uncaptured, Kernel A or B once an
+evaluation, the SPD kernel once a step on the kernel route, status, rms,
+identical group rows, at 16 x 100 the cost against the float64 CPU solve.
 
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
@@ -235,6 +253,12 @@ MAIN_PATH = {"template 16x100": ("template_gram", None),
              "grouped 16x100": ("mixed_gram_fused", 6)}
 PSD = ("psd_solve", "pycamset_tpu_torch/csrc/psd_solve.cu",
        "pycamset_tpu/ops/pallas_cholesky.py:143")
+PSD_BATCH = ("psd_solve_batched", "pycamset_tpu_torch/csrc/psd_solve.cu",
+             "pycamset_tpu/ops/pallas_cholesky.py:143 (under jax.vmap)")
+# the batched kernel's bound on each fleet system's relative error to the
+# float64 twin: its float64 refinement reads 3-4e-8 there; a float32 solve
+# without it reads 5e-4 to 1e-3 (the library route's factor)
+PSD_BATCH_TOL = 1e-6
 PEAK = ("fma_peak", "pycamset_tpu_torch/csrc/peak.cu", "benchmarks/peak.py:37")
 # bench.py::fleet_problem's shape (fleet64x4x16): rigs, cameras, images; and
 # the same fleet at 12 images, where the fused rule declines Kernel B
@@ -251,7 +275,8 @@ DIAG_TILE_K = (0, 14, 15)
 # the hand-written kernels of the solve, by the base name of their device
 # events (template arguments stripped)
 SOLVE_KERNELS = ("gram_kernel", "cam_reduce_kernel", "mixed_kernel",
-                 "mixed_reduce_kernel", "psd_solve_kernel")
+                 "mixed_reduce_kernel", "psd_solve_kernel",
+                 "psd_batched_kernel")
 # H100 SXM data sheet: HBM rate and FP32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -370,18 +395,11 @@ def kernel_ms(fn) -> float:
     return sum(device_ms(fn).values())
 
 
-def bound(name: str, prob, cw: int | None = None,
-          rigs: int = 1) -> tuple[float, str]:
-    """The least time the card could take for one call of a kernel on a
-    problem's inputs: the larger of its bytes (each input read once, each
-    output written once) over the HBM rate and its products over the FP32
-    rate, counted for the problem's real detections. ``cw``: the key width
-    of a multi-target kernel. The camera width a is the problem's (15 at
-    the standard model; the packed row PPB and the gram width W = a + 7
-    follow it). ``rigs``: a launch folded over that many rigs, whose
-    blocks and cameras ``prob`` counts (its mask (R*B, K)): every rig reads
-    and writes its own per-key rows (C-F; A and B share one point
-    table)."""
+def gram_io(name: str, prob, cw: int | None = None,
+            rigs: int = 1) -> tuple[int, int]:
+    """The floats one call of a gram kernel must read (each input once) and
+    write (each output once) on a problem's inputs, as ``bound`` counts
+    them."""
     from pycamset_tpu_torch.optim.cuda_grams import packed_width
     bb, k = prob.mask.shape
     kr = k * rigs               # every rig's per-key rows
@@ -411,7 +429,23 @@ def bound(name: str, prob, cw: int | None = None,
         ins += bb * 6 + kr * 3 + (kr - k) * 3   # imask, kmask, rigs' points
         outs = (c * (a * a + a + 3 * a * k) + bb * k * 18 + bb * pose
                 + kr * 12)
-    t_bytes = 4 * (ins + outs) / HBM_BYTES_PER_S
+    return ins, outs
+
+
+def bound(name: str, prob, cw: int | None = None,
+          rigs: int = 1) -> tuple[float, str]:
+    """The least time the card could take for one call of a kernel on a
+    problem's inputs: the larger of its bytes (each input read once, each
+    output written once, ``gram_io``) over the HBM rate and its products
+    over the FP32 rate, counted for the problem's real detections. ``cw``:
+    the key width of a multi-target kernel. The camera width a is the
+    problem's (15 at the standard model; the packed row PPB and the gram
+    width W = a + 7 follow it). ``rigs``: a launch folded over that many
+    rigs, whose blocks and cameras ``prob`` counts (its mask (R*B, K)):
+    every rig reads and writes its own per-key rows (C-F; A and B share
+    one point table)."""
+    t_bytes = 4 * sum(gram_io(name, prob, cw, rigs)) / HBM_BYTES_PER_S
+    a = prob.widths.a
     t_ops = (prob.blocks.n_real * flop_per_detection(name, cw, a)
              / FP32_FLOP_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
@@ -1019,13 +1053,13 @@ def one_launch_psd(on: bool):
             os.environ["PYCAMSET_PALLAS_CHOL"] = old
 
 
-def psd_bound(n: int) -> tuple[float, str]:
-    """Least time of one SPD solve of width n: the factor's n^3/3 and the
-    three solves' and residuals' 12 n^2 multiply-adds (2 FLOP each; the
-    factor's n^3/3 = 2n^3/3 FLOP) over the FP32 rate, against a read once
-    and b, x, res2, b2 moved once over the HBM rate."""
-    t_ops = (2 * n ** 3 / 3 + 12 * n ** 2) / FP32_FLOP_PER_S
-    t_bytes = 4 * (n * n + 2 * n + 2) / HBM_BYTES_PER_S
+def psd_bound(n: int, batch: int = 1) -> tuple[float, str]:
+    """Least time of ``batch`` SPD solves of width n: each factor's n^3/3
+    and the three solves' and residuals' 12 n^2 multiply-adds (2 FLOP each;
+    the factor's n^3/3 = 2n^3/3 FLOP) over the FP32 rate, against each a
+    read once and b, x, res2, b2 moved once over the HBM rate."""
+    t_ops = batch * (2 * n ** 3 / 3 + 12 * n ** 2) / FP32_FLOP_PER_S
+    t_bytes = 4 * batch * (n * n + 2 * n + 2) / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1735,20 +1769,30 @@ def same_fleet(a, b) -> bool:
             and all(torch.equal(p, q) for p, q in zip(a.x, b.x)))
 
 
-def timed(fn, n: int) -> list[float]:
-    """CUDA-event ms of n calls of fn, one at a time, after one warm-up."""
+def timed(fn, n: int, warmup: int = 1) -> list[float]:
+    """CUDA-event ms of n calls of fn, one at a time, after the warm-ups."""
     import torch
     times = []
-    for k in range(n + 1):
+    for k in range(n + warmup):
         torch.cuda.synchronize()
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
         fn()
         t1.record()
         torch.cuda.synchronize()
-        if k:
+        if k >= warmup:
             times.append(t0.elapsed_time(t1))
     return times
+
+
+def timed_pair(fa, fb, n: int) -> tuple[list[float], list[float]]:
+    """CUDA-event ms of n calls each of fa and fb, taken in turn (fa, fb,
+    fa, ...) after one warm-up each, so that a change in the host's load
+    falls on both lists alike."""
+    fa(), fb()
+    pairs = [(timed(fa, 1, warmup=0)[0], timed(fb, 1, warmup=0)[0])
+             for _ in range(n)]
+    return [a for a, _ in pairs], [b for _, b in pairs]
 
 
 def phase_fleet(fleet) -> dict:
@@ -4010,8 +4054,8 @@ def phase_multi_target_handlers(counted, dev) -> dict:
                  else problems.grouped_problem)(n_cams, n_ims, dev)
         bench_res = bench.solve()                   # captures
         pieces = solve_fn.pieces(x0)
-        warm_ms = timed(lambda: solve_fn.problem.solve(x0=pieces), 3)
-        bench_ms = timed(bench.solve, 3)
+        warm_ms, bench_ms = timed_pair(
+            lambda: solve_fn.problem.solve(x0=pieces), bench.solve, 5)
         median, bench_median = (float(np.median(warm_ms)),
                                 float(np.median(bench_ms)))
         eval_ratio = (median / ref.nfev) / (bench_median / bench_res.nfev)
@@ -4053,6 +4097,400 @@ def phase_multi_target_handlers(counted, dev) -> dict:
         del solve_fn, residual_fn, handler, first, warm, ref, bench
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+# [tied_user_path]: the tied (shared-intrinsics) backend on the bench rig
+# (problems.template_handler with shared_intrinsics) -> (cameras, images,
+# the lens groups: True, one lens, or "alternate", the even cameras one and
+# the odd ones another; the camera model; the entry a user calls:
+# run_stereo_calibration saved ("saved") or not ("stereo"), or
+# run_bundle_adjustment with its get_camset ("rba"); the gram wrapper)
+TIED = {"tied 16x100": (16, 100, True, "standard", "saved", "template_gram"),
+        "tied_g2 16x100": (16, 100, "alternate", "standard", "stereo",
+                           "template_gram"),
+        "tied_tilted 16x100": (16, 100, True, "tilted", "stereo",
+                               "template_gram"),
+        "tied 64x400": (64, 400, True, "standard", "rba",
+                        "template_gram_fused")}
+# [tied_fleet]: fleet_problem's rigs (64 of 4 cameras x 16 images, grid 10)
+# with one lens a rig, as template handlers
+TIED_FLEET = (64, 4, 16)
+
+
+def same_lens_rows(cams, gid) -> bool:
+    """Each lens group's cameras carry bit-identical intrinsics and
+    distortion."""
+    for c, g in enumerate(gid):
+        first = int(np.flatnonzero(np.asarray(gid) == g)[0])
+        for attr in ("intrinsic", "distortion_coefs"):
+            if not np.array_equal(np.asarray(getattr(cams[c], attr)),
+                                  np.asarray(getattr(cams[first], attr))):
+                return False
+    return True
+
+
+def phase_tied_user_path(counted, dev) -> dict:
+    """[tied_user_path]: the tied backend (``optim/shared_intr.py``) at each
+    ``TIED`` shape on both dense-solve routes: a ``TemplateBundleHandler``
+    whose rig shares its lenses (``problems.template_handler(...,
+    shared_intrinsics=...)``, seeded at the bench's start), its problem
+    (``build_shared_structured_problem``: a ``TiedProblem``, dense n = G s
+    + 6 C) solved uncaptured, capturing and warm (captured = uncaptured,
+    its gram kernel once an evaluation by profiler names, the SPD kernel
+    once an LM step on the kernel route), then the user's entry as the main
+    path (every count 0 just before; its gram kernel alone), its
+    parameters the solve's bit for bit, each lens group's cameras
+    identical, status 1-2, rms <= 0.36 px; at tied 16x100 the float32 cost
+    within 1e-4 of the float64 CPU solve, the file written and loaded
+    back. Prints nit, rms and the warm ms an evaluation.
+
+    :return: {shape: {route: {wrapper: main-path launches}}}."""
+    import tempfile
+
+    import torch
+    from pycamset_tpu_torch.calibration.camera_calibrator import (
+        run_stereo_calibration)
+    from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
+    from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
+    from pycamset_tpu_torch.optim.problem import TiedProblem
+    from pycamset_tpu_torch.optim.shared_intr import (
+        build_shared_structured_problem, resolve_lens_groups)
+    from pycamset_tpu_torch.problems import template_handler
+    from pycamset_tpu_torch.utils.saving import load_CameraSet
+    out = {}
+    for shape, (n_cams, n_ims, groups, model, entry, own) in TIED.items():
+        t_shape = time.perf_counter()
+        base, _ = template_handler(
+            n_cams, n_ims, camera_model=model,
+            shared_intrinsics=(True if groups is True
+                               else [c % 2 for c in range(n_cams)]))
+        x0 = base.get_initial_params()
+        gid = resolve_lens_groups(base.problem_opts["shared_intrinsics"],
+                                  base.cam_names)
+        inputs_s = time.perf_counter() - t_shape
+
+        def fresh():
+            h = TemplateBundleHandler(base.camset, base.target,
+                                      base.detection,
+                                      options=dict(base.problem_opts))
+            h.set_initial_params(x0)
+            return h
+
+        cpu = None
+        if shape == "tied 16x100":
+            t0 = time.perf_counter()
+            cpu_fn, _, _ = build_shared_structured_problem(fresh(),
+                                                           device="cpu")
+            cpu = (cpu_fn(x0)[1], time.perf_counter() - t0)
+        out[shape] = {}
+        for route in ("library", "kernel"):
+            tag = f"tied_user_path {shape} ({route})"
+            with one_launch_psd(route == "kernel"):
+                t0 = time.perf_counter()
+                solve_fn, residual_fn, x_init = (
+                    build_shared_structured_problem(fresh(), device=dev))
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+                prob = solve_fn.problem
+                check(isinstance(prob, TiedProblem),
+                      f"{tag}: the problem is a {type(prob).__name__}")
+                x_ref, ref, counts, warm, first_s, runner = (
+                    solved_through_graph(tag, solve_fn, x_init,
+                                         route == "kernel"))
+                gram = {n: k for n, k in counts.items()
+                        if n.startswith("gram_kernel")}
+                check(list(gram.values()) == [warm.nfev],
+                      f"{tag}: gram kernels {gram} in {warm.nfev} "
+                      f"evaluations")
+                warm_ms = timed(lambda: solve_fn(x_init), 3)
+                e2e = fresh()
+                with tempfile.TemporaryDirectory() as tmp:
+                    path = os.path.join(tmp, "cams.camset")
+                    if entry == "rba":
+                        def run():
+                            return run_bundle_adjustment(e2e, device=dev)
+                    else:
+                        def run():
+                            return run_stereo_calibration(
+                                None, None, None, param_handler=e2e,
+                                save=entry == "saved", save_loc=path,
+                                device=dev)
+                    result, n_own, n_psd, e2e_s = main_path_counts(
+                        counted, own, tag, run)
+                    cams = result[1] if entry == "rba" else result
+                    if entry == "saved":
+                        back = load_CameraSet(path)
+                        check(back == cams and np.array_equal(
+                            back.calibration_params,
+                            cams.calibration_params),
+                            f"{tag}: the loaded CameraSet differs")
+            x_main = (result[0].x if entry == "rba"
+                      else cams.calibration_params)
+            check(np.array_equal(x_main, x_ref),
+                  f"{tag}: the user entry's parameters differ from the "
+                  f"solve's")
+            check(same_lens_rows(cams, gid),
+                  f"{tag}: a lens group's cameras differ")
+            # the other models: [camera_models]' status rule (their lens
+            # coefficients trade with the intrinsics on this rig)
+            status, rms = int(ref.status), prob.rms_px(ref.cost)
+            check(status in (1, 2) if model == "standard" else status > 0,
+                  f"{tag}: status {status}")
+            check(rms <= 0.36, f"{tag}: rms {rms} above 0.36 px")
+            fields = {}
+            if cpu is not None:
+                rel = (abs(float(ref.cost) - float(cpu[0].cost))
+                       / float(cpu[0].cost))
+                check(rel <= 1e-4, f"{tag}: cost differs from the float64 "
+                                   f"CPU solve by {rel:.3e}")
+                fields = dict(cpu_f64_nit=cpu[0].nit,
+                              cpu_f64_s=f"{cpu[1]:.1f}",
+                              rel_cost_diff_cpu_f64=f"{rel:.3e}")
+            median = float(np.median(warm_ms))
+            say("tied_user_path", shape=shape.replace(" ", "_"),
+                dense_solve=route, model=model,
+                groups=int(gid.max()) + 1, dense_n=(
+                    (int(gid.max()) + 1) * prob.layout.s + 6 * n_cams),
+                same_bits=True, nit=ref.nit, nfev=ref.nfev, status=status,
+                rms_px=f"{rms:.5f}", cost=f"{float(ref.cost):.6f}",
+                n_real=prob.blocks.n_real, im_grid=prob.blocks.n_ims,
+                gram_mb_per_evaluation=f"{4e-6 * sum(gram_io(own, prob)):.1f}",
+                **fields, **{f"launches_{k}": v for k, v in counts.items()},
+                e2e=entry, e2e_launches=f"{own}:{n_own},psd:{n_psd}",
+                capture_ms=f"{runner.capture_ms:.1f}",
+                solve_ms_median=f"{median:.3f}",
+                ms_per_evaluation=f"{median / warm.nfev:.3f}",
+                solve_ms_all=",".join(f"{t:.2f}" for t in warm_ms),
+                inputs_s=f"{inputs_s:.2f}", build_s=f"{build_s:.3f}",
+                first_solve_s=f"{first_s:.3f}", e2e_s=f"{e2e_s:.3f}",
+                seconds=f"{time.perf_counter() - t_shape:.1f}")
+            out[shape][route] = {own: n_own, PSD[0]: n_psd}
+            del solve_fn, prob, result, cams
+        torch.cuda.empty_cache()
+    return out
+
+
+def capture_batched_systems(fleet):
+    """The (a_n (R, n, n), rhs_n (R, n)) the first batch step of a fleet
+    (opt-in on) hands the batched SPD kernel, cloned on the device: the
+    op's calls are watched where its vmap rule makes them, on whole
+    tensors."""
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    from pycamset_tpu_torch.optim.fleet import fleet_solve
+    seen, orig = [], cc._psd_solve_batched_op
+
+    def spy(a, b, refine):
+        if not seen and not cc._batched(a, b):
+            seen.append((a.clone(), b.clone()))
+        return orig(a, b, refine)
+
+    cc._psd_solve_batched_op = spy
+    try:
+        with one_launch_psd(True):
+            fleet_solve(fleet.neq_fn(), fleet.x0_pieces, fleet.data(),
+                        max_nfev=2, ops=fleet.ops, graph=False)
+    finally:
+        cc._psd_solve_batched_op = orig
+    check(bool(seen), "the fleet's step reached no batched SPD solve")
+    return seen[0]
+
+
+def phase_psd_batch(systems: dict) -> dict:
+    """[parity_psd_batch] / [time_psd_batch]: the batched SPD kernel on each
+    fleet's first reduced batch (``capture_batched_systems``): every system
+    meets the residual rule (no fallback) and is within PSD_BATCH_TOL of the
+    float64 twin, a repeat launch gives the same bits; device ms of
+    the kernel beside the library route's batch (``_cho_refine_solve``
+    under vmap: batched ``cholesky_ex`` and three ``cholesky_solve``
+    through cuSOLVER), the wrapper's CUDA-event ms, the float32 twin's and
+    the bound (``psd_bound`` with the batch)."""
+    import torch
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    from pycamset_tpu_torch.optim.structured import _cho_refine_solve
+
+    def rel(x, ref):
+        return (torch.linalg.norm(x.double() - ref, dim=-1)
+                / torch.linalg.norm(ref, dim=-1))
+
+    out = {}
+    for shape, (a32, b32) in systems.items():
+        r, n = b32.shape
+        x, res2, b2 = cc.psd_solve_raw_batched(a32, b32)
+        x64 = cc.psd_solve_raw_plain_batched(a32.double(), b32.double())[0]
+        library = torch.func.vmap(_cho_refine_solve)(a32, b32)
+        err, lib_err = rel(x, x64), rel(library, x64)
+        misses = int((~cc.residual_ok(res2, b2)).sum())
+        check(misses == 0, f"{shape}: {misses} of {r} systems miss the "
+                           f"residual rule (res2 > {cc.RES_TOL:g} b2)")
+        check(bool((err <= PSD_BATCH_TOL).all()),
+              f"{shape}: batched SPD x off the float64 twin: "
+              f"{err.max():.3e} > {PSD_BATCH_TOL:g} (library "
+              f"{lib_err.max():.3e})")
+        again = cc.psd_solve_raw_batched(a32, b32)
+        check(all(torch.equal(p, q) for p, q in zip((x, res2, b2), again)),
+              f"{shape}: a repeat launch differs")
+        rec = dict(rigs=r, n=n, fallbacks=misses,
+                   max_rel_err=float(err.max()),
+                   library_max_rel_err=float(lib_err.max()),
+                   max_abs_err=float((x.double() - x64).abs().max()),
+                   max_res2_over_b2=float((res2 / b2).max()))
+        say("parity_psd_batch", shape=shape.replace(" ", "_"),
+            **{k: (f"{v:.3e}" if isinstance(v, float) else v)
+               for k, v in rec.items()})
+        dev_ms = device_ms(lambda: cc.psd_solve_raw_batched(a32, b32))
+        k_ms = sum(t for name, t in dev_ms.items()
+                   if name.startswith("psd_batched_kernel"))
+        lib_k_ms = kernel_ms(
+            lambda: torch.func.vmap(_cho_refine_solve)(a32, b32))
+        lib_ms = cuda_ms(lambda: torch.func.vmap(_cho_refine_solve)(a32, b32),
+                         20)
+        w_ms = cuda_ms(lambda: cc.psd_solve_raw_batched(a32, b32), 20)
+        p_ms = cuda_ms(lambda: cc.psd_solve_raw_plain_batched(a32, b32), 1,
+                       warmup=0)
+        b_ms, b_by = psd_bound(n, r)
+        rec.update(kernel_ms=k_ms, library_kernel_ms=lib_k_ms,
+                   library_ms=lib_ms, ms=w_ms, plain_ms=p_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        say("time_psd_batch", shape=shape.replace(" ", "_"), rigs=r, n=n,
+            kernel_ms=f"{k_ms:.4f}", library_kernel_ms=f"{lib_k_ms:.4f}",
+            wrapper_ms=f"{w_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+            plain_ms=f"{p_ms:.2f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+            kernel_over_bound=f"{k_ms / b_ms:.1f}",
+            library_over_kernel=f"{lib_k_ms / k_ms:.2f}")
+        out[shape] = rec
+    return out
+
+
+def fleet_route_run(tag, counted, own, run, dev):
+    """A fleet's uncaptured run as its main path (``main_path_counts``) with
+    the batched SPD kernel's counts at 0 just before: (run's result, own's
+    launches, the batched kernel's launches, the systems that fell back,
+    the host seconds); checks no one-system SPD launch and, opted in, one
+    batched launch a batch step (own's launches less slm_init's) and no
+    system that took the library route's x (each fleet here is seeded and
+    well posed: a miss is a kernel fault, not a hostile system)."""
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    cc.reset_batch_counts()
+    result, n_own, n_psd, seconds = main_path_counts(counted, own, tag, run)
+    n_batch = cc.psd_solve_raw_batched.launches
+    fell = int(cc.batch_misses(dev))
+    want = n_own - 1 if cc.psd_opted_in() else 0
+    check(n_psd == 0 and n_batch == want,
+          f"{tag}: {n_batch} batched and {n_psd} one-system SPD launches in "
+          f"{n_own - 1} batch steps")
+    check(fell == 0, f"{tag}: {fell} systems fell back to the library route")
+    return result, n_own, n_batch, fell, seconds
+
+
+def fleet_captured(tag, prob, ref):
+    """A fleet's problem solved capturing and warm, each bit for bit the
+    uncaptured ``ref``; every rig at status 1-2 and rms <= 0.36 px.
+    Returns (the warm result, its batch steps, warm ms of 3 solves)."""
+    runners = prob.graph()
+    first = prob.solve_batch()
+    before = {n: g.steps for n, g in runners.items()}
+    warm = prob.solve_batch()
+    steps = sum(g.steps - before.get(n, 0) for n, g in runners.items())
+    check(same_fleet(first, ref) and same_fleet(warm, ref),
+          f"{tag}: the captured solve differs from the uncaptured")
+    status = [int(s) for s in warm.status.tolist()]
+    rms = prob.rms_px(warm.cost)
+    check(all(s in (1, 2) for s in status), f"{tag}: status {status}")
+    check(float(rms.max()) <= 0.36, f"{tag}: rms {rms.max():.4f} above "
+                                    f"0.36 px")
+    return warm, steps, timed(prob.solve_batch, 3)
+
+
+def phase_fleet_handlers_psd(fleets: dict, counted) -> dict:
+    """The handler fleets on the SPD kernel route: each fleet's batch solved
+    uncaptured (one batched launch a batch step, none of the one-system
+    kernel), captured = uncaptured, status 1-2, rms <= 0.36 px, the
+    systems that fell back, rigs/s."""
+    out = {}
+    for shape, (_, _, _, own) in FLEET_HANDLERS.items():
+        t_shape = time.perf_counter()
+        _, prob = fleets[shape]
+        tag = f"fleet_handlers_psd {shape}"
+        with one_launch_psd(True):
+            ref, n_own, n_batch, fell, main_s = fleet_route_run(
+                tag, counted, own, lambda: prob.solve_batch(graph=False),
+                prob.uv.device)
+            warm, steps, warm_ms = fleet_captured(tag, prob, ref)
+        median = float(np.median(warm_ms))
+        rms = prob.rms_px(warm.cost)
+        say("fleet_handlers_psd", shape=shape.replace(" ", "_"),
+            same_bits=True, launches=n_own, psd_batched_launches=n_batch,
+            fallbacks=fell, nit_max=max(warm.nit),
+            status_counts={s: warm.status.tolist().count(s)
+                           for s in sorted(set(warm.status.tolist()))},
+            rms_px_max=f"{rms.max():.5f}", uncaptured_s=f"{main_s:.2f}",
+            solve_ms_median=f"{median:.3f}",
+            rigs_per_s=f"{prob.n_rigs / median * 1e3:.1f}",
+            seconds=f"{time.perf_counter() - t_shape:.1f}")
+        out[shape] = {"own": own, "launches": n_batch, "fallbacks": fell,
+                      "rigs_per_s": prob.n_rigs / median * 1e3}
+    return out
+
+
+def phase_tied_fleet(handlers, counted, dev) -> dict:
+    """[tied_fleet]: ``run_fleet_bundle_adjustment`` on the tied handlers
+    (one lens a rig) as the main path on both routes (uncaptured: Kernel B
+    folded, one launch an evaluation of the batch; opted in, one batched
+    SPD launch a batch step), its problem captured = uncaptured, every rig
+    at status 1-2 and rms <= 0.36 px with its cameras' lens rows identical,
+    rigs/s of warm solves."""
+    from types import SimpleNamespace
+
+    from pycamset_tpu_torch.optim.fleet import (build_fleet_problem,
+                                                run_fleet_bundle_adjustment)
+    out = {}
+    n_cams = TIED_FLEET[1]
+    for route in ("library", "kernel"):
+        t_route = time.perf_counter()
+        tag = f"tied_fleet ({route})"
+        with one_launch_psd(route == "kernel"):
+            (results, camsets), n_own, n_batch, fell, main_s = (
+                fleet_route_run(tag, counted, "template_gram_fused",
+                                lambda: run_fleet_bundle_adjustment(
+                                    handlers, device=dev, graph=False), dev))
+            prob = build_fleet_problem(handlers, device=dev)
+            ref = prob.solve_batch(graph=False)
+            warm, steps, warm_ms = fleet_captured(tag, prob, ref)
+        check(n_own == 1 + steps, f"{tag}: B launched {n_own} times in "
+                                  f"{steps} batch steps (+1 slm_init)")
+        for k, res in enumerate(results):
+            x_k = prob.extract_free(k, prob.rig_result(warm, k).x)
+            check((res.nit, res.nfev, res.status)
+                  == (warm.nit[k], warm.nfev[k], int(warm.status[k]))
+                  and np.array_equal(res.x, x_k),
+                  f"{tag} rig {k}: the captured solve differs from the "
+                  f"main path's")
+            check(same_lens_rows(camsets[k], [0] * n_cams),
+                  f"{tag} rig {k}: the cameras' lenses differ")
+        median = float(np.median(warm_ms))
+        rms = prob.rms_px(warm.cost)
+        status = warm.status.tolist()
+        _, n_groups, s = prob.x0_pieces.shared.shape
+        folded = SimpleNamespace(
+            mask=fold(prob.mask), widths=prob.widths,
+            blocks=SimpleNamespace(n_cams=prob.n_rigs * n_cams))
+        say("tied_fleet", dense_solve=route, same_bits=True, rigs=prob.n_rigs,
+            n_real=int(prob.n_real.sum()), dense_n=n_groups * s + 6 * n_cams,
+            gram_mb_per_evaluation=(
+                f"{4e-6 * sum(gram_io('template_gram_fused', folded)):.1f}"),
+            launches=n_own, psd_batched_launches=n_batch, fallbacks=fell,
+            batch_steps=steps, rig_evaluations=sum(warm.nfev),
+            nit_min=min(warm.nit), nit_max=max(warm.nit),
+            status_counts={s: status.count(s) for s in sorted(set(status))},
+            rms_px_max=f"{rms.max():.5f}", main_path_s=f"{main_s:.2f}",
+            solve_ms_median=f"{median:.3f}",
+            solve_ms_all=",".join(f"{x:.2f}" for x in warm_ms),
+            rigs_per_s=f"{prob.n_rigs / median * 1e3:.1f}",
+            seconds=f"{time.perf_counter() - t_route:.1f}")
+        out[route] = {"launches": n_own, "psd_batched_launches": n_batch,
+                      "fallbacks": fell,
+                      "rigs_per_s": prob.n_rigs / median * 1e3}
     return out
 
 
@@ -4208,14 +4646,54 @@ def main() -> int:
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
     t_phase = time.perf_counter()
     fleet_h = phase_fleet_handlers(fleets, counted)
-    del fleets
     say("elapsed", after="fleet_handlers",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+    fleet_psd = phase_fleet_handlers_psd(fleets, counted)
+    say("elapsed", after="fleet_handlers_psd",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+    from pycamset_tpu_torch.optim.fleet import build_fleet_problem
+    from pycamset_tpu_torch.problems import fleet_handlers
+    tied_handlers = fleet_handlers("template", *TIED_FLEET,
+                                   shared_intrinsics=True)
+    batch_systems = {
+        "tied 64x4x16": capture_batched_systems(
+            build_fleet_problem(tied_handlers, device=dev)),
+        **{shape: capture_batched_systems(f)
+           for shape, (_, f) in fleets.items()}}
+    del fleets
+    psd_batch = phase_psd_batch(batch_systems)
+    del batch_systems
+    say("elapsed", after="psd_batch",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+    tied_fleet = phase_tied_fleet(tied_handlers, counted, dev)
+    del tied_handlers
+    say("elapsed", after="tied_fleet",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tied_user = phase_tied_user_path(counted, dev)
+    say("elapsed", after="tied_user_path",
         seconds=f"{time.perf_counter() - t_start:.1f}",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
     for phase, recs in (("multi_target_handlers", multi),
                         ("fleet_handlers", fleet_h)):
         for shape, rec in recs.items():
             launches[rec["own"]][f"{phase} {shape}"] = rec["launches"]
+    for shape, by_route in tied_user.items():
+        for route, counts in by_route.items():
+            for name, n in counts.items():
+                launches[name][f"tied_user_path {shape} ({route})"] = n
+    for route, rec in tied_fleet.items():
+        launches["template_gram_fused"][f"tied_fleet 64x4x16 ({route})"] = (
+            rec["launches"])
 
     fleet_shape = f"fleet {'x'.join(map(str, FLEET))}"
     launches["template_gram_fused"][fleet_shape] = fleet_rec["launches"]
@@ -4356,6 +4834,36 @@ def main() -> int:
                                    for n, t in psd_time.items()},
         "solve_ms_median_ab": ab,
         "tilted_64x400": models["psd"],
+        "card": smi})
+    tied_b = psd_batch["tied 64x4x16"]
+    kernels.append({
+        "name": PSD_BATCH[0], "route": "cuda", "source": PSD_BATCH[1],
+        "replaces": PSD_BATCH[2],
+        "launches": tied_fleet["kernel"]["psd_batched_launches"],
+        "launches_by_solve": {
+            "tied_fleet 64x4x16 (kernel)":
+                tied_fleet["kernel"]["psd_batched_launches"],
+            **{f"fleet_handlers_psd {s}": r["launches"]
+               for s, r in fleet_psd.items()}},
+        "fallbacks_by_solve": {
+            "tied_fleet 64x4x16 (kernel)": tied_fleet["kernel"]["fallbacks"],
+            **{f"fleet_handlers_psd {s}": r["fallbacks"]
+               for s, r in fleet_psd.items()}},
+        "max_abs_err": max(r["max_abs_err"] for r in psd_batch.values()),
+        "max_rel_err": max(r["max_rel_err"] for r in psd_batch.values()),
+        "ms": tied_b["ms"], "plain_ms": tied_b["plain_ms"],
+        "bound_ms": tied_b["bound_ms"], "bound_by": tied_b["bound_by"],
+        "library_ms": tied_b["library_ms"], "kernel_ms": tied_b["kernel_ms"],
+        "library_kernel_ms": tied_b["library_kernel_ms"],
+        "by_batch": {s: {k: r[k] for k in (
+            "rigs", "n", "fallbacks", "kernel_ms", "library_kernel_ms", "ms",
+            "library_ms", "plain_ms", "bound_ms", "bound_by", "max_rel_err",
+            "library_max_rel_err")} for s, r in psd_batch.items()},
+        "rigs_per_s": {"tied_fleet": {k: r["rigs_per_s"]
+                                      for k, r in tied_fleet.items()},
+                       **{f"fleet_handlers_psd {s}": r["rigs_per_s"]
+                          for s, r in fleet_psd.items()}},
+        "shape": f"tied 64x4x16 ({tied_b['rigs']} systems, n={tied_b['n']})",
         "card": smi})
     kernels.append({
         "name": PEAK[0], "route": "cuda", "source": PEAK[1],

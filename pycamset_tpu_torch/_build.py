@@ -82,6 +82,8 @@ _SIGNATURES = {
     "pct_mixed_occupancy": [_I, _I, _I, _P],
     "pct_psd_solve": [_P, _P, _I, _I] + [_P] * 9,
     "pct_psd_diag_tile": [_P, _I, _I, _P, _P],
+    "pct_psd_solve_batched": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "pct_psd_batched_smem_max_n": [],
     "pct_fma_chain": [_P, _P, _I, _I, _P],
 }
 

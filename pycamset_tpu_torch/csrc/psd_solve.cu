@@ -708,6 +708,194 @@ __global__ void __launch_bounds__(THREADS, 1)
             min(NB, n - t0), minv, reinterpret_cast<float *>(smd));
 }
 
+// ---- A batch of systems: one block a system (the fleet's reduced steps).
+//
+// The counterpart of _pallas_psd_solve_raw under jax.vmap, whose grid
+// gains a batch axis: blockIdx.x is the system. The same function as
+// psd_solve_kernel (clamped factor, substitution, `refine` passes on the
+// double residual, res2 and b2), by the plain column algorithm, with only
+// block barriers: an ordinary launch, which a CUDA graph captures at any
+// batch size. The factor lives in dynamic shared memory where it fits
+// (n <= batch_smem_max_n(), 237 in the 227 KB a block may take), else in
+// the caller's device scratch (lg, one (n, ld) slab a system, in L2 at
+// the fleets' sizes); the vectors are always in shared memory. Rows are
+// stored with an odd stride ld, so a column walk (one row a thread) hits
+// 32 banks. Per column j: the column scaled by 1 / sqrt(max(L_jj, 1e-8))
+// (stored, and copied to `col`), then the trailing update, a warp a row
+// and a lane a column; two block barriers a column. The substitutions are
+// a barrier a row. Fixed orders throughout: repeat launches give the same
+// bits. What bounds it: n block barriers in sequence at the fleets' n
+// (33 - 168), not the 2n^3/3 FLOP; simple first, as the TPU kernel under
+// vmap was one grid step a system.
+constexpr int BATCH_THREADS = 256;
+constexpr int BATCH_WARPS = BATCH_THREADS / 32;
+constexpr size_t BLOCK_SMEM_MAX = 227 * 1024;
+
+__host__ __device__ constexpr int batch_ld(int n) { return n | 1; }
+
+// red (BATCH_THREADS doubles), xd (n doubles), w, y, col (n floats each),
+// then the factor (n rows of ld floats) when it is staged
+constexpr size_t batch_smem_bytes(int n, bool factor) {
+  return (size_t)(BATCH_THREADS + n) * sizeof(double) +
+         (size_t)3 * n * sizeof(float) +
+         (factor ? (size_t)n * batch_ld(n) * sizeof(float) : 0);
+}
+
+int batch_smem_max_n() {
+  int n = 1;
+  while (n < PSD_MAX_N && batch_smem_bytes(n + 1, true) <= BLOCK_SMEM_MAX)
+    ++n;
+  return n;
+}
+
+// y = (L L^T)^-1 w, w overwritten (forward solution in place), by the
+// block; ends on a block barrier.
+__device__ void batch_substitute(const float *L, int n, int ld, float *w,
+                                 float *y) {
+  const int tid = threadIdx.x;
+  for (int j = 0; j < n; ++j) {
+    const float zj = w[j] / L[(size_t)j * ld + j];
+    for (int i = j + 1 + tid; i < n; i += BATCH_THREADS)
+      w[i] = fmaf(-L[(size_t)i * ld + j], zj, w[i]);
+    if (tid == 0) y[j] = zj;
+    __syncthreads();
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    const float xj = y[j] / L[(size_t)j * ld + j];
+    for (int i = tid; i < j; i += BATCH_THREADS)
+      y[i] = fmaf(-L[(size_t)j * ld + i], xj, y[i]);
+    __syncthreads();
+    if (tid == 0) y[j] = xj;   // nobody reads y[j] again in this sweep
+  }
+  __syncthreads();
+}
+
+// w = float(b - a xd) (double products of the float32 a, exact); on the
+// last pass also x = float(xd), res2 = |b - a xd|^2 and b2 = |b|^2. A
+// warp a row; ends on a block barrier.
+__device__ void batch_residual(const float *a, const float *b, int n,
+                               const double *xd, float *w, double *red,
+                               bool last, float *x, float *res2,
+                               float *b2) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  double part = 0.0;
+  for (int r = warp; r < n; r += BATCH_WARPS) {
+    const float *ar = a + (size_t)r * n;
+    double s = 0.0;
+    for (int m = lane; m < n; m += 32) s = fma((double)ar[m], xd[m], s);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const double rr = (double)b[r] - s;
+    if (lane == 0) w[r] = (float)rr;
+    part = fma(rr, rr, part);
+  }
+  if (!last) {
+    __syncthreads();
+    return;
+  }
+  for (int i = tid; i < n; i += BATCH_THREADS) x[i] = (float)xd[i];
+  red[tid] = lane == 0 ? part : 0.0;
+  __syncthreads();
+  if (tid == 0) {
+    double s = 0.0;
+    for (int v = 0; v < BATCH_WARPS; ++v) s += red[v * 32];
+    *res2 = (float)s;
+  }
+  __syncthreads();
+  double bb = 0.0;
+  for (int i = tid; i < n; i += BATCH_THREADS) {
+    const double e = (double)b[i];
+    bb = fma(e, e, bb);
+  }
+  red[tid] = bb;
+  __syncthreads();
+  for (int h = BATCH_THREADS / 2; h > 0; h >>= 1) {
+    if (tid < h) red[tid] += red[tid + h];
+    __syncthreads();
+  }
+  if (tid == 0) *b2 = (float)red[0];
+}
+
+template <bool SMEM_FACTOR>
+__global__ void __launch_bounds__(BATCH_THREADS)
+    psd_batched_kernel(const float *a_all, const float *b_all, int n,
+                       int refine, float *x_all, float *res2, float *b2,
+                       float *lg) {
+  extern __shared__ double smd[];
+  const int sys = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, ld = batch_ld(n);
+  const float *a = a_all + (size_t)sys * n * n;
+  const float *b = b_all + (size_t)sys * n;
+  double *red = smd;
+  double *xd = red + BATCH_THREADS;
+  float *w = reinterpret_cast<float *>(xd + n);
+  float *y = w + n;
+  float *col = y + n;
+  float *L = SMEM_FACTOR ? col + n : lg + (size_t)sys * n * ld;
+
+  for (size_t e = tid; e < (size_t)n * n; e += BATCH_THREADS) {
+    const int r = (int)(e / n), c = (int)(e % n);
+    if (c <= r) L[(size_t)r * ld + c] = a[e];
+  }
+  for (int i = tid; i < n; i += BATCH_THREADS) w[i] = b[i];
+  __syncthreads();
+
+  for (int j = 0; j < n; ++j) {
+    const float dj = L[(size_t)j * ld + j];
+    const float s = sqrtf(dj < PIV_FLOOR ? PIV_FLOOR : dj);  // NaN stays
+    for (int i = j + tid; i < n; i += BATCH_THREADS) {
+      const float v = L[(size_t)i * ld + j] / s;
+      if (i > j) L[(size_t)i * ld + j] = v;  // L_jj after the barrier: every
+      col[i] = v;                            // thread reads d_jj first
+    }
+    __syncthreads();
+    if (tid == 0) L[(size_t)j * ld + j] = col[j];
+    for (int i = j + 1 + warp; i < n; i += BATCH_WARPS) {
+      const float li = col[i];
+      float *row = L + (size_t)i * ld;
+      for (int k = j + 1 + lane; k <= i; k += 32)
+        row[k] = fmaf(-li, col[k], row[k]);
+    }
+    __syncthreads();
+  }
+
+  batch_substitute(L, n, ld, w, y);
+  for (int i = tid; i < n; i += BATCH_THREADS) xd[i] = (double)y[i];
+  __syncthreads();
+  for (int it = 0; it < refine; ++it) {
+    batch_residual(a, b, n, xd, w, red, false, nullptr, nullptr, nullptr);
+    batch_substitute(L, n, ld, w, y);
+    for (int i = tid; i < n; i += BATCH_THREADS) xd[i] += (double)y[i];
+    __syncthreads();
+  }
+  batch_residual(a, b, n, xd, w, red, true, x_all + (size_t)sys * n,
+                 res2 + sys, b2 + sys);
+}
+
+template <bool SMEM_FACTOR>
+cudaError_t launch_batched(const float *a, const float *b, int batch, int n,
+                           int refine, float *x, float *res2, float *b2,
+                           float *l, cudaStream_t stream) {
+  const size_t smem = batch_smem_bytes(n, SMEM_FACTOR);
+  // the attribute is the function's, per device: set once, uncaptured (the
+  // LM's first step, or the fleet runner's, runs outside any capture)
+  static bool set_on[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!set_on[dev]) {
+    err = cudaFuncSetAttribute(psd_batched_kernel<SMEM_FACTOR>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)BLOCK_SMEM_MAX);
+    if (err != cudaSuccess) return err;
+    set_on[dev] = true;
+  }
+  psd_batched_kernel<SMEM_FACTOR><<<batch, BATCH_THREADS, smem, stream>>>(
+      a, b, n, refine, x, res2, b2, l);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -760,5 +948,25 @@ int pct_psd_diag_tile(const float *l, int n, int k, float *minv,
                          (cudaStream_t)stream>>>(l, n, k, minv);
   return (int)cudaGetLastError();
 }
+
+// a (batch, n, n), b (batch, n) -> x (batch, n), res2 and b2 (batch,):
+// each system as pct_psd_solve solves it, one block a system, in one
+// ordinary launch. l: (batch, n, n | 1) float scratch, needed only when
+// n > pct_psd_batched_smem_max_n() (else it may be null).
+int pct_psd_solve_batched(const float *a, const float *b, int batch, int n,
+                          int refine, float *x, float *res2, float *b2,
+                          float *l, void *stream) {
+  if (n < 1 || n > PSD_MAX_N || refine < 0 || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n <= batch_smem_max_n())
+    return (int)launch_batched<true>(a, b, batch, n, refine, x, res2, b2,
+                                     nullptr, (cudaStream_t)stream);
+  if (l == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_batched<false>(a, b, batch, n, refine, x, res2, b2, l,
+                                    (cudaStream_t)stream);
+}
+
+// The largest n whose factor pct_psd_solve_batched stages in shared memory.
+int pct_psd_batched_smem_max_n(void) { return batch_smem_max_n(); }
 
 }  // extern "C"

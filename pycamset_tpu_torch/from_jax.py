@@ -14,6 +14,7 @@ from pycamset_tpu_torch.config import resolve_device
 from pycamset_tpu_torch.models.camera_set import CameraSet, make_cam_dict
 from pycamset_tpu_torch.models.detections import TargetDetection
 from pycamset_tpu_torch.optim.fleet import shared_template
+from pycamset_tpu_torch.optim.shared_intr import TiedNormalEq, TiedPieces
 from pycamset_tpu_torch.optim.structured import (
     ParamPieces, chain_widths, pad_pieces_to_grid, split_full_params)
 from pycamset_tpu_torch.optim.structured_driver import build_colmask_pieces
@@ -67,6 +68,21 @@ def mixed_pieces_from_numpy(cam, im, key, grp, device, dtype) -> MixedPieces:
     masks -> MixedPieces."""
     return MixedPieces(*(tensor_from_numpy(p, device, dtype)
                          for p in (cam, im, key, grp)))
+
+
+def tied_pieces_from_numpy(shared, cam, im, device, dtype) -> TiedPieces:
+    """(shared, cam, im) numpy pieces of the tied system (a JAX
+    ``TiedPieces``, each field through ``np.asarray``) -> TiedPieces."""
+    return TiedPieces(*(tensor_from_numpy(p, device, dtype)
+                        for p in (shared, cam, im)))
+
+
+def tied_neq_from_numpy(fields, device, dtype) -> TiedNormalEq:
+    """A tied system's normal equations as numpy, in ``TiedNormalEq``'s
+    field order (a JAX ``TiedNormalEq``: ``[np.asarray(f) for f in neq]``)
+    -> TiedNormalEq."""
+    return TiedNormalEq(*(tensor_from_numpy(f, device, dtype)
+                          for f in fields))
 
 
 def fleet_from_numpy(pieces, uv, mask, tpl, device, dtype):

@@ -20,10 +20,25 @@ otherwise sit at, above the fallback threshold; see ``csrc/psd_solve.cu``).
   costs one host read of the flag per call, unless the caller defers it
   (``deferred_residual_checks``: the LM's captured step stacks the flag with
   its ``status`` and redoes a failed step with the fallback).
-  ``psd_solve.fallbacks`` counts the fallbacks taken.
+  ``psd_solve.fallbacks`` counts the fallbacks taken. Under vmap it does
+  what ``jax.vmap`` makes of ``lax.cond``: the fallback runs on the whole
+  batch and each system takes the kernel's x where its residual passes, the
+  fallback's where it does not, decided on the device with no host read;
+  ``deferred_residual_checks`` is bypassed there (no flag, no rerun).
 - ``use_cuda_psd`` is the dispatch rule of ``use_pallas_psd``: opt-in with
   ``PYCAMSET_PALLAS_CHOL=1``, off under ``PYCAMSET_NO_PALLAS``
   (``psd_opted_in``), on a CUDA device, for float32 and n <= MAX_N only.
+- ``psd_solve_raw_batched`` is the kernel with a batch axis (the form
+  ``jax.vmap`` gives the Pallas kernel, whose grid gains the batch): a
+  ``torch.library.custom_op`` (``pycamset_tpu_torch::psd_solve_batched``)
+  over (R, n, n) systems, one ordinary launch of one block a system
+  (``pct_psd_solve_batched``), which a CUDA graph captures at any batch.
+  Its vmap rule folds the batch axis into the op's, so ``psd_solve_raw``
+  under ``torch.func.vmap`` (the fleet's LM step) makes one launch a call.
+  On CPU tensors it runs the plain twin system by system
+  (``psd_solve_raw_plain_batched``). It counts its launches in
+  ``psd_solve_raw_batched.launches``; under vmap, the systems whose residual
+  misses the rule are counted on the device (``batch_misses``).
 - ``psd_diag_tile`` is a debug entry that the solve never calls: the
   kernel's diagonal path alone (one diagonal tile's update by the panel
   beside it, its factor and the factor's inverse) in an ordinary launch of
@@ -36,6 +51,7 @@ import contextlib
 import os
 
 import torch
+from torch import Tensor
 
 BLK = 64              # the kernel's panel width
 MAX_N = 2048          # a and its factor (8 n^2 bytes) stay in the 50 MB L2
@@ -77,26 +93,46 @@ def psd_solve_raw_plain(a_n: torch.Tensor, rhs_n: torch.Tensor,
             torch.sum(b64 * b64).to(dtype))
 
 
-def _check_cuda_inputs(a_n: torch.Tensor, rhs_n: torch.Tensor):
+def psd_solve_raw_plain_batched(a_n: torch.Tensor, rhs_n: torch.Tensor,
+                                refine: int = 2):
+    """The plain twin over a leading batch axis, (R, n, n) and (R, n) ->
+    x (R, n), res2 (R,), b2 (R,): each system by ``psd_solve_raw_plain``.
+    For CPU tensors only (the batched kernel's counterpart)."""
+    outs = [psd_solve_raw_plain(a, b, refine) for a, b in zip(a_n, rhs_n)]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def _check_cuda_inputs(a_n: torch.Tensor, rhs_n: torch.Tensor,
+                       batched: bool = False):
+    """The kernels' input rule: float32 on one device, (n, n) and (n,)
+    contiguous for the one-system kernel; (..., n, n) and (..., n) for the
+    batched one, which makes its own contiguous copy; 1 <= n <= MAX_N."""
     for name, t in (("a_n", a_n), ("rhs_n", rhs_n)):
         if t.device != a_n.device:
             raise ValueError(f"{name} is on {t.device}, a_n on {a_n.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} is {t.dtype}; the CUDA kernel takes "
                             f"torch.float32")
-        if not t.is_contiguous():
+        if not batched and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    n = a_n.shape[0] if a_n.dim() == 2 else -1
-    if a_n.dim() != 2 or a_n.shape[1] != n or tuple(rhs_n.shape) != (n,):
-        raise ValueError(f"a_n {tuple(a_n.shape)} and rhs_n "
-                         f"{tuple(rhs_n.shape)} are not (n, n) and (n,)")
+    shape = tuple(a_n.shape)
+    n = shape[-1] if len(shape) >= 2 else -1
+    lead = shape[:-2] if batched else ()
+    if shape != (*lead, n, n) or tuple(rhs_n.shape) != (*lead, n):
+        form = "(..., n, n) and (..., n)" if batched else "(n, n) and (n,)"
+        raise ValueError(f"a_n {shape} and rhs_n {tuple(rhs_n.shape)} are "
+                         f"not {form}")
     if not 1 <= n <= MAX_N:
         raise ValueError(f"n = {n} is outside the kernel's range 1..{MAX_N}")
 
 
 def psd_solve_raw(a_n: torch.Tensor, rhs_n: torch.Tensor, refine: int = 2):
     """Solve the normalised SPD system a_n x = rhs_n in one kernel launch;
-    returns (x, res2, b2), the last two as 0-d tensors on the device."""
+    returns (x, res2, b2), the last two as 0-d tensors on the device. Under
+    ``torch.func.vmap`` the batched kernel solves the whole batch in one
+    launch (``psd_solve_raw_batched``)."""
+    if _batched(a_n, rhs_n):
+        return psd_solve_raw_batched(a_n, rhs_n, refine)
     if a_n.device.type == "cpu":
         return psd_solve_raw_plain(a_n, rhs_n, refine)
     _check_cuda_inputs(a_n, rhs_n)
@@ -124,6 +160,117 @@ def psd_solve_raw(a_n: torch.Tensor, rhs_n: torch.Tensor, refine: int = 2):
 
 
 psd_solve_raw.launches = 0
+
+
+def batch_smem_max_n() -> int:
+    """The largest n whose factor the batched kernel keeps in shared memory
+    (above it, in a device scratch it is given); asks the built library."""
+    from pycamset_tpu_torch._build import load
+    return int(load().lib.pct_psd_batched_smem_max_n())
+
+
+@torch.library.custom_op("pycamset_tpu_torch::psd_solve_batched",
+                         mutates_args=())
+def _psd_solve_batched_op(a_n: Tensor, rhs_n: Tensor,
+                          refine: int) -> tuple[Tensor, Tensor, Tensor]:
+    """(..., n, n), (..., n) -> x (..., n), res2 (...), b2 (...): every
+    system in one launch of the batched kernel (CPU tensors: the plain
+    twin, system by system)."""
+    if refine < 0:
+        raise ValueError(f"refine = {refine} < 0")
+    lead, n = a_n.shape[:-2], a_n.shape[-1]
+    a3 = a_n.reshape(-1, n, n)
+    b2d = rhs_n.reshape(-1, n)
+    if a_n.device.type == "cpu":
+        x, res2, b2 = psd_solve_raw_plain_batched(a3, b2d, refine)
+        return x.reshape(*lead, n), res2.reshape(lead), b2.reshape(lead)
+    _check_cuda_inputs(a_n, rhs_n, batched=True)
+    from pycamset_tpu_torch._build import load
+    lib = load().lib
+    r = a3.shape[0]
+    dev = a_n.device
+    with torch.cuda.device(dev):
+        a3, b2d = a3.contiguous(), b2d.contiguous()
+        x = torch.empty((r, n), dtype=torch.float32, device=dev)
+        res2 = torch.empty(r, dtype=torch.float32, device=dev)
+        b2 = torch.empty(r, dtype=torch.float32, device=dev)
+        scratch = (torch.empty(r * n * (n | 1), dtype=torch.float32,
+                               device=dev)
+                   if n > batch_smem_max_n() else None)
+        rc = lib.pct_psd_solve_batched(
+            a3.data_ptr(), b2d.data_ptr(), r, n, int(refine), x.data_ptr(),
+            res2.data_ptr(), b2.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"psd_solve_raw_batched launch failed: cudaError {rc}")
+    psd_solve_raw_batched.launches += 1
+    return x.reshape(*lead, n), res2.reshape(lead), b2.reshape(lead)
+
+
+# per device: the systems under vmap whose residual missed the rule (0-d
+# int64 tensors, made on the first, uncaptured, call on that device)
+_batch_misses: dict = {}
+
+
+def _device_key(device) -> torch.device:
+    """``device`` with its index: a CUDA device named without one is the
+    current device, so "cuda" and "cuda:0" name one counter."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def batch_misses(device) -> torch.Tensor:
+    """The device counter of the systems, solved by the batched kernel
+    under vmap, whose residual missed the rule (res2 > RES_TOL b2): under
+    ``psd_solve`` each took the fallback's x. Made at 0 on first use (a
+    graph that captures the count must follow an uncaptured call)."""
+    device = _device_key(device)
+    if device not in _batch_misses:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the batched SPD kernel's miss counter is "
+                               "made by an uncaptured call first")
+        _batch_misses[device] = torch.zeros((), dtype=torch.int64,
+                                            device=device)
+    return _batch_misses[device]
+
+
+def reset_batch_counts():
+    """Zero the batched kernel's launch count and every device's miss
+    counter (in place: a captured graph keeps adding to the same one)."""
+    psd_solve_raw_batched.launches = 0
+    for t in _batch_misses.values():
+        t.zero_()
+
+
+@_psd_solve_batched_op.register_vmap
+def _psd_solve_batched_vmap(info, in_dims, a_n, rhs_n, refine):
+    r = info.batch_size
+
+    def lead(t, d):
+        return (t.movedim(d, 0) if d is not None
+                else t.expand(r, *t.shape))
+
+    x, res2, b2 = _psd_solve_batched_op(lead(a_n, in_dims[0]),
+                                        lead(rhs_n, in_dims[1]), refine)
+    misses = batch_misses(x.device)
+    misses.add_((~residual_ok(res2, b2)).sum())
+    return (x, res2, b2), (0, 0, 0)
+
+
+def psd_solve_raw_batched(a_n: torch.Tensor, rhs_n: torch.Tensor,
+                          refine: int = 2):
+    """The batched kernel on (R, n, n) systems and (R, n) right-hand
+    sides -> (x (R, n), res2 (R,), b2 (R,)), one launch (CPU tensors: the
+    plain twin). Under ``torch.func.vmap`` its rule folds the vmapped axis
+    into R, so a vmapped call is one launch too."""
+    return _psd_solve_batched_op(a_n, rhs_n, int(refine))
+
+
+psd_solve_raw_batched.launches = 0
 
 
 def _tile_bounds(n: int, k: int) -> tuple[int, int]:
@@ -199,6 +346,11 @@ def psd_diag_tile(l: torch.Tensor, k: int) -> torch.Tensor:
 psd_diag_tile.launches = 0
 
 
+def _batched(*ts) -> bool:
+    """Whether any of ``ts`` is batched by ``torch.func.vmap``."""
+    return any(torch._C._functorch.is_batchedtensor(t) for t in ts)
+
+
 def residual_ok(res2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """The reference's acceptance rule for a dense solve, res2 <= RES_TOL b2
     (false where either is NaN), as a boolean tensor on their device."""
@@ -245,6 +397,12 @@ def psd_solve(a_n: torch.Tensor, rhs_n: torch.Tensor, *, refine: int = 2,
         ``psd_solve.fallbacks``. The check reads a flag on the host unless
         it is deferred (``deferred_residual_checks``).
     """
+    if fallback is not None and _batched(a_n, rhs_n):
+        # jax.vmap of lax.cond: both branches, selected per system on the
+        # device (batch_misses counts the systems that took the fallback)
+        x, res2, b2 = psd_solve_raw(a_n, rhs_n, refine=refine)
+        return torch.where(residual_ok(res2, b2), x,
+                           fallback(a_n, rhs_n).to(x.dtype))
     if fallback is not None and _deferred is not None \
             and _deferred.take_fallback:
         psd_solve.fallbacks += 1

@@ -14,11 +14,16 @@ by the structured LM (one CUDA graph replay per LM step on a card), the
 residuals and the calibrated CameraSet with its calibration history. ``device`` is the card unless the caller names
 another; dtype as ``config.default_device_dtype``.
 
+``shared_intrinsics`` (True, a label list or a dict) takes the tied
+backend (``optim/shared_intr.py::build_shared_structured_problem``), as in
+the JAX package: never an untied solve. A backend other than ``"auto"`` /
+``"structured"`` with it raises ``ValueError``, as the JAX package does.
+
 Not in this slice, each raising ``NotImplementedError`` with its ROADMAP
 Queue A item, never another backend: ``backend="scipy"`` and the generic
 fallback of ``"auto"`` (item 8) for a chain that neither
 ``build_structured_problem`` nor ``build_mixed_structured_problem`` takes,
-``backend="sharded"`` (item 11) and ``shared_intrinsics`` (item 7).
+and ``backend="sharded"`` (item 11).
 """
 from __future__ import annotations
 
@@ -53,15 +58,31 @@ def run_bundle_adjustment(param_handler, threads: int = 1, dtype=None,
               history, the argmin CameraSet)
     """
     logging.info("Making optimisation problem")
+    tied = param_handler.problem_opts.get("shared_intrinsics")
+    if tied and backend == "sharded":
+        raise ValueError(
+            "shared_intrinsics is not available on the sharded backend (the "
+            "tied reduced system is tiny)")
+    if tied and backend not in ("auto", "structured"):
+        # no silent fallback: the other backends have no tying fold and
+        # would solve every camera's lens independently
+        raise ValueError(
+            f"shared_intrinsics is not available on the {backend!r} "
+            "backend (it would silently solve untied); use "
+            "backend='auto' or 'structured'")
     if backend not in ("auto", "structured"):
         item = {"sharded": "11"}.get(backend, "8")
         raise NotImplementedError(
             f"backend={backend!r} is not ported yet (ROADMAP Queue A item "
             f"{item}); the port serves 'auto' and 'structured'")
-    if param_handler.problem_opts.get("shared_intrinsics"):
-        raise NotImplementedError(
-            "shared_intrinsics (the tied backend, optim/shared_intr.py) is "
-            "not ported yet (ROADMAP Queue A item 7)")
+    if tied:
+        from pycamset_tpu_torch.optim.shared_intr import (
+            build_shared_structured_problem)
+        solve_fn, residual_fn, init_params = build_shared_structured_problem(
+            param_handler, dtype=dtype, device=device)
+        logging.info("Using the tied (shared-intrinsics) backend")
+        return _finish_bundle_adjustment(param_handler, solve_fn,
+                                         residual_fn, init_params)
     try:
         solve_fn, residual_fn, init_params = build_structured_problem(
             param_handler, dtype=dtype, device=device)

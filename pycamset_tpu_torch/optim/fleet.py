@@ -30,12 +30,16 @@ On a card each step of a cohort is one replay of a CUDA graph
 ``graph=False`` runs the uncaptured batched step from the host, the
 reference the graphs are held to bit for bit.
 
+The tied fleet (``shared_intrinsics``, ``_build_tied_fleet``; JAX ``:465-640``)
+carries TiedPieces with the tied LM ops (``optim/shared_intr.py``), Kernel B
+folded over the rigs as in the template fleet. Opted in to the SPD kernel
+(``PYCAMSET_PALLAS_CHOL=1``), every fleet's dense reduced solves go to its
+batched form: one launch a batch step (``structured._psd_solve``).
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: the tied fleet (``shared_intrinsics``, ``:465``; Queue A item 7),
-the sharded fleet (``mesh=``, item 11), the CG reduced solver (item 6),
-the pose-free free-point chain's fleet (its wrappers over Kernels C and D
-launch one rig; item 6) and the opt-in SPD kernel on the batch (Queue B
-item 4, ``structured._psd_solve``).
+item: the sharded fleet (``mesh=``, Queue A item 11), the CG reduced
+solver (item 6) and the pose-free free-point chain's fleet (its wrappers
+over Kernels C and D launch one rig; item 6).
 """
 from __future__ import annotations
 
@@ -585,9 +589,10 @@ def build_fleet_problem(handlers, dtype=None, device="cuda",
         return _build_mixed_fleet(handlers, x0s, dtype, device,
                                   k_pad_multiple)
     if _opt(opts, "shared_intrinsics", None):
-        raise NotImplementedError(
-            "the tied fleet (shared_intrinsics, optim/shared_intr.py) is "
-            "not ported yet (ROADMAP Queue A item 7)")
+        # the tied fleet has its own pieces: the template path would
+        # silently solve untied
+        return _build_tied_fleet(handlers, x0s, widths, grouped, opts,
+                                 dtype, device, k_pad_multiple)
     h0 = handlers[0]
     op_fun = h0.op_fun
     if chain_family(op_fun, widths) == "freepoint":
@@ -682,9 +687,11 @@ def _build_mixed_fleet(handlers, x0s, dtype, device,
         merge_mixed_to_full, pad_mixed_pieces, split_full_mixed)
     widths, gok, n_groups, opts = _validate_mixed_fleet(handlers)
     if _opt(opts, "shared_intrinsics", None):
-        raise NotImplementedError(
-            "the tied fleet (shared_intrinsics, optim/shared_intr.py) is "
-            "not ported yet (ROADMAP Queue A item 7)")
+        # the single-rig tied backend's refusal (the JAX fleet would solve
+        # this chain untied)
+        raise UnsupportedChain(
+            "shared_intrinsics supports template chains only "
+            "(projection + extrinsic + template points)")
     h0 = handlers[0]
     op_fun = h0.op_fun
     n_cams, n_keys = len(h0.cam_names), h0.n_keys()
@@ -739,6 +746,82 @@ def _build_mixed_fleet(handlers, x0s, dtype, device,
         int(_opt(opts, "max_nfev", 100)), rigs, x0s, merge,
         [detection_residuals(op_fun, h.dd, tpl, key_rows, device, dtype)
          for h in rigs], to_pieces, gok_pad, n_groups)
+
+
+def _build_tied_fleet(handlers, x0s, widths, grouped, opts, dtype, device,
+                      k_pad_multiple: int) -> HandlerFleet:
+    """Shared-intrinsics (tied-lens) fleet: TiedPieces state, the folded
+    normal equations and the tied LM ops, plugged in as the mixed fleet
+    is. Single-rig counterpart: ``shared_intr.
+    build_shared_structured_problem``. Every rig must have the same
+    lens-group layout (FleetMismatch); per-camera fixed intrinsics raise
+    UnsupportedChain."""
+    from pycamset_tpu_torch.optim.shared_intr import (
+        TiedLayout, TiedPieces, check_no_fixed_intrinsics, check_tied_chain,
+        make_tied_ops, resolve_lens_groups)
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_colmask_pieces, detection_residuals, merge_structured)
+    h0 = handlers[0]
+    op_fun = h0.op_fun
+    if grouped:
+        raise UnsupportedChain(
+            "shared_intrinsics supports template chains only "
+            "(projection + extrinsic + template points)")
+    s = check_tied_chain(op_fun, widths)
+    n_cams, n_keys = len(h0.cam_names), h0.n_keys()
+    gid = resolve_lens_groups(opts["shared_intrinsics"], h0.cam_names)
+    for i, h in enumerate(handlers[1:], start=1):
+        gid_i = resolve_lens_groups(opts["shared_intrinsics"], h.cam_names)
+        if not np.array_equal(gid_i, gid):
+            raise FleetMismatch(
+                f"rig {i} lens-group layout differs from rig 0 (the fleet "
+                f"shares one tied structure)")
+    n_ims_grid = _fleet_grid(handlers, opts,
+                             lambda h: int(h.bundlePrimitive.poses.shape[0]))
+    k_pad = -(-max(n_keys, 1) // k_pad_multiple) * k_pad_multiple
+    tpl = torch.as_tensor(_shared_table(handlers, op_fun, n_keys, k_pad),
+                          dtype=dtype, device=device)
+    rigs, uvs, masks = _rig_hosts(handlers, x0s, op_fun, n_cams, n_ims_grid,
+                                  n_keys, 0, k_pad_multiple)
+    cms = [build_colmask_pieces(h.base_full, _unfixed(h), op_fun, h.struct,
+                                widths, n_cams, h.n_ims, n_keys, k_pad,
+                                n_ims_grid) for h in rigs]
+    for cm in cms:
+        check_no_fixed_intrinsics(cm, s)
+    layout = TiedLayout(gid, s, k_pad)
+    merges = [merge_structured(op_fun, h.struct, n_cams, h.n_ims, n_keys,
+                               n_keys) for h in rigs]
+
+    def to_pieces(r: int, full: np.ndarray) -> TiedPieces:
+        h = rigs[r]
+        p = split_full_params(torch.as_tensor(full), op_fun, h.struct,
+                              n_cams, h.n_ims, n_keys, widths)
+        p = pad_pieces_to_grid(p, widths, False, n_keys, k_pad, h.n_ims,
+                               n_ims_grid)
+        return layout.tie(ParamPieces(*(t.to(device=device, dtype=dtype)
+                                        for t in p)))
+
+    def residuals_of(h: RigHost):
+        res = detection_residuals(op_fun, h.dd, tpl,
+                                  lambda p, key: p.key[key], device, dtype)
+        return lambda tp: res(layout.expand(tp))
+
+    neq_raw = make_structured_neq(
+        op_fun, widths, n_cams, n_ims_grid,
+        loss=_opt(opts, "loss", "linear"),
+        f_scale=float(_opt(opts, "f_scale", 1.0)),
+        loss_semantics=_opt(opts, "loss_semantics", "component"))
+    return HandlerFleet(
+        op_fun, widths, False, n_cams, n_ims_grid, n_keys,
+        _stack(TiedPieces, [to_pieces(r, h.base_full)
+                            for r, h in enumerate(rigs)]),
+        _rows(uvs, dtype, device), _rows(masks, dtype, device), tpl,
+        _stack(ParamPieces, [ParamPieces(*(t.to(device=device, dtype=dtype)
+                                           for t in cm)) for cm in cms]),
+        layout.make_neq(neq_raw), make_tied_ops(layout.onehot),
+        int(_opt(opts, "max_nfev", 100)), rigs, x0s,
+        lambda r, x: merges[r](layout.expand(x)),
+        [residuals_of(h) for h in rigs], to_pieces)
 
 
 def run_fleet_bundle_adjustment(handlers, dtype=None, device="cuda",

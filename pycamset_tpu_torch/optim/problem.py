@@ -4,7 +4,9 @@
 on one device (template, self-calibration, pose-free free-point or grouped
 chain; the free-point chain's image piece is zero-width) and solves it
 with the structured LM; ``MixedProblem`` does the same for the mixed
-multi-target chain, with its own pieces and LM ops. On a card it owns the CUDA graphs of its LM step
+multi-target chain, with its own pieces and LM ops; ``TiedProblem`` the template chain with
+shared intrinsics (``optim/shared_intr.py``: TiedPieces, the folded normal
+equations and the tied LM ops). On a card it owns the CUDA graphs of its LM step
 (``graph``), one per dense-solve route, dtype and budget: the first solve
 captures one, and later solves of the same problem replay it.
 
@@ -127,3 +129,20 @@ class MixedProblem(BAProblem):
 
     def key_operands(self, pieces, colmask):
         return pack_c_axis(self.onehot(pieces.key), pieces, colmask)
+
+
+@dataclass
+class TiedProblem(BAProblem):
+    """A template problem whose cameras share one lens per lens group
+    (``shared_intrinsics``): TiedPieces, the untied normal equations (Kernel
+    A or B) folded through the tying map, and the tied LM ops
+    (``optim/shared_intr.py``). ``x0`` is TiedPieces; ``colmask`` stays
+    the untied layout's."""
+    layout: object = None   # shared_intr.TiedLayout
+
+    def make_neq(self):
+        return self.layout.make_neq(super().make_neq())
+
+    def ops(self):
+        from pycamset_tpu_torch.optim.shared_intr import make_tied_ops
+        return make_tied_ops(self.layout.onehot)

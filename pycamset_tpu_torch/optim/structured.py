@@ -731,7 +731,10 @@ def _psd_solve(amat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     falling back to the library route. The default is the library route,
     ``cholesky_ex`` + ``cholesky_solve``, as in the JAX package. Under
     ``torch.func.vmap`` (the fleet) the library route solves the batch;
-    the opt-in raises there, as the kernel takes one system.
+    opted in, the kernel with a batch axis solves it in one launch
+    (``psd_solve_raw_batched``), and each system whose residual misses
+    takes the library route's x, selected on the device as ``jax.vmap``
+    selects the branches of ``lax.cond``.
     """
     n = amat.shape[0]
     d = torch.sqrt(torch.clamp(torch.diagonal(amat), min=1e-30))
@@ -740,12 +743,6 @@ def _psd_solve(amat: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     a_n = a_n + ridge * torch.eye(n, dtype=amat.dtype, device=amat.device)
     rhs_n = rhs / d
     if use_cuda_psd(n, amat.dtype, amat.device):
-        if torch._C._functorch.is_batchedtensor(a_n):
-            raise NotImplementedError(
-                "the one-launch SPD kernel (PYCAMSET_PALLAS_CHOL=1) solves "
-                "one system a launch; a batch of them (the fleet) needs "
-                "ROADMAP Queue B item 4, the SPD kernel with a batch axis. "
-                "Unset PYCAMSET_PALLAS_CHOL to take the library route")
         sol = psd_solve(a_n, rhs_n, fallback=_cho_refine_solve)
     else:
         sol = _cho_refine_solve(a_n, rhs_n)

@@ -187,7 +187,8 @@ def _rig_cams(intr, exts):
 def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
                      options: dict | None = None,
                      template_warp: float = 0.0,
-                     camera_model: str = "standard"):
+                     camera_model: str = "standard",
+                     shared_intrinsics=None):
     """``standard_problem``'s rig as a user holds it: a CameraSet of the
     rig's cameras (1600 x 1200), the TargetDetection of its table, the grid
     as a ``FreePointTarget``, and a ``TemplateBundleHandler`` (options
@@ -201,11 +202,17 @@ def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
     :param camera_model: the rig's lens model (``make_synthetic_rig``'s:
         "standard", "rational", "thin_prism", "tilted" or "fisheye"); the
         cameras carry its true distortion, and the handler solves it.
+    :param shared_intrinsics: None, True (every camera one lens) or
+        per-camera group ids: the rig's cameras share their group's true
+        lens, and the handler ties them (its ``shared_intrinsics``
+        option).
     :return: (handler, rig)."""
     rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
                              visibility=0.85, noise_px=0.3, seed=seed,
                              template_warp=template_warp,
-                             camera_model=camera_model)
+                             camera_model=camera_model,
+                             shared_intrinsics=shared_intrinsics)
+    options = {**_tied_option(shared_intrinsics), **(options or {})}
     cams, names = _rig_cams(rig["intr"], [make_4x4h_tform(e[:3], e[3:])
                                           for e in rig["extr"]])
     handler = TemplateBundleHandler(
@@ -218,6 +225,14 @@ def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
     handler.set_initial_params(
         perturbed_start(rig, struct)[prim.unfixed_full()])
     return handler, rig
+
+
+def _tied_option(shared_intrinsics) -> dict:
+    """The handler option of a tied rig (group ids as labels), or none."""
+    if shared_intrinsics is None or shared_intrinsics is False:
+        return {}
+    return {"shared_intrinsics": (True if shared_intrinsics is True else
+                                  [int(g) for g in shared_intrinsics])}
 
 
 def freepoint_scene(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
@@ -586,7 +601,8 @@ def multi_target_handler(n_cams: int, n_ims: int, mixed: bool = True,
 
 def fleet_handlers(chain: str, n_rigs: int, n_cams: int, n_ims: int,
                    grid: int = 10, options: dict | None = None,
-                   camera_model: str = "standard") -> list:
+                   camera_model: str = "standard",
+                   shared_intrinsics=None) -> list:
     """R handlers of one structure for ``optim.fleet.
     run_fleet_bundle_adjustment``, as ``fleet_problem`` makes its rigs:
     rig r from ``make_synthetic_rig(seed=100 + r)`` (visibility 0.85,
@@ -604,8 +620,13 @@ def fleet_handlers(chain: str, n_rigs: int, n_cams: int, n_ims: int,
     :param options: the handlers' options (after ``outliers: "n"``,
         ``verbosity: 0``), e.g. ``{"im_bucket": None}``.
     :param camera_model: the rigs' lens model (``make_synthetic_rig``'s),
-        which the handlers solve."""
+        which the handlers solve.
+    :param shared_intrinsics: the template chain's tied lenses, as
+        ``template_handler``'s (the tied fleet)."""
     from pycamset_tpu_torch.optim.handlers import SelfBundleHandler
+    if shared_intrinsics is not None and chain != "template":
+        raise ValueError("shared_intrinsics ties the template chain only")
+    options = {**_tied_option(shared_intrinsics), **(options or {})}
     rng = np.random.default_rng(7)
     out = []
     for r in range(n_rigs):
@@ -616,7 +637,8 @@ def fleet_handlers(chain: str, n_rigs: int, n_cams: int, n_ims: int,
             continue
         rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
                                  visibility=0.85, noise_px=0.3, seed=100 + r,
-                                 camera_model=camera_model)
+                                 camera_model=camera_model,
+                                 shared_intrinsics=shared_intrinsics)
         cams, names = _rig_cams(rig["intr"], [make_4x4h_tform(e[:3], e[3:])
                                               for e in rig["extr"]])
         cls = {"template": TemplateBundleHandler,

@@ -3,7 +3,9 @@
 On CPU tensors ``psd_solve_raw`` runs its plain twin, which is held against
 the JAX package's Pallas kernel ``_pallas_psd_solve_raw`` in interpret mode
 on the systems of ``tests/test_pallas_cholesky.py`` (float32 on both sides)
-and against ``np.linalg.solve`` in float64. Then the zero right-hand side,
+and against ``np.linalg.solve`` in float64; its batched form (the batched
+kernel's op) against ``jax.vmap`` of the Pallas kernel. Then the zero
+right-hand side,
 the residual fallback and its count, the opt-in dispatch rule, and the
 template and self-cal LM solves with the one-launch route forced in both
 packages.
@@ -51,6 +53,101 @@ def test_plain_twin_matches_the_pallas_kernel(n, cond, tol):
     assert abs(np.sqrt(float(rt) / float(bt))
                - np.sqrt(float(rj) / float(bj))) < tol
     assert abs(float(bt) / float(bj) - 1.0) < 1e-6
+
+
+@pytest.mark.parametrize("n,cond,tol", [(33, 1e3, 1e-4), (64, 1e3, 1e-4)])
+def test_batched_twin_matches_the_vmapped_pallas_kernel(n, cond, tol):
+    """The batched kernel's op on CPU tensors (its twin, system by system)
+    and ``psd_solve_raw`` under torch.func.vmap against ``jax.vmap`` of the
+    Pallas kernel (a batch axis in its grid) in interpret mode: a batch of
+    3, each system under the one-system cases' bounds; the vmapped call is
+    the op's result bit for bit."""
+    import jax
+    a_n, rhs = (np.stack(t) for t in zip(
+        *(_normalized_spd(n, cond, seed=s) for s in range(3))))
+    xj, rj, bj = jax.vmap(functools.partial(
+        pc._pallas_psd_solve_raw, interpret=True))(
+            jnp.asarray(a_n, jnp.float32), jnp.asarray(rhs, jnp.float32))
+    a32 = torch.tensor(a_n, dtype=torch.float32)
+    b32 = torch.tensor(rhs, dtype=torch.float32)
+    xt, rt, bt = cc.psd_solve_raw_batched(a32, b32)
+    assert xt.shape == (3, n) and rt.shape == bt.shape == (3,)
+    for p, q in zip(torch.func.vmap(cc.psd_solve_raw)(a32, b32),
+                    (xt, rt, bt)):
+        assert torch.equal(p, q)
+    for i in range(3):
+        x_ref = np.linalg.solve(a_n[i], rhs[i])
+        scale = np.linalg.norm(x_ref)
+        x = xt[i].double().numpy()
+        assert np.linalg.norm(x - x_ref) / scale < tol
+        assert np.linalg.norm(x - np.asarray(xj[i], np.float64)) / scale < tol
+        assert abs(np.sqrt(float(rt[i]) / float(bt[i]))
+                   - np.sqrt(float(rj[i]) / float(bj[i]))) < tol
+        assert abs(float(bt[i]) / float(bj[i]) - 1.0) < 1e-6
+
+
+def test_vmapped_fallback_selects_per_system():
+    """``psd_solve`` with a fallback under vmap: the fallback runs on the
+    whole batch, and each system takes the kernel's x where its residual
+    passes and the fallback's where it does not (a NaN system here),
+    counted on the device; the deferred checks are bypassed."""
+    a_n, rhs = (np.stack(t) for t in zip(
+        *(_normalized_spd(32, 1e2, seed=s) for s in range(3))))
+    a = torch.tensor(a_n, dtype=torch.float32)
+    a[1, 3, 5] = float("nan")
+    b = torch.tensor(rhs, dtype=torch.float32)
+    marker = torch.full((32,), 7.0)
+    misses = int(cc.batch_misses("cpu"))
+    with cc.deferred_residual_checks() as flags:
+        x = torch.func.vmap(lambda a_, b_: cc.psd_solve(
+            a_, b_, fallback=lambda *_: marker))(a, b)
+    assert flags == []
+    assert torch.equal(x[1], marker)
+    for i in (0, 2):
+        assert torch.equal(x[i], cc.psd_solve_raw(a[i], b[i])[0])
+    assert int(cc.batch_misses("cpu")) == misses + 1
+
+
+# The kernels' one input rule: the one-system kernel takes (n, n) and (n,)
+# contiguous, the batched kernel any leading axes, (..., n, n) and (..., n).
+@pytest.mark.parametrize("a_shape,b_shape,batched,ok", [
+    ((5, 5), (5,), False, True),
+    ((1, 5, 5), (1, 5), False, False),
+    ((5, 5), (4,), False, False),
+    ((2, 3, 5, 5), (2, 3, 5), True, True),
+    ((5, 5), (5,), True, True),
+    ((2, 5, 5), (3, 5), True, False),
+    ((2, 5, 4), (2, 5), True, False),
+    ((5,), (5,), True, False),
+])
+def test_kernel_input_rule(a_shape, b_shape, batched, ok):
+    a, b = torch.ones(a_shape), torch.ones(b_shape)
+    if ok:
+        cc._check_cuda_inputs(a, b, batched=batched)
+    else:
+        with pytest.raises(ValueError, match="are not"):
+            cc._check_cuda_inputs(a, b, batched=batched)
+    with pytest.raises(TypeError):
+        cc._check_cuda_inputs(a.double(), b.double(), batched=batched)
+
+
+def test_input_rule_contiguity_is_the_one_system_kernels():
+    a, b = torch.ones(6, 6)[:, :5][:5], torch.ones(5)
+    with pytest.raises(ValueError, match="contiguous"):
+        cc._check_cuda_inputs(a, b)
+    cc._check_cuda_inputs(a, b, batched=True)
+    with pytest.raises(ValueError, match="outside"):
+        cc._check_cuda_inputs(torch.ones(1, 0, 0), torch.ones(1, 0),
+                              batched=True)
+
+
+def test_miss_counter_names_a_cuda_device_by_its_index(monkeypatch):
+    """"cuda" is the current device: one counter key with "cuda:<index>"."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert cc._device_key("cuda") == torch.device("cuda", 1)
+    assert cc._device_key("cuda:1") == cc._device_key(torch.device("cuda"))
+    assert cc._device_key("cuda:0") == torch.device("cuda", 0)
+    assert cc._device_key("cpu") == torch.device("cpu")
 
 
 @pytest.mark.parametrize("n,cond,tol", CASES)

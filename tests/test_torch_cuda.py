@@ -23,7 +23,10 @@ atomics). The LM step captured as a CUDA graph
 gives the uncaptured step's bits on both dense-solve routes, and a capture
 that cannot proceed raises. Under torch.func.vmap (the fleet) Kernels A and
 B fold every rig into one launch, each rig's rows equal to its own
-launch's; the fleet's captured cascade gives the uncaptured bits.
+launch's; the fleet's captured cascade gives the uncaptured bits. The SPD
+kernel with a batch axis (one block a system) is held to its float64 twin,
+within twice the float32 library route's error, and to the one-system
+kernel, and a fleet opted in to it launches it once a batch step.
 """
 import numpy as np
 import pytest
@@ -1091,15 +1094,117 @@ def test_folded_key_kernels_match_one_rig_launches(card, kernel, loss,
         _assert_scaled(scaled, f"{kernel} rig {r}")
 
 
+# The SPD kernel with a batch axis (one block a system): each system
+# against the float64 twin, within twice the float32 library route's error
+# on the same system (floor 1e-6: at n = 1 both are exact), its residual
+# within the rule, and against the one-system kernel system by system; at
+# the fleets' widths (33: 4 cameras and one lens, tied; 60 and 168: the
+# handler fleets), at 600, at the largest n whose factor the kernel keeps in
+# shared memory and at one above it (the device-memory form).
+def _spd_batch(n, batch, cond=1e3):
+    a, b = zip(*(_normalized_spd(n, cond, seed=s) for s in range(batch)))
+    return np.stack(a), np.stack(b)
+
+
+def _library_x(a32, b32):
+    from pycamset_tpu_torch.optim.structured import _cho_refine_solve
+    return torch.stack([_cho_refine_solve(a, b) for a, b in zip(a32, b32)])
+
+
+def _rel(x, ref):
+    return (torch.linalg.norm(x.double() - ref, dim=-1)
+            / torch.linalg.norm(ref, dim=-1))
+
+
 @pytest.mark.cuda
-def test_opt_in_route_raises_on_a_batched_system(card, monkeypatch):
+@pytest.mark.parametrize("batch", [1, 7, 64])
+@pytest.mark.parametrize("n", [1, 33, 60, 168, 600, "smem", "smem+1"])
+def test_psd_batched_matches_float64_twin(card, batch, n):
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    if isinstance(n, str):
+        n = cc.batch_smem_max_n() + (n == "smem+1")
+    a_n, rhs = _spd_batch(n, batch)
+    a32 = torch.tensor(a_n, dtype=torch.float32, device=card)
+    b32 = torch.tensor(rhs, dtype=torch.float32, device=card)
+    before = cc.psd_solve_raw_batched.launches
+    x, res2, b2 = cc.psd_solve_raw_batched(a32, b32)
+    assert cc.psd_solve_raw_batched.launches == before + 1
+    assert x.shape == (batch, n) and res2.shape == b2.shape == (batch,)
+    x64, _, b2_64 = cc.psd_solve_raw_plain_batched(a32.double(),
+                                                   b32.double())
+    err = _rel(x, x64)
+    lib_err = _rel(_library_x(a32, b32), x64)
+    assert bool((err <= torch.clamp(2 * lib_err, min=1e-6)).all()), (
+        n, batch, err.max(), lib_err.max())
+    assert bool((res2 <= cc.RES_TOL * b2).all()), (res2 / b2).max()
+    assert bool(((b2.double() / b2_64 - 1).abs() < 1e-6).all())
+    one = torch.stack([cc.psd_solve_raw(a, b)[0] for a, b in zip(a32, b32)])
+    both = torch.maximum(err, _rel(one, x64))
+    assert bool((_rel(x, one.double()) <= torch.clamp(2 * both, min=1e-6))
+                .all())
+    again = cc.psd_solve_raw_batched(a32, b32)
+    for p, q in zip((x, res2, b2), again):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.cuda
+def test_psd_batched_under_vmap_is_one_launch(card):
+    """``psd_solve_raw`` under torch.func.vmap: one launch of the batched
+    kernel, its bits; the misses counter counts no system that passes."""
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    a_n, rhs = _spd_batch(33, 5)
+    a32 = torch.tensor(a_n, dtype=torch.float32, device=card)
+    b32 = torch.tensor(rhs, dtype=torch.float32, device=card)
+    ref = cc.psd_solve_raw_batched(a32, b32)
+    cc.reset_batch_counts()
+    n_one = cc.psd_solve_raw.launches
+    got = torch.func.vmap(cc.psd_solve_raw)(a32, b32)
+    assert cc.psd_solve_raw_batched.launches == 1
+    assert cc.psd_solve_raw.launches == n_one
+    for p, q in zip(got, ref):
+        assert torch.equal(p, q)
+    assert int(cc.batch_misses(card)) == 0
+    with torch.cuda.device(card):
+        assert cc.batch_misses("cuda") is cc.batch_misses(card)
+
+
+@pytest.mark.cuda
+def test_psd_batched_raises_instead_of_falling_back(card):
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    a_n, rhs = _spd_batch(8, 2)
+    a32 = torch.tensor(a_n, dtype=torch.float32, device=card)
+    b32 = torch.tensor(rhs, dtype=torch.float32, device=card)
+    with pytest.raises(TypeError):
+        cc.psd_solve_raw_batched(a32.double(), b32.double())
+    with pytest.raises(ValueError):
+        cc.psd_solve_raw_batched(a32, b32[:, :4].contiguous())
+    n = cc.MAX_N + 1
+    with pytest.raises(ValueError):
+        cc.psd_solve_raw_batched(torch.eye(n, device=card)[None],
+                                 torch.ones(1, n, device=card))
+
+
+# A fleet opted in to the SPD kernel: one batched launch a batch step (each
+# step solves every rig's reduced system at once), none of the one-system
+# kernel, and the captured cascade gives the uncaptured bits.
+@pytest.mark.cuda
+def test_opt_in_fleet_takes_the_batched_kernel(card, monkeypatch):
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    from pycamset_tpu_torch.optim import cuda_grams as cg
     from pycamset_tpu_torch.problems import fleet_problem
     monkeypatch.setenv("PYCAMSET_PALLAS_CHOL", "1")
     fleet = fleet_problem(3, 2, 16, card, grid=5)
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        fleet.solve(graph=False)
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        fleet.solve()
+    cc.reset_batch_counts()
+    n_b, n_one = cg.template_gram_fused.launches, cc.psd_solve_raw.launches
+    ref = fleet.solve(graph=False)
+    steps = cg.template_gram_fused.launches - n_b - 1
+    assert cc.psd_solve_raw_batched.launches == steps > 0
+    assert cc.psd_solve_raw.launches == n_one
+    assert all(s in (1, 2) for s in ref.status.tolist())
+    got = fleet.solve()
+    for a, b in zip([*got.x, got.cost, got.status, got.history],
+                    [*ref.x, ref.cost, ref.status, ref.history]):
+        assert torch.equal(a, b)
 
 
 # The fleet's cascade with its graphs (one per cohort size), owned by the

@@ -15,8 +15,8 @@ of the one-rig step, the same cascade):
   equal per-rig calls of the plain twins exactly;
 - the fleet's step runners (the CUDA graphs of a card) run uncaptured and
   give the host loop's bits;
-- the shared-target rule, the opt-in SPD route's refusal of a batch, and
-  the entry points' default device.
+- the shared-target rule, the opt-in SPD route on a batch (the batched
+  kernel's op, its twin on the CPU), and the entry points' default device.
 
 The captured graphs and the folded kernels themselves need a card
 (``tests/test_torch_cuda.py``).
@@ -204,15 +204,43 @@ def test_fleet_per_block_family_matches_solo():
         assert _rel(res.cost[r], solo.cost) <= 1e-9
 
 
-def test_batched_system_on_the_opt_in_route_raises(monkeypatch):
-    """The one-launch SPD kernel takes one system: a fleet opted in to it
-    (its plain twin forced here, as on a card) raises, naming the ROADMAP
-    item, and does not take the library route in its place."""
-    monkeypatch.setattr(ts, "use_cuda_psd", lambda n, dtype, device: True)
+def test_opt_in_route_solves_the_batch_with_the_batched_kernel(
+        monkeypatch):
+    """A fleet opted in to the SPD kernel (the rule forced here, as on a
+    card) solves each batch step's systems through one call of the
+    batched op (on the CPU its twin, system by system) under vmap, the
+    cascade's cohorts included: per rig the library
+    route's nit, nfev and status, the cost within 1e-9, and no system
+    missing the residual rule."""
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
     prob = problems.fleet_problem(2, 2, 4, "cpu", grid=4)
-    with pytest.raises(NotImplementedError,
-                       match="Queue B item 4, the SPD kernel with a batch"):
-        prob.solve()
+    ref = prob.solve()
+    calls = []
+    op = cc.psd_solve_raw_batched
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return op(*args, **kw)
+
+    from pycamset_tpu_torch.optim import structured_lm as sl
+    steps = []
+    step = sl.batch_step
+
+    def counted_step(*args, **kw):
+        steps.append(1)
+        return step(*args, **kw)
+
+    monkeypatch.setattr(ts, "use_cuda_psd", lambda n, dtype, device: True)
+    monkeypatch.setattr(cc, "psd_solve_raw_batched", counted)
+    monkeypatch.setattr(sl, "batch_step", counted_step)
+    misses = int(cc.batch_misses("cpu"))
+    got = prob.solve()
+    assert len(calls) == len(steps) >= max(ref.nit)
+    assert (got.nit, got.nfev) == (ref.nit, ref.nfev)
+    assert torch.equal(got.status, ref.status)
+    assert float((got.cost - ref.cost).abs().max()) <= 1e-9 * float(
+        ref.cost.max())
+    assert int(cc.batch_misses("cpu")) == misses
 
 
 @pytest.mark.parametrize("make,args", [

@@ -31,7 +31,6 @@ from pycamset_tpu_torch.examples import extend_param_handler as ex
 from pycamset_tpu_torch.from_jax import (camset_from_numpy,
                                          detection_from_numpy)
 from pycamset_tpu_torch.optim import handlers as ph
-from pycamset_tpu_torch.optim import structured as ts
 from pycamset_tpu_torch.optim.fleet import (FleetMismatch,
                                             build_fleet_problem, fleet_solve,
                                             run_fleet_bundle_adjustment)
@@ -96,12 +95,34 @@ def _assert_same_rigs(jax_out, port_out):
                     np.abs(ref).max(), 1e-12)
 
 
+def _target_gauged(h):
+    """A mixed handler of either package with ``problems.target_gauge``'s
+    point gauge (7 coordinates on target 0, 6 on target 1; unseen points
+    frozen) in place of the example's, which leaves the board's rotations
+    free and the LM crawling (ROADMAP Queue C 8: seeds 17 and 19 take 18
+    and 99 iterations; with this gauge 11 and 10)."""
+    pts3 = np.asarray(h.point_data).reshape(-1, 3)
+    gok = np.asarray(h.group_of_key())
+    seen = np.unique(h.get_detection_data(flatten=True)[:, 2].astype(int))
+    unfixed = np.repeat(np.isin(np.arange(len(pts3)), seen), 3)
+    for g, similarity in ((0, True), (1, False)):
+        idx = np.where(gok == g)[0]
+        unfixed[[3 * idx[0] + j
+                 for j in problems.target_gauge(pts3[idx], similarity)]] = False
+    h.bundlePrimitive.bdpt_unfixed = unfixed
+    return h
+
+
 @pytest.fixture(scope="module", params=list(SEEDS))
 def solved(request):
-    """Both packages' fleets of one chain, and their starts."""
+    """Both packages' fleets of one chain, and their starts (the mixed
+    chain's handlers in both packages at ``_target_gauged``'s gauge)."""
     chain = request.param
     jhs = [_jax_handler(chain, s) for s in SEEDS[chain]]
     phs = [_port_handler(jh, chain) for jh in jhs]
+    if chain == "mixed":
+        jhs = [_target_gauged(h) for h in jhs]
+        phs = [_target_gauged(h) for h in phs]
     starts = [(jh.get_initial_params(), h.get_initial_params())
               for jh, h in zip(jhs, phs)]
     return dict(chain=chain, starts=starts, jax=jax_fleet(jhs),
@@ -184,13 +205,10 @@ def test_different_targets_of_one_size_raise():
 
 
 @pytest.mark.parametrize("what,item", [
-    ("shared_intrinsics", "Queue A item 7"), ("mesh", "Queue A item 11"),
-    ("reduced_solver cg", "Queue A item 6"),
-    ("spd batch", "Queue B item 4, the SPD kernel with a batch"),
+    ("mesh", "Queue A item 11"), ("reduced_solver cg", "Queue A item 6"),
     ("freepoint chain", "Queue A item 6")])
-def test_unported_fleet_paths_raise(monkeypatch, what, item):
-    opts = {"shared_intrinsics": {"shared_intrinsics": True},
-            "reduced_solver cg": {"reduced_solver": "cg"}}.get(what, {})
+def test_unported_fleet_paths_raise(what, item):
+    opts = {"reduced_solver cg": {"reduced_solver": "cg"}}.get(what, {})
     if what == "freepoint chain":
         phs = [problems.freepoint_handler(2, 3, grid=4, seed=s,
                                           k_pad_multiple=8)[0]
@@ -198,9 +216,6 @@ def test_unported_fleet_paths_raise(monkeypatch, what, item):
     else:
         phs = [_port_handler(_jax_handler("template", s), "template", opts)
                for s in SEEDS["template"]]
-    if what == "spd batch":
-        monkeypatch.setattr(ts, "use_cuda_psd",
-                            lambda n, dtype, device: True)
     with pytest.raises(NotImplementedError, match=item):
         run_fleet_bundle_adjustment(phs, device="cpu",
                                     mesh=object() if what == "mesh" else None)

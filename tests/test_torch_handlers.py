@@ -181,8 +181,7 @@ def _refuse(what):
     """Drive the port's user path into one part it does not have yet."""
     # a camera_model map mixing families (the JAX package's het rig) or
     # Brown widths; the five models themselves are ported
-    options = {"shared_intrinsics": {"shared_intrinsics": True},
-               "reduced_solver cg": {"reduced_solver": "cg"},
+    options = {"reduced_solver cg": {"reduced_solver": "cg"},
                "camera_model": {"camera_model": {
                    "cam0": "fisheye", "cam1": "standard",
                    "cam2": "standard"}},
@@ -209,7 +208,7 @@ def _refuse(what):
 
 @pytest.mark.parametrize("what,item", [
     ("backend scipy", "item 8"), ("backend sharded", "item 11"),
-    ("shared_intrinsics", "item 7"), ("rolling_shutter", "item 7"),
+    ("rolling_shutter", "item 7"),
     ("camera_model", "item 7"), ("camera_model widths", "item 7"),
     ("reduced_solver cg", "item 6"),
     ("mixed chain", "group_of_key"), ("mixed chain", "item 8"),
