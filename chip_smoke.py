@@ -159,6 +159,19 @@ routes: its ``TiedProblem`` captured = uncaptured, Kernel A or B once an
 evaluation, the SPD kernel once a step on the kernel route, status, rms,
 identical group rows, at 16 x 100 the cost against the float64 CPU solve.
 
+Then the mixed-model rigs, one camera model a camera: ``[brown_mix]``
+(standard / rational / thin-prism in turn: the thin-prism chain at a = 22,
+the narrower cameras' extra coefficients pinned by the column mask) saves
+and reloads a 16 x 100 template calibration on Kernel A, self-calibrates
+the same rig with its board bent on Kernel C, and solves 64 x 400 through
+``run_bundle_adjustment`` on Kernel B, each kernel held to its float64
+twin on its problem's tensors and timed, the pinned columns exact zeros;
+``[het_rig]`` (fisheye / standard in turn, a = 16: the selector chain
+``ProjectionHet``) does the 16 x 100 template and self-cal stages with no
+gram kernel, on the plain closed form its chain takes. Both: captured =
+uncaptured, status, rms, the warm ms an evaluation beside ``[user_path]``'s,
+the float32 cost against the float64 CPU solve at 4 x 100.
+
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
 kernels as JSON; the last is
@@ -1944,7 +1957,7 @@ def user_path_inputs(n_cams: int, n_ims: int):
             handler.get_initial_params(), time.perf_counter() - t0)
 
 
-def phase_user_path(probs, cpu_x64: dict) -> dict:
+def phase_user_path(probs, cpu_x64: dict, ms_per_eval: dict) -> dict:
     """The user path at each bench template shape, on both dense-solve
     routes: a ``TemplateBundleHandler`` seeded through
     ``set_initial_params`` (no PnP, no OpenCV), its problem
@@ -1971,7 +1984,8 @@ def phase_user_path(probs, cpu_x64: dict) -> dict:
     solve (capture), ``residual_fn``, ``get_camset``,
     ``run_stereo_calibration`` end to end, its save (``CameraSet.save``
     timed inside it), load; the warm solve median (CUDA events, 5) beside
-    the ``problems.py`` problem's.
+    the ``problems.py`` problem's, and its ms an evaluation into
+    ``ms_per_eval[(shape, route)]``.
 
     :return: {shape: {route: launches of its gram kernel (and psd_solve)
         in run_stereo_calibration}}."""
@@ -2027,6 +2041,8 @@ def phase_user_path(probs, cpu_x64: dict) -> dict:
                       f"{tag}: gram kernels {counts}, problems.py "
                       f"{bench_counts} (nfev {warm.nfev}, {bench.nfev})")
                 handler_ms = timed(lambda: solve_fn(x_init), 5)
+                ms_per_eval[(shape, route)] = (float(np.median(handler_ms))
+                                               / warm.nfev)
                 bench_ms = timed(prob.solve, 5)
                 t0 = time.perf_counter()
                 resid = residual_fn(x_ref)
@@ -2369,7 +2385,9 @@ def solved_through_graph(tag, solve_fn, x0, kernel_route: bool):
     counts, (x_warm, warm) = solve_kernel_counts(lambda: solve_fn(x0))
     check(runner.graph is graph and graph is not None
           and runner.replays - replays == warm.nit,
-          f"{tag}: not one capture and one replay a step")
+          f"{tag}: not one capture and one replay a step (graph "
+          f"{graph is not None}, replays {runner.replays - replays}, nit "
+          f"{warm.nit}, uncaptured nit {ref.nit})")
     check(same_solve(first, ref) and same_solve(warm, ref)
           and np.array_equal(x_first, x_ref)
           and np.array_equal(x_warm, x_ref),
@@ -2393,11 +2411,12 @@ def check_selfcal_passes(tag, counts: dict, warm, flag: str, iw: int = 9):
                          f"evaluations, {want} expected")
 
 
-def main_path_counts(counted, own: str, tag: str, run):
+def main_path_counts(counted, own: str | None, tag: str, run):
     """The main path's run: every wrapper's count and the SPD kernel's set
     to 0 just before ``run()``, read just after; ``own`` must have launched
-    and no other gram wrapper. Returns (run's result, own's launches, the
-    SPD kernel's launches, the host seconds)."""
+    and no other gram wrapper (``own`` None: no gram wrapper at all, the
+    chain's plain route). Returns (run's result, own's launches, the SPD
+    kernel's launches, the host seconds)."""
     from pycamset_tpu_torch.ops import cuda_cholesky as cc
     zero_counts(counted)
     cc.psd_solve_raw.launches = 0
@@ -2405,10 +2424,11 @@ def main_path_counts(counted, own: str, tag: str, run):
     result = run()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
-    check(launches[own] > 0 and not any(
+    check((own is None or launches[own] > 0) and not any(
         n for name, n in launches.items() if name != own),
         f"{tag}: the main path launched {launches}")
-    return result, launches[own], cc.psd_solve_raw.launches, seconds
+    return (result, launches.get(own, 0), cc.psd_solve_raw.launches,
+            seconds)
 
 
 def phase_freepoint(fp_probs) -> dict:
@@ -2830,16 +2850,19 @@ def camera_model_times(cg, prob, fused: bool, peak_tflops: float) -> dict:
     return t
 
 
-def cpu_f64_cost_check(tag, handler, x0, cost) -> dict:
+def cpu_f64_cost_check(tag, handler, x0, cost, max_nfev=None) -> dict:
     """A card solve's float32 ``cost`` from ``x0`` against the float64 CPU
-    solve of a copy of ``handler`` from the same start: within 1e-4
-    relative. Returns the CPU solve's nit, its seconds and the gap."""
+    solve of a copy of ``handler`` from the same start (``max_nfev``: its
+    budget of evaluations, if given): within 1e-4 relative. Returns the
+    CPU solve's nit, its seconds and the gap."""
     from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
     from pycamset_tpu_torch.optim.structured_driver import (
         build_structured_problem)
+    opts = dict(handler.problem_opts)
+    if max_nfev is not None:
+        opts["max_nfev"] = max_nfev
     h64 = TemplateBundleHandler(handler.camset, handler.target,
-                                handler.detection,
-                                options=dict(handler.problem_opts))
+                                handler.detection, options=opts)
     h64.set_initial_params(x0)
     t0 = time.perf_counter()
     cpu_fn, _, _ = build_structured_problem(h64, device="cpu")
@@ -4116,6 +4139,20 @@ TIED = {"tied 16x100": (16, 100, True, "standard", "saved", "template_gram"),
 # [tied_fleet]: fleet_problem's rigs (64 of 4 cameras x 16 images, grid 10)
 # with one lens a rig, as template handlers
 TIED_FLEET = (64, 4, 16)
+# mixed-model rigs: the camera models cycled over the cameras, the widest
+# model's camera width (the het rig's: its selector row), its main-path
+# shapes -> (cameras, images, the gram wrapper of the template stage, of
+# the self-cal stage (None: none), the entry: "saved" run_stereo_calibration
+# with the file loaded back, "rba" run_bundle_adjustment)
+MIXED_RIGS = {
+    "brown_mix": (("standard", "rational", "thin_prism"), 22, {
+        "16x100": (16, 100, "template_gram", "selfcal_gram_fused", "saved"),
+        "64x400": (64, 400, "template_gram_fused", None, "rba")}),
+    "het_rig": (("fisheye", "standard"), 16, {
+        "16x100": (16, 100, None, None, "saved")})}
+# each camera model's distortion width
+DIST_WIDTH = {"fisheye": 4, "standard": 5, "rational": 8, "thin_prism": 12,
+              "tilted": 14}
 
 
 def same_lens_rows(cams, gid) -> bool:
@@ -4269,6 +4306,301 @@ def phase_tied_user_path(counted, dev) -> dict:
             del solve_fn, prob, result, cams
         torch.cuda.empty_cache()
     return out
+
+
+def pinned_columns_zero(tag, prob):
+    """The problem's normal equations at its start on the card: every
+    camera column its mask pins (a narrower Brown camera's extra
+    coefficients, a het rig's selector and pad slots) exact zeros in hcc,
+    gc, wci and wck. Returns the pinned count."""
+    neq = prob.neq_fn()(prob.x0)
+    pinned = prob.colmask.cam == 0
+    check(bool(pinned.any()) and all(bool((x == 0).all()) for x in (
+        neq.gc[pinned], neq.hcc[pinned], neq.hcc.transpose(1, 2)[pinned],
+        neq.wci.transpose(0, 1)[:, pinned], neq.wck.transpose(1, 2)[pinned])),
+        f"{tag}: a pinned column is not exact zeros in the normal equations")
+    return int(pinned.sum())
+
+
+def mixed_rig_times(name: str, prob, builds: dict,
+                    peak_tflops: float) -> dict:
+    """Kernel ``name``'s device time on a mixed-model problem's own tensors
+    (A, B at the start, ``camera_model_times``; C moved as
+    ``selfcal_inputs`` moves it, its passes under torch.profiler), the
+    wrapper's and the float32 twin's CUDA-event ms, the bound, and the
+    registers and spills of its build at the widest model's width."""
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    if name.startswith("template"):
+        t = camera_model_times(cg, prob, name.endswith("fused"), peak_tflops)
+    else:
+        n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+        f32 = selfcal_inputs(prob)
+        c32 = (*f32[:5], *f32[6:])
+        packed = sg.pack_block_params(*f32[:2])
+        iw = prob.widths.a - 6
+        t = {"kernel_ms": kernel_ms(lambda: sg._launch_selfcal_fused(
+                 packed, *c32[2:], n_cams, n_ims, 0, 1, 1.0, iw)),
+             "ms": cuda_ms(lambda: sg.selfcal_gram_fused(*c32, n_cams,
+                                                         n_ims), 10),
+             "plain_ms": cuda_ms(lambda: sg.selfcal_gram_fused_plain(
+                 *c32, n_cams, n_ims), 3)}
+        t["bound_ms"], t["bound_by"] = bound(name, prob)
+    build = builds[(name, "thin_prism")]
+    t.update(registers=build["registers"], spill_bytes=build["spill_bytes"])
+    return t
+
+
+def mixed_rig_solve(tag, handler, own, n_eval_kernels, counted, dev, entry,
+                    path=None):
+    """One stage of a mixed-model rig: the handler's problem solved
+    uncaptured, capturing and warm (``solved_through_graph``: captured =
+    uncaptured), its gram kernel by profiler names once an evaluation
+    (``own`` None: no gram kernel at all), the warm ms; then the user's
+    entry as the main path (its counts zeroed just before: ``own`` alone,
+    or no wrapper), its parameters the solve's bit for bit, status 1-2 and
+    rms <= 0.36 px. Returns (the entry's result, its handler, the
+    record)."""
+    import torch
+    from pycamset_tpu_torch.calibration.camera_calibrator import (
+        run_stereo_calibration)
+    from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    x0 = handler.get_initial_params()
+    t0 = time.perf_counter()
+    solve_fn, _, x_init = build_structured_problem(handler, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prob = solve_fn.problem
+    x_ref, ref, counts, warm, first_s, runner = solved_through_graph(
+        tag, solve_fn, x_init, False)
+    grams = {n: k for n, k in counts.items()
+             if n.split("<")[0] != "psd_solve_kernel"}
+    want = {n: warm.nfev for n in n_eval_kernels}
+    check(grams == want, f"{tag}: gram kernels {grams} in {warm.nfev} "
+                         f"evaluations, {want} expected")
+    warm_ms = timed(lambda: solve_fn(x_init), 3)
+    e2e = type(handler)(handler.camset, handler.target, handler.detection,
+                        options=dict(handler.problem_opts))
+    e2e.missing_poses = handler.missing_poses
+    e2e.set_initial_params(x0)
+    if entry == "rba":
+        def run():
+            return run_bundle_adjustment(e2e, device=dev)
+    else:
+        def run():
+            return run_stereo_calibration(
+                None, None, None, param_handler=e2e, save=path is not None,
+                save_loc=path, device=dev)
+    result, n_own, _, e2e_s = main_path_counts(counted, own, tag, run)
+    x_main = (result[0].x if entry == "rba"
+              else result.calibration_params)
+    check(np.array_equal(x_main, x_ref),
+          f"{tag}: the entry's parameters differ from the solve's")
+    status, rms = int(ref.status), prob.rms_px(ref.cost)
+    check(status in (1, 2), f"{tag}: status {status}")
+    check(rms <= 0.36, f"{tag}: rms {rms} above 0.36 px")
+    median = float(np.median(warm_ms))
+    return result, e2e, {
+        "prob": prob, "ref": ref, "n_own": n_own, "nit": ref.nit,
+        "nfev": ref.nfev, "status": status, "rms_px": rms,
+        "ms_per_evaluation": median / warm.nfev, "solve_ms_median": median,
+        "launches_per_eval": f"{grams}/{warm.nfev}",
+        "capture_ms": runner.capture_ms, "build_s": build_s,
+        "first_solve_s": first_s, "e2e_s": e2e_s}
+
+
+def phase_mixed_rigs(kind: str, counted, dev, kern: dict, builds: dict,
+                     peak_tflops: float, user_ms: dict) -> tuple[dict, dict]:
+    """[brown_mix] and [het_rig]: rigs with one camera model a camera
+    (``problems.template_handler(camera_model=[...])``, the models cycled
+    over the cameras, the bench's start), through the user's entry points
+    on the library route (``MIXED_RIGS``).
+
+    [brown_mix] (standard / rational / thin-prism, a = 22: the thin-prism
+    chain, the narrower cameras' extra coefficients pinned): at 16 x 100
+    (grid 104) the template stage on Kernel A, saved by
+    ``run_stereo_calibration`` and loaded back (distortion widths 5 / 8 /
+    12), then the self-cal stage (``problems.selfcal_stage_handler``) on
+    Kernel C; at 64 x 400 ``run_bundle_adjustment`` on Kernel B. Each
+    kernel on its problem's own tensors against its float64 twin, four
+    losses (``camera_model_parity``: A, B at their start;
+    ``user_path_parity``: C moved as ``selfcal_inputs`` moves it), recorded
+    in ``kern``, and timed (``mixed_rig_times``); the pinned columns exact
+    zeros in the normal equations.
+    [het_rig] (fisheye / standard in turn, a = 16): the template stage
+    saved and loaded back (widths 4 / 5), then the self-cal stage, with no
+    gram kernel: the plain closed form, by its chain.
+
+    Each stage: captured = uncaptured, its kernel once an evaluation by
+    profiler names (or none), the entry as the main path, status 1-2, rms
+    <= 0.36 px, the warm ms an evaluation beside [user_path]'s (``user_ms``,
+    the same run);
+    at 4 x 100 the float32 cost within 1e-4 relative of the float64 CPU
+    solve of the same rig (``cpu_f64_cost_check``).
+
+    :return: ({kernel: {"<kind> <shape> <stage>": main-path launches}},
+        {kernel: {"<kind> <shape>": times}})."""
+    import tempfile
+
+    import torch
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
+    from pycamset_tpu_torch.optim.structured import is_het_chain
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import (selfcal_stage_handler,
+                                             template_handler)
+    from pycamset_tpu_torch.utils.saving import load_CameraSet
+    cycle, a, shapes = MIXED_RIGS[kind]
+    het = kind == "het_rig"
+    launches, times = {}, {}
+
+    def models_of(n_cams):
+        return [cycle[c % len(cycle)] for c in range(n_cams)]
+
+    for shape, (n_cams, n_ims, own, own_sc, entry) in shapes.items():
+        t_shape = time.perf_counter()
+        tag = f"{kind} {shape}"
+        models = models_of(n_cams)
+        handler, rig = template_handler(n_cams, n_ims, camera_model=models)
+        inputs_s = time.perf_counter() - t_shape
+        prob = build_structured_problem(handler, device=dev)[0].problem
+        check(prob.widths.a == a and is_het_chain(prob.op_fun) == het,
+              f"{tag}: camera width {prob.widths.a}")
+        n_pinned = pinned_columns_zero(tag, prob)
+        if own is not None:
+            rec = {"f32_floor_cases": []}
+            camera_model_parity(cg, tag, prob, own.endswith("fused"), rec)
+            record(kern, own, tag, {k: rec[k] for k in ("abs", "rel",
+                                                        "scaled")})
+            times.setdefault(own, {})[tag] = mixed_rig_times(
+                own, prob, builds, peak_tflops)
+            say("time", case=f"{own}_{kind}_{shape}", a=a, unit="ms",
+                **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                   for k, v in times[own][tag].items()})
+        del prob
+        iw = a - 6
+        kernels = ([] if own is None else [f"gram_kernel<{iw},false>"]
+                   if own == "template_gram" else
+                   [f"gram_kernel<{iw},true>", f"cam_reduce_kernel<{iw}>"])
+        with tempfile.TemporaryDirectory() as tmp:
+            path = (os.path.join(tmp, "cams.camset") if entry == "saved"
+                    else None)
+            result, e2e, st = mixed_rig_solve(
+                f"{tag} template stage", handler, own, kernels, counted, dev,
+                entry, path)
+            fields = {}
+            if path is not None:
+                back = load_CameraSet(path)
+                widths = [np.ravel(c.distortion_coefs).size for c in back]
+                check(back == result and widths == [
+                    DIST_WIDTH[m] for m in models]
+                    and back.calibration_handler.camera_models == models,
+                    f"{tag}: the loaded CameraSet differs (widths {widths})")
+                fields["file_dist_widths"] = ",".join(
+                    str(w) for w in sorted(set(widths)))
+        launches.setdefault(own, {})[f"{tag} template stage"] = st["n_own"]
+        uniform = user_ms.get((f"template {shape}", "library"))
+        say(kind, shape=shape, stage="template", a=a,
+            models="/".join(cycle), pinned_columns=n_pinned,
+            kernel=own or "none (plain closed form)",
+            same_bits=True, nit=st["nit"], nfev=st["nfev"],
+            status=st["status"], rms_px=f"{st['rms_px']:.5f}",
+            n_real=st["prob"].blocks.n_real, im_grid=st["prob"].blocks.n_ims,
+            launches_per_eval=st["launches_per_eval"],
+            e2e_launches=f"{own or 'none'}:{st['n_own']}",
+            ms_per_evaluation=f"{st['ms_per_evaluation']:.3f}",
+            user_path_ms_per_evaluation=(f"{uniform:.3f}" if uniform
+                                         else "not measured"),
+            solve_ms_median=f"{st['solve_ms_median']:.3f}",
+            capture_ms=f"{st['capture_ms']:.1f}", inputs_s=f"{inputs_s:.2f}",
+            build_s=f"{st['build_s']:.3f}",
+            first_solve_s=f"{st['first_solve_s']:.3f}",
+            e2e_s=f"{st['e2e_s']:.3f}", **fields)
+        if shape == "16x100":
+            # the float64 CPU solve of the same rig at 4 x 100, at the card
+            # solve's budget of evaluations: the Brown models' float64 LM
+            # crawls on (99 steps, 30.8 s of the card host's CPU)
+            h_s, _ = template_handler(4, 100, camera_model=models_of(4))
+            x_s = h_s.get_initial_params()
+            fn_s, _, xi_s = build_structured_problem(h_s, device=dev)
+            ref_s = fn_s(xi_s)[1]
+            say(kind, shape="4x100", stage="template", nit=ref_s.nit,
+                nfev=ref_s.nfev, status=int(ref_s.status),
+                **cpu_f64_cost_check(f"{kind} 4x100", h_s, x_s, ref_s.cost,
+                                     max_nfev=ref_s.nfev))
+            del h_s, fn_s
+        if shape == "16x100":
+            # the self-cal stage: the same rig with its board bent
+            # BOARD_WARP m RMS (as [selfcal_user_path]'s: on the flat board
+            # the template stage's result is already the self-cal optimum,
+            # one LM step), its template stage the warm start
+            t0 = time.perf_counter()
+            hb, rig_b = template_handler(n_cams, n_ims, camera_model=models,
+                                         template_warp=BOARD_WARP)
+            (res_b, solved), _, _, warm_start_s = main_path_counts(
+                counted, own, f"{tag} bent board template stage",
+                lambda: run_bundle_adjustment(hb, device=dev))
+            tpl_rms = float(np.sqrt(np.mean(res_b.fun ** 2)))
+            check(res_b.status in (1, 2),
+                  f"{tag}: the bent board's template stage status "
+                  f"{res_b.status}")
+            sh = selfcal_stage_handler(solved, hb)
+            prob_sc = build_structured_problem(sh, device=dev)[0].problem
+            check(prob_sc.widths.a == a, f"{tag}: self-cal width")
+            n_pinned = pinned_columns_zero(f"{tag} self-cal", prob_sc)
+            if own_sc is not None:
+                user_path_parity(kern, f"{tag} self-cal", own_sc, prob_sc)
+                times.setdefault(own_sc, {})[f"{tag} self-cal"] = (
+                    mixed_rig_times(own_sc, prob_sc, builds, peak_tflops))
+                say("time", case=f"{own_sc}_{kind}_{shape}_self-cal", a=a,
+                    unit="ms", **{
+                        k: (f"{v:.4f}" if isinstance(v, float) else v)
+                        for k, v in times[own_sc][f"{tag} self-cal"].items()})
+            del prob_sc
+            kernels = ([] if own_sc is None else
+                       [f"mixed_kernel<{iw},3,true>",
+                        f"mixed_reduce_kernel<{iw},3,true>"])
+            solved_sc, _, sc = mixed_rig_solve(
+                f"{tag} self-cal stage", sh, own_sc, kernels, counted, dev,
+                "stereo")
+            check(sc["rms_px"] <= tpl_rms,
+                  f"{tag}: the self-cal stage's rms {sc['rms_px']} above "
+                  f"its template stage's {tpl_rms}")
+            # the recovered board against the true bent one
+            pts = sh.get_updated_target(solved_sc.calibration_params)
+            true = rig_b["template_true"]
+            err_mm = 1e3 * float(np.sqrt(np.mean(np.sum(
+                (pts - true) ** 2, axis=1))))
+            nominal_mm = 1e3 * float(np.sqrt(np.mean(np.sum(
+                (rig_b["template"] - true) ** 2, axis=1))))
+            check(err_mm < nominal_mm,
+                  f"{tag}: the recovered board is {err_mm:.3f} mm from the "
+                  f"true one, the nominal {nominal_mm:.3f}")
+            launches.setdefault(own_sc, {})[f"{tag} self-cal stage"] = (
+                sc["n_own"])
+            say(kind, shape=shape, stage="self-cal", a=a,
+                kernel=own_sc or "none (plain closed form)", same_bits=True,
+                board_warp_m=BOARD_WARP, template_stage_rms_px=f"{tpl_rms:.5f}",
+                warm_start_s=f"{warm_start_s:.3f}",
+                nit=sc["nit"], nfev=sc["nfev"], status=sc["status"],
+                rms_px=f"{sc['rms_px']:.5f}", pinned_columns=n_pinned,
+                board_rms_mm=f"{err_mm:.4f}",
+                nominal_board_rms_mm=f"{nominal_mm:.4f}",
+                launches_per_eval=sc["launches_per_eval"],
+                e2e_launches=f"{own_sc or 'none'}:{sc['n_own']}",
+                ms_per_evaluation=f"{sc['ms_per_evaluation']:.3f}",
+                solve_ms_median=f"{sc['solve_ms_median']:.3f}",
+                capture_ms=f"{sc['capture_ms']:.1f}",
+                e2e_s=f"{sc['e2e_s']:.3f}",
+                seconds=f"{time.perf_counter() - t_shape:.1f}")
+        del handler, e2e, result, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches.pop(None, None)
+    return launches, times
 
 
 def capture_batched_systems(fleet):
@@ -4578,7 +4910,8 @@ def main() -> int:
         seconds=f"{time.perf_counter() - t_start:.1f}")
     del fleet
     torch.cuda.empty_cache()
-    user = phase_user_path(probs, {})
+    user_ms = {}
+    user = phase_user_path(probs, {}, user_ms)
     say("elapsed", after="user_path",
         seconds=f"{time.perf_counter() - t_start:.1f}")
     for shape, by_route in user.items():
@@ -4683,6 +5016,22 @@ def main() -> int:
     say("elapsed", after="tied_user_path",
         seconds=f"{time.perf_counter() - t_start:.1f}",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    mixed_launches, mixed_times = {}, {}
+    for kind in MIXED_RIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        by_kernel, by_time = phase_mixed_rigs(
+            kind, counted, dev, kern, builds, peak_rec["tflops"], user_ms)
+        for name, by_solve in by_kernel.items():
+            mixed_launches.setdefault(name, {}).update(by_solve)
+        for name, by_shape in by_time.items():
+            mixed_times.setdefault(name, {}).update(by_shape)
+        say("elapsed", after=kind,
+            seconds=f"{time.perf_counter() - t_start:.1f}",
+            phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    for name, by_solve in mixed_launches.items():
+        launches[name].update(by_solve)
     for phase, recs in (("multi_target_handlers", multi),
                         ("fleet_handlers", fleet_h)):
         for shape, rec in recs.items():
@@ -4722,6 +5071,8 @@ def main() -> int:
                           if rec["own"] == name}
         if handler_fleets:
             extra["fleet_handlers"] = handler_fleets
+        if name in mixed_times:     # the pinned-column mixed Brown rigs
+            extra["mixed_rigs"] = mixed_times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches[name].values()),

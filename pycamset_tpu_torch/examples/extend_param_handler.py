@@ -19,7 +19,10 @@ width 9). Both run through ``optim.driver.run_bundle_adjustment`` and
 
 The PnP seed of the relative pose (``add_extra_params``) needs OpenCV, as
 the handlers' own seed does; without it, seed with
-``set_initial_params``.
+``set_initial_params``. The rig takes one camera model: a per-camera map
+(fisheye beside Brown cameras, or Brown models of several widths) raises
+``NotImplementedError`` (the JAX examples build the standard projection
+whatever the map).
 """
 from __future__ import annotations
 
@@ -88,6 +91,12 @@ class TwoTargetCalibrator(TemplateBundleHandler):
                  fixed_params=None, options=None, missing_poses=None):
         super().__init__(camset, target0, detection0, fixed_params, options,
                          missing_poses)
+        if self.mixed_models:
+            kinds = sorted(set(self.camera_models))
+            raise NotImplementedError(
+                f"a per-camera camera_model map {kinds} on the two-target "
+                f"chains is not ported yet (ROADMAP Queue A item 7): give "
+                f"the rig one model")
         self.extra_target = target1
         self.extra_detection = detection1
         self.len0 = target0.point_data.reshape(-1, 3).shape[0]

@@ -39,7 +39,8 @@ def handler_pieces_from_numpy(op_fun, full, unfixed, n_cams: int,
                               k_pad: int, device, dtype):
     """A handler's full parameter vector and unfixed mask (numpy: a JAX
     handler's ``bundlePrimitive.base_full()`` with its start placed at
-    ``unfixed_full()``, and that mask) -> (start ParamPieces, column-mask
+    ``unfixed_full()``, and that mask, which folds in a mixed-model rig's
+    per-column ``intr_colmask``) -> (start ParamPieces, column-mask
     ParamPieces) of the port's chain ``op_fun`` on the padded grid, as
     ``build_structured_problem`` lays them out: pad key rows replicate key
     0 and pad images image 0, neither ever free; a pose-free chain's image
@@ -100,7 +101,9 @@ def fleet_from_numpy(pieces, uv, mask, tpl, device, dtype):
 
 def camset_from_numpy(names, ext4x4, kmats, dists, res):
     """A CameraSet of the port from per-camera numpy arrays (a JAX
-    package's CameraSet as ``[c.extrinsic for c in cams]`` etc.)."""
+    package's CameraSet as ``[c.extrinsic for c in cams]`` etc.; each
+    camera's distortion at its own width, so a mixed-model rig carries
+    over: 4-wide fisheye beside 5- to 14-wide Brown cameras)."""
     return CameraSet(camera_dict=make_cam_dict(
         list(names), [np.asarray(e, dtype=float) for e in ext4x4],
         [np.asarray(k, dtype=float) for k in kmats],

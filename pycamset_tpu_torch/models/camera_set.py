@@ -8,10 +8,10 @@ dict / list / slice / name indexing, subsets, iteration, equality,
 Triangulation runs through the port's batched DLT
 (``ops/triangulation.py``) on ``device``, the card unless the caller names
 another, with each camera's distortion at its model's width (4, 5, 8, 12 or
-14; narrower Brown vectors zero-padded to the widest, ``stack_cam_dists``).
-A rig mixing fisheye and Brown cameras (the JAX package's het rows) raises
-(ROADMAP Queue A item 7); plots, scene export, the calibration diagnostics
-and rig transforms wait for items 8 and 10.
+14; narrower Brown vectors zero-padded to the widest, ``stack_cam_dists``);
+a rig mixing fisheye and Brown cameras undistorts through heterogeneous
+``[sel | coefs]`` rows, as the JAX package does. Plots, scene export, the
+calibration diagnostics and rig transforms wait for items 8 and 10.
 """
 from __future__ import annotations
 
@@ -28,19 +28,27 @@ from pycamset_tpu_torch.utils.general_utils import require_cv2
 from pycamset_tpu_torch.utils.saving import save_camset
 
 
-def stack_cam_dists(dist_list) -> np.ndarray:
-    """Stack per-camera distortion vectors into one (C, w) array, the
-    narrower Brown vectors zero-padded (exact sub-models). A rig mixing the
-    fisheye's 4-wide vectors with Brown ones (the JAX package's het rows)
-    raises ``NotImplementedError`` (ROADMAP Queue A item 7)."""
+def stack_cam_dists(dist_list):
+    """Stack per-camera distortion vectors into one (C, w) array.
+
+    A rig of one family stacks plainly, the narrower Brown vectors
+    zero-padded (exact sub-models). A rig mixing the fisheye's 4-wide
+    vectors with Brown ones returns heterogeneous rows ``[sel | coefs]``
+    (``ops/distortion.py``'s ``*_het`` functions) and het=True.
+
+    :return: (dists, het).
+    """
     dl = [np.ravel(np.asarray(d, dtype=float)) for d in dist_list]
     sizes = {d.size for d in dl}
-    if 4 in sizes and sizes != {4}:
-        raise NotImplementedError(
-            f"a rig mixing fisheye and Brown cameras (distortion widths "
-            f"{sorted(sizes)}) is not ported yet (ROADMAP Queue A item 7)")
-    w = max(sizes) if sizes else 5
-    return np.array([np.pad(d, (0, w - d.size)) for d in dl])
+    if 4 not in sizes or sizes == {4}:
+        w = max(sizes) if sizes else 5
+        return np.array([np.pad(d, (0, w - d.size)) for d in dl]), False
+    w = max(5, max(s for s in sizes if s != 4))
+    out = np.zeros((len(dl), 1 + w))
+    for i, d in enumerate(dl):
+        out[i, 0] = 1.0 if d.size == 4 else 0.0
+        out[i, 1:1 + min(d.size, w)] = d[:w]
+    return out, True
 
 
 def make_cam_dict(camera_names, extrinsic_matrices, intrinsic_matrices,
@@ -243,8 +251,8 @@ class CameraSet:
         intr = np.stack([cam.intrinsic for cam in self])
         # without distortion, a true identity: 5-wide Brown zeros (a zero
         # 4-wide vector would still be the equidistant fisheye mapping)
-        dists = (stack_cam_dists([cam.distortion_coefs for cam in self])
-                 if distort else np.zeros((len(self), 5)))
+        dists, het = (stack_cam_dists([cam.distortion_coefs for cam in self])
+                      if distort else (np.zeros((len(self), 5)), False))
 
         device = resolve_device(device)
         dtype = dtype or default_device_dtype(device)
@@ -255,7 +263,7 @@ class CameraSet:
         reconstructed = triangulate_observations(
             dev(proj), dev(intr), dev(dists),
             torch.as_tensor(cam_idx, device=device), dev(uv),
-            dev(mask)).double().cpu().numpy()
+            dev(mask), het=het).double().cpu().numpy()
 
         if return_used:
             where_mask = np.where(viable_mask[inv.squeeze()])[0]

@@ -3,14 +3,18 @@
 Counterpart of ``distort_normalized``, ``distort_pixels``,
 ``undistort_normalized``, ``undistort_pixels``, ``fisheye_theta_d``,
 ``fisheye_distort_normalized``, ``fisheye_undistort_normalized``,
-``_tilt_matrix`` and ``_apply_tilt`` in ``pycamset_tpu/ops/distortion.py``.
+``_tilt_matrix``, ``_apply_tilt`` and the heterogeneous-row functions
+(``distort_normalized_het``, ``undistort_normalized_het``,
+``undistort_pixels_het``) in ``pycamset_tpu/ops/distortion.py``.
 The width of ``dist`` names the model (OpenCV order): 5 standard
 [k1, k2, p1, p2, k3], 8 rational (+ k4, k5, k6: radial = num / den), 12
 thin-prism (+ s1..s4), 14 tilted (+ taux, tauy: the sensor-tilt
 homography) and 4 the fisheye [k1..k4] (Kannala-Brandt, cv2.fisheye). The
 coefficients broadcast against the points (``dist`` (..., n), ``kmat``
-(..., 3, 3)). A heterogeneous ``[sel | coefs]`` row (fisheye and Brown
-cameras in one rig) is not ported yet (ROADMAP Queue A item 7).
+(..., 3, 3)). A heterogeneous row ``[sel | coefs]`` (fisheye and Brown
+cameras in one rig) selects the family per camera: sel = 1 the fisheye
+with k1..k4 in the first four slots, sel = 0 the Brown model of the slot
+width; both branches are evaluated and selected, so no host read decides.
 """
 from __future__ import annotations
 
@@ -24,8 +28,8 @@ def _check_width(dist: torch.Tensor):
     if dist.shape[-1] not in DIST_WIDTHS:
         raise NotImplementedError(
             f"{dist.shape[-1]}-coefficient distortion: the models take "
-            f"{DIST_WIDTHS} coefficients; heterogeneous [sel | coefs] rows "
-            f"are not ported yet (ROADMAP Queue A item 7)")
+            f"{DIST_WIDTHS} coefficients (a heterogeneous [sel | coefs] row "
+            f"goes through the *_het functions)")
 
 
 def _radial_factor(r2: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
@@ -197,3 +201,30 @@ def undistort_pixels(uv: torch.Tensor, kmat: torch.Tensor, dist: torch.Tensor,
     """Invert distortion for pixel coords (..., 2): ideal pixel coords."""
     f, c = _focal_centre(kmat)
     return undistort_normalized((uv - c) / f, dist, iters=iters) * f + c
+
+
+def distort_normalized_het(xy: torch.Tensor,
+                           hdist: torch.Tensor) -> torch.Tensor:
+    """Forward-distort through a heterogeneous row ``[sel | coefs]``
+    (..., 1 + n): sel = 1 the fisheye (k1..k4 in the first four slots),
+    sel = 0 the Brown model of width n. Each branch stays finite on the
+    other family's coefficients, so the per-camera select is NaN-safe."""
+    brown = distort_normalized(xy, hdist[..., 1:])
+    fish = fisheye_distort_normalized(xy, hdist[..., 1:5])
+    return torch.where(hdist[..., 0, None] > 0.5, fish, brown)
+
+
+def undistort_normalized_het(xy_d: torch.Tensor, hdist: torch.Tensor,
+                             iters: int = 8) -> torch.Tensor:
+    """Invert a heterogeneous row's distortion
+    (``distort_normalized_het``)."""
+    brown = undistort_normalized(xy_d, hdist[..., 1:], iters=iters)
+    fish = fisheye_undistort_normalized(xy_d, hdist[..., 1:5], iters=iters)
+    return torch.where(hdist[..., 0, None] > 0.5, fish, brown)
+
+
+def undistort_pixels_het(uv: torch.Tensor, kmat: torch.Tensor,
+                         hdist: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """``undistort_pixels`` through a heterogeneous ``[sel | coefs]`` row."""
+    f, c = _focal_centre(kmat)
+    return undistort_normalized_het((uv - c) / f, hdist, iters=iters) * f + c

@@ -1,7 +1,8 @@
 """Batched n-view DLT triangulation.
 
 Counterpart of ``triangulate_nviews`` and ``triangulate_observations``
-(``method="homogeneous"``, one camera model a rig) in
+(``method="homogeneous"``; ``het`` for a rig mixing fisheye and Brown
+cameras) in
 ``pycamset_tpu/ops/triangulation.py``, in plain torch: views padded to a
 common count with a validity mask (zero rows add nothing to the normal
 matrix, so padding is exact), each observation undistorted by fixed point,
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from pycamset_tpu_torch.ops.distortion import undistort_pixels
+from pycamset_tpu_torch.ops.distortion import (undistort_pixels,
+                                               undistort_pixels_het)
 
 
 def triangulate_nviews(proj: torch.Tensor, uv: torch.Tensor,
@@ -39,16 +41,19 @@ def triangulate_nviews(proj: torch.Tensor, uv: torch.Tensor,
 
 def triangulate_observations(proj_all: torch.Tensor, kmats: torch.Tensor,
                              dists: torch.Tensor, cam_idx: torch.Tensor,
-                             uv: torch.Tensor,
-                             mask: torch.Tensor) -> torch.Tensor:
+                             uv: torch.Tensor, mask: torch.Tensor,
+                             het: bool = False) -> torch.Tensor:
     """Triangulate a batch of points from padded observation tables.
 
     :param proj_all: (C, 3, 4) per-camera projection matrices.
     :param kmats: (C, 3, 3) intrinsics; :param dists: (C, n)
-        distortion, n one of 4, 5, 8, 12, 14 (``ops/distortion.py``).
+        distortion, n one of 4, 5, 8, 12, 14 (``ops/distortion.py``), or
+        with ``het=True`` (C, 1 + n) rows [sel | coefs] of a rig mixing
+        fisheye and Brown cameras (``undistort_pixels_het``).
     :param cam_idx: (N, V) camera of each observation slot.
     :param uv: (N, V, 2) raw (distorted) pixels; :param mask: (N, V).
     :return: (N, 3) points.
     """
-    und = undistort_pixels(uv, kmats[cam_idx], dists[cam_idx])
+    und = (undistort_pixels_het if het else undistort_pixels)(
+        uv, kmats[cam_idx], dists[cam_idx])
     return triangulate_nviews(proj_all[cam_idx], und, mask)

@@ -10,8 +10,9 @@ module and ``make_optimisation_function`` are ROADMAP Queue A item 8.
 """
 from pycamset_tpu_torch.optim.blocks import (
     Extrinsic3D, FreePoint, FunctionBlock, ParamSpec, Projection,
-    ProjectionFisheye, ProjectionRational, ProjectionThinPrism,
-    ProjectionTilted, RigidTform3d, TemplatePoints, key_type)
+    ProjectionFisheye, ProjectionHet, ProjectionRational,
+    ProjectionThinPrism, ProjectionTilted, RigidTform3d, TemplatePoints,
+    key_type)
 from pycamset_tpu_torch.optim.chain import OptimFunction, ParamStruct
 from pycamset_tpu_torch.optim.handlers import (
     DEFAULT_OPTIONS, FreePointBundleHandler, FreePointTarget,
@@ -21,7 +22,7 @@ from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
 __all__ = [
     "FunctionBlock", "ParamSpec", "key_type", "Projection",
     "ProjectionRational", "ProjectionThinPrism", "ProjectionTilted",
-    "ProjectionFisheye", "RigidTform3d",
+    "ProjectionFisheye", "ProjectionHet", "RigidTform3d",
     "Extrinsic3D", "TemplatePoints", "FreePoint", "OptimFunction",
     "ParamStruct", "DEFAULT_OPTIONS", "TemplateBundleHandler",
     "SelfBundleHandler", "FreePointBundleHandler", "FreePointTarget",

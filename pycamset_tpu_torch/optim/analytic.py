@@ -1,9 +1,13 @@
-"""Closed-form residual + Jacobian for the template, self-calibration and
-multi-target chains, for the five camera models.
+"""Closed-form residual + Jacobian for the template, self-calibration,
+free-point and multi-target chains, for the five camera models, and for
+heterogeneous rigs (fisheye beside Brown cameras) on the template,
+self-calibration and free-point chains.
 
 Counterpart of ``projection_partials``, ``block_rj_template``,
-``block_rj_selfcal``, ``block_rj_grouped_template`` and
-``block_rj_mixed_selfcal`` in ``pycamset_tpu/optim/analytic.py``. The JAX
+``block_rj_selfcal``, ``block_rj_freepoint``,
+``block_rj_grouped_template``, ``block_rj_mixed_selfcal``, ``_het_split``,
+``_het_merge`` and ``make_block_rj_het`` in
+``pycamset_tpu/optim/analytic.py``. The JAX
 functions work on one block and are vmapped over blocks; these take the
 block axis (any leading dims) directly. Rotation derivatives come from the
 closed-form ``ops.rotations.rodrigues_jacobian``, the tilted model's dMt
@@ -14,7 +18,14 @@ Ji (2, 6) = d/pose6, and Jk: (2, 0) for the template chain, (2, 3) =
 d/point for the self-calibration chain, (2, 6) = d/group pose for the
 grouped chain and (2, 9) = [d/group pose | d/point] for the mixed chain.
 The intrinsic width selects the camera model: 9 standard, 12 rational, 16
-thin-prism, 18 tilted, 8 fisheye.
+thin-prism, 18 tilted, 8 fisheye. A heterogeneous camera vector [sel |
+fx px fy py | dist slots | extr6] (``blocks.ProjectionHet``) has no kernel
+in either package: ``block_rj_het`` evaluates the closed form at both
+families' re-packings of every block and selects per camera, as the JAX
+package runs it in XLA; no host read decides, so a captured LM step holds
+it. Mixed Brown widths need nothing here: their chain is the widest
+model's, with the narrower cameras' extra columns pinned by the column
+mask.
 """
 from __future__ import annotations
 
@@ -34,8 +45,7 @@ def _check_intr_w(intr_w: int):
         raise NotImplementedError(
             f"intrinsic width {intr_w}: the camera models are {INTR_WIDTHS} "
             f"(fisheye 8, standard 9, rational 12, thin-prism 16, tilted "
-            f"18); heterogeneous rows are not ported yet (ROADMAP Queue A "
-            f"item 7)")
+            f"18); a heterogeneous rig's rows go through block_rj_het")
 
 
 def projection_partials(intr: torch.Tensor, xc: torch.Tensor):
@@ -252,6 +262,29 @@ def block_rj_selfcal(cam_a: torch.Tensor, pose6: torch.Tensor,
     return r, jc, ji, jk
 
 
+def block_rj_freepoint(cam_a: torch.Tensor, pose6, points: torch.Tensor,
+                       uv: torch.Tensor):
+    """Closed-form (r, Jc, Ji, Jk) for blocks of the pose-free free-point
+    chain: Xc = Re X + te, Ji zero-width, Jk = d(u,v)/dXc Re.
+
+    :param pose6: not read (the chain has no image parameters).
+        Other shapes as ``block_rj_selfcal``; Ji is (..., K, 2, 0).
+    """
+    intr_w = cam_a.shape[-1] - 6
+    _check_intr_w(intr_w)
+    re = rodrigues_to_matrix(cam_a[..., intr_w:intr_w + 3])
+    dre = rodrigues_jacobian(cam_a[..., intr_w:intr_w + 3])
+    xc = (torch.einsum("...ab,kb->...ka", re, points)
+          + cam_a[..., None, intr_w + 3:])
+    pred, d_intr, d_xc = projection_partials(cam_a[..., :intr_w], xc)
+    r = pred - uv
+    dxc_drve = torch.einsum("...jab,kb->...kaj", dre, points)
+    j_rve = torch.einsum("...kta,...kaj->...ktj", d_xc, dxc_drve)
+    jc = torch.cat([d_intr, j_rve, d_xc], dim=-1)
+    jk = torch.einsum("...kta,...ab->...ktb", d_xc, re)
+    return r, jc, r.new_zeros(r.shape + (0,)), jk
+
+
 def _group_rj(cam_a, pose6, grp6, pts, uv):
     """(r, Jc, Ji, [J_rvg | J_tg], d_xc, Re Rp, Rg) of
     Xc = Re (Rp (Rg X + tg) + tp) + te, with the per-key group poses
@@ -298,3 +331,49 @@ def block_rj_mixed_selfcal(cam_a: torch.Tensor, pose6: torch.Tensor,
     m_k = torch.einsum("...ab,kbc->...kac", rerp, rg)
     j_pt = torch.einsum("...kta,...kab->...ktb", d_xc, m_k)
     return r, jc, ji, torch.cat([jg, j_pt], dim=-1)
+
+
+def _het_split(cam_a: torch.Tensor, brown_n_dist: int):
+    """Heterogeneous camera vectors [sel | fx px fy py | dist | extr6]
+    (..., a) -> (fisheye selector (..., 1, 1, 1) bool, the Brown
+    re-packing [intr | extr6], the fisheye one)."""
+    kvec, dist, extr = cam_a[..., 1:5], cam_a[..., 5:-6], cam_a[..., -6:]
+    cam_brown = torch.cat([kvec, dist[..., :brown_n_dist], extr], dim=-1)
+    cam_fish = torch.cat([kvec, dist[..., :4], extr], dim=-1)
+    return cam_a[..., 0, None, None, None] > 0.5, cam_brown, cam_fish
+
+
+def _het_merge(fish, out_b, out_f, w_d: int):
+    """Select each block's family outputs and embed Jc in the
+    heterogeneous column layout [sel | shared 4 | dist w_d | extr6] (the
+    selector column zero, a fisheye camera's pad slots zero)."""
+    (r_b, jc_b, ji_b, jk_b), (r_f, jc_f, ji_f, jk_f) = out_b, out_f
+    z1 = jc_b.new_zeros(jc_b.shape[:-1] + (1,))
+    pad_f = jc_f.new_zeros(jc_f.shape[:-1] + (w_d - 4,))
+    jc_bf = torch.cat([z1, jc_b], dim=-1)
+    jc_ff = torch.cat([z1, jc_f[..., :8], pad_f, jc_f[..., 8:]], dim=-1)
+    return (torch.where(fish[..., 0], r_f, r_b),
+            torch.where(fish, jc_ff, jc_bf), torch.where(fish, ji_f, ji_b),
+            torch.where(fish, jk_f, jk_b))
+
+
+_HET_INNER = {"template": block_rj_template, "selfcal": block_rj_selfcal,
+              "freepoint": block_rj_freepoint}
+
+
+def block_rj_het(family: str, brown_n_dist: int):
+    """The closed form of a heterogeneous rig's chain: fn(cam_a (..., a),
+    pose6, keyp_or_tpl (K, 3), uv (..., K, 2)) -> (r, Jc, Ji, Jk), the
+    chain's own closed form (``family``: "template", "selfcal" or
+    "freepoint") evaluated on both family re-packings of every block and
+    selected per block. Both branches stay finite on the other family's
+    coefficients (polynomials, atan), so the select is NaN-safe."""
+    inner = _HET_INNER[family]
+
+    def rj(cam_a, pose6, pts, uv):
+        w_d = cam_a.shape[-1] - 11
+        fish, cam_b, cam_f = _het_split(cam_a, brown_n_dist)
+        return _het_merge(fish, inner(cam_b, pose6, pts, uv),
+                          inner(cam_f, pose6, pts, uv), w_d)
+
+    return rj

@@ -9,7 +9,9 @@ two multi-target chains, ``... + RigidTform3d + GroupRigidTform3d +
 FreePoint`` (mixed) and ``... + RigidTform3d + GroupTemplatePoints``
 (grouped), and the projection blocks of the five camera models
 (``Projection`` standard, ``ProjectionRational``, ``ProjectionThinPrism``,
-``ProjectionTilted``, ``ProjectionFisheye``). The structured backend
+``ProjectionTilted``, ``ProjectionFisheye``), with ``ProjectionHet``, the
+per-camera family selector of a rig mixing fisheye and Brown cameras. The
+structured backend
 dispatches on the block class names, as the JAX package does, so the names
 are kept.
 """
@@ -20,7 +22,8 @@ from dataclasses import dataclass
 
 import torch
 
-from pycamset_tpu_torch.ops.projection import project_cam_points
+from pycamset_tpu_torch.ops.projection import (project_cam_points,
+                                               project_cam_points_het)
 from pycamset_tpu_torch.ops.transforms import pose_apply
 
 
@@ -109,6 +112,31 @@ class ProjectionFisheye(Projection):
     [fx, px, fy, py, k1, k2, k3, k4], the pixel radius proportional to
     theta_d = theta (1 + k1 th^2 + ... + k4 th^8)."""
     params = ParamSpec(key_type.PER_CAM, 8)
+
+
+class ProjectionHet(Projection):
+    """Per-camera projection FAMILY selector: fisheye (Kannala-Brandt)
+    cameras beside cameras of one Brown model in one bundle adjustment.
+    PER_CAM params [sel, fx, px, fy, py, dist...]: ``sel`` (0 Brown, 1
+    fisheye) is never free, and the distortion slots hold the Brown
+    model's ``brown_n_dist`` coefficients or the fisheye's k1..k4 (+ zero
+    padding, never free)."""
+
+    def __init__(self, brown_model: str = "standard"):
+        widths = {"standard": 5, "rational": 8, "thin_prism": 12,
+                  "tilted": 14}
+        if brown_model not in widths:
+            raise ValueError(
+                f"brown_model {brown_model!r} not a Brown-family model "
+                f"(expected one of {sorted(widths)})")
+        self.brown_model = brown_model
+        self.brown_n_dist = widths[brown_model]
+        self.params = ParamSpec(key_type.PER_CAM,
+                                5 + max(self.brown_n_dist, 4))
+
+    def compute(self, params, inp):
+        return project_cam_points_het(params, inp,
+                                      brown_n_dist=self.brown_n_dist)
 
 
 class RigidTform3d(FunctionBlock):

@@ -595,6 +595,12 @@ def build_fleet_problem(handlers, dtype=None, device="cuda",
                                  dtype, device, k_pad_multiple)
     h0 = handlers[0]
     op_fun = h0.op_fun
+    if any(getattr(h, "mixed_models", False) for h in handlers):
+        raise NotImplementedError(
+            "a fleet of rigs with per-camera camera models (fisheye beside "
+            "Brown cameras, or Brown models of several widths) is not "
+            "ported yet (ROADMAP Queue A item 7): solve each rig with "
+            "run_bundle_adjustment")
     if chain_family(op_fun, widths) == "freepoint":
         raise NotImplementedError(
             "the pose-free free-point chain has no fleet path yet: its "

@@ -25,14 +25,19 @@ fixed-parameter masks:
 The handlers are host state; ``optim/structured_driver.py`` builds the
 device problem from them.
 
-The ``camera_model`` option takes the JAX package's five models for the
-whole rig: "standard" (intr width 9), "rational" (12), "thin_prism" (16),
-"tilted" (18) and "fisheye" (8; the 4-wide distortion vector is the fisheye
-marker); the calibrated cameras keep each model's own distortion width. A
-map that mixes families (fisheye with Brown cameras: the JAX package's het
-rig) or Brown widths raises ``NotImplementedError`` (ROADMAP Queue A item
-7). The template, self-calibration and free-point handlers run each of
-the five models; the multi-target chains the standard one. The PnP seed
+The ``camera_model`` option takes the JAX package's five models, for the
+whole rig or per camera (a {cam_name: model} dict or a list): "standard"
+(intr width 9), "rational" (12), "thin_prism" (16), "tilted" (18) and
+"fisheye" (8; the 4-wide distortion vector is the fisheye marker). A rig of
+Brown models of several widths runs the widest model's chain with the
+narrower cameras' extra coefficients pinned to zero by a per-column
+intrinsic mask (``intr_colmask``, exact sub-models); a rig mixing fisheye
+with Brown cameras (het) runs the selector chain ``ProjectionHet``, rows
+[sel | fx px fy py | dist slots], the selector and a fisheye camera's pad
+slots never free. The calibrated cameras keep each camera's own
+distortion width. The template, self-calibration and free-point handlers
+run each of the five models and both kinds of map; the multi-target chains
+take one model a rig. The PnP seed
 (``calc_initial_params``) is OpenCV on the host, imported when it runs;
 without cv2 it raises ``ImportError`` and ``set_initial_params(x0)`` seeds
 the handler instead (the path a card's machine takes). Its Rodrigues
@@ -58,8 +63,9 @@ from pycamset_tpu_torch.models.abstract_target import (  # noqa: F401
 from pycamset_tpu_torch.models.camera_set import CameraSet
 from pycamset_tpu_torch.models.detections import TargetDetection
 from pycamset_tpu_torch.optim.blocks import (
-    Extrinsic3D, FreePoint, Projection, ProjectionFisheye, ProjectionRational,
-    ProjectionThinPrism, ProjectionTilted, RigidTform3d, TemplatePoints)
+    Extrinsic3D, FreePoint, Projection, ProjectionFisheye, ProjectionHet,
+    ProjectionRational, ProjectionThinPrism, ProjectionTilted, RigidTform3d,
+    TemplatePoints)
 from pycamset_tpu_torch.optim.chain import OptimFunction
 from pycamset_tpu_torch.ops.transforms import rigid_fit
 
@@ -80,16 +86,18 @@ DEFAULT_OPTIONS = {
 
 _CAMERA_MODELS = {"standard": 9, "rational": 12, "thin_prism": 16,
                   "tilted": 18, "fisheye": 8}
+# distortion widths of the Brown-family models (4 + n_dist = intr width)
+_BROWN_DIST = {"standard": 5, "rational": 8, "thin_prism": 12, "tilted": 14}
 
 
 def parse_camera_models(opt, cam_names):
     """Resolve the ``camera_model`` option (one name, a {cam_name: model}
     dict or a per-camera list) into per-camera models.
 
-    :return: (models, het, base_model), as the JAX package's; the port
-        takes a rig of one model, (models, False, None). A rig that mixes
-        fisheye with Brown cameras (het) or Brown models of several widths
-        raises ``NotImplementedError`` (ROADMAP Queue A item 7).
+    :return: (models, het, base_model): the per-camera list; het, True
+        where the rig mixes fisheye with Brown cameras (the
+        ``ProjectionHet`` chain); base_model, the widest Brown model of a
+        rig of several models (the chain's width), None for a rig of one.
     """
     if isinstance(opt, str):
         models = [opt] * len(cam_names)
@@ -111,17 +119,53 @@ def parse_camera_models(opt, cam_names):
         if m not in _CAMERA_MODELS:
             raise ValueError(
                 f"Unknown camera_model {m!r}; expected one of "
-                f"{sorted(_CAMERA_MODELS)}")
-    kinds = sorted(set(models), key=lambda m: _CAMERA_MODELS[m])
-    if len(kinds) > 1:
-        what = ("a heterogeneous rig (fisheye with Brown cameras, the JAX "
-                "package's ProjectionHet)" if "fisheye" in kinds
-                else "Brown models of several widths (the per-column "
-                     "intrinsic mask)")
-        raise NotImplementedError(
-            f"camera_model map {kinds}: {what} is not ported yet (ROADMAP "
-            f"Queue A item 7); give the rig one model")
-    return models, False, None
+                f"{sorted(_CAMERA_MODELS)} (per-camera 'auto' is resolved "
+                "by calibrate_cameras before the handler is built)")
+    brown = sorted({m for m in models if m != "fisheye"},
+                   key=lambda m: _CAMERA_MODELS[m])
+    if len(set(models)) == 1 or not brown:
+        return models, False, None
+    return models, "fisheye" in models, brown[-1]
+
+
+def _het_intr_width(brown_model: str) -> int:
+    """[sel | fx px fy py | dist slots] width of a heterogeneous rig."""
+    return 5 + max(_BROWN_DIST[brown_model], 4)
+
+
+def _het_intr_row(model: str, kvec4, dist, width: int) -> np.ndarray:
+    """One camera's packed heterogeneous row (the selector in slot 0)."""
+    row = np.zeros(width)
+    row[0] = 1.0 if model == "fisheye" else 0.0
+    row[1:5] = np.asarray(kvec4, dtype=float)
+    n = 4 if model == "fisheye" else width - 5
+    row[5:5 + n] = _pack_dist(dist, n)
+    return row
+
+
+def _het_intr_colmask(models, width: int) -> np.ndarray:
+    """(C, width) bool mask of the free heterogeneous intrinsic columns:
+    the selector is never free, a fisheye camera's slots past k1..k4 are
+    padding, and a Brown camera narrower than the rig's widest model pins
+    its extra coefficients to zero."""
+    cm = np.ones((len(models), width), dtype=bool)
+    cm[:, 0] = False
+    for i, m in enumerate(models):
+        if m == "fisheye":
+            cm[i, 9:] = False
+        else:
+            cm[i, 5 + _BROWN_DIST[m]:] = False
+    return cm
+
+
+def _brown_mix_colmask(models, width: int) -> np.ndarray:
+    """(C, width) bool mask of a Brown rig of several widths: each camera
+    keeps its own model's coefficients free, the widest layout's extra
+    columns pinned to zero (exact sub-models)."""
+    cm = np.ones((len(models), width), dtype=bool)
+    for i, m in enumerate(models):
+        cm[i, 4 + _BROWN_DIST[m]:] = False
+    return cm
 
 
 def _projection_block(camera_model: str) -> Projection:
@@ -138,16 +182,17 @@ def _projection_block(camera_model: str) -> Projection:
 
 def infer_shared_n_dist(dlists) -> int:
     """The common distortion width of a rig's cameras: 4 for an all-fisheye
-    rig, else the widest Brown width (at least 5). A rig mixing the
-    fisheye's 4-wide vectors with Brown ones raises
-    ``NotImplementedError`` (the JAX package's heterogeneous seed; ROADMAP
-    Queue A item 7)."""
+    rig, else the widest Brown width (at least 5). The fisheye's 4-wide
+    vectors cannot be padded into Brown slots, so a rig mixing the two
+    raises ``ValueError`` (the PnP seed packs such a rig itself,
+    ``estimate_camera_relative_poses``)."""
     sizes = {int(np.reshape(np.asarray(d), -1).size) for d in dlists}
     if 4 in sizes and sizes != {4}:
-        raise NotImplementedError(
-            f"a rig mixing fisheye (4-coefficient) and Brown cameras "
-            f"(widths {sorted(sizes)}) is not ported yet (ROADMAP Queue A "
-            f"item 7)")
+        raise ValueError(
+            "rig mixes fisheye (4-coefficient) and Brown-family cameras; "
+            f"distortion widths seen: {sorted(sizes)}. Mixed projection "
+            "families are not supported on this path — calibrate the "
+            "families separately or convert the models.")
     if sizes == {4}:
         return 4
     return max(5, max(sizes, default=5))
@@ -168,14 +213,20 @@ def _pack_dist(dist, n: int) -> np.ndarray:
 
 class TemplateBundlePrimitive:
     """Base arrays (poses, extr, intr) + per-row unfixed masks for the
-    template BA; maps the free parameter vector to and from the arrays."""
+    template BA; maps the free parameter vector to and from the arrays.
+    ``intr_colmask`` (C, intr_width) bool marks the intrinsic columns that
+    can be free at all (a heterogeneous rig's selector and pad slots, a
+    narrower Brown camera's extra coefficients are not); default all."""
 
     def __init__(self, poses, extr, intr, poses_unfixed=None,
-                 extr_unfixed=None, intr_unfixed=None):
+                 extr_unfixed=None, intr_unfixed=None, intr_colmask=None):
         self.poses = poses
         self.extr = extr
         self.intr = intr
         self.intr_width = intr.shape[1]
+        self.intr_colmask = (np.asarray(intr_colmask, dtype=bool)
+                             if intr_colmask is not None
+                             else np.ones(intr.shape, dtype=bool))
         self.poses_unfixed = (poses_unfixed if poses_unfixed is not None
                               else np.ones(poses.shape[0], dtype=bool))
         self.extr_unfixed = (extr_unfixed if extr_unfixed is not None
@@ -197,10 +248,14 @@ class TemplateBundlePrimitive:
         return np.concatenate(
             [self.intr.ravel(), self.extr.ravel(), self.poses.ravel()])
 
+    def _intr_unfixed_flat(self) -> np.ndarray:
+        return (np.repeat(self.intr_unfixed, self.intr_width)
+                & self.intr_colmask.ravel())
+
     def unfixed_full(self) -> np.ndarray:
         """(full,) bool: the free entries of the full vector."""
         return np.concatenate([
-            np.repeat(self.intr_unfixed, self.intr_width),
+            self._intr_unfixed_flat(),
             np.repeat(self.extr_unfixed, 6),
             np.repeat(self.poses_unfixed, 6)])
 
@@ -223,13 +278,13 @@ class StandardBundlePrimitive(TemplateBundlePrimitive):
 
     def __init__(self, poses, bundle_points, extr, intr, poses_unfixed=None,
                  bundle_points_unfixed=None, extr_unfixed=None,
-                 intr_unfixed=None):
+                 intr_unfixed=None, intr_colmask=None):
         self.bundle_pts = bundle_points  # flat (3 * n_points,)
         self.bdpt_unfixed = (bundle_points_unfixed
                              if bundle_points_unfixed is not None
                              else np.ones(bundle_points.shape[0], dtype=bool))
         super().__init__(poses, extr, intr, poses_unfixed, extr_unfixed,
-                         intr_unfixed)
+                         intr_unfixed, intr_colmask=intr_colmask)
 
     def calc_free_poses(self):
         super().calc_free_poses()
@@ -261,14 +316,15 @@ class FreePointPrimitive(TemplateBundlePrimitive):
     ``handlers.py:305-342``)."""
 
     def __init__(self, bundle_points, extr, intr, bundle_points_unfixed=None,
-                 extr_unfixed=None, intr_unfixed=None):
+                 extr_unfixed=None, intr_unfixed=None, intr_colmask=None):
         self.bundle_pts = bundle_points
         self.bdpt_unfixed = (bundle_points_unfixed
                              if bundle_points_unfixed is not None
                              else np.ones(bundle_points.shape[0], dtype=bool))
         super().__init__(np.zeros((0, 6)), extr, intr,
                          poses_unfixed=np.zeros(0, dtype=bool),
-                         extr_unfixed=extr_unfixed, intr_unfixed=intr_unfixed)
+                         extr_unfixed=extr_unfixed, intr_unfixed=intr_unfixed,
+                         intr_colmask=intr_colmask)
 
     def calc_free_poses(self):
         super().calc_free_poses()
@@ -281,7 +337,7 @@ class FreePointPrimitive(TemplateBundlePrimitive):
 
     def unfixed_full(self) -> np.ndarray:
         return np.concatenate([
-            np.repeat(self.intr_unfixed, self.intr_width),
+            self._intr_unfixed_flat(),
             np.repeat(self.extr_unfixed, 6), self.bdpt_unfixed])
 
     def return_bundle_primitives(self, params):
@@ -324,13 +380,25 @@ class TemplateBundleHandler:
 
         n_poses = detection.max_ims
         n_cams = camset.get_n_cams()
-        self.camera_models, _, _ = parse_camera_models(
+        self.camera_models, self.is_het, base = parse_camera_models(
             self.problem_opts.get("camera_model", "standard"),
             self.cam_names)
-        self.camera_model = self.camera_models[0]
-        self.intr_width = _CAMERA_MODELS[self.camera_model]
+        self.het_brown_model = base if self.is_het else None
+        self.mixed_models = len(set(self.camera_models)) > 1
+        if self.is_het:
+            self.camera_model = "het"
+            self.intr_width = _het_intr_width(base)
+        else:
+            # a Brown rig of several widths runs the widest model's chain;
+            # the narrower cameras' extra columns are pinned by the colmask
+            self.camera_model = base or self.camera_models[0]
+            self.intr_width = _CAMERA_MODELS[self.camera_model]
 
         intr = np.zeros((n_cams, self.intr_width))
+        if self.is_het:
+            # the family selectors live in (fixed) intrinsic slot 0
+            intr[:, 0] = [1.0 if m == "fisheye" else 0.0
+                          for m in self.camera_models]
         extr = np.zeros((n_cams, 6))
         poses = np.zeros((n_poses, 6))
         extr_unfixed = np.array(
@@ -344,15 +412,29 @@ class TemplateBundleHandler:
             fixed_pose = self.problem_opts["fixed_pose"]
             pose_unfixed[fixed_pose] = False
             poses[fixed_pose, :] = 0.0
+        intr_colmask = None
+        if self.is_het:
+            intr_colmask = _het_intr_colmask(self.camera_models,
+                                             self.intr_width)
+        elif self.mixed_models:
+            intr_colmask = _brown_mix_colmask(self.camera_models,
+                                              self.intr_width)
         self.bundlePrimitive = TemplateBundlePrimitive(
             poses, extr, intr, extr_unfixed=extr_unfixed,
-            intr_unfixed=intr_unfixed, poses_unfixed=pose_unfixed)
+            intr_unfixed=intr_unfixed, poses_unfixed=pose_unfixed,
+            intr_colmask=intr_colmask)
         self.populate_self_from_fixed_params()
 
         self.missing_poses = missing_poses
         self.op_fun = OptimFunction(
-            [_projection_block(self.camera_model), Extrinsic3D(),
-             TemplatePoints()])
+            [self._proj_block(), Extrinsic3D(), TemplatePoints()])
+
+    def _proj_block(self) -> Projection:
+        """The rig's projection block (the family selector for a het
+        rig)."""
+        if self.is_het:
+            return ProjectionHet(self.het_brown_model)
+        return _projection_block(self.camera_model)
 
     def populate_self_from_fixed_params(self):
         """Copy any fixed extrinsic/intrinsic values into the base arrays."""
@@ -366,6 +448,17 @@ class TemplateBundleHandler:
                 self.bundlePrimitive.extr[idx] = ext
             if "int" in fixed:
                 intr = np.asarray(fixed["int"], dtype=float)
+                if self.is_het:
+                    if intr.shape != (3, 3):
+                        raise ValueError(
+                            "heterogeneous rigs take fixed intrinsics as a "
+                            "(3,3) matrix (+ optional 'dst'), not a packed "
+                            "vector — the packed layout is family-specific")
+                    self.bundlePrimitive.intr[idx] = _het_intr_row(
+                        self.camera_models[idx],
+                        intr[[0, 0, 1, 1], [0, 2, 1, 2]],
+                        fixed.get("dst", np.zeros(4)), self.intr_width)
+                    continue
                 n_dist = self.bundlePrimitive.intr_width - 4
                 if intr.shape == (3, 3):
                     # stored as the packed vector; distortion stays zero
@@ -438,7 +531,7 @@ class TemplateBundleHandler:
         prim = self.bundlePrimitive
         for idc in range(len(self.cam_names)):
             if prim.intr_unfixed[idc]:
-                prim.intr[idc] = self._intr_seed_row(cams[idc])
+                prim.intr[idc] = self._intr_seed_row(idc, cams[idc])
             if prim.extr_unfixed[idc]:
                 rvec, tvec = gu.cv2_rod(cv2, cam_poses[idc])
                 prim.extr[idc] = np.concatenate([rvec, tvec])
@@ -453,11 +546,15 @@ class TemplateBundleHandler:
         params = prim.base_full()[prim.unfixed_full()]
         return self.add_extra_params(params)
 
-    def _intr_seed_row(self, cam) -> np.ndarray:
-        """A camera's packed intrinsic seed row [fx px fy py | dist]."""
+    def _intr_seed_row(self, idc: int, cam) -> np.ndarray:
+        """A camera's packed intrinsic seed row [fx px fy py | dist], or
+        its heterogeneous row [sel | fx px fy py | dist slots]."""
+        kvec = cam.intrinsic[[0, 0, 1, 1], [0, 2, 1, 2]]
+        if self.is_het:
+            return _het_intr_row(self.camera_models[idc], kvec,
+                                 cam.distortion_coefs, self.intr_width)
         return np.concatenate([
-            cam.intrinsic[[0, 0, 1, 1], [0, 2, 1, 2]],
-            _pack_dist(cam.distortion_coefs, self.intr_width - 4)])
+            kvec, _pack_dist(cam.distortion_coefs, self.intr_width - 4)])
 
     def find_and_exclude_transform_outliers(self, per_im_error):
         """MAD-outlier poses are marked missing ('ask' prompts, 'y' drops
@@ -504,7 +601,8 @@ class TemplateBundleHandler:
         """Free parameter vector -> calibrated CameraSet (+ target poses)."""
         new_cams = _clone_camset(self.camset)
         proj, extr, poses = self.bundlePrimitive.return_bundle_primitives(x)
-        _write_cams(new_cams, self.cam_names, proj, extr)
+        _write_cams(new_cams, self.cam_names, proj, extr,
+                    camera_models=self.camera_models, het=self.is_het)
         if not return_pose:
             return new_cams
         # flat-12 (R | t) per pose
@@ -621,12 +719,12 @@ class SelfBundleHandler(TemplateBundleHandler):
             sup.poses, self.flat_point_data, sup.extr, sup.intr,
             extr_unfixed=sup.extr_unfixed, intr_unfixed=sup.intr_unfixed,
             poses_unfixed=sup.poses_unfixed,
-            bundle_points_unfixed=self.feat_unfixed)
+            bundle_points_unfixed=self.feat_unfixed,
+            intr_colmask=sup.intr_colmask)
 
         self.missing_poses = missing_poses
         self.op_fun = OptimFunction(
-            [_projection_block(self.camera_model), Extrinsic3D(),
-             RigidTform3d(), FreePoint()])
+            [self._proj_block(), Extrinsic3D(), RigidTform3d(), FreePoint()])
 
     def template_table(self):
         return None  # the geometry is optimised, not a constant table
@@ -679,7 +777,8 @@ class SelfBundleHandler(TemplateBundleHandler):
             proj, extr, poses, _ = self.apply_gauge_transform(*model)
         else:
             proj, extr, poses, _ = model
-        _write_cams(new_cams, self.cam_names, proj, extr)
+        _write_cams(new_cams, self.cam_names, proj, extr,
+                    camera_models=self.camera_models, het=self.is_het)
         if not return_pose:
             return new_cams
         flat = np.array([gu.make_4x4h_tform(p[:3], p[3:])[:3, :4].reshape(-1)
@@ -812,11 +911,11 @@ class FreePointBundleHandler(TemplateBundleHandler):
             self.super_primitive.intr,
             extr_unfixed=self.super_primitive.extr_unfixed,
             intr_unfixed=self.super_primitive.intr_unfixed,
-            bundle_points_unfixed=self.feat_unfixed)
+            bundle_points_unfixed=self.feat_unfixed,
+            intr_colmask=self.super_primitive.intr_colmask)
         self.missing_poses = missing_poses
         self.op_fun = OptimFunction(
-            [_projection_block(self.camera_model), Extrinsic3D(),
-             FreePoint()])
+            [self._proj_block(), Extrinsic3D(), FreePoint()])
 
     def template_table(self):
         return None
@@ -827,7 +926,7 @@ class FreePointBundleHandler(TemplateBundleHandler):
         prim = self.bundlePrimitive
         for idc in range(len(self.cam_names)):
             if prim.intr_unfixed[idc]:
-                prim.intr[idc] = self._intr_seed_row(self.camset[idc])
+                prim.intr[idc] = self._intr_seed_row(idc, self.camset[idc])
             if prim.extr_unfixed[idc]:
                 rvec, tvec = gu.ext_4x4_to_rod(self.camset[idc].extrinsic)
                 prim.extr[idc] = np.concatenate([rvec, tvec])
@@ -847,7 +946,8 @@ class FreePointBundleHandler(TemplateBundleHandler):
     def get_camset(self, x, return_pose: bool = False):
         new_cams = _clone_camset(self.camset)
         proj, extr, ps = self.bundlePrimitive.return_bundle_primitives(x)
-        _write_cams(new_cams, self.cam_names, proj, extr)
+        _write_cams(new_cams, self.cam_names, proj, extr,
+                    camera_models=self.camera_models, het=self.is_het)
         if return_pose:
             return new_cams, ps
         return new_cams
@@ -863,19 +963,27 @@ def _clone_camset(camset: CameraSet) -> CameraSet:
         name: deepcopy(camset[name]) for name in camset.get_names()})
 
 
-def _write_cams(new_cams, cam_names, proj, extr):
-    """Write packed [fx px fy py | dist] rows and extrinsics back into the
-    Camera objects: a rig runs one camera model, so each camera's
-    distortion keeps that model's width (4 fisheye, 5 / 8 / 12 / 14
-    Brown)."""
+def _write_cams(new_cams, cam_names, proj, extr, camera_models=None,
+                het: bool = False):
+    """Write packed intrinsic rows and extrinsics back into the Camera
+    objects. ``het`` marks the selector layout [sel | fx px fy py | dist
+    slots]; ``camera_models`` cuts each camera's distortion to its own
+    model's width (4 fisheye, 5 / 8 / 12 / 14 Brown), so a camera of a
+    mixed rig keeps its own model."""
     for idc, cam_name in enumerate(cam_names):
         row = np.asarray(proj[idc], dtype=float)
+        off = 1 if het else 0
+        kvec = row[off:off + 4]
+        dist = row[off + 4:]
+        if camera_models is not None:
+            m = camera_models[idc]
+            dist = dist[:4] if m == "fisheye" else dist[:_BROWN_DIST[m]]
         intr = np.eye(3)
-        intr[0, 0], intr[0, 2], intr[1, 1], intr[1, 2] = row[:4]
+        intr[0, 0], intr[0, 2], intr[1, 1], intr[1, 2] = kvec
         cam = new_cams[cam_name]
         cam.extrinsic = gu.make_4x4h_tform(extr[idc][:3], extr[idc][3:])
         cam.intrinsic = intr
-        cam.distortion_coefs = np.array(row[4:])
+        cam.distortion_coefs = np.array(dist)
         cam._update_state()
 
 
@@ -925,7 +1033,8 @@ def check_feasiblity_and_update_refpose(mat_ac: np.ndarray,
 
 
 def reprojection_costs(dd: np.ndarray, imlocs: np.ndarray, proj: np.ndarray,
-                       ints: np.ndarray, dists: np.ndarray) -> np.ndarray:
+                       ints: np.ndarray, dists: np.ndarray,
+                       fisheye_mask=None) -> np.ndarray:
     """Per-detection reprojection residuals (host numpy): P·X, divide,
     distort, subtract the measured uv.
 
@@ -934,6 +1043,9 @@ def reprojection_costs(dd: np.ndarray, imlocs: np.ndarray, proj: np.ndarray,
     :param proj: (C, 3, 4); :param ints: (C, 3, 3); :param dists: (C, n),
         n = 4 (fisheye: the whole rig Kannala-Brandt) or 5 / 8 / 12 / 14
         (the Brown family: rational radial, prism terms, sensor tilt).
+    :param fisheye_mask: optional (C,) bool, a heterogeneous rig: the
+        marked cameras project through Kannala-Brandt (k1..k4 in the first
+        four slots), the others through the Brown model of the width.
     :return: (N, 2) residuals.
     """
     cam = dd[:, 0].astype(int)
@@ -947,7 +1059,8 @@ def reprojection_costs(dd: np.ndarray, imlocs: np.ndarray, proj: np.ndarray,
     c = np.stack([ints[cam, 0, 2], ints[cam, 1, 2]], axis=1)
     xy = (uv - c) / f
     x, y = xy[:, 0], xy[:, 1]
-    if dists.shape[1] == 4:
+    pred_fish = None
+    if dists.shape[1] == 4 or fisheye_mask is not None:
         r = np.sqrt(x * x + y * y + 1e-18)
         theta = np.arctan(r)
         t2 = theta * theta
@@ -955,7 +1068,9 @@ def reprojection_costs(dd: np.ndarray, imlocs: np.ndarray, proj: np.ndarray,
         theta_d = theta * (1 + t2 * (kf[0] + t2 * (kf[1]
                                                    + t2 * (kf[2]
                                                            + t2 * kf[3]))))
-        return xy * (theta_d / r)[:, None] * f + c - dd[:, 3:5]
+        pred_fish = xy * (theta_d / r)[:, None] * f + c
+        if dists.shape[1] == 4:
+            return pred_fish - dd[:, 3:5]
     k1, k2, p1, p2, k3 = (dists[cam, i] for i in range(5))
     r2 = x * x + y * y
     radial = 1 + r2 * (k1 + r2 * (k2 + r2 * k3))
@@ -987,7 +1102,10 @@ def reprojection_costs(dd: np.ndarray, imlocs: np.ndarray, proj: np.ndarray,
         w = m[:, 2, 0] * xd + m[:, 2, 1] * yd + m[:, 2, 2]
         xd, yd = ((m[:, 0, 0] * xd + m[:, 0, 1] * yd + m[:, 0, 2]) / w,
                   (m[:, 1, 0] * xd + m[:, 1, 1] * yd + m[:, 1, 2]) / w)
-    return np.stack([xd, yd], axis=1) * f + c - dd[:, 3:5]
+    pred = np.stack([xd, yd], axis=1) * f + c
+    if fisheye_mask is not None:
+        pred = np.where(fisheye_mask[cam][:, None], pred_fish, pred)
+    return pred - dd[:, 3:5]
 
 
 def estimate_camera_relative_poses(
@@ -1022,8 +1140,17 @@ def estimate_camera_relative_poses(
     mac_rt = np.array([np.linalg.inv(m) for m in mrt_ac])
     mat_rt_ac = mac_rt[:, None] @ mat_ac                        # (C,I,4,4)
 
-    n_dist = infer_shared_n_dist([c.distortion_coefs for c in cams])
-    dists = np.array([_pack_dist(c.distortion_coefs, n_dist) for c in cams])
+    dlists = [np.reshape(c.distortion_coefs, -1) for c in cams]
+    sizes = {int(d.size) for d in dlists}
+    fisheye_mask = None
+    if 4 in sizes and sizes != {4}:
+        # a heterogeneous rig: the fisheye k1..k4 in the first Brown slots,
+        # selected per camera in reprojection_costs
+        n_dist = max(5, max(s for s in sizes if s != 4))
+        fisheye_mask = np.array([d.size == 4 for d in dlists])
+    else:
+        n_dist = infer_shared_n_dist(dlists)
+    dists = np.array([_pack_dist(d, n_dist) for d in dlists])
     ints = np.array([c.intrinsic for c in cams])
     proj = ints @ mrt_ac[:, :3, :]
 
@@ -1049,7 +1176,8 @@ def estimate_camera_relative_poses(
                                  else mat_rt_c[first_valid])
         imlocs = np.array([gu.h_tform(ps, m) for m in mat_rt_c])
         costs = np.linalg.norm(
-            reprojection_costs(dd, imlocs, proj, ints, dists), axis=1)
+            reprojection_costs(dd, imlocs, proj, ints, dists, fisheye_mask),
+            axis=1)
         errors[idc] = np.bincount(im_col, weights=costs, minlength=n_ims)
 
     estimate_locs = np.argmin(errors, axis=0)                  # best cam per im
@@ -1057,7 +1185,8 @@ def estimate_camera_relative_poses(
 
     imlocs = np.array([gu.h_tform(ps, m) for m in mat_rt])
     costs = np.linalg.norm(
-        reprojection_costs(dd, imlocs, proj, ints, dists), axis=1)
+        reprojection_costs(dd, imlocs, proj, ints, dists, fisheye_mask),
+        axis=1)
     per_im_error = np.bincount(im_col, weights=costs, minlength=n_ims)
 
     mat_rt[ref_pose] = np.eye(4)

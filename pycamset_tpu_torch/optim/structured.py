@@ -44,9 +44,15 @@ parameters are handled by zeroing Jacobian COLUMNS (the column masks); a
 damping floor keeps the eliminated blocks invertible and gives exact zero
 steps for them.
 
-Not ported yet: the matrix-free CG reduced solver and the grouped chain
-at the other camera widths. They raise ``NotImplementedError`` naming the
-ROADMAP item.
+A heterogeneous rig (``ProjectionHet``: fisheye beside Brown cameras) on
+the template, self-calibration or free-point chain takes the plain closed
+form (``make_het_grams``) on either device: neither package has a kernel
+for its selector row. A Brown rig of several widths runs the widest
+model's chain, on its kernels, with the pinned columns in the column
+masks.
+
+Not ported yet: the matrix-free CG reduced solver and the heterogeneous
+grouped chain. They raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -133,15 +139,27 @@ def chain_widths(op_fun: OptimFunction) -> GroupWidths:
     return GroupWidths(a, b, c, key_link)
 
 
+def is_het_chain(op_fun: OptimFunction) -> bool:
+    """Whether the chain projects through ``ProjectionHet`` (a rig mixing
+    fisheye with Brown cameras)."""
+    return bool(op_fun.blocks) and type(op_fun.blocks[0]).__name__ == (
+        "ProjectionHet")
+
+
 def chain_family(op_fun: OptimFunction, widths: GroupWidths) -> str:
     """'template', 'selfcal', 'freepoint' or 'grouped', by the chain's
     block names (as the JAX package dispatches, any camera model's
     projection block first); any other chain raises ``UnsupportedChain``.
     Every family takes the five camera widths (``TEMPLATE_WIDTHS``);
-    another width raises ``NotImplementedError``."""
+    another width raises ``NotImplementedError``. A ``ProjectionHet``
+    chain of the template, self-cal or free-point family is served at its
+    selector row's width (by the plain closed form, ``make_het_grams``:
+    no kernel in either package); its grouped chain raises
+    ``NotImplementedError``."""
     names = tuple(type(bk).__name__ for bk in op_fun.blocks)
-    key = (("Projection",) + names[1:] if names and names[0] in _PROJS
-           else names)
+    het = is_het_chain(op_fun)
+    key = (("Projection",) + names[1:]
+           if names and (names[0] in _PROJS or het) else names)
     family, bc = _FAMILIES.get(key, (None, None))
     if family is None or (widths.b, widths.c) != bc:
         raise UnsupportedChain(
@@ -149,6 +167,12 @@ def chain_family(op_fun: OptimFunction, widths: GroupWidths) -> str:
             f"the chains {tuple(_FAMILIES)} only (the mixed chain, with "
             f"GroupRigidTform3d + FreePoint, goes through "
             f"structured_mixed.make_mixed_structured_neq)")
+    if het:
+        if family == "grouped":
+            raise NotImplementedError(
+                "a heterogeneous rig (fisheye with Brown cameras) on the "
+                "grouped chain is not ported yet (ROADMAP Queue A item 7)")
+        return family
     # Kernels A-F serve the five camera models
     if widths.a not in TEMPLATE_WIDTHS:
         raise NotImplementedError(
@@ -317,9 +341,13 @@ def resolve_block_grams(op_fun: OptimFunction, widths: GroupWidths,
     free-point wrapper over it for the pose-free chain) or Kernel F's
     (grouped) builder, which launches the CUDA kernel for CUDA tensors and
     runs its plain twin for CPU tensors. The port has no separate plain
-    builder: the twin is the one plain path."""
+    builder: the twin is the one plain path. A ``ProjectionHet`` chain
+    takes ``make_het_grams`` on either device (no kernel: the JAX
+    package runs it in XLA, ``make_block_grams``)."""
     kw = dict(loss=loss, f_scale=f_scale, loss_semantics=loss_semantics)
     family = chain_family(op_fun, widths)
+    if is_het_chain(op_fun):
+        return make_het_grams(family, op_fun.blocks[0].brown_n_dist, **kw)
     if family in ("selfcal", "freepoint"):
         from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
         if family == "freepoint":
@@ -339,7 +367,8 @@ def resolve_fused_grams(op_fun: OptimFunction, widths: GroupWidths,
     """The FUSED-reduction gram builder, or None when the JAX package's
     padding rule declines it: the template image axis would pad past 5% at
     tile 16, the self-cal and free-point ones past 25% at their tile
-    (``selfcal_pad_tile``), the grouped one past 25% at tile 8.
+    (``selfcal_pad_tile``), the grouped one past 25% at tile 8; and for a
+    ``ProjectionHet`` chain, which has no fused kernel in either package.
 
     :return: (family, grams) or None.
         "template": grams(cam_b, im_b, tpl, uv, mask, cmask_b, imask_b)
@@ -355,6 +384,8 @@ def resolve_fused_grams(op_fun: OptimFunction, widths: GroupWidths,
     """
     kw = dict(loss=loss, f_scale=f_scale, loss_semantics=loss_semantics)
     family = chain_family(op_fun, widths)
+    if is_het_chain(op_fun):
+        return None
     if family == "grouped":
         from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
         if not fused_tile_pad_ok(n_ims, MIXED_PAD_TILE, MIXED_PAD_FRAC):
@@ -376,6 +407,34 @@ def resolve_fused_grams(op_fun: OptimFunction, widths: GroupWidths,
         return None
     return "template", cg.make_cuda_template_grams_fused(
         widths, n_cams, n_ims, **kw)
+
+
+def make_het_grams(family: str, brown_n_dist: int, loss: str = "linear",
+                   f_scale: float = 1.0, loss_semantics: str = "component"):
+    """Per-BLOCK gram builder of a heterogeneous rig's chain (fisheye
+    beside Brown cameras, ``ProjectionHet``): the closed form
+    ``analytic.block_rj_het`` of the ``family`` ("template", "selfcal" or
+    "freepoint") and its weighted grams in plain torch, on either device.
+    Neither package has a kernel for it (the JAX package's
+    ``resolve_block_grams`` gives it ``make_block_grams``: XLA); this is
+    the chain's route, chosen by its block names, not a fallback. Same
+    contract as ``resolve_block_grams``' builders: the 10-tuple of
+    ``make_block_grams``. No host read: a captured LM step holds it."""
+    from pycamset_tpu_torch.optim.analytic import block_rj_het
+    from pycamset_tpu_torch.optim.cuda_selfcal_grams import weighted_grams
+    rj = block_rj_het(family, brown_n_dist)
+
+    def grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask):
+        pts = tpl if family == "template" else keyp
+        g, wck_b, wik_b, hkk, gk = weighted_grams(
+            *rj(cam_b, im_b, pts, uv), mask, cmask_b, imask_b, kmask,
+            loss, f_scale, loss_semantics)
+        a = cam_b.shape[1]
+        w = g.shape[-1] - 1
+        return (g[:, :a, :a], g[:, a:w, a:w], g[:, :a, a:w], hkk, wck_b,
+                wik_b, g[:, :a, w], g[:, a:w, w], gk, torch.sum(g[:, w, w]))
+
+    return grams
 
 
 def _block_params(pieces: ParamPieces, colmask: ParamPieces, n_cams: int,

@@ -3,8 +3,9 @@
 Counterpart of ``build_colmask_pieces``, ``build_structured_problem`` and
 ``build_mixed_structured_problem`` in
 ``pycamset_tpu/optim/structured_driver.py`` for the template, self-
-calibration, pose-free free-point, grouped and mixed multi-target chains:
-the handler's detection table
+calibration, pose-free free-point, grouped and mixed multi-target chains
+(with a rig's per-camera camera models: the column masks carry the
+handler's ``intr_colmask``): the handler's detection table
 on the (camera x image bucket, key) block grid, its start and
 fixed-parameter column masks as pieces (a keyed chain's pad key slots never
 free, a pose-free chain's image piece zero-width), the device problem an
@@ -231,7 +232,14 @@ def build_structured_problem(param_handler, dtype=None, device="cuda",
                          if grouped else (None, 0))
     struct = op_fun.param_struct(n_cams, n_ims, n_keys, n_groups=n_groups)
     base_full = param_handler.bundlePrimitive.base_full()
+    # the free entries: the fixed rows and, per column, the intrinsic
+    # columns that are never free (a het rig's selector and pad slots, a
+    # narrower Brown camera's extra coefficients)
     unfixed = param_handler.bundlePrimitive.unfixed_full()
+    if x0.shape != (int(unfixed.sum()),):
+        raise ValueError(
+            f"the start has {x0.size} entries; the handler's layout frees "
+            f"{int(unfixed.sum())}")
     base_full[unfixed] = x0
     free_idx = np.where(unfixed)[0]
 

@@ -33,8 +33,10 @@ multi-target and template-handler makers take ``camera_model`` (the rig
   the same start, for ``run_bundle_adjustment`` and
   ``run_stereo_calibration``; with ``template_warp`` the board the cameras
   see is bent away from the nominal target along its normal, so that a
-  self-calibration (``SelfBundleHandler``) after the template one has
-  geometry to recover.
+  self-calibration (``SelfBundleHandler``, ``selfcal_stage_handler``)
+  after the template one has geometry to recover; with a per-camera
+  ``camera_model`` list, a mixed-model rig (fisheye beside Brown cameras,
+  or Brown models of several widths).
 - Pose-free free points (``freepoint_scene``, ``freepoint_problem``,
   ``freepoint_handler``): the template rig with each image's board points
   as free world points (key = image x 384 + point at grid 19: the points
@@ -84,6 +86,7 @@ from pycamset_tpu_torch.optim.chain import OptimFunction, ParamStruct
 from pycamset_tpu_torch.optim.fleet import fleet_solve, shared_template
 from pycamset_tpu_torch.optim.handlers import (FreePointBundleHandler,
                                                FreePointTarget,
+                                               SelfBundleHandler,
                                                TemplateBundleHandler,
                                                _projection_block)
 from pycamset_tpu_torch.optim.problem import BAProblem, MixedProblem
@@ -105,6 +108,9 @@ from pycamset_tpu_torch.utils.synthetic import make_synthetic_rig
 GROUP_START = np.array([[0.0] * 6, [0.04, -0.02, 0.06, 0.01, -0.02, 0.03]])
 # the multi-target rig's truth: its two targets are the halves of one board
 GROUP_TRUE = np.zeros((2, 6))
+# each camera model's distortion width
+DIST_WIDTH = {"fisheye": 4, "standard": 5, "rational": 8, "thin_prism": 12,
+              "tilted": 14}
 
 
 def template_colmask(n_cams, n_ims, widths, k_pad, dtype=np.float64):
@@ -116,11 +122,13 @@ def template_colmask(n_cams, n_ims, widths, k_pad, dtype=np.float64):
             np.ones((k_pad, 0), dtype=dtype))
 
 
-def perturbed_start(rig, struct, seed=1) -> np.ndarray:
+def perturbed_start(rig, struct, seed=1, het: bool = False) -> np.ndarray:
     """The bench's perturbed full parameter vector (pose 0 zeroed).
 
     :param seed: an int, or a ``np.random.Generator`` to draw from (the
-        fleet perturbs every rig from one generator)."""
+        fleet perturbs every rig from one generator).
+    :param het: ``rig["intr"]`` holds heterogeneous rows [sel | fx px fy
+        py | dist slots]: the selector is not moved."""
     n_cams, n_ims = rig["n_cams"], rig["n_ims"]
     x_full = np.concatenate([rig["intr"].ravel(), rig["extr"].ravel(),
                              rig["poses"].ravel()])
@@ -128,8 +136,9 @@ def perturbed_start(rig, struct, seed=1) -> np.ndarray:
     # the bench's intrinsic scales, 1e-4 for each coefficient past the
     # standard model's (the other camera models)
     intr_w = rig["intr"].shape[1]
-    intr_scale = ([10.0, 5, 10, 5, 1e-2, 1e-3, 1e-4, 1e-4, 1e-4]
-                  + [1e-4] * 9)[:intr_w]
+    intr_scale = ([0.0] if het else []) + (
+        [10.0, 5, 10, 5, 1e-2, 1e-3, 1e-4, 1e-4, 1e-4]
+        + [1e-4] * 9)[:intr_w - int(het)]
     scale = np.concatenate([
         np.tile(intr_scale, n_cams),
         np.tile([1e-2] * 6, n_cams),
@@ -173,14 +182,18 @@ def standard_problem(n_cams: int, n_ims: int, device="cuda",
                      colmask, loss, f_scale, loss_semantics)
 
 
-def _rig_cams(intr, exts):
+def _rig_cams(intr, exts, models=None):
     """A CameraSet ``cam0``, ``cam1``, ... (1600 x 1200) of packed
     intrinsic rows [fx, px, fy, py | dist] and 4x4 extrinsics, and its
-    names."""
+    names; with ``models`` (one per camera: ``make_synthetic_rig``'s
+    ``camera_models``) each camera's distortion cut to its own model's
+    width (4 fisheye, 5 / 8 / 12 / 14 Brown)."""
     names = [f"cam{c}" for c in range(len(intr))]
     kmats = [np.array([[i9[0], 0, i9[1]], [0, i9[2], i9[3]], [0, 0, 1]])
              for i9 in intr]
-    return camset_from_numpy(names, exts, kmats, [i9[4:] for i9 in intr],
+    dists = ([i9[4:] for i9 in intr] if models is None else
+             [i9[4:4 + DIST_WIDTH[m]] for i9, m in zip(intr, models)])
+    return camset_from_numpy(names, exts, kmats, dists,
                              [[1600, 1200]] * len(intr)), names
 
 
@@ -200,8 +213,12 @@ def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
         normal (``make_synthetic_rig``): the detections see the bent board
         (``rig["template_true"]``), the target stays the nominal grid.
     :param camera_model: the rig's lens model (``make_synthetic_rig``'s:
-        "standard", "rational", "thin_prism", "tilted" or "fisheye"); the
-        cameras carry its true distortion, and the handler solves it.
+        "standard", "rational", "thin_prism", "tilted" or "fisheye"), or a
+        list of one model a camera (fisheye beside Brown cameras, Brown
+        models of several widths); the cameras carry their true
+        distortion at their own model's width, and the handler solves the
+        map (a heterogeneous rig's start: the true selector rows
+        perturbed, ``perturbed_start(het=True)``).
     :param shared_intrinsics: None, True (every camera one lens) or
         per-camera group ids: the rig's cameras share their group's true
         lens, and the handler ties them (its ``shared_intrinsics``
@@ -214,7 +231,8 @@ def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
                              shared_intrinsics=shared_intrinsics)
     options = {**_tied_option(shared_intrinsics), **(options or {})}
     cams, names = _rig_cams(rig["intr"], [make_4x4h_tform(e[:3], e[3:])
-                                          for e in rig["extr"]])
+                                          for e in rig["extr"]],
+                            rig["camera_models"])
     handler = TemplateBundleHandler(
         cams, FreePointTarget(rig["template"].reshape(1, -1, 3)),
         detection_from_numpy(names, rig["dd"], n_ims),
@@ -222,9 +240,29 @@ def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
                  "camera_model": camera_model, **(options or {})})
     prim = handler.bundlePrimitive
     struct = handler.op_fun.param_struct(n_cams, n_ims, rig["n_keys"])
+    start = rig
+    if handler.is_het:      # the true cameras in the selector layout
+        start = {**rig, "intr": np.stack([
+            handler._intr_seed_row(c, cams[c]) for c in range(n_cams)])}
     handler.set_initial_params(
-        perturbed_start(rig, struct)[prim.unfixed_full()])
+        perturbed_start(start, struct, het=handler.is_het)[
+            prim.unfixed_full()])
     return handler, rig
+
+
+def selfcal_stage_handler(solved, template_handler: TemplateBundleHandler,
+                          options: dict | None = None) -> SelfBundleHandler:
+    """The self-calibration stage after a template calibration, on the
+    same rig: a ``SelfBundleHandler`` of the template stage's calibrated
+    CameraSet ``solved``, its target and detection (the template
+    handler's options, then ``options``; a per-camera ``camera_model`` map
+    carries over), warm-started from ``solved``
+    (``set_from_templated_camset``)."""
+    handler = SelfBundleHandler(
+        solved, template_handler.target, template_handler.detection,
+        options={**template_handler.problem_opts, **(options or {})})
+    handler.set_from_templated_camset(solved)
+    return handler
 
 
 def _tied_option(shared_intrinsics) -> dict:
@@ -309,7 +347,7 @@ def freepoint_handler(n_cams: int, n_ims: int, grid: int = 19,
                          camera_model)
     exts = [make_4x4h_tform(e[:3], e[3:]) for e in sc["extr_start"]]
     exts[0] = np.eye(4)
-    cams, names = _rig_cams(sc["intr"], exts)
+    cams, names = _rig_cams(sc["intr"], exts, sc["rig"]["camera_models"])
     fixed = {name: {"int": cams[name].intrinsic,
                     "dst": np.ravel(cams[name].distortion_coefs)}
              for name in names}

@@ -19,8 +19,10 @@ scale, and 1e-4 entry by entry in the solver's Jacobi scaling
 entry vs float64; the free-point wrappers, where the float32 twin on the
 same inputs misses that itself, within twice the twin's error. Each fused
 kernel, and Kernel D, gives the same bits on a repeat launch (no float
-atomics). The LM step captured as a CUDA graph
-gives the uncaptured step's bits on both dense-solve routes, and a capture
+atomics). A Brown rig of several widths runs Kernels A-D at the widest
+width, its pinned columns exact zeros; a rig mixing fisheye with Brown
+cameras launches no kernel. The LM step captured as a CUDA graph gives the
+uncaptured step's bits on both dense-solve routes, and a capture
 that cannot proceed raises. Under torch.func.vmap (the fleet) Kernels A and
 B fold every rig into one launch, each rig's rows equal to its own
 launch's; the fleet's captured cascade gives the uncaptured bits. The SPD
@@ -1231,6 +1233,148 @@ def test_captured_fleet_is_bit_identical_to_uncaptured(card, monkeypatch):
     assert all(g.graph is not None or g.steps <= 1 for g in runners.values())
     steps = sum(g.steps for g in runners.values()) // 2
     assert launches == 1 + steps < sum(ref.nfev)
+
+
+# Mixed-model rigs. A Brown rig of several widths (standard / rational /
+# thin-prism in turn) runs the thin-prism chain (a = 22) with the narrower
+# cameras' extra coefficients pinned by the column mask; at its handler's
+# start the structured normal equations come from Kernel A (5 images: the
+# fused rule declines B), B (FUSED_CHUNK * 4 images), D (self-cal, 10
+# images: both tiles pad past 25%) or C (8 images), each held to the float64
+# CPU twins' normal equations in the Jacobi scaling (or to twice the float32
+# twin's error), every pinned column exact zeros.
+MIX_MODELS = ("standard", "rational", "thin_prism")
+
+
+def _mixed_model_problem(dev, chain, models, n_ims, grid=6):
+    """The handler problem of a rig with one camera model a camera
+    (``problems.template_handler(camera_model=models)``, no image bucket),
+    on the template or, from the template start and the nominal points,
+    the self-cal chain."""
+    from pycamset_tpu_torch.optim.handlers import SelfBundleHandler
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import template_handler
+    handler, _ = template_handler(len(models), n_ims, grid=grid,
+                                  camera_model=list(models),
+                                  options={"im_bucket": None})
+    if chain == "selfcal":
+        th = handler
+        handler = SelfBundleHandler(th.camset, th.target, th.detection,
+                                    options=dict(th.problem_opts))
+        handler.set_initial_params(np.concatenate([
+            th.get_initial_params(),
+            th.target.point_data.reshape(-1)[handler.feat_unfixed]]))
+    return handler, build_structured_problem(handler, device=dev)[0].problem
+
+
+def _neq_scaled_errors(got, ref) -> dict:
+    """Worst error of each NormalEq field in the Jacobi scaling of the
+    reference's diagonals (a gradient entry against sqrt(diag * cost))."""
+    ref = [r.double().cpu() for r in ref]
+    got = [g.double().cpu() for g in got]
+
+    def s(h):
+        return torch.sqrt(torch.clamp(torch.diagonal(h, dim1=-2, dim2=-1),
+                                      min=1e-300))
+    sc, si, sk = s(ref[0]), s(ref[1]), s(ref[2])
+    rc = float(ref[9]) ** 0.5
+    scales = [sc[:, :, None] * sc[:, None], si[:, :, None] * si[:, None],
+              sk[:, :, None] * sk[:, None],
+              sc[:, None, :, None] * si[None, :, None, :],
+              sc[:, None, :, None] * sk[None, :, None, :],
+              si[:, None, :, None] * sk[None, :, None, :],
+              sc * rc, si * rc, sk * rc, rc * rc]
+    return {i: float(((g - r).abs() / sc_).max()) if r.numel() else 0.0
+            for i, (g, r, sc_) in enumerate(zip(got, ref, scales))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain,n_ims,family", [
+    ("template", 5, "A"), ("template", 4 * FUSED_CHUNK, "B"),
+    ("selfcal", 10, "D"), ("selfcal", 8, "C")])
+@pytest.mark.parametrize("loss,semantics", [
+    ("linear", "component"), ("huber", "component"),
+    ("cauchy", "observation")])
+def test_mixed_brown_widths_on_the_kernels(card, chain, n_ims, family, loss,
+                                           semantics):
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    from pycamset_tpu_torch.optim.structured import (ParamPieces,
+                                                     make_structured_neq)
+    _, prob = _mixed_model_problem(card, chain, MIX_MODELS, n_ims)
+    assert prob.widths.a == 22
+    pinned = (prob.colmask.cam == 0).cpu()
+    assert int(pinned.sum()) == 7 + 4            # standard 7, rational 4
+    wrapper = {"A": cg.template_gram, "B": cg.template_gram_fused,
+               "C": sg.selfcal_gram_fused, "D": sg.selfcal_gram}[family]
+    kw = dict(loss=loss, f_scale=2.0, loss_semantics=semantics)
+    n_cams, n_grid = prob.blocks.n_cams, prob.blocks.n_ims
+    n0 = wrapper.launches_by_width[22]
+    got = make_structured_neq(prob.op_fun, prob.widths, n_cams, n_grid,
+                              **kw)(prob.x0, prob.uv, prob.mask, prob.tpl,
+                                    prob.colmask)
+    assert wrapper.launches_by_width[22] == n0 + 1
+
+    def on_cpu(dtype):
+        def t(p):
+            return ParamPieces(*(x.to("cpu", dtype) for x in p))
+        return make_structured_neq(prob.op_fun, prob.widths, n_cams, n_grid,
+                                   **kw)(
+            t(prob.x0), prob.uv.to("cpu", dtype), prob.mask.to("cpu", dtype),
+            prob.tpl.to("cpu", dtype), t(prob.colmask))
+    ref, twin = on_cpu(torch.float64), on_cpu(torch.float32)
+
+    def errs(out):
+        rel = {i: float((g.double().cpu() - r).abs().max())
+               / (float(r.abs().max()) + 1e-30)
+               for i, (g, r) in enumerate(zip(out, ref)) if r.numel()}
+        return rel, _neq_scaled_errors(out, ref)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    (rel, scaled), (rel_f, scaled_f) = errs(got), errs(twin)
+    for mine, floor in ((rel, rel_f), (scaled, scaled_f)):
+        assert all(mine[k] <= max(TOL, 2 * floor[k]) for k in mine), (
+            family, loss, semantics, mine, floor)
+    # the pinned columns: exact zeros in every camera piece
+    hcc, gc, wci, wck = (x.cpu() for x in (got.hcc, got.gc, got.wci,
+                                             got.wck))
+    assert torch.all(gc[pinned] == 0)
+    assert torch.all(hcc.transpose(1, 2)[pinned] == 0)
+    assert torch.all(hcc[pinned] == 0)
+    assert torch.all(wci.transpose(0, 1)[:, pinned] == 0)
+    assert torch.all(wck.transpose(1, 2)[pinned] == 0)
+
+
+@pytest.mark.cuda
+def test_het_rig_takes_no_kernel(card):
+    """A heterogeneous rig (fisheye beside standard cameras, a = 16) runs
+    the plain closed form on the card, chosen by its chain: no gram
+    kernel launches, and its float32 solve agrees with the float64 CPU
+    solve; the captured solve gives the uncaptured bits."""
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    from pycamset_tpu_torch.optim.structured import is_het_chain
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    wrappers = (cg.template_gram, cg.template_gram_fused, sg.selfcal_gram,
+                sg.selfcal_gram_fused, sg.freepoint_gram,
+                sg.freepoint_gram_fused, mg.mixed_gram, mg.mixed_gram_fused)
+    for chain in ("template", "selfcal"):
+        handler, prob = _mixed_model_problem(
+            card, chain, ("fisheye", "standard") * 2, 8)
+        assert is_het_chain(prob.op_fun) and prob.widths.a == 16
+        before = [w.launches for w in wrappers]
+        solve_fn, _, x0 = build_structured_problem(handler, device=card)
+        x_ref, ref = solve_fn(x0, graph=False)
+        x, got = solve_fn(x0)
+        assert [w.launches for w in wrappers] == before
+        _same_solve(got, ref)
+        assert np.array_equal(x, x_ref)
+        cpu_fn, _, _ = build_structured_problem(handler, device="cpu")
+        _, cpu = cpu_fn(x0)
+        assert abs(float(ref.cost) - float(cpu.cost)) <= (
+            1e-4 * float(cpu.cost))
 
 
 # Last in the file: a failed capture leaves the card usable, but nothing

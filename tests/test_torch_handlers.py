@@ -19,8 +19,8 @@ the same inputs):
   ``problems.standard_problem`` solve the same problem: the same
   ``nit``/``nfev``, the cost within 1e-12 relative;
 - every part of the JAX path the port does not have yet raises, naming its
-  ROADMAP item (a camera_model map mixing fisheye with Brown cameras, or
-  Brown widths: the five models themselves are ported); ``CameraSet.multi_cam_triangulate`` and
+  ROADMAP item (per-camera camera_model maps are ported: their parity is
+  ``tests/test_torch_het_rig.py``'s); ``CameraSet.multi_cam_triangulate`` and
   ``project_points_to_all_cams`` match the JAX package's within 1e-9;
 - a non-minimal camera's sensor map, asked for on the CPU, matches the JAX
   package's (OpenCV's undistortion) within 1e-8, and asked for on the card
@@ -179,14 +179,7 @@ def test_run_stereo_calibration_saves_what_it_returns(tmp_path):
 
 def _refuse(what):
     """Drive the port's user path into one part it does not have yet."""
-    # a camera_model map mixing families (the JAX package's het rig) or
-    # Brown widths; the five models themselves are ported
-    options = {"reduced_solver cg": {"reduced_solver": "cg"},
-               "camera_model": {"camera_model": {
-                   "cam0": "fisheye", "cam1": "standard",
-                   "cam2": "standard"}},
-               "camera_model widths": {"camera_model": [
-                   "rational", "standard", "standard"]}}.get(what)
+    options = {"reduced_solver cg": {"reduced_solver": "cg"}}.get(what)
     handler, _ = template_handler(3, 5, grid=6, options=options)
     if what == "rolling_shutter":
         run_stereo_calibration(handler.camset, handler.detection,
@@ -209,7 +202,6 @@ def _refuse(what):
 @pytest.mark.parametrize("what,item", [
     ("backend scipy", "item 8"), ("backend sharded", "item 11"),
     ("rolling_shutter", "item 7"),
-    ("camera_model", "item 7"), ("camera_model widths", "item 7"),
     ("reduced_solver cg", "item 6"),
     ("mixed chain", "group_of_key"), ("mixed chain", "item 8"),
     ("grouped chain", "group_of_key")])
