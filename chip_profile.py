@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of one warm BA solve goes, on one NVIDIA card.
 
-    python3 chip_profile.py
+    python3 chip_profile.py        # every shape below
+    python3 chip_profile.py cg     # the CG dome alone
 
 Solves the template problem (``bench.py::standard_problem``) at 16 x 100
 and 64 x 400, the self-calibration problem (``bench.py::selfcal_problem``)
@@ -15,7 +16,11 @@ solve on the library route
 (``PYCAMSET_PALLAS_CHOL=1``), each in two modes: ``graph`` (the default,
 each LM step one replay of the problem's CUDA graph) and ``host`` (the
 uncaptured step, ``graph=False``; a fleet has one graph per cohort
-size). Each: one warm-up, five solves timed with CUDA events, then one
+size). Then the 288-camera dome (``problems.template_handler(288, 32)``'s
+problem through ``build_structured_problem``: 4320 camera dimensions, which the
+"auto" rule sends to the matrix-free CG reduced solver) on CG and, for
+comparison, dense (library route), both modes. Each: one warm-up, five
+solves timed with CUDA events, then one
 more under ``torch.profiler``. Prints per shape, route and mode: LM
 iterations (a fleet: its rigs' least and most), the median
 solve time, the profiled solve's wall time, the device's busy time in it
@@ -34,14 +39,21 @@ import time
 
 def main() -> int:
     import torch
-
-    from pycamset_tpu_torch.problems import (fleet_problem, grouped_problem,
-                                             mixed_problem, selfcal_problem,
-                                             standard_problem)
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] != ["cg"]:
+        profile_bench_shapes(dev)
+    profile_cg_dome(dev)
+    return 0
+
+
+def profile_bench_shapes(dev):
+    """The bench problems on both routes and the fleet, both modes."""
+    from pycamset_tpu_torch.problems import (fleet_problem, grouped_problem,
+                                             mixed_problem, selfcal_problem,
+                                             standard_problem)
     for chain, make, n_cams, n_ims in (
             ("template", standard_problem, 16, 100),
             ("template", standard_problem, 64, 400),
@@ -63,7 +75,26 @@ def main() -> int:
     fleet = fleet_problem(64, 4, 16, dev)
     for mode in ("graph", "host"):
         profile_solve(fleet, "fleet", "64x4x16", "library", mode)
-    return 0
+
+
+def profile_cg_dome(dev):
+    """The dome's problem on the CG reduced solver, then dense, both
+    modes (library route: n = 4320 is above the SPD kernel's MAX_N)."""
+    import dataclasses
+
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import template_handler
+    os.environ.pop("PYCAMSET_PALLAS_CHOL", None)
+    handler, _ = template_handler(288, 32)
+    prob = build_structured_problem(handler, device=dev)[0].problem
+    for solver in ("cg", "dense"):
+        if solver == "dense":
+            prob = dataclasses.replace(prob, reduced_solver="dense",
+                                       graphs={})
+        for mode in ("graph", "host"):
+            profile_solve(prob, f"template_{solver}", "288x32", "library",
+                          mode)
 
 
 def runner_counts(prob) -> tuple[int, int]:

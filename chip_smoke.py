@@ -172,6 +172,24 @@ gram kernel, on the plain closed form its chain takes. Both: captured =
 uncaptured, status, rms, the warm ms an evaluation beside ``[user_path]``'s,
 the float32 cost against the float64 CPU solve at 4 x 100.
 
+Then the matrix-free CG reduced solver (``[cg_user_path]``): the rigs the
+JAX rule ("auto": CG above 4096 reduced dimensions) sends to it, through
+the user path with the default options: a 288-camera dome (4320 camera
+dimensions, Kernel B) saved and loaded back, and a 16-camera, 720-view
+sweep of a bent board (its template stage dense on Kernel B, its
+self-calibration stage, 4560 dimensions, on Kernel C); per stage the CG
+iterations of each LM step (a spy on the uncaptured solve), no dense
+solve, captured = uncaptured, the device events a replay, the capture's
+ms, the peak MiB, status, rms, and the same problem solved dense beside it
+(ms an LM step, nit, rms). And the free-point (wand) fleet
+(``[fleet_freepoint]``: ``problems.fleet_handlers("freepoint", 64, 4,
+16)`` on Kernel C's wrapper folded over the 64 rigs, and 64 x 4 x 12 with
+``im_bucket: None`` on Kernel D's): the folded wrapper against its float64
+twin per rig and each rig's bits against its one-rig call, timed beside 64
+one-rig launches; ``run_fleet_bundle_adjustment`` one launch a batch
+evaluation, captured = uncaptured, status, rms, the float64 CPU fleet,
+rigs/s beside the 64 rigs solved one by one.
+
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
 kernels as JSON; the last is
@@ -1766,8 +1784,34 @@ def phase_fleet_kernel(fleet, fleet_a) -> dict:
             cpu_f32_twin_per_rig_max_abs=f"{rel_floor['gram']:.2e}",
             **{f"A_{k}": f"{v:.2e}" for k, v in scaled.items()},
             **{f"cpu_f32_twin_{k}": f"{v:.2e}" for k, v in floor.items()})
+    # device time: the folded launch alone, 64 one-rig launches alone
+    tpl_a = fleet_a.tpl
+    packed = cg.pack_block_params(fold(ops[0]), fold(ops[1]))
+    packed_r = [cg.pack_block_params(ops[0][k], ops[1][k])
+                for k in range(ra)]
+    uv_f, mask_f = fold(ops[2]), fold(ops[3])
+    ta = {"kernel_ms": kernel_ms(lambda: cg._launch_gram(
+            packed, tpl_a, uv_f, mask_f, 0, 1, 1.0)),
+          "one_rig_launches_kernel_ms": kernel_ms(lambda: [
+              cg._launch_gram(packed_r[k], tpl_a, ops[2][k], ops[3][k], 0, 1,
+                              1.0) for k in range(ra)]),
+          "ms": cuda_ms(lambda: torch.func.vmap(
+              lambda cb, ib, u, m: cg.template_gram(cb, ib, tpl_a, u, m))(
+                  *ops), 20),
+          "one_rig_launches_ms": cuda_ms(lambda: [
+              cg.template_gram(*(x[k] for x in ops[:2]), tpl_a,
+                               *(x[k] for x in ops[2:]))
+              for k in range(ra)], 5),
+          "plain_ms": cuda_ms(lambda: cg.template_gram_plain(
+              fold(ops[0]), fold(ops[1]), tpl_a, uv_f, mask_f), 5)}
+    ta["bound_ms"], ta["bound_by"] = bound("template_gram",
+                                           fleet_bound_problem(fleet_a))
+    say("fleet_kernel", shape=f"{ra}x{ca}x{ia}", kernel="A", unit="ms",
+        blocks=ra * ca * ia,
+        **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+           for k, v in ta.items()})
     rec["kernel_a"] = {"shape": f"fleet {ra}x{ca}x{ia}",
-                       "launches_per_call": 1, "max_err": worst_a}
+                       "launches_per_call": 1, "max_err": worst_a, **ta}
     return rec
 
 
@@ -2217,7 +2261,7 @@ def freepoint_parity(sg, tag, f32, n_cams, n_ims, got, ref, scaled,
 
 def user_path_parity(out, shape, name, prob):
     """The gram kernel ``name`` of a handler path on the handler problem's
-    own tensors (its image grid, bucket pads and gauge masks: A on a
+    own tensors (its image grid, bucket pads and gauge masks: A or B on a
     template stage at its start, C or D on a self-cal problem moved as
     ``selfcal_inputs`` moves it), against its float64 plain twin under the
     four losses (``parity_f32_floor``), recorded in ``out`` under
@@ -2226,8 +2270,17 @@ def user_path_parity(out, shape, name, prob):
     from pycamset_tpu_torch.optim import cuda_grams as cg
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
     n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
-    gram = None                 # C's scaling: the twin's unmasked gram
-    if name == "template_gram":
+    gram = None                 # B's and C's scaling: the twin's gram
+    if name == "template_gram_fused":
+        f32 = template_inputs(prob)
+        kernel, plain = cg.template_gram_fused, cg.template_gram_fused_plain
+
+        def launch(fn, ins, **kw):
+            return fn(*ins, n_cams, n_ims, **kw)
+
+        def scaled_of(g, r):
+            return cg.scaled_errors_fused(g, r, gram, n_cams, n_ims)
+    elif name == "template_gram":
         f32 = template_inputs(prob)
         kernel, plain = cg.template_gram, cg.template_gram_plain
 
@@ -2258,6 +2311,8 @@ def user_path_parity(out, shape, name, prob):
         if name == "selfcal_gram_fused":
             gram = sg.selfcal_gram_plain(*f64[:5], torch.ones_like(f64[5]),
                                          *f64[6:], **kw)[0]
+        if name == "template_gram_fused":
+            gram = cg.template_gram_plain(*f64, **kw)
         got, ref = launch(kernel, f32, **kw), launch(plain, f64, **kw)
         scaled = scaled_of(got, ref)
         say("parity_user_path", shape=shape.replace(" ", "_"), kernel=name,
@@ -2272,7 +2327,7 @@ def user_path_parity(out, shape, name, prob):
     torch.cuda.empty_cache()
 
 
-def freepoint_bound(name: str, prob) -> tuple[float, str]:
+def freepoint_bound(name: str, prob, rigs: int = 1) -> tuple[float, str]:
     """The least time of one call of a free-point wrapper on a problem's
     inputs, for the free-point function's own work: its inputs (cam_b, the
     points, uv, mask, the column masks) read once and the outputs it keeps
@@ -2280,16 +2335,19 @@ def freepoint_bound(name: str, prob) -> tuple[float, str]:
     against its products per real detection over the FP32 rate. The
     borrowed self-cal kernel's pose columns and C's per-block wik are not
     counted: the gap to this bound is what they cost. The camera width a
-    is the problem's."""
+    is the problem's. ``rigs``: a launch folded over that many rigs, whose
+    blocks and cameras ``prob`` counts (its mask (R*B, K)); each rig reads
+    and writes its own per-key rows."""
     bb, k = prob.mask.shape
     c = prob.blocks.n_cams
     a = prob.widths.a
-    ins = bb * a + k * 3 + bb * k * 3 + k * 3  # cam_b, points, uv+mask, kmask
+    kr = k * rigs
+    ins = bb * a + kr * 3 + bb * k * 3 + kr * 3  # cam_b, points, uv+mask, kmask
     if name == "freepoint_gram":
         ins += bb * a                               # cmask
-        outs = bb * (a * a + a + 1) + bb * k * 3 * a + k * 12
+        outs = bb * (a * a + a + 1) + bb * k * 3 * a + kr * 12
     else:
-        outs = c * (a * a + a) + bb + c * k * 3 * a + k * 12
+        outs = c * (a * a + a) + bb + c * k * 3 * a + kr * 12
     t_bytes = 4 * (ins + outs) / HBM_BYTES_PER_S
     t_ops = (prob.blocks.n_real * freepoint_flop_per_detection(a)
              / FP32_FLOP_PER_S)
@@ -4826,6 +4884,513 @@ def phase_tied_fleet(handlers, counted, dev) -> dict:
     return out
 
 
+# [cg_user_path]: the rigs that the JAX rule ("auto": CG above 4096 reduced
+# dimensions) sends to the matrix-free CG reduced solver -> the gram
+# wrapper of the CG stage
+CG_USER = {"template 288x32": "template_gram_fused",
+           "selfcal 16x720": "selfcal_gram_fused"}
+# a CG stage's final cost at most this much (relative) above the dense
+# reduced solve's of the same problem (on an H100 80GB HBM3 at 700 W the
+# dome's two rms agree to 5 digits; the sweep's CG cost lies 0.4% under)
+CG_COST_TOL = 1e-3
+# [fleet_freepoint]: the wand fleets (problems.fleet_handlers("freepoint",
+# ...)) -> (images, options, the free-point wrapper)
+FLEET_FREEPOINT = {"freepoint 64x4x16": (16, None, "freepoint_gram_fused"),
+                   "freepoint 64x4x12": (12, {"im_bucket": None},
+                                         "freepoint_gram")}
+
+
+@contextlib.contextmanager
+def cg_spy():
+    """Within the block: the iterations of each CG reduced solve
+    (``structured.pcg``, which ``_reduced_cg`` looks up at call time; 0-d
+    device counts, read after) and the number of dense reduced solves
+    (``structured._psd_solve``). Yields {"k": [...], "dense": n}; for
+    uncaptured runs."""
+    from pycamset_tpu_torch.optim import structured
+    rec = {"k": [], "dense": 0}
+    pcg, psd = structured.pcg, structured._psd_solve
+
+    def pcg_spy(*args, **kw):
+        x, k = pcg(*args, **kw)
+        rec["k"].append(k)
+        return x, k
+
+    def psd_spy(*args, **kw):
+        rec["dense"] += 1
+        return psd(*args, **kw)
+
+    structured.pcg, structured._psd_solve = pcg_spy, psd_spy
+    try:
+        yield rec
+    finally:
+        structured.pcg, structured._psd_solve = pcg, psd
+
+
+def device_events(fn):
+    """(every device event of one call of fn under torch.profiler, fn's
+    result): what a captured solve's replays launch, all of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_type == DeviceType.CUDA for ev in prof.events()), out
+
+
+def cg_stage(tag, handler, own, counted, dev, kern, flag=None):
+    """One CG stage of [cg_user_path]: the handler's problem
+    (``build_structured_problem``, "auto" -> CG checked), its gram kernel
+    ``own`` first held to its float64 twin on the problem's own tensors
+    (``user_path_parity``, recorded in ``kern``), then solved uncaptured
+    with its counts at 0 (``own`` once an evaluation, no other wrapper) and
+    the CG spy (no dense solve; each LM step's iterations), then capturing
+    and warm (one capture, one replay a step, both bit for bit the
+    uncaptured solve); one replay under torch.profiler: the kernel's passes
+    once (one evaluation a step, as uncaptured), no SPD kernel, and every
+    device event of the step (a whole warm solve's events overflow the
+    profiler's buffers: about 15,000 a step); the warm median, the
+    capture's ms, the peak MiB a solve adds; and the same problem with the
+    dense reduced solve (library route: n above the SPD kernel's MAX_N),
+    captured, for nit, rms and ms an LM step beside CG's; CG's final cost
+    at most ``CG_COST_TOL`` above the dense solve's.
+
+    :return: (the record, the uncaptured SLMResult, x of it, residual_fn)."""
+    import dataclasses
+
+    import torch
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    t0 = time.perf_counter()
+    solve_fn, residual_fn, x0 = build_structured_problem(handler, device=dev)
+    prob = solve_fn.problem
+    build_s = time.perf_counter() - t0
+    check(prob.reduced_solver == "cg", f"{tag}: 'auto' gave "
+                                       f"{prob.reduced_solver!r}, not CG")
+    w, n_cams, n_ims = prob.widths, prob.blocks.n_cams, prob.blocks.n_ims
+    # the rule's count: a chain without points eliminates its poses
+    dims = n_cams * w.a + (0 if w.c == 0 else n_ims * w.b)
+    user_path_parity(kern, tag, own, prob)
+    with cg_spy() as spy:
+        (x_ref, ref), n_own, n_psd, unc_s = main_path_counts(
+            counted, own, f"{tag} uncaptured",
+            lambda: solve_fn(x0, graph=False))
+    iters = [int(k) for k in spy["k"]]
+    check(spy["dense"] == 0 and n_psd == 0 and len(iters) == ref.nit,
+          f"{tag}: {spy['dense']} dense solves, {n_psd} SPD launches, "
+          f"{len(iters)} CG solves in {ref.nit} LM steps")
+    check(n_own == ref.nfev, f"{tag}: {own} launched {n_own} times in "
+                             f"{ref.nfev} evaluations")
+    runner = prob.graph()
+    t0 = time.perf_counter()
+    x_first, first = solve_fn(x0)                   # captures
+    first_s = time.perf_counter() - t0
+    graph, replays = runner.graph, runner.replays
+    x_warm, warm = solve_fn(x0)
+    check(runner.graph is graph and graph is not None
+          and runner.replays - replays == warm.nit,
+          f"{tag}: not one capture and one replay a step")
+    check(same_solve(first, ref) and same_solve(warm, ref)
+          and np.array_equal(x_first, x_ref)
+          and np.array_equal(x_warm, x_ref),
+          f"{tag}: the captured solve differs from the uncaptured")
+    counts, _ = solve_kernel_counts(graph.replay)
+    n_step_events, _ = device_events(graph.replay)
+    if flag is None:        # Kernel B: its two passes
+        want = {"gram_kernel<9,true>": 1, "cam_reduce_kernel<9>": 1}
+    else:                   # Kernel C: its two passes
+        want = {f"mixed_kernel<9,3,{flag}>": 1,
+                f"mixed_reduce_kernel<9,3,{flag}>": 1}
+    check(counts == want, f"{tag}: one replay launched {counts}, {want} "
+                          f"expected")
+    base = mib_allocated()
+    solve_fn(x0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20 - base
+    cg_ms = timed(lambda: solve_fn(x0), 3)
+    status, rms = int(ref.status), prob.rms_px(ref.cost)
+    check(status in (1, 2), f"{tag}: status {status}")
+    check(rms <= 0.36, f"{tag}: rms {rms:.5f} above 0.36 px")
+    # the same problem with the dense reduced solve, for comparison
+    dense = dataclasses.replace(prob, reduced_solver="dense", graphs={})
+    pieces = solve_fn.pieces(x0)
+    with cg_spy() as dspy:
+        d_first = dense.solve(x0=pieces)
+    check(dspy["dense"] > 0 and not dspy["k"],
+          f"{tag}: the dense comparison took CG")
+    d_ms = timed(lambda: dense.solve(x0=pieces), 3)
+    d_med, c_med = float(np.median(d_ms)), float(np.median(cg_ms))
+    cost_ratio = float(ref.cost) / float(d_first.cost)
+    check(cost_ratio <= 1 + CG_COST_TOL,
+          f"{tag}: the CG solve's cost {float(ref.cost)!r} is "
+          f"{cost_ratio!r} times the dense solve's {float(d_first.cost)!r}")
+    rec = dict(dims=dims, n_real=prob.blocks.n_real,
+               im_grid=prob.blocks.n_ims, nit=ref.nit, nfev=ref.nfev,
+               status=status, rms_px=f"{rms:.5f}",
+               cg_iters_per_step=",".join(map(str, iters)),
+               cg_iters_mean=f"{np.mean(iters):.1f}",
+               launches_uncaptured=n_own, same_bits=True,
+               capture_ms=f"{runner.capture_ms:.1f}",
+               device_events_per_replay=n_step_events,
+               peak_mib=f"{peak:.1f}", solve_ms_median=f"{c_med:.3f}",
+               solve_ms_all=",".join(f"{t:.2f}" for t in cg_ms),
+               ms_per_step=f"{c_med / warm.nit:.3f}",
+               uncaptured_s=f"{unc_s:.2f}", first_solve_s=f"{first_s:.2f}",
+               build_s=f"{build_s:.2f}",
+               dense_nit=d_first.nit, dense_status=int(d_first.status),
+               dense_rms_px=f"{dense.rms_px(d_first.cost):.5f}",
+               cost_over_dense=repr(cost_ratio),
+               dense_solve_ms_median=f"{d_med:.3f}",
+               dense_ms_per_step=f"{d_med / d_first.nit:.3f}")
+    del dense, d_first
+    torch.cuda.empty_cache()
+    return rec, ref, x_ref, residual_fn
+
+
+def phase_cg_user_path(counted, dev, kern) -> dict:
+    """[cg_user_path]: the two rigs of ``CG_USER`` through the user path
+    with the "auto" reduced solver, which resolves to CG by the JAX rule
+    (``cg_stage``): a 288-camera dome (``problems.template_handler(288,
+    32)``: 4320 camera dimensions, Kernel B) through ``run_stereo_calibration`` (the
+    main path: its counts at 0 just before, B alone, no dense solve), its
+    file saved and loaded back; a 16-camera, 720-view sweep of a board
+    bent ``BOARD_WARP``: the template stage (dense, n = 240, Kernel B: 720
+    images pad nothing at tile 16; B first held to its twin on the stage's
+    problem) through ``run_stereo_calibration``, then the self-calibration stage
+    (``problems.selfcal_stage_handler``: 240 + 720 * 6 = 4560 dimensions,
+    Kernel C) through ``run_stereo_calibration`` (C alone, no dense solve),
+    the recovered points nearer the true bent board than the nominal grid.
+    Each stage's status 1-2, rms <= 0.36 px, the entry point's parameters
+    the uncaptured solve's bit for bit.
+
+    :return: {kernel: {solve: launches on its main path}}."""
+    import tempfile
+
+    import torch
+    from pycamset_tpu_torch.calibration.camera_calibrator import (
+        run_stereo_calibration)
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import (selfcal_stage_handler,
+                                             template_handler)
+    from pycamset_tpu_torch.utils.saving import load_CameraSet
+    launches = {"template_gram_fused": {}, "selfcal_gram_fused": {}}
+
+    # the dome
+    shape = "template 288x32"
+    tag = f"cg_user_path {shape}"
+    t0 = time.perf_counter()
+    th, _ = template_handler(288, 32)
+    inputs_s = time.perf_counter() - t0
+    rec, ref, x_ref, residual_fn = cg_stage(tag, th, CG_USER[shape],
+                                             counted, dev, kern)
+    sec = {}
+    with tempfile.TemporaryDirectory() as tmp, cg_spy() as spy:
+        path = os.path.join(tmp, "dome.camset")
+        from pycamset_tpu_torch.models.camera_set import CameraSet
+        with timed_method(CameraSet, "save", sec, "save"):
+            solved, n_own, _, e2e_s = main_path_counts(
+                counted, CG_USER[shape], tag, lambda: run_stereo_calibration(
+                    None, None, None, param_handler=th, save=True,
+                    save_loc=path, device=dev))
+        t0 = time.perf_counter()
+        back = load_CameraSet(path)
+        load_s = time.perf_counter() - t0
+        file_mib = os.path.getsize(path) / 2 ** 20
+    check(spy["dense"] == 0, f"{tag}: the main path made a dense solve")
+    check(np.array_equal(solved.calibration_params, x_ref),
+          f"{tag}: run_stereo_calibration's parameters differ from the "
+          f"uncaptured solve's")
+    check(back == solved and np.array_equal(back.calibration_params,
+                                            solved.calibration_params),
+          f"{tag}: the loaded CameraSet differs from the returned")
+    say("cg_user_path", shape=shape.replace(" ", "_"), **rec,
+        e2e_launches=n_own, inputs_s=f"{inputs_s:.2f}",
+        run_stereo_calibration_s=f"{e2e_s:.2f}",
+        save_s=f"{sec.get('save', float('nan')):.2f}",
+        load_s=f"{load_s:.2f}", file_mib=f"{file_mib:.1f}")
+    launches[CG_USER[shape]][f"cg_user_path {shape}"] = n_own
+    del th, solved, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the sweep: the template stage, then the self-cal stage on CG
+    shape = "selfcal 16x720"
+    tag = f"cg_user_path {shape}"
+    t0 = time.perf_counter()
+    th, rig = template_handler(16, 720, template_warp=BOARD_WARP)
+    inputs_s = time.perf_counter() - t0
+    user_path_parity(kern, f"{tag} template stage", "template_gram_fused",
+                     build_structured_problem(th, device=dev)[0].problem)
+    solved_t, n_tpl, _, tpl_s = main_path_counts(
+        counted, "template_gram_fused", f"{tag} template stage",
+        lambda: run_stereo_calibration(None, None, None, param_handler=th,
+                                       save=False, device=dev))
+    tpl_rms = float(np.sqrt(np.mean(
+        np.asarray(solved_t.calibration_result) ** 2)))
+    sh = selfcal_stage_handler(solved_t, th)
+    rec, ref, x_ref, residual_fn = cg_stage(tag, sh, CG_USER[shape],
+                                             counted, dev, kern, flag="true")
+    check(float(rec["rms_px"]) <= tpl_rms,
+          f"{tag}: rms {rec['rms_px']} above the template stage's "
+          f"{tpl_rms:.5f}")
+    e2e_h = selfcal_stage_handler(solved_t, th)
+    with cg_spy() as spy:
+        solved, n_own, _, e2e_s = main_path_counts(
+            counted, CG_USER[shape], tag, lambda: run_stereo_calibration(
+                None, None, None, param_handler=e2e_h, save=False,
+                device=dev))
+    check(spy["dense"] == 0, f"{tag}: the main path made a dense solve")
+    check(np.array_equal(solved.calibration_params, x_ref),
+          f"{tag}: run_stereo_calibration's parameters differ from the "
+          f"uncaptured solve's")
+    vis = sh.visible_feature_mask
+    true = rig["template_true"]
+    pts = e2e_h.get_updated_target(x_ref)
+    rec_mm, nominal_mm = (1e3 * np.sqrt(np.mean(np.sum(
+        (p[vis] - true[vis]) ** 2, axis=1))) for p in (pts, rig["template"]))
+    check(bool(np.isfinite(pts).all()) and rec_mm < nominal_mm,
+          f"{tag}: recovered points {rec_mm} mm from the true board, the "
+          f"nominal grid {nominal_mm} mm")
+    say("cg_user_path", shape=shape.replace(" ", "_"), **rec,
+        template_stage_rms_px=f"{tpl_rms:.5f}",
+        template_stage_launches=f"template_gram_fused:{n_tpl}",
+        template_stage_s=f"{tpl_s:.2f}", e2e_launches=n_own,
+        inputs_s=f"{inputs_s:.2f}", run_stereo_calibration_s=f"{e2e_s:.2f}",
+        points_rms_mm_vs_true=f"{rec_mm:.4f}",
+        nominal_rms_mm_vs_true=f"{nominal_mm:.4f}")
+    launches["template_gram_fused"][f"cg_user_path {shape} template stage"] = (
+        n_tpl)
+    launches[CG_USER[shape]][f"cg_user_path {shape}"] = n_own
+    return launches
+
+
+def fleet_freepoint_kernel(prob, own: str) -> dict:
+    """A free-point wrapper (over Kernel C or D) folded over a wand fleet's
+    rigs (one launch under torch.func.vmap) on the fleet's own tensors at
+    its start, every lens column free but one (``freepoint_inputs``), two
+    losses: each rig against its float64 twin in both measures
+    (``parity_f32_floor``); each rig's bits against its one-rig call; the
+    folded launch's device time beside its rigs' one-rig launches, the
+    wrapper's and the float32 twin's CUDA-event ms, and the free-point
+    function's bound for the rigs' work (``freepoint_bound``)."""
+    import torch
+    from types import SimpleNamespace
+
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    fused = own.endswith("fused")
+    r, c, i = prob.n_rigs, prob.n_cams, prob.n_ims_grid
+    a = prob.widths.a
+    x, cm = prob.x0_pieces, prob.colmask
+    cmask = cm.cam.clone()
+    cmask[..., :a - 6] = 1.0
+    cmask[..., 3] = 0.0
+    cam_b = torch.repeat_interleave(x.cam, i, dim=1)
+    cmask_b = torch.repeat_interleave(cmask, i, dim=1)
+    ops = (cam_b, x.key, prob.uv, prob.mask, cmask_b, cm.key)
+    wrapper, twin = getattr(sg, own), getattr(sg, own + "_plain")
+    tag = f"{own} fleet {r}x{c}x{i}"
+
+    def one(cb, kp, u, m, cmb, km, **kw):
+        if fused:
+            return wrapper(cb, kp, u, m, km, c, i, **kw)
+        return wrapper(cb, kp, u, m, cmb, km, **kw)
+
+    def plain(cb, kp, u, m, cmb, km, **kw):
+        if fused:
+            return twin(cb, kp, u, m, km, c, i, **kw)
+        return twin(cb, kp, u, m, cmb, km, **kw)
+
+    def scaled_of(g, ref):
+        if fused:
+            return sg.scaled_errors_freepoint_fused(g, ref, c, i)
+        return sg.scaled_errors_freepoint(g, ref)
+
+    def folded(**kw):
+        return torch.func.vmap(lambda *y: one(*y, **kw))(*ops)
+
+    ops64 = tuple(t.double() for t in ops)
+    rec = {"abs": 0.0, "rel": 0.0, "scaled": 0.0}
+    n_floor = len(F32_FLOOR_CASES)
+    for loss, sem in FLEET_KEY_LOSSES:
+        kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
+        n0 = wrapper.launches
+        got = folded(**kw)
+        check(wrapper.launches == n0 + 1,
+              f"{tag}: the folded kernel took more than one launch")
+        for k in range(r):
+            rows = [g[k] for g in got]
+            refs = plain(*(y[k] for y in ops64), **kw)
+            e = parity_f32_floor(
+                f"{tag} rig {k} {loss}/{sem}", rows, refs,
+                scaled_of(rows, refs),
+                lambda k=k: plain(*(y[k] for y in ops), **kw), scaled_of)
+            for key, v in e.items():
+                rec[key] = max(rec[key], v)
+        say("fleet_freepoint_kernel", wrapper=own, shape=f"{r}x{c}x{i}",
+            loss=loss, semantics=sem, tol=TOL, launches=1,
+            worst_rig_max_abs=f"{rec['rel']:.2e}",
+            worst_rig_scaled=f"{rec['scaled']:.2e}",
+            f32_floor_cases=len(F32_FLOOR_CASES) - n_floor)
+        del got
+        torch.cuda.empty_cache()
+    rec["f32_floor_cases"] = F32_FLOOR_CASES[n_floor:]
+    got = folded()
+    same = sum(all(torch.equal(g[k], o) for g, o in zip(
+        got, one(*(y[k] for y in ops)))) for k in range(r))
+    check(same == r, f"{tag}: {r - same} of {r} rigs' bits differ from "
+                     f"their one-rig calls")
+    del got
+    im0 = cam_b.new_zeros((r * c * i, 6))
+    packed = sg.pack_block_params(fold(cam_b), im0)
+    packed_r = [sg.pack_block_params(cam_b[k], im0[:c * i])
+                for k in range(r)]
+    keyp, kmask = x.key.contiguous(), cm.key.contiguous()
+    uv_f, mask_f, cmask_f = fold(prob.uv), fold(prob.mask), fold(cmask_b)
+    if fused:
+        def launch_all():
+            return sg._launch_selfcal_fused(packed, keyp, uv_f, mask_f, im0,
+                                            kmask, c, i, 0, 1, 1.0, a - 6)
+
+        def launch_one(k):
+            return sg._launch_selfcal_fused(
+                packed_r[k], keyp[k], prob.uv[k], prob.mask[k],
+                im0[:c * i], kmask[k], c, i, 0, 1, 1.0, a - 6)
+    else:
+        def launch_all():
+            return sg._launch_selfcal(packed, keyp, uv_f, mask_f, cmask_f,
+                                      im0, kmask, 0, 1, 1.0, a - 6)
+
+        def launch_one(k):
+            return sg._launch_selfcal(
+                packed_r[k], keyp[k], prob.uv[k], prob.mask[k], cmask_b[k],
+                im0[:c * i], kmask[k], 0, 1, 1.0, a - 6)
+    t = {"kernel_ms": kernel_ms(launch_all),
+         "one_rig_launches_kernel_ms": kernel_ms(
+             lambda: [launch_one(k) for k in range(r)]),
+         "ms": cuda_ms(folded, 5),
+         "one_rig_launches_ms": cuda_ms(lambda: [
+             one(*(y[k] for y in ops)) for k in range(r)], 2),
+         "plain_ms": cuda_ms(lambda: torch.func.vmap(plain)(*ops), 2)}
+    bound_prob = SimpleNamespace(
+        mask=fold(prob.mask), widths=SimpleNamespace(a=a),
+        blocks=SimpleNamespace(n_cams=r * c, n_real=int(prob.n_real.sum())))
+    t["bound_ms"], t["bound_by"] = freepoint_bound(own, bound_prob, rigs=r)
+    rec.update(t, shape=f"fleet {r}x{c}x{i}", same_bits_rigs=same,
+               launches_per_call=1)
+    say("fleet_freepoint_kernel", wrapper=own, shape=f"{r}x{c}x{i}",
+        unit="ms", same_bits_rigs=f"{same}/{r}",
+        **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+           for k, v in t.items()})
+    del ops, ops64, packed, packed_r
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_fleet_freepoint(counted, dev) -> dict:
+    """[fleet_freepoint]: the wand fleets of ``FLEET_FREEPOINT``
+    (``problems.fleet_handlers("freepoint", 64, 4, n)``: 64 rigs, seeds
+    100 + r, each image's points free, the wand's gauge), the free-point
+    wrapper folded over the rigs first (``fleet_freepoint_kernel``), then
+    ``run_fleet_bundle_adjustment(graph=False)`` as the main path (its
+    counts at 0 just before: the wrapper alone, one launch per evaluation
+    of the batch), the fleet captured (= the main path's per-rig results
+    bit for bit), every rig at status 1-2 and rms <= 0.36 px, the first 4
+    rigs' costs within 1e-4 of the port's float64 CPU fleet, rigs/s of the
+    warm batch beside the 64 rigs solved one by one (each its own
+    ``build_structured_problem``, captured, warm).
+
+    :return: {shape: {"own", "launches", "kernel": the folded record,
+        ...}}."""
+    import torch
+    from pycamset_tpu_torch.optim.fleet import (build_fleet_problem,
+                                                run_fleet_bundle_adjustment)
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import fleet_handlers
+    out = {}
+    for shape, (n_ims, opts, own) in FLEET_FREEPOINT.items():
+        t_shape = time.perf_counter()
+        tag = f"fleet_freepoint {shape}"
+        handlers = fleet_handlers("freepoint", 64, 4, n_ims, options=opts)
+        prob = build_fleet_problem(handlers, device=dev)
+        setup_s = time.perf_counter() - t_shape
+        kern = fleet_freepoint_kernel(prob, own)
+        (results, _), n_own, n_psd, main_s = main_path_counts(
+            counted, own, tag, lambda: run_fleet_bundle_adjustment(
+                handlers, device=dev, graph=False))
+        runners = prob.graph()
+        first = prob.solve_batch()
+        before = {n: g.steps for n, g in runners.items()}
+        warm = prob.solve_batch()
+        steps = sum(g.steps - before[n] for n, g in runners.items())
+        check(same_fleet(first, warm), f"{tag}: two captured solves differ")
+        for k, res in enumerate(results):
+            x_k = prob.extract_free(k, prob.rig_result(warm, k).x)
+            check((res.nit, res.nfev, res.status)
+                  == (warm.nit[k], warm.nfev[k], int(warm.status[k]))
+                  and np.array_equal(res.x, x_k),
+                  f"{tag} rig {k}: the captured solve differs from the "
+                  f"main path's uncaptured one")
+        check(n_own == 1 + steps and n_own < sum(warm.nfev) and n_psd == 0,
+              f"{tag}: {own} launched {n_own} times in {steps} batch steps "
+              f"(+1 slm_init), {sum(warm.nfev)} rig evaluations")
+        status = [int(s) for s in warm.status.tolist()]
+        rms = prob.rms_px(warm.cost)
+        check(all(s in (1, 2) for s in status), f"{tag}: status {status}")
+        check(float(rms.max()) <= 0.36, f"{tag}: rms {rms.max():.4f} above "
+                                        f"0.36 px")
+        t0 = time.perf_counter()
+        cpu = build_fleet_problem(handlers[:4], device="cpu").solve_batch()
+        cpu_s = time.perf_counter() - t0
+        rel = ((warm.cost[:4].double().cpu() - cpu.cost) / cpu.cost).abs()
+        check(float(rel.max()) <= 1e-4, f"{tag}: cost differs from the "
+                                        f"float64 CPU fleet by {rel.max()}")
+        warm_ms = timed(prob.solve_batch, 3)
+        median = float(np.median(warm_ms))
+        # the same rigs one by one: each its own problem, captured, warm
+        solos = []
+        for h in handlers:
+            fn, _, x0 = build_structured_problem(h, device=dev)
+            fn(x0)
+            solos.append((fn, x0))
+        one_ms = timed(lambda: [fn(x0) for fn, x0 in solos], 1)
+        del solos
+        rec = dict(rigs=prob.n_rigs, n_real=int(prob.n_real.sum()),
+                   keys=prob.mask.shape[2], im_grid=prob.n_ims_grid,
+                   launches=n_own, batch_evaluations=1 + steps,
+                   rig_evaluations=sum(warm.nfev), nit_min=min(warm.nit),
+                   nit_max=max(warm.nit),
+                   status_counts={s: status.count(s)
+                                  for s in sorted(set(status))},
+                   rms_px_max=f"{rms.max():.5f}",
+                   rel_cost_diff_cpu_f64_4_rigs=f"{rel.max():.3e}",
+                   cpu_f64_4_rigs_s=f"{cpu_s:.1f}",
+                   main_path_s=f"{main_s:.2f}",
+                   solve_ms_median=f"{median:.3f}",
+                   solve_ms_all=",".join(f"{t:.2f}" for t in warm_ms),
+                   rigs_per_s=f"{prob.n_rigs / median * 1e3:.1f}",
+                   one_by_one_ms=f"{one_ms[0]:.3f}",
+                   one_by_one_rigs_per_s=(
+                       f"{prob.n_rigs / one_ms[0] * 1e3:.1f}"),
+                   capture_ms=",".join(
+                       f"{n}:{runners[n].capture_ms:.1f}"
+                       for n in sorted(runners, reverse=True)
+                       if runners[n].capture_ms is not None),
+                   setup_s=f"{setup_s:.1f}",
+                   seconds=f"{time.perf_counter() - t_shape:.1f}")
+        say("fleet_freepoint", shape=shape.replace(" ", "_"), same_bits=True,
+            **rec)
+        out[shape] = {"own": own, "launches": n_own, "kernel": kern,
+                      "rigs_per_s": prob.n_rigs / median * 1e3,
+                      "one_by_one_rigs_per_s": prob.n_rigs / one_ms[0] * 1e3}
+        del results, first, warm, prob, handlers
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5030,6 +5595,23 @@ def main() -> int:
         say("elapsed", after=kind,
             seconds=f"{time.perf_counter() - t_start:.1f}",
             phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    for name, by_solve in phase_cg_user_path(counted, dev, kern).items():
+        launches[name].update(by_solve)
+    say("elapsed", after="cg_user_path",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    fleet_fp = phase_fleet_freepoint(counted, dev)
+    for shape, rec in fleet_fp.items():
+        launches[rec["own"]][f"fleet_freepoint {shape}"] = rec["launches"]
+    say("elapsed", after="fleet_freepoint",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
     for name, by_solve in mixed_launches.items():
         launches[name].update(by_solve)
     for phase, recs in (("multi_target_handlers", multi),
@@ -5087,14 +5669,22 @@ def main() -> int:
     for name, (source, replaces, shape) in FREEPOINT_KERNELS.items():
         rec = fp_kern[name][shape]
         bound_ms, bound_by = freepoint_bound(name, fp_probs[shape])
+        # the shapes' records and the wrapper folded over a wand fleet
+        held = [*fp_kern[name].values(),
+                *(r["kernel"] for r in fleet_fp.values() if r["own"] == name)]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches[name].values()),
             "launches_by_solve": launches[name],
-            "max_abs_err": max(r["abs"] for r in fp_kern[name].values()),
-            "max_rel_err": max(r["rel"] for r in fp_kern[name].values()),
-            "max_scaled_err": max(r["scaled"]
-                                  for r in fp_kern[name].values()),
+            "max_abs_err": max(r["abs"] for r in held),
+            "max_rel_err": max(r["rel"] for r in held),
+            "max_scaled_err": max(r["scaled"] for r in held),
+            "fleet": {f"fleet_freepoint {s}": {
+                **{k: v for k, v in r["kernel"].items()
+                   if k not in ("abs", "rel", "scaled")},
+                "rigs_per_s": r["rigs_per_s"],
+                "one_by_one_rigs_per_s": r["one_by_one_rigs_per_s"]}
+                for s, r in fleet_fp.items() if r["own"] == name},
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "kernel_ms": rec["kernel_ms"], "peak_mib": rec["peak_mib"],

@@ -51,13 +51,18 @@ only through D's and C's Pallas twins:
   each camera's images, per-block costs, hkk and gk.
 
 Their plain twins (``freepoint_gram_plain``, ``freepoint_gram_fused_plain``)
-are the self-cal twins at identity poses; each wrapper counts its own
-launches (not in the self-cal wrappers' counts). The kernels still compute,
+are the self-cal twins at identity poses. Both wrappers go through the
+self-cal operators (``pycamset_tpu_torch::selfcal_gram{,_fused}``), so under
+``torch.func.vmap`` (the free-point fleet) R rigs fold into one launch as
+the self-cal fleet's do; each wrapper counts its own launches (not in the
+self-cal wrappers' counts: ``_counted_as``). The kernels still compute,
 and D and C still write, the pose columns and C's per-block wik, which the
 wrappers discard; ``scaled_errors_freepoint{,_fused}`` hold the kept
 outputs in the Jacobi scaling.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import Tensor
@@ -206,6 +211,29 @@ def scaled_errors_selfcal_fused(got, ref, ref_gram: torch.Tensor,
     return out
 
 
+# the wrapper whose counters an operator's launch adds to (None: the
+# operator's own wrapper; the free-point wrappers set themselves)
+_COUNT_AS = [None]
+
+
+@contextlib.contextmanager
+def _counted_as(wrapper):
+    """Launches of the self-cal operators inside count as ``wrapper``'s."""
+    _COUNT_AS[0] = wrapper
+    try:
+        yield
+    finally:
+        _COUNT_AS[0] = None
+
+
+def _count(own, width: int):
+    """One launch at camera width ``width``, on ``own``'s counters or the
+    wrapper's that ``_counted_as`` names."""
+    wrapper = _COUNT_AS[0] or own
+    wrapper.launches += 1
+    wrapper.launches_by_width[width] += 1
+
+
 def _empty_like_grid(mask):
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=mask.device)
@@ -327,8 +355,7 @@ def _selfcal_gram_op(cam_b: Tensor, im_b: Tensor, keyp: Tensor, uv: Tensor,
         out = _launch_selfcal(pack_block_params(cam_b, im_b), keyp, uv, mask,
                               cmask_b, imask_b, kmask, loss_id, component,
                               f_scale, cam_b.shape[1] - 6)
-    selfcal_gram.launches += 1
-    selfcal_gram.launches_by_width[cam_b.shape[1]] += 1
+    _count(selfcal_gram, cam_b.shape[1])
     return out
 
 
@@ -430,8 +457,7 @@ def _selfcal_gram_fused_op(
                                     mask, imask_b, kmask, n_cams, n_ims,
                                     loss_id, component, f_scale,
                                     cam_b.shape[1] - 6)
-    selfcal_gram_fused.launches += 1
-    selfcal_gram_fused.launches_by_width[cam_b.shape[1]] += 1
+    _count(selfcal_gram_fused, cam_b.shape[1])
     return out
 
 
@@ -597,25 +623,21 @@ def freepoint_gram_fused_plain(cam_b, keyp, uv, mask, kmask, n_cams: int,
 def freepoint_gram(cam_b, keyp, uv, mask, cmask_b, kmask,
                    loss: str = "linear", f_scale: float = 1.0,
                    loss_semantics: str = "component"):
-    """Kernel D at identity poses: the outputs of ``freepoint_gram_plain``.
+    """Kernel D at identity poses: the outputs of ``freepoint_gram_plain``
+    (a CPU tensor runs that twin, through the operator).
 
     :param cam_b: (B, a), a in ``TEMPLATE_WIDTHS``. :param keyp: (K, 3)
         free points. :param uv: (B, K, 2). :param mask: (B, K).
         :param cmask_b: (B, a). :param kmask: (K, 3).
+
+    Under ``torch.func.vmap`` over a leading rig axis R rigs fold into one
+    launch of D, each rig's outputs those of its own launch.
     """
-    if cam_b.device.type == "cpu":
-        return freepoint_gram_plain(cam_b, keyp, uv, mask, cmask_b, kmask,
-                                    loss, f_scale, loss_semantics)
-    loss_id, component = _loss_args(loss, loss_semantics)
     im0, imask0 = _identity_poses(cam_b)
-    _check_cuda_inputs(cam_b, im0, keyp, uv, mask, cmask_b=cmask_b,
-                       imask_b=imask0, kmask=kmask)
-    with torch.cuda.device(cam_b.device):
-        g, wck_b, _, hkk, gk = _launch_selfcal(
-            pack_block_params(cam_b, im0), keyp, uv, mask, cmask_b, imask0,
-            kmask, loss_id, component, f_scale, cam_b.shape[1] - 6)
-    freepoint_gram.launches += 1
-    freepoint_gram.launches_by_width[cam_b.shape[1]] += 1
+    with _counted_as(freepoint_gram):
+        g, wck_b, _, hkk, gk = selfcal_gram(
+            cam_b, im0, keyp, uv, mask, cmask_b, imask0, kmask, loss,
+            f_scale, loss_semantics)
     return _strip_pose(g, wck_b, hkk, gk)
 
 
@@ -629,26 +651,14 @@ def freepoint_gram_fused(cam_b, keyp, uv, mask, kmask, n_cams: int,
                          loss_semantics: str = "component"):
     """Kernel C at identity poses: the outputs of
     ``freepoint_gram_fused_plain`` over B = n_cams * n_ims camera-major
-    blocks."""
-    if cam_b.device.type == "cpu":
-        return freepoint_gram_fused_plain(cam_b, keyp, uv, mask, kmask,
-                                          n_cams, n_ims, loss, f_scale,
-                                          loss_semantics)
-    loss_id, component = _loss_args(loss, loss_semantics)
+    blocks (a CPU tensor runs that twin, through the operator). Under
+    ``torch.func.vmap`` R rigs fold into one launch of C."""
     im0, imask0 = _identity_poses(cam_b)
-    _check_cuda_inputs(cam_b, im0, keyp, uv, mask, imask_b=imask0,
-                       kmask=kmask)
-    if mask.shape[0] != n_cams * n_ims:
-        raise ValueError(f"{mask.shape[0]} blocks, expected {n_cams} x "
-                         f"{n_ims}")
-    with torch.cuda.device(cam_b.device):
+    with _counted_as(freepoint_gram_fused):
         (hcc, gc, wck, _, _, _, _, corner, hkk,
-         gk) = _launch_selfcal_fused(pack_block_params(cam_b, im0), keyp, uv,
-                                     mask, imask0, kmask, n_cams, n_ims,
-                                     loss_id, component, f_scale,
-                                     cam_b.shape[1] - 6)
-    freepoint_gram_fused.launches += 1
-    freepoint_gram_fused.launches_by_width[cam_b.shape[1]] += 1
+         gk) = selfcal_gram_fused(cam_b, im0, keyp, uv, mask, imask0, kmask,
+                                  n_cams, n_ims, loss, f_scale,
+                                  loss_semantics)
     return hcc, gc, wck, corner, hkk, gk
 
 

@@ -36,10 +36,18 @@ folded over the rigs as in the template fleet. Opted in to the SPD kernel
 (``PYCAMSET_PALLAS_CHOL=1``), every fleet's dense reduced solves go to its
 batched form: one launch a batch step (``structured._psd_solve``).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: the sharded fleet (``mesh=``, Queue A item 11), the CG reduced
-solver (item 6) and the pose-free free-point chain's fleet (its wrappers
-over Kernels C and D launch one rig; item 6).
+The reduced solver follows the rigs' shared ``reduced_solver`` option as
+the one-rig builder's does ("auto": CG above 4096 reduced dimensions,
+``structured.auto_reduced_solver``): the CG loop's fixed count of masked
+iterations runs under ``torch.func.vmap`` like every other part of the
+step, each rig stopping where its own loop would (JAX ``:360-383``). The
+pose-free free-point chain (a wand's rigs) takes the fleet too: its image
+grid counts each rig's ``detection.max_ims`` (JAX ``:280-282``), and its
+wrappers over Kernels C and D fold the rigs into one launch through the
+same operators.
+
+Not ported yet: the sharded fleet (``mesh=``), raising
+``NotImplementedError`` with its ROADMAP item (Queue A item 11).
 """
 from __future__ import annotations
 
@@ -110,7 +118,8 @@ def make_cascade_solve(init, run, n_rigs: int, cap1: int = 9,
 
 
 def fleet_solve(neq_fn, x0s, data: tuple, *, max_nfev: int = 100,
-                ops=None, graph: bool | dict = False) -> SLMResult:
+                reduced_solver: str = "dense", ops=None,
+                graph: bool | dict = False) -> SLMResult:
     """The cascade solve of a fleet from its starts.
 
     :param neq_fn: fn(pieces, *data_r) -> NormalEq, one rig's builder.
@@ -118,6 +127,7 @@ def fleet_solve(neq_fn, x0s, data: tuple, *, max_nfev: int = 100,
         MixedPieces), each piece with a leading rig axis.
     :param data: the per-rig tensors neq_fn takes, each with a leading rig
         axis.
+    :param reduced_solver: "dense" or "cg", as ``slm_run``'s.
     :param ops: the LM's linear algebra, as ``slm_run``'s (None: the
         structured defaults; the mixed chain's ``make_mixed_ops``).
     :param graph: False runs the host loop; a dict {cohort size:
@@ -136,7 +146,9 @@ def fleet_solve(neq_fn, x0s, data: tuple, *, max_nfev: int = 100,
         n = n_rigs if sel is None else sel.shape[0]
         runner = False if graph is False else graph.setdefault(n, FleetGraph())
         return slm_run_batch(neq_fn, st, data, max_nfev=max_nfev,
-                             nfev_cap=cap, sel=sel, ops=ops, graph=runner)
+                             nfev_cap=cap, sel=sel,
+                             reduced_solver=reduced_solver, ops=ops,
+                             graph=runner)
 
     solve = make_cascade_solve(init, run, n_rigs)
     return slm_result_batch(solve(x0s, data))
@@ -411,6 +423,7 @@ class HandlerFleet:
     to_pieces: Callable        # (r, full numpy) -> that rig's pieces
     group_of_key: np.ndarray | None = None   # (K,) of the grouped chains
     n_groups: int = 0
+    reduced_solver: str = "dense"  # or "cg"; mixed and tied fleets: dense
     graphs: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
@@ -451,9 +464,10 @@ class HandlerFleet:
 
     def graph(self, max_nfev: int | None = None) -> dict:
         """This fleet's step runners ({cohort size: FleetGraph}) for the
-        dense-solve route in force, its dtype and ``max_nfev``: captured by
-        the first solve, replayed by the later ones."""
-        key = (cc.psd_opted_in(), self.uv.dtype, max_nfev or self.max_nfev)
+        dense-solve route in force, its dtype, ``max_nfev`` and reduced
+        solver: captured by the first solve, replayed by the later ones."""
+        key = (cc.psd_opted_in(), self.uv.dtype, max_nfev or self.max_nfev,
+               self.reduced_solver)
         return self.graphs.setdefault(key, {})
 
     def solve_batch(self, graph: bool = True) -> SLMResult:
@@ -462,7 +476,8 @@ class HandlerFleet:
         graph = (self.graph() if graph and self.uv.device.type == "cuda"
                  else False)
         return fleet_solve(self.neq_fn(), self.x0_pieces, self.data(),
-                           max_nfev=self.max_nfev, ops=self.ops,
+                           max_nfev=self.max_nfev,
+                           reduced_solver=self.reduced_solver, ops=self.ops,
                            graph=graph)
 
     def rig_result(self, res: SLMResult, r: int) -> SLMResult:
@@ -601,21 +616,19 @@ def build_fleet_problem(handlers, dtype=None, device="cuda",
             "Brown cameras, or Brown models of several widths) is not "
             "ported yet (ROADMAP Queue A item 7): solve each rig with "
             "run_bundle_adjustment")
-    if chain_family(op_fun, widths) == "freepoint":
-        raise NotImplementedError(
-            "the pose-free free-point chain has no fleet path yet: its "
-            "wrappers over Kernels C and D launch one rig (ROADMAP Queue A "
-            "item 6)")
+    chain_family(op_fun, widths)    # raises for a chain no family serves
     n_cams, n_keys = len(h0.cam_names), h0.n_keys()
-    n_ims_grid = _fleet_grid(handlers, opts,
-                             lambda h: int(h.bundlePrimitive.poses.shape[0]))
+
+    def true_ims(h):
+        # the pose-free chain has no image parameters: every (cam, im) pair
+        # of its table still indexes a block (build_structured_problem's)
+        return (int(h.bundlePrimitive.poses.shape[0]) if widths.b
+                else int(h.detection.max_ims))
+
+    n_ims_grid = _fleet_grid(handlers, opts, true_ims)
     reduced_solver = _opt(opts, "reduced_solver", "auto")
     if reduced_solver == "auto":  # build_structured_problem's rule
         reduced_solver = auto_reduced_solver(widths, n_cams, n_ims_grid)
-    if reduced_solver != "dense":
-        raise NotImplementedError(
-            f"reduced_solver={reduced_solver!r} is not ported yet (the "
-            f"matrix-free CG solver is ROADMAP Queue A item 6)")
     from pycamset_tpu_torch.optim.structured_driver import (
         build_colmask_pieces, detection_residuals, merge_structured)
     k_pad = -(-max(n_keys, 1) // k_pad_multiple) * k_pad_multiple
@@ -668,7 +681,8 @@ def build_fleet_problem(handlers, dtype=None, device="cuda",
         neq_raw, None, int(_opt(opts, "max_nfev", 100)), rigs, x0s,
         lambda r, x: merges[r](x),
         [detection_residuals(op_fun, h.dd, tpl, key_rows, device, dtype)
-         for h in rigs], to_pieces, gok_pad, n_groups)
+         for h in rigs], to_pieces, gok_pad, n_groups,
+        reduced_solver=reduced_solver)
 
 
 def _stack(kind, pieces: list):

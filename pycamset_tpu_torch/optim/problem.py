@@ -51,6 +51,9 @@ class BAProblem:
     group_of_key: np.ndarray | None = None   # (K,) for the grouped chains
     n_groups: int | None = None
     max_nfev: int = 100
+    # the reduced solver: "dense" or "cg" (the structured chains only; the
+    # mixed and tied problems solve dense, as in the JAX package)
+    reduced_solver: str = "dense"
     graphs: dict = field(default_factory=dict, repr=False, compare=False)
 
     def make_neq(self):
@@ -87,11 +90,13 @@ class BAProblem:
 
     def graph(self, max_nfev: int | None = None) -> SLMGraph:
         """This problem's LM step runner for the dense-solve route in force
-        (``PYCAMSET_PALLAS_CHOL``, read now), its dtype and ``max_nfev``:
+        (``PYCAMSET_PALLAS_CHOL``, read now), its dtype, ``max_nfev`` and
+        reduced solver:
         captured by its first solve, replayed by the later ones. A graph
         replayed under the other route would run the wrong route, so each
         route has its own."""
-        key = (psd_opted_in(), self.x0.cam.dtype, max_nfev or self.max_nfev)
+        key = (psd_opted_in(), self.x0.cam.dtype, max_nfev or self.max_nfev,
+               self.reduced_solver)
         return self.graphs.setdefault(key, SLMGraph())
 
     def solve(self, max_nfev: int | None = None, graph: bool = True,
@@ -105,6 +110,7 @@ class BAProblem:
         return structured_lm_solve(self.neq_fn(),
                                    self.x0 if x0 is None else x0,
                                    max_nfev=max_nfev or self.max_nfev,
+                                   reduced_solver=self.reduced_solver,
                                    ops=self.ops(), graph=graph)
 
     def rms_px(self, cost) -> float:

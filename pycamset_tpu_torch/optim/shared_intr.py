@@ -140,13 +140,14 @@ def make_tied_ops(oh_np: np.ndarray):
         oi = oi + torch.einsum("ibq,iq->ib", n.hii, dx.im)
         return TiedPieces(os_, oe, oi)
 
-    def tied_solve(n: TiedNormalEq, damp: TiedPieces,
-                   method: str = "dense") -> TiedPieces:
+    def tied_solve(n: TiedNormalEq, damp: TiedPieces, method: str = "dense",
+                   cg_tol: float = 1e-6,
+                   cg_maxiter: int = 250) -> TiedPieces:
         """(H + diag(damp)) dx = -g: eliminate the block-diagonal poses,
         dense solve of the (G*s + 6C) reduced system, back-substitute.
         The reduced system is tiny for any real rig, so it is always
-        dense (``method`` is accepted for the LM's signature, as in the
-        JAX package)."""
+        dense (``method``, ``cg_tol`` and ``cg_maxiter`` are accepted for
+        the LM's signature, as in the JAX package)."""
         g_, s = n.hss.shape[0], n.hss.shape[2]
         c_ = n.hee.shape[0]
         ns, ne = g_ * s, c_ * 6

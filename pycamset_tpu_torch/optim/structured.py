@@ -36,7 +36,12 @@ on either device.
 Without point blocks the Schur step eliminates the exactly block-diagonal
 pose system in batch and solves the dense (C*a) camera system. With them it
 eliminates the points first and solves the dense (C*a + I*b) system (C*a
-for the pose-free chain, whose image piece is zero-width). The
+for the pose-free chain, whose image piece is zero-width). Above 4096
+reduced dimensions (``auto_reduced_solver``) the reduced system is solved
+matrix-free instead, by block-Jacobi preconditioned conjugate gradients
+(``schur_solve(method="cg")``: plain torch, ``cg_maxiter`` masked
+iterations, so the loop captures in the LM step's CUDA graph and batches
+under ``torch.func.vmap``). The
 dense solve (``_psd_solve``) goes through ``torch.linalg.cholesky_ex`` by
 default, or, opted in with ``PYCAMSET_PALLAS_CHOL=1`` on a card, through the
 hand-written one-launch kernel of ``ops/cuda_cholesky.py``. Fixed
@@ -51,8 +56,8 @@ for its selector row. A Brown rig of several widths runs the widest
 model's chain, on its kernels, with the pinned columns in the column
 masks.
 
-Not ported yet: the matrix-free CG reduced solver and the heterogeneous
-grouped chain. They raise ``NotImplementedError`` naming the ROADMAP item.
+Not ported yet: the heterogeneous grouped chain. It raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -640,8 +645,8 @@ def neq_matvec(neq: NormalEq, dx: ParamPieces) -> ParamPieces:
     return ParamPieces(oc, oi, ok)
 
 
-def schur_solve(neq: NormalEq, damp: ParamPieces,
-                method: str = "dense") -> ParamPieces:
+def schur_solve(neq: NormalEq, damp: ParamPieces, method: str = "dense",
+                cg_tol: float = 1e-6, cg_maxiter: int = 250) -> ParamPieces:
     """Solve (H + diag(damp)) dx = -g by Schur elimination.
 
     Without point blocks (the template chain) the pose system is exactly
@@ -651,16 +656,25 @@ def schur_solve(neq: NormalEq, damp: ParamPieces,
     camera-and-pose system is solved and the points back-substituted; the
     pose-free chain (b = 0, the free-point chain) takes the same branch
     with the camera system alone.
+
+    :param method: 'dense' factors the reduced system (``_psd_solve``);
+        'cg' solves the whole (cam + pose) system matrix-free by block-Jacobi
+        preconditioned conjugate gradients (``_reduced_cg``, to ``cg_tol``
+        or ``cg_maxiter`` iterations), the point term applied as
+        W (K^-1 (W^T x)) without forming any (C, C) or (I, I) block: memory
+        O(C*K + I*K), the route for rigs with thousands of poses.
     """
     c_, k_ = neq.hcc.shape[0], neq.hkk.shape[0]
     a, c = neq.hcc.shape[2], neq.hkk.shape[2]
-    if method != "dense":
-        raise NotImplementedError(
-            f"reduced_solver={method!r} is not ported yet (the matrix-free "
-            f"CG solver is ROADMAP Queue A item 6); use 'dense'")
+    if method not in ("dense", "cg"):
+        raise ValueError(
+            f"reduced_solver={method!r}: the reduced solvers are 'dense' "
+            f"and 'cg'")
 
     hcc = neq.hcc + torch.diag_embed(damp.cam)
     hii = neq.hii + torch.diag_embed(damp.im)
+    if method == "cg":
+        return _schur_cg(neq, damp, hcc, hii, cg_tol, cg_maxiter)
     if c:
         return _schur_solve_points(neq, damp, hcc, hii)
     iinv = _normalized_inv(hii)                                   # (I,b,b)
@@ -675,6 +689,29 @@ def schur_solve(neq: NormalEq, damp: ParamPieces,
     return ParamPieces(dxc, dxi, neq.gk.new_zeros((k_, c)))
 
 
+def _eliminate_points(neq: NormalEq, damp: ParamPieces):
+    """The point elimination both reduced solvers share: (kinv, uck, uik,
+    gc, gi), the reduced gradients and the points' couplings through their
+    damped inverse blocks; uik is None and gi the raw one for the
+    pose-free chain (b = 0)."""
+    kinv = _normalized_inv(neq.hkk + torch.diag_embed(damp.key))  # (K,c,c)
+    uck = torch.einsum("ckap,kpq->ckaq", neq.wck, kinv)           # (C,K,a,c)
+    gc = neq.gc - torch.einsum("ckaq,kq->ca", uck, neq.gk)
+    if not neq.hii.shape[2]:
+        return kinv, uck, None, gc, neq.gi
+    uik = torch.einsum("ikbp,kpq->ikbq", neq.wik, kinv)           # (I,K,b,c)
+    gi = neq.gi - torch.einsum("ikbq,kq->ib", uik, neq.gk)
+    return kinv, uck, uik, gc, gi
+
+
+def _back_substitute(neq: NormalEq, kinv, dxc, dxi) -> torch.Tensor:
+    """The points' step from the reduced one."""
+    rk = -neq.gk - torch.einsum("ckap,ca->kp", neq.wck, dxc)
+    if neq.hii.shape[2]:
+        rk = rk - torch.einsum("ikbp,ib->kp", neq.wik, dxi)
+    return torch.einsum("kpq,kq->kp", kinv, rk)
+
+
 def _schur_solve_points(neq: NormalEq, damp: ParamPieces, hcc, hii):
     """The point-block (c > 0) branch of schur_solve: with poses (b > 0)
     the reduced system is the (C*a + I*b) camera-and-pose one; without
@@ -684,10 +721,7 @@ def _schur_solve_points(neq: NormalEq, damp: ParamPieces, hcc, hii):
     ``amat = block_diag_dense(hcc)``)."""
     c_, i_, k_ = neq.hcc.shape[0], neq.hii.shape[0], neq.hkk.shape[0]
     a, b, c = neq.hcc.shape[2], neq.hii.shape[2], neq.hkk.shape[2]
-    # eliminate the points
-    kinv = _normalized_inv(neq.hkk + torch.diag_embed(damp.key))  # (K,c,c)
-    uck = torch.einsum("ckap,kpq->ckaq", neq.wck, kinv)           # (C,K,a,c)
-    gc = neq.gc - torch.einsum("ckaq,kq->ca", uck, neq.gk)
+    kinv, _, _, gc, gi = _eliminate_points(neq, damp)
 
     # direct couplings + damped block diagonals, flat (R, R), R = C*a + I*b;
     # the point-elimination correction as one stacked product: per point,
@@ -696,8 +730,6 @@ def _schur_solve_points(neq: NormalEq, damp: ParamPieces, hcc, hii):
     na, nb = c_ * a, i_ * b
     v = neq.wck.permute(1, 3, 0, 2).reshape(k_, c, na)
     if b:
-        uik = torch.einsum("ikbp,kpq->ikbq", neq.wik, kinv)       # (I,K,b,c)
-        gi = neq.gi - torch.einsum("ikbq,kq->ib", uik, neq.gk)
         wci_f = neq.wci.permute(0, 2, 1, 3).reshape(na, nb)
         amat = torch.cat([
             torch.cat([block_diag_dense(hcc), wci_f], dim=1),
@@ -712,15 +744,116 @@ def _schur_solve_points(neq: NormalEq, damp: ParamPieces, hcc, hii):
     amat = amat - torch.einsum("kpr,kps->rs", v, t)
     sol = _psd_solve(amat, rhs)
     dxc = sol[:na].reshape(c_, a)
+    dxi = sol[na:].reshape(i_, b) if b else neq.gi.new_zeros((i_, b))
+    return ParamPieces(dxc, dxi, _back_substitute(neq, kinv, dxc, dxi))
 
-    # back-substitute the points
-    rk = -neq.gk - torch.einsum("ckap,ca->kp", neq.wck, dxc)
-    if b:
-        dxi = sol[na:].reshape(i_, b)
-        rk = rk - torch.einsum("ikbp,ib->kp", neq.wik, dxi)
-    else:
-        dxi = neq.gi.new_zeros((i_, b))
-    return ParamPieces(dxc, dxi, torch.einsum("kpq,kq->kp", kinv, rk))
+
+def _schur_cg(neq: NormalEq, damp: ParamPieces, hcc, hii, tol: float,
+              maxiter: int) -> ParamPieces:
+    """The CG branch of schur_solve (JAX ``structured.py:699-735``): the
+    points eliminated as the dense branch eliminates them, the (cam + pose)
+    system (the camera system alone on the pose-free chain; the whole
+    cam + pose one through wci on the template chain, which has no points)
+    solved by ``_reduced_cg``, the points back-substituted."""
+    if not neq.hkk.shape[2]:
+        dxc, dxi = _reduced_cg(neq, hcc, hii, None, None, neq.gc, neq.gi,
+                               tol, maxiter)
+        return ParamPieces(dxc, dxi,
+                           neq.gk.new_zeros((neq.hkk.shape[0], 0)))
+    kinv, uck, uik, gc, gi = _eliminate_points(neq, damp)
+    dxc, dxi = _reduced_cg(neq, hcc, hii, uck, uik, gc, gi, tol, maxiter)
+    return ParamPieces(dxc, dxi, _back_substitute(neq, kinv, dxc, dxi))
+
+
+def _reduced_cg(neq: NormalEq, hcc, hii, uck, uik, gc, gi, tol: float,
+                maxiter: int):
+    """Matrix-free preconditioned CG on the reduced (cam + pose) system
+    (JAX ``structured.py:797-837``): the matvec applies hcc, hii and wci,
+    and the point term as uck / uik of W^T x; the preconditioner is the
+    block-Jacobi inverse of the damped hcc and hii. -> (dxc, dxi); dxi is
+    (I, 0) on the pose-free chain."""
+    b = hii.shape[2]
+    hcc_inv = _normalized_inv(hcc)
+    hii_inv = _normalized_inv(hii) if b else None
+
+    def matvec(x):
+        xc, xi = x
+        yc = torch.einsum("cab,cb->ca", hcc, xc)
+        yi = (torch.einsum("iab,ib->ia", hii, xi) if b
+              else torch.zeros_like(xi))
+        if b:
+            yc = yc + torch.einsum("ciab,ib->ca", neq.wci, xi)
+            yi = yi + torch.einsum("ciab,ca->ib", neq.wci, xc)
+        if uck is not None:
+            t = torch.einsum("ckap,ca->kp", neq.wck, xc)
+            if b:
+                t = t + torch.einsum("ikbp,ib->kp", neq.wik, xi)
+            yc = yc - torch.einsum("ckaq,kq->ca", uck, t)
+            if b:
+                yi = yi - torch.einsum("ikbq,kq->ib", uik, t)
+        return yc, yi
+
+    def precond(x):
+        xc, xi = x
+        return (torch.einsum("cab,cb->ca", hcc_inv, xc),
+                torch.einsum("iab,ib->ia", hii_inv, xi) if b else xi)
+
+    return pcg(matvec, precond, (-gc, -gi), tol, maxiter)[0]
+
+
+def _tdot(x: tuple, y: tuple) -> torch.Tensor:
+    """<x, y> over tuples of tensors: each leaf's dot product, summed in
+    leaf order (``jax._src.scipy.sparse.linalg._vdot_real_tree``)."""
+    return sum(torch.sum(a * b) for a, b in zip(x, y))
+
+
+def pcg(matvec, precond, b: tuple, tol: float, maxiter: int):
+    """Preconditioned conjugate gradients on a tuple of tensors, the
+    iteration of ``jax.scipy.sparse.linalg.cg`` (``_cg_solve``): x0 = 0,
+    r0 = b, p0 = z0 = M(r0), gamma = <r, z>, the dot products over every
+    leaf together, continued while |r|^2 > max(tol^2 |b|^2, 0) (|r|^2, not
+    gamma: M is given) and k < maxiter.
+
+    JAX's loop exits on the data; this one runs ``maxiter`` iterations and
+    freezes the state (``torch.where``) from the first whose condition
+    fails, so it gives the early-exit loop's bits, makes no host read (a
+    CUDA graph captures it) and batches under ``torch.func.vmap`` (each
+    system stops where its own loop would, as ``jax.vmap`` of the while
+    loop selects). alpha and beta divide by 1 in a frozen state, so it
+    stays finite.
+
+    :return: (x, k): the solution (a tuple like b) and the iterations
+        taken (0-d int32)."""
+    bs = _tdot(b, b)
+    atol2 = torch.clamp(tol ** 2 * bs, min=0.0)
+    x = tuple(torch.zeros_like(t) for t in b)
+    r = b
+    z = precond(r)
+    p = z
+    gamma = _tdot(r, z)
+    rs = _tdot(r, r)
+    k = torch.zeros((), dtype=torch.int32, device=bs.device)
+    one = torch.ones_like(bs)
+
+    def keep(active, new, old):
+        return tuple(torch.where(active, n, o) for n, o in zip(new, old))
+
+    for _ in range(maxiter):
+        active = rs > atol2
+        ap = matvec(p)
+        alpha = gamma / torch.where(active, _tdot(p, ap), one)
+        x_new = tuple(xl + alpha * pl for xl, pl in zip(x, p))
+        r_new = tuple(rl - alpha * al for rl, al in zip(r, ap))
+        z = precond(r_new)
+        gamma_new = _tdot(r_new, z)
+        beta = gamma_new / torch.where(active, gamma, one)
+        p_new = tuple(zl + beta * pl for zl, pl in zip(z, p))
+        x, r, p = (keep(active, x_new, x), keep(active, r_new, r),
+                   keep(active, p_new, p))
+        gamma = torch.where(active, gamma_new, gamma)
+        rs = torch.where(active, _tdot(r_new, r_new), rs)
+        k = k + active.to(torch.int32)
+    return x, k
 
 
 def _block_diag_add(full: torch.Tensor,
@@ -867,5 +1000,7 @@ def _normalized_inv(blocks: torch.Tensor) -> torch.Tensor:
         eye6 = torch.eye(6, dtype=b_n.dtype, device=b_n.device)
         inv_n = inv_n @ (2.0 * eye6 - b_n @ inv_n)
     else:
-        inv_n = torch.linalg.inv(b_n)
+        # inv_ex: no host check of the factorisation (a captured LM step
+        # makes no host read; a singular block gives inf / NaN, as JAX's)
+        inv_n = torch.linalg.inv_ex(b_n).inverse
     return inv_n / d[..., :, None] / d[..., None, :]

@@ -46,8 +46,15 @@ chain (PER_KEY free points AND PER_GROUP relative poses) has its own,
 ``group_of_key`` as the JAX package does: ``UnsupportedChain`` where the
 handler has no groups, ``ValueError`` for an index out of range.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-Queue A item: ``reduced_solver="cg"`` (item 6) and a mesh (item 11).
+The reduced solver follows ``problem_opts["reduced_solver"]``: "auto" (the
+default) takes the JAX package's rule (``structured.auto_reduced_solver``:
+dense up to 4096 reduced dimensions, CG above: a dome of 274 or more Brown
+cameras, a self-calibration of more than about 660 views at 16 cameras),
+"dense" or "cg" as named. The mixed chain solves dense, as in the JAX
+package.
+
+Not ported yet: a mesh (``mesh=``), raising ``NotImplementedError`` with
+its ROADMAP Queue A item (11).
 """
 from __future__ import annotations
 
@@ -216,10 +223,6 @@ def build_structured_problem(param_handler, dtype=None, device="cuda",
     n_ims_grid = image_grid(n_ims_true, opts.get("im_bucket", 8))
     if reduced_solver == "auto":
         reduced_solver = auto_reduced_solver(widths, n_cams, n_ims_grid)
-    if reduced_solver != "dense":
-        raise NotImplementedError(
-            f"reduced_solver={reduced_solver!r} is not ported yet (the "
-            f"matrix-free CG solver is ROADMAP Queue A item 6)")
 
     dd = param_handler.get_detection_data(flatten=True)
     blocks = build_block_arrays(dd, n_cams, n_ims_grid, n_keys,
@@ -263,7 +266,8 @@ def build_structured_problem(param_handler, dtype=None, device="cuda",
         opts.get("loss", "linear"), float(opts.get("f_scale", 1.0)),
         opts.get("loss_semantics", "component"), group_of_key=gok_pad,
         n_groups=n_groups if grouped else None,
-        max_nfev=int(opts.get("max_nfev", 100)))
+        max_nfev=int(opts.get("max_nfev", 100)),
+        reduced_solver=reduced_solver)
     solve_fn = StructuredSolve(
         problem, to_pieces,
         merge_structured(op_fun, struct, n_cams, n_ims, n_keys,

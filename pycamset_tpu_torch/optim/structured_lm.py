@@ -20,12 +20,13 @@ The batched LM (``slm_init_batch``, ``slm_run_batch``: the fleet of
 semantics of ``jax.vmap`` of the JAX loop: ``torch.func.vmap`` of the
 one-rig step, a rig's state kept once its loop condition fails.
 
-The linear algebra is the dense structured path (neq_diag, schur_solve)
-by default. ``ops=(diag, matvec, solve, grad)`` replaces it, as in the JAX
+The linear algebra is the structured path (neq_diag, schur_solve) by
+default, its reduced system solved dense or, with ``reduced_solver="cg"``,
+matrix-free by conjugate gradients (``cg_tol``, ``cg_maxiter``: a fixed
+count of masked iterations, inside the captured step).
+``ops=(diag, matvec, solve, grad)`` replaces it, as in the JAX
 package: the LM loop is generic over any (pieces, neq) pair of NamedTuples,
 e.g. the mixed PER_KEY + PER_GROUP system of ``optim/structured_mixed.py``.
-The matrix-free CG reduced solver is not ported yet (ROADMAP Queue A
-item 6).
 """
 from __future__ import annotations
 
@@ -124,34 +125,37 @@ def structured_lm_solve(neq_fn: Callable[[ParamPieces], NormalEq],
                         gtol: float = 1e-8, lam0: float = 1e-4,
                         scale_floor: float = 1e-8,
                         reduced_solver: str = "dense",
+                        cg_tol: float = 1e-6, cg_maxiter: int = 250,
                         ops=None,
                         graph: bool | SLMGraph = True) -> SLMResult:
     """Minimise the structured BA cost.
 
-    :param reduced_solver: 'dense' (exact Cholesky); the structured
-        solver's 'cg' is not ported yet and raises.
+    :param reduced_solver: 'dense' (exact Cholesky) or 'cg' (matrix-free
+        conjugate gradients to ``cg_tol`` or ``cg_maxiter`` iterations, for
+        rigs whose (a C + b I) reduced system is too large to form).
     :param ops: optional (diag_fn, matvec_fn, solve_fn, grad_fn) in place
         of the structured linear algebra; solve_fn receives (neq, damp,
-        method=reduced_solver).
+        method=reduced_solver, cg_tol=, cg_maxiter=).
     :param graph: as ``slm_run``'s.
     """
     init = slm_init(neq_fn, x0, max_nfev=max_nfev, lam0=lam0,
                     scale_floor=scale_floor, ops=ops)
     final = slm_run(neq_fn, init, max_nfev=max_nfev, ftol=ftol, xtol=xtol,
-                    gtol=gtol, reduced_solver=reduced_solver, ops=ops,
-                    graph=graph)
+                    gtol=gtol, reduced_solver=reduced_solver, cg_tol=cg_tol,
+                    cg_maxiter=cg_maxiter, ops=ops, graph=graph)
     return slm_result(final)
 
 
 def _slm_step(neq_fn, s: SLMState, *, max_nfev, ftol, xtol, gtol,
-              reduced_solver, ops) -> SLMState:
+              reduced_solver, cg_tol, cg_maxiter, ops) -> SLMState:
     """One LM iteration: the body of the JAX while_loop."""
     diag_fn, matvec_fn, solve_fn, grad_fn = ops
     dtype = s.lam.dtype
     hist_len = s.history.shape[-1]
 
     damp = _pmap(lambda sc: s.lam * sc, s.scale2)
-    dx = solve_fn(s.neq, damp, method=reduced_solver)
+    dx = solve_fn(s.neq, damp, method=reduced_solver, cg_tol=cg_tol,
+                  cg_maxiter=cg_maxiter)
     x_new = _pmap(torch.add, s.x, dx)
     neq_new = neq_fn(x_new)
     nfev, nfev_dev = s.nfev + 1, s.nfev_dev + 1
@@ -164,6 +168,8 @@ def _slm_step(neq_fn, s: SLMState, *, max_nfev, ftol, xtol, gtol,
         pred_red = 0.5 * (_pdot(dx, _pmap(torch.mul, damp, dx))
                           - _pdot(dx, g))
     else:
+        # the CG step can be inexact (cg_tol, cg_maxiter) enough to corrupt
+        # rho through the identity: the exact H matvec
         pred_red = -(_pdot(dx, g) + 0.5 * _pdot(dx, matvec_fn(s.neq, dx)))
     act_red = s.neq.cost - neq_new.cost
     rho = act_red / torch.clamp(pred_red, min=torch.finfo(dtype).tiny)
@@ -207,7 +213,8 @@ def _slm_step(neq_fn, s: SLMState, *, max_nfev, ftol, xtol, gtol,
 def slm_run(neq_fn: Callable[[ParamPieces], NormalEq], state: SLMState, *,
             max_nfev: int = 100, nfev_cap: int | None = None,
             ftol: float = 1e-8, xtol: float = 1e-8, gtol: float = 1e-8,
-            reduced_solver: str = "dense", ops=None,
+            reduced_solver: str = "dense", cg_tol: float = 1e-6,
+            cg_maxiter: int = 250, ops=None,
             graph: bool | SLMGraph = True) -> SLMState:
     """Advance an LM state until convergence — or PAUSE at ``nfev_cap``
     evaluations (status stays 0; resuming with a later slm_run continues
@@ -223,7 +230,7 @@ def slm_run(neq_fn: Callable[[ParamPieces], NormalEq], state: SLMState, *,
         then runs its step body uncaptured.
     """
     kw = _step_config(state.lam.dtype, max_nfev, ftol, xtol, gtol,
-                      reduced_solver)
+                      reduced_solver, cg_tol, cg_maxiter)
     step = functools.partial(_slm_step, neq_fn, ops=_resolve_ops(ops), **kw)
     if graph is True:
         graph = SLMGraph() if state.lam.device.type == "cuda" else False
@@ -236,13 +243,16 @@ def slm_run(neq_fn: Callable[[ParamPieces], NormalEq], state: SLMState, *,
 
 
 def _step_config(dtype, max_nfev, ftol=1e-8, xtol=1e-8, gtol=1e-8,
-                 reduced_solver="dense") -> dict:
+                 reduced_solver="dense", cg_tol=1e-6,
+                 cg_maxiter=250) -> dict:
     """The step's keyword configuration; scipy's 1e-8 defaults assume
-    float64, so the tolerances are clamped to the dtype's resolution."""
+    float64, so the LM's tolerances are clamped to the dtype's resolution
+    (the CG tolerance is passed on as given, as in the JAX package)."""
     eps = torch.finfo(dtype).eps
     return dict(max_nfev=max_nfev, ftol=max(ftol, 50 * eps),
                 xtol=max(xtol, 50 * eps), gtol=max(gtol, 50 * eps),
-                reduced_solver=reduced_solver)
+                reduced_solver=reduced_solver, cg_tol=cg_tol,
+                cg_maxiter=cg_maxiter)
 
 
 def _leaves(tree) -> list[torch.Tensor]:
@@ -488,16 +498,17 @@ def scatter_rigs(s: SLMState, sel: torch.Tensor, part: SLMState) -> SLMState:
 
 def slm_run_batch(neq_fn, state: SLMState, data: tuple, *,
                   max_nfev: int = 100, nfev_cap: int | None = None,
-                  sel: torch.Tensor | None = None, ops=None,
+                  sel: torch.Tensor | None = None,
+                  reduced_solver: str = "dense", ops=None,
                   graph=False) -> SLMState:
     """``slm_run`` over a leading rig axis, with the semantics of
     ``jax.vmap`` of its ``lax.while_loop``: a rig is active while
     ``(status == 0) & (nfev_dev < nfev_cap)``, computed on the device
     before each step; the loop steps the batch while any rig is active,
     and an inactive rig's state is kept as it was (``batch_step``). Each
-    rig takes the iteration sequence of its own ``slm_run`` (the dense
-    reduced solve, the default tolerances; the structured linear algebra,
-    or ``ops`` as ``slm_run``'s).
+    rig takes the iteration sequence of its own ``slm_run`` (the default
+    tolerances, ``reduced_solver``; the structured linear algebra, or
+    ``ops`` as ``slm_run``'s).
 
     :param sel: (n,) device indices: advance only those rigs (their rows
         of the state and the data gathered first) and return their state.
@@ -506,7 +517,8 @@ def slm_run_batch(neq_fn, state: SLMState, data: tuple, *,
         ``fleet.FleetGraph`` runs each step as one replay of its CUDA
         graph (on a CPU state: its step body, uncaptured).
     """
-    kw = _step_config(state.lam.dtype, max_nfev)
+    kw = _step_config(state.lam.dtype, max_nfev,
+                      reduced_solver=reduced_solver)
     step = functools.partial(
         batch_step, neq_fn,
         functools.partial(_slm_step, ops=_resolve_ops(ops), **kw))

@@ -324,12 +324,13 @@ def make_mixed_ops(onehot_np: np.ndarray):
         og = og + torch.einsum("kg,kpq,kp->gq", oh, neq.wkg, dx.key)
         return MixedPieces(oc, oi, ok, og)
 
-    def solve(neq: MixedNormalEq, damp: MixedPieces,
-              method: str = "dense") -> MixedPieces:
+    def solve(neq: MixedNormalEq, damp: MixedPieces, method: str = "dense",
+              cg_tol: float = 1e-6, cg_maxiter: int = 250) -> MixedPieces:
         """(H + diag(damp)) dx = -g: eliminate keys, dense-solve
         [cam | pose | group], back-substitute. Group counts are tiny, so
-        the dense reduced solve always applies (``method`` is accepted for
-        the LM's signature and, as in the JAX package, solves dense).
+        the dense reduced solve always applies (``method``, ``cg_tol`` and
+        ``cg_maxiter`` are accepted for the LM's signature and, as in the
+        JAX package, it solves dense).
 
         The key-elimination correction is ONE stacked product: per key,
         V(k) (ck, R) gathers every reduced column the key couples to (cam

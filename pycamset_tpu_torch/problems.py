@@ -53,7 +53,8 @@ multi-target and template-handler makers take ``camera_model`` (the rig
   and one target (seeds 100 + r, every start perturbed by one ``rng(7)``
   in rig order), solved as one batch (``optim/fleet.py``); and the same
   rigs as handlers (``fleet_handlers``) of the template, self-calibration,
-  grouped and mixed chains, for ``run_fleet_bundle_adjustment``.
+  grouped and mixed chains, and wand rigs of the free-point chain, for
+  ``run_fleet_bundle_adjustment``.
 - Multi-target handlers (``multi_target_handler``): the mixed and grouped
   problems' rig as the port's ``TwoTargetSelfCalibrator`` /
   ``TwoTargetCalibrator`` (``examples/extend_param_handler.py``), the
@@ -654,7 +655,9 @@ def fleet_handlers(chain: str, n_rigs: int, n_cams: int, n_ims: int,
         points free from the nominal board, its 7-coordinate gauge),
         "grouped" or "mixed" (``multi_target_handler``: the board's two
         halves as two targets, group 1's relative pose from
-        ``GROUP_START[1]``; mixed: the points free too).
+        ``GROUP_START[1]``; mixed: the points free too), or "freepoint"
+        (``freepoint_handler``'s wand rigs, seed 100 + r: the pose-free
+        chain, each image's points free, the wand's gauge).
     :param options: the handlers' options (after ``outliers: "n"``,
         ``verbosity: 0``), e.g. ``{"im_bucket": None}``.
     :param camera_model: the rigs' lens model (``make_synthetic_rig``'s),
@@ -665,6 +668,10 @@ def fleet_handlers(chain: str, n_rigs: int, n_cams: int, n_ims: int,
     if shared_intrinsics is not None and chain != "template":
         raise ValueError("shared_intrinsics ties the template chain only")
     options = {**_tied_option(shared_intrinsics), **(options or {})}
+    if chain == "freepoint":
+        return [freepoint_handler(n_cams, n_ims, grid, 100 + r, options,
+                                  camera_model=camera_model)[0]
+                for r in range(n_rigs)]
     rng = np.random.default_rng(7)
     out = []
     for r in range(n_rigs):

@@ -28,7 +28,11 @@ B fold every rig into one launch, each rig's rows equal to its own
 launch's; the fleet's captured cascade gives the uncaptured bits. The SPD
 kernel with a batch axis (one block a system) is held to its float64 twin,
 within twice the float32 library route's error, and to the one-system
-kernel, and a fleet opted in to it launches it once a batch step.
+kernel, and a fleet opted in to it launches it once a batch step. The CG
+reduced solver's LM step captured gives the uncaptured bits, and its
+float32 solve at 4 x 100 the float64 CPU solve's cost; the free-point
+wrappers under vmap fold a wand fleet into one launch, each rig its own
+launch's bits.
 """
 import numpy as np
 import pytest
@@ -1396,3 +1400,113 @@ def test_a_capture_that_cannot_proceed_raises(card):
     with pytest.raises(RuntimeError):
         slm_run(syncing, slm_init(syncing, prob.x0), graph=runner)
     assert runner.graph is None and runner.steps == 2
+
+
+# The matrix-free CG reduced solver inside the captured LM step (a fixed
+# count of masked iterations: no host read): the capturing solve and a warm
+# one give the uncaptured bits, with no dense solve.
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["template", "selfcal", "freepoint"])
+def test_cg_captured_solve_is_bit_identical_to_uncaptured(card, monkeypatch,
+                                                          chain):
+    from pycamset_tpu_torch import problems
+    from pycamset_tpu_torch.optim import structured
+    monkeypatch.delenv("PYCAMSET_PALLAS_CHOL", raising=False)
+    if chain == "freepoint":
+        prob = problems.freepoint_problem(4, 8, card, grid=6)
+    else:
+        make = {"template": problems.standard_problem,
+                "selfcal": problems.selfcal_problem}[chain]
+        prob = make(4, 16, card, grid=6)
+    prob.reduced_solver = "cg"
+    dense = []
+    real = structured._psd_solve
+    monkeypatch.setattr(structured, "_psd_solve",
+                        lambda *a: dense.append(1) or real(*a))
+    ref = prob.solve(graph=False)
+    runner = prob.graph()
+    for _ in range(2):
+        _same_solve(prob.solve(), ref)
+    assert runner.graph is not None and runner.replays >= 2 * ref.nit - 1
+    assert dense == [] and int(ref.status) in (1, 2)
+
+
+# The user path with {"reduced_solver": "cg"} at 4 x 100: the float32 card
+# solve's cost within 1e-4 of the float64 CPU solve of the same handler at
+# the card solve's budget (its nfev), captured = uncaptured.
+@pytest.mark.cuda
+def test_cg_handler_solve_against_float64(card):
+    from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import template_handler
+    handler, _ = template_handler(4, 100,
+                                  options={"reduced_solver": "cg"})
+    solve_fn, _, x0 = build_structured_problem(handler, device=card)
+    assert solve_fn.problem.reduced_solver == "cg"
+    x_ref, ref = solve_fn(x0, graph=False)
+    x, got = solve_fn(x0)
+    _same_solve(got, ref)
+    assert np.array_equal(x, x_ref) and int(ref.status) in (1, 2)
+    h64 = TemplateBundleHandler(
+        handler.camset, handler.target, handler.detection,
+        options={**handler.problem_opts, "max_nfev": ref.nfev})
+    h64.set_initial_params(x0)
+    cpu_fn, _, _ = build_structured_problem(h64, device="cpu")
+    cpu = cpu_fn(x0)[1]
+    assert cpu_fn.problem.reduced_solver == "cg"
+    assert abs(float(ref.cost) - float(cpu.cost)) <= 1e-4 * float(cpu.cost)
+
+
+# The free-point wrappers under torch.func.vmap over a wand fleet's rigs
+# (problems.fleet_handlers("freepoint", ...), every lens column free but
+# one): ONE launch of C (16 images) or D (12, no bucket), each rig within
+# TOL of its float64 twin in both measures (or twice the float32 twin's
+# error where that misses TOL) and bit for bit its own one-rig launch.
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["C", "D"])
+@pytest.mark.parametrize("loss,semantics", [("linear", "component"),
+                                            ("huber", "observation")])
+def test_folded_freepoint_wrappers_match_one_rig_launches(card, fused, loss,
+                                                          semantics):
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    from pycamset_tpu_torch.optim.fleet import build_fleet_problem
+    from pycamset_tpu_torch.problems import fleet_handlers
+    n_rigs, c, i = 3, 3, (16 if fused else 12)
+    prob = build_fleet_problem(fleet_handlers(
+        "freepoint", n_rigs, c, i, grid=6,
+        options=None if fused else {"im_bucket": None}), device=card)
+    x, cm = prob.x0_pieces, prob.colmask
+    cmask = cm.cam.clone()
+    cmask[..., :9] = 1.0
+    cmask[..., 3] = 0.0
+    ops = (torch.repeat_interleave(x.cam, i, dim=1), x.key, prob.uv,
+           prob.mask, torch.repeat_interleave(cmask, i, dim=1), cm.key)
+    kw = dict(loss=loss, f_scale=2.0, loss_semantics=semantics)
+    wrapper = sg.freepoint_gram_fused if fused else sg.freepoint_gram
+    twin = sg.freepoint_gram_fused_plain if fused else sg.freepoint_gram_plain
+
+    def call(fn, cb, kp, u, m, cmb, km):
+        if fused:
+            return fn(cb, kp, u, m, km, c, i, **kw)
+        return fn(cb, kp, u, m, cmb, km, **kw)
+
+    def scaled(g, r):
+        if fused:
+            return sg.scaled_errors_freepoint_fused(g, r, c, i)
+        return sg.scaled_errors_freepoint(g, r)
+
+    n0, self0 = wrapper.launches, (sg.selfcal_gram.launches,
+                                   sg.selfcal_gram_fused.launches)
+    got = torch.func.vmap(lambda *y: call(wrapper, *y))(*ops)
+    assert wrapper.launches == n0 + 1
+    assert (sg.selfcal_gram.launches,
+            sg.selfcal_gram_fused.launches) == self0
+    for r in range(n_rigs):
+        rig = tuple(y[r] for y in ops)
+        rows = [g[r] for g in got]
+        _assert_within_f32_floor(
+            rows, call(twin, *(y.double() for y in rig)), call(twin, *rig),
+            scaled, f"{'C' if fused else 'D'} rig {r}")
+        for g, a in zip(rows, call(wrapper, *rig)):
+            assert torch.equal(g, a)

@@ -204,21 +204,14 @@ def test_different_targets_of_one_size_raise():
         build_fleet_problem(phs, device="cpu")
 
 
-@pytest.mark.parametrize("what,item", [
-    ("mesh", "Queue A item 11"), ("reduced_solver cg", "Queue A item 6"),
-    ("freepoint chain", "Queue A item 6")])
+@pytest.mark.parametrize("what,item", [("mesh", "Queue A item 11")])
 def test_unported_fleet_paths_raise(what, item):
-    opts = {"reduced_solver cg": {"reduced_solver": "cg"}}.get(what, {})
-    if what == "freepoint chain":
-        phs = [problems.freepoint_handler(2, 3, grid=4, seed=s,
-                                          k_pad_multiple=8)[0]
-               for s in (0, 1)]
-    else:
-        phs = [_port_handler(_jax_handler("template", s), "template", opts)
-               for s in SEEDS["template"]]
+    # the CG reduced solver and the free-point chain's fleet are served
+    # (tests/test_torch_cg_handlers.py, tests/test_torch_fleet_freepoint.py)
+    phs = [_port_handler(_jax_handler("template", s), "template")
+           for s in SEEDS["template"]]
     with pytest.raises(NotImplementedError, match=item):
-        run_fleet_bundle_adjustment(phs, device="cpu",
-                                    mesh=object() if what == "mesh" else None)
+        run_fleet_bundle_adjustment(phs, device="cpu", mesh=object())
 
 
 @pytest.mark.parametrize("kernel", ["C", "D", "E9", "E6", "F9", "F6"])

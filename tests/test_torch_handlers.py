@@ -179,8 +179,7 @@ def test_run_stereo_calibration_saves_what_it_returns(tmp_path):
 
 def _refuse(what):
     """Drive the port's user path into one part it does not have yet."""
-    options = {"reduced_solver cg": {"reduced_solver": "cg"}}.get(what)
-    handler, _ = template_handler(3, 5, grid=6, options=options)
+    handler, _ = template_handler(3, 5, grid=6)
     if what == "rolling_shutter":
         run_stereo_calibration(handler.camset, handler.detection,
                                handler.target, save=False, device="cpu",
@@ -202,7 +201,6 @@ def _refuse(what):
 @pytest.mark.parametrize("what,item", [
     ("backend scipy", "item 8"), ("backend sharded", "item 11"),
     ("rolling_shutter", "item 7"),
-    ("reduced_solver cg", "item 6"),
     ("mixed chain", "group_of_key"), ("mixed chain", "item 8"),
     ("grouped chain", "group_of_key")])
 def test_refusals_name_their_roadmap_item(what, item):

@@ -176,10 +176,12 @@ def test_unported_chains_and_solvers_raise():
                             tb.RigidTform3d(), tb.TemplatePoints()])
     with pytest.raises(ts.UnsupportedChain, match="not ported yet"):
         ts.make_structured_neq(other, ts.chain_widths(other), 2, 3)
+    # both reduced solvers are served (CG: tests/test_torch_cg.py); a name
+    # outside them raises
     _, tneq = _neqs(3, 5)
     damp = ts.neq_diag(tneq)
-    with pytest.raises(NotImplementedError, match="CG"):
-        ts.schur_solve(tneq, damp, method="cg")
+    with pytest.raises(ValueError, match="'dense' and 'cg'"):
+        ts.schur_solve(tneq, damp, method="qr")
 
 
 def test_point_fn_and_assembler_match_analytic_and_jax():
