@@ -190,6 +190,29 @@ one-rig launches; ``run_fleet_bundle_adjustment`` one launch a batch
 evaluation, captured = uncaptured, status, rms, the float64 CPU fleet,
 rigs/s beside the 64 rigs solved one by one.
 
+Then the generic and scipy backends and calibration uncertainty, which
+reach no kernel (the JAX package computes them in XLA and host scipy):
+``[generic]`` first holds the card's float64 run of the path against the
+CPU's at 3 x 8 (the generic solves, ``make_optimisation_function``'s CSR,
+the sigmas), then solves the template user path 16 x 100 (the grouped
+layout) and the bent board's self-calibration stage 16 x 100 (the scatter
+layout) through ``run_bundle_adjustment(backend="generic")`` (no gram
+kernel launched; layout, status, nit, ms an LM step by CUDA events, host
+reads, peak MiB; the cost within 1e-4 of the structured solve's and of
+the float64 generic solve's on the card), times
+``make_optimisation_function``'s ``loss_fn`` and ``jac_fn`` at 16 x 100
+(its CSR against the float64 one), and runs ``backend="scipy"`` on
+``template_handler(16, 24, fixed_lenses=True)`` (status, rms, the cost
+against the generic solve's); ``[uncertainty]`` gives
+``calibration_uncertainty`` of the template, self-calibration and tied
+(one lens) user paths at 16 x 100 and the free-point user path at 64 x 12
+(the Schur route), and of the 16 x 100 CameraSet loaded back from its
+``.camset`` (the in-memory sigmas bit for bit): route, free parameters,
+sigma2, dof, the seconds of the card's evaluation and of the host's
+covariance, peak MiB, and every sigma against the float64 run on the card
+(1e-2 relative, or twice the float32 CPU twin's error where the twin
+misses that, named).
+
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
 kernels as JSON; the last is
@@ -2908,6 +2931,17 @@ def camera_model_times(cg, prob, fused: bool, peak_tflops: float) -> dict:
     return t
 
 
+def fresh_template(base, x0):
+    """A new handler of ``base``'s rig and options at the start x0: every
+    solve from the same state (``get_camset`` writes the primitive)."""
+    from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
+    h = TemplateBundleHandler(base.camset, base.target, base.detection,
+                              fixed_params=base.fixed_params or None,
+                              options=dict(base.problem_opts))
+    h.set_initial_params(x0)
+    return h
+
+
 def cpu_f64_cost_check(tag, handler, x0, cost, max_nfev=None) -> dict:
     """A card solve's float32 ``cost`` from ``x0`` against the float64 CPU
     solve of a copy of ``handler`` from the same start (``max_nfev``: its
@@ -2976,7 +3010,6 @@ def phase_camera_models(builds: dict, peak_tflops: float) -> dict:
         run_stereo_calibration)
     from pycamset_tpu_torch.ops import cuda_cholesky as cc
     from pycamset_tpu_torch.optim import cuda_grams as cg
-    from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
     from pycamset_tpu_torch.optim.structured_driver import (
         build_structured_problem)
     from pycamset_tpu_torch.problems import template_handler
@@ -3028,10 +3061,7 @@ def phase_camera_models(builds: dict, peak_tflops: float) -> dict:
                   f"{tag}: status {status}, rms {rms} px")
             warm_ms = timed(lambda: solve_fn(x_init), 5)
 
-            e2e = TemplateBundleHandler(handler.camset, handler.target,
-                                        handler.detection,
-                                        options=dict(handler.problem_opts))
-            e2e.set_initial_params(x0)
+            e2e = fresh_template(handler, x0)
             save = shape == "16x100"
             fields = {}
             with tempfile.TemporaryDirectory() as tmp:
@@ -4247,7 +4277,6 @@ def phase_tied_user_path(counted, dev) -> dict:
     from pycamset_tpu_torch.calibration.camera_calibrator import (
         run_stereo_calibration)
     from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
-    from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
     from pycamset_tpu_torch.optim.problem import TiedProblem
     from pycamset_tpu_torch.optim.shared_intr import (
         build_shared_structured_problem, resolve_lens_groups)
@@ -4266,11 +4295,7 @@ def phase_tied_user_path(counted, dev) -> dict:
         inputs_s = time.perf_counter() - t_shape
 
         def fresh():
-            h = TemplateBundleHandler(base.camset, base.target,
-                                      base.detection,
-                                      options=dict(base.problem_opts))
-            h.set_initial_params(x0)
-            return h
+            return fresh_template(base, x0)
 
         cpu = None
         if shape == "tied 16x100":
@@ -5391,6 +5416,391 @@ def phase_fleet_freepoint(counted, dev) -> dict:
     return out
 
 
+# [generic] and [uncertainty]: the generic backend, make_optimisation_function,
+# the scipy backend and calibration uncertainty, which reach no kernel of
+# the port (the JAX package computes them in XLA and host scipy, with no
+# pl.pallas_call): plain PyTorch on the card, float32, held to the same
+# code in float64 on the card (itself held to the float64 CPU run at a
+# small size, ``small_f64_ties``) and to the structured solve
+GENERIC_COST_TOL = 1e-4
+SIGMA_TOL = 1e-2
+# [generic]: the scipy backend's rig (its lenses fixed: with free lenses
+# scipy's TRF stops at max_nfev on these rigs, tests/test_scipy_parity.py)
+SCIPY_SHAPE = (16, 24)
+
+
+def sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def peak_mib(dev, base_mib: float) -> float:
+    """Peak device MiB above ``base_mib`` since ``mib_allocated()``."""
+    import torch
+    if torch.device(dev).type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 2 ** 20 - base_mib
+
+
+def generic_inputs(dev):
+    """{name: fresh handler maker} of [generic]: the template user path
+    16x100 (grouped layout) and the bent board's self-cal stage 16x100
+    (scatter layout), the latter after its template stage on the
+    structured backend (Kernel A)."""
+    from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
+    from pycamset_tpu_torch.problems import (selfcal_stage_handler,
+                                             template_handler)
+    tpl, _ = template_handler(16, 100)
+    x_tpl = tpl.get_initial_params()
+    bent, _ = template_handler(16, 100, template_warp=BOARD_WARP)
+    _, stage = run_bundle_adjustment(bent, device=dev)
+    return {"template 16x100": lambda: fresh_template(tpl, x_tpl),
+            "selfcal 16x100": lambda: selfcal_stage_handler(stage, bent)}
+
+
+def small_f64_ties(dev) -> dict:
+    """The card's float64 run of the generic path against the CPU's (the
+    port's float64 CPU run is held to the JAX package by
+    tests/test_torch_generic.py and tests/test_torch_uncertainty.py) at
+    3 x 8, grid 6: the template and self-cal generic solves (same nit, nfev,
+    status; cost within 1e-9), make_optimisation_function's CSR (same
+    structure, data within 1e-9 of max-abs) and the uncertainty (1e-6)."""
+    import torch
+    from pycamset_tpu_torch.optim.driver import (make_optimisation_function,
+                                                 run_bundle_adjustment)
+    from pycamset_tpu_torch.optim.uncertainty import calibration_uncertainty
+    from pycamset_tpu_torch.problems import (selfcal_stage_handler,
+                                             template_handler)
+    f64 = torch.float64
+    out = {}
+    tpl, _ = template_handler(3, 8, grid=6)
+    x0 = tpl.get_initial_params()
+    bent, _ = template_handler(3, 8, grid=6, template_warp=BOARD_WARP)
+    _, stage = run_bundle_adjustment(bent, device="cpu")
+    makers = {"template": lambda: fresh_template(tpl, x0),
+              "selfcal": lambda: selfcal_stage_handler(stage, bent)}
+    for name, make in makers.items():
+        cpu, cams = run_bundle_adjustment(make(), backend="generic",
+                                          device="cpu")
+        card, _ = run_bundle_adjustment(make(), backend="generic",
+                                        device=dev, dtype=f64)
+        rel = abs(card.cost - cpu.cost) / cpu.cost
+        check(card.status in (1, 2) and cpu.status in (1, 2)
+              and rel <= 1e-9,
+              f"generic small {name}: card float64 status {card.status}, "
+              f"the CPU's {cpu.status}, cost {rel:.2e}")
+        _, jc, xc = make_optimisation_function(make(), device="cpu")
+        _, jg, _ = make_optimisation_function(make(), device=dev, dtype=f64)
+        a, b = jc(cpu.x), jg(cpu.x)
+        jac_err = float(np.abs(a.data - b.data).max() / np.abs(a.data).max())
+        check(np.array_equal(a.indptr, b.indptr)
+              and np.array_equal(a.indices, b.indices) and jac_err <= 1e-9,
+              f"generic small {name}: the card's float64 CSR differs "
+              f"({jac_err:.2e})")
+        u_cpu = calibration_uncertainty(cams, device="cpu")
+        u_card = calibration_uncertainty(cams, device=dev, dtype=f64)
+        unc_err = sigma_errors(u_card, u_cpu)["max_rel"]
+        check(unc_err <= 1e-6, f"generic small {name}: card float64 "
+                               f"sigmas {unc_err:.2e} from the CPU's")
+        out[name] = {"cost_rel": rel, "jac_rel": jac_err,
+                     "sigma_rel": unc_err,
+                     "nit_card_cpu": f"{card.nit}/{cpu.nit}",
+                     "nfev_card_cpu": f"{card.nfev}/{cpu.nfev}"}
+    return out
+
+
+def generic_case(name, make, dev, counted) -> dict:
+    """One [generic] problem: ``run_bundle_adjustment(backend="generic")``
+    on the card as the main path (no gram kernel launched), the layout
+    (``build_solver``), a warm solve timed by CUDA events (ms an LM step =
+    its ms / its nit), the host reads of that solve, its peak MiB; its cost
+    against the structured solve on the card and the float64 generic
+    solve on the card, each within GENERIC_COST_TOL."""
+    import torch
+    from pycamset_tpu_torch.optim import lm
+    from pycamset_tpu_torch.optim.driver import (build_solver,
+                                                 run_bundle_adjustment)
+    tag = f"generic {name}"
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    res, cams = run_bundle_adjustment(make(), backend="generic", device=dev)
+    main_s = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in counted.items() if fn.launches}
+    check(not launched, f"{tag}: the generic path launched {launched}")
+    n_real = res.fun.size // 2
+    rms = float(np.sqrt(2.0 * res.cost / res.fun.size))
+    check(res.status in (1, 2) and rms <= 0.36,
+          f"{tag}: status {res.status}, rms {rms:.5f}")
+    solve_fn, _, x0 = build_solver(make(), device=dev)
+    base = mib_allocated()
+    lm.host_reads = 0
+    # float32 sums in the scatter's atomic order: a solve's steps may differ
+    # from another's by one (its ms an LM step is its own)
+    box = {}
+    ms = timed(lambda: box.setdefault("res", solve_fn(x0)[1]), 1,
+               warmup=0)[0]
+    nit = int(box["res"].nit)
+    reads = lm.host_reads
+    peak = peak_mib(dev, base)
+    structured, solved = run_bundle_adjustment(make(), device=dev)
+    f64, _ = run_bundle_adjustment(make(), backend="generic", device=dev,
+                                   dtype=torch.float64)
+    rel_s = abs(res.cost - structured.cost) / structured.cost
+    rel_64 = abs(res.cost - f64.cost) / f64.cost
+    check(rel_s <= GENERIC_COST_TOL and rel_64 <= GENERIC_COST_TOL,
+          f"{tag}: cost {rel_s:.2e} from the structured solve, "
+          f"{rel_64:.2e} from the float64 one")
+    rec = {"layout": solve_fn.layout,
+           "shape": "x".join(map(str, solve_fn.shape)),
+           "n_free": len(x0), "n_real": n_real, "status": res.status,
+           "nit": res.nit, "nfev": res.nfev, "rms": f"{rms:.5f}",
+           "timed_nit": nit, "solve_ms": f"{ms:.1f}",
+           "ms_per_step": f"{ms / nit:.2f}",
+           "host_reads": reads, "peak_mib": f"{peak:.0f}",
+           "main_path_s": f"{main_s:.2f}",
+           "structured_nit": structured.nit,
+           "rel_cost_structured": f"{rel_s:.3e}",
+           "f64_nit": f64.nit, "rel_cost_f64": f"{rel_64:.3e}"}
+    say("generic", case=name.replace(" ", "_"), **rec)
+    return rec, solved
+
+
+def csr_case(make, dev) -> dict:
+    """make_optimisation_function at 16x100: loss_fn and jac_fn ms (host
+    wall clock: they return numpy; the median of 3 after one warm-up), the
+    CSR against the float64 one on the card (same structure, data within
+    GENERIC_COST_TOL of max-abs)."""
+    import torch
+    from pycamset_tpu_torch.optim.driver import make_optimisation_function
+    loss_fn, jac_fn, x0 = make_optimisation_function(make(), device=dev)
+
+    def wall_ms(fn):
+        fn(x0)
+        times = []
+        for _ in range(3):
+            sync(dev)
+            t0 = time.perf_counter()
+            fn(x0)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    loss_ms, jac_ms = wall_ms(loss_fn), wall_ms(jac_fn)
+    _, jac64, _ = make_optimisation_function(make(), device=dev,
+                                             dtype=torch.float64)
+    a, b = jac_fn(x0), jac64(x0)
+    err = float(np.abs(a.data - b.data).max() / np.abs(b.data).max())
+    check(np.array_equal(a.indptr, b.indptr)
+          and np.array_equal(a.indices, b.indices) and err <= TOL,
+          f"make_optimisation_function: CSR data {err:.2e} from float64")
+    rec = {"loss_ms": f"{loss_ms:.1f}", "jac_ms": f"{jac_ms:.1f}",
+           "nnz": a.nnz, "shape": "x".join(map(str, a.shape)),
+           "max_abs_err_rel": f"{err:.3e}"}
+    say("generic", case="make_optimisation_function_16x100", **rec)
+    return rec
+
+
+def scipy_case(dev) -> dict:
+    """``backend="scipy"`` on ``template_handler(16, 24,
+    fixed_lenses=True)``: converged (scipy's status 1-4), rms <= 0.36 px,
+    the cost within
+    GENERIC_COST_TOL of the generic solve's of the same handler."""
+    from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
+    from pycamset_tpu_torch.problems import template_handler
+    base, _ = template_handler(*SCIPY_SHAPE, fixed_lenses=True)
+    x0 = base.get_initial_params()
+    t0 = time.perf_counter()
+    res, _ = run_bundle_adjustment(fresh_template(base, x0), backend="scipy",
+                                   device=dev)
+    scipy_s = time.perf_counter() - t0
+    gen, _ = run_bundle_adjustment(fresh_template(base, x0),
+                                   backend="generic", device=dev)
+    rms = float(np.sqrt(2.0 * res.cost / res.fun.size))
+    rel = abs(res.cost - gen.cost) / gen.cost
+    # scipy's codes: 1 gtol, 2 ftol, 3 xtol, 4 ftol and xtol (0: max_nfev)
+    check(res.status in (1, 2, 3, 4) and rms <= 0.36
+          and rel <= GENERIC_COST_TOL,
+          f"scipy 16x24: status {res.status}, rms {rms:.5f}, cost {rel:.2e} "
+          f"from the generic solve")
+    rec = {"status": res.status, "nfev": res.nfev, "rms": f"{rms:.5f}",
+           "seconds": f"{scipy_s:.2f}", "generic_nfev": gen.nfev,
+           "rel_cost_generic": f"{rel:.3e}"}
+    say("generic", case="scipy_16x24_fixed_lenses", **rec)
+    return rec
+
+
+def phase_generic(dev, counted) -> dict:
+    """[generic]: small_f64_ties, then the two 16x100 problems
+    (generic_case), make_optimisation_function (csr_case) and the scipy
+    backend (scipy_case).
+
+    :return: (records, {name: the CameraSet of its structured solve})."""
+    t0 = time.perf_counter()
+    ties = small_f64_ties(dev)
+    say("generic", case="small_f64_ties", **{
+        f"{k}_{m}": v if isinstance(v, str) else f"{v:.2e}"
+        for k, r in ties.items() for m, v in r.items()},
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    makers = generic_inputs(dev)
+    out, solved = {}, {}
+    for name, make in makers.items():
+        out[name], solved[name] = generic_case(name, make, dev, counted)
+    out["csr"] = csr_case(makers["template 16x100"], dev)
+    out["scipy"] = scipy_case(dev)
+    return out, solved
+
+
+def sigma_errors(got: dict, ref: dict) -> dict:
+    """Entry-by-entry relative errors of every camera, pose, point and
+    extra sigma of ``got`` against ``ref`` (fixed entries: zero in both)."""
+    check(got.keys() == ref.keys() and got["dof"] == ref["dof"],
+          "uncertainty: different fields or dof")
+    pairs = [(got[k], ref[k]) for k in ("pose_sigma", "point_sigma",
+                                         "extra_sigma") if k in ref]
+    for name, cam in ref["cameras"].items():
+        pairs += [(got["cameras"][name][f], cam[f])
+                  for f in ("int_sigma", "ext_sigma")]
+    g = np.concatenate([np.ravel(a) for a, _ in pairs])
+    r = np.concatenate([np.ravel(b) for _, b in pairs])
+    check(np.array_equal(g == 0.0, r == 0.0),
+          "uncertainty: the zero (fixed) entries differ")
+    live = r > 0
+    rel = np.abs(g[live] - r[live]) / r[live]
+    return {"max_rel": float(rel.max(initial=0.0)),
+            "median_rel": float(np.median(rel)) if rel.size else 0.0,
+            "n_sigmas": int(live.sum())}
+
+
+@contextlib.contextmanager
+def evaluation_clock():
+    """Within the block: the seconds spent in make_optimisation_function's
+    loss_fn and jac_fn (the card's evaluation, its copy back and the CSR
+    packing), which ``uncertainty._weighted_r_jac`` looks up at call
+    time."""
+    from pycamset_tpu_torch.optim import driver
+    rec = {"s": 0.0}
+    mof = driver.make_optimisation_function
+
+    def timed_mof(*args, **kw):
+        loss_fn, jac_fn, x0 = mof(*args, **kw)
+
+        def clocked(fn):
+            def run(x):
+                t0 = time.perf_counter()
+                out = fn(x)
+                rec["s"] += time.perf_counter() - t0
+                return out
+            return run
+        return clocked(loss_fn), clocked(jac_fn), x0
+
+    driver.make_optimisation_function = timed_mof
+    try:
+        yield rec
+    finally:
+        driver.make_optimisation_function = mof
+
+
+def uncertainty_inputs(dev) -> dict:
+    """{name: solved CameraSet} of [uncertainty] beside [generic]'s (the
+    template and self-cal user paths at 16x100): the tied (one lens) user
+    path at 16x100 and the free-point user path at 64x12, each solved on
+    the structured backend on the card."""
+    from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
+    from pycamset_tpu_torch.problems import (freepoint_handler,
+                                             template_handler)
+    out = {}
+    tied, _ = template_handler(16, 100, shared_intrinsics=True)
+    _, out["tied 16x100"] = run_bundle_adjustment(tied, device=dev)
+    fp, _ = freepoint_handler(64, 12)
+    _, out["freepoint 64x12"] = run_bundle_adjustment(fp, device=dev)
+    return out
+
+
+def uncertainty_route(cams, unc) -> str:
+    from pycamset_tpu_torch.optim import uncertainty
+    handler = cams.calibration_handler
+    if handler.problem_opts.get("shared_intrinsics"):
+        return "tied"
+    n_free = int(handler.bundlePrimitive.unfixed_full().sum())
+    if n_free <= uncertainty.DENSE_COV_MAX_PARAMS:
+        return "dense"
+    return "schur" if "point_sigma" in unc else "lu_head_only"
+
+
+def uncertainty_case(name, cams, dev, in_memory=None) -> tuple[dict, dict]:
+    """One [uncertainty] CameraSet: its sigmas on the card (float32; route,
+    n_free, sigma2, dof, the evaluation's and the host's seconds, peak
+    MiB) against the same code in float64 on the card: within SIGMA_TOL
+    relative, or, where the float32 CPU twin itself misses SIGMA_TOL,
+    within twice the twin's error (a float32-floor case, named). With
+    ``in_memory`` (the sigmas of the CameraSet that was saved) they must
+    be those, bit for bit, instead."""
+    import torch
+    from pycamset_tpu_torch.optim.uncertainty import calibration_uncertainty
+    base = mib_allocated()
+    with evaluation_clock() as clock:
+        t0 = time.perf_counter()
+        unc = calibration_uncertainty(cams, device=dev)
+        total_s = time.perf_counter() - t0
+    peak = peak_mib(dev, base)
+    rec = {"route": uncertainty_route(cams, unc),
+           "n_free": int(cams.calibration_handler.bundlePrimitive
+                         .unfixed_full().sum()),
+           "sigma2": f"{unc['sigma2']:.6f}", "dof": unc["dof"],
+           "device_s": f"{clock['s']:.2f}",
+           "host_s": f"{total_s - clock['s']:.2f}",
+           "peak_mib": f"{peak:.0f}", "points": "point_sigma" in unc}
+    if in_memory is not None:
+        same = sigma_errors(unc, in_memory)["max_rel"]
+        check(same == 0.0 and unc["sigma2"] == in_memory["sigma2"],
+              f"uncertainty {name}: {same:.2e} from the in-memory sigmas")
+        rec["rel_err_in_memory"] = f"{same:.1e}"
+        say("uncertainty", case=name.replace(" ", "_"), **rec)
+        return rec, unc
+    ref = calibration_uncertainty(cams, device=dev, dtype=torch.float64)
+    err = sigma_errors(unc, ref)
+    rec.update(sigma2_f64=f"{ref['sigma2']:.6f}", n_sigmas=err["n_sigmas"],
+               max_rel_err=f"{err['max_rel']:.3e}",
+               median_rel_err=f"{err['median_rel']:.3e}")
+    if err["max_rel"] > SIGMA_TOL:
+        twin = calibration_uncertainty(cams, device="cpu",
+                                       dtype=torch.float32)
+        twin_err = sigma_errors(twin, ref)["max_rel"]
+        rec["cpu_f32_twin_max_rel_err"] = f"{twin_err:.3e}"
+        check(twin_err > SIGMA_TOL and err["max_rel"] <= 2 * twin_err,
+              f"uncertainty {name}: float32 sigmas {err['max_rel']:.3e} "
+              f"from float64, the float32 CPU twin {twin_err:.3e}")
+        rec["f32_floor_case"] = True
+    say("uncertainty", case=name.replace(" ", "_"), **rec)
+    return rec, unc
+
+
+def phase_uncertainty(dev, solved: dict) -> dict:
+    """[uncertainty]: uncertainty_case on each solved CameraSet (``solved``:
+    [generic]'s, then uncertainty_inputs'); the template one also written
+    to a ``.camset``, loaded back and run again (the file's handler holds
+    no start, so no PnP seed runs): the in-memory sigmas bit for bit."""
+    import tempfile
+
+    from pycamset_tpu_torch.utils.saving import load_CameraSet
+    t0 = time.perf_counter()
+    solved = {**solved, **uncertainty_inputs(dev)}
+    say("uncertainty", case="inputs",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    out, sig = {}, {}
+    for name, cams in solved.items():
+        out[name], sig[name] = uncertainty_case(name, cams, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cams.camset")
+        solved["template 16x100"].save(path)
+        back = load_CameraSet(path)
+    check(back.calibration_handler.initial_params is None,
+          "the loaded handler holds a start")
+    out["loaded 16x100"], _ = uncertainty_case(
+        "loaded 16x100", back, dev, in_memory=sig["template 16x100"])
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5610,6 +6020,21 @@ def main() -> int:
     for shape, rec in fleet_fp.items():
         launches[rec["own"]][f"fleet_freepoint {shape}"] = rec["launches"]
     say("elapsed", after="fleet_freepoint",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    _, solved = phase_generic(dev, counted)
+    say("elapsed", after="generic",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    phase_uncertainty(dev, solved)
+    del solved
+    say("elapsed", after="uncertainty",
         seconds=f"{time.perf_counter() - t_start:.1f}",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
     for name, by_solve in mixed_launches.items():

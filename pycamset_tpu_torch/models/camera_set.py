@@ -3,15 +3,16 @@
 Counterpart of ``pycamset_tpu/models/camera_set.py``: ``make_cam_dict``,
 dict / list / slice / name indexing, subsets, iteration, equality,
 ``project_points_to_all_cams``, ``multi_cam_triangulate``, ``save``,
-``set_resolutions_from_file``, the calibration history,
-``essential_matrix`` and ``fundamental_matrix``.
+``set_resolutions_from_file``, the calibration history and its
+``calibration_uncertainty``, ``essential_matrix`` and
+``fundamental_matrix``.
 Triangulation runs through the port's batched DLT
 (``ops/triangulation.py``) on ``device``, the card unless the caller names
 another, with each camera's distortion at its model's width (4, 5, 8, 12 or
 14; narrower Brown vectors zero-padded to the widest, ``stack_cam_dists``);
 a rig mixing fisheye and Brown cameras undistorts through heterogeneous
 ``[sel | coefs]`` rows, as the JAX package does. Plots, scene export, the
-calibration diagnostics and rig transforms wait for items 8 and 10.
+calibration diagnostics' plots and rig transforms wait for item 10.
 """
 from __future__ import annotations
 
@@ -300,6 +301,15 @@ class CameraSet:
         self.calibration_result = optimisation_results["fun"]
         self.calibration_jac = optimisation_results.get("jac")
         self.calibration_handler = param_handler
+
+    def calibration_uncertainty(self, device="cuda") -> dict:
+        """Per-parameter standard errors of this calibration (first-order
+        error propagation at the solution, ``optim/uncertainty.py``); the
+        residuals and Jacobian are evaluated on ``device``, the card unless
+        the caller names another."""
+        from pycamset_tpu_torch.optim.uncertainty import (
+            calibration_uncertainty)
+        return calibration_uncertainty(self, device=device)
 
     # ------------------------------------------------------- two-view geometry
 

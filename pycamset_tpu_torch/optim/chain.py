@@ -1,7 +1,9 @@
 """OptimFunction: a chain of function blocks and its parameter layout.
 
 Counterpart of ``pycamset_tpu/optim/chain.py``. The layout code is host
-numpy and unchanged; the per-detection chain evaluates on tensors.
+numpy and unchanged (``ParamStruct.build_cols``: the per-detection gather
+rows of the generic backend, ``optim/residuals.py``); the per-detection
+chain evaluates on tensors.
 """
 from __future__ import annotations
 
@@ -35,6 +37,32 @@ class ParamStruct:
         return slice(int(self.starts[gi]),
                      int(self.starts[gi]) + self.groups[gi].n * self.counts[gi])
 
+    def build_cols(self, cam_idx: np.ndarray, im_idx: np.ndarray,
+                   key_idx: np.ndarray,
+                   group_idx: np.ndarray | None = None) -> np.ndarray:
+        """Per-detection gather indices into the full parameter vector.
+
+        :param group_idx: per-detection PER_GROUP index (required iff the
+            chain has PER_GROUP parameters).
+        :return: (N, L) int32 where L = sum of unique-group param counts.
+        """
+        link_cols = {key_type.PER_CAM: cam_idx, key_type.PER_IMG: im_idx,
+                     key_type.PER_KEY: key_idx, key_type.PER_GROUP: group_idx}
+        parts = []
+        for g, start in zip(self.groups, self.starts):
+            if g.link == key_type.SINGLE:
+                idx = np.zeros_like(cam_idx)
+            else:
+                idx = link_cols[g.link]
+                if idx is None:
+                    raise ValueError(
+                        f"chain needs a {g.link.name} index column (the "
+                        "handler's group_of_key() gives none)"
+                        if g.link == key_type.PER_GROUP else
+                        f"chain needs a {g.link.name} index column")
+            parts.append(start + idx[:, None] * g.n + np.arange(g.n)[None, :])
+        return np.concatenate(parts, axis=1).astype(np.int32)
+
 
 class OptimFunction:
     """A chain of function blocks, evaluated right-to-left."""
@@ -55,6 +83,10 @@ class OptimFunction:
                              for a, b in zip(offs[:-1], offs[1:])]
         self.local_len = int(offs[-1])
         self.templated = any(b.template for b in self.blocks)
+        # per-detection auxiliary input channels (a rolling-shutter chain's
+        # image row in the JAX package); no block of the port reads any
+        self.aux_width = max(
+            (getattr(b, "aux_inputs", 0) for b in self.blocks), default=0)
 
     def __add__(self, other):
         if isinstance(other, FunctionBlock):
@@ -62,6 +94,9 @@ class OptimFunction:
         if isinstance(other, OptimFunction):
             return OptimFunction(self.blocks + other.blocks)
         return NotImplemented
+
+    def can_make_jac(self) -> bool:
+        return True  # torch.func.jacfwd exists for every chain of blocks
 
     def make_point_fn(self):
         """The fused prediction function.

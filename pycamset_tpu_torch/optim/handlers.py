@@ -67,6 +67,7 @@ from pycamset_tpu_torch.optim.blocks import (
     ProjectionRational, ProjectionThinPrism, ProjectionTilted, RigidTform3d,
     TemplatePoints)
 from pycamset_tpu_torch.optim.chain import OptimFunction
+from pycamset_tpu_torch.optim.residuals import build_detection_arrays
 from pycamset_tpu_torch.ops.transforms import rigid_fit
 
 DEFAULT_OPTIONS = {
@@ -485,6 +486,22 @@ class TemplateBundleHandler:
         """key -> PER_GROUP index mapping, or None when the chain has
         none."""
         return None
+
+    def can_make_jac(self) -> bool:
+        return self.op_fun.can_make_jac()
+
+    def build_problem(self, pad_multiple: int = 512):
+        """(ParamStruct, DetectionArrays) of the generic backend
+        (``optim/residuals.py``)."""
+        struct = self.op_fun.param_struct(
+            len(self.cam_names), self.bundlePrimitive.poses.shape[0],
+            self.n_keys(), n_groups=self.n_groups())
+        dd = self.get_detection_data(flatten=True)
+        det = build_detection_arrays(self.op_fun, struct, dd,
+                                     self.template_table(),
+                                     pad_multiple=pad_multiple,
+                                     group_of_key=self.group_of_key())
+        return struct, det
 
     # ------------------------------------------------- initial parametrisation
 
@@ -919,6 +936,14 @@ class FreePointBundleHandler(TemplateBundleHandler):
 
     def template_table(self):
         return None
+
+    def build_problem(self, pad_multiple: int = 512):
+        struct = self.op_fun.param_struct(
+            len(self.cam_names), 0, self.n_keys())
+        dd = self.get_detection_data(flatten=True)
+        det = build_detection_arrays(self.op_fun, struct, dd, None,
+                                     pad_multiple=pad_multiple)
+        return struct, det
 
     def get_initial_params(self) -> np.ndarray:
         if self.initial_params is not None:

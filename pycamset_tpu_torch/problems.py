@@ -202,7 +202,7 @@ def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
                      options: dict | None = None,
                      template_warp: float = 0.0,
                      camera_model: str = "standard",
-                     shared_intrinsics=None):
+                     shared_intrinsics=None, fixed_lenses: bool = False):
     """``standard_problem``'s rig as a user holds it: a CameraSet of the
     rig's cameras (1600 x 1200), the TargetDetection of its table, the grid
     as a ``FreePointTarget``, and a ``TemplateBundleHandler`` (options
@@ -224,6 +224,8 @@ def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
         per-camera group ids: the rig's cameras share their group's true
         lens, and the handler ties them (its ``shared_intrinsics``
         option).
+    :param fixed_lenses: every camera's true lens fixed (``fixed_params``
+        "int" and "dst"): only the extrinsics and the poses are free.
     :return: (handler, rig)."""
     rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
                              visibility=0.85, noise_px=0.3, seed=seed,
@@ -234,9 +236,12 @@ def template_handler(n_cams: int, n_ims: int, grid: int = 19, seed: int = 0,
     cams, names = _rig_cams(rig["intr"], [make_4x4h_tform(e[:3], e[3:])
                                           for e in rig["extr"]],
                             rig["camera_models"])
+    fixed = ({n: {"int": cams[n].intrinsic,
+                  "dst": np.ravel(cams[n].distortion_coefs)} for n in names}
+             if fixed_lenses else None)
     handler = TemplateBundleHandler(
         cams, FreePointTarget(rig["template"].reshape(1, -1, 3)),
-        detection_from_numpy(names, rig["dd"], n_ims),
+        detection_from_numpy(names, rig["dd"], n_ims), fixed_params=fixed,
         options={"outliers": "n", "verbosity": 0,
                  "camera_model": camera_model, **(options or {})})
     prim = handler.bundlePrimitive

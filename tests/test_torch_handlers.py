@@ -20,7 +20,9 @@ the same inputs):
   ``nit``/``nfev``, the cost within 1e-12 relative;
 - every part of the JAX path the port does not have yet raises, naming its
   ROADMAP item (per-camera camera_model maps are ported: their parity is
-  ``tests/test_torch_het_rig.py``'s); ``CameraSet.multi_cam_triangulate`` and
+  ``tests/test_torch_het_rig.py``'s); the two cases that met the generic
+  and scipy backends' refusal are held to the JAX package;
+  ``CameraSet.multi_cam_triangulate`` and
   ``project_points_to_all_cams`` match the JAX package's within 1e-9;
 - a non-minimal camera's sensor map, asked for on the CPU, matches the JAX
   package's (OpenCV's undistortion) within 1e-8, and asked for on the card
@@ -198,13 +200,65 @@ def _refuse(what):
     run_bundle_adjustment(handler, backend=backend, device="cpu")
 
 
+def _item8_parity(what):
+    """The two inputs that met the generic backend's refusal before it was
+    ported, given to both packages: scipy's TRF on the refusal's rig with
+    its lenses fixed (with free lenses TRF stops at max_nfev here and its
+    lsmr steps amplify rounding, ``tests/test_torch_generic.py``), and the
+    mixed chain on a handler without groups, which both packages refuse
+    with the same ValueError from the generic backend's gather rows."""
+    from test_torch_fleet_handlers import _port_handler as carried
+    rig = dict(n_cams=3, n_ims=5, grid=6, seed=5, options={"verbosity": 0})
+    jh, _ = _template_handler(**rig)
+    fixed = None
+    if what == "backend scipy":
+        fixed = {c.name: {"int": c.intrinsic,
+                          "dst": np.ravel(c.distortion_coefs)}
+                 for c in jh.camset}
+        jh, _ = _template_handler(**rig, fixed_params=fixed)
+    port = carried(jh, "template", options={"verbosity": 0},
+                   fixed_params=fixed)
+    port.set_initial_params(np.array(jh.get_initial_params()))
+    if what == "backend scipy":
+        ref, _ = jax_rba(jh, backend="scipy")
+        got, _ = run_bundle_adjustment(port, backend="scipy", device="cpu")
+        assert (got.nfev, got.status) == (ref.nfev, ref.status)
+        assert abs(got.cost - ref.cost) <= 1e-8 * ref.cost
+        return
+    from pycamset_tpu.optim import blocks as jb
+    from pycamset_tpu.optim.chain import OptimFunction as JaxChain
+    from pycamset_tpu_torch.optim import blocks as pb
+    from pycamset_tpu_torch.optim.chain import OptimFunction
+    jh.op_fun = JaxChain([jb.Projection(), jb.Extrinsic3D(),
+                          jb.RigidTform3d(), jb.GroupRigidTform3d(),
+                          jb.FreePoint()])
+    port.op_fun = OptimFunction([pb.Projection(), pb.Extrinsic3D(),
+                                 pb.RigidTform3d(), pb.GroupRigidTform3d(),
+                                 pb.FreePoint()])
+    with pytest.raises(ValueError) as ref:
+        jax_rba(jh)
+    with pytest.raises(ValueError) as got:
+        run_bundle_adjustment(port, device="cpu")
+    assert str(ref.value) in str(got.value)
+
+
 @pytest.mark.parametrize("what,item", [
     ("backend scipy", "item 8"), ("backend sharded", "item 11"),
     ("rolling_shutter", "item 7"),
     ("mixed chain", "group_of_key"), ("mixed chain", "item 8"),
     ("grouped chain", "group_of_key")])
 def test_refusals_name_their_roadmap_item(what, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The parts of the JAX path the port has not got raise, naming their
+    ROADMAP item. The two "item 8" cases (the scipy backend, and "auto"'s
+    generic fallback on a chain neither structured builder takes) are
+    ported: they now do what the JAX package does with the same input. A
+    multi-target chain on a handler without groups reaches the generic
+    backend, whose gather rows need the handler's group_of_key."""
+    if item == "item 8":
+        _item8_parity(what)
+        return
+    error = ValueError if item == "group_of_key" else NotImplementedError
+    with pytest.raises(error, match=item):
         _refuse(what)
 
 

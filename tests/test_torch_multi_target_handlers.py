@@ -14,7 +14,10 @@ seeded by its own PnP (the relative pose averaged over the images):
   1e-9 relative, x within 1e-8 of its scale, the residuals and the cameras
   within 1e-8 of theirs; the recovered relative pose and the targets;
 - the key->group checks the JAX package makes (``UnsupportedChain``
-  without groups, ``ValueError`` for an index out of range);
+  without groups, ``ValueError`` for an index out of range), and
+  ``run_bundle_adjustment`` on a handler that counts no groups doing what
+  the JAX package does (the grouped chain its ValueError, the mixed one
+  the generic backend's solve);
 - the mixed problem's LM step runner (a CUDA graph on a card) run
   uncaptured gives the host loop's bits; ``problems.multi_target_handler``
   (grouped) solves ``problems.grouped_problem``'s problem; a calibrated
@@ -94,7 +97,8 @@ def test_the_same_relative_pose_and_targets(solved):
                                          ("out of range", ValueError)])
 def test_group_checks(chain, fault, error):
     make, seed = MAKE[chain]
-    port = _port_handler(make(seed=seed), chain)
+    jh = make(seed=seed)
+    port = _port_handler(jh, chain)
     if fault == "no groups":
         port.n_groups = lambda: 0
     else:
@@ -105,8 +109,27 @@ def test_group_checks(chain, fault, error):
     with pytest.raises(error, match="group_of_key"):
         build(port, device="cpu")
     if fault == "no groups":
-        with pytest.raises(NotImplementedError, match="item 8"):
-            run_bundle_adjustment(port, device="cpu")
+        # "auto" then does what the JAX package does with a handler that
+        # counts no groups: the grouped chain raises the JAX package's
+        # ValueError; the mixed chain falls back to the generic backend,
+        # whose group rows alias the points, as in the JAX package (held
+        # at a budget of 6 evaluations)
+        jh.n_groups = lambda: 0
+        for h in (jh, port):
+            h.problem_opts["max_nfev"] = 6
+        port.set_initial_params(np.array(jh.get_initial_params()))
+        if chain == "grouped":
+            with pytest.raises(ValueError) as ref:
+                jax_rba(jh)
+            with pytest.raises(ValueError) as got:
+                run_bundle_adjustment(port, device="cpu")
+            assert str(got.value) == str(ref.value)
+            return
+        ref, _ = jax_rba(jh)
+        got, _ = run_bundle_adjustment(port, device="cpu")
+        assert (got.nit, got.nfev, got.status) == (ref.nit, ref.nfev,
+                                                   ref.status)
+        assert abs(got.cost - ref.cost) <= 1e-9 * ref.cost
 
 
 def test_mixed_step_runner_gives_the_host_loops_bits():

@@ -113,6 +113,9 @@ def test_package_imports_neither_jax_nor_cv2():
             "pycamset_tpu_torch.optim.structured, "
             "pycamset_tpu_torch.optim.handlers, "
             "pycamset_tpu_torch.optim.driver, "
+            "pycamset_tpu_torch.optim.residuals, "
+            "pycamset_tpu_torch.optim.lm, "
+            "pycamset_tpu_torch.optim.uncertainty, "
             "pycamset_tpu_torch.optim.problem, "
             "pycamset_tpu_torch.optim.structured_driver, "
             "pycamset_tpu_torch.calibration.camera_calibrator, "
@@ -142,9 +145,11 @@ def test_user_path_does_not_load_the_bench():
 
 
 # The card path with jax and cv2 unimportable: a handler seeded through
-# set_initial_params, run_stereo_calibration, the saved file loaded back;
-# then the self-calibration warm-started from it and the free-point handler,
-# each saved and loaded back; on the CPU at a tiny size.
+# set_initial_params, run_stereo_calibration, the saved file loaded back
+# and its calibration uncertainty (the loaded handler holds no start: no
+# PnP); then the self-calibration warm-started from it and the free-point
+# handler, each saved and loaded back; the generic and scipy backends; on
+# the CPU at a tiny size.
 CARD_PATH = """
 import sys, tempfile
 sys.modules["cv2"] = None
@@ -161,6 +166,10 @@ with tempfile.TemporaryDirectory() as d:
     back = load_CameraSet(d + "/cams.camset")
 assert back == cams and back.calibration_handler is not None
 assert np.array_equal(back.calibration_result, cams.calibration_result)
+unc = cams.calibration_uncertainty(device="cpu")
+unc_back = back.calibration_uncertainty(device="cpu")
+assert unc["dof"] == unc_back["dof"] and unc["sigma2"] == unc_back["sigma2"]
+assert np.array_equal(unc["pose_sigma"], unc_back["pose_sigma"])
 # the self-calibration after the template one, and the pose-free
 # free-point handler: both saved and loaded back with their handler class
 from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
@@ -181,6 +190,10 @@ with tempfile.TemporaryDirectory() as d:
 assert sback == scams and type(sback.calibration_handler) is SelfBundleHandler
 assert type(fback.calibration_handler) is FreePointBundleHandler
 assert np.array_equal(fback.calibration_params, fcams.calibration_params)
+for backend in ("generic", "scipy"):
+    h, _ = template_handler(3, 5, grid=5, options={"max_nfev": 8})
+    res, _ = run_bundle_adjustment(h, backend=backend, device="cpu")
+    assert res.nfev <= 8 and np.isfinite(res.cost), (backend, res)
 bad = [m for m in ("pycamset_tpu", "pycamset_tpu.config") if m in sys.modules]
 assert not bad, bad
 try:
