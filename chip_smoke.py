@@ -213,6 +213,25 @@ covariance, peak MiB, and every sigma against the float64 run on the card
 (1e-2 relative, or twice the float32 CPU twin's error where the twin
 misses that, named).
 
+Then the structured backend's forward-mode route, which reaches no kernel
+(the JAX package's ``jacfwd`` route is XLA): ``[rs_user_path]`` calibrates
+``problems.rs_handler(16, 100)``'s rolling-shutter capture through
+``run_stereo_calibration(problem_options={"rolling_shutter": r})`` on both
+dense-solve routes (the handler's problem captured = uncaptured, the SPD
+kernel once an LM step on its route with its fallbacks, ms an LM step and
+an evaluation, host reads, one evaluation's peak MiB; the entry as the main
+path, saved and loaded back; status 1-2, rms <= 0.36 px, readouts within
+0.05 and velocities within 0.02 of the truth; the float32 cost within 1e-4
+of the card's float64 solve, which is tied to the CPU's at 3 x 8; the
+global-shutter handler's rms on the same data); ``[het_multi_target]``
+solves the grouped and mixed multi-target problems of a fisheye /
+standard rig at 16 x 100 (``ProjectionHet``: no gram kernel; captured =
+uncaptured, rms <= 0.36 px, ms an evaluation beside the uniform problem's
+on Kernel E, float32 against float64); ``[auto_dispatch]`` reads the
+backend ``run_bundle_adjustment(backend="auto")`` chooses for the
+rolling-shutter chain, a chain with a block of the caller's own, and the
+template, self-calibration, free-point, grouped and mixed chains.
+
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
 kernels as JSON; the last is
@@ -410,33 +429,71 @@ def kernel_name(name: str) -> str:
     return name.removeprefix("void ").split("(")[0].replace(" ", "")
 
 
+# the pauses (s) before each torch.profiler session of one measurement: on
+# the card a session now and then records no device event at all, the
+# sessions taken right after it often none either, and once in a while
+# every session of one measurement (tools/profiler_probe.py, PERF.md)
+PROFILE_PAUSES_S = (0.0, 1.0, 3.0, 10.0, 30.0)
+# every session taken, those that recorded no device event, and the
+# device times taken by CUDA events because no session recorded one
+PROFILER = {"sessions": 0, "empty": 0, "cuda_event_fallbacks": 0}
+# device_ms's one entry when it timed fn by CUDA events
+CUDA_EVENTS = "(every kernel, by CUDA events)"
+
+
+def profiled(fn, n: int = 1, pauses=PROFILE_PAUSES_S):
+    """(each device event of n calls of fn under torch.profiler as (name,
+    µs), the last call's result). A session that records no device event
+    at all is taken again, fn with it, after the next pause (so a caller
+    that counts fn's side effects resets them inside fn); no events when
+    every session is empty."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for tries, pause in enumerate(pauses, 1):
+        time.sleep(pause)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                out = fn()
+            torch.cuda.synchronize()
+        PROFILER["sessions"] += 1
+        events = [(kernel_name(ev.name), ev.time_range.elapsed_us())
+                  for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        if events:
+            return events, out
+        PROFILER["empty"] += 1
+        say("profiler_empty", session=PROFILER["sessions"], tries=tries,
+            fn=getattr(fn, "__qualname__", "?"))
+    return [], out
+
+
+def recorded(fn):
+    """``profiled(fn)``, failing when no session recorded a device event."""
+    events, out = profiled(fn)
+    check(bool(events), f"torch.profiler recorded no device event in "
+                        f"{len(PROFILE_PAUSES_S)} sessions")
+    return events, out
+
+
 def device_ms(fn, n: int = 20) -> dict:
     """Mean device time (ms) per call of each kernel that fn launches, over
     n calls under torch.profiler. Timing a launch by CUDA events measures
     the host instead once the host takes longer to issue a call (a wrapper's
-    allocations and ctypes call) than the card takes to run it."""
+    allocations and ctypes call) than the card takes to run it: so only
+    when three sessions record nothing, as {CUDA_EVENTS: ms a call}."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # a profiling session on the card now and then records no device event
-    # at all (one smoke run in three on an H100): take another
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        events = [ev for ev in prof.events()
-                  if ev.device_type == DeviceType.CUDA]
-        if events:
-            break
-    check(bool(events), "torch.profiler recorded no device event in three "
-                        "sessions")
+    events, _ = profiled(fn, n, (0.0, 0.5, 2.0))
+    if not events:
+        PROFILER["cuda_event_fallbacks"] += 1
+        ms = cuda_ms(fn, n)
+        say("profiler_fallback", timed_by="cuda_events", ms=f"{ms:.4f}")
+        return {CUDA_EVENTS: ms}
     us, count = {}, {}
-    for ev in events:
-        name = kernel_name(ev.name)
-        us[name] = us.get(name, 0.0) + ev.time_range.elapsed_us()
+    for name, t in events:
+        us[name] = us.get(name, 0.0) + t
         count[name] = count.get(name, 0) + 1
     # each kernel's mean over the events recorded, times its launches a
     # call: a trace that drops events does not shrink the time
@@ -1441,18 +1498,10 @@ def phase_main_path(probs):
 def solve_kernel_counts(fn):
     """(launches of each hand-written kernel of the solve in one call of fn,
     by the names of its device events under torch.profiler; fn's result)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
+    events, out = recorded(fn)
     count = {}
-    for ev in prof.events():
-        name = kernel_name(ev.name)
-        if (ev.device_type == DeviceType.CUDA
-                and name.split("<")[0] in SOLVE_KERNELS):
+    for name, _ in events:
+        if name.split("<")[0] in SOLVE_KERNELS:
             count[name] = count.get(name, 0) + 1
     return count, out
 
@@ -1495,10 +1544,10 @@ def phase_graph(probs) -> dict:
     for shape, prob in probs.items():
         for route in ("library", "kernel"):
             with one_launch_psd(route == "kernel"):
-                cc.psd_solve.fallbacks = 0
                 base = mib_allocated()
-                ref_counts, ref = solve_kernel_counts(
-                    lambda: prob.solve(graph=False))
+                ref_counts, ref = solve_kernel_counts(lambda: (
+                    setattr(cc.psd_solve, "fallbacks", 0),
+                    prob.solve(graph=False))[1])
                 ref_mib = torch.cuda.max_memory_allocated() / 2 ** 20 - base
                 fell = [cc.psd_solve.fallbacks]
                 runner = prob.graph()
@@ -1511,10 +1560,15 @@ def phase_graph(probs) -> dict:
                 fell.append(cc.psd_solve.fallbacks)
                 check(runner.graph is not None,
                       f"{shape} ({route}): the solve captured no graph")
-                before = (runner.steps, runner.replays, runner.reruns,
-                          runner.reads)
-                cc.psd_solve.fallbacks = 0
-                counts, warm = solve_kernel_counts(prob.solve)
+                before = []
+
+                def warm_solve():
+                    # counted from the last session profiled's solve alone
+                    before[:] = (runner.steps, runner.replays,
+                                 runner.reruns, runner.reads)
+                    cc.psd_solve.fallbacks = 0
+                    return prob.solve()
+                counts, warm = solve_kernel_counts(warm_solve)
                 fell.append(cc.psd_solve.fallbacks)
                 steps, replays, reruns, reads = (
                     a - b for a, b in zip((runner.steps, runner.replays,
@@ -1912,8 +1966,14 @@ def phase_fleet(fleet) -> dict:
     captures = [graphs()]
     second = fleet.solve()
     captures.append(graphs() - captures[0])
-    before = {n: (g.steps, g.replays, g.reads) for n, g in runners.items()}
-    prof, warm = solve_kernel_counts(fleet.solve)
+    before = {}
+
+    def warm_solve():
+        # counted from the last session profiled's solve alone
+        before.update({n: (g.steps, g.replays, g.reads)
+                       for n, g in runners.items()})
+        return fleet.solve()
+    prof, warm = solve_kernel_counts(warm_solve)
     cohort_steps = {n: g.steps - before[n][0] for n, g in runners.items()}
     steps, replays, reads = (sum(getattr(runners[n], k) - before[n][j]
                                  for n in runners)
@@ -2462,8 +2522,10 @@ def solved_through_graph(tag, solve_fn, x0, kernel_route: bool):
     t0 = time.perf_counter()
     x_first, first = solve_fn(x0)                   # captures
     first_s = time.perf_counter() - t0
-    graph, replays = runner.graph, runner.replays
-    counts, (x_warm, warm) = solve_kernel_counts(lambda: solve_fn(x0))
+    graph, replays = runner.graph, []
+    counts, (x_warm, warm) = solve_kernel_counts(lambda: (
+        replays.append(runner.replays), solve_fn(x0))[1])
+    replays = replays[-1]
     check(runner.graph is graph and graph is not None
           and runner.replays - replays == warm.nit,
           f"{tag}: not one capture and one replay a step (graph "
@@ -2804,15 +2866,18 @@ def distortion_field_px(cams, rig) -> float:
     import torch
     from pycamset_tpu_torch.ops.distortion import distort_normalized
     dd, worst = rig["dd"], 0.0
+    # each camera's rows in their order, by one stable sort
+    order = np.argsort(dd[:, 0], kind="stable")
+    ends = np.searchsorted(dd[order, 0], np.arange(len(cams) + 1) - 0.5)
     for c, cam in enumerate(cams):
         true_i = rig["intr"][c]
         got = np.ravel(cam.distortion_coefs)
         check(got.size == true_i.size - 4,
               f"camera {c}: {got.size} distortion coefficients, the model "
               f"has {true_i.size - 4}")
-        m = dd[:, 0] == c
-        grid = torch.as_tensor(np.stack([(dd[m, 3] - true_i[1]) / true_i[0],
-                                         (dd[m, 4] - true_i[3]) / true_i[2]],
+        rows = dd[order[ends[c]:ends[c + 1]]]
+        grid = torch.as_tensor(np.stack([(rows[:, 3] - true_i[1]) / true_i[0],
+                                         (rows[:, 4] - true_i[3]) / true_i[2]],
                                         axis=-1))
         err = (distort_normalized(grid, torch.as_tensor(got))
                - distort_normalized(grid, torch.as_tensor(true_i[4:])))
@@ -3968,10 +4033,11 @@ def fleet_key_kernel(kernel: str, model: str, prob, builds: dict) -> dict:
              launch(packed_r[k], keys[k], *(x[k] for x in blocks), kmask[k],
                     *extra, 0, 1, 1.0, a - 6) for k in range(r)]),
          "ms": cuda_ms(folded, 10),
+         # host-bound (64 wrapper calls; the plain twin's vmap): two calls
          "one_rig_launches_ms": cuda_ms(lambda: [
-             one(*(x[k] for x in ops)) for k in range(r)], 3),
+             one(*(x[k] for x in ops)) for k in range(r)], 2, warmup=1),
          "plain_ms": cuda_ms(lambda: torch.func.vmap(
-             lambda *x: twin(*x, *extra, **kw0))(*ops), 3)}
+             lambda *x: twin(*x, *extra, **kw0))(*ops), 2, warmup=1)}
     bound_prob = SimpleNamespace(
         mask=fold(prob.mask), widths=SimpleNamespace(a=a),
         blocks=SimpleNamespace(n_cams=r * c, n_real=int(prob.n_real.sum())))
@@ -4754,8 +4820,9 @@ def phase_psd_batch(systems: dict) -> dict:
             **{k: (f"{v:.3e}" if isinstance(v, float) else v)
                for k, v in rec.items()})
         dev_ms = device_ms(lambda: cc.psd_solve_raw_batched(a32, b32))
-        k_ms = sum(t for name, t in dev_ms.items()
-                   if name.startswith("psd_batched_kernel"))
+        k_ms = dev_ms.get(CUDA_EVENTS) or sum(
+            t for name, t in dev_ms.items()
+            if name.startswith("psd_batched_kernel"))
         lib_k_ms = kernel_ms(
             lambda: torch.func.vmap(_cho_refine_solve)(a32, b32))
         lib_ms = cuda_ms(lambda: torch.func.vmap(_cho_refine_solve)(a32, b32),
@@ -4955,14 +5022,8 @@ def cg_spy():
 def device_events(fn):
     """(every device event of one call of fn under torch.profiler, fn's
     result): what a captured solve's replays launch, all of it."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    return sum(ev.device_type == DeviceType.CUDA for ev in prof.events()), out
+    events, out = recorded(fn)
+    return len(events), out
 
 
 def cg_stage(tag, handler, own, counted, dev, kern, flag=None):
@@ -5801,6 +5862,386 @@ def phase_uncertainty(dev, solved: dict) -> dict:
     return out
 
 
+# The rolling-shutter user path: problems.rs_handler's rig
+RS_SHAPE = (16, 100)
+# the float64 card solve tied to the CPU's at this size
+RS_SMALL = (3, 8)
+# tests/test_rolling_shutter.py's bars: readouts and velocities
+RS_READOUT_TOL = 0.05
+RS_VELOCITY_TOL = 0.02
+# the float32 card cost against the float64 card solve's (relative)
+F32_COST_TOL = 1e-4
+# the heterogeneous multi-target rigs: fisheye and standard cameras in turn
+HET_CYCLE = ("fisheye", "standard")
+HET_MULTI = {"grouped 16x100": False, "mixed 16x100": True}
+
+
+@contextlib.contextmanager
+def seeded_rs_handlers(x0):
+    """Within the block, an ``RSTemplateBundleHandler`` that the user's
+    entry builds (``run_stereo_calibration(problem_options={
+    "rolling_shutter": r})``) starts at ``x0`` in place of its PnP seed,
+    which needs OpenCV (the card's machine has none); no image is
+    missing."""
+    from pycamset_tpu_torch.optim.handlers import RSTemplateBundleHandler
+    orig = RSTemplateBundleHandler.calc_initial_params
+
+    def seed(self):
+        self.missing_poses = np.zeros(self.detection.max_ims, dtype=bool)
+        return np.array(x0)
+    RSTemplateBundleHandler.calc_initial_params = seed
+    try:
+        yield
+    finally:
+        RSTemplateBundleHandler.calc_initial_params = orig
+
+
+def global_shutter_handler(rs):
+    """The global-shutter ``TemplateBundleHandler`` of an RS handler's rig
+    and detections, started at the RS start's intrinsics, extrinsics and
+    pose halves."""
+    from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
+    opts = {k: v for k, v in rs.problem_opts.items()
+            if k != "rolling_shutter"}
+    gs = TemplateBundleHandler(rs.camset, rs.target, rs.detection,
+                               options=opts)
+    prim = rs.bundlePrimitive
+    n_i, n_c = prim.poses.shape[0], prim.intr.shape[0]
+    keep = np.ones(prim.base_full().size, dtype=bool)
+    ee = (prim.intr_width + 6) * n_c
+    keep[ee:ee + 12 * n_i] = np.tile(np.arange(12) < 6, n_i)
+    keep[ee + 12 * n_i:] = False
+    gs.set_initial_params(np.asarray(rs.get_initial_params())[
+        keep[prim.unfixed_full()]])
+    return gs
+
+
+def rs_small_f64_tie(dev) -> dict:
+    """The card's float64 RS solve against the CPU's (the port's float64
+    CPU solve is held to the JAX package by
+    tests/test_torch_rolling_shutter.py) at ``RS_SMALL``: the same nit,
+    nfev and status, the cost within 1e-9."""
+    import torch
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import rs_handler
+    h, _ = rs_handler(*RS_SMALL)
+    x0 = h.get_initial_params()
+    cpu = build_structured_problem(h, device="cpu")[0](x0)[1]
+    card = build_structured_problem(h, device=dev,
+                                    dtype=torch.float64)[0](x0)[1]
+    rel = abs(float(card.cost) - float(cpu.cost)) / float(cpu.cost)
+    check((card.nit, card.nfev, int(card.status))
+          == (cpu.nit, cpu.nfev, int(cpu.status)) and rel <= 1e-9,
+          f"rs_user_path {RS_SMALL}: the card's float64 solve (nit "
+          f"{card.nit}, cost {rel:.2e}) differs from the CPU's (nit "
+          f"{cpu.nit})")
+    return {"small_f64_card_cpu_cost_rel": f"{rel:.2e}",
+            "small_f64_nit": cpu.nit}
+
+
+def phase_rs_user_path(counted, dev, user_ms: dict) -> dict:
+    """[rs_user_path]: ``problems.rs_handler(16, 100)`` (the bench rig's
+    cameras, readouts drawn in [0.5, 0.9], the target moving within each
+    frame, 0.3 px noise; no PnP) through ``run_stereo_calibration(
+    problem_options={"rolling_shutter": camera 0's true readout})``, the
+    structured backend's forward-mode route (no gram kernel), on both
+    dense-solve routes. The handler's problem first: captured = uncaptured
+    bit for bit, one replay a step, the SPD kernel once a step on its
+    route (launches, fallbacks), ms an LM step and an evaluation (warm,
+    captured), host reads, the peak MiB of one evaluation; then the entry
+    as the main path (counts zeroed: no gram wrapper), saved and loaded
+    back; status 1-2, rms <= 0.36 px, each readout within 0.05 and every
+    velocity within 0.02 of the truth; the float32 cost within 1e-4 of the
+    card's float64 solve (tied to the CPU at 3 x 8); beside it the global-
+    shutter user path's ms an evaluation ([user_path], same run) and the
+    global-shutter handler's rms on the same data.
+
+    :return: {"psd_solve": {solve: main-path launches}}."""
+    import tempfile
+
+    import torch
+    from pycamset_tpu_torch.calibration.camera_calibrator import (
+        run_stereo_calibration)
+    from pycamset_tpu_torch.models.camera_set import CameraSet
+    from pycamset_tpu_torch.ops import cuda_cholesky as cc
+    from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
+    from pycamset_tpu_torch.optim.handlers import RSTemplateBundleHandler
+    from pycamset_tpu_torch.optim.structured import chain_family
+    from pycamset_tpu_torch.optim.structured_driver import (
+        build_structured_problem)
+    from pycamset_tpu_torch.problems import rs_handler
+    from pycamset_tpu_torch.utils.saving import load_CameraSet
+    n_cams, n_ims = RS_SHAPE
+    tag = f"rs_user_path {n_cams}x{n_ims}"
+    t0 = time.perf_counter()
+    handler, truth = rs_handler(n_cams, n_ims)
+    inputs_s = time.perf_counter() - t0
+    x0 = handler.get_initial_params()
+    t0 = time.perf_counter()
+    solve_fn, _, x_init = build_structured_problem(handler, device=dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    prob = solve_fn.problem
+    check(chain_family(prob.op_fun, prob.widths) is None
+          and prob.uv.shape[-1] == 3,
+          f"{tag}: the chain is not on the forward-mode route")
+    neq = prob.neq_fn()
+    neq(prob.x0)
+    base = mib_allocated()
+    neq(prob.x0)
+    eval_mib = peak_mib(dev, base)
+    by_route, launches, out = {}, {}, {}
+    for route in ("library", "kernel"):
+        with one_launch_psd(route == "kernel"):
+            cc.psd_solve.fallbacks = 0
+            x_ref, ref, counts, warm, first_s, runner = solved_through_graph(
+                f"{tag} ({route})", solve_fn, x_init, route == "kernel")
+            grams = {n: k for n, k in counts.items()
+                     if n.split("<")[0] != "psd_solve_kernel"}
+            check(not grams, f"{tag} ({route}): gram kernels {grams}")
+            reads = runner.reads
+            ms = float(np.median(timed(lambda: solve_fn(x_init), 3)))
+            reads = (runner.reads - reads) / 3
+            fell = cc.psd_solve.fallbacks
+            with tempfile.TemporaryDirectory() as tmp:
+                path = (os.path.join(tmp, "rs.camset") if route == "library"
+                        else None)
+                sec = {}
+                with seeded_rs_handlers(x0), timed_method(
+                        CameraSet, "save", sec, "save"):
+                    solved, n_own, n_psd, e2e_s = main_path_counts(
+                        counted, None, f"{tag} ({route})",
+                        lambda: run_stereo_calibration(
+                            handler.camset, handler.detection,
+                            handler.target, save=path is not None,
+                            save_loc=path, problem_options=dict(
+                                handler.problem_opts), device=dev))
+                files = {}
+                if path is not None:
+                    t0 = time.perf_counter()
+                    back = load_CameraSet(path)
+                    mib = os.path.getsize(path) / 2 ** 20
+                    files = {"save_s": f"{sec['save']:.2f}",
+                             "load_s": f"{time.perf_counter() - t0:.2f}",
+                             "file_mib": f"{mib:.1f}"}
+                    bh = back.calibration_handler
+                    check(back == solved and isinstance(
+                        bh, RSTemplateBundleHandler) and np.array_equal(
+                        back.calibration_params, solved.calibration_params),
+                          f"{tag}: the loaded CameraSet differs")
+        sh = solved.calibration_handler
+        check(type(sh) is RSTemplateBundleHandler
+              and np.array_equal(solved.calibration_params, x_ref),
+              f"{tag} ({route}): the entry's parameters differ from the "
+              f"problem's solve")
+        status, rms = int(ref.status), prob.rms_px(ref.cost)
+        ro = sh.get_readouts(x_ref)
+        ro_err = [abs(ro[n] - r) for n, r in zip(sh.cam_names,
+                                                 truth["readouts"])]
+        vel_err = float(np.abs(sh.get_velocities(x_ref)
+                               - truth["vels"]).max())
+        check(status in (1, 2) and rms <= 0.36,
+              f"{tag} ({route}): status {status}, rms {rms}")
+        check(max(ro_err) <= RS_READOUT_TOL and vel_err <= RS_VELOCITY_TOL,
+              f"{tag} ({route}): readout error {max(ro_err):.4f}, velocity "
+              f"error {vel_err:.4f}")
+        launches[f"{tag} ({route})"] = n_psd
+        by_route[route] = ref
+        say("rs_user_path", shape=f"{n_cams}x{n_ims}", route=route,
+            backend="structured (forward-mode route)", kernel="none",
+            same_bits=True, status=status, nit=ref.nit, nfev=ref.nfev,
+            rms_px=f"{rms:.5f}", n_real=prob.blocks.n_real,
+            im_grid=prob.blocks.n_ims, k_pad=prob.mask.shape[1],
+            readout_err_per_cam=",".join(f"{e:.5f}" for e in ro_err),
+            velocity_err_max=f"{vel_err:.5f}",
+            solve_ms_median=f"{ms:.3f}",
+            ms_per_lm_step=f"{ms / warm.nit:.3f}",
+            ms_per_evaluation=f"{ms / warm.nfev:.3f}",
+            user_path_ms_per_evaluation=(
+                f"{user_ms[('template 16x100', 'library')]:.3f}"
+                if ("template 16x100", "library") in user_ms
+                else "not measured"),
+            host_reads_per_solve=f"{reads:.1f}",
+            spd_launches_warm=sum(
+                n for name, n in counts.items()
+                if name.split("<")[0] == "psd_solve_kernel"),
+            spd_launches_main_path=n_psd, psd_fallbacks=fell,
+            eval_peak_mib=f"{eval_mib:.0f}",
+            capture_ms=f"{runner.capture_ms:.1f}",
+            first_solve_s=f"{first_s:.3f}", inputs_s=f"{inputs_s:.2f}",
+            build_s=f"{build_s:.3f}",
+            run_stereo_calibration_s=f"{e2e_s:.2f}", **files)
+    # the float32 card cost against the float64 card solve
+    ref64 = build_structured_problem(handler, device=dev,
+                                     dtype=torch.float64)[0](x_init)[1]
+    rel = abs(float(by_route["library"].cost) - float(ref64.cost)) / float(
+        ref64.cost)
+    check(rel <= F32_COST_TOL,
+          f"{tag}: the float32 cost is {rel:.3e} from the float64 card's")
+    out.update(rs_small_f64_tie(dev))
+    # the failure mode the chain removes: a global-shutter calibration of
+    # the same rolling-shutter data
+    gs_res, _ = run_bundle_adjustment(global_shutter_handler(handler),
+                                      device=dev)
+    gs_rms = float(np.sqrt(np.mean(gs_res.fun ** 2)))
+    check(gs_rms > 10 * 0.3, f"{tag}: the global-shutter handler's rms "
+                             f"{gs_rms:.3f} px on rolling-shutter data")
+    say("rs_user_path", shape=f"{n_cams}x{n_ims}", check="f64",
+        f64_nit=ref64.nit, f64_status=int(ref64.status),
+        rel_cost_diff_f64_card=f"{rel:.3e}",
+        global_shutter_rms_px=f"{gs_rms:.3f}",
+        global_shutter_status=int(gs_res.status), **out)
+    return {PSD[0]: launches}
+
+
+def het_models(n_cams: int) -> list:
+    return [HET_CYCLE[c % len(HET_CYCLE)] for c in range(n_cams)]
+
+
+def phase_het_multi_target(counted, dev) -> dict:
+    """[het_multi_target]: the grouped and mixed multi-target problems of a
+    heterogeneous rig (``problems.{grouped,mixed}_problem(16, 100,
+    camera_model=[fisheye, standard, ...])``: ``ProjectionHet``, a = 16,
+    the forward-mode route) solved uncaptured as the main path (counts
+    zeroed: no gram wrapper launched), then captured (= uncaptured bit for
+    bit); status 1-2, rms <= 0.36 px; ms an evaluation (warm, captured)
+    beside the uniform standard-model problem's on Kernel E (timed in
+    turn); the peak MiB of one evaluation; the float32 cost within 1e-4
+    of the float64 card solve's. Returns {shape: record}."""
+    import torch
+    from pycamset_tpu_torch.optim.structured import chain_family
+    from pycamset_tpu_torch.optim.structured_mixed import kernel_chain
+    from pycamset_tpu_torch.problems import grouped_problem, mixed_problem
+    out = {}
+    for shape, mixed in HET_MULTI.items():
+        tag = f"het_multi_target {shape}"
+        n_cams, n_ims = (int(v) for v in shape.split()[1].split("x"))
+        maker = mixed_problem if mixed else grouped_problem
+        models = het_models(n_cams)
+        prob = maker(n_cams, n_ims, dev, camera_model=models)
+        route = (not kernel_chain(prob.op_fun, prob.widths) if mixed else
+                 chain_family(prob.op_fun, prob.widths) is None)
+        check(route and prob.widths.a == 16,
+              f"{tag}: not the forward-mode route (a = {prob.widths.a})")
+        neq = prob.neq_fn()
+        neq(prob.x0)
+        base = mib_allocated()
+        neq(prob.x0)
+        eval_mib = peak_mib(dev, base)
+        ref, _, _, main_s = main_path_counts(
+            counted, None, tag, lambda: prob.solve(graph=False))
+        first, warm = prob.solve(), prob.solve()
+        check(same_solve(first, ref) and same_solve(warm, ref),
+              f"{tag}: the captured solve differs from the uncaptured")
+        status, rms = int(ref.status), prob.rms_px(ref.cost)
+        check(status in (1, 2) and rms <= 0.36,
+              f"{tag}: status {status}, rms {rms}")
+        uniform = maker(n_cams, n_ims, dev)
+        uni = uniform.solve()
+        het_ms, uni_ms = timed_pair(prob.solve, uniform.solve, 3)
+        prob64 = maker(n_cams, n_ims, dev, dtype=torch.float64,
+                       camera_model=models)
+        ref64 = prob64.solve()
+        rel = abs(float(ref.cost) - float(ref64.cost)) / float(ref64.cost)
+        check(rel <= F32_COST_TOL, f"{tag}: the float32 cost is {rel:.3e} "
+                                   f"from the float64 card's")
+        rec = {"status": status, "nit": ref.nit, "nfev": ref.nfev,
+               "rms_px": f"{rms:.5f}",
+               "ms_per_evaluation": f"{np.median(het_ms) / ref.nfev:.3f}",
+               "uniform_kernel_e_ms_per_evaluation":
+                   f"{np.median(uni_ms) / uni.nfev:.3f}",
+               "uniform_nit": uni.nit,
+               "eval_peak_mib": f"{eval_mib:.0f}",
+               "rel_cost_diff_f64_card": f"{rel:.3e}",
+               "f64_nit": ref64.nit, "main_path_s": f"{main_s:.2f}"}
+        say("het_multi_target", shape=shape.replace(" ", "_"),
+            models="/".join(HET_CYCLE), a=prob.widths.a,
+            kernel="none (forward-mode route)", same_bits=True,
+            n_real=prob.blocks.n_real, **rec)
+        out[shape] = rec
+        del prob, prob64, uniform
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_auto_dispatch(dev) -> dict:
+    """[auto_dispatch]: the backend ``run_bundle_adjustment(backend="auto")``
+    chooses (read from its log) and the gram route of each chain at 4 x 16:
+    the rolling-shutter and the skew chains take the structured backend's
+    forward-mode route; the template, self-calibration, free-point and
+    grouped chains the structured backend and the mixed chain the mixed one
+    on their kernels, as before. Each solve status 1-2."""
+    import logging
+
+    from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
+    from pycamset_tpu_torch.optim.structured import (chain_family,
+                                                     chain_widths)
+    from pycamset_tpu_torch.problems import (freepoint_handler,
+                                             multi_target_handler,
+                                             rs_handler,
+                                             selfcal_stage_handler,
+                                             skew_handler,
+                                             template_handler)
+
+    class Said(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.backends = []
+
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith("Using the") or "falling back" in msg:
+                self.backends.append(msg)
+
+    def selfcal():
+        h, _ = template_handler(4, 16, template_warp=BOARD_WARP)
+        _, solved = run_bundle_adjustment(h, device=dev)
+        return selfcal_stage_handler(solved, h)
+
+    cases = {
+        "rolling_shutter": (lambda: rs_handler(4, 16)[0], "structured"),
+        "skew": (lambda: skew_handler(4, 16), "structured"),
+        "template": (lambda: template_handler(4, 16)[0], "structured"),
+        "selfcal": (selfcal, "structured"),
+        "freepoint": (lambda: freepoint_handler(4, 16)[0], "structured"),
+        "grouped": (lambda: multi_target_handler(4, 16, mixed=False)[0],
+                    "structured"),
+        "mixed": (lambda: multi_target_handler(4, 16, mixed=True)[0],
+                  "mixed")}
+    root = logging.getLogger()
+    level = root.level
+    out = {}
+    for name, (make, want) in cases.items():
+        handler = make()
+        said = Said()
+        root.addHandler(said)
+        root.setLevel(logging.INFO)
+        try:
+            res, _ = run_bundle_adjustment(handler, backend="auto",
+                                           device=dev)
+        finally:
+            root.removeHandler(said)
+            root.setLevel(level)
+        backend = ("mixed" if any("mixed" in m for m in said.backends)
+                   else "structured" if any("(Schur)" in m
+                                            for m in said.backends)
+                   else "generic")
+        if backend == "mixed":
+            gram = "kernel E/F"
+        else:
+            family = chain_family(handler.op_fun, chain_widths(handler.op_fun))
+            gram = (f"closed form ({family})" if family
+                    else "forward-mode route")
+        check(backend == want and int(res.status) in (1, 2),
+              f"auto_dispatch {name}: backend {backend} ({said.backends}), "
+              f"status {res.status}")
+        out[name] = f"{backend}: {gram}"
+    say("auto_dispatch", **{k: v.replace(" ", "_") for k, v in out.items()})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6037,6 +6478,26 @@ def main() -> int:
     say("elapsed", after="uncertainty",
         seconds=f"{time.perf_counter() - t_start:.1f}",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    for name, by_solve in phase_rs_user_path(counted, dev, user_ms).items():
+        launches[name].update(by_solve)
+    say("elapsed", after="rs_user_path",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    phase_het_multi_target(counted, dev)
+    say("elapsed", after="het_multi_target",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    t_phase = time.perf_counter()
+    phase_auto_dispatch(dev)
+    say("elapsed", after="auto_dispatch",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
     for name, by_solve in mixed_launches.items():
         launches[name].update(by_solve)
     for phase, recs in (("multi_target_handlers", multi),
@@ -6239,6 +6700,7 @@ def main() -> int:
         "bound_by": "operations", "library_ms": None,
         "fp32_fma_tflops": peak_rec["tflops"], "shape": "(32768, 128)",
         "card": smi})
+    say("profiler", **PROFILER)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

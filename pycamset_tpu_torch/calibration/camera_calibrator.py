@@ -8,7 +8,10 @@ runs on ``device``, the card unless the caller names another.
 
 The image-folder front of ``calibrate_cameras`` (detection, the
 ``cv2.calibrateCamera`` seed, the ChArUco and Ccube targets) is the next
-slice of ROADMAP Queue A item 3; rolling-shutter rigs are item 7.
+slice of ROADMAP Queue A item 3. ``problem_options={"rolling_shutter":
+r}`` calibrates a rolling-shutter rig (``RSTemplateBundleHandler``: the
+reference camera's readout pinned to r, True meaning 1.0), as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ import logging
 from pathlib import Path
 
 from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
-from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
+from pycamset_tpu_torch.optim.handlers import (RSTemplateBundleHandler,
+                                               TemplateBundleHandler)
 
 
 def run_stereo_calibration(
@@ -30,19 +34,19 @@ def run_stereo_calibration(
         (e.g. seeded through ``set_initial_params``), a ``SelfBundleHandler``
         (e.g. warm-started by ``set_from_templated_camset`` from a template
         solve; the result is gauge-aligned onto the reference target) or a
-        ``FreePointBundleHandler``; else a ``TemplateBundleHandler`` is
-        built from ``cams``, ``detections``, ``target``, ``fixed_params``
-        and ``problem_options``.
+        ``FreePointBundleHandler``; else a ``TemplateBundleHandler`` (an
+        ``RSTemplateBundleHandler`` where ``problem_options`` sets
+        ``"rolling_shutter"``) is built from ``cams``, ``detections``,
+        ``target``, ``fixed_params`` and ``problem_options``.
     :param floc: an image folder to read each camera's resolution from
         before saving (an OpenCV read).
     """
     logging.info("Starting the joint multiview bundle adjustment")
     if param_handler is None:
-        if (problem_options or {}).get("rolling_shutter"):
-            raise NotImplementedError(
-                "rolling-shutter calibration (RSTemplateBundleHandler) is "
-                "not ported yet (ROADMAP Queue A item 7)")
-        param_handler = TemplateBundleHandler(
+        handler_cls = (RSTemplateBundleHandler
+                       if (problem_options or {}).get("rolling_shutter")
+                       else TemplateBundleHandler)
+        param_handler = handler_cls(
             camset=cams, detection=detections, target=target,
             fixed_params=fixed_params, options=problem_options)
 

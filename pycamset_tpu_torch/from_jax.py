@@ -60,7 +60,9 @@ def handler_pieces_from_numpy(op_fun, full, unfixed, n_cams: int,
 
 
 def grid_from_numpy(uv, mask, tpl, device, dtype):
-    """(uv (B,K,2), mask (B,K), tpl (K,3)) numpy -> tensors."""
+    """(uv (B,K,2 + A), mask (B,K), tpl (K,3)) numpy -> tensors; a chain
+    with aux channels (the rolling-shutter row) carries them in uv's
+    trailing columns, as ``build_block_arrays`` lays them out."""
     return tuple(tensor_from_numpy(a, device, dtype) for a in (uv, mask, tpl))
 
 
@@ -117,3 +119,20 @@ def detection_from_numpy(cam_names, table, max_ims):
     return TargetDetection(cam_names=list(cam_names),
                            data=np.array(table, dtype=float),
                            max_ims=int(max_ims))
+
+
+def rs_primitive_from_numpy(handler, intr, extr, poses12, readout,
+                            pose_colmask):
+    """A rolling-shutter handler's primitive state from numpy (a JAX
+    ``RSBundlePrimitive``'s ``intr`` / ``extr`` rows, ``poses`` (I, 12)
+    [pose | velocity], ``readout`` (C, 1) and ``pose_colmask`` (I, 12)),
+    written into the port's ``RSTemplateBundleHandler`` ``handler`` in
+    place; returns it. The aux channel is the handler's own ``aux_table``
+    of the detections (the same v/H - 1/2 in both packages)."""
+    prim = handler.bundlePrimitive
+    prim.intr[:] = np.asarray(intr, dtype=np.float64)
+    prim.extr[:] = np.asarray(extr, dtype=np.float64)
+    prim.poses[:] = np.asarray(poses12, dtype=np.float64)
+    prim.readout[:] = np.asarray(readout, dtype=np.float64).reshape(-1, 1)
+    prim.pose_colmask = np.array(pose_colmask, dtype=bool)
+    return handler

@@ -9,9 +9,14 @@ from pycamset_tpu_torch.ops.rotations import rodrigues_to_matrix
 
 
 def pose_apply(pose6: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Apply 6-dof poses [rvec, t] (..., 6) to points (..., 3)."""
+    """Apply 6-dof poses [rvec, t] (..., 6) to points (..., 3); the leading
+    dims broadcast. R p is summed as R's three columns times p's entries:
+    an einsum of (3, 3) by (3,) runs as one tiny GEMV a batch entry on a
+    card, and an elementwise (..., 3, 3) product holds nine values a point
+    (under a vmapped jvp, nine a point and direction)."""
     rmat = rodrigues_to_matrix(pose6[..., :3])
-    return (torch.einsum("...ab,...b->...a", rmat, pts) + pose6[..., 3:])
+    return (rmat[..., 0] * pts[..., 0:1] + rmat[..., 1] * pts[..., 1:2]
+            + rmat[..., 2] * pts[..., 2:3] + pose6[..., 3:])
 
 
 def rigid_fit(src, dst, weights=None):

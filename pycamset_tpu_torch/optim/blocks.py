@@ -10,10 +10,11 @@ FreePoint`` (mixed) and ``... + RigidTform3d + GroupTemplatePoints``
 (grouped), and the projection blocks of the five camera models
 (``Projection`` standard, ``ProjectionRational``, ``ProjectionThinPrism``,
 ``ProjectionTilted``, ``ProjectionFisheye``), with ``ProjectionHet``, the
-per-camera family selector of a rig mixing fisheye and Brown cameras. The
-structured backend
-dispatches on the block class names, as the JAX package does, so the names
-are kept.
+per-camera family selector of a rig mixing fisheye and Brown cameras, and
+the rolling-shutter chain's ``RSPoseVel + RSTemplateTime`` (a per-detection
+aux channel, the normalised image row). The structured backend chooses a
+closed form by the block class names, as the JAX package does, so the names
+are kept; any other chain of blocks runs its forward-mode route.
 """
 from __future__ import annotations
 
@@ -52,6 +53,9 @@ class FunctionBlock:
     num_out: int = 0
     params: ParamSpec
     template: bool = False  # reads its input from the target template table
+    # per-detection auxiliary channels consumed (the normalised image row of
+    # a rolling-shutter chain); compute() then takes (params, inp, aux)
+    aux_inputs: int = 0
 
     def compute(self, params: torch.Tensor,
                 inp: torch.Tensor | None) -> torch.Tensor:
@@ -171,6 +175,40 @@ class FreePoint(FunctionBlock):
 
     def compute(self, params, inp):
         return params
+
+
+class RSTemplateTime(FunctionBlock):
+    """Rolling-shutter template source: emits the template point and the
+    detection's sample-time offset ``tau = readout * (v/H - 1/2)`` (output
+    width 4 = [pt, tau]). 1 PER_CAM parameter, the readout duration in
+    frame units relative to the reference camera's; the normalised-row aux
+    channel ``v/H - 1/2`` is computed per detection on the host and rides
+    an extra column of the observation grid."""
+    num_inp = 0
+    num_out = 4
+    template = True
+    aux_inputs = 1
+    params = ParamSpec(key_type.PER_CAM, 1)
+
+    def compute(self, params, inp, aux=None):
+        tau = params[..., 0] * (aux[..., 0] if aux is not None
+                                else params.new_zeros(()))
+        lead = torch.broadcast_shapes(inp.shape[:-1], tau.shape)
+        return torch.cat([inp.expand(*lead, 3), tau.expand(lead)[..., None]],
+                         dim=-1)
+
+
+class RSPoseVel(FunctionBlock):
+    """Rolling-shutter target motion: 12 PER_IMG params [pose6 | vel6];
+    consumes [pt (3), tau (1)] and applies the pose sampled at tau,
+    ``pose + vel * tau`` (constant velocity within the frame)."""
+    num_inp = 4
+    num_out = 3
+    params = ParamSpec(key_type.PER_IMG, 12)
+
+    def compute(self, params, inp):
+        pose = params[..., :6] + params[..., 6:] * inp[..., 3:4]
+        return pose_apply(pose, inp[..., :3])
 
 
 class GroupRigidTform3d(RigidTform3d):

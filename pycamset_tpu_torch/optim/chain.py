@@ -83,8 +83,9 @@ class OptimFunction:
                              for a, b in zip(offs[:-1], offs[1:])]
         self.local_len = int(offs[-1])
         self.templated = any(b.template for b in self.blocks)
-        # per-detection auxiliary input channels (a rolling-shutter chain's
-        # image row in the JAX package); no block of the port reads any
+        # per-detection auxiliary input channels (the normalised image row
+        # of a rolling-shutter chain, ``blocks.RSTemplateTime``); they ride
+        # extra columns of the observation grid
         self.aux_width = max(
             (getattr(b, "aux_inputs", 0) for b in self.blocks), default=0)
 
@@ -98,22 +99,51 @@ class OptimFunction:
     def can_make_jac(self) -> bool:
         return True  # torch.func.jacfwd exists for every chain of blocks
 
+    def _eval_chain(self, params_of, template_pt, aux):
+        """The chain right to left, block b reading ``params_of(g)`` for
+        its group g."""
+        inp = None
+        for b, gi in zip(reversed(self.blocks), reversed(self.block_group)):
+            src = (template_pt if b.template
+                   else (None if b.num_inp == 0 else inp))
+            if getattr(b, "aux_inputs", 0):
+                inp = b.compute(params_of(gi), src, aux)
+            else:
+                inp = b.compute(params_of(gi), src)
+        return inp
+
     def make_point_fn(self):
         """The fused prediction function.
 
-        :return: fn(local_params (..., L), template_pt (..., 3)) ->
-            (..., num_out), typically the predicted pixel (..., 2).
+        :return: fn(local_params (..., L), template_pt (..., 3)[, aux
+            (..., A)]) -> (..., num_out), typically the predicted pixel
+            (..., 2); the leading dims broadcast. The ``aux`` argument
+            exists only when the chain has aux-consuming blocks
+            (``aux_width > 0``: the rolling-shutter row channel).
         """
-        blocks = self.blocks
-        slices = [self.local_slices[gi] for gi in self.block_group]
+        slices = self.local_slices
+
+        def eval_local(local_params, template_pt, aux):
+            return self._eval_chain(lambda gi: local_params[..., slices[gi]],
+                                    template_pt, aux)
+
+        if self.aux_width:
+            return eval_local
 
         def point_fn(local_params, template_pt):
-            inp = None
-            for b, sl in zip(reversed(blocks), reversed(slices)):
-                src = (template_pt if b.template
-                       else (None if b.num_inp == 0 else inp))
-                inp = b.compute(local_params[..., sl], src)
-            return inp
+            return eval_local(local_params, template_pt, None)
+
+        return point_fn
+
+    def make_group_point_fn(self):
+        """The prediction function on one tensor a parameter group:
+        fn(params (list: group g's (..., n_g), in ``groups`` order),
+        template_pt (..., 3), aux (..., A) or None) -> (..., num_out). The
+        groups' leading dims broadcast against each other and the points
+        (a block's camera and pose rows (B, 1, n) against its keys' (1, K,
+        n)), so a block's own work is done once a block."""
+        def point_fn(params, template_pt, aux=None):
+            return self._eval_chain(lambda gi: params[gi], template_pt, aux)
 
         return point_fn
 

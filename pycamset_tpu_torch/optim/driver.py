@@ -12,9 +12,14 @@ Counterpart of ``pycamset_tpu/optim/driver.py``: ``OptimizeResult``,
   ``build_mixed_structured_problem``, tried when the first raises
   ``UnsupportedChain``, as the JAX package dispatches) built by
   ``optim/structured_driver.py`` and solved by the structured LM (one CUDA
-  graph replay per LM step on a card). Where neither structured builder
-  takes the chain, ``"auto"`` falls back to the generic backend, as the
-  JAX package does; ``"structured"`` raises the first builder's error.
+  graph replay per LM step on a card). The structured builders take
+  every chain their layouts accept, as the JAX package's do (a chain of
+  no kernel family, such as the rolling-shutter handler's, on the
+  forward-mode route); where neither takes the chain, ``"auto"`` falls
+  back to the generic backend, as the JAX package does; ``"structured"``
+  raises the first builder's error. A chain with aux channels (the
+  rolling-shutter one) runs on the structured backend only: the generic
+  and scipy backends refuse it with the JAX package's ``ValueError``.
 - any other name but ``"scipy"`` and ``"sharded"`` (``"generic"`` in the
   JAX package's tests): the generic backend, ``build_solver``: the
   detections grouped by identical gather rows where that pays

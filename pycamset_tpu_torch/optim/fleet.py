@@ -47,7 +47,11 @@ wrappers over Kernels C and D fold the rigs into one launch through the
 same operators.
 
 Not ported yet: the sharded fleet (``mesh=``), raising
-``NotImplementedError`` with its ROADMAP item (Queue A item 11).
+``NotImplementedError`` with its ROADMAP item (Queue A item 11); a fleet
+of chains that no kernel family serves (the single-rig forward-mode
+route's chains) or of mixed-model rigs, raising ``UnsupportedChain`` /
+``NotImplementedError`` naming Queue A item 7. A chain with aux channels
+(rolling shutter) is refused as the JAX fleet refuses it.
 """
 from __future__ import annotations
 
@@ -325,6 +329,10 @@ def _validate_fleet(handlers):
     h0 = handlers[0]
     names = _chain_names(h0)
     widths = chain_widths(h0.op_fun)
+    if getattr(h0.op_fun, "aux_width", 0):
+        raise UnsupportedChain(
+            "chains with per-detection aux inputs (rolling shutter) have "
+            "no fleet path — solve the rigs individually")
     links = [g.link for g in h0.op_fun.groups]
     order = [key_type.PER_CAM, key_type.PER_IMG, key_type.PER_KEY,
              key_type.PER_GROUP]
@@ -616,7 +624,14 @@ def build_fleet_problem(handlers, dtype=None, device="cuda",
             "Brown cameras, or Brown models of several widths) is not "
             "ported yet (ROADMAP Queue A item 7): solve each rig with "
             "run_bundle_adjustment")
-    chain_family(op_fun, widths)    # raises for a chain no family serves
+    if chain_family(op_fun, widths) is None:
+        # the fleet batches the closed forms' kernels: a chain of the
+        # forward-mode route has no fleet path yet
+        raise UnsupportedChain(
+            f"chain {_chain_names(h0)} has no fleet path yet: the fleet "
+            f"serves the template, self-calibration, free-point and grouped "
+            f"chains of one camera model (ROADMAP Queue A item 7); solve "
+            f"each rig with run_bundle_adjustment")
     n_cams, n_keys = len(h0.cam_names), h0.n_keys()
 
     def true_ims(h):
@@ -703,7 +718,7 @@ def _build_mixed_fleet(handlers, x0s, dtype, device,
     from pycamset_tpu_torch.optim.structured_driver import (
         detection_residuals)
     from pycamset_tpu_torch.optim.structured_mixed import (
-        MixedPieces, make_mixed_ops, make_mixed_structured_neq,
+        MixedPieces, kernel_chain, make_mixed_ops, make_mixed_structured_neq,
         merge_mixed_to_full, pad_mixed_pieces, split_full_mixed)
     widths, gok, n_groups, opts = _validate_mixed_fleet(handlers)
     if _opt(opts, "shared_intrinsics", None):
@@ -714,6 +729,11 @@ def _build_mixed_fleet(handlers, x0s, dtype, device,
             "(projection + extrinsic + template points)")
     h0 = handlers[0]
     op_fun = h0.op_fun
+    if not kernel_chain(op_fun, widths):
+        raise UnsupportedChain(
+            f"chain {_chain_names(h0)} has no fleet path yet: the mixed "
+            f"fleet serves the canonical chain of one camera model (ROADMAP "
+            f"Queue A item 7); solve each rig with run_bundle_adjustment")
     n_cams, n_keys = len(h0.cam_names), h0.n_keys()
     n_ims_grid = _fleet_grid(handlers, opts,
                              lambda h: int(h.bundlePrimitive.poses.shape[0]))

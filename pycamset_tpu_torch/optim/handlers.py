@@ -45,9 +45,12 @@ conversions go through cv2 too, so the seed is the JAX package's bit for
 bit. The self-calibration handler seeds through PnP as the template one
 does, or, on a card's machine, from a template solve
 (``set_from_templated_camset``); the free-point handler needs no OpenCV.
-The rolling-shutter and multi-target handlers are later slices of items 3
-and 7; the target-shape plot (``special_plots``) waits for the plotting
-layer (item 10).
+``RSTemplateBundleHandler`` (JAX ``handlers.py:655-800``) calibrates a
+rolling-shutter rig: per-image [pose | velocity] rows, a per-camera
+readout, the normalised image row an aux channel of the detections
+(``aux_table``). The multi-target handlers are the JAX package's examples
+(``pycamset_tpu_torch/examples``); the target-shape plot
+(``special_plots``) waits for the plotting layer (item 10).
 """
 from __future__ import annotations
 
@@ -644,6 +647,158 @@ class TemplateBundleHandler:
         if flatten:
             return detection.return_flattened_keys(dims).get_data()
         return detection.get_data()
+
+
+# ------------------------------------------------------------ rolling shutter
+
+class RSBundlePrimitive(TemplateBundlePrimitive):
+    """Template primitive of a ROLLING-SHUTTER rig: 12-wide per-image rows
+    [pose6 | velocity6] and a per-camera readout parameter. The full
+    vector follows the RS chain's group order (Projection, Extrinsic3D,
+    RSPoseVel, RSTemplateTime): [intr | extr | posevel 12/im | readout
+    1/cam]. ``pose_colmask`` (I, 12) marks the pose columns that can be
+    free (the gauge image pins its 6 pose columns, not its velocity)."""
+
+    def __init__(self, poses, extr, intr, readout, poses_unfixed=None,
+                 extr_unfixed=None, intr_unfixed=None,
+                 readout_unfixed=None, intr_colmask=None,
+                 pose_colmask=None):
+        self.readout = readout                      # (C, 1)
+        self.readout_unfixed = (
+            readout_unfixed if readout_unfixed is not None
+            else np.ones(readout.shape[0], dtype=bool))
+        self.pose_colmask = (np.asarray(pose_colmask, dtype=bool)
+                             if pose_colmask is not None
+                             else np.ones(poses.shape, dtype=bool))
+        super().__init__(poses, extr, intr, poses_unfixed, extr_unfixed,
+                         intr_unfixed, intr_colmask=intr_colmask)
+
+    def base_full(self) -> np.ndarray:
+        return np.concatenate(
+            [self.intr.ravel(), self.extr.ravel(), self.poses.ravel(),
+             self.readout.ravel()])
+
+    def unfixed_full(self) -> np.ndarray:
+        return np.concatenate([
+            self._intr_unfixed_flat(),
+            np.repeat(self.extr_unfixed, 6),
+            np.repeat(self.poses_unfixed, 12) & self.pose_colmask.ravel(),
+            self.readout_unfixed])
+
+    def return_bundle_primitives(self, params):
+        full = self.base_full()
+        full[self.unfixed_full()] = params
+        n_c = self.intr.shape[0]
+        n_p = self.poses.shape[0]
+        ie, ee = self.intr_width * n_c, (self.intr_width + 6) * n_c
+        pe = ee + 12 * n_p
+        self.intr[:] = full[:ie].reshape(n_c, self.intr_width)
+        self.extr[:] = full[ie:ee].reshape(n_c, 6)
+        self.poses[:] = full[ee:pe].reshape(n_p, 12)
+        self.readout[:] = full[pe:].reshape(n_c, 1)
+        return self.intr, self.extr, self.poses, self.readout
+
+
+class RSTemplateBundleHandler(TemplateBundleHandler):
+    """Rolling-shutter template calibration (JAX ``handlers.py:702-800``):
+    the target-pose BA with a constant-velocity within-frame motion model.
+    Each image has 12 parameters [pose | velocity], each camera a readout
+    duration, and a detection on row v reprojects through the pose sampled
+    at ``tau = readout * (v/H - 1/2)``.
+
+    Within one capture only the products ``readout_c * velocity_i`` are
+    observable, so the reference camera's (``ref_cam``) readout is pinned
+    to ``options["rolling_shutter"]`` (True pins 1.0: the other readouts
+    then come out relative to it). The gauge image (``fixed_pose``) pins
+    its 6 pose columns; its velocity stays free. A static capture leaves
+    the velocity and readout block unobservable (damping holds it at the
+    seed).
+
+    It runs on the structured backend's forward-mode route
+    (``structured.make_block_grams``): the generic and scipy backends, the
+    fleet and the uncertainty refuse the chain, as the JAX package's do."""
+
+    def __init__(self, camset, target, detection, fixed_params=None,
+                 options=None, missing_poses=None):
+        from pycamset_tpu_torch.optim.blocks import RSPoseVel, RSTemplateTime
+        super().__init__(camset, target, detection, fixed_params, options,
+                         missing_poses)
+        rs_opt = self.problem_opts.get("rolling_shutter", True)
+        self.ref_readout = 1.0 if rs_opt is True else float(rs_opt)
+        sup = self.bundlePrimitive
+        n_cams = sup.intr.shape[0]
+        n_poses = sup.poses.shape[0]
+        poses12 = np.zeros((n_poses, 12))
+        poses12[:, :6] = sup.poses
+        readout = np.full((n_cams, 1), self.ref_readout)
+        readout_unfixed = np.ones(n_cams, dtype=bool)
+        readout_unfixed[int(self.problem_opts.get("ref_cam", 0))] = False
+        # the gauge image pins only its POSE columns; its velocity is free
+        poses_unfixed = sup.poses_unfixed.copy()
+        pose_colmask = np.ones((n_poses, 12), dtype=bool)
+        if self.problem_opts.get("fixed_pose") is not None:
+            fp = int(self.problem_opts["fixed_pose"])
+            poses_unfixed[fp] = True
+            pose_colmask[fp, :6] = False
+        self.bundlePrimitive = RSBundlePrimitive(
+            poses12, sup.extr, sup.intr, readout,
+            poses_unfixed=poses_unfixed, extr_unfixed=sup.extr_unfixed,
+            intr_unfixed=sup.intr_unfixed,
+            readout_unfixed=readout_unfixed,
+            intr_colmask=sup.intr_colmask, pose_colmask=pose_colmask)
+        # per-camera image heights for the normalised-row aux channel
+        self._heights = np.array(
+            [float(np.asarray(camset[n].res).reshape(-1)[1])
+             for n in self.cam_names])
+        self.op_fun = OptimFunction(
+            [self._proj_block(), Extrinsic3D(), RSPoseVel(),
+             RSTemplateTime()])
+
+    def aux_table(self, dd: np.ndarray) -> np.ndarray:
+        """(N, 1) normalised-row channel v/H - 1/2 of the RS chain."""
+        cam = dd[:, 0].astype(int)
+        v = dd[:, -1]
+        return (v / self._heights[cam] - 0.5)[:, None]
+
+    def get_bundle_adjustment_inputs(self, x, make_points: bool = False):
+        proj, extr, poses12, _readout = (
+            self.bundlePrimitive.return_bundle_primitives(x))
+        if make_points:
+            im_points = np.empty((len(poses12), *self.point_data.shape))
+            for idx, pose in enumerate(poses12):
+                t = gu.make_4x4h_tform(pose[:3], pose[3:6])
+                im_points[idx] = gu.h_tform(
+                    self.point_data.reshape(-1, 3),
+                    t).reshape(self.point_data.shape)
+            return np.reshape(im_points, (len(poses12), -1, 3))
+        return proj, extr, poses12
+
+    def get_camset(self, x, return_pose: bool = False):
+        new_cams = _clone_camset(self.camset)
+        proj, extr, poses12, _ro = (
+            self.bundlePrimitive.return_bundle_primitives(x))
+        _write_cams(new_cams, self.cam_names, proj, extr,
+                    camera_models=self.camera_models, het=self.is_het)
+        if not return_pose:
+            return new_cams
+        ps = np.array([gu.make_4x4h_tform(p[:3], p[3:6])[:3, :4].reshape(-1)
+                       for p in poses12])
+        return new_cams, ps
+
+    def get_readouts(self, x) -> dict:
+        """Per-camera readout estimates (frame units relative to the pinned
+        reference readout)."""
+        _p, _e, _ps, readout = (
+            self.bundlePrimitive.return_bundle_primitives(x))
+        return {str(n): float(r) for n, r in
+                zip(self.cam_names, readout.ravel())}
+
+    def get_velocities(self, x) -> np.ndarray:
+        """(I, 6) within-frame target velocities (per reference-readout
+        frame units)."""
+        _p, _e, poses12, _r = (
+            self.bundlePrimitive.return_bundle_primitives(x))
+        return poses12[:, 6:].copy()
 
 
 # ------------------------------------------------------------------ self-cal

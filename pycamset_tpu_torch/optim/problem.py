@@ -134,7 +134,8 @@ class MixedProblem(BAProblem):
         return make_mixed_ops(group_onehot(self.group_of_key, self.n_groups))
 
     def key_operands(self, pieces, colmask):
-        return pack_c_axis(self.onehot(pieces.key), pieces, colmask)
+        return pack_c_axis(self.onehot(pieces.key), pieces, colmask,
+                           self.widths)
 
 
 @dataclass

@@ -180,34 +180,61 @@ def build_grouped_detection_arrays(op_fun: OptimFunction, struct: ParamStruct,
                                   mask=mask, n_real=n)
 
 
-def _residual_and_jacobian(op_fun: OptimFunction):
-    """rj(local (..., L), tpl (..., 3), uv (..., 2)) -> (r (..., 2),
-    dr/dlocal (..., 2, L)), the parameter rows broadcasting against the
-    points (a grouped row (U, 1, L) over its (U, M) detections).
+def _jacobian_columns(fn, x: torch.Tensor):
+    """(fn(x), dfn/dx (..., out, n)): one ``torch.func.jvp`` a coordinate of
+    x's last axis (n of them), vmapped over the n basis directions of the
+    whole batch. Forward mode, as the JAX package's ``jacfwd`` under
+    ``vmap``. A per-detection ``jacfwd`` under ``vmap`` gives the same
+    numbers in float64, but in float32 PyTorch (2.13) carries the tangent
+    of a 0-dim intermediate times a Python float in float64, and the
+    Jacobian comes out float64; batched, no intermediate is 0-dim."""
+    n = x.shape[-1]
+    basis = torch.eye(n, dtype=x.dtype, device=x.device)
+    basis = basis.reshape(n, *([1] * (x.dim() - 1)), n)
 
-    Forward mode, as the JAX package's ``jacfwd`` under ``vmap``: one
-    ``torch.func.jvp`` a local parameter, vmapped over the L basis
-    directions of the whole batch. A per-detection ``jacfwd`` under
-    ``vmap`` gives the same numbers in float64, but in float32 PyTorch
-    (2.13) carries the tangent of a 0-dim intermediate times a Python float
-    in float64, and the Jacobian comes out float64; batched, no
-    intermediate is 0-dim."""
+    def column(t):
+        return torch.func.jvp(fn, (x,), (t.expand_as(x),))
+
+    return vmap(column, out_dims=(None, -1))(basis)
+
+
+def _residual_and_jacobian(op_fun: OptimFunction, by_group: bool = False):
+    """The residual and its forward-mode Jacobian (``_jacobian_columns``).
+
+    rj(local (..., L), tpl (..., 3), uv (..., 2)[, aux (..., A)]) ->
+    (r (..., 2), dr/dlocal (..., 2, L)), the parameter rows broadcasting
+    against the points (a grouped row (U, 1, L) over its (U, M)
+    detections). ``aux`` is read by a chain with aux channels
+    (``aux_width > 0``) only.
+
+    ``by_group``: rj(params (list: one tensor a parameter group, as
+    ``make_group_point_fn`` takes them), tpl, uv[, aux]) -> (r, [dr/dparams
+    of each group (..., 2, n_g)]): one vmapped jvp a group, so that work
+    the other groups' parameters alone decide (a block's camera rotation
+    under the pose's directions) is not carried along its directions."""
+    aux_w = op_fun.aux_width
+    if by_group:
+        point_fn = op_fun.make_group_point_fn()
+
+        def rj_groups(params, tpl, uv, aux=None):
+            params = list(params)
+            r, jacs = None, []
+            for gi, p in enumerate(params):
+                def res(x, gi=gi):
+                    return point_fn(params[:gi] + [x] + params[gi + 1:], tpl,
+                                    aux) - uv
+                r, jac = _jacobian_columns(res, p)
+                jacs.append(jac)
+            return r, jacs
+
+        return rj_groups
     point_fn = op_fun.make_point_fn()
 
-    def rj(local, tpl, uv):
-        n_loc = local.shape[-1]
-
-        def res(lp):
-            return point_fn(lp, tpl) - uv
-
-        basis = torch.eye(n_loc, dtype=local.dtype, device=local.device)
-        basis = basis.reshape(n_loc, *([1] * (local.dim() - 1)), n_loc)
-
-        def column(t):
-            return torch.func.jvp(res, (local,), (t.expand_as(local),))
-
-        r, jac = vmap(column, out_dims=(None, -1))(basis)
-        return r, jac
+    def rj(local, tpl, uv, aux=None):
+        if aux_w:
+            return _jacobian_columns(lambda lp: point_fn(lp, tpl, aux) - uv,
+                                     local)
+        return _jacobian_columns(lambda lp: point_fn(lp, tpl) - uv, local)
 
     return rj
 

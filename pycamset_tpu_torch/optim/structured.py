@@ -56,8 +56,16 @@ for its selector row. A Brown rig of several widths runs the widest
 model's chain, on its kernels, with the pinned columns in the column
 masks.
 
-Not ported yet: the heterogeneous grouped chain. It raises
-``NotImplementedError`` naming the ROADMAP item.
+Every other chain that ``chain_widths`` accepts (the rolling-shutter chain
+``Projection + Extrinsic3D + RSPoseVel + RSTemplateTime``, whose observation
+grid carries the normalised image row after [u, v]; the heterogeneous
+grouped chain; a chain with a block of the caller's own) takes the
+forward-mode route, ``make_block_grams``: the JAX package's ``jax.jacfwd``
+route, here ``torch.func.jvp`` over the chain, contracted into the same
+per-block grams by library products. The JAX package computes it in XLA,
+outside any Pallas kernel, so no hand-written kernel serves it here either.
+``chain_family`` names the closed form of a chain, or None: it selects, it
+does not refuse.
 """
 from __future__ import annotations
 
@@ -151,46 +159,33 @@ def is_het_chain(op_fun: OptimFunction) -> bool:
         "ProjectionHet")
 
 
-def chain_family(op_fun: OptimFunction, widths: GroupWidths) -> str:
-    """'template', 'selfcal', 'freepoint' or 'grouped', by the chain's
-    block names (as the JAX package dispatches, any camera model's
-    projection block first); any other chain raises ``UnsupportedChain``.
-    Every family takes the five camera widths (``TEMPLATE_WIDTHS``);
-    another width raises ``NotImplementedError``. A ``ProjectionHet``
-    chain of the template, self-cal or free-point family is served at its
-    selector row's width (by the plain closed form, ``make_het_grams``:
-    no kernel in either package); its grouped chain raises
-    ``NotImplementedError``."""
+def chain_family(op_fun: OptimFunction, widths: GroupWidths) -> str | None:
+    """The closed form that serves a chain: 'template', 'selfcal',
+    'freepoint' or 'grouped', by the chain's block names (any camera
+    model's projection block first) and widths, as the JAX package's
+    ``analytic_block_rj_for_chain`` selects; or None, and the chain takes
+    the forward-mode route (``make_block_grams``). The kernels (A-F) serve
+    the five camera widths (``TEMPLATE_WIDTHS``); a ``ProjectionHet``
+    chain of the template, self-cal or free-point family takes its plain
+    closed form (``make_het_grams``), its grouped chain the forward-mode
+    route (the JAX package has no closed form for it). A chain reaches a
+    kernel by its names, never by its width alone."""
     names = tuple(type(bk).__name__ for bk in op_fun.blocks)
     het = is_het_chain(op_fun)
     key = (("Projection",) + names[1:]
            if names and (names[0] in _PROJS or het) else names)
     family, bc = _FAMILIES.get(key, (None, None))
     if family is None or (widths.b, widths.c) != bc:
-        raise UnsupportedChain(
-            f"chain {names} is not ported yet: the structured path serves "
-            f"the chains {tuple(_FAMILIES)} only (the mixed chain, with "
-            f"GroupRigidTform3d + FreePoint, goes through "
-            f"structured_mixed.make_mixed_structured_neq)")
+        return None
     if het:
-        if family == "grouped":
-            raise NotImplementedError(
-                "a heterogeneous rig (fisheye with Brown cameras) on the "
-                "grouped chain is not ported yet (ROADMAP Queue A item 7)")
-        return family
-    # Kernels A-F serve the five camera models
-    if widths.a not in TEMPLATE_WIDTHS:
-        raise NotImplementedError(
-            f"camera width a={widths.a} is not ported yet on the {family} "
-            f"chain (ROADMAP Queue A item 7); it serves a in "
-            f"{TEMPLATE_WIDTHS}")
-    return family
+        return None if family == "grouped" else family
+    return family if widths.a in TEMPLATE_WIDTHS else None
 
 
 @dataclass
 class BlockArrays:
     """Dense (B, K) observation grid. B = n_cams * n_ims row-major blocks."""
-    uv: np.ndarray        # (B, K, 2)
+    uv: np.ndarray        # (B, K, 2 + A): [u, v | aux channels]
     mask: np.ndarray      # (B, K)
     n_cams: int
     n_ims: int
@@ -203,17 +198,26 @@ class BlockArrays:
 
 
 def build_block_arrays(dd: np.ndarray, n_cams: int, n_ims: int,
-                       n_keys: int, k_pad_multiple: int = 128) -> BlockArrays:
-    """Pack a flat detection table [cam, im, key, u, v] onto the block grid."""
+                       n_keys: int, k_pad_multiple: int = 128,
+                       aux: np.ndarray | None = None) -> BlockArrays:
+    """Pack a flat detection table [cam, im, key, u, v] onto the block grid.
+
+    :param aux: optional (N, A) per-detection auxiliary channels (the
+        rolling-shutter normalised row), stored as trailing columns of the
+        uv grid ((B, K, 2 + A)); the forward-mode builder splits them off.
+    """
     k_pad = _round_up(max(n_keys, 1), k_pad_multiple)
     b = n_cams * n_ims
-    uv = np.zeros((b, k_pad, 2))
+    width = 2 + (aux.shape[1] if aux is not None else 0)
+    uv = np.zeros((b, k_pad, width))
     mask = np.zeros((b, k_pad))
     cam = dd[:, 0].astype(int)
     im = dd[:, 1].astype(int)
     key = dd[:, 2].astype(int)
     blk = cam * n_ims + im
-    uv[blk, key] = dd[:, 3:5]
+    uv[blk, key, :2] = dd[:, 3:5]
+    if aux is not None:
+        uv[blk, key, 2:] = aux
     mask[blk, key] = 1.0
     return BlockArrays(uv=uv, mask=mask, n_cams=n_cams, n_ims=n_ims,
                        n_keys=n_keys, n_real=dd.shape[0])
@@ -345,12 +349,14 @@ def resolve_block_grams(op_fun: OptimFunction, widths: GroupWidths,
     make_block_grams): Kernel A's (template), Kernel D's (self-cal; the
     free-point wrapper over it for the pose-free chain) or Kernel F's
     (grouped) builder, which launches the CUDA kernel for CUDA tensors and
-    runs its plain twin for CPU tensors. The port has no separate plain
-    builder: the twin is the one plain path. A ``ProjectionHet`` chain
-    takes ``make_het_grams`` on either device (no kernel: the JAX
-    package runs it in XLA, ``make_block_grams``)."""
+    runs its plain twin for CPU tensors. A ``ProjectionHet`` chain of
+    those families takes ``make_het_grams``, and every other chain the
+    forward-mode route ``make_block_grams``, on either device (no kernel:
+    the JAX package runs both in XLA)."""
     kw = dict(loss=loss, f_scale=f_scale, loss_semantics=loss_semantics)
     family = chain_family(op_fun, widths)
+    if family is None:
+        return make_block_grams(op_fun, widths, **kw)
     if is_het_chain(op_fun):
         return make_het_grams(family, op_fun.blocks[0].brown_n_dist, **kw)
     if family in ("selfcal", "freepoint"):
@@ -373,7 +379,8 @@ def resolve_fused_grams(op_fun: OptimFunction, widths: GroupWidths,
     padding rule declines it: the template image axis would pad past 5% at
     tile 16, the self-cal and free-point ones past 25% at their tile
     (``selfcal_pad_tile``), the grouped one past 25% at tile 8; and for a
-    ``ProjectionHet`` chain, which has no fused kernel in either package.
+    chain no kernel family serves (``chain_family`` None, or a
+    ``ProjectionHet`` chain), which has no fused kernel in either package.
 
     :return: (family, grams) or None.
         "template": grams(cam_b, im_b, tpl, uv, mask, cmask_b, imask_b)
@@ -389,7 +396,7 @@ def resolve_fused_grams(op_fun: OptimFunction, widths: GroupWidths,
     """
     kw = dict(loss=loss, f_scale=f_scale, loss_semantics=loss_semantics)
     family = chain_family(op_fun, widths)
-    if is_het_chain(op_fun):
+    if family is None or is_het_chain(op_fun):
         return None
     if family == "grouped":
         from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
@@ -414,25 +421,18 @@ def resolve_fused_grams(op_fun: OptimFunction, widths: GroupWidths,
         widths, n_cams, n_ims, **kw)
 
 
-def make_het_grams(family: str, brown_n_dist: int, loss: str = "linear",
-                   f_scale: float = 1.0, loss_semantics: str = "component"):
-    """Per-BLOCK gram builder of a heterogeneous rig's chain (fisheye
-    beside Brown cameras, ``ProjectionHet``): the closed form
-    ``analytic.block_rj_het`` of the ``family`` ("template", "selfcal" or
-    "freepoint") and its weighted grams in plain torch, on either device.
-    Neither package has a kernel for it (the JAX package's
-    ``resolve_block_grams`` gives it ``make_block_grams``: XLA); this is
-    the chain's route, chosen by its block names, not a fallback. Same
-    contract as ``resolve_block_grams``' builders: the 10-tuple of
-    ``make_block_grams``. No host read: a captured LM step holds it."""
-    from pycamset_tpu_torch.optim.analytic import block_rj_het
+def _grams_of_rj(rj, loss: str, f_scale: float, loss_semantics: str):
+    """The per-block 10-tuple of ``make_block_grams``' contract from a
+    block residual-and-Jacobian function ``rj(cam_b, im_b, keyp, tpl, uv)
+    -> (r (B,K,2), Jc (B,K,2,a), Ji (B,K,2,b), Jk (B,K,2,c))``: the rows
+    IRLS-weighted, the columns masked, the grams contracted in plain torch
+    (``cuda_selfcal_grams.weighted_grams``). No host read: a captured LM
+    step holds it."""
     from pycamset_tpu_torch.optim.cuda_selfcal_grams import weighted_grams
-    rj = block_rj_het(family, brown_n_dist)
 
     def grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b, kmask):
-        pts = tpl if family == "template" else keyp
         g, wck_b, wik_b, hkk, gk = weighted_grams(
-            *rj(cam_b, im_b, pts, uv), mask, cmask_b, imask_b, kmask,
+            *rj(cam_b, im_b, keyp, tpl, uv), mask, cmask_b, imask_b, kmask,
             loss, f_scale, loss_semantics)
         a = cam_b.shape[1]
         w = g.shape[-1] - 1
@@ -440,6 +440,75 @@ def make_het_grams(family: str, brown_n_dist: int, loss: str = "linear",
                 wik_b, g[:, :a, w], g[:, a:w, w], gk, torch.sum(g[:, w, w]))
 
     return grams
+
+
+def make_block_grams(op_fun: OptimFunction, widths: GroupWidths,
+                     loss: str = "linear", f_scale: float = 1.0,
+                     loss_semantics: str = "component"):
+    """Per-BLOCK gram builder of the forward-mode route: the JAX package's
+    ``make_block_grams`` on a chain with no closed form (its ``jax.jacfwd``
+    branch, ``pycamset_tpu/optim/structured.py:324-376``), for any chain
+    that ``chain_widths`` accepts, groups in any link order.
+
+    Each parameter group's rows come from its link's piece, as views that
+    broadcast: a camera or pose group (B, 1, n), a key group (1, K, n), so a
+    block's own work (its camera's rotation) is done once a block. The chain
+    is evaluated and differentiated in forward mode, group by group
+    (``residuals._residual_and_jacobian(by_group=True)``: one
+    ``torch.func.jvp`` a parameter, vmapped over the group's basis
+    directions), the groups' Jacobians joined into the camera, pose and key
+    pieces, and the grams contracted by library products. A chain with aux
+    channels (``aux_width``) reads them from uv's trailing columns ([u, v |
+    aux]). Every intermediate carries its group's directions, so one
+    evaluation holds several times the chain's own working set.
+
+    :return: grams(cam_b, im_b, keyp, tpl, uv, mask, cmask_b, imask_b,
+        kmask) -> (gcc_b, gii_b, wci_b, hkk, wck_b, wik_b, gc_b, gi_b,
+        gk, cost), the contract of ``resolve_block_grams``' builders."""
+    from pycamset_tpu_torch.optim.losses import check_loss_semantics
+    from pycamset_tpu_torch.optim.residuals import _residual_and_jacobian
+    check_loss_semantics(loss_semantics)
+    chain_rj = _residual_and_jacobian(op_fun, by_group=True)
+    aux_w = op_fun.aux_width
+    # each group's (link, first column in its link's piece, width)
+    links = (key_type.PER_CAM, key_type.PER_IMG, key_type.PER_KEY)
+    plan, cursor = [], dict.fromkeys(links, 0)
+    for g in op_fun.groups:
+        link = key_type.PER_KEY if g.link == key_type.PER_GROUP else g.link
+        plan.append((link, cursor[link], g.n))
+        cursor[link] += g.n
+
+    def rj(cam_b, im_b, keyp, tpl, uv):
+        rows = {key_type.PER_CAM: cam_b[:, None], key_type.PER_IMG:
+                im_b[:, None], key_type.PER_KEY: keyp[None]}
+        params = [rows[link][..., s:s + n] for link, s, n in plan]
+        r, jacs = chain_rj(params, tpl, uv[..., :2],
+                           uv[..., 2:2 + aux_w] if aux_w else None)
+        return (r, *(torch.cat([j for j, (lk, _, _) in zip(jacs, plan)
+                                if lk == link]
+                               or [r.new_zeros(r.shape + (0,))], dim=-1)
+                     for link in links))
+
+    return _grams_of_rj(rj, loss, f_scale, loss_semantics)
+
+
+def make_het_grams(family: str, brown_n_dist: int, loss: str = "linear",
+                   f_scale: float = 1.0, loss_semantics: str = "component"):
+    """Per-BLOCK gram builder of a heterogeneous rig's chain (fisheye
+    beside Brown cameras, ``ProjectionHet``): the closed form
+    ``analytic.block_rj_het`` of the ``family`` ("template", "selfcal" or
+    "freepoint") and its weighted grams in plain torch, on either device.
+    Neither package has a kernel for it (the JAX package's
+    ``resolve_block_grams`` gives it ``make_block_grams``' closed form:
+    XLA); this is the chain's route, chosen by its block names, not a
+    fallback. Same contract as ``resolve_block_grams``' builders."""
+    from pycamset_tpu_torch.optim.analytic import block_rj_het
+    het_rj = block_rj_het(family, brown_n_dist)
+
+    def rj(cam_b, im_b, keyp, tpl, uv):
+        return het_rj(cam_b, im_b, tpl if family == "template" else keyp, uv)
+
+    return _grams_of_rj(rj, loss, f_scale, loss_semantics)
 
 
 def _block_params(pieces: ParamPieces, colmask: ParamPieces, n_cams: int,

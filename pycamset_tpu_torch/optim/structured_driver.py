@@ -46,6 +46,19 @@ chain (PER_KEY free points AND PER_GROUP relative poses) has its own,
 ``group_of_key`` as the JAX package does: ``UnsupportedChain`` where the
 handler has no groups, ``ValueError`` for an index out of range.
 
+Any other chain that ``chain_widths`` accepts (the rolling-shutter
+handler's ``Projection + Extrinsic3D + RSPoseVel + RSTemplateTime``, the
+heterogeneous grouped chain, a chain with a block of the caller's own)
+takes the same function and the forward-mode route
+(``structured.make_block_grams``), as the JAX package takes its jacfwd
+route; ``UnsupportedChain`` comes from ``chain_widths`` only, where the
+JAX package raises it. A handler with an ``aux_table(dd)`` (the
+rolling-shutter handler: the normalised image row of each detection) has
+its aux channels stored after [u, v] on the grid and passed to the
+detections' residuals. Any mixed chain that ``mixed_chain_widths`` accepts
+takes the mixed builder: Kernels E and F for the canonical chain, the
+forward-mode route for the others.
+
 The reduced solver follows ``problem_opts["reduced_solver"]``: "auto" (the
 default) takes the JAX package's rule (``structured.auto_reduced_solver``:
 dense up to 4096 reduced dimensions, CG above: a dome of 274 or more Brown
@@ -66,11 +79,11 @@ from pycamset_tpu_torch.optim.blocks import key_type
 from pycamset_tpu_torch.optim.problem import BAProblem, MixedProblem
 from pycamset_tpu_torch.optim.structured import (
     ParamPieces, UnsupportedChain, auto_reduced_solver, build_block_arrays,
-    chain_family, chain_widths, merge_pieces_to_full, pad_pieces_to_grid,
+    chain_widths, merge_pieces_to_full, pad_pieces_to_grid,
     pad_template_table, split_full_params)
 from pycamset_tpu_torch.optim.structured_mixed import (
-    MixedPieces, merge_mixed_to_full, mixed_chain_widths, pad_mixed_pieces,
-    split_full_mixed)
+    MixedPieces, c_axis_layout, merge_mixed_to_full, mixed_chain_widths,
+    pad_mixed_pieces, split_full_mixed)
 
 
 def build_colmask_pieces(base_full, unfixed, op_fun, struct, widths,
@@ -168,20 +181,24 @@ def merge_structured(op_fun, struct, n_cams: int, n_ims: int, n_keys: int,
 
 
 def detection_residuals(op_fun, dd: np.ndarray, tpl: torch.Tensor,
-                        key_rows, device, dtype):
+                        key_rows, device, dtype,
+                        aux: np.ndarray | None = None):
     """fn(pieces) -> (n_real, 2) residuals of the detection table ``dd``
     in row order, float64 numpy, computed on ``device``. ``key_rows(p,
     key)``: the c-axis rows of the detections' keys (the key piece's rows,
-    or a grouped or mixed chain's expansion)."""
+    or a grouped or mixed chain's expansion). ``aux``: the (N, A) aux
+    channels of a chain that reads them (the handler's ``aux_table``)."""
     point_fn = op_fun.make_point_fn()
     assemble = op_fun.make_local_assembler()
     cols = torch.as_tensor(dd[:, :3].astype(np.int64), device=device)
     uv_rows = torch.as_tensor(dd[:, 3:5], dtype=dtype, device=device)
+    extra = (() if not op_fun.aux_width else
+             (torch.as_tensor(aux, dtype=dtype, device=device),))
 
     def residuals(p) -> np.ndarray:
         cam, im, key = cols.unbind(1)
         local = assemble(p.cam[cam], p.im[im], key_rows(p, key))
-        r = point_fn(local, tpl[key]) - uv_rows
+        r = point_fn(local, tpl[key], *extra) - uv_rows
         return r.double().cpu().numpy()
 
     return residuals
@@ -209,7 +226,6 @@ def build_structured_problem(param_handler, dtype=None, device="cuda",
     dtype = dtype or default_device_dtype(device)
     op_fun = param_handler.op_fun
     widths = chain_widths(op_fun)
-    chain_family(op_fun, widths)
     opts = param_handler.problem_opts
     reduced_solver = opts.get("reduced_solver", "auto")
 
@@ -225,8 +241,10 @@ def build_structured_problem(param_handler, dtype=None, device="cuda",
         reduced_solver = auto_reduced_solver(widths, n_cams, n_ims_grid)
 
     dd = param_handler.get_detection_data(flatten=True)
+    # per-detection aux channels (rolling shutter: the normalised row)
+    aux = getattr(param_handler, "aux_table", lambda rows: None)(dd)
     blocks = build_block_arrays(dd, n_cams, n_ims_grid, n_keys,
-                                k_pad_multiple=k_pad_multiple)
+                                k_pad_multiple=k_pad_multiple, aux=aux)
     k_pad = blocks.uv.shape[1]
     # PER_GROUP-keyed chains (multi-target): the key axis carries one
     # parameter row per GROUP, expanded onto the key grid by group_of_key
@@ -279,10 +297,10 @@ def build_structured_problem(param_handler, dtype=None, device="cuda",
         gok_t = torch.as_tensor(gok_pad, device=device)
         residuals = detection_residuals(
             op_fun, dd, tpl, lambda p, key: p.key[gok_t[key]], device,
-            dtype)
+            dtype, aux)
     else:
         residuals = detection_residuals(
-            op_fun, dd, tpl, lambda p, key: p.key[key], device, dtype)
+            op_fun, dd, tpl, lambda p, key: p.key[key], device, dtype, aux)
 
     def residual_fn(x_free: np.ndarray) -> np.ndarray:
         return residuals(solve_fn.pieces(x_free))
@@ -357,12 +375,12 @@ def build_mixed_structured_problem(param_handler, dtype=None, device="cuda",
                                       n_keys, n_groups),
         base_full, free_idx)
 
-    # the c-axis [group pose | point] of each detection's key, chain order
-    # (the one layout the mixed path serves: structured_mixed)
+    # the chain-ordered c-axis (points and group poses) of each
+    # detection's key
     gok_t = torch.as_tensor(gok_pad, device=device)
+    pack = c_axis_layout(widths)[0]
     residuals = detection_residuals(
-        op_fun, dd, tpl,
-        lambda p, key: torch.cat([p.grp[gok_t[key]], p.key[key]], dim=1),
+        op_fun, dd, tpl, lambda p, key: pack(p.key[key], p.grp[gok_t[key]]),
         device, dtype)
 
     def residual_fn(x_free: np.ndarray) -> np.ndarray:

@@ -418,6 +418,12 @@ def capture(body, stream) -> tuple[torch.cuda.CUDAGraph, float]:
     try:
         with torch.cuda.graph(graph, stream=stream):
             body()
+    except RuntimeError as err:
+        # never run the problem quietly uncaptured: the caller asked for
+        # the graph (solve(graph=False) is the uncaptured reference)
+        raise RuntimeError(
+            f"the LM step could not be captured as a CUDA graph: {err}"
+        ) from err
     finally:
         if enabled:
             gc.enable()

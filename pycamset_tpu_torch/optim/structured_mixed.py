@@ -27,10 +27,13 @@ The grams come from Kernel E (fused reduction) or Kernel F (per block),
 ``optim/cuda_mixed_grams.py``, chosen by the JAX package's padding rule
 (tile 8, at most 25% padding); on the CPU their plain twins.
 
-The port serves the mixed chain at any of the five camera models' projection
-blocks (a in ``TEMPLATE_WIDTHS``, as the JAX package's kernels do), with
-the c-axis contiguous (group columns 0-5, point columns 6-8), the one layout
-every shipped chain has; other chains raise.
+The canonical chain at any of the five camera models' projection blocks (a
+in ``TEMPLATE_WIDTHS``, the c-axis [group pose 6 | point 3]) takes Kernels
+E and F; every other chain that ``mixed_chain_widths`` accepts (the
+heterogeneous rig's ``ProjectionHet`` in front, a block of the caller's
+own, another c-axis order) takes the forward-mode route,
+``structured.make_block_grams``, as the JAX package's ``resolve_mixed_grams``
+gives it ``make_block_grams``.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ from pycamset_tpu_torch.optim.structured import (
     _PROJS, MIXED_PAD_FRAC, MIXED_PAD_TILE, GroupWidths, UnsupportedChain,
     _block_params, _normalized_inv, _psd_solve, block_diag_dense,
     device_onehot, fused_tile_pad_ok, group_onehot, group_reduce,
-    sum_block_grams)
+    make_block_grams, sum_block_grams)
 
 MIXED_CHAIN = ("Projection", "Extrinsic3D", "RigidTform3d",
                "GroupRigidTform3d", "FreePoint")
@@ -181,38 +184,35 @@ def merge_mixed_to_full(p: MixedPieces, op_fun: OptimFunction, struct,
     return out
 
 
-def _check_mixed_chain(op_fun: OptimFunction, widths: MixedWidths):
-    """Raise unless the chain is the served mixed chain: any camera model's
+def kernel_chain(op_fun: OptimFunction, widths: MixedWidths) -> bool:
+    """Whether Kernels E and F serve the mixed chain: any camera model's
     projection block (``structured._PROJS``) in front of
-    ``MIXED_CHAIN[1:]``, c-axis [group pose 6 | point 3], a camera width in
-    ``TEMPLATE_WIDTHS``."""
+    ``MIXED_CHAIN[1:]``, the c-axis [group pose 6 | point 3], a camera
+    width in ``TEMPLATE_WIDTHS`` (the JAX package's Pallas rule). Any other
+    mixed chain takes the forward-mode route."""
     names = tuple(type(bk).__name__ for bk in op_fun.blocks)
-    if (not names or names[0] not in _PROJS or names[1:] != MIXED_CHAIN[1:]
-            or widths.b != 6 or (widths.ck, widths.cg) != (3, 6)
-            or widths.grp_cols != (0, 1, 2, 3, 4, 5)
-            or widths.key_cols != (6, 7, 8)):
-        raise UnsupportedChain(
-            f"chain {names} is not ported yet: the mixed path serves "
-            f"{MIXED_CHAIN} (any camera model's projection block first) "
-            f"with the c-axis [group pose 6 | point 3] only")
-    if widths.a not in TEMPLATE_WIDTHS:
-        raise NotImplementedError(
-            f"camera width a={widths.a} is not ported yet (ROADMAP Queue A "
-            f"item 7); the mixed path serves a in {TEMPLATE_WIDTHS}")
+    return bool(names and names[0] in _PROJS
+                and names[1:] == MIXED_CHAIN[1:] and widths.b == 6
+                and (widths.ck, widths.cg) == (3, 6)
+                and widths.grp_cols == (0, 1, 2, 3, 4, 5)
+                and widths.key_cols == (6, 7, 8)
+                and widths.a in TEMPLATE_WIDTHS)
 
 
 def resolve_mixed_grams(op_fun: OptimFunction, widths: MixedWidths,
                         loss: str = "linear", f_scale: float = 1.0,
                         loss_semantics: str = "component"):
-    """The per-block gram builder for the mixed chain: Kernel F's (the
-    10-tuple contract of make_block_grams), which runs its plain twin for
-    CPU tensors."""
+    """The per-block gram builder of a mixed chain (the 10-tuple contract
+    of make_block_grams): Kernel F's for the canonical chain
+    (``kernel_chain``), which runs its plain twin for CPU tensors; the
+    forward-mode route (``structured.make_block_grams``) for any other."""
+    kw = dict(loss=loss, f_scale=f_scale, loss_semantics=loss_semantics)
+    gw = GroupWidths(widths.a, widths.b, widths.c)
+    if not kernel_chain(op_fun, widths):
+        return make_block_grams(op_fun, gw, **kw)
     from pycamset_tpu_torch.optim.cuda_mixed_grams import (
         make_cuda_mixed_grams)
-    _check_mixed_chain(op_fun, widths)
-    return make_cuda_mixed_grams(
-        GroupWidths(widths.a, widths.b, widths.c), loss=loss,
-        f_scale=f_scale, loss_semantics=loss_semantics)
+    return make_cuda_mixed_grams(gw, **kw)
 
 
 def resolve_mixed_grams_fused(op_fun: OptimFunction, widths: MixedWidths,
@@ -220,24 +220,68 @@ def resolve_mixed_grams_fused(op_fun: OptimFunction, widths: MixedWidths,
                               f_scale: float = 1.0,
                               loss_semantics: str = "component"):
     """The FUSED-reduction mixed gram builder (Kernel E's), or None when
-    the JAX package's rule declines it: the image axis would pad past 25%
-    at tile 8."""
+    the chain is not Kernel E's (``kernel_chain``) or the JAX package's
+    rule declines it: the image axis would pad past 25% at tile 8."""
+    if not (kernel_chain(op_fun, widths)
+            and fused_tile_pad_ok(n_ims, MIXED_PAD_TILE, MIXED_PAD_FRAC)):
+        return None
     from pycamset_tpu_torch.optim.cuda_mixed_grams import (
         make_cuda_mixed_grams_fused)
-    _check_mixed_chain(op_fun, widths)
-    if not fused_tile_pad_ok(n_ims, MIXED_PAD_TILE, MIXED_PAD_FRAC):
-        return None
     return make_cuda_mixed_grams_fused(
         GroupWidths(widths.a, widths.b, widths.c), n_cams, n_ims, loss=loss,
         f_scale=f_scale, loss_semantics=loss_semantics, with_key_cols=True)
 
 
-def pack_c_axis(oh, pieces: MixedPieces, colmask: MixedPieces):
+def _runs(cols) -> list:
+    """Column indices as a list of (start, stop) runs of consecutive
+    indices, in order."""
+    runs = []
+    for c in cols:
+        if runs and runs[-1][1] == c:
+            runs[-1][1] = c + 1
+        else:
+            runs.append([c, c + 1])
+    return [tuple(r) for r in runs]
+
+
+def c_axis_layout(widths: MixedWidths):
+    """(pack, take_key, take_grp) of a mixed chain's chain-ordered c-axis,
+    all by slices (no index tensor: a captured LM step makes no
+    host-to-device copy). ``pack(key_rows, grp_rows)`` interleaves the
+    PER_KEY and (expanded) PER_GROUP columns into chain order;
+    ``take_key(t, dim)`` / ``take_grp(t, dim)`` gather one kind's columns
+    of a c-axis tensor along ``dim``."""
+    key_runs, grp_runs = _runs(widths.key_cols), _runs(widths.grp_cols)
+    order = sorted([(s, e, "key") for s, e in key_runs]
+                   + [(s, e, "grp") for s, e in grp_runs])
+
+    def pack(key_rows, grp_rows):
+        parts, offs = [], {"key": 0, "grp": 0}
+        for s, e, kind in order:
+            src = key_rows if kind == "key" else grp_rows
+            parts.append(src[:, offs[kind]:offs[kind] + e - s])
+            offs[kind] += e - s
+        return torch.cat(parts, dim=1)
+
+    def taker(runs):
+        def take(t, dim):
+            if len(runs) == 1:                  # a view, no copy
+                return t.narrow(dim, runs[0][0], runs[0][1] - runs[0][0])
+            return torch.cat([t.narrow(dim, s, e - s) for s, e in runs],
+                             dim=dim)
+        return take
+
+    return pack, taker(key_runs), taker(grp_runs)
+
+
+def pack_c_axis(oh, pieces: MixedPieces, colmask: MixedPieces,
+                widths: MixedWidths):
     """(keyp, kmask) on the key grid, the gram builders' operands: the
-    c-axis [group pose (expanded per key by the (K, G) one-hot) | point],
-    chain order."""
-    return (torch.cat([oh @ pieces.grp, pieces.key], dim=1),
-            torch.cat([oh @ colmask.grp, colmask.key], dim=1))
+    chain-ordered c-axis of the point columns and the group pose columns
+    (expanded per key by the (K, G) one-hot)."""
+    pack = c_axis_layout(widths)[0]
+    return (pack(pieces.key, oh @ pieces.grp),
+            pack(colmask.key, oh @ colmask.grp))
 
 
 def make_mixed_structured_neq(op_fun: OptimFunction, widths: MixedWidths,
@@ -261,24 +305,23 @@ def make_mixed_structured_neq(op_fun: OptimFunction, widths: MixedWidths,
         loss_semantics=loss_semantics)
     onehot_np = group_onehot(group_of_key, n_groups)
     onehot = device_onehot(onehot_np)
-    sl_g, sl_k = slice(0, widths.cg), slice(widths.cg, widths.c)
+    _, tk, tg = c_axis_layout(widths)
 
     def split_c_axis(oh, hcc, hii, hkk_f, wci, wck_f, wik_f, gc, gi, gk_f,
                      cost):
         # the c-axis split into per-key and (one-hot-reduced) per-group
         hgg, wcg, wig, gg = group_reduce(
-            oh, hkk_f[:, sl_g, sl_g], wck_f[..., sl_g], wik_f[..., sl_g],
-            gk_f[:, sl_g])
+            oh, tg(tg(hkk_f, 1), 2), tg(wck_f, 3), tg(wik_f, 3), tg(gk_f, 1))
         return MixedNormalEq(
-            hcc, hii, hkk_f[:, sl_k, sl_k], hgg, wci, wck_f[..., sl_k],
-            wik_f[..., sl_k], wcg, wig, hkk_f[:, sl_k, sl_g], gc, gi,
-            gk_f[:, sl_k], gg, cost)
+            hcc, hii, tk(tk(hkk_f, 1), 2), hgg, wci, tk(wck_f, 3),
+            tk(wik_f, 3), wcg, wig, tg(tk(hkk_f, 1), 2), gc, gi, tk(gk_f, 1),
+            gg, cost)
 
     def neq(pieces: MixedPieces, uv, mask, tpl, colmask: MixedPieces):
         cam_b, im_b, cmask_b, imask_b = _block_params(pieces, colmask,
                                                       n_cams, n_ims)
         oh = onehot(uv.dtype, uv.device)
-        keyp, kmask = pack_c_axis(oh, pieces, colmask)
+        keyp, kmask = pack_c_axis(oh, pieces, colmask, widths)
         if fused is not None:
             return split_c_axis(oh, *fused(cam_b, im_b, keyp, tpl, uv, mask,
                                            cmask_b, imask_b, kmask))

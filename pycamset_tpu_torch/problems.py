@@ -26,7 +26,9 @@ multi-target and template-handler makers take ``camera_model`` (the rig
   the true relative pose of group 1 is the identity (``GROUP_TRUE``).
 - Grouped multi-target template: the chain Projection + Extrinsic3D +
   RigidTform3d + GroupTemplatePoints on the same rig, start and gauge (the
-  points come from the template).
+  points come from the template). Both multi-target makers take a
+  per-camera model list: fisheye beside Brown cameras runs
+  ``ProjectionHet`` (the forward-mode route).
 
 - The user path (``template_handler``): the template problem's rig as a
   CameraSet, a TargetDetection and a ``TemplateBundleHandler`` seeded at
@@ -55,6 +57,10 @@ multi-target and template-handler makers take ``camera_model`` (the rig
   rigs as handlers (``fleet_handlers``) of the template, self-calibration,
   grouped and mixed chains, and wand rigs of the free-point chain, for
   ``run_fleet_bundle_adjustment``.
+- Rolling shutter (``rs_handler``): the template rig's cameras and grid,
+  a capture of a target moving within each frame
+  (``utils.synthetic.rs_capture``), each camera's readout drawn in [0.5,
+  0.9], as an ``RSTemplateBundleHandler`` seeded without PnP.
 - Multi-target handlers (``multi_target_handler``): the mixed and grouped
   problems' rig as the port's ``TwoTargetSelfCalibrator`` /
   ``TwoTargetCalibrator`` (``examples/extend_param_handler.py``), the
@@ -112,6 +118,12 @@ GROUP_TRUE = np.zeros((2, 6))
 # each camera model's distortion width
 DIST_WIDTH = {"fisheye": 4, "standard": 5, "rational": 8, "thin_prism": 12,
               "tilted": 14}
+# rs_handler's capture: the cameras' readouts (frame units) are drawn in
+# this range, the target moves within a frame at the JAX package's test
+# velocities (rad and m a frame), and the detections carry this noise (px)
+RS_READOUT_RANGE = (0.5, 0.9)
+RS_VEL_ROT, RS_VEL_TR = 0.15, 0.08
+RS_NOISE_PX = 0.3
 
 
 def template_colmask(n_cams, n_ims, widths, k_pad, dtype=np.float64):
@@ -269,6 +281,121 @@ def selfcal_stage_handler(solved, template_handler: TemplateBundleHandler,
         options={**template_handler.problem_opts, **(options or {})})
     handler.set_from_templated_camset(solved)
     return handler
+
+
+def rs_handler(n_cams: int, n_ims: int, grid: int = 19):
+    """A rolling-shutter capture of ``standard_problem``'s rig: its
+    cameras (1600 x 1200, standard model) and its grid (20 mm pitch, 384
+    keys on the grid at 19), each camera's readout drawn in
+    ``RS_READOUT_RANGE`` (frame units, ``default_rng(303)``), the target
+    moving within each frame (``utils.synthetic.rs_capture``: velocities
+    ``RS_VEL_ROT`` / ``RS_VEL_TR``, the JAX package's test scale,
+    ``RS_NOISE_PX`` px). The handler is an ``RSTemplateBundleHandler``
+    (camera 0 the reference, its readout pinned at the truth:
+    ``rolling_shutter`` = ``readouts[0]``) seeded through
+    ``set_initial_params``: the true intrinsics, extrinsics and poses moved
+    as ``perturbed_start`` moves the bench's start, every velocity zero and
+    every readout at the reference's, as the handler's own seed leaves
+    them. No PnP, no OpenCV.
+
+    :return: (handler, truth): truth holds ``readouts`` (C,), ``poses``
+        and ``vels`` (I, 6), ``dd`` and the rig's ``intr`` / ``extr``."""
+    from pycamset_tpu_torch.optim.handlers import RSTemplateBundleHandler
+    from pycamset_tpu_torch.utils.synthetic import rs_capture
+    rig = make_synthetic_rig(n_cams=n_cams, n_ims=1, grid=grid,
+                             visibility=0.85, noise_px=0.3, seed=0)
+    cams, names = _rig_cams(rig["intr"], [make_4x4h_tform(e[:3], e[3:])
+                                          for e in rig["extr"]])
+    readouts = np.random.default_rng(303).uniform(*RS_READOUT_RANGE,
+                                                  size=n_cams)
+    dd, poses, vels = rs_capture(cams, rig["template"], n_ims, readouts,
+                                 vel_rot=RS_VEL_ROT, vel_tr=RS_VEL_TR,
+                                 noise=RS_NOISE_PX, seed=0)
+    handler = RSTemplateBundleHandler(
+        cams, FreePointTarget(rig["template"].reshape(1, -1, 3)),
+        detection_from_numpy(names, dd, n_ims),
+        options={"outliers": "n", "verbosity": 0,
+                 "rolling_shutter": float(readouts[0])})
+    prim = handler.bundlePrimitive
+    start = perturbed_start(
+        {**rig, "n_ims": n_ims, "poses": poses},
+        OptimFunction([Projection(), Extrinsic3D(), TemplatePoints()]
+                      ).param_struct(n_cams, n_ims, rig["n_keys"]))
+    ie, ee = 9 * n_cams, 15 * n_cams
+    prim.intr[:] = start[:ie].reshape(n_cams, 9)
+    prim.extr[:] = start[ie:ee].reshape(n_cams, 6)
+    prim.poses[:, :6] = start[ee:].reshape(n_ims, 6)
+    handler.set_initial_params(prim.base_full()[prim.unfixed_full()])
+    return handler, {"readouts": readouts, "poses": poses, "vels": vels,
+                     "dd": dd, "intr": rig["intr"], "extr": rig["extr"]}
+
+
+def skew_block(blocks=None, xp=torch):
+    """A block of the caller's own for the structured backend's
+    forward-mode route: a per-camera pixel skew u' = u + s v (one PER_CAM
+    parameter). No camera model has a skew term, so s is identifiable
+    beside the intrinsics, and no closed form serves a chain that holds it.
+
+    :param blocks: the blocks module whose ``FunctionBlock`` it subclasses
+        (default the port's ``optim.blocks``); with the JAX package's
+        module and ``xp=jax.numpy`` it is that package's twin.
+    :param xp: the array namespace ``compute`` runs in."""
+    if blocks is None:
+        from pycamset_tpu_torch.optim import blocks
+
+    class Skew(blocks.FunctionBlock):
+        num_inp = 2
+        num_out = 2
+        params = blocks.ParamSpec(blocks.key_type.PER_CAM, 1)
+
+        def compute(self, params, inp):
+            return xp.stack((inp[..., 0] + params[..., 0] * inp[..., 1],
+                             inp[..., 1]), -1)
+
+    return Skew()
+
+
+class SkewPrimitive:
+    """A template primitive with a leading per-camera skew group: the full
+    vector [skew 1/cam | intr | extr | poses], every skew free."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.skew = np.zeros(inner.intr.shape[0])
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def base_full(self):
+        return np.concatenate([self.skew, self.inner.base_full()])
+
+    def unfixed_full(self):
+        return np.concatenate([np.ones(self.skew.size, dtype=bool),
+                               self.inner.unfixed_full()])
+
+    def return_bundle_primitives(self, params):
+        n = self.skew.size
+        self.skew[:] = params[:n]
+        return self.inner.return_bundle_primitives(params[n:])
+
+
+def with_skew(handler, x0, blocks=None, xp=torch):
+    """``handler`` (a template handler of either package, its start
+    ``x0``) with ``skew_block(blocks, xp)`` in front of its chain and a
+    ``SkewPrimitive``, every skew started at 0; returns it."""
+    handler.bundlePrimitive = SkewPrimitive(handler.bundlePrimitive)
+    handler.op_fun = type(handler.op_fun)([skew_block(blocks, xp),
+                                           *handler.op_fun.blocks])
+    handler.set_initial_params(np.concatenate(
+        [np.zeros(handler.bundlePrimitive.skew.size), x0]))
+    return handler
+
+
+def skew_handler(n_cams: int, n_ims: int):
+    """``template_handler(n_cams, n_ims)`` with the skew block in front
+    (``with_skew``)."""
+    h, _ = template_handler(n_cams, n_ims)
+    return with_skew(h, h.get_initial_params())
 
 
 def _tied_option(shared_intrinsics) -> dict:
@@ -445,39 +572,61 @@ def selfcal_problem(n_cams: int, n_ims: int, device="cuda",
                      colmask, loss, f_scale, loss_semantics)
 
 
-def camera_width(camera_model: str) -> int:
-    """a: a camera model's intrinsics plus the 6 extrinsic columns."""
-    return _projection_block(camera_model).params.n + 6
-
-
-def mixed_colmask_groups(n_cams, n_ims, n_keys, k_pad, dtype=np.float64,
-                         camera_model: str = "standard"):
+def mixed_colmask_groups(n_cams, n_ims, n_keys, k_pad, intr_mask,
+                         dtype=np.float64):
     """(colmask, group_of_key) of the bench mixed 2-target problem, host
-    numpy, at ``camera_model``'s camera width: the grid halves as the two
-    targets, group 0's relative pose fixed, pad keys frozen, the self-cal
-    point gauge, pose 0 fixed."""
-    a = camera_width(camera_model)
+    numpy: the cameras' free intrinsic columns ``intr_mask`` (C, w) and
+    every extrinsic column, the grid halves as the two targets, group 0's
+    relative pose fixed, pad keys frozen, the self-cal point gauge, pose 0
+    fixed."""
+    a = intr_mask.shape[1] + 6
     gok = np.zeros(k_pad, np.int64)
     gok[:n_keys] = np.arange(n_keys) >= n_keys // 2
     _, cm_im, kmask = selfcal_colmask(n_cams, n_ims, n_keys, k_pad,
                                       GroupWidths(a, 6, 3), dtype)
     cm_grp = np.ones((2, 6), dtype=dtype)
     cm_grp[0] = 0.0
-    return MixedPieces(np.ones((n_cams, a), dtype=dtype), cm_im, kmask,
-                       cm_grp), gok
+    cam = np.concatenate([intr_mask, np.ones((n_cams, 6))], axis=1)
+    return MixedPieces(cam.astype(dtype), cm_im, kmask, cm_grp), gok
+
+
+def _rig_lenses(rig, n_cams: int, camera_model):
+    """(projection block, packed intrinsic rows, (C, w) 0/1 free-column
+    mask) of a synthetic rig's cameras: one model's block and rows, a
+    Brown rig of several widths at the widest model with the extra
+    columns pinned, or a heterogeneous rig's ``ProjectionHet`` with its
+    selector rows [sel | fx px fy py | dist slots] (as the handlers pack
+    them, ``handlers.parse_camera_models``)."""
+    from pycamset_tpu_torch.optim.handlers import (ProjectionHet,
+                                                   _brown_mix_colmask,
+                                                   _het_intr_colmask,
+                                                   _het_intr_row,
+                                                   _het_intr_width,
+                                                   parse_camera_models)
+    models, het, base = parse_camera_models(camera_model, range(n_cams))
+    intr = rig["intr"]
+    if het:
+        w = _het_intr_width(base)
+        rows = np.stack([_het_intr_row(m, i[:4], i[4:4 + DIST_WIDTH[m]], w)
+                         for m, i in zip(models, intr)])
+        return (ProjectionHet(base), rows,
+                _het_intr_colmask(models, w).astype(float))
+    cm = (_brown_mix_colmask(models, intr.shape[1]) if base
+          else np.ones(intr.shape, dtype=bool))
+    return _projection_block(base or models[0]), intr, cm.astype(float)
 
 
 def _multi_target_rig(n_cams, n_ims, grid, seed, k_pad_multiple,
-                      camera_model: str = "standard"):
+                      camera_model="standard"):
     rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
                              visibility=0.85, noise_px=0.3, seed=seed,
                              camera_model=camera_model)
     blocks = build_block_arrays(rig["dd"], n_cams, n_ims, rig["n_keys"],
                                 k_pad_multiple=k_pad_multiple)
+    proj, intr, intr_cm = _rig_lenses(rig, n_cams, camera_model)
     colmask, gok = mixed_colmask_groups(n_cams, n_ims, rig["n_keys"],
-                                        blocks.uv.shape[1],
-                                        camera_model=camera_model)
-    return rig, blocks, colmask, gok
+                                        blocks.uv.shape[1], intr_cm)
+    return {**rig, "intr": intr}, proj, blocks, colmask, gok
 
 
 def mixed_problem(n_cams: int, n_ims: int, device="cuda",
@@ -485,21 +634,22 @@ def mixed_problem(n_cams: int, n_ims: int, device="cuda",
                   k_pad_multiple: int = 128,
                   loss: str = "linear", f_scale: float = 1.0,
                   loss_semantics: str = "component",
-                  camera_model: str = "standard") -> MixedProblem:
+                  camera_model="standard") -> MixedProblem:
     """``bench.py::mixed_problem(n_cams, n_ims, grid, seed)`` on ``device``
     (dtype defaults to float64 on the CPU, float32 on CUDA); with
     ``camera_model`` the rig ``make_synthetic_rig`` makes for that model,
     through the model's projection block, at the same start (the true
-    intrinsics, group 1 at ``GROUP_START[1]``) and gauge."""
+    intrinsics, group 1 at ``GROUP_START[1]``) and gauge. A list of one
+    model a camera makes a mixed-model rig (``_rig_lenses``): fisheye
+    beside Brown cameras runs ``ProjectionHet``, the forward-mode route
+    (no kernel serves it)."""
     device = resolve_device(device)
     dtype = dtype or default_device_dtype(device)
-    rig, blocks, colmask, gok = _multi_target_rig(n_cams, n_ims, grid, seed,
-                                                  k_pad_multiple,
-                                                  camera_model)
+    rig, proj, blocks, colmask, gok = _multi_target_rig(
+        n_cams, n_ims, grid, seed, k_pad_multiple, camera_model)
     n_keys, k_pad = rig["n_keys"], blocks.uv.shape[1]
-    op_fun = OptimFunction([_projection_block(camera_model), Extrinsic3D(),
-                            RigidTform3d(), GroupRigidTform3d(),
-                            FreePoint()])
+    op_fun = OptimFunction([proj, Extrinsic3D(), RigidTform3d(),
+                            GroupRigidTform3d(), FreePoint()])
     key_pad = np.concatenate(
         [rig["template"], np.repeat(rig["template"][:1], k_pad - n_keys, 0)])
     x0 = mixed_pieces_from_numpy(
@@ -519,19 +669,19 @@ def grouped_problem(n_cams: int, n_ims: int, device="cuda",
                     k_pad_multiple: int = 128,
                     loss: str = "linear", f_scale: float = 1.0,
                     loss_semantics: str = "component",
-                    camera_model: str = "standard") -> BAProblem:
+                    camera_model="standard") -> BAProblem:
     """The grouped multi-target template problem: ``mixed_problem``'s rig,
     start and gauge with the points taken from the template (chain
     Projection + Extrinsic3D + RigidTform3d + GroupTemplatePoints), at
-    ``camera_model`` as ``mixed_problem`` takes it."""
+    ``camera_model`` as ``mixed_problem`` takes it (a list: a mixed-model
+    rig)."""
     device = resolve_device(device)
     dtype = dtype or default_device_dtype(device)
-    rig, blocks, colmask, gok = _multi_target_rig(n_cams, n_ims, grid, seed,
-                                                  k_pad_multiple,
-                                                  camera_model)
+    rig, proj, blocks, colmask, gok = _multi_target_rig(
+        n_cams, n_ims, grid, seed, k_pad_multiple, camera_model)
     n_keys, k_pad = rig["n_keys"], blocks.uv.shape[1]
-    op_fun = OptimFunction([_projection_block(camera_model), Extrinsic3D(),
-                            RigidTform3d(), GroupTemplatePoints()])
+    op_fun = OptimFunction([proj, Extrinsic3D(), RigidTform3d(),
+                            GroupTemplatePoints()])
     x0 = pieces_from_numpy(np.concatenate([rig["intr"], rig["extr"]], 1),
                            rig["poses"], GROUP_START, device, dtype)
     uv, mask = blocks.as_device(device, dtype)

@@ -42,6 +42,9 @@ _REFERENCE_MODULE_FOR = {
     "SelfBundleHandler": "pyCamSet.optimisation.standard_bundle_handler",
     "FreePointBundleHandler": "pyCamSet.optimisation.free_point_handler",
     "FreePointTarget": "pyCamSet.optimisation.free_point_handler",
+    # pyCamSet has no rolling-shutter handler: the JAX package's module names
+    # it, so that package loads the file as its own
+    "RSTemplateBundleHandler": "pycamset_tpu.optim.handlers",
 }
 # namespaces whose classes load as the port's own, by class name
 _OWN_NAMESPACES = ("pyCamSet.", "pycamset_tpu.", "pycamset_tpu_torch.")
@@ -55,11 +58,13 @@ def _port_classes() -> dict:
     from pycamset_tpu_torch.models.detections import (ImageDetection,
                                                       TargetDetection)
     from pycamset_tpu_torch.optim.handlers import (FreePointBundleHandler,
+                                                   RSTemplateBundleHandler,
                                                    SelfBundleHandler,
                                                    TemplateBundleHandler)
     return {cls.__name__: cls for cls in (
         Camera, CameraSet, TargetDetection, ImageDetection, FreePointTarget,
-        TemplateBundleHandler, SelfBundleHandler, FreePointBundleHandler)}
+        TemplateBundleHandler, SelfBundleHandler, FreePointBundleHandler,
+        RSTemplateBundleHandler)}
 
 
 def instance_obj(class_module: str, class_name: str, **kwargs):
@@ -72,8 +77,7 @@ def instance_obj(class_module: str, class_name: str, **kwargs):
         if cls is None:
             raise NotImplementedError(
                 f"{class_module}.{class_name} is not ported yet (ROADMAP "
-                f"Queue A item 3: the ChArUco and Ccube targets; item 7: the "
-                f"rolling-shutter handler)")
+                f"Queue A item 3: the ChArUco and Ccube targets)")
     else:
         cls = getattr(importlib.import_module(class_module), class_name)
     return cls(**kwargs)

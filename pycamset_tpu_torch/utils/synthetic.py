@@ -6,11 +6,14 @@ seed gives the same rig (``dd``, ``intr``, ``extr``, ``poses``,
 
 Builds a ground-truth multi-camera rig observing a planar grid target across
 many poses, with optional visibility dropout and pixel noise. The observation
-table matches the TargetDetection layout [cam, im, key, u, v].
+table matches the TargetDetection layout [cam, im, key, u, v]. ``rs_capture``
+makes a rolling-shutter capture of a rig (the JAX package's test
+generator, vectorised).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from pycamset_tpu_torch.utils.general_utils import make_4x4h_tform, ext_4x4_to_rod
 
@@ -215,3 +218,80 @@ def make_synthetic_rig(n_cams: int = 16, n_ims: int = 100, grid: int = 19,
         "noise_px": noise_px, "camera_model": camera_model,
         "camera_models": models,
     }
+
+
+def _rodrigues_batch(rvecs: np.ndarray) -> np.ndarray:
+    """Axis-angle (..., 3) -> rotation matrices (..., 3, 3) (numpy)."""
+    theta = np.linalg.norm(rvecs, axis=-1)[..., None, None]
+    k = rvecs / np.where(theta[..., 0] > 0, theta[..., 0], 1.0)
+    kx = np.zeros(rvecs.shape + (3,))
+    kx[..., 0, 1], kx[..., 0, 2] = -k[..., 2], k[..., 1]
+    kx[..., 1, 0], kx[..., 1, 2] = k[..., 2], -k[..., 0]
+    kx[..., 2, 0], kx[..., 2, 1] = -k[..., 1], k[..., 0]
+    return (np.cos(theta) * np.eye(3)
+            + (1.0 - np.cos(theta)) * k[..., :, None] * k[..., None, :]
+            + np.sin(theta) * kx)
+
+
+def rs_capture(cams, tpl: np.ndarray, n_ims: int, readouts,
+               vel_rot: float = 0.15, vel_tr: float = 0.08,
+               noise: float = 0.0, seed: int = 0):
+    """Rolling-shutter observations of a target moving with constant
+    velocity WITHIN each frame: a detection on row v sees the pose
+    ``pose + vel * tau`` at ``tau = readout * (v/H - 1/2)``, the row found
+    by fixed-point iteration. The draws and the rules are those of the JAX
+    package's test generator (``tests/test_rolling_shutter.py::
+    _rs_capture``: poses 0.3 rad / 0.1 m, pose 0 the identity, velocities
+    ``vel_rot`` / ``vel_tr``, a point kept where z > 0.1 at the frame's
+    pose and its pixel inside the image, then the noise, camera-major),
+    but each fixed-point step moves every point of a camera's images at
+    once (one projection of I x K points), where the JAX generator
+    projects all K points for each point.
+
+    :param cams: a CameraSet (its cameras project on the host CPU).
+    :param tpl: (K, 3) target points. :param readouts: (C,) per camera, in
+        frame units.
+    :return: (dd (N, 5) [cam, im, key, u, v], poses (I, 6), vels (I, 6)).
+    """
+    rng = np.random.default_rng(seed)
+    n_keys = tpl.shape[0]
+    poses = np.zeros((n_ims, 6))
+    poses[:, :3] = rng.normal(size=(n_ims, 3)) * 0.3
+    poses[:, 3:] = rng.normal(size=(n_ims, 3)) * 0.1
+    poses[0] = 0.0  # gauge pose
+    vels = np.zeros((n_ims, 6))
+    vels[:, :3] = rng.normal(size=(n_ims, 3)) * vel_rot
+    vels[:, 3:] = rng.normal(size=(n_ims, 3)) * vel_tr
+
+    def project(cam, p6):
+        """Each point through its own pose: p6 (I, K, 6) -> uv, z (I, K)."""
+        world = (np.einsum("ikab,kb->ika", _rodrigues_batch(p6[..., :3]),
+                           tpl) + p6[..., 3:])
+        z = (world @ cam.extrinsic[:3, :3].T + cam.extrinsic[:3, 3])[..., 2]
+        uv = cam.project_points(world.reshape(-1, 3), device="cpu",
+                                dtype=torch.float64)
+        return np.asarray(uv).reshape(n_ims, n_keys, 2), z
+
+    rows = []
+    for c, name in enumerate(cams.get_names()):
+        cam = cams[name]
+        w, h = (float(x) for x in np.asarray(cam.res).reshape(-1)[:2])
+        uv, z = project(cam, np.repeat(poses[:, None], n_keys, axis=1))
+        live = np.ones(n_ims, dtype=bool)     # images still iterating
+        for _ in range(8):
+            tau = readouts[c] * (uv[..., 1] / h - 0.5)
+            moved = poses[:, None] + vels[:, None] * tau[..., None]
+            new = project(cam, moved)[0]
+            done = np.abs(new - uv).max(axis=(1, 2)) < 1e-11
+            uv = np.where(live[:, None, None], new, uv)
+            live &= ~done
+            if not live.any():
+                break
+        for i in range(n_ims):
+            ok = ((z[i] > 0.1) & (uv[i, :, 0] > 0) & (uv[i, :, 0] < w)
+                  & (uv[i, :, 1] > 0) & (uv[i, :, 1] < h))
+            kk = np.flatnonzero(ok)
+            obs = uv[i, kk] + rng.normal(size=(kk.size, 2)) * noise
+            rows.append(np.column_stack([
+                np.full(kk.size, c), np.full(kk.size, i), kk, obs]))
+    return np.concatenate(rows), poses, vels

@@ -31,6 +31,9 @@ from pycamset_tpu_torch.optim.handlers import _projection_block
 from test_torch_camera_model_mixed_grams import (N_GROUPS, WIDTHS,
                                                  _jax_chain, _rig)
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 # (model, loss, image count): 8 images the fused family (E), 6 the
 # per-block one (F); the grouped chain takes at each model the family the
 # mixed one does not

@@ -26,10 +26,14 @@ Brown models' solves are compared at a budget of 15 evaluations
 """
 import numpy as np
 import pytest
+import torch
 
 from pycamset_tpu_torch.problems import grouped_problem, mixed_problem
 from test_torch_camera_model_mixed_grams import WIDTHS
 from tools.brown_trajectory_neq import jax_lm, jax_multi_target
+
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
 
 # the Brown models' budget where the packages' solves are compared (see
 # the module docstring)

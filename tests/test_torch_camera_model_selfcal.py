@@ -67,6 +67,9 @@ from test_torch_camera_model_selfcal_grams import _block_inputs
 from test_torch_freepoint import _jax_wand_handler, _port_of
 from test_torch_selfcal_handlers import _carry
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 MODELS = ["rational", "thin_prism", "tilted", "fisheye"]
 INTR_W = {"rational": 12, "thin_prism": 16, "tilted": 18, "fisheye": 8}
 # the Brown models' self-cal budget where the packages are compared (see

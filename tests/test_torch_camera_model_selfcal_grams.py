@@ -31,6 +31,9 @@ from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
 from pycamset_tpu_torch.optim import structured as ts
 from test_torch_camera_model_grams import PROJ, WIDTHS, _interp_shim
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 NAMES = ["gcc_b", "gii_b", "wci_b", "hkk", "wck_b", "wik_b", "gc_b", "gi_b",
          "gk", "cost"]
 FUSED_NAMES = ["hcc", "hii", "hkk", "wci", "wck", "wik", "gc", "gi", "gk",

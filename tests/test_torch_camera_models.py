@@ -60,6 +60,9 @@ from pycamset_tpu_torch.optim.structured_driver import (
     build_structured_problem)
 from pycamset_tpu_torch.utils.saving import load_CameraSet
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 MODELS = ["rational", "thin_prism", "tilted", "fisheye"]
 INTR_W = {"rational": 12, "thin_prism": 16, "tilted": 18, "fisheye": 8}
 BUDGET = 25

@@ -39,6 +39,9 @@ from pycamset_tpu_torch.from_jax import pieces_from_numpy
 from pycamset_tpu_torch.optim import structured as ts
 from pycamset_tpu_torch.optim import structured_lm as tlm
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 F64 = torch.float64
 TIGHT = dict(cg_tol=1e-12, cg_maxiter=2000)
 

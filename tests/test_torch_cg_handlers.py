@@ -17,6 +17,7 @@ The JAX package's own handlers (``tests/test_fleet.py``'s template rig,
 """
 import numpy as np
 import pytest
+import torch
 
 from pycamset_tpu.optim.driver import run_bundle_adjustment as jax_rba
 from pycamset_tpu.optim.fleet import run_fleet_bundle_adjustment as jax_fleet
@@ -27,6 +28,9 @@ from pycamset_tpu_torch.optim.fleet import run_fleet_bundle_adjustment
 from test_fleet import _selfcal_handler, _template_handler
 from test_torch_fleet_handlers import _jax_handler, _port_handler
 from test_torch_freepoint import _jax_wand_handler, _port_of
+
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
 
 
 def _rel(got, ref):

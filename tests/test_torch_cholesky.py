@@ -32,6 +32,9 @@ from pycamset_tpu_torch.optim import structured as ts
 from pycamset_tpu_torch.problems import selfcal_problem, standard_problem
 from test_pallas_cholesky import _normalized_spd
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 CASES = [(64, 1e3, 1e-4), (128, 1e2, 1e-4), (200, 1e4, 1e-3),
          (384, 1e6, 2e-2)]
 

@@ -43,6 +43,9 @@ from pycamset_tpu_torch.optim.cuda_mixed_grams import MIXED_CHUNK
 from pycamset_tpu_torch.optim.cuda_selfcal_grams import (SELFCAL_CHUNK,
                                                          SELFCAL_CHUNK_D)
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 TOL = 1e-4
 LOSS_CASES = [("linear", "component"), ("huber", "component"),
               ("huber", "observation"), ("cauchy", "component"),

@@ -35,6 +35,9 @@ from pycamset_tpu_torch.optim.structured_lm import (slm_init_batch,
                                                     slm_result_batch,
                                                     slm_run_batch)
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 N_RIGS, N_CAMS, N_IMS, GRID = 6, 3, 16, 5
 
 

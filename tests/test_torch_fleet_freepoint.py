@@ -38,6 +38,9 @@ from pycamset_tpu_torch.optim.fleet import (FleetMismatch,
 from test_torch_fleet_handlers import _assert_same_rigs
 from test_torch_freepoint import _port_of
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 WAND_SEEDS = (31, 37, 41)
 
 

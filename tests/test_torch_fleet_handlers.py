@@ -38,6 +38,9 @@ from test_fleet import (_grouped_handler, _mixed_handler, _selfcal_handler,
                         _template_handler)
 from test_torch_cuda import _mixed_inputs, _rig_batch, _selfcal_inputs
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 SEEDS = {"template": (5, 6), "selfcal": (29, 31), "grouped": (11, 13),
          "mixed": (17, 19)}
 

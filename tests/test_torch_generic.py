@@ -39,6 +39,9 @@ from pycamset_tpu_torch.optim.driver import (build_solver,
 from pycamset_tpu_torch.optim.lm import lm_solve, lm_solve_masked
 from test_torch_fleet_handlers import _port_handler
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 LOSSES = [("linear", "component"), ("huber", "component"),
           ("huber", "observation"), ("cauchy", "component"),
           ("cauchy", "observation")]

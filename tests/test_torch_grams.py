@@ -24,6 +24,9 @@ from pycamset_tpu_torch.from_jax import tensor_from_numpy
 from pycamset_tpu_torch.optim import cuda_grams as cg
 from pycamset_tpu_torch.optim import structured as ts
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 NAMES = ["gcc_b", "gii_b", "wci_b", "hkk", "wck_b", "wik_b", "gc_b", "gi_b",
          "gk", "cost"]
 LOSS_CASES = [("linear", "component"), ("huber", "component"),

@@ -36,6 +36,9 @@ from pycamset_tpu_torch.optim.structured_lm import (SLMGraph, _leaves,
 from pycamset_tpu_torch.problems import (grouped_problem, mixed_problem,
                                          selfcal_problem, standard_problem)
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 N_CAMS, N_IMS, GRID = 4, 6, 5
 
 

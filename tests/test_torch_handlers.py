@@ -21,7 +21,8 @@ the same inputs):
 - every part of the JAX path the port does not have yet raises, naming its
   ROADMAP item (per-camera camera_model maps are ported: their parity is
   ``tests/test_torch_het_rig.py``'s); the two cases that met the generic
-  and scipy backends' refusal are held to the JAX package;
+  and scipy backends' refusal, and the one that met the rolling-shutter
+  option's, are held to the JAX package;
   ``CameraSet.multi_cam_triangulate`` and
   ``project_points_to_all_cams`` match the JAX package's within 1e-9;
 - a non-minimal camera's sensor map, asked for on the CPU, matches the JAX
@@ -32,6 +33,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from pycamset_tpu.optim.driver import run_bundle_adjustment as jax_rba
 from pycamset_tpu.utils.saving import load_CameraSet as jax_load
@@ -44,6 +46,9 @@ from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
 from pycamset_tpu_torch.problems import standard_problem, template_handler
 from pycamset_tpu_torch.utils.saving import load_CameraSet
 from test_fleet import _template_handler
+
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
 
 # the image made an outlier (its detections moved by 40 px noise)
 BAD_IM = 3
@@ -182,10 +187,6 @@ def test_run_stereo_calibration_saves_what_it_returns(tmp_path):
 def _refuse(what):
     """Drive the port's user path into one part it does not have yet."""
     handler, _ = template_handler(3, 5, grid=6)
-    if what == "rolling_shutter":
-        run_stereo_calibration(handler.camset, handler.detection,
-                               handler.target, save=False, device="cpu",
-                               problem_options={"rolling_shutter": True})
     if what in ("mixed chain", "grouped chain"):
         from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, FreePoint,
                                                      GroupRigidTform3d,
@@ -242,6 +243,33 @@ def _item8_parity(what):
     assert str(ref.value) in str(got.value)
 
 
+def _rs_parity():
+    """The rolling-shutter option (item 7's handler, ported) given to both
+    packages' ``run_stereo_calibration`` on a rolling-shutter capture:
+    each builds its RS handler, PnP-seeds it and solves it alike."""
+    from pycamset_tpu.calibration.camera_calibrator import (
+        run_stereo_calibration as jax_rsc)
+    from pycamset_tpu.models.detections import TargetDetection as JDetection
+    from pycamset_tpu.optim.handlers import FreePointTarget as JTarget
+    from pycamset_tpu_torch.from_jax import detection_from_numpy
+    from test_torch_rolling_shutter import OPTS, _capture, _port_cams
+    cams, tpl, dd, _p, _v = _capture(6, 0.1, 2)
+    names = list(cams.get_names())
+    opts = {**OPTS, "rolling_shutter": True}
+    ref = jax_rsc(cams, JDetection(cam_names=names, data=dd),
+                  JTarget(tpl.reshape(1, -1, 3)), save=False,
+                  problem_options=dict(opts))
+    got = run_stereo_calibration(
+        _port_cams(cams), detection_from_numpy(names, dd, 6),
+        ph.FreePointTarget(tpl.reshape(1, -1, 3)), save=False,
+        problem_options=dict(opts), device="cpu")
+    assert type(got.calibration_handler) is ph.RSTemplateBundleHandler
+    assert got.calibration_handler.ref_readout == 1.0
+    x_ref = np.asarray(ref.calibration_params)
+    assert np.abs(got.calibration_params - x_ref).max() <= 1e-7 * np.abs(
+        x_ref).max()
+
+
 @pytest.mark.parametrize("what,item", [
     ("backend scipy", "item 8"), ("backend sharded", "item 11"),
     ("rolling_shutter", "item 7"),
@@ -250,12 +278,16 @@ def _item8_parity(what):
 def test_refusals_name_their_roadmap_item(what, item):
     """The parts of the JAX path the port has not got raise, naming their
     ROADMAP item. The two "item 8" cases (the scipy backend, and "auto"'s
-    generic fallback on a chain neither structured builder takes) are
-    ported: they now do what the JAX package does with the same input. A
-    multi-target chain on a handler without groups reaches the generic
-    backend, whose gather rows need the handler's group_of_key."""
+    generic fallback on a chain neither structured builder takes) and the
+    "item 7" one (the rolling-shutter option) are ported: they now do what
+    the JAX package does with the same input. A multi-target chain on a
+    handler without groups reaches the generic backend, whose gather rows
+    need the handler's group_of_key."""
     if item == "item 8":
         _item8_parity(what)
+        return
+    if item == "item 7":
+        _rs_parity()
         return
     error = ValueError if item == "group_of_key" else NotImplementedError
     with pytest.raises(error, match=item):

@@ -26,8 +26,9 @@ at 20 evaluations they part by 2e-9); the self-calibration stage on a het
 rig; the cameras at their own family's width; ``.camset`` files in both
 packages; ``multi_cam_triangulate`` on a het set within 1e-9; and the
 refusals (the tied backend ``UnsupportedChain``, as the JAX package's; the
-two-target handlers, the handler fleet and the het grouped chain
-``NotImplementedError``).
+two-target handlers and the handler fleet ``NotImplementedError``); the het
+grouped chain selects no closed form (the forward-mode route,
+``tests/test_torch_forward_route.py``).
 """
 import functools
 
@@ -61,6 +62,9 @@ from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
 from pycamset_tpu_torch.optim.structured_driver import (
     build_structured_problem)
 from pycamset_tpu_torch.utils.saving import load_CameraSet
+
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
 
 DIST_W = {"fisheye": 4, "standard": 5, "rational": 8, "thin_prism": 12,
           "tilted": 14}
@@ -485,5 +489,8 @@ def test_refusals():
     from pycamset_tpu_torch.optim.chain import OptimFunction
     grouped = OptimFunction([ProjectionHet("standard"), Extrinsic3D(),
                              RigidTform3d(), GroupTemplatePoints()])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ts.chain_family(grouped, ts.chain_widths(grouped))
+    # the het grouped chain has no closed form in either package: it takes
+    # the forward-mode route (tests/test_torch_forward_route.py)
+    assert ts.chain_family(grouped, ts.chain_widths(grouped)) is None
+    assert ts.resolve_fused_grams(grouped, ts.chain_widths(grouped), 3,
+                                  8) is None

@@ -51,6 +51,9 @@ from pycamset_tpu_torch.problems import (GROUP_START, grouped_problem,
                                          standard_problem)
 from test_torch_grams import _interp_shim
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 NAMES = ["gcc_b", "gii_b", "wci_b", "hkk", "wck_b", "wik_b", "gc_b", "gi_b",
          "gk", "cost"]
 FUSED_NAMES = ["hcc", "hii", "hkk", "wci", "wck", "wik", "gc", "gi", "gk",
@@ -287,29 +290,36 @@ def test_mixed_widths_and_chains_checked():
         ts.chain_widths(top)
     _, tgrp = _op_funs(False)
     assert ts.chain_family(tgrp, ts.chain_widths(tgrp)) == "grouped"
-    # the grouped family takes the five camera widths, the selector row's
-    # a = 16 none
+    # the grouped family's kernels take the five camera widths; at any
+    # other width (the selector row's a = 16) the chain has no kernel and
+    # takes the forward-mode route
     for a in (14, 15, 18, 22, 24):
         assert ts.chain_family(tgrp, ts.GroupWidths(a, 6, 6)) == "grouped"
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        ts.chain_family(tgrp, ts.GroupWidths(16, 6, 6))
+    assert ts.chain_family(tgrp, ts.GroupWidths(16, 6, 6)) is None
     with pytest.raises(tm.UnsupportedChain, match="BOTH"):
         tm.mixed_chain_widths(tgrp)
-    # a mixed chain whose c-axis is [point | group pose] is not served
+    # a mixed chain whose c-axis is [point | group pose] has no kernel: it
+    # takes the forward-mode route (the JAX package's make_block_grams),
+    # its c-axis packed and split by the chain's own layout
     flipped = TOptimFunction([tb.Projection(), tb.Extrinsic3D(),
                               tb.RigidTform3d(), tb.FreePoint(),
                               tb.GroupRigidTform3d()])
-    with pytest.raises(tm.UnsupportedChain, match="not ported yet"):
-        tm.resolve_mixed_grams(flipped, tm.mixed_chain_widths(flipped))
-    # the pose-free free-point chain is a structured family now; the
-    # structured path's refusal of a chain outside every family names the
-    # mixed path and no finished ROADMAP item
+    fw = tm.mixed_chain_widths(flipped)
+    assert (fw.key_cols, fw.grp_cols) == ((0, 1, 2), (3, 4, 5, 6, 7, 8))
+    assert not tm.kernel_chain(flipped, fw)
+    assert tm.kernel_chain(top, w)
+    assert tm.resolve_mixed_grams_fused(flipped, fw, 2, 8) is None
+    assert tm.resolve_mixed_grams(flipped, fw).__qualname__.startswith(
+        "_grams_of_rj")
+    pack, take_key, take_grp = tm.c_axis_layout(fw)
+    keyp = pack(torch.zeros(4, 3), torch.ones(4, 6))
+    assert keyp[:, :3].eq(0).all() and keyp[:, 3:].eq(1).all()
+    assert take_key(keyp, 1).eq(0).all() and take_grp(keyp, 1).eq(1).all()
+    # the pose-free free-point chain is a structured family; a chain
+    # outside every family selects no closed form (None), not an error
     fp = TOptimFunction([tb.Projection(), tb.Extrinsic3D(), tb.FreePoint()])
     assert ts.chain_family(fp, ts.chain_widths(fp)) == "freepoint"
-    with pytest.raises(ts.UnsupportedChain) as err:
-        ts.chain_family(flipped, ts.GroupWidths(15, 6, 9))
-    assert "make_mixed_structured_neq" in str(err.value)
-    assert "item 4" not in str(err.value) and "item 5" not in str(err.value)
+    assert ts.chain_family(flipped, ts.GroupWidths(15, 6, 9)) is None
 
 
 def test_multi_target_family_follows_the_jax_padding_rule():

@@ -41,6 +41,9 @@ from pycamset_tpu_torch.utils.saving import load_CameraSet
 from test_fleet import _grouped_handler, _mixed_handler
 from test_torch_fleet_handlers import _port_handler
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 MAKE = {"grouped": (_grouped_handler, 11), "mixed": (_mixed_handler, 17)}
 
 

@@ -17,6 +17,9 @@ from jax.experimental import pallas as pl
 from benchmarks import peak as jax_peak
 from pycamset_tpu_torch import peak
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 ROUNDING = 4096 * 2.0 ** -24   # 1024 iterations x 4 dependent FMAs in f32
 
 

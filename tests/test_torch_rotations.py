@@ -17,6 +17,9 @@ from pycamset_tpu_torch.ops.rotations import (rodrigues_jacobian,
                                               rodrigues_to_matrix)
 from pycamset_tpu_torch.utils import general_utils as tgu
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 _AXIS = np.array([0.48, -0.6, 0.64])  # unit axis
 RVECS = {
     "zero": np.zeros(3),

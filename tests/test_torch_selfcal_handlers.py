@@ -23,6 +23,7 @@ PnP, the same OpenCV calls), the port's inputs carried over as numpy:
 """
 import numpy as np
 import pytest
+import torch
 
 from pycamset_tpu.calibration.camera_calibrator import (
     run_stereo_calibration as jax_rsc)
@@ -35,6 +36,9 @@ from pycamset_tpu_torch.from_jax import (camset_from_numpy,
 from pycamset_tpu_torch.optim import handlers as ph
 from pycamset_tpu_torch.utils.saving import load_CameraSet
 from test_fleet import _template_handler
+
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
 
 OPTS = {"outliers": "n", "verbosity": 0}
 

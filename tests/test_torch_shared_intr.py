@@ -51,6 +51,9 @@ from pycamset_tpu_torch.optim.structured import NormalEq, UnsupportedChain
 from test_fleet import _template_handler, _tied_handler
 from test_torch_fleet_handlers import _assert_same_rigs, _port_handler
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 GROUPS = {"one": True, "two": ["a", "a", "b"]}
 
 

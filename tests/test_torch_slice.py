@@ -28,6 +28,9 @@ from pycamset_tpu_torch.optim.structured_lm import (slm_init, slm_result,
 from pycamset_tpu_torch.problems import (perturbed_start, standard_problem,
                                          template_colmask)
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -10,13 +10,17 @@ import pytest
 import torch
 
 from pycamset_tpu.optim import structured as js
-from pycamset_tpu.optim.blocks import Extrinsic3D, Projection, TemplatePoints
+from pycamset_tpu.optim.blocks import (Extrinsic3D, Projection, RigidTform3d,
+                                       TemplatePoints)
 from pycamset_tpu.optim.chain import OptimFunction
 from pycamset_tpu.utils.synthetic import make_synthetic_rig
 from pycamset_tpu_torch.from_jax import grid_from_numpy, pieces_from_numpy
 from pycamset_tpu_torch.optim import blocks as tb
 from pycamset_tpu_torch.optim import structured as ts
 from pycamset_tpu_torch.optim.chain import OptimFunction as TOptimFunction
+
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
 
 
 def _rel(got, ref):
@@ -166,16 +170,44 @@ def test_neq_diag_matvec_and_schur_solve_match_jax():
 
 
 def test_unported_chains_and_solvers_raise():
-    # the pose-free free-point chain is served now (b = 0, c = 3); a chain
-    # outside every family still raises
+    # the pose-free free-point chain is served (b = 0, c = 3); a chain
+    # outside every family takes the forward-mode route, and only what
+    # chain_widths refuses raises
     top = TOptimFunction([tb.Projection(), tb.Extrinsic3D(),
                           tb.FreePoint()])
     assert ts.chain_family(top, ts.chain_widths(top)) == "freepoint"
     assert callable(ts.make_structured_neq(top, ts.chain_widths(top), 2, 3))
     other = TOptimFunction([tb.Projection(), tb.Extrinsic3D(),
                             tb.RigidTform3d(), tb.TemplatePoints()])
-    with pytest.raises(ts.UnsupportedChain, match="not ported yet"):
-        ts.make_structured_neq(other, ts.chain_widths(other), 2, 3)
+    assert ts.chain_family(other, ts.chain_widths(other)) is None
+    rig, n_keys, *_ = _problem(2, 3)
+    widths = ts.chain_widths(other)
+    k_pad = 8 * (-(-n_keys // 8))
+    pieces = ts.ParamPieces(
+        torch.tensor(np.concatenate([rig["intr"], rig["extr"]], axis=1)),
+        torch.tensor(rig["poses"]), torch.zeros(k_pad, 0,
+                                                dtype=torch.float64))
+    blocks = ts.build_block_arrays(rig["dd"], 2, 3, n_keys, k_pad_multiple=8)
+    uv, mask = blocks.as_device("cpu", torch.float64)
+    tpl = torch.tensor(ts.pad_template_table(rig["template"], True, n_keys,
+                                             k_pad))
+    ones = ts.ParamPieces(*(torch.ones_like(p) for p in pieces))
+    # RigidTform3d and TemplatePoints share one PER_IMG group: the pose
+    # applied twice, which the route differentiates as one chain
+    neq = ts.make_structured_neq(other, widths, 2, 3)(pieces, uv, mask, tpl,
+                                                      ones)
+    jother = OptimFunction([Projection(), Extrinsic3D(), RigidTform3d(),
+                            TemplatePoints()])
+    jneq = js.make_structured_neq(jother, js.chain_widths(jother), 2, 3)(
+        js.ParamPieces(*(jnp.asarray(p.numpy()) for p in pieces)),
+        *(jnp.asarray(t.numpy()) for t in (uv, mask, tpl)),
+        js.ParamPieces(*(jnp.asarray(p.numpy()) for p in ones)))
+    for g, r in zip(neq, jneq):
+        assert _rel(g.numpy(), r) <= 1e-9
+    with pytest.raises(ts.UnsupportedChain, match="mixing PER_KEY"):
+        ts.chain_widths(TOptimFunction([
+            tb.Projection(), tb.Extrinsic3D(), tb.RigidTform3d(),
+            tb.GroupRigidTform3d(), tb.FreePoint()]))
     # both reduced solvers are served (CG: tests/test_torch_cg.py); a name
     # outside them raises
     _, tneq = _neqs(3, 5)

@@ -6,9 +6,13 @@ difference is numpy Rodrigues in the port where the JAX package calls cv2).
 """
 import numpy as np
 import pytest
+import torch
 
 from pycamset_tpu.utils.synthetic import make_synthetic_rig as jax_rig
 from pycamset_tpu_torch.utils.synthetic import make_synthetic_rig as port_rig
+
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("kw", [

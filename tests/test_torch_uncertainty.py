@@ -36,6 +36,9 @@ from test_fleet import _grouped_handler, _mixed_handler, _tied_handler
 from test_torch_fleet_handlers import _port_handler
 from test_torch_generic import _pair
 
+# One intra-op thread a process: the xdist workers share the host's cores.
+torch.set_num_threads(1)
+
 ROBUST = [("huber", "component"), ("huber", "observation"),
           ("cauchy", "component"), ("cauchy", "observation")]
 
@@ -164,23 +167,19 @@ def test_robust_loss_weights(loss, semantics):
 
 
 def test_rolling_shutter_chain_raises():
+    """The port's real rolling-shutter handler (its chain reads an aux
+    channel): the uncertainty refuses it as the JAX package's refuses its
+    own, and the generic backend as the JAX package's does."""
     from pycamset_tpu.optim.handlers import RSTemplateBundleHandler
-    from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, Projection,
-                                                 TemplatePoints)
-    from pycamset_tpu_torch.optim.chain import OptimFunction
+    from test_torch_rolling_shutter import _capture, _pair
 
-    class RowTemplatePoints(TemplatePoints):
-        aux_inputs = 1      # reads a per-detection image row
-
-    jh, ph = _pair("template")
-    jrs = RSTemplateBundleHandler(jh.camset, jh.target, jh.detection,
-                                  options={"outliers": "n"})
-    ph.op_fun = OptimFunction([Projection(), Extrinsic3D(),
-                               RowTemplatePoints()])
-    x = ph.get_initial_params()
-    cams = ph.get_camset(x)
-    cams.set_calibration_history({"x": x, "fun": None}, ph)
-    jcams = jh.get_camset(jh.get_initial_params())
+    cams, tpl, dd, _p, _v = _capture(4, 0.1, 2)
+    jrs, prs = _pair(cams, tpl, dd)
+    assert isinstance(jrs, RSTemplateBundleHandler)
+    x = prs.get_initial_params()
+    cams = prs.get_camset(x)
+    cams.set_calibration_history({"x": x, "fun": None}, prs)
+    jcams = jrs.get_camset(jrs.get_initial_params())
     jcams.set_calibration_history({"x": None, "fun": None}, jrs)
     with pytest.raises(NotImplementedError) as ref:
         JU.calibration_uncertainty(jcams, x=np.zeros(3))
@@ -189,7 +188,7 @@ def test_rolling_shutter_chain_raises():
     assert str(got.value) == str(ref.value)
     # the generic and scipy backends refuse such a chain as JAX's do
     with pytest.raises(ValueError, match="aux inputs"):
-        run_bundle_adjustment(ph, backend="generic", device="cpu")
+        run_bundle_adjustment(prs, backend="generic", device="cpu")
 
 
 def test_jax_saved_camset(solved, tmp_path):
