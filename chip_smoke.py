@@ -232,16 +232,40 @@ backend ``run_bundle_adjustment(backend="auto")`` chooses for the
 rolling-shutter chain, a chain with a block of the caller's own, and the
 template, self-calibration, free-point, grouped and mixed chains.
 
+Then the serving path, which reaches no kernel either (the JAX package
+runs it in XLA): ``[serving]`` tracks ``problems.tracking_scene``'s 3-camera
+(the JAX serving bench's) and 16-camera scenes of 1,024 frames each with
+``TargetTracker.track_batch`` (device and auto seeding: poses within 2e-2
+of the truth, median rms <= 1.2 x the noise, <= 1% of frames at status 4,
+over the frames with more than 3 detections; the LM's steps under
+``set_sync_debug_mode("error")`` with no host read; float32 within 1e-4 of
+the float64 CPU solve of the first 64 frames; the device solve by CUDA
+events and its profile, end to end by the host clock, peak MiB);
+``[serving_artifact]`` loads the 3-camera tracker's artifact, exported on
+the card by a child process started after ``[build]``
+(``--serving-export PATH``: its tracing is host work), and holds its poses
+to the live tracker's at 1,024 and 5 frames (1e-6, bit for bit or not);
+``[serving_stream]`` runs ``track_stream`` (one CUDA graph replay a frame)
+and warm-started ``track`` on a linear moving capture; ``[serving_timed]``
+the 12-dof state with readouts and with clock offsets (the JAX tests'
+checks); ``[serving_smoother]`` smooths the tracked trajectory
+(``smooth_pose_trajectory``, mean error < 0.4 x the tracker's) and times
+it at 1,024 frames; ``[serving_markers]`` reconstructs 64 markers seen by
+16 cameras over 1,024 frames (``MarkerTriangulator``, the marker tests'
+sigma checks, NaN / inf where fewer than 2 cameras see one).
+
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
 kernels as JSON; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 Imports neither jax nor pycamset_tpu. Needs one CUDA card and nvcc; exits
-non-zero without one.
+non-zero without one. ``--serving-export PATH`` is the smoke's own child
+(``export_serving_artifact``), not an entry point.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import json
@@ -6242,6 +6266,425 @@ def phase_auto_dispatch(dev) -> dict:
     return out
 
 
+# [serving]: frames a batch, the timed state's frames, the float64 CPU check
+SERVING_FRAMES = 1024
+TIMED_FRAMES = 256
+STREAM_FRAMES = 128
+F64_FRAMES = 64
+# poses against the truth, every entry of the 4x4 (tests/test_serving.py:38)
+SERVING_POSE_TOL = 2e-2
+# the marker scene: cameras, markers, and (frame, marker) pairs left to
+# camera 0 alone
+MARKERS = (16, 64, {(3, 1), (7, 4), (500, 10), (1000, 63)})
+
+
+def pose6_of(poses) -> np.ndarray:
+    from pycamset_tpu_torch.utils.general_utils import ext_4x4_to_rod
+    return np.stack([np.concatenate(ext_4x4_to_rod(p)) for p in poses])
+
+
+def serving_checks(tag, poses, info, true, noise_px) -> dict:
+    """Over the frames that pin a pose (more than 3 detections; a frame
+    with fewer, none in a scene's random draw, reports inf sigmas and no
+    estimate): the poses within SERVING_POSE_TOL of the truth, median rms
+    <= 1.2 x the noise, at most 1% of the frames at status 4."""
+    pinned = np.asarray(info["n_used"]) > 3
+    check(bool(np.isinf(info["pose_sigma"][~pinned]).all()),
+          f"{tag}: an unpinned frame reports a finite sigma")
+    poses, true = poses[pinned], true[pinned]
+    info = {k: np.asarray(info[k])[pinned] for k in ("rms", "status", "nit")}
+    err = float(np.abs(poses - true).max())
+    rms = float(np.median(info["rms"]))
+    n4 = int(np.sum(info["status"] == 4))
+    check(err < SERVING_POSE_TOL, f"{tag}: pose error {err} >= "
+                                  f"{SERVING_POSE_TOL}")
+    check(rms <= 1.2 * noise_px, f"{tag}: median rms {rms} > 1.2 x "
+                                 f"{noise_px}")
+    check(n4 <= 0.01 * len(poses), f"{tag}: {n4} frames at status 4")
+    return {"unpinned_frames": int(np.sum(~pinned)),
+            "max_pose_err": f"{err:.3e}", "rms_median": f"{rms:.4f}",
+            "nit_median": float(np.median(info["nit"])),
+            "nit_max": int(np.max(info["nit"])), "status4": n4}
+
+
+def host_s(fn, n: int = 2):
+    """(the least host-clock seconds of n warm calls of fn, its result)."""
+    import torch
+    best, out = None, None
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return best, out
+
+
+def serving_batch(kind: str, dev, smi, reps: int) -> tuple[dict, object,
+                                                          dict]:
+    """One 1,024-frame scene through ``track_batch`` (device and auto
+    seeding), the device solve by CUDA events, its LM steps under
+    ``set_sync_debug_mode("error")``, and the float64 CPU solve of the
+    first F64_FRAMES frames; ``reps`` warm calls a timing. Returns
+    (record, tracker, scene)."""
+    import torch
+
+    from pycamset_tpu_torch.from_jax import detection_from_numpy
+    from pycamset_tpu_torch.optim import lm
+    from pycamset_tpu_torch.problems import tracking_scene
+    from pycamset_tpu_torch.tracking import TargetTracker
+
+    t_in = time.perf_counter()
+    sc = tracking_scene(kind, SERVING_FRAMES)
+    scene_s = time.perf_counter() - t_in
+    det, true, noise = sc["det"], sc["true"], sc["noise_px"]
+    tr = TargetTracker(sc["cams"], sc["target"], device=dev)
+    base = mib_allocated()
+    lm.host_reads = 0
+    t0 = time.perf_counter()
+    poses, info = tr.track_batch(det, seed_mode="device")
+    first_s = time.perf_counter() - t0
+    peak = peak_mib(dev, base)
+    rec = {"capacity": tr.max_detections,
+           "detections": len(det.get_data()), "scene_s": f"{scene_s:.2f}",
+           **serving_checks(f"serving {kind} device", poses, info, true,
+                            noise)}
+    e2e, (poses_a, info_a) = host_s(
+        lambda: tr.track_batch(det, seed_mode="auto"), reps)
+    serving_checks(f"serving {kind} auto", poses_a, info_a, true, noise)
+    dd_all, _, n_frames, _, dev_args = tr._pack_table(det)
+    ug, mg = (tr._tensor(g) for g in tr._obs_grids(dd_all, n_frames))
+    ms = cuda_ms(lambda: tr.core.solve_batch_seeded(ug, mg, *dev_args), reps,
+                 warmup=1)
+    seeds = tr.core.seed_batch(ug, mg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.core.solve_packed(seeds, *dev_args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(lm.host_reads == 0, f"serving {kind}: {lm.host_reads} host reads")
+    # where the device time of one batched LM solve goes (seeds given)
+    events, _ = profiled(lambda: tr.core.solve_packed(seeds, *dev_args), 1,
+                         (0.0, 1.0))
+    by_name = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    rec.update(lm_device_ms=f"{sum(by_name.values()) / 1e3:.3f}",
+               lm_kernels=len(events),
+               lm_top=";".join(f"{n[:40]}:{us / 1e3:.2f}" for n, us in top))
+    rows = det.get_data()
+    sub = detection_from_numpy(det.cam_names, rows[rows[:, 1] < F64_FRAMES],
+                               F64_FRAMES)
+    t0 = time.perf_counter()
+    p64, _ = TargetTracker(sc["cams"], sc["target"], device="cpu"
+                           ).track_batch(sub, seed_mode="device")
+    f64_s = time.perf_counter() - t0
+    d64 = float(np.abs(pose6_of(poses[:F64_FRAMES]) - pose6_of(p64)).max())
+    check(d64 < 1e-4, f"serving {kind}: float32 poses {d64} from float64")
+    rec.update(device_solve_ms=f"{ms:.3f}",
+               device_poses_per_s=f"{SERVING_FRAMES / ms * 1e3:.0f}",
+               track_batch_auto_s=f"{e2e:.3f}",
+               track_batch_poses_per_s=f"{SERVING_FRAMES / e2e:.0f}",
+               sync_free_lm_steps=True, host_reads=lm.host_reads,
+               f32_vs_f64=f"{d64:.2e}", peak_mib=f"{peak:.0f}",
+               first_call_s=f"{first_s:.2f}", cpu_f64_s=f"{f64_s:.2f}",
+               s=f"{time.perf_counter() - t_in:.1f}")
+    say("serving", scene=kind, frames=SERVING_FRAMES, card=repr(smi), **rec)
+    return rec, tr, sc
+
+
+def serving_stream(dev, smi) -> dict:
+    """``track_stream`` over the first STREAM_FRAMES frames and
+    warm-started single-frame ``track`` on the linear moving capture (a
+    video: each frame starts from the last), seeded from frame 0's device
+    seed; kernels a stream frame (one graph replay) by torch.profiler over
+    one uncaptured step."""
+    from pycamset_tpu_torch.from_jax import detection_from_numpy
+    from pycamset_tpu_torch.problems import tracking_scene
+    from pycamset_tpu_torch.tracking import TargetTracker
+
+    sc = tracking_scene("moving", TIMED_FRAMES)
+    rows = sc["det"].get_data()
+    det = detection_from_numpy(sc["det"].cam_names,
+                               rows[rows[:, 1] < STREAM_FRAMES],
+                               STREAM_FRAMES)
+    true, noise = sc["true"][:STREAM_FRAMES], sc["noise_px"]
+    tr = TargetTracker(sc["cams"], sc["target"], device=dev)
+    dd_all, _, n_frames, _, dev_args = tr._pack_table(det)
+    ug, mg = tr._obs_grids(dd_all, n_frames)
+    init = tr.core.seed_batch(tr._tensor(ug[:1]), tr._tensor(mg[:1]))[0]
+    init = init.double().cpu().numpy()
+    t0 = time.perf_counter()
+    tr.track_stream(det, init=init)          # captures the stream's graph
+    first_s = time.perf_counter() - t0
+    s_stream, (poses, info) = host_s(lambda: tr.track_stream(det, init=init),
+                                     n=1)
+    rec = {"detections": len(det.get_data()),
+           "capacity": tr.max_detections,
+           "stream": serving_checks("serving stream", poses, info, true,
+                                    noise)}
+    frames = det.get_image_list()[:32]
+    tr._last_pose = None
+    singles = [tr.track(frames[0], init=init)]
+    t0 = time.perf_counter()
+    singles += [tr.track(f) for f in frames[1:]]
+    per_frame = (time.perf_counter() - t0) / (len(frames) - 1)
+    sp = np.stack([p for p, _ in singles])
+    sinfo = {k: np.array([i[k] for _, i in singles])
+             for k in ("rms", "nit", "status", "n_used", "pose_sigma")}
+    rec["track"] = serving_checks("serving track", sp, sinfo,
+                                  true[:len(frames)], noise)
+    args = [a[1] for a in dev_args]
+    carry = tr._tensor(init)
+    events, _ = profiled(lambda: tr.core.stream_step(carry, *args), 1,
+                         (0.0, 1.0))
+    rec.update(stream_poses_per_s=f"{STREAM_FRAMES / s_stream:.1f}",
+               stream_first_s=f"{first_s:.2f}",
+               stream_ms_per_frame=f"{s_stream / STREAM_FRAMES * 1e3:.3f}",
+               track_ms_per_frame=f"{per_frame * 1e3:.3f}",
+               replays_per_frame=1,
+               kernels_per_frame=len(events) if events else "not measured",
+               capture_ms={k: round(v, 1)
+                           for k, v in tr._graphs.capture_ms.items()})
+    say("serving_stream", frames=STREAM_FRAMES, card=repr(smi),
+        **{k: v for k, v in rec.items() if k not in ("stream", "track")},
+        stream=rec["stream"], track=rec["track"])
+    return rec
+
+
+def serving_timed(dev, smi) -> dict:
+    """The 12-dof timed state at TIMED_FRAMES frames of the linear capture,
+    readouts 0.7 and clock offsets [0, 0.3, -0.35]: the JAX tests' own
+    absolute checks (tests/test_tracking.py:261-308); their ratio checks
+    against the 6-dof tracker at their own capture (24 frames: the motion
+    a frame of a 256-frame capture is 1/10.7 of it). Returns the readout
+    run's poses and covariances for the smoother."""
+    from pycamset_tpu_torch.problems import tracking_scene
+    from pycamset_tpu_torch.tracking import TargetTracker
+
+    rec, out = {}, {}
+    readouts = np.array([0.7, 0.7, 0.7])
+    offsets = np.array([0.0, 0.3, -0.35])
+    for n in (TIMED_FRAMES, 24):
+        sc = tracking_scene("moving", n, readouts=readouts)
+        true_t, knots = sc["true"][:, :3, 3], sc["knots"]
+        gs = TargetTracker(sc["cams"], sc["target"], device=dev)
+        rs = TargetTracker(sc["cams"], sc["target"], rolling_shutter=readouts,
+                           device=dev)
+        t0 = time.perf_counter()
+        p_rs, i_rs = rs.track_batch(sc["det"], seed_mode="device")
+        s_rs = time.perf_counter() - t0
+        _, i_gs = gs.track_batch(sc["det"], seed_mode="device")
+        t_err = float(np.abs(p_rs[1:-1, :3, 3] - true_t[1:-1]).max())
+        vel = float(np.abs(i_rs["velocity"][1:-1].mean(axis=0)
+                           - np.diff(knots, axis=0)[0]).max())
+        ratio = float(i_gs["rms"].mean() / i_rs["rms"].mean())
+        check(i_rs["rms"].mean() < 0.11 and t_err < 5e-4 and vel < 2e-3
+              and np.isfinite(i_rs["velocity_sigma"][1:-1]).all(),
+              f"timed readouts {n}: rms {i_rs['rms'].mean()}, t {t_err}, "
+              f"velocity {vel}")
+        if n == 24:
+            check(ratio > 1.2, f"timed readouts 24: GS / RS rms {ratio}")
+        else:
+            out = {"poses": p_rs, "cov": i_rs["pose_cov"], "true": true_t}
+        rec[f"readouts_{n}"] = {
+            "rms_mean": f"{i_rs['rms'].mean():.4f}",
+            "gs_over_rs": f"{ratio:.3f}", "t_err": f"{t_err:.2e}",
+            "velocity_err": f"{vel:.2e}", "s": f"{s_rs:.3f}",
+            "nit_median": float(np.median(i_rs["nit"])),
+            "status4": int(np.sum(i_rs["status"] == 4))}
+        sc = tracking_scene("moving", n, offsets=offsets)
+        true_t = sc["true"][:, :3, 3]
+        plain = TargetTracker(sc["cams"], sc["target"], device=dev)
+        sync = TargetTracker(sc["cams"], sc["target"], time_offsets=offsets,
+                             device=dev)
+        p_sy, i_sy = sync.track_batch(sc["det"], seed_mode="device")
+        _, i_pl = plain.track_batch(sc["det"], seed_mode="device")
+        t_err = float(np.abs(p_sy[1:-1, :3, 3] - true_t[1:-1]).max())
+        ratio = float(i_sy["rms"].mean() / i_pl["rms"].mean())
+        check(t_err < 1e-3, f"timed offsets {n}: t {t_err}")
+        if n == 24:
+            check(ratio < 0.6, f"timed offsets 24: sync / plain rms {ratio}")
+        rec[f"offsets_{n}"] = {"rms_mean": f"{i_sy['rms'].mean():.4f}",
+                               "sync_over_plain": f"{ratio:.3f}",
+                               "t_err": f"{t_err:.2e}"}
+    say("serving_timed", card=repr(smi), **rec)
+    return {**rec, **out}
+
+
+def serving_smoother(dev, smi, timed: dict) -> dict:
+    """The RTS smoother over the readout run's TIMED_FRAMES tracked poses
+    and covariances (translations against the trajectory: the mean error
+    below 0.4 x the tracker's, tests/test_smoothing.py:85), and timed at
+    SERVING_FRAMES frames of the linear capture tracked by the batch."""
+    from pycamset_tpu_torch.problems import tracking_scene
+    from pycamset_tpu_torch.smoothing import smooth_pose_trajectory
+    from pycamset_tpu_torch.tracking import TargetTracker
+
+    # a 30 fps capture (dt in s); the smoother's velocity prior scales
+    # with q / dt, the frame's process noise with q dt^3
+    q = {"q_rot": 1e-9, "q_trans": 1e-9, "dt": 1.0 / 30.0}
+    raw = np.linalg.norm(timed["poses"][:, :3, 3] - timed["true"], axis=1)
+    s256, (sm, _) = host_s(lambda: smooth_pose_trajectory(
+        timed["poses"], pose_cov=timed["cov"], device=dev, **q), n=1)
+    err = np.linalg.norm(sm[:, :3, 3] - timed["true"], axis=1)
+    check(err.mean() < 0.4 * raw.mean(),
+          f"smoother: mean error {err.mean()} vs raw {raw.mean()}")
+    sc = tracking_scene("moving", SERVING_FRAMES)
+    poses, info = TargetTracker(sc["cams"], sc["target"], device=dev
+                                ).track_batch(sc["det"], seed_mode="device")
+    s1k, _ = host_s(lambda: smooth_pose_trajectory(
+        poses, pose_cov=info["pose_cov"], device=dev, **q), n=1)
+    rec = {"frames": TIMED_FRAMES, "mean_err": f"{err.mean():.3e}",
+           "raw_mean_err": f"{raw.mean():.3e}",
+           "ratio": f"{err.mean() / raw.mean():.3f}",
+           "ms": f"{s256 * 1e3:.1f}", "ms_1024": f"{s1k * 1e3:.1f}"}
+    say("serving_smoother", card=repr(smi), **rec)
+    return rec
+
+
+def serving_markers(dev, smi) -> dict:
+    """MarkerTriangulator at MARKERS (16 cameras x 64 markers) x 1,024
+    frames: tests/test_markers.py:59-97's checks."""
+    from pycamset_tpu_torch.markers import MarkerTriangulator
+    from pycamset_tpu_torch.problems import marker_scene
+
+    n_cams, n_markers, occl = MARKERS
+    sc = marker_scene(n_cams, SERVING_FRAMES, n_markers, noise=0.2, seed=1,
+                      occlude=occl)
+    tri = MarkerTriangulator(sc["cams"], n_markers, device=dev)
+    tri.reconstruct(sc["rows"])
+    s, (pts, info) = host_s(lambda: tri.reconstruct(sc["rows"]), n=1)
+    seen = info["n_views"] >= 2
+    ratio = (np.abs(pts - sc["truth"])[seen]
+             / np.maximum(info["sigma"][seen], 1e-12))
+    med = float(np.median(ratio))
+    check(0.2 < med < 3.0 and np.mean(ratio < 5.0) > 0.95
+          and np.isfinite(info["sigma"][seen]).all(),
+          f"markers: median error / sigma {med}")
+    for (j, m) in occl:
+        check(info["n_views"][j, m] < 2 and np.isnan(pts[j, m]).all()
+              and np.isinf(info["sigma"][j, m]).all(),
+              f"markers: occluded ({j}, {m}) not NaN / inf")
+    err = np.linalg.norm((pts - sc["truth"])[seen], axis=-1)
+    rec = {"rows": len(sc["rows"]), "problems": int(seen.size),
+           "seen": int(seen.sum()),
+           "median_err_over_sigma": f"{med:.3f}",
+           "below_5": f"{np.mean(ratio < 5.0):.4f}",
+           "median_err_m": f"{np.median(err):.2e}",
+           "s": f"{s:.3f}", "frames_per_s": f"{SERVING_FRAMES / s:.0f}"}
+    say("serving_markers", card=repr(smi), **rec)
+    return rec
+
+
+def export_serving_artifact(path: str) -> int:
+    """``chip_smoke.py --serving-export PATH``: the 3-camera serving
+    scene's tracker built on the card and exported to PATH (its export
+    seconds in PATH + ".json"). The smoke runs it as a child process
+    beside its earlier phases: tracing the programs is ~1 minute of host
+    work on one core, and the card is not used while it traces."""
+    import torch
+
+    from pycamset_tpu_torch.problems import tracking_scene
+    from pycamset_tpu_torch.serving import export_tracker
+    from pycamset_tpu_torch.tracking import TargetTracker
+
+    sc = tracking_scene("serving", SERVING_FRAMES)
+    tr = TargetTracker(sc["cams"], sc["target"],
+                       device=torch.device("cuda", 0))
+    t0 = time.perf_counter()
+    export_tracker(tr, path)
+    with open(path + ".json", "w") as f:
+        json.dump({"export_s": time.perf_counter() - t0}, f)
+    return 0
+
+
+def start_serving_export():
+    """The artifact's export as a child process (see
+    ``export_serving_artifact``): (process, artifact path, its directory)."""
+    import tempfile
+    d = tempfile.TemporaryDirectory()
+    path = os.path.join(d.name, "rig.trkz")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--serving-export", path])
+    # a smoke that fails before [serving] stops the child on its way out
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path, d
+
+
+def serving_artifact(tr, sc, export, smi) -> dict:
+    """The 3-camera tracker's artifact, exported on the card by the child
+    process, loaded here: its poses against the live tracker's (1e-6, and
+    whether bit for bit) at SERVING_FRAMES frames and at 5 frames through
+    the one export."""
+    from pycamset_tpu_torch.from_jax import detection_from_numpy
+    from pycamset_tpu_torch.serving import load_tracker_artifact
+
+    proc, path, tmp = export
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    wait_s = time.perf_counter() - t0
+    check(rc == 0, f"the artifact's export exited {rc}")
+    with open(path + ".json") as f:
+        export_s = json.load(f)["export_s"]
+    det = sc["det"]
+    rows = det.get_data()
+    small = detection_from_numpy(det.cam_names, rows[rows[:, 1] < 5], 5)
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    st = load_tracker_artifact(path)
+    load_s = time.perf_counter() - t0
+    tmp.cleanup()
+    rec = {"export_s": f"{export_s:.2f}", "export_wait_s": f"{wait_s:.2f}",
+           "load_s": f"{load_s:.2f}", "bytes": size,
+           "platform": st.meta["platform"]}
+    for name, table, n in (("1024", det, SERVING_FRAMES), ("5", small, 5)):
+        ref, ref_info = tr.track_batch(table, seed_mode="device")
+        poses, info = st.track_batch(table)
+        d6 = float(np.abs(pose6_of(poses) - pose6_of(ref)).max())
+        check(poses.shape == (n, 4, 4) and d6 <= 1e-6,
+              f"artifact {name} frames: {d6} from the live tracker")
+        rec[f"frames_{name}"] = {
+            "max_diff": f"{d6:.2e}",
+            "bit_for_bit": bool(np.array_equal(poses, ref)
+                                and np.array_equal(info["rms"],
+                                                   ref_info["rms"]))}
+    say("serving_artifact", card=repr(smi), **rec)
+    return rec
+
+
+def phase_serving(dev, smi, export) -> dict:
+    """[serving]: the port's serving path on the card (no kernel of its
+    own: plain PyTorch, as the JAX package runs it in XLA); ``export`` is
+    ``start_serving_export()``'s child, started after the build."""
+    import torch
+    t_phase = time.perf_counter()
+    rec = {}
+    rec["3cam"], tr3, sc3 = serving_batch("serving", dev, smi, 2)
+    rec["16cam"], tr16, _ = serving_batch("mocap16", dev, smi, 1)
+    del tr16
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["artifact"] = serving_artifact(tr3, sc3, export, smi)
+    del tr3, sc3
+    parts = {"batches_and_artifact": time.perf_counter() - t_phase}
+    for name, run in (("stream", lambda: serving_stream(dev, smi)),
+                      ("timed", lambda: serving_timed(dev, smi)),
+                      ("smoother", lambda: serving_smoother(dev, smi,
+                                                            rec["timed"])),
+                      ("markers", lambda: serving_markers(dev, smi))):
+        t0 = time.perf_counter()
+        rec[name] = run()
+        parts[name] = time.perf_counter() - t0
+    rec["seconds"] = round(time.perf_counter() - t_phase, 1)
+    say("serving_seconds", **{k: f"{v:.1f}" for k, v in parts.items()},
+        total=rec["seconds"])
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6251,6 +6694,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     builds = phase_build()
+    serving_export = start_serving_export()
     peak_rec = phase_peak(smi)
 
     from pycamset_tpu_torch.problems import (fleet_problem, grouped_problem,
@@ -6498,6 +6942,13 @@ def main() -> int:
     say("elapsed", after="auto_dispatch",
         seconds=f"{time.perf_counter() - t_start:.1f}",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    phase_serving(dev, smi, serving_export)
+    say("elapsed", after="serving",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
     for name, by_solve in mixed_launches.items():
         launches[name].update(by_solve)
     for phase, recs in (("multi_target_handlers", multi),
@@ -6709,4 +7160,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serving-export"]:
+        sys.exit(export_serving_artifact(sys.argv[2]))
     sys.exit(main())

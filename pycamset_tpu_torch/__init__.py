@@ -15,12 +15,19 @@ from pycamset_tpu_torch import config  # noqa: F401  (sets the precision flags)
 
 __version__ = "0.1.0"
 
-__all__ = ["run_fleet_bundle_adjustment", "FleetMismatch"]
+__all__ = ["run_fleet_bundle_adjustment", "FleetMismatch", "TargetTracker",
+           "export_tracker", "load_tracker_artifact", "MarkerTriangulator",
+           "smooth_pose_trajectory"]
 
 # exported as the JAX package exports them (pycamset_tpu/__init__.py),
 # imported on first use
 _LAZY = {"run_fleet_bundle_adjustment": "pycamset_tpu_torch.optim.fleet",
-         "FleetMismatch": "pycamset_tpu_torch.optim.fleet"}
+         "FleetMismatch": "pycamset_tpu_torch.optim.fleet",
+         "TargetTracker": "pycamset_tpu_torch.tracking",
+         "export_tracker": "pycamset_tpu_torch.serving",
+         "load_tracker_artifact": "pycamset_tpu_torch.serving",
+         "MarkerTriangulator": "pycamset_tpu_torch.markers",
+         "smooth_pose_trajectory": "pycamset_tpu_torch.smoothing"}
 
 
 def __getattr__(name):

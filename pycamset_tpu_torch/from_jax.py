@@ -136,3 +136,21 @@ def rs_primitive_from_numpy(handler, intr, extr, poses12, readout,
     prim.readout[:] = np.asarray(readout, dtype=np.float64).reshape(-1, 1)
     prim.pose_colmask = np.array(pose_colmask, dtype=bool)
     return handler
+
+
+def camset_from_jax(cams):
+    """The port's CameraSet of a JAX package's CameraSet, read through its
+    ``get_names()`` and each camera's extrinsic, intrinsic, distortion and
+    resolution (nothing of the JAX package is imported here)."""
+    names = cams.get_names()
+    return camset_from_numpy(
+        names, [cams[n].extrinsic for n in names],
+        [cams[n].intrinsic for n in names],
+        [np.ravel(cams[n].distortion_coefs) for n in names],
+        [cams[n].res for n in names])
+
+
+def detection_from_jax(det):
+    """The port's TargetDetection of a JAX package's one (its camera names,
+    table and image count)."""
+    return detection_from_numpy(det.cam_names, det.get_data(), det.max_ims)

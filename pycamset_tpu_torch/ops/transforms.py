@@ -1,5 +1,7 @@
 """SE(3) pose application and the rigid fit (counterparts of
-``pose_apply`` and ``rigid_fit`` in ``pycamset_tpu/ops/transforms.py``)."""
+``pose_apply`` and ``rigid_fit`` in ``pycamset_tpu/ops/transforms.py``):
+``rigid_fit`` on the host, ``rigid_fit_batch`` on the tensors' device with
+any leading dims (the JAX function under ``jax.vmap``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -44,3 +46,33 @@ def rigid_fit(src, dst, weights=None):
     d = np.array([1.0, 1.0, np.sign(np.linalg.det(u @ vt))])
     rmat = (u * d) @ vt
     return rmat, mu_d - rmat @ mu_s
+
+
+def rigid_fit_batch(src: torch.Tensor, dst: torch.Tensor,
+                    weights: torch.Tensor):
+    """``rigid_fit`` on tensors with leading batch dims: Kabsch/Umeyama by
+    one batched 3x3 SVD, the third singular vectors rebuilt as the cross
+    products of the first two (planar, rank-2 point sets), the determinant
+    corrected to a proper rotation.
+
+    :param src: (..., N, 3). :param dst: (..., N, 3).
+    :param weights: (..., N) non-negative, with a positive sum.
+    :return: (R (..., 3, 3), t (..., 3)).
+    """
+    w = weights[..., None]
+    wsum = torch.sum(weights, dim=-1)[..., None]
+    mu_s = torch.sum(src * w, dim=-2) / wsum
+    mu_d = torch.sum(dst * w, dim=-2) / wsum
+    s0 = src - mu_s[..., None, :]
+    d0 = dst - mu_d[..., None, :]
+    cov = (d0 * w).transpose(-1, -2) @ s0
+    u, _, vt = torch.linalg.svd(cov)
+    u0, u1 = u[..., :, 0], u[..., :, 1]
+    u = torch.stack([u0, u1, torch.linalg.cross(u0, u1)], dim=-1)
+    v0, v1 = vt[..., 0, :], vt[..., 1, :]
+    vt = torch.stack([v0, v1, torch.linalg.cross(v0, v1)], dim=-2)
+    det = torch.sign(torch.linalg.det(u @ vt))
+    ones = torch.ones_like(det)
+    d = torch.stack([ones, ones, det], dim=-1)
+    rmat = (u * d[..., None, :]) @ vt
+    return rmat, mu_d - (rmat @ mu_s[..., None])[..., 0]

@@ -48,11 +48,14 @@ def _check_intr_w(intr_w: int):
             f"18); a heterogeneous rig's rows go through block_rj_het")
 
 
-def projection_partials(intr: torch.Tensor, xc: torch.Tensor):
+def projection_partials(intr: torch.Tensor, xc: torch.Tensor,
+                        with_intr: bool = True):
     """Per-slot projection partials of any of the five camera models.
 
     :param intr: (..., intr_w) [fx, px, fy, py | dist coefs].
     :param xc: (..., K, 3) camera-frame points.
+    :param with_intr: False skips d_intr (returned as None): a caller that
+        holds the camera fixed (the tracker) needs d_xc alone.
     :return: (pred (..., K, 2), d_intr (..., K, 2, intr_w),
         d_xc (..., K, 2, 3))
     """
@@ -99,17 +102,19 @@ def projection_partials(intr: torch.Tensor, xc: torch.Tensor):
 
         # d(xd, yd)/d(dist coefs); the affine intrinsics fold in after the
         # tilt chain
-        jxd = [x * r2 * inv_den, x * r2 * r2 * inv_den, 2.0 * xy,
-               r2 + 2.0 * x * x, x * r2 ** 3 * inv_den]
-        jyd = [y * r2 * inv_den, y * r2 * r2 * inv_den,
-               r2 + 2.0 * y * y, 2.0 * xy, y * r2 ** 3 * inv_den]
-        if intr_w >= 12:
-            for i in (1, 2, 3):
-                jxd.append(-x * radial * r2 ** i * inv_den)
-                jyd.append(-y * radial * r2 ** i * inv_den)
-        if intr_w >= 16:
-            jxd.extend([r2, r2 * r2, zero, zero])
-            jyd.extend([zero, zero, r2, r2 * r2])
+        jxd, jyd = [], []
+        if with_intr:
+            jxd = [x * r2 * inv_den, x * r2 * r2 * inv_den, 2.0 * xy,
+                   r2 + 2.0 * x * x, x * r2 ** 3 * inv_den]
+            jyd = [y * r2 * inv_den, y * r2 * r2 * inv_den,
+                   r2 + 2.0 * y * y, 2.0 * xy, y * r2 ** 3 * inv_den]
+            if intr_w >= 12:
+                for i in (1, 2, 3):
+                    jxd.append(-x * radial * r2 ** i * inv_den)
+                    jyd.append(-y * radial * r2 ** i * inv_den)
+            if intr_w >= 16:
+                jxd.extend([r2, r2 * r2, zero, zero])
+                jyd.extend([zero, zero, r2, r2 * r2])
 
         # distorted-normalized wrt normalized
         dxd_dx = radial + 2.0 * x * x * dradial + 2.0 * p1 * y + 6.0 * p2 * x
@@ -126,7 +131,8 @@ def projection_partials(intr: torch.Tensor, xc: torch.Tensor):
 
         if intr_w >= 18:  # tilted: everything through the homography
             mt = tilt_matrix(intr[..., 16], intr[..., 17])[..., None, :, :]
-            dms = tilt_matrix_jacobian(intr[..., 16], intr[..., 17])
+            dms = (tilt_matrix_jacobian(intr[..., 16], intr[..., 17])
+                   if with_intr else ())
 
             def m(mat, i, j):
                 return mat[..., i, j]
@@ -153,7 +159,7 @@ def projection_partials(intr: torch.Tensor, xc: torch.Tensor):
             xd, yd = xtl, ytl
 
     pred = torch.stack([fx * xd + px, fy * yd + py], dim=-1)
-    d_intr = torch.stack([
+    d_intr = None if not with_intr else torch.stack([
         torch.stack([xd, one, zero, zero] + [fx * j for j in jxd], dim=-1),
         torch.stack([zero, zero, yd, one] + [fy * j for j in jyd], dim=-1),
     ], dim=-2)

@@ -65,6 +65,16 @@ multi-target and template-handler makers take ``camera_model`` (the rig
   problems' rig as the port's ``TwoTargetSelfCalibrator`` /
   ``TwoTargetCalibrator`` (``examples/extend_param_handler.py``), the
   board's halves as the two targets, for ``run_bundle_adjustment``.
+- Serving (``tracking_scene``, ``marker_scene``): the scenes of the
+  tracker, the smoother and the marker triangulator, each a CameraSet,
+  detections and the truth: ``"serving"`` the JAX serving bench's rig
+  (``benchmarks/serving_bench.py``: 3 cameras, grid 19, visibility 0.9,
+  0.3 px noise, seed 7), ``"mocap16"`` a 16-camera stage
+  (``make_synthetic_rig(16, n, grid=19, visibility=0.85)``), ``"moving"``
+  the sync tests' ring rig and 6 x 6 grid moving along a path linear in
+  pose space (``utils.synthetic.moving_capture``: readouts and clock
+  offsets, 0.1 px noise); ``marker_scene`` markers on smooth paths seen by
+  a ring of cameras (``utils.synthetic.marker_capture``).
 
 Each problem is an ``optim.problem.BAProblem`` (or, for the fleet, a
 ``FleetProblem``): on a card it owns the CUDA graphs of its LM step, one
@@ -979,3 +989,66 @@ def fleet_problem(n_rigs: int, n_cams: int, n_ims: int, device="cuda",
         tensor_from_numpy(tpl, device, dtype),
         pieces_from_numpy(*template_colmask(n_cams, n_ims, widths, k_pad),
                           device, dtype), loss, f_scale, loss_semantics)
+
+
+def tracking_scene(kind: str, n_frames: int, **kw) -> dict:
+    """A scene for ``tracking.TargetTracker``.
+
+    :param kind: ``"serving"``, ``"mocap16"`` or ``"moving"`` (see the
+        module's docstring). ``"moving"`` takes ``offsets`` (3,),
+        ``readouts`` (3,) or None, ``noise`` (0.1), ``seed`` (9), ``static``
+        and ``linear`` (True).
+    :return: dict with ``cams``, ``target`` (FreePointTarget), ``det``
+        (TargetDetection), ``true`` (I, 4, 4) target poses, ``noise_px``,
+        and ``rig`` (the synthetic rig) or ``knots`` (I, 6).
+    """
+    if kind in ("serving", "mocap16"):
+        if kind == "serving":
+            rig = make_synthetic_rig(n_cams=3, n_ims=n_frames, grid=19,
+                                     visibility=0.9, noise_px=0.3, seed=7)
+        else:
+            rig = make_synthetic_rig(n_cams=16, n_ims=n_frames, grid=19,
+                                     visibility=0.85)
+        exts = [make_4x4h_tform(e[:3], e[3:]) for e in rig["extr"]]
+        cams, names = _rig_cams(rig["intr"], exts)
+        return {"cams": cams,
+                "target": FreePointTarget(rig["template"].reshape(1, -1, 3)),
+                "det": detection_from_numpy(names, rig["dd"], n_frames),
+                "true": np.stack([make_4x4h_tform(p[:3], p[3:])
+                                  for p in rig["poses"]]),
+                "noise_px": rig["noise_px"], "rig": rig}
+    if kind != "moving":
+        raise ValueError(f"unknown scene {kind!r}; expected 'serving', "
+                         "'mocap16' or 'moving'")
+    from pycamset_tpu_torch.utils.synthetic import (grid_target,
+                                                    moving_capture, ring_rig)
+    cams = ring_rig()
+    tpl = grid_target()
+    noise = kw.get("noise", 0.1)
+    offsets = kw.get("offsets")
+    dd, knots = moving_capture(
+        cams, tpl, n_frames,
+        np.zeros(3) if offsets is None else np.asarray(offsets),
+        readouts=kw.get("readouts"), noise=noise, seed=kw.get("seed", 9),
+        static=kw.get("static", False), linear=kw.get("linear", True))
+    return {"cams": cams, "target": FreePointTarget(tpl.reshape(1, -1, 3)),
+            "det": detection_from_numpy(cams.get_names(), dd, n_frames),
+            "true": np.stack([make_4x4h_tform(k[:3], k[3:]) for k in knots]),
+            "noise_px": noise, "knots": knots}
+
+
+def marker_scene(n_cams: int, n_frames: int, n_markers: int,
+                 noise: float = 0.2, seed: int = 0, occlude=None) -> dict:
+    """Markers for ``markers.MarkerTriangulator``: the marker tests' ring
+    (radius 1.5 m, height 0.6 m, focal 1400 px) of ``n_cams`` cameras and
+    ``utils.synthetic.marker_capture``.
+
+    :return: dict with ``cams``, ``rows`` (N, 5) [cam, frame, marker, u, v]
+        and ``truth`` (I, M, 3).
+    """
+    from pycamset_tpu_torch.utils.synthetic import marker_capture, ring_rig
+    cams = ring_rig(n_cams, radius=1.5, z=0.6, f=1400.0,
+                    dist=(-0.15, 0.04, 1e-4, -1e-4, 0.0))
+    rows, truth = marker_capture(cams, n_frames, n_markers, noise=noise,
+                                 seed=seed, occlude=occlude)
+    return {"cams": cams, "rows": rows, "truth": truth}

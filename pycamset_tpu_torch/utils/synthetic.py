@@ -8,6 +8,11 @@ Builds a ground-truth multi-camera rig observing a planar grid target across
 many poses, with optional visibility dropout and pixel noise. The observation
 table matches the TargetDetection layout [cam, im, key, u, v]. ``rs_capture``
 makes a rolling-shutter capture of a rig (the JAX package's test
+generator, vectorised). The serving path's scenes: ``ring_rig``,
+``grid_target``, ``knot_path`` and ``moving_capture`` (a target moving
+along a pose path, with per-camera clock offsets and rolling-shutter
+readouts: the JAX package's ``tests/test_sync.py`` generator, vectorised)
+and ``marker_capture`` (markers on smooth paths: ``tests/test_markers.py``'s
 generator, vectorised).
 """
 from __future__ import annotations
@@ -295,3 +300,153 @@ def rs_capture(cams, tpl: np.ndarray, n_ims: int, readouts,
             rows.append(np.column_stack([
                 np.full(kk.size, c), np.full(kk.size, i), kk, obs]))
     return np.concatenate(rows), poses, vels
+
+
+def ring_rig(n: int = 3, radius: float = 1.0, z: float = 0.5,
+             f: float = 1500.0, dist=(-0.1, 0.02, 1e-4, -1e-4, 0.0)):
+    """A CameraSet of ``n`` cameras ``cam0``... on a ring of ``radius`` at
+    height ``z``, each looking at the origin (1600 x 1200, focal ``f``,
+    principal point (800, 600), distortion ``dist``). The defaults are the
+    JAX sync tests' ``_ring_rig``; ``radius=1.5, z=0.6, f=1400, dist=(-0.15,
+    0.04, 1e-4, -1e-4, 0)`` is the marker tests' ``_rig``."""
+    from pycamset_tpu_torch.models.camera_set import CameraSet, make_cam_dict
+    names, exts, kmats, dists = [], [], [], []
+    for i in range(n):
+        ang = 2 * np.pi * i / n
+        pos = np.array([radius * np.cos(ang), radius * np.sin(ang), z])
+        exts.append(look_at_extrinsic(pos, np.zeros(3)))
+        kmats.append(np.array([[f, 0, 800.0], [0, f, 600.0], [0, 0, 1]]))
+        dists.append(np.array(dist, dtype=float))
+        names.append(f"cam{i}")
+    return CameraSet(camera_dict=make_cam_dict(
+        names, exts, kmats, dists, [[1600, 1200]] * n))
+
+
+def grid_target(g: int = 6, pitch: float = 0.03) -> np.ndarray:
+    """(g * g, 3) planar grid points centred near the origin."""
+    xy = np.stack(np.meshgrid(np.arange(g), np.arange(g)), -1).reshape(-1, 2)
+    return np.concatenate([(xy - g / 2) * pitch, np.zeros((g * g, 1))], 1)
+
+
+def knot_path(n_frames: int, static: bool = False,
+              linear: bool = False) -> np.ndarray:
+    """(n_frames, 6) knot poses of a smooth path; ``linear`` puts them on
+    one straight line in pose space (exact for a per-frame constant
+    velocity), ``static`` holds one pose."""
+    ph = 2 * np.pi * np.arange(n_frames) / n_frames
+    y = np.zeros((n_frames, 6))
+    if static:
+        y[:, 3:] = [0.02, -0.01, 0.0]
+        return y
+    if linear:
+        ramp = np.linspace(-0.5, 0.5, n_frames)
+        return np.outer(ramp, [0.3, -0.25, 0.2, 0.08, -0.07, 0.06])
+    y[:, 0] = 0.25 * np.sin(ph)
+    y[:, 1] = 0.20 * np.sin(2 * ph + 0.7)
+    y[:, 2] = 0.15 * np.cos(ph)
+    y[:, 3] = 0.05 * np.sin(ph + 0.3)
+    y[:, 4] = 0.05 * np.cos(2 * ph)
+    y[:, 5] = 0.04 * np.sin(3 * ph)
+    return y
+
+
+def moving_capture(cams, tpl: np.ndarray, n_frames: int, offsets,
+                   readouts=None, noise: float = 0.0, seed: int = 0,
+                   static: bool = False, linear: bool = False):
+    """A target moving along ``knot_path`` (linearly interpolated between
+    integer-time knots), seen by each camera c at frame times j +
+    offsets[c] (in frames; times outside [0, n_frames - 1] are skipped);
+    with ``readouts`` a detection on row v is seen at t + readout_c (v/1200
+    - 1/2), the row found by fixed point (at most 6 sweeps, a frame done
+    once no pixel moves by 1e-10). Kept: z > 0.1 and inside 1600 x 1200;
+    then the noise, camera-major, frame by frame.
+
+    The JAX package's ``tests/test_sync.py::_moving_capture`` (without its
+    skews and frame-rate ratios), each sweep projecting every point of a
+    camera's frames at once.
+
+    :return: (dd (N, 5) [cam, im, key, u, v], knots (n_frames, 6)).
+    """
+    rng = np.random.default_rng(seed)
+    y = knot_path(n_frames, static=static, linear=linear)
+    n_keys = tpl.shape[0]
+
+    def project_at(cam, t):
+        """t (J, K) -> uv (J, K, 2), z (J, K): each point at its time."""
+        f = np.clip(np.floor(t).astype(int), 0, n_frames - 2)
+        w = (t - f)[..., None]
+        p6 = (1.0 - w) * y[f] + w * y[f + 1]
+        world = (np.einsum("jkab,kb->jka", _rodrigues_batch(p6[..., :3]),
+                           tpl) + p6[..., 3:])
+        z = (world @ cam.extrinsic[:3, :3].T + cam.extrinsic[:3, 3])[..., 2]
+        uv = cam.project_points(world.reshape(-1, 3), device="cpu",
+                                dtype=torch.float64)
+        return np.asarray(uv).reshape(t.shape + (2,)), z
+
+    rows = []
+    for c, name in enumerate(cams.get_names()):
+        cam = cams[name]
+        j = np.arange(n_frames)
+        t = j + offsets[c]
+        inside = (t >= 0.0) & (t <= n_frames - 1.0)
+        j, t = j[inside], t[inside]
+        tk = np.repeat(t[:, None], n_keys, axis=1)
+        uv, z = project_at(cam, tk)
+        if readouts is not None and readouts[c]:
+            live = np.ones(len(j), dtype=bool)
+            for _ in range(6):
+                new = project_at(
+                    cam, t[:, None] + readouts[c] * (uv[..., 1] / 1200.0
+                                                     - 0.5))[0]
+                done = np.abs(new - uv).max(axis=(1, 2)) < 1e-10
+                uv = np.where(live[:, None, None], new, uv)
+                live &= ~done
+                if not live.any():
+                    break
+        for i, jj in enumerate(j):
+            ok = ((z[i] > 0.1) & (uv[i, :, 0] > 0) & (uv[i, :, 0] < 1600)
+                  & (uv[i, :, 1] > 0) & (uv[i, :, 1] < 1200))
+            kk = np.flatnonzero(ok)
+            obs = uv[i, kk] + rng.normal(size=(kk.size, 2)) * noise
+            rows.append(np.column_stack([
+                np.full(kk.size, c), np.full(kk.size, jj), kk, obs]))
+    return np.concatenate(rows), y
+
+
+def marker_capture(cams, n_frames: int, n_markers: int, noise: float = 0.2,
+                   seed: int = 0, occlude=None):
+    """Markers on independent smooth paths: marker m at frame j sits at
+    (0.35 sin(ph (1 + m % 3) + m), 0.35 cos(ph (2 + m % 2) + 0.7 m),
+    0.25 sin(ph + 1.3 m)), ph = 2 pi j / n_frames; a camera keeps a marker
+    with z > 0.1 inside 1600 x 1200, then the (u, v) noise, frame-major,
+    camera, then marker. ``occlude``: (frame, marker) pairs left to camera 0
+    alone. The JAX package's ``tests/test_markers.py::_capture``, each
+    camera projecting every frame at once.
+
+    :return: (rows (N, 5) [cam, frame, marker, u, v], truth (I, M, 3)).
+    """
+    rng = np.random.default_rng(seed)
+    ph = 2 * np.pi * np.arange(n_frames) / n_frames
+    m = np.arange(n_markers)
+    truth = np.stack([
+        0.35 * np.sin(ph[:, None] * (1 + m % 3) + m),
+        0.35 * np.cos(ph[:, None] * (2 + m % 2) + 0.7 * m),
+        0.25 * np.sin(ph[:, None] + 1.3 * m)], axis=-1)
+    pts = truth.reshape(-1, 3)
+    keep, uvs = [], []
+    for name in cams.get_names():
+        cam = cams[name]
+        uv = np.asarray(cam.project_points(pts, device="cpu",
+                                           dtype=torch.float64)).reshape(
+            n_frames, n_markers, 2)
+        z = (truth @ cam.extrinsic[:3, :3].T + cam.extrinsic[:3, 3])[..., 2]
+        keep.append((z > 0.1) & (uv[..., 0] > 0) & (uv[..., 0] < 1600)
+                    & (uv[..., 1] > 0) & (uv[..., 1] < 1200))
+        uvs.append(uv)
+    keep, uvs = np.stack(keep, 1), np.stack(uvs, 1)     # (I, C, M)
+    if occlude:
+        for (j, mk) in occlude:
+            keep[j, 1:, mk] = False
+    jj, cc, mm = np.nonzero(keep)                       # frame, cam, marker
+    noisy = uvs[jj, cc, mm] + rng.normal(size=(len(jj), 2)) * noise
+    return np.column_stack([cc, jj, mm, noisy]).astype(float), truth

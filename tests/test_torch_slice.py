@@ -104,31 +104,14 @@ def test_max_nfev_budget_sets_status_4():
 
 
 def test_package_imports_neither_jax_nor_cv2():
-    code = ("import pycamset_tpu_torch, pycamset_tpu_torch.problems, "
-            "pycamset_tpu_torch.optim.cuda_grams, pycamset_tpu_torch._build, "
-            "pycamset_tpu_torch.optim.cuda_selfcal_grams, "
-            "pycamset_tpu_torch.optim.cuda_mixed_grams, "
-            "pycamset_tpu_torch.optim.structured_mixed, "
-            "pycamset_tpu_torch.optim.analytic, "
-            "pycamset_tpu_torch.optim.fleet, pycamset_tpu_torch.from_jax, "
-            "pycamset_tpu_torch.examples.extend_param_handler, "
-            "pycamset_tpu_torch.ops.cuda_cholesky, pycamset_tpu_torch.peak, "
-            "pycamset_tpu_torch.optim.structured, "
-            "pycamset_tpu_torch.optim.handlers, "
-            "pycamset_tpu_torch.optim.driver, "
-            "pycamset_tpu_torch.optim.residuals, "
-            "pycamset_tpu_torch.optim.lm, "
-            "pycamset_tpu_torch.optim.uncertainty, "
-            "pycamset_tpu_torch.optim.problem, "
-            "pycamset_tpu_torch.optim.structured_driver, "
-            "pycamset_tpu_torch.calibration.camera_calibrator, "
-            "pycamset_tpu_torch.models.abstract_target, "
-            "pycamset_tpu_torch.models.camera, "
-            "pycamset_tpu_torch.models.camera_set, "
-            "pycamset_tpu_torch.models.detections, "
-            "pycamset_tpu_torch.ops.triangulation, "
-            "pycamset_tpu_torch.utils.saving, "
-            "pycamset_tpu_torch.utils.blosc_compat, sys; "
+    """Every module of the package, found by walking it (a module added
+    later is held too), imports none of jax, cv2 and pycamset_tpu."""
+    code = ("import importlib, pkgutil, sys, pycamset_tpu_torch as p; "
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "p.__name__ + '.')]; "
+            "[importlib.import_module(n) for n in names]; "
+            "assert len(names) > 40 and 'pycamset_tpu_torch.serving' in names"
+            ", names; "
             "bad = [m for m in ('jax', 'cv2', 'pycamset_tpu') "
             "if m in sys.modules]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
@@ -151,8 +134,9 @@ def test_user_path_does_not_load_the_bench():
 # set_initial_params, run_stereo_calibration, the saved file loaded back
 # and its calibration uncertainty (the loaded handler holds no start: no
 # PnP); then the self-calibration warm-started from it and the free-point
-# handler, each saved and loaded back; the generic and scipy backends; on
-# the CPU at a tiny size.
+# handler, each saved and loaded back; the generic and scipy backends; the
+# tracker's device-seeded batch and an init= frame, and its PnP seed
+# refused; on the CPU at a tiny size.
 CARD_PATH = """
 import sys, tempfile
 sys.modules["cv2"] = None
@@ -206,6 +190,24 @@ except ImportError as err:
     assert "set_initial_params" in str(err), err
 else:
     raise AssertionError("the PnP seed ran without cv2")
+# the serving path: device seeding and init= run, a needed PnP step raises
+from pycamset_tpu_torch.problems import tracking_scene
+from pycamset_tpu_torch.tracking import TargetTracker
+sc = tracking_scene("moving", 6)
+tr = TargetTracker(sc["cams"], sc["target"], device="cpu")
+poses, info = tr.track_batch(sc["det"], seed_mode="device")
+assert np.abs(poses - sc["true"]).max() < 2e-2, poses
+pose, _ = tr.track(sc["det"].get_image_list()[0], init=sc["true"][0])
+assert np.abs(pose - sc["true"][0]).max() < 2e-2
+tr._last_pose = None
+for call in (lambda: tr.track_batch(sc["det"], seed_mode="pnp"),
+             lambda: tr.track(sc["det"].get_image_list()[0])):
+    try:
+        call()
+    except ImportError as err:
+        assert "seed_mode='device'" in str(err), err
+    else:
+        raise AssertionError("the tracker's PnP seed ran without cv2")
 """
 
 
