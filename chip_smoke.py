@@ -175,7 +175,7 @@ the float32 cost against the float64 CPU solve at 4 x 100.
 Then the matrix-free CG reduced solver (``[cg_user_path]``): the rigs the
 JAX rule ("auto": CG above 4096 reduced dimensions) sends to it, through
 the user path with the default options: a 288-camera dome (4320 camera
-dimensions, Kernel B) saved and loaded back, and a 16-camera, 720-view
+dimensions, Kernel B; not saved), and a 16-camera, 720-view
 sweep of a bent board (its template stage dense on Kernel B, its
 self-calibration stage, 4560 dimensions, on Kernel C); per stage the CG
 iterations of each LM step (a spy on the uncaptured solve), no dense
@@ -188,7 +188,25 @@ ms, the peak MiB, status, rms, and the same problem solved dense beside it
 twin per rig and each rig's bits against its one-rig call, timed beside 64
 one-rig launches; ``run_fleet_bundle_adjustment`` one launch a batch
 evaluation, captured = uncaptured, status, rms, the float64 CPU fleet,
-rigs/s beside the 64 rigs solved one by one.
+rigs/s beside the first 16 rigs solved one by one.
+
+Then the fleets of mixed-model rigs and of a chain of the caller's own
+(``[fleet_mixed_models]``, ``FLEET_MIXED``: 64 rigs of 4 cameras x 16
+images at grid 10 through ``run_fleet_bundle_adjustment``): brown_mix
+(one thin-prism camera a rig at camera r mod 4, standard and rational
+cameras elsewhere: a = 22, each rig pinning its own extra columns) as
+template (Kernel B folded), self-calibration (Kernel C folded) and wand
+fleets (the free-point wrappers over C at 16 images and D at 12, folded),
+each folded kernel held to its float64 twin on the fleet's own tensors;
+het (two fisheye and two standard cameras in a rig-specific order, on
+``make_het_grams`` under vmap) template and self-calibration; the skew
+chain (``problems.skew_fleet_handlers``, the forward-mode route under
+vmap). Each: every rig's pinned columns exact zeros in its normal
+equations, the main path's launches, captured = uncaptured, rigs/s
+captured and uncaptured, nit and status, rms, rigs 0-3 and every rig at
+status 4 solved alone, rigs 0-3 against the float64 CPU fleet, peak MiB,
+device events a replay, every line beside the card's name and power
+limit.
 
 Then the generic and scipy backends and calibration uncertainty, which
 reach no kernel (the JAX package computes them in XLA and host scipy):
@@ -3953,7 +3971,8 @@ def fleet_key_operands(prob, cw: int, fused: bool):
     return (*blocks, keyp, tpl, prob.uv, prob.mask, cmask_b, imask_b, kmask)
 
 
-def fleet_key_kernel(kernel: str, model: str, prob, builds: dict) -> dict:
+def fleet_key_kernel(kernel: str, model: str, prob, builds: dict,
+                     build_model: str | None = None) -> dict:
     """One of Kernels C-F folded over a handler fleet's rigs (ONE launch
     under torch.func.vmap), two losses: each rig's outputs against its
     float64 twin (the twin under vmap) in both measures, within TOL or, where
@@ -3961,13 +3980,16 @@ def fleet_key_kernel(kernel: str, model: str, prob, builds: dict) -> dict:
     error (``parity_f32_floor``: the case recorded in F32_FLOOR_CASES); each
     rig's bits against a one-rig launch on its slice; the device time of the
     folded launch beside its rigs' one-rig launches, the wrapper's and the
-    float32 twin's CUDA-event ms, the bound, registers and spills."""
+    float32 twin's CUDA-event ms, the bound, registers and spills
+    (``build_model``: the model whose instantiation ran, where it is not
+    ``model``)."""
     import torch
     from types import SimpleNamespace
 
     from pycamset_tpu_torch.optim import cuda_mixed_grams as mg
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
     name, cw, _ = FLEET_KEY_KERNELS[kernel]
+    build_model = build_model or model
     fused = name.endswith("fused")
     r, c, i = prob.n_rigs, prob.n_cams, prob.n_ims_grid
     a = prob.widths.a
@@ -4057,17 +4079,18 @@ def fleet_key_kernel(kernel: str, model: str, prob, builds: dict) -> dict:
              launch(packed_r[k], keys[k], *(x[k] for x in blocks), kmask[k],
                     *extra, 0, 1, 1.0, a - 6) for k in range(r)]),
          "ms": cuda_ms(folded, 10),
-         # host-bound (64 wrapper calls; the plain twin's vmap): two calls
+         # host-bound (64 wrapper calls; the plain twin's vmap): one call
          "one_rig_launches_ms": cuda_ms(lambda: [
-             one(*(x[k] for x in ops)) for k in range(r)], 2, warmup=1),
+             one(*(x[k] for x in ops)) for k in range(r)], 1, warmup=1),
          "plain_ms": cuda_ms(lambda: torch.func.vmap(
-             lambda *x: twin(*x, *extra, **kw0))(*ops), 2, warmup=1)}
+             lambda *x: twin(*x, *extra, **kw0))(*ops), 1, warmup=1)}
     bound_prob = SimpleNamespace(
         mask=fold(prob.mask), widths=SimpleNamespace(a=a),
         blocks=SimpleNamespace(n_cams=r * c, n_real=int(prob.n_real.sum())))
     t["bound_ms"], t["bound_by"] = bound(name, bound_prob,
                                          None if cw == 3 else cw, rigs=r)
-    res = builds.get((name, model) if cw == 3 else (name, model, cw))
+    res = builds.get((name, build_model) if cw == 3
+                     else (name, build_model, cw))
     if res is None:        # the standard model's, from [build]'s report
         from pycamset_tpu_torch._build import load
         regs, spill = ptxas_entry(
@@ -5014,6 +5037,10 @@ CG_COST_TOL = 1e-3
 FLEET_FREEPOINT = {"freepoint 64x4x16": (16, None, "freepoint_gram_fused"),
                    "freepoint 64x4x12": (12, {"im_bucket": None},
                                          "freepoint_gram")}
+# the wand fleets' rigs solved one by one for the rigs/s beside the fleet's
+# (the first 16: each builds and captures a problem of its own; all 64
+# took about 12 s a shape of the smoke's limit)
+ONE_BY_ONE_RIGS = 16
 
 
 @contextlib.contextmanager
@@ -5163,8 +5190,10 @@ def phase_cg_user_path(counted, dev, kern) -> dict:
     with the "auto" reduced solver, which resolves to CG by the JAX rule
     (``cg_stage``): a 288-camera dome (``problems.template_handler(288,
     32)``: 4320 camera dimensions, Kernel B) through ``run_stereo_calibration`` (the
-    main path: its counts at 0 just before, B alone, no dense solve), its
-    file saved and loaded back; a 16-camera, 720-view sweep of a board
+    main path: its counts at 0 just before, B alone, no dense solve; not
+    saved: the 16 x 100 and 64 x 400 user paths hold the file round trip,
+    and the dome's took 13 s of the smoke's limit); a 16-camera, 720-view
+    sweep of a board
     bent ``BOARD_WARP``: the template stage (dense, n = 240, Kernel B: 720
     images pad nothing at tile 16; B first held to its twin on the stage's
     problem) through ``run_stereo_calibration``, then the self-calibration stage
@@ -5175,8 +5204,6 @@ def phase_cg_user_path(counted, dev, kern) -> dict:
     the uncaptured solve's bit for bit.
 
     :return: {kernel: {solve: launches on its main path}}."""
-    import tempfile
-
     import torch
     from pycamset_tpu_torch.calibration.camera_calibrator import (
         run_stereo_calibration)
@@ -5184,7 +5211,6 @@ def phase_cg_user_path(counted, dev, kern) -> dict:
         build_structured_problem)
     from pycamset_tpu_torch.problems import (selfcal_stage_handler,
                                              template_handler)
-    from pycamset_tpu_torch.utils.saving import load_CameraSet
     launches = {"template_gram_fused": {}, "selfcal_gram_fused": {}}
 
     # the dome
@@ -5195,33 +5221,20 @@ def phase_cg_user_path(counted, dev, kern) -> dict:
     inputs_s = time.perf_counter() - t0
     rec, ref, x_ref, residual_fn = cg_stage(tag, th, CG_USER[shape],
                                              counted, dev, kern)
-    sec = {}
-    with tempfile.TemporaryDirectory() as tmp, cg_spy() as spy:
-        path = os.path.join(tmp, "dome.camset")
-        from pycamset_tpu_torch.models.camera_set import CameraSet
-        with timed_method(CameraSet, "save", sec, "save"):
-            solved, n_own, _, e2e_s = main_path_counts(
-                counted, CG_USER[shape], tag, lambda: run_stereo_calibration(
-                    None, None, None, param_handler=th, save=True,
-                    save_loc=path, device=dev))
-        t0 = time.perf_counter()
-        back = load_CameraSet(path)
-        load_s = time.perf_counter() - t0
-        file_mib = os.path.getsize(path) / 2 ** 20
+    with cg_spy() as spy:
+        solved, n_own, _, e2e_s = main_path_counts(
+            counted, CG_USER[shape], tag, lambda: run_stereo_calibration(
+                None, None, None, param_handler=th, save=False,
+                device=dev))
     check(spy["dense"] == 0, f"{tag}: the main path made a dense solve")
     check(np.array_equal(solved.calibration_params, x_ref),
           f"{tag}: run_stereo_calibration's parameters differ from the "
           f"uncaptured solve's")
-    check(back == solved and np.array_equal(back.calibration_params,
-                                            solved.calibration_params),
-          f"{tag}: the loaded CameraSet differs from the returned")
     say("cg_user_path", shape=shape.replace(" ", "_"), **rec,
         e2e_launches=n_own, inputs_s=f"{inputs_s:.2f}",
-        run_stereo_calibration_s=f"{e2e_s:.2f}",
-        save_s=f"{sec.get('save', float('nan')):.2f}",
-        load_s=f"{load_s:.2f}", file_mib=f"{file_mib:.1f}")
+        run_stereo_calibration_s=f"{e2e_s:.2f}")
     launches[CG_USER[shape]][f"cg_user_path {shape}"] = n_own
-    del th, solved, back
+    del th, solved
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5276,15 +5289,18 @@ def phase_cg_user_path(counted, dev, kern) -> dict:
     return launches
 
 
-def fleet_freepoint_kernel(prob, own: str) -> dict:
+def fleet_freepoint_kernel(prob, own: str, lens=None) -> dict:
     """A free-point wrapper (over Kernel C or D) folded over a wand fleet's
     rigs (one launch under torch.func.vmap) on the fleet's own tensors at
     its start, every lens column free but one (``freepoint_inputs``), two
-    losses: each rig against its float64 twin in both measures
-    (``parity_f32_floor``); each rig's bits against its one-rig call; the
-    folded launch's device time beside its rigs' one-rig launches, the
-    wrapper's and the float32 twin's CUDA-event ms, and the free-point
-    function's bound for the rigs' work (``freepoint_bound``)."""
+    losses: each rig against its float64 twin (the twin under vmap) in
+    both measures (``parity_f32_floor``); each rig's bits against its
+    one-rig call; the folded launch's device time beside its rigs' one-rig
+    launches, the wrapper's and the float32 twin's CUDA-event ms, and the
+    free-point function's bound for the rigs' work (``freepoint_bound``).
+    ``lens``:
+    (R, C, a - 6) 0/1 lens columns to free in place of every one (a
+    mixed-model rig's pinned extra coefficients kept pinned)."""
     import torch
     from types import SimpleNamespace
 
@@ -5294,7 +5310,7 @@ def fleet_freepoint_kernel(prob, own: str) -> dict:
     a = prob.widths.a
     x, cm = prob.x0_pieces, prob.colmask
     cmask = cm.cam.clone()
-    cmask[..., :a - 6] = 1.0
+    cmask[..., :a - 6] = 1.0 if lens is None else lens
     cmask[..., 3] = 0.0
     cam_b = torch.repeat_interleave(x.cam, i, dim=1)
     cmask_b = torch.repeat_interleave(cmask, i, dim=1)
@@ -5329,9 +5345,10 @@ def fleet_freepoint_kernel(prob, own: str) -> dict:
         got = folded(**kw)
         check(wrapper.launches == n0 + 1,
               f"{tag}: the folded kernel took more than one launch")
+        ref = torch.func.vmap(lambda *y: plain(*y, **kw))(*ops64)
         for k in range(r):
             rows = [g[k] for g in got]
-            refs = plain(*(y[k] for y in ops64), **kw)
+            refs = [x[k] for x in ref]
             e = parity_f32_floor(
                 f"{tag} rig {k} {loss}/{sem}", rows, refs,
                 scaled_of(rows, refs),
@@ -5343,7 +5360,7 @@ def fleet_freepoint_kernel(prob, own: str) -> dict:
             worst_rig_max_abs=f"{rec['rel']:.2e}",
             worst_rig_scaled=f"{rec['scaled']:.2e}",
             f32_floor_cases=len(F32_FLOOR_CASES) - n_floor)
-        del got
+        del got, ref
         torch.cuda.empty_cache()
     rec["f32_floor_cases"] = F32_FLOOR_CASES[n_floor:]
     got = folded()
@@ -5380,9 +5397,11 @@ def fleet_freepoint_kernel(prob, own: str) -> dict:
          "one_rig_launches_kernel_ms": kernel_ms(
              lambda: [launch_one(k) for k in range(r)]),
          "ms": cuda_ms(folded, 5),
+         # host-bound (64 wrapper calls; the plain twin's vmap): one call
          "one_rig_launches_ms": cuda_ms(lambda: [
-             one(*(y[k] for y in ops)) for k in range(r)], 2),
-         "plain_ms": cuda_ms(lambda: torch.func.vmap(plain)(*ops), 2)}
+             one(*(y[k] for y in ops)) for k in range(r)], 1, warmup=1),
+         "plain_ms": cuda_ms(lambda: torch.func.vmap(plain)(*ops), 1,
+                             warmup=1)}
     bound_prob = SimpleNamespace(
         mask=fold(prob.mask), widths=SimpleNamespace(a=a),
         blocks=SimpleNamespace(n_cams=r * c, n_real=int(prob.n_real.sum())))
@@ -5408,8 +5427,8 @@ def phase_fleet_freepoint(counted, dev) -> dict:
     of the batch), the fleet captured (= the main path's per-rig results
     bit for bit), every rig at status 1-2 and rms <= 0.36 px, the first 4
     rigs' costs within 1e-4 of the port's float64 CPU fleet, rigs/s of the
-    warm batch beside the 64 rigs solved one by one (each its own
-    ``build_structured_problem``, captured, warm).
+    warm batch beside the first ``ONE_BY_ONE_RIGS`` rigs solved one by
+    one (each its own ``build_structured_problem``, captured, warm).
 
     :return: {shape: {"own", "launches", "kernel": the folded record,
         ...}}."""
@@ -5459,9 +5478,9 @@ def phase_fleet_freepoint(counted, dev) -> dict:
                                         f"float64 CPU fleet by {rel.max()}")
         warm_ms = timed(prob.solve_batch, 3)
         median = float(np.median(warm_ms))
-        # the same rigs one by one: each its own problem, captured, warm
+        # the first rigs one by one: each its own problem, captured, warm
         solos = []
-        for h in handlers:
+        for h in handlers[:ONE_BY_ONE_RIGS]:
             fn, _, x0 = build_structured_problem(h, device=dev)
             fn(x0)
             solos.append((fn, x0))
@@ -5481,9 +5500,10 @@ def phase_fleet_freepoint(counted, dev) -> dict:
                    solve_ms_median=f"{median:.3f}",
                    solve_ms_all=",".join(f"{t:.2f}" for t in warm_ms),
                    rigs_per_s=f"{prob.n_rigs / median * 1e3:.1f}",
+                   one_by_one_rigs=ONE_BY_ONE_RIGS,
                    one_by_one_ms=f"{one_ms[0]:.3f}",
                    one_by_one_rigs_per_s=(
-                       f"{prob.n_rigs / one_ms[0] * 1e3:.1f}"),
+                       f"{ONE_BY_ONE_RIGS / one_ms[0] * 1e3:.1f}"),
                    capture_ms=",".join(
                        f"{n}:{runners[n].capture_ms:.1f}"
                        for n in sorted(runners, reverse=True)
@@ -5494,8 +5514,379 @@ def phase_fleet_freepoint(counted, dev) -> dict:
             **rec)
         out[shape] = {"own": own, "launches": n_own, "kernel": kern,
                       "rigs_per_s": prob.n_rigs / median * 1e3,
-                      "one_by_one_rigs_per_s": prob.n_rigs / one_ms[0] * 1e3}
+                      "one_by_one_rigs_per_s": (ONE_BY_ONE_RIGS / one_ms[0]
+                                                * 1e3)}
         del results, first, warm, prob, handlers
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# [fleet_mixed_models]: fleets of mixed-model rigs and of a chain of the
+# caller's own, 64 rigs of 4 cameras (grid 10, seeds 100 + r, one target)
+# -> (chain, images, options, the rigs' camera models, the gram wrapper of
+# the main path or None: no kernel in either package). brown_mix: one
+# thin-prism camera a rig (camera r mod 4), standard and rational cameras
+# elsewhere (the thin-prism chain, a = 22, the narrower cameras' extra
+# coefficients pinned rig by rig); het: two fisheye and two standard
+# cameras in a rig-specific order (ProjectionHet, a = 16, make_het_grams);
+# skew: problems.skew_fleet_handlers (the forward-mode route). The last
+# entry: the budget (evaluations) at which rigs 0-3 are compared with
+# their solves alone and with float64 on the CPU, None the fleet's own.
+# The thin-prism valley is flat: float32 stops a rig wherever a step's
+# change falls under its rounding (8 to 46 steps for one rig, the cost
+# 1e-3 apart), float64 crawls on to 79-99; so those fleets are compared
+# at a stated budget (ROADMAP Queue C 6)
+FLAT_BUDGET = 6
+FLEET_MIXED = {
+    "brown_mix template 64x4x16": ("template", 16, None, "brown_mix",
+                                   "template_gram_fused", FLAT_BUDGET),
+    "brown_mix selfcal 64x4x16": ("selfcal", 16, None, "brown_mix",
+                                  "selfcal_gram_fused", FLAT_BUDGET),
+    "brown_mix freepoint 64x4x16": ("freepoint", 16, None, "brown_mix",
+                                    "freepoint_gram_fused", None),
+    "brown_mix freepoint 64x4x12": ("freepoint", 12, {"im_bucket": None},
+                                    "brown_mix", "freepoint_gram", None),
+    "het template 64x4x16": ("template", 16, None, "het", None, None),
+    "het selfcal 64x4x16": ("selfcal", 16, None, "het", None, None),
+    "skew template 64x4x16": ("skew", 16, None, "standard", None, None),
+}
+# rigs 0..FLEET_SOLO - 1 solved alone and on the CPU in float64
+FLEET_SOLO = 4
+# the wrapper of each kernel a brown_mix fleet's hold ran, for its build
+FLEET_MIXED_BUILD = {"template_gram_fused": "template_gram_fused",
+                     "selfcal_gram_fused": "selfcal_gram_fused",
+                     "freepoint_gram_fused": "selfcal_gram_fused",
+                     "freepoint_gram": "selfcal_gram"}
+
+
+def fleet_maps(kind: str, n_rigs: int, n_cams: int = 4):
+    """The rigs' camera models (``FLEET_MIXED``), one list a rig."""
+    import itertools
+    if kind == "brown_mix":
+        return [["thin_prism" if c == r % n_cams
+                 else ("standard", "rational")[(c + r) % 2]
+                 for c in range(n_cams)] for r in range(n_rigs)]
+    if kind == "het":
+        orders = sorted(set(itertools.permutations(
+            ("fisheye",) * 2 + ("standard",) * (n_cams - 2))))
+        return [list(orders[r % len(orders)]) for r in range(n_rigs)]
+    return kind
+
+
+def fleet_pinned_zero(tag, prob) -> tuple[int, int]:
+    """The fleet's normal equations at its starts under torch.func.vmap on
+    the card (one folded launch of its kernel, or the plain route): every
+    rig's pinned camera columns (its own map's) exact zeros in its hcc
+    rows and columns, gc, wci and wck. Returns the fewest and the most
+    pinned columns of a rig."""
+    import torch
+    neq = torch.func.vmap(prob.neq_fn())(prob.x0_pieces, *prob.data())
+    pinned = prob.colmask.cam == 0
+    for r in range(prob.n_rigs):
+        p = pinned[r]
+        check(bool(p.any()) and all(bool((x == 0).all()) for x in (
+            neq.gc[r][p], neq.hcc[r][p], neq.hcc[r].transpose(1, 2)[p],
+            neq.wci[r].transpose(0, 1)[:, p],
+            neq.wck[r].transpose(1, 2)[p])),
+            f"{tag} rig {r}: a pinned column is not exact zeros")
+    counts = pinned.sum((1, 2)).tolist()
+    return min(counts), max(counts)
+
+
+def fleet_b_kernel(tag, prob, build: dict) -> dict:
+    """Kernel B folded over a handler fleet's rigs (ONE launch under
+    torch.func.vmap) on the fleet's own tensors at its starts, two losses:
+    against its float64 twin in the solver's Jacobi scaling and of each
+    rig's max-abs (within TOL, or twice the float32 twin's error where the
+    twin misses TOL itself, ``within_f32_floor``); each rig's bits against
+    a one-rig launch on its slice; the folded launch's device time beside
+    its rigs' one-rig launches, the wrapper's and the float32 twin's ms,
+    the bound, registers and spills (``build``)."""
+    import torch
+    from types import SimpleNamespace
+
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    r, c, i, a = prob.n_rigs, prob.n_cams, prob.n_ims_grid, prob.widths.a
+    x, tpl = prob.x0_pieces, prob.tpl
+    ops = (torch.repeat_interleave(x.cam, i, dim=1), x.im.repeat(1, c, 1),
+           prob.uv, prob.mask)
+    ops64 = tuple(fold(t).double() for t in ops)
+
+    def folded(**kw):
+        return torch.func.vmap(lambda cb, ib, u, m: cg.template_gram_fused(
+            cb, ib, tpl, u, m, c, i, **kw))(*ops)
+
+    rec = {"abs": 0.0, "rel": 0.0, "scaled": 0.0, "f32_floor_outputs": 0}
+    for loss, sem in FLEET_KEY_LOSSES:
+        kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
+        n0 = cg.template_gram_fused.launches
+        got = folded(**kw)
+        check(cg.template_gram_fused.launches == n0 + 1,
+              f"{tag}: the folded Kernel B took more than one launch")
+        ref = cg.template_gram_fused_plain(*ops64[:2], tpl.double(),
+                                           *ops64[2:], r * c, i, **kw)
+        gram = cg.template_gram_plain(*ops64[:2], tpl.double(), *ops64[2:],
+                                      **kw)
+        got_f = [fold(g) for g in got]
+        scaled = cg.scaled_errors_fused(got_f, ref, gram, r * c, i)
+        unfolded = [t.reshape(g.shape) for t, g in zip(ref, got)]
+        rel = dict(zip(B_OUTPUTS, per_rig_max_abs(got, unfolded)))
+        floor, rel_floor = dict.fromkeys(scaled, 0.0), dict.fromkeys(rel, 0.0)
+        if max(*scaled.values(), *rel.values()) > TOL:
+            # the float32 twin on the same inputs: the float32 floor
+            twin32 = cg.template_gram_fused_plain(
+                *(fold(t) for t in ops[:2]), tpl, *(fold(t) for t in ops[2:]),
+                r * c, i, **kw)
+            floor = cg.scaled_errors_fused(twin32, ref, gram, r * c, i)
+            rel_floor = dict(zip(B_OUTPUTS, per_rig_max_abs(
+                [t.reshape(g.shape) for t, g in zip(twin32, got)],
+                unfolded)))
+        check(all(bool(g.isfinite().all()) for g in got)
+              and within_f32_floor(scaled, floor)
+              and within_f32_floor(rel, rel_floor),
+              f"{tag} {loss}/{sem}: scaled {scaled}, the float32 twin's "
+              f"{floor}; per-rig max-abs {rel}, the twin's {rel_floor}")
+        rec["abs"] = max(rec["abs"], max(
+            float((g.double() - t).abs().max()) for g, t in zip(got_f, ref)))
+        rec["rel"] = max(rec["rel"], max(rel.values()))
+        rec["scaled"] = max(rec["scaled"], max(scaled.values()))
+        rec["f32_floor_outputs"] += sum(
+            v > TOL for v in (*scaled.values(), *rel.values()))
+        say("fleet_mixed_models_kernel", fleet=tag.replace(" ", "_"),
+            kernel="B", loss=loss, semantics=sem, tol=TOL, launches=1,
+            **{f"B_{k}": f"{v:.2e}" for k, v in scaled.items()},
+            **{f"B_max_abs_{k}": f"{v:.2e}" for k, v in rel.items()},
+            **{f"f32_twin_{k}": f"{v:.2e}" for k, v in floor.items()
+               if v})
+        del got, ref, gram, got_f
+    got = folded()
+    same = sum(all(torch.equal(g[k], o) for g, o in zip(
+        got, cg.template_gram_fused(*(t[k] for t in ops[:2]), tpl,
+                                    *(t[k] for t in ops[2:]), c, i)))
+               for k in range(r))
+    check(same == r, f"{tag}: {r - same} of {r} rigs' Kernel B bits "
+                     f"differ from their one-rig launches")
+    packed = cg.pack_block_params(fold(ops[0]), fold(ops[1]))
+    packed_r = [cg.pack_block_params(ops[0][k], ops[1][k]) for k in range(r)]
+    uv_f, mask_f = fold(ops[2]), fold(ops[3])
+    t = {"kernel_ms": kernel_ms(lambda: cg._launch_gram_fused(
+            packed, tpl, uv_f, mask_f, r * c, i, 0, 1, 1.0, a - 6)),
+         "one_rig_launches_kernel_ms": kernel_ms(lambda: [
+             cg._launch_gram_fused(packed_r[k], tpl, ops[2][k], ops[3][k],
+                                   c, i, 0, 1, 1.0, a - 6)
+             for k in range(r)]),
+         "ms": cuda_ms(folded, 10),
+         "plain_ms": cuda_ms(lambda: cg.template_gram_fused_plain(
+             fold(ops[0]), fold(ops[1]), tpl, uv_f, mask_f, r * c, i), 3)}
+    bound_prob = SimpleNamespace(
+        mask=fold(prob.mask), widths=SimpleNamespace(a=a),
+        blocks=SimpleNamespace(n_cams=r * c, n_real=int(prob.n_real.sum())))
+    t["bound_ms"], t["bound_by"] = bound("template_gram_fused", bound_prob)
+    check(build["spill_bytes"] == 0, f"{tag}: {build['spill_bytes']} spill "
+                                     f"bytes")
+    rec.update(t, same_bits_rigs=same, launches_per_call=1,
+               registers=build["registers"], spill_bytes=build["spill_bytes"])
+    say("fleet_mixed_models_kernel", fleet=tag.replace(" ", "_"),
+        kernel="B", unit="ms", same_bits_rigs=f"{same}/{r}",
+        registers=build["registers"], spill_bytes=build["spill_bytes"],
+        **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+           for k, v in t.items()})
+    del ops, ops64, packed, packed_r, got
+    return rec
+
+
+def fleet_mixed_solve(tag, handlers, prob, own, counted, dev, maps,
+                      budget: int | None) -> dict:
+    """One fleet of ``FLEET_MIXED`` through ``run_fleet_bundle_adjustment``
+    as its main path (uncaptured, the counts at 0 just before: ``own``
+    alone, one launch a batch evaluation; None: no gram wrapper at all),
+    its peak MiB above what was allocated before; the fleet captured and
+    warm (each rig's nit, nfev, status and free vector the main path's, bit
+    for bit); rigs/s of warm solves, captured and uncaptured; nit and
+    status counts, rms a rig, every rig at status 4 solved alone
+    (``solo(r)``, the one-rig LM on the card) and at 4 there too; the
+    device events a replay of the fleets without a gram kernel
+    (torch.profiler, where it records any); each
+    camera at its model's distortion width. Then at the comparison budget
+    (``budget`` evaluations; None: the fleet's own): the fleet's rigs 0-3
+    against each solved alone (status 4 only where alone too; the cost
+    within 1e-4) and against the port's float64 CPU fleet of those rigs
+    (the cost within 1e-4)."""
+    import dataclasses
+
+    import torch
+    from pycamset_tpu_torch.optim.fleet import (build_fleet_problem,
+                                                run_fleet_bundle_adjustment)
+    r = prob.n_rigs
+    base_mib = mib_allocated()
+    (results, camsets), n_own, n_psd, main_s = main_path_counts(
+        counted, own, tag, lambda: run_fleet_bundle_adjustment(
+            handlers, device=dev, graph=False))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20 - base_mib
+    runners = prob.graph()
+    first = prob.solve_batch()                      # captures
+    before = {n: (g.steps, g.replays) for n, g in runners.items()}
+    warm = prob.solve_batch()
+    steps = sum(g.steps - before[n][0] for n, g in runners.items())
+    replays = sum(g.replays - before[n][1] for n, g in runners.items())
+    check(same_fleet(first, warm), f"{tag}: two captured solves differ")
+    for k, res in enumerate(results):
+        x_k = prob.extract_free(k, prob.rig_result(warm, k).x)
+        check((res.nit, res.nfev, res.status)
+              == (warm.nit[k], warm.nfev[k], int(warm.status[k]))
+              and np.array_equal(res.x, x_k),
+              f"{tag} rig {k}: the captured solve differs from the main "
+              f"path's uncaptured one")
+    check(n_psd == 0, f"{tag}: the SPD kernel launched off its route")
+    if own is not None:
+        check(n_own == 1 + steps and n_own < sum(warm.nfev),
+              f"{tag}: {own} launched {n_own} times in {steps} batch steps "
+              f"(+1 slm_init), {sum(warm.nfev)} rig evaluations")
+    widths = [[DIST_WIDTH[m] for m in (mm if isinstance(mm, list)
+                                       else [mm] * prob.n_cams)]
+              for mm in (maps if isinstance(maps, list) else [maps] * r)]
+    check(all([int(np.ravel(c.distortion_coefs).size) for c in cams] == w
+              for cams, w in zip(camsets, widths)),
+          f"{tag}: a camera lost its model's distortion width")
+    status = [int(s) for s in warm.status.tolist()]
+    rms = prob.rms_px(warm.cost)
+    check(all(s in (1, 2, 4) for s in status), f"{tag}: status {status}")
+    check(float(rms.max()) <= 0.36, f"{tag}: rms {rms.max():.4f} above "
+                                    f"0.36 px")
+    at_budget = [k for k, s in enumerate(status) if s == 4]
+    for k in at_budget:
+        st = int(prob.solo(k).solve().status)
+        check(st == 4, f"{tag} rig {k}: status 4 in the fleet, {st} alone")
+    warm_ms = timed(prob.solve_batch, 3)
+    host_ms = timed(lambda: prob.solve_batch(graph=False), 1, warmup=0)
+    median = float(np.median(warm_ms))
+    # the replays' device events, where no gram kernel counts the launches
+    events = (profiled(prob.solve_batch, pauses=(0.0, 1.0))[0]
+              if own is None else [])
+    # rigs 0-3 at the comparison budget: alone, and float64 on the CPU
+    cmp = (prob if budget is None else dataclasses.replace(
+        prob, max_nfev=budget, graphs={}, solos={}))
+    fleet = warm if budget is None else cmp.solve_batch()
+    alone = {k: cmp.solo(k).solve() for k in range(FLEET_SOLO)}
+    solo_rel = {k: abs(float(fleet.cost[k]) - float(b.cost)) / float(b.cost)
+                for k, b in alone.items()}
+    solo_same = [k for k, b in alone.items()
+                 if (int(b.nit), int(b.nfev), int(b.status))
+                 == (fleet.nit[k], fleet.nfev[k], int(fleet.status[k]))]
+    for k, b in alone.items():
+        check((int(fleet.status[k]) == 4) == (int(b.status) == 4)
+              and solo_rel[k] <= 1e-4,
+              f"{tag} rig {k} at {cmp.max_nfev} evaluations: cost "
+              f"{solo_rel[k]:.2e} from its solve alone (nit "
+              f"{fleet.nit[k]} / {int(b.nit)}, status "
+              f"{int(fleet.status[k])} / {int(b.status)})")
+    t0 = time.perf_counter()
+    cpu = build_fleet_problem(handlers[:FLEET_SOLO], device="cpu")
+    if budget is not None:
+        cpu = dataclasses.replace(cpu, max_nfev=budget)
+    cpu = cpu.solve_batch()
+    cpu_s = time.perf_counter() - t0
+    rel = ((fleet.cost[:FLEET_SOLO].double().cpu() - cpu.cost)
+           / cpu.cost).abs()
+    check(float(rel.max()) <= 1e-4,
+          f"{tag}: at {cmp.max_nfev} evaluations the cost differs from the "
+          f"float64 CPU fleet by {rel.max():.3e}")
+    nit = np.array(warm.nit)
+    return dict(
+        rigs=r, cameras=prob.n_cams, im_grid=prob.n_ims_grid,
+        a=prob.widths.a, n_real=int(prob.n_real.sum()),
+        launches=n_own if own else "none", batch_evaluations=1 + steps,
+        rig_evaluations=sum(warm.nfev), nit_min=int(nit.min()),
+        nit_median=float(np.median(nit)), nit_max=int(nit.max()),
+        status_counts={s: status.count(s) for s in sorted(set(status))},
+        rms_px_median=f"{np.median(rms):.5f}", rms_px_max=f"{rms.max():.5f}",
+        status4_rigs_alone_at_4=len(at_budget),
+        compared_at_evaluations=cmp.max_nfev,
+        fleet_nit_0_3=",".join(str(fleet.nit[k]) for k in alone),
+        fleet_status_0_3=",".join(str(int(fleet.status[k])) for k in alone),
+        solo_nit_0_3=",".join(str(int(b.nit)) for b in alone.values()),
+        solo_status_0_3=",".join(str(int(b.status)) for b in alone.values()),
+        solo_same_nit_nfev_status=f"{len(solo_same)}/{len(alone)}",
+        solo_rel_cost_diff_max=f"{max(solo_rel.values()):.3e}",
+        cpu_f64_nit_0_3=",".join(map(str, cpu.nit)),
+        rel_cost_diff_cpu_f64_0_3=f"{rel.max():.3e}",
+        cpu_f64_4_rigs_s=f"{cpu_s:.1f}", main_path_s=f"{main_s:.2f}",
+        peak_mib_main_path=f"{peak:.0f}", mib_before=f"{base_mib:.0f}",
+        solve_ms_median=f"{median:.3f}",
+        solve_ms_all=",".join(f"{x:.2f}" for x in warm_ms),
+        rigs_per_s=f"{r / median * 1e3:.1f}",
+        solve_ms_uncaptured=f"{host_ms[0]:.3f}",
+        rigs_per_s_uncaptured=f"{r / host_ms[0] * 1e3:.1f}",
+        replays=replays,
+        **({} if own else {
+            "device_events_warm_solve": len(events) or "not measured",
+            "device_events_per_replay": (f"{len(events) / replays:.0f}"
+                                         if events and replays
+                                         else "not measured")}),
+        capture_ms=",".join(f"{n}:{runners[n].capture_ms:.1f}"
+                            for n in sorted(runners, reverse=True)
+                            if runners[n].capture_ms is not None))
+
+
+def phase_fleet_mixed_models(counted, dev, builds: dict, smi: str) -> dict:
+    """[fleet_mixed_models]: the fleets of ``FLEET_MIXED``. For each, the
+    pinned columns of every rig exact zeros in its normal equations under
+    the fleet's vmap (``fleet_pinned_zero``); the brown_mix fleets' kernel
+    folded over the 64 rigs, every rig pinning its own columns, held to
+    its float64 twin (``fleet_b_kernel``; Kernel C, ``fleet_key_kernel``;
+    the free-point wrappers over C and D, ``fleet_freepoint_kernel`` with
+    each rig's lens mask); then the solves (``fleet_mixed_solve``). Every
+    line beside the card's name and power limit.
+
+    :return: {fleet: {"own", "launches", "kernel" (the brown_mix fleets'
+        held record) , "rigs_per_s"}}."""
+    import torch
+    from pycamset_tpu_torch.optim.fleet import build_fleet_problem
+    from pycamset_tpu_torch.problems import (fleet_handlers,
+                                             skew_fleet_handlers)
+    out = {}
+    for tag, (chain, n_ims, opts, kind, own, budget) in FLEET_MIXED.items():
+        t_fleet = time.perf_counter()
+        r, n_cams = (int(x) for x in tag.split()[-1].split("x")[:2])
+        maps = fleet_maps(kind, r, n_cams)
+        if chain == "skew":
+            handlers = skew_fleet_handlers(r, n_cams, n_ims, options=opts)
+        else:
+            handlers = fleet_handlers(chain, r, n_cams, n_ims, options=opts,
+                                      camera_model=maps)
+        prob = build_fleet_problem(handlers, device=dev)
+        setup_s = time.perf_counter() - t_fleet
+        pinned = (fleet_pinned_zero(tag, prob) if kind != "standard"
+                  else None)
+        kern = None
+        if own is not None:
+            build = builds[(FLEET_MIXED_BUILD[own], "thin_prism")]
+            if own == "template_gram_fused":
+                kern = fleet_b_kernel(tag, prob, build)
+            elif own == "selfcal_gram_fused":
+                kern = fleet_key_kernel("C", "brown_mix", prob, builds,
+                                        build_model="thin_prism")
+            else:
+                lens = torch.stack([torch.as_tensor(
+                    h.bundlePrimitive.intr_colmask, dtype=prob.uv.dtype,
+                    device=dev) for h in handlers])
+                kern = fleet_freepoint_kernel(prob, own, lens=lens)
+                kern.update(registers=build["registers"],
+                            spill_bytes=build["spill_bytes"])
+            check(kern["spill_bytes"] == 0, f"{tag}: spills")
+        rec = fleet_mixed_solve(tag, handlers, prob, own, counted, dev,
+                                maps, budget)
+        rec.update(pinned_columns_a_rig=(f"{pinned[0]}-{pinned[1]}"
+                                         if pinned else 0),
+                   setup_s=f"{setup_s:.1f}",
+                   seconds=f"{time.perf_counter() - t_fleet:.1f}")
+        say("fleet_mixed_models", fleet=tag.replace(" ", "_"), card=smi,
+            kernel=own or "none", same_bits=True, **rec)
+        out[tag] = {"own": own, "launches": rec["launches"], "kernel": kern,
+                    "rigs_per_s": float(rec["rigs_per_s"]),
+                    "solve_ms_median": float(rec["solve_ms_median"])}
+        del handlers, prob
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -6910,6 +7301,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
+    fleet_mm = phase_fleet_mixed_models(counted, dev, builds, smi)
+    for tag, rec in fleet_mm.items():
+        if rec["own"] is not None:
+            launches[rec["own"]][f"fleet_mixed_models {tag}"] = (
+                rec["launches"])
+    say("elapsed", after="fleet_mixed_models",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
     _, solved = phase_generic(dev, counted)
     say("elapsed", after="generic",
         seconds=f"{time.perf_counter() - t_start:.1f}",
@@ -6963,6 +7365,18 @@ def main() -> int:
         launches["template_gram_fused"][f"tied_fleet 64x4x16 ({route})"] = (
             rec["launches"])
 
+    def mixed_fleets(name: str) -> dict:
+        """The [fleet_mixed_models] fleets on kernel ``name``: the held
+        record of the kernel folded with per-rig pinned columns, the
+        launches of the fleet's main path and its rigs/s."""
+        return {tag: {**{k: v for k, v in r["kernel"].items()
+                         if k != "f32_floor_cases"},
+                      "f32_floor_cases": len(r["kernel"].get(
+                          "f32_floor_cases", ())),
+                      "launches": r["launches"],
+                      "rigs_per_s": r["rigs_per_s"]}
+                for tag, r in fleet_mm.items() if r["own"] == name}
+
     fleet_shape = f"fleet {'x'.join(map(str, FLEET))}"
     launches["template_gram_fused"][fleet_shape] = fleet_rec["launches"]
     kernels = []
@@ -6992,13 +7406,17 @@ def main() -> int:
             extra["fleet_handlers"] = handler_fleets
         if name in mixed_times:     # the pinned-column mixed Brown rigs
             extra["mixed_rigs"] = mixed_times[name]
+        held = [*kern[name].values()]
+        if mixed_fleets(name):      # folded over mixed-model rigs
+            extra["fleet_mixed_models"] = mixed_fleets(name)
+            held += list(extra["fleet_mixed_models"].values())
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches[name].values()),
             "launches_by_solve": launches[name],
-            "max_abs_err": max(r["abs"] for r in kern[name].values()),
-            "max_rel_err": max(r["rel"] for r in kern[name].values()),
-            "max_scaled_err": max(r["scaled"] for r in kern[name].values()),
+            "max_abs_err": max(r["abs"] for r in held),
+            "max_rel_err": max(r["rel"] for r in held),
+            "max_scaled_err": max(r["scaled"] for r in held),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "kernel_ms": rec["kernel_ms"], "bmm_ms": rec["bmm_ms"],
@@ -7008,7 +7426,8 @@ def main() -> int:
         bound_ms, bound_by = freepoint_bound(name, fp_probs[shape])
         # the shapes' records and the wrapper folded over a wand fleet
         held = [*fp_kern[name].values(),
-                *(r["kernel"] for r in fleet_fp.values() if r["own"] == name)]
+                *(r["kernel"] for r in fleet_fp.values() if r["own"] == name),
+                *mixed_fleets(name).values()]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches[name].values()),
@@ -7028,6 +7447,8 @@ def main() -> int:
             "kernel_ms_other_shape": {
                 s: r["kernel_ms"] for s, r in fp_kern[name].items()
                 if s != shape},
+            **({"fleet_mixed_models": mixed_fleets(name)}
+               if mixed_fleets(name) else {}),
             "wrapper_over": ("selfcal_gram_fused (Kernel C)"
                              if name.endswith("fused")
                              else "selfcal_gram (Kernel D)"),

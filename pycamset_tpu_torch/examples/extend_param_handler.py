@@ -95,8 +95,11 @@ class TwoTargetCalibrator(TemplateBundleHandler):
             kinds = sorted(set(self.camera_models))
             raise NotImplementedError(
                 f"a per-camera camera_model map {kinds} on the two-target "
-                f"chains is not ported yet (ROADMAP Queue A item 7): give "
-                f"the rig one model")
+                f"example handlers: the JAX package's twins replace the "
+                f"chain's projection with the standard model's, so there is "
+                f"no behaviour to match; give the rig one model (the "
+                f"heterogeneous two-target chains themselves run through "
+                f"problems.grouped_problem / mixed_problem)")
         self.extra_target = target1
         self.extra_detection = detection1
         self.len0 = target0.point_data.reshape(-1, 3).shape[0]

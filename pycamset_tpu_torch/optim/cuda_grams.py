@@ -49,6 +49,11 @@ GRAM_W = 22         # 15 cam + 6 pose + 1 residual column, standard model
 # the camera widths a = intr_w + 6 Kernels A and B serve: fisheye 14,
 # standard 15, rational 18, thin-prism 22, tilted 24
 TEMPLATE_WIDTHS = (14, 15, 18, 22, 24)
+# the end of every kernel's width refusal: the one other width a chain
+# reaches, a heterogeneous rig's selector row, has no kernel
+NO_KERNEL_WIDTH = ("a heterogeneous rig's selector row (a = 16) takes "
+                   "structured.make_het_grams: the JAX package has no "
+                   "kernel for it either")
 FUSED_CHUNK = 4     # images of one camera per thread block in Kernel B
 _LOSS_IDS = {name: i for i, name in enumerate(LOSSES)}  # csrc loss enum
 
@@ -71,7 +76,7 @@ def pack_block_params(cam_b: torch.Tensor,
     if a not in TEMPLATE_WIDTHS:
         raise NotImplementedError(
             f"camera width {a} is not a camera model's: the kernels serve "
-            f"{TEMPLATE_WIDTHS} (ROADMAP Queue A item 7)")
+            f"{TEMPLATE_WIDTHS}; {NO_KERNEL_WIDTH}")
     iw = a - 6
     re = rodrigues_to_matrix(cam_b[:, iw:iw + 3])
     rp = rodrigues_to_matrix(im_b[:, :3])
@@ -209,9 +214,8 @@ def _check_cuda_inputs(cam_b, im_b, tpl, uv, mask, **masks):
     a = cam_b.shape[1]
     if a not in TEMPLATE_WIDTHS:
         raise NotImplementedError(
-            f"camera width {a} is not ported yet on this kernel (ROADMAP "
-            f"Queue A item 7); it serves the camera widths "
-            f"{TEMPLATE_WIDTHS}")
+            f"camera width {a} has no kernel: it serves the camera widths "
+            f"{TEMPLATE_WIDTHS}; {NO_KERNEL_WIDTH}")
     want = {"cam_b": (bb, a), "im_b": (bb, 6), "tpl": (k, 3),
             "uv": (bb, k, 2), "cmask_b": (bb, a), "imask_b": (bb, 6),
             "kmask": (k, 3)}
@@ -436,9 +440,9 @@ def _launch_gram_fused(packed, tpl, uv, mask, n_cams, n_ims, loss_id,
 def _check_template_widths(widths):
     if (widths.b, widths.c) != (6, 0) or widths.a not in TEMPLATE_WIDTHS:
         raise NotImplementedError(
-            f"widths {widths} are not ported yet: the kernels serve the "
+            f"widths {widths} have no kernel: the kernels serve the "
             f"template chain (b=6, c=0) at the camera widths "
-            f"{TEMPLATE_WIDTHS}; ROADMAP Queue A item 7 lists the others")
+            f"{TEMPLATE_WIDTHS}; {NO_KERNEL_WIDTH}")
 
 
 def make_cuda_template_grams(widths, loss: str = "linear",

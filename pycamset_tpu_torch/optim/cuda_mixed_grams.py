@@ -55,8 +55,9 @@ from torch import Tensor
 from pycamset_tpu_torch.ops.rotations import (rodrigues_jacobian,
                                               rodrigues_to_matrix)
 from pycamset_tpu_torch.optim.cuda_grams import (
-    TEMPLATE_WIDTHS, _check_cuda_inputs, _jacobi_scale, _loss_args, _ptr,
-    _raise_on, _rig_entry, _worst, pack_block_params, reduce_grams)
+    NO_KERNEL_WIDTH, TEMPLATE_WIDTHS, _check_cuda_inputs, _jacobi_scale,
+    _loss_args, _ptr, _raise_on, _rig_entry, _worst, pack_block_params,
+    reduce_grams)
 from pycamset_tpu_torch.optim.cuda_selfcal_grams import (
     _empty_like_grid, _fold_rig_operands, _grid_dims, _per_rig, _rig_rows,
     _unfold_rigs, gram_entries, scaled_errors_selfcal,
@@ -154,10 +155,9 @@ def _check_widths(widths, with_key_cols: bool):
     cw = key_width(with_key_cols)
     if (widths.b, widths.c) != (6, cw) or widths.a not in TEMPLATE_WIDTHS:
         raise NotImplementedError(
-            f"widths {widths} are not ported yet: the multi-target kernels "
+            f"widths {widths} have no kernel: the multi-target kernels "
             f"serve the mixed (b=6, c=9) and grouped (b=6, c=6) chains at "
-            f"the camera widths {TEMPLATE_WIDTHS}; ROADMAP Queue A item 7 "
-            f"lists the others")
+            f"the camera widths {TEMPLATE_WIDTHS}; {NO_KERNEL_WIDTH}")
 
 
 def pack_key_group_data(grp6: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

@@ -68,9 +68,9 @@ import torch
 from torch import Tensor
 
 from pycamset_tpu_torch.optim.cuda_grams import (
-    TEMPLATE_WIDTHS, _check_cuda_inputs, _jacobi_scale, _loss_args,
-    _ptr, _raise_on, _rig_entry, _worst, pack_block_params, reduce_grams,
-    scaled_errors, scaled_errors_fused)
+    NO_KERNEL_WIDTH, TEMPLATE_WIDTHS, _check_cuda_inputs, _jacobi_scale,
+    _loss_args, _ptr, _raise_on, _rig_entry, _worst, pack_block_params,
+    reduce_grams, scaled_errors, scaled_errors_fused)
 
 SELFCAL_CHUNK = 10    # images of one camera per thread block in Kernel C
 SELFCAL_CHUNK_D = 6   # blocks per thread block in Kernel D
@@ -90,9 +90,9 @@ def _check_widths(widths, b: int = 6):
     if (widths.b, widths.c) != (b, 3) or widths.a not in TEMPLATE_WIDTHS:
         chain = "self-calibration" if b else "free-point"
         raise NotImplementedError(
-            f"widths {widths} are not ported yet: the self-cal kernels serve "
+            f"widths {widths} have no kernel: the self-cal kernels serve "
             f"the {chain} chain (b={b}, c=3) at the camera widths "
-            f"{TEMPLATE_WIDTHS}; ROADMAP Queue A item 7 lists the others")
+            f"{TEMPLATE_WIDTHS}; {NO_KERNEL_WIDTH}")
 
 
 def selfcal_gram_plain(cam_b, im_b, keyp, uv, mask, cmask_b, imask_b, kmask,

@@ -46,12 +46,21 @@ grid counts each rig's ``detection.max_ims`` (JAX ``:280-282``), and its
 wrappers over Kernels C and D fold the rigs into one launch through the
 same operators.
 
-Not ported yet: the sharded fleet (``mesh=``), raising
-``NotImplementedError`` with its ROADMAP item (Queue A item 11); a fleet
-of chains that no kernel family serves (the single-rig forward-mode
-route's chains) or of mixed-model rigs, raising ``UnsupportedChain`` /
-``NotImplementedError`` naming Queue A item 7. A chain with aux channels
-(rolling shutter) is refused as the JAX fleet refuses it.
+Rigs of mixed camera models take the fleet as they take
+``build_structured_problem``. Brown models of several widths run the widest model's chain and
+its kernels, each rig's narrower cameras' extra columns pinned in that
+rig's column masks (which ride the rig axis; the rigs may map models to
+cameras differently). A heterogeneous rig (fisheye beside Brown cameras,
+``ProjectionHet``) takes ``structured.make_het_grams`` under the vmap: its
+selector and pad slots are pinned parameters of each rig's own pieces,
+chosen by select. A chain that no closed form serves (a block of the
+caller's own; the heterogeneous grouped and mixed chains) takes the
+forward-mode route (``structured.make_block_grams``: one
+``torch.func.jvp`` a parameter, vmapped over a group's directions), the
+fleet's vmap over it. As in the JAX fleet, the rigs' chains and widths
+must agree (``FleetMismatch``), and a chain with aux channels (rolling
+shutter) is refused. Not ported yet: the sharded fleet (``mesh=``),
+raising ``NotImplementedError`` with its ROADMAP item (Queue A item 11).
 """
 from __future__ import annotations
 
@@ -68,11 +77,12 @@ from pycamset_tpu_torch.ops import cuda_cholesky as cc
 from pycamset_tpu_torch.optim.blocks import key_type
 from pycamset_tpu_torch.optim.structured import (
     ParamPieces, UnsupportedChain, auto_reduced_solver, build_block_arrays,
-    chain_family, chain_widths, make_structured_neq, pad_pieces_to_grid,
+    chain_widths, make_structured_neq, pad_pieces_to_grid,
     pad_template_table, split_full_params)
 from pycamset_tpu_torch.optim.structured_lm import (
-    SLMResult, SLMState, _leaves, _rebuild, active_rigs, capture,
-    scatter_rigs, slm_init_batch, slm_result_batch, slm_run_batch)
+    SLMGraph, SLMResult, SLMState, _leaves, _rebuild, active_rigs, capture,
+    scatter_rigs, slm_init_batch, slm_result_batch, slm_run_batch,
+    structured_lm_solve)
 
 
 def shared_template(tpls) -> np.ndarray:
@@ -409,7 +419,7 @@ class HandlerFleet:
     SLMResult). On a card each step of a cohort of the cascade is one
     replay of this fleet's graph for that cohort size (``graph``);
     ``solve(graph=False)`` runs the uncaptured batched step, the
-    reference. On the CPU, the host loop."""
+    reference. On the CPU, the host loop. ``solo(r)``: rig r alone."""
     op_fun: object
     widths: object
     mixed: bool
@@ -433,6 +443,7 @@ class HandlerFleet:
     n_groups: int = 0
     reduced_solver: str = "dense"  # or "cg"; mixed and tied fleets: dense
     graphs: dict = field(default_factory=dict, repr=False, compare=False)
+    solos: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def n_rigs(self) -> int:
@@ -529,6 +540,40 @@ class HandlerFleet:
         cost = torch.as_tensor(cost).double().cpu().numpy()
         return np.sqrt(cost / (2 * self.n_real))
 
+    def solo(self, r: int) -> "RigAlone":
+        """Rig r as a problem of its own (kept, with its graphs), to solve
+        it alone beside the fleet."""
+        if r not in self.solos:
+            self.solos[r] = RigAlone(self, r)
+        return self.solos[r]
+
+
+@dataclass
+class RigAlone:
+    """One rig of a HandlerFleet solved without the rig axis: the fleet's
+    normal equations on the rig's start, data and column masks, through
+    the one-rig LM (``structured_lm_solve``; on a card one replay of this
+    rig's CUDA graph a step, as a one-rig problem's). The rig's iteration
+    sequence in the fleet's cascade is this one up to the rounding of the
+    batched operations: in a flat valley (float32 on a card) a late step's
+    accept or stop can differ."""
+    fleet: HandlerFleet
+    r: int
+    graphs: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def solve(self, graph: bool = True) -> SLMResult:
+        f, r = self.fleet, self.r
+        x0 = type(f.x0_pieces)(*(p[r] for p in f.x0_pieces))
+        data = [d[r] for d in f.data()]
+        neq = f.neq_fn()
+        if graph and f.uv.device.type == "cuda":
+            key = (cc.psd_opted_in(), f.uv.dtype, f.max_nfev)
+            graph = self.graphs.setdefault(key, SLMGraph())
+        return structured_lm_solve(lambda p: neq(p, *data), x0,
+                                   max_nfev=f.max_nfev,
+                                   reduced_solver=f.reduced_solver,
+                                   ops=f.ops, graph=graph)
+
 
 def _rig_hosts(handlers, x0s, op_fun, n_cams: int, n_ims_grid: int,
                n_keys: int, n_groups: int, k_pad_multiple: int):
@@ -588,9 +633,11 @@ def build_fleet_problem(handlers, dtype=None, device="cuda",
     ``config.default_device_dtype``).
 
     Single-rig counterpart: ``structured_driver.build_structured_problem``
-    (the mixed chain: ``build_mixed_structured_problem``). Raises
-    UnsupportedChain for a chain outside both structured layouts,
-    FleetMismatch when the handlers' structures differ.
+    (the mixed chain: ``build_mixed_structured_problem``). Any chain those
+    two take, per-camera model maps included, but one with
+    aux channels (rolling shutter, ``UnsupportedChain`` as in the JAX
+    fleet). Raises UnsupportedChain for a chain outside both structured
+    layouts, FleetMismatch when the handlers' structures differ.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -618,20 +665,6 @@ def build_fleet_problem(handlers, dtype=None, device="cuda",
                                  dtype, device, k_pad_multiple)
     h0 = handlers[0]
     op_fun = h0.op_fun
-    if any(getattr(h, "mixed_models", False) for h in handlers):
-        raise NotImplementedError(
-            "a fleet of rigs with per-camera camera models (fisheye beside "
-            "Brown cameras, or Brown models of several widths) is not "
-            "ported yet (ROADMAP Queue A item 7): solve each rig with "
-            "run_bundle_adjustment")
-    if chain_family(op_fun, widths) is None:
-        # the fleet batches the closed forms' kernels: a chain of the
-        # forward-mode route has no fleet path yet
-        raise UnsupportedChain(
-            f"chain {_chain_names(h0)} has no fleet path yet: the fleet "
-            f"serves the template, self-calibration, free-point and grouped "
-            f"chains of one camera model (ROADMAP Queue A item 7); solve "
-            f"each rig with run_bundle_adjustment")
     n_cams, n_keys = len(h0.cam_names), h0.n_keys()
 
     def true_ims(h):
@@ -713,12 +746,14 @@ def _rows(arrays: list, dtype, device) -> torch.Tensor:
 def _build_mixed_fleet(handlers, x0s, dtype, device,
                        k_pad_multiple: int) -> HandlerFleet:
     """Mixed-chain fleet: R multi-target self-calibrations in one batched
-    arrow-structured solve. Single-rig counterpart:
+    arrow-structured solve, on Kernels E / F (the canonical chain) or the
+    forward-mode route (every other chain ``mixed_chain_widths`` takes).
+    Single-rig counterpart:
     ``structured_driver.build_mixed_structured_problem``."""
     from pycamset_tpu_torch.optim.structured_driver import (
         detection_residuals)
     from pycamset_tpu_torch.optim.structured_mixed import (
-        MixedPieces, kernel_chain, make_mixed_ops, make_mixed_structured_neq,
+        MixedPieces, make_mixed_ops, make_mixed_structured_neq,
         merge_mixed_to_full, pad_mixed_pieces, split_full_mixed)
     widths, gok, n_groups, opts = _validate_mixed_fleet(handlers)
     if _opt(opts, "shared_intrinsics", None):
@@ -729,11 +764,6 @@ def _build_mixed_fleet(handlers, x0s, dtype, device,
             "(projection + extrinsic + template points)")
     h0 = handlers[0]
     op_fun = h0.op_fun
-    if not kernel_chain(op_fun, widths):
-        raise UnsupportedChain(
-            f"chain {_chain_names(h0)} has no fleet path yet: the mixed "
-            f"fleet serves the canonical chain of one camera model (ROADMAP "
-            f"Queue A item 7); solve each rig with run_bundle_adjustment")
     n_cams, n_keys = len(h0.cam_names), h0.n_keys()
     n_ims_grid = _fleet_grid(handlers, opts,
                              lambda h: int(h.bundlePrimitive.poses.shape[0]))

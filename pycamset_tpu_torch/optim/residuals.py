@@ -195,7 +195,11 @@ def _jacobian_columns(fn, x: torch.Tensor):
     def column(t):
         return torch.func.jvp(fn, (x,), (t.expand_as(x),))
 
-    return vmap(column, out_dims=(None, -1))(basis)
+    # the primal rides the direction axis too: under an outer vmap (a
+    # fleet's rig axis) it comes out batched over the directions, each
+    # copy the same
+    r, jac = vmap(column, out_dims=(0, -1))(basis)
+    return r[0], jac
 
 
 def _residual_and_jacobian(op_fun: OptimFunction, by_group: bool = False):

@@ -56,7 +56,11 @@ multi-target and template-handler makers take ``camera_model`` (the rig
   in rig order), solved as one batch (``optim/fleet.py``); and the same
   rigs as handlers (``fleet_handlers``) of the template, self-calibration,
   grouped and mixed chains, and wand rigs of the free-point chain, for
-  ``run_fleet_bundle_adjustment``.
+  ``run_fleet_bundle_adjustment``, each rig with a per-camera model map of
+  its own if given; the template rigs with the skew block in front
+  (``skew_fleet_handlers``); and ``multi_target_fleet``, one batch
+  (``ProblemFleet``) of ``grouped_problem`` / ``mixed_problem`` rigs, the
+  heterogeneous multi-target chains among them.
 - Rolling shutter (``rs_handler``): the template rig's cameras and grid,
   a capture of a target moving within each frame
   (``utils.synthetic.rs_capture``), each camera's readout drawn in [0.5,
@@ -803,9 +807,19 @@ def multi_target_handler(n_cams: int, n_ims: int, mixed: bool = True,
     return handler, rig
 
 
+def _rig_models(camera_model, r: int):
+    """Rig r's ``camera_model``: one model for every camera of every rig,
+    a list of one model a camera (every rig's), or a list of such lists
+    (one a rig)."""
+    if (isinstance(camera_model, (list, tuple)) and camera_model
+            and isinstance(camera_model[0], (list, tuple))):
+        return list(camera_model[r])
+    return camera_model
+
+
 def fleet_handlers(chain: str, n_rigs: int, n_cams: int, n_ims: int,
                    grid: int = 10, options: dict | None = None,
-                   camera_model: str = "standard",
+                   camera_model="standard",
                    shared_intrinsics=None) -> list:
     """R handlers of one structure for ``optim.fleet.
     run_fleet_bundle_adjustment``, as ``fleet_problem`` makes its rigs:
@@ -826,7 +840,10 @@ def fleet_handlers(chain: str, n_rigs: int, n_cams: int, n_ims: int,
     :param options: the handlers' options (after ``outliers: "n"``,
         ``verbosity: 0``), e.g. ``{"im_bucket": None}``.
     :param camera_model: the rigs' lens model (``make_synthetic_rig``'s),
-        which the handlers solve.
+        which the handlers solve; a list of one model a camera (every
+        rig's: a mixed-model rig, as ``template_handler`` takes it), or a
+        list of such lists, one a rig (the rigs may map models to cameras
+        differently).
     :param shared_intrinsics: the template chain's tied lenses, as
         ``template_handler``'s (the tied fleet)."""
     from pycamset_tpu_torch.optim.handlers import SelfBundleHandler
@@ -835,40 +852,148 @@ def fleet_handlers(chain: str, n_rigs: int, n_cams: int, n_ims: int,
     options = {**_tied_option(shared_intrinsics), **(options or {})}
     if chain == "freepoint":
         return [freepoint_handler(n_cams, n_ims, grid, 100 + r, options,
-                                  camera_model=camera_model)[0]
+                                  camera_model=_rig_models(camera_model,
+                                                           r))[0]
                 for r in range(n_rigs)]
     rng = np.random.default_rng(7)
     out = []
     for r in range(n_rigs):
+        models = _rig_models(camera_model, r)
         if chain in ("grouped", "mixed"):
             out.append(multi_target_handler(
                 n_cams, n_ims, chain == "mixed", grid, 100 + r, options,
-                start=rng, camera_model=camera_model)[0])
+                start=rng, camera_model=models)[0])
             continue
         rig = make_synthetic_rig(n_cams=n_cams, n_ims=n_ims, grid=grid,
                                  visibility=0.85, noise_px=0.3, seed=100 + r,
-                                 camera_model=camera_model,
+                                 camera_model=models,
                                  shared_intrinsics=shared_intrinsics)
         cams, names = _rig_cams(rig["intr"], [make_4x4h_tform(e[:3], e[3:])
-                                              for e in rig["extr"]])
+                                              for e in rig["extr"]],
+                                rig["camera_models"])
         cls = {"template": TemplateBundleHandler,
                "selfcal": SelfBundleHandler}[chain]
         handler = cls(cams, FreePointTarget(rig["template"].reshape(1, -1,
                                                                     3)),
                       detection_from_numpy(names, rig["dd"], n_ims),
                       options={"outliers": "n", "verbosity": 0,
-                               "camera_model": camera_model,
-                               **(options or {})})
-        struct = OptimFunction([_projection_block(camera_model),
-                                Extrinsic3D(), TemplatePoints()]
+                               "camera_model": models, **(options or {})})
+        # the template chain's layout at the handler's projection block
+        # (a mixed-model rig's widest Brown model, or ProjectionHet)
+        struct = OptimFunction([handler.op_fun.blocks[0], Extrinsic3D(),
+                                TemplatePoints()]
                                ).param_struct(n_cams, n_ims, rig["n_keys"])
-        full = perturbed_start(rig, struct, rng)
+        start = rig
+        if handler.is_het:  # the true cameras in the selector layout
+            start = {**rig, "intr": np.stack([
+                handler._intr_seed_row(c, cams[c]) for c in range(n_cams)])}
+        full = perturbed_start(start, struct, rng, het=handler.is_het)
         prim = handler.bundlePrimitive
         if chain == "selfcal":
             full = np.concatenate([full, rig["template"].ravel()])
         handler.set_initial_params(full[prim.unfixed_full()])
         out.append(handler)
     return out
+
+
+def skew_fleet_handlers(n_rigs: int, n_cams: int, n_ims: int,
+                        grid: int = 10, options: dict | None = None) -> list:
+    """``fleet_handlers("template", ...)``'s rigs, each with the skew block
+    of ``skew_block`` in front of its chain (``with_skew``, every skew
+    started at 0): a fleet of a chain with a block of the caller's own,
+    which no closed form serves (the forward-mode route)."""
+    return [with_skew(h, h.get_initial_params())
+            for h in fleet_handlers("template", n_rigs, n_cams, n_ims, grid,
+                                    options)]
+
+
+@dataclass
+class ProblemFleet:
+    """R problems of one structure (``BAProblem`` or ``MixedProblem``: one
+    chain, block grid, point table and budget) solved as one batch by the
+    fleet's cascade (``optim/fleet.py::fleet_solve``); each rig's start,
+    data and column masks ride the rig axis. ``solo(r)`` is rig r's own
+    problem, to solve it alone."""
+    rigs: list
+    x0: tuple                  # pieces, rig axis first
+    uv: torch.Tensor           # (R, B, K, 2)
+    mask: torch.Tensor         # (R, B, K)
+    colmask: tuple             # pieces, rig axis first
+    graphs: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def n_rigs(self) -> int:
+        return self.uv.shape[0]
+
+    @property
+    def n_real(self) -> np.ndarray:
+        return np.array([p.blocks.n_real for p in self.rigs])
+
+    def neq_fn(self):
+        """neq(pieces, uv, mask, *colmask pieces) of ONE rig."""
+        neq = self.rigs[0].make_neq()
+        tpl, kind = self.rigs[0].tpl, type(self.colmask)
+        return lambda p, uv, mask, *cm: neq(p, uv, mask, tpl, kind(*cm))
+
+    def solve(self, graph: bool = True) -> SLMResult:
+        """The cascade solve of every rig (on a card, one graph replay a
+        step of a cohort; ``graph=False`` uncaptured; the host loop on the
+        CPU)."""
+        p0 = self.rigs[0]
+        graph = (self.graphs.setdefault(
+            (psd_opted_in(), self.uv.dtype, p0.max_nfev), {})
+            if graph and self.uv.device.type == "cuda" else False)
+        return fleet_solve(self.neq_fn(), self.x0,
+                           (self.uv, self.mask, *self.colmask),
+                           max_nfev=p0.max_nfev,
+                           reduced_solver=p0.reduced_solver, ops=p0.ops(),
+                           graph=graph)
+
+    def solo(self, r: int) -> BAProblem:
+        return self.rigs[r]
+
+    def rms_px(self, cost) -> np.ndarray:
+        cost = torch.as_tensor(cost).double().cpu().numpy()
+        return np.sqrt(cost / (2 * self.n_real))
+
+
+def problem_fleet(probs: list) -> ProblemFleet:
+    """One batch of one-structure problems (``ProblemFleet``); raises
+    ``ValueError`` unless they share a chain, block grid and point
+    table."""
+    p0 = probs[0]
+    for r, p in enumerate(probs[1:], start=1):
+        if (type(p) is not type(p0) or p.widths != p0.widths
+                or p.mask.shape != p0.mask.shape
+                or [type(b) for b in p.op_fun.blocks]
+                != [type(b) for b in p0.op_fun.blocks]):
+            raise ValueError(f"rig {r}'s problem differs from rig 0's in "
+                             f"structure")
+    shared_template([p.tpl.cpu().numpy() for p in probs])
+
+    def stack(pieces):
+        return type(pieces[0])(*(torch.stack(t) for t in zip(*pieces)))
+
+    return ProblemFleet(probs, stack([p.x0 for p in probs]),
+                        torch.stack([p.uv for p in probs]),
+                        torch.stack([p.mask for p in probs]),
+                        stack([p.colmask for p in probs]))
+
+
+def multi_target_fleet(mixed: bool, n_rigs: int, n_cams: int, n_ims: int,
+                       device="cuda", dtype=None, grid: int = 10,
+                       camera_model="standard") -> ProblemFleet:
+    """R rigs of ``mixed_problem`` (``mixed``) or ``grouped_problem``,
+    seeds 100 + r, as one fleet (``problem_fleet``); ``camera_model`` as
+    ``fleet_handlers`` takes it. A fisheye / Brown map makes the
+    heterogeneous multi-target chains, which the forward-mode route
+    serves (the two-target example handlers refuse maps, so this fleet is
+    built from the problems)."""
+    make = mixed_problem if mixed else grouped_problem
+    return problem_fleet([make(n_cams, n_ims, device, dtype, grid=grid,
+                               seed=100 + r,
+                               camera_model=_rig_models(camera_model, r))
+                          for r in range(n_rigs)])
 
 
 @dataclass

@@ -235,18 +235,18 @@ def test_camera_width_without_a_kernel_raises(card):
     from pycamset_tpu_torch.optim import cuda_grams as cg
     f32 = list(_inputs(card, 2, 3, 4))
     f32[0] = torch.cat([f32[0][:, :1], f32[0]], dim=1).contiguous()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="make_het_grams"):
         cg.template_gram(*f32)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="make_het_grams"):
         cg.template_gram_fused(*f32, 2, 3)
     from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
     s32 = list(_selfcal_inputs(card, 2, 3, 4))
     for i in (0, 5):                 # cam_b and cmask_b at a = 16
         s32[i] = torch.cat([s32[i][:, :1], s32[i]], dim=1).contiguous()
     n_d, n_c = sg.selfcal_gram.launches, sg.selfcal_gram_fused.launches
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="make_het_grams"):
         sg.selfcal_gram(*s32)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="make_het_grams"):
         sg.selfcal_gram_fused(*s32[:5], *s32[6:], 2, 3)
     assert (sg.selfcal_gram.launches, sg.selfcal_gram_fused.launches) == (
         n_d, n_c)
@@ -257,9 +257,9 @@ def test_camera_width_without_a_kernel_raises(card):
             m32[i] = torch.cat([m32[i][:, :1], m32[i]], dim=1).contiguous()
         kw = dict(with_key_cols=with_key_cols)
         n_f, n_e = mg.mixed_gram.launches, mg.mixed_gram_fused.launches
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        with pytest.raises(NotImplementedError, match="make_het_grams"):
             mg.mixed_gram(*m32, **kw)
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        with pytest.raises(NotImplementedError, match="make_het_grams"):
             mg.mixed_gram_fused(*m32, 2, 3, **kw)
         assert (mg.mixed_gram.launches, mg.mixed_gram_fused.launches) == (
             n_f, n_e)

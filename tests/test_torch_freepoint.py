@@ -210,7 +210,7 @@ def test_freepoint_widths_check():
     raise."""
     with pytest.raises(NotImplementedError, match="free-point chain"):
         sg.make_cuda_freepoint_grams(ts.GroupWidths(15, 6, 3))
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="make_het_grams"):
         sg.make_cuda_freepoint_grams_fused(ts.GroupWidths(16, 0, 3), 2, 3)
     with pytest.raises(NotImplementedError, match="self-calibration chain"):
         sg.make_cuda_selfcal_grams(WIDTHS)

@@ -26,7 +26,8 @@ at 20 evaluations they part by 2e-9); the self-calibration stage on a het
 rig; the cameras at their own family's width; ``.camset`` files in both
 packages; ``multi_cam_triangulate`` on a het set within 1e-9; and the
 refusals (the tied backend ``UnsupportedChain``, as the JAX package's; the
-two-target handlers and the handler fleet ``NotImplementedError``); the het
+two-target example handlers ``NotImplementedError``), and the handler fleet
+of such rigs building and solving to the noise; the het
 grouped chain selects no closed form (the forward-mode route,
 ``tests/test_torch_forward_route.py``).
 """
@@ -477,10 +478,14 @@ def test_refusals():
         fleet = [template_handler(3, 4, grid=5, seed=s,
                                   camera_model=list(models))[0]
                  for s in (0, 1)]
-        with pytest.raises(NotImplementedError, match="item 7"):
-            build_fleet_problem(fleet, device="cpu")
+        # the handler fleet takes per-camera maps: it builds and solves
+        # to the noise (the Brown rigs end at the budget in the flat
+        # rational valley, ROADMAP Queue C 6)
+        prob = build_fleet_problem(fleet, device="cpu")
+        _, res = prob.solve()
+        assert float(prob.rms_px(res.cost).max()) <= 0.36
         h = fleet[0]
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="give the rig one"):
             TwoTargetCalibrator(h.camset, h.target, h.target, h.detection,
                                 h.detection, options=dict(h.problem_opts))
     from pycamset_tpu_torch.optim.blocks import (Extrinsic3D, ProjectionHet,

@@ -217,9 +217,9 @@ def test_selfcal_widths_check():
     """The self-cal builders take the five camera models' widths; a = 16
     (a heterogeneous rig's selector row) and a chain without key columns
     raise."""
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="make_het_grams"):
         sg.make_cuda_selfcal_grams(ts.GroupWidths(16, 6, 3))
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="make_het_grams"):
         sg.make_cuda_selfcal_grams_fused(ts.GroupWidths(15, 6, 0), 2, 3)
     for a in (14, 15, 18, 22, 24):
         sg.make_cuda_selfcal_grams(ts.GroupWidths(a, 6, 3))
