@@ -7076,6 +7076,606 @@ def phase_serving(dev, smi, export) -> dict:
     return rec
 
 
+# ---------------------------------------------------- [calibration_extras]
+
+# sync: 8 ring cameras, 10 x 10 corners at 30 mm, 600 reference frames (30
+# fps), cameras 6 and 7 at 60 fps, 0.2 px; offsets within +-3 frames,
+# skews ~2e-4, readouts 0.3-0.6 frames on four cameras
+EXTRAS_SYNC = {"cams": 8, "grid": 10, "pitch": 0.03, "frames": 600,
+               "rates": [30.0] * 6 + [60.0] * 2, "noise": 0.2, "seed": 26,
+               "max_shift": 3, "rolling": (2, 3, 5, 7)}
+# the bump of rig_health / recalibrate_extrinsics (0.5 deg, 1 cm) and its
+# cameras; the refocused lens (1%) of recalibrate_intrinsics at 64 x 400
+EXTRAS_BUMP = {"rot_rad": np.deg2rad(0.5), "shift": 0.01,
+               "cams": ("cam3", "cam11")}
+EXTRAS_REFOCUS = {"cam": "cam5", "scale": 1.01}
+# float32 against the same call in float64 on the card: sync and hand-eye
+# estimates within this share of their float64 1-sigma (float32's LM
+# stops once a whole step is under 50 eps of the parameter vector's norm:
+# the sync offsets 0.199 sigma from float64 on an H100); refreshed cameras
+# in metres and rotation entries (a tenth of tests/test_monitor.py's
+# recovery bound, 1e-3) and focal px (a tenth of its 1 px); conversions in
+# px; plan sigmas and rms relative
+EXTRAS_F64 = {"sigma_share": 0.25, "extrinsic": 1e-4, "focal_px": 0.1,
+              "rms_rel": 1e-4, "plan_sigma_rel": 1e-2, "convert_px": 1e-3}
+
+
+@contextlib.contextmanager
+def built_problems():
+    """Within the block, every BAProblem that ``run_bundle_adjustment``
+    builds (``driver.build_structured_problem``) is appended to the list
+    yielded, so a kernel can be held on a user path's own tensors."""
+    from pycamset_tpu_torch.optim import driver
+    orig, seen = driver.build_structured_problem, []
+
+    def spy(handler, **kw):
+        out = orig(handler, **kw)
+        seen.append(out[0].problem)
+        return out
+    driver.build_structured_problem = spy
+    try:
+        yield seen
+    finally:
+        driver.build_structured_problem = orig
+
+
+@contextlib.contextmanager
+def plain_template_grams():
+    """Within the block, Kernels A and B's wrappers are their plain twins:
+    the float64 reference of a template solve on the card (the kernels
+    take float32 only)."""
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    orig = cg.template_gram, cg.template_gram_fused
+    cg.template_gram = cg.template_gram_plain
+    cg.template_gram_fused = cg.template_gram_fused_plain
+    try:
+        yield
+    finally:
+        cg.template_gram, cg.template_gram_fused = orig
+
+
+@contextlib.contextmanager
+def counted_captures():
+    """Within the block, the tracker's CUDA graph captures are counted
+    (``tracking._FrameGraphs._capture``) in the dict yielded."""
+    from pycamset_tpu_torch import tracking
+    orig, seen = tracking._FrameGraphs._capture, {"captures": 0}
+
+    def counting(self, body, key):
+        seen["captures"] += 1
+        return orig(self, body, key)
+    tracking._FrameGraphs._capture = counting
+    try:
+        yield seen
+    finally:
+        tracking._FrameGraphs._capture = orig
+
+
+def moved_problem(prob, seed: int = 1):
+    """A template problem's stand-in for ``user_path_parity`` whose start
+    is moved off the truth: the free camera and pose entries by the
+    bench's perturbation scales (``rng(seed)``), the fixed ones left
+    alone. At a near-true start (a refresh seeded from the stored rig, a
+    plan from the truth) the gradients are sums of noise that cancel to
+    float32's rounding: every loss is a float32-floor case there."""
+    import types
+    moved = _mover(seed)
+    x0 = prob.x0._replace(
+        cam=moved(prob.x0.cam, cam_scale(prob.widths.a), prob.colmask.cam),
+        im=moved(prob.x0.im, 1e-2, prob.colmask.im))
+    return types.SimpleNamespace(x0=x0, blocks=prob.blocks, mask=prob.mask,
+                                 tpl=prob.tpl, uv=prob.uv,
+                                 widths=prob.widths, colmask=prob.colmask)
+
+
+def extras_parity(kern, label: str, own: str, prob):
+    """The solve's gram kernel on its own problem's tensors at its start
+    and moved off it (``moved_problem``), against its float64 twin."""
+    user_path_parity(kern, label, own, prob)
+    user_path_parity(kern, f"{label} moved", own, moved_problem(prob))
+
+
+def template_kernel_run(counted, tag: str, run):
+    """``run()`` with every wrapper's count at 0 just before and read just
+    after: exactly one of Kernels A and B launched, no other wrapper.
+    Returns (result, the wrapper's name, its launches, host seconds)."""
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    result = run()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    own = [n for n in ("template_gram", "template_gram_fused")
+           if launches[n]]
+    check(len(own) == 1 and not any(
+        n for name, n in launches.items() if name != own[0]),
+        f"{tag}: the main path launched {launches}")
+    return result, own[0], launches[own[0]], seconds
+
+
+def extras_call(dev, tag: str, fn, counted=None):
+    """One call of the phase on the card: (result, host s, peak MiB above
+    the start; with ``counted``: the template wrapper and its launches)."""
+    import torch
+    torch.cuda.synchronize()
+    base = mib_allocated()
+    torch.cuda.reset_peak_memory_stats(dev)
+    own = n_own = None
+    t0 = time.perf_counter()
+    if counted is None:
+        result = fn()
+    else:
+        result, own, n_own, _ = template_kernel_run(counted, tag, fn)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20 - base
+    return result, seconds, peak, own, n_own
+
+
+def sigma_close(tag, got, ref, sigma, share: float):
+    """float32 estimates within ``share`` of the float64 1-sigma."""
+    gap = np.abs(np.asarray(got) - np.asarray(ref))
+    worst = float(np.max(gap / np.maximum(sigma, 1e-300)))
+    check(worst <= share, f"{tag}: float32 is {worst:.3f} sigma from "
+                          f"float64 (bound {share})")
+    return worst
+
+
+def extras_sync(dev) -> dict:
+    """Temporal sync at full width (EXTRAS_SYNC) in float32 and float64 on
+    the card: offsets, skews and readouts within 3 reported sigmas of the
+    truth, status >= 1, no host read in the LM loop, float32 within
+    EXTRAS_F64["sigma_share"] of float64's sigma."""
+    import torch
+    from pycamset_tpu_torch.calibration.sync import calibrate_time_offsets
+    from pycamset_tpu_torch.models.abstract_target import FreePointTarget
+    from pycamset_tpu_torch.models.detections import TargetDetection
+    from pycamset_tpu_torch.optim import lm
+    from pycamset_tpu_torch.utils.synthetic import (grid_target,
+                                                    moving_capture, ring_rig)
+    s = EXTRAS_SYNC
+    rng = np.random.default_rng(s["seed"])
+    n = s["cams"]
+    offsets = np.concatenate([[0.0], rng.uniform(-3.0, 3.0, n - 1)])
+    skews = np.concatenate([[0.0], rng.normal(size=n - 1) * 2e-4])
+    readouts = np.zeros(n)
+    readouts[list(s["rolling"])] = rng.uniform(0.3, 0.6, len(s["rolling"]))
+    rates = np.asarray(s["rates"])
+    cams = ring_rig(n)
+    tpl = grid_target(s["grid"], s["pitch"])
+    t0 = time.perf_counter()
+    rows, _ = moving_capture(cams, tpl, s["frames"], offsets, skews=skews,
+                             readouts=readouts, ratios=rates[0] / rates,
+                             noise=s["noise"], seed=s["seed"], device=dev)
+    capture_s = time.perf_counter() - t0
+    det = TargetDetection(cam_names=cams.get_names(), data=rows)
+    target = FreePointTarget(tpl.reshape(1, -1, 3))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        reads = lm.host_reads
+        res, sec, peak, _, _ = extras_call(dev, "sync", lambda: (
+            calibrate_time_offsets(
+                cams, det, target, estimate_skew=True,
+                estimate_rolling_shutter=True, max_shift=s["max_shift"],
+                frame_rates=rates, fps=rates[0], device=dev, dtype=dtype)))
+        reads = lm.host_reads - reads
+        out[dtype] = res
+        name = "f32" if dtype == torch.float32 else "f64"
+        worst = {}
+        for field, true in (("offsets", offsets), ("skew", skews),
+                            ("readout", readouts)):
+            est = getattr(res, field)
+            sig = getattr(res, f"{field}_sigma" if field != "offsets"
+                          else "offset_sigma")
+            free = slice(0, n) if field == "readout" else slice(1, n)
+            z = np.abs(est[free] - true[free]) / sig[free]
+            worst[field] = float(z.max())
+            check(bool(np.all(z <= 3.0)), f"sync {name}: {field} "
+                  f"{est[free]} vs true {true[free]}: {z} sigmas")
+        check(res.info["status"] >= 1 and reads == 0,
+              f"sync {name}: status {res.info['status']}, {reads} host "
+              "reads in the LM loop")
+        say("calibration_extras_sync", dtype=name, cams=n,
+            frames=s["frames"], knots=res.info["n_knots"],
+            params=6 * res.info["n_knots"] + 2 * (n - 1) + n,
+            detections=res.info["n_detections"], capture_s=f"{capture_s:.1f}",
+            wall_s=f"{sec:.3f}", nit=res.info["nit"],
+            nfev=res.info["nfev"], status=res.info["status"],
+            lm_s=f"{res.info['lm_seconds']:.3f}",
+            # the device LM evaluates every one of its max_nfev - 1 masked
+            # steps, plus the start and the covariance's evaluation
+            ms_per_lm_eval=f"{res.info['lm_seconds'] / 101 * 1e3:.2f}",
+            host_reads_per_iteration=reads / max(res.info["nit"], 1),
+            rms_px=f"{res.rms:.5f}", peak_mib=f"{peak:.0f}",
+            integer_shifts=",".join(map(str, res.info["integer_shifts"])),
+            **{f"worst_sigmas_{k}": f"{v:.2f}" for k, v in worst.items()},
+            offset_sigma_max=f"{res.offset_sigma.max():.2e}",
+            skew_sigma_max=f"{res.skew_sigma.max():.2e}",
+            readout_sigma_max=f"{res.readout_sigma.max():.2e}")
+    f32, f64 = out[torch.float32], out[torch.float64]
+    share = EXTRAS_F64["sigma_share"]
+    gaps = {f: sigma_close(f"sync {f}", getattr(f32, f), getattr(f64, f),
+                           getattr(f64, g), share)
+            for f, g in (("offsets", "offset_sigma"), ("skew", "skew_sigma"),
+                         ("readout", "readout_sigma"))}
+    rel = abs(f32.rms - f64.rms) / f64.rms
+    check(rel <= EXTRAS_F64["rms_rel"], f"sync: rms f32 {f32.rms} vs f64 "
+                                        f"{f64.rms}")
+    say("calibration_extras_sync_f32_vs_f64",
+        **{f"{k}_sigmas": f"{v:.2e}" for k, v in gaps.items()},
+        rms_rel=f"{rel:.2e}", nit_f32=f32.info["nit"],
+        nit_f64=f64.info["nit"])
+    return {"f32_sigmas_from_f64": max(gaps.values())}
+
+
+def bumped(cams, names, rot_rad: float, shift: float):
+    """A copy of the rig with each named camera's stored extrinsic stale
+    by a rotation about its x axis and a shift along it (the camera moved;
+    the detections see it where it was)."""
+    import copy
+    from pycamset_tpu_torch.utils.general_utils import make_4x4h_tform
+    stale = copy.deepcopy(cams)
+    d = make_4x4h_tform(np.array([rot_rad, 0.0, 0.0]),
+                        np.array([shift, 0.0, 0.0]))
+    for name in names:
+        stale[name].set_extrinsic(d @ stale[name].extrinsic)
+    return stale
+
+
+def extras_monitor(dev, counted, kern, launches) -> dict:
+    """rig_health of the bench rig 16 x 100 with EXTRAS_BUMP's cameras
+    moved (float32 and float64: exactly those flagged), the extrinsic
+    refresh of those cameras (Kernel A or B, held to its twin on the
+    solve's tensors; float64 through the plain twins), the lens refresh of
+    EXTRAS_REFOCUS's camera at 64 x 400; both recover the truth."""
+    import copy
+
+    import torch
+    from pycamset_tpu_torch.calibration.monitor import (
+        recalibrate_extrinsics, recalibrate_intrinsics, rig_health)
+    from pycamset_tpu_torch.problems import template_handler
+    rec = {}
+    t0 = time.perf_counter()
+    h16, _ = template_handler(16, 100)
+    cams, det, target = h16.camset, h16.detection, h16.target
+    inputs_s = time.perf_counter() - t0
+    b = EXTRAS_BUMP
+    stale = bumped(cams, b["cams"], b["rot_rad"], b["shift"])
+    health = {}
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        with counted_captures() as caps:
+            health[name], sec, peak, _, _ = extras_call(
+                dev, "rig_health", lambda: rig_health(
+                    stale, det, target, device=dev, dtype=dtype))
+        h = health[name]
+        check(sorted(h["drifted"]) == sorted(b["cams"]) and caps[
+            "captures"] == 0, f"rig_health {name}: flagged {h['drifted']}"
+            f" (bumped {b['cams']}), {caps['captures']} graph captures")
+        loo = h["leave_one_out_rms_px"]
+        say("calibration_extras_rig_health", dtype=name, shape="16x100",
+            wall_s=f"{sec:.3f}", tracker_batches=2 + len(loo),
+            graph_captures=caps["captures"], peak_mib=f"{peak:.0f}",
+            drifted=",".join(h["drifted"]),
+            overall_rms_px=f"{h['overall_rms_px']:.4f}",
+            loo_bumped=",".join(f"{loo[n]:.3f}" for n in b["cams"]),
+            loo_others_max=f"{max(v for k, v in loo.items()
+                                  if k not in b['cams']):.4f}",
+            inputs_s=f"{inputs_s:.1f}")
+    rel = max(abs(health["f32"]["leave_one_out_rms_px"][n]
+                  - v) / v for n, v in
+              health["f64"]["leave_one_out_rms_px"].items())
+    check(rel <= 1e-3, f"rig_health: leave-one-out f32 vs f64 {rel}")
+    rec["rig_health_loo_rel_f32_f64"] = rel
+
+    def refresh(tag, fn, shape, src, truth, refresh_names, check_fn):
+        solved = {}
+        for dtype in (torch.float32, torch.float64):
+            name = "f32" if dtype == torch.float32 else "f64"
+            ctx = (contextlib.nullcontext() if dtype == torch.float32
+                   else plain_template_grams())
+            with built_problems() as probs, ctx:
+                (new, rep), sec, peak, own, n_own = extras_call(
+                    dev, tag, lambda: fn(
+                        src, det_of[shape], target_of[shape],
+                        refresh=list(refresh_names), start="rig",
+                        device=dev, dtype=dtype),
+                    counted if dtype == torch.float32 else None)
+            res = rep["result"]
+            # tests/test_monitor.py's bound: the Euclidean rms under 2x the
+            # per-axis noise (0.3 px)
+            check(int(res.status) in (1, 2, 3) and rep["rms_px"] < 0.6,
+                  f"{tag} {name}: status {res.status}, rms {rep['rms_px']}")
+            check_fn(tag, name, new, rep)
+            if dtype == torch.float32:
+                label = f"calibration_extras {tag} {shape}"
+                launches[own][label] = n_own
+                extras_parity(kern, label, own, probs[-1])
+            say(f"calibration_extras_{tag}", dtype=name, shape=shape,
+                wall_s=f"{sec:.3f}", nit=res.nit, nfev=res.nfev,
+                status=res.status,
+                ms_per_lm_eval=f"{sec / res.nfev * 1e3:.2f}",
+                rms_px=f"{rep['rms_px']:.5f}", peak_mib=f"{peak:.0f}",
+                **({"kernel": own, "launches": n_own} if own else
+                   {"kernel": "plain twin (float64)"}),
+                **{f"{n}_{k}": f"{v:.4f}" for n, d in rep["deltas"].items()
+                   for k, v in d.items()})
+            solved[name] = new
+        return solved
+
+    det_of, target_of = {"16x100": det}, {"16x100": target}
+
+    def ext_ok(tag, name, new, rep):
+        for n in b["cams"]:
+            gap_t = float(np.abs(new[n].extrinsic[:3, 3]
+                                 - cams[n].extrinsic[:3, 3]).max())
+            gap_r = float(np.abs(new[n].extrinsic[:3, :3]
+                                 - cams[n].extrinsic[:3, :3]).max())
+            d = rep["deltas"][n]
+            check(gap_t < 1e-3 and gap_r < 1e-3
+                  and 0.5 < d["rotation_mrad"] / (b["rot_rad"] * 1e3) < 1.5,
+                  f"{tag} {name}: {n} recovered to {gap_t} m / {gap_r}, "
+                  f"delta {d}")
+        for n in cams.get_names():
+            if n not in b["cams"]:
+                check(np.allclose(new[n].extrinsic, stale[n].extrinsic,
+                                  atol=1e-6), f"{tag} {name}: anchor {n} "
+                                              "moved")
+
+    ext = refresh("recalibrate_extrinsics", recalibrate_extrinsics,
+                  "16x100", stale, cams, b["cams"], ext_ok)
+    gap = max(float(np.abs(ext["f32"][n].extrinsic
+                           - ext["f64"][n].extrinsic).max())
+              for n in b["cams"])
+    check(gap <= EXTRAS_F64["extrinsic"], f"recalibrate_extrinsics: f32 "
+                                          f"vs f64 {gap}")
+    rec["extrinsic_f32_f64"] = gap
+    del h16, stale, ext
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    h64, _ = template_handler(64, 400)
+    cams64 = h64.camset
+    det_of["64x400"], target_of["64x400"] = h64.detection, h64.target
+    del h64
+    inputs64_s = time.perf_counter() - t0
+    r = EXTRAS_REFOCUS
+    lens = copy.deepcopy(cams64)
+    k = lens[r["cam"]].intrinsic.copy()
+    k[0, 0] *= r["scale"]
+    k[1, 1] *= r["scale"]
+    lens[r["cam"]].intrinsic = k
+    lens[r["cam"]]._update_state()
+
+    def int_ok(tag, name, new, rep):
+        true_k = cams64[r["cam"]].intrinsic
+        gap = float(np.abs(new[r["cam"]].intrinsic - true_k).max())
+        check(gap < 1.0 and rep["deltas"][r["cam"]]["focal_px"] > 10.0,
+              f"{tag} {name}: lens recovered to {gap} px, delta "
+              f"{rep['deltas'][r['cam']]}")
+        say("calibration_extras_refocus", dtype=name,
+            focal_px_from_truth=f"{gap:.4f}", inputs_s=f"{inputs64_s:.1f}")
+
+    lens_new = refresh("recalibrate_intrinsics", recalibrate_intrinsics,
+                       "64x400", lens, cams64, [r["cam"]], int_ok)
+    gap = float(np.abs(lens_new["f32"][r["cam"]].intrinsic
+                       - lens_new["f64"][r["cam"]].intrinsic).max())
+    check(gap <= EXTRAS_F64["focal_px"], f"recalibrate_intrinsics: f32 vs "
+                                         f"f64 {gap} px")
+    rec["intrinsic_f32_f64_px"] = gap
+    return rec
+
+
+def extras_handeye(dev) -> dict:
+    """Hand-eye on a 4-camera rig with 40 robot stations, eye-in-hand and
+    eye-to-hand, float32 and float64 on the card: X and Z within 1 mm /
+    2e-3 of the truth (``tests/test_handeye.py``'s bounds), rms under 2x
+    the noise, status > 0, float32 within EXTRAS_F64["sigma_share"] of
+    float64's sigma."""
+    import torch
+    from pycamset_tpu_torch.calibration.handeye import calibrate_hand_eye
+    from pycamset_tpu_torch.from_jax import camset_from_numpy
+    from pycamset_tpu_torch.models.abstract_target import FreePointTarget
+    from pycamset_tpu_torch.models.detections import TargetDetection
+    from pycamset_tpu_torch.utils.general_utils import make_4x4h_tform
+    from pycamset_tpu_torch.utils.synthetic import make_synthetic_rig
+    rig = make_synthetic_rig(n_cams=4, n_ims=40, grid=19, visibility=0.9,
+                             noise_px=0.2, seed=11)
+    names = [f"cam{c}" for c in range(4)]
+    kmats = [np.array([[i[0], 0, i[1]], [0, i[2], i[3]], [0, 0, 1]])
+             for i in rig["intr"]]
+    cams = camset_from_numpy(
+        names, [make_4x4h_tform(e[:3], e[3:]) for e in rig["extr"]], kmats,
+        [i[4:] for i in rig["intr"]], [[1600, 1200]] * 4)
+    target = FreePointTarget(rig["template"].reshape(1, -1, 3))
+    det = TargetDetection(cam_names=names, data=rig["dd"],
+                          max_ims=len(rig["poses"]))
+    p = np.stack([make_4x4h_tform(q[:3], q[3:]) for q in rig["poses"]])
+    rng = np.random.default_rng(61)
+    x = make_4x4h_tform(rng.normal(size=3), rng.normal(size=3) * 0.5)
+    z = make_4x4h_tform(rng.normal(size=3), rng.normal(size=3) * 0.5)
+    inv = np.linalg.inv
+    rec = {}
+    for mode in ("eye_in_hand", "eye_to_hand"):
+        g = (np.stack([z @ inv(pi) @ inv(x) for pi in p])
+             if mode == "eye_in_hand"
+             else np.stack([x @ pi @ inv(z) for pi in p]))
+        res = {}
+        for dtype in (torch.float32, torch.float64):
+            name = "f32" if dtype == torch.float32 else "f64"
+            r, sec, peak, _, _ = extras_call(dev, "handeye", lambda: (
+                calibrate_hand_eye(cams, det, g, target, mode=mode,
+                                   device=dev, dtype=dtype)))
+            gaps = [float(np.abs(r.x[:3, 3] - x[:3, 3]).max()),
+                    float(np.abs(r.x[:3, :3] - x[:3, :3]).max()),
+                    float(np.abs(r.z[:3, 3] - z[:3, 3]).max()),
+                    float(np.abs(r.z[:3, :3] - z[:3, :3]).max())]
+            check(gaps[0] < 1e-3 and gaps[2] < 1e-3 and gaps[1] < 2e-3
+                  and gaps[3] < 2e-3 and r.rms < 0.4
+                  and r.info["status"] > 0,
+                  f"handeye {mode} {name}: gaps {gaps}, rms {r.rms}, "
+                  f"status {r.info['status']}")
+            say("calibration_extras_handeye", mode=mode, dtype=name,
+                stations=len(p), cams=4,
+                detections=r.info["n_detections"],
+                wall_s=f"{sec:.3f}", nit=r.info["nit"], nfev=r.info["nfev"],
+                status=r.info["status"], lm_s=f"{r.info['lm_seconds']:.3f}",
+                ms_per_lm_eval=f"{r.info['lm_seconds'] / 61 * 1e3:.2f}",
+                rms_px=f"{r.rms:.5f}",
+                peak_mib=f"{peak:.0f}",
+                x_t_err_m=f"{gaps[0]:.2e}", z_t_err_m=f"{gaps[2]:.2e}")
+            res[name] = r
+        from pycamset_tpu_torch.calibration.handeye import _pose6_of
+        xz = {k: np.concatenate([_pose6_of(v.x), _pose6_of(v.z)])
+              for k, v in res.items()}
+        rec[mode] = sigma_close(f"handeye {mode}", xz["f32"], xz["f64"],
+                                res["f64"].info["xz_sigma"],
+                                EXTRAS_F64["sigma_share"])
+    say("calibration_extras_handeye_f32_vs_f64",
+        **{f"{k}_sigmas": f"{v:.2e}" for k, v in rec.items()})
+    return rec
+
+
+def extras_convert(dev) -> dict:
+    """convert_camera_set of a 16-camera fisheye rig to standard (the wide
+    lens defeats Brown: every camera's rms above 0.5 px, as the JAX
+    package's test holds) and of a 16-camera standard rig to rational
+    (exact: rms under 1e-3 px), at grid 40; float64 on the card for four
+    cameras of each: the same verdict, and on the exact conversion the rms
+    within EXTRAS_F64["convert_px"] px (a failed fit's rms is no estimate
+    to hold to a bound)."""
+    import torch
+    from pycamset_tpu_torch.calibration.convert import convert_camera_set
+    from pycamset_tpu_torch.from_jax import camset_from_numpy
+    from pycamset_tpu_torch.utils.general_utils import make_4x4h_tform
+    from pycamset_tpu_torch.utils.synthetic import make_synthetic_rig
+    rec = {}
+    for model, to in (("fisheye", "standard"), ("standard", "rational")):
+        rig = make_synthetic_rig(n_cams=16, n_ims=1, grid=3, seed=5,
+                                 camera_model=model)
+        names = [f"cam{c}" for c in range(16)]
+        cams = camset_from_numpy(
+            names, [make_4x4h_tform(e[:3], e[3:]) for e in rig["extr"]],
+            [np.array([[i[0], 0, i[1]], [0, i[2], i[3]], [0, 0, 1]])
+             for i in rig["intr"]], [i[4:] for i in rig["intr"]],
+            [[1600, 1200]] * 16)
+        (new, reps), sec, peak, _, _ = extras_call(
+            dev, "convert", lambda: convert_camera_set(
+                cams, to=to, grid=40, device=dev, dtype=torch.float32))
+        rms = np.array([reps[n]["rms_px"] for n in names])
+        check(bool(np.all(rms > 0.5)) if model == "fisheye"
+              else bool(np.all(rms < 1e-3)),
+              f"convert {model}->{to}: rms {rms}")
+        sub = cams.make_subset(names[:4])
+        (_, reps64), sec64, _, _, _ = extras_call(
+            dev, "convert", lambda: convert_camera_set(
+                sub, to=to, grid=40, device=dev, dtype=torch.float64))
+        rms64 = np.array([reps64[n]["rms_px"] for n in names[:4]])
+        gap = float(np.max(np.abs(rms[:4] - rms64)))
+        check(bool(np.all(rms64 > 0.5)) if model == "fisheye"
+              else gap <= EXTRAS_F64["convert_px"],
+              f"convert {model}->{to}: f64 rms {rms64}, f32 {rms[:4]}")
+        rec[f"{model}->{to}"] = gap
+        say("calibration_extras_convert", conversion=f"{model}->{to}",
+            cams=16, grid=40, wall_s=f"{sec:.3f}",
+            s_per_camera=f"{sec / 16:.3f}", peak_mib=f"{peak:.0f}",
+            nit_max=max(r["nit"] for r in reps.values()),
+            nfev_max=max(r["nfev"] for r in reps.values()),
+            status=",".join(sorted({str(r["status"])
+                                     for r in reps.values()})),
+            # wall time over the 16 fits' evaluations, the lifts included
+            ms_per_lm_eval=(
+                f"{sec / sum(r['nfev'] for r in reps.values()) * 1e3:.3f}"),
+            rms_px_min=f"{rms.min():.2e}", rms_px_max=f"{rms.max():.2e}",
+            f64_wall_s_4cams=f"{sec64:.3f}", rms_f32_f64_px=f"{gap:.2e}")
+    return rec
+
+
+def extras_plan(dev, counted, kern, launches) -> dict:
+    """plan_calibration of a proposed ring of 16 cameras, 30 presentations
+    of the 19 x 19 grid at 20 mm, 0.3 px, the OpenCV-free start: the
+    solve's template kernel held to its twin on the solve's tensors, rms
+    within 0.1 px of the noise, sigmas positive and finite; float64 on the
+    card (plain twins): rms and the focal sigmas within
+    EXTRAS_F64["plan_sigma_rel"]."""
+    import torch
+    from pycamset_tpu_torch.calibration.plan import plan_calibration
+    from pycamset_tpu_torch.utils.synthetic import grid_target, ring_rig
+    cams = ring_rig(16, radius=1.5, z=0.6)
+    tpl = grid_target(19, 0.02)
+    reps = {}
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        ctx = (contextlib.nullcontext() if dtype == torch.float32
+               else plain_template_grams())
+        with built_problems() as probs, ctx:
+            rep, sec, peak, own, n_own = extras_call(
+                dev, "plan", lambda: plan_calibration(
+                    cams, tpl, n_ims=30, noise_px=0.3, seed=3,
+                    start="truth", device=dev, dtype=dtype),
+                counted if dtype == torch.float32 else None)
+        res = rep["result"]
+        sig = np.array([c["focal_sigma_px"] for c in rep["cameras"].values()])
+        check(abs(rep["expected_rms_px"] - 0.3) < 0.1
+              and int(res.status) in (1, 2, 3)
+              and bool(np.all(np.isfinite(sig) & (sig > 0)))
+              and "triangulation_sigma" in rep,
+              f"plan {name}: rms {rep['expected_rms_px']}, status "
+              f"{res.status}, focal sigmas {sig}")
+        if dtype == torch.float32:
+            label = "calibration_extras plan 16x30"
+            launches[own][label] = n_own
+            extras_parity(kern, label, own, probs[-1])
+        say("calibration_extras_plan", dtype=name, cams=16, n_ims=30,
+            detections=rep["n_detections"], wall_s=f"{sec:.3f}",
+            nit=res.nit, nfev=res.nfev, status=res.status,
+            ms_per_lm_eval=f"{sec / res.nfev * 1e3:.2f}",
+            rms_px=f"{rep['expected_rms_px']:.5f}", peak_mib=f"{peak:.0f}",
+            **({"kernel": own, "launches": n_own} if own else
+               {"kernel": "plain twin (float64)"}),
+            focal_sigma_px_max=f"{sig.max():.4f}",
+            tri_worst_mm=(
+                f"{rep['triangulation_sigma']['worst_axis'] * 1e3:.4f}"))
+        reps[name] = rep
+    rel = max(abs(reps["f32"]["cameras"][n]["focal_sigma_px"] - c[
+        "focal_sigma_px"]) / c["focal_sigma_px"]
+        for n, c in reps["f64"]["cameras"].items())
+    rms_rel = (abs(reps["f32"]["expected_rms_px"]
+                   - reps["f64"]["expected_rms_px"])
+               / reps["f64"]["expected_rms_px"])
+    check(rel <= EXTRAS_F64["plan_sigma_rel"]
+          and rms_rel <= EXTRAS_F64["rms_rel"],
+          f"plan: f32 vs f64 focal sigmas {rel}, rms {rms_rel}")
+    say("calibration_extras_plan_f32_vs_f64", focal_sigma_rel=f"{rel:.2e}",
+        rms_rel=f"{rms_rel:.2e}")
+    return {"focal_sigma_rel": rel, "rms_rel": rms_rel}
+
+
+def phase_calibration_extras(dev, counted, kern, launches) -> dict:
+    """[calibration_extras]: sync, rig health and the partial
+    recalibrations, hand-eye, lens-model conversion and the planner on the
+    card (each part timed)."""
+    import torch
+    t_phase = time.perf_counter()
+    rec, parts = {}, {}
+    for name, run in (
+            ("sync", lambda: extras_sync(dev)),
+            ("monitor", lambda: extras_monitor(dev, counted, kern,
+                                               launches)),
+            ("handeye", lambda: extras_handeye(dev)),
+            ("convert", lambda: extras_convert(dev)),
+            ("plan", lambda: extras_plan(dev, counted, kern, launches))):
+        t0 = time.perf_counter()
+        rec[name] = run()
+        parts[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["seconds"] = round(time.perf_counter() - t_phase, 1)
+    say("calibration_extras_seconds",
+        **{k: f"{v:.1f}" for k, v in parts.items()}, total=rec["seconds"])
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7351,6 +7951,13 @@ def main() -> int:
     say("elapsed", after="serving",
         seconds=f"{time.perf_counter() - t_start:.1f}",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    phase_calibration_extras(dev, counted, kern, launches)
+    say("elapsed", after="calibration_extras",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
     for name, by_solve in mixed_launches.items():
         launches[name].update(by_solve)
     for phase, recs in (("multi_target_handlers", multi),
@@ -7580,7 +8187,28 @@ def main() -> int:
     return 0
 
 
+def extras_alone() -> int:
+    """``--calibration-extras``: the build, then ``[calibration_extras]``
+    alone (a quick check of that phase on a card; the smoke proper runs it
+    after every other phase)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    phase_device()
+    phase_build()
+    kern = {name: {} for name in KERNELS}
+    launches = {name: {} for name in KERNELS}
+    phase_calibration_extras(torch.device("cuda", 0), wrappers(), kern,
+                             launches)
+    say("calibration_extras_launches",
+        **{k: v for k, v in launches.items() if v})
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serving-export"]:
         sys.exit(export_serving_artifact(sys.argv[2]))
+    if sys.argv[1:2] == ["--calibration-extras"]:
+        sys.exit(extras_alone())
     sys.exit(main())

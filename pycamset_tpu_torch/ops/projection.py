@@ -1,6 +1,7 @@
 """The camera projection (counterpart of ``project_cam_points``,
-``project_cam_points_het``, ``pack_rig_intrinsics``, ``intr9_from_k_dist``
-and ``k_dist_from_intr9`` in ``pycamset_tpu/ops/projection.py``): the
+``project_cam_points_het``, ``pack_rig_intrinsics``, ``intr9_from_k_dist``,
+``k_dist_from_intr9``, ``project_world_points`` and
+``project_target_points`` in ``pycamset_tpu/ops/projection.py``): the
 packed intrinsic vector is [fx, px, fy, py | dist], 9 entries for the
 standard model, 12 rational, 16 thin-prism, 18 tilted and 8 fisheye
 (``ops/distortion.py``); a heterogeneous rig (fisheye beside Brown
@@ -13,6 +14,7 @@ import torch
 
 from pycamset_tpu_torch.ops.distortion import (distort_normalized,
                                                fisheye_distort_normalized)
+from pycamset_tpu_torch.ops.transforms import pose_apply
 
 
 def intr9_from_k_dist(kmat, dist, n_dist: int = 5) -> torch.Tensor:
@@ -104,3 +106,19 @@ def pack_rig_intrinsics(kmats, dist_list):
         return project_cam_points_het(intr_row, xc, brown_n_dist=n_brown)
 
     return rows, project_het
+
+
+def project_world_points(intr9: torch.Tensor, extr6: torch.Tensor,
+                         pts_w: torch.Tensor) -> torch.Tensor:
+    """World points (..., 3) -> pixels: the extrinsic, then the
+    projection."""
+    return project_cam_points(intr9, pose_apply(extr6, pts_w))
+
+
+def project_target_points(intr9: torch.Tensor, extr6: torch.Tensor,
+                          pose6: torch.Tensor,
+                          pts_t: torch.Tensor) -> torch.Tensor:
+    """Target-frame points -> pixels: the template chain (target pose,
+    extrinsic, projection), right to left."""
+    return project_cam_points(intr9, pose_apply(extr6,
+                                                pose_apply(pose6, pts_t)))

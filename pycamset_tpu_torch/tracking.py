@@ -57,6 +57,35 @@ _NO_CV2 = ("pass init= (track, track_stream) or inits= (track_batch), or "
            "use track_batch(seed_mode='device')")
 
 
+def rig_projection_partials(intr, xc, het: bool, n_brown: int):
+    """pred (..., 2) and d pred / d xc (..., 2, 3) of camera-frame points
+    xc (..., 3), each through its packed row intr (..., w) of
+    ``pack_rig_intrinsics`` (a het row: both families, selected by slot
+    0)."""
+    xc1 = xc[..., None, :]
+    if not het:
+        pred, _, d_xc = projection_partials(intr, xc1, with_intr=False)
+        return pred[..., 0, :], d_xc[..., 0, :, :]
+    kvec, dist = intr[..., 1:5], intr[..., 5:]
+    pb, _, db = projection_partials(
+        torch.cat([kvec, dist[..., :n_brown]], -1), xc1, with_intr=False)
+    pf, _, df = projection_partials(
+        torch.cat([kvec, dist[..., :4]], -1), xc1, with_intr=False)
+    fish = intr[..., 0] > 0.5
+    return (torch.where(fish[..., None], pf[..., 0, :], pb[..., 0, :]),
+            torch.where(fish[..., None, None], df[..., 0, :, :],
+                        db[..., 0, :, :]))
+
+
+def rig_family(dists):
+    """(het, n_brown) of a rig's distortion vectors: het when 4-wide
+    fisheye vectors sit beside Brown ones (``pack_rig_intrinsics``'
+    selector layout), n_brown the Brown width of that layout."""
+    sizes = {np.reshape(d, -1).size for d in dists}
+    return (4 in sizes and sizes != {4},
+            max([5] + [s for s in sizes if s != 4]))
+
+
 def _mat_vec(m, v):
     """(..., 3, 3) @ (..., 3) as a product and a sum over the last axis
     (the leading dims broadcast)."""
@@ -94,21 +123,8 @@ class TrackerCore(torch.nn.Module):
     def _partials(self, cam_i, xc):
         """pred (..., N, 2) and d pred / d xc (..., N, 2, 3) through each
         detection's camera (a het rig: both families, selected)."""
-        intr = self.intr[cam_i]
-        xc1 = xc[..., None, :]
-        if not self.het:
-            pred, _, d_xc = projection_partials(intr, xc1, with_intr=False)
-            return pred[..., 0, :], d_xc[..., 0, :, :]
-        kvec, dist = intr[..., 1:5], intr[..., 5:]
-        pb, _, db = projection_partials(
-            torch.cat([kvec, dist[..., :self.n_brown]], -1), xc1,
-            with_intr=False)
-        pf, _, df = projection_partials(
-            torch.cat([kvec, dist[..., :4]], -1), xc1, with_intr=False)
-        fish = intr[..., 0] > 0.5
-        return (torch.where(fish[..., None], pf[..., 0, :], pb[..., 0, :]),
-                torch.where(fish[..., None, None], df[..., 0, :, :],
-                            db[..., 0, :, :]))
+        return rig_projection_partials(self.intr[cam_i], xc, self.het,
+                                       self.n_brown)
 
     def residual_jac(self, state, cam_i, key_i, uv, mask):
         """Masked residuals (..., N, 2) and their Jacobian (..., N, 2, S).
@@ -388,8 +404,7 @@ class TargetTracker:
         heights = np.array([float(np.ravel(camset[n].res)[1])
                             for n in names])
         dists_h, het = stack_cam_dists(dists)
-        sizes = {d.size for d in dists}
-        n_brown = max([5] + [s for s in sizes if s != 4])
+        n_brown = rig_family(dists)[1]
         exts = np.stack([np.asarray(camset[n].extrinsic, dtype=float)
                          for n in names])
         proj = np.einsum("cij,cjk->cik", np.stack(kmats), exts[:, :3, :])

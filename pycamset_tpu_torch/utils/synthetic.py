@@ -351,19 +351,23 @@ def knot_path(n_frames: int, static: bool = False,
 
 
 def moving_capture(cams, tpl: np.ndarray, n_frames: int, offsets,
-                   readouts=None, noise: float = 0.0, seed: int = 0,
-                   static: bool = False, linear: bool = False):
+                   skews=None, readouts=None, ratios=None,
+                   noise: float = 0.0, seed: int = 0, static: bool = False,
+                   linear: bool = False, device="cpu"):
     """A target moving along ``knot_path`` (linearly interpolated between
-    integer-time knots), seen by each camera c at frame times j +
-    offsets[c] (in frames; times outside [0, n_frames - 1] are skipped);
-    with ``readouts`` a detection on row v is seen at t + readout_c (v/1200
-    - 1/2), the row found by fixed point (at most 6 sweeps, a frame done
-    once no pixel moves by 1e-10). Kept: z > 0.1 and inside 1600 x 1200;
-    then the noise, camera-major, frame by frame.
+    integer-time knots), seen by each camera c at frame times j ratio_c +
+    offsets[c] + skews[c] (j ratio_c - j_mid) in reference frames (times
+    outside [0, n_frames - 1] are skipped). ``ratios`` are the per-camera
+    frame-duration ratios fps_ref / fps_c: a 0.5 camera runs at twice the
+    reference rate, floor((n_frames - 1) / ratio_c) + 1 frames over the
+    same span. With ``readouts`` a detection on row v is seen at t +
+    readout_c (v/1200 - 1/2), the row found by fixed point (at most 6
+    sweeps, a frame done once no pixel moves by 1e-10). Kept: z > 0.1 and
+    inside 1600 x 1200; then the noise, camera-major, frame by frame.
 
-    The JAX package's ``tests/test_sync.py::_moving_capture`` (without its
-    skews and frame-rate ratios), each sweep projecting every point of a
-    camera's frames at once.
+    The JAX package's ``tests/test_sync.py::_moving_capture``, each sweep
+    projecting every point of a camera's frames at once (in float64 on
+    ``device``).
 
     :return: (dd (N, 5) [cam, im, key, u, v], knots (n_frames, 6)).
     """
@@ -379,15 +383,19 @@ def moving_capture(cams, tpl: np.ndarray, n_frames: int, offsets,
         world = (np.einsum("jkab,kb->jka", _rodrigues_batch(p6[..., :3]),
                            tpl) + p6[..., 3:])
         z = (world @ cam.extrinsic[:3, :3].T + cam.extrinsic[:3, 3])[..., 2]
-        uv = cam.project_points(world.reshape(-1, 3), device="cpu",
+        uv = cam.project_points(world.reshape(-1, 3), device=device,
                                 dtype=torch.float64)
         return np.asarray(uv).reshape(t.shape + (2,)), z
 
     rows = []
+    jmid = (n_frames - 1) / 2.0
     for c, name in enumerate(cams.get_names()):
         cam = cams[name]
-        j = np.arange(n_frames)
-        t = j + offsets[c]
+        ratio = 1.0 if ratios is None else float(ratios[c])
+        j = np.arange(int(np.floor((n_frames - 1) / ratio)) + 1)
+        t = j * ratio + offsets[c]
+        if skews is not None:
+            t = t + skews[c] * (j * ratio - jmid)
         inside = (t >= 0.0) & (t <= n_frames - 1.0)
         j, t = j[inside], t[inside]
         tk = np.repeat(t[:, None], n_keys, axis=1)

@@ -216,6 +216,69 @@ def test_card_path_needs_neither_jax_nor_cv2():
                    timeout=120)
 
 
+# The calibration extras with jax and cv2 unimportable, each on its
+# OpenCV-free path at a tiny size on the CPU: sync on a moving capture,
+# rig_health and the recalibrations from the stored rig (their PnP start
+# refused), hand-eye, a model conversion and the planner from the truth.
+CALIBRATION_EXTRAS = """
+import sys
+sys.modules["cv2"] = None
+sys.modules["jax"] = None
+import numpy as np
+from pycamset_tpu_torch.calibration import (
+    calibrate_hand_eye, calibrate_time_offsets, convert_camera_set,
+    plan_calibration, recalibrate_extrinsics, recalibrate_intrinsics,
+    rig_health, synthesize_detections)
+from pycamset_tpu_torch.models.abstract_target import FreePointTarget
+from pycamset_tpu_torch.models.detections import TargetDetection
+from pycamset_tpu_torch.utils.general_utils import make_4x4h_tform
+from pycamset_tpu_torch.utils.synthetic import (grid_target, moving_capture,
+                                                ring_rig)
+cams = ring_rig()
+tpl = grid_target()
+target = FreePointTarget(tpl.reshape(1, -1, 3))
+rows, _ = moving_capture(cams, tpl, 12, np.array([0.0, 1.2, -0.3]),
+                         noise=0.1, seed=1)
+res = calibrate_time_offsets(cams, TargetDetection(cams.get_names(), rows),
+                             target, max_shift=2, device="cpu")
+assert np.abs(res.offsets - [0.0, 1.2, -0.3]).max() < 0.05, res.offsets
+det, poses = synthesize_detections(cams, tpl, 6, noise_px=0.1, seed=2,
+                                   device="cpu")
+assert rig_health(cams, det, target, device="cpu")["drifted"] == []
+_, rep = recalibrate_extrinsics(cams, det, target, start="rig",
+                                device="cpu")
+assert rep["rms_px"] < 0.3, rep
+_, rep = recalibrate_intrinsics(cams, det, target, refresh=["cam1"],
+                                start="rig", device="cpu")
+assert rep["rms_px"] < 0.3, rep
+for call in (lambda: recalibrate_extrinsics(cams, det, target,
+                                            device="cpu"),
+             lambda: plan_calibration(cams, tpl, n_ims=4, device="cpu")):
+    try:
+        call()
+    except ImportError as err:
+        assert "start=" in str(err), err
+    else:
+        raise AssertionError("a PnP start ran without cv2")
+p = np.stack([make_4x4h_tform(q[:3], q[3:]) for q in poses])
+x = make_4x4h_tform(np.array([0.1, -0.2, 0.3]), np.array([0.05, 0.0, 0.1]))
+g = np.stack([np.linalg.inv(pi) @ np.linalg.inv(x) for pi in p])
+he = calibrate_hand_eye(cams, det, g, target, device="cpu")
+assert np.abs(he.x - x).max() < 1e-2 and he.info["status"] > 0
+_, reps = convert_camera_set(cams, to="rational", grid=12, device="cpu")
+assert max(r["rms_px"] for r in reps.values()) < 1e-3, reps
+plan = plan_calibration(cams, tpl, n_ims=6, start="truth", device="cpu")
+assert plan["result"].status in (1, 2, 3) and "cam2" in plan["cameras"]
+bad = [m for m in ("pycamset_tpu", "pycamset_tpu.config") if m in sys.modules]
+assert not bad, bad
+"""
+
+
+def test_calibration_extras_need_neither_jax_nor_cv2():
+    subprocess.run([sys.executable, "-c", CALIBRATION_EXTRAS], cwd=REPO,
+                   check=True, timeout=120)
+
+
 def test_cuda_request_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
