@@ -272,6 +272,25 @@ it at 1,024 frames; ``[serving_markers]`` reconstructs 64 markers seen by
 16 cameras over 1,024 frames (``MarkerTriangulator``, the marker tests'
 sigma checks, NaN / inf where fewer than 2 cameras see one).
 
+Then the calibration tools (``[calibration_tools]``, after
+``[calibration_extras]``), each part float32 on the kernels and held
+against the same call in float64 on the plain twins, on the card:
+``estimate_poses_with_fixed_cameras(start="rig")`` on
+``template_handler(16, 100)``'s true rig (every camera column pinned:
+Kernel A, held to its twin on the solve's problem; rms <= 0.36 px, poses
+within 2e-2 of the truth); ``select_camera_model(start="rig")`` on a
+rational rig seeded with 5 coefficients, jointly (Kernel B at the four
+Brown widths on the train split, each held to its twin and timed) and per
+camera on 4 cameras: no failed candidate or cell, the float32 pick the
+float64 pick (the joint pick printed beside the rig's own model); the
+wand's
+``calibrate_extrinsics_from_wand(start="rig")`` on 12 cameras x 3,000
+frames from a stored rig moved 1 degree / 2 cm a camera (the free-point
+wrapper on its one-image grid, held and timed; centres within 2 mm,
+rotations within 1 mrad, rms <= 1.2 x 0.2 px); its rig through COLMAP,
+NeRF and MVSNet files and back. ``--calibration-extras`` and
+``--calibration-tools`` run the build and that phase alone.
+
 Every phase prints one line; any failure raises, so the script exits
 non-zero and prints no final line. The line before the last lists the
 kernels as JSON; the last is
@@ -2514,41 +2533,53 @@ def phase_freepoint_kernels(fp_probs, out):
         for name, run in runs.items():
             same_bits(name, run)
 
-        cam_b, keyp, uv, mask, cmask, kmask = f32
-        im0, imask0 = sg._identity_poses(cam_b)
-        packed = sg.pack_block_params(cam_b, im0)
-        passes = {
-            "freepoint_gram": device_ms(
-                lambda: sg._launch_selfcal(packed, keyp, uv, mask, cmask,
-                                           imask0, kmask, 0, 1, 1.0)),
-            "freepoint_gram_fused": device_ms(
-                lambda: sg._launch_selfcal_fused(packed, keyp, uv, mask,
-                                                 imask0, kmask, n_cams,
-                                                 n_ims, 0, 1, 1.0))}
+        times = {name: freepoint_times(sg, name, prob, f32)
+                 for name in runs}
         say("time_passes", shape=shape.replace(" ", "_"), unit="ms",
             **{f"{name}:{kernel}": f"{ms:.4f}"
-               for name, by_kernel in passes.items()
-               for kernel, ms in by_kernel.items()})
-        for name, run in runs.items():
-            base = mib_allocated()
-            run()
-            peak = torch.cuda.max_memory_allocated() / 2 ** 20 - base
-            kernel = sum(passes[name].values())
-            plain = (
-                (lambda: sg.freepoint_gram_plain(*f32))
-                if name == "freepoint_gram" else
-                (lambda: sg.freepoint_gram_fused_plain(
-                    cam_b, keyp, uv, mask, kmask, n_cams, n_ims)))
-            rec = dict(ms=cuda_ms(run, 10), kernel_ms=kernel,
-                       plain_ms=cuda_ms(plain, 3), peak_mib=peak)
+               for name, t in times.items()
+               for kernel, ms in t["passes"].items()})
+        for name, t in times.items():
+            rec = {k: t[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                     "peak_mib")}
             out[name][shape].update(rec)
-            bound_ms, by = freepoint_bound(name, prob)
             say("time", shape=shape.replace(" ", "_"), kernel=name,
                 unit="ms", **{k: f"{v:.4f}" for k, v in rec.items()},
-                bound_ms=f"{bound_ms:.4f}", bound_by=by,
-                of_bound=f"{bound_ms / max(kernel, 1e-9):.4f}")
-        del f32, packed, runs
+                bound_ms=f"{t['bound_ms']:.4f}", bound_by=t["bound_by"],
+                of_bound=f"{t['bound_ms'] / max(t['kernel_ms'], 1e-9):.4f}")
+        del f32, runs
         torch.cuda.empty_cache()
+
+
+def freepoint_times(sg, name: str, prob, f32) -> dict:
+    """One free-point wrapper's times on ``f32`` (``prob``'s tensors, as
+    ``freepoint_inputs`` gives them): each pass of its borrowed kernel by
+    device time under torch.profiler (``passes``; ``kernel_ms`` their
+    sum), the wrapper's and its float32 twin's CUDA-event ms, the peak MiB
+    a wrapper call adds, and its bound (``freepoint_bound``)."""
+    import torch
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    cam_b, keyp, uv, mask, cmask, kmask = f32
+    im0, imask0 = sg._identity_poses(cam_b)
+    packed = sg.pack_block_params(cam_b, im0)
+    if name == "freepoint_gram":
+        passes = device_ms(lambda: sg._launch_selfcal(
+            packed, keyp, uv, mask, cmask, imask0, kmask, 0, 1, 1.0))
+        plain = lambda: sg.freepoint_gram_plain(*f32)     # noqa: E731
+    else:
+        passes = device_ms(lambda: sg._launch_selfcal_fused(
+            packed, keyp, uv, mask, imask0, kmask, n_cams, n_ims, 0, 1,
+            1.0))
+        plain = (lambda: sg.freepoint_gram_fused_plain(   # noqa: E731
+            cam_b, keyp, uv, mask, kmask, n_cams, n_ims))
+    run = freepoint_runs(sg, f32, n_cams, n_ims)[name]
+    base = mib_allocated()
+    run()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20 - base
+    bound_ms, by = freepoint_bound(name, prob)
+    return {"passes": passes, "kernel_ms": sum(passes.values()),
+            "ms": cuda_ms(run, 10), "plain_ms": cuda_ms(plain, 3),
+            "peak_mib": peak, "bound_ms": bound_ms, "bound_by": by}
 
 
 def solved_through_graph(tag, solve_fn, x0, kernel_route: bool):
@@ -7175,26 +7206,31 @@ def extras_parity(kern, label: str, own: str, prob):
     user_path_parity(kern, f"{label} moved", own, moved_problem(prob))
 
 
-def template_kernel_run(counted, tag: str, run):
+def template_kernel_run(counted, tag: str, run, allowed=None):
     """``run()`` with every wrapper's count at 0 just before and read just
-    after: exactly one of Kernels A and B launched, no other wrapper.
-    Returns (result, the wrapper's name, its launches, host seconds)."""
+    after: exactly one of Kernels A and B launched, no other wrapper; with
+    ``allowed`` (wrapper names), one or more of those and no other.
+    Returns (result, the wrapper's name, its launches, host seconds); with
+    ``allowed``, the names launched and {name: launches} in their place."""
     zero_counts(counted)
     t0 = time.perf_counter()
     result = run()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
-    own = [n for n in ("template_gram", "template_gram_fused")
+    own = [n for n in (allowed or ("template_gram", "template_gram_fused"))
            if launches[n]]
-    check(len(own) == 1 and not any(
-        n for name, n in launches.items() if name != own[0]),
+    check((len(own) >= 1 if allowed else len(own) == 1) and not any(
+        n for name, n in launches.items() if name not in own),
         f"{tag}: the main path launched {launches}")
+    if allowed:
+        return result, own, {n: launches[n] for n in own}, seconds
     return result, own[0], launches[own[0]], seconds
 
 
-def extras_call(dev, tag: str, fn, counted=None):
+def extras_call(dev, tag: str, fn, counted=None, allowed=None):
     """One call of the phase on the card: (result, host s, peak MiB above
-    the start; with ``counted``: the template wrapper and its launches)."""
+    the start; with ``counted``: the template wrapper and its launches, as
+    ``template_kernel_run`` gives them for ``allowed``)."""
     import torch
     torch.cuda.synchronize()
     base = mib_allocated()
@@ -7204,7 +7240,8 @@ def extras_call(dev, tag: str, fn, counted=None):
     if counted is None:
         result = fn()
     else:
-        result, own, n_own, _ = template_kernel_run(counted, tag, fn)
+        result, own, n_own, _ = template_kernel_run(counted, tag, fn,
+                                                    allowed)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20 - base
@@ -7676,6 +7713,616 @@ def phase_calibration_extras(dev, counted, kern, launches) -> dict:
     return rec
 
 
+# ----------------------------------------------------- [calibration_tools]
+
+# target poses on the fixed rig: template_handler(16, 100)'s true cameras
+# fixed, every pose free; per-component rms and each pose entry against
+# the truth
+TOOLS_FIND = {"cams": 16, "ims": 100, "rms_px": 0.36, "pose": 2e-2}
+# model selection: make_synthetic_rig's rational rig, seeded with the true
+# K and extrinsics and the distortion cut to 5 coefficients (the JAX
+# test's _rig_cams_det pattern), DEFAULT_CANDIDATES, each template solve
+# at the stated budget (the thin-prism and tilted solves crawl in the Brown
+# models' flat valley, ROADMAP Queue C 6); per camera on the first 4.
+# Each candidate's float32 train and holdout rms within rms_rel of its
+# float64 value: float32's LM stops once a step is under 50 eps of the
+# parameter vector's norm (on the CPU the float32 twins at 4x20, max_nfev
+# 10, stopped within 1.7e-4 of float64), while a kernel that gets a width
+# wrong moves the rms by far more
+TOOLS_SELECT = {"cams": 16, "ims": 100, "grid": 19, "model": "rational",
+                "noise": 0.3, "holdout": 0.25, "seed": 0, "max_nfev": 50,
+                "per_camera_cams": 4, "expect": "rational",
+                "rms_rel": 1e-3}
+# the wand: a ring of 12 cameras with tests/test_wand.py's lens (f 1400,
+# its distortion), its radius and height 1.5 x the test's 4-camera ring's
+# (1.6 m, 0.7 m); 3,000 frames of its 3-marker wand (0.25 m spacing) on its
+# path, 0.2 px, a camera missing a frame at 0.3; the stored rig the truth
+# moved by 1 degree and 2 cm a camera (rng(seed)); the holds against the
+# truth after the metric scale
+TOOLS_WAND = {"cams": 12, "radius": 2.4, "z": 1.05, "f": 1400.0,
+              "dist": (-0.12, 0.03, 1e-4, -1e-4, 0.0), "frames": 3000,
+              "noise": 0.2, "drop": 0.3, "seed": 27, "deg": 1.0,
+              "shift": 0.02, "centre_m": 2e-3, "rot_rad": 1e-3,
+              "rms_of_noise": 1.2}
+WAND_MARKERS = np.array([[0.0, 0, 0], [0.25, 0, 0], [0.5, 0, 0]])
+# float32 on the kernels against the same call in float64 on the plain
+# twins: pose entries a twentieth of their truth hold; the wand's camera
+# centres (m) and rotations (rad) a quarter of theirs (float32's LM stops
+# once a step is under 50 eps of the parameter vector's norm: on the CPU
+# the float32 twins' wand solve at 300 frames stopped 0.16 mm / 0.06 mrad
+# from float64's)
+TOOLS_F64 = {"pose": 1e-3, "centre_m": 5e-4, "rot_rad": 2.5e-4}
+
+
+@contextlib.contextmanager
+def plain_freepoint_grams():
+    """Within the block, the free-point wrappers are their plain twins: the
+    float64 reference of a free-point solve on the card."""
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    orig = sg.freepoint_gram, sg.freepoint_gram_fused
+    sg.freepoint_gram = sg.freepoint_gram_plain
+    sg.freepoint_gram_fused = sg.freepoint_gram_fused_plain
+    try:
+        yield
+    finally:
+        sg.freepoint_gram, sg.freepoint_gram_fused = orig
+
+
+@contextlib.contextmanager
+def failures_logged():
+    """Within the block, every logged warning that names a failure is
+    appended to the list yielded (model selection logs a failed candidate
+    or (camera, model) cell and goes on)."""
+    import logging
+    seen = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if "failed" in record.getMessage():
+                seen.append(record.getMessage())
+    catch = Catch(logging.WARNING)
+    logging.getLogger().addHandler(catch)
+    try:
+        yield seen
+    finally:
+        logging.getLogger().removeHandler(catch)
+
+
+def template_of(prob) -> str:
+    """The template wrapper a problem's solve takes (the fused family's
+    padding rule on its bucketed image count)."""
+    from pycamset_tpu_torch.optim.structured import fused_tile_pad_ok
+    return ("template_gram_fused" if fused_tile_pad_ok(prob.blocks.n_ims)
+            else "template_gram")
+
+
+def dtype_runs(plain):
+    """(name, dtype, context): float32 on the kernels, then float64 with
+    the wrappers swapped for their plain twins (``plain``)."""
+    import torch
+    return (("f32", torch.float32, contextlib.nullcontext),
+            ("f64", torch.float64, plain))
+
+
+def tools_find_target(dev, counted, kern, launches, peak_tflops) -> dict:
+    """estimate_poses_with_fixed_cameras(start="rig") on template_handler(
+    16, 100)'s true rig: every camera column pinned (Kernel A or B held to
+    its twin on the solve's problem, at its start and moved off it; the
+    dense camera system it hands the Schur step); rms and poses against
+    the truth, float32 against float64."""
+    import torch
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.optim.find_target import (
+        estimate_poses_with_fixed_cameras)
+    from pycamset_tpu_torch.problems import template_handler
+    from pycamset_tpu_torch.utils.general_utils import make_4x4h_tform
+    s = TOOLS_FIND
+    t0 = time.perf_counter()
+    h, rig = template_handler(s["cams"], s["ims"])
+    cams, det, target = h.camset, h.detection, h.target
+    truth = np.stack([make_4x4h_tform(p[:3], p[3:]) for p in rig["poses"]])
+    inputs_s = time.perf_counter() - t0
+    poses = {}
+    for name, dtype, ctx in dtype_runs(plain_template_grams):
+        with built_problems() as probs, ctx():
+            (p, res), sec, peak, own, n_own = extras_call(
+                dev, "find_target", lambda: estimate_poses_with_fixed_cameras(
+                    cams, target, det, start="rig", device=dev,
+                    dtype=dtype), counted if name == "f32" else None)
+        rms = float(np.sqrt(np.mean(np.square(res.fun))))
+        err = float(np.abs(p - truth).max())
+        check(int(res.status) in (1, 2, 3) and rms <= s["rms_px"]
+              and err <= s["pose"], f"find_target {name}: status "
+              f"{res.status}, rms {rms}, pose entries {err} from the truth")
+        fields = {}
+        if name == "f32":
+            prob = probs[-1]
+            label = f"calibration_tools find_target {s['cams']}x{s['ims']}"
+            check(own == template_of(prob) and float(
+                prob.colmask.cam.abs().sum()) == 0.0,
+                f"find_target: {own}, free camera columns "
+                f"{float(prob.colmask.cam.sum())}")
+            launches[own][label] = n_own
+            extras_parity(kern, label, own, prob)
+            a_n, _ = capture_reduced_systems({label: prob})[label]
+            diag = torch.diagonal(a_n)
+            check(bool(torch.isfinite(a_n).all()), "find_target: the dense "
+                                                   "camera system")
+            t = camera_model_times(cg, prob, own.endswith("fused"),
+                                   peak_tflops)
+            kern[own][label].update(
+                {k: t[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
+                                   "bound_by")})
+            fields = dict(kernel=own, launches=n_own,
+                          im_grid=prob.blocks.n_ims,
+                          free_camera_columns=0, dense_n=a_n.shape[0],
+                          dense_diag_min=f"{float(diag.min()):.3e}",
+                          dense_diag_max=f"{float(diag.max()):.3e}",
+                          kernel_ms=f"{t['kernel_ms']:.4f}",
+                          bound_ms=f"{t['bound_ms']:.4f}",
+                          bound_by=t["bound_by"],
+                          plain_ms=f"{t['plain_ms']:.4f}")
+        say("calibration_tools_find_target", dtype=name,
+            shape=f"{s['cams']}x{s['ims']}", wall_s=f"{sec:.3f}",
+            nit=res.nit, nfev=res.nfev, status=res.status,
+            rms_px=f"{rms:.5f}", pose_err_max=f"{err:.2e}",
+            peak_mib=f"{peak:.0f}", inputs_s=f"{inputs_s:.1f}", **fields)
+        poses[name] = p
+    gap = float(np.abs(poses["f32"] - poses["f64"]).max())
+    check(gap <= TOOLS_F64["pose"], f"find_target: f32 vs f64 poses {gap}")
+    return {"f32_vs_f64_pose": gap}
+
+
+def emptied_blocks(prob):
+    """A template problem's stand-in (``moved_problem``'s fields) whose
+    images with a non-finite plain-twin gram at the start are emptied:
+    their mask zero and their pose the first finite image's. Per-camera
+    model selection pins its one camera and image 0's pose at the
+    identity (ROADMAP Queue C 9): that board lies in the camera's centre
+    plane, its residuals are NaN in both packages, and a NaN gram is no
+    measure of a kernel. The other images' blocks are the solve's own.
+
+    :return: (the stand-in, the emptied image indices)."""
+    import types
+    import torch
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    g = cg.template_gram_plain(*(t.double() for t in template_inputs(prob)))
+    bad = (~torch.isfinite(g).reshape(n_cams, n_ims, -1).all(-1)).any(0)
+    im = prob.x0.im.clone()
+    im[bad] = im[int(torch.nonzero(~bad)[0, 0])].clone()
+    mask = prob.mask.clone().reshape(n_cams, n_ims, -1)
+    mask[:, bad] = 0
+    return (types.SimpleNamespace(
+        x0=prob.x0._replace(im=im), blocks=prob.blocks,
+        mask=mask.reshape(prob.mask.shape), tpl=prob.tpl, uv=prob.uv,
+        widths=prob.widths, colmask=prob.colmask),
+        torch.nonzero(bad).flatten().tolist())
+
+
+def tools_model_select(dev, counted, kern, launches, builds,
+                       peak_tflops) -> dict:
+    """select_camera_model(start="rig") on TOOLS_SELECT's rational rig,
+    jointly and per camera on its first cameras, float32 on Kernels A / B
+    and float64 on their plain twins: no candidate or (camera, model) cell
+    fails, every candidate's float32 train and holdout rms within
+    ``rms_rel`` of its float64 value (the joint train rms finite; per
+    camera NaN where float64's is, ROADMAP Queue C 9), the float32 pick
+    the float64 pick; the joint pick printed beside the expected model.
+    The kernel is held against its twin (start and moved) on each model's
+    train problem and on the first holdout pose solve (every camera column
+    pinned), and per camera on the first train problem (its NaN image
+    emptied, ``emptied_blocks``) and holdout pose solve, with its time and
+    bound.
+
+    :return: {(wrapper, model): {"launches": {label: n}, "recs": {label:
+        held record}}} for the models' rows of the kernels line."""
+    import torch
+    from pycamset_tpu_torch.calibration.model_select import (
+        DEFAULT_CANDIDATES, select_camera_model)
+    from pycamset_tpu_torch.models.abstract_target import FreePointTarget
+    from pycamset_tpu_torch.models.camera_set import CameraSet, make_cam_dict
+    from pycamset_tpu_torch.models.detections import TargetDetection
+    from pycamset_tpu_torch.optim import cuda_grams as cg
+    from pycamset_tpu_torch.utils.general_utils import make_4x4h_tform
+    from pycamset_tpu_torch.utils.synthetic import make_synthetic_rig
+    s = TOOLS_SELECT
+    t0 = time.perf_counter()
+    rig = make_synthetic_rig(n_cams=s["cams"], n_ims=s["ims"],
+                             grid=s["grid"], camera_model=s["model"],
+                             noise_px=s["noise"])
+    names = [f"cam{c}" for c in range(s["cams"])]
+    cams = CameraSet(camera_dict=make_cam_dict(
+        names, [make_4x4h_tform(e[:3], e[3:]) for e in rig["extr"]],
+        [np.array([[i[0], 0, i[1]], [0, i[2], i[3]], [0, 0, 1]])
+         for i in rig["intr"]], [i[4:9] for i in rig["intr"]],
+        [[1600, 1200]] * s["cams"]))
+    target = FreePointTarget(rig["template"].reshape(1, -1, 3))
+    det = TargetDetection(cam_names=names, data=rig["dd"])
+    n_sub = s["per_camera_cams"]
+    rows = rig["dd"][rig["dd"][:, 0] < n_sub]
+    sub = (cams.make_subset(list(range(n_sub))),
+           TargetDetection(cam_names=names[:n_sub], data=rows,
+                           max_ims=det.max_ims))
+    inputs_s = time.perf_counter() - t0
+    width_model = {15: "standard",
+                   **{a: m for m, a in MODEL_WIDTH.items()}}
+    ab = ("template_gram", "template_gram_fused")
+    rows_out, picks = {}, {}
+
+    def hold(prob, kind):
+        """The kernel on one of the run's problems (start and moved),
+        its time and bound, into ``rows_out``."""
+        held_prob, emptied = ((prob, []) if kind != "per_camera train"
+                              else emptied_blocks(prob))
+        model = width_model[prob.widths.a]
+        own = template_of(prob)
+        label = (f"calibration_tools model_select {model} {kind} "
+                 f"{prob.blocks.n_cams}x{prob.blocks.n_ims}")
+        held = {own: {}}
+        extras_parity(held, label, own, held_prob)
+        rec = {k: max(r[k] for r in held[own].values())
+               for k in ("abs", "rel", "scaled")}
+        t = camera_model_times(cg, prob, own.endswith("fused"), peak_tflops)
+        rec.update({k: t[k] for k in (
+            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+            f32_floor_cases=[c for c in F32_FLOOR_CASES if label in c])
+        reg = builds.get((own, model), {})
+        say("calibration_tools_kernel", kernel=own, model=model,
+            a=prob.widths.a, solve=kind.replace(" ", "_"),
+            shape=label.split()[-1], real=prob.blocks.n_real,
+            free_camera_columns=int(prob.colmask.cam.sum()),
+            emptied_images=emptied or "none",
+            max_abs=f"{rec['abs']:.2e}", max_scaled=f"{rec['scaled']:.2e}",
+            kernel_ms=f"{t['kernel_ms']:.4f}",
+            bound_ms=f"{t['bound_ms']:.4f}", bound_by=t["bound_by"],
+            ms=f"{t['ms']:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
+            registers=reg.get("registers", "see [build]"),
+            spill_bytes=reg.get("spill_bytes", "see [build]"),
+            f32_floor_cases=len(rec["f32_floor_cases"]))
+        rows_out.setdefault((own, model), {"launches": {}, "recs": {}})[
+            "recs"][label] = rec
+
+    for per_camera in (False, True):
+        mode = "per_camera" if per_camera else "joint"
+        c_, d_ = sub if per_camera else (cams, det)
+        rms = {}
+        for name, dtype, ctx in dtype_runs(plain_template_grams):
+            with failures_logged() as failed, built_problems() as probs, \
+                    ctx():
+                (pick, scores), sec, peak, own, n_own = extras_call(
+                    dev, f"model_select {mode}", lambda: select_camera_model(
+                        d_, target, initial_cams=c_,
+                        candidates=DEFAULT_CANDIDATES,
+                        holdout_fraction=s["holdout"], seed=s["seed"],
+                        problem_options={"max_nfev": s["max_nfev"]},
+                        per_camera=per_camera, start="rig", device=dev,
+                        dtype=dtype), counted if name == "f32" else None,
+                    ab if name == "f32" else None)
+            by_width = ({o: {w: n for w, n in counted[o].launches_by_width
+                             .items() if n} for o in own}
+                        if name == "f32" else {})
+            score_txt = ",".join(
+                f"{sc.model}:{sc.train_rms:.5f}/{sc.holdout_rms:.5f}"
+                for sc in scores)
+            say("calibration_tools_model_select", mode=mode, dtype=name,
+                cams=len(c_), ims=s["ims"], pick=pick, wall_s=f"{sec:.3f}",
+                solves=len(probs), scores_train_holdout=score_txt,
+                peak_mib=f"{peak:.0f}",
+                **({"launches": n_own, "launches_by_width": ";".join(
+                    f"{k}:{v}" for k, v in by_width.items())}
+                   if name == "f32" else {"kernel": "plain twins"}))
+            check(not failed and [sc.model for sc in scores] == list(
+                DEFAULT_CANDIDATES) and all(
+                np.isfinite(sc.holdout_rms) and (
+                    per_camera or np.isfinite(sc.train_rms))
+                for sc in scores),
+                f"model_select {mode} {name}: failures {failed}, scores "
+                f"{scores}")
+            picks[(mode, name)] = pick
+            rms[name] = {sc.model: (sc.train_rms, sc.holdout_rms)
+                         for sc in scores}
+            if name != "f32":
+                continue
+            for wrapper, widths in by_width.items():
+                for a, n_l in widths.items():
+                    rows_out.setdefault((wrapper, width_model[a]), {
+                        "launches": {}, "recs": {}})["launches"][
+                        f"calibration_tools model_select {mode} "
+                        f"{s['cams'] if not per_camera else n_sub}x"
+                        f"{s['ims']}"] = n_l
+            trains = [p for p in probs if float(p.colmask.cam.sum()) > 0]
+            holdouts = [p for p in probs if float(p.colmask.cam.sum()) == 0]
+            for prob in (trains[:1] + holdouts[:1] if per_camera
+                         else trains + holdouts[:1]):
+                hold(prob, (f"{mode} " if per_camera else "")
+                     + ("train" if float(prob.colmask.cam.sum()) > 0
+                        else "holdout"))
+        gaps = {}
+        for m, (tr, ho) in rms["f32"].items():
+            tr64, ho64 = rms["f64"][m]
+            gaps[m] = max(abs(ho - ho64) / ho64, 0.0 if np.isnan(tr64)
+                          and np.isnan(tr) else abs(tr - tr64) / tr64)
+        check(all(g <= s["rms_rel"] for g in gaps.values()),
+              f"model_select {mode}: float32 rms against float64 (relative) "
+              f"{gaps}, bound {s['rms_rel']}")
+        say("calibration_tools_model_select_f32_vs_f64", mode=mode,
+            rms_rel_bound=s["rms_rel"],
+            **{f"{m}_rms_rel": f"{g:.2e}" for m, g in gaps.items()},
+            train_nan=",".join(m for m, (tr, _) in rms["f32"].items()
+                               if np.isnan(tr)) or "none")
+        check(picks[(mode, "f32")] == picks[(mode, "f64")],
+              f"model_select {mode}: float32 picks {picks[(mode, 'f32')]}, "
+              f"float64 {picks[(mode, 'f64')]}")
+    # the rig's rational terms are the expected winner's; the pick and the
+    # scores above are printed, not held to it (the data stays as it is)
+    say("calibration_tools_model_select_picks", inputs_s=f"{inputs_s:.1f}",
+        expected=s["expect"], as_expected=picks[("joint", "f32")] == s[
+            "expect"],
+        **{f"{m}_{n}": str(p).replace(" ", "") for (m, n), p in
+           picks.items()})
+    for (wrapper, model), r in rows_out.items():
+        if model == "standard":
+            launches[wrapper].update(r["launches"])
+            kern[wrapper].update(r["recs"])
+    return rows_out
+
+
+def wand_parity(out, label, prob):
+    """The two free-point wrappers on the wand problem's own tensors at its
+    start and moved off it (``freepoint_inputs``), four losses, against
+    their float64 twins (``freepoint_parity``), recorded in ``out``."""
+    import torch
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    n_cams, n_ims = prob.blocks.n_cams, prob.blocks.n_ims
+    moved = freepoint_inputs(prob)
+    start = (torch.repeat_interleave(prob.x0.cam, n_ims, dim=0),
+             prob.x0.key, *moved[2:])
+    for tag, f32 in ((label, start), (f"{label} moved", moved)):
+        for loss, sem in LOSS_CASES:
+            kw = dict(loss=loss, f_scale=2.0, loss_semantics=sem)
+            res = freepoint_parities(sg, f32, n_cams, n_ims, **kw)
+            say("parity_calibration_tools", case=tag.replace(" ", "_"),
+                loss=loss, semantics=sem, tol=TOL,
+                **{f"{'D' if n == 'freepoint_gram' else 'C'}_max_abs":
+                   f"{max(max_abs_errors(g, r)):.2e}"
+                   for n, (g, r, _) in res.items()},
+                **{f"{'D' if n == 'freepoint_gram' else 'C'}_{k}":
+                   f"{v:.2e}" for n, (_, _, sc) in res.items()
+                   for k, v in sc.items()})
+            for name, (got, ref, scaled) in res.items():
+                record(out, name, tag, freepoint_parity(
+                    sg, f"{name} {tag} {loss}/{sem}", f32, n_cams, n_ims,
+                    got, ref, scaled, **kw))
+            del res
+            torch.cuda.empty_cache()
+    return start
+
+
+def moved_rig(cams, deg: float, shift: float, seed: int):
+    """A copy of the rig with each camera turned by ``deg`` about a random
+    axis and shifted ``shift`` m along a random direction (rng(seed))."""
+    import copy
+    from pycamset_tpu_torch.utils.general_utils import make_4x4h_tform
+    rng = np.random.default_rng(seed)
+    out = copy.deepcopy(cams)
+    for n in out.get_names():
+        axis, step = rng.normal(size=3), rng.normal(size=3)
+        d = make_4x4h_tform(axis / np.linalg.norm(axis) * np.deg2rad(deg),
+                            step / np.linalg.norm(step) * shift)
+        out[n].set_extrinsic(d @ out[n].extrinsic)
+    return out
+
+
+def rig_errors(solved, truth) -> tuple[float, float]:
+    """Largest camera-centre (m) and rotation (rad) error of ``solved``
+    (camera 0's frame) against ``truth`` re-expressed in its camera 0's."""
+    names = truth.get_names()
+    e0_inv = np.linalg.inv(truth[names[0]].extrinsic)
+    centre = rot = 0.0
+    for n in names:
+        es, et = solved[n].extrinsic, truth[n].extrinsic @ e0_inv
+        cs = -es[:3, :3].T @ es[:3, 3]
+        ct = -et[:3, :3].T @ et[:3, 3]
+        centre = max(centre, float(np.linalg.norm(cs - ct)))
+        dr = es[:3, :3] @ et[:3, :3].T
+        rot = max(rot, float(np.arccos(np.clip((np.trace(dr) - 1) / 2,
+                                               -1.0, 1.0))))
+    return centre, rot
+
+
+def tools_wand(dev, counted, fp_kern, launches) -> tuple[dict, object]:
+    """calibrate_extrinsics_from_wand(start="rig") on TOOLS_WAND's capture:
+    the free-point wrapper the padding rule takes on the one-image grid
+    (held to its twin at the problem's start and moved off it; its time,
+    bound, key chunking and peak MiB); camera centres, rotations and rms
+    against the truth after the metric scale, float32 on the kernels
+    against float64 on the plain twins.
+
+    :return: (record, the float32 calibrated rig)."""
+    from pycamset_tpu_torch.calibration.wand import (
+        calibrate_extrinsics_from_wand)
+    from pycamset_tpu_torch.optim import cuda_selfcal_grams as sg
+    from pycamset_tpu_torch.utils.synthetic import ring_rig, wand_capture
+    w = TOOLS_WAND
+    truth = ring_rig(w["cams"], radius=w["radius"], z=w["z"], f=w["f"],
+                     dist=w["dist"])
+    t0 = time.perf_counter()
+    rows, _ = wand_capture(truth, WAND_MARKERS, w["frames"],
+                           noise=w["noise"], seed=w["seed"], drop=w["drop"])
+    capture_s = time.perf_counter() - t0
+    stored = moved_rig(truth, w["deg"], w["shift"], w["seed"])
+    fp = ("freepoint_gram", "freepoint_gram_fused")
+    solved, rec = {}, {}
+    for name, dtype, ctx in dtype_runs(plain_freepoint_grams):
+        with built_problems() as probs, ctx():
+            run = (lambda: calibrate_extrinsics_from_wand(
+                stored, rows, WAND_MARKERS, start="rig", device=dev,
+                dtype=dtype))
+            (cams, rep), sec, peak, own, n = extras_call(
+                dev, "wand", run, counted if name == "f32" else None,
+                fp if name == "f32" else None)
+        centre, rot = rig_errors(cams, truth)
+        check(centre <= w["centre_m"] and rot <= w["rot_rad"]
+              and rep["rms_px"] <= w["rms_of_noise"] * w["noise"]
+              and rep["scale_from"] == "wand_template",
+              f"wand {name}: centres {centre} m, rotations {rot} rad, rms "
+              f"{rep['rms_px']}, scale from {rep['scale_from']}")
+        fields = {}
+        if name == "f32":
+            prob = probs[-1]
+            check(len(own) == 1, f"wand: wrappers {n}")
+            own = own[0]
+            label = f"calibration_tools wand {w['cams']}x{w['frames']}"
+            launches[own][label] = n[own]
+            f32 = wand_parity(fp_kern, label, prob)
+            t = freepoint_times(sg, own, prob, f32)
+            fp_kern[own][label].update(
+                {k: t[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                   "bound_ms", "bound_by")}, peak_mib=peak)
+            # the key chunking of the kernel the wrapper borrows
+            mask = f32[3]
+            chunk = (sg.SELFCAL_CHUNK if own == "freepoint_gram_fused"
+                     else sg.SELFCAL_CHUNK_D)
+            k_pad, n_tiles, n_chunks = sg._grid_dims(
+                mask, prob.blocks.n_ims if own == "freepoint_gram_fused"
+                else mask.shape[0], chunk)
+            fields = dict(kernel=own, launches=n[own],
+                          blocks=prob.mask.shape[0], keys=prob.blocks.n_keys,
+                          im_grid=prob.blocks.n_ims, k_pad=k_pad,
+                          chunk=chunk, key_tiles=n_tiles, chunks=n_chunks,
+                          passes=",".join(f"{p}:{ms:.4f}" for p, ms in
+                                          t["passes"].items()),
+                          wrapper_peak_mib=f"{t['peak_mib']:.1f}",
+                          **{k: f"{t[k]:.4f}" for k in (
+                              "kernel_ms", "ms", "plain_ms", "bound_ms")},
+                          bound_by=t["bound_by"])
+        say("calibration_tools_wand", dtype=name, cams=w["cams"],
+            frames=w["frames"], detections=len(rows),
+            used=rep["n_detections_used"], points=rep["n_points"],
+            wall_s=f"{sec:.3f}", rms_px=f"{rep['rms_px']:.5f}",
+            centre_err_mm=f"{centre * 1e3:.4f}",
+            rotation_err_mrad=f"{rot * 1e3:.4f}",
+            scale=f"{rep['scale_applied']:.6f}",
+            length_spread=f"{rep['wand_lengths']['relative_spread_rms']:.2e}",
+            peak_mib=f"{peak:.0f}", capture_s=f"{capture_s:.1f}", **fields)
+        solved[name] = cams
+        rec[name] = {"centre_m": centre, "rot_rad": rot}
+    gap_c, gap_r = rig_errors(solved["f32"], solved["f64"])
+    check(gap_c <= TOOLS_F64["centre_m"] and gap_r <= TOOLS_F64["rot_rad"],
+          f"wand: f32 vs f64 centres {gap_c} m, rotations {gap_r} rad")
+    say("calibration_tools_wand_f32_vs_f64", centre_mm=f"{gap_c * 1e3:.2e}",
+        rotation_mrad=f"{gap_r * 1e3:.2e}")
+    rec["f32_vs_f64"] = {"centre_m": gap_c, "rot_rad": gap_r}
+    return rec, solved["f32"]
+
+
+def tools_interop(cams) -> dict:
+    """The wand's calibrated rig through export_colmap / import_colmap,
+    export_nerf and write_to_txt (MVSNet), each read back and held to the
+    JAX tests' tolerances (tests/test_interop.py: intrinsics and
+    distortion np.allclose, extrinsics 1e-12)."""
+    import json
+    import tempfile
+    from pathlib import Path
+
+    from pycamset_tpu_torch.reconstruction.acmmp_utils import ReconParams
+    from pycamset_tpu_torch.utils.interop import (_CV_TO_GL, export_colmap,
+                                                  export_nerf, import_colmap)
+    names = cams.get_names()
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        back = import_colmap(export_colmap(cams, d / "colmap"))
+        check(back.get_names() == names, f"interop: COLMAP names "
+                                         f"{back.get_names()}")
+        for n in names:
+            check(np.allclose(back[n].intrinsic, cams[n].intrinsic)
+                  and np.allclose(np.ravel(back[n].distortion_coefs),
+                                  np.ravel(cams[n].distortion_coefs))
+                  and np.allclose(back[n].extrinsic, cams[n].extrinsic,
+                                  atol=1e-12)
+                  and list(back[n].res) == list(cams[n].res),
+                  f"interop: COLMAP round trip of {n}")
+        doc = json.loads(export_nerf(cams, d / "transforms.json").read_text())
+        for n, frame in zip(names, doc["frames"]):
+            c2w = np.asarray(frame["transform_matrix"]) @ np.linalg.inv(
+                _CV_TO_GL)
+            check(np.allclose(np.linalg.inv(c2w), cams[n].extrinsic,
+                              atol=1e-12)
+                  and frame["fl_x"] == cams[n].intrinsic[0, 0],
+                  f"interop: NeRF frame of {n}")
+        (d / "mvs" / "cams").mkdir(parents=True)
+        cams.write_to_txt(d / "mvs" / "cams", ReconParams())
+        for i, n in enumerate(names):
+            lines = (d / "mvs" / "cams" / f"{i:08}_cam.txt").read_text(
+            ).splitlines()
+            ext = np.array([[float(v) for v in ln.split()]
+                            for ln in lines[1:5]])
+            check(np.array_equal(ext, cams[n].extrinsic),
+                  f"interop: MVSNet extrinsic of {n}")
+        pairs = (d / "mvs" / "pair.txt").read_text().splitlines()
+        check(int(pairs[0]) == len(names), "interop: pair.txt")
+    say("calibration_tools_interop", cams=len(names), colmap="round trip",
+        nerf_frames=len(doc["frames"]), mvsnet_cams=len(names),
+        model=doc["camera_model"])
+    return {"cams": len(names)}
+
+
+def fold_model_rows(rows: dict, tool_rows: dict):
+    """``tools_model_select``'s records of the other camera models into
+    their rows of the kernels line (``phase_camera_models``' records):
+    the worst errors, the float32-floor cases, the launches by solve and
+    the new shape's times."""
+    for (wrapper, model), r in tool_rows.items():
+        if model == "standard":
+            continue
+        row = rows[(wrapper, model)]
+        row.setdefault("launches_by_solve", {}).update(r["launches"])
+        for label, rec in r["recs"].items():
+            for k in ("abs", "rel", "scaled"):
+                row[k] = max(row[k], rec[k])
+            row["f32_floor_cases"] = (list(row["f32_floor_cases"])
+                                      + rec["f32_floor_cases"])
+        row.setdefault("calibration_tools", {}).update(
+            tools_times(r["recs"]))
+
+
+def tools_times(recs: dict) -> dict:
+    """The [calibration_tools] shapes' times of a kernel's records."""
+    return {label: {k: r[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                      "bound_ms", "bound_by")}
+            for label, r in recs.items()
+            if label.startswith("calibration_tools") and "kernel_ms" in r}
+
+
+def phase_calibration_tools(dev, counted, kern, fp_kern, launches, builds,
+                            peak_tflops) -> dict:
+    """[calibration_tools]: target poses on a fixed rig, camera-model
+    selection, the wand's extrinsics and rig interop on the card (each
+    part timed)."""
+    import torch
+    t_phase = time.perf_counter()
+    rec, parts = {}, {}
+    wand_cams = []
+    for name, run in (
+            ("find_target", lambda: tools_find_target(
+                dev, counted, kern, launches, peak_tflops)),
+            ("model_select", lambda: tools_model_select(
+                dev, counted, kern, launches, builds, peak_tflops)),
+            ("wand", lambda: wand_cams.append(tools_wand(
+                dev, counted, fp_kern, launches)) or wand_cams[-1][0]),
+            ("interop", lambda: tools_interop(wand_cams[-1][1]))):
+        t0 = time.perf_counter()
+        rec[name] = run()
+        parts[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["seconds"] = round(time.perf_counter() - t_phase, 1)
+    say("calibration_tools_seconds",
+        **{k: f"{v:.1f}" for k, v in parts.items()}, total=rec["seconds"])
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7958,6 +8605,15 @@ def main() -> int:
     say("elapsed", after="calibration_extras",
         seconds=f"{time.perf_counter() - t_start:.1f}",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tools = phase_calibration_tools(dev, counted, kern, fp_kern, launches,
+                                    builds, peak_rec["tflops"])
+    fold_model_rows(models["kernels"], tools["model_select"])
+    say("elapsed", after="calibration_tools",
+        seconds=f"{time.perf_counter() - t_start:.1f}",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
     for name, by_solve in mixed_launches.items():
         launches[name].update(by_solve)
     for phase, recs in (("multi_target_handlers", multi),
@@ -8027,7 +8683,9 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "kernel_ms": rec["kernel_ms"], "bmm_ms": rec["bmm_ms"],
-            "shape": shape, "card": smi, **extra})
+            "shape": shape, "card": smi, **extra,
+            **({"calibration_tools": tools_times(kern[name])}
+               if tools_times(kern[name]) else {})})
     for name, (source, replaces, shape) in FREEPOINT_KERNELS.items():
         rec = fp_kern[name][shape]
         bound_ms, bound_by = freepoint_bound(name, fp_probs[shape])
@@ -8053,12 +8711,14 @@ def main() -> int:
             "kernel_ms": rec["kernel_ms"], "peak_mib": rec["peak_mib"],
             "kernel_ms_other_shape": {
                 s: r["kernel_ms"] for s, r in fp_kern[name].items()
-                if s != shape},
+                if s != shape and "kernel_ms" in r},
             **({"fleet_mixed_models": mixed_fleets(name)}
                if mixed_fleets(name) else {}),
             "wrapper_over": ("selfcal_gram_fused (Kernel C)"
                              if name.endswith("fused")
                              else "selfcal_gram (Kernel D)"),
+            **({"calibration_tools": tools_times(fp_kern[name])}
+               if tools_times(fp_kern[name]) else {}),
             "shape": shape, "card": smi})
     for (name, model), rec in models["kernels"].items():
         source, replaces, _ = KERNELS[name]
@@ -8076,6 +8736,8 @@ def main() -> int:
             "camera_width": MODEL_WIDTH[model],
             "registers": rec["registers"], "spill_bytes": rec["spill_bytes"],
             "solve_ms_median": rec["solve_ms_median"],
+            **({"calibration_tools": rec["calibration_tools"]}
+               if "calibration_tools" in rec else {}),
             "shape": f"{model} {rec['shape']}", "card": smi})
     for (name, model), rec in sc_models.items():
         source, replaces, _ = {**KERNELS, **FREEPOINT_KERNELS}[name]
@@ -8187,6 +8849,27 @@ def main() -> int:
     return 0
 
 
+def tools_alone() -> int:
+    """``--calibration-tools``: the build, then ``[calibration_tools]``
+    alone (a quick check of that phase on a card; the smoke proper runs it
+    after every other phase)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    phase_device()
+    builds = phase_build()
+    kern = {name: {} for name in KERNELS}
+    fp_kern = {name: {} for name in FREEPOINT_KERNELS}
+    launches = {name: {} for name in {**KERNELS, **FREEPOINT_KERNELS}}
+    phase_calibration_tools(torch.device("cuda", 0), wrappers(), kern,
+                            fp_kern, launches, builds,
+                            FP32_FLOP_PER_S / 1e12)
+    say("calibration_tools_launches",
+        **{k: v for k, v in launches.items() if v})
+    return 0
+
+
 def extras_alone() -> int:
     """``--calibration-extras``: the build, then ``[calibration_extras]``
     alone (a quick check of that phase on a card; the smoke proper runs it
@@ -8211,4 +8894,6 @@ if __name__ == "__main__":
         sys.exit(export_serving_artifact(sys.argv[2]))
     if sys.argv[1:2] == ["--calibration-extras"]:
         sys.exit(extras_alone())
+    if sys.argv[1:2] == ["--calibration-tools"]:
+        sys.exit(tools_alone())
     sys.exit(main())

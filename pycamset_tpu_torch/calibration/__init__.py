@@ -2,8 +2,9 @@
 (``camera_calibrator.py``) and the calibration extras, each under the
 module name of ``pycamset_tpu/calibration/``: temporal synchronisation
 (``sync``), rig health and partial recalibration (``monitor``), hand-eye
-calibration (``handeye``), lens-model conversion (``convert``) and the rig
-planner (``plan``). Their functions are exported here by name, each
+calibration (``handeye``), lens-model conversion (``convert``), the rig
+planner (``plan``), camera-model selection (``model_select``) and the
+wand's extrinsic calibration (``wand``). Their functions are exported here by name, each
 module imported on first use."""
 
 _LAZY = {
@@ -16,6 +17,12 @@ _LAZY = {
     "convert": ("convert_camera_model", "convert_camera_set"),
     "plan": ("format_plan_report", "plan_calibration",
              "synthesize_detections", "workspace_center"),
+    "model_select": ("DEFAULT_CANDIDATES", "ModelScore", "pick_model",
+                     "pick_model_per_camera", "score_camera_model",
+                     "select_camera_model", "split_detection_images",
+                     "subset_ims"),
+    "wand": ("calibrate_extrinsics_from_wand",
+             "register_cameras_incremental"),
 }
 _MODULE_OF = {name: mod for mod, names in _LAZY.items() for name in names}
 

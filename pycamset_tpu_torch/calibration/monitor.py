@@ -23,7 +23,7 @@ The solve's start (``start``): ``"pnp"`` is the JAX package's, the handler's
 PnP relative-pose seed (OpenCV, on the host); ``"rig"`` needs no OpenCV
 (the card's machine has none): the free blocks start at the stored rig's
 values and the target poses at the port's tracker on the stored rig
-(device seeding).
+(device seeding; ``optim/handlers.py::rig_start``).
 """
 from __future__ import annotations
 
@@ -193,45 +193,14 @@ def _model_of(camset):
     return of_width[infer_shared_n_dist(dl)]
 
 
-def _rig_start(handler, camset, detection, target, device, dtype):
-    """Seed ``handler`` with no OpenCV: the free intrinsic and extrinsic
-    blocks at the stored rig's values, the target poses from the port's
-    tracker on the stored rig (device seeding); frames it cannot place
-    (under 3 detections, or a non-finite pose) leave the problem."""
-    from pycamset_tpu_torch.tracking import TargetTracker
-    from pycamset_tpu_torch.utils.general_utils import ext_4x4_to_rod
-
-    poses, info = TargetTracker(camset, target, device=device,
-                                dtype=dtype).track_batch(
-        detection, seed_mode="device")
-    prim = handler.bundlePrimitive
-    for idc, name in enumerate(handler.cam_names):
-        if prim.intr_unfixed[idc]:
-            prim.intr[idc] = handler._intr_seed_row(idc, camset[name])
-        if prim.extr_unfixed[idc]:
-            prim.extr[idc] = np.concatenate(
-                ext_4x4_to_rod(camset[name].extrinsic))
-    n_poses = prim.poses.shape[0]
-    found = np.zeros(n_poses, dtype=bool)
-    n = min(n_poses, len(poses))
-    found[:n] = (np.isfinite(poses[:n].reshape(n, -1)).all(axis=1)
-                 & (np.asarray(info["n_used"][:n]) >= 3))
-    for i in range(n_poses):
-        if prim.poses_unfixed[i]:
-            pose = poses[i] if found[i] else np.eye(4)
-            prim.poses[i, :6] = np.concatenate(ext_4x4_to_rod(pose))
-    handler.missing_poses = ~found
-    handler.set_initial_params(handler.add_extra_params(
-        prim.base_full()[prim.unfixed_full()]))
-
-
 def _recalibrate(camset, detection, target, refresh, free: str,
                  options: dict | None, start: str, device, dtype):
     """Shared core of the partial recalibrations: a template BA where
     everything is pinned through ``fixed_params`` except the ``free``
     block ("ext" or "int") of the ``refresh`` cameras."""
     from pycamset_tpu_torch.optim.driver import run_bundle_adjustment
-    from pycamset_tpu_torch.optim.handlers import TemplateBundleHandler
+    from pycamset_tpu_torch.optim.handlers import (TemplateBundleHandler,
+                                                   rig_start)
 
     names = camset.get_names()
     unknown = [n for n in refresh if n not in names]
@@ -266,7 +235,7 @@ def _recalibrate(camset, detection, target, refresh, free: str,
     handler = TemplateBundleHandler(camset, target, detection,
                                     fixed_params=fixed, options=opts)
     if start == "rig":
-        _rig_start(handler, camset, detection, target, device, dtype)
+        rig_start(handler, camset, detection, target, device, dtype)
     res, new_cams = run_bundle_adjustment(handler, dtype=dtype,
                                           device=device)
     rms = float(np.sqrt(np.mean(

@@ -4,12 +4,14 @@ Counterpart of the state and device parts of ``pycamset_tpu/models/camera.py``
 (``:74-237``): the state (extrinsic 4x4, intrinsic 3x3, distortion, res,
 name), the state derived from it on update (cam_to_world, position, view
 and up vectors, fov, the 3x4 projection, the optional sensor map),
-``project_points``, ``undistort_points``, ``im_to_world_ray`` and the image
-``undistort``. The distortion's width names the camera model
-(``ops/distortion.py``): 5 standard, 8 rational, 12 thin-prism, 14 tilted,
-4 fisheye (the 4-wide vector is the fisheye marker: even zeros mean the
-equidistant mapping). Plots, meshes and intrinsic editing wait for ROADMAP
-Queue A item 10.
+``project_points``, ``undistort_points``, ``can_image``,
+``im_to_world_ray``, the image ``undistort``, the intrinsic edits
+(``scale_self_2n``, ``crop_to_roi``, ``reset_to_original_params``), the
+rig transform (``transform``) and the MVSNet export (``to_MVSnet_txt``).
+The distortion's width names the camera model (``ops/distortion.py``): 5
+standard, 8 rational, 12 thin-prism, 14 tilted, 4 fisheye (the 4-wide
+vector is the fisheye marker: even zeros mean the equidistant mapping).
+Plots and meshes wait for ROADMAP Queue A item 10.
 
 Projection and undistortion run through the port's torch ops on
 ``device`` (the card unless the caller names another; dtype as
@@ -24,6 +26,7 @@ from __future__ import annotations
 import logging
 import math
 from copy import deepcopy
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -139,9 +142,16 @@ class Camera:
         focal_px = self.intrinsic[0, 0]
         self.focal_point = (self.position
                             + FOCAL_MARKER_PER_KPX * focal_px * self.view)
-        self.fov = math.degrees(
-            2.0 * np.arctan2(self.res[1] / 2, self.intrinsic[0, 0]))
-        self.proj = self.intrinsic @ self.extrinsic[:3]
+        self.fov = self._cam_fov()
+        self.proj = self._calc_projection_matrix()
+
+    def _cam_fov(self):
+        half_height = self.res[1] / 2
+        return math.degrees(2.0 * np.arctan2(half_height,
+                                             self.intrinsic[0, 0]))
+
+    def _calc_projection_matrix(self):
+        return self.intrinsic @ self.extrinsic[:3]
 
     def set_extrinsic(self, new_extrinsic):
         self.extrinsic = np.asarray(new_extrinsic, dtype=float)
@@ -149,6 +159,11 @@ class Camera:
 
     def set_distortion_coefs(self, dist_coefs):
         self.distortion_coefs = np.ravel(np.asarray(dist_coefs, dtype=float))
+        self._update_state()
+
+    def set_minimal(self, minimal: bool):
+        self.minimal = bool(minimal)
+        self.sensor_map = self.world_sensor_map = None
         self._update_state()
 
     # ----------------------------------------------------------- projection
@@ -177,6 +192,17 @@ class Camera:
             lambda p, k, d: undistort_pixels(p, k, d, iters=iters),
             (uv, self.intrinsic, np.ravel(self.distortion_coefs)),
             device, dtype)
+
+    def _is_in_image(self, cords) -> bool:
+        uv = np.ravel(np.asarray(cords))
+        wh = np.asarray(self.res, dtype=float)
+        return bool(np.all((uv > 0) & (uv < wh)))
+
+    def can_image(self, pt, device="cuda", dtype=None) -> bool:
+        """True if a world point projects inside the image bounds (the
+        projection on ``device``)."""
+        return self._is_in_image(self.project_points(
+            np.asarray(pt)[None], device=device, dtype=dtype))
 
     # ------------------------------------------------------------ ray casts
 
@@ -224,3 +250,57 @@ class Camera:
             return cv2.fisheye.undistortImage(
                 image, self.intrinsic, dist, Knew=self.intrinsic)
         return cv2.undistort(image, self.intrinsic, dist)
+
+    # ------------------------------------------------------ intrinsic edits
+
+    def scale_self_2n(self, down_scale_factor: int = 1):
+        """Downscale the intrinsics by a power of two."""
+        self.down_scale_factor = down_scale_factor
+        shrink = 0.5 ** down_scale_factor
+        # averaging 1/shrink pixels moves the pixel-centre origin: the new
+        # principal point picks up a (shrink/2 - 1/2) px offset
+        centre_shift = (shrink - 1.0) / 2.0
+        rescale = np.diag([shrink, shrink, 1.0])
+        rescale[:2, 2] = centre_shift
+        self.res = [int(n * shrink) for n in self.res]
+        self.intrinsic = rescale @ self.intrinsic
+        self._update_state()
+
+    def crop_to_roi(self, roi):
+        """Alter intrinsics to mimic a cropped sensor.
+        roi=[ymin,xmin,xmax,ymax]."""
+        ymin, xmin, xmax, ymax = roi
+        if xmax > self.res[0] or ymax > self.res[1]:
+            raise ValueError("crop bounds outside of camera viewpoint")
+        self.intrinsic = self.intrinsic.copy()
+        self.intrinsic[0, 2] -= xmin
+        self.intrinsic[1, 2] -= ymin
+        self._update_state()
+
+    def reset_to_original_params(self):
+        self.intrinsic = np.asarray(self.original_matrix)
+        self._update_state()
+
+    def transform(self, transformation_matrix):
+        """Post-multiply the extrinsic by a 4x4 homogeneous transform."""
+        self.set_extrinsic(self.extrinsic @ np.asarray(transformation_matrix))
+
+    # -------------------------------------------------------------- exports
+
+    def to_MVSnet_txt(self, f_loc: Path, depth_range: tuple[float, float],
+                      depth_steps: int, crop=None) -> None:
+        """Write the camera to the MVSNet cam.txt format."""
+        k = self.intrinsic.copy()
+        if crop is not None:
+            k[0, 2] -= crop[1, 0]
+            k[1, 2] -= crop[0, 0]
+        near, far = depth_range
+        step = (far - near) / depth_steps
+
+        def block(mat):
+            return "\n".join(" ".join(str(v) for v in row) for row in mat)
+
+        text = (f"extrinsic\n{block(self.extrinsic)}\n\n"
+                f"intrinsic\n{block(k)}\n\n"
+                f"{near} {step} {depth_steps} {far}\n")
+        Path(f_loc).write_text(text)

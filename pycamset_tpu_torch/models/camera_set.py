@@ -1,22 +1,25 @@
 """CameraSet: an ordered collection of Cameras with calibration utilities.
 
 Counterpart of ``pycamset_tpu/models/camera_set.py``: ``make_cam_dict``,
-dict / list / slice / name indexing, subsets, iteration, equality,
-``project_points_to_all_cams``, ``multi_cam_triangulate``, ``save``,
-``set_resolutions_from_file``, the calibration history and its
-``calibration_uncertainty``, ``essential_matrix`` and
-``fundamental_matrix``.
+dict / list / slice / name indexing, subsets, iteration, equality, merging
+(``+``), ``project_points_to_all_cams``, ``multi_cam_triangulate``,
+``save``, ``set_resolutions_from_file``, the rig transforms
+(``scale_set_2n``, ``transform``, ``set_reference_cam``), the calibration
+history with its ``calibration_uncertainty`` and
+``get_calibration_points``, ``essential_matrix``, ``fundamental_matrix``,
+``get_similar_angles`` and the MVSNet export (``write_to_txt``).
 Triangulation runs through the port's batched DLT
 (``ops/triangulation.py``) on ``device``, the card unless the caller names
 another, with each camera's distortion at its model's width (4, 5, 8, 12 or
 14; narrower Brown vectors zero-padded to the widest, ``stack_cam_dists``);
 a rig mixing fisheye and Brown cameras undistorts through heterogeneous
-``[sel | coefs]`` rows, as the JAX package does. Plots, scene export, the
-calibration diagnostics' plots and rig transforms wait for item 10.
+``[sel | coefs]`` rows, as the JAX package does. Plots, scene meshes and
+the calibration diagnostics' plots wait for ROADMAP Queue A item 10.
 """
 from __future__ import annotations
 
 import numbers
+from copy import deepcopy
 from pathlib import Path
 
 import numpy as np
@@ -166,6 +169,16 @@ class CameraSet:
             return False
         return all(self[c] == other[c] for c in self.get_names())
 
+    def __add__(self, other: "CameraSet") -> "CameraSet":
+        if not isinstance(other, CameraSet):
+            raise ValueError("Can only add together camera sets")
+        if self._cam_dict.keys() & other._cam_dict.keys():
+            raise ValueError(
+                "Camera sets share camera names so cannot be added")
+        self._cam_dict.update(other._cam_dict)
+        self._update()
+        return self
+
     # ------------------------------------------------------------ projection
 
     def project_points_to_all_cams(self, points, distort=True,
@@ -295,6 +308,24 @@ class CameraSet:
             h, w = cv2.imread(str(first)).shape[:2]
             self[name].res = np.array((w, h))
 
+    def scale_set_2n(self, d_factor):
+        for cam in self:
+            cam.scale_self_2n(d_factor)
+
+    def transform(self, transformation_matrix, in_place=True):
+        """Transform all cameras by a 4x4 homogeneous matrix."""
+        if not in_place:
+            moved = deepcopy(self)
+            moved.transform(transformation_matrix)
+            return moved
+        for cam in self:
+            cam.transform(transformation_matrix)
+        return None
+
+    def set_reference_cam(self, cam_id):
+        """Re-centre world coordinates on a reference camera."""
+        self.transform(np.linalg.inv(self[cam_id].extrinsic))
+
     def set_calibration_history(self, optimisation_results, param_handler):
         """Attach the optimisation outputs so the set can be re-derived."""
         self.calibration_params = optimisation_results["x"]
@@ -310,6 +341,35 @@ class CameraSet:
         from pycamset_tpu_torch.optim.uncertainty import (
             calibration_uncertainty)
         return calibration_uncertainty(self, device=device)
+
+    def get_calibration_points(self, device="cuda"):
+        """Triangulate the calibration features (on ``device``, the card
+        unless the caller names another), masking target-space
+        outliers."""
+        if self.calibration_handler is None:
+            raise ValueError("No calibration history was found")
+        detection = self.calibration_handler.get_detection()
+        to_reconstruct = detection.sort(["key", "im_num"]).get_data()
+        _, poses = self.calibration_handler.get_camset(
+            self.calibration_params, return_pose=True)
+
+        reconstructed, recon_subset, _, _ = self.multi_cam_triangulate(
+            to_reconstruct, return_used=True, device=device)
+
+        group_starts = np.sort(np.unique(
+            recon_subset[:, 1:-2], axis=0, return_index=True)[1])
+        group_im = recon_subset[group_starts, 1].astype(int)
+
+        # pull each point into its image's target frame; anything further
+        # than 3x the model's own mean radius is a triangulation outlier
+        model_radius = np.mean(np.linalg.norm(
+            self.calibration_handler.target.point_data, axis=-1))
+        pose_rt = np.asarray(poses)[group_im].reshape(-1, 3, 4)
+        in_target = np.einsum("nij,nj->ni",
+                              pose_rt[:, :, :3].transpose(0, 2, 1),
+                              reconstructed - pose_rt[:, :, 3])
+        keep = np.linalg.norm(in_target, axis=-1) < 3 * model_radius
+        return reconstructed[keep]
 
     # ------------------------------------------------------- two-view geometry
 
@@ -332,3 +392,47 @@ class CameraSet:
         f = np.linalg.inv(kb).T @ e @ np.linalg.inv(ka)
         scale = np.abs(f).max()
         return f / scale if scale > 0 else f
+
+    def get_similar_angles(self, test_cam_num, n):
+        """Indices of the n cameras with the closest view direction."""
+        gaze = np.array([cam.extrinsic[:3, 2] for cam in self])
+        gaze /= np.linalg.norm(gaze, axis=1, keepdims=True)
+        separation = np.arccos(np.clip(gaze @ gaze[test_cam_num], -1, 1))
+        separation[test_cam_num] = np.inf  # never "similar" to itself
+        return np.argsort(separation)[:n]
+
+    # ----------------------------------------------------------------- export
+
+    def write_to_txt(self, loc: Path, r, ims=None, mode="MVSnet", crop=None,
+                     use_closest_cams=True):
+        """Write the rig in MVSNet format: per-cam txts, images (undistorted
+        and written by OpenCV, on the host) and pair.txt."""
+        from pycamset_tpu_torch.reconstruction.acmmp_utils import (
+            calc_pairs, write_pair_file)
+        if mode != "MVSnet":
+            raise NotImplementedError
+        crop = crop or {}
+        for cam_n, cam in enumerate(self):
+            cam.to_MVSnet_txt(loc / f"{cam_n:08}_cam.txt",
+                              (r.mindist, r.maxdist), r.steps,
+                              crop.get(cam.name, None))
+
+        if ims is not None:
+            cv2 = require_cv2("CameraSet.write_to_txt's images",
+                              "pass ims=None to write the cameras alone")
+            im_dir = loc.parent / "images"
+            im_dir.mkdir(exist_ok=True)
+            for idx, raw in enumerate(ims):
+                cam = self[idx]
+                frame = cam.undistort(raw)
+                window = crop.get(cam.name, None)
+                if window is not None:
+                    (r0, r1), (c0, c1) = window
+                    frame = frame[r0:r1, c0:c1]
+                cv2.imwrite(str(im_dir / f"{idx:08}.jpg"), frame,
+                            [cv2.IMWRITE_JPEG_QUALITY, 100])
+
+        view_dirs = np.array([cam.view for cam in self])
+        pairs = calc_pairs(view_dirs, r, pick_closest=use_closest_cams)
+        with open(loc.parent / "pair.txt", "w") as f:
+            write_pair_file(f, pairs)

@@ -42,8 +42,11 @@ take one model a rig. The PnP seed
 without cv2 it raises ``ImportError`` and ``set_initial_params(x0)`` seeds
 the handler instead (the path a card's machine takes). Its Rodrigues
 conversions go through cv2 too, so the seed is the JAX package's bit for
-bit. The self-calibration handler seeds through PnP as the template one
-does, or, on a card's machine, from a template solve
+bit. ``rig_start`` seeds a handler with no OpenCV (the ``start="rig"``
+of the recalibrations, the fixed-rig pose solve and model selection):
+the stored rig's values and the port's tracker's poses, re-expressed in
+the handler's gauge. The self-calibration handler seeds through PnP as the
+template one does, or, on a card's machine, from a template solve
 (``set_from_templated_camset``); the free-point handler needs no OpenCV.
 ``RSTemplateBundleHandler`` (JAX ``handlers.py:655-800``) calibrates a
 rolling-shutter rig: per-image [pose | velocity] rows, a per-camera
@@ -1371,3 +1374,82 @@ def estimate_camera_relative_poses(
 
     mat_rt[ref_pose] = np.eye(4)
     return mrt_ac, mat_rt, per_im_error, pose_found
+
+
+# ------------------------------------------------------ the OpenCV-free start
+
+def _rig_gauge(handler, camset, poses, found):
+    """The 4x4 W taking the handler's world frame to the stored rig's (a
+    point X of the handler's frame is W X in the stored one), or None where
+    the two are one frame. A camera whose extrinsic the handler fixes
+    decides (the first such camera: W = stored^-1 fixed, None where the
+    fixed extrinsic is the stored one); else the handler's fixed target
+    pose (``fixed_pose``: W = the tracker's pose of that image); else
+    None."""
+    for name in handler.cam_names:
+        fixed = handler.fixed_params.get(name, {}).get("ext")
+        if fixed is None:
+            continue
+        fixed = np.asarray(fixed, dtype=float)
+        if fixed.shape != (4, 4):
+            fixed = gu.make_4x4h_tform(fixed[:3], fixed[3:])
+        stored = np.asarray(camset[name].extrinsic, dtype=float)
+        return (None if np.array_equal(fixed, stored)
+                else np.linalg.inv(stored) @ fixed)
+    fp = handler.problem_opts.get("fixed_pose")
+    if fp is None:
+        return None
+    if not found[fp]:
+        raise ValueError(
+            f"start='rig': the tracker could not place image {fp}, the "
+            "handler's fixed (gauge) pose; pass options={'fixed_pose': i} "
+            "naming an image the rig sees")
+    return poses[fp]
+
+
+def rig_start(handler, camset, detection, target, device, dtype,
+              poses=None):
+    """Seed ``handler`` with no OpenCV (``start="rig"``): the free
+    intrinsic and extrinsic blocks at the stored rig's values, the target
+    poses from the port's tracker on the stored rig (device seeding), or
+    ``poses`` (I, 4, 4) target -> world in the stored rig's frame where the
+    caller has them (a frame with a non-finite pose is not placed). A frame
+    the tracker cannot place (under 3 detections, or a non-finite pose)
+    leaves the problem. The rig and the poses are re-expressed in the
+    handler's gauge (``_rig_gauge``): its fixed extrinsics, or its fixed
+    target pose."""
+    n_poses = handler.bundlePrimitive.poses.shape[0]
+    if poses is None:
+        from pycamset_tpu_torch.tracking import TargetTracker
+        poses, info = TargetTracker(camset, target, device=device,
+                                    dtype=dtype).track_batch(
+            detection, seed_mode="device")
+        used = np.asarray(info["n_used"])
+    else:
+        poses = np.asarray(poses, dtype=float)
+        used = np.full(len(poses), 3)
+    found = np.zeros(n_poses, dtype=bool)
+    n = min(n_poses, len(poses))
+    found[:n] = (np.isfinite(poses[:n].reshape(n, -1)).all(axis=1)
+                 & (used[:n] >= 3))
+    world = _rig_gauge(handler, camset, poses, found)
+    prim = handler.bundlePrimitive
+    for idc, name in enumerate(handler.cam_names):
+        if prim.intr_unfixed[idc]:
+            prim.intr[idc] = handler._intr_seed_row(idc, camset[name])
+        if prim.extr_unfixed[idc]:
+            ext = np.asarray(camset[name].extrinsic, dtype=float)
+            if world is not None:
+                ext = ext @ world
+            prim.extr[idc] = np.concatenate(gu.ext_4x4_to_rod(ext))
+    to_handler = None if world is None else np.linalg.inv(world)
+    for i in range(n_poses):
+        if prim.poses_unfixed[i]:
+            pose = np.eye(4)
+            if found[i]:
+                pose = poses[i] if to_handler is None else (
+                    to_handler @ poses[i])
+            prim.poses[i, :6] = np.concatenate(gu.ext_4x4_to_rod(pose))
+    handler.missing_poses = ~found
+    handler.set_initial_params(handler.add_extra_params(
+        prim.base_full()[prim.unfixed_full()]))

@@ -13,7 +13,8 @@ generator, vectorised). The serving path's scenes: ``ring_rig``,
 along a pose path, with per-camera clock offsets and rolling-shutter
 readouts: the JAX package's ``tests/test_sync.py`` generator, vectorised)
 and ``marker_capture`` (markers on smooth paths: ``tests/test_markers.py``'s
-generator, vectorised).
+generator, vectorised); ``wand_capture`` (a waved marker wand on
+``tests/test_wand.py``'s path, vectorised).
 """
 from __future__ import annotations
 
@@ -455,6 +456,48 @@ def marker_capture(cams, n_frames: int, n_markers: int, noise: float = 0.2,
     if occlude:
         for (j, mk) in occlude:
             keep[j, 1:, mk] = False
+    jj, cc, mm = np.nonzero(keep)                       # frame, cam, marker
+    noisy = uvs[jj, cc, mm] + rng.normal(size=(len(jj), 2)) * noise
+    return np.column_stack([cc, jj, mm, noisy]).astype(float), truth
+
+
+def wand_capture(cams, wand: np.ndarray, n_frames: int, noise: float = 0.2,
+                 seed: int = 0, drop: float = 0.3, res=(1600, 1200)):
+    """A wand of markers ``wand`` (M, 3) waved through the volume on the
+    path of the JAX package's ``tests/test_wand.py::_wand_capture``
+    (frame j: translation (0.45 sin 2ph, 0.45 cos(3ph + 0.6),
+    0.35 sin(ph + 1.1)), rotation (1.8 sin(2ph + 0.3), 1.5 cos ph,
+    1.1 sin 3ph), ph = 2 pi j / n_frames). A camera misses a whole frame
+    with probability ``drop`` and keeps a marker with z > 0.1 inside
+    ``res``; then the (u, v) noise. Each camera projects every frame at
+    once and the draws come in bulk, so the rows match that test's
+    geometry, not its random stream.
+
+    :return: (rows (N, 5) [cam, frame, marker, u, v] frame-major, truth
+        (I, M, 3) world marker positions).
+    """
+    rng = np.random.default_rng(seed)
+    ph = 2 * np.pi * np.arange(n_frames) / n_frames
+    pos = np.stack([0.45 * np.sin(ph * 2), 0.45 * np.cos(ph * 3 + 0.6),
+                    0.35 * np.sin(ph + 1.1)], 1)
+    rvec = np.stack([1.8 * np.sin(ph * 2 + 0.3), 1.5 * np.cos(ph),
+                     1.1 * np.sin(ph * 3)], 1)
+    rot = np.stack([make_4x4h_tform(r, np.zeros(3))[:3, :3] for r in rvec])
+    truth = np.einsum("iab,mb->ima", rot, wand) + pos[:, None]
+    names = cams.get_names()
+    n_m = len(wand)
+    keep, uvs = [], []
+    for name in names:
+        cam = cams[name]
+        uv = np.asarray(cam.project_points(
+            truth.reshape(-1, 3), device="cpu",
+            dtype=torch.float64)).reshape(n_frames, n_m, 2)
+        z = (truth @ cam.extrinsic[:3, :3].T + cam.extrinsic[:3, 3])[..., 2]
+        keep.append((z > 0.1) & (uv[..., 0] > 0) & (uv[..., 0] < res[0])
+                    & (uv[..., 1] > 0) & (uv[..., 1] < res[1]))
+        uvs.append(uv)
+    keep, uvs = np.stack(keep, 1), np.stack(uvs, 1)     # (I, C, M)
+    keep &= (rng.uniform(size=keep.shape[:2]) >= drop)[..., None]
     jj, cc, mm = np.nonzero(keep)                       # frame, cam, marker
     noisy = uvs[jj, cc, mm] + rng.normal(size=(len(jj), 2)) * noise
     return np.column_stack([cc, jj, mm, noisy]).astype(float), truth

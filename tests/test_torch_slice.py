@@ -136,7 +136,9 @@ def test_user_path_does_not_load_the_bench():
 # PnP); then the self-calibration warm-started from it and the free-point
 # handler, each saved and loaded back; the generic and scipy backends; the
 # tracker's device-seeded batch and an init= frame, and its PnP seed
-# refused; on the CPU at a tiny size.
+# refused; target poses on the fixed rig and the wand's solve from the
+# stored rig, their PnP starts refused, a COLMAP round trip; on the CPU at
+# a tiny size.
 CARD_PATH = """
 import sys, tempfile
 sys.modules["cv2"] = None
@@ -208,6 +210,41 @@ for call in (lambda: tr.track_batch(sc["det"], seed_mode="pnp"),
         assert "seed_mode='device'" in str(err), err
     else:
         raise AssertionError("the tracker's PnP seed ran without cv2")
+# target poses on the fixed rig and the wand from the stored rig; their
+# PnP starts refused; the interop exports, model selection's split
+import pycamset_tpu_torch.calibration.model_select as ms
+import pycamset_tpu_torch.reconstruction.acmmp_utils
+from pycamset_tpu_torch.calibration.wand import calibrate_extrinsics_from_wand
+from pycamset_tpu_torch.optim.find_target import (
+    estimate_poses_with_fixed_cameras)
+from pycamset_tpu_torch.utils.interop import export_colmap, import_colmap
+from pycamset_tpu_torch.utils.synthetic import ring_rig, wand_capture
+poses, res = estimate_poses_with_fixed_cameras(
+    sc["cams"], sc["target"], sc["det"], start="rig", device="cpu")
+assert np.abs(poses - sc["true"]).max() < 2e-2 and res.status in (1, 2, 3)
+wand = np.array([[0.0, 0, 0], [0.25, 0, 0], [0.5, 0, 0]])
+rig = ring_rig(4, radius=1.6, z=0.7, f=1400.0)
+rows, _ = wand_capture(rig, wand, 40, seed=1)
+wcams, rep = calibrate_extrinsics_from_wand(rig, rows, wand, start="rig",
+                                            device="cpu")
+assert rep["rms_px"] < 0.3 and rep["scale_from"] == "wand_template", rep
+for call in (lambda: estimate_poses_with_fixed_cameras(
+                 sc["cams"], sc["target"], sc["det"], device="cpu"),
+             lambda: calibrate_extrinsics_from_wand(rig, rows, wand,
+                                                    device="cpu")):
+    try:
+        call()
+    except ImportError as err:
+        assert "start='rig'" in str(err), err
+    else:
+        raise AssertionError("a PnP start ran without cv2")
+with tempfile.TemporaryDirectory() as d:
+    back = import_colmap(export_colmap(wcams, d + "/model"))
+assert back.get_names() == wcams.get_names()
+train, hold = ms.split_detection_images(sc["det"], seed=0)
+assert train.max_ims + hold.max_ims == 6
+bad = [m for m in ("pycamset_tpu", "pycamset_tpu.config") if m in sys.modules]
+assert not bad, bad
 """
 
 
